@@ -1,0 +1,181 @@
+"""CLI entry: Show-o v1 text-to-image on PyTorch.
+
+    python -m showo_tpu_torch.inference_t2i \
+        config=configs/showo_demo_512x512.yaml mode=t2i batch_size=2
+
+Counterpart of ``showo_tpu/inference_t2i.py`` for ``mode=t2i`` (the other
+modes need the MAGVIT encoder and raise).  Weights:
+``model.showo.pretrained_model_path`` / ``model.vq_model.vq_model_name``
+are loaded when they exist locally as reference checkpoints (file or
+directory); otherwise the model is random-initialised from a fixed seed.
+The tokenizer loads from a local ``model.showo.llm_model_path`` through
+``transformers``; otherwise the deterministic
+``showo_tpu_torch.utils.fake_tokenizer`` stands in.  Prompts come from
+``validation_prompts_file`` when it exists, else from the in-tree
+``assets/validation/text2image_prompts.txt``.  Runs on CUDA in bf16 when
+a card is present, else on the CPU in fp32.  Writes one PNG per prompt
+into ``output_dir``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from showo_tpu_torch.config import get_config
+from showo_tpu_torch.models.magvit import MagvitV2, VQConfig, init_magvit
+from showo_tpu_torch.models.phi import PhiConfig
+from showo_tpu_torch.models.showo import Showo, ShowoConfig, init_showo
+from showo_tpu_torch.pipelines.t2i import T2IPipeline
+from showo_tpu_torch.prompting import UniversalPrompting
+from showo_tpu_torch.utils.convert import (load_magvit,
+                                           load_reference_weights, load_showo)
+
+logger = logging.getLogger(__name__)
+
+_ASSET_PROMPTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "validation",
+    "text2image_prompts.txt")
+
+
+def build_showo_config(config) -> ShowoConfig:
+    m = config.model.showo
+    return ShowoConfig(
+        vocab_size=m.vocab_size,
+        llm_vocab_size=m.llm_vocab_size,
+        num_new_special_tokens=m.num_new_special_tokens,
+        codebook_size=m.codebook_size,
+        num_vq_tokens=m.num_vq_tokens,
+        w_clip_vit=m.get("w_clip_vit", False),
+        llm=PhiConfig(vocab_size=m.vocab_size,
+                      attn_fp32=bool(m.get("attn_fp32", True)),
+                      # optional dim overrides for tiny e2e CLI runs
+                      **{k: int(v) for k, v in dict(m.get("phi", {})).items()}),
+    )
+
+
+def load_model(config, cfg: ShowoConfig, device, dtype) -> Showo:
+    path = config.model.showo.pretrained_model_path
+    if os.path.exists(path):
+        logger.info("loading Show-o weights from %s", path)
+        model = Showo(cfg, device=device, dtype=dtype)
+        load_showo(model, load_reference_weights(path))
+        return model.eval().requires_grad_(False)
+    logger.warning("pretrained_model_path=%s not found; random init", path)
+    return init_showo(cfg, torch.Generator(device=device).manual_seed(0),
+                      device=device, dtype=dtype)
+
+
+def load_vq(config, device) -> MagvitV2:
+    # optional dim overrides (tiny e2e CLI runs); defaults = MAGVIT-v2
+    ov = dict(config.model.vq_model.get("dims", {}))
+    vq_cfg = VQConfig(**{k: (tuple(v) if isinstance(v, (list, tuple))
+                             else int(v)) for k, v in ov.items()})
+    path = config.model.vq_model.vq_model_name
+    if os.path.exists(path):
+        logger.info("loading MAGVIT-v2 weights from %s", path)
+        vq = load_magvit(MagvitV2(vq_cfg, device=device),
+                         load_reference_weights(path))
+        return vq.eval().requires_grad_(False)
+    logger.warning("vq_model_name=%s not found; random init", path)
+    return init_magvit(vq_cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+
+
+def load_tokenizer(config):
+    path = config.model.showo.llm_model_path
+    if os.path.isdir(path):
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(path, padding_side="left",
+                                             local_files_only=True)
+    logger.warning("tokenizer %s not found locally; using FakeTokenizer",
+                   path)
+    from showo_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+
+    return FakeTokenizer()
+
+
+def build_prompting(config) -> UniversalPrompting:
+    return UniversalPrompting(
+        load_tokenizer(config),
+        max_text_len=config.dataset.preprocessing.max_seq_length)
+
+
+def load_prompts(config) -> List[str]:
+    """The non-empty lines of ``validation_prompts_file`` (top level, else
+    ``dataset.params``) when it exists, else of the in-tree prompt list."""
+    path = config.get("validation_prompts_file",
+                      config.dataset.params.get("validation_prompts_file"))
+    if not (path and os.path.exists(path)):
+        path = _ASSET_PROMPTS
+    with open(path) as f:
+        return [p for p in f.read().splitlines() if p.strip()]
+
+
+def build_pipeline(config,
+                   device: Optional[torch.device] = None) -> T2IPipeline:
+    """Config -> ready T2IPipeline (weights loaded or random-init).
+
+    device defaults to CUDA when present, else CPU.  Show-o runs in bf16
+    on CUDA (the packed kernel's type) and fp32 on the CPU; MAGVIT runs in
+    fp32, as in the JAX pipeline."""
+    if device is None:
+        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    cfg = build_showo_config(config)
+    return T2IPipeline(
+        model=load_model(config, cfg, device, dtype),
+        vq=load_vq(config, device),
+        uni_prompting=build_prompting(config),
+        guidance_scale=float(config.get("guidance_scale",
+                                        config.training.guidance_scale)),
+        timesteps=int(config.get("generation_timesteps",
+                                 config.training.generation_timesteps)),
+        mask_schedule=config.training.get("mask_schedule", "cosine"),
+        max_seq_length=config.dataset.preprocessing.max_seq_length,
+    )
+
+
+def to_pil_images(images: np.ndarray):
+    """NHWC floats in [-1, 1] -> PIL images."""
+    from PIL import Image
+
+    x = np.clip((np.asarray(images) + 1.0) / 2.0, 0.0, 1.0) * 255.0
+    return [Image.fromarray(im) for im in x.astype(np.uint8)]
+
+
+def main() -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    config = get_config()
+    mode = config.get("mode", "t2i")
+    if mode in ("inpainting", "extrapolation"):
+        raise NotImplementedError(
+            f"mode={mode} needs the MAGVIT encoder, not ported yet")
+    if mode != "t2i":
+        raise SystemExit(f"unknown mode {mode}")
+    pipe = build_pipeline(config)
+    batch_size = int(config.get("batch_size", 4))
+    generator = torch.Generator(device=pipe.device).manual_seed(
+        int(config.get("seed", 0)))
+    outdir = config.get("output_dir", "outputs")
+    os.makedirs(outdir, exist_ok=True)
+
+    prompts = load_prompts(config)
+    for step in range(0, len(prompts), batch_size):
+        chunk = prompts[step:step + batch_size]
+        images = pipe.generate(chunk, generator)
+        for i, im in enumerate(to_pil_images(images)):
+            im.save(os.path.join(outdir, f"t2i_{step + i:05d}.png"))
+        logger.info("generated %d images (step %d)", len(chunk), step)
+
+
+if __name__ == "__main__":
+    main()

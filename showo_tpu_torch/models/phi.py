@@ -1,0 +1,396 @@
+"""Phi-1.5 decoder as PyTorch modules.
+
+Counterpart of ``showo_tpu/models/phi.py``:
+  * parallel attention + MLP residual with one shared input LayerNorm;
+  * partial rotary embedding (GPT-NeoX half rotation) on the first
+    ``partial_rotary_factor * head_dim`` dims;
+  * per-head q/k LayerNorm;
+  * fp32 QK scores and softmax on the dense path;
+  * the caller's [B, 1, Q, K] additive mask flows through unchanged, or
+    span metadata routes attention to the packed omni kernel.
+
+The module tree carries the reference checkpoint's names
+(``model.layers.{i}.self_attn.q_proj`` ...), so a reference-layout state
+dict loads with ``load_state_dict``.  ``fuse_qkv`` / ``fuse_parallel_mlp``
+re-lay the weights for inference, as the JAX transforms of the same names
+do.  Layers are an ``nn.ModuleList`` walked by a Python loop (the JAX
+package scans stacked params).
+
+Per-head LayerNorm has one plain form here; the JAX package switches to a
+segment-matmul form between 400 and 4096 rows, which differs at fp32 eps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# attention routes of the JAX package that later ports will add
+_LATER_ROUTES = ("pallas", "pallas_fused", "pallas_decode",
+                 "pallas_streaming", "pallas_trainable")
+
+
+@dataclasses.dataclass(frozen=True)
+class PhiConfig:
+    vocab_size: int = 58498
+    hidden_size: int = 2048
+    intermediate_size: int = 8192
+    num_layers: int = 24
+    num_heads: int = 32
+    partial_rotary_factor: float = 0.5
+    rope_theta: float = 10000.0
+    layer_norm_eps: float = 1e-5
+    max_position_embeddings: int = 2048
+    # fp32 QK/softmax on the dense path (reference parity); False keeps
+    # the scores in the activation dtype
+    attn_fp32: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def rotary_dim(self) -> int:
+        return int(self.partial_rotary_factor * self.head_dim)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode cache.  k/v: [L, B, S_max, H, Dh]; ``length`` is the number
+    of valid positions.  Updated in place by a forward that writes to it
+    (the JAX package returns a new cache instead)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @classmethod
+    def zeros(cls, cfg: PhiConfig, batch: int, max_len: int,
+              dtype=torch.float32, device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm computed in fp32, returned in x's dtype."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(x.dtype)
+
+
+def head_layer_norm(x: torch.Tensor, norm: nn.LayerNorm,
+                    head_dim: int) -> torch.Tensor:
+    """Per-head LayerNorm of packed [..., H*Dh] -> [..., H, Dh]."""
+    return layer_norm(x.unflatten(-1, (-1, head_dim)), norm)
+
+
+def rope_tables(positions: torch.Tensor, rotary_dim: int, theta: float):
+    """cos/sin tables [..., rotary_dim] (GPT-NeoX convention), fp32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2,
+                                             dtype=torch.float32,
+                                             device=positions.device)
+                                / rotary_dim))
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(q, k, cos, sin, rotary_dim: int):
+    """Partial rotary on the first rotary_dim dims.  q, k: [B, S, H, Dh];
+    cos/sin: [B, S, rotary_dim] (broadcast over heads)."""
+    cos = cos[:, :, None, :].to(q.dtype)
+    sin = sin[:, :, None, :].to(q.dtype)
+    q_rot, q_pass = q[..., :rotary_dim], q[..., rotary_dim:]
+    k_rot, k_pass = k[..., :rotary_dim], k[..., rotary_dim:]
+    q_rot = q_rot * cos + _rotate_half(q_rot) * sin
+    k_rot = k_rot * cos + _rotate_half(k_rot) * sin
+    return torch.cat([q_rot, q_pass], -1), torch.cat([k_rot, k_pass], -1)
+
+
+def packed_step_meta(attn_meta, q_start: int, rows: int):
+    """("packed", seg, pad, last_pad, prefix) -> the same with the q rows'
+    ``pos_q`` / ``seg_q`` ([B, rows] int32, kv positions ``q_start`` on)
+    appended.  One forward computes this once for all of its layers."""
+    impl, seg, pad, last_pad, prefix = attn_meta
+    if impl in _LATER_ROUTES:
+        raise NotImplementedError(
+            f"attention route {impl!r} is not ported yet")
+    if impl != "packed":
+        raise ValueError(f"unknown attention route {impl!r}")
+    from showo_tpu_torch.ops.flash_attention import q_rows
+
+    pos_q, seg_q = q_rows(
+        seg, q_start + torch.arange(rows, device=seg.device), seg.shape[0],
+        rows)
+    return impl, seg, pad, last_pad, prefix, pos_q, seg_q
+
+
+def attention(q, k, v, bias, attn_meta=None, softmax_dtype=torch.float32):
+    """q: [B, Q, H, Dh]; k, v: [B, K, H, Dh]; bias: [B, 1, Q, K] additive.
+
+    attn_meta: optional :func:`packed_step_meta` tuple routing to the
+    packed omni kernel (mask recomputed from metadata; the bias is
+    unused).  None takes the dense path: scores in ``softmax_dtype`` from
+    exact products of the stored operands, softmax, probabilities cast to
+    v's dtype.
+    """
+    if attn_meta is not None:
+        _, seg, pad, last_pad, prefix, pos_q, seg_q = attn_meta
+        from showo_tpu_torch.ops.flash_attention import omni_attention_packed
+
+        B, Q, H, Dh = q.shape
+        out = omni_attention_packed(
+            q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
+            v.reshape(B, v.shape[1], H * Dh), seg, pad, last_pad, prefix,
+            num_heads=H, q_positions=pos_q, seg_q=seg_q)
+        return out.reshape(B, Q, H, Dh)
+    head_dim = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
+                          k.to(softmax_dtype)) / math.sqrt(head_dim)
+    if bias is not None:
+        scores = scores + bias.to(softmax_dtype)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+class PhiAttention(nn.Module):
+    """Projections and q/k norms of one layer (reference names)."""
+
+    def __init__(self, cfg: PhiConfig, device=None, dtype=None):
+        super().__init__()
+        D, Dh = cfg.hidden_size, cfg.head_dim
+        kw = dict(device=device, dtype=dtype)
+        self.q_proj = nn.Linear(D, D, **kw)
+        self.k_proj = nn.Linear(D, D, **kw)
+        self.v_proj = nn.Linear(D, D, **kw)
+        self.dense = nn.Linear(D, D, **kw)
+        self.q_layernorm = nn.LayerNorm(Dh, eps=cfg.layer_norm_eps, **kw)
+        self.k_layernorm = nn.LayerNorm(Dh, eps=cfg.layer_norm_eps, **kw)
+
+
+class PhiMLP(nn.Module):
+    def __init__(self, cfg: PhiConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+
+class PhiDecoderLayer(nn.Module):
+    """One parallel-residual layer.  Its projections are in one of three
+    layouts: separate q/k/v (reference), fused ``self_attn.qkv``
+    (:func:`fuse_qkv`), or the two wide ``win`` / ``wout`` matmuls
+    (:func:`fuse_parallel_mlp`)."""
+
+    def __init__(self, cfg: PhiConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = nn.LayerNorm(cfg.hidden_size,
+                                            eps=cfg.layer_norm_eps,
+                                            device=device, dtype=dtype)
+        self.self_attn = PhiAttention(cfg, device, dtype)
+        self.mlp = PhiMLP(cfg, device, dtype)
+
+    def _qkv_mlp(self, x):
+        """(q, k, v, mlp_pre) packed [B, S, *] in any layout."""
+        D = self.cfg.hidden_size
+        if hasattr(self, "win"):
+            y = self.win(x)
+            return (y[..., :D], y[..., D:2 * D], y[..., 2 * D:3 * D],
+                    y[..., 3 * D:])
+        a = self.self_attn
+        if hasattr(a, "qkv"):
+            q, k, v = a.qkv(x).split(D, dim=-1)
+        else:
+            q, k, v = a.q_proj(x), a.k_proj(x), a.v_proj(x)
+        return q, k, v, self.mlp.fc1(x)
+
+    def forward(self, h, bias, cos, sin, cache_kv=None, cache_index=None,
+                attn_meta=None, static_prefix: bool = False):
+        """h: [B, S, D].  cache_kv: (ck, cv) of this layer, [B, S_max, H, Dh]
+        written in place at ``cache_index``, or with ``static_prefix`` the
+        [B, P, H, Dh] prefix the fresh rows are appended to (not written)."""
+        cfg = self.cfg
+        B, S, D = h.shape
+        Dh = cfg.head_dim
+        x = layer_norm(h, self.input_layernorm)
+        q, k, v, mlp_pre = self._qkv_mlp(x)
+        q = head_layer_norm(q, self.self_attn.q_layernorm, Dh)
+        k = head_layer_norm(k, self.self_attn.k_layernorm, Dh)
+        v = v.reshape(B, S, cfg.num_heads, Dh)
+        q, k = apply_rope(q, k, cos, sin, cfg.rotary_dim)
+
+        if cache_kv is not None:
+            ck, cv = cache_kv
+            if static_prefix:
+                k_att = torch.cat([ck, k.to(ck.dtype)], dim=1)
+                v_att = torch.cat([cv, v.to(cv.dtype)], dim=1)
+            else:
+                ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
+                cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+                k_att, v_att = ck, cv
+        else:
+            k_att, v_att = k, v
+        attn = attention(
+            q, k_att, v_att, bias, attn_meta,
+            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
+        ).reshape(B, S, D)
+        mlp = F.gelu(mlp_pre, approximate="tanh")
+        if hasattr(self, "wout"):
+            return h + self.wout(torch.cat([attn, mlp], dim=-1))
+        return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
+
+
+class PhiModel(nn.Module):
+    def __init__(self, cfg: PhiConfig, device=None, dtype=None):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            PhiDecoderLayer(cfg, device, dtype) for _ in range(cfg.num_layers))
+        self.final_layernorm = nn.LayerNorm(cfg.hidden_size,
+                                            eps=cfg.layer_norm_eps,
+                                            device=device, dtype=dtype)
+
+
+class Phi(nn.Module):
+    """Phi-1.5 causal LM.  ``forward`` is the counterpart of JAX
+    ``phi_forward``."""
+
+    def __init__(self, cfg: PhiConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.model = PhiModel(cfg, device, dtype)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                 device=device, dtype=dtype)
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator) -> "Phi":
+        """Random init as JAX ``init_phi_params``: N(0, 0.02) for embedding
+        and matmul weights, zero biases, unit norm scales.  Draws in fp32
+        on the generator's device, then casts."""
+        for name, p in self.named_parameters():
+            if name.endswith("weight") and p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=generator.device) * 0.02)
+            elif "layernorm" in name and name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        return self
+
+    def forward(self, input_ids=None, input_embeds=None, attention_bias=None,
+                position_ids=None, cache: Optional[KVCache] = None,
+                attn_meta=None, lm_head_slice=None,
+                static_prefix_len: Optional[int] = None):
+        """Returns (logits, cache_or_None).
+
+        attention_bias: [B, 1, Q, K] additive mask.  Three modes:
+          * no cache: K = S;
+          * ``cache``: fresh K/V are written at ``cache.length`` (in place)
+            and attention runs over the cache capacity (K = S_max);
+          * ``cache`` + ``static_prefix_len`` P: the first P cached rows are
+            a constant prefix; attention runs over [prefix | fresh]
+            (K = P + S) and nothing is written.
+        attn_meta: optional ("packed", seg, pad, last_pad, prefix); the q
+        rows' positions and segments are added here, once for all layers.
+        lm_head_slice: optional (row_lo, row_hi, col_lo, col_hi) computing
+        logits only for those rows / vocab columns.
+        """
+        cfg = self.cfg
+        if input_embeds is None:
+            input_embeds = self.model.embed_tokens(input_ids)
+        B, S, _ = input_embeds.shape
+        dev = input_embeds.device
+        if position_ids is None:
+            start = cache.length if cache is not None else 0
+            position_ids = (start + torch.arange(S, device=dev))[None, :]
+        cos, sin = rope_tables(position_ids, cfg.rotary_dim, cfg.rope_theta)
+
+        if attn_meta is not None:
+            q_start = (static_prefix_len if static_prefix_len is not None
+                       else cache.length if cache is not None else 0)
+            attn_meta = packed_step_meta(attn_meta, q_start, S)
+        h = input_embeds
+        if cache is not None and static_prefix_len is not None:
+            P = static_prefix_len
+            bias = (attention_bias[..., :P + S]
+                    if attention_bias is not None else None)
+            for i, layer in enumerate(self.model.layers):
+                h = layer(h, bias, cos, sin,
+                          (cache.k[i, :, :P], cache.v[i, :, :P]), P,
+                          attn_meta, static_prefix=True)
+        elif cache is not None:
+            for i, layer in enumerate(self.model.layers):
+                h = layer(h, attention_bias, cos, sin,
+                          (cache.k[i], cache.v[i]), cache.length, attn_meta)
+            cache.length += S
+        else:
+            for layer in self.model.layers:
+                h = layer(h, attention_bias, cos, sin, attn_meta=attn_meta)
+
+        h = layer_norm(h, self.model.final_layernorm)
+        weight, bias_h = self.lm_head.weight, self.lm_head.bias
+        if lm_head_slice is not None:
+            r0, r1, c0, c1 = lm_head_slice
+            h = h[:, r0:r1]
+            weight, bias_h = weight[c0:c1], bias_h[c0:c1]
+        return F.linear(h, weight, bias_h), cache
+
+
+@torch.no_grad()
+def fuse_qkv(model: Phi) -> Phi:
+    """Fuse each layer's q/k/v projections into one ``self_attn.qkv``
+    (numerically the same products; one wider matmul).  In place."""
+    for layer in model.model.layers:
+        a = layer.self_attn
+        if hasattr(layer, "win") or hasattr(a, "qkv"):
+            continue
+        qkv = nn.Linear(a.q_proj.in_features, 3 * a.q_proj.out_features,
+                        device=a.q_proj.weight.device,
+                        dtype=a.q_proj.weight.dtype)
+        qkv.weight.copy_(torch.cat([a.q_proj.weight, a.k_proj.weight,
+                                    a.v_proj.weight], dim=0))
+        qkv.bias.copy_(torch.cat([a.q_proj.bias, a.k_proj.bias,
+                                  a.v_proj.bias], dim=0))
+        a.qkv = qkv
+        del a.q_proj, a.k_proj, a.v_proj
+    return model
+
+
+@torch.no_grad()
+def fuse_parallel_mlp(model: Phi) -> Phi:
+    """Collapse each layer's four projections into two wide matmuls, using
+    the parallel residual (qkv and fc1 read the same normed input; the
+    attention-dense and fc2 outputs are summed):
+
+        win  = [Wqkv | Wfc1]            x_ln @ win -> [qkv | mlp_pre]
+        wout = [Wdense; Wfc2]           [attn, gelu(mlp_pre)] @ wout
+
+    Same function up to fp32 accumulation order.  In place."""
+    fuse_qkv(model)
+    for layer in model.model.layers:
+        if hasattr(layer, "win"):
+            continue
+        a, m = layer.self_attn, layer.mlp
+        kw = dict(device=a.qkv.weight.device, dtype=a.qkv.weight.dtype)
+        D, F_ = a.dense.in_features, m.fc1.out_features
+        win = nn.Linear(D, 3 * D + F_, **kw)
+        win.weight.copy_(torch.cat([a.qkv.weight, m.fc1.weight], dim=0))
+        win.bias.copy_(torch.cat([a.qkv.bias, m.fc1.bias], dim=0))
+        wout = nn.Linear(D + F_, D, **kw)
+        wout.weight.copy_(torch.cat([a.dense.weight, m.fc2.weight], dim=1))
+        wout.bias.copy_(a.dense.bias + m.fc2.bias)
+        layer.win, layer.wout = win, wout
+        del a.qkv, a.dense, layer.mlp
+    return model

@@ -1,0 +1,194 @@
+"""Show-o unified model over Phi-1.5, and its text-to-image generators.
+
+Counterpart of ``showo_tpu/models/showo.py`` (config, init, forward,
+``showo_t2i_generate`` and the prefix-cached ``showo_t2i_generate_cached``).
+The CLIP-ViT projector (``w_clip_vit``) belongs to the understanding path
+and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from showo_tpu_torch.models.phi import KVCache, Phi, PhiConfig
+from showo_tpu_torch.sampling.maskgit import maskgit_generate
+from showo_tpu_torch.sampling.schedules import cosine_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class ShowoConfig:
+    vocab_size: int = 58498
+    llm_vocab_size: int = 50295
+    num_new_special_tokens: int = 10
+    codebook_size: int = 8192
+    num_vq_tokens: int = 256
+    w_clip_vit: bool = False
+    clip_feat_dim: int = 1024
+    llm: PhiConfig = dataclasses.field(default_factory=PhiConfig)
+
+    @property
+    def mask_token_id(self) -> int:
+        return self.vocab_size - 1
+
+    @property
+    def codebook_offset(self) -> int:
+        return self.llm_vocab_size + self.num_new_special_tokens
+
+
+class Showo(nn.Module):
+    """``showo``: the Phi backbone, under the reference checkpoint's name."""
+
+    def __init__(self, cfg: ShowoConfig, device=None, dtype=None):
+        super().__init__()
+        if cfg.w_clip_vit:
+            raise NotImplementedError(
+                "w_clip_vit (the CLIP-ViT understanding path) is not ported")
+        self.cfg = cfg
+        self.showo = Phi(cfg.llm, device, dtype)
+
+
+def init_showo(cfg: ShowoConfig, generator: torch.Generator, device=None,
+               dtype=torch.float32) -> Showo:
+    """Random-weight Show-o (counterpart of ``init_showo_params``)."""
+    model = Showo(cfg, device=device, dtype=dtype)
+    model.showo.init_random(generator)
+    return model.eval().requires_grad_(False)
+
+
+def showo_forward(model: Showo, input_ids=None, input_embeds=None,
+                  attention_bias=None, cache: Optional[KVCache] = None,
+                  attn_meta=None):
+    return model.showo(input_ids=input_ids, input_embeds=input_embeds,
+                       attention_bias=attention_bias, cache=cache,
+                       attn_meta=attn_meta)
+
+
+def _attn_meta(attn_impl, ids, uncond_ids, use_cfg, pad_id, soi_id, eoi_id):
+    """Span metadata for the packed route, computed once from the initial
+    layout (special tokens and pads never move during MaskGIT)."""
+    if attn_impl in (None, "dense"):
+        return None
+    from showo_tpu_torch.ops.flash_attention import metadata_predict_next
+
+    meta_ids = torch.cat([ids, uncond_ids], dim=0) if use_cfg else ids
+    return (attn_impl,) + metadata_predict_next(meta_ids, pad_id, soi_id,
+                                                eoi_id)
+
+
+@torch.no_grad()
+def showo_t2i_generate(
+    model: Showo,
+    input_ids: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    uncond_input_ids: Optional[torch.Tensor] = None,
+    attention_bias: Optional[torch.Tensor] = None,
+    guidance_scale: float = 0.0,
+    temperature: float = 1.0,
+    timesteps: int = 18,
+    noise_schedule=cosine_schedule,
+    max_seq_length: int = 128,
+    injected_noise=None,
+    attn_impl: Optional[str] = None,
+    pad_id: int = 50295,
+    soi_id: int = 50296,
+    eoi_id: int = 50297,
+    sliced_head: bool = True,
+):
+    """MaskGIT generation, re-forwarding the whole sequence every step.
+
+    attn_impl: None / "dense" (additive bias) or "packed" (the omni
+    kernel, mask recomputed from span metadata)."""
+    cfg = model.cfg
+    use_cfg = uncond_input_ids is not None and guidance_scale > 0
+    attn_meta = _attn_meta(attn_impl, input_ids, uncond_input_ids, use_cfg,
+                           pad_id, soi_id, eoi_id)
+    L = input_ids.shape[1]
+    head_slice = None
+    if sliced_head:
+        # only image rows x codebook columns are sampled from
+        head_slice = (L - cfg.num_vq_tokens - 1, L - 1, cfg.codebook_offset,
+                      cfg.codebook_offset + cfg.codebook_size)
+
+    def forward_fn(ids):
+        logits, _ = model.showo(input_ids=ids, attention_bias=attention_bias,
+                                attn_meta=attn_meta, lm_head_slice=head_slice)
+        return logits
+
+    return maskgit_generate(
+        forward_fn, input_ids, generator,
+        forward_returns_sliced=sliced_head,
+        uncond_input_ids=uncond_input_ids,
+        num_vq_tokens=cfg.num_vq_tokens, mask_token_id=cfg.mask_token_id,
+        codebook_offset=cfg.codebook_offset,
+        codebook_size=cfg.codebook_size, prompt_len=max_seq_length + 1,
+        timesteps=timesteps, guidance_scale=guidance_scale,
+        temperature=temperature, noise_schedule=noise_schedule,
+        injected_noise=injected_noise)
+
+
+@torch.no_grad()
+def showo_t2i_generate_cached(
+    model: Showo,
+    input_ids: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    uncond_input_ids: Optional[torch.Tensor] = None,
+    attention_bias: torch.Tensor,
+    guidance_scale: float = 0.0,
+    temperature: float = 1.0,
+    timesteps: int = 18,
+    noise_schedule=cosine_schedule,
+    max_seq_length: int = 128,
+    injected_noise=None,
+    attn_impl: Optional[str] = None,
+    pad_id: int = 50295,
+    soi_id: int = 50296,
+    eoi_id: int = 50297,
+):
+    """MaskGIT generation with a prefix KV cache.
+
+    The text prefix (positions < max_seq_length + 1) never changes and its
+    keys/values depend only on itself, so it is prefilled once (dense
+    attention); each step re-forwards only the soi..eoi span against the
+    cached prefix.  Same tokens as :func:`showo_t2i_generate`.
+    """
+    cfg = model.cfg
+    B, L = input_ids.shape
+    P = max_seq_length + 1
+    use_cfg = uncond_input_ids is not None and guidance_scale > 0
+    full_prefix = (torch.cat([input_ids[:, :P], uncond_input_ids[:, :P]])
+                   if use_cfg else input_ids[:, :P])
+    attn_meta = _attn_meta(attn_impl, input_ids, uncond_input_ids, use_cfg,
+                           pad_id, soi_id, eoi_id)
+
+    embed = model.showo.model.embed_tokens.weight
+    cache = KVCache.zeros(cfg.llm, full_prefix.shape[0], L, dtype=embed.dtype,
+                          device=embed.device)
+    showo_forward(model, input_ids=full_prefix,
+                  attention_bias=attention_bias[:, :, :P, :], cache=cache)
+
+    step_bias = attention_bias[:, :, P:, :]
+    head_slice = (1, 1 + cfg.num_vq_tokens, cfg.codebook_offset,
+                  cfg.codebook_offset + cfg.codebook_size)
+
+    def forward_fn(ids):
+        logits, _ = model.showo(input_ids=ids[:, P:], attention_bias=step_bias,
+                                cache=cache, lm_head_slice=head_slice,
+                                attn_meta=attn_meta, static_prefix_len=P)
+        return logits
+
+    return maskgit_generate(
+        forward_fn, input_ids, generator,
+        forward_returns_sliced=True,
+        uncond_input_ids=uncond_input_ids,
+        num_vq_tokens=cfg.num_vq_tokens, mask_token_id=cfg.mask_token_id,
+        codebook_offset=cfg.codebook_offset,
+        codebook_size=cfg.codebook_size, prompt_len=P,
+        timesteps=timesteps, guidance_scale=guidance_scale,
+        temperature=temperature, noise_schedule=noise_schedule,
+        injected_noise=injected_noise)

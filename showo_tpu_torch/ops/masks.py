@@ -1,0 +1,95 @@
+"""Omni attention masks as vectorised tensor code.
+
+Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image path:
+``omni_mask_predict_next`` and its helpers, bit-exact with the JAX
+functions including the ``rm_pad_in_image`` quirks.  Boolean masks use
+True = "may attend"; ``to_additive`` turns them into the additive bias
+(0 where visible, ``NEG_INF`` elsewhere) that the dense attention path
+adds to its scores.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Large-negative fill for masked logits: far below any attainable logit
+# yet finite, so an fp32 or bf16 softmax stays NaN-free.
+NEG_INF = -1e9
+
+
+def to_additive(mask_bool: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[..., L, L] bool (True = attend) -> additive bias (0 / NEG_INF)."""
+    zero = torch.zeros((), dtype=dtype, device=mask_bool.device)
+    return torch.where(mask_bool, zero, torch.full_like(zero, NEG_INF))
+
+
+def _causal(L: int, device=None) -> torch.Tensor:
+    i = torch.arange(L, device=device)[:, None]
+    j = torch.arange(L, device=device)[None, :]
+    return j <= i
+
+
+def _image_segments(sequence: torch.Tensor, soi_id: int,
+                    eoi_id: int) -> torch.Tensor:
+    """True where a token lies inside (inclusive) an soi..eoi span."""
+    is_soi = sequence == soi_id
+    is_eoi = sequence == eoi_id
+    c_soi = torch.cumsum(is_soi.int(), dim=1)
+    c_eoi = torch.cumsum(is_eoi.int(), dim=1)
+    return (c_soi > c_eoi) | is_soi | is_eoi
+
+
+def _first_index(cond: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Index of the first True along ``dim`` (its length if none)."""
+    n = cond.shape[dim]
+    idx = torch.argmax(cond.int(), dim=dim)
+    return torch.where(cond.any(dim=dim), idx, torch.full_like(idx, n))
+
+
+def _last_index(cond: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Index of the last True along ``dim`` (-1 if none)."""
+    n = cond.shape[dim]
+    idx = n - 1 - torch.argmax(torch.flip(cond, dims=(dim,)).int(), dim=dim)
+    return torch.where(cond.any(dim=dim), idx, torch.full_like(idx, -1))
+
+
+def omni_mask_predict_next(
+    sequence: torch.Tensor,
+    pad_id: int,
+    soi_id: int,
+    eoi_id: int,
+    rm_pad_in_image: bool = False,
+    return_inverse_mask: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The v1 "omni" mask: causal for text rows, fully bidirectional for
+    image-span rows.  sequence: [N, L] token ids.  Returns [N, 1, L, L]."""
+    N, L = sequence.shape
+    dev = sequence.device
+    is_pad = sequence == pad_id
+    in_image = _image_segments(sequence, soi_id, eoi_id)
+    is_text = ~in_image
+    causal = _causal(L, dev)
+
+    mask_text = is_text[:, :, None] & causal[None, :, :]
+    mask_bi = torch.ones((N, L, L), dtype=torch.bool, device=dev)
+
+    if rm_pad_in_image:
+        # rows after the last pad do not attend to columns <= last pad
+        pad_end = _last_index(is_pad, dim=1)
+        has_pad = is_pad.any(dim=1)
+        i = torch.arange(L, device=dev)[None, :, None]
+        j = torch.arange(L, device=dev)[None, None, :]
+        after_rows = i > pad_end[:, None, None]
+        upto_cols = j <= pad_end[:, None, None]
+        mask_text = mask_text & ~(has_pad[:, None, None] & after_rows
+                                  & upto_cols)
+        # from the (first) soi row onward, no attending to pad columns
+        sid = _first_index(sequence == soi_id, dim=1)
+        from_soi = i >= sid[:, None, None]
+        mask_bi = mask_bi & ~(from_soi & is_pad[:, None, :])
+
+    mask = torch.where(in_image[:, :, None], mask_bi, mask_text)[:, None]
+    if return_inverse_mask:
+        return to_additive(mask, dtype)
+    return mask

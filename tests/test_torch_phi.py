@@ -1,0 +1,197 @@
+"""showo_tpu_torch Phi vs the reference golden (tests/golden/phi_tiny.npz)
+and vs JAX ``phi_forward`` in its three modes (no cache, prefill into a
+cache, static prefix), with ``fuse_parallel_mlp`` params on both sides.
+fp32 on the CPU; tolerance atol 2e-5, rtol 1e-4, as tests/test_phi.py
+(two implementations of the same fp32 math, differing in summation
+order)."""
+
+import os
+from unittest import mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from showo_tpu.models import phi as jphi
+from showo_tpu.ops import flash_attention as jfa
+from showo_tpu.ops.masks import omni_mask_predict_next as j_mask
+from showo_tpu.utils.torch_import import phi_params_from_torch
+from showo_tpu_torch.models import phi as tphi
+from showo_tpu_torch.models.showo import Showo, ShowoConfig
+from showo_tpu_torch.ops import flash_attention as tfa
+from showo_tpu_torch.ops.masks import to_additive
+from showo_tpu_torch.utils.convert import load_showo
+
+torch.set_num_threads(1)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "phi_tiny.npz")
+J_TINY = jphi.PhiConfig(vocab_size=120, hidden_size=64, intermediate_size=128,
+                        num_layers=2, num_heads=4, max_position_embeddings=128)
+T_TINY = tphi.PhiConfig(vocab_size=120, hidden_size=64, intermediate_size=128,
+                        num_layers=2, num_heads=4, max_position_embeddings=128)
+TOL = dict(atol=2e-5, rtol=1e-4)
+PAD, SOI, EOI = 99, 101, 102
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return np.load(GOLDEN)
+
+
+def _port(golden, fusion="none"):
+    sd = {k[3:]: golden[k] for k in golden.files if k.startswith("w::")}
+    m = load_showo(Showo(ShowoConfig(vocab_size=120, llm=T_TINY)), sd).showo
+    if fusion == "mlp":
+        tphi.fuse_parallel_mlp(m)
+    elif fusion == "qkv":
+        tphi.fuse_qkv(m)
+    return m
+
+
+def _jax_params(golden, fused=True):
+    sd = {k[3:]: golden[k] for k in golden.files if k.startswith("w::")}
+    p = phi_params_from_torch(sd, num_layers=2)
+    return jphi.fuse_parallel_mlp(p) if fused else p
+
+
+@pytest.mark.parametrize("fusion", ["none", "qkv", "mlp"])
+def test_logits_vs_golden(golden, fusion):
+    model = _port(golden, fusion)
+    bias = to_additive(torch.as_tensor(golden["mask"]))
+    with torch.no_grad():
+        logits, cache = model(input_ids=torch.as_tensor(golden["ids"]),
+                              attention_bias=bias)
+    assert cache is None
+    np.testing.assert_allclose(logits.numpy(), golden["logits"], **TOL)
+
+
+def _t2i_rows(seed, B=2, P=10, img=9):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        p = 3 * b
+        rows.append([PAD] * p + rng.integers(3, 99, size=P - 1 - p).tolist()
+                    + [SOI] + rng.integers(3, 99, size=img).tolist() + [EOI])
+    return np.asarray(rows)
+
+
+def test_no_cache_vs_jax(golden):
+    ids = _t2i_rows(0)
+    jbias = j_mask(jnp.asarray(ids), PAD, SOI, EOI, rm_pad_in_image=True)
+    want, _ = jphi.phi_forward(J_TINY, _jax_params(golden),
+                               input_ids=jnp.asarray(ids),
+                               attention_bias=jbias)
+    with torch.no_grad():
+        got, _ = _port(golden, "mlp")(input_ids=torch.as_tensor(ids),
+                                      attention_bias=torch.tensor(
+                                          np.asarray(jbias)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_prefill_and_decode_cache_vs_jax(golden):
+    """Prefill S rows into a cache, then decode 3 single rows, both
+    packages writing their caches; logits and cache contents agree."""
+    rng = np.random.default_rng(1)
+    B, S, T, S_max = 2, 8, 3, 12
+    ids = rng.integers(0, 120, size=(B, S + T))
+    causal = np.tril(np.ones((S_max, S_max), bool))
+    jparams = _jax_params(golden)
+    port = _port(golden, "mlp")
+    jcache = jphi.KVCache.zeros(J_TINY, B, S_max)
+    tcache = tphi.KVCache.zeros(T_TINY, B, S_max)
+    bias = np.where(causal, 0.0, -1e9).astype(np.float32)[None, None]
+    for lo, hi in [(0, S)] + [(S + t, S + t + 1) for t in range(T)]:
+        want, jcache = jphi.phi_forward(
+            J_TINY, jparams, input_ids=jnp.asarray(ids[:, lo:hi]),
+            attention_bias=jnp.asarray(bias[:, :, lo:hi]), cache=jcache)
+        with torch.no_grad():
+            got, tcache = port(input_ids=torch.as_tensor(ids[:, lo:hi]),
+                               attention_bias=torch.as_tensor(
+                                   bias[:, :, lo:hi]), cache=tcache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"rows {lo}:{hi}")
+    assert tcache.length == int(jcache.length) == S + T
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k), **TOL)
+    np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v), **TOL)
+
+
+@pytest.mark.parametrize("route", ["dense", "packed"])
+def test_static_prefix_vs_jax(golden, route):
+    """The cached MaskGIT step: prefill the text prefix, then forward the
+    image span against it (static_prefix_len) with the sliced lm head.
+    The packed route runs the JAX Pallas kernel in interpret mode and the
+    port's plain version."""
+    ids = _t2i_rows(2)
+    B, L = ids.shape
+    P = 10
+    jbias = j_mask(jnp.asarray(ids), PAD, SOI, EOI, rm_pad_in_image=True)
+    tbias = torch.tensor(np.asarray(jbias))
+    jparams = _jax_params(golden)
+    port = _port(golden, "mlp")
+    head = (1, L - P - 1, 103, 119)
+
+    jcache = jphi.KVCache.zeros(J_TINY, B, L)
+    _, jcache = jphi.phi_forward(J_TINY, jparams,
+                                 input_ids=jnp.asarray(ids[:, :P]),
+                                 attention_bias=jbias[:, :, :P], cache=jcache)
+    jcache = jphi.KVCache(jcache.k, jcache.v, jnp.asarray(P, jnp.int32))
+    tcache = tphi.KVCache.zeros(T_TINY, B, L)
+    with torch.no_grad():
+        port(input_ids=torch.as_tensor(ids[:, :P]),
+             attention_bias=tbias[:, :, :P], cache=tcache)
+
+    jmeta = tmeta = None
+    if route == "packed":
+        jmeta = ("pallas_packed",) + jfa.metadata_predict_next(
+            jnp.asarray(ids), PAD, SOI, EOI)
+        tmeta = ("packed",) + tfa.metadata_predict_next(
+            torch.as_tensor(ids), PAD, SOI, EOI)
+    orig = jfa.omni_attention_packed
+
+    def interp(*args, **kw):
+        kw["interpret"] = True
+        kw.setdefault("block_q", 8)
+        return orig(*args, **kw)
+
+    with mock.patch.object(jfa, "omni_attention_packed", interp):
+        want, _ = jphi.phi_forward(
+            J_TINY, jparams, input_ids=jnp.asarray(ids[:, P:]),
+            attention_bias=jbias[:, :, P:], cache=jcache, attn_meta=jmeta,
+            lm_head_slice=head, static_prefix_len=P)
+    with torch.no_grad():
+        got, _ = port(input_ids=torch.as_tensor(ids[:, P:]),
+                      attention_bias=tbias[:, :, P:], cache=tcache,
+                      attn_meta=tmeta, lm_head_slice=head,
+                      static_prefix_len=P)
+    assert got.shape == (B, L - P - 2, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("route", ["pallas", "pallas_fused", "pallas_decode",
+                                   "pallas_streaming", "pallas_trainable"])
+def test_later_routes_raise(golden, route):
+    port = _port(golden)
+    ids = torch.as_tensor(_t2i_rows(3))
+    meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
+    with pytest.raises(NotImplementedError):
+        port(input_ids=ids, attn_meta=meta)
+
+
+def test_init_random_matches_jax_scheme():
+    """Seeded init: N(0, 0.02) matmul/embedding weights, zero biases, unit
+    norm scales, as JAX init_phi_params; the same seed gives the same
+    weights."""
+    cfg = tphi.PhiConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                         num_layers=2, num_heads=2)
+    a = tphi.Phi(cfg).init_random(torch.Generator().manual_seed(3))
+    b = tphi.Phi(cfg).init_random(torch.Generator().manual_seed(3))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+        if name.endswith("bias"):
+            assert not p.any(), name
+        elif "layernorm" in name:
+            assert (p == 1).all(), name
+    assert abs(a.model.embed_tokens.weight.std().item() - 0.02) < 2e-3
+    logits, _ = a(input_ids=torch.zeros((1, 8), dtype=torch.long))
+    assert logits.shape == (1, 8, 64)
