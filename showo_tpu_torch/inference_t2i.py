@@ -117,13 +117,14 @@ def load_prompts(config) -> List[str]:
         return [p for p in f.read().splitlines() if p.strip()]
 
 
-def build_pipeline(config,
-                   device: Optional[torch.device] = None) -> T2IPipeline:
+def build_pipeline(config, device: Optional[torch.device] = None,
+                   attn_impl: str = "auto") -> T2IPipeline:
     """Config -> ready T2IPipeline (weights loaded or random-init).
 
     device defaults to CUDA when present, else CPU.  Show-o runs in bf16
-    on CUDA (the packed kernel's type) and fp32 on the CPU; MAGVIT runs in
-    fp32, as in the JAX pipeline."""
+    on CUDA (the kernels' type) and fp32 on the CPU; MAGVIT runs in fp32,
+    as in the JAX pipeline.  attn_impl: the pipeline's attention route
+    (``T2IPipeline.attn_impl``)."""
     if device is None:
         device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     device = torch.device(device)
@@ -139,6 +140,7 @@ def build_pipeline(config,
                                  config.training.generation_timesteps)),
         mask_schedule=config.training.get("mask_schedule", "cosine"),
         max_seq_length=config.dataset.preprocessing.max_seq_length,
+        attn_impl=attn_impl,
     )
 
 

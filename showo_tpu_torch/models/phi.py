@@ -7,7 +7,7 @@ Counterpart of ``showo_tpu/models/phi.py``:
   * per-head q/k LayerNorm;
   * fp32 QK scores and softmax on the dense path;
   * the caller's [B, 1, Q, K] additive mask flows through unchanged, or
-    span metadata routes attention to the packed omni kernel.
+    an attention route (``ATTN_ROUTES``) sends attention to a kernel.
 
 The module tree carries the reference checkpoint's names
 (``model.layers.{i}.self_attn.q_proj`` ...), so a reference-layout state
@@ -30,9 +30,87 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# attention routes of the JAX package that later ports will add
-_LATER_ROUTES = ("pallas", "pallas_fused", "pallas_decode",
-                 "pallas_streaming", "pallas_trainable")
+from showo_tpu_torch.ops.decode_attention import decode_attention
+from showo_tpu_torch.ops.flash_attention import (omni_attention,
+                                                 omni_attention_packed,
+                                                 q_rows)
+from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
+                                              fused_rows)
+
+# Attention routes: the port's name -> the JAX package's attn impl string.
+#   dense      einsum attention under the additive bias (no kernel)
+#   packed     omni kernel on the packed [B, S, H*D] layout
+#   omni       omni kernel on head-major [B, H, S, D] views
+#   decode     kernel under the explicit additive bias
+#   fused      the cached step's LN + RoPE + concat + attention kernel off
+#              the ``win`` output; elsewhere (no static prefix, or no
+#              ``win``) it falls through to ``omni``, as in JAX
+#   streaming, trainable: kernels not ported yet (raise)
+ATTN_ROUTES = {
+    "dense": None,
+    "packed": "pallas_packed",
+    "omni": "pallas",
+    "decode": "pallas_decode",
+    "fused": "pallas_fused",
+    "streaming": "pallas_streaming",
+    "trainable": "pallas_trainable",
+}
+_NOT_PORTED = ("streaming", "trainable")
+
+
+def check_route(name: str) -> str:
+    """``name`` if it is a route of :data:`ATTN_ROUTES` whose kernel is
+    ported; an unknown name raises ValueError, an unported route
+    NotImplementedError."""
+    if name not in ATTN_ROUTES:
+        port = {j: p for p, j in ATTN_ROUTES.items() if j}.get(name)
+        hint = f" (the JAX package's name of route {port!r})" if port else ""
+        raise ValueError(f"unknown attention route {name!r}{hint}; the "
+                         f"routes are {sorted(ATTN_ROUTES)}")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"attention route {name!r} ({ATTN_ROUTES[name]} in the JAX "
+            f"package) is not ported yet")
+    return name
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnStep:
+    """One forward's attention route and the metadata its kernel reads,
+    computed once for all layers (:func:`attn_step`).  ``pos_q`` /
+    ``seg_q``: int32 [B, Q] rows of the omni kernels (None for
+    ``decode``); ``fused``: the :func:`fused_rows` tuple when the forward
+    is a static-prefix cached step on the ``fused`` route, else None."""
+
+    route: str
+    seg: torch.Tensor
+    pad: torch.Tensor
+    last_pad: torch.Tensor
+    prefix: torch.Tensor
+    pos_q: Optional[torch.Tensor] = None
+    seg_q: Optional[torch.Tensor] = None
+    fused: Optional[tuple] = None
+
+
+def attn_step(attn_meta, q_start: int, rows: int,
+              static_prefix_len: Optional[int] = None) -> AttnStep:
+    """(route, seg, pad, last_pad, prefix) -> :class:`AttnStep` for a
+    forward whose ``rows`` q rows sit at kv positions ``q_start`` on."""
+    route, seg, pad, last_pad, prefix = attn_meta
+    check_route(route)
+    if route == "dense":
+        raise ValueError("the dense route takes attn_meta=None")
+    step = AttnStep(route, seg, pad, last_pad, prefix)
+    if route == "decode":
+        return step
+    positions = q_start + torch.arange(rows, device=seg.device)
+    if route == "fused" and static_prefix_len is not None:
+        fused = fused_rows(seg, pad, positions, static_prefix_len,
+                           seg.shape[0])
+        return dataclasses.replace(step, pos_q=fused[0], seg_q=fused[1],
+                                   fused=fused)
+    pos_q, seg_q = q_rows(seg, positions, seg.shape[0], rows)
+    return dataclasses.replace(step, pos_q=pos_q, seg_q=seg_q)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,43 +195,36 @@ def apply_rope(q, k, cos, sin, rotary_dim: int):
     return torch.cat([q_rot, q_pass], -1), torch.cat([k_rot, k_pass], -1)
 
 
-def packed_step_meta(attn_meta, q_start: int, rows: int):
-    """("packed", seg, pad, last_pad, prefix) -> the same with the q rows'
-    ``pos_q`` / ``seg_q`` ([B, rows] int32, kv positions ``q_start`` on)
-    appended.  One forward computes this once for all of its layers."""
-    impl, seg, pad, last_pad, prefix = attn_meta
-    if impl in _LATER_ROUTES:
-        raise NotImplementedError(
-            f"attention route {impl!r} is not ported yet")
-    if impl != "packed":
-        raise ValueError(f"unknown attention route {impl!r}")
-    from showo_tpu_torch.ops.flash_attention import q_rows
-
-    pos_q, seg_q = q_rows(
-        seg, q_start + torch.arange(rows, device=seg.device), seg.shape[0],
-        rows)
-    return impl, seg, pad, last_pad, prefix, pos_q, seg_q
-
-
-def attention(q, k, v, bias, attn_meta=None, softmax_dtype=torch.float32):
+def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
+              softmax_dtype=torch.float32):
     """q: [B, Q, H, Dh]; k, v: [B, K, H, Dh]; bias: [B, 1, Q, K] additive.
 
-    attn_meta: optional :func:`packed_step_meta` tuple routing to the
-    packed omni kernel (mask recomputed from metadata; the bias is
-    unused).  None takes the dense path: scores in ``softmax_dtype`` from
-    exact products of the stored operands, softmax, probabilities cast to
-    v's dtype.
+    attn_meta: optional :class:`AttnStep` sending attention to its
+    route's kernel: ``packed`` / ``omni`` / ``fused`` recompute the mask
+    from metadata (the bias is unused), ``decode`` adds the bias.  None
+    takes the dense path: scores in ``softmax_dtype`` from exact products
+    of the stored operands, softmax, probabilities cast to v's dtype.
+    The kernels' scores and softmax are fp32 whatever ``softmax_dtype``
+    says, as in JAX.
     """
     if attn_meta is not None:
-        _, seg, pad, last_pad, prefix, pos_q, seg_q = attn_meta
-        from showo_tpu_torch.ops.flash_attention import omni_attention_packed
-
+        m = attn_meta
         B, Q, H, Dh = q.shape
-        out = omni_attention_packed(
-            q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
-            v.reshape(B, v.shape[1], H * Dh), seg, pad, last_pad, prefix,
-            num_heads=H, q_positions=pos_q, seg_q=seg_q)
-        return out.reshape(B, Q, H, Dh)
+        if m.route == "decode":
+            if bias is None:
+                raise ValueError("the decode route needs the additive bias")
+            return decode_attention(q, k, v, bias)
+        if m.route == "packed":
+            out = omni_attention_packed(
+                q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
+                v.reshape(B, v.shape[1], H * Dh), m.seg, m.pad, m.last_pad,
+                m.prefix, num_heads=H, q_positions=m.pos_q, seg_q=m.seg_q)
+            return out.reshape(B, Q, H, Dh)
+        # omni, and fused outside the static-prefix cached step
+        out = omni_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), m.seg, m.pad, m.last_pad,
+                             m.prefix, q_positions=m.pos_q, seg_q=m.seg_q)
+        return out.transpose(1, 2)
     head_dim = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
                           k.to(softmax_dtype)) / math.sqrt(head_dim)
@@ -216,7 +287,8 @@ class PhiDecoderLayer(nn.Module):
         return q, k, v, self.mlp.fc1(x)
 
     def forward(self, h, bias, cos, sin, cache_kv=None, cache_index=None,
-                attn_meta=None, static_prefix: bool = False):
+                attn_meta: Optional[AttnStep] = None,
+                static_prefix: bool = False):
         """h: [B, S, D].  cache_kv: (ck, cv) of this layer, [B, S_max, H, Dh]
         written in place at ``cache_index``, or with ``static_prefix`` the
         [B, P, H, Dh] prefix the fresh rows are appended to (not written)."""
@@ -224,6 +296,9 @@ class PhiDecoderLayer(nn.Module):
         B, S, D = h.shape
         Dh = cfg.head_dim
         x = layer_norm(h, self.input_layernorm)
+        if (attn_meta is not None and attn_meta.fused is not None
+                and static_prefix and hasattr(self, "win")):
+            return self._fused_step(h, x, cos, sin, cache_kv, attn_meta)
         q, k, v, mlp_pre = self._qkv_mlp(x)
         q = head_layer_norm(q, self.self_attn.q_layernorm, Dh)
         k = head_layer_norm(k, self.self_attn.k_layernorm, Dh)
@@ -249,6 +324,28 @@ class PhiDecoderLayer(nn.Module):
         if hasattr(self, "wout"):
             return h + self.wout(torch.cat([attn, mlp], dim=-1))
         return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
+
+    def _fused_step(self, h, x, cos, sin, cache_kv, m: AttnStep):
+        """The static-prefix cached step on the ``fused`` route: one kernel
+        does the per-head LN, RoPE, [prefix | fresh] concat and attention
+        straight off the ``win`` output (JAX ``_layer``'s pallas_fused
+        branch)."""
+        cfg = self.cfg
+        D = cfg.hidden_size
+        y = self.win(x)
+        ck, cv = cache_kv                                  # [B, P, H, Dh]
+        a = self.self_attn
+        attn = fused_decode_attention(
+            y, ck.flatten(2), cv.flatten(2),
+            (a.q_layernorm.weight, a.q_layernorm.bias),
+            (a.k_layernorm.weight, a.k_layernorm.bias), cos[0], sin[0],
+            m.seg, m.pad, m.last_pad, m.prefix, m.pos_q[0], hidden=D,
+            num_heads=cfg.num_heads, rotary_dim=cfg.rotary_dim,
+            eps=cfg.layer_norm_eps,
+            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
+            rows=m.fused)
+        mlp = F.gelu(y[..., 3 * D:], approximate="tanh")
+        return h + self.wout(torch.cat([attn, mlp], dim=-1))
 
 
 class PhiModel(nn.Module):
@@ -302,8 +399,10 @@ class Phi(nn.Module):
           * ``cache`` + ``static_prefix_len`` P: the first P cached rows are
             a constant prefix; attention runs over [prefix | fresh]
             (K = P + S) and nothing is written.
-        attn_meta: optional ("packed", seg, pad, last_pad, prefix); the q
-        rows' positions and segments are added here, once for all layers.
+        attn_meta: optional (route, seg, pad, last_pad, prefix) with a
+        route of :data:`ATTN_ROUTES` other than ``dense``; the metadata its
+        kernel reads is computed here, once for all layers
+        (:func:`attn_step`).
         lm_head_slice: optional (row_lo, row_hi, col_lo, col_hi) computing
         logits only for those rows / vocab columns.
         """
@@ -317,12 +416,14 @@ class Phi(nn.Module):
             position_ids = (start + torch.arange(S, device=dev))[None, :]
         cos, sin = rope_tables(position_ids, cfg.rotary_dim, cfg.rope_theta)
 
+        static = cache is not None and static_prefix_len is not None
         if attn_meta is not None:
-            q_start = (static_prefix_len if static_prefix_len is not None
+            q_start = (static_prefix_len if static
                        else cache.length if cache is not None else 0)
-            attn_meta = packed_step_meta(attn_meta, q_start, S)
+            attn_meta = attn_step(attn_meta, q_start, S,
+                                  static_prefix_len if static else None)
         h = input_embeds
-        if cache is not None and static_prefix_len is not None:
+        if static:
             P = static_prefix_len
             bias = (attention_bias[..., :P + S]
                     if attention_bias is not None else None)

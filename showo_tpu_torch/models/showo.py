@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from showo_tpu_torch.models.phi import KVCache, Phi, PhiConfig
+from showo_tpu_torch.models.phi import KVCache, Phi, PhiConfig, check_route
 from showo_tpu_torch.sampling.maskgit import maskgit_generate
 from showo_tpu_torch.sampling.schedules import cosine_schedule
 
@@ -68,9 +68,10 @@ def showo_forward(model: Showo, input_ids=None, input_embeds=None,
 
 
 def _attn_meta(attn_impl, ids, uncond_ids, use_cfg, pad_id, soi_id, eoi_id):
-    """Span metadata for the packed route, computed once from the initial
-    layout (special tokens and pads never move during MaskGIT)."""
-    if attn_impl in (None, "dense"):
+    """(route, span metadata) for a kernel route of ``ATTN_ROUTES``,
+    computed once from the initial layout (special tokens and pads never
+    move during MaskGIT); None for dense attention."""
+    if attn_impl is None or check_route(attn_impl) == "dense":
         return None
     from showo_tpu_torch.ops.flash_attention import metadata_predict_next
 
@@ -101,8 +102,9 @@ def showo_t2i_generate(
 ):
     """MaskGIT generation, re-forwarding the whole sequence every step.
 
-    attn_impl: None / "dense" (additive bias) or "packed" (the omni
-    kernel, mask recomputed from span metadata)."""
+    attn_impl: None / "dense" (additive bias) or a kernel route of
+    ``models/phi.py::ATTN_ROUTES`` ("packed", "omni", "decode", "fused";
+    without a prefix cache "fused" runs as "omni")."""
     cfg = model.cfg
     use_cfg = uncond_input_ids is not None and guidance_scale > 0
     attn_meta = _attn_meta(attn_impl, input_ids, uncond_input_ids, use_cfg,
@@ -155,7 +157,8 @@ def showo_t2i_generate_cached(
     The text prefix (positions < max_seq_length + 1) never changes and its
     keys/values depend only on itself, so it is prefilled once (dense
     attention); each step re-forwards only the soi..eoi span against the
-    cached prefix.  Same tokens as :func:`showo_t2i_generate`.
+    cached prefix.  Same tokens as :func:`showo_t2i_generate`.  attn_impl
+    as there; on "fused" each step's attention is the one fused kernel.
     """
     cfg = model.cfg
     B, L = input_ids.shape

@@ -1,11 +1,19 @@
-"""Packed omni attention: the CUDA kernel's wrapper, its plain version, and
-the span metadata it reads.
+"""Omni attention: the CUDA kernel's two wrappers, their plain versions, and
+the span metadata they read.
 
-Counterpart of ``showo_tpu/ops/flash_attention.py``.  ``omni_attention_packed``
-replaces the Pallas ``omni_attention_packed`` (kernel
-``_attn_kernel_packed``) with the hand-written Hopper kernel in
-``csrc/omni_attention_packed.cu``.  The mask is recomputed from O(S)
-metadata instead of a [B, 1, Q, S] bias:
+Counterpart of ``showo_tpu/ops/flash_attention.py``.  Two entry points,
+as in the JAX package, compute the same function on two layouts:
+
+* ``omni_attention_packed``: q/k/v [B, S, H*D], GQA (replaces the Pallas
+  ``omni_attention_packed``, kernel ``_attn_kernel_packed``);
+* ``omni_attention``: head-major q/k/v [B, H, S, D] (replaces the Pallas
+  ``omni_attention``, kernel ``_attn_kernel``), taking strided views as
+  they are.
+
+Both launch the hand-written Hopper kernel of ``csrc/omni_attention.cuh``
+(entries ``csrc/omni_attention_packed.cu`` and ``csrc/omni_attention.cu``),
+which reads the layouts through their strides.  The mask is recomputed
+from O(S) metadata instead of a [B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -20,10 +28,11 @@ through shared memory and the launch shape limit it, not the tensor
 cores.  The kernel keeps every score on chip (64-row K/V tiles, online
 softmax, no [Q, S] bias or score matrix in device memory), launches one
 block per (batch, head, 64-row q tile) to fill the card, and masks ragged
-edges itself.  See the source for the design.
+edges itself.  See the sources for the design.
 
-The wrapper runs the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+The wrappers run the plain version for CPU tensors only; for CUDA tensors
+they launch the kernel or raise.  ``cuda_build.launches`` counts kernel
+launches by source name.
 """
 
 from __future__ import annotations
@@ -34,17 +43,16 @@ from typing import Optional
 
 import torch
 
-from showo_tpu_torch.ops.cuda_build import load_library
+from showo_tpu_torch.ops import cuda_build
 
 # Masked score in the plain version and the kernel.  Finite, so a row with
 # no visible column averages v instead of producing NaN.
 NEG_INF = -1e30
 
-# Number of times the CUDA kernel was launched (incremented only there).
-launches = 0
-
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p])
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
+_PACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
+_OMNI_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +87,12 @@ def metadata_predict_next(sequence: torch.Tensor, pad_id: int, soi_id: int,
     return seg, pad, last_pad, prefix
 
 
-def gather_seg_q(seg: torch.Tensor, q_positions: torch.Tensor) -> torch.Tensor:
-    """Segment ids of the q rows, gathered from the kv segment map at their
-    positions ([B, Q]); a position past the keys has segment 0."""
-    S = seg.shape[1]
-    got = torch.gather(seg, 1, q_positions.clamp(0, S - 1).long())
-    return torch.where(q_positions >= S, 0, got).to(torch.int32)
+def gather_at(m: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Entries of a [B, L] metadata map at ``positions`` ([B, N]) as int32;
+    a position past the map's end has entry 0."""
+    L = m.shape[1]
+    got = torch.gather(m, 1, positions.clamp(0, L - 1).long())
+    return torch.where(positions >= L, 0, got).to(torch.int32)
 
 
 def q_rows(seg: torch.Tensor, q_positions, batch: int, rows: int):
@@ -92,21 +100,84 @@ def q_rows(seg: torch.Tensor, q_positions, batch: int, rows: int):
     ``q_positions``) and segment ids, both int32 [B, Q] and contiguous, as
     the kernel reads them.  They do not change between layers, so a
     forward computes them once (``models/phi.py``) and every layer's
-    :func:`omni_attention_packed` call takes them as they are."""
+    kernel call takes them as they are."""
     pos = torch.as_tensor(q_positions, device=seg.device).to(torch.int32)
     pos = torch.atleast_2d(pos).expand(batch, rows).contiguous()
-    return pos, gather_seg_q(seg, pos)
+    return pos, gather_at(seg, pos)
 
 
 def visible_mask(seg, pad, last_pad, prefix, q_positions) -> torch.Tensor:
     """The omni predicate as a [B, Q, S] bool tensor."""
     S = seg.shape[1]
     pos = q_positions[:, :, None]
-    seg_q = gather_seg_q(seg, q_positions)[:, :, None]
+    seg_q = gather_at(seg, q_positions)[:, :, None]
     j = torch.arange(S, device=seg.device)[None, None, :]
     vis = (j <= pos) | ((seg_q == seg[:, None, :]) & (seg_q > 0))
     vis = vis | (j < prefix[:, None, None])
     return vis & ((pad[:, None, :] == 0) | (pos <= last_pad[:, None, None]))
+
+
+def _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B: int,
+                 Q: int, S: int, dev):
+    """Defaults, int32 and checks of the metadata both wrappers take:
+    (seg, pad, last_pad, prefix, pos_q, seg_q) as the kernel reads them."""
+    if pad is None:
+        pad = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    if last_pad is None:
+        last_pad = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    if prefix is None:
+        prefix = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if tuple(seg.shape) != (B, S) or tuple(pad.shape) != (B, S):
+        raise ValueError(f"seg/pad must be [B, S] = {(B, S)}, got "
+                         f"{tuple(seg.shape)} / {tuple(pad.shape)}")
+    meta = [torch.as_tensor(m, device=dev).to(torch.int32).contiguous()
+            for m in (seg, pad, last_pad, prefix)]
+    if seg_q is None:
+        if q_positions is None:
+            if Q != S:
+                raise ValueError("q_positions is required when Q != S")
+            q_positions = torch.arange(S, device=dev)
+        q_positions, seg_q = q_rows(meta[0], q_positions, B, Q)
+    for name, t in (("q_positions", q_positions), ("seg_q", seg_q)):
+        if (tuple(t.shape) != (B, Q) or t.dtype != torch.int32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be int32 [B, Q] = {(B, Q)}, "
+                             f"contiguous, on {dev} (see q_rows)")
+    return (*meta, q_positions, seg_q)
+
+
+def _masked_attention(qh, kh, vh, vis, sm_scale):
+    """The plain computation on head-major [B, H, *, D]: fp32 products and
+    softmax under the [B, Q, S] mask, probabilities cast to v's dtype for
+    the second product, as the Pallas kernels do."""
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * sm_scale
+    scores = scores.masked_fill(~vis[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(vh.dtype)
+    return torch.matmul(probs, vh)
+
+
+def _check_operands(kernel: str, tensors: dict, dims: int) -> None:
+    """What the kernels take: bf16 on one device, ``dims`` dims, the last
+    contiguous, strides and base 16-byte aligned (vector loads)."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} kernel takes bf16; {name} is "
+                            f"{t.dtype}")
+        if t.dim() != dims or t.stride(-1) != 1:
+            raise ValueError(f"{kernel}: {name} must have {dims} dims with "
+                             f"a contiguous last dim")
+        if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name}: strides and base must be "
+                             f"16-byte aligned for the kernel's vector loads")
+
+
+def _check_head_dim(kernel: str, D: int) -> None:
+    if D != 64:
+        raise ValueError(f"{kernel} kernel: head dim {D}, the kernel is "
+                         f"built for 64")
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +198,14 @@ def omni_attention_packed_plain(q, k, v, seg, pad, last_pad, prefix,
     S = k.shape[1]
     D = HD // num_heads
     group = num_heads // num_kv_heads
-    qh = q.view(B, Q, num_heads, D).transpose(1, 2).float()
-    kh = k.view(B, S, num_kv_heads, D).transpose(1, 2).float()
+    qh = q.view(B, Q, num_heads, D).transpose(1, 2)
+    kh = k.view(B, S, num_kv_heads, D).transpose(1, 2)
     vh = v.view(B, S, num_kv_heads, D).transpose(1, 2)
     if group > 1:
         kh = kh.repeat_interleave(group, dim=1)
         vh = vh.repeat_interleave(group, dim=1)
-    scores = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
     vis = visible_mask(seg, pad, last_pad, prefix, q_positions)
-    scores = scores.masked_fill(~vis[:, None], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(probs, vh)                      # [B, H, Q, D]
+    out = _masked_attention(qh, kh, vh, vis, sm_scale)   # [B, H, Q, D]
     return out.transpose(1, 2).reshape(B, Q, HD).to(q.dtype)
 
 
@@ -167,86 +235,82 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     dev = q.device
-    if pad is None:
-        pad = torch.zeros((B, S), dtype=torch.int32, device=dev)
-    if last_pad is None:
-        last_pad = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    if prefix is None:
-        prefix = torch.zeros((B,), dtype=torch.int32, device=dev)
-    if tuple(seg.shape) != (B, S) or tuple(pad.shape) != (B, S):
-        raise ValueError(f"seg/pad must be [B, S] = {(B, S)}, got "
-                         f"{tuple(seg.shape)} / {tuple(pad.shape)}")
-    meta = [torch.as_tensor(m, device=dev).to(torch.int32).contiguous()
-            for m in (seg, pad, last_pad, prefix)]
-    if seg_q is None:
-        if q_positions is None:
-            if Q != S:
-                raise ValueError("q_positions is required when Q != S")
-            q_positions = torch.arange(S, device=dev)
-        q_positions, seg_q = q_rows(meta[0], q_positions, B, Q)
-    for name, t in (("q_positions", q_positions), ("seg_q", seg_q)):
-        if (tuple(t.shape) != (B, Q) or t.dtype != torch.int32
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"{name} must be int32 [B, Q] = {(B, Q)}, "
-                             f"contiguous, on {dev} (see q_rows)")
-
+    meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
+                        S, dev)
     if dev.type == "cpu":
         return omni_attention_packed_plain(
-            q, k, v, *meta, q_positions, num_heads=num_heads,
+            q, k, v, *meta[:5], num_heads=num_heads,
             num_kv_heads=num_kv_heads, sm_scale=sm_scale)
     if dev.type != "cuda":
         raise ValueError(f"omni_attention_packed: unsupported device {dev}")
-    return _launch(q, k, v, *meta, q_positions, seg_q, num_heads=num_heads,
-                   num_kv_heads=num_kv_heads, sm_scale=sm_scale)
-
-
-def _kernel():
-    lib = load_library("omni_attention_packed")
-    fn = lib.omni_attention_packed_bf16
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(q, k, v, seg, pad, last_pad, prefix, pos_q, seg_q, *,
-            num_heads, num_kv_heads, sm_scale):
-    global launches
-    B, Q, HD = q.shape
-    S = k.shape[1]
-    D = HD // num_heads
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"omni_attention_packed kernel takes bf16; "
-                            f"{name} is {t.dtype}")
-        if t.dim() != 3 or t.stride(-1) != 1:
-            raise ValueError(f"{name} must be [B, rows, heads*D] with a "
-                             f"contiguous last dim")
-        if t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides and base must be 16-byte "
-                             f"aligned for the kernel's vector loads")
-    if D != 64:
-        raise ValueError(f"omni_attention_packed kernel: head dim {D}, "
-                         f"the kernel is built for 64")
+    _check_operands("omni_attention_packed", {"q": q, "k": k, "v": v}, 3)
+    _check_head_dim("omni_attention_packed", D)
     if tuple(k.shape) != (B, S, num_kv_heads * D) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, S, Hkv*D] = "
                          f"{(B, S, num_kv_heads * D)}, got {tuple(k.shape)}"
                          f" / {tuple(v.shape)}")
-    out = torch.empty((B, Q, HD), dtype=q.dtype, device=q.device)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 seg.data_ptr(), pad.data_ptr(), last_pad.data_ptr(),
-                 prefix.data_ptr(), pos_q.data_ptr(), seg_q.data_ptr(),
-                 B, Q, S, num_heads, num_kv_heads, D,
-                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError(f"omni_attention_packed kernel launch failed: "
-                           f"cudaError {err}")
-    launches += 1
+    out = torch.empty((B, Q, HD), dtype=q.dtype, device=dev)
+    cuda_build.launch(
+        "omni_attention_packed", "omni_attention_packed_bf16", _PACKED_ARGS,
+        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(m.data_ptr() for m in meta), B, Q, S, num_heads, num_kv_heads, D,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), out.stride(0), out.stride(1), float(sm_scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Head-major omni attention
+# ---------------------------------------------------------------------------
+
+def omni_attention_plain(q, k, v, seg, pad, last_pad, prefix, q_positions,
+                         *, sm_scale: float):
+    """Plain PyTorch version of :func:`omni_attention`: q [B, H, Q, D],
+    k/v [B, H, S, D], metadata int32 with ``q_positions`` [B, Q]; fp32
+    scores and softmax, probabilities cast to v's dtype.  Returns
+    [B, H, Q, D] in q's dtype."""
+    vis = visible_mask(seg, pad, last_pad, prefix, q_positions)
+    return _masked_attention(q, k, v, vis, sm_scale).to(q.dtype)
+
+
+def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
+                   sm_scale: Optional[float] = None, q_positions=None,
+                   seg_q=None):
+    """q: [B, H, Q, D]; k, v: [B, H, S, D]; seg, pad: [B, S] int;
+    last_pad, prefix: [B] int.  Returns [B, H, Q, D] in q's dtype.
+
+    Q == S by default (self-attention); with a prefix cache pass
+    ``q_positions``, the q rows' kv positions, [Q] or [B, Q].  ``seg_q``,
+    when given, says that ``q_positions`` and ``seg_q`` already are the
+    int32 [B, Q] pair of :func:`q_rows`.  Any strided view whose last dim
+    is contiguous is taken as it is (``x.transpose(1, 2)`` of [B, S, H, D]
+    projections costs no copy); the kernel's output is a [B, H, Q, D] view
+    of a [B, Q, H, D] tensor, so transposing it back is free as well.
+
+    CPU tensors go through the plain version; CUDA tensors through the
+    kernel (bf16, head dim 64), which raises on what it does not take.
+    """
+    B, H, Q, D = q.shape
+    S = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
+                        S, dev)
+    if dev.type == "cpu":
+        return omni_attention_plain(q, k, v, *meta[:5], sm_scale=sm_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"omni_attention: unsupported device {dev}")
+    _check_operands("omni_attention", {"q": q, "k": k, "v": v}, 4)
+    _check_head_dim("omni_attention", D)
+    if tuple(k.shape) != (B, H, S, D) or v.shape != k.shape:
+        raise ValueError(f"k/v must be [B, H, S, D] = {(B, H, S, D)}, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    out = torch.empty((B, Q, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    cuda_build.launch(
+        "omni_attention", "omni_attention_bf16", _OMNI_ARGS, dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(m.data_ptr() for m in meta), B, H, Q, S, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(sm_scale))
     return out

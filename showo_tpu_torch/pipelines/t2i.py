@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from showo_tpu_torch.models.magvit import MagvitV2
-from showo_tpu_torch.models.phi import fuse_parallel_mlp
+from showo_tpu_torch.models.phi import check_route, fuse_parallel_mlp
 from showo_tpu_torch.models.showo import Showo, showo_t2i_generate_cached
 from showo_tpu_torch.ops.masks import omni_mask_predict_next
 from showo_tpu_torch.prompting import UniversalPrompting
@@ -25,10 +25,11 @@ from showo_tpu_torch.sampling.schedules import get_mask_schedule
 
 def route_attention(attn_impl: str, num_vq_tokens: int) -> str:
     """``auto``: the packed omni kernel at 512^2 (1024 image tokens and
-    more), dense attention below, as the JAX pipeline routes."""
+    more), dense attention below, as the JAX pipeline routes.  Any other
+    name must be a ported route of ``models/phi.py::ATTN_ROUTES``."""
     if attn_impl == "auto":
         return "packed" if num_vq_tokens >= 1024 else "dense"
-    return attn_impl
+    return check_route(attn_impl)
 
 
 @dataclasses.dataclass
@@ -41,7 +42,9 @@ class T2IPipeline:
     temperature: float = 1.0
     mask_schedule: str = "cosine"
     max_seq_length: int = 128
-    attn_impl: str = "auto"     # auto | dense | packed
+    # auto | dense | packed | omni | decode | fused (JAX: auto, dense,
+    # pallas_packed, pallas, pallas_decode, pallas_fused)
+    attn_impl: str = "auto"
 
     def __post_init__(self):
         # inference-only weight re-layout, as the JAX pipeline's default

@@ -1,0 +1,91 @@
+"""Device-time breakdown of one warm 512x512 text-to-image generate call.
+
+    python -m showo_tpu_torch.profile_t2i --route fused
+
+Builds the pipeline of ``configs/showo_demo_512x512.yaml`` (Show-o 1.3B,
+random weights from a fixed seed, bf16, 16 steps, CFG 1.75, batch 2) on
+one attention route, warms it up, and profiles one ``generate`` call with
+``torch.profiler`` (CPU and CUDA activities).  Prints the wall time, the
+device's busy time within its kernel span (and so its idle share), the
+number of kernel launches, and the 15 largest rows of device time by
+operator (or by kernel, for the port's own kernels, which no operator
+launches), each with its share of the busy time.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from showo_tpu_torch import inference_t2i
+from showo_tpu_torch.config import load_config
+
+# the port's kernels (csrc/), listed by their __global__ names
+_OURS = ("omni_attention_kernel", "decode_attention_kernel",
+         "fused_decode_kernel")
+
+
+def _busy_ms(events) -> tuple:
+    """(busy ms, span ms, kernel count) of the device events: the union
+    of their intervals, and first start to last end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, len(spans)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--route", default="auto")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_t2i needs a CUDA card")
+    config = load_config("configs/showo_demo_512x512.yaml",
+                         ["guidance_scale=1.75", "generation_timesteps=16"])
+    pipe = inference_t2i.build_pipeline(config, torch.device("cuda"),
+                                        attn_impl=args.route)
+    prompts = inference_t2i.load_prompts(config)[:2]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe.generate(prompts, gen)                                # warm-up
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.generate(prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device events")
+    busy, span, count = _busy_ms(kernels)
+    print(f"route {pipe.attn_route}: generate {wall:.4f} s wall; device "
+          f"busy {busy:.2f} ms of a {span:.2f} ms kernel span (idle share "
+          f"{1 - busy / span:.4f}); {count} kernel launches")
+    # device time of the operators that launched kernels, and of the
+    # port's own kernels, which no operator launches (ctypes calls)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    rows = [a for a in prof.key_averages()
+            if a.self_device_time_total > 0 and (
+                (a.device_type == cpu and not a.key.startswith("cuda"))
+                or (a.device_type == cuda and any(k in a.key for k in _OURS)))]
+    rows.sort(key=lambda a: -a.self_device_time_total)
+    print(f"{'operator or kernel':<48} {'calls':>7} {'device ms':>10} "
+          f"{'share':>7}")
+    for a in rows[:15]:
+        ms = a.self_device_time_total / 1e3
+        print(f"{a.key[:48]:<48} {a.count:>7} {ms:>10.2f} "
+              f"{ms / busy:>7.1%}")
+    listed = sum(a.self_device_time_total for a in rows) / 1e3
+    print(f"all rows: {listed:.2f} ms of the {busy:.2f} ms busy")
+
+
+if __name__ == "__main__":
+    main()

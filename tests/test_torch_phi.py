@@ -1,10 +1,12 @@
 """showo_tpu_torch Phi vs the reference golden (tests/golden/phi_tiny.npz)
 and vs JAX ``phi_forward`` in its three modes (no cache, prefill into a
-cache, static prefix), with ``fuse_parallel_mlp`` params on both sides.
-fp32 on the CPU; tolerance atol 2e-5, rtol 1e-4, as tests/test_phi.py
-(two implementations of the same fp32 math, differing in summation
-order)."""
+cache, static prefix), with ``fuse_parallel_mlp`` params on both sides,
+on every ported attention route (the JAX Pallas kernels in interpret
+mode, the port's plain versions).  fp32 on the CPU; tolerance atol 2e-5,
+rtol 1e-4, as tests/test_phi.py (two implementations of the same fp32
+math, differing in summation order)."""
 
+import contextlib
 import os
 from unittest import mock
 
@@ -14,7 +16,9 @@ import pytest
 import torch
 
 from showo_tpu.models import phi as jphi
+from showo_tpu.ops import decode_attention as jda
 from showo_tpu.ops import flash_attention as jfa
+from showo_tpu.ops import fused_decode as jfd
 from showo_tpu.ops.masks import omni_mask_predict_next as j_mask
 from showo_tpu.utils.torch_import import phi_params_from_torch
 from showo_tpu_torch.models import phi as tphi
@@ -32,6 +36,52 @@ T_TINY = tphi.PhiConfig(vocab_size=120, hidden_size=64, intermediate_size=128,
                         num_layers=2, num_heads=4, max_position_embeddings=128)
 TOL = dict(atol=2e-5, rtol=1e-4)
 PAD, SOI, EOI = 99, 101, 102
+KERNEL_ROUTES = ["packed", "omni", "decode", "fused"]
+
+
+@contextlib.contextmanager
+def jax_kernels_interpreted():
+    """The JAX package's Pallas kernels in interpret mode, as its own tests
+    run them on the CPU (block_q 8 for the omni kernels)."""
+    def interp(fn, **defaults):
+        def run(*args, **kw):
+            kw["interpret"] = True
+            for k, v in defaults.items():
+                kw.setdefault(k, v)
+            return fn(*args, **kw)
+        return run
+
+    with mock.patch.object(jfa, "omni_attention_packed",
+                           interp(jfa.omni_attention_packed, block_q=8)), \
+            mock.patch.object(jfa, "omni_attention",
+                              interp(jfa.omni_attention, block_q=8)), \
+            mock.patch.object(jda, "decode_attention",
+                              interp(jda.decode_attention)), \
+            mock.patch.object(jfd, "fused_decode_attention",
+                              interp(jfd.fused_decode_attention)):
+        yield
+
+
+# the port function each route's layers call (``fused`` outside the static
+# prefix cached step: the omni kernel)
+ROUTE_FN = {"packed": "omni_attention_packed", "omni": "omni_attention",
+            "decode": "decode_attention", "fused": "fused_decode_attention"}
+
+
+def spy_route(route, static=True):
+    """Wraps the port function ``route`` must reach; check ``call_count``."""
+    name = ROUTE_FN[route] if static or route != "fused" else "omni_attention"
+    return mock.patch.object(tphi, name, wraps=getattr(tphi, name))
+
+
+def _metas(ids, route):
+    """(JAX attn_meta, port attn_meta) of ``route`` for token rows ids."""
+    if route == "dense":
+        return None, None
+    return ((tphi.ATTN_ROUTES[route],)
+            + jfa.metadata_predict_next(jnp.asarray(ids), PAD, SOI, EOI),
+            (route,) + tfa.metadata_predict_next(torch.as_tensor(ids), PAD,
+                                                 SOI, EOI))
 
 
 @pytest.fixture(scope="module")
@@ -116,12 +166,33 @@ def test_prefill_and_decode_cache_vs_jax(golden):
     np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v), **TOL)
 
 
-@pytest.mark.parametrize("route", ["dense", "packed"])
+@pytest.mark.parametrize("route", ["omni", "decode", "fused"])
+def test_no_cache_routes_vs_jax(golden, route):
+    """The uncached forward on each kernel route (``fused`` falls through
+    to the omni kernel, as in JAX), against JAX with its Pallas kernels in
+    interpret mode."""
+    ids = _t2i_rows(4)
+    jbias = j_mask(jnp.asarray(ids), PAD, SOI, EOI, rm_pad_in_image=True)
+    jmeta, tmeta = _metas(ids, route)
+    with jax_kernels_interpreted():
+        want, _ = jphi.phi_forward(J_TINY, _jax_params(golden),
+                                   input_ids=jnp.asarray(ids),
+                                   attention_bias=jbias, attn_meta=jmeta)
+    with torch.no_grad(), spy_route(route, static=False) as spy:
+        got, _ = _port(golden, "mlp")(
+            input_ids=torch.as_tensor(ids),
+            attention_bias=torch.tensor(np.asarray(jbias)), attn_meta=tmeta)
+    assert spy.call_count == T_TINY.num_layers
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("route", ["dense"] + KERNEL_ROUTES)
 def test_static_prefix_vs_jax(golden, route):
     """The cached MaskGIT step: prefill the text prefix, then forward the
     image span against it (static_prefix_len) with the sliced lm head.
-    The packed route runs the JAX Pallas kernel in interpret mode and the
-    port's plain version."""
+    The kernel routes run the JAX Pallas kernels in interpret mode and the
+    port's plain versions; on ``fused`` both take the one-kernel layer
+    (``win`` params)."""
     ids = _t2i_rows(2)
     B, L = ids.shape
     P = 10
@@ -141,41 +212,62 @@ def test_static_prefix_vs_jax(golden, route):
         port(input_ids=torch.as_tensor(ids[:, :P]),
              attention_bias=tbias[:, :, :P], cache=tcache)
 
-    jmeta = tmeta = None
-    if route == "packed":
-        jmeta = ("pallas_packed",) + jfa.metadata_predict_next(
-            jnp.asarray(ids), PAD, SOI, EOI)
-        tmeta = ("packed",) + tfa.metadata_predict_next(
-            torch.as_tensor(ids), PAD, SOI, EOI)
-    orig = jfa.omni_attention_packed
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        kw.setdefault("block_q", 8)
-        return orig(*args, **kw)
-
-    with mock.patch.object(jfa, "omni_attention_packed", interp):
+    jmeta, tmeta = _metas(ids, route)
+    with jax_kernels_interpreted():
         want, _ = jphi.phi_forward(
             J_TINY, jparams, input_ids=jnp.asarray(ids[:, P:]),
             attention_bias=jbias[:, :, P:], cache=jcache, attn_meta=jmeta,
             lm_head_slice=head, static_prefix_len=P)
-    with torch.no_grad():
+    with torch.no_grad(), (spy_route(route) if tmeta else
+                           contextlib.nullcontext()) as spy:
         got, _ = port(input_ids=torch.as_tensor(ids[:, P:]),
                       attention_bias=tbias[:, :, P:], cache=tcache,
                       attn_meta=tmeta, lm_head_slice=head,
                       static_prefix_len=P)
+    assert spy is None or spy.call_count == T_TINY.num_layers
     assert got.shape == (B, L - P - 2, 16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("route", ["pallas", "pallas_fused", "pallas_decode",
-                                   "pallas_streaming", "pallas_trainable"])
+@pytest.mark.parametrize("route", ["streaming", "trainable"])
 def test_later_routes_raise(golden, route):
+    """Routes whose kernels are not ported yet raise."""
     port = _port(golden)
     ids = torch.as_tensor(_t2i_rows(3))
     meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=tphi.ATTN_ROUTES[route]):
         port(input_ids=ids, attn_meta=meta)
+
+
+@pytest.mark.parametrize("route", ["pallas", "pallas_fused", "pallas_decode",
+                                   "pallas_packed", "flash", "dense"])
+def test_unknown_route_raises(golden, route):
+    """The port takes its own route names only: a JAX impl string, an
+    unknown name, or ``dense`` given as metadata raise ValueError."""
+    port = _port(golden)
+    ids = torch.as_tensor(_t2i_rows(3))
+    meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
+    with pytest.raises(ValueError, match=repr(route)
+                       if route != "dense" else "attn_meta=None"):
+        port(input_ids=ids, attn_meta=meta)
+
+
+def test_route_table_names_the_jax_routes():
+    """One table: every port route maps to the JAX impl string phi's
+    ``_attention`` / ``_layer`` branch on, and each is accepted or raises
+    by whether its kernel is ported."""
+    import inspect
+
+    jax_src = inspect.getsource(jphi._attention) + inspect.getsource(
+        jphi._layer)
+    for route, jax_name in tphi.ATTN_ROUTES.items():
+        if jax_name is not None and jax_name != "pallas":
+            assert f'"{jax_name}"' in jax_src, jax_name
+        if route in ("streaming", "trainable"):
+            with pytest.raises(NotImplementedError):
+                tphi.check_route(route)
+        else:
+            assert tphi.check_route(route) == route
 
 
 def test_init_random_matches_jax_scheme():

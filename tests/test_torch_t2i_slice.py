@@ -2,7 +2,8 @@
 
 * Prefix-cached and uncached MaskGIT with injected Gumbel noise are
   token-exact against the reference golden (tests/golden/maskgit_tiny.npz),
-  on the dense and the packed attention route.
+  on the dense route and every kernel route (packed, omni, decode, fused;
+  uncached fused falls through to the omni kernel).
 * The pipeline (prompting, omni mask, cached MaskGIT with CFG through the
   packed route, code clamp, MAGVIT decode) matches the JAX package fed
   the same weights and noise: inputs bit-exact, tokens exact, images at
@@ -35,12 +36,13 @@ from showo_tpu.utils.torch_export import phi_state_dict
 from showo_tpu_torch.models import magvit as tmv
 from showo_tpu_torch.models import phi as tphi
 from showo_tpu_torch.models import showo as tshowo
-from showo_tpu_torch.ops import flash_attention as tfa
+from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.pipelines.t2i import T2IPipeline, route_attention
 from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.utils.convert import (load_magvit, load_showo,
                                            magvit_state_dict)
 from showo_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+from tests.test_torch_phi import jax_kernels_interpreted, spy_route
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import fake_tokenizer as jfake  # noqa: E402
@@ -76,14 +78,19 @@ def golden():
 
 
 @pytest.mark.parametrize("cached", [True, False], ids=["cached", "uncached"])
-@pytest.mark.parametrize("route", ["dense", "packed"])
+@pytest.mark.parametrize("route", ["dense", "packed", "omni", "decode",
+                                   "fused"])
 def test_maskgit_token_exact_vs_golden(golden, cached, route):
     sd = {k[3:]: golden[k] for k in golden.files if k.startswith("w::")}
     model = load_showo(tshowo.Showo(GOLDEN_CFG), sd).eval()
+    if route == "fused":
+        # the one-kernel step reads the win projection (as JAX's
+        # tests/test_fused_decode.py fuses the params)
+        tphi.fuse_parallel_mlp(model.showo)
     bias = torch.where(torch.as_tensor(golden["bias"]) < 0, -1e9, 0.0)
     gen = (tshowo.showo_t2i_generate_cached if cached
            else tshowo.showo_t2i_generate)
-    before = tfa.launches
+    before = sum(cuda_build.launches.values())
     tokens = gen(model, torch.as_tensor(golden["input_ids"]),
                  uncond_input_ids=torch.as_tensor(golden["uncond_ids"]),
                  attention_bias=bias, guidance_scale=1.75, temperature=1.1,
@@ -91,7 +98,8 @@ def test_maskgit_token_exact_vs_golden(golden, cached, route):
                  injected_noise=(golden["g_sample"], golden["g_conf"]),
                  attn_impl=route, pad_id=99, soi_id=101, eoi_id=102)
     np.testing.assert_array_equal(tokens.numpy(), golden["tokens"])
-    assert tfa.launches == before  # CPU tensors never reach the kernel
+    # CPU tensors never reach a kernel
+    assert sum(cuda_build.launches.values()) == before
 
 
 def test_maskgit_generator_noise_is_seeded(golden):
@@ -194,10 +202,84 @@ def test_pipeline_vs_jax(pipelines):
     np.testing.assert_allclose(timages, jimages, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("route", ["omni", "decode", "fused"])
+def test_pipeline_routes_vs_jax(pipelines, route):
+    """The pipeline's codes on each new kernel route, on the weights of
+    the packed pipeline, equal the JAX pipeline's codes on the same route
+    (its Pallas kernels in interpret mode) under the same noise."""
+    jpipe, tpipe = pipelines
+    rng = np.random.default_rng(1)
+    g_sample = rng.gumbel(size=(STEPS, 2, 16, 16)).astype(np.float32)
+    g_conf = rng.gumbel(size=(STEPS, 2, 16)).astype(np.float32)
+    ids, uncond, bias = jpipe._build_inputs(
+        PROMPTS, np.full((2, 16), 1026, np.int64))
+    sp = jpipe.uni_prompting.sptids
+    with jax_kernels_interpreted():
+        jcodes = jshowo.showo_t2i_generate_cached(
+            jpipe.cfg, jpipe.params, ids, jax.random.PRNGKey(0),
+            uncond_input_ids=uncond, attention_bias=bias,
+            guidance_scale=1.75, temperature=1.0, timesteps=STEPS,
+            max_seq_length=MAX_SEQ,
+            injected_noise=(jnp.asarray(g_sample), jnp.asarray(g_conf)),
+            use_pallas_attention=tphi.ATTN_ROUTES[route],
+            pad_id=sp["<|pad|>"], soi_id=sp["<|soi|>"],
+            eoi_id=sp["<|eoi|>"])
+    pipe = T2IPipeline(model=tpipe.model, vq=tpipe.vq,
+                       uni_prompting=tpipe.uni_prompting, attn_impl=route,
+                       guidance_scale=1.75, timesteps=STEPS,
+                       max_seq_length=MAX_SEQ)
+    assert pipe.attn_route == route
+    with spy_route(route) as spy:
+        tcodes = pipe.generate_codes(PROMPTS,
+                                     injected_noise=(g_sample, g_conf))
+    assert spy.call_count == STEPS * 2          # steps x layers
+    np.testing.assert_array_equal(tcodes.numpy(),
+                                  np.clip(np.asarray(jcodes), 0, 15))
+
+
+def test_build_pipeline_takes_the_route():
+    """``build_pipeline(config, device, attn_impl=...)`` builds the
+    pipeline on that route (tiny dims, random weights)."""
+    from showo_tpu_torch import inference_t2i
+    from showo_tpu_torch.config import load_config
+
+    config = load_config(os.path.join(REPO, "configs",
+                                      "showo_demo_512x512.yaml"), [
+        "model.showo.num_vq_tokens=16", "dataset.params.resolution=64",
+        "dataset.preprocessing.max_seq_length=16", "generation_timesteps=2",
+        "model.showo.phi={hidden_size: 64, intermediate_size: 128, "
+        "num_layers: 2, num_heads: 4}",
+        "model.vq_model.dims={ch: 32, dec_ch_mult: [1, 1, 2], "
+        "dec_num_res_blocks: [1, 1, 1]}"])
+    pipe = inference_t2i.build_pipeline(config, torch.device("cpu"),
+                                        attn_impl="fused")
+    assert pipe.attn_route == "fused"
+    with spy_route("fused") as spy:
+        codes = pipe.generate_codes(["a cat"],
+                                    torch.Generator().manual_seed(0))
+    assert spy.call_count == 2 * 2
+    assert codes.shape == (1, 16)
+    assert inference_t2i.build_pipeline(
+        config, torch.device("cpu")).attn_route == "dense"
+
+
 def test_auto_route_follows_the_jax_pipeline():
     assert route_attention("auto", 1024) == "packed"
     assert route_attention("auto", 256) == "dense"
     assert route_attention("dense", 1024) == "dense"
+
+
+@pytest.mark.parametrize("route", ["packed", "omni", "decode", "fused"])
+def test_named_routes_pass_through(route):
+    assert route_attention(route, 1024) == route
+    assert route_attention(route, 256) == route
+
+
+def test_route_names_are_checked():
+    with pytest.raises(ValueError, match="pallas_fused"):
+        route_attention("pallas_fused", 1024)
+    with pytest.raises(NotImplementedError):
+        route_attention("streaming", 1024)
 
 
 def test_cli_runs_without_jax(tmp_path):
