@@ -7,14 +7,19 @@ layouts at the public functions: NHWC images in [-1, 1], packed
 ``[B, S, H*D]`` attention, ``[B, 1, Q, K]`` additive bias.
 
 The port imports ``torch`` and never ``jax``, nor the JAX package: the
-host code it needs (``config.py``, the t2i part of ``prompting.py``, the
-stand-in tokenizer ``utils/fake_tokenizer.py``, the checkpoint reader in
-``utils/convert.py``) has its own copy here, held to the JAX package's by
-the tests.  Hand-written CUDA kernels live under ``csrc/`` and
-are built with ``nvcc`` at first use (see ``ops/cuda_build.py``).
+host code it needs (``config.py``, the t2i and training parts of
+``prompting.py``, the stand-in tokenizer ``utils/fake_tokenizer.py``, the
+checkpoint reader in ``utils/convert.py``) has its own copy here, held to
+the JAX package's by the tests.  Hand-written CUDA kernels live under
+``csrc/`` and are built with ``nvcc`` at first use (see
+``ops/cuda_build.py``).
 
 Ported so far: the Show-o v1 text-to-image path (prefix-cached MaskGIT
-with CFG, MAGVIT-v2 decode) and its one kernel, packed omni attention.
+with CFG, MAGVIT-v2 decode) on four inference attention kernels, and the
+v1 stage-1 trainer (``training/``: MAGVIT-v2 encode, corruption, the
+fused t2i + lm + mmu step, AdamW) on the trainable attention kernels
+(forward, dq, dk/dv).  The entry points run on CUDA unless the caller
+asks for the CPU.
 """
 
 __version__ = "0.1.0"

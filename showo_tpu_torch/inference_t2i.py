@@ -12,9 +12,10 @@ The tokenizer loads from a local ``model.showo.llm_model_path`` through
 ``transformers``; otherwise the deterministic
 ``showo_tpu_torch.utils.fake_tokenizer`` stands in.  Prompts come from
 ``validation_prompts_file`` when it exists, else from the in-tree
-``assets/validation/text2image_prompts.txt``.  Runs on CUDA in bf16 when
-a card is present, else on the CPU in fp32.  Writes one PNG per prompt
-into ``output_dir``.
+``assets/validation/text2image_prompts.txt``.  Runs on CUDA in bf16, or
+on the CPU in fp32 when the config key ``device=cpu`` asks for it;
+without a card and without that key it raises.  Writes one PNG per
+prompt into ``output_dir``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from showo_tpu_torch.pipelines.t2i import T2IPipeline
 from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.utils.convert import (load_magvit,
                                            load_reference_weights, load_showo)
+from showo_tpu_torch.utils.device import entry_device
 
 logger = logging.getLogger(__name__)
 
@@ -121,13 +123,12 @@ def build_pipeline(config, device: Optional[torch.device] = None,
                    attn_impl: str = "auto") -> T2IPipeline:
     """Config -> ready T2IPipeline (weights loaded or random-init).
 
-    device defaults to CUDA when present, else CPU.  Show-o runs in bf16
-    on CUDA (the kernels' type) and fp32 on the CPU; MAGVIT runs in fp32,
-    as in the JAX pipeline.  attn_impl: the pipeline's attention route
+    device defaults to CUDA and raises without a card; the CPU runs only
+    when asked for (``device="cpu"``).  Show-o runs in bf16 on CUDA (the
+    kernels' type) and fp32 on the CPU; MAGVIT runs in fp32, as in the JAX
+    pipeline.  attn_impl: the pipeline's attention route
     (``T2IPipeline.attn_impl``)."""
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    device = entry_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = build_showo_config(config)
     return T2IPipeline(
@@ -163,7 +164,7 @@ def main() -> None:
             f"mode={mode} needs the MAGVIT encoder, not ported yet")
     if mode != "t2i":
         raise SystemExit(f"unknown mode {mode}")
-    pipe = build_pipeline(config)
+    pipe = build_pipeline(config, device=config.get("device"))
     batch_size = int(config.get("batch_size", 4))
     generator = torch.Generator(device=pipe.device).manual_seed(
         int(config.get("seed", 0)))

@@ -1,17 +1,19 @@
-"""MAGVIT-v2 decoder with lookup-free quantisation (LFQ) codes.
+"""MAGVIT-v2 with lookup-free quantisation (LFQ) codes.
 
-Counterpart of the decoder side of ``showo_tpu/models/magvit.py``:
-``GroupNorm(32, eps=1e-6)``, ``ResnetBlock``, the mid-block ``AttnBlock``
-(single-head attention over the spatial grid, plain matmul + softmax),
-nearest-2x ``Upsample``, ``VQGANDecoder``, the LFQ bit-unpack
-``lfq_codebook_entry`` and ``decode_code``.  NCHW inside; ``decode_code``
-returns NHWC, as the JAX package does.  The module tree carries the
-reference checkpoint's names (``decoder.up.{i}.block.{j}.conv1`` ...), so
-the decoder half of a reference state dict loads as it is
-(``utils/convert.py::load_magvit``).
+Counterpart of ``showo_tpu/models/magvit.py``: ``GroupNorm(32,
+eps=1e-6)``, ``ResnetBlock``, the mid-block ``AttnBlock`` (single-head
+attention over the spatial grid, plain matmul + softmax), nearest-2x
+``Upsample``, stride-2 ``Downsample`` with the reference's asymmetric
+(0, 1) pad, ``VQGANEncoder`` (+ ``quant_conv``), ``VQGANDecoder``, the LFQ
+bit arithmetic (``lfq_quantize``, ``lfq_indices``,
+``lfq_codebook_entry``) and the facade's ``encode`` / ``get_code`` /
+``decode_code``.  NCHW inside; pixels go in and images come out NHWC, as
+in the JAX package.  The module tree carries the reference checkpoint's
+names (``encoder.down.{i}.block.{j}.conv1``, ``decoder.up.{i}...``), so a
+reference state dict loads as it is (``utils/convert.py::load_magvit``).
 
-The encoder (``get_code``), inpainting and extrapolation are not ported
-yet.
+``lfq_losses`` (MAGVIT training), inpainting and extrapolation are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -84,6 +86,18 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class Downsample(nn.Module):
+    """A 3x3 stride-2 conv after padding one row and one column at the
+    bottom and right only (the reference's asymmetric pad)."""
+
+    def __init__(self, channels: int, **kw):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, **kw)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class Upsample(nn.Module):
     """Nearest-neighbour 2x, then a 3x3 conv."""
 
@@ -115,6 +129,52 @@ class _UpLevel(nn.Module):
             for j in range(num_blocks))
         if upsample:
             self.upsample = Upsample(block_out, **kw)
+
+
+class _DownLevel(nn.Module):
+    def __init__(self, block_in: int, block_out: int, num_blocks: int,
+                 downsample: bool, **kw):
+        super().__init__()
+        self.block = nn.ModuleList(
+            ResnetBlock(block_in if j == 0 else block_out, block_out, **kw)
+            for j in range(num_blocks))
+        if downsample:
+            self.downsample = Downsample(block_out, **kw)
+
+
+class VQGANEncoder(nn.Module):
+    """conv_in, the ch_mult levels (res blocks, then a downsample but on
+    the last), mid (res + attn + res), GroupNorm / swish, conv_out to
+    z_channels, quant_conv 1x1."""
+
+    def __init__(self, cfg: VQConfig = VQConfig(), device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n = len(cfg.enc_ch_mult)
+        self.conv_in = nn.Conv2d(cfg.in_ch, cfg.ch, 3, padding=1, **kw)
+        levels, block_in = [], cfg.ch
+        for i in range(n):
+            block_out = cfg.ch * cfg.enc_ch_mult[i]
+            levels.append(_DownLevel(block_in, block_out,
+                                     cfg.enc_num_res_blocks[i], i != n - 1,
+                                     **kw))
+            block_in = block_out
+        self.down = nn.ModuleList(levels)
+        self.mid = _Mid(block_in, **kw)
+        self.norm_out = group_norm(block_in, **kw)
+        self.conv_out = nn.Conv2d(block_in, cfg.z_channels, 3, padding=1,
+                                  **kw)
+        self.quant_conv = nn.Conv2d(cfg.z_channels, cfg.z_channels, 1, **kw)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for block in level.block:
+                h = block(h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.conv_out(swish(self.norm_out(self.mid(h))))
+        return self.quant_conv(h)
 
 
 class VQGANDecoder(nn.Module):
@@ -151,6 +211,19 @@ class VQGANDecoder(nn.Module):
         return self.conv_out(swish(self.norm_out(h)))
 
 
+def lfq_quantize(z: torch.Tensor) -> torch.Tensor:
+    """sign(z) in {-1, +1} (0 -> -1) with a straight-through estimator."""
+    q = torch.where(z > 0, 1.0, -1.0).to(z.dtype)
+    return z + (q - z).detach()
+
+
+def lfq_indices(z_q: torch.Tensor, codebook_dim: int = 13) -> torch.Tensor:
+    """[..., codebook_dim] signs -> integer codes; channel c carries
+    2^(codebook_dim - 1 - c)."""
+    power = 2 ** torch.arange(codebook_dim - 1, -1, -1, device=z_q.device)
+    return ((z_q > 0).long() * power).sum(dim=-1)
+
+
 def lfq_codebook_entry(indices: torch.Tensor,
                        codebook_dim: int = 13) -> torch.Tensor:
     """Integer codes -> sign vectors in {-1, +1}, [..., codebook_dim]
@@ -161,13 +234,29 @@ def lfq_codebook_entry(indices: torch.Tensor,
 
 
 class MagvitV2(nn.Module):
-    """``decode_code`` of the reference facade.  Codes are [B, h*w] ints;
-    images come out NHWC."""
+    """``encode`` / ``get_code`` / ``decode_code`` of the reference facade.
+    Pixels are NHWC in [-1, 1]; codes are [B, h*w] ints (h, w = H/16,
+    W/16 at the default depth); images come out NHWC."""
 
     def __init__(self, cfg: VQConfig = VQConfig(), device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.decoder = VQGANDecoder(cfg, device, dtype)
+        # registered after the decoder, so a seeded init_magvit draws the
+        # decoder's weights first, as before the encoder was ported
+        self.encoder = VQGANEncoder(cfg, device, dtype)
+
+    def encode(self, pixels: torch.Tensor):
+        """(z_q NHWC in {-1, +1}, codes [B, h*w])."""
+        p = next(self.parameters())
+        z = self.encoder(pixels.permute(0, 3, 1, 2).to(p.dtype))
+        z_q = lfq_quantize(z.permute(0, 2, 3, 1))
+        codes = lfq_indices(z_q, self.cfg.z_channels)
+        return z_q, codes.reshape(pixels.shape[0], -1)
+
+    @torch.no_grad()
+    def get_code(self, pixels: torch.Tensor) -> torch.Tensor:
+        return self.encode(pixels)[1]
 
     @torch.no_grad()
     def decode_code(self, codes: torch.Tensor, hw=None) -> torch.Tensor:
@@ -184,7 +273,7 @@ class MagvitV2(nn.Module):
 
 def init_magvit(cfg: VQConfig, generator: torch.Generator, device=None,
                 dtype=torch.float32) -> MagvitV2:
-    """Random-weight decoder: conv weights N(0, 1/fan_in) (the scale of
+    """Random-weight codec: conv weights N(0, 1/fan_in) (the scale of
     flax's default lecun-normal init), zero biases, unit norm scales."""
     model = MagvitV2(cfg, device=device, dtype=dtype)
     with torch.no_grad():

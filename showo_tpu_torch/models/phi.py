@@ -18,6 +18,10 @@ package scans stacked params).
 
 Per-head LayerNorm has one plain form here; the JAX package switches to a
 segment-matmul form between 400 and 4096 rows, which differs at fp32 eps.
+
+Training keeps the reference layout (separate q/k/v, ``dense``, ``fc1``,
+``fc2``) and passes ``remat`` to ``Phi.forward`` ("full": each layer
+recomputed in the backward, ``utils/remat.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +37,12 @@ from torch import nn
 from showo_tpu_torch.ops.decode_attention import decode_attention
 from showo_tpu_torch.ops.flash_attention import (omni_attention,
                                                  omni_attention_packed,
-                                                 q_rows)
+                                                 q_rows, span_meta)
 from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                               fused_rows)
+from showo_tpu_torch.ops.packed_attention_grad import \
+    omni_attention_packed_trainable
+from showo_tpu_torch.utils.remat import wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
 #   dense      einsum attention under the additive bias (no kernel)
@@ -45,7 +52,9 @@ from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
 #   fused      the cached step's LN + RoPE + concat + attention kernel off
 #              the ``win`` output; elsewhere (no static prefix, or no
 #              ``win``) it falls through to ``omni``, as in JAX
-#   streaming, trainable: kernels not ported yet (raise)
+#   trainable  forward, dq and dk/dv kernels under autograd, packed
+#              layout, self-attention only (the training route)
+#   streaming: kernel not ported yet (raises)
 ATTN_ROUTES = {
     "dense": None,
     "packed": "pallas_packed",
@@ -55,7 +64,7 @@ ATTN_ROUTES = {
     "streaming": "pallas_streaming",
     "trainable": "pallas_trainable",
 }
-_NOT_PORTED = ("streaming", "trainable")
+_NOT_PORTED = ("streaming",)
 
 
 def check_route(name: str) -> str:
@@ -77,10 +86,12 @@ def check_route(name: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class AttnStep:
     """One forward's attention route and the metadata its kernel reads,
-    computed once for all layers (:func:`attn_step`).  ``pos_q`` /
-    ``seg_q``: int32 [B, Q] rows of the omni kernels (None for
-    ``decode``); ``fused``: the :func:`fused_rows` tuple when the forward
-    is a static-prefix cached step on the ``fused`` route, else None."""
+    computed once for all layers (:func:`attn_step`): seg / pad /
+    last_pad / prefix int32 and contiguous; ``pos_q`` / ``seg_q``: int32
+    [B, Q] rows of the omni kernels (None for ``decode`` and
+    ``trainable``); ``fused``: the :func:`fused_rows` tuple when the
+    forward is a static-prefix cached step on the ``fused`` route, else
+    None."""
 
     route: str
     seg: torch.Tensor
@@ -100,8 +111,14 @@ def attn_step(attn_meta, q_start: int, rows: int,
     check_route(route)
     if route == "dense":
         raise ValueError("the dense route takes attn_meta=None")
-    step = AttnStep(route, seg, pad, last_pad, prefix)
-    if route == "decode":
+    B, S = seg.shape
+    if route == "trainable" and (q_start != 0 or rows != S):
+        raise ValueError(f"the trainable route is self-attention over the "
+                         f"{S} rows of its metadata; got {rows} rows from "
+                         f"position {q_start}")
+    step = AttnStep(route, *span_meta(seg, pad, last_pad, prefix, B, S,
+                                      seg.device))
+    if route in ("decode", "trainable"):
         return step
     positions = q_start + torch.arange(rows, device=seg.device)
     if route == "fused" and static_prefix_len is not None:
@@ -200,12 +217,13 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
     """q: [B, Q, H, Dh]; k, v: [B, K, H, Dh]; bias: [B, 1, Q, K] additive.
 
     attn_meta: optional :class:`AttnStep` sending attention to its
-    route's kernel: ``packed`` / ``omni`` / ``fused`` recompute the mask
-    from metadata (the bias is unused), ``decode`` adds the bias.  None
-    takes the dense path: scores in ``softmax_dtype`` from exact products
-    of the stored operands, softmax, probabilities cast to v's dtype.
-    The kernels' scores and softmax are fp32 whatever ``softmax_dtype``
-    says, as in JAX.
+    route's kernel: ``packed`` / ``omni`` / ``fused`` / ``trainable``
+    recompute the mask from metadata (the bias is unused), ``decode`` adds
+    the bias.  None takes the dense path: scores in ``softmax_dtype`` from
+    exact products of the stored operands, softmax, probabilities cast to
+    v's dtype, outside autocast (so a bf16 autocast region keeps fp32
+    scores).  The kernels' scores and softmax are fp32 whatever
+    ``softmax_dtype`` says, as in JAX.
     """
     if attn_meta is not None:
         m = attn_meta
@@ -214,6 +232,12 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
             if bias is None:
                 raise ValueError("the decode route needs the additive bias")
             return decode_attention(q, k, v, bias)
+        if m.route == "trainable":
+            out = omni_attention_packed_trainable(
+                q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
+                v.reshape(B, v.shape[1], H * Dh), m.seg, m.pad, m.last_pad,
+                m.prefix, num_heads=H)
+            return out.reshape(B, Q, H, Dh)
         if m.route == "packed":
             out = omni_attention_packed(
                 q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
@@ -226,12 +250,13 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
                              m.prefix, q_positions=m.pos_q, seg_q=m.seg_q)
         return out.transpose(1, 2)
     head_dim = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
-                          k.to(softmax_dtype)) / math.sqrt(head_dim)
-    if bias is not None:
-        scores = scores + bias.to(softmax_dtype)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
+                              k.to(softmax_dtype)) / math.sqrt(head_dim)
+        if bias is not None:
+            scores = scores + bias.to(softmax_dtype)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 class PhiAttention(nn.Module):
@@ -389,7 +414,7 @@ class Phi(nn.Module):
     def forward(self, input_ids=None, input_embeds=None, attention_bias=None,
                 position_ids=None, cache: Optional[KVCache] = None,
                 attn_meta=None, lm_head_slice=None,
-                static_prefix_len: Optional[int] = None):
+                static_prefix_len: Optional[int] = None, remat=False):
         """Returns (logits, cache_or_None).
 
         attention_bias: [B, 1, Q, K] additive mask.  Three modes:
@@ -405,6 +430,9 @@ class Phi(nn.Module):
         (:func:`attn_step`).
         lm_head_slice: optional (row_lo, row_hi, col_lo, col_hi) computing
         logits only for those rows / vocab columns.
+        remat: the layer policy of ``utils/remat.py`` for the forward
+        without a cache (training); "full" recomputes each layer in the
+        backward.
         """
         cfg = self.cfg
         if input_embeds is None:
@@ -438,7 +466,8 @@ class Phi(nn.Module):
             cache.length += S
         else:
             for layer in self.model.layers:
-                h = layer(h, attention_bias, cos, sin, attn_meta=attn_meta)
+                h = wrap_remat(layer, remat)(h, attention_bias, cos, sin,
+                                             attn_meta=attn_meta)
 
         h = layer_norm(h, self.model.final_layernorm)
         weight, bias_h = self.lm_head.weight, self.lm_head.bias

@@ -1,9 +1,10 @@
 """Show-o unified model over Phi-1.5, and its text-to-image generators.
 
-Counterpart of ``showo_tpu/models/showo.py`` (config, init, forward,
-``showo_t2i_generate`` and the prefix-cached ``showo_t2i_generate_cached``).
-The CLIP-ViT projector (``w_clip_vit``) belongs to the understanding path
-and is not ported yet.
+Counterpart of ``showo_tpu/models/showo.py`` (config, init, forward, the
+fused three-task training losses ``showo_losses`` over
+``cross_entropy_ignore``, ``showo_t2i_generate`` and the prefix-cached
+``showo_t2i_generate_cached``).  The CLIP-ViT projector (``w_clip_vit``)
+belongs to the understanding path and is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +66,44 @@ def showo_forward(model: Showo, input_ids=None, input_embeds=None,
     return model.showo(input_ids=input_ids, input_embeds=input_embeds,
                        attention_bias=attention_bias, cache=cache,
                        attn_meta=attn_meta)
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_id: int = -100) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not
+    ``ignore_id``, in fp32, in the logsumexp form
+    ``nll = logsumexp(x) - x[label]`` (no [B, S, V] log-softmax tensor)."""
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, 0).long()
+    x = logits.float()
+    picked = torch.gather(x, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, torch.logsumexp(x, dim=-1) - picked, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def showo_losses(model: Showo, input_ids, labels, attention_bias,
+                 batch_size_t2i: int, batch_size_lm: int,
+                 batch_size_mmu: int, max_seq_length: int = 128,
+                 remat=True, input_embeds=None, attn_meta=None):
+    """The fused three-task forward on a batch laid out [t2i | lm | mmu]:
+    masked-token CE over the t2i rows' image span (from
+    ``max_seq_length + 1`` on, no shift), next-token CE over the lm and mmu
+    rows.  Returns (logits, loss_t2i, loss_lm, loss_mmu).  attn_meta: None
+    (dense, under ``attention_bias``) or ("trainable", seg, pad, last_pad,
+    prefix); remat: the layer policy of ``utils/remat.py``."""
+    logits, _ = model.showo(input_ids=input_ids, input_embeds=input_embeds,
+                            attention_bias=attention_bias,
+                            attn_meta=attn_meta, remat=remat)
+    t2i_end = batch_size_t2i
+    lm_end = batch_size_t2i + batch_size_lm
+    loss_t2i = cross_entropy_ignore(logits[:t2i_end, max_seq_length + 1:],
+                                    labels[:t2i_end, max_seq_length + 1:])
+    loss_lm = cross_entropy_ignore(logits[t2i_end:lm_end, :-1],
+                                   labels[t2i_end:lm_end, 1:])
+    loss_mmu = cross_entropy_ignore(
+        logits[lm_end:lm_end + batch_size_mmu, :-1],
+        labels[lm_end:lm_end + batch_size_mmu, 1:])
+    return logits, loss_t2i, loss_lm, loss_mmu
 
 
 def _attn_meta(attn_impl, ids, uncond_ids, use_cfg, pad_id, soi_id, eoi_id):

@@ -14,8 +14,9 @@ once.
 
 Nothing here runs at import time: the first call of a kernel's wrapper
 builds it.  ``launches[name]`` counts the launches of the kernel of
-``csrc/<name>.cu``; only :func:`launch` adds to it, right after a launch
-went through (:func:`count_launch`).
+``csrc/<name>.cu``, or of one named kernel where a source holds several;
+only :func:`launch` adds to it, right after a launch went through
+(:func:`count_launch`).
 """
 
 from __future__ import annotations
@@ -111,18 +112,21 @@ def load_library(name: str) -> ctypes.CDLL:
     return load_libraries([name])[0]
 
 
-def launch(name: str, symbol: str, argtypes, device, *args) -> None:
+def launch(name: str, symbol: str, argtypes, device, *args,
+           kernel: str = None) -> None:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` (built at first
     use) with ``args`` and the current stream of ``device`` appended.
     Every entry returns the cudaError_t of its launch: a refused launch
-    raises, one that went through is counted in ``launches[name]``."""
+    raises, one that went through is counted in ``launches[kernel]``
+    (``kernel`` names one of several kernels of a source; by default the
+    count is the source's, ``launches[name]``)."""
     fn = getattr(load_library(name), symbol)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    count_launch(name, err)
+    count_launch(kernel or name, err)
 
 
 def count_launch(name: str, err: int) -> None:

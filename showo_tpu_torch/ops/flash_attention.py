@@ -87,6 +87,25 @@ def metadata_predict_next(sequence: torch.Tensor, pad_id: int, soi_id: int,
     return seg, pad, last_pad, prefix
 
 
+def metadata_mmu(sequence: torch.Tensor, eoi_id: int):
+    """Metadata reproducing ``omni_mask_mmu``: causal, plus every column up
+    to the batch-first eoi visible (the first row that has an eoi sets the
+    column for the whole batch; L when no row has one).  No segments, no
+    pads.  Returns int32 ``seg``, ``pad`` [B, L], ``last_pad``,
+    ``prefix`` [B]."""
+    B, L = sequence.shape
+    dev = sequence.device
+    is_eoi = sequence == eoi_id
+    idx = torch.arange(L, device=dev)[None, :]
+    row_first = torch.where(is_eoi, idx, L).amin(dim=1)
+    first_row = torch.argmax(is_eoi.any(dim=1).int())
+    eoi_col = row_first[first_row]
+    zeros = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    return (zeros, zeros.clone(),
+            torch.full((B,), -1, dtype=torch.int32, device=dev),
+            (eoi_col + 1).expand(B).to(torch.int32).contiguous())
+
+
 def gather_at(m: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Entries of a [B, L] metadata map at ``positions`` ([B, N]) as int32;
     a position past the map's end has entry 0."""
@@ -117,10 +136,10 @@ def visible_mask(seg, pad, last_pad, prefix, q_positions) -> torch.Tensor:
     return vis & ((pad[:, None, :] == 0) | (pos <= last_pad[:, None, None]))
 
 
-def _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B: int,
-                 Q: int, S: int, dev):
-    """Defaults, int32 and checks of the metadata both wrappers take:
-    (seg, pad, last_pad, prefix, pos_q, seg_q) as the kernel reads them."""
+def span_meta(seg, pad, last_pad, prefix, B: int, S: int, dev) -> list:
+    """[seg, pad, last_pad, prefix] with their defaults (no pads, no
+    prefix), checked, int32 and contiguous on ``dev``, as the kernels read
+    them.  Tensors that already are so pass through without a copy."""
     if pad is None:
         pad = torch.zeros((B, S), dtype=torch.int32, device=dev)
     if last_pad is None:
@@ -130,8 +149,15 @@ def _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B: int,
     if tuple(seg.shape) != (B, S) or tuple(pad.shape) != (B, S):
         raise ValueError(f"seg/pad must be [B, S] = {(B, S)}, got "
                          f"{tuple(seg.shape)} / {tuple(pad.shape)}")
-    meta = [torch.as_tensor(m, device=dev).to(torch.int32).contiguous()
+    return [torch.as_tensor(m, device=dev).to(torch.int32).contiguous()
             for m in (seg, pad, last_pad, prefix)]
+
+
+def _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B: int,
+                 Q: int, S: int, dev):
+    """Defaults, int32 and checks of the metadata both wrappers take:
+    (seg, pad, last_pad, prefix, pos_q, seg_q) as the kernel reads them."""
+    meta = span_meta(seg, pad, last_pad, prefix, B, S, dev)
     if seg_q is None:
         if q_positions is None:
             if Q != S:

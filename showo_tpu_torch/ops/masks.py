@@ -1,8 +1,9 @@
 """Omni attention masks as vectorised tensor code.
 
-Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image path:
-``omni_mask_predict_next`` and its helpers, bit-exact with the JAX
-functions including the ``rm_pad_in_image`` quirks.  Boolean masks use
+Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image and
+stage-1 training paths: ``omni_mask_predict_next``, ``omni_mask_mmu`` and
+their helpers, bit-exact with the JAX functions including the
+``rm_pad_in_image`` and batch-first-eoi quirks.  Boolean masks use
 True = "may attend"; ``to_additive`` turns them into the additive bias
 (0 where visible, ``NEG_INF`` elsewhere) that the dense attention path
 adds to its scores.
@@ -90,6 +91,29 @@ def omni_mask_predict_next(
         mask_bi = mask_bi & ~(from_soi & is_pad[:, None, :])
 
     mask = torch.where(in_image[:, :, None], mask_bi, mask_text)[:, None]
+    if return_inverse_mask:
+        return to_additive(mask, dtype)
+    return mask
+
+
+def omni_mask_mmu(
+    sequence: torch.Tensor,
+    eoi_id: int,
+    return_inverse_mask: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The mmu mask: causal, plus full visibility of the image prefix.
+    Reference quirk kept: the cutoff column is the first eoi of the batch
+    flattened in row order (the first eoi of the first row that has one),
+    applied to every row.  Returns [N, 1, L, L]."""
+    N, L = sequence.shape
+    is_eoi = sequence == eoi_id
+    row_first = _first_index(is_eoi, dim=1)
+    first_row = _first_index(is_eoi.any(dim=1), dim=0)
+    eoi_col = row_first[first_row.clamp(0, N - 1)]
+    j = torch.arange(L, device=sequence.device)[None, None, None, :]
+    mask = _causal(L, sequence.device)[None, None] | (j <= eoi_col)
+    mask = mask.expand(N, 1, L, L)
     if return_inverse_mask:
         return to_additive(mask, dtype)
     return mask

@@ -26,10 +26,16 @@ from showo_tpu_torch.sampling.schedules import get_mask_schedule
 def route_attention(attn_impl: str, num_vq_tokens: int) -> str:
     """``auto``: the packed omni kernel at 512^2 (1024 image tokens and
     more), dense attention below, as the JAX pipeline routes.  Any other
-    name must be a ported route of ``models/phi.py::ATTN_ROUTES``."""
+    name must be a ported inference route of
+    ``models/phi.py::ATTN_ROUTES`` (``trainable`` is self-attention only,
+    which the prefix-cached steps are not)."""
     if attn_impl == "auto":
         return "packed" if num_vq_tokens >= 1024 else "dense"
-    return check_route(attn_impl)
+    if check_route(attn_impl) == "trainable":
+        raise ValueError("the trainable route is for training (self-"
+                         "attention); the t2i pipeline's cached steps "
+                         "attend to a prefix")
+    return attn_impl
 
 
 @dataclasses.dataclass

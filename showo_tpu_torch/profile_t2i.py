@@ -24,7 +24,8 @@ from showo_tpu_torch.config import load_config
 
 # the port's kernels (csrc/), listed by their __global__ names
 _OURS = ("omni_attention_kernel", "decode_attention_kernel",
-         "fused_decode_kernel")
+         "fused_decode_kernel", "pag::fwd_kernel", "pag::dq_kernel",
+         "pag::dkv_kernel")
 
 
 def _busy_ms(events) -> tuple:
@@ -54,11 +55,20 @@ def main(argv=None) -> None:
     pipe.generate(prompts, gen)                                # warm-up
     torch.cuda.synchronize()
 
+    profile(lambda: pipe.generate(prompts, gen),
+            f"route {pipe.attn_route}: generate")
+
+
+def profile(fn, label: str, rows_shown: int = 15) -> None:
+    """Profile one call of ``fn`` (CPU and CUDA activities) and print its
+    wall time, the device's busy time within its kernel span (and so its
+    idle share), the kernel launches, and the largest rows of device time
+    by operator, or by kernel for the port's own kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.generate(prompts, gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -66,9 +76,9 @@ def main(argv=None) -> None:
     if not kernels:
         raise SystemExit("the profiler recorded no device events")
     busy, span, count = _busy_ms(kernels)
-    print(f"route {pipe.attn_route}: generate {wall:.4f} s wall; device "
-          f"busy {busy:.2f} ms of a {span:.2f} ms kernel span (idle share "
-          f"{1 - busy / span:.4f}); {count} kernel launches")
+    print(f"{label} {wall:.4f} s wall; device busy {busy:.2f} ms of a "
+          f"{span:.2f} ms kernel span (idle share {1 - busy / span:.4f}); "
+          f"{count} kernel launches")
     # device time of the operators that launched kernels, and of the
     # port's own kernels, which no operator launches (ctypes calls)
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -79,7 +89,7 @@ def main(argv=None) -> None:
     rows.sort(key=lambda a: -a.self_device_time_total)
     print(f"{'operator or kernel':<48} {'calls':>7} {'device ms':>10} "
           f"{'share':>7}")
-    for a in rows[:15]:
+    for a in rows[:rows_shown]:
         ms = a.self_device_time_total / 1e3
         print(f"{a.key[:48]:<48} {a.count:>7} {ms:>10.2f} "
               f"{ms / busy:>7.1%}")

@@ -74,9 +74,9 @@ def load_showo(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
 
 
 def load_magvit(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
-    """Load the ``decoder.*`` tensors of a reference MAGVIT-v2 state dict
-    into a :class:`~showo_tpu_torch.models.magvit.MagvitV2`; the encoder's
-    are ignored."""
+    """Load a reference MAGVIT-v2 state dict (``encoder.*`` and
+    ``decoder.*``) into a :class:`~showo_tpu_torch.models.magvit.MagvitV2`;
+    other entries (the reference's quantizer buffers) are ignored."""
     return _load(model, sd)
 
 

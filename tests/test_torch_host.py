@@ -1,9 +1,11 @@
 """Host code of showo_tpu_torch held to the JAX package's.
 
-The port keeps its own copies of the config loader, the t2i prompting
-and the stand-in tokenizer so that it never imports the JAX package.
-These tests show the copies agree with the originals exactly: the same
-config tree, the same token ids, the same t2i layout.  A static scan
+The port keeps its own copies of the config loader, the t2i and training
+prompting and the stand-in tokenizer so that it never imports the JAX
+package.  These tests show the copies agree with the originals exactly:
+the same config tree, the same token ids, the same t2i layout, the same
+training text blocks (conditioning dropout included) and lm / mmu blocks,
+also against the reference-generated golden (tests/golden/prompting.npz).  A static scan
 shows that neither the package nor ``chip_smoke.py`` imports jax, flax or
 the JAX package, even inside a function.
 """
@@ -81,6 +83,51 @@ def test_t2i_prompting_matches_jax(max_text_len):
     np.testing.assert_array_equal(got_ids, want_ids)
     np.testing.assert_array_equal(got_mask, want_mask)
     assert got_ids.shape == (len(PROMPTS), max_text_len + 1 + 9 + 2)
+
+
+GOLDEN_TEXTS = ["a photo of a cat", "an oil painting of mountains at dusk",
+                ""]
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("max_text_len", [8, 128])
+def test_training_text_blocks_match_jax(max_text_len, dropout):
+    """t2i_text_block (with the numpy rng's conditioning dropout, over
+    several calls), lm_prompt and mmu_text_block."""
+    kw = dict(max_text_len=max_text_len, cond_dropout_prob=dropout)
+    ours = UniversalPrompting(FakeTokenizer(), **kw,
+                              rng=np.random.default_rng(5))
+    ref = JaxPrompting(jfake.FakeTokenizer(), **kw,
+                       rng=np.random.default_rng(5))
+    for _ in range(3):
+        np.testing.assert_array_equal(ours.t2i_text_block(PROMPTS),
+                                      ref.t2i_text_block(PROMPTS))
+    np.testing.assert_array_equal(ours.t2i_text_block(PROMPTS, dropout=False),
+                                  ref.t2i_text_block(PROMPTS, dropout=False))
+    ids = ours.text_tokenizer(PROMPTS)["input_ids"]
+    for L in (5, 30):
+        for got, want in zip(ours.lm_prompt(ids, L), ref.lm_prompt(ids, L)):
+            np.testing.assert_array_equal(got, want)
+    for got, want in zip(ours.mmu_text_block(PROMPTS),
+                         ref.mmu_text_block(PROMPTS)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_training_text_blocks_match_golden():
+    """lm_prompt is the golden ``lm`` task; mmu_text_block is the text part
+    of the golden ``mmu`` rows and labels (after [mmu][soi] img [eoi])."""
+    golden = np.load(os.path.join(REPO, "tests", "golden", "prompting.npz"))
+    uni = UniversalPrompting(FakeTokenizer(), max_text_len=8,
+                             cond_dropout_prob=0.0)
+    ids, masks, labels = uni.lm_prompt(
+        uni.text_tokenizer(GOLDEN_TEXTS)["input_ids"], 12)
+    np.testing.assert_array_equal(ids, golden["lm_ids"])
+    np.testing.assert_array_equal(masks, golden["lm_masks"])
+    np.testing.assert_array_equal(labels, golden["lm_labels"])
+    block, block_labels = uni.mmu_text_block(GOLDEN_TEXTS)
+    n = golden["image_ids"].shape[1] + 3
+    np.testing.assert_array_equal(block, golden["mmu_ids"][:, n:])
+    np.testing.assert_array_equal(block_labels, golden["mmu_labels"][:, n:])
 
 
 def test_other_prompting_tasks_raise():

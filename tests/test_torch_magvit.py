@@ -1,8 +1,11 @@
-"""showo_tpu_torch MAGVIT-v2 decoder vs the reference golden
-(tests/golden/magvit_tiny.npz) and vs the JAX flax decoder, fp32 on the
-CPU, atol 2e-4 / rtol 1e-3 as tests/test_magvit.py (conv stacks in two
-frameworks sum in different orders); plus the flax -> reference-layout
-converter as the exact inverse of ``magvit_params_from_torch``."""
+"""showo_tpu_torch MAGVIT-v2 vs the reference golden
+(tests/golden/magvit_tiny.npz) and vs the JAX flax codec, fp32 on the
+CPU: the decoder at atol 2e-4 / rtol 1e-3 and the encoder's pre-quant
+activations at atol 5e-5 / rtol 1e-4, as tests/test_magvit.py (conv
+stacks in two frameworks sum in different orders); LFQ codes exactly,
+wherever no channel lies within 1e-4 of the sign boundary.  Plus the
+flax -> reference-layout converter as the exact inverse of
+``magvit_params_from_torch``."""
 
 import os
 
@@ -109,3 +112,82 @@ def test_init_magvit_full_width_structure():
     assert shapes["decoder.up.3.block.0.nin_shortcut.weight"] == (256, 512, 1, 1)
     assert "decoder.up.0.block.0.nin_shortcut.weight" not in names
     assert shapes["decoder.conv_out.weight"] == (3, 128, 3, 3)
+
+
+def _stable(z):
+    """Positions [N] whose channels all lie clear of the sign boundary
+    (z: [..., C] NHWC)."""
+    return (np.abs(z.reshape(-1, z.shape[-1])) > 1e-4).all(axis=-1)
+
+
+def test_encode_vs_golden(golden):
+    sd = {k[3:]: golden[k] for k in golden.files if k.startswith("w::")}
+    vq = load_magvit(tmv.MagvitV2(T_TINY), sd)
+    x = torch.as_tensor(golden["x"])
+    with torch.no_grad():
+        z = vq.encoder(x)
+    np.testing.assert_allclose(z.numpy(), golden["z"], atol=5e-5, rtol=1e-4)
+    codes = vq.get_code(x.permute(0, 2, 3, 1)).numpy().reshape(-1)
+    stable = _stable(golden["z"].transpose(0, 2, 3, 1))
+    assert stable.mean() > 0.95
+    np.testing.assert_array_equal(codes[stable],
+                                  golden["codes"].reshape(-1)[stable])
+
+
+def test_encode_and_get_code_vs_jax(flax_params):
+    x = np.random.default_rng(3).uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32)
+    model = jmv.MagvitV2(J_TINY)
+    jz_q, jcodes = model.apply({"params": flax_params}, jnp.asarray(x),
+                               method=model.encode)
+    jz = jmv.VQGANEncoder(J_TINY).apply(
+        {"params": flax_params["encoder"]}, jnp.asarray(x))
+    vq = load_magvit(tmv.MagvitV2(T_TINY),
+                     magvit_state_dict(flax_params, J_TINY))
+    with torch.no_grad():
+        z_q, codes = vq.encode(torch.as_tensor(x))
+        z = vq.encoder(torch.as_tensor(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(z.permute(0, 2, 3, 1).numpy(), np.asarray(jz),
+                               atol=5e-5, rtol=1e-4)
+    stable = _stable(np.asarray(jz))
+    assert stable.all()
+    np.testing.assert_array_equal(z_q.numpy(), np.asarray(jz_q))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(vq.get_code(torch.as_tensor(x)).numpy(),
+                                  np.asarray(jcodes))
+    assert codes.shape == (2, 16 * 16)
+
+
+def test_lfq_vs_jax():
+    z = np.random.default_rng(4).standard_normal((3, 5, 13)).astype(
+        np.float32)
+    z[0, 0, :4] = 0.0                     # sign(0) -> -1 in both
+    tz = torch.tensor(z, requires_grad=True)
+    q = tmv.lfq_quantize(tz)
+    np.testing.assert_array_equal(q.detach().numpy(),
+                                  np.asarray(jmv.lfq_quantize(jnp.asarray(z))))
+    q.sum().backward()                    # straight-through estimator
+    assert torch.equal(tz.grad, torch.ones_like(tz))
+    np.testing.assert_array_equal(
+        tmv.lfq_indices(q.detach()).numpy(),
+        np.asarray(jmv.lfq_indices(jnp.asarray(np.sign(z) + (z == 0) * -1))))
+    codes = tmv.lfq_indices(tmv.lfq_codebook_entry(torch.arange(8192)))
+    assert torch.equal(codes, torch.arange(8192))
+
+
+def test_init_magvit_full_width_encoder_structure():
+    """The default config builds the full MAGVIT-v2 encoder under the
+    reference names: 5 levels, a downsample after all but the last."""
+    vq = tmv.MagvitV2(tmv.VQConfig(), device="meta")
+    shapes = {k: tuple(v.shape) for k, v in vq.state_dict().items()}
+    assert shapes["encoder.conv_in.weight"] == (128, 3, 3, 3)
+    assert shapes["encoder.down.4.block.3.conv2.weight"] == (512, 512, 3, 3)
+    assert shapes["encoder.down.1.block.0.nin_shortcut.weight"] == (
+        256, 128, 1, 1)
+    assert shapes["encoder.down.3.downsample.conv.weight"] == (
+        512, 512, 3, 3)
+    assert "encoder.down.4.downsample.conv.weight" not in shapes
+    assert shapes["encoder.conv_out.weight"] == (13, 512, 3, 3)
+    assert shapes["encoder.quant_conv.weight"] == (13, 13, 1, 1)
+    x = torch.zeros((1, 256, 256, 3), device="meta")
+    assert tuple(vq.encoder(x.permute(0, 3, 1, 2)).shape) == (1, 13, 16, 16)

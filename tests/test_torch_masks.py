@@ -1,6 +1,8 @@
 """showo_tpu_torch masks and kernel metadata vs the JAX package and the
-reference-generated golden (tests/golden/masks.npz).  Tolerance: bit-exact
-(integer and boolean outputs; the additive bias holds only 0 and -1e9)."""
+reference-generated golden (tests/golden/masks.npz): the t2i
+predict-next mask and the mmu mask with its batch-first-eoi quirk, and
+their O(S) metadata.  Tolerance: bit-exact (integer and boolean outputs;
+the additive bias holds only 0 and -1e9)."""
 
 import os
 
@@ -88,3 +90,53 @@ def test_metadata_predicate_reproduces_mask():
     P = 10
     span = tfa.visible_mask(*meta, (P + torch.arange(L - P)).expand(B, -1))
     assert torch.equal(span, mask[:, P:])
+
+
+def _mmu_layouts(first_eoi_row=0, seed=0, img=5, text=6):
+    """[mmu][soi] img [eoi] text rows; the rows before ``first_eoi_row``
+    carry no eoi, and the image length differs per row, so the
+    batch-first eoi is not every row's own."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(4):
+        n = img + b
+        eoi = [EOI] if b >= first_eoi_row else [7]
+        row = [903, SOI] + rng.integers(5, 800, size=n).tolist() + eoi \
+            + rng.integers(5, 800, size=text - b).tolist()
+        rows.append(row)
+    return np.asarray(rows)
+
+
+def test_mmu_golden():
+    g = np.load(GOLDEN)
+    got = tm.omni_mask_mmu(torch.as_tensor(g["mmu_seq"]), eoi_id=EOI,
+                           return_inverse_mask=False)
+    np.testing.assert_array_equal(got.numpy(), g["mmu"].astype(bool))
+
+
+@pytest.mark.parametrize("first_eoi_row", [0, 2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mmu_vs_jax(first_eoi_row, inverse):
+    seq = _mmu_layouts(first_eoi_row)
+    want = jm.omni_mask_mmu(jnp.asarray(seq), EOI,
+                            return_inverse_mask=inverse)
+    got = tm.omni_mask_mmu(torch.as_tensor(seq), EOI,
+                           return_inverse_mask=inverse)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("first_eoi_row", [0, 2, 4])
+def test_metadata_mmu_vs_jax_and_mask(first_eoi_row):
+    """metadata_mmu equals JAX's, and the kernel predicate over it gives
+    the dense mmu mask (the prefix is the batch-first eoi + 1)."""
+    seq = _mmu_layouts(first_eoi_row, seed=1)
+    want = jfa.metadata_mmu(jnp.asarray(seq), EOI)
+    got = tfa.metadata_mmu(torch.as_tensor(seq), EOI)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    B, L = seq.shape
+    mask = tm.omni_mask_mmu(torch.as_tensor(seq), EOI,
+                            return_inverse_mask=False)[:, 0]
+    vis = tfa.visible_mask(*got, torch.arange(L).expand(B, L))
+    assert torch.equal(vis, mask)

@@ -291,7 +291,7 @@ def test_cli_runs_without_jax(tmp_path):
     out = tmp_path / "out"
     args = [
         "config=configs/showo_demo_512x512.yaml", "mode=t2i", "batch_size=2",
-        f"output_dir={out}", f"validation_prompts_file={prompts}",
+        "device=cpu", f"output_dir={out}", f"validation_prompts_file={prompts}",
         "model.showo.num_vq_tokens=16", "dataset.params.resolution=64",
         "dataset.preprocessing.max_seq_length=16", "generation_timesteps=3",
         "model.showo.phi={hidden_size: 64, intermediate_size: 128, "
