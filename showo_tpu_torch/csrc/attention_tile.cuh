@@ -150,8 +150,11 @@ __device__ __forceinline__ void scores(const uint32_t qf[KD][4],
 
 // Online softmax over the log2-domain logits s of one tile: updates the
 // running max m and sum l of both rows, rescales o, and leaves the
-// unnormalised probabilities in s.  The tile's first column must be a real
-// key (finite logit), so the running max is finite.
+// unnormalised probabilities in s.  Masked logits may be -inf (the
+// trainable forward): a row whose logits so far are all -inf keeps
+// m = -inf and l = 0 and adds nothing to o.  The inference kernels mask
+// with the finite MASKED, so their running max is finite from the first
+// tile on and the guard never fires for them.
 __device__ __forceinline__ void softmax_update(float s[NK][4], float m[2],
                                                float l[2], float o[ND][4]) {
   float tmax0 = -INFINITY, tmax1 = -INFINITY;
@@ -166,16 +169,19 @@ __device__ __forceinline__ void softmax_update(float s[NK][4], float m[2],
   tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
   tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
   const float mn0 = fmaxf(m[0], tmax0), mn1 = fmaxf(m[1], tmax1);
-  const float alpha0 = exp2f(m[0] - mn0), alpha1 = exp2f(m[1] - mn1);
+  // the max subtracted: 0 while a row has seen only -inf (exp2 gives 0)
+  const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
+  const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
+  const float alpha0 = exp2f(m[0] - ms0), alpha1 = exp2f(m[1] - ms1);
   m[0] = mn0;
   m[1] = mn1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int n = 0; n < NK; ++n) {
-    s[n][0] = exp2f(s[n][0] - mn0);
-    s[n][1] = exp2f(s[n][1] - mn0);
-    s[n][2] = exp2f(s[n][2] - mn1);
-    s[n][3] = exp2f(s[n][3] - mn1);
+    s[n][0] = exp2f(s[n][0] - ms0);
+    s[n][1] = exp2f(s[n][1] - ms0);
+    s[n][2] = exp2f(s[n][2] - ms1);
+    s[n][3] = exp2f(s[n][3] - ms1);
     sum0 += s[n][0] + s[n][1];
     sum1 += s[n][2] + s[n][3];
   }
@@ -210,29 +216,42 @@ __device__ __forceinline__ void pv(const float s[NK][4], const bf16* Vt,
   }
 }
 
-// Normalise and write this thread's rows q0 + tile_row() (+ 8) < Q of one
-// head (oh: the head's base, row stride o_sr).
-__device__ __forceinline__ void store(bf16* oh, long long o_sr, int q0, int Q,
-                                      const float o[ND][4], float l[2]) {
-  const int row0 = q0 + tile_row(), c0 = (threadIdx.x & 3) * 2;
+// Sum each row's l over the 4 threads of its quad.
+__device__ __forceinline__ void quad_sum(float l[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  // l >= 1: the row's max contributes exp2(0)
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+}
+
+// Write this thread's accumulator rows q0 + tile_row() (+ 8) < Q of one
+// head, row r times scale[r], as bf16 (oh: the head's base, row stride
+// o_sr).
+__device__ __forceinline__ void store_scaled(bf16* oh, long long o_sr, int q0,
+                                             int Q, const float o[ND][4],
+                                             const float scale[2]) {
+  const int row0 = q0 + tile_row(), c0 = (threadIdx.x & 3) * 2;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     if (row0 < Q)
       *reinterpret_cast<__nv_bfloat162*>(oh + (long long)row0 * o_sr + n * 8 +
                                          c0) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+          __floats2bfloat162_rn(o[n][0] * scale[0], o[n][1] * scale[0]);
     if (row0 + 8 < Q)
       *reinterpret_cast<__nv_bfloat162*>(oh + (long long)(row0 + 8) * o_sr +
                                          n * 8 + c0) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+          __floats2bfloat162_rn(o[n][2] * scale[1], o[n][3] * scale[1]);
   }
+}
+
+// Normalise by the row sums and write, as store_scaled.
+__device__ __forceinline__ void store(bf16* oh, long long o_sr, int q0, int Q,
+                                      const float o[ND][4], float l[2]) {
+  quad_sum(l);
+  // l >= 1: the row's max contributes exp2(0)
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  store_scaled(oh, o_sr, q0, Q, o, inv);
 }
 
 }  // namespace tile

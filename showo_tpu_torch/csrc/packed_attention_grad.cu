@@ -71,66 +71,6 @@ __device__ __forceinline__ int bit(int r, int n, int e) {
   return r * 16 + n * 2 + e;
 }
 
-// Online softmax over log2-domain logits in which masked entries are -inf:
-// a row whose entries so far are all masked keeps m = -inf and l = 0.
-__device__ __forceinline__ void softmax_update(float s[NK][4], float m[2],
-                                               float l[2], float o[ND][4]) {
-  float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < NK; ++n) {
-    tmax[0] = fmaxf(tmax[0], fmaxf(s[n][0], s[n][1]));
-    tmax[1] = fmaxf(tmax[1], fmaxf(s[n][2], s[n][3]));
-  }
-  float ms[2], alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-    const float mn = fmaxf(m[r], tmax[r]);
-    ms[r] = mn == -INFINITY ? 0.f : mn;
-    alpha[r] = exp2f(m[r] - ms[r]);
-    m[r] = mn;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NK; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[n][c] = exp2f(s[n][c] - ms[c >> 1]);
-      sum[c >> 1] += s[n][c];
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    o[n][0] *= alpha[0];
-    o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1];
-    o[n][3] *= alpha[1];
-  }
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
-// Write this thread's two accumulator rows r0 = row_base + tile_row() (and
-// + 8), those below S, times scale[r], as bf16 (dst: the head's base).
-__device__ __forceinline__ void store_rows(bf16* dst, long long sr,
-                                           int row_base, int S,
-                                           const float acc[ND][4],
-                                           const float scale[2]) {
-  const int row0 = row_base + tile_row(), c0 = (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * sr + n * 8 +
-                                         c0) =
-          __floats2bfloat162_rn(acc[n][2 * r] * scale[r],
-                                acc[n][2 * r + 1] * scale[r]);
-  }
-}
-
 // Stage seg / pad of rows [r0, r0 + 64) of batch row b into shared memory
 // (zeros past S).
 __device__ __forceinline__ void stage_meta(int* seg_s, int* pad_s,
@@ -236,17 +176,16 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pv(s, Vt, o);
   }
 
+  quad_sum(l);
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     if ((threadIdx.x & 3) == 0 && qi[r] < S)
       lse[((long long)b * H + h) * S + qi[r]] =
           l[r] > 0.f ? m[r] * LN2 + logf(l[r]) : SENTINEL;
   }
-  store_rows(out + (long long)b * S * HD + h * D, qrow, q0, S, o, inv);
+  store_scaled(out + (long long)b * S * HD + h * D, qrow, q0, S, o, inv);
 }
 
 // ---------------------------------------------------------------------------
@@ -333,7 +272,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pv(s, Kt, acc);  // dq += dS . K
   }
   const float one[2] = {1.f, 1.f};
-  store_rows(dq + qoff, qrow, q0, S, acc, one);
+  store_scaled(dq + qoff, qrow, q0, S, acc, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -446,8 +385,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   const float one[2] = {1.f, 1.f};
-  store_rows(dk + koff, krow, k0, S, dka, one);
-  store_rows(dv + koff, krow, k0, S, dva, one);
+  store_scaled(dk + koff, krow, k0, S, dka, one);
+  store_scaled(dv + koff, krow, k0, S, dva, one);
 }
 
 inline dim3 grid_of(int S, int heads, int B) {

@@ -298,14 +298,14 @@ class PackedTrainableAttention(torch.autograd.Function):
 def omni_attention_packed_trainable(
         q, k, v, seg, pad=None, last_pad=None, prefix=None, *,
         num_heads: int, num_kv_heads: Optional[int] = None,
-        sm_scale: Optional[float] = None, block_q: int = 256):
+        sm_scale: Optional[float] = None):
     """Differentiable packed omni attention (self-attention, Q == S).
 
     q [B, S, H*D]; k, v [B, S, Hkv*D]; seg, pad [B, S] int; last_pad,
     prefix [B] int (pad / last_pad / prefix default to none).  Returns
     [B, S, H*D] in q's dtype.  Shapes past :func:`packed_trainable_fits`
-    (at ``block_q``, as the JAX dispatcher computes it) raise
-    NotImplementedError: the JAX package sends them to the streaming
+    (at the JAX dispatcher's row block, 256 rows or S rounded up to 128)
+    raise NotImplementedError: the JAX package sends them to the streaming
     trainable kernels (``showo_tpu/ops/streaming_attention_grad.py``),
     which are not ported yet."""
     B, S, HD = q.shape
@@ -320,7 +320,7 @@ def omni_attention_packed_trainable(
     D = HD // num_heads
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    bq = min(block_q, ((S + 127) // 128) * 128)
+    bq = min(256, ((S + 127) // 128) * 128)
     if not packed_trainable_fits(S, num_heads, num_kv_heads, D, bq):
         raise NotImplementedError(
             f"S={S}, H={num_heads}, Hkv={num_kv_heads}, D={D} is past the "
