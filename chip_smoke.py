@@ -3,30 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives two paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
+Drives three paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
 hidden 2048, 32 heads; random weights from fixed seeds):
 
 * the v1 512x512 text-to-image path (the ``t2i_512`` bench row) with the
   full MAGVIT-v2 decoder, bf16, 16-step prefix-cached MaskGIT with CFG
   1.75, batch 2, through the CLI's ``build_pipeline``, once on each
   attention route with an inference kernel: ``packed`` (the default at
-  512x512), ``omni``, ``decode`` and ``fused``;
+  512x512), ``omni``, ``decode``, ``fused`` and ``streaming``;
 * the v1 stage-1 trainer (``configs/showo_pretraining_stage1.yaml``,
   warmup 0) through ``build_trainer`` on the ``trainable`` route: the
   frozen full MAGVIT-v2 encoder, 15 t2i + 4 lm + 10 mmu rows of 387
   tokens at 256x256, AdamW, clip 1.0, remat "full", bf16 autocast over
-  fp32 master weights, a seeded in-memory batch.
+  fp32 master weights, a seeded in-memory batch;
+* the v1 512x512 trainer (``configs/showo_instruction_tuning_1_512x512
+  .yaml``, warmup 0) the same way: 5 t2i + 2 lm + 5 mmu rows of 1408
+  tokens at 512x512, no clipping; past the packed trainable budget, so
+  every layer takes the K-blocked trainable kernels (kernel 8).
 
 Phases, one or more lines each:
 
   1. device: card name and power limit, torch / CUDA versions; TF32 off
-  2. build: nvcc builds the five kernel sources of csrc/, in parallel
+  2. build: nvcc builds the seven kernel sources of csrc/, in parallel
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
-     layout): the packed kernel at 512x512 and one GQA case; omni, decode
-     and fused at 512x512 (Q=1026, K=1155) and 256x256 (Q=258, K=387);
-     max abs error, median times (CUDA events) of kernel, plain version
-     and one library call of the same function, and the bound
+     layout): the packed kernel at 512x512 and one GQA case; omni, decode,
+     fused and streaming at 512x512 (Q=1026, K=1155) and 256x256 (Q=258,
+     K=387), streaming also with GQA; max abs error, median times (CUDA
+     events) of kernel, plain version and one library call of the same
+     function, and the bound
   4. the t2i slice, per route: over one generate call the route's kernel
      launches 24 layers x 16 steps times and every other kernel none;
      codes in the codebook; images finite, NHWC, in [-1, 1]; warm
@@ -34,21 +39,30 @@ Phases, one or more lines each:
   5. step parity, per route: one full-width cached step with the route's
      kernel and with dense attention under the additive mask, max abs
      logit difference
-  6. trainable kernels vs plain: forward (out, lse), dq and dk/dv at the
-     stage-1 shape (B=29, S=387, H=32, D=64, bf16, metadata of the
-     trainer's fused batch), a GQA case and a ragged S=200 with rows that
-     see no key; errors, median times of kernel, plain version and
-     ``scaled_dot_product_attention`` with the boolean mask (forward,
+  6. trainable kernels (kernel 7) vs plain: forward (out, lse), dq and
+     dk/dv at the stage-1 shape (B=29, S=387, H=32, D=64, bf16, metadata
+     of the trainer's fused batch), a GQA case and a ragged S=200 with
+     rows that see no key; errors, median times of kernel, plain version
+     and ``scaled_dot_product_attention`` with the boolean mask (forward,
      backward, forward + backward), and the bounds; then the same checks
      on two faults planted in the plain versions (V of the wrong kv head,
      one K tile dropped), each of which must fail them
-  7. the training slice: the first step, then TRAIN_STEPS steps on the
-     same batch with every launch count set to 0 before them: per step
-     48 forward launches (24 layers + 24 recomputed by remat), 24 dq and
-     24 dk/dv, none of the inference kernels; losses finite and falling;
+  7. the stage-1 training slice: the first step, then TRAIN_STEPS steps
+     on the same batch with every launch count set to 0 before them: per
+     step 48 forward launches (24 layers + 24 recomputed by remat), 24 dq
+     and 24 dk/dv, none of the other kernels; losses finite and falling;
      median step time, samples/s, peak device memory
-  8. training step parity: one full-width step's losses and grad norm on
-     ``trainable`` against ``dense``, same weights, batch and draws
+  8. stage-1 training step parity: one full-width step's losses and grad
+     norm on ``trainable`` against ``dense``, same weights, batch and
+     draws
+  6b. kernel 8 vs plain as phase 6, on head-major views of [B, S, H, D]
+     tensors (phi's layout) at the 512x512 fused batch (B=12, S=1408),
+     a GQA case and the ragged case, with the same planted faults; the
+     count of the batch's rows that see no key; and, for the record,
+     kernel 7 at the same shape (past its budget) beside kernel 8
+  7b. the 512x512 training slice as phase 7: 48 / 24 / 24 launches of
+     kernel 8 per step, none of kernel 7 or of the inference kernels
+  8b. the 512x512 training step parity as phase 8
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -78,6 +92,11 @@ STEP_TOL = 1e-1      # max |logit| difference, kernel vs dense, full step
 # 8.1e-5 over two builds of the kernels), and of the grad norm (read:
 # 5.9e-5 to 2.1e-4), 6-10x above the largest readings
 TRAIN_LOSS_TOL, GRAD_NORM_TOL = 5e-4, 2e-3
+# the same at 512x512 (phase 8b, S=1408): after phase 7b's five steps on
+# one batch the mmu loss is down to ~0.8, so the same absolute bf16 noise
+# (1.5e-3, against 2.6e-4 at stage 1) is a larger share of it; read on an
+# H100 at 700 W: losses 7.8e-6 to 1.9e-3 (loss_mmu), grad norm 1.2e-3
+TRAIN512_LOSS_TOL, TRAIN512_GRAD_NORM_TOL = 1e-2, 1e-2
 NUM_LAYERS, TIMESTEPS, BATCH = 24, 16, 2
 P, H, D = 129, 32, 64            # text prefix rows, heads, head dim
 TRAIN_STEPS = 4
@@ -91,10 +110,13 @@ KERNELS = {
     "omni": ("omni_attention", "showo_tpu/ops/flash_attention.py:87"),
     "decode": ("decode_attention", "showo_tpu/ops/decode_attention.py:69"),
     "fused": ("fused_decode", "showo_tpu/ops/fused_decode.py:114"),
+    "streaming": ("streaming_attention",
+                  "showo_tpu/ops/streaming_attention.py:116"),
 }
-# the trainable route's three kernels (one source): counter name, the
-# Pallas kernel it replaces, launches per training step (remat "full"
-# runs each layer's forward twice)
+# the trainable route's kernels, three per source: counter name -> (the
+# Pallas kernel it replaces, launches per training step; remat "full"
+# runs each layer's forward twice).  Kernel 7 takes the stage-1 rows
+# (S=387), kernel 8 the 512x512 rows (S=1408, past the packed budget).
 TRAIN_SOURCE = "packed_attention_grad"
 TRAIN_KERNELS = {
     "packed_attention_grad_fwd": (
@@ -104,6 +126,18 @@ TRAIN_KERNELS = {
     "packed_attention_grad_dkv": (
         "showo_tpu/ops/packed_attention_grad.py:138", NUM_LAYERS),
 }
+STREAM_TRAIN_SOURCE = "streaming_attention_grad"
+STREAM_TRAIN_KERNELS = {
+    "streaming_attention_grad_fwd": (
+        "showo_tpu/ops/streaming_attention_grad.py:56", 2 * NUM_LAYERS),
+    "streaming_attention_grad_dq": (
+        "showo_tpu/ops/streaming_attention_grad.py:104", NUM_LAYERS),
+    "streaming_attention_grad_dkv": (
+        "showo_tpu/ops/streaming_attention_grad.py:142", NUM_LAYERS),
+}
+# every launch counter of the port's kernels
+COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
+            + list(STREAM_TRAIN_KERNELS))
 
 
 def _nvidia_smi() -> str:
@@ -207,6 +241,7 @@ def phase_kernels(torch, uni, prompts, cfg, device):
     from showo_tpu_torch.ops import decode_attention as tda
     from showo_tpu_torch.ops import flash_attention as tfa
     from showo_tpu_torch.ops import fused_decode as tfd
+    from showo_tpu_torch.ops import streaming_attention as tsa
     from showo_tpu_torch.ops.masks import omni_mask_predict_next
 
     sp = uni.sptids
@@ -270,6 +305,22 @@ def phase_kernels(torch, uni, prompts, cfg, device):
                                              sm_scale=D ** -0.5),
             _bound(qkv_bytes + meta_bytes, flops), sdpa(q, k, v))
 
+        # streaming (kernel 5): the same views; every fresh row of the t2i
+        # layout sees its own key, so the library call has no empty row
+        for hkv in (H, H // 4) if res == "512" else (H,):
+            q, k, v = (randn(B, n, h, D).transpose(1, 2)
+                       for n, h in ((Q, H), (L, hkv), (L, hkv)))
+            r = _compare(
+                torch, f"omni_attention_streaming {shape} Hkv={hkv}",
+                lambda: tsa.omni_attention_streaming(
+                    q, k, v, *meta, q_positions=pos_q, seg_q=seg_q),
+                lambda: tsa.omni_attention_streaming_plain(
+                    q, k, v, *meta, pos_q, sm_scale=D ** -0.5),
+                _bound(2 * (2 * B * Q * H + 2 * B * L * hkv) * D
+                       + meta_bytes, flops),
+                sdpa(q, k, v, enable_gqa=hkv != H))
+            out["streaming"].setdefault(res, r)
+
         # decode: the bias as the cached step's strided view of the mask;
         # the library call takes it cast to bf16 (the query's type)
         bias = omni_mask_predict_next(full, *ids, rm_pad_in_image=True)
@@ -321,31 +372,21 @@ def _ragged_meta(torch, device, B=4, S=200):
     return seg, pad, last_pad, torch.zeros_like(last_pad)
 
 
-def _planted_faults(torch, tpag, shape, q, k, v, dout, lse, delta, m, kw):
-    """Phase 6's checks on two faults planted in the plain versions, as a
-    kernel would make them: V read from the neighbouring kv head, and keys
-    64..127 (the second K tile) dropped for every row past last_pad (they
-    are marked as pads).  Each faulty result is held to the correct plain
-    result by :func:`_check`; each must fail it, or the check could not
-    tell such a kernel from a right one."""
-    B, S, KVD = v.shape
-    hkv = kw["num_kv_heads"]
-    wrong_v = v.view(B, S, hkv, D).roll(1, dims=2).reshape(B, S, KVD)
+def _planted_faults(shape, plain, v, wrong_v, m, phase):
+    """The trainable kernels' checks on two faults planted in their plain
+    versions, as a kernel would make them: V read from the neighbouring kv
+    head (``wrong_v``), and keys 64..127 (the second K tile) dropped for
+    every row past last_pad (they are marked as pads).  ``plain`` maps
+    forward, dq and dk/dv to (fn(v, metadata), grads).  Each faulty result
+    is held to the correct plain result by :func:`_check`; each must fail
+    it, or the check could not tell such a kernel from a right one."""
     pad = m[1].clone()
     pad[:, 64:128] = 1
     faults = {"V of the wrong kv head": (wrong_v, m),
               "K tile 64..127 dropped": (v, (m[0], pad, *m[2:]))}
-    kernels = {
-        "forward": (lambda v_, m_: tpag.packed_trainable_fwd_plain(
-            q, k, v_, *m_, **kw)[0], False),
-        "dq": (lambda v_, m_: tpag.packed_trainable_dq_plain(
-            q, k, v_, dout, lse, delta, *m_, **kw), True),
-        "dk/dv": (lambda v_, m_: tpag.packed_trainable_dkv_plain(
-            q, k, v_, dout, lse, delta, *m_, **kw), True),
-    }
     readings = []
     for fault, (v_f, m_f) in faults.items():
-        for name, (fn, grads) in kernels.items():
+        for name, (fn, grads) in plain.items():
             want, got = fn(v, m), fn(v_f, m_f)
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
@@ -356,56 +397,95 @@ def _planted_faults(torch, tpag, shape, q, k, v, dout, lse, delta, m, kw):
                                      f"{name} passes the check: {err} <= "
                                      f"{tol}")
             del want, got
-    print(f"[6] {shape}: planted faults, each failing the check: "
+    print(f"[{phase}] {shape}: planted faults, each failing the check: "
           + "; ".join(readings))
 
 
-def phase_train_kernels(torch, meta):
-    """The trainable route's kernels against their plain versions at the
-    stage-1 shape (metadata of the trainer's fused batch), a GQA case and
-    a ragged S with rows that see no key.  Returns {counter name: result}
-    of the stage-1 case."""
-    import torch.nn.functional as F
+def _kernel_set(torch, kernel, hkv):
+    """The wrappers, plain versions and layout of one trainable kernel set
+    with ``hkv`` kv heads: kernel 7 on the packed [B, S, n*D] layout, or
+    kernel 8 on head-major views of [B, S, n, D] tensors (phi's layout)."""
+    import functools
 
     from showo_tpu_torch.ops import packed_attention_grad as tpag
-    from showo_tpu_torch.ops.flash_attention import visible_mask
+    from showo_tpu_torch.ops import streaming_attention_grad as tsag
+
+    if kernel == 7:
+        kw = dict(num_heads=H, num_kv_heads=hkv, sm_scale=D ** -0.5)
+        fns = (tpag.packed_trainable_fwd, tpag.packed_trainable_dq,
+               tpag.packed_trainable_dkv, tpag.packed_trainable_fwd_plain,
+               tpag.packed_trainable_dq_plain, tpag.packed_trainable_dkv_plain)
+        ks = dict(
+            counters=list(TRAIN_KERNELS), lse_empty=tpag.LSE_EMPTY,
+            tensor=lambda g, B, S, n: torch.randn(
+                B, S, n * D, generator=g, device="cuda").bfloat16(),
+            heads=lambda t: t.unflatten(-1, (-1, D)).transpose(1, 2),
+            delta=lambda out, dout: tpag.attention_delta(out, dout, H),
+            wrong_v=lambda v: v.view(*v.shape[:2], hkv, D).roll(
+                1, dims=2).reshape(v.shape))
+    else:
+        kw = dict(sm_scale=D ** -0.5)
+        fns = (tsag.streaming_trainable_fwd, tsag.streaming_trainable_dq,
+               tsag.streaming_trainable_dkv, tsag.trainable_fwd_plain,
+               tsag.trainable_dq_plain, tsag.trainable_dkv_plain)
+        ks = dict(
+            counters=list(STREAM_TRAIN_KERNELS), lse_empty=tsag.LSE_EMPTY,
+            tensor=lambda g, B, S, n: torch.randn(
+                B, S, n, D, generator=g, device="cuda").bfloat16()
+            .transpose(1, 2),
+            heads=lambda t: t, delta=tsag.attention_delta,
+            wrong_v=lambda v: v.roll(1, dims=1))
+    ks.update({name: functools.partial(fn, **kw) for name, fn in zip(
+        ("fwd", "dq", "dkv", "fwd_plain", "dq_plain", "dkv_plain"), fns)})
+    return ks
+
+
+def phase_train_kernels(torch, meta, kernel, label, phase):
+    """A trainable kernel set (kernel 7 or 8) against its plain versions at
+    a training step's shape (``meta``, the metadata of the trainer's fused
+    batch), a GQA case and a ragged S with rows that see no key; then the
+    planted faults.  Returns {counter name: result} of the first case."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops.streaming_attention_grad import self_visible
 
     device = torch.device("cuda")
-    g = torch.Generator(device=device).manual_seed(6)
-    cases = [("stage-1", meta, H), ("stage-1 GQA", meta, H // 4),
+    g = torch.Generator(device=device).manual_seed(6 if kernel == 7 else 8)
+    cases = [(label, meta, H), (f"{label} GQA", meta, H // 4),
              ("ragged, rows with no visible key",
               _ragged_meta(torch, device), H)]
     results = {}
-    for label, m, hkv in cases:
+    for case, m, hkv in cases:
+        ks = _kernel_set(torch, kernel, hkv)
         B, S = m[0].shape
-        vis = visible_mask(*m, torch.arange(S, device=device).expand(B, S))
+        vis = self_visible(*m)
         empty = int((~vis.any(-1)).sum())
-        shape = f"{label}: B={B} S={S} H={H} Hkv={hkv} D={D}"
-        q, k, v, dout = (torch.randn(B, S, n * D, generator=g,
-                                     device=device).bfloat16()
-                         for n in (H, hkv, hkv, H))
-        kw = dict(num_heads=H, num_kv_heads=hkv, sm_scale=D ** -0.5)
-        out, lse = tpag.packed_trainable_fwd(q, k, v, *m, **kw)
-        p_lse = tpag.packed_trainable_fwd_plain(q, k, v, *m, **kw)[1]
-        lse_err = (lse - p_lse).abs().max().item()
+        n_vis = int(vis.sum())
+        shape = f"{case}: B={B} S={S} H={H} Hkv={hkv} D={D}"
+        if case == label:
+            print(f"[{phase}] the {label} fused batch {(B, S)}: {empty} rows "
+                  f"that see no key; {n_vis} visible (row, key) pairs of "
+                  f"{B * S * S} ({n_vis / (B * S * S):.4f})")
+        q, k, v, dout = (ks["tensor"](g, B, S, n) for n in (H, hkv, hkv, H))
+        out, lse = ks["fwd"](q, k, v, *m)
+        lse_err = (lse - ks["fwd_plain"](q, k, v, *m)[1]).abs().max().item()
         if not lse_err <= CARD_TOL or (
-                (lse == tpag.LSE_EMPTY).sum() != empty * H):
+                (lse == ks["lse_empty"]).sum() != empty * H):
             raise AssertionError(f"{shape}: lse err {lse_err} or rows with "
                                  f"no visible key not marked")
-        delta = tpag.attention_delta(out, dout, H)
+        delta = ks["delta"](out, dout)
         args = (q, k, v, dout, lse, delta, *m)
         # bytes: each input read once and each output written once;
         # operations: 2*D per visible pair, head and product (forward 2
         # products, dq 3, dk/dv 4)
-        n_vis = int(vis.sum())
         tensor = 2 * B * S * D
         meta_bytes = 4 * (2 * B * S + 2 * B)
         rows_bytes = 4 * B * H * S
         lib = {}
-        if label == "stage-1" and not empty:
-            heads = [t.unflatten(-1, (-1, D)).transpose(1, 2).detach()
-                     .requires_grad_(True) for t in (q, k, v)]
-            dout4 = dout.unflatten(-1, (-1, D)).transpose(1, 2)
+        if case == label and not empty:
+            heads = [ks["heads"](t).detach().requires_grad_(True)
+                     for t in (q, k, v)]
+            dout4 = ks["heads"](dout)
             mask = vis[:, None]
             o4 = F.scaled_dot_product_attention(*heads, attn_mask=mask)
             lib = {
@@ -417,49 +497,93 @@ def phase_train_kernels(torch, meta):
             fb = _time_ms(torch, lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(*heads, attn_mask=mask),
                 heads, dout4))
-            print(f"[6] {shape}: scaled_dot_product_attention with the "
+            print(f"[{phase}] {shape}: scaled_dot_product_attention with the "
                   f"boolean mask, forward + backward {fb:.4f} ms (median "
                   f"of 20)")
+        fwd_name, dq_name, dkv_name = ks["counters"]
         r = {
-            "packed_attention_grad_fwd": _compare(
+            fwd_name: _compare(
                 torch, f"trainable forward {shape}",
-                lambda: tpag.packed_trainable_fwd(q, k, v, *m, **kw)[0],
-                lambda: tpag.packed_trainable_fwd_plain(q, k, v, *m,
-                                                        **kw)[0],
+                lambda: ks["fwd"](q, k, v, *m)[0],
+                lambda: ks["fwd_plain"](q, k, v, *m)[0],
                 _bound((2 * H + 2 * hkv) * tensor + rows_bytes + meta_bytes,
-                       4 * D * H * n_vis), lib.get("fwd"), phase=6),
-            "packed_attention_grad_dq": _compare(
+                       4 * D * H * n_vis), lib.get("fwd"), phase=phase),
+            dq_name: _compare(
                 torch, f"trainable dq {shape}",
-                lambda: tpag.packed_trainable_dq(*args, **kw),
-                lambda: tpag.packed_trainable_dq_plain(*args, **kw),
+                lambda: ks["dq"](*args), lambda: ks["dq_plain"](*args),
                 _bound((3 * H + 2 * hkv) * tensor + 2 * rows_bytes
                        + meta_bytes, 6 * D * H * n_vis), lib.get("bwd"),
-                phase=6, grads=True),
-            "packed_attention_grad_dkv": _compare(
+                phase=phase, grads=True),
+            dkv_name: _compare(
                 torch, f"trainable dk/dv {shape}",
-                lambda: tpag.packed_trainable_dkv(*args, **kw),
-                lambda: tpag.packed_trainable_dkv_plain(*args, **kw),
+                lambda: ks["dkv"](*args), lambda: ks["dkv_plain"](*args),
                 _bound((2 * H + 4 * hkv) * tensor + 2 * rows_bytes
                        + meta_bytes, 8 * D * H * n_vis), lib.get("bwd"),
-                phase=6, grads=True),
+                phase=phase, grads=True),
         }
-        print(f"[6] {shape}: lse max_abs_err {lse_err:.3e}; {empty} rows "
-              f"with no visible key (out 0, lse 1e9 in every head); library "
-              f"call of dq and dk/dv: one backward of "
+        lib = heads = o4 = None
+        print(f"[{phase}] {shape}: lse max_abs_err {lse_err:.3e}; {empty} "
+              f"rows with no visible key (out 0, lse {ks['lse_empty']:g} in "
+              f"every head); library call of dq and dk/dv: one backward of "
               f"scaled_dot_product_attention (dq, dk, dv together)")
-        _planted_faults(torch, tpag, shape, q, k, v, dout, lse, delta, m, kw)
-        results.setdefault("stage-1", r)
-    return results["stage-1"]
+        _planted_faults(shape, {
+            "forward": (lambda v_, m_: ks["fwd_plain"](q, k, v_, *m_)[0],
+                        False),
+            "dq": (lambda v_, m_: ks["dq_plain"](q, k, v_, *args[3:6], *m_),
+                   True),
+            "dk/dv": (lambda v_, m_: ks["dkv_plain"](q, k, v_, *args[3:6],
+                                                     *m_), True),
+        }, v, ks["wrong_v"](v), m, phase)
+        if kernel == 8 and case == label:
+            _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase)
+        results.setdefault(case, r)
+    return results[label]
 
 
-def phase_train(torch, cuda_build, trainer, batch, noise, smi):
-    """The training slice: one step, then TRAIN_STEPS steps on the same
-    batch and draws with the launch counts set to 0 before them."""
+def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
+    """For the record: kernel 7 (the packed trainable kernels, past their
+    TPU budget here) on the same memory as kernel 8's head-major views,
+    each kernel and each autograd Function (forward + backward) timed."""
+    from showo_tpu_torch.ops import packed_attention_grad as tpag
+    from showo_tpu_torch.ops import streaming_attention_grad as tsag
+
+    k7, k8 = _kernel_set(torch, 7, hkv), _kernel_set(torch, 8, hkv)
+    packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v, dout)]
+    times, outs = {}, []
+    for name, ks, (q_, k_, v_, d_), fn in (
+            ("kernel 7", k7, packed, lambda *t: tpag.PackedTrainableAttention
+             .apply(*t, *m, H, hkv, D ** -0.5)),
+            ("kernel 8", k8, (q, k, v, dout), lambda *t: tsag
+             .StreamingTrainableAttention.apply(*t, *m, D ** -0.5))):
+        out, lse = ks["fwd"](q_, k_, v_, *m)
+        outs.append(out)
+        a = (q_, k_, v_, d_, lse, ks["delta"](out, d_), *m)
+        leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
+        times[name] = [
+            _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m)),
+            _time_ms(torch, lambda: ks["dq"](*a)),
+            _time_ms(torch, lambda: ks["dkv"](*a)),
+            _time_ms(torch, lambda: torch.autograd.grad(fn(*leaves), leaves,
+                                                        d_))]
+    same = torch.equal(outs[0], outs[1].transpose(1, 2).flatten(2))
+    print(f"[{phase}] for the record, the same shape and memory (kernel 7 "
+          f"is past its TPU budget here; nothing routes by this): "
+          + "; ".join(f"{name} forward {t[0]:.4f}, dq {t[1]:.4f}, dk/dv "
+                      f"{t[2]:.4f}, autograd Function forward + backward "
+                      f"{t[3]:.4f} ms" for name, t in times.items())
+          + f" (medians of 20); outputs bit-identical: {same}")
+
+
+def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
+                kernels, phase):
+    """A training slice: one step, then TRAIN_STEPS steps on the same
+    batch and draws with the launch counts set to 0 before them; the
+    trainable route's ``kernels`` launch their counts per step, every other
+    kernel none."""
     m = trainer.train_step(*batch, noise=noise)
     losses = [float(m["loss"])]
-    want = {name: 0 for name, _ in KERNELS.values()}
-    want.update({name: n * TRAIN_STEPS
-                 for name, (_, n) in TRAIN_KERNELS.items()})
+    want = {name: 0 for name in COUNTERS}
+    want.update({name: n * TRAIN_STEPS for name, (_, n) in kernels.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
@@ -482,21 +606,26 @@ def phase_train(torch, cuda_build, trainer, batch, noise, smi):
     rows = sum(trainer.step_fn.sizes)
     last = metrics[-1]
     tokens = trainer.tc.max_seq_length + 3 + trainer.cfg.num_vq_tokens
-    print(f"[7] training slice stage-1, route trainable, {rows} rows x "
-          f"{tokens} tokens, bf16 autocast, remat "
-          f"{trainer.tc.remat}: launches per step "
-          f"{ {n: c // TRAIN_STEPS for n, c in counts.items() if c} }, 0 of "
-          f"the inference kernels; losses {[round(x, 4) for x in losses]}; "
+    print(f"[{phase}] training slice {label}, route trainable, {rows} rows "
+          f"x {tokens} tokens, bf16 autocast, remat "
+          f"{trainer.tc.remat}, clip {trainer.tc.max_grad_norm}: launches "
+          f"per step {_per_step(counts)}, 0 of the other kernels; losses "
+          f"{[round(x, 4) for x in losses]}; "
           f"last step t2i {last['loss_t2i']:.4f} lm {last['loss_lm']:.4f} "
           f"mmu {last['loss_mmu']:.4f} grad_norm {last['grad_norm']:.4f}; "
           f"step {wall:.4f} s (median of {TRAIN_STEPS}: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
           f"{rows / wall:.2f} samples/s, peak memory allocated "
           f"{peak:.2f} GiB on {smi}")
-    return {name: counts[name] for name in TRAIN_KERNELS}
+    return {name: counts[name] for name in kernels}
 
 
-def phase_train_parity(torch, trainer, batch, noise):
+def _per_step(counts) -> dict:
+    return {n: c // TRAIN_STEPS for n, c in counts.items() if c}
+
+
+def phase_train_parity(torch, trainer, batch, noise, phase, loss_tol,
+                       norm_tol):
     """One full-width step's losses and grad norm on ``trainable`` and on
     ``dense``: the same weights, host batch and corruption draws."""
     from showo_tpu_torch.training.train_step import global_norm
@@ -516,14 +645,14 @@ def phase_train_parity(torch, trainer, batch, noise):
     names = ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm")
     rel = {n: abs(a - b) / abs(b) for n, a, b in
            zip(names, got["trainable"], got["dense"])}
-    print(f"[8] training step parity, trainable vs dense (24 layers, "
+    print(f"[{phase}] training step parity, trainable vs dense (24 layers, "
           f"{tuple(ids['dense'].shape)}, bf16 autocast): "
           + ", ".join(f"{n} {a:.5f} vs {b:.5f} (rel {rel[n]:.2e})"
                       for n, a, b in zip(names, got["trainable"],
                                          got["dense"]))
-          + f"; tol {TRAIN_LOSS_TOL} (losses), {GRAD_NORM_TOL} (grad norm)")
+          + f"; tol {loss_tol} (losses), {norm_tol} (grad norm)")
     bad = [n for n in names
-           if rel[n] > (GRAD_NORM_TOL if n == "grad_norm" else TRAIN_LOSS_TOL)]
+           if rel[n] > (norm_tol if n == "grad_norm" else loss_tol)]
     if bad:
         raise AssertionError(f"trainable vs dense differ in {bad}: {rel}")
 
@@ -544,8 +673,7 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
                              f"{pipe.attn_route}, {cfg}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     pipe.generate(prompts, gen)                       # warm-up
-    want = {name: 0 for name, _ in KERNELS.values()}
-    want.update({name: 0 for name in TRAIN_KERNELS})
+    want = {name: 0 for name in COUNTERS}
     want[KERNELS[route][0]] = NUM_LAYERS * TIMESTEPS
 
     cuda_build.launches.clear()
@@ -629,6 +757,31 @@ def phase_step_parity(torch, pipe, prompts, device):
                                      f" > {STEP_TOL}")
 
 
+def _trainer(torch, build_trainer, train_batch, config, path, rows, phase):
+    """A full-width trainer on the ``trainable`` route, its seeded batch
+    and draws, and the attention metadata of its fused batch (checked to
+    be ``rows`` = (rows, tokens))."""
+    t0 = time.perf_counter()
+    trainer = build_trainer(config, torch.device("cuda"),
+                            attn_impl="trainable")
+    batch, noise = train_batch(trainer)
+    prepared = trainer.step_fn.prepare(*trainer.host_batch(*batch),
+                                       noise=noise)
+    torch.cuda.synchronize()
+    lc = trainer.cfg.llm
+    if not (lc.num_layers == NUM_LAYERS and lc.hidden_size == 2048
+            and lc.num_heads == H and tuple(prepared.input_ids.shape) == rows
+            and trainer.tc.remat == "full"):
+        raise AssertionError(f"not the full-width trainer of {path}: {lc}, "
+                             f"{tuple(prepared.input_ids.shape)}")
+    print(f"[{phase}] trainer built from {path} (warmup 0) in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in trainer.model.parameters())} trainable "
+          f"parameters, fused batch {tuple(prepared.input_ids.shape)}, "
+          f"clip {trainer.tc.max_grad_norm}")
+    return trainer, batch, noise, prepared.attn_meta[1:]
+
+
 def main() -> int:
     import torch
 
@@ -641,7 +794,8 @@ def main() -> int:
     from showo_tpu_torch import inference_t2i
     from showo_tpu_torch.config import load_config
     from showo_tpu_torch.ops import cuda_build
-    from showo_tpu_torch.profile_train import stage1_batch, stage1_config
+    from showo_tpu_torch.profile_train import (stage1_config, train_batch,
+                                               tuning512_config)
     from showo_tpu_torch.training.train_showo import build_trainer
 
     device = torch.device("cuda")
@@ -656,7 +810,8 @@ def main() -> int:
 
     # [2] build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    names = [name for name, _ in KERNELS.values()] + [TRAIN_SOURCE]
+    names = [name for name, _ in KERNELS.values()] + [TRAIN_SOURCE,
+                                                      STREAM_TRAIN_SOURCE]
     cuda_build.load_libraries(names)
     print(f"[2] build: {len(names)} sources with nvcc (sm_90a) in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
@@ -695,33 +850,40 @@ def main() -> int:
     # back on PyTorch's default TF32; matmuls stay full fp32 (the dense
     # route's fp32 scores, the plain versions)
     torch.backends.cudnn.allow_tf32 = True
-    t0 = time.perf_counter()
-    trainer = build_trainer(stage1_config(), device, attn_impl="trainable")
-    batch, noise = stage1_batch(trainer)
-    prepared = trainer.step_fn.prepare(*trainer.host_batch(*batch),
-                                       noise=noise)
-    torch.cuda.synchronize()
-    lc = trainer.cfg.llm
-    if not (lc.num_layers == NUM_LAYERS and lc.hidden_size == 2048
-            and lc.num_heads == H and tuple(prepared.input_ids.shape)
-            == (29, 387) and trainer.tc.remat == "full"):
-        raise AssertionError(f"not the full-width stage-1 trainer: {lc}, "
-                             f"{tuple(prepared.input_ids.shape)}")
-    print(f"[6] trainer built from configs/showo_pretraining_stage1.yaml "
-          f"(warmup 0) in {time.perf_counter() - t0:.1f} s: "
-          f"{sum(p.numel() for p in trainer.model.parameters())} trainable "
-          f"parameters, fused batch {tuple(prepared.input_ids.shape)}")
+    trainer, batch, noise, meta = _trainer(
+        torch, build_trainer, train_batch, stage1_config(),
+        "configs/showo_pretraining_stage1.yaml", (29, 387), 6)
 
-    # [6] the trainable kernels vs plain, on the fused batch's metadata
-    train_results = phase_train_kernels(torch, prepared.attn_meta[1:])
-    prepared = None
+    # [6] kernel 7 vs plain, on the fused batch's metadata
+    train_results = phase_train_kernels(torch, meta, 7, "stage-1", 6)
 
-    # [7] the training slice through build_trainer / train_step
+    # [7] the stage-1 training slice through build_trainer / train_step
     train_launches = phase_train(torch, cuda_build, trainer, batch, noise,
-                                 smi)
+                                 smi, "stage-1", TRAIN_KERNELS, 7)
 
     # [8] trainable vs dense, one full-width step
-    phase_train_parity(torch, trainer, batch, noise)
+    phase_train_parity(torch, trainer, batch, noise, 8, TRAIN_LOSS_TOL,
+                       GRAD_NORM_TOL)
+    trainer = batch = noise = meta = None      # frees the stage-1 trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer, batch, noise, meta = _trainer(
+        torch, build_trainer, train_batch, tuning512_config(),
+        "configs/showo_instruction_tuning_1_512x512.yaml", (12, 1408), "6b")
+
+    # [6b] kernel 8 vs plain, on the 512x512 fused batch's metadata
+    stream_results = phase_train_kernels(torch, meta, 8, "512x512", "6b")
+    meta = None
+
+    # [7b] the 512x512 training slice
+    stream_launches = phase_train(torch, cuda_build, trainer, batch, noise,
+                                  smi, "512x512", STREAM_TRAIN_KERNELS, "7b")
+
+    # [8b] trainable vs dense, one full-width 512x512 step
+    phase_train_parity(torch, trainer, batch, noise, "8b",
+                       TRAIN512_LOSS_TOL, TRAIN512_GRAD_NORM_TOL)
+    trainer = batch = noise = None
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -732,12 +894,15 @@ def main() -> int:
         if r256 is not None:
             entry.update({f"{key}_256": val for key, val in r256.items()})
         kernels.append(entry)
-    for name, (replaces, _) in TRAIN_KERNELS.items():
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"showo_tpu_torch/csrc/{TRAIN_SOURCE}.cu",
-                        "replaces": replaces,
-                        "launches": train_launches[name],
-                        **train_results[name]})
+    for source, table, counts, res in (
+            (TRAIN_SOURCE, TRAIN_KERNELS, train_launches, train_results),
+            (STREAM_TRAIN_SOURCE, STREAM_TRAIN_KERNELS, stream_launches,
+             stream_results)):
+        for name, (replaces, _) in table.items():
+            kernels.append({"name": name, "route": "cuda",
+                            "source": f"showo_tpu_torch/csrc/{source}.cu",
+                            "replaces": replaces, "launches": counts[name],
+                            **res[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,13 @@ constexpr int K_OFF = BLOCK_Q * DP;
 constexpr int V_OFF = K_OFF + BLOCK_K * DP;
 constexpr int TILE_SMEM = (V_OFF + D * KP) * 2;
 
+// Strides of a [B, heads, rows, D] view in elements (the last dim is
+// contiguous): the packed [B, S, H*D] layout is head stride D and row
+// stride H*D, the head-major one head stride S*D and row stride D.
+struct Strides {
+  long long b, h, r;
+};
+
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -39,14 +39,11 @@
 namespace omni {
 
 using tile::bf16;
+using tile::Strides;
 
 // tiles, then seg / pad of the K tile
 constexpr int SMEM_BYTES = tile::TILE_SMEM + 2 * tile::BLOCK_K * 4;
 static_assert(SMEM_BYTES <= 48 * 1024, "dynamic smem above the default");
-
-struct Strides {  // in elements: batch, head, row
-  long long b, h, r;
-};
 
 __global__ void __launch_bounds__(tile::THREADS, 4)
 omni_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -42,6 +42,7 @@ from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                               fused_rows)
 from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
+from showo_tpu_torch.ops.streaming_attention import omni_attention_streaming
 from showo_tpu_torch.utils.remat import wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
@@ -52,9 +53,11 @@ from showo_tpu_torch.utils.remat import wrap_remat
 #   fused      the cached step's LN + RoPE + concat + attention kernel off
 #              the ``win`` output; elsewhere (no static prefix, or no
 #              ``win``) it falls through to ``omni``, as in JAX
+#   streaming  K-blocked omni kernel on head-major views; a row that sees
+#              no key emits 0
 #   trainable  forward, dq and dk/dv kernels under autograd, packed
-#              layout, self-attention only (the training route)
-#   streaming: kernel not ported yet (raises)
+#              layout, self-attention only (the training route); past the
+#              packed budget the K-blocked trainable kernels, as in JAX
 ATTN_ROUTES = {
     "dense": None,
     "packed": "pallas_packed",
@@ -64,22 +67,16 @@ ATTN_ROUTES = {
     "streaming": "pallas_streaming",
     "trainable": "pallas_trainable",
 }
-_NOT_PORTED = ("streaming",)
 
 
 def check_route(name: str) -> str:
-    """``name`` if it is a route of :data:`ATTN_ROUTES` whose kernel is
-    ported; an unknown name raises ValueError, an unported route
-    NotImplementedError."""
+    """``name`` if it is a route of :data:`ATTN_ROUTES`; an unknown name
+    (a JAX impl string among them) raises ValueError."""
     if name not in ATTN_ROUTES:
         port = {j: p for p, j in ATTN_ROUTES.items() if j}.get(name)
         hint = f" (the JAX package's name of route {port!r})" if port else ""
         raise ValueError(f"unknown attention route {name!r}{hint}; the "
                          f"routes are {sorted(ATTN_ROUTES)}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"attention route {name!r} ({ATTN_ROUTES[name]} in the JAX "
-            f"package) is not ported yet")
     return name
 
 
@@ -217,12 +214,12 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
     """q: [B, Q, H, Dh]; k, v: [B, K, H, Dh]; bias: [B, 1, Q, K] additive.
 
     attn_meta: optional :class:`AttnStep` sending attention to its
-    route's kernel: ``packed`` / ``omni`` / ``fused`` / ``trainable``
-    recompute the mask from metadata (the bias is unused), ``decode`` adds
-    the bias.  None takes the dense path: scores in ``softmax_dtype`` from
-    exact products of the stored operands, softmax, probabilities cast to
-    v's dtype, outside autocast (so a bf16 autocast region keeps fp32
-    scores).  The kernels' scores and softmax are fp32 whatever
+    route's kernel: ``packed`` / ``omni`` / ``fused`` / ``streaming`` /
+    ``trainable`` recompute the mask from metadata (the bias is unused),
+    ``decode`` adds the bias.  None takes the dense path: scores in
+    ``softmax_dtype`` from exact products of the stored operands, softmax,
+    probabilities cast to v's dtype, outside autocast (so a bf16 autocast
+    region keeps fp32 scores).  The kernels' scores and softmax are fp32 whatever
     ``softmax_dtype`` says, as in JAX.
     """
     if attn_meta is not None:
@@ -244,6 +241,12 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
                 v.reshape(B, v.shape[1], H * Dh), m.seg, m.pad, m.last_pad,
                 m.prefix, num_heads=H, q_positions=m.pos_q, seg_q=m.seg_q)
             return out.reshape(B, Q, H, Dh)
+        if m.route == "streaming":
+            out = omni_attention_streaming(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                m.seg, m.pad, m.last_pad, m.prefix, q_positions=m.pos_q,
+                seg_q=m.seg_q)
+            return out.transpose(1, 2)
         # omni, and fused outside the static-prefix cached step
         out = omni_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), m.seg, m.pad, m.last_pad,

@@ -4,7 +4,10 @@ decides where this plan applies.
 
 Counterpart of ``showo_tpu/ops/packed_attention_grad.py`` (Pallas kernels
 ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel`` under a custom VJP).  The
-hand-written Hopper kernels are in ``csrc/packed_attention_grad.cu``.
+hand-written Hopper kernels are those of ``csrc/attention_grad.cuh``, run
+on the packed layout by ``csrc/packed_attention_grad.cu``; the plain
+versions are kernel 8's (``streaming_attention_grad.py``) on head views.
+Shapes past the budget below go to kernel 8, as in JAX.
 Self-attention (Q == S) on the packed layout: q [B, S, H*D], k and v
 [B, S, Hkv*D] (GQA: Hkv divides H), with the omni mask recomputed from
 O(S) metadata:
@@ -38,8 +41,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from showo_tpu_torch.ops import cuda_build
-from showo_tpu_torch.ops.flash_attention import span_meta, visible_mask
+from showo_tpu_torch.ops.flash_attention import span_meta
 from showo_tpu_torch.ops.masks import NEG_INF
+from showo_tpu_torch.ops.streaming_attention_grad import (
+    attention_delta as streaming_delta, omni_attention_trainable,
+    self_visible, trainable_dkv_plain, trainable_dq_plain,
+    trainable_fwd_plain)
 
 SOURCE = "packed_attention_grad"
 KERNELS = tuple(f"{SOURCE}_{part}" for part in ("fwd", "dq", "dkv"))
@@ -66,18 +73,19 @@ def packed_trainable_fits(S, num_heads, num_kv_heads, head_dim,
 
 
 # ---------------------------------------------------------------------------
-# Plain versions
+# Plain versions: kernel 8's, on head views of the packed layout
 # ---------------------------------------------------------------------------
 
-def _heads(x, B, S, n, D):
-    """[B, S, n*D] -> fp32 [B, n, S, D] (exact for bf16 values)."""
-    return x.view(B, S, n, D).transpose(1, 2).float()
+def _heads(x, n):
+    """[B, S, n*D] -> the [B, n, S, D] view."""
+    B, S, nD = x.shape
+    return x.view(B, S, n, nD // n).transpose(1, 2)
 
 
-def _visible(seg, pad, last_pad, prefix):
-    B, S = seg.shape
-    return visible_mask(seg, pad, last_pad, prefix,
-                        torch.arange(S, device=seg.device).expand(B, S))
+def _packed(x):
+    """[B, n, S, D] -> [B, S, n*D]."""
+    B, n, S, D = x.shape
+    return x.transpose(1, 2).reshape(B, S, n * D)
 
 
 def packed_trainable_fwd_plain(q, k, v, seg, pad, last_pad, prefix, *,
@@ -86,60 +94,21 @@ def packed_trainable_fwd_plain(q, k, v, seg, pad, last_pad, prefix, *,
     """(out [B, S, H*D] in q's dtype, lse [B, H, S] fp32) from dense fp32
     scores; the unnormalised probabilities are cast to v's dtype for the
     second product, as the Pallas kernel does."""
-    B, S, HD = q.shape
-    H, Hkv = num_heads, num_kv_heads
-    D = HD // H
-    qh = _heads(q, B, S, H, D)
-    kh = _heads(k, B, S, Hkv, D).repeat_interleave(H // Hkv, dim=1)
-    vh = _heads(v, B, S, Hkv, D).repeat_interleave(H // Hkv, dim=1)
-    vis = _visible(seg, pad, last_pad, prefix)[:, None]
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
-    s = s.masked_fill(~vis, float("-inf"))
-    m = s.amax(dim=-1)
-    m = torch.where(torch.isfinite(m), m, 0.0)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    out = torch.matmul(p.to(v.dtype).float(), vh)
-    out = out / torch.where(l == 0, 1.0, l)[..., None]
-    lse = torch.where(l == 0, LSE_EMPTY, m + torch.log(l.clamp(min=1e-37)))
-    return out.transpose(1, 2).reshape(B, S, HD).to(q.dtype), lse
-
-
-def _probs_and_ds(q, k, v, dout, lse, delta, seg, pad, last_pad, prefix, H,
-                  Hkv, sm_scale):
-    """(P, dS) [B, H, S, S] fp32 and the fp32 head views of q, k, dO."""
-    B, S, HD = q.shape
-    D = HD // H
-    qh = _heads(q, B, S, H, D)
-    kh = _heads(k, B, S, Hkv, D).repeat_interleave(H // Hkv, dim=1)
-    vh = _heads(v, B, S, Hkv, D).repeat_interleave(H // Hkv, dim=1)
-    doh = _heads(dout, B, S, H, D)
-    vis = _visible(seg, pad, last_pad, prefix)[:, None]
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
-    lse = torch.where(lse >= LSE_EMPTY, 0.0, lse)
-    p = torch.where(vis, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * sm_scale
-    return p, ds, qh, kh, doh
-
-
-def _merge(x, B, S, Hkv):
-    """[B, H, S, D] per-q-head grads -> [B, S, Hkv*D], the GQA group summed."""
-    H, D = x.shape[1], x.shape[3]
-    x = x.view(B, Hkv, H // Hkv, S, D).sum(dim=2)
-    return x.transpose(1, 2).reshape(B, S, Hkv * D)
+    out, lse = trainable_fwd_plain(
+        _heads(q, num_heads), _heads(k, num_kv_heads),
+        _heads(v, num_kv_heads), seg, pad, last_pad, prefix,
+        sm_scale=sm_scale, lse_empty=LSE_EMPTY)
+    return _packed(out), lse
 
 
 def packed_trainable_dq_plain(q, k, v, dout, lse, delta, seg, pad, last_pad,
                               prefix, *, num_heads: int, num_kv_heads: int,
                               sm_scale: float):
     """dq = dS . k, with dS cast to k's dtype for the product."""
-    B, S, HD = q.shape
-    _, ds, _, kh, _ = _probs_and_ds(q, k, v, dout, lse, delta, seg, pad,
-                                    last_pad, prefix, num_heads,
-                                    num_kv_heads, sm_scale)
-    dq = torch.matmul(ds.to(k.dtype).float(), kh)
-    return dq.transpose(1, 2).reshape(B, S, HD).to(q.dtype)
+    H, Hkv = num_heads, num_kv_heads
+    return _packed(trainable_dq_plain(
+        _heads(q, H), _heads(k, Hkv), _heads(v, Hkv), _heads(dout, H), lse,
+        delta, seg, pad, last_pad, prefix, sm_scale=sm_scale))
 
 
 def packed_trainable_dkv_plain(q, k, v, dout, lse, delta, seg, pad,
@@ -147,22 +116,16 @@ def packed_trainable_dkv_plain(q, k, v, dout, lse, delta, seg, pad,
                                num_kv_heads: int, sm_scale: float):
     """(dk, dv) = (dS^T . q, P^T . dO), summed over each GQA group, with dS
     and P cast to the operands' dtype for the products."""
-    B, S, _ = q.shape
-    p, ds, qh, _, doh = _probs_and_ds(q, k, v, dout, lse, delta, seg, pad,
-                                      last_pad, prefix, num_heads,
-                                      num_kv_heads, sm_scale)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qh)
-    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), doh)
-    return (_merge(dk, B, S, num_kv_heads).to(k.dtype),
-            _merge(dv, B, S, num_kv_heads).to(v.dtype))
+    H, Hkv = num_heads, num_kv_heads
+    dk, dv = trainable_dkv_plain(
+        _heads(q, H), _heads(k, Hkv), _heads(v, Hkv), _heads(dout, H), lse,
+        delta, seg, pad, last_pad, prefix, sm_scale=sm_scale)
+    return _packed(dk), _packed(dv)
 
 
 def attention_delta(out, dout, num_heads: int) -> torch.Tensor:
     """delta = rowsum(dO * O) per head: fp32 [B, H, S], contiguous."""
-    B, S, HD = out.shape
-    prod = dout.float() * out.float()
-    return prod.view(B, S, num_heads, HD // num_heads).sum(-1) \
-        .transpose(1, 2).contiguous()
+    return streaming_delta(_heads(out, num_heads), _heads(dout, num_heads))
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +266,12 @@ def omni_attention_packed_trainable(
 
     q [B, S, H*D]; k, v [B, S, Hkv*D]; seg, pad [B, S] int; last_pad,
     prefix [B] int (pad / last_pad / prefix default to none).  Returns
-    [B, S, H*D] in q's dtype.  Shapes past :func:`packed_trainable_fits`
+    [B, S, H*D] in q's dtype.  Shapes within :func:`packed_trainable_fits`
     (at the JAX dispatcher's row block, 256 rows or S rounded up to 128)
-    raise NotImplementedError: the JAX package sends them to the streaming
-    trainable kernels (``showo_tpu/ops/streaming_attention_grad.py``),
-    which are not ported yet."""
+    take this module's kernels; past it the packed tensors are viewed
+    head-major and go through the trainable K-blocked kernels
+    (``streaming_attention_grad.omni_attention_trainable``, kernel 8), as
+    the JAX dispatcher sends them."""
     B, S, HD = q.shape
     if num_kv_heads is None:
         num_kv_heads = num_heads
@@ -322,12 +286,11 @@ def omni_attention_packed_trainable(
         sm_scale = 1.0 / math.sqrt(D)
     bq = min(256, ((S + 127) // 128) * 128)
     if not packed_trainable_fits(S, num_heads, num_kv_heads, D, bq):
-        raise NotImplementedError(
-            f"S={S}, H={num_heads}, Hkv={num_kv_heads}, D={D} is past the "
-            f"packed trainable budget ({PACKED_TRAINABLE_MAX_BYTES} bytes); "
-            f"the streaming trainable kernels "
-            f"(showo_tpu/ops/streaming_attention_grad.py) that take such "
-            f"shapes are not ported yet")
+        out = omni_attention_trainable(
+            _heads(q, num_heads), _heads(k, num_kv_heads),
+            _heads(v, num_kv_heads), seg, pad, last_pad, prefix,
+            sm_scale=sm_scale)
+        return _packed(out)
     meta = span_meta(seg, pad, last_pad, prefix, B, S, q.device)
     return PackedTrainableAttention.apply(q, k, v, *meta, num_heads,
                                           num_kv_heads, float(sm_scale))

@@ -48,8 +48,9 @@ class T2IPipeline:
     temperature: float = 1.0
     mask_schedule: str = "cosine"
     max_seq_length: int = 128
-    # auto | dense | packed | omni | decode | fused (JAX: auto, dense,
-    # pallas_packed, pallas, pallas_decode, pallas_fused)
+    # auto | dense | packed | omni | decode | fused | streaming (JAX: auto,
+    # dense, pallas_packed, pallas, pallas_decode, pallas_fused,
+    # pallas_streaming)
     attn_impl: str = "auto"
 
     def __post_init__(self):

@@ -24,8 +24,12 @@ from showo_tpu_torch.config import load_config
 
 # the port's kernels (csrc/), listed by their __global__ names
 _OURS = ("omni_attention_kernel", "decode_attention_kernel",
-         "fused_decode_kernel", "pag::fwd_kernel", "pag::dq_kernel",
-         "pag::dkv_kernel")
+         "fused_decode_kernel", "agrad::fwd_kernel", "agrad::dq_kernel",
+         "agrad::dkv_kernel")
+# a profiler row of the CUDA runtime (launches that waited for room in the
+# command queue), not an operator: the device time under it is counted
+# again in the rows of the operators and kernels it held up
+_NOT_OPERATORS = ("Command Buffer Full",)
 
 
 def _busy_ms(events) -> tuple:
@@ -84,7 +88,8 @@ def profile(fn, label: str, rows_shown: int = 15) -> None:
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     rows = [a for a in prof.key_averages()
             if a.self_device_time_total > 0 and (
-                (a.device_type == cpu and not a.key.startswith("cuda"))
+                (a.device_type == cpu and not a.key.startswith("cuda")
+                 and a.key not in _NOT_OPERATORS)
                 or (a.device_type == cuda and any(k in a.key for k in _OURS)))]
     rows.sort(key=lambda a: -a.self_device_time_total)
     print(f"{'operator or kernel':<48} {'calls':>7} {'device ms':>10} "

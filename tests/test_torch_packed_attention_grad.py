@@ -12,6 +12,8 @@ chip_smoke.py does (bf16 outputs): out and lse to a max abs error of
 2e-2, the gradients to a relative norm error ||kernel - plain|| /
 ||plain|| of 1e-2."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,7 +61,7 @@ def _jax(arrays):
 
 def test_setup_has_rows_with_no_visible_key():
     args = _torch(_setup())
-    vis = tpag._visible(*tpag.span_meta(*args[3:], 2, 200, "cpu"))
+    vis = tpag.self_visible(*tpag.span_meta(*args[3:], 2, 200, "cpu"))
     assert (~vis.any(-1)).sum().item() == 3
 
 
@@ -113,7 +115,7 @@ def _dense(q, k, v, seg, pad, last_pad, prefix, H, Hkv):
     qh = q.view(B, S, H, D).transpose(1, 2)
     kh = k.view(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
     vh = v.view(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
-    vis = tpag._visible(*tpag.span_meta(seg, pad, last_pad, prefix, B, S,
+    vis = tpag.self_visible(*tpag.span_meta(seg, pad, last_pad, prefix, B, S,
                                         "cpu"))[:, None]
     s = qh @ kh.transpose(-1, -2) * D ** -0.5 + torch.where(vis, 0.0, -1e9)
     p = torch.where(vis.any(-1, keepdim=True), torch.softmax(s, -1), 0.0)
@@ -150,13 +152,28 @@ def test_fits_matches_jax(S, H, Hkv, block_q):
 
 def test_stage1_fits_and_512_training_raises():
     """Stage 1 (S=387, Show-o 1.3B) is inside the budget; 512x512 training
-    (S=1154) is past it, where the port raises instead of falling back."""
+    (S=1154 here, 1408 in the configs) is past it, where the dispatcher
+    sends the packed tensors, viewed head-major, through the trainable
+    K-blocked kernels (kernel 8) as the JAX dispatcher does: the result
+    is the packed plain version's at fp32 (1e-5)."""
     assert tpag.packed_trainable_fits(387, 32, 32, D)
     assert not jpag.packed_trainable_fits(1154, 32, 32, D)
-    q = torch.zeros((1, 1154, 32 * D))
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 1154, 32 * D)),
+                            dtype=torch.float32) for _ in range(3))
     seg = torch.zeros((1, 1154), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tpag.omni_attention_packed_trainable(q, q, q, seg, num_heads=32)
+    seg[:, 300:900] = 1
+    with mock.patch.object(tpag, "omni_attention_trainable",
+                           wraps=tpag.omni_attention_trainable) as spy:
+        out = tpag.omni_attention_packed_trainable(q, k, v, seg,
+                                                   num_heads=32)
+    assert spy.call_count == 1
+    assert tuple(spy.call_args.args[0].shape) == (1, 32, 1154, D)
+    meta = tpag.span_meta(seg, None, None, None, 1, 1154, "cpu")
+    want, _ = tpag.packed_trainable_fwd_plain(
+        q, k, v, *meta, num_heads=32, num_kv_heads=32, sm_scale=D ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_wrappers_refuse_other_devices():

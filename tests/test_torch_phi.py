@@ -19,6 +19,7 @@ from showo_tpu.models import phi as jphi
 from showo_tpu.ops import decode_attention as jda
 from showo_tpu.ops import flash_attention as jfa
 from showo_tpu.ops import fused_decode as jfd
+from showo_tpu.ops import streaming_attention as jsa
 from showo_tpu.ops.masks import omni_mask_predict_next as j_mask
 from showo_tpu.utils.torch_import import phi_params_from_torch
 from showo_tpu_torch.models import phi as tphi
@@ -36,13 +37,14 @@ T_TINY = tphi.PhiConfig(vocab_size=120, hidden_size=64, intermediate_size=128,
                         num_layers=2, num_heads=4, max_position_embeddings=128)
 TOL = dict(atol=2e-5, rtol=1e-4)
 PAD, SOI, EOI = 99, 101, 102
-KERNEL_ROUTES = ["packed", "omni", "decode", "fused"]
+KERNEL_ROUTES = ["packed", "omni", "decode", "fused", "streaming"]
 
 
 @contextlib.contextmanager
 def jax_kernels_interpreted():
     """The JAX package's Pallas kernels in interpret mode, as its own tests
-    run them on the CPU (block_q 8 for the omni kernels)."""
+    run them on the CPU (block_q 8 for the omni kernels, 8 x 8 blocks for
+    the streaming one)."""
     def interp(fn, **defaults):
         def run(*args, **kw):
             kw["interpret"] = True
@@ -58,14 +60,18 @@ def jax_kernels_interpreted():
             mock.patch.object(jda, "decode_attention",
                               interp(jda.decode_attention)), \
             mock.patch.object(jfd, "fused_decode_attention",
-                              interp(jfd.fused_decode_attention)):
+                              interp(jfd.fused_decode_attention)), \
+            mock.patch.object(jsa, "omni_attention_streaming",
+                              interp(jsa.omni_attention_streaming,
+                                     block_q=8, block_k=8)):
         yield
 
 
 # the port function each route's layers call (``fused`` outside the static
 # prefix cached step: the omni kernel)
 ROUTE_FN = {"packed": "omni_attention_packed", "omni": "omni_attention",
-            "decode": "decode_attention", "fused": "fused_decode_attention"}
+            "decode": "decode_attention", "fused": "fused_decode_attention",
+            "streaming": "omni_attention_streaming"}
 
 
 def spy_route(route, static=True):
@@ -166,7 +172,7 @@ def test_prefill_and_decode_cache_vs_jax(golden):
     np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v), **TOL)
 
 
-@pytest.mark.parametrize("route", ["omni", "decode", "fused"])
+@pytest.mark.parametrize("route", ["omni", "decode", "fused", "streaming"])
 def test_no_cache_routes_vs_jax(golden, route):
     """The uncached forward on each kernel route (``fused`` falls through
     to the omni kernel, as in JAX), against JAX with its Pallas kernels in
@@ -231,21 +237,35 @@ def test_static_prefix_vs_jax(golden, route):
 
 @pytest.mark.parametrize("route", ["streaming", "trainable"])
 def test_later_routes_raise(golden, route):
-    """Kernels not ported yet raise: the streaming route, and the trainable
-    route past the packed trainable budget (S > 20480 at this width), where
-    the JAX dispatcher takes the streaming trainable kernels."""
-    port = _port(golden)
+    """The routes whose kernels came in a later slice run and match the
+    dense forward under the additive mask: the streaming route, and the
+    trainable route past the packed trainable budget (set to 0 here; at
+    this width it falls at S > 20480), where the dispatcher takes the
+    K-blocked trainable kernels (kernel 8), as in JAX."""
+    from showo_tpu_torch.ops import packed_attention_grad as tpag
+
+    port = _port(golden, "mlp")
     ids = torch.as_tensor(_t2i_rows(3))
-    match = tphi.ATTN_ROUTES[route]
-    if route == "trainable":
-        ids, match = torch.randint(3, 99, (1, 20600)), "streaming"
+    bias = to_additive(tfa.visible_mask(
+        *tfa.metadata_predict_next(ids, PAD, SOI, EOI),
+        torch.arange(ids.shape[1]).expand(ids.shape)))[:, None]
     meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match=match):
-        port(input_ids=ids, attn_meta=meta)
+    name = ("omni_attention_trainable" if route == "trainable"
+            else "omni_attention_streaming")
+    owner = tpag if route == "trainable" else tphi
+    with torch.no_grad(), \
+            mock.patch.object(tpag, "PACKED_TRAINABLE_MAX_BYTES", 0), \
+            mock.patch.object(owner, name,
+                              wraps=getattr(owner, name)) as spy:
+        got, _ = port(input_ids=ids, attn_meta=meta)
+        want, _ = port(input_ids=ids, attention_bias=bias)
+    assert spy.call_count == T_TINY.num_layers
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("route", ["pallas", "pallas_fused", "pallas_decode",
-                                   "pallas_packed", "flash", "dense"])
+                                   "pallas_packed", "flash", "dense",
+                                   "pallas_streaming"])
 def test_unknown_route_raises(golden, route):
     """The port takes its own route names only: a JAX impl string, an
     unknown name, or ``dense`` given as metadata raise ValueError."""
@@ -259,8 +279,8 @@ def test_unknown_route_raises(golden, route):
 
 def test_route_table_names_the_jax_routes():
     """One table: every port route maps to the JAX impl string phi's
-    ``_attention`` / ``_layer`` branch on, and each is accepted or raises
-    by whether its kernel is ported."""
+    ``_attention`` / ``_layer`` branch on, and every one is accepted (each
+    has its kernel now)."""
     import inspect
 
     jax_src = inspect.getsource(jphi._attention) + inspect.getsource(
@@ -268,11 +288,7 @@ def test_route_table_names_the_jax_routes():
     for route, jax_name in tphi.ATTN_ROUTES.items():
         if jax_name is not None and jax_name != "pallas":
             assert f'"{jax_name}"' in jax_src, jax_name
-        if route == "streaming":
-            with pytest.raises(NotImplementedError):
-                tphi.check_route(route)
-        else:
-            assert tphi.check_route(route) == route
+        assert tphi.check_route(route) == route
 
 
 def test_init_random_matches_jax_scheme():

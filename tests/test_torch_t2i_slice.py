@@ -2,8 +2,8 @@
 
 * Prefix-cached and uncached MaskGIT with injected Gumbel noise are
   token-exact against the reference golden (tests/golden/maskgit_tiny.npz),
-  on the dense route and every kernel route (packed, omni, decode, fused;
-  uncached fused falls through to the omni kernel).
+  on the dense route and every kernel route (packed, omni, decode, fused,
+  streaming; uncached fused falls through to the omni kernel).
 * The pipeline (prompting, omni mask, cached MaskGIT with CFG through the
   packed route, code clamp, MAGVIT decode) matches the JAX package fed
   the same weights and noise: inputs bit-exact, tokens exact, images at
@@ -79,7 +79,7 @@ def golden():
 
 @pytest.mark.parametrize("cached", [True, False], ids=["cached", "uncached"])
 @pytest.mark.parametrize("route", ["dense", "packed", "omni", "decode",
-                                   "fused"])
+                                   "fused", "streaming"])
 def test_maskgit_token_exact_vs_golden(golden, cached, route):
     sd = {k[3:]: golden[k] for k in golden.files if k.startswith("w::")}
     model = load_showo(tshowo.Showo(GOLDEN_CFG), sd).eval()
@@ -202,7 +202,7 @@ def test_pipeline_vs_jax(pipelines):
     np.testing.assert_allclose(timages, jimages, atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("route", ["omni", "decode", "fused"])
+@pytest.mark.parametrize("route", ["omni", "decode", "fused", "streaming"])
 def test_pipeline_routes_vs_jax(pipelines, route):
     """The pipeline's codes on each new kernel route, on the weights of
     the packed pipeline, equal the JAX pipeline's codes on the same route
@@ -263,23 +263,54 @@ def test_build_pipeline_takes_the_route():
         config, torch.device("cpu")).attn_route == "dense"
 
 
+def test_build_pipeline_takes_the_streaming_route():
+    """``build_pipeline(..., attn_impl="streaming")``: every layer of every
+    cached step goes through the K-blocked kernel's wrapper."""
+    from showo_tpu_torch import inference_t2i
+    from showo_tpu_torch.config import load_config
+
+    config = load_config(os.path.join(REPO, "configs",
+                                      "showo_demo_512x512.yaml"), [
+        "model.showo.num_vq_tokens=16", "dataset.params.resolution=64",
+        "dataset.preprocessing.max_seq_length=16", "generation_timesteps=2",
+        "model.showo.phi={hidden_size: 64, intermediate_size: 128, "
+        "num_layers: 2, num_heads: 4}",
+        "model.vq_model.dims={ch: 32, dec_ch_mult: [1, 1, 2], "
+        "dec_num_res_blocks: [1, 1, 1]}"])
+    pipe = inference_t2i.build_pipeline(config, torch.device("cpu"),
+                                        attn_impl="streaming")
+    assert pipe.attn_route == "streaming"
+    with spy_route("streaming") as spy:
+        images = pipe.generate(["a cat", "a dog"],
+                               torch.Generator().manual_seed(0))
+    assert spy.call_count == 2 * 2
+    assert images.shape == (2, 16, 16, 3) and np.isfinite(images).all()
+
+
 def test_auto_route_follows_the_jax_pipeline():
     assert route_attention("auto", 1024) == "packed"
     assert route_attention("auto", 256) == "dense"
     assert route_attention("dense", 1024) == "dense"
 
 
-@pytest.mark.parametrize("route", ["packed", "omni", "decode", "fused"])
+@pytest.mark.parametrize("route", ["packed", "omni", "decode", "fused",
+                                   "streaming"])
 def test_named_routes_pass_through(route):
     assert route_attention(route, 1024) == route
     assert route_attention(route, 256) == route
 
 
 def test_route_names_are_checked():
+    """JAX impl strings raise, with the port's name in the message;
+    ``streaming`` (which used to raise) is a route of the pipeline now,
+    and ``trainable`` is for training only."""
     with pytest.raises(ValueError, match="pallas_fused"):
         route_attention("pallas_fused", 1024)
-    with pytest.raises(NotImplementedError):
-        route_attention("streaming", 1024)
+    with pytest.raises(ValueError, match="'streaming'"):
+        route_attention("pallas_streaming", 1024)
+    assert route_attention("streaming", 1024) == "streaming"
+    with pytest.raises(ValueError, match="training"):
+        route_attention("trainable", 1024)
 
 
 def test_cli_runs_without_jax(tmp_path):

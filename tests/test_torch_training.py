@@ -225,6 +225,41 @@ def _host_batch(seed=0):
 
 @pytest.mark.parametrize("route", ["dense", "trainable"])
 def test_fused_step_vs_jax(route):
+    _fused_step_vs_jax(route)
+
+
+def test_fused_step_past_the_packed_budget_vs_jax():
+    """The trainable route past the packed trainable budget (set to 0 in
+    both packages, as the 512x512 rows are at full width): every layer's
+    attention goes through the K-blocked trainable kernels (kernel 8) in
+    both, JAX's in interpret mode with 8 x 8 blocks.  Same tolerances as
+    test_fused_step_vs_jax; a spy shows that the port's step called
+    ``omni_attention_trainable`` for each layer in the forward and in the
+    remat recompute."""
+    from unittest import mock
+
+    from showo_tpu.ops import packed_attention_grad as jpag
+    from showo_tpu.ops import streaming_attention_grad as jsag
+    from showo_tpu_torch.ops import packed_attention_grad as tpag
+
+    orig = jsag.omni_attention_trainable
+
+    def interp(*a, **kw):
+        kw.update(interpret=True, block_q=8, block_k=8)
+        return orig(*a, **kw)
+
+    with mock.patch.object(jpag, "PACKED_TRAINABLE_MAX_BYTES", 0), \
+            mock.patch.object(jsag, "omni_attention_trainable", interp), \
+            mock.patch.object(tpag, "PACKED_TRAINABLE_MAX_BYTES", 0), \
+            mock.patch.object(tpag, "omni_attention_trainable",
+                              wraps=tpag.omni_attention_trainable) as spy:
+        _fused_step_vs_jax("trainable")
+    assert spy.call_count == 2 * PHI_DIMS["num_layers"]
+
+
+def _fused_step_vs_jax(route):
+    """One fused step of the port against JAX's on ``route``: loss parts,
+    grad norm, masking rate and the weights after AdamW."""
     jcfg, _ = _configs()
     jvq_cfg = jmv.VQConfig(**VQ_DIMS)
     arrays, sp = _host_batch()
@@ -393,6 +428,36 @@ def test_entry_points_run_on_the_card_unless_asked():
             ttrain.main()
     finally:
         sys.argv = argv
+
+
+def test_tuning512_trainer_takes_its_config():
+    """``build_trainer`` takes the 512x512 instruction-tuning config as it
+    is (``max_grad_norm: null``: no clipping; ``und_type:
+    llava_pretrain``, read only by the data loaders) at tiny widths, with
+    its 5 + 2 + 5 rows and the profiler's seeded batch; two steps on the
+    trainable route past the (patched) packed budget run kernel 8's plain
+    versions and lower the loss."""
+    from unittest import mock
+
+    from showo_tpu_torch.ops import packed_attention_grad as tpag
+    from showo_tpu_torch.profile_train import train_batch, tuning512_config
+
+    config = tuning512_config(*[o for o in TINY if "batch_size" not in o],
+                              "dataset.params.resolution=8")
+    trainer = ttrain.build_trainer(config, device="cpu",
+                                   attn_impl="trainable")
+    assert trainer.tc.max_grad_norm is None
+    assert trainer.step_fn.sizes == (5, 2, 5)
+    batch, noise = train_batch(trainer)
+    with mock.patch.object(tpag, "PACKED_TRAINABLE_MAX_BYTES", 0), \
+            mock.patch.object(tpag, "omni_attention_trainable",
+                              wraps=tpag.omni_attention_trainable) as spy:
+        losses = [trainer.train_step(*batch, noise=noise)["loss"].item()
+                  for _ in range(2)]
+    assert spy.call_count == 2 * 2 * 2          # steps x layers x remat
+    assert np.isfinite(losses).all() and losses[1] < losses[0], losses
+    rows = trainer.step_fn.prepare(*trainer.host_batch(*batch), noise=noise)
+    assert tuple(rows.input_ids.shape) == (12, 8 + 3 + 16)
 
 
 def test_max_size_cycle_zip_restarts_short_loaders():
