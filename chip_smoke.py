@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives three paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
+Drives five paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
 hidden 2048, 32 heads; random weights from fixed seeds):
 
 * the v1 512x512 text-to-image path (the ``t2i_512`` bench row) with the
@@ -19,12 +19,19 @@ hidden 2048, 32 heads; random weights from fixed seeds):
 * the v1 512x512 trainer (``configs/showo_instruction_tuning_1_512x512
   .yaml``, warmup 0) the same way: 5 t2i + 2 lm + 5 mmu rows of 1408
   tokens at 512x512, no clipping; past the packed trainable budget, so
-  every layer takes the K-blocked trainable kernels (kernel 8).
+  every layer takes the K-blocked trainable kernels (kernel 8);
+* v1 multimodal understanding (``configs/showo_demo.yaml``, 256x256, the
+  full MAGVIT-v2 encoder, bf16) through ``inference_mmu.build_pipeline``:
+  one image, one question, 100 greedy tokens over the KV cache, with bf16
+  weights and with weight-only int8 (``int8=1``: every matmul of Phi on
+  the int8 kernel);
+* the CLIP-ViT understanding path (``configs/showo_demo_w_clip_vit.yaml``:
+  CLIP-L/14-336 features projected into the prompt), int8.
 
 Phases, one or more lines each:
 
   1. device: card name and power limit, torch / CUDA versions; TF32 off
-  2. build: nvcc builds the seven kernel sources of csrc/, in parallel
+  2. build: nvcc builds the nine kernel sources of csrc/, in parallel
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
      layout): the packed kernel at 512x512 and one GQA case; omni, decode,
@@ -63,6 +70,27 @@ Phases, one or more lines each:
   7b. the 512x512 training slice as phase 7: 48 / 24 / 24 launches of
      kernel 8 per step, none of kernel 7 or of the inference kernels
   8b. the 512x512 training step parity as phase 8
+  9. the weight-streaming matmuls (kernels 9-11) vs plain: int8 at the
+     understanding slice's win / wout / lm_head shapes at decode (M=1) and
+     at the prefill's rows, int8 and int4 at the probes' [8, 2048] x
+     [2048, 8192]; error within 2e-2 of the output's peak and a planted
+     fault (each column scaled by its neighbour's scale) that must fail
+     it; median CUDA-event times of kernel, plain version, torch.matmul on
+     dequantized bf16 weights (the library) and the eager dequantize +
+     matmul, the same without the host (profiler device time), the bound
+  10. the discrete understanding slice, bf16 then int8 weights: per answer
+     the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
+     lm_head, prefill and 100 decode forwards) and never with bf16, every
+     other kernel none; tokens in the vocabulary; prompt, prefill and
+     decode times, tokens/s against the weight-streaming bound, peak
+     memory, device idle share over one answer (profiler); then the two
+     pipelines' answers in turns
+  11. prefill logits with int8, bf16 and fp32 weights on the same seeded
+     model: int8 vs fp32 within the JAX package's int8 limits (top-1
+     agreement >= 0.95, max abs difference / peak < 0.05), the other
+     pairs read beside it
+  10b. the CLIP-ViT path with int8 weights as phase 10, after the CLIP
+     tower's features (576 x 1024, timed)
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -135,9 +163,30 @@ STREAM_TRAIN_KERNELS = {
     "streaming_attention_grad_dkv": (
         "showo_tpu/ops/streaming_attention_grad.py:142", NUM_LAYERS),
 }
+# the weight-streaming matmuls (kernels 9-11), one source each: counter
+# name -> the Pallas kernels it replaces
+WSMM_KERNELS = {
+    "int8_matmul": "tools/probe_int8_decode.py:64 (kernel 9); "
+                   "tools/probe_pallas_wsmm.py:66 (kernel 11a)",
+    "int4_matmul": "tools/probe_int4_decode.py:79 (kernel 10); "
+                   "tools/probe_pallas_wsmm.py:123 (kernel 11b)",
+}
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
-            + list(STREAM_TRAIN_KERNELS))
+            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS))
+# the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
+# prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
+# the lm_head matmul
+MMU_NEW_TOKENS = 100
+MMU_MATMULS = 2 * NUM_LAYERS + 1
+MMU_QUESTION = "What is in this image?"
+MMU_IMAGE = "assets/validation/test_image.png"
+WSMM_TOL = 2e-2      # kernel vs plain, max abs error over the output's peak
+L2_BYTES = 50e6      # H100 L2: timed weights rotate through twice this
+# int8 prefill logits at full width against the unquantized fp32 model: the
+# limits of the JAX package's tests/test_int8_decode.py (whose reference is
+# the fp32 model too)
+INT8_AGREE, INT8_REL = 0.95, 0.05
 
 
 def _nvidia_smi() -> str:
@@ -163,6 +212,24 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, from
+    torch.profiler: without the host's wrapper and launch time, which the
+    CUDA-event times of :func:`_time_ms` include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == cuda)
+    return us / 1e3 / iters
 
 
 def _bound(bytes_moved: float, flops: float) -> dict:
@@ -782,6 +849,314 @@ def _trainer(torch, build_trainer, train_batch, config, path, rows, phase):
     return trainer, batch, noise, prepared.attn_meta[1:]
 
 
+def _rotation(copies):
+    """A callable that returns the next of ``copies`` in turn."""
+    state = {"i": -1}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % len(copies)
+        return copies[state["i"]]
+    return nxt
+
+
+def _wsmm_case(torch, label, M, K, N, int4, seed):
+    """One weight-streaming product against its plain version: the error
+    (max abs over the plain output's peak), a planted fault (each column
+    scaled by its neighbour's scale) that must fail the same check, median
+    times of kernel, plain version, ``torch.matmul`` on dequantized bf16
+    weights (the library) and the eager dequantize-then-matmul, and the
+    bound.  The weights rotate through copies that exceed the L2 twice, as
+    the layers of a decode step do (each reads other weights)."""
+    from showo_tpu_torch.ops import int4_matmul as ti4
+    from showo_tpu_torch.ops import int8_matmul as ti8
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = K // 2 if int4 else K
+    padded = -(-N // 16) * 16            # Int8Linear's 16-byte row padding
+    n_copies = max(1, -(-int(2 * L2_BYTES) // (rows * N)))
+    ws = [torch.randint(-128 if int4 else -127, 128, (rows, padded),
+                        generator=g, device=dev, dtype=torch.int8)[:, :N]
+          for _ in range(n_copies)]
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    s = (torch.rand(1, N, generator=g, device=dev) * 0.01 + 1e-3).bfloat16()
+    if int4:
+        kern, plain = ti4.pallas_nib_matmul, ti4.nib_matmul_plain
+        widen = lambda w: torch.cat(ti4.unpack_nibbles(w)).to(torch.bfloat16)
+    else:
+        kern, plain = ti8.pallas_i8_matmul, ti8.i8_matmul_plain
+        widen = lambda w: w.to(torch.bfloat16)
+    got, want = kern(x, ws[0], s), plain(x, ws[0], s)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: kernel output not finite")
+    peak = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    fault = (plain(x, ws[0], s.roll(1, dims=-1)).float()
+             - want.float()).abs().max().item()
+    tol = WSMM_TOL * peak
+    if not err <= tol:
+        raise AssertionError(f"{label}: kernel vs plain max abs error {err} "
+                             f"> {tol} ({WSMM_TOL} of the peak {peak})")
+    if not fault > tol:
+        raise AssertionError(f"{label}: planted fault (the neighbouring "
+                             f"column's scale) passes the check: {fault} <= "
+                             f"{tol}")
+    del got, want
+    wn = _rotation(ws)
+    deq = [widen(w) * s for w in ws[:max(1, -(-n_copies // 2))]]
+    dn = _rotation(deq)
+    calls = {"kernel": lambda: kern(x, wn(), s),
+             "plain": lambda: plain(x, wn(), s),
+             "library": lambda: torch.matmul(x, dn()),
+             "eager": lambda: x @ (widen(wn()) * s)}
+    t = {k: _time_ms(torch, fn) for k, fn in calls.items()}
+    dev_t = {k: _device_ms(torch, calls[k]) for k in ("kernel", "library",
+                                                      "eager")}
+    ms, plain_ms, lib_ms, eager_ms = (t[k] for k in calls)
+    del deq
+    weight_bytes = rows * N
+    bound = _bound(weight_bytes + 2 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+    print(f"[9] {label} {'int4' if int4 else 'int8'} x [{M}, {K}] @ w "
+          f"[{rows}, {N}]: max_abs_err {err:.3e} (tol {WSMM_TOL} of the "
+          f"peak {peak:.3f}); planted fault (neighbouring column's scale) "
+          f"{fault:.3e} fails it; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library torch.matmul on dequantized bf16 "
+          f"{lib_ms:.4f} ms, eager dequantize + matmul {eager_ms:.4f} ms "
+          f"(CUDA-event medians of 20, wrapper included; {n_copies} weight "
+          f"copies in turn); device time alone (profiler, mean of 20): "
+          f"kernel {dev_t['kernel']:.4f} ms ("
+          f"{weight_bytes / dev_t['kernel'] / 1e6:.0f} GB/s of weights), "
+          f"library {dev_t['library']:.4f} ms, eager "
+          f"{dev_t['eager']:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    return {"max_abs_err": err, "peak": peak, "ms": ms, "plain_ms": plain_ms,
+            **bound, "library_ms": lib_ms, "eager_dequant_ms": eager_ms,
+            "device_ms": dev_t["kernel"],
+            "library_device_ms": dev_t["library"],
+            "eager_dequant_device_ms": dev_t["eager"]}
+
+
+def phase_wsmm(torch, prefill_rows):
+    """Kernels 9-11 at the understanding slice's shapes: int8 ``win``,
+    ``wout`` and ``lm_head`` at decode (M=1) and at the prefill's rows, and
+    both kernels at the probes' [8, 2048] x [2048, 8192].  Returns
+    {counter: {case: result}}."""
+    shapes = {"win": (2048, 14336), "wout": (10240, 2048),
+              "lm_head": (2048, 58498)}
+    out = {"int8_matmul": {}, "int4_matmul": {}}
+    seed = 90
+    for name, (K, N) in shapes.items():
+        for M in (1, prefill_rows):
+            seed += 1
+            out["int8_matmul"][f"{name} M={M}"] = _wsmm_case(
+                torch, f"{name} M={M}", M, K, N, False, seed)
+    out["int8_matmul"]["probe M=8"] = _wsmm_case(
+        torch, "probe M=8", 8, 2048, 8192, False, 98)
+    out["int4_matmul"]["probe M=8"] = _wsmm_case(
+        torch, "probe M=8", 8, 2048, 8192, True, 99)
+    return out
+
+
+def _mmu_image(size):
+    from PIL import Image
+
+    from showo_tpu_torch.utils.image import image_transform
+
+    return image_transform(Image.open(MMU_IMAGE).convert("RGB"), size)
+
+
+def _prefill(torch, phi, prompt):
+    """One prefill forward of ``prompt`` ((ids or embeddings, bias)) by
+    Phi ``phi`` into a fresh cache of an answer's capacity (prompt +
+    MMU_NEW_TOKENS), as showo_mmu_generate runs it; returns the logits."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.models.phi import KVCache
+
+    first, bias = prompt
+    S = first.shape[1]
+    cap = S + MMU_NEW_TOKENS
+    emb = phi.model.embed_tokens.weight
+    cache = KVCache.zeros(phi.cfg, 1, cap, dtype=emb.dtype,
+                          device=emb.device)
+    bias = F.pad(bias, (0, cap - S), value=-1e9)
+    key = "input_ids" if first.dtype == torch.int64 else "input_embeds"
+    with torch.no_grad():
+        return phi(attention_bias=bias, cache=cache, **{key: first})[0]
+
+
+def _wall_ms(torch, fn, n=5):
+    """Median host ms of ``fn`` over n calls, each ending in a sync."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
+              int8, smi, phase):
+    """One understanding pipeline at full width: launches over one greedy
+    answer (int8: 49 x 101 of the int8 kernel, every other kernel none;
+    bf16: none at all), tokens in the vocabulary, prompt / prefill / answer
+    times, decode ms per token against the weight-streaming bound, peak
+    memory, and the device's idle share over one answer."""
+    from torch import nn
+
+    from showo_tpu_torch.models.phi import Int8Linear
+
+    phi = pipe.model.showo
+    lc = phi.cfg
+    linear = Int8Linear if int8 else nn.Linear
+    if not (lc.num_layers == NUM_LAYERS and lc.hidden_size == 2048
+            and lc.vocab_size == 58498 and pipe.max_new_tokens ==
+            MMU_NEW_TOKENS and pipe.top_k == 1
+            and all(isinstance(m, linear) for layer in phi.model.layers
+                    for m in (layer.win, layer.wout))
+            and isinstance(phi.lm_head, linear)):
+        raise AssertionError(f"{label}: not the full-width fused Phi with "
+                             f"{linear.__name__} matmuls: {lc}")
+    answer()                                             # warm-up
+    want = {name: 0 for name in COUNTERS}
+    if int8:
+        want["int8_matmul"] = MMU_MATMULS * (1 + MMU_NEW_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    toks = answer()
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"{label}: launches in one answer {counts}, "
+                             f"want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(0 <= t < lc.vocab_size for t in toks):
+        raise AssertionError(f"{label}: tokens outside the vocabulary")
+    prompt_ms = _wall_ms(torch, prompt)
+    rows = prompt()[0].shape[1]
+    prefill_ms = _wall_ms(torch, lambda: _prefill(torch, phi, prompt()))
+    answer_ms = _wall_ms(torch, answer, n=3)
+    decode_ms = (answer_ms - prompt_ms - prefill_ms) / MMU_NEW_TOKENS
+    weight_bytes = sum(m.kernel_i8.numel() if int8 else 2 * m.weight.numel()
+                       for m in [phi.lm_head] + [
+                           w for layer in phi.model.layers
+                           for w in (layer.win, layer.wout)])
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prof = profile(answer, f"[{phase}] {label}: one answer,")
+    print(f"[{phase}] {label}: {rows} prompt rows, greedy, {MMU_NEW_TOKENS} "
+          f"new tokens ({len(toks)} before the first eot), launches per "
+          f"answer {counts.get('int8_matmul', 0)} of int8_matmul = "
+          f"{MMU_MATMULS} x {1 + MMU_NEW_TOKENS}, 0 of the others; prompt "
+          f"{prompt_ms:.2f} ms, prefill {prefill_ms:.2f} ms, answer "
+          f"{answer_ms:.2f} ms (first {first_wall * 1e3:.2f}; medians of "
+          f"5 / 5 / 3), decode {decode_ms:.4f} ms per token = "
+          f"{1e3 / decode_ms:.2f} tokens/s against a bound of "
+          f"{bound_ms:.4f} ms ({weight_bytes / 1e9:.3f} GB of matmul weights"
+          f" per token over 3.35 TB/s); device idle share over one answer "
+          f"{prof['idle_share']:.4f} ({prof['launches']} kernel launches); "
+          f"peak memory allocated {peak:.2f} GiB on {smi}")
+    return {"rows": rows, "prompt_ms": prompt_ms, "prefill_ms": prefill_ms,
+            "answer_ms": answer_ms, "decode_ms_per_token": decode_ms,
+            "tokens_per_s": 1e3 / decode_ms, "bound_ms_per_token": bound_ms,
+            "idle_share": prof["idle_share"], "peak_gib": peak,
+            "launches": counts.get("int8_matmul", 0)}
+
+
+def _jax_order_int8(torch, phi_bf, phi_i8):
+    """A copy of the bf16 Phi whose matmul weights are the JAX package's
+    int8 serving weights, ``bf16(w_i8 * scale)`` (``phi.py::_wk``), taken
+    from the int8 Phi and run through cuBLAS: int8 in JAX's order."""
+    phi = copy.deepcopy(phi_bf)
+    pairs = [(phi.lm_head, phi_i8.lm_head)] + [
+        (getattr(a, n), getattr(b, n))
+        for a, b in zip(phi.model.layers, phi_i8.model.layers)
+        for n in ("win", "wout")]
+    with torch.no_grad():
+        for lin, q in pairs:
+            lin.weight.copy_((q.kernel_i8.to(torch.bfloat16) * q.scale).t())
+    return phi
+
+
+def phase_mmu_turns(torch, pipes, image, mmu, device, pairs=3):
+    """int8 against bf16 answers in turns (bf16, int8, int8, bf16, ...),
+    since the host's clock drifts within a run more than the two differ:
+    median answer times and the decode tokens/s they give (answer minus
+    prompt and prefill), and the pairs int8 won."""
+    walls = {0: [], 1: []}
+    for order in ((0, 1), (1, 0)) * pairs:
+        for int8 in order:
+            gen = torch.Generator(device=device).manual_seed(0)
+            t0 = time.perf_counter()
+            pipes[int8].answer(image, MMU_QUESTION, gen)
+            torch.cuda.synchronize()
+            walls[int8].append((time.perf_counter() - t0) * 1e3)
+    wins = sum(a < b for a, b in zip(walls[1], walls[0]))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    tps = {k: 1e3 * MMU_NEW_TOKENS / (med[k] - mmu[k]["prompt_ms"]
+                                      - mmu[k]["prefill_ms"]) for k in med}
+    print(f"[10] int8 against bf16 in turns ({2 * pairs} answers each): "
+          f"answer {med[1]:.2f} vs {med[0]:.2f} ms (medians; int8 "
+          f"{', '.join(f'{w:.1f}' for w in walls[1])}; bf16 "
+          f"{', '.join(f'{w:.1f}' for w in walls[0])}), decode "
+          f"{tps[1]:.2f} vs {tps[0]:.2f} tokens/s, int8 faster in {wins} "
+          f"of {2 * pairs} pairs; prefill {mmu[1]['prefill_ms']:.2f} vs "
+          f"{mmu[0]['prefill_ms']:.2f} ms, idle share "
+          f"{mmu[1]['idle_share']:.4f} vs {mmu[0]['idle_share']:.4f}")
+
+
+def phase_int8_parity(torch, pipe_bf, pipe_i8, phi32, image):
+    """Prefill logits of one prompt with int8, bf16 and fp32 weights (the
+    same seeded weights; fp32 with fp32 activations and full-fp32 matmuls,
+    the unquantized reference of the JAX package's
+    tests/test_int8_decode.py): int8 against fp32 is held to that test's
+    limits (top-1 agreement, max abs difference over the reference's
+    peak); int8 in JAX's order, int8 against bf16 and bf16 against fp32
+    are read beside it."""
+    ids, bias = pipe_bf.prompt(image, MMU_QUESTION)
+    ids8, _ = pipe_i8.prompt(image, MMU_QUESTION)
+    if not torch.equal(ids, ids8):
+        raise AssertionError("bf16 and int8 pipelines built different "
+                             "prompts")
+    jax_order = _jax_order_int8(torch, pipe_bf.model.showo,
+                                pipe_i8.model.showo)
+    logits = {name: _prefill(torch, phi, (ids, bias)).float()[0]
+              for name, phi in (("int8", pipe_i8.model.showo),
+                                ("int8 in JAX's order", jax_order),
+                                ("bf16", pipe_bf.model.showo),
+                                ("fp32", phi32))}
+    del jax_order
+
+    def compare(a, b):
+        got, ref = logits[a], logits[b]
+        agree = (ref.argmax(-1) == got.argmax(-1)).float().mean().item()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        return agree, rel
+
+    readings = {pair: compare(*pair) for pair in (
+        ("int8", "fp32"), ("int8 in JAX's order", "fp32"), ("bf16", "fp32"),
+        ("int8", "bf16"), ("int8", "int8 in JAX's order"))}
+    ref = logits["fp32"]
+    top2 = ref.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).median().item()
+    print(f"[11] prefill logits ({pipe_bf.cfg.llm.num_layers} layers, "
+          f"{ids.shape[1]} rows, vocab {ref.shape[-1]}; fp32 peak |logit| "
+          f"{ref.abs().max().item():.3f}, median top-1 margin {margin:.4f}): "
+          + "; ".join(f"{a} vs {b} top-1 agreement {g:.4f}, max abs "
+                      f"difference / peak {r:.4e}"
+                      for (a, b), (g, r) in readings.items())
+          + f"; held: int8 vs fp32 >= {INT8_AGREE} and < {INT8_REL}")
+    agree, rel = readings[("int8", "fp32")]
+    if not (agree >= INT8_AGREE and rel < INT8_REL):
+        raise AssertionError(f"int8 vs fp32 logits: agreement {agree}, "
+                             f"relative difference {rel}")
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -810,8 +1185,8 @@ def main() -> int:
 
     # [2] build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    names = [name for name, _ in KERNELS.values()] + [TRAIN_SOURCE,
-                                                      STREAM_TRAIN_SOURCE]
+    names = [name for name, _ in KERNELS.values()] + [
+        TRAIN_SOURCE, STREAM_TRAIN_SOURCE, *WSMM_KERNELS]
     cuda_build.load_libraries(names)
     print(f"[2] build: {len(names)} sources with nvcc (sm_90a) in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
@@ -884,6 +1259,78 @@ def main() -> int:
     phase_train_parity(torch, trainer, batch, noise, "8b",
                        TRAIN512_LOSS_TOL, TRAIN512_GRAD_NORM_TOL)
     trainer = batch = noise = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the understanding slice (configs/showo_demo.yaml: 256x256, the full
+    # MAGVIT-v2 encoder), bf16 and int8 pipelines on the same seeded weights
+    from PIL import Image
+
+    from showo_tpu_torch import inference_mmu
+    from showo_tpu_torch.models.clip_vit import ClipVisionTower, ClipVitConfig
+    from showo_tpu_torch.profile_t2i import profile
+    from showo_tpu_torch.utils.image import clip_image_transform
+
+    from showo_tpu_torch.models.phi import fuse_parallel_mlp
+
+    mmu_args = [f"max_new_tokens={MMU_NEW_TOKENS}", "top_k=1"]
+    mmu_config = load_config("configs/showo_demo.yaml", mmu_args)
+    pipes = {int8: inference_mmu.build_pipeline(load_config(
+        "configs/showo_demo.yaml", mmu_args + [f"int8={int8}"]), device)
+        for int8 in (0, 1)}
+    image = _mmu_image(256)
+    prefill_rows = pipes[0].prompt(image, MMU_QUESTION)[0].shape[1]
+
+    # [9] kernels 9-11 vs plain at the slice's shapes
+    wsmm = phase_wsmm(torch, prefill_rows)
+
+    # [10] the discrete mmu slice, bf16 then int8 weights
+    mmu = {}
+    for int8, pipe in pipes.items():
+        gen = torch.Generator(device=device).manual_seed(0)
+        mmu[int8] = phase_mmu(
+            torch, cuda_build, profile, pipe,
+            f"mmu discrete path, {'int8' if int8 else 'bf16'} weights",
+            lambda: pipe.answer(image, MMU_QUESTION, gen),
+            lambda: pipe.prompt(image, MMU_QUESTION), int8, smi, 10)
+    phase_mmu_turns(torch, pipes, image, mmu, device)
+
+    # [11] int8, bf16 and fp32 prefill logits, same prompt and seeded
+    # weights (the fp32 model as build_pipeline initialises it)
+    cfg = inference_t2i.build_showo_config(mmu_config)
+    model32 = inference_t2i.load_model(mmu_config, cfg, device, torch.float32)
+    fuse_parallel_mlp(model32.showo)
+    phase_int8_parity(torch, pipes[0], pipes[1], model32.showo, image)
+    pipes = pipe = model32 = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [10b] the CLIP-ViT path (configs/showo_demo_w_clip_vit.yaml), int8
+    clip_config = load_config("configs/showo_demo_w_clip_vit.yaml",
+                              mmu_args + ["int8=1"])
+    pipe = inference_mmu.build_pipeline(clip_config, device)
+    tower, size = inference_mmu.build_clip(clip_config, device)
+    if not (isinstance(tower, ClipVisionTower) and tower.cfg == ClipVitConfig()
+            and pipe.cfg.w_clip_vit and pipe.cfg.clip_feat_dim == 1024):
+        raise AssertionError("not the CLIP-L/14-336 path at full width")
+    px = torch.as_tensor(clip_image_transform(
+        Image.open(MMU_IMAGE).convert("RGB"), size), device=device)[None]
+    feats = tower(px)[0]
+    if tuple(feats.shape) != (576, 1024) or not torch.isfinite(feats).all():
+        raise AssertionError(f"CLIP features {tuple(feats.shape)} or not "
+                             f"finite")
+    clip_ms = _wall_ms(torch, lambda: tower(px))
+    print(f"[10b] CLIP-L/14-336 tower (23 of 24 layers, bf16): features "
+          f"{tuple(feats.shape)} of a {size}x{size} image in {clip_ms:.2f} "
+          f"ms (median of 5)")
+    sys_ids = inference_mmu.system_prompt_ids(pipe)
+    gen = torch.Generator(device=device).manual_seed(0)
+    phase_mmu(torch, cuda_build, profile, pipe,
+              "mmu CLIP-ViT path, int8 weights",
+              lambda: pipe.answer_with_clip(feats, MMU_QUESTION, sys_ids, gen),
+              lambda: pipe.clip_prompt(feats, MMU_QUESTION, sys_ids), 1, smi,
+              "10b")
+    pipe = tower = feats = None
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -903,6 +1350,15 @@ def main() -> int:
                             "source": f"showo_tpu_torch/csrc/{source}.cu",
                             "replaces": replaces, "launches": counts[name],
                             **res[name]})
+    for name, replaces in WSMM_KERNELS.items():
+        cases = wsmm[name]
+        case = "win M=1" if name == "int8_matmul" else "probe M=8"
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{name}.cu",
+                        "replaces": replaces,
+                        "launches": mmu[1]["launches"]
+                        if name == "int8_matmul" else 0,
+                        **cases[case], "case": case, "cases": cases})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

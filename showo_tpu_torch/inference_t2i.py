@@ -3,8 +3,8 @@
     python -m showo_tpu_torch.inference_t2i \
         config=configs/showo_demo_512x512.yaml mode=t2i batch_size=2
 
-Counterpart of ``showo_tpu/inference_t2i.py`` for ``mode=t2i`` (the other
-modes need the MAGVIT encoder and raise).  Weights:
+Counterpart of ``showo_tpu/inference_t2i.py`` for ``mode=t2i`` (the
+inpainting and extrapolation modes are not ported yet and raise).  Weights:
 ``model.showo.pretrained_model_path`` / ``model.vq_model.vq_model_name``
 are loaded when they exist locally as reference checkpoints (file or
 directory); otherwise the model is random-initialised from a fixed seed.
@@ -53,6 +53,10 @@ def build_showo_config(config) -> ShowoConfig:
         codebook_size=m.codebook_size,
         num_vq_tokens=m.num_vq_tokens,
         w_clip_vit=m.get("w_clip_vit", False),
+        # the projector's input: the CLIP width, times the S2 scales
+        clip_feat_dim=(int(dict(m.get("clip_vit", {})).get("hidden_size", 1024))
+                       * (len(str(m["clip_s2_scales"]).split(","))
+                          if m.get("clip_s2_scales", None) else 1)),
         llm=PhiConfig(vocab_size=m.vocab_size,
                       attn_fp32=bool(m.get("attn_fp32", True)),
                       # optional dim overrides for tiny e2e CLI runs
@@ -161,7 +165,8 @@ def main() -> None:
     mode = config.get("mode", "t2i")
     if mode in ("inpainting", "extrapolation"):
         raise NotImplementedError(
-            f"mode={mode} needs the MAGVIT encoder, not ported yet")
+            f"mode={mode} is not ported yet (the MAGVIT encoder it needs "
+            f"is)")
     if mode != "t2i":
         raise SystemExit(f"unknown mode {mode}")
     pipe = build_pipeline(config, device=config.get("device"))

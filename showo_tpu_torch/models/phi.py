@@ -22,6 +22,11 @@ segment-matmul form between 400 and 4096 rows, which differs at fp32 eps.
 Training keeps the reference layout (separate q/k/v, ``dense``, ``fc1``,
 ``fc2``) and passes ``remat`` to ``Phi.forward`` ("full": each layer
 recomputed in the backward, ``utils/remat.py``).
+
+Weight-only int8 serving (:func:`quantize_int8`, JAX ``quantize_int8``)
+turns every matmul of any layout, and ``lm_head``, into an
+:class:`Int8Linear`, whose forward is the int8 kernel
+(``ops/int8_matmul.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +46,7 @@ from showo_tpu_torch.ops.flash_attention import (omni_attention,
                                                  q_rows, span_meta)
 from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                               fused_rows)
+from showo_tpu_torch.ops.int8_matmul import WeightStream, linear_i8
 from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
 from showo_tpu_torch.ops.streaming_attention import omni_attention_streaming
@@ -473,11 +480,16 @@ class Phi(nn.Module):
                                              attn_meta=attn_meta)
 
         h = layer_norm(h, self.model.final_layernorm)
-        weight, bias_h = self.lm_head.weight, self.lm_head.bias
+        cols = None
         if lm_head_slice is not None:
             r0, r1, c0, c1 = lm_head_slice
             h = h[:, r0:r1]
-            weight, bias_h = weight[c0:c1], bias_h[c0:c1]
+            cols = slice(c0, c1)
+        if isinstance(self.lm_head, Int8Linear):
+            return self.lm_head(h, cols), cache
+        weight, bias_h = self.lm_head.weight, self.lm_head.bias
+        if cols is not None:
+            weight, bias_h = weight[cols], bias_h[cols]
         return F.linear(h, weight, bias_h), cache
 
 
@@ -526,4 +538,111 @@ def fuse_parallel_mlp(model: Phi) -> Phi:
         wout.bias.copy_(a.dense.bias + m.fc2.bias)
         layer.win, layer.wout = win, wout
         del a.qkv, a.dense, layer.mlp
+    return model
+
+
+class Int8Linear(nn.Module):
+    """Weight-only int8 ``nn.Linear`` (JAX ``kernel_i8`` / ``scale``
+    params): ``w_i8`` [K, N] int8 in the JAX layout, its rows padded to a
+    multiple of 16 bytes so the kernel reads them with 16-byte loads
+    (``kernel_i8`` is the [K, N] view), ``scale`` [1, N] bf16 per output
+    column, ``bias`` [N] in the model's dtype.  The forward is
+    :func:`~showo_tpu_torch.ops.int8_matmul.linear_i8`: the kernel for
+    CUDA tensors (through a :class:`WeightStream` kept for these buffers),
+    its plain version for CPU tensors."""
+
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        padded = -(-out_features // 16) * 16
+        self.register_buffer("w_i8", torch.zeros(
+            (in_features, padded), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.zeros(
+            (1, out_features), dtype=torch.bfloat16, device=device))
+        self.register_buffer("bias", torch.zeros(
+            out_features, dtype=dtype, device=device))
+        self._stream = None
+
+    @property
+    def kernel_i8(self) -> torch.Tensor:
+        return self.w_i8[:, :self.out_features]
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+        """Per-output-channel symmetric int8, as JAX ``quantize_int8``: amax
+        over K in fp32, ``scale = max(amax / 127, 1e-8)``, round half to
+        even, clip to +-127; the scale stored in bf16."""
+        w = lin.weight.float()                                 # [N, K]
+        scale = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-8)
+        q = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
+        out = cls(lin.in_features, lin.out_features, lin.weight.device,
+                  lin.bias.dtype)
+        out.w_i8[:, :lin.out_features] = q.t()
+        out.scale.copy_(scale[None].to(torch.bfloat16))
+        out.bias.copy_(lin.bias)
+        return out
+
+    @torch.no_grad()
+    def load_quantized(self, kernel_i8, scale, bias) -> "Int8Linear":
+        """Set the buffers from JAX-layout arrays: ``kernel_i8`` [K, N]
+        int8, ``scale`` [1, N], ``bias`` [N] (numpy, bf16 ones too)."""
+        k = torch.tensor(np.asarray(kernel_i8))
+        if tuple(k.shape) != (self.in_features, self.out_features):
+            raise ValueError(f"kernel_i8 {tuple(k.shape)} does not fit "
+                             f"[{self.in_features}, {self.out_features}]")
+        self.w_i8[:, :self.out_features] = k.to(torch.int8)
+        self.scale.copy_(torch.tensor(
+            np.asarray(scale, np.float32)).reshape(1, -1))
+        self.bias.copy_(torch.tensor(np.asarray(bias, np.float32)))
+        return self
+
+    def forward(self, x: torch.Tensor, cols: Optional[slice] = None):
+        """x [..., K] -> [..., N], or only the output columns ``cols``."""
+        w, scale, bias = self.kernel_i8, self.scale, self.bias
+        if cols is not None:
+            w, scale, bias = w[:, cols], scale[:, cols], bias[cols]
+        elif x.is_cuda:
+            key = (w.data_ptr(), scale.data_ptr(), bias.data_ptr())
+            if self._stream is None or self._stream[0] != key:
+                self._stream = key, WeightStream(
+                    "int8_matmul", w, scale, bias, self.in_features)
+            x2 = x.reshape(-1, self.in_features)
+            if x2.stride(-1) != 1:
+                x2 = x2.contiguous()
+            return self._stream[1](x2).view(*x.shape[:-1], self.out_features)
+        return linear_i8(x, w, scale, bias)
+
+
+# the matmuls quantize_int8 converts, by their place in a layer (JAX names:
+# q, k, v, qkv, dense, fc1, fc2, win, wout)
+INT8_LINEARS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "qkv": "self_attn.qkv",
+                "dense": "self_attn.dense", "fc1": "mlp.fc1",
+                "fc2": "mlp.fc2", "win": "win", "wout": "wout"}
+
+
+def _replace(root: nn.Module, path: str, module: nn.Module) -> None:
+    parent, _, name = path.rpartition(".")
+    setattr(root.get_submodule(parent) if parent else root, name, module)
+
+
+@torch.no_grad()
+def quantize_int8(model: Phi) -> Phi:
+    """Weight-only int8 serving (JAX ``quantize_int8``): every matmul of
+    each layer's layout (plain, ``fuse_qkv``, ``fuse_parallel_mlp``) and
+    ``lm_head`` become :class:`Int8Linear`; biases, norms and the
+    embedding stay as they are.  In place; a matmul already quantized is
+    left alone."""
+    for layer in model.model.layers:
+        for path in INT8_LINEARS.values():
+            try:
+                lin = layer.get_submodule(path)
+            except AttributeError:
+                continue
+            if isinstance(lin, nn.Linear):
+                _replace(layer, path, Int8Linear.from_linear(lin))
+    if isinstance(model.lm_head, nn.Linear):
+        model.lm_head = Int8Linear.from_linear(model.lm_head)
     return model

@@ -3,8 +3,9 @@
 Counterpart of ``showo_tpu/models/showo.py`` (config, init, forward, the
 fused three-task training losses ``showo_losses`` over
 ``cross_entropy_ignore``, ``showo_t2i_generate`` and the prefix-cached
-``showo_t2i_generate_cached``).  The CLIP-ViT projector (``w_clip_vit``)
-belongs to the understanding path and is not ported yet.
+``showo_t2i_generate_cached``), the understanding path's KV-cache AR
+decode ``showo_mmu_generate`` and the CLIP-ViT projector ``mm_project``
+(``w_clip_vit``).
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from showo_tpu_torch.models.phi import KVCache, Phi, PhiConfig, check_route
+from showo_tpu_torch.sampling.ar import ar_generate
 from showo_tpu_torch.sampling.maskgit import maskgit_generate
 from showo_tpu_torch.sampling.schedules import cosine_schedule
 
@@ -41,23 +44,42 @@ class ShowoConfig:
 
 
 class Showo(nn.Module):
-    """``showo``: the Phi backbone, under the reference checkpoint's name."""
+    """``showo``: the Phi backbone, and with ``w_clip_vit`` the
+    ``mm_projector`` (Linear, GELU, Linear: ``mm_projector.0`` /
+    ``mm_projector.2``), under the reference checkpoint's names."""
 
     def __init__(self, cfg: ShowoConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.w_clip_vit:
-            raise NotImplementedError(
-                "w_clip_vit (the CLIP-ViT understanding path) is not ported")
         self.cfg = cfg
         self.showo = Phi(cfg.llm, device, dtype)
+        if cfg.w_clip_vit:
+            d, kw = cfg.llm.hidden_size, dict(device=device, dtype=dtype)
+            self.mm_projector = nn.Sequential(
+                nn.Linear(cfg.clip_feat_dim, d, **kw), nn.GELU(),
+                nn.Linear(d, d, **kw))
 
 
 def init_showo(cfg: ShowoConfig, generator: torch.Generator, device=None,
                dtype=torch.float32) -> Showo:
-    """Random-weight Show-o (counterpart of ``init_showo_params``)."""
+    """Random-weight Show-o (counterpart of ``init_showo_params``): the
+    projector's weights N(0, 0.02), its biases 0."""
     model = Showo(cfg, device=device, dtype=dtype)
     model.showo.init_random(generator)
+    if cfg.w_clip_vit:
+        with torch.no_grad():
+            for lin in (model.mm_projector[0], model.mm_projector[2]):
+                lin.weight.copy_(torch.randn(
+                    lin.weight.shape, generator=generator,
+                    device=generator.device) * 0.02)
+                lin.bias.zero_()
     return model.eval().requires_grad_(False)
+
+
+def mm_project(model: Showo, feats: torch.Tensor) -> torch.Tensor:
+    """CLIP features [B, P, clip_feat_dim] -> [B, P, hidden]: Linear, exact
+    GELU, Linear (JAX ``mm_project``)."""
+    p = model.mm_projector
+    return p[2](F.gelu(p[0](feats.to(p[0].weight.dtype)), approximate="none"))
 
 
 def showo_forward(model: Showo, input_ids=None, input_embeds=None,
@@ -234,3 +256,49 @@ def showo_t2i_generate_cached(
         timesteps=timesteps, guidance_scale=guidance_scale,
         temperature=temperature, noise_schedule=noise_schedule,
         injected_noise=injected_noise)
+
+
+@torch.no_grad()
+def showo_mmu_generate(
+    model: Showo,
+    prompt_ids: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    *,
+    prompt_bias: torch.Tensor,
+    prompt_embeds: Optional[torch.Tensor] = None,
+    max_new_tokens: int = 100,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    eot_token: Optional[int] = None,
+    injected_gumbel=None,
+):
+    """AR decode over a KV cache of the prompt's length + ``max_new_tokens``
+    positions: prefill the prompt (token ids, or the embeddings
+    ``prompt_embeds`` of the CLIP-ViT path) under ``prompt_bias`` [B, 1, S,
+    S] padded to the capacity with -1e9, then one forward per new token.
+    Returns (tokens, valid) of
+    :func:`~showo_tpu_torch.sampling.ar.ar_generate`."""
+    phi = model.showo
+    first = prompt_ids if prompt_embeds is None else prompt_embeds
+    B, S = first.shape[:2]
+    cap = S + max_new_tokens
+    emb = phi.model.embed_tokens.weight
+
+    def prefill(ids, bias):
+        cache = KVCache.zeros(model.cfg.llm, B, cap, dtype=emb.dtype,
+                              device=emb.device)
+        bias = F.pad(bias, (0, cap - bias.shape[-1]), value=-1e9)
+        if prompt_embeds is not None:
+            return phi(input_embeds=prompt_embeds, attention_bias=bias,
+                       cache=cache)
+        return phi(input_ids=ids, attention_bias=bias, cache=cache)
+
+    def decode(ids, bias, cache):
+        return phi(input_ids=ids, attention_bias=bias, cache=cache)
+
+    return ar_generate(prefill, decode, prompt_ids, generator,
+                       max_new_tokens=max_new_tokens,
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       eot_token=eot_token, prompt_bias=prompt_bias,
+                       injected_gumbel=injected_gumbel)

@@ -40,6 +40,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _loaded: dict = {}
+_entries: dict = {}
 # name -> {"seconds": build time (0.0 when loaded from _build), "log": nvcc output}
 build_info: dict = {}
 # name -> number of launches of that library's kernel
@@ -112,20 +113,35 @@ def load_library(name: str) -> ctypes.CDLL:
     return load_libraries([name])[0]
 
 
+def _entry(name: str, symbol: str, argtypes):
+    """The ctypes function of C entry ``symbol`` of ``csrc/<name>.cu``,
+    bound once (``argtypes`` plus the stream)."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
 def launch(name: str, symbol: str, argtypes, device, *args,
            kernel: str = None) -> None:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` (built at first
-    use) with ``args`` and the current stream of ``device`` appended.
-    Every entry returns the cudaError_t of its launch: a refused launch
-    raises, one that went through is counted in ``launches[kernel]``
-    (``kernel`` names one of several kernels of a source; by default the
-    count is the source's, ``launches[name]``)."""
-    fn = getattr(load_library(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    use) with ``args`` and the current stream of ``device`` appended, on
+    that device.  Every entry returns the cudaError_t of its launch: a
+    refused launch raises, one that went through is counted in
+    ``launches[kernel]`` (``kernel`` names one of several kernels of a
+    source; by default the count is the source's, ``launches[name]``).
+    The decode step calls this ~50 times a token, so the device switch is
+    made only when the tensors are not on the current device."""
+    fn = _entry(name, symbol, argtypes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     count_launch(kernel or name, err)
 
 

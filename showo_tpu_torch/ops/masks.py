@@ -1,8 +1,8 @@
 """Omni attention masks as vectorised tensor code.
 
-Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image and
-stage-1 training paths: ``omni_mask_predict_next``, ``omni_mask_mmu`` and
-their helpers, bit-exact with the JAX functions including the
+Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image,
+stage-1 training and understanding paths: ``omni_mask_predict_next``,
+``omni_mask_mmu``, ``omni_mask_mmu_vit`` and their helpers, bit-exact with the JAX functions including the
 ``rm_pad_in_image`` and batch-first-eoi quirks.  Boolean masks use
 True = "may attend"; ``to_additive`` turns them into the additive bias
 (0 where visible, ``NEG_INF`` elsewhere) that the dense attention path
@@ -114,6 +114,27 @@ def omni_mask_mmu(
     j = torch.arange(L, device=sequence.device)[None, None, None, :]
     mask = _causal(L, sequence.device)[None, None] | (j <= eoi_col)
     mask = mask.expand(N, 1, L, L)
+    if return_inverse_mask:
+        return to_additive(mask, dtype)
+    return mask
+
+
+def omni_mask_mmu_vit(
+    N: int,
+    L: int,
+    system_prompt_len: int = 0,
+    num_patches: int = 576,
+    return_inverse_mask: bool = True,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """The mmu mask of the CLIP-ViT path: causal, plus full visibility of
+    the spliced image-feature span ``[2 + system_prompt_len, + num_patches)``
+    (after ``[mmu] system [soi]``).  Shape-only.  Returns [N, 1, L, L]."""
+    lo = 1 + system_prompt_len + 1
+    j = torch.arange(L, device=device)[None, :]
+    mask = _causal(L, device) | ((j >= lo) & (j < lo + num_patches))
+    mask = mask[None, None].expand(N, 1, L, L)
     if return_inverse_mask:
         return to_additive(mask, dtype)
     return mask

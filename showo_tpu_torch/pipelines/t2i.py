@@ -3,8 +3,8 @@
 Counterpart of ``showo_tpu/pipelines/t2i.py``: assembles the t2i layout
 with the numpy ``UniversalPrompting``, builds the omni mask, runs
 prefix-cached MaskGIT with CFG and decodes the codes with MAGVIT-v2.
-Inpainting and extrapolation need the MAGVIT encoder and are not ported
-yet.
+Inpainting and extrapolation are not ported yet (the MAGVIT encoder they
+need is, for training).
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ from showo_tpu_torch.config import load_config
 # the port's kernels (csrc/), listed by their __global__ names
 _OURS = ("omni_attention_kernel", "decode_attention_kernel",
          "fused_decode_kernel", "agrad::fwd_kernel", "agrad::dq_kernel",
-         "agrad::dkv_kernel")
+         "agrad::dkv_kernel", "wsmm::")
 # a profiler row of the CUDA runtime (launches that waited for room in the
 # command queue), not an operator: the device time under it is counted
 # again in the rows of the operators and kernels it held up
@@ -63,11 +63,12 @@ def main(argv=None) -> None:
             f"route {pipe.attn_route}: generate")
 
 
-def profile(fn, label: str, rows_shown: int = 15) -> None:
+def profile(fn, label: str, rows_shown: int = 15) -> dict:
     """Profile one call of ``fn`` (CPU and CUDA activities) and print its
     wall time, the device's busy time within its kernel span (and so its
     idle share), the kernel launches, and the largest rows of device time
-    by operator, or by kernel for the port's own kernels."""
+    by operator, or by kernel for the port's own kernels.  Returns the
+    wall s, busy and span ms, idle share and launches."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -100,6 +101,8 @@ def profile(fn, label: str, rows_shown: int = 15) -> None:
               f"{ms / busy:>7.1%}")
     listed = sum(a.self_device_time_total for a in rows) / 1e3
     print(f"all rows: {listed:.2f} ms of the {busy:.2f} ms busy")
+    return {"wall_s": wall, "busy_ms": busy, "span_ms": span,
+            "idle_share": 1 - busy / span, "launches": count}
 
 
 if __name__ == "__main__":

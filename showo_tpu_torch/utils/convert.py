@@ -7,7 +7,14 @@ common currency is a reference-layout state dict ({name: array}):
     -> :func:`load_showo`;
   * MAGVIT-v2: flax params -> :func:`magvit_state_dict` (the exact inverse
     of ``showo_tpu.utils.torch_import.magvit_params_from_torch``: HWIO ->
-    OIHW convs, GroupNorm scale/bias -> weight/bias) -> :func:`load_magvit`.
+    OIHW convs, GroupNorm scale/bias -> weight/bias) -> :func:`load_magvit`;
+  * CLIP-ViT: JAX params -> :func:`clip_vit_state_dict` (the inverse of
+    ``clip_vit_params_from_torch``, HF ``vision_model.*`` names) ->
+    :func:`load_clip_vit`; the Show-o ``mm_projector`` travels in the
+    Show-o state dict (``mm_projector.0`` / ``mm_projector.2``);
+  * int8 serving params (JAX ``quantize_int8``: ``kernel_i8`` [K, N],
+    ``scale`` [1, N]) -> :func:`load_int8_params` into the ``Int8Linear``
+    buffers of a quantized port Phi.
 
 Real checkpoints (``showlab/show-o-512x512``, ``showlab/magvitv2``) are
 reference-layout already and load through :func:`load_reference_weights`.
@@ -70,6 +77,13 @@ def _load(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
 def load_showo(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
     """Load a reference Show-o state dict (``showo.model.layers...``) into a
     not yet fused :class:`~showo_tpu_torch.models.showo.Showo`."""
+    return _load(model, sd)
+
+
+def load_clip_vit(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
+    """Load an HF ``CLIPVisionModel`` state dict (``vision_model.*``) into a
+    :class:`~showo_tpu_torch.models.clip_vit.ClipVisionTower`; other
+    entries (``post_layernorm``, a text tower) are ignored."""
     return _load(model, sd)
 
 
@@ -146,3 +160,66 @@ def magvit_state_dict(params: Mapping,
     _norm(sd, "decoder.norm_out", dec["norm_out"])
     _conv(sd, "decoder.conv_out", dec["conv_out"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# CLIP-ViT: JAX params -> HF layout
+# ---------------------------------------------------------------------------
+
+def clip_vit_state_dict(params: Mapping, num_layers: int,
+                        prefix: str = "vision_model.") -> Dict[str, np.ndarray]:
+    """JAX CLIP-ViT params (stacked layers) -> HF ``CLIPVisionModel`` state
+    dict; inverse of ``clip_vit_params_from_torch``: HWIO -> OIHW patch
+    conv, [K, N] -> [N, K] linears, LayerNorm scale -> weight."""
+    sd: Dict[str, np.ndarray] = {}
+    e = f"{prefix}embeddings."
+    sd[f"{e}patch_embedding.weight"] = np.transpose(
+        np.asarray(params["patch_embed"]["kernel"]), (3, 2, 0, 1))
+    sd[f"{e}class_embedding"] = np.asarray(params["class_embed"])
+    sd[f"{e}position_embedding.weight"] = np.asarray(params["pos_embed"])
+    _norm(sd, f"{prefix}pre_layrnorm", params["pre_ln"])
+    L = params["layers"]
+    names = {"ln1": "layer_norm1", "ln2": "layer_norm2",
+             "q": "self_attn.q_proj", "k": "self_attn.k_proj",
+             "v": "self_attn.v_proj", "out": "self_attn.out_proj",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i in range(num_layers):
+        base = f"{prefix}encoder.layers.{i}"
+        for ours, theirs in names.items():
+            node = {k: np.asarray(v)[i] for k, v in L[ours].items()}
+            if "kernel" in node:
+                sd[f"{base}.{theirs}.weight"] = node["kernel"].T
+                sd[f"{base}.{theirs}.bias"] = node["bias"]
+            else:
+                _norm(sd, f"{base}.{theirs}", node)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# int8 serving params: JAX quantize_int8 -> Int8Linear buffers
+# ---------------------------------------------------------------------------
+
+def load_int8_params(phi: torch.nn.Module, params: Mapping):
+    """Copy JAX ``quantize_int8`` params (a Phi tree whose quantized
+    matmuls hold stacked ``kernel_i8`` [L, K, N], ``scale`` [L, 1, N] and
+    ``bias`` [L, N], and ``lm_head``) into the ``Int8Linear`` modules of a
+    port Phi already fused and quantized to the same layout."""
+    from showo_tpu_torch.models.phi import INT8_LINEARS, Int8Linear
+
+    def put(module, node, i=None):
+        if not isinstance(module, Int8Linear):
+            raise TypeError(f"{type(module).__name__} is not quantized; "
+                            f"run quantize_int8 on the port model first")
+        pick = (lambda a: np.asarray(a)) if i is None else (
+            lambda a: np.asarray(a)[i])
+        module.load_quantized(pick(node["kernel_i8"]), pick(node["scale"]),
+                              pick(node["bias"]))
+
+    for name, path in INT8_LINEARS.items():
+        node = params["layers"].get(name)
+        if node is None or "kernel_i8" not in node:
+            continue
+        for i, layer in enumerate(phi.model.layers):
+            put(layer.get_submodule(path), node, i)
+    put(phi.lm_head, params["lm_head"])
+    return phi
