@@ -26,12 +26,20 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   weights and with weight-only int8 (``int8=1``: every matmul of Phi on
   the int8 kernel);
 * the CLIP-ViT understanding path (``configs/showo_demo_w_clip_vit.yaml``:
-  CLIP-L/14-336 features projected into the prompt), int8.
+  CLIP-L/14-336 features projected into the prompt), int8;
+* Show-o2 1.5B text-to-image at 432x432 (``configs/showo2_1.5b_demo_432x432
+  .yaml``: Qwen2.5-1.5B, 28 layers, 12 q / 2 kv heads of 128; the SigLIP
+  tower, 26 layers; the DiT head, 10 layers, 32 q / 8 kv heads of 64; the
+  Wan2.1 VAE decoder in fp32) through ``inference_t2i_v2.build_pipeline``:
+  50-point Euler, CFG 7.5, batch 4 (8 rows with the null prompts), bf16,
+  the packed route (kernel 1 at head dims 128 and 64).
 
 Phases, one or more lines each:
 
   1. device: card name and power limit, torch / CUDA versions; TF32 off
-  2. build: nvcc builds the nine kernel sources of csrc/, in parallel
+  2. build: nvcc builds the ten kernel sources of csrc/, in parallel, and
+     ptxas' registers and spills of each entry function (kernel 1 at head
+     dims 64 and 128, kernel 6 at both)
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
      layout): the packed kernel at 512x512 and one GQA case; omni, decode,
@@ -91,6 +99,22 @@ Phases, one or more lines each:
      pairs read beside it
   10b. the CLIP-ViT path with int8 weights as phase 10, after the CLIP
      tower's features (576 x 1024, timed)
+  3c. kernels 1 and 6 at the Show-o2 432x432 slice's shapes: B=8 rows, S
+     the slice's truncated sequence, its span metadata; Qwen2.5 (12 q / 2
+     kv heads, D=128) and the DiT (32 / 8, D=64); kernel 6 beside kernel 1
+     on the same inputs; the fault of V read from the neighbouring kv head
+     planted in each plain version must fail the check; median times of
+     kernel, plain version and scaled_dot_product_attention with the
+     boolean mask, and the bound
+  12. the Show-o2 slice: over one generate call kernel 1 launches 38 x 49
+     times (28 Qwen + 10 DiT layers, 49 velocity evaluations), every other
+     kernel (kernel 6 among them) none; images finite, NHWC, in [-1, 1];
+     warm seconds per batch, images/min, peak device memory
+  13. one full-width velocity evaluation on the packed route against
+     dense attention under the additive mask: the same weights (the
+     zero-initialised adaLN and final projections drawn N(0, 0.02) so that
+     the velocity depends on the towers), latents and t; max |dv| over the
+     dense velocity's peak
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -171,9 +195,13 @@ WSMM_KERNELS = {
     "int4_matmul": "tools/probe_int4_decode.py:79 (kernel 10); "
                    "tools/probe_pallas_wsmm.py:123 (kernel 11b)",
 }
+# kernel 6, the GQA-stacked packed attention: on no model path (the JAX
+# package reaches it only through omni_attention_packed(gqa_stack=True))
+GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
+                            "showo_tpu/ops/flash_attention.py:338")
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
-            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS))
+            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + [GQA_SOURCE])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -187,6 +215,18 @@ L2_BYTES = 50e6      # H100 L2: timed weights rotate through twice this
 # limits of the JAX package's tests/test_int8_decode.py (whose reference is
 # the fp32 model too)
 INT8_AGREE, INT8_REL = 0.95, 0.05
+# the Show-o2 slice: 28 Qwen2.5 + 10 DiT layers, each one kernel 1 launch
+# per velocity evaluation, 49 evaluations (50-point Euler)
+V2_CONFIG = "configs/showo2_1.5b_demo_432x432.yaml"
+V2_LAYERS, V2_EVALS, V2_BATCH = 28 + 10, 49, 4
+# (label, q heads, kv heads, head dim) of kernels 1 and 6 on the slice
+V2_SHAPES = (("Qwen2.5 12/2 D=128", 12, 2, 128), ("DiT 32/8 D=64", 32, 8, 64))
+# packed vs dense, one full-width v2 velocity evaluation: max |dv| over the
+# dense velocity's peak (phase 13).  The routes round P to bf16 at
+# different points through 38 layers; read on an H100 at 700 W: 2.47e-2
+# unguided (1.92e-1 with CFG 7.5, which multiplies the difference of the
+# two halves by 7.5), 4x above the reading
+V2_STEP_TOL = 1e-1
 
 
 def _nvidia_smi() -> str:
@@ -195,6 +235,28 @@ def _nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _ptxas(log: str) -> list:
+    """ptxas' registers and spills of each entry function of an nvcc log,
+    as 'kernel<template args>: N registers, S bytes spill stores, L bytes
+    spill loads'."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([a-z_]*kernel)(?:I(L[ib]\w+?)E)?", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                "<" + re.sub(r"^L[ib]|E$", "", k.group(2)) + ">"
+                if k.group(2) else "")
+            out.append([name])
+        elif name is not None and ("spill" in line or "registers" in line):
+            out[-1].append(line.split(":", 1)[-1].strip().split(",")[0]
+                           if "registers" in line else
+                           line.strip().split(", ", 1)[-1])
+    return [f"{o[0]}: " + "; ".join(o[1:]) for o in out]
 
 
 def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1157,6 +1219,187 @@ def phase_int8_parity(torch, pipe_bf, pipe_i8, phi32, image):
     return readings
 
 
+def phase_v2_kernels(torch, pipe, prompts):
+    """Kernels 1 and 6 against their plain versions at the Show-o2 slice's
+    shapes and metadata (the truncated [cond; null] rows of ``prompts``),
+    Qwen2.5 and DiT heads; kernel 6 beside kernel 1; the planted fault.
+    Returns {"packed": {label: result}, "stacked": {label: result}}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops import flash_attention as tfa
+
+    text, mp = pipe.build_inputs(prompts)
+    meta = pipe.attention_inputs(text, mp)[1]
+    B, L = text.shape
+    m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
+    vis = tfa.visible_mask(*m, meta.pos_q)
+    n_vis = int(vis.sum())
+    # seg, pad, pos_q, seg_q [B, L] and last_pad, prefix [B], int32
+    meta_bytes = 4 * (4 * B * L + 2 * B)
+    print(f"[3c] the slice's rows: B={B} S={L} (spans {mp[:, 0].tolist()}); "
+          f"{n_vis} visible (row, key) pairs of {B * L * L} "
+          f"({n_vis / (B * L * L):.4f})")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    out = {"packed": {}, "stacked": {}}
+    for label, H, Hkv, D in V2_SHAPES:
+        if not tfa.gqa_stack_fits(L, L, H // Hkv):
+            raise AssertionError(f"{label}: the JAX package would not stack")
+        q, k, v = (torch.randn(B, L, n * D, generator=g, device="cuda")
+                   .bfloat16() for n in (H, Hkv, Hkv))
+        kw = dict(num_heads=H, num_kv_heads=Hkv)
+        rows = dict(q_positions=meta.pos_q, seg_q=meta.seg_q)
+        heads = [t.unflatten(-1, (-1, D)).transpose(1, 2) for t in (q, k, v)]
+        shape = f"{label}: B={B} S={L} H={H} Hkv={Hkv} D={D}"
+        bound = _bound(2 * (2 * B * L * H + 2 * B * L * Hkv) * D + meta_bytes,
+                       4 * D * H * n_vis)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *heads, attn_mask=vis[:, None], enable_gqa=Hkv != H)
+
+        plains = {
+            "packed": lambda v_: tfa.omni_attention_packed_plain(
+                q, k, v_, *m, meta.pos_q, sm_scale=D ** -0.5, **kw),
+            "stacked": lambda v_: tfa.omni_attention_gqa_stacked_plain(
+                q, k, v_, *m, meta.pos_q, sm_scale=D ** -0.5, **kw)}
+        kernels = {
+            "packed": lambda: tfa.omni_attention_packed(q, k, v, *m, **rows,
+                                                        **kw),
+            "stacked": lambda: tfa.omni_attention_packed(
+                q, k, v, *m, gqa_stack=True, **rows, **kw)}
+        for which, num in (("packed", 1), ("stacked", 6)):
+            out[which][label] = _compare(
+                torch, f"kernel {num} {shape}", kernels[which],
+                lambda: plains[which](v), bound, sdpa, phase="3c")
+        beside = (kernels["packed"]().float()
+                  - kernels["stacked"]().float()).abs().max().item()
+        wrong = v.view(B, L, Hkv, D).roll(1, dims=2).reshape(v.shape)
+        faults = {}
+        for which, plain in plains.items():
+            faults[which] = (plain(wrong).float()
+                             - plain(v).float()).abs().max().item()
+            if not faults[which] > CARD_TOL:
+                raise AssertionError(f"{shape}: the planted fault passes the "
+                                     f"{which} check: {faults[which]}")
+        print(f"[3c] {shape}: kernel 6 beside kernel 1 on the same inputs, "
+              f"max |difference| {beside:.3e}; planted fault (V of the "
+              f"neighbouring kv head) in the plain versions: "
+              f"{faults['packed']:.3e} (kernel 1), {faults['stacked']:.3e} "
+              f"(kernel 6), each failing the check (tol {CARD_TOL:.0e})")
+        del q, k, v, heads, wrong
+    return out
+
+
+def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
+    """The Show-o2 432x432 pipeline: launch counts over one generate call,
+    output checks, warm wall time and peak memory.  Returns (kernel 1
+    launches of one generate, the slice's readings).  The time by
+    operator of one generate is ``profile_t2i.py --slice v2``'s (its
+    ~200,000 launches take the profiler minutes)."""
+    cfg = pipe.cfg
+    lc, dc, sc = cfg.llm, cfg.dit, cfg.siglip
+    if not (pipe.attn_route == "packed" and lc.num_layers == 28
+            and lc.hidden_size == 1536 and (lc.num_heads, lc.num_kv_heads,
+                                            lc.head_dim) == (12, 2, 128)
+            and lc.vocab_size == 151940 and dc.num_layers == 10
+            and dc.hidden_size == 2048 and (dc.num_heads, dc.num_kv_heads,
+                                            dc.head_dim) == (32, 8, 64)
+            and sc.num_layers == 26 and sc.hidden_size == 1152
+            and cfg.num_image_tokens == 730 and pipe.num_steps == 50
+            and pipe.guidance_scale == 7.5 and pipe.vae.cfg.dim == 96):
+        raise AssertionError(f"not the full-width Show-o2 432x432 path: "
+                             f"{pipe.attn_route}, {cfg}, {pipe.vae.cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe.generate(prompts, gen)                       # warm-up
+    want = {name: 0 for name in COUNTERS}
+    want["omni_attention_packed"] = V2_LAYERS * V2_EVALS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    images = pipe.generate(prompts, gen)
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"v2: kernel launches in one generate call "
+                             f"{counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if images.shape != (V2_BATCH, 432, 432, 3) or not np.isfinite(
+            images).all():
+        raise AssertionError(f"v2: images {images.shape} or non-finite")
+    if images.min() < -1.0 or images.max() > 1.0:
+        raise AssertionError("v2: images outside [-1, 1]")
+    walls = []
+    for _ in range(2):
+        before = dict(cuda_build.launches)
+        t0 = time.perf_counter()
+        pipe.generate(prompts, gen)
+        walls.append(time.perf_counter() - t0)
+        if {n: cuda_build.launches[n] - before.get(n, 0)
+                for n in want} != want:
+            raise AssertionError("v2: launch counts changed")
+    wall = statistics.median(walls)
+    text, _ = pipe.build_inputs(prompts)
+    print(f"[12] slice Show-o2 1.5B t2i 432x432 route packed, 50-point "
+          f"Euler ({V2_EVALS} velocity evaluations), CFG 7.5, batch "
+          f"{V2_BATCH} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
+          f"random weights: launches per generate "
+          f"{counts['omni_attention_packed']} = {V2_LAYERS} x {V2_EVALS} of "
+          f"omni_attention_packed, 0 of the others ({GQA_SOURCE} among "
+          f"them); images {images.shape} finite in [-1, 1]; warm wall "
+          f"{wall:.4f} s/batch (median of 2: "
+          f"{', '.join(f'{w:.4f}' for w in walls)}), "
+          f"{V2_BATCH * 60.0 / wall:.2f} images/min; peak memory allocated "
+          f"{peak:.2f} GiB on {smi}")
+    return counts["omni_attention_packed"], {
+        "wall_s": wall, "images_per_min": V2_BATCH * 60.0 / wall,
+        "peak_gib": peak}
+
+
+def phase_v2_parity(torch, pipe, prompts):
+    """One full-width velocity evaluation on the packed route against dense
+    attention under the additive omni mask: the same weights, latents and
+    t.  The reference's zero init of the DiT's adaLN projections and of the
+    FinalLayer makes the velocity 0 whatever the towers compute, so they
+    are drawn N(0, 0.02) first (this phase is the model's last use)."""
+    from showo_tpu_torch.show_o2.masks import omni_attn_mask
+    from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
+
+    model, cfg = pipe.model, pipe.cfg
+    g = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "adaLN_modulation" in name or "diffusion_head_b.linear" in name:
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.02)
+    text, mp = pipe.build_inputs(prompts)
+    B, L = text.shape
+    z = torch.randn(B // 2, cfg.image_latent_dim, cfg.image_latent_height,
+                    cfg.image_latent_width, generator=g, device="cuda")
+    x = torch.cat([z, z])
+    t = torch.full((B,), 0.5, device="cuda")
+    inputs = {"packed": (None, pipe.attention_inputs(text, mp)[1]),
+              "dense": (omni_attn_mask(mp, L), None)}
+    v = {}
+    with torch.no_grad():
+        for route, (bias, meta) in inputs.items():
+            for cfg_scale in (0.0, pipe.guidance_scale):
+                v[route, cfg_scale] = showo2_t2i_velocity(
+                    model, text, x, t, bias, mp, guidance_scale=cfg_scale,
+                    attn_meta=meta).float()
+    rel = {s: ((v["packed", s] - v["dense", s]).abs().max()
+               / v["dense", s].abs().max()).item()
+           for s in (0.0, pipe.guidance_scale)}
+    peak = v["dense", 0.0].abs().max().item()
+    print(f"[13] velocity parity packed vs dense (28 + 10 layers, "
+          f"{tuple(text.shape)}, bf16, t 0.5): max |dv| / peak "
+          f"{rel[0.0]:.4e} unguided (peak |v| {peak:.4f}; tol "
+          f"{V2_STEP_TOL}), {rel[pipe.guidance_scale]:.4e} with CFG "
+          f"{pipe.guidance_scale}")
+    if not rel[0.0] <= V2_STEP_TOL:
+        raise AssertionError(f"v2 velocity packed vs dense differs by "
+                             f"{rel[0.0]} of the peak > {V2_STEP_TOL}")
+    return rel
+
+
 def main() -> int:
     import torch
 
@@ -1174,6 +1417,8 @@ def main() -> int:
     from showo_tpu_torch.training.train_showo import build_trainer
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
+    parts = []      # (part of the run, its end time): the [end] line's split
 
     # [1] device
     smi = _nvidia_smi()
@@ -1186,16 +1431,16 @@ def main() -> int:
     # [2] build: one nvcc per source, all started together
     t0 = time.perf_counter()
     names = [name for name, _ in KERNELS.values()] + [
-        TRAIN_SOURCE, STREAM_TRAIN_SOURCE, *WSMM_KERNELS]
+        TRAIN_SOURCE, STREAM_TRAIN_SOURCE, *WSMM_KERNELS, GQA_SOURCE]
     cuda_build.load_libraries(names)
     print(f"[2] build: {len(names)} sources with nvcc (sm_90a) in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
     for name in names:
         info = cuda_build.build_info[name]
-        regs = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln] or [info["log"]]
+        regs = _ptxas(info["log"]) or [info["log"]]
         print(f"[2]   csrc/{name}.cu {info['seconds']:.2f} s; ptxas: "
               f"{' | '.join(regs)}")
+    parts.append(("device + build [1-2]", time.perf_counter()))
 
     # [3] kernel vs plain
     config = load_config("configs/showo_demo_512x512.yaml",
@@ -1220,6 +1465,7 @@ def main() -> int:
     pipe = None
     gc.collect()
     torch.cuda.empty_cache()
+    parts.append(("t2i 512x512 [3-5]", time.perf_counter()))
 
     # the training phases: cuDNN convolutions (the frozen MAGVIT encoder)
     # back on PyTorch's default TF32; matmuls stay full fp32 (the dense
@@ -1242,6 +1488,7 @@ def main() -> int:
     trainer = batch = noise = meta = None      # frees the stage-1 trainer
     gc.collect()
     torch.cuda.empty_cache()
+    parts.append(("stage-1 trainer [6-8]", time.perf_counter()))
 
     trainer, batch, noise, meta = _trainer(
         torch, build_trainer, train_batch, tuning512_config(),
@@ -1261,6 +1508,7 @@ def main() -> int:
     trainer = batch = noise = None
     gc.collect()
     torch.cuda.empty_cache()
+    parts.append(("512x512 trainer [6b-8b]", time.perf_counter()))
 
     # the understanding slice (configs/showo_demo.yaml: 256x256, the full
     # MAGVIT-v2 encoder), bf16 and int8 pipelines on the same seeded weights
@@ -1304,6 +1552,7 @@ def main() -> int:
     pipes = pipe = model32 = None
     gc.collect()
     torch.cuda.empty_cache()
+    parts.append(("understanding [9-11]", time.perf_counter()))
 
     # [10b] the CLIP-ViT path (configs/showo_demo_w_clip_vit.yaml), int8
     clip_config = load_config("configs/showo_demo_w_clip_vit.yaml",
@@ -1331,6 +1580,32 @@ def main() -> int:
               lambda: pipe.clip_prompt(feats, MMU_QUESTION, sys_ids), 1, smi,
               "10b")
     pipe = tower = feats = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("CLIP-ViT [10b]", time.perf_counter()))
+
+    # the Show-o2 432x432 slice through the CLI's build_pipeline
+    from showo_tpu_torch import inference_t2i_v2
+
+    v2_config = load_config(V2_CONFIG)
+    t0 = time.perf_counter()
+    pipe = inference_t2i_v2.build_pipeline(v2_config, device)
+    torch.cuda.synchronize()
+    print(f"[12] Show-o2 pipeline built in {time.perf_counter() - t0:.1f} s "
+          f"(random weights from seeds): "
+          f"{sum(p.numel() for p in pipe.model.parameters())} parameters, "
+          f"VAE {sum(p.numel() for p in pipe.vae.parameters())}")
+    v2_prompts = inference_t2i_v2.load_prompts(v2_config)[:V2_BATCH]
+
+    # [3c] kernels 1 and 6 at the slice's shapes
+    v2_results = phase_v2_kernels(torch, pipe, v2_prompts)
+
+    # [12] the slice, [13] packed vs dense velocity
+    v2_launches, v2_slice = phase_v2_slice(torch, np, cuda_build, pipe,
+                                           v2_prompts, smi)
+    phase_v2_parity(torch, pipe, v2_prompts)
+    pipe = None
+    parts.append(("Show-o2 [3c, 12, 13]", time.perf_counter()))
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -1359,6 +1634,22 @@ def main() -> int:
                         "launches": mmu[1]["launches"]
                         if name == "int8_matmul" else 0,
                         **cases[case], "case": case, "cases": cases})
+    qwen = V2_SHAPES[0][0]
+    for name, source, replaces, which, launches in (
+            ("omni_attention_packed_v2", "omni_attention_packed",
+             KERNELS["packed"][1], "packed", v2_launches),
+            (GQA_SOURCE, GQA_SOURCE, GQA_REPLACES, "stacked", 0)):
+        cases = v2_results[which]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{source}.cu",
+                        "replaces": replaces, "launches": launches,
+                        **cases[qwen], "case": qwen, "cases": cases,
+                        **({"slice": v2_slice} if launches else {})})
+    starts = [t_start] + [t for _, t in parts[:-1]]
+    split = ", ".join(f"{part} {end - begin:.1f}"
+                      for (part, end), begin in zip(parts, starts))
+    print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} "
+          f"s (build included): {split} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,9 @@ extern "C" int omni_attention_bf16(
     long long o_sb, long long o_sh, long long o_sr,
     float sm_scale, void* stream) {
   if (head_dim != tile::D) return static_cast<int>(cudaErrorInvalidValue);
-  return omni::launch(q, k, v, out, seg, pad, last_pad, prefix, pos_q, seg_q,
-                      B, Q, S, H, H, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
-                      {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale,
-                      stream);
+  return omni::launch<tile::D>(q, k, v, out, seg, pad, last_pad, prefix,
+                               pos_q, seg_q, B, Q, S, H, H,
+                               {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+                               {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr},
+                               sm_scale, stream);
 }

@@ -5,13 +5,15 @@
 // kernel _attn_kernel_packed).  The kernel, its mask predicate, what bounds
 // it on an H100 and its design are in omni_attention.cuh, which the
 // head-major entry (omni_attention.cu) shares: here the head stride is D
-// and the row stride H*D.  GQA: kv head = h / (H / Hkv).
+// and the row stride H*D.  GQA: kv head = h / (H / Hkv).  Head dim 64
+// (Show-o v1, the Show-o2 DiT head: 32 q / 8 kv heads) or 128 (Qwen2.5:
+// 12 q / 2 kv heads), one instantiation of the tile core each.
 
 #include "omni_attention.cuh"
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers;
 // strides are in elements; the last dim of q/k/v/out is contiguous; the head
-// dim is 64.  Returns the cudaError_t of the launch (0 = launched).
+// dim is 64 or 128.  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int omni_attention_packed_bf16(
     const void* q, const void* k, const void* v, void* out,
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
@@ -20,9 +22,16 @@ extern "C" int omni_attention_packed_bf16(
     long long q_sb, long long q_sr, long long k_sb, long long k_sr,
     long long v_sb, long long v_sr, long long o_sb, long long o_sr,
     float sm_scale, void* stream) {
-  if (head_dim != tile::D) return static_cast<int>(cudaErrorInvalidValue);
-  const long long d = tile::D;
-  return omni::launch(q, k, v, out, seg, pad, last_pad, prefix, pos_q, seg_q,
-                      B, Q, S, H, Hkv, {q_sb, d, q_sr}, {k_sb, d, k_sr},
-                      {v_sb, d, v_sr}, {o_sb, d, o_sr}, sm_scale, stream);
+  const long long d = head_dim;
+  const tile::Strides qs{q_sb, d, q_sr}, ks{k_sb, d, k_sr},
+      vs{v_sb, d, v_sr}, os{o_sb, d, o_sr};
+  if (head_dim == 64)
+    return omni::launch<64>(q, k, v, out, seg, pad, last_pad, prefix, pos_q,
+                            seg_q, B, Q, S, H, Hkv, qs, ks, vs, os, sm_scale,
+                            stream);
+  if (head_dim == 128)
+    return omni::launch<128>(q, k, v, out, seg, pad, last_pad, prefix, pos_q,
+                             seg_q, B, Q, S, H, Hkv, qs, ks, vs, os, sm_scale,
+                             stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,19 +1,26 @@
 """Omni attention: the CUDA kernel's two wrappers, their plain versions, and
 the span metadata they read.
 
-Counterpart of ``showo_tpu/ops/flash_attention.py``.  Two entry points,
+Counterpart of ``showo_tpu/ops/flash_attention.py``.  Three entry points,
 as in the JAX package, compute the same function on two layouts:
 
-* ``omni_attention_packed``: q/k/v [B, S, H*D], GQA (replaces the Pallas
-  ``omni_attention_packed``, kernel ``_attn_kernel_packed``);
+* ``omni_attention_packed``: q/k/v [B, S, H*D], GQA, head dim 64 or 128
+  (replaces the Pallas ``omni_attention_packed``, kernel
+  ``_attn_kernel_packed``);
+* ``omni_attention_gqa_stacked``: the same layout and function, one block
+  per kv head running the rows of its G q heads against each K/V tile
+  loaded once (replaces the Pallas ``_omni_attention_gqa_stacked``);
+  ``omni_attention_packed(gqa_stack=True)`` routes to it under the JAX
+  package's condition;
 * ``omni_attention``: head-major q/k/v [B, H, S, D] (replaces the Pallas
   ``omni_attention``, kernel ``_attn_kernel``), taking strided views as
   they are.
 
-Both launch the hand-written Hopper kernel of ``csrc/omni_attention.cuh``
-(entries ``csrc/omni_attention_packed.cu`` and ``csrc/omni_attention.cu``),
-which reads the layouts through their strides.  The mask is recomputed
-from O(S) metadata instead of a [B, 1, Q, S] bias:
+They launch the hand-written Hopper kernels of ``csrc/omni_attention.cuh``
+(entries ``csrc/omni_attention_packed.cu``, ``csrc/omni_attention.cu`` and
+``csrc/omni_attention_gqa_stacked.cu``), which read the layouts through
+their strides.  The mask is recomputed from O(S) metadata instead of a
+[B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -58,6 +65,22 @@ _OMNI_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
 # ---------------------------------------------------------------------------
 # Token sequences -> O(S) kernel metadata
 # ---------------------------------------------------------------------------
+
+def seg_from_modality_positions(modality_positions: torch.Tensor,
+                                L: int) -> torch.Tensor:
+    """[B, M, 2] (offset, length) spans -> segment ids [B, L] int32 (v2
+    omni): a position inside span m has id m + 1 (the last span that
+    claims it, as in JAX), others 0."""
+    B, M, _ = modality_positions.shape
+    mp = torch.as_tensor(modality_positions)
+    pos = torch.arange(L, device=mp.device)[None, :, None]
+    off = mp[:, None, :, 0]
+    length = mp[:, None, :, 1]
+    in_span = (pos >= off) & (pos < off + length)            # [B, L, M]
+    ids = torch.arange(M, device=mp.device)[None, None, :] + 1
+    sid = torch.argmax(torch.where(in_span, ids, 0), dim=-1)
+    return torch.where(in_span.any(-1), sid + 1, 0).to(torch.int32)
+
 
 def seg_from_soi_eoi(sequence: torch.Tensor, soi_id: int,
                      eoi_id: int) -> torch.Tensor:
@@ -200,10 +223,28 @@ def _check_operands(kernel: str, tensors: dict, dims: int) -> None:
                              f"16-byte aligned for the kernel's vector loads")
 
 
-def _check_head_dim(kernel: str, D: int) -> None:
-    if D != 64:
+def _check_head_dim(kernel: str, D: int, dims=(64,)) -> None:
+    if D not in dims:
         raise ValueError(f"{kernel} kernel: head dim {D}, the kernel is "
-                         f"built for 64")
+                         f"built for {' or '.join(map(str, dims))}")
+
+
+# The JAX package stacks the q heads of a group only while a [Sp, block_q *
+# group] fp32 score block fits this budget of TPU VMEM
+# (showo_tpu/ops/flash_attention.py:287, block_q 256 from 256 q rows, else
+# 128; Sp = S rounded up to block_q).  The port keeps the condition so that
+# the same calls dispatch the same way; on an H100 the cut-over has no
+# reason yet and is to be set from card timings.
+GQA_STACK_MAX_BYTES = 8 * 1024 * 1024
+GQA_STACK_MAX_GROUP = 8     # the kernel's block holds at most 8 warps
+
+
+def gqa_stack_fits(Q: int, S: int, group: int) -> bool:
+    """Whether ``omni_attention_packed(gqa_stack=True)`` takes the stacked
+    kernel for these shapes (the JAX package's condition)."""
+    block_q = 256 if Q >= 256 else 128
+    Sp = -(-S // block_q) * block_q
+    return group > 1 and Sp * block_q * group * 4 <= GQA_STACK_MAX_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -239,17 +280,21 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
                           num_heads: int = 32,
                           num_kv_heads: Optional[int] = None,
                           sm_scale: Optional[float] = None,
-                          q_positions=None, seg_q=None):
+                          q_positions=None, seg_q=None,
+                          gqa_stack: bool = False):
     """q: [B, Q, H*D]; k, v: [B, S, Hkv*D] (GQA: Hkv divides H).
 
     seg, pad: [B, S] int; last_pad, prefix: [B] int.  ``q_positions`` are
     the q rows' kv positions, [Q] (shared) or [B, Q]; required when
     Q != S.  ``seg_q``, when given, says that ``q_positions`` and ``seg_q``
     already are the int32 [B, Q] pair of :func:`q_rows`.  Returns
-    [B, Q, H*D] in q's dtype.
+    [B, Q, H*D] in q's dtype.  ``gqa_stack``: take
+    :func:`omni_attention_gqa_stacked` where :func:`gqa_stack_fits`, as the
+    JAX package does.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel (bf16, head dim 64), which raises on what it does not take.
+    kernel (bf16, head dim 64 or 128), which raises on what it does not
+    take.
     """
     B, Q, HD = q.shape
     S = k.shape[1]
@@ -257,6 +302,24 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
         num_kv_heads = num_heads
     if HD % num_heads or num_heads % num_kv_heads:
         raise ValueError(f"H*D={HD} with H={num_heads}, Hkv={num_kv_heads}")
+    if gqa_stack and gqa_stack_fits(Q, S, num_heads // num_kv_heads):
+        return omni_attention_gqa_stacked(
+            q, k, v, seg, pad, last_pad, prefix, num_heads=num_heads,
+            num_kv_heads=num_kv_heads, sm_scale=sm_scale,
+            q_positions=q_positions, seg_q=seg_q)
+    return _packed_call("omni_attention_packed", omni_attention_packed_plain,
+                        q, k, v, seg, pad, last_pad, prefix, num_heads,
+                        num_kv_heads, sm_scale, q_positions, seg_q)
+
+
+def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
+                 num_heads: int, num_kv_heads: int, sm_scale, q_positions,
+                 seg_q):
+    """The packed-layout kernels' common wrapper: checks, metadata, the
+    plain version for CPU tensors, the kernel of ``csrc/<kernel>.cu`` for
+    CUDA tensors."""
+    B, Q, HD = q.shape
+    S = k.shape[1]
     D = HD // num_heads
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
@@ -264,25 +327,74 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
                         S, dev)
     if dev.type == "cpu":
-        return omni_attention_packed_plain(
-            q, k, v, *meta[:5], num_heads=num_heads,
-            num_kv_heads=num_kv_heads, sm_scale=sm_scale)
+        return plain(q, k, v, *meta[:5], num_heads=num_heads,
+                     num_kv_heads=num_kv_heads, sm_scale=sm_scale)
     if dev.type != "cuda":
-        raise ValueError(f"omni_attention_packed: unsupported device {dev}")
-    _check_operands("omni_attention_packed", {"q": q, "k": k, "v": v}, 3)
-    _check_head_dim("omni_attention_packed", D)
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    _check_operands(kernel, {"q": q, "k": k, "v": v}, 3)
+    _check_head_dim(kernel, D, (64, 128))
     if tuple(k.shape) != (B, S, num_kv_heads * D) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, S, Hkv*D] = "
                          f"{(B, S, num_kv_heads * D)}, got {tuple(k.shape)}"
                          f" / {tuple(v.shape)}")
     out = torch.empty((B, Q, HD), dtype=q.dtype, device=dev)
     cuda_build.launch(
-        "omni_attention_packed", "omni_attention_packed_bf16", _PACKED_ARGS,
+        kernel, f"{kernel}_bf16", _PACKED_ARGS,
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *(m.data_ptr() for m in meta), B, Q, S, num_heads, num_kv_heads, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), out.stride(0), out.stride(1), float(sm_scale))
     return out
+
+
+# ---------------------------------------------------------------------------
+# GQA-stacked packed omni attention
+# ---------------------------------------------------------------------------
+
+def omni_attention_gqa_stacked_plain(q, k, v, seg, pad, last_pad, prefix,
+                                     q_positions, *, num_heads: int,
+                                     num_kv_heads: int, sm_scale: float):
+    """Plain PyTorch version of the JAX package's stacked arithmetic: the G
+    q heads of each kv head stacked along rows (row g*Q + pos), one masked
+    fp32 product and softmax per kv head, probabilities cast to v's dtype,
+    unstacked.  Arguments as :func:`omni_attention_packed_plain`."""
+    B, Q, HD = q.shape
+    S = k.shape[1]
+    D = HD // num_heads
+    Hkv = num_kv_heads
+    G = num_heads // Hkv
+    qs = q.view(B, Q, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * Q, D)
+    kh = k.view(B, S, Hkv, D).transpose(1, 2)
+    vh = v.view(B, S, Hkv, D).transpose(1, 2)
+    vis = visible_mask(seg, pad, last_pad, prefix, q_positions).repeat(1, G, 1)
+    out = _masked_attention(qs, kh, vh, vis, sm_scale)   # [B, Hkv, G*Q, D]
+    return out.view(B, Hkv, G, Q, D).permute(0, 3, 1, 2, 4).reshape(
+        B, Q, HD).to(q.dtype)
+
+
+def omni_attention_gqa_stacked(q, k, v, seg, pad=None, last_pad=None,
+                               prefix=None, num_heads: int = 32,
+                               num_kv_heads: Optional[int] = None,
+                               sm_scale: Optional[float] = None,
+                               q_positions=None, seg_q=None):
+    """The function of :func:`omni_attention_packed` (same arguments), one
+    kernel block per (q block, kv head, batch) holding the rows of the
+    group's q heads (groups 1..8).  CPU tensors go through the plain
+    version; CUDA tensors through the kernel (bf16, head dim 64 or 128)."""
+    if num_kv_heads is None:
+        num_kv_heads = num_heads
+    if q.shape[-1] % num_heads or num_heads % num_kv_heads:
+        raise ValueError(f"H*D={q.shape[-1]} with H={num_heads}, "
+                         f"Hkv={num_kv_heads}")
+    group = num_heads // num_kv_heads
+    if q.device.type == "cuda" and group > GQA_STACK_MAX_GROUP:
+        raise ValueError(f"omni_attention_gqa_stacked kernel: group {group}"
+                         f" above {GQA_STACK_MAX_GROUP}")
+    return _packed_call("omni_attention_gqa_stacked",
+                        omni_attention_gqa_stacked_plain, q, k, v, seg, pad,
+                        last_pad, prefix, num_heads, num_kv_heads, sm_scale,
+                        q_positions, seg_q)
 
 
 # ---------------------------------------------------------------------------

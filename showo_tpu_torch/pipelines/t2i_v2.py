@@ -1,0 +1,158 @@
+"""Show-o2 text-to-image pipeline: flow-matching Euler ODE, CFG, Wan2.1 VAE.
+
+Counterpart of ``showo_tpu/pipelines/t2i_v2.py`` (show-o2/inference_t2i.py
+:130-195): the cond and null prompt layouts (``prepare_gen_input``),
+z ~ N(0, 1) in latent space, CFG by doubling the batch, Euler over the
+time-shifted grid with one velocity evaluation per interval, and the VAE
+decode of the cond half.
+
+As in JAX, the sequence is cut at the end of the image span, rounded up to
+128: the eoi / eos / pad rows after the span are seen by no image row, so
+they do not change the velocity.  The attention route is ``dense`` (the
+additive omni mask) or ``packed`` (kernel 1 in every layer of both towers,
+the mask recomputed from the span metadata: seg from the modality
+positions, no pads, last_pad -1, prefix 0); ``auto`` takes ``packed``
+from 512 image tokens on.  The prefix KV cache and the solvers other than
+Euler belong to a later slice and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from showo_tpu_torch.ops.flash_attention import seg_from_modality_positions
+from showo_tpu_torch.show_o2.formats import prepare_gen_input
+from showo_tpu_torch.show_o2.masks import omni_attn_mask
+from showo_tpu_torch.show_o2.qwen2 import check_route, packed_meta
+from showo_tpu_torch.show_o2.showo2 import (Showo2, fuse_inference,
+                                            showo2_t2i_velocity)
+from showo_tpu_torch.show_o2.transport import (check_sampler, ode_timegrid,
+                                               sample_ode_euler)
+from showo_tpu_torch.show_o2.wan_vae import WanVAE, wan_decode
+
+
+def route_attention(attn_impl: str, num_image_tokens: int) -> str:
+    """``auto``: the packed omni kernel from 512 image tokens on (the
+    432x432 demo has 730), dense attention below, as the JAX pipeline
+    routes; any other name must be a route of ``qwen2.ATTN_ROUTES``."""
+    if attn_impl == "auto":
+        return "packed" if num_image_tokens >= 512 else "dense"
+    return check_route(attn_impl)
+
+
+@dataclasses.dataclass
+class T2IV2Pipeline:
+    model: Showo2
+    vae: WanVAE
+    tokenizer: object
+    token_ids: dict        # bos_id, eos_id, boi_id, eoi_id, pad_id, img_pad_id
+    guidance_scale: float = 7.5
+    num_steps: int = 50
+    time_shifting_factor: float = 3.0
+    max_text_len: int = 256
+    attn_impl: str = "auto"           # auto | dense | packed
+    sampling_method: str = "euler"
+    prefix_cache: bool = False
+
+    def __post_init__(self):
+        if self.prefix_cache:
+            raise NotImplementedError(
+                "prefix_cache=True (the KV-cached velocity) belongs to a "
+                "later slice of the port")
+        # inference-only weight re-layout (in place), as the JAX pipeline's
+        # default: one qkv and one gate/up matmul per layer of both towers
+        fuse_inference(self.model)
+        self.cfg = self.model.cfg
+        self.attn_route = route_attention(self.attn_impl,
+                                          self.cfg.num_image_tokens)
+        check_sampler(self.sampling_method)
+        self.t_grid = ode_timegrid(
+            self.num_steps, time_shifting_factor=self.time_shifting_factor)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.showo.model.embed_tokens.weight.device
+
+    def build_inputs(self, prompts: Sequence[str]):
+        """(text [B', L], modality_positions [B', 1, 2]) of the [cond;
+        null] batch (B' = 2B with CFG), cut at the image span's end rounded
+        up to 128, as int64 on the model's device."""
+        ids = self.token_ids
+        toks, toks_null, mp, mp_null = prepare_gen_input(
+            list(prompts), self.tokenizer, self.cfg.num_image_tokens,
+            ids["bos_id"], ids["eos_id"], ids["boi_id"], ids["eoi_id"],
+            ids["pad_id"], ids["img_pad_id"], self.max_text_len)
+        if self.guidance_scale > 0:
+            text = np.concatenate([toks, toks_null], axis=0)
+            mp_all = np.concatenate([mp[:, 0], mp_null[:, 0]], axis=0)
+        else:
+            text, mp_all = toks, mp[:, 0]
+        mp_all = mp_all.reshape(text.shape[0], -1, 2)
+        img_end = int(np.max(mp_all[:, :, 0] + mp_all[:, :, 1]))
+        L = min(text.shape[1], (img_end + 127) // 128 * 128)
+        dev = self.device
+        return (torch.as_tensor(text[:, :L], device=dev),
+                torch.as_tensor(mp_all, device=dev))
+
+    def attention_inputs(self, text: torch.Tensor, mp: torch.Tensor):
+        """(bias, attn_meta) of the route: the additive [B', 1, L, L] omni
+        mask for ``dense``; for ``packed`` the kernel's span metadata,
+        computed once for every layer of every velocity evaluation."""
+        B, L = text.shape
+        if self.attn_route == "dense":
+            return omni_attn_mask(mp, L), None
+        dev = text.device
+        return None, packed_meta((
+            "packed", seg_from_modality_positions(mp, L),
+            torch.zeros((B, L), dtype=torch.int32, device=dev),
+            torch.full((B,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev)))
+
+    @torch.no_grad()
+    def generate_latents(self, prompts: Sequence[str],
+                         generator: Optional[torch.Generator] = None,
+                         noise=None) -> torch.Tensor:
+        """Denoised latents [B, C, h, w] fp32 of the cond half.  z is drawn
+        from ``generator`` ([B, C, h, w] N(0, 1) fp32 on the model's
+        device), or taken from ``noise`` (the parity tests' injected z)."""
+        cfg = self.cfg
+        B = len(prompts)
+        shape = (B, cfg.image_latent_dim, cfg.image_latent_height,
+                 cfg.image_latent_width)
+        if noise is None:
+            z = torch.randn(shape, generator=generator, device=self.device)
+        else:
+            z = torch.as_tensor(noise, dtype=torch.float32,
+                                device=self.device)
+            if tuple(z.shape) != shape:
+                raise ValueError(f"noise must be {shape}, got "
+                                 f"{tuple(z.shape)}")
+        text, mp = self.build_inputs(prompts)
+        bias, attn_meta = self.attention_inputs(text, mp)
+        if self.guidance_scale > 0:
+            z = torch.cat([z, z], dim=0)
+
+        def drift(x, t):
+            return showo2_t2i_velocity(self.model, text, x, t, bias, mp,
+                                       guidance_scale=self.guidance_scale,
+                                       attn_meta=attn_meta)
+
+        return sample_ode_euler(drift, z, self.t_grid)[:B]
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor) -> np.ndarray:
+        """Latents [B, C, h, w] -> NHWC float32 images in [-1, 1] (the VAE
+        in its own dtype, fp32 as built)."""
+        z = latents.to(self.vae.conv2.weight.dtype)[:, :, None]
+        pixels = wan_decode(self.vae, z)[:, :, 0]
+        return pixels.permute(0, 2, 3, 1).float().cpu().numpy()
+
+    def generate(self, prompts: Sequence[str],
+                 generator: Optional[torch.Generator] = None,
+                 noise=None) -> np.ndarray:
+        """NHWC float32 images in [-1, 1], one per prompt."""
+        return self.decode(self.generate_latents(prompts, generator, noise))

@@ -1,10 +1,13 @@
-"""Device-time breakdown of one warm 512x512 text-to-image generate call.
+"""Device-time breakdown of one warm text-to-image generate call.
 
     python -m showo_tpu_torch.profile_t2i --route fused
+    python -m showo_tpu_torch.profile_t2i --slice v2 --route packed
 
 Builds the pipeline of ``configs/showo_demo_512x512.yaml`` (Show-o 1.3B,
-random weights from a fixed seed, bf16, 16 steps, CFG 1.75, batch 2) on
-one attention route, warms it up, and profiles one ``generate`` call with
+random weights from a fixed seed, bf16, 16 steps, CFG 1.75, batch 2), or
+with ``--slice v2`` that of ``configs/showo2_1.5b_demo_432x432.yaml``
+(Show-o2 1.5B, 50-point Euler, CFG 7.5, batch 4), on one attention route,
+warms it up, and profiles one ``generate`` call with
 ``torch.profiler`` (CPU and CUDA activities).  Prints the wall time, the
 device's busy time within its kernel span (and so its idle share), the
 number of kernel launches, and the 15 largest rows of device time by
@@ -19,17 +22,21 @@ import time
 
 import torch
 
-from showo_tpu_torch import inference_t2i
+from showo_tpu_torch import inference_t2i, inference_t2i_v2
 from showo_tpu_torch.config import load_config
 
 # the port's kernels (csrc/), listed by their __global__ names
-_OURS = ("omni_attention_kernel", "decode_attention_kernel",
+_OURS = ("omni_attention_kernel", "gqa_stacked_kernel",
+         "decode_attention_kernel",
          "fused_decode_kernel", "agrad::fwd_kernel", "agrad::dq_kernel",
          "agrad::dkv_kernel", "wsmm::")
 # a profiler row of the CUDA runtime (launches that waited for room in the
 # command queue), not an operator: the device time under it is counted
 # again in the rows of the operators and kernels it held up
 _NOT_OPERATORS = ("Command Buffer Full",)
+# the profiler's own device rows when its activity buffers fill (a call of
+# ~200,000 launches): not work of the program
+_PROFILER_ROWS = ("Activity Buffer Request", "Buffer Flush")
 
 
 def _busy_ms(events) -> tuple:
@@ -47,14 +54,22 @@ def _busy_ms(events) -> tuple:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--route", default="auto")
+    ap.add_argument("--slice", default="v1", choices=("v1", "v2"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_t2i needs a CUDA card")
-    config = load_config("configs/showo_demo_512x512.yaml",
-                         ["guidance_scale=1.75", "generation_timesteps=16"])
-    pipe = inference_t2i.build_pipeline(config, torch.device("cuda"),
-                                        attn_impl=args.route)
-    prompts = inference_t2i.load_prompts(config)[:2]
+    if args.slice == "v2":
+        config = load_config("configs/showo2_1.5b_demo_432x432.yaml")
+        pipe = inference_t2i_v2.build_pipeline(config, torch.device("cuda"),
+                                               attn_impl=args.route)
+        prompts = inference_t2i_v2.load_prompts(config)[:4]
+    else:
+        config = load_config("configs/showo_demo_512x512.yaml",
+                             ["guidance_scale=1.75",
+                              "generation_timesteps=16"])
+        pipe = inference_t2i.build_pipeline(config, torch.device("cuda"),
+                                            attn_impl=args.route)
+        prompts = inference_t2i.load_prompts(config)[:2]
     gen = torch.Generator(device="cuda").manual_seed(0)
     pipe.generate(prompts, gen)                                # warm-up
     torch.cuda.synchronize()
@@ -77,7 +92,8 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in _PROFILER_ROWS]
     if not kernels:
         raise SystemExit("the profiler recorded no device events")
     busy, span, count = _busy_ms(kernels)
@@ -90,7 +106,7 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
     rows = [a for a in prof.key_averages()
             if a.self_device_time_total > 0 and (
                 (a.device_type == cpu and not a.key.startswith("cuda")
-                 and a.key not in _NOT_OPERATORS)
+                 and a.key not in _NOT_OPERATORS + _PROFILER_ROWS)
                 or (a.device_type == cuda and any(k in a.key for k in _OURS)))]
     rows.sort(key=lambda a: -a.self_device_time_total)
     print(f"{'operator or kernel':<48} {'calls':>7} {'device ms':>10} "

@@ -1,0 +1,98 @@
+"""SigLIP semantic tower as PyTorch modules.
+
+Counterpart of ``showo_tpu/show_o2/siglip.py``: the vision encoder of
+google/siglip-so400m-patch14-384 minus its last layer, fed with
+patch-embedded VAE latents plus the SigLIP position embedding
+(show-o2/models/modeling_showo2_qwen2_5.py:77-83).  A pre-LN ViT stack:
+LayerNorm, biased multi-head attention, tanh-GELU MLP.  Attention is dense
+(fp32 scores from exact products of the stored operands, as in JAX); the
+JAX package runs no kernel here.  Module names follow the reference's
+``und_trans.layers.{i}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from showo_tpu_torch.models.phi import layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLipConfig:
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_heads: int = 16
+    num_layers: int = 26          # 27 minus the deleted last layer
+    layer_norm_eps: float = 1e-6
+    num_positions: int = 729      # 27x27 for so400m-384
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+class SiglipAttention(nn.Module):
+    def __init__(self, cfg: SigLipConfig, device=None, dtype=None):
+        super().__init__()
+        D = cfg.hidden_size
+        kw = dict(device=device, dtype=dtype)
+        self.q_proj = nn.Linear(D, D, **kw)
+        self.k_proj = nn.Linear(D, D, **kw)
+        self.v_proj = nn.Linear(D, D, **kw)
+        self.out_proj = nn.Linear(D, D, **kw)
+
+
+class SiglipMLP(nn.Module):
+    def __init__(self, cfg: SigLipConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+
+class SiglipLayer(nn.Module):
+    def __init__(self, cfg: SigLipConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(eps=cfg.layer_norm_eps, device=device, dtype=dtype)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.self_attn = SiglipAttention(cfg, device, dtype)
+        self.mlp = SiglipMLP(cfg, device, dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        B, S, D = h.shape
+        H, Dh = self.cfg.num_heads, self.cfg.head_dim
+        a = self.self_attn
+        x = layer_norm(h, self.layer_norm1)
+        q, k, v = (p(x).view(B, S, H, Dh)
+                   for p in (a.q_proj, a.k_proj, a.v_proj))
+        with torch.autocast(h.device.type, enabled=False):
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                  k.float()) / math.sqrt(Dh)
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        h = h + a.out_proj(attn.reshape(B, S, D))
+        x2 = layer_norm(h, self.layer_norm2)
+        return h + self.mlp.fc2(F.gelu(self.mlp.fc1(x2), approximate="tanh"))
+
+
+class SiglipEncoder(nn.Module):
+    """The semantic layers (reference ``und_trans``)."""
+
+    def __init__(self, cfg: SigLipConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(SiglipLayer(cfg, device, dtype)
+                                    for _ in range(cfg.num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, D]: patch embeddings, position embedding added."""
+        for layer in self.layers:
+            x = layer(x)
+        return x

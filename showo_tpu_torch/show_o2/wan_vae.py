@@ -1,0 +1,275 @@
+"""Wan2.1 3D causal VAE decoder as PyTorch modules (full-clip form).
+
+Counterpart of the decoder half of ``showo_tpu/show_o2/wan_vae.py``
+(show-o2/models/wan21_vae.py).  The reference decodes one latent frame at
+a time, threading a cache of the last two frames through every causal
+convolution; over a whole clip that reduces exactly to:
+
+  * a stride-1 CausalConv3d: a convolution with 2*(kT//2) zero frames
+    padded in front in time and symmetric spatial padding;
+  * the upsample3d time path: frame 0 passes through, frames 1..T-1 feed
+    a causal (3, 1, 1) convolution to 2C channels, interleaved into two
+    output frames each.
+
+RMS_norm is the channel L2 norm times sqrt(C) and gamma; attention is
+per-frame single-head spatial attention with fp32 scores.  Convolutions
+are PyTorch's (the JAX package runs them outside any Pallas kernel).  The
+layout is the reference's [B, C, T, H, W] throughout, and the module tree
+carries the reference checkpoint's names (``conv2``, ``decoder.conv1``,
+``decoder.middle.{0,1,2}``, ``decoder.upsamples.{i}``,
+``decoder.head.{0,2}``), so a Wan2.1_VAE.pth state dict, or the one
+``showo_tpu_torch.utils.convert.wan_vae_state_dict`` makes from JAX
+params, loads with ``load_state_dict`` (its encoder entries ignored).  The
+encoder and the streaming mode are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVAEConfig:
+    dim: int = 96
+    z_dim: int = 16
+    dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    temperal_downsample: Tuple[bool, ...] = (False, True, True)
+
+    @property
+    def temperal_upsample(self):
+        return tuple(reversed(self.temperal_downsample))
+
+
+# latent normalization constants (wan21_vae.py:632-642)
+WAN_LATENT_MEAN = (
+    -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+WAN_LATENT_STD = (
+    2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+    3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160)
+
+
+def encoder_structure(cfg: WanVAEConfig) -> List[Tuple[str, dict]]:
+    """The encoder's ``downsamples`` plan, as the JAX package lays it out
+    (the port decodes only; the weight exporter names the encoder too)."""
+    plan = []
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:])):
+        d = in_dim
+        for _ in range(cfg.num_res_blocks):
+            plan.append(("res", {"in": d, "out": out_dim}))
+            d = out_dim
+        if i != len(cfg.dim_mult) - 1:
+            mode = ("downsample3d" if cfg.temperal_downsample[i]
+                    else "downsample2d")
+            plan.append((mode, {"dim": out_dim}))
+    return plan
+
+
+def decoder_structure(cfg: WanVAEConfig) -> List[Tuple[str, dict]]:
+    """The decoder's ``upsamples`` plan: residual blocks (in -> out) and
+    up-resamples (2d, or 3d with the time path) of their width."""
+    plan = []
+    dims = [cfg.dim * u
+            for u in (cfg.dim_mult[-1],) + tuple(reversed(cfg.dim_mult))]
+    for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:])):
+        d = in_dim // 2 if i in (1, 2, 3) else in_dim
+        for _ in range(cfg.num_res_blocks + 1):
+            plan.append(("res", {"in": d, "out": out_dim}))
+            d = out_dim
+        if i != len(cfg.dim_mult) - 1:
+            mode = ("upsample3d" if cfg.temperal_upsample[i]
+                    else "upsample2d")
+            plan.append((mode, {"dim": out_dim}))
+    return plan
+
+
+class CausalConv3d(nn.Conv3d):
+    """A 3D convolution padded 2*(kT//2) frames in front in time (zeros)
+    and kH//2, kW//2 on both sides in space.  On one frame (an image) only
+    the last time tap meets data, so it runs as that tap's 2D convolution
+    (the same sum without the zero frames' products: a third of the work
+    and of the padded copy)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel, device=None,
+                 dtype=None):
+        super().__init__(in_ch, out_ch, kernel, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kT, kH, kW = self.kernel_size
+        x = x.to(self.weight.dtype)
+        if x.shape[2] == 1:
+            return F.conv2d(x[:, :, 0], self.weight[:, :, -1], self.bias,
+                            padding=(kH // 2, kW // 2))[:, :, None]
+        x = F.pad(x, (kW // 2, kW // 2, kH // 2, kH // 2, 2 * (kT // 2), 0))
+        return super().forward(x)
+
+
+class RMSNormChannel(nn.Module):
+    """Reference RMS_norm over the channel dim 1: L2-normalise, times
+    sqrt(C) and ``gamma`` ([C, 1, 1, 1], or [C, 1, 1] for images)."""
+
+    def __init__(self, dim: int, images: bool, device=None, dtype=None):
+        super().__init__()
+        shape = (dim, 1, 1) if images else (dim, 1, 1, 1)
+        self.gamma = nn.Parameter(torch.ones(shape, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (F.normalize(x, dim=1, eps=1e-12) * math.sqrt(x.shape[1])
+                * self.gamma)
+
+
+class ResidualBlock(nn.Module):
+    """RMS, SiLU, conv, RMS, SiLU, (dropout), conv, plus the shortcut
+    (wan21_vae.py:186-220); ``residual`` indices as the reference's."""
+
+    def __init__(self, in_dim: int, out_dim: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.residual = nn.Sequential(
+            RMSNormChannel(in_dim, False, **kw), nn.SiLU(),
+            CausalConv3d(in_dim, out_dim, 3, **kw),
+            RMSNormChannel(out_dim, False, **kw), nn.SiLU(), nn.Identity(),
+            CausalConv3d(out_dim, out_dim, 3, **kw))
+        self.shortcut = (CausalConv3d(in_dim, out_dim, 1, **kw)
+                         if in_dim != out_dim else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shortcut(x) + self.residual(x)
+
+
+def _frames(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, T, H, W] -> [B*T, C, H, W]."""
+    B, C, T, H, W = x.shape
+    return x.transpose(1, 2).reshape(B * T, C, H, W)
+
+
+def _clip(x: torch.Tensor, B: int) -> torch.Tensor:
+    """[B*T, C, H, W] -> [B, C, T, H, W]."""
+    BT, C, H, W = x.shape
+    return x.reshape(B, BT // B, C, H, W).transpose(1, 2)
+
+
+class AttentionBlock(nn.Module):
+    """Per-frame single-head spatial attention with a zero-init output
+    projection (wan21_vae.py:223-262)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm = RMSNormChannel(dim, True, **kw)
+        self.to_qkv = nn.Conv2d(dim, 3 * dim, 1, **kw)
+        self.proj = nn.Conv2d(dim, dim, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T, H, W = x.shape
+        qkv = self.to_qkv(self.norm(_frames(x)))          # [BT, 3C, H, W]
+        q, k, v = qkv.flatten(2).transpose(1, 2).chunk(3, dim=-1)
+        scores = torch.matmul(q.float(), k.float().transpose(1, 2)) \
+            / math.sqrt(C)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B * T, C, H, W)
+        return x + _clip(self.proj(out), B)
+
+
+class Resample(nn.Module):
+    """An up-resample of the decoder: nearest 2x and a 3x3 convolution that
+    halves the channels, per frame (``resample.1``); with ``time`` the
+    upsample3d time path first (``time_conv``)."""
+
+    def __init__(self, dim: int, time: bool, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.resample = nn.Sequential(
+            nn.Upsample(scale_factor=2.0, mode="nearest-exact"),
+            nn.Conv2d(dim, dim // 2, 3, padding=1, **kw))
+        if time:
+            self.time_conv = CausalConv3d(dim, 2 * dim, (3, 1, 1), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape[:3]
+        if hasattr(self, "time_conv") and T > 1:
+            # frame 0 passes through; frames 1.. give two frames each
+            conv = self.time_conv(x[:, :, 1:])          # [B, 2C, T-1, H, W]
+            conv = conv.reshape(B, 2, C, T - 1, *x.shape[3:])
+            conv = conv.permute(0, 2, 3, 1, 4, 5).reshape(
+                B, C, 2 * (T - 1), *x.shape[3:])
+            x = torch.cat([x[:, :, :1], conv], dim=2)
+        return _clip(self.resample(_frames(x)), B)
+
+
+class WanDecoder(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.dim * cfg.dim_mult[-1]
+        self.conv1 = CausalConv3d(cfg.z_dim, d, 3, **kw)
+        self.middle = nn.ModuleList([ResidualBlock(d, d, **kw),
+                                     AttentionBlock(d, **kw),
+                                     ResidualBlock(d, d, **kw)])
+        self.upsamples = nn.ModuleList(
+            ResidualBlock(m["in"], m["out"], **kw) if kind == "res"
+            else Resample(m["dim"], kind == "upsample3d", **kw)
+            for kind, m in decoder_structure(cfg))
+        self.head = nn.Sequential(RMSNormChannel(cfg.dim, False, **kw),
+                                  nn.SiLU(), CausalConv3d(cfg.dim, 3, 3, **kw))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(z)
+        for block in self.middle:
+            h = block(h)
+        for block in self.upsamples:
+            h = block(h)
+        return self.head(h)
+
+
+class WanVAE(nn.Module):
+    """The decoding half of the reference WanVAE: ``conv2`` (1x1x1) and
+    ``decoder``."""
+
+    def __init__(self, cfg: WanVAEConfig = WanVAEConfig(), device=None,
+                 dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, 1, device=device,
+                                  dtype=dtype)
+        self.decoder = WanDecoder(cfg, device, dtype)
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator) -> "WanVAE":
+        """Random init as JAX ``init_wan_vae_params``: convolution kernels
+        uniform in +-1/sqrt(fan_in), zero biases, unit gammas, and the
+        attention output projections zero."""
+        for name, p in self.named_parameters():
+            if name.endswith("gamma"):
+                p.fill_(1.0)
+            elif name.endswith("bias") or name.endswith("proj.weight"):
+                p.zero_()
+            else:
+                s = 1.0 / math.sqrt(p[0].numel())
+                p.copy_((torch.rand(p.shape, generator=generator,
+                                    device=generator.device) * 2 - 1) * s)
+        return self
+
+
+def wan_decode_raw(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
+    """z [B, z_dim, T, h, w] -> pixels [B, 3, 4(T-1)+1, 8h, 8w]."""
+    return vae.decoder(vae.conv2(z))
+
+
+def wan_decode(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
+    """Reference ``WanVAE.batch_decode``: scale-normalised latents
+    [B, z_dim, T, h, w] -> pixels in [-1, 1]."""
+    shape = (1, -1, 1, 1, 1)
+    mean = torch.tensor(WAN_LATENT_MEAN, dtype=z.dtype, device=z.device)
+    std = torch.tensor(WAN_LATENT_STD, dtype=z.dtype, device=z.device)
+    z = z * std.view(shape) + mean.view(shape)
+    return wan_decode_raw(vae, z).clamp(-1.0, 1.0)

@@ -14,10 +14,17 @@ common currency is a reference-layout state dict ({name: array}):
     Show-o state dict (``mm_projector.0`` / ``mm_projector.2``);
   * int8 serving params (JAX ``quantize_int8``: ``kernel_i8`` [K, N],
     ``scale`` [1, N]) -> :func:`load_int8_params` into the ``Int8Linear``
-    buffers of a quantized port Phi.
+    buffers of a quantized port Phi;
+  * Show-o2: JAX params -> ``showo_tpu.utils.torch_export.showo2_state_dict``
+    -> :func:`load_showo2`;
+  * Wan2.1 VAE: JAX params -> :func:`wan_vae_state_dict` (the inverse of
+    ``wan_vae_params_from_torch``: DHWIO / HWIO -> OIDHW / OIHW
+    convolutions, flat gammas -> the reference's [C, 1, 1(, 1)]) ->
+    :func:`load_wan_vae`.
 
-Real checkpoints (``showlab/show-o-512x512``, ``showlab/magvitv2``) are
-reference-layout already and load through :func:`load_reference_weights`.
+Real checkpoints (``showlab/show-o-512x512``, ``showlab/magvitv2``,
+``showlab/show-o2-1.5B``, ``Wan2.1_VAE.pth``) are reference-layout already
+and load through :func:`load_reference_weights`.
 Everything here is numpy on the JAX side; nothing imports jax or the JAX
 package (the parity tests feed it the JAX package's trees).
 """
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 
 from showo_tpu_torch.models.magvit import VQConfig
+from showo_tpu_torch.show_o2.wan_vae import (WanVAEConfig, decoder_structure,
+                                             encoder_structure)
 
 
 def _load_file(path: str) -> Dict[str, np.ndarray]:
@@ -84,6 +93,20 @@ def load_clip_vit(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
     """Load an HF ``CLIPVisionModel`` state dict (``vision_model.*``) into a
     :class:`~showo_tpu_torch.models.clip_vit.ClipVisionTower`; other
     entries (``post_layernorm``, a text tower) are ignored."""
+    return _load(model, sd)
+
+
+def load_showo2(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
+    """Load a reference Show-o2 state dict (``showo.model.layers...``,
+    ``und_trans.layers...``, ``diffusion_head_a.{i}...``) into a not yet
+    fused :class:`~showo_tpu_torch.show_o2.showo2.Showo2`."""
+    return _load(model, sd)
+
+
+def load_wan_vae(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
+    """Load a Wan2.1 VAE state dict into a
+    :class:`~showo_tpu_torch.show_o2.wan_vae.WanVAE`; the encoder's
+    entries (not ported) are ignored."""
     return _load(model, sd)
 
 
@@ -192,6 +215,63 @@ def clip_vit_state_dict(params: Mapping, num_layers: int,
                 sd[f"{base}.{theirs}.bias"] = node["bias"]
             else:
                 _norm(sd, f"{base}.{theirs}", node)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Wan2.1 VAE: JAX params -> reference layout
+# ---------------------------------------------------------------------------
+
+def wan_vae_state_dict(params: Mapping,
+                       cfg: WanVAEConfig = WanVAEConfig()
+                       ) -> Dict[str, np.ndarray]:
+    """JAX Wan2.1 VAE params ({"encoder", "conv1", "conv2", "decoder"}) ->
+    the reference ``Wan2.1_VAE.pth`` state dict; the inverse of
+    ``wan_vae_params_from_torch``."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(name, node):
+        k = np.asarray(node["kernel"])
+        perm = (4, 3, 0, 1, 2) if k.ndim == 5 else (3, 2, 0, 1)
+        sd[f"{name}.weight"] = np.transpose(k, perm)
+        sd[f"{name}.bias"] = np.asarray(node["bias"])
+
+    def gamma(name, node, images=False):
+        g = np.asarray(node["gamma"]).reshape(-1)
+        sd[f"{name}.gamma"] = g.reshape((-1, 1, 1) if images
+                                        else (-1, 1, 1, 1))
+
+    def res(prefix, node):
+        gamma(f"{prefix}.residual.0", node["norm1"])
+        conv(f"{prefix}.residual.2", node["conv1"])
+        gamma(f"{prefix}.residual.3", node["norm2"])
+        conv(f"{prefix}.residual.6", node["conv2"])
+        if "shortcut" in node:
+            conv(f"{prefix}.shortcut", node["shortcut"])
+
+    def stack(side, tree, plan, seq_name):
+        conv(f"{side}.conv1", tree["conv1"])
+        for idx, (kind, _) in enumerate(plan):
+            pref, node = f"{side}.{seq_name}.{idx}", tree[f"b{idx}"]
+            if kind == "res":
+                res(pref, node)
+            else:
+                conv(f"{pref}.resample.1", node["conv"])
+                if "time" in node:
+                    conv(f"{pref}.time_conv", node["time"])
+        res(f"{side}.middle.0", tree["mid_res1"])
+        attn = tree["mid_attn"]
+        gamma(f"{side}.middle.1.norm", attn["norm"], images=True)
+        conv(f"{side}.middle.1.to_qkv", attn["to_qkv"])
+        conv(f"{side}.middle.1.proj", attn["proj"])
+        res(f"{side}.middle.2", tree["mid_res2"])
+        gamma(f"{side}.head.0", tree["head_norm"])
+        conv(f"{side}.head.2", tree["head_conv"])
+
+    stack("encoder", params["encoder"], encoder_structure(cfg), "downsamples")
+    conv("conv1", params["conv1"])
+    conv("conv2", params["conv2"])
+    stack("decoder", params["decoder"], decoder_structure(cfg), "upsamples")
     return sd
 
 

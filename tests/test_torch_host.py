@@ -1,13 +1,15 @@
 """Host code of showo_tpu_torch held to the JAX package's.
 
 The port keeps its own copies of the config loader, the t2i and training
-prompting and the stand-in tokenizer so that it never imports the JAX
-package.  These tests show the copies agree with the originals exactly:
-the same config tree, the same token ids, the same t2i layout, the same
-training text blocks (conditioning dropout included) and lm / mmu blocks,
-also against the reference-generated golden (tests/golden/prompting.npz).  A static scan
-shows that neither the package nor ``chip_smoke.py`` imports jax, flax or
-the JAX package, even inside a function.
+prompting, the stand-in tokenizer, the Show-o2 sequence formats and the
+v2 tokenizer loader so that it never imports the JAX package.  These
+tests show the copies agree with the originals exactly: the same config
+tree, the same token ids, the same t2i layout, the same training text
+blocks (conditioning dropout included) and lm / mmu blocks, also against
+the reference-generated golden (tests/golden/prompting.npz), and the same
+v2 layouts (also against tests/golden/formats.npz) and fallback tokenizer
+ids.  A static scan shows that neither the package nor ``chip_smoke.py``
+imports jax, flax or the JAX package, even inside a function.
 """
 
 import ast
@@ -134,6 +136,122 @@ def test_other_prompting_tasks_raise():
     uni = UniversalPrompting(FakeTokenizer(), max_text_len=8)
     with pytest.raises(NotImplementedError):
         uni((["a"], np.zeros((1, 4), np.int64)), "mmu")
+
+
+V2_IDS = dict(bos_id=1, eos_id=2, boi_id=3, eoi_id=4, pad_id=5, img_pad_id=6)
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+
+
+@pytest.mark.parametrize("fn", ["format_sequence_gen_qwen2_5",
+                                "format_sequence_und"])
+@pytest.mark.parametrize("n_text", [0, 4, 9])
+def test_v2_formats_match_jax(fn, n_text):
+    from showo_tpu.show_o2 import formats as jformats
+    from showo_tpu_torch.show_o2 import formats as tformats
+
+    text = list(range(11, 11 + n_text))
+    kw = dict(num_image_tokens=5, max_seq_len=20, **V2_IDS)
+    _same(getattr(tformats, fn)(text, **kw), getattr(jformats, fn)(text, **kw))
+
+
+def test_v2_formats_match_golden():
+    """The interleaved layout and prepare_gen_input against the
+    reference-generated golden and the JAX originals."""
+    from showo_tpu.show_o2 import formats as jformats
+    from showo_tpu_torch.inference_t2i_v2 import FakeQwenTokenizer
+    from showo_tpu_torch.show_o2 import formats as tformats
+
+    golden = np.load(os.path.join(REPO, "tests", "golden", "formats.npz"))
+    args = ([None, "img", "img"], [[21, 22], [23], None])
+    kw = dict(num_image_tokens=3, max_seq_len=30, max_num_images=3, **V2_IDS)
+    got = tformats.format_interleaved_sequence(*args, **kw)
+    _same(got, jformats.format_interleaved_sequence(*args, **kw))
+    for name, g in zip(("tokens", "labels", "mp", "tm", "im"), got):
+        np.testing.assert_array_equal(g, golden[f"int_{name}"])
+    prompts = ["a cat on a mat", "hello world"]
+    got = tformats.prepare_gen_input(prompts, FakeQwenTokenizer(),
+                                     num_image_tokens=5, max_text_len=10,
+                                     **V2_IDS)
+    for name, g in zip(("tokens", "null", "mp", "mp_null"), got):
+        np.testing.assert_array_equal(g, golden[f"pg_{name}"])
+    nulls = ["", "a b"]
+    kw = dict(num_image_tokens=5, bos_id=1, boi_id=3, eoi_id=4, pad_id=5,
+              img_pad_id=6)
+    _same(tformats.prepare_mixed_modal_gen_input(prompts, nulls,
+                                                 FakeQwenTokenizer(), **kw),
+          jformats.prepare_mixed_modal_gen_input(prompts, nulls,
+                                                 _jax_v2_tokenizer(), **kw))
+
+
+def _jax_v2_tokenizer():
+    class Tok:
+        def __init__(self):
+            self._t = jfake.FakeTokenizer()
+
+        def __call__(self, text, add_special_tokens=False):
+            return {"input_ids": self._t(text)["input_ids"][0]}
+
+    return Tok()
+
+
+def test_v2_tokenizer_loader_matches_jax():
+    """Without a local tokenizer both loaders fall back to the word-hash
+    stand-in with ids 1..7; the same prompts give the same ids.  The JAX
+    loader asks ``transformers`` first: a stub that refuses stands in for
+    it, so nothing is looked up."""
+    import types
+    from unittest import mock
+
+    from showo_tpu import inference_t2i_v2 as jinf
+    from showo_tpu_torch import inference_t2i_v2 as tinf
+
+    config = tconfig.load_config(os.path.join(
+        REPO, "configs", "showo2_1.5b_demo_432x432.yaml"))
+    stub = types.ModuleType("transformers")
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(*args, **kwargs):
+            raise OSError("no tokenizer here")
+
+    stub.AutoTokenizer = AutoTokenizer
+    with mock.patch.dict(sys.modules, {"transformers": stub}):
+        jtok, jids = jinf.load_tokenizer_and_ids(config)
+    ttok, tids = tinf.load_tokenizer_and_ids(config)
+    assert tids == jids
+    assert tinf.QWEN_TOKEN_IDS == jinf.QWEN_TOKEN_IDS
+    for p in PROMPTS + ["<|soi|> x"]:
+        assert (ttok(p, add_special_tokens=False)
+                == jtok(p, add_special_tokens=False))
+
+
+def test_v2_config_matches_jax():
+    """build_showo2_config reads the same keys as the JAX original, with
+    and without the tiny override dicts."""
+    from showo_tpu import inference_t2i_v2 as jinf
+    from showo_tpu_torch import inference_t2i_v2 as tinf
+
+    path = os.path.join(REPO, "configs", "showo2_1.5b_demo_432x432.yaml")
+    for ov in ([], ["model.showo.llm_num_layers=2",
+                    "model.showo.dit={hidden_size: 96, num_heads: 4}",
+                    "model.showo.siglip={num_layers: 3}"]):
+        want = jinf.build_showo2_config(jconfig.load_config(path, ov))
+        got = tinf.build_showo2_config(tconfig.load_config(path, ov))
+        assert got.num_image_tokens == want.num_image_tokens == 730
+        for part in ("llm", "siglip", "dit"):
+            w, g = getattr(want, part), getattr(got, part)
+            for f in g.__dataclass_fields__:
+                assert getattr(g, f) == getattr(w, f), (part, f)
+        for f in ("image_latent_dim", "image_latent_height",
+                  "image_latent_width", "patch_size", "clip_latent_dim",
+                  "add_time_embeds"):
+            assert getattr(got, f) == getattr(want, f), f
 
 
 def _imports(path):

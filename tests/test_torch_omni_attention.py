@@ -152,7 +152,8 @@ def test_precomputed_q_rows_match():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(32, 32, 64), (32, 8, 64), (8, 2, 64)])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 32, 64), (32, 8, 64), (8, 2, 64),
+                                     (12, 2, 128)])
 def test_kernel_vs_plain_on_card(H, Hkv, D):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -181,12 +182,13 @@ def test_kernel_vs_plain_on_card(H, Hkv, D):
 
 @pytest.mark.cuda
 def test_kernel_refuses_other_head_dims():
-    """The kernel is built for head dim 64 (Phi-1.5); others raise."""
+    """The kernel is built for head dims 64 (Phi-1.5, the Show-o2 DiT) and
+    128 (Qwen2.5); others raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    q = torch.zeros((1, 8, 2 * 128), dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros((1, 8, 2 * 96), dtype=torch.bfloat16, device="cuda")
     seg = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="head dim 128"):
+    with pytest.raises(ValueError, match="head dim 96"):
         tfa.omni_attention_packed(q, q, q, seg, num_heads=2)
 
 
