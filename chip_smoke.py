@@ -80,15 +80,20 @@ Phases, one or more lines each:
   8b. the 512x512 training step parity as phase 8
   9. the weight-streaming matmuls (kernels 9-11) vs plain: int8 at the
      understanding slice's win / wout / lm_head shapes at decode (M=1) and
-     at the prefill's rows, int8 and int4 at the probes' [8, 2048] x
-     [2048, 8192]; error within 2e-2 of the output's peak and a planted
-     fault (each column scaled by its neighbour's scale) that must fail
-     it; median CUDA-event times of kernel, plain version, torch.matmul on
-     dequantized bf16 weights (the library) and the eager dequantize +
-     matmul, the same without the host (profiler device time), the bound
+     at the prefill's rows (267), win at the CLIP-ViT prefill's 609 rows,
+     a ragged M=65 at lm_head's N=58498, int8 and int4 at the probes' [8,
+     2048] x [2048, 8192]; error within 2e-2 of the output's peak and a
+     planted fault (each column scaled by its neighbour's scale) that must
+     fail it; median CUDA-event times of kernel, plain version,
+     torch.matmul on dequantized bf16 weights (the library) and the eager
+     dequantize + matmul, the same without the host (profiler device
+     time), the bound; int8 above M=4: the prefill kernel ran, its split-K
+     gives the same bits twice, and the first mma kernel is checked and
+     timed beside it on the same inputs
   10. the discrete understanding slice, bf16 then int8 weights: per answer
      the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
-     lm_head, prefill and 100 decode forwards) and never with bf16, every
+     lm_head, prefill and 100 decode forwards: 49 on the prefill kernel,
+     4900 on the gemv) and never with bf16, every
      other kernel none; tokens in the vocabulary; prompt, prefill and
      decode times, tokens/s against the weight-streaming bound, peak
      memory, device idle share over one answer (profiler); then the two
@@ -195,18 +200,27 @@ WSMM_KERNELS = {
     "int4_matmul": "tools/probe_int4_decode.py:79 (kernel 10); "
                    "tools/probe_pallas_wsmm.py:123 (kernel 11b)",
 }
+# the int8 source's prefill kernel (M > 4, aligned rows:
+# csrc/weight_stream_prefill.cuh), which replaced its first mma kernel there
+PREFILL_KERNEL = "int8_matmul_prefill"
+# the per-core counters of the weight-streaming sources
+WSMM_CORES = [f"{src}_{core}" for src in WSMM_KERNELS
+              for core in ("gemv", "mma", "prefill")]
 # kernel 6, the GQA-stacked packed attention: on no model path (the JAX
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
                             "showo_tpu/ops/flash_attention.py:338")
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
-            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + [GQA_SOURCE])
+            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
+            + [GQA_SOURCE])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
 MMU_NEW_TOKENS = 100
 MMU_MATMULS = 2 * NUM_LAYERS + 1
+# the CLIP-ViT path's prompt rows (phase 10b), a phase 9 case
+CLIP_PREFILL_ROWS = 609
 MMU_QUESTION = "What is in this image?"
 MMU_IMAGE = "assets/validation/test_image.png"
 WSMM_TOL = 2e-2      # kernel vs plain, max abs error over the output's peak
@@ -921,14 +935,17 @@ def _rotation(copies):
     return nxt
 
 
-def _wsmm_case(torch, label, M, K, N, int4, seed):
+def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     """One weight-streaming product against its plain version: the error
     (max abs over the plain output's peak), a planted fault (each column
     scaled by its neighbour's scale) that must fail the same check, median
     times of kernel, plain version, ``torch.matmul`` on dequantized bf16
     weights (the library) and the eager dequantize-then-matmul, and the
     bound.  The weights rotate through copies that exceed the L2 twice, as
-    the layers of a decode step do (each reads other weights)."""
+    the layers of a decode step do (each reads other weights).  int8 above
+    the decode rows: the prefill kernel must be the one that ran, its
+    split-K must give the same bits on two calls, and the first mma kernel
+    (``core="mma"``) is checked and timed beside it on the same inputs."""
     from showo_tpu_torch.ops import int4_matmul as ti4
     from showo_tpu_torch.ops import int8_matmul as ti8
 
@@ -948,12 +965,33 @@ def _wsmm_case(torch, label, M, K, N, int4, seed):
     else:
         kern, plain = ti8.pallas_i8_matmul, ti8.i8_matmul_plain
         widen = lambda w: w.to(torch.bfloat16)
+    prefill = not int4 and M > ti8.GEMV_MAX_M
+    before = cuda_build.launches[PREFILL_KERNEL]
     got, want = kern(x, ws[0], s), plain(x, ws[0], s)
     torch.cuda.synchronize()
+    if cuda_build.launches[PREFILL_KERNEL] - before != int(prefill):
+        raise AssertionError(f"{label}: the prefill kernel ran "
+                             f"{cuda_build.launches[PREFILL_KERNEL] - before}"
+                             f" times, want {int(prefill)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: kernel output not finite")
     peak = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
+    extra = {}
+    if prefill:
+        plan = ti8.prefill_plan(M, K, N, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        again = kern(x, ws[0], s)
+        old = ti8.WeightStream("int8_matmul", ws[0], s, None, K)(
+            x, core="mma")
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two calls of the prefill kernel "
+                                 f"(splits {plan.splits}) differ")
+        extra = {"plan": dict(plan._asdict()), "bit_stable": True,
+                 "old_max_abs_err": (old.float() - want.float()).abs()
+                 .max().item()}
+        del again, old
     fault = (plain(x, ws[0], s.roll(1, dims=-1)).float()
              - want.float()).abs().max().item()
     tol = WSMM_TOL * peak
@@ -972,10 +1010,25 @@ def _wsmm_case(torch, label, M, K, N, int4, seed):
              "plain": lambda: plain(x, wn(), s),
              "library": lambda: torch.matmul(x, dn()),
              "eager": lambda: x @ (widen(wn()) * s)}
+    if prefill:
+        olds = [ti8.WeightStream("int8_matmul", w, s, None, K) for w in ws]
+        on = _rotation(olds)
+        calls["old"] = lambda: on()(x, core="mma")
     t = {k: _time_ms(torch, fn) for k, fn in calls.items()}
-    dev_t = {k: _device_ms(torch, calls[k]) for k in ("kernel", "library",
-                                                      "eager")}
-    ms, plain_ms, lib_ms, eager_ms = (t[k] for k in calls)
+    dev_t = {k: _device_ms(torch, calls[k]) for k in calls if k != "plain"}
+    ms, plain_ms, lib_ms, eager_ms = (t[k] for k in list(calls)[:4])
+    if prefill:
+        extra.update({"old_ms": t["old"], "old_device_ms": dev_t["old"]})
+        old_line = (f"; the first mma kernel on the same inputs: max_abs_err "
+                    f"{extra['old_max_abs_err']:.3e}, {t['old']:.4f} ms, "
+                    f"device {dev_t['old']:.4f} ms ("
+                    f"{dev_t['old'] / dev_t['kernel']:.2f}x the prefill "
+                    f"kernel's); plan bm {plan.bm}, {plan.m_tiles} x "
+                    f"{plan.n_tiles} tiles, {plan.splits} K splits of "
+                    f"{plan.k_tiles_per_split} tiles (bit-stable over two "
+                    f"calls)")
+    else:
+        old_line = ""
     del deq
     weight_bytes = rows * N
     bound = _bound(weight_bytes + 2 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
@@ -991,32 +1044,36 @@ def _wsmm_case(torch, label, M, K, N, int4, seed):
           f"{weight_bytes / dev_t['kernel'] / 1e6:.0f} GB/s of weights), "
           f"library {dev_t['library']:.4f} ms, eager "
           f"{dev_t['eager']:.4f} ms; bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']})")
+          f"({bound['bound_by']}){old_line}")
     return {"max_abs_err": err, "peak": peak, "ms": ms, "plain_ms": plain_ms,
             **bound, "library_ms": lib_ms, "eager_dequant_ms": eager_ms,
             "device_ms": dev_t["kernel"],
             "library_device_ms": dev_t["library"],
-            "eager_dequant_device_ms": dev_t["eager"]}
+            "eager_dequant_device_ms": dev_t["eager"], **extra}
 
 
-def phase_wsmm(torch, prefill_rows):
+def phase_wsmm(torch, cuda_build, prefill_rows):
     """Kernels 9-11 at the understanding slice's shapes: int8 ``win``,
-    ``wout`` and ``lm_head`` at decode (M=1) and at the prefill's rows, and
-    both kernels at the probes' [8, 2048] x [2048, 8192].  Returns
-    {counter: {case: result}}."""
+    ``wout`` and ``lm_head`` at decode (M=1) and at the prefill's rows,
+    ``win`` at the CLIP-ViT prefill's rows, a ragged M=65 at ``lm_head``'s
+    N, and both kernels at the probes' [8, 2048] x [2048, 8192].  Returns
+    {counter: {case: result}}; the int8 cases above M=4 (the prefill
+    kernel's) also under PREFILL_KERNEL."""
     shapes = {"win": (2048, 14336), "wout": (10240, 2048),
               "lm_head": (2048, 58498)}
-    out = {"int8_matmul": {}, "int4_matmul": {}}
-    seed = 90
-    for name, (K, N) in shapes.items():
-        for M in (1, prefill_rows):
-            seed += 1
-            out["int8_matmul"][f"{name} M={M}"] = _wsmm_case(
-                torch, f"{name} M={M}", M, K, N, False, seed)
-    out["int8_matmul"]["probe M=8"] = _wsmm_case(
-        torch, "probe M=8", 8, 2048, 8192, False, 98)
+    cases = [(name, M, K, N) for name, (K, N) in shapes.items()
+             for M in (1, prefill_rows)]
+    cases += [("win", CLIP_PREFILL_ROWS, *shapes["win"]),
+              ("lm_head", 65, *shapes["lm_head"]), ("probe", 8, 2048, 8192)]
+    out = {"int8_matmul": {}, "int4_matmul": {}, PREFILL_KERNEL: {}}
+    for seed, (name, M, K, N) in enumerate(cases, start=91):
+        label = f"{name} M={M}"
+        out["int8_matmul"][label] = _wsmm_case(
+            torch, cuda_build, label, M, K, N, False, seed)
+        if M > 4:
+            out[PREFILL_KERNEL][label] = out["int8_matmul"][label]
     out["int4_matmul"]["probe M=8"] = _wsmm_case(
-        torch, "probe M=8", 8, 2048, 8192, True, 99)
+        torch, cuda_build, "probe M=8", 8, 2048, 8192, True, 99)
     return out
 
 
@@ -1084,7 +1141,11 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
     answer()                                             # warm-up
     want = {name: 0 for name in COUNTERS}
     if int8:
+        # every matmul of the prefill on the prefill kernel, of the decode
+        # forwards on the gemv
         want["int8_matmul"] = MMU_MATMULS * (1 + MMU_NEW_TOKENS)
+        want[PREFILL_KERNEL] = MMU_MATMULS
+        want["int8_matmul_gemv"] = MMU_MATMULS * MMU_NEW_TOKENS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
@@ -1113,7 +1174,9 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
     print(f"[{phase}] {label}: {rows} prompt rows, greedy, {MMU_NEW_TOKENS} "
           f"new tokens ({len(toks)} before the first eot), launches per "
           f"answer {counts.get('int8_matmul', 0)} of int8_matmul = "
-          f"{MMU_MATMULS} x {1 + MMU_NEW_TOKENS}, 0 of the others; prompt "
+          f"{MMU_MATMULS} x {1 + MMU_NEW_TOKENS} ({counts[PREFILL_KERNEL]} on "
+          f"the prefill kernel, {counts['int8_matmul_gemv']} on the gemv), 0 "
+          f"of the others; prompt "
           f"{prompt_ms:.2f} ms, prefill {prefill_ms:.2f} ms, answer "
           f"{answer_ms:.2f} ms (first {first_wall * 1e3:.2f}; medians of "
           f"5 / 5 / 3), decode {decode_ms:.4f} ms per token = "
@@ -1126,7 +1189,8 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
             "answer_ms": answer_ms, "decode_ms_per_token": decode_ms,
             "tokens_per_s": 1e3 / decode_ms, "bound_ms_per_token": bound_ms,
             "idle_share": prof["idle_share"], "peak_gib": peak,
-            "launches": counts.get("int8_matmul", 0)}
+            "launches": counts.get("int8_matmul", 0),
+            "prefill_launches": counts[PREFILL_KERNEL]}
 
 
 def _jax_order_int8(torch, phi_bf, phi_i8):
@@ -1530,7 +1594,7 @@ def main() -> int:
     prefill_rows = pipes[0].prompt(image, MMU_QUESTION)[0].shape[1]
 
     # [9] kernels 9-11 vs plain at the slice's shapes
-    wsmm = phase_wsmm(torch, prefill_rows)
+    wsmm = phase_wsmm(torch, cuda_build, prefill_rows)
 
     # [10] the discrete mmu slice, bf16 then int8 weights
     mmu = {}
@@ -1574,11 +1638,13 @@ def main() -> int:
           f"ms (median of 5)")
     sys_ids = inference_mmu.system_prompt_ids(pipe)
     gen = torch.Generator(device=device).manual_seed(0)
-    phase_mmu(torch, cuda_build, profile, pipe,
-              "mmu CLIP-ViT path, int8 weights",
-              lambda: pipe.answer_with_clip(feats, MMU_QUESTION, sys_ids, gen),
-              lambda: pipe.clip_prompt(feats, MMU_QUESTION, sys_ids), 1, smi,
-              "10b")
+    clip = phase_mmu(
+        torch, cuda_build, profile, pipe, "mmu CLIP-ViT path, int8 weights",
+        lambda: pipe.answer_with_clip(feats, MMU_QUESTION, sys_ids, gen),
+        lambda: pipe.clip_prompt(feats, MMU_QUESTION, sys_ids), 1, smi, "10b")
+    if clip["rows"] != CLIP_PREFILL_ROWS:
+        raise AssertionError(f"CLIP-ViT prompt rows {clip['rows']}, phase 9 "
+                             f"timed {CLIP_PREFILL_ROWS}")
     pipe = tower = feats = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -1634,6 +1700,14 @@ def main() -> int:
                         "launches": mmu[1]["launches"]
                         if name == "int8_matmul" else 0,
                         **cases[case], "case": case, "cases": cases})
+    case = f"win M={prefill_rows}"
+    kernels.append({"name": PREFILL_KERNEL, "route": "cuda",
+                    "source": "showo_tpu_torch/csrc/int8_matmul.cu (+ "
+                              "weight_stream_prefill.cuh)",
+                    "replaces": WSMM_KERNELS["int8_matmul"],
+                    "launches": mmu[1]["prefill_launches"],
+                    **wsmm[PREFILL_KERNEL][case], "case": case,
+                    "cases": wsmm[PREFILL_KERNEL]})
     qwen = V2_SHAPES[0][0]
     for name, source, replaces, which, launches in (
             ("omni_attention_packed_v2", "omni_attention_packed",

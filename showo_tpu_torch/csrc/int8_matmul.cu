@@ -10,9 +10,11 @@
 // written.  On the card that is every matmul of a quantized Phi (win,
 // wout, lm_head after fuse_parallel_mlp): at decode the weight bytes over
 // the memory rate are the whole bound, half those of bf16 weights.  The
-// tile code is weight_stream.cuh's (int8 rows: NIB = false).
+// tile code is weight_stream.cuh's (int8 rows: NIB = false); above the
+// decode rows, where x and w rows are 16-byte aligned, the prefill kernel
+// of weight_stream_prefill.cuh.
 
-#include "weight_stream.cuh"
+#include "weight_stream_prefill.cuh"
 
 // Plain C entry point (bound with ctypes).  x [M, K] bf16 with row stride
 // ldx; w [K, N] int8 with row stride ldw; scale [N] bf16 and bias [N] bf16
@@ -32,4 +34,29 @@ extern "C" int int8_matmul_bf16(
       static_cast<bf16*>(out), ldo, static_cast<float*>(part), splits, M, K,
       N, 0, x_aligned, w_aligned16, w_aligned8,
       static_cast<cudaStream_t>(stream));
+}
+
+// The prefill kernel (M > 4, x and w rows 16-byte aligned): bm-row tiles
+// (64 or 128) over `splits` K ranges, part the fp32 workspace [splits, M,
+// N] when splits > 1 (ops/int8_matmul.py::prefill_plan chooses both).
+// Returns the cudaError_t of the launches.
+extern "C" int int8_matmul_prefill_bf16(
+    const void* x, long long ldx, const void* w, long long ldw,
+    const void* scale, const void* bias, void* out, long long ldo,
+    void* part, int splits, int M, int K, int N, int bm, void* stream) {
+  using wsmm::bf16;
+  if (!wsmm::prefill_args_ok(x, ldx, w, ldw, part, splits, M, K, N, bm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wb = static_cast<const int8_t*>(w);
+  const auto* sb = static_cast<const bf16*>(scale);
+  const auto* bb = static_cast<const bf16*>(bias);
+  auto* ob = static_cast<bf16*>(out);
+  auto* pf = static_cast<float*>(part);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bm == 64)
+    return wsmm::launch_prefill_t<64, 4, false>(xb, ldx, wb, ldw, sb, bb, ob,
+                                                ldo, pf, splits, M, K, N, st);
+  return wsmm::launch_prefill_t<128, 3, false>(xb, ldx, wb, ldw, sb, bb, ob,
+                                               ldo, pf, splits, M, K, N, st);
 }

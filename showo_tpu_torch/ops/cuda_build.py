@@ -126,13 +126,14 @@ def _entry(name: str, symbol: str, argtypes):
 
 
 def launch(name: str, symbol: str, argtypes, device, *args,
-           kernel: str = None) -> None:
+           kernel=None) -> None:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` (built at first
     use) with ``args`` and the current stream of ``device`` appended, on
     that device.  Every entry returns the cudaError_t of its launch: a
     refused launch raises, one that went through is counted in
     ``launches[kernel]`` (``kernel`` names one of several kernels of a
-    source; by default the count is the source's, ``launches[name]``).
+    source, or is a tuple of counter names that each count it; by default
+    the count is the source's, ``launches[name]``).
     The decode step calls this ~50 times a token, so the device switch is
     made only when the tensors are not on the current device."""
     fn = _entry(name, symbol, argtypes)
@@ -145,9 +146,12 @@ def launch(name: str, symbol: str, argtypes, device, *args,
     count_launch(kernel or name, err)
 
 
-def count_launch(name: str, err: int) -> None:
+def count_launch(name, err: int) -> None:
     """Raise on a launch that returned cudaError ``err`` != 0; count one
-    that went through."""
+    that went through (``name``: a counter name or a tuple of them)."""
+    names = (name,) if isinstance(name, str) else name
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
+        raise RuntimeError(f"{names[-1]} kernel launch failed: cudaError "
+                           f"{err}")
+    for n in names:
+        launches[n] += 1

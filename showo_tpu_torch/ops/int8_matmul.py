@@ -11,9 +11,20 @@ matmul of a quantized Phi:
                                                     scale [1, N] bf16
 
 ``csrc/int8_matmul.cu`` (over ``csrc/weight_stream.cuh``) reads the int8
-weights once and widens them in registers; eager PyTorch would write a
+weights once and widens them on the chip; eager PyTorch would write a
 bf16 copy of each weight per call and read it back (5 bytes moved per
-weight against the kernel's 1).  The scale is applied to the fp32 sum, as
+weight against the kernel's 1).  Three cores, each with its counter
+beside the source's (``launches["int8_matmul_<core>"]``):
+
+* ``gemv`` (M <= 4, decode): split-K CUDA-core dot products;
+* ``prefill`` (M > 4, x and w rows 16-byte aligned, as ``Int8Linear``
+  pads them): ``csrc/weight_stream_prefill.cuh``, a cp.async ring of
+  64-row K tiles, conflict-free widening and split-K, with the tiles and
+  the split from :func:`prefill_plan`;
+* ``mma`` (M > 4, rows that are not 16-byte aligned): the first
+  ``mma.sync`` kernel of ``weight_stream.cuh``.
+
+The wrapper picks the core from M and the alignment before the launch.  The scale is applied to the fp32 sum, as
 in ``_i8_kernel``; ``_wk`` instead rounds ``w_i8 * scale`` to bf16 before
 the product, which is the one difference from the JAX model (tests state
 its tolerance).
@@ -21,13 +32,15 @@ its tolerance).
 :func:`linear_i8` is the call a quantized Phi makes (any leading dims,
 optional bias added to the bf16 product).  The wrappers run the plain
 version for CPU tensors only; for CUDA tensors they launch the kernel or
-raise.  ``cuda_build.launches["int8_matmul"]`` counts kernel launches.
+raise.  ``cuda_build.launches["int8_matmul"]`` counts products (one per
+call, whatever the core and its second launch for split-K).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,11 +49,15 @@ from showo_tpu_torch.ops import cuda_build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # x, ldx, w, ldw, scale, bias, out, ldo, part, splits, M, K, N, 3 flags
 _ARGS = [_P, _L, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I]
+# the prefill entry: x, ldx, w, ldw, scale, bias, out, ldo, part, splits,
+# M, K, N, bm
+_PF_ARGS = [_P, _L, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I]
 
 GEMV_MAX_M = 4          # csrc/weight_stream.cuh: decode kernel up to M = 4
 _GEMV_COLS = 512        # columns of one decode block
 _BLOCKS_PER_SM = 8      # decode blocks per SM the split aims at
 _MIN_ROWS_PER_SPLIT = 64
+PF_BN, PF_BK = 128, 64  # csrc/weight_stream_prefill.cuh: N and K tiles
 
 
 def _epilogue(acc: torch.Tensor, scale: torch.Tensor, bias, dtype):
@@ -69,6 +86,44 @@ def gemv_splits(rows: int, N: int, sms: int) -> int:
     tiles = -(-N // _GEMV_COLS)
     want = -(-(_BLOCKS_PER_SM * sms) // tiles)
     return max(1, min(want, rows // _MIN_ROWS_PER_SPLIT))
+
+
+class PrefillPlan(NamedTuple):
+    """Tiles and K split of one launch of the prefill kernel."""
+    bm: int                 # rows of an output tile (64 or 128)
+    bn: int                 # columns of an output tile
+    splits: int             # K ranges (blockIdx.z); > 1: fp32 partials
+    k_tiles_per_split: int  # 64-row K tiles of each range (the last: the rest)
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+
+
+def prefill_plan(M: int, K: int, N: int, sms: int) -> PrefillPlan:
+    """The prefill kernel's tiles and split-K for x [M, K] @ w [K, N] on a
+    card of ``sms`` SMs.  BM = 128 where its tiles cover M with no more
+    rows than 64-row tiles do (M = 609: 5 x 128 = 10 x 64), else 64 (M =
+    267: 5 x 64 rows against 3 x 128).  K is split only where the M x N
+    tiles give fewer blocks than SMs: among ceil(sms / tiles) to twice as
+    many splits, the one whose last wave of blocks is fullest (fewest
+    splits on a tie), then as many as keep every split's K range
+    non-empty."""
+    m64, m128 = -(-M // 64), -(-M // 128)
+    bm = 128 if m128 * 128 <= m64 * 64 else 64
+    m_tiles, n_tiles = -(-M // bm), -(-N // PF_BN)
+    k_tiles = -(-K // PF_BK)
+    tiles = m_tiles * n_tiles
+    splits = 1
+    if tiles < sms:
+        low = -(-sms // tiles)
+
+        def fill(s):
+            return tiles * s / (-(-(tiles * s) // sms) * sms)
+        splits = min(max(range(low, 2 * low + 1),
+                         key=lambda s: (fill(s), -s)), k_tiles)
+    per = -(-k_tiles // splits)
+    return PrefillPlan(bm, PF_BN, -(-k_tiles // per), per, m_tiles, n_tiles,
+                       k_tiles)
 
 
 def _check(name: str, t: torch.Tensor, dtype, dev, dims: int):
@@ -108,9 +163,25 @@ class WeightStream:
                      None if bias is None else bias.data_ptr())
         self.flags = (int(w.data_ptr() % 16 == 0 and w.stride(0) % 16 == 0),
                       int(w.data_ptr() % 8 == 0 and w.stride(0) % 8 == 0))
-        self.splits = gemv_splits(rows, N, _sm_count(dev.index or 0))
+        self.sms = _sm_count(dev.index or 0)
+        self.splits = gemv_splits(rows, N, self.sms)
+        # the prefill kernel takes int8 rows with 16-byte aligned x and w
+        self.prefill_w = source == "int8_matmul" and bool(self.flags[0])
 
-    def __call__(self, x):
+    def core(self, x) -> str:
+        """The kernel that x [M, K] goes to: ``gemv`` for M <= 4, else
+        ``prefill`` where x and w rows are 16-byte aligned, else ``mma``."""
+        if x.shape[0] <= GEMV_MAX_M:
+            return "gemv"
+        if (self.prefill_w and x.data_ptr() % 16 == 0
+                and x.stride(0) % 8 == 0):
+            return "prefill"
+        return "mma"
+
+    def __call__(self, x, core: str = None):
+        """x [M, K] bf16 -> [M, N] bf16 through :meth:`core`'s kernel, or
+        through ``core`` where given (``"mma"``: the first prefill kernel,
+        for comparisons on the same inputs)."""
         if (x.device != self.dev or x.dtype != torch.bfloat16
                 or x.dim() != 2 or x.stride(-1) != 1):
             _check(f"{self.source} x", x, torch.bfloat16, self.dev, 2)
@@ -121,19 +192,39 @@ class WeightStream:
         out = torch.empty((M, N), dtype=torch.bfloat16, device=self.dev)
         if M == 0 or N == 0:
             return out
+        auto = self.core(x)
+        if core is None:
+            core = auto
+        elif core != auto and not (core == "mma" and auto == "prefill"):
+            raise ValueError(f"{self.source}: core {core!r} does not take "
+                             f"this x (M = {M}; {auto!r} does)")
+        counters = (self.source, f"{self.source}_{core}")
+        w_ptr, ldw, scale_ptr, bias_ptr = self.args
+        if core == "prefill":
+            plan = prefill_plan(M, self.K, N, self.sms)
+            part = None
+            if plan.splits > 1:
+                part = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                                   device=self.dev)
+            cuda_build.launch(
+                self.source, f"{self.source}_prefill_bf16", _PF_ARGS,
+                self.dev, x.data_ptr(), x.stride(0), w_ptr, ldw, scale_ptr,
+                bias_ptr, out.data_ptr(), out.stride(0),
+                None if part is None else part.data_ptr(), plan.splits, M,
+                self.K, N, plan.bm, kernel=counters)
+            return out
         splits, part = 0, None
-        if M <= GEMV_MAX_M:
+        if core == "gemv":
             splits = self.splits
             part = torch.empty((splits, M, N), dtype=torch.float32,
                                device=self.dev)
         x_aligned = (x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
                      and self.k_half % 8 == 0)
-        w_ptr, ldw, scale_ptr, bias_ptr = self.args
         cuda_build.launch(
             self.source, f"{self.source}_bf16", _ARGS, self.dev, x.data_ptr(),
             x.stride(0), w_ptr, ldw, scale_ptr, bias_ptr, out.data_ptr(),
             out.stride(0), None if part is None else part.data_ptr(), splits,
-            M, self.K, N, int(x_aligned), *self.flags)
+            M, self.K, N, int(x_aligned), *self.flags, kernel=counters)
         return out
 
 

@@ -53,6 +53,16 @@ def test_launch_is_counted_only_when_it_went_through(monkeypatch):
     assert cuda_build.launches == {"k": 2}
 
 
+def test_launch_counts_every_named_counter(monkeypatch):
+    """A launch named by a tuple (a source and one of its cores) counts
+    once in each counter, and a refused one in none."""
+    monkeypatch.setattr(cuda_build, "launches", type(cuda_build.launches)())
+    cuda_build.count_launch(("src", "src_core"), 0)
+    with pytest.raises(RuntimeError, match="src_core kernel launch failed"):
+        cuda_build.count_launch(("src", "src_core"), 1)
+    assert cuda_build.launches == {"src": 1, "src_core": 1}
+
+
 def test_gpu_entry_points_refuse_to_run_without_a_card():
     """chip_smoke.py exits 2 and the profiler raises, with no result,
     when torch sees no CUDA card (as on the CPU test machines)."""

@@ -10,7 +10,10 @@ ragged M / K / N.  Tolerance: one bf16 ulp of the output's peak (both
 sides sum exact bf16 products in fp32, in different orders, and round the
 scaled sum to bf16 once).  ``quantize_int8`` is bit-exact against JAX on
 every layout.  The card-only cases hold each CUDA kernel against its plain
-version at the slice's shapes within 2e-2 of the output's peak.
+version at the slice's shapes within 2e-2 of the output's peak; above the
+decode rows they also check which core ran (``launches["int8_matmul_<core>"]``)
+and that split-K gives the same bits on two calls.  ``prefill_plan`` (the
+prefill kernel's tiles and split) is checked on the CPU.
 """
 
 import importlib.util
@@ -193,6 +196,44 @@ def test_wrappers_raise():
                              torch.ones(1, 4).bfloat16())
 
 
+SLICE_PLANS = {
+    # (M, K, N): (bm, splits, K tiles per split) on 132 SMs (an H100)
+    (267, 2048, 14336): (64, 1, 32),    # win at the discrete prefill
+    (267, 10240, 2048): (64, 3, 54),    # wout: 80 tiles, 240 blocks
+    (267, 2048, 58498): (64, 1, 32),    # lm_head: 458 N tiles
+    (609, 2048, 14336): (128, 1, 32),   # win at the CLIP-ViT prefill
+    (8, 2048, 8192): (64, 4, 8),        # the probes: 64 tiles, 256 blocks
+}
+
+
+@pytest.mark.parametrize("shape", list(SLICE_PLANS))
+def test_prefill_plan_slice_shapes(shape):
+    """The prefill kernel's plans at the slice's and the probes' shapes."""
+    plan = ti8.prefill_plan(*shape, sms=132)
+    assert (plan.bm, plan.splits, plan.k_tiles_per_split) == \
+        SLICE_PLANS[shape]
+    assert plan.bn == ti8.PF_BN
+
+
+@pytest.mark.parametrize("M", [5, 8, 63, 64, 65, 128, 129, 267, 609, 4096])
+@pytest.mark.parametrize("K,N", [(64, 8), (130, 517), (2000, 3000),
+                                 (10240, 2048), (2048, 58498)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_prefill_plan_invariants(M, K, N, sms):
+    """Every block gets at least one K tile; K is split only where the M x
+    N tiles are fewer than the SMs; the tiles cover M, N and K; BM = 128
+    only where it covers M with no more rows than 64-row tiles."""
+    p = ti8.prefill_plan(M, K, N, sms)
+    assert p.bm in (64, 128)
+    assert p.m_tiles * p.bm >= M > (p.m_tiles - 1) * p.bm
+    assert p.n_tiles * p.bn >= N > (p.n_tiles - 1) * p.bn
+    assert p.k_tiles * ti8.PF_BK >= K > (p.k_tiles - 1) * ti8.PF_BK
+    assert p.splits * p.k_tiles_per_split >= p.k_tiles
+    assert (p.splits - 1) * p.k_tiles_per_split < p.k_tiles   # last: >= 1
+    assert p.splits == 1 or p.m_tiles * p.n_tiles < sms
+    assert p.bm == 64 or -(-M // 128) * 128 <= -(-M // 64) * 64
+
+
 def test_gemv_splits():
     """The decode kernel's K split: ~8 blocks per SM over the 512-column
     tiles, at least 64 weight rows per slice."""
@@ -316,6 +357,48 @@ def test_int8_kernel_vs_plain_on_card(M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 8, 63, 65, 267, 609])
+@pytest.mark.parametrize("K,N", [(2000, 3000), (2048, 58498)])
+def test_int8_prefill_kernel_vs_plain_on_card(M, K, N):
+    """The prefill kernel (x and w rows 16-byte aligned, as Int8Linear pads
+    them) above the decode rows: ragged M, a K that is not a multiple of
+    64, the vocabulary's N = 58498, a bias; one product, one launch of the
+    prefill core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w, s, b = _card(M, K, -(-N // 16) * 16, seed=M * 7 + K)
+    w, s, b = w[:, :N], s[:, :N], b[:N]
+    before = {n: cuda_build.launches[n] for n in
+              ("int8_matmul", "int8_matmul_prefill", "int8_matmul_mma")}
+    got = ti8.pallas_i8_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in before} == {
+        "int8_matmul": 1, "int8_matmul_prefill": 1, "int8_matmul_mma": 0}
+    _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(267, 10240, 2048), (8, 2048, 8192),
+                                   (63, 2000, 3000)])
+def test_int8_prefill_split_k_bit_stable_on_card(M, K, N):
+    """Where the plan splits K, the fixed-order finish gives the same bits
+    on two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ti8.prefill_plan(M, K, N, sms).splits > 1
+    x, w, s, b = _card(M, K, -(-N // 16) * 16, seed=11)
+    w, s, b = w[:, :N], s[:, :N], b[:N]
+    before = cuda_build.launches["int8_matmul_prefill"]
+    first = ti8.pallas_i8_matmul(x, w, s, b)
+    second = ti8.pallas_i8_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["int8_matmul_prefill"] == before + 2
+    assert torch.equal(first, second)
+    _check_card(first, ti8.i8_matmul_plain(x, w, s, b))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 8, 100])
 def test_int4_kernel_vs_plain_on_card(M):
     if not torch.cuda.is_available():
@@ -338,7 +421,13 @@ def test_int8_kernel_unaligned_views_on_card(M):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     x, w, s, b = _card(M, 2051, 1000, seed=7)
     xv, wv, sv, bv = x[:, 3:], w[3:, 13:917], s[:, 13:917], b[13:917]
+    core = "int8_matmul_gemv" if M <= ti8.GEMV_MAX_M else "int8_matmul_mma"
+    before = {n: cuda_build.launches[n] for n in (core, "int8_matmul_prefill")}
     got = ti8.pallas_i8_matmul(xv, wv, sv, bv)
+    torch.cuda.synchronize()
+    # unaligned rows never reach the prefill kernel
+    assert {n: cuda_build.launches[n] - before[n] for n in before} == {
+        core: 1, "int8_matmul_prefill": 0}
     _check_card(got, ti8.i8_matmul_plain(xv, wv, sv, bv))
 
 
