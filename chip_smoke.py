@@ -1023,8 +1023,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
                     f"{extra['old_max_abs_err']:.3e}, {t['old']:.4f} ms, "
                     f"device {dev_t['old']:.4f} ms ("
                     f"{dev_t['old'] / dev_t['kernel']:.2f}x the prefill "
-                    f"kernel's); plan bm {plan.bm}, {plan.m_tiles} x "
-                    f"{plan.n_tiles} tiles, {plan.splits} K splits of "
+                    f"kernel's); plan: {plan.m_tiles} x {plan.n_tiles} tiles of "
+                    f"{plan.bm} x {plan.bn}, {plan.splits} K splits of "
                     f"{plan.k_tiles_per_split} tiles (bit-stable over two "
                     f"calls)")
     else:
@@ -1171,6 +1171,7 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
                            for w in (layer.win, layer.wout)])
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     prof = profile(answer, f"[{phase}] {label}: one answer,")
+    kernel_prefill = _prefill_kernels(torch, phi, prompt()) if int8 else {}
     print(f"[{phase}] {label}: {rows} prompt rows, greedy, {MMU_NEW_TOKENS} "
           f"new tokens ({len(toks)} before the first eot), launches per "
           f"answer {counts.get('int8_matmul', 0)} of int8_matmul = "
@@ -1185,12 +1186,43 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
           f" per token over 3.35 TB/s); device idle share over one answer "
           f"{prof['idle_share']:.4f} ({prof['launches']} kernel launches); "
           f"peak memory allocated {peak:.2f} GiB on {smi}")
+    if int8:
+        k = kernel_prefill
+        print(f"[{phase}] {label}: the prefill forward alone ({rows} rows, "
+              f"prompt made once): device {k['device_ms']:.4f} ms with the "
+              f"prefill kernel, {k['old_device_ms']:.4f} ms with the first "
+              f"mma kernel in its place (profiler, mean of 5); wall "
+              f"{k['wall_ms']:.2f} vs {k['old_wall_ms']:.2f} ms (medians of "
+              f"5)")
     return {"rows": rows, "prompt_ms": prompt_ms, "prefill_ms": prefill_ms,
+            **{f"prefill_{key}": val for key, val in kernel_prefill.items()},
             "answer_ms": answer_ms, "decode_ms_per_token": decode_ms,
             "tokens_per_s": 1e3 / decode_ms, "bound_ms_per_token": bound_ms,
             "idle_share": prof["idle_share"], "peak_gib": peak,
             "launches": counts.get("int8_matmul", 0),
             "prefill_launches": counts[PREFILL_KERNEL]}
+
+
+def _prefill_kernels(torch, phi, prompt):
+    """Device and wall ms of one int8 prefill forward of ``prompt`` with
+    the prefill kernel, then with the first mma kernel in its place (the
+    wrapper's core choice patched for the measurement only)."""
+    from showo_tpu_torch.ops import int8_matmul as ti8
+
+    def run():
+        _prefill(torch, phi, prompt)
+
+    out = {"device_ms": _device_ms(torch, run, iters=5),
+           "wall_ms": _wall_ms(torch, run)}
+    choose = ti8.WeightStream.core
+    ti8.WeightStream.core = lambda self, x: (
+        "mma" if choose(self, x) == "prefill" else choose(self, x))
+    try:
+        out.update(old_device_ms=_device_ms(torch, run, iters=5),
+                   old_wall_ms=_wall_ms(torch, run))
+    finally:
+        ti8.WeightStream.core = choose
+    return out
 
 
 def _jax_order_int8(torch, phi_bf, phi_i8):

@@ -36,16 +36,17 @@ extern "C" int int8_matmul_bf16(
       static_cast<cudaStream_t>(stream));
 }
 
-// The prefill kernel (M > 4, x and w rows 16-byte aligned): bm-row tiles
-// (64 or 128) over `splits` K ranges, part the fp32 workspace [splits, M,
-// N] when splits > 1 (ops/int8_matmul.py::prefill_plan chooses both).
+// The prefill kernel (M > 4, x and w rows 16-byte aligned): tiles of nt x
+// rows (one of 8, 16, 32, 48, 64, 96, 128, 144, 176, 208, 256) by 128
+// weight columns over `splits` K ranges, part the fp32 workspace [splits,
+// M, N] when splits > 1 (ops/int8_matmul.py::prefill_plan chooses them).
 // Returns the cudaError_t of the launches.
 extern "C" int int8_matmul_prefill_bf16(
     const void* x, long long ldx, const void* w, long long ldw,
     const void* scale, const void* bias, void* out, long long ldo,
-    void* part, int splits, int M, int K, int N, int bm, void* stream) {
+    void* part, int splits, int M, int K, int N, int nt, void* stream) {
   using wsmm::bf16;
-  if (!wsmm::prefill_args_ok(x, ldx, w, ldw, part, splits, M, K, N, bm))
+  if (!wsmm::prefill_args_ok(x, ldx, w, ldw, part, splits, M, K, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xb = static_cast<const bf16*>(x);
   const auto* wb = static_cast<const int8_t*>(w);
@@ -54,9 +55,15 @@ extern "C" int int8_matmul_prefill_bf16(
   auto* ob = static_cast<bf16*>(out);
   auto* pf = static_cast<float*>(part);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bm == 64)
-    return wsmm::launch_prefill_t<64, 4, false>(xb, ldx, wb, ldw, sb, bb, ob,
-                                                ldo, pf, splits, M, K, N, st);
-  return wsmm::launch_prefill_t<128, 3, false>(xb, ldx, wb, ldw, sb, bb, ob,
-                                               ldo, pf, splits, M, K, N, st);
+  switch (nt) {
+#define WSMM_PREFILL(NT_)                                                   \
+  case NT_:                                                                 \
+    return wsmm::launch_prefill_t<NT_>(xb, ldx, wb, ldw, sb, bb, ob, ldo,   \
+                                       pf, splits, M, K, N, st);
+    WSMM_PREFILL(8) WSMM_PREFILL(16) WSMM_PREFILL(32) WSMM_PREFILL(48)
+    WSMM_PREFILL(64) WSMM_PREFILL(96) WSMM_PREFILL(128) WSMM_PREFILL(144)
+    WSMM_PREFILL(176) WSMM_PREFILL(208) WSMM_PREFILL(256)
+#undef WSMM_PREFILL
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

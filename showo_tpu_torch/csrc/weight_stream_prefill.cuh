@@ -21,42 +21,45 @@
 //   1. Loads overlap the multiply: a ring of STAGES K tiles of 64 rows in
 //      dynamic shared memory, filled by 16-byte cp.async.cg copies (the
 //      ragged M, K and N edges zero-filled through the source-size
-//      operand), LOOKAHEAD tiles in flight while one is multiplied.
+//      operand), STAGES - 2 tiles in flight while one is multiplied.
 //   2. Split-K where M tiles x N tiles fill less than a wave: blockIdx.z
 //      takes a range of K tiles and writes fp32 partial sums [splits, M,
 //      N]; gemv_finish adds them in a fixed order and applies the
 //      epilogue, so the result does not depend on scheduling.  The split
 //      is chosen by ops/int8_matmul.py::prefill_plan.
-//   3. No bank conflicts: the raw int8 tile is stored with its 16-byte
-//      chunks XOR-swizzled by row (chunk c of row k at c ^ (k & 7)), so
-//      the widening pass reads 8 rows x 8 bytes of one column band in one
-//      wavefront; it writes each row of 8 bf16 as one 16-byte store into
-//      8 x 8 core matrices (8 k rows of 16 bytes, 128 contiguous bytes),
-//      the 8 lanes of a store phase filling one core matrix.  x arrives in
-//      K-major core matrices (8 rows x 8 k).  ldmatrix (and wgmma) read
-//      whole core matrices.
-//   4. Row tiles that fit M: BM = 64 or 128 per call (prefill_plan).
-//   5. The multiply: WGMMA = false, mma.sync m16n8k16 (8 warps, B through
-//      ldmatrix.trans from the N-major tile); WGMMA = true,
-//      wgmma.mma_async m64nNk16 from shared-memory descriptors (no
-//      swizzle, B transposed: N-major), two warpgroups, the product of a
-//      tile left in flight while the next one is widened.
+//   3. No bank conflicts, whole cache lines: 8 neighbouring threads copy
+//      one 128-byte row (of x: 64 bf16; of w: 128 int8) into 8 different
+//      bank groups, the 16-byte chunk c of row r at c ^ (r & 7).  For x
+//      that is wgmma's 128-byte swizzle; for w it puts the 8 rows of one
+//      16-byte column band, what one ldmatrix phase reads, in 8 bank
+//      groups.  (Unswizzled 8 x 16-byte core matrices of x, 8 rows per
+//      8 threads, read half a cache line per row and held the kernel
+//      back.)
+//   4. Row tiles that fit M: the tile width NT (x rows) is one of PF_NT,
+//      8 to 256 (prefill_plan: M = 267 -> 2 x 144, 609 -> 3 x 208, 8 -> 8).
+//   5. The multiply is wgmma.mma_async m64nNTk16 with the problem turned
+//      over, out^T = w^T x^T: the weights are the A operand, widened in
+//      registers straight into the m64k16 fragments (ldmatrix.trans of
+//      the raw bytes, two bytes per 16-bit lane, then an exact bf16
+//      subtraction), and x is B, read by the tensor cores from shared
+//      memory through a descriptor.  No widened copy of the weights is
+//      written to shared memory (a first version that widened them into
+//      a bf16 tile for mma.sync spent its time on shared-memory traffic).
+//      Two warpgroups, 64 weight columns each; one tile's products stay
+//      in flight while the next tile's copies are issued and its
+//      fragments loaded.
 
 #pragma once
 
 #include "weight_stream.cuh"
+#include "wgmma_rs.cuh"
 
 namespace wsmm {
 
-constexpr int PF_BN = 128, PF_BK = 64, PF_THREADS = 256;
-constexpr int PF_CORE = 128;                    // bytes of one core matrix
-constexpr int PF_W_STAGE = PF_BK * PF_BN;       // raw int8 tile: 8 KB
-constexpr int PF_B_TILE = PF_BK * PF_BN * 2;    // widened bf16 tile: 16 KB
-
-template <int BM, int STAGES>
-constexpr int pf_smem_bytes() {
-  return STAGES * (BM * PF_BK * 2 + PF_W_STAGE) + 2 * PF_B_TILE;
-}
+constexpr int PF_BK = 64;        // K rows of a tile (128 bytes of x rows)
+constexpr int PF_BN = 128;       // weight columns of a tile: 2 warpgroups
+constexpr int PF_THREADS = 256;
+constexpr int PF_W_STAGE = PF_BK * PF_BN;  // raw int8 tile: 8 KB
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -112,14 +115,16 @@ __device__ __forceinline__ uint4 widen8(uint2 v) {
                     widen_pair(__byte_perm(v.y, 0u, 0x4342)));
 }
 
-// wgmma shared-memory matrix descriptor, no swizzle: start address, the
-// byte stride between core matrices along the leading dimension (LBO) and
-// along the strided one (SBO)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+// wgmma shared-memory matrix descriptor of a K-major operand in the
+// 128-byte swizzle: rows of 128 bytes (64 bf16 of K), 16-byte chunk c of
+// row r at c ^ (r & 7), 8-row groups 1024 bytes apart (SBO) from a
+// 1024-byte aligned base; `addr` is the base plus the byte offset of the
+// k16 step
+__device__ __forceinline__ uint64_t gmma_desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -132,8 +137,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// generic-proxy shared-memory writes (the widening, cp.async) before the
-// async proxy (wgmma) reads them
+// generic-proxy shared-memory writes (cp.async) before the async proxy
+// (wgmma) reads them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -143,298 +148,219 @@ __device__ __forceinline__ void fence_reg(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
-// d[0..31] += A (64 x 16, K-major) * B (16 x 64, N-major), both in
-// shared memory through descriptors
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+// x rows [m_tile, m_tile + ROWS) x columns [k0, k0 + 64) -> ROWS rows of
+// 128 bytes at xs in the 128-byte swizzle (16-byte chunk c of row r at
+// c ^ (r & 7)): 8 neighbouring threads copy one row, 128 contiguous bytes
+// of x, into 8 different bank groups
+template <int ROWS>
+__device__ __forceinline__ void load_x_tile(uint32_t xs, const bf16* x,
+                                            long long ldx, int m_tile, int M,
+                                            int K, int k0, int tid) {
+#pragma unroll
+  for (int r = 0; r < (ROWS * 8 + PF_THREADS - 1) / PF_THREADS; ++r) {
+    const int q = tid + r * PF_THREADS, row = q >> 3, c = q & 7;
+    if (ROWS * 8 % PF_THREADS != 0 && q >= ROWS * 8) break;
+    const int m = m_tile + row, col = k0 + 8 * c;
+    const bf16* src = x;
+    int bytes = 0;
+    if (m < M && col < K) {
+      src = x + m * ldx + col;
+      bytes = min(16, 2 * (K - col));
+    }
+    cp_async16(xs + row * 128 + ((c ^ (row & 7)) * 16), src, bytes);
+  }
 }
 
-// d[0..63] += A (64 x 16, K-major) * B (16 x 128, N-major)
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+// w rows [k0, k0 + 64) x columns [n_tile, n_tile + 128) -> 64 rows of 128
+// bytes at ws, 16-byte chunk c of row k at c ^ (k & 7): 8 neighbouring
+// threads copy one row
+__device__ __forceinline__ void load_w_tile(uint32_t ws, const int8_t* w,
+                                            long long ldw, int n_tile, int N,
+                                            int K, int k0, int tid) {
+#pragma unroll
+  for (int r = 0; r < PF_W_STAGE / 16 / PF_THREADS; ++r) {
+    const int q = tid + r * PF_THREADS, row = q >> 3, c = q & 7;
+    const int k = k0 + row, n = n_tile + 16 * c;
+    const int8_t* src = w;
+    int bytes = 0;
+    if (k < K && n < N) {
+      src = w + k * ldw + n;
+      bytes = min(16, N - n);
+    }
+    cp_async16(ws + row * PF_BN + ((c ^ (row & 7)) * 16), src, bytes);
+  }
 }
 
-// How the 8 warps cover a BM x 128 output tile.  Each thread holds
-// acc[MI][NJ][4]: rows rbase + 16 i + g (+ 8), columns cbase + 8 j + 2 t
-// (+ 1), g = lane / 4, t = lane % 4 (the m16n8 C fragment, which is also
-// wgmma's accumulator layout per 8 columns).
-//   mma.sync: BM = 64, 2 x 4 warps of 32 x 32; BM = 128, 4 x 2 of 32 x 64.
-//   wgmma: BM = 64, warpgroup wg takes columns 64 wg.. (m64n64); BM = 128,
-//   rows 64 wg.. (m64n128); warp w of a warpgroup rows 16 w..
-template <int BM, bool WGMMA>
-struct PfWarps {
-  static constexpr int MI = WGMMA ? 1 : 2;
-  static constexpr int NJ = WGMMA ? (BM == 64 ? 8 : 16) : (BM == 64 ? 4 : 8);
-  static constexpr int WN = BM == 64 ? 4 : 2;  // mma.sync: warps along N
-  __device__ static int rbase(int warp) {
-    if (WGMMA) return (BM == 128 ? 64 * (warp >> 2) : 0) + 16 * (warp & 3);
-    return (warp / WN) * 32;
-  }
-  __device__ static int cbase(int warp) {
-    if (WGMMA) return BM == 64 ? 64 * (warp >> 2) : 0;
-    return (warp % WN) * (PF_BN / WN);
-  }
+// The tile width NT (x rows of a block, wgmma's N) and the stages of its
+// ring: up to 144 rows a thread's accumulators fit in 128 registers, two
+// blocks an SM; wider tiles take one block and a deeper ring.
+template <int NT>
+struct PfCfg {
+  static constexpr int X_STAGE = NT * PF_BK * 2;
+  static constexpr int STAGE = X_STAGE + PF_W_STAGE;
+  static constexpr int BLOCKS = NT <= 144 ? 2 : 1;
+  static constexpr int FIT = (BLOCKS == 2 ? 112 : 220) * 1024 / STAGE;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(NT % 8 == 0 && NT <= 256 && STAGES >= 3, "tile width");
 };
 
-// One BM x 128 output tile (blockIdx.x: M tile, so the M tiles of one N
-// tile run together and share its weights in L2; blockIdx.y: N tile) over
-// the K tiles [z * kt_per_split, ...) of split z = blockIdx.z.  part ==
-// nullptr: out gets the epilogue; else part[z] gets the fp32 sums.
-// x rows (ldx) and w rows (ldw) must be 16-byte aligned.
-template <int BM, int STAGES, bool WGMMA>
-__global__ void __launch_bounds__(PF_THREADS)
+// One tile of NT x rows by 128 weight columns (blockIdx.x: M tile, so the
+// M tiles of one N tile run together and share its weights in L2;
+// blockIdx.y: N tile) over the K tiles [z * kt_per_split, ...) of split
+// z = blockIdx.z.  part == nullptr: out gets the epilogue; else part[z]
+// gets the fp32 sums.  x rows (ldx) and w rows (ldw) must be 16-byte
+// aligned.
+//
+// Warp `warp` (warpgroup warp / 4) owns the 16 weight columns n_tile + 16
+// warp + [0, 16), one 16-byte chunk of a raw row; of its m16k16 A
+// fragment, row g (lane / 4) is column 2 g and row g + 8 column 2 g + 1,
+// the order in which ldmatrix.trans hands a thread two columns' bytes.
+template <int NT>
+__global__ void __launch_bounds__(PF_THREADS, PfCfg<NT>::BLOCKS)
 prefill_kernel(const bf16* __restrict__ x, long long ldx,
                const int8_t* __restrict__ w, long long ldw,
                const bf16* __restrict__ scale, const bf16* __restrict__ bias,
                bf16* __restrict__ out, long long ldo,
                float* __restrict__ part, int M, int K, int N,
                int kt_per_split) {
-  using Warps = PfWarps<BM, WGMMA>;
-  constexpr int MI = Warps::MI, NJ = Warps::NJ;
-  constexpr int X_STAGE = BM * PF_BK * 2, STAGE = X_STAGE + PF_W_STAGE;
-  // wgmma leaves one tile's product in flight, so its stage is not
-  // refilled until the next iteration
-  constexpr int LOOKAHEAD = WGMMA ? STAGES - 2 : STAGES - 1;
-  static_assert(LOOKAHEAD >= 1, "too few stages");
-  extern __shared__ __align__(128) uint8_t smem[];
+  using C = PfCfg<NT>;
+  // one tile's products stay in flight, so its stage is refilled one
+  // iteration later
+  constexpr int LOOKAHEAD = C::STAGES - 2;
+  extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t bw_base = sbase + STAGES * STAGE;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m_tile = blockIdx.x * BM, n_tile = blockIdx.y * PF_BN;
+  const int m_tile = blockIdx.x * NT, n_tile = blockIdx.y * PF_BN;
   const int k_tiles = (K + PF_BK - 1) / PF_BK;
   const int kt0 = blockIdx.z * kt_per_split;
   const int nkt = min(k_tiles, kt0 + kt_per_split) - kt0;
 
-  // stage s: x [BM, 64] bf16 as K-major core matrices (core (mg, kg) at
-  // (mg * 8 + kg) * 128), then w [64, 128] int8 rows of 128 bytes with
-  // swizzled 16-byte chunks
   auto load_tile = [&](int kt, int stage) {
-    const uint32_t xs = sbase + stage * STAGE, ws = xs + X_STAGE;
-    const int k0 = kt * PF_BK;
-#pragma unroll
-    for (int r = 0; r < BM * 8 / PF_THREADS; ++r) {
-      // 8 neighbouring threads fill one core matrix (no bank conflicts)
-      const int q = tid + r * PF_THREADS, c = (q >> 3) & 7;
-      const int row = (q >> 6) * 8 + (q & 7);
-      const int m = m_tile + row, col = k0 + 8 * c;
-      const bf16* src = x;
-      int bytes = 0;
-      if (m < M && col < K) {
-        src = x + m * ldx + col;
-        bytes = min(16, 2 * (K - col));
-      }
-      cp_async16(xs + ((row >> 3) * 8 + c) * PF_CORE + (row & 7) * 16, src,
-                 bytes);
-    }
-#pragma unroll
-    for (int r = 0; r < PF_W_STAGE / 16 / PF_THREADS; ++r) {
-      const int q = tid + r * PF_THREADS, row = q >> 3, c = q & 7;
-      const int k = k0 + row, n = n_tile + 16 * c;
-      const int8_t* src = w;
-      int bytes = 0;
-      if (k < K && n < N) {
-        src = w + k * ldw + n;
-        bytes = min(16, N - n);
-      }
-      cp_async16(ws + row * PF_BN + ((c ^ (row & 7)) * 16), src, bytes);
-    }
+    const uint32_t xs = sbase + stage * C::STAGE;
+    load_x_tile<NT>(xs, x, ldx, m_tile, M, K, kt * PF_BK, tid);
+    load_w_tile(xs + C::X_STAGE, w, ldw, n_tile, N, K, kt * PF_BK, tid);
   };
 
-  // raw int8 stage -> bf16 B tile as N-major core matrices (core (kg, ng):
-  // 8 k rows of 8 columns, at (kg * 16 + ng) * 128)
-  auto widen = [&](int stage, uint32_t bw) {
-    const uint8_t* raw = smem + stage * STAGE + X_STAGE;
-    uint8_t* dst = smem + (bw - sbase);
+  float acc[NT / 2];
 #pragma unroll
-    for (int r = 0; r < PF_BK * PF_BN / 8 / PF_THREADS; ++r) {
-      const int q = tid + r * PF_THREADS;
-      const int kr = q & 7, h = (q >> 3) & 1, c = (q >> 4) & 7, kg = q >> 7;
-      const uint2 v = *reinterpret_cast<const uint2*>(
-          raw + (kg * 8 + kr) * PF_BN + ((c ^ kr) * 16) + h * 8);
-      *reinterpret_cast<uint4*>(dst + (kg * 16 + 2 * c + h) * PF_CORE +
-                                kr * 16) = widen8(v);
-    }
-  };
-
-  float acc[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int rbase = Warps::rbase(warp), cbase = Warps::cbase(warp);
+  for (int j = 0; j < NT / 2; ++j) acc[j] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < LOOKAHEAD; ++s) {
     if (s < nkt) load_tile(kt0 + s, s);
     cp_async_commit();
   }
+  // this lane's row of an ldmatrix of the raw tile: k = 32 p + lane
+  const uint32_t a_row = lane * PF_BN + ((warp ^ (lane & 7)) * 16);
   for (int i = 0; i < nkt; ++i) {
     cp_async_wait<LOOKAHEAD - 1>();
-    // tile i has landed for every thread, and every warp is done with the
-    // stage and B tile that are refilled below
+    fence_proxy_async();
+    // tile i has landed for every thread, and every warpgroup is done
+    // with the stage refilled below (tile i - 2's)
     __syncthreads();
     if (i + LOOKAHEAD < nkt)
-      load_tile(kt0 + i + LOOKAHEAD, (i + LOOKAHEAD) % STAGES);
+      load_tile(kt0 + i + LOOKAHEAD, (i + LOOKAHEAD) % C::STAGES);
     cp_async_commit();
-    const int stage = i % STAGES;
-    const uint32_t xs = sbase + stage * STAGE;
-    const uint32_t bw = bw_base + (i & 1) * PF_B_TILE;
-    widen(stage, bw);
-    if (WGMMA) fence_proxy_async();
-    __syncthreads();
-
-    if constexpr (WGMMA) {
-      // A: K-major, k16 step s at core column 2 s (LBO: the next 8 k, 128
-      // bytes; SBO: the next 8 rows, 1024).  B: N-major, step s at core
-      // row 2 s (LBO: the next 8 k, 2048 bytes; SBO: the next 8 columns,
-      // 128)
-      const uint32_t a0 = xs + (BM == 128 ? (warp >> 2) * 8 * 1024 : 0);
-      const uint32_t b0 = bw + (BM == 64 ? (warp >> 2) * 8 * PF_CORE : 0);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) fence_reg(acc[0][j][e]);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < PF_BK / 16; ++s) {
-        const uint64_t da = gmma_desc(a0 + 2 * s * PF_CORE, 128, 1024);
-        const uint64_t db = gmma_desc(b0 + 2 * s * 16 * PF_CORE, 2048,
-                                      PF_CORE);
-        if constexpr (NJ == 8)
-          wgmma_n64(&acc[0][0][0], da, db);
-        else
-          wgmma_n128(&acc[0][0][0], da, db);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) fence_reg(acc[0][j][e]);
-    } else {
-#pragma unroll
-      for (int s = 0; s < PF_BK / 16; ++s) {
-        uint32_t a[MI][4], b[NJ][2];
-#pragma unroll
-        for (int i2 = 0; i2 < MI; ++i2) {
-          const int row = rbase + 16 * i2 + (lane & 7) + 8 * ((lane >> 3) & 1);
-          const int kg = 2 * s + (lane >> 4);
-          ldsm_x4(a[i2], xs + ((row >> 3) * 8 + kg) * PF_CORE + (row & 7) * 16);
-        }
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) {
-          const int krow = 16 * s + (lane & 7) + 8 * ((lane >> 3) & 1);
-          const int ng = (cbase >> 3) + 2 * jj + (lane >> 4);
-          uint32_t r4[4];
-          ldsm_x4_t(r4, bw + ((krow >> 3) * 16 + ng) * PF_CORE +
-                            (krow & 7) * 16);
-          b[2 * jj][0] = r4[0];
-          b[2 * jj][1] = r4[1];
-          b[2 * jj + 1][0] = r4[2];
-          b[2 * jj + 1][1] = r4[3];
-        }
-#pragma unroll
-        for (int i2 = 0; i2 < MI; ++i2)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            mma_16816(acc[i2][j], a[i2], b[j][0], b[j][1]);
-      }
-    }
-  }
-  if constexpr (WGMMA) {
+    const uint32_t xs = sbase + (i % C::STAGES) * C::STAGE;
+    const uint32_t raw = xs + C::X_STAGE;
+    // r[p][q]: k rows 32 p + 8 q + [0, 8) of this warp's 16 columns; a
+    // thread gets the bytes (k 2t, col 2g), (2t, 2g+1), (2t+1, 2g),
+    // (2t+1, 2g+1) of each 8 x 8 block
+    uint32_t r[2][4];
+    ldsm_x4_t(r[0], raw + a_row);
+    ldsm_x4_t(r[1], raw + 32 * PF_BN + a_row);
+    // tile i - 1's products are done: the A registers may be written
     wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NT / 2; ++j) fence_reg(acc[j]);
+    uint32_t a[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) fence_reg(acc[0][j][e]);
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t lo = r[s >> 1][2 * (s & 1)];
+      const uint32_t hi = r[s >> 1][2 * (s & 1) + 1];
+      a[s][0] = widen_pair(__byte_perm(lo, 0u, 0x4240));
+      a[s][1] = widen_pair(__byte_perm(lo, 0u, 0x4341));
+      a[s][2] = widen_pair(__byte_perm(hi, 0u, 0x4240));
+      a[s][3] = widen_pair(__byte_perm(hi, 0u, 0x4341));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_rs<NT>(acc, a[s], gmma_desc_sw128(xs + 32 * s));
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) fence_reg(acc[j]);
 
+  // acc[4 j + 2 h + e]: column n0 + h, row m_tile + 8 j + 2 t + e
   const int g = lane >> 2, t = lane & 3;
-  float* dst = part == nullptr
-                   ? nullptr
-                   : part + static_cast<long long>(blockIdx.z) * M * N;
+  const int n0 = n_tile + 16 * warp + 2 * g;
+  if (n0 >= N) return;
+  const bool pair = n0 + 1 < N;
+  if (part != nullptr) {
+    float* dst = part + static_cast<long long>(blockIdx.z) * M * N + n0;
+    const bool vec = pair && N % 2 == 0;
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
+    for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m_tile + rbase + 16 * i + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n_tile + cbase + 8 * j + 2 * t + e;
-          if (col >= N) continue;
-          const float v = acc[i][j][2 * h + e];
-          if (dst != nullptr)
-            dst[static_cast<long long>(row) * N + col] = v;
-          else
-            out[row * ldo + col] = epilogue(v, scale, bias, col);
+      for (int e = 0; e < 2; ++e) {
+        const int m = m_tile + 8 * j + 2 * t + e;
+        if (m >= M) continue;
+        float* p = dst + static_cast<long long>(m) * N;
+        if (vec) {
+          *reinterpret_cast<float2*>(p) =
+              make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+        } else {
+          p[0] = acc[4 * j + e];
+          if (pair) p[1] = acc[4 * j + 2 + e];
         }
+      }
+    }
+    return;
+  }
+  // the epilogue's scale and bias of the two columns, read once
+  const float s0 = bf2f(scale[n0]), s1 = pair ? bf2f(scale[n0 + 1]) : 0.f;
+  const float b0 = bias == nullptr ? 0.f : bf2f(bias[n0]);
+  const float b1 = bias == nullptr || !pair ? 0.f : bf2f(bias[n0 + 1]);
+  const bool vec = pair && ldo % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m_tile + 8 * j + 2 * t + e;
+      if (m >= M) continue;
+      bf16 y0 = __float2bfloat16(acc[4 * j + e] * s0);
+      bf16 y1 = __float2bfloat16(acc[4 * j + 2 + e] * s1);
+      if (bias != nullptr) {
+        y0 = __float2bfloat16(bf2f(y0) + b0);
+        y1 = __float2bfloat16(bf2f(y1) + b1);
+      }
+      bf16* o = out + m * ldo + n0;
+      if (vec) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(y0, y1);
+      } else {
+        o[0] = y0;
+        if (pair) o[1] = y1;
       }
     }
   }
 }
 
-// Launches one prefill product of BM-row tiles over `splits` K ranges
-// (part: [splits, M, N] fp32 when splits > 1), then gemv_finish when
-// split.  Returns the cudaError_t.
-template <int BM, int STAGES, bool WGMMA>
+// Launches the prefill kernel on a grid of M tiles x N tiles x splits,
+// then gemv_finish when K is split (part: [splits, M, N] fp32).  Returns
+// the cudaError_t.
+template <int NT>
 int launch_prefill_t(const bf16* x, long long ldx, const int8_t* w,
                      long long ldw, const bf16* scale, const bf16* bias,
                      bf16* out, long long ldo, float* part, int splits,
                      int M, int K, int N, cudaStream_t stream) {
-  constexpr int smem = pf_smem_bytes<BM, STAGES>();
-  auto kernel = prefill_kernel<BM, STAGES, WGMMA>;
+  using C = PfCfg<NT>;
+  auto kernel = prefill_kernel<NT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   // all of L1 as shared memory, so that two blocks fit on an SM
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
@@ -443,8 +369,8 @@ int launch_prefill_t(const bf16* x, long long ldx, const int8_t* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int k_tiles = (K + PF_BK - 1) / PF_BK;
   const int per = (k_tiles + splits - 1) / splits;
-  dim3 grid((M + BM - 1) / BM, (N + PF_BN - 1) / PF_BN, splits);
-  kernel<<<grid, PF_THREADS, smem, stream>>>(
+  dim3 grid((M + NT - 1) / NT, (N + PF_BN - 1) / PF_BN, splits);
+  kernel<<<grid, PF_THREADS, C::SMEM, stream>>>(
       x, ldx, w, ldw, scale, bias, out, ldo, splits > 1 ? part : nullptr, M,
       K, N, per);
   err = cudaGetLastError();
@@ -457,13 +383,12 @@ int launch_prefill_t(const bf16* x, long long ldx, const int8_t* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks what the prefill kernel takes: M > GEMV_MAX_M, bm 64 or 128,
-// every split a non-empty range of K tiles, 16-byte aligned x and w rows.
+// Checks what the prefill kernel takes: M > GEMV_MAX_M, every split a
+// non-empty range of K tiles, 16-byte aligned x and w rows.
 inline bool prefill_args_ok(const void* x, long long ldx, const void* w,
                             long long ldw, const void* part, int splits,
-                            int M, int K, int N, int bm) {
+                            int M, int K, int N) {
   if (M <= GEMV_MAX_M || K <= 0 || N <= 0 || splits <= 0) return false;
-  if (bm != 64 && bm != 128) return false;
   if (splits > 1 && part == nullptr) return false;
   const int k_tiles = (K + PF_BK - 1) / PF_BK;
   const int per = (k_tiles + splits - 1) / splits;

@@ -18,9 +18,10 @@ beside the source's (``launches["int8_matmul_<core>"]``):
 
 * ``gemv`` (M <= 4, decode): split-K CUDA-core dot products;
 * ``prefill`` (M > 4, x and w rows 16-byte aligned, as ``Int8Linear``
-  pads them): ``csrc/weight_stream_prefill.cuh``, a cp.async ring of
-  64-row K tiles, conflict-free widening and split-K, with the tiles and
-  the split from :func:`prefill_plan`;
+  pads them): ``csrc/weight_stream_prefill.cuh``, wgmma with the weights
+  widened in registers as the A operand and x from shared memory, on a
+  cp.async ring of 64-row K tiles, with split-K; the tile width and the
+  split from :func:`prefill_plan`;
 * ``mma`` (M > 4, rows that are not 16-byte aligned): the first
   ``mma.sync`` kernel of ``weight_stream.cuh``.
 
@@ -58,6 +59,8 @@ _GEMV_COLS = 512        # columns of one decode block
 _BLOCKS_PER_SM = 8      # decode blocks per SM the split aims at
 _MIN_ROWS_PER_SPLIT = 64
 PF_BN, PF_BK = 128, 64  # csrc/weight_stream_prefill.cuh: N and K tiles
+# its tile widths (x rows of a block, wgmma's N)
+PF_NT = (8, 16, 32, 48, 64, 96, 128, 144, 176, 208, 256)
 
 
 def _epilogue(acc: torch.Tensor, scale: torch.Tensor, bias, dtype):
@@ -90,8 +93,8 @@ def gemv_splits(rows: int, N: int, sms: int) -> int:
 
 class PrefillPlan(NamedTuple):
     """Tiles and K split of one launch of the prefill kernel."""
-    bm: int                 # rows of an output tile (64 or 128)
-    bn: int                 # columns of an output tile
+    bm: int                 # x rows of an output tile (one of PF_NT)
+    bn: int                 # weight columns of a tile
     splits: int             # K ranges (blockIdx.z); > 1: fp32 partials
     k_tiles_per_split: int  # 64-row K tiles of each range (the last: the rest)
     m_tiles: int
@@ -101,15 +104,15 @@ class PrefillPlan(NamedTuple):
 
 def prefill_plan(M: int, K: int, N: int, sms: int) -> PrefillPlan:
     """The prefill kernel's tiles and split-K for x [M, K] @ w [K, N] on a
-    card of ``sms`` SMs.  BM = 128 where its tiles cover M with no more
-    rows than 64-row tiles do (M = 609: 5 x 128 = 10 x 64), else 64 (M =
-    267: 5 x 64 rows against 3 x 128).  K is split only where the M x N
+    card of ``sms`` SMs.  As few row tiles as the widest (256 rows) needs,
+    each the narrowest width of PF_NT that covers M with them (M = 267: 2
+    x 144; 609: 3 x 208; 8: 1 x 8).  K is split only where the M x N
     tiles give fewer blocks than SMs: among ceil(sms / tiles) to twice as
     many splits, the one whose last wave of blocks is fullest (fewest
     splits on a tie), then as many as keep every split's K range
     non-empty."""
-    m64, m128 = -(-M // 64), -(-M // 128)
-    bm = 128 if m128 * 128 <= m64 * 64 else 64
+    m_tiles = -(-M // PF_NT[-1])
+    bm = next(nt for nt in PF_NT if nt * m_tiles >= M)
     m_tiles, n_tiles = -(-M // bm), -(-N // PF_BN)
     k_tiles = -(-K // PF_BK)
     tiles = m_tiles * n_tiles

@@ -197,12 +197,12 @@ def test_wrappers_raise():
 
 
 SLICE_PLANS = {
-    # (M, K, N): (bm, splits, K tiles per split) on 132 SMs (an H100)
-    (267, 2048, 14336): (64, 1, 32),    # win at the discrete prefill
-    (267, 10240, 2048): (64, 3, 54),    # wout: 80 tiles, 240 blocks
-    (267, 2048, 58498): (64, 1, 32),    # lm_head: 458 N tiles
-    (609, 2048, 14336): (128, 1, 32),   # win at the CLIP-ViT prefill
-    (8, 2048, 8192): (64, 4, 8),        # the probes: 64 tiles, 256 blocks
+    # (M, K, N): (x rows of a tile, splits, K tiles per split) on 132 SMs
+    (267, 2048, 14336): (144, 1, 32),   # win at the discrete prefill
+    (267, 10240, 2048): (144, 8, 20),   # wout: 32 tiles, 256 blocks
+    (267, 2048, 58498): (144, 1, 32),   # lm_head: 458 N tiles
+    (609, 2048, 14336): (208, 1, 32),   # win at the CLIP-ViT prefill
+    (8, 2048, 8192): (8, 4, 8),         # the probes: 64 tiles, 256 blocks
 }
 
 
@@ -221,17 +221,18 @@ def test_prefill_plan_slice_shapes(shape):
 @pytest.mark.parametrize("sms", [1, 132])
 def test_prefill_plan_invariants(M, K, N, sms):
     """Every block gets at least one K tile; K is split only where the M x
-    N tiles are fewer than the SMs; the tiles cover M, N and K; BM = 128
-    only where it covers M with no more rows than 64-row tiles."""
+    N tiles are fewer than the SMs; the tiles cover M, N and K; as few row
+    tiles as 256-row ones would take, each the narrowest that covers M."""
     p = ti8.prefill_plan(M, K, N, sms)
-    assert p.bm in (64, 128)
+    assert p.bm in ti8.PF_NT
+    assert p.m_tiles == -(-M // 256)
+    assert all(nt * p.m_tiles < M for nt in ti8.PF_NT if nt < p.bm)
     assert p.m_tiles * p.bm >= M > (p.m_tiles - 1) * p.bm
     assert p.n_tiles * p.bn >= N > (p.n_tiles - 1) * p.bn
     assert p.k_tiles * ti8.PF_BK >= K > (p.k_tiles - 1) * ti8.PF_BK
     assert p.splits * p.k_tiles_per_split >= p.k_tiles
     assert (p.splits - 1) * p.k_tiles_per_split < p.k_tiles   # last: >= 1
     assert p.splits == 1 or p.m_tiles * p.n_tiles < sms
-    assert p.bm == 64 or -(-M // 128) * 128 <= -(-M // 64) * 64
 
 
 def test_gemv_splits():
