@@ -128,6 +128,7 @@ and exits non-zero with no result line; without CUDA it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -204,8 +205,8 @@ WSMM_KERNELS = {
 # csrc/weight_stream_prefill.cuh), which replaced its first mma kernel there
 PREFILL_KERNEL = "int8_matmul_prefill"
 # the per-core counters of the weight-streaming sources
-WSMM_CORES = [f"{src}_{core}" for src in WSMM_KERNELS
-              for core in ("gemv", "mma", "prefill")]
+WSMM_CORES = ["int8_matmul_gemv", "int8_matmul_mma", PREFILL_KERNEL,
+              "int4_matmul_gemv", "int4_matmul_mma"]
 # kernel 6, the GQA-stacked packed attention: on no model path (the JAX
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
@@ -935,6 +936,22 @@ def _rotation(copies):
     return nxt
 
 
+@contextlib.contextmanager
+def _first_mma_kernel():
+    """The int8 wrapper with the first mma kernel in the prefill kernel's
+    place (its core choice patched), for measurements beside it on the
+    same inputs."""
+    from showo_tpu_torch.ops import int8_matmul as ti8
+
+    choose = ti8.WeightStream.core
+    ti8.WeightStream.core = lambda self, x: (
+        "mma" if choose(self, x) == "prefill" else choose(self, x))
+    try:
+        yield
+    finally:
+        ti8.WeightStream.core = choose
+
+
 def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     """One weight-streaming product against its plain version: the error
     (max abs over the plain output's peak), a planted fault (each column
@@ -945,7 +962,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     the layers of a decode step do (each reads other weights).  int8 above
     the decode rows: the prefill kernel must be the one that ran, its
     split-K must give the same bits on two calls, and the first mma kernel
-    (``core="mma"``) is checked and timed beside it on the same inputs."""
+    (:func:`_first_mma_kernel`) is checked and timed beside it on the same
+    inputs."""
     from showo_tpu_torch.ops import int4_matmul as ti4
     from showo_tpu_torch.ops import int8_matmul as ti8
 
@@ -982,8 +1000,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
         plan = ti8.prefill_plan(M, K, N, torch.cuda.get_device_properties(
             0).multi_processor_count)
         again = kern(x, ws[0], s)
-        old = ti8.WeightStream("int8_matmul", ws[0], s, None, K)(
-            x, core="mma")
+        with _first_mma_kernel():
+            old = kern(x, ws[0], s)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{label}: two calls of the prefill kernel "
@@ -1011,9 +1029,10 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
              "library": lambda: torch.matmul(x, dn()),
              "eager": lambda: x @ (widen(wn()) * s)}
     if prefill:
-        olds = [ti8.WeightStream("int8_matmul", w, s, None, K) for w in ws]
-        on = _rotation(olds)
-        calls["old"] = lambda: on()(x, core="mma")
+        def old():
+            with _first_mma_kernel():
+                return kern(x, wn(), s)
+        calls["old"] = old
     t = {k: _time_ms(torch, fn) for k, fn in calls.items()}
     dev_t = {k: _device_ms(torch, calls[k]) for k in calls if k != "plain"}
     ms, plain_ms, lib_ms, eager_ms = (t[k] for k in list(calls)[:4])
@@ -1023,8 +1042,9 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
                     f"{extra['old_max_abs_err']:.3e}, {t['old']:.4f} ms, "
                     f"device {dev_t['old']:.4f} ms ("
                     f"{dev_t['old'] / dev_t['kernel']:.2f}x the prefill "
-                    f"kernel's); plan: {plan.m_tiles} x {plan.n_tiles} tiles of "
-                    f"{plan.bm} x {plan.bn}, {plan.splits} K splits of "
+                    f"kernel's); plan: {plan.m_tiles} x {plan.n_tiles} "
+                    f"tiles of {plan.bm} x {ti8.PF_BN}, {plan.splits} K "
+                    f"splits of "
                     f"{plan.k_tiles_per_split} tiles (bit-stable over two "
                     f"calls)")
     else:
@@ -1205,23 +1225,15 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
 
 def _prefill_kernels(torch, phi, prompt):
     """Device and wall ms of one int8 prefill forward of ``prompt`` with
-    the prefill kernel, then with the first mma kernel in its place (the
-    wrapper's core choice patched for the measurement only)."""
-    from showo_tpu_torch.ops import int8_matmul as ti8
-
+    the prefill kernel, then with the first mma kernel in its place."""
     def run():
         _prefill(torch, phi, prompt)
 
     out = {"device_ms": _device_ms(torch, run, iters=5),
            "wall_ms": _wall_ms(torch, run)}
-    choose = ti8.WeightStream.core
-    ti8.WeightStream.core = lambda self, x: (
-        "mma" if choose(self, x) == "prefill" else choose(self, x))
-    try:
+    with _first_mma_kernel():
         out.update(old_device_ms=_device_ms(torch, run, iters=5),
                    old_wall_ms=_wall_ms(torch, run))
-    finally:
-        ti8.WeightStream.core = choose
     return out
 
 

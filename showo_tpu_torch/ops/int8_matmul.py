@@ -11,9 +11,9 @@ matmul of a quantized Phi:
                                                     scale [1, N] bf16
 
 ``csrc/int8_matmul.cu`` (over ``csrc/weight_stream.cuh``) reads the int8
-weights once and widens them on the chip; eager PyTorch would write a
-bf16 copy of each weight per call and read it back (5 bytes moved per
-weight against the kernel's 1).  Three cores, each with its counter
+weights once and widens them next to the multiply; eager PyTorch would
+write a bf16 copy of each weight per call and read it back (5 bytes moved
+per weight against the kernel's 1).  Three cores, each with its counter
 beside the source's (``launches["int8_matmul_<core>"]``):
 
 * ``gemv`` (M <= 4, decode): split-K CUDA-core dot products;
@@ -25,10 +25,10 @@ beside the source's (``launches["int8_matmul_<core>"]``):
 * ``mma`` (M > 4, rows that are not 16-byte aligned): the first
   ``mma.sync`` kernel of ``weight_stream.cuh``.
 
-The wrapper picks the core from M and the alignment before the launch.  The scale is applied to the fp32 sum, as
-in ``_i8_kernel``; ``_wk`` instead rounds ``w_i8 * scale`` to bf16 before
-the product, which is the one difference from the JAX model (tests state
-its tolerance).
+The wrapper picks the core from M and the alignment before the launch.
+The scale is applied to the fp32 sum, as in ``_i8_kernel``; ``_wk``
+instead rounds ``w_i8 * scale`` to bf16 before the product, which is the
+one difference from the JAX model (tests state its tolerance).
 
 :func:`linear_i8` is the call a quantized Phi makes (any leading dims,
 optional bias added to the bf16 product).  The wrappers run the plain
@@ -94,7 +94,6 @@ def gemv_splits(rows: int, N: int, sms: int) -> int:
 class PrefillPlan(NamedTuple):
     """Tiles and K split of one launch of the prefill kernel."""
     bm: int                 # x rows of an output tile (one of PF_NT)
-    bn: int                 # weight columns of a tile
     splits: int             # K ranges (blockIdx.z); > 1: fp32 partials
     k_tiles_per_split: int  # 64-row K tiles of each range (the last: the rest)
     m_tiles: int
@@ -125,8 +124,7 @@ def prefill_plan(M: int, K: int, N: int, sms: int) -> PrefillPlan:
         splits = min(max(range(low, 2 * low + 1),
                          key=lambda s: (fill(s), -s)), k_tiles)
     per = -(-k_tiles // splits)
-    return PrefillPlan(bm, PF_BN, -(-k_tiles // per), per, m_tiles, n_tiles,
-                       k_tiles)
+    return PrefillPlan(bm, -(-k_tiles // per), per, m_tiles, n_tiles, k_tiles)
 
 
 def _check(name: str, t: torch.Tensor, dtype, dev, dims: int):
@@ -181,10 +179,8 @@ class WeightStream:
             return "prefill"
         return "mma"
 
-    def __call__(self, x, core: str = None):
-        """x [M, K] bf16 -> [M, N] bf16 through :meth:`core`'s kernel, or
-        through ``core`` where given (``"mma"``: the first prefill kernel,
-        for comparisons on the same inputs)."""
+    def __call__(self, x):
+        """x [M, K] bf16 -> [M, N] bf16 through :meth:`core`'s kernel."""
         if (x.device != self.dev or x.dtype != torch.bfloat16
                 or x.dim() != 2 or x.stride(-1) != 1):
             _check(f"{self.source} x", x, torch.bfloat16, self.dev, 2)
@@ -195,12 +191,7 @@ class WeightStream:
         out = torch.empty((M, N), dtype=torch.bfloat16, device=self.dev)
         if M == 0 or N == 0:
             return out
-        auto = self.core(x)
-        if core is None:
-            core = auto
-        elif core != auto and not (core == "mma" and auto == "prefill"):
-            raise ValueError(f"{self.source}: core {core!r} does not take "
-                             f"this x (M = {M}; {auto!r} does)")
+        core = self.core(x)
         counters = (self.source, f"{self.source}_{core}")
         w_ptr, ldw, scale_ptr, bias_ptr = self.args
         if core == "prefill":

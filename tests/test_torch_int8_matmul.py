@@ -212,7 +212,6 @@ def test_prefill_plan_slice_shapes(shape):
     plan = ti8.prefill_plan(*shape, sms=132)
     assert (plan.bm, plan.splits, plan.k_tiles_per_split) == \
         SLICE_PLANS[shape]
-    assert plan.bn == ti8.PF_BN
 
 
 @pytest.mark.parametrize("M", [5, 8, 63, 64, 65, 128, 129, 267, 609, 4096])
@@ -228,7 +227,7 @@ def test_prefill_plan_invariants(M, K, N, sms):
     assert p.m_tiles == -(-M // 256)
     assert all(nt * p.m_tiles < M for nt in ti8.PF_NT if nt < p.bm)
     assert p.m_tiles * p.bm >= M > (p.m_tiles - 1) * p.bm
-    assert p.n_tiles * p.bn >= N > (p.n_tiles - 1) * p.bn
+    assert p.n_tiles * ti8.PF_BN >= N > (p.n_tiles - 1) * ti8.PF_BN
     assert p.k_tiles * ti8.PF_BK >= K > (p.k_tiles - 1) * ti8.PF_BK
     assert p.splits * p.k_tiles_per_split >= p.k_tiles
     assert (p.splits - 1) * p.k_tiles_per_split < p.k_tiles   # last: >= 1
