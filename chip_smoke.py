@@ -82,14 +82,15 @@ Phases, one or more lines each:
      understanding slice's win / wout / lm_head shapes at decode (M=1) and
      at the prefill's rows (267), win at the CLIP-ViT prefill's 609 rows,
      a ragged M=65 at lm_head's N=58498, int8 and int4 at the probes' [8,
-     2048] x [2048, 8192]; error within 2e-2 of the output's peak and a
+     2048] x [2048, 8192], and int4 at win's M=267 and M=609 and the
+     ragged lm_head M=65; error within 2e-2 of the output's peak and a
      planted fault (each column scaled by its neighbour's scale) that must
      fail it; median CUDA-event times of kernel, plain version,
      torch.matmul on dequantized bf16 weights (the library) and the eager
      dequantize + matmul, the same without the host (profiler device
-     time), the bound; int8 above M=4: the prefill kernel ran, its split-K
-     gives the same bits twice, and the first mma kernel is checked and
-     timed beside it on the same inputs
+     time), the bound; int8 and int4 above M=4: the source's prefill
+     kernel ran, its split-K gives the same bits twice, and the first mma
+     kernel is checked and timed beside it on the same inputs
   10. the discrete understanding slice, bf16 then int8 weights: per answer
      the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
      lm_head, prefill and 100 decode forwards: 49 on the prefill kernel,
@@ -201,12 +202,13 @@ WSMM_KERNELS = {
     "int4_matmul": "tools/probe_int4_decode.py:79 (kernel 10); "
                    "tools/probe_pallas_wsmm.py:123 (kernel 11b)",
 }
-# the int8 source's prefill kernel (M > 4, aligned rows:
+# each source's prefill kernel (M > 4, aligned rows:
 # csrc/weight_stream_prefill.cuh), which replaced its first mma kernel there
 PREFILL_KERNEL = "int8_matmul_prefill"
+INT4_PREFILL_KERNEL = "int4_matmul_prefill"
 # the per-core counters of the weight-streaming sources
 WSMM_CORES = ["int8_matmul_gemv", "int8_matmul_mma", PREFILL_KERNEL,
-              "int4_matmul_gemv", "int4_matmul_mma"]
+              "int4_matmul_gemv", "int4_matmul_mma", INT4_PREFILL_KERNEL]
 # kernel 6, the GQA-stacked packed attention: on no model path (the JAX
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
@@ -938,9 +940,9 @@ def _rotation(copies):
 
 @contextlib.contextmanager
 def _first_mma_kernel():
-    """The int8 wrapper with the first mma kernel in the prefill kernel's
-    place (its core choice patched), for measurements beside it on the
-    same inputs."""
+    """The int8 / int4 wrapper with the first mma kernel in the prefill
+    kernel's place (its core choice patched), for measurements beside it
+    on the same inputs."""
     from showo_tpu_torch.ops import int8_matmul as ti8
 
     choose = ti8.WeightStream.core
@@ -959,8 +961,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     times of kernel, plain version, ``torch.matmul`` on dequantized bf16
     weights (the library) and the eager dequantize-then-matmul, and the
     bound.  The weights rotate through copies that exceed the L2 twice, as
-    the layers of a decode step do (each reads other weights).  int8 above
-    the decode rows: the prefill kernel must be the one that ran, its
+    the layers of a decode step do (each reads other weights).  Above the
+    decode rows: the source's prefill kernel must be the one that ran, its
     split-K must give the same bits on two calls, and the first mma kernel
     (:func:`_first_mma_kernel`) is checked and timed beside it on the same
     inputs."""
@@ -983,13 +985,14 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     else:
         kern, plain = ti8.pallas_i8_matmul, ti8.i8_matmul_plain
         widen = lambda w: w.to(torch.bfloat16)
-    prefill = not int4 and M > ti8.GEMV_MAX_M
-    before = cuda_build.launches[PREFILL_KERNEL]
+    prefill = M > ti8.GEMV_MAX_M
+    counter = INT4_PREFILL_KERNEL if int4 else PREFILL_KERNEL
+    before = cuda_build.launches[counter]
     got, want = kern(x, ws[0], s), plain(x, ws[0], s)
     torch.cuda.synchronize()
-    if cuda_build.launches[PREFILL_KERNEL] - before != int(prefill):
-        raise AssertionError(f"{label}: the prefill kernel ran "
-                             f"{cuda_build.launches[PREFILL_KERNEL] - before}"
+    if cuda_build.launches[counter] - before != int(prefill):
+        raise AssertionError(f"{label}: {counter} ran "
+                             f"{cuda_build.launches[counter] - before}"
                              f" times, want {int(prefill)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: kernel output not finite")
@@ -997,7 +1000,7 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     err = (got.float() - want.float()).abs().max().item()
     extra = {}
     if prefill:
-        plan = ti8.prefill_plan(M, K, N, torch.cuda.get_device_properties(
+        plan = ti8.prefill_plan(M, rows, N, torch.cuda.get_device_properties(
             0).multi_processor_count)
         again = kern(x, ws[0], s)
         with _first_mma_kernel():
@@ -1076,24 +1079,31 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
     """Kernels 9-11 at the understanding slice's shapes: int8 ``win``,
     ``wout`` and ``lm_head`` at decode (M=1) and at the prefill's rows,
     ``win`` at the CLIP-ViT prefill's rows, a ragged M=65 at ``lm_head``'s
-    N, and both kernels at the probes' [8, 2048] x [2048, 8192].  Returns
-    {counter: {case: result}}; the int8 cases above M=4 (the prefill
-    kernel's) also under PREFILL_KERNEL."""
+    N, and both kernels at the probes' [8, 2048] x [2048, 8192]; int4 also
+    at ``win``'s prefill and CLIP-ViT rows and the ragged ``lm_head``
+    M=65.  Returns {counter: {case: result}}; the cases above M=4 also
+    under their source's prefill counter."""
     shapes = {"win": (2048, 14336), "wout": (10240, 2048),
               "lm_head": (2048, 58498)}
     cases = [(name, M, K, N) for name, (K, N) in shapes.items()
              for M in (1, prefill_rows)]
     cases += [("win", CLIP_PREFILL_ROWS, *shapes["win"]),
               ("lm_head", 65, *shapes["lm_head"]), ("probe", 8, 2048, 8192)]
-    out = {"int8_matmul": {}, "int4_matmul": {}, PREFILL_KERNEL: {}}
-    for seed, (name, M, K, N) in enumerate(cases, start=91):
-        label = f"{name} M={M}"
-        out["int8_matmul"][label] = _wsmm_case(
-            torch, cuda_build, label, M, K, N, False, seed)
-        if M > 4:
-            out[PREFILL_KERNEL][label] = out["int8_matmul"][label]
-    out["int4_matmul"]["probe M=8"] = _wsmm_case(
-        torch, cuda_build, "probe M=8", 8, 2048, 8192, True, 99)
+    int4_cases = [("probe", 8, 2048, 8192),
+                  ("win", prefill_rows, *shapes["win"]),
+                  ("win", CLIP_PREFILL_ROWS, *shapes["win"]),
+                  ("lm_head", 65, *shapes["lm_head"])]
+    out = {"int8_matmul": {}, "int4_matmul": {}, PREFILL_KERNEL: {},
+           INT4_PREFILL_KERNEL: {}}
+    for int4, source, prefill, seed0, todo in (
+            (False, "int8_matmul", PREFILL_KERNEL, 91, cases),
+            (True, "int4_matmul", INT4_PREFILL_KERNEL, 99, int4_cases)):
+        for seed, (name, M, K, N) in enumerate(todo, start=seed0):
+            label = f"{name} M={M}"
+            out[source][label] = _wsmm_case(
+                torch, cuda_build, label, M, K, N, int4, seed)
+            if M > 4:
+                out[prefill][label] = out[source][label]
     return out
 
 
@@ -1745,13 +1755,15 @@ def main() -> int:
                         if name == "int8_matmul" else 0,
                         **cases[case], "case": case, "cases": cases})
     case = f"win M={prefill_rows}"
-    kernels.append({"name": PREFILL_KERNEL, "route": "cuda",
-                    "source": "showo_tpu_torch/csrc/int8_matmul.cu (+ "
-                              "weight_stream_prefill.cuh)",
-                    "replaces": WSMM_KERNELS["int8_matmul"],
-                    "launches": mmu[1]["prefill_launches"],
-                    **wsmm[PREFILL_KERNEL][case], "case": case,
-                    "cases": wsmm[PREFILL_KERNEL]})
+    for name, source, launches in (
+            (PREFILL_KERNEL, "int8_matmul", mmu[1]["prefill_launches"]),
+            (INT4_PREFILL_KERNEL, "int4_matmul", 0)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{source}.cu (+ "
+                                  f"weight_stream_prefill.cuh)",
+                        "replaces": WSMM_KERNELS[source],
+                        "launches": launches, **wsmm[name][case],
+                        "case": case, "cases": wsmm[name]})
     qwen = V2_SHAPES[0][0]
     for name, source, replaces, which, launches in (
             ("omni_attention_packed_v2", "omni_attention_packed",

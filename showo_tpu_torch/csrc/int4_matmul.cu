@@ -13,9 +13,11 @@
 // of bf16 weights.  The tile code is weight_stream.cuh's (NIB = true):
 // one pass over a byte row feeds both halves of K, so each byte is read
 // once; the host re-lays nothing out (the Pallas wrappers concatenate x's
-// halves per block).
+// halves per block).  Above the decode rows, where x and w rows are
+// 16-byte aligned and K/2 is a multiple of 8, the prefill kernel of
+// weight_stream_prefill.cuh with the nibble layout.
 
-#include "weight_stream.cuh"
+#include "weight_stream_prefill.cuh"
 
 // Plain C entry point (bound with ctypes), as int8_matmul_bf16 with w_pk
 // [K/2, N] packed bytes with row stride ldw, and K even.
@@ -32,4 +34,20 @@ extern "C" int int4_matmul_bf16(
       static_cast<bf16*>(out), ldo, static_cast<float*>(part), splits, M,
       K / 2, N, K / 2, x_aligned, w_aligned16, w_aligned8,
       static_cast<cudaStream_t>(stream));
+}
+
+// The prefill kernel with the nibble layout (M > 4, x and w_pk rows
+// 16-byte aligned, K/2 a multiple of 8): tiles of nt x rows (one of 8, 16,
+// 32, 48, 64, 96, 128, 144, 176, 208, 256) by 128 weight columns over
+// `splits` ranges of the K/2 packed rows, part the fp32 workspace
+// [splits, M, N] when splits > 1 (ops/int8_matmul.py::prefill_plan on the
+// packed rows chooses them).  Returns the cudaError_t of the launches.
+extern "C" int int4_matmul_prefill_bf16(
+    const void* x, long long ldx, const void* w_pk, long long ldw,
+    const void* scale, const void* bias, void* out, long long ldo,
+    void* part, int splits, int M, int K, int N, int nt, void* stream) {
+  if (K % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return wsmm::launch_prefill<true>(x, ldx, w_pk, ldw, scale, bias, out,
+                                    ldo, part, splits, M, K / 2, N, nt,
+                                    stream);
 }

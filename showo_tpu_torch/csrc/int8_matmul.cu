@@ -45,25 +45,6 @@ extern "C" int int8_matmul_prefill_bf16(
     const void* x, long long ldx, const void* w, long long ldw,
     const void* scale, const void* bias, void* out, long long ldo,
     void* part, int splits, int M, int K, int N, int nt, void* stream) {
-  using wsmm::bf16;
-  if (!wsmm::prefill_args_ok(x, ldx, w, ldw, part, splits, M, K, N))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* wb = static_cast<const int8_t*>(w);
-  const auto* sb = static_cast<const bf16*>(scale);
-  const auto* bb = static_cast<const bf16*>(bias);
-  auto* ob = static_cast<bf16*>(out);
-  auto* pf = static_cast<float*>(part);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (nt) {
-#define WSMM_PREFILL(NT_)                                                   \
-  case NT_:                                                                 \
-    return wsmm::launch_prefill_t<NT_>(xb, ldx, wb, ldw, sb, bb, ob, ldo,   \
-                                       pf, splits, M, K, N, st);
-    WSMM_PREFILL(8) WSMM_PREFILL(16) WSMM_PREFILL(32) WSMM_PREFILL(48)
-    WSMM_PREFILL(64) WSMM_PREFILL(96) WSMM_PREFILL(128) WSMM_PREFILL(144)
-    WSMM_PREFILL(176) WSMM_PREFILL(208) WSMM_PREFILL(256)
-#undef WSMM_PREFILL
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wsmm::launch_prefill<false>(x, ldx, w, ldw, scale, bias, out, ldo,
+                                     part, splits, M, K, N, nt, stream);
 }

@@ -9,14 +9,21 @@ Counterpart of the Pallas ``pallas_nib_matmul`` of
 
 where byte ``w_pk[r, n]`` (w_pk [K/2, N] int8) holds weight row r in its
 low nibble (``lo``) and row K/2 + r in its high nibble (``hi``), both
-sign-extended.  ``csrc/int4_matmul.cu`` shares ``csrc/weight_stream.cuh``
-with the int8 kernel; only the unpack differs.  No model path of the JAX
+sign-extended.  ``csrc/int4_matmul.cu`` shares its kernels with the int8
+source (``ops/int8_matmul.py``'s three cores; only the unpack differs):
+the gemv of ``csrc/weight_stream.cuh`` for M <= 4; above, where x and
+w_pk rows are 16-byte aligned and K/2 is a multiple of 8, the wgmma
+prefill kernel of ``csrc/weight_stream_prefill.cuh`` with the nibble
+layout (one ``ldmatrix.trans`` of the packed bytes feeds the k16 steps
+of both halves; tiles and split-K from ``prefill_plan`` over the K/2
+packed rows); otherwise the first mma kernel.  No model path of the JAX
 package quantizes to int4: the kernel is ported as the int8 kernel's
-sibling, checked on the card at the probes' shape.
+sibling, checked on the card at the probes' and the slice's shapes.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.  ``cuda_build.launches["int4_matmul"]``
-counts kernel launches.
+counts products, ``launches["int4_matmul_<gemv|prefill|mma>"]`` the core
+that ran.
 """
 
 from __future__ import annotations

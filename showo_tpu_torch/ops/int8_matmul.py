@@ -14,18 +14,21 @@ matmul of a quantized Phi:
 weights once and widens them next to the multiply; eager PyTorch would
 write a bf16 copy of each weight per call and read it back (5 bytes moved
 per weight against the kernel's 1).  Three cores, each with its counter
-beside the source's (``launches["int8_matmul_<core>"]``):
+beside the source's (``launches["int8_matmul_<core>"]``; the int4 source
+of ``ops/int4_matmul.py`` has the same three, ``int4_matmul_<core>``):
 
 * ``gemv`` (M <= 4, decode): split-K CUDA-core dot products;
 * ``prefill`` (M > 4, x and w rows 16-byte aligned, as ``Int8Linear``
-  pads them): ``csrc/weight_stream_prefill.cuh``, wgmma with the weights
-  widened in registers as the A operand and x from shared memory, on a
-  cp.async ring of 64-row K tiles, with split-K; the tile width and the
-  split from :func:`prefill_plan`;
-* ``mma`` (M > 4, rows that are not 16-byte aligned): the first
-  ``mma.sync`` kernel of ``weight_stream.cuh``.
+  pads them; int4 also K/2 a multiple of 8):
+  ``csrc/weight_stream_prefill.cuh``, wgmma with the weights widened in
+  registers as the A operand and x from shared memory, on a cp.async ring
+  of 64-row K tiles, with split-K; the tile width and the split from
+  :func:`prefill_plan` (over the packed rows for int4);
+* ``mma`` (M > 4, rows that are not so aligned): the first ``mma.sync``
+  kernel of ``weight_stream.cuh``.
 
-The wrapper picks the core from M and the alignment before the launch.
+:func:`select_core` picks the core from M, K and the alignment before the
+launch.
 The scale is applied to the fp32 sum, as in ``_i8_kernel``; ``_wk``
 instead rounds ``w_i8 * scale`` to bf16 before the product, which is the
 one difference from the JAX model (tests state its tolerance).
@@ -127,6 +130,21 @@ def prefill_plan(M: int, K: int, N: int, sms: int) -> PrefillPlan:
     return PrefillPlan(bm, -(-k_tiles // per), per, m_tiles, n_tiles, k_tiles)
 
 
+def select_core(source: str, M: int, K: int, x_ptr: int, ldx: int,
+                w_aligned16: bool) -> str:
+    """The kernel of ``csrc/<source>.cu`` that x [M, K] (data pointer
+    ``x_ptr``, row stride ``ldx`` in elements) goes to: ``gemv`` for
+    M <= 4, else ``prefill`` where x rows and the w rows
+    (``w_aligned16``) are 16-byte aligned, and for int4 x's second half
+    (column K/2) too, else ``mma``."""
+    if M <= GEMV_MAX_M:
+        return "gemv"
+    aligned = x_ptr % 16 == 0 and ldx % 8 == 0 and w_aligned16
+    if source == "int4_matmul":
+        aligned = aligned and (K // 2) % 8 == 0
+    return "prefill" if aligned else "mma"
+
+
 def _check(name: str, t: torch.Tensor, dtype, dev, dims: int):
     if t.device != dev or t.dtype != dtype or t.dim() != dims:
         raise TypeError(f"{name}: the kernel takes a {dims}-D {dtype} tensor "
@@ -158,6 +176,7 @@ class WeightStream:
                 raise ValueError(f"{source}: {name} has {t.numel()} "
                                  f"entries, N = {N}")
         self.source, self.dev, self.K, self.N = source, dev, K, N
+        self.rows = rows
         self.k_half = K // 2 if source == "int4_matmul" else 0
         self.weights = (w, scale, bias)      # what the pointers point into
         self.args = (w.data_ptr(), w.stride(0), scale.data_ptr(),
@@ -166,18 +185,11 @@ class WeightStream:
                       int(w.data_ptr() % 8 == 0 and w.stride(0) % 8 == 0))
         self.sms = _sm_count(dev.index or 0)
         self.splits = gemv_splits(rows, N, self.sms)
-        # the prefill kernel takes int8 rows with 16-byte aligned x and w
-        self.prefill_w = source == "int8_matmul" and bool(self.flags[0])
 
     def core(self, x) -> str:
-        """The kernel that x [M, K] goes to: ``gemv`` for M <= 4, else
-        ``prefill`` where x and w rows are 16-byte aligned, else ``mma``."""
-        if x.shape[0] <= GEMV_MAX_M:
-            return "gemv"
-        if (self.prefill_w and x.data_ptr() % 16 == 0
-                and x.stride(0) % 8 == 0):
-            return "prefill"
-        return "mma"
+        """The kernel that x [M, K] goes to (:func:`select_core`)."""
+        return select_core(self.source, x.shape[0], self.K, x.data_ptr(),
+                           x.stride(0), bool(self.flags[0]))
 
     def __call__(self, x):
         """x [M, K] bf16 -> [M, N] bf16 through :meth:`core`'s kernel."""
@@ -195,7 +207,7 @@ class WeightStream:
         counters = (self.source, f"{self.source}_{core}")
         w_ptr, ldw, scale_ptr, bias_ptr = self.args
         if core == "prefill":
-            plan = prefill_plan(M, self.K, N, self.sms)
+            plan = prefill_plan(M, self.rows, N, self.sms)
             part = None
             if plan.splits > 1:
                 part = torch.empty((plan.splits, M, N), dtype=torch.float32,

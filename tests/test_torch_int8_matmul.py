@@ -11,9 +11,11 @@ sides sum exact bf16 products in fp32, in different orders, and round the
 scaled sum to bf16 once).  ``quantize_int8`` is bit-exact against JAX on
 every layout.  The card-only cases hold each CUDA kernel against its plain
 version at the slice's shapes within 2e-2 of the output's peak; above the
-decode rows they also check which core ran (``launches["int8_matmul_<core>"]``)
-and that split-K gives the same bits on two calls.  ``prefill_plan`` (the
-prefill kernel's tiles and split) is checked on the CPU.
+decode rows they also check which core ran (``launches["int8_matmul_<core>"]``,
+``launches["int4_matmul_<core>"]``) and that split-K gives the same bits
+on two calls.  ``prefill_plan`` (the prefill kernel's tiles and split, for
+int4 over the packed rows) and ``select_core`` (which kernel a product
+goes to, from shapes, strides and alignment) are checked on the CPU.
 """
 
 import importlib.util
@@ -234,6 +236,55 @@ def test_prefill_plan_invariants(M, K, N, sms):
     assert p.splits == 1 or p.m_tiles * p.n_tiles < sms
 
 
+# (M, K, N) of the int4 cases of chip_smoke.py phase 9: (x rows of a tile,
+# splits, K tiles per split) on 132 SMs, the K tiles counted over the
+# K / 2 packed rows
+INT4_PLANS = {
+    (267, 2048, 14336): (144, 1, 16),   # win at the discrete prefill
+    (609, 2048, 14336): (208, 1, 16),   # win at the CLIP-ViT prefill
+    (65, 2048, 58498): (96, 1, 16),     # lm_head, ragged rows
+    (8, 2048, 8192): (8, 4, 4),         # the probes: 64 tiles, 256 blocks
+}
+
+
+@pytest.mark.parametrize("shape", list(INT4_PLANS))
+def test_prefill_plan_int4_shapes(shape):
+    """The int4 prefill kernel's plans: prefill_plan over the packed rows,
+    each K tile 64 packed rows (128 weight rows in both halves)."""
+    M, K, N = shape
+    plan = ti8.prefill_plan(M, K // 2, N, sms=132)
+    assert (plan.bm, plan.splits, plan.k_tiles_per_split) == \
+        INT4_PLANS[shape]
+    assert plan.k_tiles == K // 2 // ti8.PF_BK
+
+
+# (source, M, K, x_ptr, ldx, w rows 16-byte aligned) -> core
+CORES = [
+    ("int8_matmul", 1, 2048, 0, 2048, True, "gemv"),
+    ("int8_matmul", 4, 2048, 16, 2048, False, "gemv"),
+    ("int8_matmul", 5, 2048, 0, 2048, True, "prefill"),
+    ("int8_matmul", 267, 2051, 6, 2051, True, "mma"),      # x[:, 3:]
+    ("int8_matmul", 267, 2048, 0, 2052, True, "mma"),      # row stride
+    ("int8_matmul", 267, 2048, 0, 2048, False, "mma"),     # w rows
+    ("int4_matmul", 3, 2048, 0, 2048, True, "gemv"),
+    ("int4_matmul", 8, 2048, 0, 2048, True, "prefill"),
+    ("int4_matmul", 267, 2048, 4096, 4096, True, "prefill"),
+    ("int4_matmul", 267, 2064, 0, 2064, True, "prefill"),  # K/2 = 1032
+    ("int4_matmul", 267, 2052, 0, 2056, True, "mma"),      # K/2 = 1026
+    ("int4_matmul", 65, 2048, 8, 2048, True, "mma"),       # x base
+    ("int4_matmul", 65, 2048, 0, 2048, False, "mma"),      # w rows
+]
+
+
+@pytest.mark.parametrize("source,M,K,x_ptr,ldx,w16,core", CORES)
+def test_select_core(source, M, K, x_ptr, ldx, w16, core):
+    """The core a product goes to, from M, K, x's base and row stride and
+    the w rows' alignment: gemv up to 4 rows, the prefill kernel above
+    where every row (int4: and x's second half) is 16-byte aligned, the
+    first mma kernel otherwise."""
+    assert ti8.select_core(source, M, K, x_ptr, ldx, w16) == core
+
+
 def test_gemv_splits():
     """The decode kernel's K split: ~8 blocks per SM over the 512-column
     tiles, at least 64 weight rows per slice."""
@@ -409,6 +460,70 @@ def test_int4_kernel_vs_plain_on_card(M):
     torch.cuda.synchronize()
     assert cuda_build.launches["int4_matmul"] == before + 1
     _check_card(got, ti4.nib_matmul_plain(x, w, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 65, 267])
+@pytest.mark.parametrize("N", [14336, 58498])
+def test_int4_prefill_kernel_vs_plain_on_card(M, N):
+    """The int4 prefill kernel (the nibble layout of the prefill core) at
+    K = 2048 with 16-byte aligned rows: the probes' rows, a ragged M = 65
+    and the discrete prefill's 267, at win's N and the vocabulary's ragged
+    58498 (rows padded to 16 bytes), with a bias; one launch of the
+    prefill core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w, s, b = _card(M, 2048, -(-N // 16) * 16, seed=M + 4 * N, nib=True)
+    w, s, b = w[:, :N], s[:, :N], b[:N]
+    names = ("int4_matmul", "int4_matmul_prefill", "int4_matmul_mma")
+    before = {n: cuda_build.launches[n] for n in names}
+    got = ti4.pallas_nib_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        "int4_matmul": 1, "int4_matmul_prefill": 1, "int4_matmul_mma": 0}
+    _check_card(got, ti4.nib_matmul_plain(x, w, s, b))
+
+
+@pytest.mark.cuda
+def test_int4_prefill_split_k_bit_stable_on_card():
+    """The probes' shape splits K over the packed rows; the fixed-order
+    finish gives the same bits on two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ti8.prefill_plan(8, 1024, 8192, sms).splits > 1
+    x, w, s, b = _card(8, 2048, 8192, seed=12, nib=True)
+    before = cuda_build.launches["int4_matmul_prefill"]
+    first = ti4.pallas_nib_matmul(x, w, s, b)
+    second = ti4.pallas_nib_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["int4_matmul_prefill"] == before + 2
+    assert torch.equal(first, second)
+    _check_card(first, ti4.nib_matmul_plain(x, w, s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["x columns", "odd half"])
+def test_int4_unaligned_rows_take_the_mma_core_on_card(view):
+    """Rows the prefill kernel does not take go to the first mma kernel:
+    x as a column slice at an odd offset, or K/2 = 1026 with x's rows
+    16-byte aligned (row stride 2056) but its second half not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if view == "x columns":
+        x, w, s, b = _card(65, 2051, 1008, seed=13, nib=True)
+        x = x[:, 3:]
+        w = w[:1024]
+    else:
+        x, w, s, b = _card(65, 2052, 1008, seed=14, nib=True)
+        x = torch.nn.functional.pad(x, (0, 4))[:, :2052]
+    names = ("int4_matmul_prefill", "int4_matmul_mma")
+    before = {n: cuda_build.launches[n] for n in names}
+    got = ti4.pallas_nib_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        "int4_matmul_prefill": 0, "int4_matmul_mma": 1}
+    _check_card(got, ti4.nib_matmul_plain(x, w, s, b))
 
 
 @pytest.mark.cuda
