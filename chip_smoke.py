@@ -73,10 +73,16 @@ Phases, one or more lines each:
   6b. kernel 8 vs plain as phase 6, on head-major views of [B, S, H, D]
      tensors (phi's layout) at the 512x512 fused batch (B=12, S=1408),
      a GQA case and the ragged case, with the same planted faults; the
-     count of the batch's rows that see no key; and, for the record,
-     kernel 7 at the same shape (past its budget) beside kernel 8
-  7b. the 512x512 training slice as phase 7: 48 / 24 / 24 launches of
-     kernel 8 per step, none of kernel 7 or of the inference kernels
+     count of the batch's rows that see no key; kernel 8's backward runs
+     on wgmma (csrc/attention_grad_sm90.cuh) after a tile map of the
+     metadata, which must equal its plain version byte for byte, and dq
+     and dk/dv must give the same bits over two launches; then kernel 7
+     at the same shape (past its budget) beside kernel 8, on the same
+     memory: its dq and dk/dv are the first backward kernels
+     (csrc/attention_grad.cuh), device times of both pairs
+  7b. the 512x512 training slice as phase 7: 48 / 24 / 24 / 24 launches of
+     kernel 8's forward, dq, dk/dv and tile map per step, none of kernel 7
+     or of the inference kernels; the step beside the last recorded one
   8b. the 512x512 training step parity as phase 8
   9. the weight-streaming matmuls (kernels 9-11) vs plain: int8 at the
      understanding slice's win / wout / lm_head shapes at decode (M=1) and
@@ -159,8 +165,10 @@ TRAIN512_LOSS_TOL, TRAIN512_GRAD_NORM_TOL = 1e-2, 1e-2
 NUM_LAYERS, TIMESTEPS, BATCH = 24, 16, 2
 P, H, D = 129, 32, 64            # text prefix rows, heads, head dim
 TRAIN_STEPS = 4
-# H100 SXM peaks (NVIDIA data sheet): device memory rate, dense bf16 rate
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, dense bf16 rate,
+# fp32 outside the tensor cores
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
+FP32_OPS_PER_S = 67e12
 
 # route -> (kernel source name, the TPU kernel it replaces)
 KERNELS = {
@@ -193,7 +201,14 @@ STREAM_TRAIN_KERNELS = {
         "showo_tpu/ops/streaming_attention_grad.py:104", NUM_LAYERS),
     "streaming_attention_grad_dkv": (
         "showo_tpu/ops/streaming_attention_grad.py:142", NUM_LAYERS),
+    # the backward's tile map: the Pallas kernels' block skip (_visible
+    # and jnp.any in _dq_kernel / _dkv_kernel, called from _bwd)
+    "streaming_attention_grad_tiles": (
+        "showo_tpu/ops/streaming_attention_grad.py:282", NUM_LAYERS),
 }
+# the 512x512 step before kernel 8's backward moved to wgmma (PERF.md §5,
+# the builder's card runs of the first kernels), printed beside phase 7b's
+STEP512_BEFORE = "1.07-1.08 s"
 # the weight-streaming matmuls (kernels 9-11), one source each: counter
 # name -> the Pallas kernels it replaces
 WSMM_KERNELS = {
@@ -293,29 +308,54 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, iters: int = 20) -> float:
+def _device_ms(torch, fn, iters: int = 20, attempts: int = 3):
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler: without the host's wrapper and launch time, which the
-    CUDA-event times of :func:`_time_ms` include."""
+    CUDA-event times of :func:`_time_ms` include.  Every call launches at
+    least one kernel, so a trace with fewer device events than calls lost
+    some of them (seen on an H100 in runs that had traced a training step
+    before): it is taken again, up to ``attempts`` times, and said so;
+    then None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == cuda)
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == cuda]
+        if len(kernels) >= iters:
+            us = sum(e.time_range.end - e.time_range.start for e in kernels)
+            return us / 1e3 / iters
+        print(f"[profiler] {len(kernels)} device events for {iters} calls: "
+              f"some were lost; profiling again")
+    print(f"[profiler] device events lost in {attempts} traces: not measured")
+    return None
 
 
-def _bound(bytes_moved: float, flops: float) -> dict:
+def _ms(x) -> str:
+    """A time for the log: 'not measured' for None."""
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _ratio(a, b) -> str:
+    return "not measured" if a is None or b is None else f"{a / b:.2f}x"
+
+
+def _rate(nbytes, ms) -> str:
+    return "not measured" if ms is None else f"{nbytes / ms / 1e6:.0f} GB/s"
+
+
+def _bound(bytes_moved: float, flops: float,
+           rate: float = BF16_FLOPS_PER_S) -> dict:
     """The least time of the work on an H100: the larger of its bytes over
-    the memory rate and its operations over the bf16 tensor-core rate."""
+    the memory rate and its operations over their peak ``rate`` (the bf16
+    tensor-core rate unless given)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -575,7 +615,7 @@ def _kernel_set(torch, kernel, hkv):
                tsag.streaming_trainable_dkv, tsag.trainable_fwd_plain,
                tsag.trainable_dq_plain, tsag.trainable_dkv_plain)
         ks = dict(
-            counters=list(STREAM_TRAIN_KERNELS), lse_empty=tsag.LSE_EMPTY,
+            counters=list(STREAM_TRAIN_KERNELS)[:3], lse_empty=tsag.LSE_EMPTY,
             tensor=lambda g, B, S, n: torch.randn(
                 B, S, n, D, generator=g, device="cuda").bfloat16()
             .transpose(1, 2),
@@ -590,10 +630,12 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
     """A trainable kernel set (kernel 7 or 8) against its plain versions at
     a training step's shape (``meta``, the metadata of the trainer's fused
     batch), a GQA case and a ragged S with rows that see no key; then the
-    planted faults.  Returns {counter name: result} of the first case."""
+    planted faults.  Kernel 8: its tile map against the plain one, and dq
+    and dk/dv bit-stable over two launches.  Returns {counter name:
+    result} of the first case."""
     import torch.nn.functional as F
 
-    from showo_tpu_torch.ops.streaming_attention_grad import self_visible
+    from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
     device = torch.device("cuda")
     g = torch.Generator(device=device).manual_seed(6 if kernel == 7 else 8)
@@ -604,7 +646,7 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
     for case, m, hkv in cases:
         ks = _kernel_set(torch, kernel, hkv)
         B, S = m[0].shape
-        vis = self_visible(*m)
+        vis = tsag.self_visible(*m)
         empty = int((~vis.any(-1)).sum())
         n_vis = int(vis.sum())
         shape = f"{case}: B={B} S={S} H={H} Hkv={hkv} D={D}"
@@ -621,6 +663,12 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                                  f"no visible key not marked")
         delta = ks["delta"](out, dout)
         args = (q, k, v, dout, lse, delta, *m)
+        # kernel 8's backward reads a tile map, made once per backward
+        bwd = {}
+        if kernel == 8:
+            bwd["tiles"], tiles_result = _tile_map_check(torch, m, shape,
+                                                         phase)
+            _bit_stable(torch, ks, args, bwd["tiles"], shape, phase)
         # bytes: each input read once and each output written once;
         # operations: 2*D per visible pair, head and product (forward 2
         # products, dq 3, dk/dv 4)
@@ -656,13 +704,14 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                        4 * D * H * n_vis), lib.get("fwd"), phase=phase),
             dq_name: _compare(
                 torch, f"trainable dq {shape}",
-                lambda: ks["dq"](*args), lambda: ks["dq_plain"](*args),
+                lambda: ks["dq"](*args, **bwd), lambda: ks["dq_plain"](*args),
                 _bound((3 * H + 2 * hkv) * tensor + 2 * rows_bytes
                        + meta_bytes, 6 * D * H * n_vis), lib.get("bwd"),
                 phase=phase, grads=True),
             dkv_name: _compare(
                 torch, f"trainable dk/dv {shape}",
-                lambda: ks["dkv"](*args), lambda: ks["dkv_plain"](*args),
+                lambda: ks["dkv"](*args, **bwd),
+                lambda: ks["dkv_plain"](*args),
                 _bound((2 * H + 4 * hkv) * tensor + 2 * rows_bytes
                        + meta_bytes, 8 * D * H * n_vis), lib.get("bwd"),
                 phase=phase, grads=True),
@@ -680,44 +729,102 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
             "dk/dv": (lambda v_, m_: ks["dkv_plain"](q, k, v_, *args[3:6],
                                                      *m_), True),
         }, v, ks["wrong_v"](v), m, phase)
+        if kernel == 8:
+            r[tsag.TILES_KERNEL] = tiles_result
         if kernel == 8 and case == label:
-            _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase)
+            old = _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv,
+                                          phase)
+            for name, part in ((dq_name, "dq"), (dkv_name, "dkv")):
+                r[name]["old_ms"] = old["kernel 7"][part]
         results.setdefault(case, r)
     return results[label]
 
 
+def _tile_map_check(torch, m, shape, phase):
+    """Kernel 8's tile map of metadata ``m`` against its plain version,
+    byte for byte, timed; returns (the map, its result)."""
+    from showo_tpu_torch.ops import streaming_attention_grad as tsag
+
+    tiles, want = tsag.tile_map(*m), tsag.tile_map_plain(*m)
+    torch.cuda.synchronize()
+    if not torch.equal(tiles, want):
+        raise AssertionError(f"{shape}: tile map differs from its plain "
+                             f"version in {int((tiles != want).sum())} "
+                             f"pairs")
+    B, S = m[0].shape
+    nt = tiles.shape[1]
+    classes = [int((tiles == c).sum()) for c in (0, 1, 3)]
+    # bytes: the metadata read once, the map written once; operations: the
+    # predicate's ~8 integer operations per (row, key) pair of the padded
+    # tiles, at the rate of the CUDA cores (no tensor-core type applies)
+    bound = _bound(4 * (2 * B * S + 2 * B) + B * nt * nt,
+                   8 * B * (nt * 64) ** 2, FP32_OPS_PER_S)
+    ms = _time_ms(torch, lambda: tsag.tile_map(*m))
+    plain_ms = _time_ms(torch, lambda: tsag.tile_map_plain(*m))
+    print(f"[{phase}] {shape}: tile map [{B}, {nt}, {nt}] equal to its plain "
+          f"version; pairs of 64-row tiles skipped / masked / all visible "
+          f"{classes[0]} / {classes[1]} / {classes[2]}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (median of 20); bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return tiles, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   **bound, "library_ms": None, "tile_classes": classes}
+
+
+def _bit_stable(torch, ks, args, tiles, shape, phase):
+    """Kernel 8's dq and dk/dv give the same bits over two launches (no
+    atomics, a fixed order of the sums)."""
+    runs = [(ks["dq"](*args, tiles=tiles), *ks["dkv"](*args, tiles=tiles))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{shape}: dq / dk / dv differ over two "
+                             f"launches")
+    print(f"[{phase}] {shape}: dq, dk and dv bit-identical over two launches")
+
+
 def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
-    """For the record: kernel 7 (the packed trainable kernels, past their
-    TPU budget here) on the same memory as kernel 8's head-major views,
-    each kernel and each autograd Function (forward + backward) timed."""
+    """Kernel 7 (the packed trainable kernels, past their TPU budget here)
+    on the same memory as kernel 8's head-major views: the forward is the
+    same kernel; dq and dk/dv are the first backward kernels
+    (attention_grad.cuh), kernel 8's the wgmma ones.  Each kernel and each
+    autograd Function (forward + backward) timed (CUDA events; kernel 8's
+    dq and dk/dv with their tile map made once).  Returns {"kernel 7" /
+    "kernel 8": {"dq", "dkv": ms}}."""
     from showo_tpu_torch.ops import packed_attention_grad as tpag
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
     k7, k8 = _kernel_set(torch, 7, hkv), _kernel_set(torch, 8, hkv)
     packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v, dout)]
     times, outs = {}, []
-    for name, ks, (q_, k_, v_, d_), fn in (
+    for name, ks, (q_, k_, v_, d_), fn, bwd in (
             ("kernel 7", k7, packed, lambda *t: tpag.PackedTrainableAttention
-             .apply(*t, *m, H, hkv, D ** -0.5)),
+             .apply(*t, *m, H, hkv, D ** -0.5), {}),
             ("kernel 8", k8, (q, k, v, dout), lambda *t: tsag
-             .StreamingTrainableAttention.apply(*t, *m, D ** -0.5))):
+             .StreamingTrainableAttention.apply(*t, *m, D ** -0.5),
+             {"tiles": tsag.tile_map(*m)})):
         out, lse = ks["fwd"](q_, k_, v_, *m)
         outs.append(out)
         a = (q_, k_, v_, d_, lse, ks["delta"](out, d_), *m)
         leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
         times[name] = [
             _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m)),
-            _time_ms(torch, lambda: ks["dq"](*a)),
-            _time_ms(torch, lambda: ks["dkv"](*a)),
+            _time_ms(torch, lambda: ks["dq"](*a, **bwd)),
+            _time_ms(torch, lambda: ks["dkv"](*a, **bwd)),
             _time_ms(torch, lambda: torch.autograd.grad(fn(*leaves), leaves,
                                                         d_))]
     same = torch.equal(outs[0], outs[1].transpose(1, 2).flatten(2))
-    print(f"[{phase}] for the record, the same shape and memory (kernel 7 "
-          f"is past its TPU budget here; nothing routes by this): "
+    pair = {n: {"dq": t[1], "dkv": t[2]} for n, t in times.items()}
+    old, new = (sum(pair[n].values()) for n in ("kernel 7", "kernel 8"))
+    print(f"[{phase}] the same shape and memory (kernel 7 is past its TPU "
+          f"budget here; nothing routes by this): "
           + "; ".join(f"{name} forward {t[0]:.4f}, dq {t[1]:.4f}, dk/dv "
                       f"{t[2]:.4f}, autograd Function forward + backward "
                       f"{t[3]:.4f} ms" for name, t in times.items())
-          + f" (medians of 20); outputs bit-identical: {same}")
+          + f" (medians of 20); forward outputs bit-identical: {same}")
+    print(f"[{phase}] backward pair, the same inputs: the first kernels "
+          f"(kernel 7's) dq + dk/dv {old:.4f} ms; kernel 8's wgmma kernels "
+          f"{new:.4f} ms ({old / new:.2f}x below)")
+    return pair
 
 
 def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
@@ -752,6 +859,8 @@ def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
     rows = sum(trainer.step_fn.sizes)
     last = metrics[-1]
     tokens = trainer.tc.max_seq_length + 3 + trainer.cfg.num_vq_tokens
+    before = (f" (last recorded before this backward: {STEP512_BEFORE})"
+              if label == "512x512" else "")
     print(f"[{phase}] training slice {label}, route trainable, {rows} rows "
           f"x {tokens} tokens, bf16 autocast, remat "
           f"{trainer.tc.remat}, clip {trainer.tc.max_grad_norm}: launches "
@@ -759,7 +868,7 @@ def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
           f"{[round(x, 4) for x in losses]}; "
           f"last step t2i {last['loss_t2i']:.4f} lm {last['loss_lm']:.4f} "
           f"mmu {last['loss_mmu']:.4f} grad_norm {last['grad_norm']:.4f}; "
-          f"step {wall:.4f} s (median of {TRAIN_STEPS}: "
+          f"step {wall:.4f} s{before} (median of {TRAIN_STEPS}: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
           f"{rows / wall:.2f} samples/s, peak memory allocated "
           f"{peak:.2f} GiB on {smi}")
@@ -1043,8 +1152,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
         extra.update({"old_ms": t["old"], "old_device_ms": dev_t["old"]})
         old_line = (f"; the first mma kernel on the same inputs: max_abs_err "
                     f"{extra['old_max_abs_err']:.3e}, {t['old']:.4f} ms, "
-                    f"device {dev_t['old']:.4f} ms ("
-                    f"{dev_t['old'] / dev_t['kernel']:.2f}x the prefill "
+                    f"device {_ms(dev_t['old'])} ("
+                    f"{_ratio(dev_t['old'], dev_t['kernel'])} the prefill "
                     f"kernel's); plan: {plan.m_tiles} x {plan.n_tiles} "
                     f"tiles of {plan.bm} x {ti8.PF_BN}, {plan.splits} K "
                     f"splits of "
@@ -1063,10 +1172,10 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
           f"{lib_ms:.4f} ms, eager dequantize + matmul {eager_ms:.4f} ms "
           f"(CUDA-event medians of 20, wrapper included; {n_copies} weight "
           f"copies in turn); device time alone (profiler, mean of 20): "
-          f"kernel {dev_t['kernel']:.4f} ms ("
-          f"{weight_bytes / dev_t['kernel'] / 1e6:.0f} GB/s of weights), "
-          f"library {dev_t['library']:.4f} ms, eager "
-          f"{dev_t['eager']:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"kernel {_ms(dev_t['kernel'])} ("
+          f"{_rate(weight_bytes, dev_t['kernel'])} of weights), library "
+          f"{_ms(dev_t['library'])}, eager {_ms(dev_t['eager'])}; bound "
+          f"{bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}){old_line}")
     return {"max_abs_err": err, "peak": peak, "ms": ms, "plain_ms": plain_ms,
             **bound, "library_ms": lib_ms, "eager_dequant_ms": eager_ms,
@@ -1219,8 +1328,8 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
     if int8:
         k = kernel_prefill
         print(f"[{phase}] {label}: the prefill forward alone ({rows} rows, "
-              f"prompt made once): device {k['device_ms']:.4f} ms with the "
-              f"prefill kernel, {k['old_device_ms']:.4f} ms with the first "
+              f"prompt made once): device {_ms(k['device_ms'])} with the "
+              f"prefill kernel, {_ms(k['old_device_ms'])} with the first "
               f"mma kernel in its place (profiler, mean of 5); wall "
               f"{k['wall_ms']:.2f} vs {k['old_wall_ms']:.2f} ms (medians of "
               f"5)")

@@ -9,11 +9,13 @@
 // VMEM budget (the v1 512x512 training rows, S=1408).  On the TPU they
 // differ from kernel 7 in their tiling: 256 x 512 blocks over a transposed
 // [D, S] layout, K/V streamed per block instead of held whole in VMEM, GQA
-// dk/dv summed outside the kernel.  On Hopper the function is kernel 7's,
-// so the three kernels of attention_grad.cuh run here with the strides of
-// the caller's head-major views (any [B, H, S, D] view whose last dim is
-// contiguous, e.g. phi's [B, S, H, D].transpose(1, 2), without a copy),
-// 64 x 64 tiles, and the GQA group summed in registers.
+// dk/dv summed outside the kernel.  On Hopper the function is kernel 7's:
+// the forward is attention_grad.cuh's fwd_kernel, and the backward runs on
+// wgmma (attention_grad_sm90.cuh: a tile map from the metadata, then dq
+// and dk/dv on a cp.async ring, no transposed copies), all with the
+// strides of the caller's head-major views (any [B, H, S, D] view whose
+// last dim is contiguous, e.g. phi's [B, S, H, D].transpose(1, 2), without
+// a copy), 64 x 64 tiles, and the GQA group summed in registers.
 //
 // What bounds it on an H100 at the v1 512x512 step (B=12, S=1408, H=32,
 // D=64, ~60% of the pairs visible): per layer the forward does ~1.5e11
@@ -28,7 +30,7 @@
 // tile with a row that sees a key, so there it averages v over that tile:
 // a result of its 512-wide tiling that 64-wide tiles cannot reproduce.)
 
-#include "attention_grad.cuh"
+#include "attention_grad_sm90.cuh"
 
 namespace {
 
@@ -40,8 +42,18 @@ constexpr float SENTINEL = 1e30f;  // lse of a row with no visible key
 // each tensor comes with its (batch, head, row) strides in elements and a
 // contiguous last dim of 64: q, out, dout, dq [B, H, S, 64], k, v, dk, dv
 // [B, Hkv, S, 64] (Hkv divides H); lse and delta contiguous fp32
-// [B, H, S]; metadata int32 seg / pad [B, S], last_pad / prefix [B].  Each
-// returns the cudaError_t of its launch (0 = launched) on ``stream``.
+// [B, H, S]; metadata int32 seg / pad [B, S], last_pad / prefix [B]; the
+// tile map uint8 [B, nt, nt], nt = ceil(S / 64).  Each returns the
+// cudaError_t of its launch (0 = launched) on ``stream``.
+
+// The tile map of the backward kernels (agrad90::tile_map_kernel).
+extern "C" int streaming_attention_grad_tiles(
+    const int* seg, const int* pad, const int* last_pad, const int* prefix,
+    unsigned char* tiles, int B, int S, void* stream) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return agrad90::launch_tile_map({seg, pad, last_pad, prefix}, B, S, tiles,
+                                  stream);
+}
 
 extern "C" int streaming_attention_grad_fwd_bf16(
     const void* q, const void* k, const void* v, void* out, float* lse,
@@ -64,7 +76,7 @@ extern "C" int streaming_attention_grad_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const int* seg,
     const int* pad, const int* last_pad, const int* prefix,
-    int B, int H, int Hkv, int S, int head_dim,
+    const unsigned char* tiles, int B, int H, int Hkv, int S, int head_dim,
     long long q_sb, long long q_sh, long long q_sr,
     long long k_sb, long long k_sh, long long k_sr,
     long long v_sb, long long v_sh, long long v_sr,
@@ -73,9 +85,9 @@ extern "C" int streaming_attention_grad_dq_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad::launch_dq(
-      q, k, v, dout, lse, delta, dq, {seg, pad, last_pad, prefix}, B, S, H,
-      Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr},
+  return agrad90::launch_dq<64>(
+      q, k, v, dout, lse, delta, dq, {seg, pad, last_pad, prefix}, tiles, B,
+      S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr},
       {d_sb, d_sh, d_sr}, {dq_sb, dq_sh, dq_sr}, sm_scale, stream);
 }
 
@@ -83,7 +95,7 @@ extern "C" int streaming_attention_grad_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
-    int B, int H, int Hkv, int S, int head_dim,
+    const unsigned char* tiles, int B, int H, int Hkv, int S, int head_dim,
     long long q_sb, long long q_sh, long long q_sr,
     long long k_sb, long long k_sh, long long k_sr,
     long long v_sb, long long v_sh, long long v_sr,
@@ -93,9 +105,9 @@ extern "C" int streaming_attention_grad_dkv_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad::launch_dkv(
-      q, k, v, dout, lse, delta, dk, dv, {seg, pad, last_pad, prefix}, B, S,
-      H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr},
-      {d_sb, d_sh, d_sr}, {dk_sb, dk_sh, dk_sr}, {dv_sb, dv_sh, dv_sr},
-      sm_scale, stream);
+  return agrad90::launch_dkv<64>(
+      q, k, v, dout, lse, delta, dk, dv, {seg, pad, last_pad, prefix}, tiles,
+      B, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+      {v_sb, v_sh, v_sr}, {d_sb, d_sh, d_sr}, {dk_sb, dk_sh, dk_sr},
+      {dv_sb, dv_sh, dv_sr}, sm_scale, stream);
 }

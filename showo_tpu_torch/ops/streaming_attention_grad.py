@@ -6,8 +6,13 @@ kernels ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel`` under a custom
 VJP), which the JAX dispatcher takes for every shape past the packed
 trainable budget (``packed_attention_grad.packed_trainable_fits``): the v1
 512x512 training rows (S=1408) among them.  The hand-written Hopper kernels
-are in ``csrc/streaming_attention_grad.cu`` (the kernels of
-``csrc/attention_grad.cuh``, which kernel 7 runs on the packed layout).
+are in ``csrc/streaming_attention_grad.cu``: the forward of
+``csrc/attention_grad.cuh`` (which kernel 7 runs on the packed layout),
+and the backward of ``csrc/attention_grad_sm90.cuh`` (wgmma on a cp.async
+ring, no transposed copies): a tile map from the O(S) metadata
+(:func:`tile_map`: per (q tile, k tile) pair of 64 rows, no visible
+entry / some / all), then dq and dk/dv, which fetch only the visible
+tiles and mask only those not all visible.
 
 Self-attention (Q == S) on head-major views: q [B, H, S, D], k and v
 [B, Hkv, S, D] (GQA: Hkv divides H), with the mask of
@@ -31,7 +36,8 @@ autograd hands back through them, go in without a copy; the outputs take
 the layout of the inputs they belong to.  The wrappers run the plain
 versions for CPU tensors only; for CUDA tensors they launch the kernels
 (bf16, head dim 64) or raise.  ``cuda_build.launches`` counts the launches
-under ``streaming_attention_grad_fwd``, ``_dq`` and ``_dkv``.
+under ``streaming_attention_grad_fwd``, ``_dq``, ``_dkv`` and ``_tiles``
+(once per backward, shared by dq and dk/dv).
 """
 
 from __future__ import annotations
@@ -51,14 +57,17 @@ from showo_tpu_torch.ops.streaming_attention import NEG_INF, streaming_softmax
 
 SOURCE = "streaming_attention_grad"
 KERNELS = tuple(f"{SOURCE}_{part}" for part in ("fwd", "dq", "dkv"))
+TILES_KERNEL = f"{SOURCE}_tiles"
+TILE = 64       # rows of a q or k tile of the backward kernels
 # lse of a row with no visible key (the JAX kernel's -NEG_INF)
 LSE_EMPTY = -NEG_INF
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _FWD_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F]
-_DQ_ARGS = [_P] * 11 + [_I] * 5 + [_L] * 15 + [_F]
-_DKV_ARGS = [_P] * 12 + [_I] * 5 + [_L] * 18 + [_F]
+_DQ_ARGS = [_P] * 12 + [_I] * 5 + [_L] * 15 + [_F]
+_DKV_ARGS = [_P] * 13 + [_I] * 5 + [_L] * 18 + [_F]
+_TILES_ARGS = [_P] * 5 + [_I] * 2
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +129,21 @@ def trainable_dkv_plain(q, k, v, dout, lse, delta, seg, pad, last_pad,
     dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), doh)
     return (dk.view(B, Hkv, -1, S, D).sum(dim=2).to(k.dtype),
             dv.view(B, Hkv, -1, S, D).sum(dim=2).to(v.dtype))
+
+
+def tile_map_plain(seg, pad, last_pad, prefix) -> torch.Tensor:
+    """uint8 [B, nt, nt] (nt = ceil(S / 64)): for each (q tile, k tile)
+    pair of 64 rows, 0 where no entry is visible, 1 where some are, 3
+    where all 64 x 64 are (rows and keys past S count as not visible)."""
+    B, S = seg.shape
+    nt = -(-S // TILE)
+    vis = torch.zeros((B, nt * TILE, nt * TILE), dtype=torch.bool,
+                      device=seg.device)
+    vis[:, :S, :S] = self_visible(seg, pad, last_pad, prefix)
+    blocks = vis.view(B, nt, TILE, nt, TILE)
+    some = blocks.any(dim=4).any(dim=2)
+    every = blocks.all(dim=4).all(dim=2)
+    return (some.to(torch.uint8) + 2 * every.to(torch.uint8))
 
 
 def attention_delta(out, dout) -> torch.Tensor:
@@ -192,42 +216,74 @@ def streaming_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
     return out, lse
 
 
+def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
+    """The backward kernels' tile map (:func:`tile_map_plain`): for CUDA
+    metadata (int32, as :func:`span_meta` returns it) the kernel of
+    ``csrc/attention_grad_sm90.cuh``, counted under ``TILES_KERNEL``."""
+    if _device(seg) == "cpu":
+        return tile_map_plain(seg, pad, last_pad, prefix)
+    B, S = seg.shape
+    for name, m, shape in (("seg", seg, (B, S)), ("pad", pad, (B, S)),
+                           ("last_pad", last_pad, (B,)),
+                           ("prefix", prefix, (B,))):
+        if (m.dtype != torch.int32 or tuple(m.shape) != shape
+                or not m.is_contiguous() or m.device != seg.device):
+            raise ValueError(f"{SOURCE}: {name} must be int32 contiguous "
+                             f"{shape} on {seg.device}")
+    nt = -(-S // TILE)
+    tiles = torch.empty((B, nt, nt), dtype=torch.uint8, device=seg.device)
+    cuda_build.launch(
+        SOURCE, "streaming_attention_grad_tiles", _TILES_ARGS, seg.device,
+        *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
+        tiles.data_ptr(), B, S, kernel=TILES_KERNEL)
+    return tiles
+
+
+def _tiles_of(tiles, meta):
+    """The tile map a backward kernel reads: ``tiles`` when the caller
+    made it (once for dq and dk/dv), else a new one."""
+    return tile_map(*meta) if tiles is None else tiles
+
+
 def streaming_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
-                           prefix, *, sm_scale: float):
-    """dq [B, H, S, D] in q's layout."""
+                           prefix, *, sm_scale: float, tiles=None):
+    """dq [B, H, S, D] in q's layout; ``tiles``: :func:`tile_map` of the
+    metadata, made here when not given."""
     if _device(q) == "cpu":
         return trainable_dq_plain(q, k, v, dout, lse, delta, seg, pad,
                                   last_pad, prefix, sm_scale=sm_scale)
     B, H, Hkv, S, D = _check(q, k, v, (lse, delta))
     _check_operands(SOURCE, {"q": q, "dout": dout}, 4)
+    tiles = _tiles_of(tiles, (seg, pad, last_pad, prefix))
     dq = torch.empty_like(q)
     cuda_build.launch(
         SOURCE, "streaming_attention_grad_dq_bf16", _DQ_ARGS, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, H, Hkv, S, D, *_strides(q, k, v, dout, dq), float(sm_scale),
-        kernel=KERNELS[1])
+        tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, dout, dq),
+        float(sm_scale), kernel=KERNELS[1])
     return dq
 
 
 def streaming_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
-                            prefix, *, sm_scale: float):
+                            prefix, *, sm_scale: float, tiles=None):
     """(dk, dv) [B, Hkv, S, D] in k's and v's layouts, each GQA group
-    summed."""
+    summed; ``tiles`` as for :func:`streaming_trainable_dq`."""
     if _device(q) == "cpu":
         return trainable_dkv_plain(q, k, v, dout, lse, delta, seg, pad,
                                    last_pad, prefix, sm_scale=sm_scale)
     B, H, Hkv, S, D = _check(q, k, v, (lse, delta))
     _check_operands(SOURCE, {"q": q, "dout": dout}, 4)
+    tiles = _tiles_of(tiles, (seg, pad, last_pad, prefix))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     cuda_build.launch(
         SOURCE, "streaming_attention_grad_dkv_bf16", _DKV_ARGS, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, H, Hkv, S, D, *_strides(q, k, v, dout, dk, dv), float(sm_scale),
-        kernel=KERNELS[2])
+        tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, dout, dk, dv),
+        float(sm_scale), kernel=KERNELS[2])
     return dk, dv
 
 
@@ -253,6 +309,8 @@ class StreamingTrainableAttention(torch.autograd.Function):
             dout = _kernel_view(dout)
         delta = attention_delta(out, dout)
         kw = dict(sm_scale=ctx.sm_scale)
+        if dout.is_cuda:
+            kw["tiles"] = tile_map(*meta)
         dq = streaming_trainable_dq(q, k, v, dout, lse, delta, *meta, **kw)
         dk, dv = streaming_trainable_dkv(q, k, v, dout, lse, delta, *meta,
                                          **kw)

@@ -4,8 +4,9 @@
 interpret mode with small blocks), on the cases of
 tests/test_streaming_attention_grad.py: a v1 t2i mask over many blocks
 (MHA), v2 spans with grouped kv heads (GQA), and a ragged causal S over
-many blocks; then rows that see no key, and the packed dispatcher past its
-budget.
+many blocks; then rows that see no key, the packed dispatcher past its
+budget, and the backward kernels' tile map (``tile_map_plain``) against
+the block visibility of the Pallas kernels (``_visible``).
 
 Inputs are made with numpy from a seed.  fp32 on the CPU at atol/rtol
 1e-5 (out, lse, dq, dk, dv): both sides take exact fp32 products and
@@ -14,7 +15,8 @@ compared only where the two packages mean the same thing (see
 test_rows_without_keys).  The card-only cases hold the kernels to the
 plain versions in bf16 as chip_smoke.py does: out and lse to a max abs
 error of 2e-2, the gradients to a relative norm error ||kernel - plain|| /
-||plain|| of 1e-2.
+||plain|| of 1e-2; the tile map kernel to its plain version exactly, and
+the backward kernels to the same bits over two launches.
 """
 
 from unittest import mock
@@ -222,6 +224,65 @@ def test_packed_dispatcher_past_the_budget_vs_jax(Hkv):
                                    err_msg=f"d{name}")
 
 
+def _tile_meta(kind):
+    """[seg, pad, last_pad, prefix] int32 numpy metadata over several
+    64-row tiles: ``ragged`` (an image span, left pads, rows 6..9 see no
+    key), ``t2i`` (JAX's predict-next metadata of two left-padded t2i
+    rows), ``prefix`` (a bidirectional prefix of 70 and a second span)."""
+    if kind == "ragged":
+        B, S = 2, 200
+        seg = np.zeros((B, S), np.int32)
+        seg[:, 40:150] = 1
+        pad = np.zeros((B, S), np.int32)
+        pad[:, :10] = 1
+        return [seg, pad, np.full((B,), 5, np.int32), np.zeros((B,), np.int32)]
+    if kind == "t2i":
+        rng = np.random.default_rng(2)
+        seq = np.asarray([[PAD] * p + rng.integers(5, 800, size=40 - p)
+                          .tolist() + [SOI] + rng.integers(5, 800, size=150)
+                          .tolist() + [EOI] for p in (0, 13)])
+        meta = jfa.metadata_predict_next(jnp.asarray(seq), PAD, SOI, EOI)
+        return [np.array(m, np.int32) for m in meta]
+    B, S = 2, 260
+    seg = np.zeros((B, S), np.int32)
+    seg[0, 100:230] = 2
+    seg[1, 64:128] = 1
+    return [seg, np.zeros((B, S), np.int32), np.full((B,), -1, np.int32),
+            np.asarray([70, 0], np.int32)]
+
+
+@pytest.mark.parametrize("kind", ["ragged", "t2i", "prefix"])
+def test_tile_map_vs_pallas_block_visibility(kind):
+    """The backward kernels' tile map: for each (q tile, k tile) pair of
+    64 rows, whether any / every entry is visible, against the Pallas
+    kernels' own block predicate (``_visible``, which also masks keys
+    past S) with the q rows past S left out."""
+    meta = _tile_meta(kind)
+    seg, pad, last_pad, prefix = meta
+    B, S = seg.shape
+    nt = -(-S // 64)
+    got = tsag.tile_map(*(torch.as_tensor(m) for m in meta))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (B, nt, nt)
+    padded = [np.pad(m, ((0, 0), (0, nt * 64 - S))) for m in (seg, pad)]
+    want = np.zeros((B, nt, nt), np.uint8)
+    for b in range(B):
+        for i in range(nt):
+            rows = i * 64 + np.arange(64, dtype=np.int32)
+            for j in range(nt):
+                vis = np.asarray(jsag._visible(
+                    jnp.asarray(rows), jnp.asarray(padded[0][b, i * 64:][:64]),
+                    jnp.asarray(padded[0][b, j * 64:][:64]),
+                    jnp.asarray(padded[1][b, j * 64:][:64]),
+                    int(last_pad[b]), int(prefix[b]), j, 64, 64, S))
+                vis = vis & (rows < S)[:, None]
+                want[b, i, j] = int(vis.any()) + 2 * int(vis.all())
+    np.testing.assert_array_equal(got.numpy(), want)
+    # every class occurs (t2i: each q tile holds image rows, which see the
+    # whole image span, so no pair is skipped)
+    assert set(np.unique(want).tolist()) == (
+        {1, 3} if kind == "t2i" else {0, 1, 3})
+
+
 def test_self_attention_only_and_other_devices_raise():
     q = torch.zeros((1, 2, 6, 8))
     k = torch.zeros((1, 2, 8, 8))
@@ -299,9 +360,11 @@ def test_kernels_vs_plain_on_card(H, Hkv, S):
 @pytest.mark.cuda
 def test_dispatcher_on_card_runs_kernel_7s_arithmetic():
     """Past the (patched) budget the dispatcher's forward and backward go
-    through kernel 8 on head-major views of the packed tensors: the same
-    tile arithmetic as kernel 7 on the same memory, so the results are
-    bit-identical to kernel 7's, with kernel 8's launches counted."""
+    through kernel 8 on head-major views of the packed tensors, with
+    kernel 8's launches counted: the forward is kernel 7's tile arithmetic
+    on the same memory, so bit-identical to kernel 7's; the backward is
+    kernel 8's wgmma kernels, which sum in another order, so its
+    gradients are held to kernel 7's at the relative norm of 1e-2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -319,12 +382,14 @@ def test_dispatcher_on_card_runs_kernel_7s_arithmetic():
                 *leaves, *meta, num_heads=H, num_kv_heads=Hkv)
             out.float().square().sum().backward()
         torch.cuda.synchronize()
-        kernels = tsag.KERNELS if budget == 0 else tpag.KERNELS
+        kernels = (tsag.KERNELS + (tsag.TILES_KERNEL,) if budget == 0
+                   else tpag.KERNELS)
         assert {n: cuda_build.launches[n] - before.get(n, 0)
                 for n in kernels} == {n: 1 for n in kernels}
         results.append([out.detach()] + [t.grad for t in leaves])
-    for a, b in zip(*results):
-        assert torch.equal(a, b)
+    assert torch.equal(results[0][0], results[1][0])
+    for a, b, name in zip(results[0][1:], results[1][1:], "qkv"):
+        _close(b, a, f"d{name}", grads=True)
 
 
 @pytest.mark.cuda
@@ -342,3 +407,62 @@ def test_kernels_refuse_what_they_do_not_take():
     wide = torch.zeros((1, 2, 200, 128), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tsag.streaming_trainable_fwd(wide, wide, wide, *meta, sm_scale=0.1)
+
+
+def _backward(q, k, v, dout, meta, kw):
+    """(dq, dk, dv) of the kernels on one tile map, and the launches of
+    the tile map, dq and dk/dv kernels they made."""
+    names = (tsag.TILES_KERNEL,) + tsag.KERNELS[1:]
+    before = {n: cuda_build.launches[n] for n in names}
+    out, lse = tsag.streaming_trainable_fwd(q, k, v, *meta, **kw)
+    delta = tsag.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, *meta)
+    tiles = tsag.tile_map(*meta)
+    dq = tsag.streaming_trainable_dq(*args, **kw, tiles=tiles)
+    dk, dv = tsag.streaming_trainable_dkv(*args, **kw, tiles=tiles)
+    torch.cuda.synchronize()
+    return (dq, dk, dv), args, {n: cuda_build.launches[n] - before[n]
+                                for n in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,S", [(32, 32, 1408), (32, 8, 1408),
+                                     (8, 8, 200)])
+def test_backward_kernels_vs_plain_on_card(H, Hkv, S):
+    """The wgmma dq and dk/dv kernels at the 512x512 step's S, MHA and GQA
+    32/8, and a ragged S: against the plain versions, rows with no
+    visible key (6..9) get dq = 0, and two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    B = 2
+    g = torch.Generator(device=dev).manual_seed(H + Hkv + S)
+    meta = _ragged(dev, B, S)
+    q, k, v, dout = (_views(dev, B, S, n, g) for n in (H, Hkv, Hkv, H))
+    kw = dict(sm_scale=64 ** -0.5)
+    first, args, launches = _backward(q, k, v, dout, meta, kw)
+    assert launches == {n: 1 for n in launches}
+    second, _, _ = _backward(q, k, v, dout, meta, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    dq, dk, dv = first
+    assert dq.stride() == q.stride() and dv.stride() == v.stride()
+    assert (dq[:, :, 6:10] == 0).all()
+    _close(dq, tsag.trainable_dq_plain(*args, **kw), "dq", grads=True)
+    p_dk, p_dv = tsag.trainable_dkv_plain(*args, **kw)
+    _close(dk, p_dk, "dk", grads=True)
+    _close(dv, p_dv, "dv", grads=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "t2i", "prefix"])
+def test_tile_map_kernel_on_card(kind):
+    """The tile map kernel equals its plain version, byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    meta = [torch.as_tensor(m, device="cuda") for m in _tile_meta(kind)]
+    before = cuda_build.launches[tsag.TILES_KERNEL]
+    got = tsag.tile_map(*meta)
+    torch.cuda.synchronize()
+    assert cuda_build.launches[tsag.TILES_KERNEL] == before + 1
+    assert torch.equal(got, tsag.tile_map_plain(*meta))
