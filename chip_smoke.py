@@ -206,8 +206,8 @@ STREAM_TRAIN_KERNELS = {
     "streaming_attention_grad_tiles": (
         "showo_tpu/ops/streaming_attention_grad.py:282", NUM_LAYERS),
 }
-# the 512x512 step before kernel 8's backward moved to wgmma (PERF.md §5,
-# the builder's card runs of the first kernels), printed beside phase 7b's
+# the 512x512 step with the first backward kernels of kernel 8 (PERF.md §5,
+# H100 80GB HBM3 at 700 W), printed beside phase 7b's
 STEP512_BEFORE = "1.07-1.08 s"
 # the weight-streaming matmuls (kernels 9-11), one source each: counter
 # name -> the Pallas kernels it replaces

@@ -239,12 +239,6 @@ def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
     return tiles
 
 
-def _tiles_of(tiles, meta):
-    """The tile map a backward kernel reads: ``tiles`` when the caller
-    made it (once for dq and dk/dv), else a new one."""
-    return tile_map(*meta) if tiles is None else tiles
-
-
 def streaming_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
                            prefix, *, sm_scale: float, tiles=None):
     """dq [B, H, S, D] in q's layout; ``tiles``: :func:`tile_map` of the
@@ -254,7 +248,8 @@ def streaming_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
                                   last_pad, prefix, sm_scale=sm_scale)
     B, H, Hkv, S, D = _check(q, k, v, (lse, delta))
     _check_operands(SOURCE, {"q": q, "dout": dout}, 4)
-    tiles = _tiles_of(tiles, (seg, pad, last_pad, prefix))
+    if tiles is None:
+        tiles = tile_map(seg, pad, last_pad, prefix)
     dq = torch.empty_like(q)
     cuda_build.launch(
         SOURCE, "streaming_attention_grad_dq_bf16", _DQ_ARGS, q.device,
@@ -275,7 +270,8 @@ def streaming_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
                                    last_pad, prefix, sm_scale=sm_scale)
     B, H, Hkv, S, D = _check(q, k, v, (lse, delta))
     _check_operands(SOURCE, {"q": q, "dout": dout}, 4)
-    tiles = _tiles_of(tiles, (seg, pad, last_pad, prefix))
+    if tiles is None:
+        tiles = tile_map(seg, pad, last_pad, prefix)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     cuda_build.launch(
         SOURCE, "streaming_attention_grad_dkv_bf16", _DKV_ARGS, q.device,

@@ -205,12 +205,19 @@ SLICE_PLANS = {
     (267, 2048, 58498): (144, 1, 32),   # lm_head: 458 N tiles
     (609, 2048, 14336): (208, 1, 32),   # win at the CLIP-ViT prefill
     (8, 2048, 8192): (8, 4, 8),         # the probes: 64 tiles, 256 blocks
+    # int4 (chip_smoke.py phase 9): K counts the 1024 packed rows of
+    # K = 2048, each K tile 64 packed rows (128 weight rows)
+    (267, 1024, 14336): (144, 1, 16),
+    (609, 1024, 14336): (208, 1, 16),
+    (65, 1024, 58498): (96, 1, 16),     # lm_head, ragged rows
+    (8, 1024, 8192): (8, 4, 4),
 }
 
 
 @pytest.mark.parametrize("shape", list(SLICE_PLANS))
 def test_prefill_plan_slice_shapes(shape):
-    """The prefill kernel's plans at the slice's and the probes' shapes."""
+    """The prefill kernel's plans at the slice's and the probes' shapes,
+    int8 and int4."""
     plan = ti8.prefill_plan(*shape, sms=132)
     assert (plan.bm, plan.splits, plan.k_tiles_per_split) == \
         SLICE_PLANS[shape]
@@ -234,28 +241,6 @@ def test_prefill_plan_invariants(M, K, N, sms):
     assert p.splits * p.k_tiles_per_split >= p.k_tiles
     assert (p.splits - 1) * p.k_tiles_per_split < p.k_tiles   # last: >= 1
     assert p.splits == 1 or p.m_tiles * p.n_tiles < sms
-
-
-# (M, K, N) of the int4 cases of chip_smoke.py phase 9: (x rows of a tile,
-# splits, K tiles per split) on 132 SMs, the K tiles counted over the
-# K / 2 packed rows
-INT4_PLANS = {
-    (267, 2048, 14336): (144, 1, 16),   # win at the discrete prefill
-    (609, 2048, 14336): (208, 1, 16),   # win at the CLIP-ViT prefill
-    (65, 2048, 58498): (96, 1, 16),     # lm_head, ragged rows
-    (8, 2048, 8192): (8, 4, 4),         # the probes: 64 tiles, 256 blocks
-}
-
-
-@pytest.mark.parametrize("shape", list(INT4_PLANS))
-def test_prefill_plan_int4_shapes(shape):
-    """The int4 prefill kernel's plans: prefill_plan over the packed rows,
-    each K tile 64 packed rows (128 weight rows in both halves)."""
-    M, K, N = shape
-    plan = ti8.prefill_plan(M, K // 2, N, sms=132)
-    assert (plan.bm, plan.splits, plan.k_tiles_per_split) == \
-        INT4_PLANS[shape]
-    assert plan.k_tiles == K // 2 // ti8.PF_BK
 
 
 # (source, M, K, x_ptr, ldx, w rows 16-byte aligned) -> core
