@@ -73,16 +73,17 @@ Phases, one or more lines each:
   6b. kernel 8 vs plain as phase 6, on head-major views of [B, S, H, D]
      tensors (phi's layout) at the 512x512 fused batch (B=12, S=1408),
      a GQA case and the ragged case, with the same planted faults; the
-     count of the batch's rows that see no key; kernel 8's backward runs
-     on wgmma (csrc/attention_grad_sm90.cuh) after a tile map of the
-     metadata, which must equal its plain version byte for byte, and dq
-     and dk/dv must give the same bits over two launches; then kernel 7
-     at the same shape (past its budget) beside kernel 8, on the same
-     memory: its dq and dk/dv are the first backward kernels
-     (csrc/attention_grad.cuh), device times of both pairs
-  7b. the 512x512 training slice as phase 7: 48 / 24 / 24 / 24 launches of
-     kernel 8's forward, dq, dk/dv and tile map per step, none of kernel 7
-     or of the inference kernels; the step beside the last recorded one
+     count of the batch's rows that see no key; kernel 8 runs on wgmma
+     after a tile map of the metadata, which must equal its plain version
+     byte for byte: the forward on csrc/attention_fwd_sm90.cuh, dq and
+     dk/dv on csrc/attention_grad_sm90.cuh, each giving the same bits over
+     two launches; then kernel 7 at the same shape (past its budget)
+     beside kernel 8, on the same memory: its forward, dq and dk/dv are
+     the first kernels (csrc/attention_grad.cuh), times of both sets
+  7b. the 512x512 training slice as phase 7: 48 / 24 / 24 / 48 launches of
+     kernel 8's forward, dq, dk/dv and tile map per step (the forward makes
+     the map, the backward reads it again), none of kernel 7 or of the
+     inference kernels; the step beside the last recorded one
   8b. the 512x512 training step parity as phase 8
   9. the weight-streaming matmuls (kernels 9-11) vs plain: int8 at the
      understanding slice's win / wout / lm_head shapes at decode (M=1) and
@@ -201,14 +202,15 @@ STREAM_TRAIN_KERNELS = {
         "showo_tpu/ops/streaming_attention_grad.py:104", NUM_LAYERS),
     "streaming_attention_grad_dkv": (
         "showo_tpu/ops/streaming_attention_grad.py:142", NUM_LAYERS),
-    # the backward's tile map: the Pallas kernels' block skip (_visible
-    # and jnp.any in _dq_kernel / _dkv_kernel, called from _bwd)
+    # the tile map, made by each forward and read again by its backward:
+    # the Pallas kernels' block skip (_visible and jnp.any in _fwd_kernel,
+    # _dq_kernel and _dkv_kernel, called from _fwd and _bwd)
     "streaming_attention_grad_tiles": (
-        "showo_tpu/ops/streaming_attention_grad.py:282", NUM_LAYERS),
+        "showo_tpu/ops/streaming_attention_grad.py:282", 2 * NUM_LAYERS),
 }
-# the 512x512 step with the first backward kernels of kernel 8 (PERF.md §5,
+# the 512x512 step with the first forward kernel of kernel 8 (PERF.md §5,
 # H100 80GB HBM3 at 700 W), printed beside phase 7b's
-STEP512_BEFORE = "1.07-1.08 s"
+STEP512_BEFORE = "0.94-0.95 s"
 # the weight-streaming matmuls (kernels 9-11), one source each: counter
 # name -> the Pallas kernels it replaces
 WSMM_KERNELS = {
@@ -630,9 +632,9 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
     """A trainable kernel set (kernel 7 or 8) against its plain versions at
     a training step's shape (``meta``, the metadata of the trainer's fused
     batch), a GQA case and a ragged S with rows that see no key; then the
-    planted faults.  Kernel 8: its tile map against the plain one, and dq
-    and dk/dv bit-stable over two launches.  Returns {counter name:
-    result} of the first case."""
+    planted faults.  Kernel 8: its tile map against the plain one, and the
+    forward, dq and dk/dv bit-stable over two launches.  Returns {counter
+    name: result} of the first case."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
@@ -655,7 +657,12 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                   f"that see no key; {n_vis} visible (row, key) pairs of "
                   f"{B * S * S} ({n_vis / (B * S * S):.4f})")
         q, k, v, dout = (ks["tensor"](g, B, S, n) for n in (H, hkv, hkv, H))
-        out, lse = ks["fwd"](q, k, v, *m)
+        # kernel 8's kernels read a tile map, made once per forward
+        bwd = {}
+        if kernel == 8:
+            bwd["tiles"], tiles_result = _tile_map_check(torch, m, shape,
+                                                         phase)
+        out, lse = ks["fwd"](q, k, v, *m, **bwd)
         lse_err = (lse - ks["fwd_plain"](q, k, v, *m)[1]).abs().max().item()
         if not lse_err <= CARD_TOL or (
                 (lse == ks["lse_empty"]).sum() != empty * H):
@@ -663,11 +670,7 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                                  f"no visible key not marked")
         delta = ks["delta"](out, dout)
         args = (q, k, v, dout, lse, delta, *m)
-        # kernel 8's backward reads a tile map, made once per backward
-        bwd = {}
         if kernel == 8:
-            bwd["tiles"], tiles_result = _tile_map_check(torch, m, shape,
-                                                         phase)
             _bit_stable(torch, ks, args, bwd["tiles"], shape, phase)
         # bytes: each input read once and each output written once;
         # operations: 2*D per visible pair, head and product (forward 2
@@ -698,7 +701,7 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
         r = {
             fwd_name: _compare(
                 torch, f"trainable forward {shape}",
-                lambda: ks["fwd"](q, k, v, *m)[0],
+                lambda: ks["fwd"](q, k, v, *m, **bwd)[0],
                 lambda: ks["fwd_plain"](q, k, v, *m)[0],
                 _bound((2 * H + 2 * hkv) * tensor + rows_bytes + meta_bytes,
                        4 * D * H * n_vis), lib.get("fwd"), phase=phase),
@@ -734,7 +737,8 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
         if kernel == 8 and case == label:
             old = _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv,
                                           phase)
-            for name, part in ((dq_name, "dq"), (dkv_name, "dkv")):
+            for name, part in ((fwd_name, "fwd"), (dq_name, "dq"),
+                               (dkv_name, "dkv")):
                 r[name]["old_ms"] = old["kernel 7"][part]
         results.setdefault(case, r)
     return results[label]
@@ -771,25 +775,27 @@ def _tile_map_check(torch, m, shape, phase):
 
 
 def _bit_stable(torch, ks, args, tiles, shape, phase):
-    """Kernel 8's dq and dk/dv give the same bits over two launches (no
-    atomics, a fixed order of the sums)."""
-    runs = [(ks["dq"](*args, tiles=tiles), *ks["dkv"](*args, tiles=tiles))
+    """Kernel 8's forward, dq and dk/dv give the same bits over two
+    launches (no atomics, a fixed order of the sums)."""
+    q, k, v, m = *args[:3], args[6:]
+    runs = [(*ks["fwd"](q, k, v, *m, tiles=tiles),
+             ks["dq"](*args, tiles=tiles), *ks["dkv"](*args, tiles=tiles))
             for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError(f"{shape}: dq / dk / dv differ over two "
-                             f"launches")
-    print(f"[{phase}] {shape}: dq, dk and dv bit-identical over two launches")
+        raise AssertionError(f"{shape}: out / lse / dq / dk / dv differ "
+                             f"over two launches")
+    print(f"[{phase}] {shape}: out, lse, dq, dk and dv bit-identical over "
+          f"two launches")
 
 
 def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
     """Kernel 7 (the packed trainable kernels, past their TPU budget here)
-    on the same memory as kernel 8's head-major views: the forward is the
-    same kernel; dq and dk/dv are the first backward kernels
-    (attention_grad.cuh), kernel 8's the wgmma ones.  Each kernel and each
-    autograd Function (forward + backward) timed (CUDA events; kernel 8's
-    dq and dk/dv with their tile map made once).  Returns {"kernel 7" /
-    "kernel 8": {"dq", "dkv": ms}}."""
+    on the same memory as kernel 8's head-major views: its forward, dq and
+    dk/dv are the first kernels (attention_grad.cuh), kernel 8's the wgmma
+    ones.  Each kernel and each autograd Function (forward + backward)
+    timed (CUDA events; kernel 8's kernels with their tile map made
+    once).  Returns {"kernel 7" / "kernel 8": {"fwd", "dq", "dkv": ms}}."""
     from showo_tpu_torch.ops import packed_attention_grad as tpag
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
@@ -802,28 +808,39 @@ def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
             ("kernel 8", k8, (q, k, v, dout), lambda *t: tsag
              .StreamingTrainableAttention.apply(*t, *m, D ** -0.5),
              {"tiles": tsag.tile_map(*m)})):
-        out, lse = ks["fwd"](q_, k_, v_, *m)
+        out, lse = ks["fwd"](q_, k_, v_, *m, **bwd)
         outs.append(out)
         a = (q_, k_, v_, d_, lse, ks["delta"](out, d_), *m)
         leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
         times[name] = [
-            _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m)),
+            _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m, **bwd)),
             _time_ms(torch, lambda: ks["dq"](*a, **bwd)),
             _time_ms(torch, lambda: ks["dkv"](*a, **bwd)),
             _time_ms(torch, lambda: torch.autograd.grad(fn(*leaves), leaves,
                                                         d_))]
-    same = torch.equal(outs[0], outs[1].transpose(1, 2).flatten(2))
-    pair = {n: {"dq": t[1], "dkv": t[2]} for n, t in times.items()}
-    old, new = (sum(pair[n].values()) for n in ("kernel 7", "kernel 8"))
+    diff = (outs[0].float() - outs[1].transpose(1, 2).flatten(2).float()
+            ).abs().max().item()
+    pair = {n: {"fwd": t[0], "dq": t[1], "dkv": t[2]}
+            for n, t in times.items()}
+    old, new = (pair[n]["dq"] + pair[n]["dkv"]
+                for n in ("kernel 7", "kernel 8"))
     print(f"[{phase}] the same shape and memory (kernel 7 is past its TPU "
           f"budget here; nothing routes by this): "
           + "; ".join(f"{name} forward {t[0]:.4f}, dq {t[1]:.4f}, dk/dv "
                       f"{t[2]:.4f}, autograd Function forward + backward "
                       f"{t[3]:.4f} ms" for name, t in times.items())
-          + f" (medians of 20); forward outputs bit-identical: {same}")
-    print(f"[{phase}] backward pair, the same inputs: the first kernels "
-          f"(kernel 7's) dq + dk/dv {old:.4f} ms; kernel 8's wgmma kernels "
-          f"{new:.4f} ms ({old / new:.2f}x below)")
+          + f" (medians of 20); forward outputs max |difference| "
+          f"{diff:.3e}")
+    print(f"[{phase}] the same inputs: the first forward (kernel 7's) "
+          f"{pair['kernel 7']['fwd']:.4f} ms; kernel 8's wgmma forward "
+          f"{pair['kernel 8']['fwd']:.4f} ms "
+          f"({pair['kernel 7']['fwd'] / pair['kernel 8']['fwd']:.2f}x "
+          f"below); backward pair: the first kernels dq + dk/dv "
+          f"{old:.4f} ms; kernel 8's wgmma kernels {new:.4f} ms "
+          f"({old / new:.2f}x below)")
+    if not diff <= CARD_TOL:
+        raise AssertionError(f"kernel 7's and kernel 8's forwards differ by "
+                             f"{diff} > {CARD_TOL}")
     return pair
 
 
@@ -1880,7 +1897,7 @@ def main() -> int:
             (GQA_SOURCE, GQA_SOURCE, GQA_REPLACES, "stacked", 0)):
         cases = v2_results[which]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"showo_tpu_torch/csrc/{source}.cu",
+                        "source": f"showo_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches,
                         **cases[qwen], "case": qwen, "cases": cases,
                         **({"slice": v2_slice} if launches else {})})

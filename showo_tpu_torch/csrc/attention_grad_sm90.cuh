@@ -40,8 +40,9 @@
 //               fp32 registers.
 // Two kernels, no atomics: the result does not depend on scheduling.
 // Head dim: the kernels take it as the template parameter HD, built for
-// 64 (a head row is one 128-byte swizzle row); 128 needs two swizzle
-// panels per row and the n128 products.
+// 64 (a head row is one 128-byte swizzle row).  The tile loader stores a
+// wider head row as 128-byte panels; the forward core on these pieces,
+// attention_fwd_sm90.cuh, runs head dims 64 and 128.
 
 #pragma once
 
@@ -126,17 +127,22 @@ __device__ __forceinline__ void to_a(const float s[8][4], uint32_t a[4][4]) {
 }
 
 // Rows [r0, r0 + 64) of one head (row stride ld, elements) -> a 64 x HD
-// tile at dst in the 128-byte swizzle (16-byte chunk c of row r at
-// c ^ (r & 7)), zeros past S: 8 neighbouring threads copy one row.
+// tile at dst in the 128-byte swizzle, zeros past S: HD / 64 panels of
+// 64 rows x 128 bytes, PANEL bytes apart (head dims [64p, 64p + 64) in
+// panel p), 16-byte chunk c of a panel row r at c ^ (r & 7); HD / 8
+// neighbouring threads copy one head row.
+constexpr int PANEL = BLK * 128;
+
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long ld, int r0, int S) {
+  static_assert(HD % 64 == 0, "head dim: whole 128-byte swizzle panels");
   constexpr int CH = HD / 8;
 #pragma unroll
   for (int i = 0; i < BLK * CH / THREADS; ++i) {
     const int q = threadIdx.x + i * THREADS, row = q / CH, c = q % CH;
     const bool in = r0 + row < S;
-    cp_async16(dst + row * 128 + ((c ^ (row & 7)) * 16),
+    cp_async16(dst + (c / 8) * PANEL + row * 128 + (((c % 8) ^ (row & 7)) * 16),
                in ? src + (long long)(r0 + row) * ld + 8 * c : src,
                in ? 16 : 0);
   }
@@ -144,16 +150,18 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
 
 // The visible tiles of one row (or column) of the tile map, count entries
 // `stride` bytes apart, in order: list[i] = (tile << 1) | FULL where every
-// entry is visible.  Warp 0 compacts them; returns their number.
+// entry is visible.  With `every` the tiles without a visible entry are
+// listed too (to be masked).  Warp 0 compacts them; returns their number.
 __device__ __forceinline__ int visible_tiles(const uint8_t* cls,
                                              long long stride, int count,
-                                             int* list, int* n_s) {
+                                             int* list, int* n_s,
+                                             bool every = false) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     int n = 0;
     for (int base = 0; base < count; base += 32) {
       const int t = base + lane;
-      const int c = t < count ? cls[t * stride] : 0;
+      const int c = t < count ? cls[t * stride] | (every ? 1 : 0) : 0;
       const uint32_t m = __ballot_sync(0xffffffffu, c != 0);
       if (c) list[n + __popc(m & ((1u << lane) - 1u))] = (t << 1) | (c >> 1);
       n += __popc(m);

@@ -9,13 +9,16 @@
 // VMEM budget (the v1 512x512 training rows, S=1408).  On the TPU they
 // differ from kernel 7 in their tiling: 256 x 512 blocks over a transposed
 // [D, S] layout, K/V streamed per block instead of held whole in VMEM, GQA
-// dk/dv summed outside the kernel.  On Hopper the function is kernel 7's:
-// the forward is attention_grad.cuh's fwd_kernel, and the backward runs on
-// wgmma (attention_grad_sm90.cuh: a tile map from the metadata, then dq
-// and dk/dv on a cp.async ring, no transposed copies), all with the
-// strides of the caller's head-major views (any [B, H, S, D] view whose
-// last dim is contiguous, e.g. phi's [B, S, H, D].transpose(1, 2), without
-// a copy), 64 x 64 tiles, and the GQA group summed in registers.
+// dk/dv summed outside the kernel.  On Hopper the function is kernel 7's,
+// on wgmma: a tile map from the metadata (attention_grad_sm90.cuh), made
+// once per forward and read by all three kernels; the forward on the
+// forward core (attention_fwd_sm90.cuh); dq and dk/dv on the backward's
+// (attention_grad_sm90.cuh); a cp.async ring and no transposed copies in
+// each, all with the strides of the caller's head-major views (any
+// [B, H, S, D] view whose last dim is contiguous, e.g. phi's
+// [B, S, H, D].transpose(1, 2), without a copy), 64 x 64 tiles, and the
+// GQA group summed in registers.  Kernel 7 keeps the first kernels of
+// attention_grad.cuh.
 //
 // What bounds it on an H100 at the v1 512x512 step (B=12, S=1408, H=32,
 // D=64, ~60% of the pairs visible): per layer the forward does ~1.5e11
@@ -30,7 +33,7 @@
 // tile with a row that sees a key, so there it averages v over that tile:
 // a result of its 512-wide tiling that 64-wide tiles cannot reproduce.)
 
-#include "attention_grad_sm90.cuh"
+#include "attention_fwd_sm90.cuh"
 
 namespace {
 
@@ -46,7 +49,7 @@ constexpr float SENTINEL = 1e30f;  // lse of a row with no visible key
 // tile map uint8 [B, nt, nt], nt = ceil(S / 64).  Each returns the
 // cudaError_t of its launch (0 = launched) on ``stream``.
 
-// The tile map of the backward kernels (agrad90::tile_map_kernel).
+// The tile map of the three kernels (agrad90::tile_map_kernel).
 extern "C" int streaming_attention_grad_tiles(
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
     unsigned char* tiles, int B, int S, void* stream) {
@@ -58,7 +61,7 @@ extern "C" int streaming_attention_grad_tiles(
 extern "C" int streaming_attention_grad_fwd_bf16(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
-    int B, int H, int Hkv, int S, int head_dim,
+    const unsigned char* tiles, int B, int H, int Hkv, int S, int head_dim,
     long long q_sb, long long q_sh, long long q_sr,
     long long k_sb, long long k_sh, long long k_sr,
     long long v_sb, long long v_sh, long long v_sr,
@@ -66,9 +69,9 @@ extern "C" int streaming_attention_grad_fwd_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad::launch_fwd<true>(
-      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr}, B,
-      S, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+  return agrad90::launch_fwd<64, false>(
+      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr},
+      tiles, B, S, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
       {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale, SENTINEL, stream);
 }
 

@@ -6,13 +6,14 @@ kernels ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel`` under a custom
 VJP), which the JAX dispatcher takes for every shape past the packed
 trainable budget (``packed_attention_grad.packed_trainable_fits``): the v1
 512x512 training rows (S=1408) among them.  The hand-written Hopper kernels
-are in ``csrc/streaming_attention_grad.cu``: the forward of
-``csrc/attention_grad.cuh`` (which kernel 7 runs on the packed layout),
-and the backward of ``csrc/attention_grad_sm90.cuh`` (wgmma on a cp.async
-ring, no transposed copies): a tile map from the O(S) metadata
+are in ``csrc/streaming_attention_grad.cu``, all on wgmma with a cp.async
+ring and no transposed copies: a tile map from the O(S) metadata
 (:func:`tile_map`: per (q tile, k tile) pair of 64 rows, no visible
-entry / some / all), then dq and dk/dv, which fetch only the visible
-tiles and mask only those not all visible.
+entry / some / all), made once per forward and kept for the backward;
+the forward of ``csrc/attention_fwd_sm90.cuh``; dq and dk/dv of
+``csrc/attention_grad_sm90.cuh``.  Each fetches only the visible tiles and
+masks only those not all visible.  (Kernel 7 keeps the first kernels of
+``csrc/attention_grad.cuh``.)
 
 Self-attention (Q == S) on head-major views: q [B, H, S, D], k and v
 [B, Hkv, S, D] (GQA: Hkv divides H), with the mask of
@@ -37,7 +38,8 @@ the layout of the inputs they belong to.  The wrappers run the plain
 versions for CPU tensors only; for CUDA tensors they launch the kernels
 (bf16, head dim 64) or raise.  ``cuda_build.launches`` counts the launches
 under ``streaming_attention_grad_fwd``, ``_dq``, ``_dkv`` and ``_tiles``
-(once per backward, shared by dq and dk/dv).
+(once per forward of :class:`StreamingTrainableAttention`, shared by its
+forward, dq and dk/dv).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ LSE_EMPTY = -NEG_INF
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_FWD_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F]
+_FWD_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
 _DQ_ARGS = [_P] * 12 + [_I] * 5 + [_L] * 15 + [_F]
 _DKV_ARGS = [_P] * 13 + [_I] * 5 + [_L] * 18 + [_F]
 _TILES_ARGS = [_P] * 5 + [_I] * 2
@@ -198,26 +200,29 @@ def _kernel_view(x):
 
 
 def streaming_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
-                            sm_scale: float):
+                            sm_scale: float, tiles=None):
     """(out [B, H, S, D] in q's layout, lse [B, H, S] fp32); metadata int32
-    as :func:`span_meta` returns it."""
+    as :func:`span_meta` returns it; ``tiles``: :func:`tile_map` of the
+    metadata, made here when not given."""
     if _device(q) == "cpu":
         return trainable_fwd_plain(q, k, v, seg, pad, last_pad, prefix,
                                    sm_scale=sm_scale)
     B, H, Hkv, S, D = _check(q, k, v)
+    if tiles is None:
+        tiles = tile_map(seg, pad, last_pad, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     cuda_build.launch(
         SOURCE, "streaming_attention_grad_fwd_bf16", _FWD_ARGS, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, H, Hkv, S, D, *_strides(q, k, v, out), float(sm_scale),
-        kernel=KERNELS[0])
+        tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, out),
+        float(sm_scale), kernel=KERNELS[0])
     return out, lse
 
 
 def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
-    """The backward kernels' tile map (:func:`tile_map_plain`): for CUDA
+    """The kernels' tile map (:func:`tile_map_plain`): for CUDA
     metadata (int32, as :func:`span_meta` returns it) the kernel of
     ``csrc/attention_grad_sm90.cuh``, counted under ``TILES_KERNEL``."""
     if _device(seg) == "cpu":
@@ -286,14 +291,19 @@ def streaming_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
 class StreamingTrainableAttention(torch.autograd.Function):
     """out = attention(q, k, v) with the forward and backward of this
     module: the kernels for CUDA tensors, the plain versions for CPU
-    tensors.  Metadata as :func:`span_meta` returns it."""
+    tensors.  Metadata as :func:`span_meta` returns it.  On CUDA the
+    forward makes the tile map once and the backward reads it again."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, pad, last_pad, prefix, sm_scale):
+        kw = dict(sm_scale=sm_scale)
+        if q.is_cuda:
+            kw["tiles"] = tile_map(seg, pad, last_pad, prefix)
         out, lse = streaming_trainable_fwd(q, k, v, seg, pad, last_pad,
-                                           prefix, sm_scale=sm_scale)
+                                           prefix, **kw)
         ctx.save_for_backward(q, k, v, out, lse, seg, pad, last_pad, prefix)
         ctx.sm_scale = sm_scale
+        ctx.tiles = kw.get("tiles")
         return out
 
     @staticmethod
@@ -306,7 +316,7 @@ class StreamingTrainableAttention(torch.autograd.Function):
         delta = attention_delta(out, dout)
         kw = dict(sm_scale=ctx.sm_scale)
         if dout.is_cuda:
-            kw["tiles"] = tile_map(*meta)
+            kw["tiles"] = ctx.tiles
         dq = streaming_trainable_dq(q, k, v, dout, lse, delta, *meta, **kw)
         dk, dv = streaming_trainable_dkv(q, k, v, dout, lse, delta, *meta,
                                          **kw)

@@ -16,7 +16,7 @@ test_rows_without_keys).  The card-only cases hold the kernels to the
 plain versions in bf16 as chip_smoke.py does: out and lse to a max abs
 error of 2e-2, the gradients to a relative norm error ||kernel - plain|| /
 ||plain|| of 1e-2; the tile map kernel to its plain version exactly, and
-the backward kernels to the same bits over two launches.
+the forward and backward kernels to the same bits over two launches.
 """
 
 from unittest import mock
@@ -361,10 +361,11 @@ def test_kernels_vs_plain_on_card(H, Hkv, S):
 def test_dispatcher_on_card_runs_kernel_7s_arithmetic():
     """Past the (patched) budget the dispatcher's forward and backward go
     through kernel 8 on head-major views of the packed tensors, with
-    kernel 8's launches counted: the forward is kernel 7's tile arithmetic
-    on the same memory, so bit-identical to kernel 7's; the backward is
-    kernel 8's wgmma kernels, which sum in another order, so its
-    gradients are held to kernel 7's at the relative norm of 1e-2."""
+    kernel 8's launches counted (one tile map, made by the forward and
+    read again by the backward).  Kernel 8's wgmma kernels compute kernel
+    7's function in another order of the sums, so the output is held to
+    kernel 7's at the max abs error of 2e-2 and the gradients at the
+    relative norm of 1e-2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -387,7 +388,7 @@ def test_dispatcher_on_card_runs_kernel_7s_arithmetic():
         assert {n: cuda_build.launches[n] - before.get(n, 0)
                 for n in kernels} == {n: 1 for n in kernels}
         results.append([out.detach()] + [t.grad for t in leaves])
-    assert torch.equal(results[0][0], results[1][0])
+    _close(results[1][0], results[0][0], "out")
     for a, b, name in zip(results[0][1:], results[1][1:], "qkv"):
         _close(b, a, f"d{name}", grads=True)
 
@@ -411,13 +412,14 @@ def test_kernels_refuse_what_they_do_not_take():
 
 def _backward(q, k, v, dout, meta, kw):
     """(dq, dk, dv) of the kernels on one tile map, and the launches of
-    the tile map, dq and dk/dv kernels they made."""
-    names = (tsag.TILES_KERNEL,) + tsag.KERNELS[1:]
+    the tile map, forward, dq and dk/dv kernels they made."""
+    names = (tsag.TILES_KERNEL,) + tsag.KERNELS
     before = {n: cuda_build.launches[n] for n in names}
-    out, lse = tsag.streaming_trainable_fwd(q, k, v, *meta, **kw)
+    tiles = tsag.tile_map(*meta)
+    out, lse = tsag.streaming_trainable_fwd(q, k, v, *meta, **kw,
+                                            tiles=tiles)
     delta = tsag.attention_delta(out, dout)
     args = (q, k, v, dout, lse, delta, *meta)
-    tiles = tsag.tile_map(*meta)
     dq = tsag.streaming_trainable_dq(*args, **kw, tiles=tiles)
     dk, dv = tsag.streaming_trainable_dkv(*args, **kw, tiles=tiles)
     torch.cuda.synchronize()
@@ -466,3 +468,35 @@ def test_tile_map_kernel_on_card(kind):
     torch.cuda.synchronize()
     assert cuda_build.launches[tsag.TILES_KERNEL] == before + 1
     assert torch.equal(got, tsag.tile_map_plain(*meta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,S", [(32, 32, 1408), (32, 8, 1408),
+                                     (8, 2, 200)])
+def test_forward_kernel_bit_stable_on_card(H, Hkv, S):
+    """The wgmma forward at the 512x512 step's S, MHA and GQA 32/8, and a
+    ragged S with GQA: against the plain version (out and lse), rows with
+    no visible key (6..9) at out 0 and lse 1e30, one launch of the
+    forward on one tile map, and the same bits over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    B = 2
+    g = torch.Generator(device=dev).manual_seed(H + Hkv + S + 1)
+    meta = _ragged(dev, B, S)
+    q, k, v = (_views(dev, B, S, n, g) for n in (H, Hkv, Hkv))
+    kw = dict(sm_scale=64 ** -0.5)
+    tiles = tsag.tile_map(*meta)
+    before = cuda_build.launches[tsag.KERNELS[0]]
+    runs = [tsag.streaming_trainable_fwd(q, k, v, *meta, **kw, tiles=tiles)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cuda_build.launches[tsag.KERNELS[0]] == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, lse = runs[0]
+    assert out.stride() == q.stride()
+    assert (out[:, :, 6:10] == 0).all() and (lse[:, :, 6:10] == 1e30).all()
+    p_out, p_lse = tsag.trainable_fwd_plain(q, k, v, *meta, **kw)
+    _close(out, p_out, "out")
+    _close(lse, p_lse, "lse")
