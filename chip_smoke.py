@@ -114,15 +114,22 @@ Phases, one or more lines each:
      tower's features (576 x 1024, timed)
   3c. kernels 1 and 6 at the Show-o2 432x432 slice's shapes: B=8 rows, S
      the slice's truncated sequence, its span metadata; Qwen2.5 (12 q / 2
-     kv heads, D=128) and the DiT (32 / 8, D=64); kernel 6 beside kernel 1
-     on the same inputs; the fault of V read from the neighbouring kv head
-     planted in each plain version must fail the check; median times of
-     kernel, plain version and scaled_dot_product_attention with the
-     boolean mask, and the bound
+     kv heads, D=128: kernel 1 on the wgmma core of
+     csrc/attention_fwd_sm90.cuh, after its tile map, which must equal its
+     plain version byte for byte) and the DiT (32 / 8, D=64); kernel 6
+     (the first tile core) beside kernel 1 on the same inputs; the fault
+     of V read from the neighbouring kv head planted in each plain version
+     must fail the check; median times of kernel, plain version and
+     scaled_dot_product_attention with the boolean mask, and the bound;
+     then kernel 1 at D=128 on a ragged S=200 whose rows 6..9 see no key
+     (they must average v over the S keys), the same bits over two
+     launches
   12. the Show-o2 slice: over one generate call kernel 1 launches 38 x 49
-     times (28 Qwen + 10 DiT layers, 49 velocity evaluations), every other
-     kernel (kernel 6 among them) none; images finite, NHWC, in [-1, 1];
-     warm seconds per batch, images/min, peak device memory
+     times (28 Qwen + 10 DiT layers, 49 velocity evaluations), 28 x 49 of
+     them on the wgmma core, all reading one tile map made with the
+     generate's metadata; every other kernel (kernel 6 among them) none;
+     images finite, NHWC, in [-1, 1]; warm seconds per batch, images/min,
+     peak device memory
   13. one full-width velocity evaluation on the packed route against
      dense attention under the additive mask: the same weights (the
      zero-initialised adaLN and final projections drawn N(0, 0.02) so that
@@ -230,10 +237,15 @@ WSMM_CORES = ["int8_matmul_gemv", "int8_matmul_mma", PREFILL_KERNEL,
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
                             "showo_tpu/ops/flash_attention.py:338")
+# kernel 1 at head dim 128 (the Qwen2.5 layers): its launches on the wgmma
+# forward core, also counted under omni_attention_packed, and its tile map
+# (the Pallas kernel's mask, computed per block from the metadata)
+PACKED_WGMMA = "omni_attention_packed_wgmma"
+PACKED_TILES = "omni_attention_packed_tiles"
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
-            + [GQA_SOURCE])
+            + [GQA_SOURCE, PACKED_WGMMA, PACKED_TILES])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -252,7 +264,7 @@ INT8_AGREE, INT8_REL = 0.95, 0.05
 # the Show-o2 slice: 28 Qwen2.5 + 10 DiT layers, each one kernel 1 launch
 # per velocity evaluation, 49 evaluations (50-point Euler)
 V2_CONFIG = "configs/showo2_1.5b_demo_432x432.yaml"
-V2_LAYERS, V2_EVALS, V2_BATCH = 28 + 10, 49, 4
+V2_QWEN_LAYERS, V2_LAYERS, V2_EVALS, V2_BATCH = 28, 28 + 10, 49, 4
 # (label, q heads, kv heads, head dim) of kernels 1 and 6 on the slice
 V2_SHAPES = (("Qwen2.5 12/2 D=128", 12, 2, 128), ("DiT 32/8 D=64", 32, 8, 64))
 # packed vs dense, one full-width v2 velocity evaluation: max |dv| over the
@@ -274,9 +286,11 @@ def _nvidia_smi() -> str:
 def _ptxas(log: str) -> list:
     """ptxas' registers and spills of each entry function of an nvcc log,
     as 'kernel<template args>: N registers, S bytes spill stores, L bytes
-    spill loads'."""
+    spill loads', and where ptxas serialized its wgmma instructions
+    (warning C7515) 'wgmma serialized'."""
     import re
 
+    serialized = set(re.findall(r"C7515\).*in the function '([^']+)'", log))
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -285,7 +299,8 @@ def _ptxas(log: str) -> list:
             name = m.group(1) if k is None else k.group(1) + (
                 "<" + re.sub(r"^L[ib]|E$", "", k.group(2)) + ">"
                 if k.group(2) else "")
-            out.append([name])
+            out.append([name] + (["wgmma serialized (ptxas C7515)"]
+                                 if m.group(1) in serialized else []))
         elif name is not None and ("spill" in line or "registers" in line):
             out[-1].append(line.split(":", 1)[-1].strip().split(",")[0]
                            if "registers" in line else
@@ -1491,7 +1506,9 @@ def phase_v2_kernels(torch, pipe, prompts):
         q, k, v = (torch.randn(B, L, n * D, generator=g, device="cuda")
                    .bfloat16() for n in (H, Hkv, Hkv))
         kw = dict(num_heads=H, num_kv_heads=Hkv)
-        rows = dict(q_positions=meta.pos_q, seg_q=meta.seg_q)
+        # the model path's call: its tile map made once with the metadata
+        rows = dict(q_positions=meta.pos_q, seg_q=meta.seg_q,
+                    tiles=meta.tiles)
         heads = [t.unflatten(-1, (-1, D)).transpose(1, 2) for t in (q, k, v)]
         shape = f"{label}: B={B} S={L} H={H} Hkv={Hkv} D={D}"
         bound = _bound(2 * (2 * B * L * H + 2 * B * L * Hkv) * D + meta_bytes,
@@ -1530,8 +1547,76 @@ def phase_v2_kernels(torch, pipe, prompts):
               f"neighbouring kv head) in the plain versions: "
               f"{faults['packed']:.3e} (kernel 1), {faults['stacked']:.3e} "
               f"(kernel 6), each failing the check (tol {CARD_TOL:.0e})")
+        out["packed"][label]["old_ms"] = out["stacked"][label]["ms"]
         del q, k, v, heads, wrong
+    out["tiles"] = _v2_tile_map_check(torch, tfa, meta)
+    _v2_ragged_d128(torch, tfa)
     return out
+
+
+def _v2_tile_map_check(torch, tfa, meta):
+    """Kernel 1's tile map at D=128 of the slice's metadata against its
+    plain version, byte for byte, timed."""
+    m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
+    tiles = tfa.rows_tile_map(*m, meta.pos_q, meta.seg_q)
+    want = tfa.rows_tile_map_plain(*m, meta.pos_q)
+    torch.cuda.synchronize()
+    if not torch.equal(tiles, want):
+        raise AssertionError(f"kernel 1's tile map differs from its plain "
+                             f"version in {int((tiles != want).sum())} "
+                             f"entries")
+    B, L = meta.seg.shape
+    nq = tiles.shape[1]
+    classes = [int((tiles[..., :-1] == c).sum()) for c in (0, 1, 3)]
+    # bytes: the metadata read once, the map written once; operations: the
+    # predicate's ~8 integer operations per (row, key) pair of the padded
+    # tiles, at the rate of the CUDA cores (no tensor-core type applies)
+    bound = _bound(4 * (4 * B * L + 2 * B) + tiles.numel(),
+                   8 * B * (nq * 64) ** 2, FP32_OPS_PER_S)
+    ms = _time_ms(torch, lambda: tfa.rows_tile_map(*m, meta.pos_q,
+                                                   meta.seg_q))
+    plain_ms = _time_ms(torch, lambda: tfa.rows_tile_map_plain(*m,
+                                                               meta.pos_q))
+    print(f"[3c] kernel 1's tile map at D=128, {list(tiles.shape)}, equal to "
+          f"its plain version; pairs of 64-row tiles skipped / masked / all "
+          f"visible {classes[0]} / {classes[1]} / {classes[2]}, q tiles with "
+          f"a row that sees no key {int(tiles[..., -1].sum())}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None, "tile_classes": classes}
+
+
+def _v2_ragged_d128(torch, tfa):
+    """Kernel 1 at D=128 (12 q / 2 kv heads) on a ragged S=200 whose rows
+    6..9 see no key: against its plain version, those rows against the
+    mean of v over the S keys, the same bits over two launches."""
+    dev = torch.device("cuda")
+    H, Hkv, D = 12, 2, 128
+    m = _ragged_meta(torch, dev)
+    B, S = m[0].shape
+    g = torch.Generator(device=dev).manual_seed(32)
+    q, k, v = (torch.randn(B, S, n * D, generator=g, device=dev).bfloat16()
+               for n in (H, Hkv, Hkv))
+    kw = dict(num_heads=H, num_kv_heads=Hkv)
+    runs = [tfa.omni_attention_packed(q, k, v, *m, **kw) for _ in range(2)]
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    want = tfa.omni_attention_packed_plain(q, k, v, *m, pos,
+                                           sm_scale=D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    err = (runs[0].float() - want.float()).abs().max().item()
+    mean_v = v.float().view(B, S, Hkv, D).mean(dim=1).repeat_interleave(
+        H // Hkv, dim=1).reshape(B, 1, H * D)
+    empty_err = (runs[0][:, 6:10].float() - mean_v).abs().max().item()
+    same = torch.equal(runs[0], runs[1])
+    print(f"[3c] kernel 1 at D=128, ragged B={B} S={S} H={H} Hkv={Hkv}, "
+          f"rows 6..9 see no key: max_abs_err {err:.3e} against the plain "
+          f"version, those rows {empty_err:.3e} from the mean of v (tol "
+          f"{CARD_TOL:.0e}); two launches bit-identical: {same}")
+    if not (err <= CARD_TOL and empty_err <= CARD_TOL and same):
+        raise AssertionError(f"kernel 1 at D=128, ragged: error {err}, rows "
+                             f"without keys {empty_err}, bit-identical "
+                             f"{same}")
 
 
 def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
@@ -1557,6 +1642,8 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
     pipe.generate(prompts, gen)                       # warm-up
     want = {name: 0 for name in COUNTERS}
     want["omni_attention_packed"] = V2_LAYERS * V2_EVALS
+    want[PACKED_WGMMA] = V2_QWEN_LAYERS * V2_EVALS
+    want[PACKED_TILES] = 1      # made once with the generate's metadata
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
@@ -1587,15 +1674,16 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
           f"{V2_BATCH} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
           f"random weights: launches per generate "
           f"{counts['omni_attention_packed']} = {V2_LAYERS} x {V2_EVALS} of "
-          f"omni_attention_packed, 0 of the others ({GQA_SOURCE} among "
-          f"them); images {images.shape} finite in [-1, 1]; warm wall "
+          f"omni_attention_packed ({counts[PACKED_WGMMA]} = "
+          f"{V2_QWEN_LAYERS} x {V2_EVALS} on the wgmma core at D=128, all "
+          f"reading {counts[PACKED_TILES]} tile map), 0 of the others "
+          f"({GQA_SOURCE} among them); images {images.shape} finite in [-1, 1]; warm wall "
           f"{wall:.4f} s/batch (median of 2: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
           f"{V2_BATCH * 60.0 / wall:.2f} images/min; peak memory allocated "
           f"{peak:.2f} GiB on {smi}")
-    return counts["omni_attention_packed"], {
-        "wall_s": wall, "images_per_min": V2_BATCH * 60.0 / wall,
-        "peak_gib": peak}
+    return counts, {"wall_s": wall, "images_per_min": V2_BATCH * 60.0 / wall,
+                    "peak_gib": peak}
 
 
 def phase_v2_parity(torch, pipe, prompts):
@@ -1892,15 +1980,24 @@ def main() -> int:
                         "case": case, "cases": wsmm[name]})
     qwen = V2_SHAPES[0][0]
     for name, source, replaces, which, launches in (
-            ("omni_attention_packed_v2", "omni_attention_packed",
-             KERNELS["packed"][1], "packed", v2_launches),
-            (GQA_SOURCE, GQA_SOURCE, GQA_REPLACES, "stacked", 0)):
+            ("omni_attention_packed_v2", "omni_attention_packed.cu (+ "
+             "attention_fwd_sm90.cuh at D=128)", KERNELS["packed"][1],
+             "packed", v2_launches["omni_attention_packed"]),
+            (GQA_SOURCE, f"{GQA_SOURCE}.cu", GQA_REPLACES, "stacked", 0)):
         cases = v2_results[which]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"showo_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches,
                         **cases[qwen], "case": qwen, "cases": cases,
-                        **({"slice": v2_slice} if launches else {})})
+                        **({"slice": v2_slice, "launches_wgmma":
+                            v2_launches[PACKED_WGMMA]} if launches else {})})
+    kernels.append({"name": PACKED_TILES, "route": "cuda",
+                    "source": "showo_tpu_torch/csrc/omni_attention_packed.cu "
+                              "(+ attention_fwd_sm90.cuh)",
+                    "replaces": KERNELS["packed"][1] + " (the mask of "
+                                "_attn_kernel_packed, per block)",
+                    "launches": v2_launches[PACKED_TILES],
+                    **v2_results["tiles"], "case": qwen})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

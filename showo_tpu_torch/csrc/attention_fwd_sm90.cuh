@@ -56,13 +56,16 @@ namespace agrad90 {
 
 // Dynamic shared memory of wgmma_fwd_kernel: Q (HD / 64 panels); the ring
 // of STAGES (K, V) tiles; per stage the K tile's seg and pad; the visible
-// tile count and list.  HD = 64: 3 stages, 57 KB, 3 blocks an SM; HD =
-// 128: 2 stages, 81 KB, 2 blocks an SM.
+// tile count and list.  HD = 64: 2 stages, 41 KB, 4 blocks an SM (at most
+// 128 registers); HD = 128: 2 stages, 81 KB, 2 blocks an SM.  On an H100
+// 4 blocks of 2 stages ran kernel 8's forward ~6% faster than 3 blocks of
+// 3; at HD = 128 one block an SM ran as fast as 2, and a third stage (one
+// block) slower.
 template <int HD>
 struct FwdCfg {
   static constexpr int TILE = BLK * HD * 2;
-  static constexpr int STAGES = HD == 64 ? 3 : 2;
-  static constexpr int BLOCKS = HD == 64 ? 3 : 2;
+  static constexpr int STAGES = 2;
+  static constexpr int BLOCKS = HD == 64 ? 4 : 2;
   static constexpr int RING = TILE;
   static constexpr int META = RING + STAGES * 2 * TILE;
   static constexpr int LIST = META + STAGES * 2 * BLK * 4;
@@ -136,8 +139,10 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float scale_log2, float sentinel) {
   using C = FwdCfg<HD>;
   constexpr int P = HD / 64;  // panels of a head row
-  // P.V is waited for before the ring's barrier, so the stage read last
-  // is free when the next copies are issued
+  // P.V is waited for at the end of its iteration, so the stage read last
+  // is free when the next copies are issued.  (Left in flight across the
+  // loop's back edge, it made ptxas serialize every wgmma of the kernel:
+  // warning C7515.)
   constexpr int LOOKAHEAD = C::STAGES - 1;
   extern __shared__ __align__(1024) uint8_t ring_smem[];
   const uint32_t sb = smem_u32(ring_smem);
@@ -200,10 +205,6 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int i = 0; i < n; ++i) {
     cp_async_wait<LOOKAHEAD - 1>();
-    // the previous tile's P.V: its stage is refilled below
-    wgmma_wait<0>();
-#pragma unroll
-    for (int p = 0; p < P; ++p) fence_acc(o + 8 * p);
     fence_proxy_async();
     // tile i has landed for every thread, and no product reads the stage
     // refilled below
@@ -260,10 +261,10 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wgmma_rs64_tb(&o[8 * p][0], a[kk],
                       gmma_desc_sw128_mn(vb + p * PANEL + 2048 * kk));
     wgmma_commit();
-  }
-  wgmma_wait<0>();
+    wgmma_wait<0>();
 #pragma unroll
-  for (int p = 0; p < P; ++p) fence_acc(o + 8 * p);
+    for (int p = 0; p < P; ++p) fence_acc(o + 8 * p);
+  }
   cp_async_wait<0>();
 
   bf16* oh = out + b * os.b + h * os.h;

@@ -48,8 +48,10 @@
 //   * dk/dv computes S^T = K.Q^T with the block's K rows as the A operand,
 //     so P^T and dS^T come out of the tensor cores already in the layout
 //     of the A operand of P^T.dO and dS^T.Q.
-// mma.sync m16n8k16 (attention_tile.cuh); wgmma, TMA and pipelined tile
-// rings are later work.  Head dim 64.
+// mma.sync m16n8k16 (attention_tile.cuh), head dim 64: what kernel 7 (all
+// three kernels) and kernel 5 (the forward) run.  Kernel 8 runs on wgmma
+// with cp.async tile rings: its forward on attention_fwd_sm90.cuh, its
+// backward on attention_grad_sm90.cuh.
 
 #pragma once
 

@@ -18,7 +18,8 @@
 //
 // The head dim is a template parameter (Geom<HD>) of every function that
 // depends on it, 64 by default: Show-o v1 (Phi-1.5) and the Show-o2 DiT
-// head run 64, Qwen2.5 runs 128 (the packed omni kernel only).  At 64 the
+// head run 64, Qwen2.5 runs 128 (here only the GQA-stacked kernel 6: kernel
+// 1 at 128 runs on attention_fwd_sm90.cuh).  At 64 the
 // kernels ask for 4 resident blocks of 128 threads per SM
 // (__launch_bounds__(128, 4), so at most 128 registers): on an H100 the
 // omni kernel ran faster so, with a few bytes of spills, than at the 130

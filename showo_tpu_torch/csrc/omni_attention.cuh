@@ -2,12 +2,14 @@
 // shared by three entry points that differ only in layout and in how a
 // block's rows are chosen:
 //   omni_attention_packed.cu       q/k/v [B, S, H*D]  (Pallas
-//                                  omni_attention_packed), head dim 64 or
-//                                  128
+//                                  omni_attention_packed), head dim 64
+//                                  (128 runs on the wgmma forward core of
+//                                  attention_fwd_sm90.cuh)
 //   omni_attention.cu              q/k/v [B, H, S, D]  (Pallas
 //                                  omni_attention), head dim 64
 //   omni_attention_gqa_stacked.cu  the packed layout, one block per kv head
-//                                  (Pallas _omni_attention_gqa_stacked)
+//                                  (Pallas _omni_attention_gqa_stacked),
+//                                  head dim 64 or 128
 // On the TPU the first two are separate kernels because lane tiling forced
 // the head-major one into a transposed [D, S] layout
 // (showo_tpu/ops/flash_attention.py:46-49).  On Hopper a head stride beside
@@ -35,7 +37,8 @@
 // (b, h, 64-row q tile) its own block (2176 blocks at the main shape,
 // against 132 SMs) so the card is filled without a persistent scheduler,
 // and masks the ragged Q and K edges itself, so the host pads nothing.
-// TMA, wgmma and a pipelined K/V ring are later work.
+// mma.sync on synchronous K/V loads; attention_fwd_sm90.cuh is the wgmma
+// core with a cp.async ring and a tile map (kernel 1 at head dim 128).
 //
 // Grid (ceil(Q/64), H, B); block 128 threads.  GQA: kv head = h / group.
 

@@ -19,8 +19,11 @@ as in the JAX package, compute the same function on two layouts:
 They launch the hand-written Hopper kernels of ``csrc/omni_attention.cuh``
 (entries ``csrc/omni_attention_packed.cu``, ``csrc/omni_attention.cu`` and
 ``csrc/omni_attention_gqa_stacked.cu``), which read the layouts through
-their strides.  The mask is recomputed from O(S) metadata instead of a
-[B, 1, Q, S] bias:
+their strides; ``omni_attention_packed`` at head dim 128 runs on the wgmma
+forward core of ``csrc/attention_fwd_sm90.cuh`` instead, after a tile map
+of the q rows' metadata (:func:`rows_tile_map`) that says which K tiles
+each 64-row q block visits and masks.  The mask is recomputed from O(S)
+metadata instead of a [B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -39,7 +42,8 @@ edges itself.  See the sources for the design.
 
 The wrappers run the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.  ``cuda_build.launches`` counts kernel
-launches by source name.
+launches by source name; ``omni_attention_packed`` at head dim 128 also
+under ``WGMMA_KERNEL``, its tile map under ``TILES_KERNEL``.
 """
 
 from __future__ import annotations
@@ -58,8 +62,15 @@ NEG_INF = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_PACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
+_PACKED_ARGS = [_P] * 11 + [_I] * 6 + [_L] * 8 + [_F]
+_STACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
 _OMNI_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
+_TILES_ARGS = [_P] * 7 + [_I] * 3
+PACKED_SOURCE = "omni_attention_packed"
+# kernel 1 at head dim 128 on the wgmma forward core, and its tile map
+WGMMA_KERNEL = f"{PACKED_SOURCE}_wgmma"
+TILES_KERNEL = f"{PACKED_SOURCE}_tiles"
+TILE = 64       # rows of a q or k tile of the tile map
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +168,47 @@ def visible_mask(seg, pad, last_pad, prefix, q_positions) -> torch.Tensor:
     vis = (j <= pos) | ((seg_q == seg[:, None, :]) & (seg_q > 0))
     vis = vis | (j < prefix[:, None, None])
     return vis & ((pad[:, None, :] == 0) | (pos <= last_pad[:, None, None]))
+
+
+def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q) -> torch.Tensor:
+    """uint8 [B, nq, nk + 1] (nq = ceil(Q / 64), nk = ceil(S / 64)) of q
+    rows at kv positions ``pos_q`` [B, Q]: entry kt < nk of (b, q tile) is
+    0 where no entry of the pair of 64-row tiles is visible, 1 where some
+    are, 3 where all 64 x 64 are (rows past Q and keys past S count as not
+    visible); entry nk is 1 where some row of the q tile sees no key at
+    all (it averages v over every key, so its block visits every tile)."""
+    B, S = seg.shape
+    Q = pos_q.shape[1]
+    nq, nk = -(-Q // TILE), -(-S // TILE)
+    vis = torch.zeros((B, nq * TILE, nk * TILE), dtype=torch.bool,
+                      device=seg.device)
+    vis[:, :Q, :S] = visible_mask(seg, pad, last_pad, prefix, pos_q)
+    blocks = vis.view(B, nq, TILE, nk, TILE)
+    some = blocks.any(dim=4).any(dim=2)
+    every = blocks.all(dim=4).all(dim=2)
+    rows = torch.arange(nq * TILE, device=seg.device) < Q
+    empty = (~vis.any(dim=2) & rows).view(B, nq, TILE).any(dim=2)
+    return torch.cat([some.to(torch.uint8) + 2 * every.to(torch.uint8),
+                      empty.to(torch.uint8)[..., None]], dim=2)
+
+
+def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q) -> torch.Tensor:
+    """The tile map of kernel 1 at head dim 128 (:func:`rows_tile_map_plain`
+    of the same metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
+    :func:`q_rows`): for CUDA metadata (int32 and contiguous, as
+    :func:`_kernel_meta` returns it) the kernel of
+    ``csrc/attention_fwd_sm90.cuh``, counted under ``TILES_KERNEL``."""
+    if seg.device.type == "cpu":
+        return rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q)
+    B, S = seg.shape
+    Q = pos_q.shape[1]
+    tiles = torch.empty((B, -(-Q // TILE), -(-S // TILE) + 1),
+                        dtype=torch.uint8, device=seg.device)
+    cuda_build.launch(
+        PACKED_SOURCE, TILES_KERNEL, _TILES_ARGS, seg.device,
+        *(m.data_ptr() for m in (seg, pad, last_pad, prefix, pos_q, seg_q)),
+        tiles.data_ptr(), B, Q, S, kernel=TILES_KERNEL)
+    return tiles
 
 
 def span_meta(seg, pad, last_pad, prefix, B: int, S: int, dev) -> list:
@@ -281,7 +333,7 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
                           num_kv_heads: Optional[int] = None,
                           sm_scale: Optional[float] = None,
                           q_positions=None, seg_q=None,
-                          gqa_stack: bool = False):
+                          gqa_stack: bool = False, tiles=None):
     """q: [B, Q, H*D]; k, v: [B, S, Hkv*D] (GQA: Hkv divides H).
 
     seg, pad: [B, S] int; last_pad, prefix: [B] int.  ``q_positions`` are
@@ -290,7 +342,9 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     already are the int32 [B, Q] pair of :func:`q_rows`.  Returns
     [B, Q, H*D] in q's dtype.  ``gqa_stack``: take
     :func:`omni_attention_gqa_stacked` where :func:`gqa_stack_fits`, as the
-    JAX package does.
+    JAX package does.  ``tiles``: :func:`rows_tile_map` of the same
+    metadata (the kernel reads it at head dim 128 and makes it when not
+    given; a forward of many layers makes it once).
 
     CPU tensors go through the plain version; CUDA tensors through the
     kernel (bf16, head dim 64 or 128), which raises on what it does not
@@ -309,15 +363,15 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
             q_positions=q_positions, seg_q=seg_q)
     return _packed_call("omni_attention_packed", omni_attention_packed_plain,
                         q, k, v, seg, pad, last_pad, prefix, num_heads,
-                        num_kv_heads, sm_scale, q_positions, seg_q)
+                        num_kv_heads, sm_scale, q_positions, seg_q, tiles)
 
 
 def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
                  num_heads: int, num_kv_heads: int, sm_scale, q_positions,
-                 seg_q):
+                 seg_q, tiles=None):
     """The packed-layout kernels' common wrapper: checks, metadata, the
     plain version for CPU tensors, the kernel of ``csrc/<kernel>.cu`` for
-    CUDA tensors."""
+    CUDA tensors (``tiles``: kernel 1's tile map at head dim 128)."""
     B, Q, HD = q.shape
     S = k.shape[1]
     D = HD // num_heads
@@ -338,13 +392,31 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
                          f"{(B, S, num_kv_heads * D)}, got {tuple(k.shape)}"
                          f" / {tuple(v.shape)}")
     out = torch.empty((B, Q, HD), dtype=q.dtype, device=dev)
+    args, counters, extra = _STACKED_ARGS, kernel, []
+    if kernel == PACKED_SOURCE:
+        # head dim 128: the wgmma core and its tile map; 64: no map (null)
+        args, extra = _PACKED_ARGS, [None]
+        if D == 128:
+            if tiles is None:
+                tiles = rows_tile_map(*meta)
+            _check_tiles(tiles, B, Q, S, dev)
+            extra, counters = [tiles.data_ptr()], (kernel, WGMMA_KERNEL)
     cuda_build.launch(
-        kernel, f"{kernel}_bf16", _PACKED_ARGS,
+        kernel, f"{kernel}_bf16", args,
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(m.data_ptr() for m in meta), B, Q, S, num_heads, num_kv_heads, D,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), out.stride(0), out.stride(1), float(sm_scale))
+        *(m.data_ptr() for m in meta), *extra, B, Q, S,
+        num_heads, num_kv_heads, D, q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        float(sm_scale), kernel=counters)
     return out
+
+
+def _check_tiles(tiles, B: int, Q: int, S: int, dev) -> None:
+    shape = (B, -(-Q // TILE), -(-S // TILE) + 1)
+    if (tiles.dtype != torch.uint8 or tuple(tiles.shape) != shape
+            or not tiles.is_contiguous() or tiles.device != dev):
+        raise ValueError(f"tiles must be the uint8 contiguous {shape} map "
+                         f"of rows_tile_map on {dev}")
 
 
 # ---------------------------------------------------------------------------

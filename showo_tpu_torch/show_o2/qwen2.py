@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from showo_tpu_torch.ops.flash_attention import (omni_attention_packed,
+                                                 rows_tile_map,
                                                  q_rows, span_meta)
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
@@ -53,7 +54,9 @@ def check_route(name: str) -> str:
 class PackedMeta:
     """The packed kernel's metadata for one forward, computed once for all
     layers of both towers (:func:`packed_meta`): seg / pad / last_pad /
-    prefix int32 and contiguous, and the q rows' (pos_q, seg_q)."""
+    prefix int32 and contiguous, the q rows' (pos_q, seg_q), and on CUDA
+    the tile map that the kernel reads at head dim 128
+    (``rows_tile_map``; None on the CPU, whose plain version needs none)."""
 
     seg: torch.Tensor
     pad: torch.Tensor
@@ -61,6 +64,7 @@ class PackedMeta:
     prefix: torch.Tensor
     pos_q: torch.Tensor
     seg_q: torch.Tensor
+    tiles: Optional[torch.Tensor] = None
 
 
 def packed_meta(attn_meta) -> Optional[PackedMeta]:
@@ -75,7 +79,8 @@ def packed_meta(attn_meta) -> Optional[PackedMeta]:
     B, S = seg.shape
     meta = span_meta(seg, pad, last_pad, prefix, B, S, seg.device)
     pos_q, seg_q = q_rows(meta[0], torch.arange(S, device=seg.device), B, S)
-    return PackedMeta(*meta, pos_q, seg_q)
+    tiles = rows_tile_map(*meta, pos_q, seg_q) if seg.is_cuda else None
+    return PackedMeta(*meta, pos_q, seg_q, tiles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +163,7 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
             q.reshape(B, S, H * Dh), k.reshape(B, S, Hkv * Dh),
             v.reshape(B, S, Hkv * Dh), meta.seg, meta.pad, meta.last_pad,
             meta.prefix, num_heads=H, num_kv_heads=Hkv,
-            q_positions=meta.pos_q, seg_q=meta.seg_q)
+            q_positions=meta.pos_q, seg_q=meta.seg_q, tiles=meta.tiles)
     qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
     with torch.autocast(q.device.type, enabled=False):
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(softmax_dtype),

@@ -4,11 +4,15 @@ head-major [B, H, S, D] entry points.
 On the CPU each wrapper runs its plain version, held against its JAX
 Pallas kernel in interpret mode (as tests/test_flash_attention.py runs
 them), fp32, atol 1e-5: both take exact fp32 products and an fp32
-softmax, so they differ only in summation order.  The card-only cases
-hold the CUDA kernel against the plain version in bf16 at atol 2e-2:
-outputs are convex combinations of ~N(0, 1) values and bf16 carries 8
-bits, and the kernel rounds the probabilities to bf16 before normalising
-them.
+softmax, so they differ only in summation order.  The tile map of the
+packed kernel at head dim 128 (``rows_tile_map``) is held exactly to the
+block visibility of the JAX package's mask predicate (``_visible`` of
+its streaming kernels, which take q rows at any positions).  The
+card-only cases hold the CUDA kernel against the plain version in bf16 at
+atol 2e-2: outputs are convex combinations of ~N(0, 1) values and bf16
+carries 8 bits, and the kernel rounds the probabilities to bf16 before
+normalising them; the tile map kernel to its plain version exactly, and
+the head-dim-128 kernel to the same bits over two launches.
 """
 
 import jax.numpy as jnp
@@ -17,6 +21,7 @@ import pytest
 import torch
 
 from showo_tpu.ops import flash_attention as jfa
+from showo_tpu.ops import streaming_attention_grad as jsag
 from showo_tpu_torch.models.phi import attention as dense_attention
 from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops import flash_attention as tfa
@@ -190,6 +195,182 @@ def test_kernel_refuses_other_head_dims():
     seg = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head dim 96"):
         tfa.omni_attention_packed(q, q, q, seg, num_heads=2)
+
+
+def _rows_meta(kind):
+    """([seg, pad, last_pad, prefix], pos_q [B, Q]) as numpy int32 for the
+    tile map of kernel 1 at head dim 128: ``cached`` (a t2i layout, the
+    image rows as q rows, Q != S, ragged), ``per_row`` (the same with each
+    batch row's window starting 3 rows earlier), ``no_key`` (ragged S = Q
+    = 200, pads 0..9 and last_pad 5 in batch row 0, so its rows 6..9 see
+    no key; 20 in row 1), ``v2`` (two image spans, Q == S = 300)."""
+    if kind in ("cached", "per_row"):
+        seq = _layout(2, text=70, img=150, pads=(0, 13), seed=17)
+        meta = [np.array(m, np.int32) for m in
+                jfa.metadata_predict_next(jnp.asarray(seq), PAD, SOI, EOI)]
+        S, P = seq.shape[1], 60
+        shift = 3 if kind == "per_row" else 0
+        pos = np.stack([P - shift * b + np.arange(S - P) for b in range(2)])
+        return meta, pos.astype(np.int32)
+    if kind == "no_key":
+        B, S = 2, 200
+        seg = np.zeros((B, S), np.int32)
+        seg[:, 40:150] = 1
+        pad = np.zeros((B, S), np.int32)
+        pad[:, :10] = 1
+        meta = [seg, pad, np.asarray([5, 20], np.int32),
+                np.zeros((B,), np.int32)]
+    else:
+        B, S = 2, 300
+        seg = np.array(jfa.seg_from_modality_positions(
+            jnp.asarray([[[3, 120], [150, 140]], [[10, 200], [0, 0]]]), S),
+            np.int32)
+        meta = [seg, np.zeros((B, S), np.int32), np.full((B,), -1, np.int32),
+                np.zeros((B,), np.int32)]
+    return meta, np.tile(np.arange(S, dtype=np.int32), (B, 1))
+
+
+def _rows_map_brute(meta, pos_q):
+    """The tile map from JAX's block visibility (``_visible``), pair by
+    pair, rows past Q left out; the flag from the rows' full rows."""
+    seg, pad, last_pad, prefix = meta
+    B, S = seg.shape
+    Q = pos_q.shape[1]
+    nq, nk = -(-Q // 64), -(-S // 64)
+    seg_q = np.where(pos_q < S, np.take_along_axis(
+        seg, np.minimum(pos_q, S - 1), axis=1), 0)
+    rows_pad = ((0, 0), (0, nq * 64 - Q))
+    pq, sq = np.pad(pos_q, rows_pad), np.pad(seg_q, rows_pad)
+    segk, padk = (np.pad(m, ((0, 0), (0, nk * 64 - S))) for m in (seg, pad))
+    want = np.zeros((B, nq, nk + 1), np.uint8)
+    for b in range(B):
+        for i in range(nq):
+            inq = i * 64 + np.arange(64) < Q
+            seen = np.zeros(64, bool)
+            for j in range(nk):
+                vis = np.asarray(jsag._visible(
+                    jnp.asarray(pq[b, i * 64:][:64]),
+                    jnp.asarray(sq[b, i * 64:][:64]),
+                    jnp.asarray(segk[b, j * 64:][:64]),
+                    jnp.asarray(padk[b, j * 64:][:64]), int(last_pad[b]),
+                    int(prefix[b]), j, 64, 64, S)) & inq[:, None]
+                want[b, i, j] = int(vis.any()) + 2 * int(vis.all())
+                seen |= vis.any(axis=1)
+            want[b, i, nk] = int((inq & ~seen).any())
+    return want
+
+
+@pytest.mark.parametrize("kind", ["cached", "per_row", "no_key", "v2"])
+def test_rows_tile_map_vs_jax_block_visibility(kind):
+    """The tile map of kernel 1 at head dim 128: for each pair of 64-row q
+    and k tiles whether any / every entry is visible, and per q tile
+    whether a row sees no key, against JAX's mask predicate on the same
+    metadata, exactly; the no_key case flags batch row 0's first q tile
+    and nothing else.  Every class occurs (cached rows are image rows,
+    which see the whole image span, so no pair of theirs is skipped)."""
+    meta, pos_q = _rows_meta(kind)
+    tmeta = [torch.as_tensor(m) for m in meta]
+    tpos = torch.as_tensor(pos_q)
+    got = tfa.rows_tile_map(*tmeta, tpos, tfa.gather_at(tmeta[0], tpos))
+    want = _rows_map_brute(meta, pos_q)
+    B, S = meta[0].shape
+    assert got.dtype == torch.uint8
+    assert tuple(got.shape) == (B, -(-pos_q.shape[1] // 64), -(-S // 64) + 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    flags = want[:, :, -1]
+    if kind == "no_key":
+        assert flags[0, 0] == 1 and flags.sum() == 1
+    else:
+        assert flags.sum() == 0
+    assert set(np.unique(want[:, :, :-1]).tolist()) == (
+        {1, 3} if kind in ("cached", "per_row") else {0, 1, 3})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cached", "per_row", "no_key", "v2"])
+def test_rows_tile_map_kernel_on_card(kind):
+    """The tile map kernel of head dim 128 equals its plain version, byte
+    for byte, with one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    meta, pos_q = _rows_meta(kind)
+    tmeta = [torch.as_tensor(m, device="cuda") for m in meta]
+    pos = torch.as_tensor(pos_q, device="cuda")
+    before = cuda_build.launches[tfa.TILES_KERNEL]
+    got = tfa.rows_tile_map(*tmeta, pos, tfa.gather_at(tmeta[0], pos))
+    torch.cuda.synchronize()
+    assert cuda_build.launches[tfa.TILES_KERNEL] == before + 1
+    assert torch.equal(got, tfa.rows_tile_map_plain(*tmeta, pos))
+
+
+@pytest.mark.cuda
+def test_wgmma_kernel_takes_a_precomputed_tile_map():
+    """A tile map made once for many calls (as a forward of many layers
+    makes it) gives the bits of the map the wrapper makes, with no map
+    launch in the call; a map of other shapes raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    meta, pos_q = _rows_meta("cached")
+    tmeta = [torch.as_tensor(m, device=dev) for m in meta]
+    pos = torch.as_tensor(pos_q, device=dev)
+    B, S = meta[0].shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, pos.shape[1], 12 * 128, generator=g,
+                    device=dev).bfloat16()
+    k, v = (torch.randn(B, S, 2 * 128, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(num_heads=12, num_kv_heads=2, q_positions=pos)
+    tiles = tfa.rows_tile_map(*tmeta, pos, tfa.gather_at(tmeta[0], pos))
+    before = cuda_build.launches[tfa.TILES_KERNEL]
+    got = tfa.omni_attention_packed(q, k, v, *tmeta, **kw, tiles=tiles)
+    torch.cuda.synchronize()
+    assert cuda_build.launches[tfa.TILES_KERNEL] == before
+    assert torch.equal(got, tfa.omni_attention_packed(q, k, v, *tmeta, **kw))
+    with pytest.raises(ValueError, match="rows_tile_map"):
+        tfa.omni_attention_packed(q, k, v, *tmeta, **kw, tiles=tiles[:, 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cached", "per_row", "no_key", "v2"])
+def test_wgmma_kernel_at_head_dim_128_on_card(kind):
+    """Kernel 1 at head dim 128 (Qwen2.5's 12 q / 2 kv heads) on the wgmma
+    core, at ragged S, Q != S with shared and per-row positions, and rows
+    that see no key: against the plain version at atol 2e-2, those rows
+    at the mean of v over the S keys, one launch of the core and of its
+    tile map a call, and the same bits over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    H, Hkv, D = 12, 2, 128
+    dev = torch.device("cuda")
+    meta, pos_q = _rows_meta(kind)
+    tmeta = [torch.as_tensor(m, device=dev) for m in meta]
+    pos = torch.as_tensor(pos_q, device=dev)
+    B, S = meta[0].shape
+    Q = pos_q.shape[1]
+    g = torch.Generator(device=dev).manual_seed(Q + S)
+    q = torch.randn(B, Q, H * D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv * D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    names = (tfa.PACKED_SOURCE, tfa.WGMMA_KERNEL, tfa.TILES_KERNEL)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = [tfa.omni_attention_packed(q, k, v, *tmeta, num_heads=H,
+                                      num_kv_heads=Hkv, q_positions=pos)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} \
+        == {n: 2 for n in names}
+    assert torch.equal(runs[0], runs[1])
+    got = runs[0]
+    want = tfa.omni_attention_packed_plain(
+        q, k, v, *tmeta, pos, num_heads=H, num_kv_heads=Hkv,
+        sm_scale=D ** -0.5)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    if kind == "no_key":
+        mean_v = v[0].float().view(S, Hkv, D).mean(dim=0)
+        mean_v = mean_v.repeat_interleave(H // Hkv, dim=0).reshape(H * D)
+        assert (got[0, 6:10].float() - mean_v).abs().max().item() <= 2e-2
 
 
 # -- head-major omni_attention -----------------------------------------------
