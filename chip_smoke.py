@@ -760,31 +760,42 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
 
 
 def _tile_map_check(torch, m, shape, phase):
-    """Kernel 8's tile map of metadata ``m`` against its plain version,
-    byte for byte, timed; returns (the map, its result)."""
+    """Kernel 8's tile map of metadata ``m`` against its plain version;
+    returns (the map, its result)."""
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
-    tiles, want = tsag.tile_map(*m), tsag.tile_map_plain(*m)
+    B, S = m[0].shape
+    nt = -(-S // 64)
+    return _map_check(
+        torch, f"{shape}: tile map [{B}, {nt}, {nt}]",
+        lambda: tsag.tile_map(*m), lambda: tsag.tile_map_plain(*m),
+        4 * (2 * B * S + 2 * B) + B * nt * nt, B * (nt * 64) ** 2, phase)
+
+
+def _map_check(torch, label, make, plain, nbytes, pairs, phase,
+               flag=False):
+    """A tile map kernel (``make``) against its plain version, byte for
+    byte, timed; ``flag``: the map's last column flags q tiles with a row
+    that sees no key.  Bound: ``nbytes`` (the metadata read once, the map
+    written once) or the predicate's ~8 integer operations per (row, key)
+    pair of the padded tiles (``pairs``) at the rate of the CUDA cores (no
+    tensor-core type applies).  Returns (the map, its result)."""
+    tiles, want = make(), plain()
     torch.cuda.synchronize()
     if not torch.equal(tiles, want):
-        raise AssertionError(f"{shape}: tile map differs from its plain "
-                             f"version in {int((tiles != want).sum())} "
-                             f"pairs")
-    B, S = m[0].shape
-    nt = tiles.shape[1]
-    classes = [int((tiles == c).sum()) for c in (0, 1, 3)]
-    # bytes: the metadata read once, the map written once; operations: the
-    # predicate's ~8 integer operations per (row, key) pair of the padded
-    # tiles, at the rate of the CUDA cores (no tensor-core type applies)
-    bound = _bound(4 * (2 * B * S + 2 * B) + B * nt * nt,
-                   8 * B * (nt * 64) ** 2, FP32_OPS_PER_S)
-    ms = _time_ms(torch, lambda: tsag.tile_map(*m))
-    plain_ms = _time_ms(torch, lambda: tsag.tile_map_plain(*m))
-    print(f"[{phase}] {shape}: tile map [{B}, {nt}, {nt}] equal to its plain "
-          f"version; pairs of 64-row tiles skipped / masked / all visible "
-          f"{classes[0]} / {classes[1]} / {classes[2]}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (median of 20); bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        raise AssertionError(f"{label}: differs from its plain version in "
+                             f"{int((tiles != want).sum())} entries")
+    cls = tiles[..., :-1] if flag else tiles
+    classes = [int((cls == c).sum()) for c in (0, 1, 3)]
+    bound = _bound(nbytes, 8 * pairs, FP32_OPS_PER_S)
+    ms, plain_ms = _time_ms(torch, make), _time_ms(torch, plain)
+    flags = (f", q tiles with a row that sees no key "
+             f"{int(tiles[..., -1].sum())}" if flag else "")
+    print(f"[{phase}] {label} equal to its plain version; pairs of 64-row "
+          f"tiles skipped / masked / all visible {classes[0]} / {classes[1]}"
+          f" / {classes[2]}{flags}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median of 20); bound {bound['bound_ms']:.4f} "
+          f"ms ({bound['bound_by']})")
     return tiles, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                    **bound, "library_ms": None, "tile_classes": classes}
 
@@ -1556,35 +1567,16 @@ def phase_v2_kernels(torch, pipe, prompts):
 
 def _v2_tile_map_check(torch, tfa, meta):
     """Kernel 1's tile map at D=128 of the slice's metadata against its
-    plain version, byte for byte, timed."""
+    plain version; returns its result."""
     m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
-    tiles = tfa.rows_tile_map(*m, meta.pos_q, meta.seg_q)
-    want = tfa.rows_tile_map_plain(*m, meta.pos_q)
-    torch.cuda.synchronize()
-    if not torch.equal(tiles, want):
-        raise AssertionError(f"kernel 1's tile map differs from its plain "
-                             f"version in {int((tiles != want).sum())} "
-                             f"entries")
     B, L = meta.seg.shape
-    nq = tiles.shape[1]
-    classes = [int((tiles[..., :-1] == c).sum()) for c in (0, 1, 3)]
-    # bytes: the metadata read once, the map written once; operations: the
-    # predicate's ~8 integer operations per (row, key) pair of the padded
-    # tiles, at the rate of the CUDA cores (no tensor-core type applies)
-    bound = _bound(4 * (4 * B * L + 2 * B) + tiles.numel(),
-                   8 * B * (nq * 64) ** 2, FP32_OPS_PER_S)
-    ms = _time_ms(torch, lambda: tfa.rows_tile_map(*m, meta.pos_q,
-                                                   meta.seg_q))
-    plain_ms = _time_ms(torch, lambda: tfa.rows_tile_map_plain(*m,
-                                                               meta.pos_q))
-    print(f"[3c] kernel 1's tile map at D=128, {list(tiles.shape)}, equal to "
-          f"its plain version; pairs of 64-row tiles skipped / masked / all "
-          f"visible {classes[0]} / {classes[1]} / {classes[2]}, q tiles with "
-          f"a row that sees no key {int(tiles[..., -1].sum())}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound,
-            "library_ms": None, "tile_classes": classes}
+    nt = -(-L // 64)
+    return _map_check(
+        torch, f"kernel 1's tile map at D=128 [{B}, {nt}, {nt + 1}]",
+        lambda: tfa.rows_tile_map(*m, meta.pos_q, meta.seg_q),
+        lambda: tfa.rows_tile_map_plain(*m, meta.pos_q),
+        4 * (4 * B * L + 2 * B) + B * nt * (nt + 1), B * (nt * 64) ** 2,
+        "3c", flag=True)[1]
 
 
 def _v2_ragged_d128(torch, tfa):

@@ -45,8 +45,8 @@
 //      every row of the block sees some key (a masked -1e30 score then
 //      weighs exactly 0); the map flags the q tiles that hold a row with
 //      no visible key, and their blocks visit and mask every tile.
-// The resident blocks per SM (FwdCfg) were set by timing on an H100 (PERF
-// .md §6).  No atomics: two launches give the same bits.
+// The ring depth and the resident blocks per SM (FwdCfg) were set by
+// timing on an H100.  No atomics: two launches give the same bits.
 
 #pragma once
 

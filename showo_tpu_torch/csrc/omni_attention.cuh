@@ -118,7 +118,7 @@ __device__ __forceinline__ void mask_logits(float s[tile::NK][4], int k0,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(tile::THREADS, HD == 64 ? 4 : 2)
+__global__ void __launch_bounds__(tile::THREADS, 4)
 omni_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       const int* __restrict__ seg, const int* __restrict__ pad,
@@ -130,6 +130,7 @@ omni_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float scale_log2) {
   using namespace tile;
   using G = Geom<HD>;
+  static_assert(HD == 64, "head dim 128 runs on attention_fwd_sm90.cuh");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + G::K_OFF;
@@ -172,7 +173,7 @@ omni_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Allow ``kernel`` ``bytes`` of dynamic shared memory on the current device
 // where that is above the default 48 KB (the attribute is the device's, so
-// it is set at every launch).
+// it is set at every launch): kernel 6 at head dim 128.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -189,8 +190,6 @@ inline int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int Q, int S, int H, int Hkv, Strides qs, Strides ks,
                   Strides vs, Strides os, float sm_scale, void* stream) {
   constexpr int bytes = smem_bytes<HD>();
-  const cudaError_t set = allow_smem(omni_attention_kernel<HD>, bytes);
-  if (set != cudaSuccess) return static_cast<int>(set);
   dim3 grid((Q + tile::BLOCK_Q - 1) / tile::BLOCK_Q, H, B);
   omni_attention_kernel<HD><<<grid, tile::THREADS, bytes,
                               static_cast<cudaStream_t>(stream)>>>(
