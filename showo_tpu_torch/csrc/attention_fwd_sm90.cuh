@@ -248,7 +248,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         : masked;
         }
     }
-    tile::softmax_update<HD>(s, m, l, o);
+    tile::softmax_update<HD, tile::Exp2Ftz>(s, m, l, o);
     uint32_t a[4][4];
     to_a(s, a);
     // O += P.V: V read as the MN-major B operand, 16 keys a step, one n64
