@@ -295,10 +295,13 @@ def _ptxas(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]*kernel)(?:I(L[ib]\w+?)E)?", m.group(1))
+            # mangled template arguments: Li64E an int, Lb1E a bool
+            k = re.search(r"([a-z_]*kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = [v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([ib])(\d+)E",
+                                           k.group(2) or "")] if k else []
             name = m.group(1) if k is None else k.group(1) + (
-                "<" + re.sub(r"^L[ib]|E$", "", k.group(2)) + ">"
-                if k.group(2) else "")
+                f"<{', '.join(args)}>" if args else "")
             out.append([name] + (["wgmma serialized (ptxas C7515)"]
                                  if m.group(1) in serialized else []))
         elif name is not None and ("spill" in line or "registers" in line):

@@ -231,9 +231,11 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           Strides dqs, float sm_scale) {
   static_assert(HD == 64, "head dim 64: one 128-byte swizzle row a head row");
   using C = DqCfg<HD>;
-  // one tile's dq product stays in flight, so its stage is refilled one
-  // iteration later
-  constexpr int LOOKAHEAD = C::STAGES - 2;
+  // dq's product is waited for at the end of its iteration, so the stage
+  // read last is free when the next copies are issued: the ring runs
+  // STAGES - 1 tiles ahead.  (Left in flight across the loop's back edge,
+  // it made ptxas serialize every wgmma of the kernel: warning C7515.)
+  constexpr int LOOKAHEAD = C::STAGES - 1;
   extern __shared__ __align__(1024) uint8_t ring_smem[];
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
@@ -291,7 +293,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < n; ++i) {
     cp_async_wait<LOOKAHEAD - 1>();
     fence_proxy_async();
-    // tile i has landed for every thread, and tile i - 2's stage, which
+    // tile i has landed for every thread, and tile i - 1's stage, which
     // is refilled below, is read by no product in flight
     __syncthreads();
     if (i + LOOKAHEAD < n) load_stage(i + LOOKAHEAD);
@@ -309,11 +311,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_ss64(&dp[0][0], gmma_desc_sw128(sb + C::TILE + 32 * kk),
                  gmma_desc_sw128(vb + 32 * kk), kk);
     wgmma_commit();
-    // also the previous tile's dq product: its A registers may be written
     wgmma_wait<0>();
     fence_acc(s);
     fence_acc(dp);
-    fence_acc(acc);
     uint32_t vis = 0xffffffffu;
     if (!(entry & FULL)) {
       const int* seg_s = reinterpret_cast<const int*>(ring_smem + C::META) +
@@ -339,9 +339,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs64_tb(&acc[0][0], a[kk], gmma_desc_sw128_mn(kb + 2048 * kk));
     wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
   }
-  wgmma_wait<0>();
-  fence_acc(acc);
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
   tile::store_scaled<HD>(dq + b * dqs.b + h * dqs.h, dqs.r, q0, S, acc, one);
@@ -404,7 +404,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            float sm_scale) {
   static_assert(HD == 64, "head dim 64: one 128-byte swizzle row a head row");
   using C = DkvCfg<HD>;
-  constexpr int LOOKAHEAD = C::STAGES - 2;
+  // dk's and dv's products are waited for at the end of their step, as
+  // dq_kernel's
+  constexpr int LOOKAHEAD = C::STAGES - 1;
   extern __shared__ __align__(1024) uint8_t ring_smem[];
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
@@ -485,13 +487,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_ss64(&dsr[0][0], gmma_desc_sw128(sb + C::TILE + 32 * kk),
                  gmma_desc_sw128(db + 32 * kk), kk);
     wgmma_commit();
-    // also the previous step's dk / dv products: their A registers may be
-    // written, their stage refilled
     wgmma_wait<0>();
     fence_acc(p);
     fence_acc(dsr);
-    fence_acc(dka);
-    fence_acc(dva);
     // the q tile's map, once for the heads of the group
     if (s % group == 0)
       vis = entry & FULL
@@ -521,10 +519,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs64_tb(&dka[0][0], ads[kk], gmma_desc_sw128_mn(qb + 2048 * kk));
     wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dka);
+    fence_acc(dva);
   }
-  wgmma_wait<0>();
-  fence_acc(dka);
-  fence_acc(dva);
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
   tile::store_scaled<HD>(dk + b * dks.b + kvh * dks.h, dks.r, k0, S, dka,
