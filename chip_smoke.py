@@ -57,29 +57,35 @@ Phases, one or more lines each:
   6. trainable kernels (kernel 7) vs plain: forward (out, lse), dq and
      dk/dv at the stage-1 shape (B=29, S=387, H=32, D=64, bf16, metadata
      of the trainer's fused batch), a GQA case and a ragged S=200 with
-     rows that see no key; errors, median times of kernel, plain version
-     and ``scaled_dot_product_attention`` with the boolean mask (forward,
-     backward, forward + backward), and the bounds; then the same checks
+     rows that see no key; kernel 7 runs the wgmma cores (the forward on
+     csrc/attention_fwd_sm90.cuh, dq and dk/dv on
+     csrc/attention_grad_sm90.cuh) after its tile map, which must equal its
+     plain version byte for byte, each giving the same bits over two
+     launches; errors, median times of kernel, plain version and
+     ``scaled_dot_product_attention`` with the boolean mask (forward,
+     backward, forward + backward), and the bounds; at the stage-1 shape
+     the first kernels (csrc/attention_grad.cuh, kept as the baseline)
+     checked and timed beside them on the same memory; then the same checks
      on two faults planted in the plain versions (V of the wrong kv head,
      one K tile dropped), each of which must fail them
   7. the stage-1 training slice: the first step, then TRAIN_STEPS steps
      on the same batch with every launch count set to 0 before them: per
-     step 48 forward launches (24 layers + 24 recomputed by remat), 24 dq
-     and 24 dk/dv, none of the other kernels; losses finite and falling;
-     median step time, samples/s, peak device memory
+     step 48 forward launches (24 layers + 24 recomputed by remat), 24 dq,
+     24 dk/dv and 48 tile maps (each forward makes one, its backward reads
+     it again), none of the other kernels (the first kernels among them);
+     losses finite and falling; median step time, samples/s, peak device
+     memory
   8. stage-1 training step parity: one full-width step's losses and grad
      norm on ``trainable`` against ``dense``, same weights, batch and
      draws
   6b. kernel 8 vs plain as phase 6, on head-major views of [B, S, H, D]
      tensors (phi's layout) at the 512x512 fused batch (B=12, S=1408),
      a GQA case and the ragged case, with the same planted faults; the
-     count of the batch's rows that see no key; kernel 8 runs on wgmma
-     after a tile map of the metadata, which must equal its plain version
-     byte for byte: the forward on csrc/attention_fwd_sm90.cuh, dq and
-     dk/dv on csrc/attention_grad_sm90.cuh, each giving the same bits over
-     two launches; then kernel 7 at the same shape (past its budget)
-     beside kernel 8, on the same memory: its forward, dq and dk/dv are
-     the first kernels (csrc/attention_grad.cuh), times of both sets
+     count of the batch's rows that see no key; kernel 8 runs the same
+     wgmma cores as kernel 7 after its tile map, checked as there; then at
+     the same shape (past kernel 7's budget), on the same memory, kernel
+     7's first kernels and its cores beside kernel 8, times of the three
+     sets
   7b. the 512x512 training slice as phase 7: 48 / 24 / 24 / 48 launches of
      kernel 8's forward, dq, dk/dv and tile map per step (the forward makes
      the map, the backward reads it again), none of kernel 7 or of the
@@ -188,10 +194,11 @@ KERNELS = {
     "streaming": ("streaming_attention",
                   "showo_tpu/ops/streaming_attention.py:116"),
 }
-# the trainable route's kernels, three per source: counter name -> (the
-# Pallas kernel it replaces, launches per training step; remat "full"
-# runs each layer's forward twice).  Kernel 7 takes the stage-1 rows
-# (S=387), kernel 8 the 512x512 rows (S=1408, past the packed budget).
+# the trainable route's kernels, three and a tile map per source: counter
+# name -> (the Pallas kernel it replaces, launches per training step; remat
+# "full" runs each layer's forward twice, and each forward makes its map).
+# Kernel 7 takes the stage-1 rows (S=387), kernel 8 the 512x512 rows
+# (S=1408, past the packed budget); both run the wgmma cores.
 TRAIN_SOURCE = "packed_attention_grad"
 TRAIN_KERNELS = {
     "packed_attention_grad_fwd": (
@@ -200,7 +207,14 @@ TRAIN_KERNELS = {
         "showo_tpu/ops/packed_attention_grad.py:97", NUM_LAYERS),
     "packed_attention_grad_dkv": (
         "showo_tpu/ops/packed_attention_grad.py:138", NUM_LAYERS),
+    # the Pallas kernels' mask (_mask, computed per block in each of them)
+    "packed_attention_grad_tiles": (
+        "showo_tpu/ops/packed_attention_grad.py:43", 2 * NUM_LAYERS),
 }
+# kernel 7's first mma.sync kernels (csrc/attention_grad.cuh), on no model
+# path: the baseline phases 6 and 6b time the cores against
+FIRST_KERNELS = [f"{TRAIN_SOURCE}_first_{part}"
+                 for part in ("fwd", "dq", "dkv")]
 STREAM_TRAIN_SOURCE = "streaming_attention_grad"
 STREAM_TRAIN_KERNELS = {
     "streaming_attention_grad_fwd": (
@@ -244,8 +258,8 @@ PACKED_WGMMA = "omni_attention_packed_wgmma"
 PACKED_TILES = "omni_attention_packed_tiles"
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
-            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
-            + [GQA_SOURCE, PACKED_WGMMA, PACKED_TILES])
+            + FIRST_KERNELS + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS)
+            + WSMM_CORES + [GQA_SOURCE, PACKED_WGMMA, PACKED_TILES])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -608,9 +622,10 @@ def _planted_faults(shape, plain, v, wrong_v, m, phase):
 
 
 def _kernel_set(torch, kernel, hkv):
-    """The wrappers, plain versions and layout of one trainable kernel set
-    with ``hkv`` kv heads: kernel 7 on the packed [B, S, n*D] layout, or
-    kernel 8 on head-major views of [B, S, n, D] tensors (phi's layout)."""
+    """The wrappers, plain versions, tile map (counter, kernel, plain) and
+    layout of one trainable kernel set with ``hkv`` kv heads: kernel 7 on
+    the packed [B, S, n*D] layout, or kernel 8 on head-major views of
+    [B, S, n, D] tensors (phi's layout)."""
     import functools
 
     from showo_tpu_torch.ops import packed_attention_grad as tpag
@@ -622,7 +637,8 @@ def _kernel_set(torch, kernel, hkv):
                tpag.packed_trainable_dkv, tpag.packed_trainable_fwd_plain,
                tpag.packed_trainable_dq_plain, tpag.packed_trainable_dkv_plain)
         ks = dict(
-            counters=list(TRAIN_KERNELS), lse_empty=tpag.LSE_EMPTY,
+            counters=list(TRAIN_KERNELS)[:3], lse_empty=tpag.LSE_EMPTY,
+            tiles=(tpag.TILES_KERNEL, tpag.tile_map, tpag.tile_map_plain),
             tensor=lambda g, B, S, n: torch.randn(
                 B, S, n * D, generator=g, device="cuda").bfloat16(),
             heads=lambda t: t.unflatten(-1, (-1, D)).transpose(1, 2),
@@ -636,6 +652,7 @@ def _kernel_set(torch, kernel, hkv):
                tsag.trainable_dq_plain, tsag.trainable_dkv_plain)
         ks = dict(
             counters=list(STREAM_TRAIN_KERNELS)[:3], lse_empty=tsag.LSE_EMPTY,
+            tiles=(tsag.TILES_KERNEL, tsag.tile_map, tsag.tile_map_plain),
             tensor=lambda g, B, S, n: torch.randn(
                 B, S, n, D, generator=g, device="cuda").bfloat16()
             .transpose(1, 2),
@@ -649,10 +666,12 @@ def _kernel_set(torch, kernel, hkv):
 def phase_train_kernels(torch, meta, kernel, label, phase):
     """A trainable kernel set (kernel 7 or 8) against its plain versions at
     a training step's shape (``meta``, the metadata of the trainer's fused
-    batch), a GQA case and a ragged S with rows that see no key; then the
-    planted faults.  Kernel 8: its tile map against the plain one, and the
-    forward, dq and dk/dv bit-stable over two launches.  Returns {counter
-    name: result} of the first case."""
+    batch), a GQA case and a ragged S with rows that see no key: its tile
+    map against the plain one, the forward, dq and dk/dv on that map and
+    bit-stable over two launches; then the planted faults.  At the step's
+    shape kernel 7's first kernels are checked and timed beside its cores
+    on the same memory; kernel 8 is timed beside both (past kernel 7's
+    budget).  Returns {counter name: result} of the first case."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
@@ -675,11 +694,9 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                   f"that see no key; {n_vis} visible (row, key) pairs of "
                   f"{B * S * S} ({n_vis / (B * S * S):.4f})")
         q, k, v, dout = (ks["tensor"](g, B, S, n) for n in (H, hkv, hkv, H))
-        # kernel 8's kernels read a tile map, made once per forward
-        bwd = {}
-        if kernel == 8:
-            bwd["tiles"], tiles_result = _tile_map_check(torch, m, shape,
-                                                         phase)
+        # the kernels read a tile map, made once per forward
+        tiles, tiles_result = _tile_map_check(torch, ks, m, shape, phase)
+        bwd = {"tiles": tiles}
         out, lse = ks["fwd"](q, k, v, *m, **bwd)
         lse_err = (lse - ks["fwd_plain"](q, k, v, *m)[1]).abs().max().item()
         if not lse_err <= CARD_TOL or (
@@ -688,8 +705,7 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                                  f"no visible key not marked")
         delta = ks["delta"](out, dout)
         args = (q, k, v, dout, lse, delta, *m)
-        if kernel == 8:
-            _bit_stable(torch, ks, args, bwd["tiles"], shape, phase)
+        _bit_stable(torch, ks, args, tiles, shape, phase)
         # bytes: each input read once and each output written once;
         # operations: 2*D per visible pair, head and product (forward 2
         # products, dq 3, dk/dv 4)
@@ -715,28 +731,45 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
             print(f"[{phase}] {shape}: scaled_dot_product_attention with the "
                   f"boolean mask, forward + backward {fb:.4f} ms (median "
                   f"of 20)")
-        fwd_name, dq_name, dkv_name = ks["counters"]
-        r = {
-            fwd_name: _compare(
-                torch, f"trainable forward {shape}",
-                lambda: ks["fwd"](q, k, v, *m, **bwd)[0],
-                lambda: ks["fwd_plain"](q, k, v, *m)[0],
-                _bound((2 * H + 2 * hkv) * tensor + rows_bytes + meta_bytes,
-                       4 * D * H * n_vis), lib.get("fwd"), phase=phase),
-            dq_name: _compare(
-                torch, f"trainable dq {shape}",
-                lambda: ks["dq"](*args, **bwd), lambda: ks["dq_plain"](*args),
-                _bound((3 * H + 2 * hkv) * tensor + 2 * rows_bytes
-                       + meta_bytes, 6 * D * H * n_vis), lib.get("bwd"),
-                phase=phase, grads=True),
-            dkv_name: _compare(
-                torch, f"trainable dk/dv {shape}",
-                lambda: ks["dkv"](*args, **bwd),
-                lambda: ks["dkv_plain"](*args),
-                _bound((2 * H + 4 * hkv) * tensor + 2 * rows_bytes
-                       + meta_bytes, 8 * D * H * n_vis), lib.get("bwd"),
-                phase=phase, grads=True),
-        }
+        bounds = {
+            "fwd": _bound((2 * H + 2 * hkv) * tensor + rows_bytes
+                          + meta_bytes, 4 * D * H * n_vis),
+            "dq": _bound((3 * H + 2 * hkv) * tensor + 2 * rows_bytes
+                         + meta_bytes, 6 * D * H * n_vis),
+            "dkv": _bound((2 * H + 4 * hkv) * tensor + 2 * rows_bytes
+                          + meta_bytes, 8 * D * H * n_vis)}
+
+        def compare(part, first=False):
+            kw = {"first": True} if first else bwd
+            what = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}[part]
+            call = ((lambda: ks["fwd"](q, k, v, *m, **kw)[0])
+                    if part == "fwd" else (lambda: ks[part](*args, **kw)))
+            plain = ((lambda: ks["fwd_plain"](q, k, v, *m)[0])
+                     if part == "fwd" else (lambda: ks[f"{part}_plain"](
+                         *args)))
+            return _compare(
+                torch, f"trainable {'first ' if first else ''}{what} "
+                f"{shape}", call, plain, bounds[part],
+                lib.get("fwd" if part == "fwd" else "bwd"), phase=phase,
+                grads=part != "fwd")
+
+        r = {name: compare(part)
+             for name, part in zip(ks["counters"], ("fwd", "dq", "dkv"))}
+        r[ks["tiles"][0]] = tiles_result
+        if kernel == 7 and case == label:
+            # the first kernels on the same memory, checked and timed
+            for name, first, part in zip(ks["counters"], FIRST_KERNELS,
+                                         ("fwd", "dq", "dkv")):
+                r[first] = compare(part, first=True)
+                r[name]["old_ms"] = r[first]["ms"]
+            print(f"[{phase}] {shape}: the same inputs, the cores against "
+                  f"the first kernels: "
+                  + "; ".join(f"{part} {r[name]['ms']:.4f} vs "
+                              f"{r[first]['ms']:.4f} ms "
+                              f"({r[first]['ms'] / r[name]['ms']:.2f}x below)"
+                              for name, first, part in zip(
+                                  ks["counters"], FIRST_KERNELS,
+                                  ("forward", "dq", "dk/dv"))))
         lib = heads = o4 = None
         print(f"[{phase}] {shape}: lse max_abs_err {lse_err:.3e}; {empty} "
               f"rows with no visible key (out 0, lse {ks['lse_empty']:g} in "
@@ -750,29 +783,25 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
             "dk/dv": (lambda v_, m_: ks["dkv_plain"](q, k, v_, *args[3:6],
                                                      *m_), True),
         }, v, ks["wrong_v"](v), m, phase)
-        if kernel == 8:
-            r[tsag.TILES_KERNEL] = tiles_result
         if kernel == 8 and case == label:
             old = _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv,
                                           phase)
-            for name, part in ((fwd_name, "fwd"), (dq_name, "dq"),
-                               (dkv_name, "dkv")):
-                r[name]["old_ms"] = old["kernel 7"][part]
+            for name, part in zip(ks["counters"], ("fwd", "dq", "dkv")):
+                r[name]["old_ms"] = old["the first kernels"][part]
         results.setdefault(case, r)
     return results[label]
 
 
-def _tile_map_check(torch, m, shape, phase):
-    """Kernel 8's tile map of metadata ``m`` against its plain version;
+def _tile_map_check(torch, ks, m, shape, phase):
+    """A kernel set's tile map of metadata ``m`` against its plain version;
     returns (the map, its result)."""
-    from showo_tpu_torch.ops import streaming_attention_grad as tsag
-
     B, S = m[0].shape
     nt = -(-S // 64)
+    _, make, plain = ks["tiles"]
     return _map_check(
-        torch, f"{shape}: tile map [{B}, {nt}, {nt}]",
-        lambda: tsag.tile_map(*m), lambda: tsag.tile_map_plain(*m),
-        4 * (2 * B * S + 2 * B) + B * nt * nt, B * (nt * 64) ** 2, phase)
+        torch, f"{shape}: tile map [{B}, {nt}, {nt}]", lambda: make(*m),
+        lambda: plain(*m), 4 * (2 * B * S + 2 * B) + B * nt * nt,
+        B * (nt * 64) ** 2, phase)
 
 
 def _map_check(torch, label, make, plain, nbytes, pairs, phase,
@@ -804,8 +833,8 @@ def _map_check(torch, label, make, plain, nbytes, pairs, phase,
 
 
 def _bit_stable(torch, ks, args, tiles, shape, phase):
-    """Kernel 8's forward, dq and dk/dv give the same bits over two
-    launches (no atomics, a fixed order of the sums)."""
+    """A kernel set's forward, dq and dk/dv give the same bits over two
+    launches on one tile map (no atomics, a fixed order of the sums)."""
     q, k, v, m = *args[:3], args[6:]
     runs = [(*ks["fwd"](q, k, v, *m, tiles=tiles),
              ks["dq"](*args, tiles=tiles), *ks["dkv"](*args, tiles=tiles))
@@ -815,58 +844,63 @@ def _bit_stable(torch, ks, args, tiles, shape, phase):
         raise AssertionError(f"{shape}: out / lse / dq / dk / dv differ "
                              f"over two launches")
     print(f"[{phase}] {shape}: out, lse, dq, dk and dv bit-identical over "
-          f"two launches")
+          f"two launches on one tile map")
 
 
 def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
     """Kernel 7 (the packed trainable kernels, past their TPU budget here)
-    on the same memory as kernel 8's head-major views: its forward, dq and
-    dk/dv are the first kernels (attention_grad.cuh), kernel 8's the wgmma
-    ones.  Each kernel and each autograd Function (forward + backward)
-    timed (CUDA events; kernel 8's kernels with their tile map made
-    once).  Returns {"kernel 7" / "kernel 8": {"fwd", "dq", "dkv": ms}}."""
+    on the same memory as kernel 8's head-major views: its first kernels
+    (attention_grad.cuh) and its wgmma cores, beside kernel 8's.  Each
+    kernel timed (CUDA events; on a tile map made once), and each autograd
+    Function (forward + backward, which makes its own map).  Returns
+    {"the first kernels" / "kernel 7" / "kernel 8": {"fwd", "dq", "dkv":
+    ms}}."""
     from showo_tpu_torch.ops import packed_attention_grad as tpag
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
     k7, k8 = _kernel_set(torch, 7, hkv), _kernel_set(torch, 8, hkv)
     packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v, dout)]
     times, outs = {}, []
-    for name, ks, (q_, k_, v_, d_), fn, bwd in (
+    for name, ks, (q_, k_, v_, d_), fn, kw in (
+            ("the first kernels", k7, packed, None, {"first": True}),
             ("kernel 7", k7, packed, lambda *t: tpag.PackedTrainableAttention
-             .apply(*t, *m, H, hkv, D ** -0.5), {}),
+             .apply(*t, *m, H, hkv, D ** -0.5), {"tiles": tpag.tile_map(*m)}),
             ("kernel 8", k8, (q, k, v, dout), lambda *t: tsag
              .StreamingTrainableAttention.apply(*t, *m, D ** -0.5),
              {"tiles": tsag.tile_map(*m)})):
-        out, lse = ks["fwd"](q_, k_, v_, *m, **bwd)
-        outs.append(out)
+        out, lse = ks["fwd"](q_, k_, v_, *m, **kw)
+        outs.append(out if ks is k7 else out.transpose(1, 2).flatten(2))
         a = (q_, k_, v_, d_, lse, ks["delta"](out, d_), *m)
         leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
         times[name] = [
-            _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m, **bwd)),
-            _time_ms(torch, lambda: ks["dq"](*a, **bwd)),
-            _time_ms(torch, lambda: ks["dkv"](*a, **bwd)),
+            _time_ms(torch, lambda: ks["fwd"](q_, k_, v_, *m, **kw)),
+            _time_ms(torch, lambda: ks["dq"](*a, **kw)),
+            _time_ms(torch, lambda: ks["dkv"](*a, **kw)),
             _time_ms(torch, lambda: torch.autograd.grad(fn(*leaves), leaves,
-                                                        d_))]
-    diff = (outs[0].float() - outs[1].transpose(1, 2).flatten(2).float()
-            ).abs().max().item()
+                                                        d_))
+            if fn is not None else None]
+    diff = max((o.float() - outs[-1].float()).abs().max().item()
+               for o in outs[:2])
     pair = {n: {"fwd": t[0], "dq": t[1], "dkv": t[2]}
             for n, t in times.items()}
     old, new = (pair[n]["dq"] + pair[n]["dkv"]
-                for n in ("kernel 7", "kernel 8"))
+                for n in ("the first kernels", "kernel 8"))
     print(f"[{phase}] the same shape and memory (kernel 7 is past its TPU "
           f"budget here; nothing routes by this): "
           + "; ".join(f"{name} forward {t[0]:.4f}, dq {t[1]:.4f}, dk/dv "
-                      f"{t[2]:.4f}, autograd Function forward + backward "
-                      f"{t[3]:.4f} ms" for name, t in times.items())
-          + f" (medians of 20); forward outputs max |difference| "
-          f"{diff:.3e}")
-    print(f"[{phase}] the same inputs: the first forward (kernel 7's) "
-          f"{pair['kernel 7']['fwd']:.4f} ms; kernel 8's wgmma forward "
+                      f"{t[2]:.4f}"
+                      + (f", autograd Function forward + backward "
+                         f"{t[3]:.4f}" if t[3] is not None else "") + " ms"
+                      for name, t in times.items())
+          + f" (medians of 20); forward outputs max |difference| from "
+          f"kernel 8's {diff:.3e}")
+    first = pair["the first kernels"]
+    print(f"[{phase}] the same inputs: the first forward (kernel 7's "
+          f"baseline) {first['fwd']:.4f} ms; kernel 8's wgmma forward "
           f"{pair['kernel 8']['fwd']:.4f} ms "
-          f"({pair['kernel 7']['fwd'] / pair['kernel 8']['fwd']:.2f}x "
-          f"below); backward pair: the first kernels dq + dk/dv "
-          f"{old:.4f} ms; kernel 8's wgmma kernels {new:.4f} ms "
-          f"({old / new:.2f}x below)")
+          f"({first['fwd'] / pair['kernel 8']['fwd']:.2f}x below); backward "
+          f"pair: the first kernels dq + dk/dv {old:.4f} ms; kernel 8's "
+          f"wgmma kernels {new:.4f} ms ({old / new:.2f}x below)")
     if not diff <= CARD_TOL:
         raise AssertionError(f"kernel 7's and kernel 8's forwards differ by "
                              f"{diff} > {CARD_TOL}")
@@ -1954,6 +1988,14 @@ def main() -> int:
                             "source": f"showo_tpu_torch/csrc/{source}.cu",
                             "replaces": replaces, "launches": counts[name],
                             **res[name]})
+    # the baseline: launched by no path (phase 7 holds them to 0)
+    for name in FIRST_KERNELS:
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{TRAIN_SOURCE}.cu "
+                                  f"(+ attention_grad.cuh)",
+                        "replaces": TRAIN_KERNELS[name.replace(
+                            "_first", "")][0], "launches": 0,
+                        **train_results[name]})
     for name, replaces in WSMM_KERNELS.items():
         cases = wsmm[name]
         case = "win M=1" if name == "int8_matmul" else "probe M=8"

@@ -2,13 +2,15 @@
 // backward of attention_grad_sm90.cuh and on its pieces: omni-masked
 // attention out = softmax(q.k^T * sm_scale, masked) . v with bf16
 // operands and fp32 scores, online softmax and accumulation, every tensor
-// read and written through its (batch, head, row) strides.  Two callers,
+// read and written through its (batch, head, row) strides.  Three callers,
 // two masks (template flag OMNI):
-//   kernel 8's forward (streaming_attention_grad.cu, OMNI = false):
-//     self-attention on head-major views, head dim 64; masked scores are
-//     -inf, so a row with no visible key gets out = 0 and lse = the
-//     caller's sentinel; writes lse.  Replaces the Pallas _fwd_kernel of
-//     showo_tpu/ops/streaming_attention_grad.py::_fwd.
+//   the forwards of kernels 8 and 7 (streaming_attention_grad.cu on
+//     head-major views, packed_attention_grad.cu on the packed layout;
+//     OMNI = false): self-attention, head dim 64; masked scores are -inf,
+//     so a row with no visible key gets out = 0 and lse = the caller's
+//     sentinel (1e30, 1e9); writes lse.  Replaces the Pallas _fwd_kernel
+//     of showo_tpu/ops/streaming_attention_grad.py::_fwd and
+//     packed_attention_grad.py::_fwd.
 //   kernel 1 at head dim 128 (omni_attention_packed.cu, OMNI = true): the
 //     packed [B, S, H*D] layout, q rows by (pos_q, seg_q), Q != S; masked
 //     scores are -1e30, so a row with no visible key averages v over all
@@ -39,7 +41,7 @@
 //      HD = 128).
 //   4. Every K tile visited and masked element by element: here the
 //      block walks the visible K tiles of its row of a tile map made from
-//      the O(S) metadata (agrad90::tile_map_kernel for kernel 8,
+//      the O(S) metadata (agrad90::tile_map_kernel for kernels 7 and 8,
 //      rows_tile_map_kernel for kernel 1's q rows), and masks only the
 //      tiles the map marks partial.  Kernel 1 may skip a tile only where
 //      every row of the block sees some key (a masked -1e30 score then

@@ -1,11 +1,14 @@
 // Omni-masked attention with a trainable forward (out and the per-row
 // logsumexp) and its two backward kernels (dq; dk and dv), for Hopper
-// (sm_90a): bf16 operands, fp32 scores, softmax and accumulation.  Shared
-// by three sources that differ only in layout, sentinel and entry points:
-//   packed_attention_grad.cu     q/k/v [B, S, H*D]  (Pallas kernel 7)
-//   streaming_attention_grad.cu  q/k/v [B, H, S, D]  (Pallas kernel 8)
+// (sm_90a): bf16 operands, fp32 scores, softmax and accumulation: the first
+// kernels of the trainable attention, and the helpers (mask, metadata) the
+// wgmma cores share.  Launched by:
 //   streaming_attention.cu       the forward without lse, Q != S through
 //                                q_positions        (Pallas kernel 5)
+//   packed_attention_grad.cu     all three on q/k/v [B, S, H*D], under the
+//                                packed_attention_grad_first_* entries: the
+//                                baseline of kernel 7's wgmma cores, on no
+//                                model path
 // Every tensor is read and written through its (batch, head, row) strides
 // with a contiguous last dim, so the packed layout and any head-major view
 // of it (phi's [B, S, H, D].transpose(1, 2)) go in without a copy.
@@ -48,10 +51,10 @@
 //   * dk/dv computes S^T = K.Q^T with the block's K rows as the A operand,
 //     so P^T and dS^T come out of the tensor cores already in the layout
 //     of the A operand of P^T.dO and dS^T.Q.
-// mma.sync m16n8k16 (attention_tile.cuh), head dim 64: what kernel 7 (all
-// three kernels) and kernel 5 (the forward) run.  Kernel 8 runs on wgmma
-// with cp.async tile rings: its forward on attention_fwd_sm90.cuh, its
-// backward on attention_grad_sm90.cuh.
+// mma.sync m16n8k16 (attention_tile.cuh), head dim 64: what kernel 5 (the
+// forward) runs.  Kernels 7 and 8 run on wgmma with cp.async tile rings:
+// their forward on attention_fwd_sm90.cuh, their backward on
+// attention_grad_sm90.cuh.
 
 #pragma once
 

@@ -1,15 +1,16 @@
-// Kernel 8's backward for Hopper (sm_90a) on wgmma: dq, and dk with dv,
-// of omni-masked self-attention on head-major [B, H, S, D] views, and the
-// tile map both read.  bf16 operands, fp32 scores, softmax and
+// The backward of kernels 7 and 8 for Hopper (sm_90a) on wgmma: dq, and dk
+// with dv, of omni-masked self-attention on any (batch, head, row) strides
+// (kernel 8's head-major [B, H, S, D] views, kernel 7's packed [B, S, H*D]
+// layout), and the tile map both read.  bf16 operands, fp32 scores, softmax and
 // accumulation; the arithmetic of attention_grad.cuh's dq_kernel /
 // dkv_kernel (P = exp(q.k^T * sm_scale - lse) on visible entries, dS =
 // P * (dP - delta) * sm_scale, P and dS rounded to bf16 for the products
 // dq = dS.K, dk = dS^T.Q, dv = P^T.dO, the GQA group summed in fp32), in
 // another order of the sums.
 //
-// Replaces showo_tpu/ops/streaming_attention_grad.py::_bwd (the Pallas
-// _dq_kernel and _dkv_kernel), as attention_grad.cuh's kernels did before
-// (kernel 7 keeps those).  What bounds it on an H100 at the v1 512x512
+// Replaces showo_tpu/ops/streaming_attention_grad.py::_bwd and
+// packed_attention_grad.py::_bwd (the Pallas _dq_kernel and _dkv_kernel of
+// each), as attention_grad.cuh's kernels did before.  What bounds it on an H100 at the v1 512x512
 // step (B=12, S=1408, H=32, D=64, 0.60 of the pairs visible): 6*D and 8*D
 // FLOP per visible pair and head over ~0.2 GB, the tensor-core rate
 // (0.19 / 0.25 ms at 989 TFLOP/s).  What held the first kernels back, and

@@ -17,8 +17,8 @@
 // each, all with the strides of the caller's head-major views (any
 // [B, H, S, D] view whose last dim is contiguous, e.g. phi's
 // [B, S, H, D].transpose(1, 2), without a copy), 64 x 64 tiles, and the
-// GQA group summed in registers.  Kernel 7 keeps the first kernels of
-// attention_grad.cuh.
+// GQA group summed in registers.  Kernel 7 runs the same cores on its
+// packed layout (packed_attention_grad.cu).
 //
 // What bounds it on an H100 at the v1 512x512 step (B=12, S=1408, H=32,
 // D=64, ~60% of the pairs visible): per layer the forward does ~1.5e11

@@ -4,10 +4,14 @@ decides where this plan applies.
 
 Counterpart of ``showo_tpu/ops/packed_attention_grad.py`` (Pallas kernels
 ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel`` under a custom VJP).  The
-hand-written Hopper kernels are those of ``csrc/attention_grad.cuh``, run
-on the packed layout by ``csrc/packed_attention_grad.cu``; the plain
-versions are kernel 8's (``streaming_attention_grad.py``) on head views.
-Shapes past the budget below go to kernel 8, as in JAX.
+hand-written Hopper kernels are kernel 8's wgmma cores run on the packed
+layout by ``csrc/packed_attention_grad.cu``: a tile map from the O(S)
+metadata (:func:`tile_map`: per (q tile, k tile) pair of 64 rows, no
+visible entry / some / all), made once per forward and kept for the
+backward; the forward of ``csrc/attention_fwd_sm90.cuh``; dq and dk/dv of
+``csrc/attention_grad_sm90.cuh``.  The plain versions are kernel 8's
+(``streaming_attention_grad.py``) on head views.  Shapes past the budget
+below go to kernel 8, as in JAX.
 Self-attention (Q == S) on the packed layout: q [B, S, H*D], k and v
 [B, S, Hkv*D] (GQA: Hkv divides H), with the omni mask recomputed from
 O(S) metadata:
@@ -27,8 +31,12 @@ kernels).  A row with no visible key gets a zero output, ``lse = 1e9`` and
 What bounds the kernels on an H100 and their design are in the source.
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels (bf16, head dim 64, contiguous operands) or raise.
-``cuda_build.launches`` counts the launches of each of the three kernels
-under ``packed_attention_grad_fwd``, ``_dq`` and ``_dkv``.
+``cuda_build.launches`` counts the launches of the three kernels under
+``packed_attention_grad_fwd``, ``_dq`` and ``_dkv``, and of the tile map
+under ``_tiles``.  ``first=True`` launches the first ``mma.sync`` kernels
+of ``csrc/attention_grad.cuh`` instead (no tile map; counted under
+``packed_attention_grad_first_fwd``, ``_dq``, ``_dkv``): a baseline to
+time the cores against, on no model path.
 """
 
 from __future__ import annotations
@@ -44,19 +52,24 @@ from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops.flash_attention import span_meta
 from showo_tpu_torch.ops.masks import NEG_INF
 from showo_tpu_torch.ops.streaming_attention_grad import (
-    attention_delta as streaming_delta, omni_attention_trainable,
-    self_visible, trainable_dkv_plain, trainable_dq_plain,
-    trainable_fwd_plain)
+    TILE, attention_delta as streaming_delta, check_meta,
+    omni_attention_trainable, self_visible, tile_map_plain,
+    trainable_dkv_plain, trainable_dq_plain, trainable_fwd_plain)
 
 SOURCE = "packed_attention_grad"
 KERNELS = tuple(f"{SOURCE}_{part}" for part in ("fwd", "dq", "dkv"))
+TILES_KERNEL = f"{SOURCE}_tiles"
+# the first mma.sync kernels, kept as a baseline
+FIRST_KERNELS = tuple(f"{SOURCE}_first_{part}"
+                      for part in ("fwd", "dq", "dkv"))
 # lse of a row with no visible key (the JAX kernel's -NEG_INF)
 LSE_EMPTY = -NEG_INF
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P] * 9 + [_I] * 5 + [_F]
-_DQ_ARGS = [_P] * 11 + [_I] * 5 + [_F]
-_DKV_ARGS = [_P] * 12 + [_I] * 5 + [_F]
+# (pointers, ints) of each entry; the wgmma entries take the tile map as one
+# more pointer
+_ARGS = {"fwd": 9, "dq": 11, "dkv": 12}
+_TILES_ARGS = [_P] * 5 + [_I] * 2
 
 # Budget of the packed plan: the Pallas kernels hold the full K/V (and the
 # q/do rows of the dk/dv kernel) in TPU VMEM, ~Sp * (2*HD + 2*KVD) * 2 bytes;
@@ -165,10 +178,55 @@ def _device(q) -> str:
     return q.device.type
 
 
+def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
+    """The kernels' tile map (``tile_map_plain`` of kernel 8, the same
+    function): for CUDA metadata (int32 and contiguous, as
+    :func:`span_meta` returns it) the kernel of
+    ``csrc/attention_grad_sm90.cuh``, counted under ``TILES_KERNEL``."""
+    if _device(seg) == "cpu":
+        return tile_map_plain(seg, pad, last_pad, prefix)
+    check_meta(SOURCE, seg, pad, last_pad, prefix)
+    B, S = seg.shape
+    nt = -(-S // TILE)
+    tiles = torch.empty((B, nt, nt), dtype=torch.uint8, device=seg.device)
+    cuda_build.launch(
+        SOURCE, TILES_KERNEL, _TILES_ARGS, seg.device,
+        *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
+        tiles.data_ptr(), B, S, kernel=TILES_KERNEL)
+    return tiles
+
+
+def _launch(part: str, q, pointers, meta, tiles, first: bool, num_heads,
+            num_kv_heads, sm_scale) -> None:
+    """Launch kernel ``part`` ("fwd", "dq", "dkv"): the wgmma one on
+    ``tiles`` (made here when None), or with ``first`` the first one."""
+    B, S, HD = q.shape
+    name = f"{SOURCE}_{'first_' if first else ''}{part}"
+    extra = []
+    if not first:
+        if tiles is None:
+            tiles = tile_map(*meta)
+        nt = -(-S // TILE)
+        if (tiles.dtype != torch.uint8 or tuple(tiles.shape) != (B, nt, nt)
+                or not tiles.is_contiguous() or tiles.device != q.device):
+            raise ValueError(f"{SOURCE}: tiles must be the uint8 contiguous "
+                             f"{(B, nt, nt)} map of tile_map on {q.device}")
+        extra = [tiles.data_ptr()]
+    cuda_build.launch(
+        SOURCE, f"{name}_bf16",
+        [_P] * (_ARGS[part] + len(extra)) + [_I] * 5 + [_F], q.device,
+        *(t.data_ptr() for t in pointers),
+        *(m.data_ptr() for m in meta), *extra,
+        B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
+        kernel=name)
+
+
 def packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
                          num_heads: int, num_kv_heads: int,
-                         sm_scale: float):
-    """(out, lse); metadata int32 as :func:`span_meta` returns it."""
+                         sm_scale: float, tiles=None, first: bool = False):
+    """(out, lse); metadata int32 as :func:`span_meta` returns it;
+    ``tiles``: :func:`tile_map` of the metadata, made here when not
+    given; ``first``: the first kernel (no map)."""
     if _device(q) == "cpu":
         return packed_trainable_fwd_plain(
             q, k, v, seg, pad, last_pad, prefix, num_heads=num_heads,
@@ -177,69 +235,61 @@ def packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
     _check({"q": q, "k": k, "v": v}, _shapes(q, num_heads, num_kv_heads))
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
-    cuda_build.launch(
-        SOURCE, "packed_attention_grad_fwd_bf16", _FWD_ARGS, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
-        kernel=KERNELS[0])
+    _launch("fwd", q, (q, k, v, out, lse), (seg, pad, last_pad, prefix),
+            tiles, first, num_heads, num_kv_heads, sm_scale)
     return out, lse
 
 
 def packed_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
                         prefix, *, num_heads: int, num_kv_heads: int,
-                        sm_scale: float):
+                        sm_scale: float, tiles=None, first: bool = False):
+    """dq [B, S, H*D]; ``tiles`` and ``first`` as for
+    :func:`packed_trainable_fwd`."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
               sm_scale=sm_scale)
     if _device(q) == "cpu":
         return packed_trainable_dq_plain(q, k, v, dout, lse, delta, seg, pad,
                                          last_pad, prefix, **kw)
-    B, S, HD = q.shape
     _check({"q": q, "k": k, "v": v, "dout": dout, "lse": lse,
             "delta": delta}, _shapes(q, num_heads, num_kv_heads))
     dq = torch.empty_like(q)
-    cuda_build.launch(
-        SOURCE, "packed_attention_grad_dq_bf16", _DQ_ARGS, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
-        kernel=KERNELS[1])
+    _launch("dq", q, (q, k, v, dout, lse, delta, dq),
+            (seg, pad, last_pad, prefix), tiles, first, **kw)
     return dq
 
 
 def packed_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
                          prefix, *, num_heads: int, num_kv_heads: int,
-                         sm_scale: float):
+                         sm_scale: float, tiles=None, first: bool = False):
+    """(dk, dv) [B, S, Hkv*D], each GQA group summed; ``tiles`` and
+    ``first`` as for :func:`packed_trainable_fwd`."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
               sm_scale=sm_scale)
     if _device(q) == "cpu":
         return packed_trainable_dkv_plain(q, k, v, dout, lse, delta, seg,
                                           pad, last_pad, prefix, **kw)
-    B, S, HD = q.shape
     _check({"q": q, "k": k, "v": v, "dout": dout, "lse": lse,
             "delta": delta}, _shapes(q, num_heads, num_kv_heads))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    cuda_build.launch(
-        SOURCE, "packed_attention_grad_dkv_bf16", _DKV_ARGS, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
-        B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
-        kernel=KERNELS[2])
+    _launch("dkv", q, (q, k, v, dout, lse, delta, dk, dv),
+            (seg, pad, last_pad, prefix), tiles, first, **kw)
     return dk, dv
 
 
 class PackedTrainableAttention(torch.autograd.Function):
     """out = attention(q, k, v) with the forward and backward of this
     module: the kernels for CUDA tensors, the plain versions for CPU
-    tensors.  Metadata as :func:`span_meta` returns it."""
+    tensors.  Metadata as :func:`span_meta` returns it.  On CUDA the
+    forward makes the tile map once and the backward reads it again (a
+    forward recomputed under remat makes its own)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, pad, last_pad, prefix, num_heads,
                 num_kv_heads, sm_scale):
         kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
                   sm_scale=sm_scale)
+        if q.is_cuda:
+            kw["tiles"] = tile_map(seg, pad, last_pad, prefix)
         out, lse = packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix,
                                         **kw)
         ctx.save_for_backward(q, k, v, out, lse, seg, pad, last_pad, prefix)

@@ -12,8 +12,8 @@ ring and no transposed copies: a tile map from the O(S) metadata
 entry / some / all), made once per forward and kept for the backward;
 the forward of ``csrc/attention_fwd_sm90.cuh``; dq and dk/dv of
 ``csrc/attention_grad_sm90.cuh``.  Each fetches only the visible tiles and
-masks only those not all visible.  (Kernel 7 keeps the first kernels of
-``csrc/attention_grad.cuh``.)
+masks only those not all visible.  (Kernel 7 runs the same cores on its
+packed layout.)
 
 Self-attention (Q == S) on head-major views: q [B, H, S, D], k and v
 [B, Hkv, S, D] (GQA: Hkv divides H), with the mask of
@@ -221,20 +221,27 @@ def streaming_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
     return out, lse
 
 
-def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
-    """The kernels' tile map (:func:`tile_map_plain`): for CUDA
-    metadata (int32, as :func:`span_meta` returns it) the kernel of
-    ``csrc/attention_grad_sm90.cuh``, counted under ``TILES_KERNEL``."""
-    if _device(seg) == "cpu":
-        return tile_map_plain(seg, pad, last_pad, prefix)
+def check_meta(kernel: str, seg, pad, last_pad, prefix) -> None:
+    """What a tile map kernel reads: int32 contiguous seg / pad [B, S]
+    and last_pad / prefix [B] on seg's device."""
     B, S = seg.shape
     for name, m, shape in (("seg", seg, (B, S)), ("pad", pad, (B, S)),
                            ("last_pad", last_pad, (B,)),
                            ("prefix", prefix, (B,))):
         if (m.dtype != torch.int32 or tuple(m.shape) != shape
                 or not m.is_contiguous() or m.device != seg.device):
-            raise ValueError(f"{SOURCE}: {name} must be int32 contiguous "
+            raise ValueError(f"{kernel}: {name} must be int32 contiguous "
                              f"{shape} on {seg.device}")
+
+
+def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
+    """The kernels' tile map (:func:`tile_map_plain`): for CUDA
+    metadata (int32, as :func:`span_meta` returns it) the kernel of
+    ``csrc/attention_grad_sm90.cuh``, counted under ``TILES_KERNEL``."""
+    if _device(seg) == "cpu":
+        return tile_map_plain(seg, pad, last_pad, prefix)
+    check_meta(SOURCE, seg, pad, last_pad, prefix)
+    B, S = seg.shape
     nt = -(-S // TILE)
     tiles = torch.empty((B, nt, nt), dtype=torch.uint8, device=seg.device)
     cuda_build.launch(

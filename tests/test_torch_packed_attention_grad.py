@@ -1,6 +1,7 @@
 """showo_tpu_torch trainable packed omni attention (forward + dq + dk/dv)
 vs the JAX package's Pallas kernels in interpret mode and vs autograd of
-dense attention.
+dense attention; the kernels' tile map against the block reduction of the
+JAX kernels' own mask predicate (``_mask``), exactly.
 
 Inputs are made with numpy from a seed: S not a multiple of 128 or 64,
 pads, an image segment, a prefix, and rows with no visible key.  fp32 on
@@ -10,7 +11,8 @@ autograd of the dense function at 1e-4 (the same fp32 math in another
 order).  The card tests hold the kernels to the plain versions as
 chip_smoke.py does (bf16 outputs): out and lse to a max abs error of
 2e-2, the gradients to a relative norm error ||kernel - plain|| /
-||plain|| of 1e-2."""
+||plain|| of 1e-2; the wgmma kernels to the same bits over two launches
+on one tile map, and the tile map kernel to its plain version exactly."""
 
 from unittest import mock
 
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from showo_tpu.ops import flash_attention as jfa
 from showo_tpu.ops import packed_attention_grad as jpag
 from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops import packed_attention_grad as tpag
@@ -176,6 +179,65 @@ def test_stage1_fits_and_512_training_raises():
                                atol=1e-5)
 
 
+PAD, SOI, EOI, MMU = 900, 901, 902, 903
+
+
+def _map_meta(kind):
+    """[seg, pad, last_pad, prefix] int32 numpy metadata: ``stage1`` a
+    fused batch like the stage-1 trainer's at S = 387 (two t2i rows by
+    JAX's predict-next metadata, left pads pruned; two lm rows, pads
+    visible; two mmu rows by JAX's mmu metadata, the batch-first eoi's
+    prefix visible), ``ragged`` S = 200 with rows 3..5 of batch row 1
+    seeing no key (:func:`_setup`'s)."""
+    if kind == "ragged":
+        return [np.asarray(a, np.int32) for a in _setup()[3:]]
+    rng = np.random.default_rng(12)
+
+    def text(n):
+        return rng.integers(5, 800, size=n).tolist()
+
+    t2i = np.asarray([[PAD] * p + text(129 - p) + [SOI] + text(256) + [EOI]
+                      for p in (0, 37)])
+    lm = np.asarray([text(300) + [PAD] * 87, text(387)])
+    mmu = np.asarray([[MMU, SOI] + text(256) + [EOI] + text(128)] * 2)
+    lm_meta = [np.asarray(jfa.seg_from_soi_eoi(jnp.asarray(lm), SOI, EOI)),
+               np.zeros(lm.shape, np.int32), np.full((2,), -1, np.int32),
+               np.zeros((2,), np.int32)]
+    parts = zip(jfa.metadata_predict_next(jnp.asarray(t2i), PAD, SOI, EOI),
+                lm_meta, jfa.metadata_mmu(jnp.asarray(mmu), EOI))
+    return [np.concatenate([np.asarray(m, np.int32) for m in p])
+            for p in parts]
+
+
+@pytest.mark.parametrize("kind", ["stage1", "ragged"])
+def test_tile_map_vs_jax_mask(kind):
+    """The kernels' tile map: for each (q tile, k tile) pair of 64 rows,
+    whether any / every entry is visible, against the block reduction of
+    the Pallas kernels' own predicate (``_mask``, which also masks keys
+    past S) on each 64-row block, with the q rows past S left out."""
+    meta = _map_meta(kind)
+    seg, pad, last_pad, prefix = meta
+    B, S = seg.shape
+    nt = -(-S // 64)
+    got = tpag.tile_map(*(torch.as_tensor(m) for m in meta))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (B, nt, nt)
+    segp, padp = (np.pad(m, ((0, 0), (0, nt * 64 - S))) for m in (seg, pad))
+    want = np.zeros((B, nt, nt), np.uint8)
+    for b in range(B):
+        for i in range(nt):
+            rows = i * 64 + np.arange(64, dtype=np.int32)
+            vis = np.asarray(jpag._mask(
+                jnp.asarray(rows), jnp.asarray(segp[b, i * 64:][:64]),
+                jnp.asarray(segp[b]), jnp.asarray(padp[b]),
+                int(last_pad[b]), int(prefix[b]), 64, nt * 64, S))
+            blocks = (vis & (rows < S)[:, None]).reshape(64, nt, 64)
+            want[b, i] = (blocks.any(axis=(0, 2)).astype(np.uint8)
+                          + 2 * blocks.all(axis=(0, 2)).astype(np.uint8))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # skipped, masked and all-visible pairs all occur
+    assert set(np.unique(want).tolist()) == {0, 1, 3}
+
+
 def test_wrappers_refuse_other_devices():
     q = torch.zeros((1, 8, D), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -228,6 +290,102 @@ def test_kernels_vs_plain_on_card(H, Hkv, S):
     _close(lse, p_lse, "lse")
     assert (out[1, 3:6] == 0).all() and (lse[1, :, 3:6] == 1e9).all()
     args = (q, k, v, dout, lse, delta, *meta)
+    _close(dq, tpag.packed_trainable_dq_plain(*args, **kw), "dq", grads=True)
+    p_dk, p_dv = tpag.packed_trainable_dkv_plain(*args, **kw)
+    _close(dk, p_dk, "dk", grads=True)
+    _close(dv, p_dv, "dv", grads=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,S", [(8, 8, 387), (8, 2, 200), (4, 4, 130)])
+def test_wgmma_kernels_on_one_map_on_card(H, Hkv, S):
+    """The wgmma forward, dq and dk/dv on one tile map made beforehand (as
+    the Function's forward makes it for its backward): no map launch in
+    the calls, the same bits over two launches, against the plain
+    versions; the rows that see no key (3..5 of batch row 1) at out 0,
+    lse 1e9 and dq 0 (P = 0); the map equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, meta = _card_inputs(dev, 2, S, H, Hkv, seed=S + Hkv)
+    kw = dict(num_heads=H, num_kv_heads=Hkv, sm_scale=D ** -0.5)
+    g = torch.Generator(device=dev).manual_seed(2)
+    dout = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    tiles = tpag.tile_map(*meta)
+    assert torch.equal(tiles, tpag.tile_map_plain(*meta))
+    names = tpag.KERNELS + (tpag.TILES_KERNEL,)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = []
+    for _ in range(2):
+        out, lse = tpag.packed_trainable_fwd(q, k, v, *meta, **kw,
+                                             tiles=tiles)
+        delta = tpag.attention_delta(out, dout, H)
+        args = (q, k, v, dout, lse, delta, *meta)
+        runs.append((out, lse,
+                     tpag.packed_trainable_dq(*args, **kw, tiles=tiles),
+                     *tpag.packed_trainable_dkv(*args, **kw, tiles=tiles)))
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} \
+        == {**{n: 2 for n in tpag.KERNELS}, tpag.TILES_KERNEL: 0}
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, lse, dq, dk, dv = runs[0]
+    assert (out[1, 3:6] == 0).all() and (lse[1, :, 3:6] == 1e9).all()
+    assert (dq[1, 3:6] == 0).all()
+    p_out, p_lse = tpag.packed_trainable_fwd_plain(q, k, v, *meta, **kw)
+    _close(out, p_out, "out")
+    _close(lse, p_lse, "lse")
+    _close(dq, tpag.packed_trainable_dq_plain(*args, **kw), "dq", grads=True)
+    p_dk, p_dv = tpag.packed_trainable_dkv_plain(*args, **kw)
+    _close(dk, p_dk, "dk", grads=True)
+    _close(dv, p_dv, "dv", grads=True)
+
+
+@pytest.mark.cuda
+def test_function_makes_one_map_per_forward_on_card():
+    """The autograd Function's forward makes one tile map and its backward
+    reads it again: one map, one forward, dq and dk/dv launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, meta = _card_inputs(dev, 2, 387, 4, 4, seed=6)
+    names = tpag.KERNELS + (tpag.TILES_KERNEL,) + tpag.FIRST_KERNELS
+    before = {n: cuda_build.launches[n] for n in names}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tpag.omni_attention_packed_trainable(*leaves, *meta, num_heads=4)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        **{n: 1 for n in tpag.KERNELS + (tpag.TILES_KERNEL,)},
+        **{n: 0 for n in tpag.FIRST_KERNELS}}
+
+
+@pytest.mark.cuda
+def test_first_kernels_vs_plain_on_card():
+    """The first mma.sync kernels, kept as the cores' baseline, launch
+    under their own counters and hold to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    H, Hkv = 8, 2
+    q, k, v, meta = _card_inputs(dev, 2, 200, H, Hkv, seed=8)
+    kw = dict(num_heads=H, num_kv_heads=Hkv, sm_scale=D ** -0.5, first=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    dout = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    names = tpag.KERNELS + (tpag.TILES_KERNEL,) + tpag.FIRST_KERNELS
+    before = {n: cuda_build.launches[n] for n in names}
+    out, lse = tpag.packed_trainable_fwd(q, k, v, *meta, **kw)
+    delta = tpag.attention_delta(out, dout, H)
+    args = (q, k, v, dout, lse, delta, *meta)
+    dq = tpag.packed_trainable_dq(*args, **kw)
+    dk, dv = tpag.packed_trainable_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        **{n: 0 for n in tpag.KERNELS + (tpag.TILES_KERNEL,)},
+        **{n: 1 for n in tpag.FIRST_KERNELS}}
+    del kw["first"]
+    _close(out, tpag.packed_trainable_fwd_plain(q, k, v, *meta, **kw)[0],
+           "out")
     _close(dq, tpag.packed_trainable_dq_plain(*args, **kw), "dq", grads=True)
     p_dk, p_dv = tpag.packed_trainable_dkv_plain(*args, **kw)
     _close(dk, p_dk, "dk", grads=True)
