@@ -38,17 +38,23 @@ Phases, one or more lines each:
 
   1. device: card name and power limit, torch / CUDA versions; TF32 off
   2. build: nvcc builds the ten kernel sources of csrc/, in parallel, and
-     ptxas' registers and spills of each entry function (kernel 1 at head
-     dims 64 and 128, kernel 6 at both)
+     ptxas' registers and spills of each entry function with its template
+     arguments (the forward core at <64, false>, <64, true> and <128,
+     true>; kernel 6 at both head dims), and "wgmma serialized" where
+     ptxas warned C7515
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
-     layout): the packed kernel at 512x512 and one GQA case; omni, decode,
-     fused and streaming at 512x512 (Q=1026, K=1155) and 256x256 (Q=258,
-     K=387), streaming also with GQA; max abs error, median times (CUDA
-     events) of kernel, plain version and one library call of the same
-     function, and the bound
+     layout): the packed kernel (kernel 1, on the wgmma forward core) at
+     512x512 on the tile map its forward makes once, which must equal its
+     plain version byte for byte, and one GQA case, beside kernel 4 (the
+     first tile core) on head-major views of the same memory; omni,
+     decode, fused and streaming at 512x512 (Q=1026, K=1155) and 256x256
+     (Q=258, K=387), streaming also with GQA; max abs error, median times
+     (CUDA events) of kernel, plain version and one library call of the
+     same function, and the bound
   4. the t2i slice, per route: over one generate call the route's kernel
-     launches 24 layers x 16 steps times and every other kernel none;
+     launches 24 layers x 16 steps times (on ``packed`` all on the wgmma
+     core, reading 16 tile maps, one a forward) and every other kernel none;
      codes in the codebook; images finite, NHWC, in [-1, 1]; warm
      seconds per batch and images/min
   5. step parity, per route: one full-width cached step with the route's
@@ -120,20 +126,20 @@ Phases, one or more lines each:
      tower's features (576 x 1024, timed)
   3c. kernels 1 and 6 at the Show-o2 432x432 slice's shapes: B=8 rows, S
      the slice's truncated sequence, its span metadata; Qwen2.5 (12 q / 2
-     kv heads, D=128: kernel 1 on the wgmma core of
-     csrc/attention_fwd_sm90.cuh, after its tile map, which must equal its
-     plain version byte for byte) and the DiT (32 / 8, D=64); kernel 6
-     (the first tile core) beside kernel 1 on the same inputs; the fault
-     of V read from the neighbouring kv head planted in each plain version
-     must fail the check; median times of kernel, plain version and
-     scaled_dot_product_attention with the boolean mask, and the bound;
-     then kernel 1 at D=128 on a ragged S=200 whose rows 6..9 see no key
-     (they must average v over the S keys), the same bits over two
-     launches
+     kv heads, D=128) and the DiT (32 / 8, D=64), kernel 1 on the wgmma
+     core of csrc/attention_fwd_sm90.cuh at both (every launch counted
+     there), after its tile map, which must equal its plain version byte
+     for byte; kernel 6 (the first tile core) beside kernel 1 on the same
+     inputs; the fault of V read from the neighbouring kv head planted in
+     each plain version must fail the check; median times of kernel, plain
+     version and scaled_dot_product_attention with the boolean mask, and
+     the bound; then kernel 1 at both head dims on a ragged S=200 whose
+     rows 6..9 see no key (they must average v over the S keys), the same
+     bits over two launches
   12. the Show-o2 slice: over one generate call kernel 1 launches 38 x 49
-     times (28 Qwen + 10 DiT layers, 49 velocity evaluations), 28 x 49 of
-     them on the wgmma core, all reading one tile map made with the
-     generate's metadata; every other kernel (kernel 6 among them) none;
+     times (28 Qwen + 10 DiT layers, 49 velocity evaluations), all on the
+     wgmma core, all reading one tile map made with the generate's
+     metadata; every other kernel (kernel 6 among them) none;
      images finite, NHWC, in [-1, 1]; warm seconds per batch, images/min,
      peak device memory
   13. one full-width velocity evaluation on the packed route against
@@ -251,8 +257,8 @@ WSMM_CORES = ["int8_matmul_gemv", "int8_matmul_mma", PREFILL_KERNEL,
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
                             "showo_tpu/ops/flash_attention.py:338")
-# kernel 1 at head dim 128 (the Qwen2.5 layers): its launches on the wgmma
-# forward core, also counted under omni_attention_packed, and its tile map
+# kernel 1's launches on the wgmma forward core (all of them, at head dims
+# 64 and 128), also counted under omni_attention_packed, and its tile map
 # (the Pallas kernel's mask, computed per block from the metadata)
 PACKED_WGMMA = "omni_attention_packed_wgmma"
 PACKED_TILES = "omni_attention_packed_tiles"
@@ -496,22 +502,50 @@ def phase_kernels(torch, uni, prompts, cfg, device):
                 q4, k4, v4, attn_mask=m, **kw)
 
         if res == "512":
+            # kernel 1 on the wgmma core, on the tile map its forward makes
+            # once (models/phi.py attn_step)
+            nt = (-(-Q // 64), -(-L // 64))
+            tiles, out["tiles"] = _map_check(
+                torch, f"kernel 1's tile map {shape} [{B}, {nt[0]}, "
+                f"{nt[1] + 1}]", lambda: tfa.rows_tile_map(*meta, pos_q,
+                                                           seg_q),
+                lambda: tfa.rows_tile_map_plain(*meta, pos_q),
+                meta_bytes + B * nt[0] * (nt[1] + 1),
+                B * nt[0] * nt[1] * 64 ** 2, 3, flag=True)
             for hkv in (H, H // 4):
                 q, k, v = randn(B, Q, H * D), randn(B, L, hkv * D), randn(
                     B, L, hkv * D)
-                heads = (t.unflatten(-1, (-1, D)).transpose(1, 2)
-                         for t in (q, k, v))
+                heads = [t.unflatten(-1, (-1, D)).transpose(1, 2)
+                         for t in (q, k, v)]
+                kernel1 = (lambda: tfa.omni_attention_packed(
+                    q, k, v, *meta, num_heads=H, num_kv_heads=hkv,
+                    q_positions=pos_q, seg_q=seg_q, tiles=tiles))
                 r = _compare(
                     torch, f"omni_attention_packed {shape} Hkv={hkv}",
-                    lambda: tfa.omni_attention_packed(
-                        q, k, v, *meta, num_heads=H, num_kv_heads=hkv,
-                        q_positions=pos_q, seg_q=seg_q),
+                    kernel1,
                     lambda: tfa.omni_attention_packed_plain(
                         q, k, v, *meta, pos_q, num_heads=H,
                         num_kv_heads=hkv, sm_scale=D ** -0.5),
                     _bound(2 * (2 * B * Q * H + 2 * B * L * hkv) * D
                            + meta_bytes, flops),
                     sdpa(*heads, enable_gqa=hkv != H))
+                if hkv == H:
+                    # kernel 4, the same function on the first tile core,
+                    # on head-major views of the same memory
+                    kernel4 = (lambda: tfa.omni_attention(
+                        *heads, *meta, q_positions=pos_q, seg_q=seg_q))
+                    diff = (kernel4().transpose(1, 2).flatten(2).float()
+                            - kernel1().float()).abs().max().item()
+                    r["old_ms"] = _time_ms(torch, kernel4)
+                    print(f"[3] {shape}: kernel 1 (wgmma core) "
+                          f"{r['ms']:.4f} ms beside kernel 4 (the first "
+                          f"tile core) on the same memory "
+                          f"{r['old_ms']:.4f} ms ({r['old_ms'] / r['ms']:.2f}"
+                          f"x below; median of 20); outputs max |difference| "
+                          f"{diff:.3e} (tol {CARD_TOL:.0e})")
+                    if not diff <= CARD_TOL:
+                        raise AssertionError(f"kernel 1 and kernel 4 differ "
+                                             f"by {diff}")
                 out["packed"].setdefault(res, r)
 
         # omni: transposed [B, S, H, D] views, as phi's omni route passes
@@ -1010,6 +1044,10 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
     pipe.generate(prompts, gen)                       # warm-up
     want = {name: 0 for name in COUNTERS}
     want[KERNELS[route][0]] = NUM_LAYERS * TIMESTEPS
+    if route == "packed":
+        # every launch on the wgmma core, one tile map a forward
+        want[PACKED_WGMMA] = NUM_LAYERS * TIMESTEPS
+        want[PACKED_TILES] = TIMESTEPS
 
     cuda_build.launches.clear()
     images = pipe.generate(prompts, gen)
@@ -1037,15 +1075,18 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
         raise AssertionError(f"{route}: codes out of range "
                              f"{tuple(codes.shape)}")
     wall = statistics.median(walls)
+    core = (f" (all {counts[PACKED_WGMMA]} on the wgmma core, reading "
+            f"{counts[PACKED_TILES]} tile maps, one a forward)"
+            if route == "packed" else "")
     print(f"[4] slice t2i 512x512 route {route}, {TIMESTEPS} steps, CFG "
           f"1.75, batch {BATCH}, bf16, random weights (setup {setup_s:.1f} "
           f"s): launches per generate {counts[KERNELS[route][0]]} = "
-          f"{NUM_LAYERS} x {TIMESTEPS} of {KERNELS[route][0]}, 0 of the "
-          f"others; images {images.shape} finite in [-1, 1]; warm wall "
+          f"{NUM_LAYERS} x {TIMESTEPS} of {KERNELS[route][0]}{core}, 0 of "
+          f"the others; images {images.shape} finite in [-1, 1]; warm wall "
           f"{wall:.4f} s/batch (median of 3: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
           f"{BATCH * 60.0 / wall:.2f} images/min on {smi}")
-    return pipe, counts[KERNELS[route][0]]
+    return pipe, {n: c for n, c in counts.items() if c}
 
 
 def phase_step_parity(torch, pipe, prompts, device):
@@ -1533,6 +1574,7 @@ def phase_v2_kernels(torch, pipe, prompts):
     Returns {"packed": {label: result}, "stacked": {label: result}}."""
     import torch.nn.functional as F
 
+    from showo_tpu_torch.ops import cuda_build
     from showo_tpu_torch.ops import flash_attention as tfa
 
     text, mp = pipe.build_inputs(prompts)
@@ -1576,10 +1618,16 @@ def phase_v2_kernels(torch, pipe, prompts):
                                                         **kw),
             "stacked": lambda: tfa.omni_attention_packed(
                 q, k, v, *m, gqa_stack=True, **rows, **kw)}
+        before = {n: cuda_build.launches[n]
+                  for n in ("omni_attention_packed", PACKED_WGMMA)}
         for which, num in (("packed", 1), ("stacked", 6)):
             out[which][label] = _compare(
                 torch, f"kernel {num} {shape}", kernels[which],
                 lambda: plains[which](v), bound, sdpa, phase="3c")
+        made = {n: cuda_build.launches[n] - c for n, c in before.items()}
+        if made["omni_attention_packed"] != made[PACKED_WGMMA]:
+            raise AssertionError(f"{shape}: kernel 1 launches {made}, not "
+                                 f"all on the wgmma core")
         beside = (kernels["packed"]().float()
                   - kernels["stacked"]().float()).abs().max().item()
         wrong = v.view(B, L, Hkv, D).roll(1, dims=2).reshape(v.shape)
@@ -1598,7 +1646,8 @@ def phase_v2_kernels(torch, pipe, prompts):
         out["packed"][label]["old_ms"] = out["stacked"][label]["ms"]
         del q, k, v, heads, wrong
     out["tiles"] = _v2_tile_map_check(torch, tfa, meta)
-    _v2_ragged_d128(torch, tfa)
+    for _, H_, Hkv_, D_ in V2_SHAPES:
+        _v2_ragged(torch, tfa, H_, Hkv_, D_)
     return out
 
 
@@ -1616,15 +1665,15 @@ def _v2_tile_map_check(torch, tfa, meta):
         "3c", flag=True)[1]
 
 
-def _v2_ragged_d128(torch, tfa):
-    """Kernel 1 at D=128 (12 q / 2 kv heads) on a ragged S=200 whose rows
-    6..9 see no key: against its plain version, those rows against the
-    mean of v over the S keys, the same bits over two launches."""
+def _v2_ragged(torch, tfa, H, Hkv, D):
+    """Kernel 1 on the wgmma core at head dim ``D`` (``H`` q / ``Hkv`` kv
+    heads) on a ragged S=200 whose rows 6..9 see no key: against its plain
+    version, those rows against the mean of v over the S keys, the same
+    bits over two launches."""
     dev = torch.device("cuda")
-    H, Hkv, D = 12, 2, 128
     m = _ragged_meta(torch, dev)
     B, S = m[0].shape
-    g = torch.Generator(device=dev).manual_seed(32)
+    g = torch.Generator(device=dev).manual_seed(32 + D)
     q, k, v = (torch.randn(B, S, n * D, generator=g, device=dev).bfloat16()
                for n in (H, Hkv, Hkv))
     kw = dict(num_heads=H, num_kv_heads=Hkv)
@@ -1638,12 +1687,12 @@ def _v2_ragged_d128(torch, tfa):
         H // Hkv, dim=1).reshape(B, 1, H * D)
     empty_err = (runs[0][:, 6:10].float() - mean_v).abs().max().item()
     same = torch.equal(runs[0], runs[1])
-    print(f"[3c] kernel 1 at D=128, ragged B={B} S={S} H={H} Hkv={Hkv}, "
+    print(f"[3c] kernel 1 at D={D}, ragged B={B} S={S} H={H} Hkv={Hkv}, "
           f"rows 6..9 see no key: max_abs_err {err:.3e} against the plain "
           f"version, those rows {empty_err:.3e} from the mean of v (tol "
           f"{CARD_TOL:.0e}); two launches bit-identical: {same}")
     if not (err <= CARD_TOL and empty_err <= CARD_TOL and same):
-        raise AssertionError(f"kernel 1 at D=128, ragged: error {err}, rows "
+        raise AssertionError(f"kernel 1 at D={D}, ragged: error {err}, rows "
                              f"without keys {empty_err}, bit-identical "
                              f"{same}")
 
@@ -1671,7 +1720,7 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
     pipe.generate(prompts, gen)                       # warm-up
     want = {name: 0 for name in COUNTERS}
     want["omni_attention_packed"] = V2_LAYERS * V2_EVALS
-    want[PACKED_WGMMA] = V2_QWEN_LAYERS * V2_EVALS
+    want[PACKED_WGMMA] = V2_LAYERS * V2_EVALS   # every one on the core
     want[PACKED_TILES] = 1      # made once with the generate's metadata
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1703,9 +1752,10 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
           f"{V2_BATCH} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
           f"random weights: launches per generate "
           f"{counts['omni_attention_packed']} = {V2_LAYERS} x {V2_EVALS} of "
-          f"omni_attention_packed ({counts[PACKED_WGMMA]} = "
-          f"{V2_QWEN_LAYERS} x {V2_EVALS} on the wgmma core at D=128, all "
-          f"reading {counts[PACKED_TILES]} tile map), 0 of the others "
+          f"omni_attention_packed ({V2_QWEN_LAYERS} x {V2_EVALS} at "
+          f"D=128, {V2_LAYERS - V2_QWEN_LAYERS} x {V2_EVALS} at D=64; "
+          f"{counts[PACKED_WGMMA]} on the wgmma core, all reading "
+          f"{counts[PACKED_TILES]} tile map), 0 of the others "
           f"({GQA_SOURCE} among them); images {images.shape} finite in [-1, 1]; warm wall "
           f"{wall:.4f} s/batch (median of 2: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
@@ -1974,8 +2024,13 @@ def main() -> int:
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
         entry = {"name": name, "route": "cuda",
-                 "source": f"showo_tpu_torch/csrc/{name}.cu",
-                 "replaces": replaces, "launches": launches[route], **r512}
+                 "source": f"showo_tpu_torch/csrc/{name}.cu" + (
+                     " (+ attention_fwd_sm90.cuh)" if route == "packed"
+                     else ""),
+                 "replaces": replaces, "launches": launches[route][name],
+                 **r512}
+        if route == "packed":
+            entry["launches_wgmma"] = launches[route][PACKED_WGMMA]
         if r256 is not None:
             entry.update({f"{key}_256": val for key, val in r256.items()})
         kernels.append(entry)
@@ -2018,7 +2073,7 @@ def main() -> int:
     qwen = V2_SHAPES[0][0]
     for name, source, replaces, which, launches in (
             ("omni_attention_packed_v2", "omni_attention_packed.cu (+ "
-             "attention_fwd_sm90.cuh at D=128)", KERNELS["packed"][1],
+             "attention_fwd_sm90.cuh)", KERNELS["packed"][1],
              "packed", v2_launches["omni_attention_packed"]),
             (GQA_SOURCE, f"{GQA_SOURCE}.cu", GQA_REPLACES, "stacked", 0)):
         cases = v2_results[which]
@@ -2033,8 +2088,11 @@ def main() -> int:
                               "(+ attention_fwd_sm90.cuh)",
                     "replaces": KERNELS["packed"][1] + " (the mask of "
                                 "_attn_kernel_packed, per block)",
-                    "launches": v2_launches[PACKED_TILES],
-                    **v2_results["tiles"], "case": qwen})
+                    "launches": launches["packed"][PACKED_TILES],
+                    **results["tiles"], "case": "512",
+                    "launches_v2": v2_launches[PACKED_TILES],
+                    "cases": {"512": results["tiles"],
+                              "v2": v2_results["tiles"]}})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

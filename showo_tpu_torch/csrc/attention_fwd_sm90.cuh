@@ -11,18 +11,20 @@
 //     sentinel (1e30, 1e9); writes lse.  Replaces the Pallas _fwd_kernel
 //     of showo_tpu/ops/streaming_attention_grad.py::_fwd and
 //     packed_attention_grad.py::_fwd.
-//   kernel 1 at head dim 128 (omni_attention_packed.cu, OMNI = true): the
-//     packed [B, S, H*D] layout, q rows by (pos_q, seg_q), Q != S; masked
-//     scores are -1e30, so a row with no visible key averages v over all
-//     S columns, and columns past S take no weight (omni_attention.cuh).
-//     Replaces the Pallas _attn_kernel_packed of
+//   kernel 1 (omni_attention_packed.cu, OMNI = true) at head dims 64 and
+//     128: the packed [B, S, H*D] layout, q rows by (pos_q, seg_q), Q != S;
+//     masked scores are -1e30, so a row with no visible key averages v
+//     over all S columns, and columns past S take no weight (as in
+//     omni_attention.cuh).  Replaces the Pallas _attn_kernel_packed of
 //     showo_tpu/ops/flash_attention.py::omni_attention_packed.
 //
 // What bounds it on an H100: 4 * D FLOP per visible (row, key) pair and
 // head over O(S * D) bytes a head, so the tensor-core rate at the visible
 // share: at kernel 8's 512x512 step (B=12, S=1408, H=32, D=64, 0.60 of
-// the pairs visible) 0.126 ms at 989 TFLOP/s, at Show-o2's Qwen rows (B=8,
-// S=768, 12 q / 2 kv heads, D=128) 0.028 ms.  What held the first forward
+// the pairs visible) 0.126 ms at 989 TFLOP/s, at the v1 512x512 cached
+// step (B=4, Q=1026, S=1155, D=64) 0.035 ms, at Show-o2's rows (B=8,
+// S=768) 0.028 ms for Qwen's 12 q / 2 kv heads of 128 and 0.037 ms for
+// the DiT's 32 / 8 of 64.  What held the first forward
 // (attention_tile.cuh) back, and what this design does about it:
 //   1. Each K / V tile loaded synchronously, two barriers a tile, no copy
 //      in flight during the products: here a ring of STAGES (K, V) tiles

@@ -3,18 +3,19 @@
 //
 // Replaces showo_tpu/ops/flash_attention.py::omni_attention_packed (Pallas
 // kernel _attn_kernel_packed).  Here the head stride is D and the row
-// stride H*D; GQA: kv head = h / (H / Hkv).  Two head dims, two cores:
-//   64 (Show-o v1, the Show-o2 DiT head: 32 q / 8 kv heads): the first
-//      tile core (omni_attention.cuh, which the head-major entry
-//      omni_attention.cu shares; its header has the mask predicate, what
-//      bounds it and its design);
-//   128 (Qwen2.5: 12 q / 2 kv heads): the wgmma forward core
-//      (attention_fwd_sm90.cuh), after a tile map of the q rows' metadata
-//      (omni_attention_packed_tiles) that says which K tiles each block
-//      visits and masks.
+// stride H*D; GQA: kv head = h / (H / Hkv).  Both head dims run the wgmma
+// forward core (attention_fwd_sm90.cuh, OMNI = true: q rows by position,
+// masked scores -1e30), after a tile map of the q rows' metadata
+// (omni_attention_packed_tiles) that says which K tiles each block visits
+// and masks:
+//   64 (Show-o v1, the Show-o2 DiT head: 32 q / 8 kv heads): one 128-byte
+//      panel a head row; a head row of the packed layout lies at a 128-byte
+//      offset of its H*D*2-byte row, so the 16-byte cp.async and the
+//      128-byte swizzle stay aligned;
+//   128 (Qwen2.5: 12 q / 2 kv heads): two panels a head row.
+// The first tile core (omni_attention.cuh) stays with kernels 4 and 6.
 
 #include "attention_fwd_sm90.cuh"
-#include "omni_attention.cuh"
 
 // Plain C entry points (bound with ctypes).  Pointers are device pointers;
 // strides are in elements; the last dim of q/k/v/out is contiguous; the
@@ -22,7 +23,7 @@
 // seg_q [B, Q].  Each returns the cudaError_t of its launch (0 =
 // launched) on ``stream``.
 
-// The tile map of head dim 128 (agrad90::rows_tile_map_kernel): uint8
+// The tile map (agrad90::rows_tile_map_kernel): uint8
 // [B, ceil(Q / 64), ceil(S / 64) + 1].
 extern "C" int omni_attention_packed_tiles(
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
@@ -35,7 +36,7 @@ extern "C" int omni_attention_packed_tiles(
                                        stream);
 }
 
-// Head dim 64 or 128; ``tiles``: the map above at 128, unused at 64.
+// Head dim 64 or 128; ``tiles``: the map above of the same metadata.
 extern "C" int omni_attention_packed_bf16(
     const void* q, const void* k, const void* v, void* out,
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
@@ -47,15 +48,18 @@ extern "C" int omni_attention_packed_bf16(
   const long long d = head_dim;
   const tile::Strides qs{q_sb, d, q_sr}, ks{k_sb, d, k_sr},
       vs{v_sb, d, v_sr}, os{o_sb, d, o_sr};
-  if (Hkv <= 0 || H % Hkv != 0)
+  if (Hkv <= 0 || H % Hkv != 0 || tiles == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const agrad::Meta mt{seg, pad, last_pad, prefix};
   if (head_dim == 64)
-    return omni::launch<64>(q, k, v, out, seg, pad, last_pad, prefix, pos_q,
-                            seg_q, B, Q, S, H, Hkv, qs, ks, vs, os, sm_scale,
-                            stream);
-  if (head_dim == 128 && tiles != nullptr)
-    return agrad90::launch_fwd<128, true>(
-        q, k, v, out, nullptr, {seg, pad, last_pad, prefix}, {pos_q, seg_q},
-        tiles, B, Q, S, H, Hkv, qs, ks, vs, os, sm_scale, 0.f, stream);
+    return agrad90::launch_fwd<64, true>(q, k, v, out, nullptr, mt,
+                                         {pos_q, seg_q}, tiles, B, Q, S, H,
+                                         Hkv, qs, ks, vs, os, sm_scale, 0.f,
+                                         stream);
+  if (head_dim == 128)
+    return agrad90::launch_fwd<128, true>(q, k, v, out, nullptr, mt,
+                                          {pos_q, seg_q}, tiles, B, Q, S, H,
+                                          Hkv, qs, ks, vs, os, sm_scale, 0.f,
+                                          stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

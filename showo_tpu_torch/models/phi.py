@@ -43,7 +43,8 @@ from torch import nn
 from showo_tpu_torch.ops.decode_attention import decode_attention
 from showo_tpu_torch.ops.flash_attention import (omni_attention,
                                                  omni_attention_packed,
-                                                 q_rows, span_meta)
+                                                 q_rows, rows_tile_map,
+                                                 span_meta)
 from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                               fused_rows)
 from showo_tpu_torch.ops.int8_matmul import WeightStream, linear_i8
@@ -95,7 +96,9 @@ class AttnStep:
     [B, Q] rows of the omni kernels (None for ``decode`` and
     ``trainable``); ``fused``: the :func:`fused_rows` tuple when the
     forward is a static-prefix cached step on the ``fused`` route, else
-    None."""
+    None; ``tiles``: the tile map the ``packed`` route's kernel reads
+    (``rows_tile_map``), on CUDA only (None on the CPU, whose plain
+    version needs none, and on the other routes)."""
 
     route: str
     seg: torch.Tensor
@@ -105,6 +108,7 @@ class AttnStep:
     pos_q: Optional[torch.Tensor] = None
     seg_q: Optional[torch.Tensor] = None
     fused: Optional[tuple] = None
+    tiles: Optional[torch.Tensor] = None
 
 
 def attn_step(attn_meta, q_start: int, rows: int,
@@ -131,7 +135,11 @@ def attn_step(attn_meta, q_start: int, rows: int,
         return dataclasses.replace(step, pos_q=fused[0], seg_q=fused[1],
                                    fused=fused)
     pos_q, seg_q = q_rows(seg, positions, seg.shape[0], rows)
-    return dataclasses.replace(step, pos_q=pos_q, seg_q=seg_q)
+    tiles = None
+    if route == "packed" and seg.is_cuda:
+        tiles = rows_tile_map(step.seg, step.pad, step.last_pad, step.prefix,
+                              pos_q, seg_q)
+    return dataclasses.replace(step, pos_q=pos_q, seg_q=seg_q, tiles=tiles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,7 +254,8 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
             out = omni_attention_packed(
                 q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
                 v.reshape(B, v.shape[1], H * Dh), m.seg, m.pad, m.last_pad,
-                m.prefix, num_heads=H, q_positions=m.pos_q, seg_q=m.seg_q)
+                m.prefix, num_heads=H, q_positions=m.pos_q, seg_q=m.seg_q,
+                tiles=m.tiles)
             return out.reshape(B, Q, H, Dh)
         if m.route == "streaming":
             out = omni_attention_streaming(

@@ -16,14 +16,15 @@ as in the JAX package, compute the same function on two layouts:
   ``omni_attention``, kernel ``_attn_kernel``), taking strided views as
   they are.
 
-They launch the hand-written Hopper kernels of ``csrc/omni_attention.cuh``
-(entries ``csrc/omni_attention_packed.cu``, ``csrc/omni_attention.cu`` and
-``csrc/omni_attention_gqa_stacked.cu``), which read the layouts through
-their strides; ``omni_attention_packed`` at head dim 128 runs on the wgmma
-forward core of ``csrc/attention_fwd_sm90.cuh`` instead, after a tile map
-of the q rows' metadata (:func:`rows_tile_map`) that says which K tiles
-each 64-row q block visits and masks.  The mask is recomputed from O(S)
-metadata instead of a [B, 1, Q, S] bias:
+They launch hand-written Hopper kernels that read the layouts through
+their strides: ``omni_attention_packed`` (``csrc/omni_attention_packed.cu``)
+the wgmma forward core of ``csrc/attention_fwd_sm90.cuh`` at both head
+dims, after a tile map of the q rows' metadata (:func:`rows_tile_map`)
+that says which K tiles each 64-row q block visits and masks;
+``omni_attention`` and ``omni_attention_gqa_stacked``
+(``csrc/omni_attention.cu``, ``csrc/omni_attention_gqa_stacked.cu``) the
+first tile core of ``csrc/omni_attention.cuh``.  The mask is recomputed
+from O(S) metadata instead of a [B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -32,18 +33,16 @@ metadata instead of a [B, 1, Q, S] bias:
 
 with ``seg_q`` gathered from ``seg`` at the q rows' kv positions.
 
-What bounds the kernel on an H100 at the v1 512^2 cached step (Q=1026,
-S=1155, D=64): small-D attention moves many bytes per FLOP, so moving K/V
-through shared memory and the launch shape limit it, not the tensor
-cores.  The kernel keeps every score on chip (64-row K/V tiles, online
-softmax, no [Q, S] bias or score matrix in device memory), launches one
-block per (batch, head, 64-row q tile) to fill the card, and masks ragged
-edges itself.  See the sources for the design.
+What bounds the kernels on an H100 (the tensor-core rate at the visible
+share of the pairs) and their design are in the sources.  They keep every
+score on chip (64-row K/V tiles, online softmax, no [Q, S] bias or score
+matrix in device memory), launch one block per (batch, head, 64-row q
+tile) to fill the card, and mask ragged edges themselves.
 
 The wrappers run the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.  ``cuda_build.launches`` counts kernel
-launches by source name; ``omni_attention_packed`` at head dim 128 also
-under ``WGMMA_KERNEL``, its tile map under ``TILES_KERNEL``.
+launches by source name; ``omni_attention_packed``'s also under
+``WGMMA_KERNEL`` (its core), its tile map under ``TILES_KERNEL``.
 """
 
 from __future__ import annotations
@@ -67,7 +66,7 @@ _STACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
 _OMNI_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
 _TILES_ARGS = [_P] * 7 + [_I] * 3
 PACKED_SOURCE = "omni_attention_packed"
-# kernel 1 at head dim 128 on the wgmma forward core, and its tile map
+# kernel 1 on the wgmma forward core (every launch), and its tile map
 WGMMA_KERNEL = f"{PACKED_SOURCE}_wgmma"
 TILES_KERNEL = f"{PACKED_SOURCE}_tiles"
 TILE = 64       # rows of a q or k tile of the tile map
@@ -193,8 +192,8 @@ def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q) -> torch.Tensor:
 
 
 def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q) -> torch.Tensor:
-    """The tile map of kernel 1 at head dim 128 (:func:`rows_tile_map_plain`
-    of the same metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
+    """The tile map of kernel 1 (:func:`rows_tile_map_plain` of the same
+    metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
     :func:`q_rows`): for CUDA metadata (int32 and contiguous, as
     :func:`_kernel_meta` returns it) the kernel of
     ``csrc/attention_fwd_sm90.cuh``, counted under ``TILES_KERNEL``."""
@@ -343,8 +342,8 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     [B, Q, H*D] in q's dtype.  ``gqa_stack``: take
     :func:`omni_attention_gqa_stacked` where :func:`gqa_stack_fits`, as the
     JAX package does.  ``tiles``: :func:`rows_tile_map` of the same
-    metadata (the kernel reads it at head dim 128 and makes it when not
-    given; a forward of many layers makes it once).
+    metadata (the kernel reads it, and it is made here when not given; a
+    forward of many layers makes it once).
 
     CPU tensors go through the plain version; CUDA tensors through the
     kernel (bf16, head dim 64 or 128), which raises on what it does not
@@ -371,7 +370,7 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
                  seg_q, tiles=None):
     """The packed-layout kernels' common wrapper: checks, metadata, the
     plain version for CPU tensors, the kernel of ``csrc/<kernel>.cu`` for
-    CUDA tensors (``tiles``: kernel 1's tile map at head dim 128)."""
+    CUDA tensors (``tiles``: kernel 1's tile map)."""
     B, Q, HD = q.shape
     S = k.shape[1]
     D = HD // num_heads
@@ -394,13 +393,12 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
     out = torch.empty((B, Q, HD), dtype=q.dtype, device=dev)
     args, counters, extra = _STACKED_ARGS, kernel, []
     if kernel == PACKED_SOURCE:
-        # head dim 128: the wgmma core and its tile map; 64: no map (null)
-        args, extra = _PACKED_ARGS, [None]
-        if D == 128:
-            if tiles is None:
-                tiles = rows_tile_map(*meta)
-            _check_tiles(tiles, B, Q, S, dev)
-            extra, counters = [tiles.data_ptr()], (kernel, WGMMA_KERNEL)
+        # the wgmma core, on its tile map
+        if tiles is None:
+            tiles = rows_tile_map(*meta)
+        _check_tiles(tiles, B, Q, S, dev)
+        args, extra = _PACKED_ARGS, [tiles.data_ptr()]
+        counters = (kernel, WGMMA_KERNEL)
     cuda_build.launch(
         kernel, f"{kernel}_bf16", args,
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -289,7 +289,11 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
     """The stack of ModulatedAttentionBlocks (``layers``, reference
     ``diffusion_head_a``) over h [B, S, D] with the per-image adaLN input
     [B*M, D].  positions: optional [B or 1, S] rope positions (default
-    arange).  ``meta`` sends attention to the packed omni kernel."""
+    arange).  ``meta`` sends attention to the packed omni kernel.  Its
+    tile map, made once per forward with Qwen's (``packed_meta``), holds
+    here too: the DiT attends over the same L rows of h as Qwen (q rows
+    at kv positions 0..L-1, Q = S = L) under the same seg / pad /
+    last_pad / prefix, and the map depends on nothing else."""
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None]

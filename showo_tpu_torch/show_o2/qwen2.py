@@ -55,8 +55,10 @@ class PackedMeta:
     """The packed kernel's metadata for one forward, computed once for all
     layers of both towers (:func:`packed_meta`): seg / pad / last_pad /
     prefix int32 and contiguous, the q rows' (pos_q, seg_q), and on CUDA
-    the tile map that the kernel reads at head dim 128
-    (``rows_tile_map``; None on the CPU, whose plain version needs none)."""
+    the tile map that the kernel reads (``rows_tile_map``; None on the
+    CPU, whose plain version needs none).  The map depends on the metadata
+    alone, not on heads or head dim, so Qwen's layers (head dim 128) and
+    the DiT's (64) read the same one."""
 
     seg: torch.Tensor
     pad: torch.Tensor

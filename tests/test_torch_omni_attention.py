@@ -5,14 +5,15 @@ On the CPU each wrapper runs its plain version, held against its JAX
 Pallas kernel in interpret mode (as tests/test_flash_attention.py runs
 them), fp32, atol 1e-5: both take exact fp32 products and an fp32
 softmax, so they differ only in summation order.  The tile map of the
-packed kernel at head dim 128 (``rows_tile_map``) is held exactly to the
+packed kernel (``rows_tile_map``) is held exactly to the
 block visibility of the JAX package's mask predicate (``_visible`` of
 its streaming kernels, which take q rows at any positions).  The
 card-only cases hold the CUDA kernel against the plain version in bf16 at
 atol 2e-2: outputs are convex combinations of ~N(0, 1) values and bf16
 carries 8 bits, and the kernel rounds the probabilities to bf16 before
 normalising them; the tile map kernel to its plain version exactly, and
-the head-dim-128 kernel to the same bits over two launches.
+the wgmma kernel, at head dims 64 and 128, to the same bits over two
+launches.
 """
 
 import jax.numpy as jnp
@@ -371,6 +372,116 @@ def test_wgmma_kernel_at_head_dim_128_on_card(kind):
         mean_v = v[0].float().view(S, Hkv, D).mean(dim=0)
         mean_v = mean_v.repeat_interleave(H // Hkv, dim=0).reshape(H * D)
         assert (got[0, 6:10].float() - mean_v).abs().max().item() <= 2e-2
+
+
+def _v1_cached_meta():
+    """([seg, pad, last_pad, prefix], pos_q) numpy int32 of the v1 512x512
+    cached step's shape: B=4 left-padded t2i rows of S = 129 + 1026, the
+    1026 image rows (soi..eoi) as q rows after the 129-row prefix."""
+    seq = _layout(4, text=129, img=1024, pads=(0, 17, 60, 3), seed=23)
+    meta = [np.array(m, np.int32) for m in
+            jfa.metadata_predict_next(jnp.asarray(seq), PAD, SOI, EOI)]
+    S = seq.shape[1]
+    return meta, np.tile(np.arange(129, S, dtype=np.int32), (4, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H,Hkv", [("v1_512", 32, 32), ("per_row", 32, 32),
+                                        ("v2", 32, 8), ("no_key", 32, 8)])
+def test_wgmma_kernel_at_head_dim_64_on_card(kind, H, Hkv):
+    """Kernel 1 at head dim 64 on the wgmma core: the v1 512x512 cached
+    step (Q=1026 after a 129-row prefix, K=1155, left pads), per-row
+    positions, the Show-o2 DiT's 32 q / 8 kv heads, and a ragged S=200
+    whose rows 6..9 see no key: against the plain version at atol 2e-2,
+    those rows at the mean of v over the S keys, every launch on the
+    core with its tile map, and the same bits over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    D = 64
+    dev = torch.device("cuda")
+    meta, pos_q = _v1_cached_meta() if kind == "v1_512" else _rows_meta(kind)
+    tmeta = [torch.as_tensor(m, device=dev) for m in meta]
+    pos = torch.as_tensor(pos_q, device=dev)
+    B, S = meta[0].shape
+    Q = pos_q.shape[1]
+    g = torch.Generator(device=dev).manual_seed(Q + S + Hkv)
+    q = torch.randn(B, Q, H * D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv * D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    names = (tfa.PACKED_SOURCE, tfa.WGMMA_KERNEL, tfa.TILES_KERNEL)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = [tfa.omni_attention_packed(q, k, v, *tmeta, num_heads=H,
+                                      num_kv_heads=Hkv, q_positions=pos)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} \
+        == {n: 2 for n in names}
+    assert torch.equal(runs[0], runs[1])
+    got = runs[0]
+    want = tfa.omni_attention_packed_plain(
+        q, k, v, *tmeta, pos, num_heads=H, num_kv_heads=Hkv,
+        sm_scale=D ** -0.5)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    if kind == "no_key":
+        mean_v = v[0].float().view(S, Hkv, D).mean(dim=0)
+        mean_v = mean_v.repeat_interleave(H // Hkv, dim=0).reshape(H * D)
+        assert (got[0, 6:10].float() - mean_v).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_packed_wrapper_never_reaches_the_first_core_on_card():
+    """Every launch of kernel 1, at head dim 64 as at 128, is counted on
+    the wgmma core: the first tile core (omni_attention.cuh) is left to
+    kernels 4 and 6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    meta, pos_q = _rows_meta("cached")
+    tmeta = [torch.as_tensor(m, device=dev) for m in meta]
+    pos = torch.as_tensor(pos_q, device=dev)
+    B, S = meta[0].shape
+    g = torch.Generator(device=dev).manual_seed(4)
+    names = (tfa.PACKED_SOURCE, tfa.WGMMA_KERNEL, "omni_attention",
+             "omni_attention_gqa_stacked")
+    before = {n: cuda_build.launches[n] for n in names}
+    for H, Hkv, D in ((32, 32, 64), (32, 8, 64), (8, 2, 64), (12, 2, 128)):
+        q = torch.randn(B, pos.shape[1], H * D, generator=g,
+                        device=dev).bfloat16()
+        k, v = (torch.randn(B, S, Hkv * D, generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        tfa.omni_attention_packed(q, k, v, *tmeta, num_heads=H,
+                                  num_kv_heads=Hkv, q_positions=pos)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        tfa.PACKED_SOURCE: 4, tfa.WGMMA_KERNEL: 4, "omni_attention": 0,
+        "omni_attention_gqa_stacked": 0}
+
+
+@pytest.mark.cuda
+def test_attn_step_makes_the_packed_tile_map_on_card():
+    """On CUDA phi's ``attn_step`` gives the ``packed`` route's step the
+    tile map of its q rows (one map launch a forward, for all layers),
+    equal to the plain one; the other routes' steps carry none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the tile map kernel has no CPU mode")
+    from showo_tpu_torch.models.phi import attn_step
+
+    ids = torch.as_tensor(_layout(2, text=20, img=100, pads=(0, 7), seed=5),
+                          device="cuda")
+    L = ids.shape[1]
+    for route in ("packed", "omni", "decode", "fused", "streaming"):
+        meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
+        before = cuda_build.launches[tfa.TILES_KERNEL]
+        step = attn_step(meta, 21, L - 21, static_prefix_len=21)
+        torch.cuda.synchronize()
+        made = cuda_build.launches[tfa.TILES_KERNEL] - before
+        if route != "packed":
+            assert step.tiles is None and made == 0
+            continue
+        assert made == 1
+        assert torch.equal(step.tiles, tfa.rows_tile_map_plain(
+            step.seg, step.pad, step.last_pad, step.prefix, step.pos_q))
 
 
 # -- head-major omni_attention -----------------------------------------------

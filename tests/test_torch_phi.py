@@ -277,6 +277,25 @@ def test_unknown_route_raises(golden, route):
         port(input_ids=ids, attn_meta=meta)
 
 
+@pytest.mark.parametrize("route", KERNEL_ROUTES + ["trainable"])
+@pytest.mark.parametrize("static", [False, True], ids=["q_eq_s", "cached"])
+def test_attn_step_has_no_tile_map_on_the_cpu(route, static):
+    """``attn_step`` computes a forward's metadata once for all layers; the
+    tile map of the ``packed`` route's kernel is made only for CUDA
+    metadata, so on the CPU every route's step has ``tiles=None`` (the
+    plain versions need none)."""
+    ids = torch.as_tensor(_t2i_rows(3))
+    meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
+    L = ids.shape[1]
+    if static and route == "trainable":
+        step = tphi.attn_step(meta, 0, L)
+    elif static:
+        step = tphi.attn_step(meta, 9, L - 9, static_prefix_len=9)
+    else:
+        step = tphi.attn_step(meta, 0, L)
+    assert step.route == route and step.tiles is None
+
+
 def test_route_table_names_the_jax_routes():
     """One table: every port route maps to the JAX impl string phi's
     ``_attention`` / ``_layer`` branch on, and every one is accepted (each
