@@ -1863,12 +1863,12 @@ def main() -> int:
                             device)
 
     # [4] the slice through the CLI's build_pipeline, once per route
-    launches, pipe = {}, None
+    route_launches, pipe = {}, None
     for route in KERNELS:
         pipe = None
         gc.collect()
         torch.cuda.empty_cache()
-        pipe, launches[route] = phase_slice(
+        pipe, route_launches[route] = phase_slice(
             torch, np, inference_t2i, cuda_build, config, prompts, route, smi)
 
     # [5] step parity, every route, on the last pipeline's weights
@@ -2027,10 +2027,11 @@ def main() -> int:
                  "source": f"showo_tpu_torch/csrc/{name}.cu" + (
                      " (+ attention_fwd_sm90.cuh)" if route == "packed"
                      else ""),
-                 "replaces": replaces, "launches": launches[route][name],
+                 "replaces": replaces,
+                 "launches": route_launches[route][name],
                  **r512}
         if route == "packed":
-            entry["launches_wgmma"] = launches[route][PACKED_WGMMA]
+            entry["launches_wgmma"] = route_launches[route][PACKED_WGMMA]
         if r256 is not None:
             entry.update({f"{key}_256": val for key, val in r256.items()})
         kernels.append(entry)
@@ -2088,7 +2089,7 @@ def main() -> int:
                               "(+ attention_fwd_sm90.cuh)",
                     "replaces": KERNELS["packed"][1] + " (the mask of "
                                 "_attn_kernel_packed, per block)",
-                    "launches": launches["packed"][PACKED_TILES],
+                    "launches": route_launches["packed"][PACKED_TILES],
                     **results["tiles"], "case": "512",
                     "launches_v2": v2_launches[PACKED_TILES],
                     "cases": {"512": results["tiles"],
