@@ -39,9 +39,10 @@ Phases, one or more lines each:
   1. device: card name and power limit, torch / CUDA versions; TF32 off
   2. build: nvcc builds the ten kernel sources of csrc/, in parallel, and
      ptxas' registers and spills of each entry function with its template
-     arguments (the forward core at <64, false>, <64, true> and <128,
-     true>; kernel 6 at both head dims), and "wgmma serialized" where
-     ptxas warned C7515
+     arguments (the forward core <head dim, mask> at <64, 0> and <128, 0>
+     (the -inf mask: kernels 5, 7, 8), <64, 1> and <128, 1> (the -1e30
+     mask: kernel 1), <64, 2> (the bias: kernel 3); kernel 6 at both head
+     dims), and "wgmma serialized" where ptxas warned C7515
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
      layout): the packed kernel (kernel 1, on the wgmma forward core) at
@@ -49,14 +50,19 @@ Phases, one or more lines each:
      plain version byte for byte, and one GQA case, beside kernel 4 (the
      first tile core) on head-major views of the same memory; omni,
      decode, fused and streaming at 512x512 (Q=1026, K=1155) and 256x256
-     (Q=258, K=387), streaming also with GQA; max abs error, median times
-     (CUDA events) of kernel, plain version and one library call of the
-     same function, and the bound
+     (Q=258, K=387), streaming also with GQA; streaming (kernel 5, the
+     wgmma core) on its tile map (kernel 1's kind) and beside kernel 1 on
+     the same memory, their outputs' max difference; decode (kernel 3, the
+     wgmma core under the bias) on the bias's tile map, which must equal
+     its plain version byte for byte; max abs error, median times (CUDA
+     events) of kernel, plain version and one library call of the same
+     function, and the bound
   4. the t2i slice, per route: over one generate call the route's kernel
-     launches 24 layers x 16 steps times (on ``packed`` all on the wgmma
-     core, reading 16 tile maps, one a forward) and every other kernel none;
-     codes in the codebook; images finite, NHWC, in [-1, 1]; warm
-     seconds per batch and images/min
+     launches 24 layers x 16 steps times (on ``packed`` and ``streaming``
+     all on the wgmma core reading 16 tile maps of the metadata, on
+     ``decode`` 16 tile maps of the bias, one a forward) and every other
+     kernel none; codes in the codebook; images finite, NHWC, in [-1, 1];
+     warm seconds per batch and images/min
   5. step parity, per route: one full-width cached step with the route's
      kernel and with dense attention under the additive mask, max abs
      logit difference
@@ -69,18 +75,15 @@ Phases, one or more lines each:
      plain version byte for byte, each giving the same bits over two
      launches; errors, median times of kernel, plain version and
      ``scaled_dot_product_attention`` with the boolean mask (forward,
-     backward, forward + backward), and the bounds; at the stage-1 shape
-     the first kernels (csrc/attention_grad.cuh, kept as the baseline)
-     checked and timed beside them on the same memory; then the same checks
+     backward, forward + backward), and the bounds; then the same checks
      on two faults planted in the plain versions (V of the wrong kv head,
      one K tile dropped), each of which must fail them
   7. the stage-1 training slice: the first step, then TRAIN_STEPS steps
      on the same batch with every launch count set to 0 before them: per
      step 48 forward launches (24 layers + 24 recomputed by remat), 24 dq,
      24 dk/dv and 48 tile maps (each forward makes one, its backward reads
-     it again), none of the other kernels (the first kernels among them);
-     losses finite and falling; median step time, samples/s, peak device
-     memory
+     it again), none of the other kernels; losses finite and falling;
+     median step time, samples/s, peak device memory
   8. stage-1 training step parity: one full-width step's losses and grad
      norm on ``trainable`` against ``dense``, same weights, batch and
      draws
@@ -90,8 +93,7 @@ Phases, one or more lines each:
      count of the batch's rows that see no key; kernel 8 runs the same
      wgmma cores as kernel 7 after its tile map, checked as there; then at
      the same shape (past kernel 7's budget), on the same memory, kernel
-     7's first kernels and its cores beside kernel 8, times of the three
-     sets
+     7's cores beside kernel 8, times of the two sets
   7b. the 512x512 training slice as phase 7: 48 / 24 / 24 / 48 launches of
      kernel 8's forward, dq, dk/dv and tile map per step (the forward makes
      the map, the backward reads it again), none of kernel 7 or of the
@@ -217,10 +219,6 @@ TRAIN_KERNELS = {
     "packed_attention_grad_tiles": (
         "showo_tpu/ops/packed_attention_grad.py:43", 2 * NUM_LAYERS),
 }
-# kernel 7's first mma.sync kernels (csrc/attention_grad.cuh), on no model
-# path: the baseline phases 6 and 6b time the cores against
-FIRST_KERNELS = [f"{TRAIN_SOURCE}_first_{part}"
-                 for part in ("fwd", "dq", "dkv")]
 STREAM_TRAIN_SOURCE = "streaming_attention_grad"
 STREAM_TRAIN_KERNELS = {
     "streaming_attention_grad_fwd": (
@@ -262,10 +260,15 @@ GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
 # (the Pallas kernel's mask, computed per block from the metadata)
 PACKED_WGMMA = "omni_attention_packed_wgmma"
 PACKED_TILES = "omni_attention_packed_tiles"
+# the tile maps of kernels 5 (kernel 1's kind, of the metadata) and 3 (of
+# the bias), one a forward: route -> counter
+ROUTE_TILES = {"packed": PACKED_TILES,
+               "streaming": "streaming_attention_tiles",
+               "decode": "decode_attention_tiles"}
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
-            + FIRST_KERNELS + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS)
-            + WSMM_CORES + [GQA_SOURCE, PACKED_WGMMA, PACKED_TILES])
+            + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
+            + [GQA_SOURCE, PACKED_WGMMA, *ROUTE_TILES.values()])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -559,30 +562,69 @@ def phase_kernels(torch, uni, prompts, cfg, device):
                                              sm_scale=D ** -0.5),
             _bound(qkv_bytes + meta_bytes, flops), sdpa(q, k, v))
 
-        # streaming (kernel 5): the same views; every fresh row of the t2i
-        # layout sees its own key, so the library call has no empty row
+        # streaming (kernel 5, the wgmma core): the same views, on the tile
+        # map of kernel 1's kind its forward makes once (models/phi.py
+        # attn_step); every fresh row of the t2i layout sees its own key,
+        # so the library call has no empty row
+        nt = (-(-Q // 64), -(-L // 64))
+        map_bytes = B * nt[0] * (nt[1] + 1)
+        tiles5, r_map = _map_check(
+            torch, f"kernel 5's tile map {shape} [{B}, {nt[0]}, "
+            f"{nt[1] + 1}]", lambda: tsa.streaming_tile_map(*meta, pos_q,
+                                                            seg_q),
+            lambda: tfa.rows_tile_map_plain(*meta, pos_q),
+            meta_bytes + map_bytes, B * nt[0] * nt[1] * 64 ** 2, 3,
+            flag=True)
+        out.setdefault("streaming_tiles", r_map)
         for hkv in (H, H // 4) if res == "512" else (H,):
             q, k, v = (randn(B, n, h, D).transpose(1, 2)
                        for n, h in ((Q, H), (L, hkv), (L, hkv)))
+            kernel5 = (lambda: tsa.omni_attention_streaming(
+                q, k, v, *meta, q_positions=pos_q, seg_q=seg_q,
+                tiles=tiles5))
             r = _compare(
                 torch, f"omni_attention_streaming {shape} Hkv={hkv}",
-                lambda: tsa.omni_attention_streaming(
-                    q, k, v, *meta, q_positions=pos_q, seg_q=seg_q),
+                kernel5,
                 lambda: tsa.omni_attention_streaming_plain(
                     q, k, v, *meta, pos_q, sm_scale=D ** -0.5),
                 _bound(2 * (2 * B * Q * H + 2 * B * L * hkv) * D
                        + meta_bytes, flops),
                 sdpa(q, k, v, enable_gqa=hkv != H))
+            if res == "512":
+                # kernel 1 on the same memory: [B, S, H, D] is [B, S, H*D]
+                packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+                kernel1 = (lambda: tfa.omni_attention_packed(
+                    *packed, *meta, num_heads=H, num_kv_heads=hkv,
+                    q_positions=pos_q, seg_q=seg_q, tiles=tiles))
+                diff = (kernel5().transpose(1, 2).flatten(2).float()
+                        - kernel1().float()).abs().max().item()
+                r["kernel1_ms"], r["kernel1_diff"] = (
+                    _time_ms(torch, kernel1), diff)
+                print(f"[3] {shape} Hkv={hkv}: kernel 5 {r['ms']:.4f} ms "
+                      f"beside kernel 1 on the same memory "
+                      f"{r['kernel1_ms']:.4f} ms (median of 20); outputs "
+                      f"max |difference| {diff:.3e} (tol {CARD_TOL:.0e})")
+                if not diff <= CARD_TOL:
+                    raise AssertionError(f"kernel 5 and kernel 1 differ by "
+                                         f"{diff}")
             out["streaming"].setdefault(res, r)
 
-        # decode: the bias as the cached step's strided view of the mask;
-        # the library call takes it cast to bf16 (the query's type)
+        # decode (kernel 3, the wgmma core under the bias): the bias as the
+        # cached step's strided view of the mask, on its tile map, made
+        # once per forward (models/phi.py); the library call takes the bias
+        # cast to bf16 (the query's type)
         bias = omni_mask_predict_next(full, *ids, rm_pad_in_image=True)
         bias = bias[:, :, P:, :]
+        tiles3, r_map = _map_check(
+            torch, f"kernel 3's bias tile map {shape} (row stride {L}) "
+            f"[{B}, {nt[0]}, {nt[1] + 1}]", lambda: tda.bias_tile_map(bias),
+            lambda: tda.bias_tile_map_plain(bias), 4 * B * Q * L + map_bytes,
+            B * Q * L, 3, flag=True)
+        out.setdefault("decode_tiles", r_map)
         q, k, v = (randn(B, n, H, D) for n in (Q, L, L))
         out["decode"][res] = _compare(
             torch, f"decode_attention {shape} (bias view, row stride {L})",
-            lambda: tda.decode_attention(q, k, v, bias),
+            lambda: tda.decode_attention(q, k, v, bias, tiles=tiles3),
             lambda: tda.decode_attention_plain(q, k, v, bias),
             _bound(qkv_bytes + 4 * B * Q * L,
                    4 * D * H * int((bias == 0).sum())),
@@ -703,9 +745,9 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
     batch), a GQA case and a ragged S with rows that see no key: its tile
     map against the plain one, the forward, dq and dk/dv on that map and
     bit-stable over two launches; then the planted faults.  At the step's
-    shape kernel 7's first kernels are checked and timed beside its cores
-    on the same memory; kernel 8 is timed beside both (past kernel 7's
-    budget).  Returns {counter name: result} of the first case."""
+    shape kernel 8 is timed beside kernel 7's cores on the same memory
+    (past kernel 7's budget).  Returns {counter name: result} of the first
+    case."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
@@ -773,37 +815,21 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
             "dkv": _bound((2 * H + 4 * hkv) * tensor + 2 * rows_bytes
                           + meta_bytes, 8 * D * H * n_vis)}
 
-        def compare(part, first=False):
-            kw = {"first": True} if first else bwd
+        def compare(part):
             what = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}[part]
-            call = ((lambda: ks["fwd"](q, k, v, *m, **kw)[0])
-                    if part == "fwd" else (lambda: ks[part](*args, **kw)))
+            call = ((lambda: ks["fwd"](q, k, v, *m, **bwd)[0])
+                    if part == "fwd" else (lambda: ks[part](*args, **bwd)))
             plain = ((lambda: ks["fwd_plain"](q, k, v, *m)[0])
                      if part == "fwd" else (lambda: ks[f"{part}_plain"](
                          *args)))
             return _compare(
-                torch, f"trainable {'first ' if first else ''}{what} "
-                f"{shape}", call, plain, bounds[part],
-                lib.get("fwd" if part == "fwd" else "bwd"), phase=phase,
-                grads=part != "fwd")
+                torch, f"trainable {what} {shape}", call, plain,
+                bounds[part], lib.get("fwd" if part == "fwd" else "bwd"),
+                phase=phase, grads=part != "fwd")
 
         r = {name: compare(part)
              for name, part in zip(ks["counters"], ("fwd", "dq", "dkv"))}
         r[ks["tiles"][0]] = tiles_result
-        if kernel == 7 and case == label:
-            # the first kernels on the same memory, checked and timed
-            for name, first, part in zip(ks["counters"], FIRST_KERNELS,
-                                         ("fwd", "dq", "dkv")):
-                r[first] = compare(part, first=True)
-                r[name]["old_ms"] = r[first]["ms"]
-            print(f"[{phase}] {shape}: the same inputs, the cores against "
-                  f"the first kernels: "
-                  + "; ".join(f"{part} {r[name]['ms']:.4f} vs "
-                              f"{r[first]['ms']:.4f} ms "
-                              f"({r[first]['ms'] / r[name]['ms']:.2f}x below)"
-                              for name, first, part in zip(
-                                  ks["counters"], FIRST_KERNELS,
-                                  ("forward", "dq", "dk/dv"))))
         lib = heads = o4 = None
         print(f"[{phase}] {shape}: lse max_abs_err {lse_err:.3e}; {empty} "
               f"rows with no visible key (out 0, lse {ks['lse_empty']:g} in "
@@ -818,10 +844,7 @@ def phase_train_kernels(torch, meta, kernel, label, phase):
                                                      *m_), True),
         }, v, ks["wrong_v"](v), m, phase)
         if kernel == 8 and case == label:
-            old = _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv,
-                                          phase)
-            for name, part in zip(ks["counters"], ("fwd", "dq", "dkv")):
-                r[name]["old_ms"] = old["the first kernels"][part]
+            _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase)
         results.setdefault(case, r)
     return results[label]
 
@@ -883,12 +906,11 @@ def _bit_stable(torch, ks, args, tiles, shape, phase):
 
 def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
     """Kernel 7 (the packed trainable kernels, past their TPU budget here)
-    on the same memory as kernel 8's head-major views: its first kernels
-    (attention_grad.cuh) and its wgmma cores, beside kernel 8's.  Each
-    kernel timed (CUDA events; on a tile map made once), and each autograd
-    Function (forward + backward, which makes its own map).  Returns
-    {"the first kernels" / "kernel 7" / "kernel 8": {"fwd", "dq", "dkv":
-    ms}}."""
+    on the same memory as kernel 8's head-major views: its wgmma cores
+    beside kernel 8's (the same cores on other strides).  Each kernel timed
+    (CUDA events; on a tile map made once), and each autograd Function
+    (forward + backward, which makes its own map); their forward outputs
+    must agree within CARD_TOL."""
     from showo_tpu_torch.ops import packed_attention_grad as tpag
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
@@ -896,7 +918,6 @@ def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
     packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v, dout)]
     times, outs = {}, []
     for name, ks, (q_, k_, v_, d_), fn, kw in (
-            ("the first kernels", k7, packed, None, {"first": True}),
             ("kernel 7", k7, packed, lambda *t: tpag.PackedTrainableAttention
              .apply(*t, *m, H, hkv, D ** -0.5), {"tiles": tpag.tile_map(*m)}),
             ("kernel 8", k8, (q, k, v, dout), lambda *t: tsag
@@ -911,34 +932,17 @@ def _kernel7_beside_kernel8(torch, q, k, v, dout, m, hkv, phase):
             _time_ms(torch, lambda: ks["dq"](*a, **kw)),
             _time_ms(torch, lambda: ks["dkv"](*a, **kw)),
             _time_ms(torch, lambda: torch.autograd.grad(fn(*leaves), leaves,
-                                                        d_))
-            if fn is not None else None]
-    diff = max((o.float() - outs[-1].float()).abs().max().item()
-               for o in outs[:2])
-    pair = {n: {"fwd": t[0], "dq": t[1], "dkv": t[2]}
-            for n, t in times.items()}
-    old, new = (pair[n]["dq"] + pair[n]["dkv"]
-                for n in ("the first kernels", "kernel 8"))
+                                                        d_))]
+    diff = (outs[0].float() - outs[1].float()).abs().max().item()
     print(f"[{phase}] the same shape and memory (kernel 7 is past its TPU "
           f"budget here; nothing routes by this): "
           + "; ".join(f"{name} forward {t[0]:.4f}, dq {t[1]:.4f}, dk/dv "
-                      f"{t[2]:.4f}"
-                      + (f", autograd Function forward + backward "
-                         f"{t[3]:.4f}" if t[3] is not None else "") + " ms"
-                      for name, t in times.items())
-          + f" (medians of 20); forward outputs max |difference| from "
-          f"kernel 8's {diff:.3e}")
-    first = pair["the first kernels"]
-    print(f"[{phase}] the same inputs: the first forward (kernel 7's "
-          f"baseline) {first['fwd']:.4f} ms; kernel 8's wgmma forward "
-          f"{pair['kernel 8']['fwd']:.4f} ms "
-          f"({first['fwd'] / pair['kernel 8']['fwd']:.2f}x below); backward "
-          f"pair: the first kernels dq + dk/dv {old:.4f} ms; kernel 8's "
-          f"wgmma kernels {new:.4f} ms ({old / new:.2f}x below)")
+                      f"{t[2]:.4f}, autograd Function forward + backward "
+                      f"{t[3]:.4f} ms" for name, t in times.items())
+          + f" (medians of 20); forward outputs max |difference| {diff:.3e}")
     if not diff <= CARD_TOL:
         raise AssertionError(f"kernel 7's and kernel 8's forwards differ by "
                              f"{diff} > {CARD_TOL}")
-    return pair
 
 
 def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
@@ -1045,9 +1049,10 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
     want = {name: 0 for name in COUNTERS}
     want[KERNELS[route][0]] = NUM_LAYERS * TIMESTEPS
     if route == "packed":
-        # every launch on the wgmma core, one tile map a forward
+        # every launch on the wgmma core
         want[PACKED_WGMMA] = NUM_LAYERS * TIMESTEPS
-        want[PACKED_TILES] = TIMESTEPS
+    if route in ROUTE_TILES:
+        want[ROUTE_TILES[route]] = TIMESTEPS        # one tile map a forward
 
     cuda_build.launches.clear()
     images = pipe.generate(prompts, gen)
@@ -1075,9 +1080,9 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
         raise AssertionError(f"{route}: codes out of range "
                              f"{tuple(codes.shape)}")
     wall = statistics.median(walls)
-    core = (f" (all {counts[PACKED_WGMMA]} on the wgmma core, reading "
-            f"{counts[PACKED_TILES]} tile maps, one a forward)"
-            if route == "packed" else "")
+    core = (f" (all on the wgmma core, reading "
+            f"{counts[ROUTE_TILES[route]]} tile maps, one a forward)"
+            if route in ROUTE_TILES else "")
     print(f"[4] slice t2i 512x512 route {route}, {TIMESTEPS} steps, CFG "
           f"1.75, batch {BATCH}, bf16, random weights (setup {setup_s:.1f} "
           f"s): launches per generate {counts[KERNELS[route][0]]} = "
@@ -2025,7 +2030,7 @@ def main() -> int:
         r512, r256 = results[route]["512"], results[route].get("256")
         entry = {"name": name, "route": "cuda",
                  "source": f"showo_tpu_torch/csrc/{name}.cu" + (
-                     " (+ attention_fwd_sm90.cuh)" if route == "packed"
+                     " (+ attention_fwd_sm90.cuh)" if route in ROUTE_TILES
                      else ""),
                  "replaces": replaces,
                  "launches": route_launches[route][name],
@@ -2044,14 +2049,6 @@ def main() -> int:
                             "source": f"showo_tpu_torch/csrc/{source}.cu",
                             "replaces": replaces, "launches": counts[name],
                             **res[name]})
-    # the baseline: launched by no path (phase 7 holds them to 0)
-    for name in FIRST_KERNELS:
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"showo_tpu_torch/csrc/{TRAIN_SOURCE}.cu "
-                                  f"(+ attention_grad.cuh)",
-                        "replaces": TRAIN_KERNELS[name.replace(
-                            "_first", "")][0], "launches": 0,
-                        **train_results[name]})
     for name, replaces in WSMM_KERNELS.items():
         cases = wsmm[name]
         case = "win M=1" if name == "int8_matmul" else "probe M=8"
@@ -2084,6 +2081,17 @@ def main() -> int:
                         **cases[qwen], "case": qwen, "cases": cases,
                         **({"slice": v2_slice, "launches_wgmma":
                             v2_launches[PACKED_WGMMA]} if launches else {})})
+    for route, what in (("streaming", "the mask of _stream_kernel, per "
+                                      "block"),
+                        ("decode", "the bias of _kernel / "
+                                   "_kernel_headloop, per block")):
+        name = ROUTE_TILES[route]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{KERNELS[route][0]}"
+                                  f".cu (+ attention_fwd_sm90.cuh)",
+                        "replaces": f"{KERNELS[route][1]} ({what})",
+                        "launches": route_launches[route][name],
+                        **results[f"{route}_tiles"], "case": "512"})
     kernels.append({"name": PACKED_TILES, "route": "cuda",
                     "source": "showo_tpu_torch/csrc/omni_attention_packed.cu "
                               "(+ attention_fwd_sm90.cuh)",

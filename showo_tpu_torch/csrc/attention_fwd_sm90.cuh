@@ -1,31 +1,45 @@
 // One forward attention core for Hopper (sm_90a) on wgmma, beside the
-// backward of attention_grad_sm90.cuh and on its pieces: omni-masked
-// attention out = softmax(q.k^T * sm_scale, masked) . v with bf16
-// operands and fp32 scores, online softmax and accumulation, every tensor
-// read and written through its (batch, head, row) strides.  Three callers,
-// two masks (template flag OMNI):
-//   the forwards of kernels 8 and 7 (streaming_attention_grad.cu on
-//     head-major views, packed_attention_grad.cu on the packed layout;
-//     OMNI = false): self-attention, head dim 64; masked scores are -inf,
-//     so a row with no visible key gets out = 0 and lse = the caller's
-//     sentinel (1e30, 1e9); writes lse.  Replaces the Pallas _fwd_kernel
-//     of showo_tpu/ops/streaming_attention_grad.py::_fwd and
-//     packed_attention_grad.py::_fwd.
-//   kernel 1 (omni_attention_packed.cu, OMNI = true) at head dims 64 and
+// backward of attention_grad_sm90.cuh and on its pieces: masked attention
+// out = softmax(q.k^T * sm_scale, masked) . v with bf16 operands and fp32
+// scores, online softmax and accumulation, every tensor read and written
+// through its (batch, head, row) strides.  Five callers, three masks
+// (template argument MASK):
+//   MASK_INF, the omni mask from metadata, masked scores -inf, so a row
+//     with no visible key gets out = 0 (and lse = the caller's sentinel
+//     where lse is written):
+//     the forwards of kernels 8 and 7 (streaming_attention_grad.cu on
+//       head-major views, packed_attention_grad.cu on the packed layout),
+//       self-attention, head dim 64, lse written; the map of
+//       tile_map_kernel.  Replace the Pallas _fwd_kernel of
+//       showo_tpu/ops/streaming_attention_grad.py::_fwd and
+//       packed_attention_grad.py::_fwd;
+//     kernel 5 (streaming_attention.cu) at head dims 64 and 128: head-major
+//       views, q rows by (pos_q, seg_q), Q != S, no lse; the map of
+//       rows_tile_map_kernel, whose flag it does not need (skipping a tile
+//       is exact under -inf).  Replaces the Pallas _stream_kernel of
+//       showo_tpu/ops/streaming_attention.py::omni_attention_streaming.
+//   MASK_MEAN, kernel 1 (omni_attention_packed.cu) at head dims 64 and
 //     128: the packed [B, S, H*D] layout, q rows by (pos_q, seg_q), Q != S;
 //     masked scores are -1e30, so a row with no visible key averages v
 //     over all S columns, and columns past S take no weight (as in
 //     omni_attention.cuh).  Replaces the Pallas _attn_kernel_packed of
 //     showo_tpu/ops/flash_attention.py::omni_attention_packed.
+//   MASK_BIAS, kernel 3 (decode_attention.cu) at head dim 64: the mask
+//     arrives as an additive fp32 bias [B, 1, Q, K] read through its
+//     strides; score = (q.k * sm_scale + bias) in the log2 domain, the
+//     ragged K edge -inf; the map of bias_tile_map_kernel.  Replaces the
+//     Pallas _kernel and _kernel_headloop of
+//     showo_tpu/ops/decode_attention.py::decode_attention.
 //
 // What bounds it on an H100: 4 * D FLOP per visible (row, key) pair and
 // head over O(S * D) bytes a head, so the tensor-core rate at the visible
 // share: at kernel 8's 512x512 step (B=12, S=1408, H=32, D=64, 0.60 of
 // the pairs visible) 0.126 ms at 989 TFLOP/s, at the v1 512x512 cached
-// step (B=4, Q=1026, S=1155, D=64) 0.035 ms, at Show-o2's rows (B=8,
-// S=768) 0.028 ms for Qwen's 12 q / 2 kv heads of 128 and 0.037 ms for
-// the DiT's 32 / 8 of 64.  What held the first forward
-// (attention_tile.cuh) back, and what this design does about it:
+// step (B=4, Q=1026, S=1155, D=64) 0.035 ms (kernel 3 adds the 19 MB of
+// its bias, 0.006 ms at 3.35 TB/s), at Show-o2's rows (B=8, S=768) 0.028
+// ms for Qwen's 12 q / 2 kv heads of 128 and 0.037 ms for the DiT's 32 /
+// 8 of 64.  What held the first forwards (attention_tile.cuh) back, and
+// what this design does about it:
 //   1. Each K / V tile loaded synchronously, two barriers a tile, no copy
 //      in flight during the products: here a ring of STAGES (K, V) tiles
 //      in dynamic shared memory, filled by cp.async, the next visible
@@ -41,14 +55,19 @@
 //      k16 steps over HD / 64 panels), O += P.V as one n64 product per
 //      panel of the head dim (64 fp32 accumulator registers a thread at
 //      HD = 128).
-//   4. Every K tile visited and masked element by element: here the
-//      block walks the visible K tiles of its row of a tile map made from
-//      the O(S) metadata (agrad90::tile_map_kernel for kernels 7 and 8,
-//      rows_tile_map_kernel for kernel 1's q rows), and masks only the
-//      tiles the map marks partial.  Kernel 1 may skip a tile only where
-//      every row of the block sees some key (a masked -1e30 score then
-//      weighs exactly 0); the map flags the q tiles that hold a row with
-//      no visible key, and their blocks visit and mask every tile.
+//   4. Every K tile visited and masked element by element (kernel 3: every
+//      bias entry read by its thread from device memory, once per head):
+//      here the block walks the visible K tiles of its row of a tile map
+//      made once per forward (agrad90::tile_map_kernel for kernels 7 and
+//      8, rows_tile_map_kernel for kernels 1 and 5 from the O(S)
+//      metadata, bias_tile_map_kernel for kernel 3 from the bias), and
+//      masks only the tiles the map marks partial; kernel 3 copies a
+//      partial tile's bias into the ring beside K and V and reads no bias
+//      for a tile whose every entry is 0.  Under -1e30 (kernel 1) or a
+//      -1e9 bias (kernel 3) a tile may be skipped only where every row of
+//      the block sees some key (a masked score then weighs exactly 0); the
+//      map flags the q tiles that hold a row with no visible key, and
+//      their blocks visit and mask every tile.
 // The ring depth and the resident blocks per SM (FwdCfg) were set by
 // timing on an H100.  No atomics: two launches give the same bits.
 
@@ -58,26 +77,70 @@
 
 namespace agrad90 {
 
+// The mask of wgmma_fwd_kernel (see the top of this file)
+enum : int { MASK_INF = 0, MASK_MEAN = 1, MASK_BIAS = 2 };
+
+// MASK_BIAS: the additive fp32 bias [B, 1, Q, K], batch and row strides
+// in elements, its last dim contiguous, and sm_scale itself (the score is
+// (q.k * scale + bias) * log2 e, as the dense path forms it)
+struct Bias {
+  const float* p;
+  long long sb, sr;
+  float scale;
+};
+
 // Dynamic shared memory of wgmma_fwd_kernel: Q (HD / 64 panels); the ring
-// of STAGES (K, V) tiles; per stage the K tile's seg and pad; the visible
-// tile count and list.  HD = 64: 2 stages, 41 KB, 4 blocks an SM (at most
-// 128 registers); HD = 128: 2 stages, 81 KB, 2 blocks an SM.  On an H100
-// 4 blocks of 2 stages ran kernel 8's forward ~6% faster than 3 blocks of
-// 3; at HD = 128 one block an SM ran as fast as 2, and a third stage (one
-// block) slower.
-template <int HD>
+// of STAGES stages, each a K and a V tile and with MASK_BIAS the 64 x 64
+// fp32 bias tile (16 KB), else the K tile's seg and pad; the visible tile
+// count and list.  HD = 64: 2 stages, 41 KB, 4 blocks an SM (at most 128
+// registers); with the bias 72 KB, 3 blocks; HD = 128: 2 stages, 81 KB, 2
+// blocks an SM.  On an H100 4 blocks of 2 stages ran kernel 8's forward
+// ~6% faster than 3 blocks of 3; at HD = 128 one block an SM ran as fast
+// as 2, and a third stage (one block) slower.
+template <int HD, int MASK>
 struct FwdCfg {
+  static constexpr bool BIAS = MASK == MASK_BIAS;
   static constexpr int TILE = BLK * HD * 2;
+  static constexpr int BIAS_TILE = BLK * BLK * 4;
   static constexpr int STAGES = 2;
-  static constexpr int BLOCKS = HD == 64 ? 4 : 2;
+  static constexpr int BLOCKS = BIAS ? 3 : HD == 64 ? 4 : 2;
   static constexpr int RING = TILE;
-  static constexpr int META = RING + STAGES * 2 * TILE;
-  static constexpr int LIST = META + STAGES * 2 * BLK * 4;
+  static constexpr int STAGE = 2 * TILE + (BIAS ? BIAS_TILE : 0);
+  static constexpr int META = RING + STAGES * STAGE;
+  static constexpr int LIST = META + (BIAS ? 0 : STAGES * 2 * BLK * 4);
   static int smem(int nk) { return LIST + 4 * (nk + 1); }
 };
 
+// Byte offset of bias entry (r, c) in a 64 x 64 fp32 bias tile: the pair
+// of columns c / 2 of row r at (c / 2) ^ ((r & 3) << 2), so that the 8-byte
+// reads of a half warp (4 rows, the same 4 pairs of each) fall on 32
+// distinct banks.
+__device__ __forceinline__ uint32_t bias_off(int r, int c) {
+  return (r * BLK + (((c >> 1) ^ ((r & 3) << 2)) << 1) + (c & 1)) * 4;
+}
+
+// Rows [q0, q0 + 64) x keys [k0, k0 + 64) of one batch row's bias (row
+// stride ld) -> a bias tile at dst, zeros past Q and K.  4-byte copies: a
+// row of the cached step's view starts at any 4-byte boundary (its stride
+// is the whole sequence, 1155 or 387 entries); neighbouring threads copy
+// neighbouring keys of one row.
+__device__ __forceinline__ void load_bias(uint32_t dst, const float* src,
+                                          long long ld, int q0, int Q,
+                                          int k0, int K) {
+  const int c = threadIdx.x & (BLK - 1);
+  const bool cin = k0 + c < K;
+#pragma unroll
+  for (int i = 0; i < BLK * BLK / THREADS; ++i) {
+    const int r = (threadIdx.x / BLK) + (THREADS / BLK) * i;
+    const bool in = cin && q0 + r < Q;
+    cp_async4(dst + bias_off(r, c),
+              in ? src + (long long)(q0 + r) * ld + k0 + c : src,
+              in ? 4 : 0);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// kernel 1's tile map: q rows at (pos_q, seg_q), Q != S
+// the tile map of kernels 1 and 5: q rows at (pos_q, seg_q), Q != S
 // ---------------------------------------------------------------------------
 
 // [B, nq, nk + 1] bytes: entry kt < nk of (b, q tile) is 0 where no entry
@@ -127,21 +190,84 @@ rows_tile_map_kernel(Meta mt, agrad::Rows rows, int Q, int S,
 }
 
 // ---------------------------------------------------------------------------
+// the tile map of kernel 3: an additive bias [B, 1, Q, K]
+// ---------------------------------------------------------------------------
+
+constexpr float BIAS_MASKED = -1e9f;  // the masks' masked value (ops/masks.py)
+constexpr float BIAS_SEES = -1e8f;    // a row with an entry above sees a key
+
+// [B, nq, nk + 1] bytes from the bias (batch / row strides sb / sr): entry
+// kt < nk of (b, q tile) is 3 where the K tile lies inside K and every
+// entry of its rows < Q is exactly 0 (no bias is read), 0 where every
+// entry (rows < Q, keys < K) is <= -1e9 (the tile is skipped), 1
+// otherwise (the bias is read and added); entry nk is 1 where some row of
+// the q tile (< Q) has no entry above -1e8 (it averages v over the K keys,
+// so its block visits every tile), else 0.  Skipping is exact: a row with
+// an entry above -1e8 weighs an entry at or below -1e9 by exp(< -9e8),
+// which is 0 in fp32.  One block per (q tile, b) walks the K tiles;
+// neighbouring threads read neighbouring keys of one row.
+__global__ void __launch_bounds__(THREADS)
+bias_tile_map_kernel(const float* __restrict__ bias, long long sb,
+                     long long sr, int Q, int K,
+                     uint8_t* __restrict__ tiles) {
+  __shared__ uint32_t seen_s[THREADS / 32];
+  const int qt = blockIdx.x, b = blockIdx.y, q0 = qt * BLK;
+  const int nk = (K + BLK - 1) / BLK;
+  uint8_t* row = tiles + ((long long)b * gridDim.x + qt) * (nk + 1);
+  const int c = threadIdx.x & (BLK - 1), r0 = threadIdx.x / BLK;
+  constexpr int ROWS = BLK * BLK / THREADS;  // rows r0 + 2 i of a thread
+  const float* src = bias + b * sb;
+  uint32_t seen = 0;  // bit i: row r0 + 2 i has an entry above -1e8
+  for (int kt = 0; kt < nk; ++kt) {
+    const int j = kt * BLK + c;
+    bool zero = kt * BLK + BLK <= K, low = true;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = q0 + r0 + (THREADS / BLK) * i;
+      if (r < Q && j < K) {
+        const float x = __ldg(src + (long long)r * sr + j);
+        zero &= x == 0.f;
+        low &= x <= BIAS_MASKED;
+        seen |= (uint32_t)(x > BIAS_SEES) << i;
+      }
+    }
+    const bool all_zero = __syncthreads_and(zero);
+    const bool all_low = __syncthreads_and(low);
+    if (threadIdx.x == 0) row[kt] = all_zero ? 3 : all_low ? 0 : 1;
+  }
+  seen = __reduce_or_sync(0xffffffffu, seen);
+  if ((threadIdx.x & 31) == 0) seen_s[threadIdx.x / 32] = seen;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // warps 2h and 2h + 1 hold rows h + 2 i
+    bool flag = false;
+    for (int h = 0; h < THREADS / BLK; ++h) {
+      const uint32_t s = seen_s[2 * h] | seen_s[2 * h + 1];
+      for (int i = 0; i < ROWS; ++i)
+        flag |= q0 + h + (THREADS / BLK) * i < Q && !((s >> i) & 1u);
+    }
+    row[nk] = flag ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the forward
 // ---------------------------------------------------------------------------
 
 // Grid (ceil(Q / 64), H, B), one warpgroup a block.  tiles: the block's
-// map row is tiles + (b * nq + q tile) * ld (nk entries; OMNI: the flag
-// at nk).  rows.pos null: self-attention (row i at position i, seg[b, i]).
-template <int HD, bool OMNI>
-__global__ void __launch_bounds__(THREADS, FwdCfg<HD>::BLOCKS)
+// map row is tiles + (b * nq + q tile) * ld (nk entries; MASK_MEAN and
+// MASK_BIAS read the flag at nk).  rows.pos null: self-attention (row i at
+// position i, seg[b, i]).  MASK_BIAS reads no metadata; S is then K.
+template <int HD, int MASK>
+__global__ void __launch_bounds__(THREADS, FwdCfg<HD, MASK>::BLOCKS)
 wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, Meta mt, agrad::Rows rows,
-                 const uint8_t* __restrict__ tiles, int ld, int Q, int S,
-                 int group, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale_log2, float sentinel) {
-  using C = FwdCfg<HD>;
+                 Bias bias, const uint8_t* __restrict__ tiles, int ld, int Q,
+                 int S, int group, Strides qs, Strides ks, Strides vs,
+                 Strides os, float scale_log2, float sentinel) {
+  using C = FwdCfg<HD, MASK>;
+  constexpr bool BIAS = C::BIAS;
   constexpr int P = HD / 64;  // panels of a head row
   // P.V is waited for at the end of its iteration, so the stage read last
   // is free when the next copies are issued.  (Left in flight across the
@@ -156,21 +282,28 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * BLK, nk = (S + BLK - 1) / BLK;
   const bf16* kh = k + b * ks.b + (h / group) * ks.h;
   const bf16* vh = v + b * vs.b + (h / group) * vs.h;
+  const float* bh = BIAS ? bias.p + b * bias.sb : nullptr;
 
   const uint8_t* trow = tiles + ((long long)b * gridDim.x + qt) * ld;
   const int n = visible_tiles(trow, 1, nk, list, list - 1,
-                              OMNI && trow[nk] != 0);
+                              MASK != MASK_INF && trow[nk] != 0);
   load_tile<HD>(sb, q + b * qs.b + h * qs.h, qs.r, q0, Q);
-  // tile i of the list -> stage i % STAGES: K, V, and the keys' seg / pad
+  // tile i of the list -> stage i % STAGES: K, V, and the bias tile (a
+  // partial tile of MASK_BIAS) or the keys' seg / pad
   auto load_stage = [&](int i) {
     const int st = i % C::STAGES, k0 = (list[i] >> 1) * BLK;
-    const uint32_t kb = sb + C::RING + st * 2 * C::TILE;
+    const uint32_t kb = sb + C::RING + st * C::STAGE;
     load_tile<HD>(kb, kh, ks.r, k0, S);
     load_tile<HD>(kb + C::TILE, vh, vs.r, k0, S);
-    const int j = k0 + (threadIdx.x & (BLK - 1));
-    const int* src = threadIdx.x < BLK ? mt.seg : mt.pad;
-    cp_async4(sb + C::META + (st * 2 * BLK + threadIdx.x) * 4,
-              src + (long long)b * S + (j < S ? j : 0), j < S ? 4 : 0);
+    if constexpr (BIAS) {
+      if (!(list[i] & FULL))
+        load_bias(kb + 2 * C::TILE, bh, bias.sr, q0, Q, k0, S);
+    } else {
+      const int j = k0 + (threadIdx.x & (BLK - 1));
+      const int* src = threadIdx.x < BLK ? mt.seg : mt.pad;
+      cp_async4(sb + C::META + (st * 2 * BLK + threadIdx.x) * 4,
+                src + (long long)b * S + (j < S ? j : 0), j < S ? 4 : 0);
+    }
   };
 #pragma unroll
   for (int i = 0; i < LOOKAHEAD; ++i) {
@@ -180,20 +313,22 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // this thread's rows q0 + tile_row() (+ 8): the rows of the wgmma
   // accumulator fragments, as of mma.sync's
-  int pos[2], sq[2];
-  bool padok[2];
-  const int lp = mt.last_pad[b], pf = mt.prefix[b];
+  int pos[2] = {-1, -1}, sq[2] = {0, 0};
+  bool padok[2] = {false, false};
+  int pf = 0;
+  if constexpr (!BIAS) {
+    const int lp = mt.last_pad[b];
+    pf = mt.prefix[b];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + tile::tile_row() + 8 * r;
-    const long long bi = (long long)b * Q + i;
-    pos[r] = -1;  // past Q
-    sq[r] = 0;
-    if (i < Q) {
-      pos[r] = rows.pos ? rows.pos[bi] : i;
-      sq[r] = rows.seg ? rows.seg[bi] : mt.seg[(long long)b * S + i];
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + tile::tile_row() + 8 * r;
+      const long long bi = (long long)b * Q + i;
+      if (i < Q) {  // else past Q: pos -1
+        pos[r] = rows.pos ? rows.pos[bi] : i;
+        sq[r] = rows.seg ? rows.seg[bi] : mt.seg[(long long)b * S + i];
+      }
+      padok[r] = pos[r] <= lp;
     }
-    padok[r] = pos[r] <= lp;
   }
 
   float o[8 * P][4], s[8][4], m[2] = {-INFINITY, -INFINITY},
@@ -216,7 +351,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (i + LOOKAHEAD < n) load_stage(i + LOOKAHEAD);
     cp_async_commit();
     const int st = i % C::STAGES, entry = list[i];
-    const uint32_t kb = sb + C::RING + st * 2 * C::TILE, vb = kb + C::TILE;
+    const uint32_t kb = sb + C::RING + st * C::STAGE, vb = kb + C::TILE;
     // S = Q.K^T, K-major from shared memory, HD / 16 steps over the panels
     wgmma_fence();
 #pragma unroll
@@ -229,7 +364,36 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait<0>();
     fence_acc(s);
     // log2-domain logits; the mask only on tiles not all visible
-    if (entry & FULL) {
+    if constexpr (BIAS) {
+      // (q.k * scale + bias) * log2 e, the product rounded on its own, so
+      // a FULL tile (bias 0, not read) gives the bits of a read 0
+      if (entry & FULL) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[j][c] = __fmul_rn(s[j][c], bias.scale) * tile::LOG2E;
+      } else {
+        const int k0 = (entry >> 1) * BLK;
+        const uint8_t* bt = ring_smem + (kb - sb) + 2 * C::TILE;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int col = agrad::acc_col(j, 0);
+            const float2 x = *reinterpret_cast<const float2*>(
+                bt + bias_off(tile::tile_row() + 8 * r, col));
+            s[j][2 * r] = k0 + col < S ? (__fmul_rn(s[j][2 * r], bias.scale)
+                                          + x.x) * tile::LOG2E
+                                       : -INFINITY;
+            s[j][2 * r + 1] =
+                k0 + col + 1 < S
+                    ? (__fmul_rn(s[j][2 * r + 1], bias.scale) + x.y) *
+                          tile::LOG2E
+                    : -INFINITY;
+          }
+      }
+    } else if (entry & FULL) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -245,8 +409,9 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float masked =
-              OMNI && k0 + agrad::acc_col(j, c & 1) < S ? tile::MASKED
-                                                        : -INFINITY;
+              MASK == MASK_MEAN && k0 + agrad::acc_col(j, c & 1) < S
+                  ? tile::MASKED
+                  : -INFINITY;
           s[j][c] = (vis >> agrad::bit(c >> 1, j, c & 1)) & 1u
                         ? s[j][c] * scale_log2
                         : masked;
@@ -272,7 +437,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
 
   bf16* oh = out + b * os.b + h * os.h;
-  if (OMNI) {
+  if constexpr (MASK == MASK_MEAN) {
     // l >= 1: the row's max contributes exp2(0)
     tile::store<HD>(oh, os.r, q0, Q, o, l);
     return;
@@ -294,7 +459,8 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launches on ``stream``; each returns the cudaError_t of its launch
 // ---------------------------------------------------------------------------
 
-// kernel 1's tile map, [B, ceil(Q / 64), ceil(S / 64) + 1] bytes
+// the tile map of kernels 1 and 5, [B, ceil(Q / 64), ceil(S / 64) + 1]
+// bytes
 inline int launch_rows_tile_map(Meta mt, agrad::Rows rows, int B, int Q,
                                 int S, uint8_t* tiles, void* stream) {
   rows_tile_map_kernel<<<dim3(tiles_of(Q), B), THREADS, 0,
@@ -303,24 +469,37 @@ inline int launch_rows_tile_map(Meta mt, agrad::Rows rows, int B, int Q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// OMNI = false: self-attention (Q == S, rows null), the tile map of
-// tile_map_kernel, lse written.  OMNI = true: q rows by ``rows``, the map
-// of rows_tile_map_kernel, lse null.
-template <int HD, bool OMNI>
+// kernel 3's tile map, [B, ceil(Q / 64), ceil(K / 64) + 1] bytes
+inline int launch_bias_tile_map(const float* bias, long long sb,
+                                long long sr, int B, int Q, int K,
+                                uint8_t* tiles, void* stream) {
+  bias_tile_map_kernel<<<dim3(tiles_of(Q), B), THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(bias, sb, sr, Q,
+                                                              K, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``tiles``: the map of tile_map_kernel (self-attention, [B, nk, nk]), or
+// with ``flagged`` one of rows_tile_map_kernel or bias_tile_map_kernel
+// ([B, nq, nk + 1]).  MASK_INF: q rows by ``rows`` (null: Q == S, self-
+// attention), lse written where not null.  MASK_MEAN: q rows by ``rows``,
+// lse null.  MASK_BIAS: ``bias``, no metadata, lse null; S is K.
+template <int HD, int MASK>
 inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
-                      float* lse, Meta mt, agrad::Rows rows,
-                      const uint8_t* tiles, int B, int Q, int S, int H,
-                      int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
-                      float sm_scale, float sentinel, void* stream) {
-  const int nk = tiles_of(S), smem = FwdCfg<HD>::smem(nk);
-  auto kernel = wgmma_fwd_kernel<HD, OMNI>;
+                      float* lse, Meta mt, agrad::Rows rows, Bias bias,
+                      const uint8_t* tiles, bool flagged, int B, int Q, int S,
+                      int H, int Hkv, Strides qs, Strides ks, Strides vs,
+                      Strides os, float sm_scale, float sentinel,
+                      void* stream) {
+  const int nk = tiles_of(S), smem = FwdCfg<HD, MASK>::smem(nk);
+  auto kernel = wgmma_fwd_kernel<HD, MASK>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(tiles_of(Q), H, B), THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mt, rows,
-      tiles, OMNI ? nk + 1 : nk, Q, S, H / Hkv, qs, ks, vs, os,
+      bias, tiles, flagged ? nk + 1 : nk, Q, S, H / Hkv, qs, ks, vs, os,
       sm_scale * tile::LOG2E, sentinel);
   return static_cast<int>(cudaGetLastError());
 }

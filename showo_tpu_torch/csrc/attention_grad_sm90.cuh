@@ -1,20 +1,19 @@
 // The backward of kernels 7 and 8 for Hopper (sm_90a) on wgmma: dq, and dk
 // with dv, of omni-masked self-attention on any (batch, head, row) strides
 // (kernel 8's head-major [B, H, S, D] views, kernel 7's packed [B, S, H*D]
-// layout), and the tile map both read.  bf16 operands, fp32 scores, softmax and
-// accumulation; the arithmetic of attention_grad.cuh's dq_kernel /
-// dkv_kernel (P = exp(q.k^T * sm_scale - lse) on visible entries, dS =
-// P * (dP - delta) * sm_scale, P and dS rounded to bf16 for the products
-// dq = dS.K, dk = dS^T.Q, dv = P^T.dO, the GQA group summed in fp32), in
-// another order of the sums.
+// layout), and the tile map both read.  bf16 operands, fp32 scores,
+// softmax and accumulation: P = exp(q.k^T * sm_scale - lse) on visible
+// entries, dS = P * (dP - delta) * sm_scale, P and dS rounded to bf16 for
+// the products dq = dS.K, dk = dS^T.Q, dv = P^T.dO, the GQA group summed
+// in fp32.
 //
 // Replaces showo_tpu/ops/streaming_attention_grad.py::_bwd and
 // packed_attention_grad.py::_bwd (the Pallas _dq_kernel and _dkv_kernel of
-// each), as attention_grad.cuh's kernels did before.  What bounds it on an H100 at the v1 512x512
-// step (B=12, S=1408, H=32, D=64, 0.60 of the pairs visible): 6*D and 8*D
-// FLOP per visible pair and head over ~0.2 GB, the tensor-core rate
-// (0.19 / 0.25 ms at 989 TFLOP/s).  What held the first kernels back, and
-// what this design does about it:
+// each), as the first mma.sync kernels (since removed) did before.  What
+// bounds it on an H100 at the v1 512x512 step (B=12, S=1408, H=32, D=64,
+// 0.60 of the pairs visible): 6*D and 8*D FLOP per visible pair and head
+// over ~0.2 GB, the tensor-core rate (0.19 / 0.25 ms at 989 TFLOP/s).
+// What held the first kernels back, and what this design does about it:
 //   1. No overlap of loads and products: here a ring of STAGES tiles in
 //      dynamic shared memory, filled by cp.async, the next visible tile's
 //      copies in flight while this one's products run.
@@ -31,7 +30,7 @@
 // byte per (q tile, k tile) pair, from the O(S) metadata, once for all
 // heads and both kernels) says which tiles have no visible entry (never
 // fetched), which are all visible (no mask), and which need the
-// per-element map of attention_grad.cuh.
+// per-element map of attention_grad.cuh (query_rows_map).
 //
 //   dq_kernel:  one block per (b, h, 64-row q tile): Q and dO resident,
 //               the visible K / V tiles streamed;

@@ -4,7 +4,7 @@
 // Replaces showo_tpu/ops/flash_attention.py::omni_attention_packed (Pallas
 // kernel _attn_kernel_packed).  Here the head stride is D and the row
 // stride H*D; GQA: kv head = h / (H / Hkv).  Both head dims run the wgmma
-// forward core (attention_fwd_sm90.cuh, OMNI = true: q rows by position,
+// forward core (attention_fwd_sm90.cuh, MASK_MEAN: q rows by position,
 // masked scores -1e30), after a tile map of the q rows' metadata
 // (omni_attention_packed_tiles) that says which K tiles each block visits
 // and masks:
@@ -52,14 +52,12 @@ extern "C" int omni_attention_packed_bf16(
     return static_cast<int>(cudaErrorInvalidValue);
   const agrad::Meta mt{seg, pad, last_pad, prefix};
   if (head_dim == 64)
-    return agrad90::launch_fwd<64, true>(q, k, v, out, nullptr, mt,
-                                         {pos_q, seg_q}, tiles, B, Q, S, H,
-                                         Hkv, qs, ks, vs, os, sm_scale, 0.f,
-                                         stream);
+    return agrad90::launch_fwd<64, agrad90::MASK_MEAN>(
+        q, k, v, out, nullptr, mt, {pos_q, seg_q}, {}, tiles, true, B, Q, S,
+        H, Hkv, qs, ks, vs, os, sm_scale, 0.f, stream);
   if (head_dim == 128)
-    return agrad90::launch_fwd<128, true>(q, k, v, out, nullptr, mt,
-                                          {pos_q, seg_q}, tiles, B, Q, S, H,
-                                          Hkv, qs, ks, vs, os, sm_scale, 0.f,
-                                          stream);
+    return agrad90::launch_fwd<128, agrad90::MASK_MEAN>(
+        q, k, v, out, nullptr, mt, {pos_q, seg_q}, {}, tiles, true, B, Q, S,
+        H, Hkv, qs, ks, vs, os, sm_scale, 0.f, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,10 +25,6 @@
 // A row with no visible key gets out = 0 and lse = 1e9 (the JAX kernel's
 // -NEG_INF sentinel, NEG_INF = -1e9 in its packed module), and P = 0 in
 // the backward: the per-element map masks every entry of its row.
-//
-// The first mma.sync kernels of attention_grad.cuh stay launchable under
-// their own entries (packed_attention_grad_first_*), on no model path: the
-// baseline chip_smoke.py times beside these.
 
 #include "attention_fwd_sm90.cuh"
 
@@ -66,9 +62,10 @@ extern "C" int packed_attention_grad_fwd_bf16(
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
   const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad90::launch_fwd<64, false>(
-      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr},
-      tiles, B, S, S, H, Hkv, qs, ks, ks, qs, sm_scale, SENTINEL, stream);
+  return agrad90::launch_fwd<64, agrad90::MASK_INF>(
+      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr}, {},
+      tiles, false, B, S, S, H, Hkv, qs, ks, ks, qs, sm_scale, SENTINEL,
+      stream);
 }
 
 extern "C" int packed_attention_grad_dq_bf16(
@@ -100,46 +97,3 @@ extern "C" int packed_attention_grad_dkv_bf16(
                                  stream);
 }
 
-// The first kernels (attention_grad.cuh), the same arguments without the
-// tile map: the baseline, on no model path.
-
-extern "C" int packed_attention_grad_first_fwd_bf16(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    const int* seg, const int* pad, const int* last_pad, const int* prefix,
-    int B, int S, int H, int Hkv, int head_dim, float sm_scale,
-    void* stream) {
-  if (agrad::bad_shape(head_dim, H, Hkv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad::launch_fwd<true>(q, k, v, out, lse,
-                                 {seg, pad, last_pad, prefix},
-                                 {nullptr, nullptr}, B, S, S, H, Hkv, qs, ks,
-                                 ks, qs, sm_scale, SENTINEL, stream);
-}
-
-extern "C" int packed_attention_grad_first_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, const int* seg,
-    const int* pad, const int* last_pad, const int* prefix, int B, int S,
-    int H, int Hkv, int head_dim, float sm_scale, void* stream) {
-  if (agrad::bad_shape(head_dim, H, Hkv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad::launch_dq(q, k, v, dout, lse, delta, dq,
-                          {seg, pad, last_pad, prefix}, B, S, H, Hkv, qs, ks,
-                          ks, qs, qs, sm_scale, stream);
-}
-
-extern "C" int packed_attention_grad_first_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv,
-    const int* seg, const int* pad, const int* last_pad, const int* prefix,
-    int B, int S, int H, int Hkv, int head_dim, float sm_scale,
-    void* stream) {
-  if (agrad::bad_shape(head_dim, H, Hkv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad::launch_dkv(q, k, v, dout, lse, delta, dk, dv,
-                           {seg, pad, last_pad, prefix}, B, S, H, Hkv, qs, ks,
-                           ks, qs, ks, ks, sm_scale, stream);
-}

@@ -69,9 +69,9 @@ extern "C" int streaming_attention_grad_fwd_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_fwd<64, false>(
-      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr},
-      tiles, B, S, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+  return agrad90::launch_fwd<64, agrad90::MASK_INF>(
+      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr}, {},
+      tiles, false, B, S, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
       {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale, SENTINEL, stream);
 }
 

@@ -40,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from showo_tpu_torch.ops.decode_attention import decode_attention
+from showo_tpu_torch.ops.decode_attention import (bias_tile_map,
+                                                  decode_attention)
 from showo_tpu_torch.ops.flash_attention import (omni_attention,
                                                  omni_attention_packed,
                                                  q_rows, rows_tile_map,
@@ -50,7 +51,8 @@ from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
 from showo_tpu_torch.ops.int8_matmul import WeightStream, linear_i8
 from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
-from showo_tpu_torch.ops.streaming_attention import omni_attention_streaming
+from showo_tpu_torch.ops.streaming_attention import (
+    omni_attention_streaming, streaming_tile_map)
 from showo_tpu_torch.utils.remat import wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
@@ -96,9 +98,11 @@ class AttnStep:
     [B, Q] rows of the omni kernels (None for ``decode`` and
     ``trainable``); ``fused``: the :func:`fused_rows` tuple when the
     forward is a static-prefix cached step on the ``fused`` route, else
-    None; ``tiles``: the tile map the ``packed`` route's kernel reads
-    (``rows_tile_map``), on CUDA only (None on the CPU, whose plain
-    version needs none, and on the other routes)."""
+    None; ``tiles``: the tile map the kernel of the ``packed``,
+    ``streaming`` or ``decode`` route reads (``rows_tile_map`` of the
+    metadata; for ``decode`` ``bias_tile_map`` of the forward's bias, made
+    in :meth:`Phi.forward`), on CUDA only (None on the CPU, whose plain
+    versions need none, and on the other routes)."""
 
     route: str
     seg: torch.Tensor
@@ -136,9 +140,10 @@ def attn_step(attn_meta, q_start: int, rows: int,
                                    fused=fused)
     pos_q, seg_q = q_rows(seg, positions, seg.shape[0], rows)
     tiles = None
-    if route == "packed" and seg.is_cuda:
-        tiles = rows_tile_map(step.seg, step.pad, step.last_pad, step.prefix,
-                              pos_q, seg_q)
+    if route in ("packed", "streaming") and seg.is_cuda:
+        tile_map = rows_tile_map if route == "packed" else streaming_tile_map
+        tiles = tile_map(step.seg, step.pad, step.last_pad, step.prefix,
+                         pos_q, seg_q)
     return dataclasses.replace(step, pos_q=pos_q, seg_q=seg_q, tiles=tiles)
 
 
@@ -243,7 +248,7 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
         if m.route == "decode":
             if bias is None:
                 raise ValueError("the decode route needs the additive bias")
-            return decode_attention(q, k, v, bias)
+            return decode_attention(q, k, v, bias, tiles=m.tiles)
         if m.route == "trainable":
             out = omni_attention_packed_trainable(
                 q.reshape(B, Q, H * Dh), k.reshape(B, k.shape[1], H * Dh),
@@ -261,7 +266,7 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
             out = omni_attention_streaming(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 m.seg, m.pad, m.last_pad, m.prefix, q_positions=m.pos_q,
-                seg_q=m.seg_q)
+                seg_q=m.seg_q, tiles=m.tiles)
             return out.transpose(1, 2)
         # omni, and fused outside the static-prefix cached step
         out = omni_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -464,28 +469,34 @@ class Phi(nn.Module):
         cos, sin = rope_tables(position_ids, cfg.rotary_dim, cfg.rope_theta)
 
         static = cache is not None and static_prefix_len is not None
+        bias = attention_bias
+        if static and bias is not None:
+            bias = bias[..., :static_prefix_len + S]
         if attn_meta is not None:
             q_start = (static_prefix_len if static
                        else cache.length if cache is not None else 0)
             attn_meta = attn_step(attn_meta, q_start, S,
                                   static_prefix_len if static else None)
+            if (attn_meta.route == "decode" and bias is not None
+                    and bias.is_cuda):
+                # the bias's tile map, read by every layer's kernel
+                attn_meta = dataclasses.replace(attn_meta,
+                                                tiles=bias_tile_map(bias))
         h = input_embeds
         if static:
             P = static_prefix_len
-            bias = (attention_bias[..., :P + S]
-                    if attention_bias is not None else None)
             for i, layer in enumerate(self.model.layers):
                 h = layer(h, bias, cos, sin,
                           (cache.k[i, :, :P], cache.v[i, :, :P]), P,
                           attn_meta, static_prefix=True)
         elif cache is not None:
             for i, layer in enumerate(self.model.layers):
-                h = layer(h, attention_bias, cos, sin,
+                h = layer(h, bias, cos, sin,
                           (cache.k[i], cache.v[i]), cache.length, attn_meta)
             cache.length += S
         else:
             for layer in self.model.layers:
-                h = wrap_remat(layer, remat)(h, attention_bias, cos, sin,
+                h = wrap_remat(layer, remat)(h, bias, cos, sin,
                                              attn_meta=attn_meta)
 
         h = layer_norm(h, self.model.final_layernorm)

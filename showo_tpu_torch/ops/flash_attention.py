@@ -191,22 +191,26 @@ def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q) -> torch.Tensor:
                       empty.to(torch.uint8)[..., None]], dim=2)
 
 
-def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q) -> torch.Tensor:
-    """The tile map of kernel 1 (:func:`rows_tile_map_plain` of the same
-    metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
+def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q,
+                  source: str = PACKED_SOURCE) -> torch.Tensor:
+    """The tile map of kernels 1 and 5 (:func:`rows_tile_map_plain` of the
+    same metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
     :func:`q_rows`): for CUDA metadata (int32 and contiguous, as
     :func:`_kernel_meta` returns it) the kernel of
-    ``csrc/attention_fwd_sm90.cuh``, counted under ``TILES_KERNEL``."""
+    ``csrc/attention_fwd_sm90.cuh`` under the entry ``<source>_tiles`` of
+    the kernel's source (``omni_attention_packed`` or
+    ``streaming_attention``), counted under that name."""
     if seg.device.type == "cpu":
         return rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q)
     B, S = seg.shape
     Q = pos_q.shape[1]
     tiles = torch.empty((B, -(-Q // TILE), -(-S // TILE) + 1),
                         dtype=torch.uint8, device=seg.device)
+    entry = f"{source}_tiles"
     cuda_build.launch(
-        PACKED_SOURCE, TILES_KERNEL, _TILES_ARGS, seg.device,
+        source, entry, _TILES_ARGS, seg.device,
         *(m.data_ptr() for m in (seg, pad, last_pad, prefix, pos_q, seg_q)),
-        tiles.data_ptr(), B, Q, S, kernel=TILES_KERNEL)
+        tiles.data_ptr(), B, Q, S, kernel=entry)
     return tiles
 
 
@@ -413,8 +417,9 @@ def _check_tiles(tiles, B: int, Q: int, S: int, dev) -> None:
     shape = (B, -(-Q // TILE), -(-S // TILE) + 1)
     if (tiles.dtype != torch.uint8 or tuple(tiles.shape) != shape
             or not tiles.is_contiguous() or tiles.device != dev):
-        raise ValueError(f"tiles must be the uint8 contiguous {shape} map "
-                         f"of rows_tile_map on {dev}")
+        raise ValueError(f"tiles must be the uint8 contiguous {shape} tile "
+                         f"map of the same mask (rows_tile_map, "
+                         f"bias_tile_map) on {dev}")
 
 
 # ---------------------------------------------------------------------------

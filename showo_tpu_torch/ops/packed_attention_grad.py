@@ -33,10 +33,7 @@ The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels (bf16, head dim 64, contiguous operands) or raise.
 ``cuda_build.launches`` counts the launches of the three kernels under
 ``packed_attention_grad_fwd``, ``_dq`` and ``_dkv``, and of the tile map
-under ``_tiles``.  ``first=True`` launches the first ``mma.sync`` kernels
-of ``csrc/attention_grad.cuh`` instead (no tile map; counted under
-``packed_attention_grad_first_fwd``, ``_dq``, ``_dkv``): a baseline to
-time the cores against, on no model path.
+under ``_tiles``.
 """
 
 from __future__ import annotations
@@ -59,15 +56,11 @@ from showo_tpu_torch.ops.streaming_attention_grad import (
 SOURCE = "packed_attention_grad"
 KERNELS = tuple(f"{SOURCE}_{part}" for part in ("fwd", "dq", "dkv"))
 TILES_KERNEL = f"{SOURCE}_tiles"
-# the first mma.sync kernels, kept as a baseline
-FIRST_KERNELS = tuple(f"{SOURCE}_first_{part}"
-                      for part in ("fwd", "dq", "dkv"))
 # lse of a row with no visible key (the JAX kernel's -NEG_INF)
 LSE_EMPTY = -NEG_INF
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (pointers, ints) of each entry; the wgmma entries take the tile map as one
-# more pointer
+# tensor pointers of each entry, before the metadata and the tile map
 _ARGS = {"fwd": 9, "dq": 11, "dkv": 12}
 _TILES_ARGS = [_P] * 5 + [_I] * 2
 
@@ -196,37 +189,33 @@ def tile_map(seg, pad, last_pad, prefix) -> torch.Tensor:
     return tiles
 
 
-def _launch(part: str, q, pointers, meta, tiles, first: bool, num_heads,
-            num_kv_heads, sm_scale) -> None:
-    """Launch kernel ``part`` ("fwd", "dq", "dkv"): the wgmma one on
-    ``tiles`` (made here when None), or with ``first`` the first one."""
+def _launch(part: str, q, pointers, meta, tiles, num_heads, num_kv_heads,
+            sm_scale) -> None:
+    """Launch kernel ``part`` ("fwd", "dq", "dkv") on ``tiles`` (made here
+    when None)."""
     B, S, HD = q.shape
-    name = f"{SOURCE}_{'first_' if first else ''}{part}"
-    extra = []
-    if not first:
-        if tiles is None:
-            tiles = tile_map(*meta)
-        nt = -(-S // TILE)
-        if (tiles.dtype != torch.uint8 or tuple(tiles.shape) != (B, nt, nt)
-                or not tiles.is_contiguous() or tiles.device != q.device):
-            raise ValueError(f"{SOURCE}: tiles must be the uint8 contiguous "
-                             f"{(B, nt, nt)} map of tile_map on {q.device}")
-        extra = [tiles.data_ptr()]
+    name = f"{SOURCE}_{part}"
+    if tiles is None:
+        tiles = tile_map(*meta)
+    nt = -(-S // TILE)
+    if (tiles.dtype != torch.uint8 or tuple(tiles.shape) != (B, nt, nt)
+            or not tiles.is_contiguous() or tiles.device != q.device):
+        raise ValueError(f"{SOURCE}: tiles must be the uint8 contiguous "
+                         f"{(B, nt, nt)} map of tile_map on {q.device}")
     cuda_build.launch(
-        SOURCE, f"{name}_bf16",
-        [_P] * (_ARGS[part] + len(extra)) + [_I] * 5 + [_F], q.device,
-        *(t.data_ptr() for t in pointers),
-        *(m.data_ptr() for m in meta), *extra,
+        SOURCE, f"{name}_bf16", [_P] * (_ARGS[part] + 1) + [_I] * 5 + [_F],
+        q.device, *(t.data_ptr() for t in pointers),
+        *(m.data_ptr() for m in meta), tiles.data_ptr(),
         B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
         kernel=name)
 
 
 def packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
                          num_heads: int, num_kv_heads: int,
-                         sm_scale: float, tiles=None, first: bool = False):
+                         sm_scale: float, tiles=None):
     """(out, lse); metadata int32 as :func:`span_meta` returns it;
     ``tiles``: :func:`tile_map` of the metadata, made here when not
-    given; ``first``: the first kernel (no map)."""
+    given."""
     if _device(q) == "cpu":
         return packed_trainable_fwd_plain(
             q, k, v, seg, pad, last_pad, prefix, num_heads=num_heads,
@@ -236,15 +225,14 @@ def packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     _launch("fwd", q, (q, k, v, out, lse), (seg, pad, last_pad, prefix),
-            tiles, first, num_heads, num_kv_heads, sm_scale)
+            tiles, num_heads, num_kv_heads, sm_scale)
     return out, lse
 
 
 def packed_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
                         prefix, *, num_heads: int, num_kv_heads: int,
-                        sm_scale: float, tiles=None, first: bool = False):
-    """dq [B, S, H*D]; ``tiles`` and ``first`` as for
-    :func:`packed_trainable_fwd`."""
+                        sm_scale: float, tiles=None):
+    """dq [B, S, H*D]; ``tiles`` as for :func:`packed_trainable_fwd`."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
               sm_scale=sm_scale)
     if _device(q) == "cpu":
@@ -254,15 +242,15 @@ def packed_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
             "delta": delta}, _shapes(q, num_heads, num_kv_heads))
     dq = torch.empty_like(q)
     _launch("dq", q, (q, k, v, dout, lse, delta, dq),
-            (seg, pad, last_pad, prefix), tiles, first, **kw)
+            (seg, pad, last_pad, prefix), tiles, **kw)
     return dq
 
 
 def packed_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
                          prefix, *, num_heads: int, num_kv_heads: int,
-                         sm_scale: float, tiles=None, first: bool = False):
-    """(dk, dv) [B, S, Hkv*D], each GQA group summed; ``tiles`` and
-    ``first`` as for :func:`packed_trainable_fwd`."""
+                         sm_scale: float, tiles=None):
+    """(dk, dv) [B, S, Hkv*D], each GQA group summed; ``tiles`` as for
+    :func:`packed_trainable_fwd`."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
               sm_scale=sm_scale)
     if _device(q) == "cpu":
@@ -272,7 +260,7 @@ def packed_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
             "delta": delta}, _shapes(q, num_heads, num_kv_heads))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("dkv", q, (q, k, v, dout, lse, delta, dk, dv),
-            (seg, pad, last_pad, prefix), tiles, first, **kw)
+            (seg, pad, last_pad, prefix), tiles, **kw)
     return dk, dv
 
 

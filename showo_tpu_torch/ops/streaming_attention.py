@@ -20,13 +20,16 @@ instead.  ``q_positions`` are the q rows' kv positions (the prefix-cached
 Q != K step).  The Pallas kernel pads Q and S to its block sizes; that is
 tiling, not semantics, and the port pads nothing.
 
-The hand-written Hopper kernel is ``csrc/streaming_attention.cu`` (the
-forward of ``csrc/attention_grad.cuh`` without the logsumexp): 64-row K/V
-tiles with an online softmax, tiles the mask hides skipped from the
-metadata, q/k/v read through their strides, so phi's transposed
-[B, S, H, D] views go in without a copy.  The wrapper runs the plain
-version for CPU tensors only; for CUDA tensors it launches the kernel or
-raises.  ``cuda_build.launches["streaming_attention"]`` counts launches.
+The hand-written Hopper kernel is ``csrc/streaming_attention.cu``: the
+wgmma forward core of ``csrc/attention_fwd_sm90.cuh`` with the -inf mask,
+head dim 64 or 128, on the tile map of kernel 1's kind
+(``flash_attention.rows_tile_map`` under this source's entry), which says
+which 64-row K tiles each q block visits and masks; a caller that gives
+no map gets one made here.  q/k/v are read through their strides, so
+phi's transposed [B, S, H, D] views go in without a copy.  The wrapper
+runs the plain version for CPU tensors only; for CUDA tensors it launches
+the kernel or raises.  ``cuda_build.launches["streaming_attention"]``
+counts launches, ``launches[TILES_KERNEL]`` its tile maps.
 """
 
 from __future__ import annotations
@@ -40,16 +43,18 @@ import torch
 from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops.flash_attention import (_check_head_dim,
                                                  _check_operands,
-                                                 _kernel_meta, visible_mask)
+                                                 _check_tiles, _kernel_meta,
+                                                 rows_tile_map, visible_mask)
 
 SOURCE = "streaming_attention"
+TILES_KERNEL = f"{SOURCE}_tiles"
 # The JAX streaming modules' masked logit; its negation is the lse of a row
 # that sees no key in the trainable kernels (kernel 8)
 NEG_INF = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F]
+_ARGS = [_P] * 11 + [_I] * 6 + [_L] * 12 + [_F]
 
 
 def streaming_softmax(q, k, v, vis, sm_scale: float):
@@ -84,7 +89,7 @@ def omni_attention_streaming_plain(q, k, v, seg, pad, last_pad, prefix,
 
 def omni_attention_streaming(q, k, v, seg, pad=None, last_pad=None,
                              prefix=None, *, sm_scale: Optional[float] = None,
-                             q_positions=None, seg_q=None):
+                             q_positions=None, seg_q=None, tiles=None):
     """q [B, H, Q, D]; k, v [B, Hkv, S, D] (Hkv divides H); seg, pad
     [B, S] int; last_pad, prefix [B] int.  Returns [B, H, Q, D] in q's
     dtype.
@@ -92,13 +97,16 @@ def omni_attention_streaming(q, k, v, seg, pad=None, last_pad=None,
     Q == S by default (self-attention); with a prefix cache pass
     ``q_positions``, the q rows' kv positions, [Q] or [B, Q].  ``seg_q``,
     when given, says that ``q_positions`` and ``seg_q`` already are the
-    int32 [B, Q] pair of ``flash_attention.q_rows``.  Any strided view
-    whose last dim is contiguous is taken as it is; on CUDA the output is
-    a [B, H, Q, D] view of a [B, Q, H, D] tensor, so transposing it back is
+    int32 [B, Q] pair of ``flash_attention.q_rows``.  ``tiles``: the tile
+    map of the same metadata (:func:`streaming_tile_map`), made here when
+    None.  Any strided view whose last dim is contiguous and whose strides
+    and base are 16-byte aligned is taken as it is; on CUDA the output is a
+    [B, H, Q, D] view of a [B, Q, H, D] tensor, so transposing it back is
     free.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel (bf16, head dim 64), which raises on what it does not take.
+    kernel (bf16, head dim 64 or 128), which raises on what it does not
+    take.
     """
     B, H, Q, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -119,12 +127,25 @@ def omni_attention_streaming(q, k, v, seg, pad=None, last_pad=None,
         raise ValueError(f"omni_attention_streaming: unsupported device "
                          f"{dev}")
     _check_operands(SOURCE, {"q": q, "k": k, "v": v}, 4)
-    _check_head_dim(SOURCE, D)
+    _check_head_dim(SOURCE, D, (64, 128))
+    if tiles is None:
+        tiles = streaming_tile_map(*meta)
+    _check_tiles(tiles, B, Q, S, dev)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     cuda_build.launch(
         SOURCE, "streaming_attention_bf16", _ARGS, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(m.data_ptr() for m in meta), B, H, Hkv, Q, S, D,
+        *(m.data_ptr() for m in meta), tiles.data_ptr(), B, H, Hkv, Q, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(sm_scale))
     return out
+
+
+def streaming_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q):
+    """Kernel 5's tile map: kernel 1's (``flash_attention.rows_tile_map``,
+    the same function of the same metadata, int32 and contiguous as
+    ``q_rows`` gives ``pos_q`` / ``seg_q``), under this source's entry and
+    counter ``TILES_KERNEL``.  A model forward makes it once for all its
+    layers (``models/phi.py::attn_step``)."""
+    return rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q,
+                         source=SOURCE)

@@ -462,7 +462,9 @@ def test_packed_wrapper_never_reaches_the_first_core_on_card():
 def test_attn_step_makes_the_packed_tile_map_on_card():
     """On CUDA phi's ``attn_step`` gives the ``packed`` route's step the
     tile map of its q rows (one map launch a forward, for all layers),
-    equal to the plain one; the other routes' steps carry none."""
+    equal to the plain one, and the ``streaming`` route's step the same
+    map under kernel 5's own entry; the other routes' steps carry none
+    (``decode``'s map is of the bias, made in the forward)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the tile map kernel has no CPU mode")
     from showo_tpu_torch.models.phi import attn_step
@@ -470,16 +472,19 @@ def test_attn_step_makes_the_packed_tile_map_on_card():
     ids = torch.as_tensor(_layout(2, text=20, img=100, pads=(0, 7), seed=5),
                           device="cuda")
     L = ids.shape[1]
+    counters = {"packed": tfa.TILES_KERNEL,
+                "streaming": "streaming_attention_tiles"}
     for route in ("packed", "omni", "decode", "fused", "streaming"):
         meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
-        before = cuda_build.launches[tfa.TILES_KERNEL]
+        before = {n: cuda_build.launches[n] for n in counters.values()}
         step = attn_step(meta, 21, L - 21, static_prefix_len=21)
         torch.cuda.synchronize()
-        made = cuda_build.launches[tfa.TILES_KERNEL] - before
-        if route != "packed":
-            assert step.tiles is None and made == 0
+        made = {n: cuda_build.launches[n] - before[n]
+                for n in counters.values()}
+        if route not in counters:
+            assert step.tiles is None and not any(made.values())
             continue
-        assert made == 1
+        assert made == {n: int(n == counters[route]) for n in made}
         assert torch.equal(step.tiles, tfa.rows_tile_map_plain(
             step.seg, step.pad, step.last_pad, step.prefix, step.pos_q))
 

@@ -349,47 +349,14 @@ def test_function_makes_one_map_per_forward_on_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     q, k, v, meta = _card_inputs(dev, 2, 387, 4, 4, seed=6)
-    names = tpag.KERNELS + (tpag.TILES_KERNEL,) + tpag.FIRST_KERNELS
+    names = tpag.KERNELS + (tpag.TILES_KERNEL,)
     before = {n: cuda_build.launches[n] for n in names}
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = tpag.omni_attention_packed_trainable(*leaves, *meta, num_heads=4)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     assert {n: cuda_build.launches[n] - before[n] for n in names} == {
-        **{n: 1 for n in tpag.KERNELS + (tpag.TILES_KERNEL,)},
-        **{n: 0 for n in tpag.FIRST_KERNELS}}
-
-
-@pytest.mark.cuda
-def test_first_kernels_vs_plain_on_card():
-    """The first mma.sync kernels, kept as the cores' baseline, launch
-    under their own counters and hold to the plain versions."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda")
-    H, Hkv = 8, 2
-    q, k, v, meta = _card_inputs(dev, 2, 200, H, Hkv, seed=8)
-    kw = dict(num_heads=H, num_kv_heads=Hkv, sm_scale=D ** -0.5, first=True)
-    g = torch.Generator(device=dev).manual_seed(3)
-    dout = torch.randn(q.shape, generator=g, device=dev).bfloat16()
-    names = tpag.KERNELS + (tpag.TILES_KERNEL,) + tpag.FIRST_KERNELS
-    before = {n: cuda_build.launches[n] for n in names}
-    out, lse = tpag.packed_trainable_fwd(q, k, v, *meta, **kw)
-    delta = tpag.attention_delta(out, dout, H)
-    args = (q, k, v, dout, lse, delta, *meta)
-    dq = tpag.packed_trainable_dq(*args, **kw)
-    dk, dv = tpag.packed_trainable_dkv(*args, **kw)
-    torch.cuda.synchronize()
-    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
-        **{n: 0 for n in tpag.KERNELS + (tpag.TILES_KERNEL,)},
-        **{n: 1 for n in tpag.FIRST_KERNELS}}
-    del kw["first"]
-    _close(out, tpag.packed_trainable_fwd_plain(q, k, v, *meta, **kw)[0],
-           "out")
-    _close(dq, tpag.packed_trainable_dq_plain(*args, **kw), "dq", grads=True)
-    p_dk, p_dv = tpag.packed_trainable_dkv_plain(*args, **kw)
-    _close(dk, p_dk, "dk", grads=True)
-    _close(dv, p_dv, "dv", grads=True)
+        n: 1 for n in names}
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from showo_tpu.utils.torch_import import phi_params_from_torch
 from showo_tpu_torch.models import phi as tphi
 from showo_tpu_torch.models.showo import Showo, ShowoConfig
 from showo_tpu_torch.ops import flash_attention as tfa
+from showo_tpu_torch.ops import masks as tm
 from showo_tpu_torch.ops.masks import to_additive
 from showo_tpu_torch.utils.convert import load_showo
 
@@ -281,9 +282,9 @@ def test_unknown_route_raises(golden, route):
 @pytest.mark.parametrize("static", [False, True], ids=["q_eq_s", "cached"])
 def test_attn_step_has_no_tile_map_on_the_cpu(route, static):
     """``attn_step`` computes a forward's metadata once for all layers; the
-    tile map of the ``packed`` route's kernel is made only for CUDA
-    metadata, so on the CPU every route's step has ``tiles=None`` (the
-    plain versions need none)."""
+    tile map of the ``packed`` and ``streaming`` routes' kernels is made
+    only for CUDA metadata, so on the CPU every route's step has
+    ``tiles=None`` (the plain versions need none)."""
     ids = torch.as_tensor(_t2i_rows(3))
     meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
     L = ids.shape[1]
@@ -294,6 +295,31 @@ def test_attn_step_has_no_tile_map_on_the_cpu(route, static):
     else:
         step = tphi.attn_step(meta, 0, L)
     assert step.route == route and step.tiles is None
+
+
+@pytest.mark.parametrize("route", ["packed", "streaming", "decode"])
+def test_forward_makes_no_tile_map_on_the_cpu(golden, route):
+    """A cached step on a route whose kernel reads a tile map (of the
+    metadata for ``packed`` and ``streaming``, of the bias for
+    ``decode``) makes none on the CPU: the plain versions read none."""
+    ids = _t2i_rows(2)
+    P = 10
+    tbias = tm.omni_mask_predict_next(torch.as_tensor(ids), PAD, SOI, EOI,
+                                      rm_pad_in_image=True)
+    port = _port(golden, "mlp")
+    tcache = tphi.KVCache.zeros(T_TINY, *ids.shape)
+    makers = ("rows_tile_map", "streaming_tile_map", "bias_tile_map")
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        spies = [stack.enter_context(mock.patch.object(
+            tphi, name, side_effect=AssertionError(name)))
+            for name in makers]
+        port(input_ids=torch.as_tensor(ids[:, :P]),
+             attention_bias=tbias[:, :, :P], cache=tcache)
+        got, _ = port(input_ids=torch.as_tensor(ids[:, P:]),
+                      attention_bias=tbias[:, :, P:], cache=tcache,
+                      attn_meta=_metas(ids, route)[1], static_prefix_len=P)
+    assert not any(spy.called for spy in spies)
+    assert torch.isfinite(got).all()
 
 
 def test_route_table_names_the_jax_routes():

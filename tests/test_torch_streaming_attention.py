@@ -87,6 +87,20 @@ def test_t2i_mask_multiblock_vs_jax(dtype):
                  tol=dict(atol=2e-2, rtol=0))
 
 
+@pytest.mark.parametrize("Hkv", [6, 1])
+def test_head_dim_128_vs_jax(Hkv):
+    """Head dim 128, the width of Qwen2.5's heads (12 q / 2 kv in the
+    Show-o2 model): v2 modality-span metadata, prefix-cached rows, 6 q
+    heads over 6 or 1 kv heads."""
+    L, P = 40, 8
+    seg = jfa.seg_from_modality_positions(
+        jnp.asarray([[[4, 10], [20, 12]], [[9, 16], [0, 0]]]), L)
+    meta = (seg, jnp.zeros((2, L), jnp.int32), jnp.full((2,), -1, jnp.int32),
+            jnp.zeros((2,), jnp.int32))
+    q, k, v = _qkv(2, 6, L - P, L, 128, seed=10, Hkv=Hkv)
+    _compare(q, k, v, meta, bq=8, bk=8, P=P)
+
+
 def test_mmu_prefix_vs_jax():
     rng = np.random.default_rng(1)
     seq = np.asarray([[905, SOI] + rng.integers(5, 800, size=12).tolist()
@@ -190,11 +204,24 @@ def test_wrapper_raises():
         tsa.omni_attention_streaming(torch.zeros((1, 3, 5, 8)), k, k, seg)
 
 
+def test_streaming_tile_map_is_kernel_1s_on_the_cpu():
+    """Kernel 5 reads the tile map of kernel 1's kind: on the CPU its maker
+    gives the plain map of the same metadata (the plain version reads
+    none)."""
+    P = 9
+    seq = torch.as_tensor(_t2i_rows((3, 0), text=12, img=150, seed=2))
+    meta = tfa.metadata_predict_next(seq, PAD, SOI, EOI)
+    pos_q, seg_q = tfa.q_rows(meta[0], torch.arange(P, seq.shape[1]),
+                              seq.shape[0], seq.shape[1] - P)
+    assert torch.equal(tsa.streaming_tile_map(*meta, pos_q, seg_q),
+                       tfa.rows_tile_map_plain(*meta, pos_q))
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
-def _card_case(dev, P, Q, H, Hkv, seed=0):
+def _card_case(dev, P, Q, H, Hkv, seed=0, D=64):
     """The cached step's layout (B=4, left pads) at P prefix rows and Q
     fresh rows; q/k/v as transposed [B, S, H, D] views (phi's layout)."""
     seq = torch.as_tensor(_t2i_rows((0, 17, 60, 3), text=P, img=Q - 2,
@@ -202,40 +229,64 @@ def _card_case(dev, P, Q, H, Hkv, seed=0):
     B, S = seq.shape
     meta = tfa.metadata_predict_next(seq, PAD, SOI, EOI)
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(B, n, h, 64, generator=g, device=dev).bfloat16()
+    q, k, v = (torch.randn(B, n, h, D, generator=g, device=dev).bfloat16()
                .transpose(1, 2) for n, h in ((Q, H), (S, Hkv), (S, Hkv)))
     return q, k, v, meta, torch.arange(P, S, device=dev)
 
 
+def _plain(q, k, v, meta, pos):
+    B, Q = q.shape[0], q.shape[2]
+    return tsa.omni_attention_streaming_plain(
+        q, k, v, *meta, pos.int().expand(B, Q).contiguous(),
+        sm_scale=q.shape[-1] ** -0.5)
+
+
+def _err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,H,Hkv", [(258, 32, 32), (1026, 32, 32),
-                                     (258, 32, 8)])
+                                     (258, 32, 8), (101, 32, 8)])
 def test_kernel_vs_plain_on_card(Q, H, Hkv):
+    """The cached step's shapes (K = 129 + Q, ragged; Q not a multiple of
+    64), GQA: one launch on the wgmma core after one tile map, within 2e-2
+    of the plain version, the same bits over two launches on one map."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     q, k, v, meta, pos = _card_case(dev, 129, Q, H, Hkv)
     B = q.shape[0]
-    before = cuda_build.launches[tsa.SOURCE]
+    names = (tsa.SOURCE, tsa.TILES_KERNEL)
+    before = {n: cuda_build.launches[n] for n in names}
     got = tsa.omni_attention_streaming(q, k, v, *meta, q_positions=pos)
     torch.cuda.synchronize()
-    assert cuda_build.launches[tsa.SOURCE] == before + 1
-    want = tsa.omni_attention_streaming_plain(
-        q, k, v, *meta, pos.int().expand(B, Q).contiguous(),
-        sm_scale=64 ** -0.5)
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        n: 1 for n in names}
     assert got.shape == (B, H, Q, 64) and torch.isfinite(got).all()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert _err(got, _plain(q, k, v, meta, pos)) <= 2e-2
+    pos_q, seg_q = tfa.q_rows(meta[0], pos, B, Q)
+    tiles = tsa.streaming_tile_map(*meta, pos_q, seg_q)
+    assert torch.equal(tiles, tfa.rows_tile_map_plain(*meta, pos_q))
+    runs = [tsa.omni_attention_streaming(q, k, v, *meta, q_positions=pos_q,
+                                         seg_q=seg_q, tiles=tiles)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs) and torch.equal(runs[0], got)
 
 
 @pytest.mark.cuda
-def test_kernel_rows_without_keys_on_card():
-    """Rows that see no key emit exactly 0 on the card too."""
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernel_rows_without_keys_on_card(D):
+    """Rows that see no key emit exactly 0 on the card too (their q tiles'
+    flag in the map is not read: the -inf mask skips tiles exactly); the
+    other rows within 2e-2 of the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     B, H, S = 2, 4, 200
     g = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn(B, H, S, 64, generator=g, device=dev).bfloat16()
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
                for _ in range(3))
     seg = torch.zeros((B, S), dtype=torch.int32, device=dev)
     pad = torch.zeros_like(seg)
@@ -245,9 +296,70 @@ def test_kernel_rows_without_keys_on_card():
     want = tsa.omni_attention_streaming_plain(
         q, k, v, seg, pad, last_pad, torch.zeros_like(last_pad),
         torch.arange(S, device=dev).int().expand(B, S).contiguous(),
-        sm_scale=0.125)
+        sm_scale=D ** -0.5)
     assert (got[:, :, 6:70] == 0).all() and (want[:, :, 6:70] == 0).all()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert _err(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_head_dim_128_qwen_shape_on_card():
+    """Qwen2.5's 12 q / 2 kv heads of 128 at the Show-o2 slice's B=8,
+    S=768 (self-attention over two image spans a row): within 2e-2 of the
+    plain version; the same bits over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    B, S, H, Hkv, D = 8, 768, 12, 2, 128
+    spans = torch.as_tensor([[[10 + 7 * b, 300], [400, 200 + 9 * b]]
+                             for b in range(B)], device=dev)
+    seg = tfa.seg_from_modality_positions(spans, S)
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).bfloat16()
+               .transpose(1, 2) for h in (H, Hkv, Hkv))
+    runs = [tsa.omni_attention_streaming(q, k, v, seg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+    want = tsa.omni_attention_streaming_plain(
+        q, k, v, seg, torch.zeros_like(seg),
+        torch.full((B,), -1, dtype=torch.int32, device=dev),
+        torch.zeros((B,), dtype=torch.int32, device=dev),
+        torch.arange(S, device=dev).int().expand(B, S).contiguous(),
+        sm_scale=D ** -0.5)
+    assert _err(runs[0], want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_kernel_5_is_kernel_1_on_the_same_memory_on_card():
+    """Where every row sees a key (the t2i layout), kernel 5 on head-major
+    views of [B, S, H, D] tensors and kernel 1 on the same memory as
+    [B, S, H*D] compute one function on one core: the outputs agree within
+    2e-2 (the same bits expected)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, meta, pos = _card_case(dev, 129, 1026, 32, 8)
+    got = tsa.omni_attention_streaming(q, k, v, *meta, q_positions=pos)
+    packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+    want = tfa.omni_attention_packed(*packed, *meta, num_heads=32,
+                                     num_kv_heads=8, q_positions=pos)
+    assert _err(got.transpose(1, 2).flatten(2), want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_planted_fault_fails_on_card():
+    """V read from the neighbouring kv head makes the kernel's result fail
+    the 2e-2 check against the plain version: the check sees a wrong
+    head."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, meta, pos = _card_case(dev, 129, 258, 32, 8)
+    want = _plain(q, k, v, meta, pos)
+    assert _err(tsa.omni_attention_streaming(
+        q, k, v, *meta, q_positions=pos), want) <= 2e-2
+    wrong = v.roll(1, dims=1)
+    got = tsa.omni_attention_streaming(q, k, wrong, *meta, q_positions=pos)
+    assert _err(got, want) > 2e-2
 
 
 @pytest.mark.cuda
@@ -255,8 +367,16 @@ def test_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     seg = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
-    q = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head dim 128"):
+    q = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dim 96"):
         tsa.omni_attention_streaming(q, q, q, seg)
     with pytest.raises(TypeError, match="bf16"):
         tsa.omni_attention_streaming(q.float(), q.float(), q.float(), seg)
+    q = torch.zeros((1, 2, 8, 72), dtype=torch.bfloat16,
+                    device="cuda")[..., 1:65]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tsa.omni_attention_streaming(q, q, q, seg)
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="tile map"):
+        tsa.omni_attention_streaming(q, q, q, seg, tiles=torch.zeros(
+            (1, 1, 1), dtype=torch.uint8, device="cuda"))
