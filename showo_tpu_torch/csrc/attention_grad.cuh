@@ -9,9 +9,7 @@
 //
 // pos[i] = i and seg_q = seg for self-attention (the trainable kernels 7
 // and 8); the forwards of kernels 1 and 5 take q rows at other kv
-// positions (Rows).  The first mma.sync kernels that this header held
-// (kernel 5's forward and kernel 7's baseline) are gone: every kernel of
-// kernels 1, 3, 5, 7 and 8 runs the wgmma cores.
+// positions (Rows).
 
 #pragma once
 

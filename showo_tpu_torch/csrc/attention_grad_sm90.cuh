@@ -9,10 +9,10 @@
 //
 // Replaces showo_tpu/ops/streaming_attention_grad.py::_bwd and
 // packed_attention_grad.py::_bwd (the Pallas _dq_kernel and _dkv_kernel of
-// each), as the first mma.sync kernels (since removed) did before.  What
-// bounds it on an H100 at the v1 512x512 step (B=12, S=1408, H=32, D=64,
-// 0.60 of the pairs visible): 6*D and 8*D FLOP per visible pair and head
-// over ~0.2 GB, the tensor-core rate (0.19 / 0.25 ms at 989 TFLOP/s).
+// each).  What bounds it on an H100 at the v1 512x512 step (B=12,
+// S=1408, H=32, D=64, 0.60 of the pairs visible): 6*D and 8*D FLOP per
+// visible pair and head over ~0.2 GB, the tensor-core rate (0.19 / 0.25
+// ms at 989 TFLOP/s).
 // What held the first kernels back, and what this design does about it:
 //   1. No overlap of loads and products: here a ring of STAGES tiles in
 //      dynamic shared memory, filled by cp.async, the next visible tile's

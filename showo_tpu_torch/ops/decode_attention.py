@@ -46,7 +46,7 @@ import math
 import torch
 
 from showo_tpu_torch.ops import cuda_build
-from showo_tpu_torch.ops.flash_attention import (_check_head_dim,
+from showo_tpu_torch.ops.flash_attention import (TILE, _check_head_dim,
                                                  _check_operands,
                                                  _check_tiles)
 
@@ -56,7 +56,6 @@ _ARGS = [_P] * 6 + [_I] * 5 + [_L] * 14 + [_F]
 _TILES_ARGS = [_P] + [_L] * 2 + [_P] + [_I] * 3
 SOURCE = "decode_attention"
 TILES_KERNEL = f"{SOURCE}_tiles"
-TILE = 64           # rows of a q or K tile of the map
 MASKED = -1e9       # the masks' masked value (ops/masks.py NEG_INF)
 SEES_KEY = -1e8     # a row with an entry above this sees some key
 

@@ -27,27 +27,10 @@ import functools
 import inspect
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 P, H, D, BATCH = 129, 32, 64, 2
-
-
-def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _layout(torch, np, dev):
@@ -90,6 +73,7 @@ def main(argv=None) -> int:
     from showo_tpu_torch.ops import flash_attention as tfa
     from showo_tpu_torch.ops import streaming_attention as tsa
     from showo_tpu_torch.ops.masks import omni_mask_predict_next
+    from showo_tpu_torch.time_trainable import _time_ms
 
     dev = torch.device("cuda")
     full, ids = _layout(torch, np, dev)
