@@ -39,30 +39,37 @@ Phases, one or more lines each:
   1. device: card name and power limit, torch / CUDA versions; TF32 off
   2. build: nvcc builds the ten kernel sources of csrc/, in parallel, and
      ptxas' registers and spills of each entry function with its template
-     arguments (the forward core <head dim, mask> at <64, 0> and <128, 0>
-     (the -inf mask: kernels 5, 7, 8), <64, 1> and <128, 1> (the -1e30
-     mask: kernel 1), <64, 2> (the bias: kernel 3); kernel 6 at both head
-     dims), and "wgmma serialized" where ptxas warned C7515
+     arguments (the forward core <head dim, mask, split> at <64, 0> and
+     <128, 0> (the -inf mask: kernels 5, 7, 8), <64, 1> and <128, 1> (the
+     -1e30 mask: kernels 1 and 4), <64, 1, true> (kernel 2: K / V from
+     two sources, keys at positions), <64, 2> (the bias: kernel 3); kernel
+     2's norm_rope_kernel; kernel 6 at both head dims), and "wgmma
+     serialized" where ptxas warned C7515
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
-     layout): the packed kernel (kernel 1, on the wgmma forward core) at
-     512x512 on the tile map its forward makes once, which must equal its
-     plain version byte for byte, and one GQA case, beside kernel 4 (the
-     first tile core) on head-major views of the same memory; omni,
-     decode, fused and streaming at 512x512 (Q=1026, K=1155) and 256x256
-     (Q=258, K=387), streaming also with GQA; streaming (kernel 5, the
-     wgmma core) on its tile map (kernel 1's kind) and beside kernel 1 on
-     the same memory, their outputs' max difference; decode (kernel 3, the
-     wgmma core under the bias) on the bias's tile map, which must equal
-     its plain version byte for byte; max abs error, median times (CUDA
-     events) of kernel, plain version and one library call of the same
-     function, and the bound
+     layout), all on the wgmma forward core, each on the tile map its
+     forward makes once, which must equal its plain version byte for
+     byte: the packed kernel (kernel 1) at 512x512 and one GQA case;
+     omni, decode, fused and streaming at 512x512 (Q=1026, K=1155) and
+     256x256 (Q=258, K=387), streaming also with GQA; omni (kernel 4) and
+     streaming (kernel 5) beside kernel 1 on the same memory, their
+     outputs' max difference (omni: 0, the same function through the same
+     core); fused (kernel 2) as a whole and as its two launches, the
+     LayerNorm + RoPE pass (within 2 bf16 ulps of each head row's peak)
+     and the core over [cache | fresh] keys at their positions, with
+     ``scaled_dot_product_attention`` on the normed q / k under the same
+     mask as the core's yardstick; decode (kernel 3, under the bias) on
+     the bias's tile map; max abs error, median times (CUDA events) of
+     kernel, plain version and one library call of the same function,
+     and the bound
   4. the t2i slice, per route: over one generate call the route's kernel
-     launches 24 layers x 16 steps times (on ``packed`` and ``streaming``
-     all on the wgmma core reading 16 tile maps of the metadata, on
-     ``decode`` 16 tile maps of the bias, one a forward) and every other
-     kernel none; codes in the codebook; images finite, NHWC, in [-1, 1];
-     warm seconds per batch and images/min
+     launches 24 layers x 16 steps times, all on the wgmma core, reading
+     16 tile maps (one a forward: of the metadata on ``packed``,
+     ``omni``, ``streaming``, of kernel 2's keys on ``fused``, of the
+     bias on ``decode``), on ``fused`` each launch after its LayerNorm +
+     RoPE pass (384), and every other kernel none; codes in the
+     codebook; images finite, NHWC, in [-1, 1]; warm seconds per batch
+     and images/min
   5. step parity, per route: one full-width cached step with the route's
      kernel and with dense attention under the additive mask, max abs
      logit difference
@@ -260,15 +267,19 @@ GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
 # (the Pallas kernel's mask, computed per block from the metadata)
 PACKED_WGMMA = "omni_attention_packed_wgmma"
 PACKED_TILES = "omni_attention_packed_tiles"
-# the tile maps of kernels 5 (kernel 1's kind, of the metadata) and 3 (of
-# the bias), one a forward: route -> counter
-ROUTE_TILES = {"packed": PACKED_TILES,
+# the tile maps of kernels 4 and 5 (kernel 1's kind, of the metadata), 2
+# (of its keys at their positions) and 3 (of the bias), one a forward:
+# route -> counter
+ROUTE_TILES = {"packed": PACKED_TILES, "omni": "omni_attention_tiles",
+               "fused": "fused_decode_tiles",
                "streaming": "streaming_attention_tiles",
                "decode": "decode_attention_tiles"}
+# kernel 2's LayerNorm + RoPE pass, one before each launch of its core
+FUSED_NORM = "fused_decode_norm_rope"
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
-            + [GQA_SOURCE, PACKED_WGMMA, *ROUTE_TILES.values()])
+            + [GQA_SOURCE, PACKED_WGMMA, FUSED_NORM, *ROUTE_TILES.values()])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -476,7 +487,7 @@ def phase_kernels(torch, uni, prompts, cfg, device):
     sp = uni.sptids
     ids = (sp["<|pad|>"], sp["<|soi|>"], sp["<|eoi|>"])
     hidden = H * D
-    out = {route: {} for route in KERNELS}
+    out = {route: {} for route in (*KERNELS, "fused_norm")}
     for res, vq_tokens in (("512", 1024), ("256", 256)):
         full = _t2i_layout(uni, prompts, vq_tokens, cfg.mask_token_id, device)
         B, L = full.shape
@@ -532,42 +543,50 @@ def phase_kernels(torch, uni, prompts, cfg, device):
                     _bound(2 * (2 * B * Q * H + 2 * B * L * hkv) * D
                            + meta_bytes, flops),
                     sdpa(*heads, enable_gqa=hkv != H))
-                if hkv == H:
-                    # kernel 4, the same function on the first tile core,
-                    # on head-major views of the same memory
-                    kernel4 = (lambda: tfa.omni_attention(
-                        *heads, *meta, q_positions=pos_q, seg_q=seg_q))
-                    diff = (kernel4().transpose(1, 2).flatten(2).float()
-                            - kernel1().float()).abs().max().item()
-                    r["old_ms"] = _time_ms(torch, kernel4)
-                    print(f"[3] {shape}: kernel 1 (wgmma core) "
-                          f"{r['ms']:.4f} ms beside kernel 4 (the first "
-                          f"tile core) on the same memory "
-                          f"{r['old_ms']:.4f} ms ({r['old_ms'] / r['ms']:.2f}"
-                          f"x below; median of 20); outputs max |difference| "
-                          f"{diff:.3e} (tol {CARD_TOL:.0e})")
-                    if not diff <= CARD_TOL:
-                        raise AssertionError(f"kernel 1 and kernel 4 differ "
-                                             f"by {diff}")
                 out["packed"].setdefault(res, r)
 
-        # omni: transposed [B, S, H, D] views, as phi's omni route passes
+        # omni (kernel 4, the wgmma core): transposed [B, S, H, D] views,
+        # as phi's omni route passes them, on the tile map of kernel 1's
+        # kind its forward makes once (models/phi.py attn_step)
+        nt = (-(-Q // 64), -(-L // 64))
+        map_bytes = B * nt[0] * (nt[1] + 1)
+        tiles4, r_map = _map_check(
+            torch, f"kernel 4's tile map {shape} [{B}, {nt[0]}, "
+            f"{nt[1] + 1}]", lambda: tfa.omni_tile_map(*meta, pos_q, seg_q),
+            lambda: tfa.rows_tile_map_plain(*meta, pos_q),
+            meta_bytes + map_bytes, B * nt[0] * nt[1] * 64 ** 2, 3,
+            flag=True)
+        out.setdefault("omni_tiles", r_map)
         q, k, v = (randn(B, n, H, D).transpose(1, 2) for n in (Q, L, L))
         qkv_bytes = 2 * (2 * B * Q * H + 2 * B * L * H) * D
-        out["omni"][res] = _compare(
-            torch, f"omni_attention {shape}",
-            lambda: tfa.omni_attention(q, k, v, *meta, q_positions=pos_q,
-                                       seg_q=seg_q),
+        kernel4 = (lambda: tfa.omni_attention(
+            q, k, v, *meta, q_positions=pos_q, seg_q=seg_q, tiles=tiles4))
+        r = out["omni"][res] = _compare(
+            torch, f"omni_attention {shape}", kernel4,
             lambda: tfa.omni_attention_plain(q, k, v, *meta, pos_q,
                                              sm_scale=D ** -0.5),
             _bound(qkv_bytes + meta_bytes, flops), sdpa(q, k, v))
+        if res == "512":
+            # kernel 1 on the same memory: [B, S, H, D] is [B, S, H*D]
+            packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+            kernel1 = (lambda: tfa.omni_attention_packed(
+                *packed, *meta, num_heads=H, q_positions=pos_q,
+                seg_q=seg_q, tiles=tiles))
+            diff = (kernel4().transpose(1, 2).flatten(2).float()
+                    - kernel1().float()).abs().max().item()
+            r["kernel1_ms"], r["kernel1_diff"] = _time_ms(torch, kernel1), diff
+            print(f"[3] {shape}: kernel 4 {r['ms']:.4f} ms beside kernel 1 "
+                  f"on the same memory {r['kernel1_ms']:.4f} ms (median of "
+                  f"20); outputs max |difference| {diff:.3e} (0 expected: "
+                  f"one function through one core; tol {CARD_TOL:.0e})")
+            if not diff <= CARD_TOL:
+                raise AssertionError(f"kernel 4 and kernel 1 differ by "
+                                     f"{diff}")
 
         # streaming (kernel 5, the wgmma core): the same views, on the tile
         # map of kernel 1's kind its forward makes once (models/phi.py
         # attn_step); every fresh row of the t2i layout sees its own key,
         # so the library call has no empty row
-        nt = (-(-Q // 64), -(-L // 64))
-        map_bytes = B * nt[0] * (nt[1] + 1)
         tiles5, r_map = _map_check(
             torch, f"kernel 5's tile map {shape} [{B}, {nt[0]}, "
             f"{nt[1] + 1}]", lambda: tsa.streaming_tile_map(*meta, pos_q,
@@ -631,30 +650,108 @@ def phase_kernels(torch, uni, prompts, cfg, device):
             sdpa(*(t.transpose(1, 2) for t in (q, k, v)),
                  m=bias.to(torch.bfloat16)))
 
-        # fused: y a full-width win output, ck/cv views of a cache
+        # fused (kernel 2): y a full-width win output, ck/cv views of a
+        # cache; the LayerNorm + RoPE pass, then the core over [cache |
+        # fresh] keys at pos_k on the map of those keys its forward makes
+        # once (models/phi.py attn_step)
         y = randn(B, Q, 3 * hidden + cfg.llm.intermediate_size)
         cache = randn(2, B, L, H, D)
         ln = [(1 + 0.1 * torch.randn(D, generator=g, device=device))
               .bfloat16(), (0.1 * torch.randn(D, generator=g, device=device))
               .bfloat16()]
         cos, sin = rope_tables(pos, 32, cfg.llm.rope_theta)
-        args = (y, cache[0, :, :P].flatten(2), cache[1, :, :P].flatten(2),
-                ln, ln, cos, sin)
+        ck, cv = cache[0, :, :P].flatten(2), cache[1, :, :P].flatten(2)
+        args = (y, ck, cv, ln, ln, cos, sin)
         kw = dict(hidden=hidden, num_heads=H, rotary_dim=32, eps=1e-5)
-        # bytes: y's q/k/v columns, the prefix K/V, out, cos/sin, norms;
-        # operations: the attention products (LayerNorm and RoPE add ~1%);
-        # no single library call does LN + RoPE + attention
-        out["fused"][res] = _compare(
+        tiles2, r_map = _map_check(
+            torch, f"kernel 2's tile map {shape} (keys at pos_k) [{B}, "
+            f"{nt[0]}, {nt[1] + 1}]",
+            lambda: tfd.fused_tile_map(rows, meta[2], meta[3]),
+            lambda: tfa.rows_tile_map_plain(
+                rows[3], rows[4], meta[2], meta[3], rows[0], pos_k=rows[2],
+                seg_q=rows[1]),
+            meta_bytes + 4 * L + map_bytes, B * nt[0] * nt[1] * 64 ** 2, 3,
+            flag=True)
+        out.setdefault("fused_tiles", r_map)
+        # bytes of the function: y's q/k/v columns, the prefix K/V, out,
+        # cos/sin, norms; of the pass: y's q/k columns read, qn / kn
+        # written; of the core: qn / kn, y's v columns, the prefix K/V,
+        # out; operations: the attention products (LayerNorm and RoPE add
+        # ~1%)
+        io = 2 * B * Q * hidden
+        small = 2 * Q * 32 * 4 + 4 * D * 2
+        whole = _compare(
             torch, f"fused_decode_attention {shape} (y row stride "
-            f"{y.shape[-1]})",
+            f"{y.shape[-1]}), both launches",
             lambda: tfd.fused_decode_attention(*args, *meta, pos, rows=rows,
-                                               **kw),
+                                               tiles=tiles2, **kw),
             lambda: tfd.fused_decode_attention_plain(
                 *args, meta[2], meta[3], rows, sm_scale=D ** -0.5,
                 softmax_dtype=torch.float32, **kw),
-            _bound(2 * (4 * B * Q + 2 * B * P) * hidden + 2 * Q * 32 * 4
-                   + 4 * D * 2 + meta_bytes, flops))
+            _bound(4 * io + 2 * 2 * B * P * hidden + small + meta_bytes,
+                   flops))
+        qn, kn = tfd.norm_rope(y, ln, ln, cos, sin, **kw)
+        norm = out["fused_norm"][res] = _norm_rope_check(
+            torch, shape, lambda: tfd.norm_rope(y, ln, ln, cos, sin, **kw),
+            lambda: tfd.norm_rope_plain(y, ln, ln, cos, sin, **kw),
+            _bound(4 * io + small, 0))
+        part = dict(hidden=hidden, num_heads=H)
+        keys = [torch.cat([ck, kn], 1),
+                torch.cat([cv, y[..., 2 * hidden:3 * hidden]], 1)]
+        vis2 = tfa.visible_mask(rows[3], rows[4], meta[2], meta[3], rows[0],
+                                pos_k=rows[2], seg_q=rows[1])
+        r = out["fused"][res] = _compare(
+            torch, f"fused_decode core {shape} (keys at pos_k, split at "
+            f"P={P})",
+            lambda: tfd.fused_attend(qn, kn, y, ck, cv, meta[2], meta[3],
+                                     rows, tiles2, **part),
+            lambda: tfd.fused_attend_plain(qn, kn, y, ck, cv, meta[2],
+                                           meta[3], rows, sm_scale=D ** -0.5,
+                                           **part),
+            _bound(3 * io + 2 * 2 * B * P * hidden + meta_bytes + 4 * L,
+                   flops),
+            sdpa(*(t.unflatten(-1, (H, D)).transpose(1, 2)
+                   for t in [qn] + keys), m=vis2[:, None]))
+        r["whole"] = whole
+        print(f"[3] {shape}: kernel 2 {whole['ms']:.4f} ms (both launches) "
+              f"= the pass {norm['ms']:.4f} ms + the core {r['ms']:.4f} ms "
+              f"(library on the core's part {_ms(r['library_ms'])}); bound "
+              f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}), of the "
+              f"two launches {norm['bound_ms'] + r['bound_ms']:.4f} ms")
     return out
+
+
+def _norm_rope_check(torch, shape, kern, plain, bound):
+    """Kernel 2's LayerNorm + RoPE pass against its plain twin: every value
+    within 2 bf16 ulps of its head row's peak (a normed value is rounded
+    to bf16 and the kernel's rsqrt is the card's approximate one, so a
+    value may move by an ulp, and a roped value that cancels by an ulp of
+    its terms), timed as :func:`_compare` times; no library call does
+    LayerNorm + RoPE."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    ulps = abs_err = 0.0
+    for g, w in zip(got, want):
+        if not (torch.isfinite(g).all() and g.is_contiguous()):
+            raise AssertionError(f"{shape}: the LN + RoPE pass's output is "
+                                 f"not finite or not contiguous")
+        peak = w.float().unflatten(-1, (-1, D)).abs().amax(-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(peak.clamp_min(2.0 ** -100)))
+                         - 7)
+        d = (g.float() - w.float()).unflatten(-1, (-1, D)).abs()
+        ulps = max(ulps, (d / ulp).max().item())
+        abs_err = max(abs_err, d.max().item())
+    if not ulps <= 2:
+        raise AssertionError(f"{shape}: the LN + RoPE pass differs from its "
+                             f"plain twin by {ulps} ulps of a head row's peak")
+    ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+    print(f"[3] {shape}: kernel 2's LN + RoPE pass: max {ulps:.2f} bf16 ulps "
+          f"of a head row's peak (max abs {abs_err:.3e}; limit 2 ulps), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+          f"{_rate(bound['bound_ms'] * HBM_BYTES_PER_S / 1e3, ms)}")
+    return {"max_abs_err": abs_err, "max_ulps": ulps, "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def _ragged_meta(torch, device, B=4, S=200):
@@ -1053,6 +1150,8 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
         want[PACKED_WGMMA] = NUM_LAYERS * TIMESTEPS
     if route in ROUTE_TILES:
         want[ROUTE_TILES[route]] = TIMESTEPS        # one tile map a forward
+    if route == "fused":
+        want[FUSED_NORM] = NUM_LAYERS * TIMESTEPS   # a pass before each core
 
     cuda_build.launches.clear()
     images = pipe.generate(prompts, gen)
@@ -1081,8 +1180,9 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
                              f"{tuple(codes.shape)}")
     wall = statistics.median(walls)
     core = (f" (all on the wgmma core, reading "
-            f"{counts[ROUTE_TILES[route]]} tile maps, one a forward)"
-            if route in ROUTE_TILES else "")
+            f"{counts[ROUTE_TILES[route]]} tile maps, one a forward"
+            + (f", each after its LN + RoPE pass ({counts[FUSED_NORM]})"
+               if route == "fused" else "") + ")")
     print(f"[4] slice t2i 512x512 route {route}, {TIMESTEPS} steps, CFG "
           f"1.75, batch {BATCH}, bf16, random weights (setup {setup_s:.1f} "
           f"s): launches per generate {counts[KERNELS[route][0]]} = "
@@ -2037,6 +2137,9 @@ def main() -> int:
                  **r512}
         if route == "packed":
             entry["launches_wgmma"] = route_launches[route][PACKED_WGMMA]
+        if route == "fused":
+            entry["part"] = ("the core's launch; 'whole': both launches, "
+                             "the pass (fused_decode_norm_rope) and the core")
         if r256 is not None:
             entry.update({f"{key}_256": val for key, val in r256.items()})
         kernels.append(entry)
@@ -2081,7 +2184,9 @@ def main() -> int:
                         **cases[qwen], "case": qwen, "cases": cases,
                         **({"slice": v2_slice, "launches_wgmma":
                             v2_launches[PACKED_WGMMA]} if launches else {})})
-    for route, what in (("streaming", "the mask of _stream_kernel, per "
+    for route, what in (("omni", "the mask of _attn_kernel, per block"),
+                        ("fused", "the mask of _kernel, per block"),
+                        ("streaming", "the mask of _stream_kernel, per "
                                       "block"),
                         ("decode", "the bias of _kernel / "
                                    "_kernel_headloop, per block")):
@@ -2092,6 +2197,14 @@ def main() -> int:
                         "replaces": f"{KERNELS[route][1]} ({what})",
                         "launches": route_launches[route][name],
                         **results[f"{route}_tiles"], "case": "512"})
+    kernels.append({"name": FUSED_NORM, "route": "cuda",
+                    "source": "showo_tpu_torch/csrc/fused_decode.cu",
+                    "replaces": KERNELS["fused"][1] + " (the LayerNorm and "
+                                "RoPE of _kernel)",
+                    "launches": route_launches["fused"][FUSED_NORM],
+                    **results["fused_norm"]["512"],
+                    **{f"{key}_256": val for key, val in
+                       results["fused_norm"]["256"].items()}})
     kernels.append({"name": PACKED_TILES, "route": "cuda",
                     "source": "showo_tpu_torch/csrc/omni_attention_packed.cu "
                               "(+ attention_fwd_sm90.cuh)",

@@ -2,7 +2,7 @@
 // backward of attention_grad_sm90.cuh and on its pieces: masked attention
 // out = softmax(q.k^T * sm_scale, masked) . v with bf16 operands and fp32
 // scores, online softmax and accumulation, every tensor read and written
-// through its (batch, head, row) strides.  Five callers, three masks
+// through its (batch, head, row) strides.  Seven callers, three masks
 // (template argument MASK):
 //   MASK_INF, the omni mask from metadata, masked scores -inf, so a row
 //     with no visible key gets out = 0 (and lse = the caller's sentinel
@@ -18,12 +18,22 @@
 //       rows_tile_map_kernel, whose flag it does not need (skipping a tile
 //       is exact under -inf).  Replaces the Pallas _stream_kernel of
 //       showo_tpu/ops/streaming_attention.py::omni_attention_streaming.
-//   MASK_MEAN, kernel 1 (omni_attention_packed.cu) at head dims 64 and
-//     128: the packed [B, S, H*D] layout, q rows by (pos_q, seg_q), Q != S;
-//     masked scores are -1e30, so a row with no visible key averages v
-//     over all S columns, and columns past S take no weight (as in
-//     omni_attention.cuh).  Replaces the Pallas _attn_kernel_packed of
-//     showo_tpu/ops/flash_attention.py::omni_attention_packed.
+//   MASK_MEAN, masked scores -1e30, so a row with no visible key averages
+//     v over all S columns, and columns past S take no weight; q rows by
+//     (pos_q, seg_q), Q != S, no lse, the map of rows_tile_map_kernel with
+//     its flag:
+//     kernel 1 (omni_attention_packed.cu) at head dims 64 and 128 on the
+//       packed [B, S, H*D] layout.  Replaces the Pallas
+//       _attn_kernel_packed of
+//       showo_tpu/ops/flash_attention.py::omni_attention_packed;
+//     kernel 4 (omni_attention.cu) at head dim 64 on head-major views.
+//       Replaces the Pallas _attn_kernel of
+//       showo_tpu/ops/flash_attention.py::omni_attention;
+//     kernel 2 (fused_decode.cu) at head dim 64 with SPLIT: K and V rows
+//       j < P from the cache views, rows j >= P from the fresh rows'
+//       buffers (row j - P), and the keys at the positions Meta::kpos.
+//       Replaces, after the LN + RoPE pass of that source, the Pallas
+//       _kernel of showo_tpu/ops/fused_decode.py::fused_decode_attention.
 //   MASK_BIAS, kernel 3 (decode_attention.cu) at head dim 64: the mask
 //     arrives as an additive fp32 bias [B, 1, Q, K] read through its
 //     strides; score = (q.k * sm_scale + bias) in the log2 domain, the
@@ -59,11 +69,11 @@
 //      bias entry read by its thread from device memory, once per head):
 //      here the block walks the visible K tiles of its row of a tile map
 //      made once per forward (agrad90::tile_map_kernel for kernels 7 and
-//      8, rows_tile_map_kernel for kernels 1 and 5 from the O(S)
+//      8, rows_tile_map_kernel for kernels 1, 2, 4 and 5 from the O(S)
 //      metadata, bias_tile_map_kernel for kernel 3 from the bias), and
 //      masks only the tiles the map marks partial; kernel 3 copies a
 //      partial tile's bias into the ring beside K and V and reads no bias
-//      for a tile whose every entry is 0.  Under -1e30 (kernel 1) or a
+//      for a tile whose every entry is 0.  Under -1e30 (kernels 1, 2, 4) or a
 //      -1e9 bias (kernel 3) a tile may be skipped only where every row of
 //      the block sees some key (a masked score then weighs exactly 0); the
 //      map flags the q tiles that hold a row with no visible key, and
@@ -91,13 +101,14 @@ struct Bias {
 
 // Dynamic shared memory of wgmma_fwd_kernel: Q (HD / 64 panels); the ring
 // of STAGES stages, each a K and a V tile and with MASK_BIAS the 64 x 64
-// fp32 bias tile (16 KB), else the K tile's seg and pad; the visible tile
-// count and list.  HD = 64: 2 stages, 41 KB, 4 blocks an SM (at most 128
-// registers); with the bias 72 KB, 3 blocks; HD = 128: 2 stages, 81 KB, 2
-// blocks an SM.  On an H100 4 blocks of 2 stages ran kernel 8's forward
-// ~6% faster than 3 blocks of 3; at HD = 128 one block an SM ran as fast
-// as 2, and a third stage (one block) slower.
-template <int HD, int MASK>
+// fp32 bias tile (16 KB), else the K tile's seg and pad (and with SPLIT
+// the keys' positions); the visible tile count and list.  HD = 64: 2
+// stages, 41 KB (SPLIT 42 KB), 4 blocks an SM (at most 128 registers);
+// with the bias 72 KB, 3 blocks; HD = 128: 2 stages, 81 KB, 2 blocks an
+// SM.  On an H100 4 blocks of 2 stages ran kernel 8's forward ~6% faster
+// than 3 blocks of 3; at HD = 128 one block an SM ran as fast as 2, and a
+// third stage (one block) slower.
+template <int HD, int MASK, bool SPLIT = false>
 struct FwdCfg {
   static constexpr bool BIAS = MASK == MASK_BIAS;
   static constexpr int TILE = BLK * HD * 2;
@@ -107,7 +118,8 @@ struct FwdCfg {
   static constexpr int RING = TILE;
   static constexpr int STAGE = 2 * TILE + (BIAS ? BIAS_TILE : 0);
   static constexpr int META = RING + STAGES * STAGE;
-  static constexpr int LIST = META + (BIAS ? 0 : STAGES * 2 * BLK * 4);
+  static constexpr int META_INTS = (SPLIT ? 3 : 2) * BLK;  // a stage's
+  static constexpr int LIST = META + (BIAS ? 0 : STAGES * META_INTS * 4);
   static int smem(int nk) { return LIST + 4 * (nk + 1); }
 };
 
@@ -139,19 +151,52 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const float* src,
   }
 }
 
+// Kernel 2's second K / V source (SPLIT): key rows j >= p of a head come
+// from k and v here, at row j - p, through their (batch, head, row)
+// strides; rows j < p from the kernel's own k and v (the cache views).
+struct Split {
+  const bf16* k;
+  const bf16* v;
+  Strides ks, vs;
+  int p;
+};
+
+// Rows [r0, r0 + 64) of one head -> a 64 x HD tile at dst as load_tile,
+// row j < p from a (row stride lda), row j >= p from b at row j - p (row
+// stride ldb), zeros past S: the choice is made per row, so the tile that
+// holds row p takes its first rows from a and the rest from b.
+template <int HD>
+__device__ __forceinline__ void load_tile_split(uint32_t dst, const bf16* a,
+                                                long long lda, const bf16* b,
+                                                long long ldb, int r0, int p,
+                                                int S) {
+  constexpr int CH = HD / 8;
+#pragma unroll
+  for (int i = 0; i < BLK * CH / THREADS; ++i) {
+    const int q = threadIdx.x + i * THREADS, row = q / CH, c = q % CH;
+    const int j = r0 + row;
+    const bf16* src = j < p ? a + (long long)j * lda
+                            : b + (long long)(j - p) * ldb;
+    cp_async16(dst + (c / 8) * PANEL + row * 128 + (((c % 8) ^ (row & 7)) * 16),
+               j < S ? src + 8 * c : a, j < S ? 16 : 0);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// the tile map of kernels 1 and 5: q rows at (pos_q, seg_q), Q != S
+// the tile map of kernels 1, 2, 4 and 5: q rows at (pos_q, seg_q), Q != S
 // ---------------------------------------------------------------------------
 
 // [B, nq, nk + 1] bytes: entry kt < nk of (b, q tile) is 0 where no entry
 // of the 64 x 64 pair is visible, 1 where some are, 3 where all are (rows
 // past Q and keys past S count as not visible); entry nk is 1 where some
-// row of the q tile (< Q) sees no key at all, else 0.  One block per (q
+// row of the q tile (< Q) sees no key at all, else 0.  Keys at the
+// positions mt.kpos where it is not null (kernel 2).  One block per (q
 // tile, b) walks the K tiles.
 __global__ void __launch_bounds__(THREADS)
 rows_tile_map_kernel(Meta mt, agrad::Rows rows, int Q, int S,
                      uint8_t* __restrict__ tiles) {
-  __shared__ int meta_s[2 * BLK];
+  __shared__ int meta_s[3 * BLK];
+  int* kpos_s = mt.kpos ? meta_s + 2 * BLK : nullptr;
   const int qt = blockIdx.x, b = blockIdx.y;
   const int nk = (S + BLK - 1) / BLK;
   uint8_t* row = tiles + ((long long)b * gridDim.x + qt) * (nk + 1);
@@ -169,10 +214,10 @@ rows_tile_map_kernel(Meta mt, agrad::Rows rows, int Q, int S,
   uint32_t seen = 0;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's metadata is consumed
-    agrad::stage_meta(meta_s, meta_s + BLK, mt, b, kt * BLK, S);
+    agrad::stage_meta(meta_s, meta_s + BLK, mt, b, kt * BLK, S, kpos_s);
     __syncthreads();
-    const uint32_t bits = agrad::query_rows_map(pos, sq, padok, kt * BLK, S,
-                                                pf, meta_s, meta_s + BLK);
+    const uint32_t bits = agrad::query_rows_map(
+        pos, sq, padok, kt * BLK, S, pf, meta_s, meta_s + BLK, kpos_s);
     seen |= bits;
     const bool any = __syncthreads_or(bits != 0u);
     const bool all = __syncthreads_and(bits == 0xffffffffu);
@@ -258,15 +303,17 @@ bias_tile_map_kernel(const float* __restrict__ bias, long long sb,
 // map row is tiles + (b * nq + q tile) * ld (nk entries; MASK_MEAN and
 // MASK_BIAS read the flag at nk).  rows.pos null: self-attention (row i at
 // position i, seg[b, i]).  MASK_BIAS reads no metadata; S is then K.
-template <int HD, int MASK>
-__global__ void __launch_bounds__(THREADS, FwdCfg<HD, MASK>::BLOCKS)
+// SPLIT (kernel 2): key rows j >= split.p from split.k / split.v, keys at
+// the positions mt.kpos.
+template <int HD, int MASK, bool SPLIT = false>
+__global__ void __launch_bounds__(THREADS, FwdCfg<HD, MASK, SPLIT>::BLOCKS)
 wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, Meta mt, agrad::Rows rows,
                  Bias bias, const uint8_t* __restrict__ tiles, int ld, int Q,
                  int S, int group, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale_log2, float sentinel) {
-  using C = FwdCfg<HD, MASK>;
+                 Strides os, float scale_log2, float sentinel, Split split) {
+  using C = FwdCfg<HD, MASK, SPLIT>;
   constexpr bool BIAS = C::BIAS;
   constexpr int P = HD / 64;  // panels of a head row
   // P.V is waited for at the end of its iteration, so the stage read last
@@ -293,16 +340,32 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_stage = [&](int i) {
     const int st = i % C::STAGES, k0 = (list[i] >> 1) * BLK;
     const uint32_t kb = sb + C::RING + st * C::STAGE;
-    load_tile<HD>(kb, kh, ks.r, k0, S);
-    load_tile<HD>(kb + C::TILE, vh, vs.r, k0, S);
+    if constexpr (SPLIT) {
+      const int hk = h / group;
+      load_tile_split<HD>(kb, kh, ks.r,
+                          split.k + b * split.ks.b + hk * split.ks.h,
+                          split.ks.r, k0, split.p, S);
+      load_tile_split<HD>(kb + C::TILE, vh, vs.r,
+                          split.v + b * split.vs.b + hk * split.vs.h,
+                          split.vs.r, k0, split.p, S);
+    } else {
+      load_tile<HD>(kb, kh, ks.r, k0, S);
+      load_tile<HD>(kb + C::TILE, vh, vs.r, k0, S);
+    }
     if constexpr (BIAS) {
       if (!(list[i] & FULL))
         load_bias(kb + 2 * C::TILE, bh, bias.sr, q0, Q, k0, S);
     } else {
       const int j = k0 + (threadIdx.x & (BLK - 1));
       const int* src = threadIdx.x < BLK ? mt.seg : mt.pad;
-      cp_async4(sb + C::META + (st * 2 * BLK + threadIdx.x) * 4,
+      const uint32_t meta = sb + C::META + st * C::META_INTS * 4;
+      cp_async4(meta + threadIdx.x * 4,
                 src + (long long)b * S + (j < S ? j : 0), j < S ? 4 : 0);
+      if constexpr (SPLIT) {
+        if (threadIdx.x < BLK)
+          cp_async4(meta + (2 * BLK + threadIdx.x) * 4,
+                    mt.kpos + (j < S ? j : 0), j < S ? 4 : 0);
+      }
     }
   };
 #pragma unroll
@@ -401,9 +464,11 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       const int k0 = (entry >> 1) * BLK;
       const int* seg_s =
-          reinterpret_cast<const int*>(ring_smem + C::META) + st * 2 * BLK;
-      const uint32_t vis = agrad::query_rows_map(pos, sq, padok, k0, S, pf,
-                                                 seg_s, seg_s + BLK);
+          reinterpret_cast<const int*>(ring_smem + C::META) +
+          st * C::META_INTS;
+      const uint32_t vis = agrad::query_rows_map(
+          pos, sq, padok, k0, S, pf, seg_s, seg_s + BLK,
+          SPLIT ? seg_s + 2 * BLK : nullptr);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -459,8 +524,8 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launches on ``stream``; each returns the cudaError_t of its launch
 // ---------------------------------------------------------------------------
 
-// the tile map of kernels 1 and 5, [B, ceil(Q / 64), ceil(S / 64) + 1]
-// bytes
+// the tile map of kernels 1, 2, 4 and 5, [B, ceil(Q / 64), ceil(S / 64)
+// + 1] bytes
 inline int launch_rows_tile_map(Meta mt, agrad::Rows rows, int B, int Q,
                                 int S, uint8_t* tiles, void* stream) {
   rows_tile_map_kernel<<<dim3(tiles_of(Q), B), THREADS, 0,
@@ -483,16 +548,17 @@ inline int launch_bias_tile_map(const float* bias, long long sb,
 // with ``flagged`` one of rows_tile_map_kernel or bias_tile_map_kernel
 // ([B, nq, nk + 1]).  MASK_INF: q rows by ``rows`` (null: Q == S, self-
 // attention), lse written where not null.  MASK_MEAN: q rows by ``rows``,
-// lse null.  MASK_BIAS: ``bias``, no metadata, lse null; S is K.
-template <int HD, int MASK>
+// lse null; with SPLIT the keys' second source ``split`` and their
+// positions mt.kpos.  MASK_BIAS: ``bias``, no metadata, lse null; S is K.
+template <int HD, int MASK, bool SPLIT = false>
 inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, Meta mt, agrad::Rows rows, Bias bias,
                       const uint8_t* tiles, bool flagged, int B, int Q, int S,
                       int H, int Hkv, Strides qs, Strides ks, Strides vs,
                       Strides os, float sm_scale, float sentinel,
-                      void* stream) {
-  const int nk = tiles_of(S), smem = FwdCfg<HD, MASK>::smem(nk);
-  auto kernel = wgmma_fwd_kernel<HD, MASK>;
+                      void* stream, Split split = {}) {
+  const int nk = tiles_of(S), smem = FwdCfg<HD, MASK, SPLIT>::smem(nk);
+  auto kernel = wgmma_fwd_kernel<HD, MASK, SPLIT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(tiles_of(Q), H, B), THREADS, smem,
@@ -500,7 +566,7 @@ inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mt, rows,
       bias, tiles, flagged ? nk + 1 : nk, Q, S, H / Hkv, qs, ks, vs, os,
-      sm_scale * tile::LOG2E, sentinel);
+      sm_scale * tile::LOG2E, sentinel, split);
   return static_cast<int>(cudaGetLastError());
 }
 

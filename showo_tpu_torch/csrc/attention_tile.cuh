@@ -1,5 +1,9 @@
 // Tile machinery shared by the attention kernels of showo_tpu_torch, for
 // Hopper (sm_90a): bf16 operands, fp32 scores, softmax and accumulation.
+// The wgmma cores (attention_fwd_sm90.cuh, attention_grad_sm90.cuh) use
+// its strides, accumulator row map, online softmax and stores; the first
+// tile core below (mma.sync: q_fragments, scores, pv, put_kv, load_kv)
+// runs kernel 6 alone (omni_attention_gqa_stacked.cu).
 //
 // One block owns 64 query rows of one (batch, head) and walks the keys in
 // 64-row K/V tiles with an online softmax, so no score row and no [Q, K]
@@ -18,15 +22,9 @@
 //
 // The head dim is a template parameter (Geom<HD>) of every function that
 // depends on it, 64 by default: Show-o v1 (Phi-1.5) and the Show-o2 DiT
-// head run 64, Qwen2.5 runs 128 (here only the GQA-stacked kernel 6: kernel
-// 1 at 128 runs on attention_fwd_sm90.cuh).  At 64 the
-// kernels ask for 4 resident blocks of 128 threads per SM
-// (__launch_bounds__(128, 4), so at most 128 registers): on an H100 the
-// omni kernel ran faster so, with a few bytes of spills, than at the 130
-// registers and 3 blocks it takes unbounded.  At 128 the accumulator
-// (o[16][4]) and the Q fragments (qf[8][4]) alone take 96 registers, so
-// those kernels ask for 2 blocks (up to 255 registers) and their 53 KB of
-// tiles go above the 48 KB default of dynamic shared memory.
+// head run 64, Qwen2.5 runs 128.  At 128 the accumulator (o[16][4]) and
+// the Q fragments (qf[8][4]) alone take 96 registers, and the tiles (53
+// KB) go above the 48 KB default of dynamic shared memory.
 
 #pragma once
 
@@ -39,7 +37,6 @@ namespace tile {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BLOCK_Q = 64;
 constexpr int BLOCK_K = 64;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -48,33 +45,19 @@ constexpr int NK = BLOCK_K / 8;  // n-tiles of the score tile
 constexpr float MASKED = -1e30f;  // a masked logit: finite, see the kernels
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The shapes that follow from head dim HD.  Q tile [BLOCK_Q][DP], K tile
-// [BLOCK_K][DP], V^T tile [HD][KP], in that order from the start of
-// dynamic smem (offsets in bf16): 27648 bytes at HD = 64, 53248 at 128; a
-// kernel appends its own arrays
+// The shapes that follow from head dim HD: a kernel's Q and K tiles have
+// rows of DP bf16, its V^T tile HD rows of KP
 template <int HD>
 struct Geom {
   static_assert(HD % 16 == 0, "head dim: a multiple of 16");
-  static constexpr int D = HD;
   static constexpr int DP = HD + 8;   // padded smem row of Q / K (bf16)
   static constexpr int CH = HD / 8;   // 16-byte chunks in one head row
   static constexpr int KD = HD / 16;  // k-steps of Q.K^T
   static constexpr int ND = HD / 8;   // n-tiles of the output
-  static constexpr int K_OFF = BLOCK_Q * DP;
-  static constexpr int V_OFF = K_OFF + BLOCK_K * DP;
-  static constexpr int TILE_SMEM = (V_OFF + HD * KP) * 2;
 };
 
-// head dim 64: the default of every function below and the shapes the
-// kernels other than the packed omni kernel are written against
+// head dim 64: the default of every function below
 constexpr int D = 64;
-constexpr int DP = Geom<D>::DP;
-constexpr int CH = Geom<D>::CH;
-constexpr int KD = Geom<D>::KD;
-constexpr int ND = Geom<D>::ND;
-constexpr int K_OFF = Geom<D>::K_OFF;
-constexpr int V_OFF = Geom<D>::V_OFF;
-constexpr int TILE_SMEM = Geom<D>::TILE_SMEM;
 
 // Strides of a [B, heads, rows, D] view in elements (the last dim is
 // contiguous): the packed [B, S, H*D] layout is head stride D and row
@@ -133,20 +116,6 @@ __device__ __forceinline__ void put_kv(bf16* Ks, bf16* Vt, int r, int cc,
   for (int e = 0; e < 8; ++e) Vt[(cc + e) * KP + r] = ve[e];
 }
 
-// Q rows [q0, q0 + BLOCK_Q) of one head (row stride q_sr) -> Qs, zeros
-// past Q
-template <int HD = D>
-__device__ __forceinline__ void load_q(bf16* Qs, const bf16* qh,
-                                       long long q_sr, int q0, int Q) {
-  constexpr int CHD = Geom<HD>::CH;
-  for (int c = threadIdx.x; c < BLOCK_Q * CHD; c += THREADS) {
-    const int r = c / CHD, cc = (c % CHD) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < Q) val = ld16(qh + (long long)(q0 + r) * q_sr + cc);
-    *reinterpret_cast<uint4*>(Qs + r * Geom<HD>::DP + cc) = val;
-  }
-}
-
 // K/V rows [k0, k0 + BLOCK_K) of one head -> Ks, Vt, zeros past S; the
 // block's ``nthreads`` threads share the copy
 template <int HD = D>
@@ -171,7 +140,8 @@ __device__ __forceinline__ int tile_row() {
   return (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
 }
 
-// A fragments of the warp's 16 Q rows (after load_q and a __syncthreads)
+// A fragments of the warp's 16 Q rows (after the Q tile is stored and a
+// __syncthreads)
 template <int HD = D>
 __device__ __forceinline__ void q_fragments(const bf16* Qs,
                                             uint32_t qf[Geom<HD>::KD][4]) {

@@ -1,7 +1,7 @@
-// The cached MaskGIT step's attention in one kernel, for Hopper (sm_90a):
-// per-head q/k LayerNorm, partial NeoX RoPE, the [prefix | fresh] K/V
-// concat and omni-masked attention, read straight off the fused ``win``
-// projection output.  bf16 in and out, fp32 LayerNorm, scores, softmax and
+// The cached MaskGIT step's attention, for Hopper (sm_90a): per-head q/k
+// LayerNorm, partial NeoX RoPE, the [prefix | fresh] K/V concat and
+// omni-masked attention, read straight off the fused ``win`` projection
+// output (kernel 2).  bf16 in and out, fp32 LayerNorm, scores, softmax and
 // accumulation.
 //
 // Replaces showo_tpu/ops/fused_decode.py::fused_decode_attention (Pallas
@@ -25,40 +25,43 @@
 // tensor ops round the same way).  A masked score is -1e30, so a row with
 // nothing visible averages v over the K keys; columns past K take no weight.
 //
-// What bounds it on an H100: the attention itself is that of the omni
-// kernel (at the 512^2 step, B=4, S=1026, K=1155, H=32, D=64: 0.3 GFLOP
-// and 0.4 MB per (b, h)); what this kernel removes is the glue around it,
-// each of which is a pass over device memory in the unfused route: the
-// fp32 upcast, per-head LayerNorm and downcast of q and k, the rope halves
-// and their concat, and the [prefix | fresh] concat of K and V (~10 kernel
-// launches and ~100 MB of traffic per layer at that shape).  q, k and v are
-// read through the row stride of ``y`` (3*2048 + 8192 = 14336 columns), and
-// ck / cv through the batch stride of the cache views, so the host copies
-// nothing.  The design is the omni kernel's (attention_tile.cuh: one block
-// per (b, h, 64-row q tile), 64-row K/V tiles, online softmax, mma.sync);
-// the Q tile is normed and roped once as it is loaded, and each fresh K row
-// as its tile is loaded.  Every q-tile block of a head thus recomputes the
-// LayerNorm and RoPE of that head's fresh K rows (17 times at 512^2): ~64
-// FLOP per element against the 128 of Q.K^T and P.V, simpler than staging
-// normalised K in device memory, which later work may do.
+// Two launches, which together compute what the Pallas _kernel computes:
+//   1. norm_rope_kernel, one pass over the fresh rows: the q and k column
+//      blocks of y (read through its row stride, 3*2048 + 8192 = 14336
+//      columns at full width) normed and roped into qn, kn [B, S, hidden]
+//      bf16, contiguous.  At the 512^2 step (B=4, S=1026, hidden 2048)
+//      33.6 MB read and 33.6 MB written, ~0.020 ms at 3.35 TB/s.
+//   2. the wgmma forward core of attention_fwd_sm90.cuh at <64, MASK_MEAN>
+//      with SPLIT: Q from qn; K rows j < P from the cache view ck and rows
+//      j >= P from kn, V rows j < P from cv and rows j >= P from y's v
+//      block, chosen per row in the 16-byte copies (P = 129 is not a
+//      multiple of 64: the tile 128..191 takes row 128 from the cache);
+//      the keys at pos_k, staged per K tile beside their seg / pad; on a
+//      tile map of the K = P + S keys (fused_decode_tiles, made once per
+//      forward by models/phi.py attn_step), whose flag sends the blocks of
+//      q tiles holding a row with no visible key over every tile.  Bound:
+//      the attention's products, 0.035 ms at the bf16 peak (as kernel 1).
+// The first kernel 2 (one mma.sync block per (b, h, 64-row q tile)) normed
+// and roped every fresh K tile again in each of a head's q-tile blocks (17
+// times at 512^2), on synchronously loaded tiles, visiting every K tile:
+// the pass here does each row once, and the core streams the visible tiles
+// through a cp.async ring.  ck / cv are read through the batch stride of
+// the cache views and y's v block through y's row stride, so the host
+// copies nothing; the wrapper raises where those are not 16-byte aligned.
 //
-// Grid (ceil(S/64), H, B); block 128 threads; head dim 64, rotary dim 32.
+// Head dim 64, rotary dim 32.
 
-#include "attention_tile.cuh"
+#include "attention_fwd_sm90.cuh"
 
-namespace {
+namespace fused {
 
 using tile::bf16;
-using tile::D;
-using tile::THREADS;
 
+constexpr int D = 64;
 constexpr int ROT = 32;  // rotary dims (Phi-1.5: partial_rotary_factor 0.5)
 static_assert(ROT == 32, "the rope lane exchange below assumes ROT == 32");
-
-// tiles, then pos_k / seg_k / pad_k of the K tile, then the two
-// LayerNorms' affine (q scale, q shift, k scale, k shift) in fp32
-constexpr int SMEM_BYTES = tile::TILE_SMEM + 3 * tile::BLOCK_K * 4 + 4 * D * 4;
-static_assert(SMEM_BYTES <= 48 * 1024, "dynamic smem above the default");
+constexpr int THREADS = 128;
+constexpr int ROWS = THREADS / 8;  // head rows a block normalises at once
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -123,195 +126,123 @@ __device__ __forceinline__ uint4 ln_rope(const float x[8], int chunk,
   return out;
 }
 
-struct Args {
-  const bf16* y;     // [B, S, >= 3*hidden]
-  const bf16* ck;    // [B, P, hidden] view
-  const bf16* cv;
-  bf16* out;         // [B, S, hidden]
+struct NormArgs {
+  const bf16* y;      // [B, S, >= 2*hidden]: the q and k column blocks
   const bf16* ln[4];  // q scale, q shift, k scale, k shift: [D] each
-  const float* cos;  // [S, ROT]
+  const float* cos;   // [S, ROT]
   const float* sin;
-  const int* last_pad;  // [B]
-  const int* prefix;    // [B]
-  const int* pos_q;     // [B, S]
-  const int* seg_q;     // [B, S]
-  const int* pos_k;     // [K]
-  const int* seg_k;     // [B, K]
-  const int* pad_k;     // [B, K]
-  int S, P;
-  long long hidden, y_sb, y_sr, ck_sb, ck_sr, cv_sb, cv_sr, o_sb, o_sr;
-  float eps, scale_log2;
+  bf16* qn;           // [B, S, hidden], contiguous
+  bf16* kn;
+  int S, H;
+  long long y_sb, y_sr;
+  float eps;
 };
 
-__global__ void __launch_bounds__(THREADS, 4)
-fused_decode_kernel(const Args a) {
-  using namespace tile;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + K_OFF;
-  bf16* Vt = Qs + V_OFF;
-  int* posk_s = reinterpret_cast<int*>(smem + TILE_SMEM);
-  int* segk_s = posk_s + BLOCK_K;
-  int* padk_s = segk_s + BLOCK_K;
-  float* ln_s = reinterpret_cast<float*>(padk_s + BLOCK_K);
-
-  const int S = a.S, P = a.P, K = P + S;
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int chunk = threadIdx.x & 7;
-  const bf16* yb = a.y + b * a.y_sb + (long long)h * D;
-
+// Grid (B * S): one block per fresh row, its 2H head rows (the q heads,
+// then the k heads) ROWS at a time, 8 lanes a head row.
+__global__ void __launch_bounds__(THREADS)
+norm_rope_kernel(const NormArgs a) {
+  __shared__ float ln_s[4 * D];
   for (int i = threadIdx.x; i < 4 * D; i += THREADS)
     ln_s[i] = __bfloat162float(a.ln[i / D][i % D]);
   __syncthreads();
-
-  // ---- Q tile: LayerNorm + RoPE of the fresh rows as they are loaded
-  for (int c = threadIdx.x; c < BLOCK_Q * CH; c += THREADS) {
-    const int r = c / CH, row = q0 + r;
-    const bool ok = row < S;
+  const int row = blockIdx.x, b = row / a.S, i = row - b * a.S;
+  const int chunk = threadIdx.x & 7;
+  const long long hidden = (long long)a.H * D;
+  const bf16* yr = a.y + b * a.y_sb + i * a.y_sr;
+  const float* cs = a.cos + (long long)i * ROT;
+  const float* sn = a.sin + (long long)i * ROT;
+  // every lane runs every pass: ln_rope's shuffles take the whole warp
+  for (int base = 0; base < 2 * a.H; base += ROWS) {
+    const int hr = base + threadIdx.x / 8;
+    const bool ok = hr < 2 * a.H;
+    const int kq = hr >= a.H ? 1 : 0;  // 0: a q head, 1: a k head
+    const long long col = (long long)(hr - kq * a.H) * D + chunk * 8;
     float x[8];
-    unpack(ok ? ld16(yb + (long long)row * a.y_sr + chunk * 8)
+    unpack(ok ? tile::ld16(yr + kq * hidden + col)
               : make_uint4(0u, 0u, 0u, 0u), x);
-    const long long rr = ok ? row : 0;
-    const uint4 qv = ln_rope(x, chunk, ln_s, ln_s + D, a.eps,
-                             a.cos + rr * ROT, a.sin + rr * ROT);
-    *reinterpret_cast<uint4*>(Qs + r * DP + chunk * 8) =
-        ok ? qv : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 o = ln_rope(x, chunk, ln_s + 2 * kq * D,
+                            ln_s + (2 * kq + 1) * D, a.eps, cs, sn);
+    if (ok)
+      *reinterpret_cast<uint4*>((kq ? a.kn : a.qn) + row * hidden + col) = o;
   }
-  __syncthreads();
-  uint32_t qf[KD][4];
-  q_fragments(Qs, qf);
-
-  const int row0 = q0 + tile_row(), row1 = row0 + 8;
-  int pos0 = 0, pos1 = 0, sq0 = 0, sq1 = 0;
-  if (row0 < S) {
-    pos0 = a.pos_q[(long long)b * S + row0];
-    sq0 = a.seg_q[(long long)b * S + row0];
-  }
-  if (row1 < S) {
-    pos1 = a.pos_q[(long long)b * S + row1];
-    sq1 = a.seg_q[(long long)b * S + row1];
-  }
-  const int lp = a.last_pad[b], pf = a.prefix[b];
-  const bool padok0 = pos0 <= lp, padok1 = pos1 <= lp;
-  const int t4 = threadIdx.x & 3;
-  const bf16* ckh = a.ck + b * a.ck_sb + (long long)h * D;
-  const bf16* cvh = a.cv + b * a.cv_sb + (long long)h * D;
-
-  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BLOCK_K) {
-    __syncthreads();  // the previous tile is consumed
-    // ---- K/V tile: cached prefix rows as they are, fresh rows normed and
-    // roped (K) or taken as they are (V) from y
-    for (int c = threadIdx.x; c < BLOCK_K * CH; c += THREADS) {
-      const int r = c / CH, j = k0 + r, f = j - P;
-      const bool fresh = j >= P && j < K;
-      float x[8];
-      unpack(fresh ? ld16(yb + (long long)f * a.y_sr + a.hidden + chunk * 8)
-                   : make_uint4(0u, 0u, 0u, 0u), x);
-      const long long ff = fresh ? f : 0;
-      const uint4 kn = ln_rope(x, chunk, ln_s + 2 * D, ln_s + 3 * D, a.eps,
-                               a.cos + ff * ROT, a.sin + ff * ROT);
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (fresh) {
-        kv = kn;
-        vv = ld16(yb + (long long)f * a.y_sr + 2 * a.hidden + chunk * 8);
-      } else if (j < P) {
-        kv = ld16(ckh + (long long)j * a.ck_sr + chunk * 8);
-        vv = ld16(cvh + (long long)j * a.cv_sr + chunk * 8);
-      }
-      put_kv(Ks, Vt, r, chunk * 8, kv, vv);
-    }
-    if (threadIdx.x < BLOCK_K) {
-      const int j = k0 + threadIdx.x;
-      const bool ok = j < K;
-      posk_s[threadIdx.x] = ok ? a.pos_k[j] : 0;
-      segk_s[threadIdx.x] = ok ? a.seg_k[(long long)b * K + j] : 0;
-      padk_s[threadIdx.x] = ok ? a.pad_k[(long long)b * K + j] : 0;
-    }
-    __syncthreads();
-    float s[NK][4];
-    scores(qf, Ks, s);
-    // mask and scale into the log2 domain
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jl = n * 8 + t4 * 2 + e;
-        float x0 = -INFINITY, x1 = -INFINITY;
-        if (k0 + jl < K) {
-          const int pk = posk_s[jl], sk = segk_s[jl];
-          const bool pj = padk_s[jl] != 0;
-          const bool v0 = ((pk <= pos0) || (sq0 > 0 && sq0 == sk) ||
-                           (pk < pf)) && (!pj || padok0);
-          const bool v1 = ((pk <= pos1) || (sq1 > 0 && sq1 == sk) ||
-                           (pk < pf)) && (!pj || padok1);
-          x0 = v0 ? s[n][e] * a.scale_log2 : MASKED;
-          x1 = v1 ? s[n][2 + e] * a.scale_log2 : MASKED;
-        }
-        s[n][e] = x0;
-        s[n][2 + e] = x1;
-      }
-    }
-    softmax_update(s, m, l, o);
-    pv(s, Vt, o);
-  }
-  store(a.out + b * a.o_sb + (long long)h * D, a.o_sr, q0, S, o, l);
 }
 
-}  // namespace
+}  // namespace fused
 
-// Plain C entry point (bound with ctypes).  Pointers are device pointers;
-// strides are in elements; the last dim of every operand is contiguous; the
-// LayerNorm affine (q_w, q_b, k_w, k_b) is bf16 [64] each; head dim 64,
-// rotary dim 32.  Returns the cudaError_t of the launch (0 = launched).
-extern "C" int fused_decode_attention_bf16(
-    const void* y, const void* ck, const void* cv, void* out,
-    const void* q_w, const void* q_b, const void* k_w, const void* k_b,
-    const float* cos, const float* sin, const int* last_pad,
-    const int* prefix, const int* pos_q, const int* seg_q, const int* pos_k,
-    const int* seg_k, const int* pad_k, int B, int S, int P, int H,
-    int head_dim, int rotary_dim, long long y_sb, long long y_sr,
-    long long ck_sb, long long ck_sr, long long cv_sb, long long cv_sr,
-    long long o_sb, long long o_sr, float eps, float sm_scale, void* stream) {
-  if (head_dim != D || rotary_dim != ROT)
+// Plain C entry points (bound with ctypes).  Pointers are device pointers;
+// strides are in elements; the last dim of every operand is contiguous;
+// head dim 64.  Each returns the cudaError_t of its launch (0 = launched)
+// on ``stream``.
+
+// The tile map (agrad90::rows_tile_map_kernel) of the K = P + S keys at
+// positions pos_k [K], with seg_k / pad_k [B, K] and the q rows' pos_q /
+// seg_q [B, S] (int32): uint8 [B, ceil(S / 64), ceil(K / 64) + 1].
+extern "C" int fused_decode_tiles(
+    const int* seg_k, const int* pad_k, const int* last_pad,
+    const int* prefix, const int* pos_k, const int* pos_q, const int* seg_q,
+    unsigned char* tiles, int B, int Q, int K, void* stream) {
+  if (B <= 0 || Q <= 0 || K <= 0 || pos_k == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.y = static_cast<const bf16*>(y);
-  a.ck = static_cast<const bf16*>(ck);
-  a.cv = static_cast<const bf16*>(cv);
-  a.out = static_cast<bf16*>(out);
-  a.ln[0] = static_cast<const bf16*>(q_w);
-  a.ln[1] = static_cast<const bf16*>(q_b);
-  a.ln[2] = static_cast<const bf16*>(k_w);
-  a.ln[3] = static_cast<const bf16*>(k_b);
+  return agrad90::launch_rows_tile_map({seg_k, pad_k, last_pad, prefix,
+                                        pos_k}, {pos_q, seg_q}, B, Q, K,
+                                       tiles, stream);
+}
+
+// The LayerNorm + RoPE pass: y [B, S, >= 2*hidden] (batch / row strides
+// y_sb / y_sr) -> qn, kn [B, S, hidden] contiguous; the LayerNorm affine
+// (q_w, q_b, k_w, k_b) bf16 [64] each; cos / sin fp32 [S, 32].
+extern "C" int fused_decode_norm_rope_bf16(
+    const void* y, const void* q_w, const void* q_b, const void* k_w,
+    const void* k_b, const float* cos, const float* sin, void* qn, void* kn,
+    int B, int S, int H, int head_dim, int rotary_dim, long long y_sb,
+    long long y_sr, float eps, void* stream) {
+  if (head_dim != fused::D || rotary_dim != fused::ROT || B <= 0 || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused::NormArgs a;
+  a.y = static_cast<const tile::bf16*>(y);
+  a.ln[0] = static_cast<const tile::bf16*>(q_w);
+  a.ln[1] = static_cast<const tile::bf16*>(q_b);
+  a.ln[2] = static_cast<const tile::bf16*>(k_w);
+  a.ln[3] = static_cast<const tile::bf16*>(k_b);
   a.cos = cos;
   a.sin = sin;
-  a.last_pad = last_pad;
-  a.prefix = prefix;
-  a.pos_q = pos_q;
-  a.seg_q = seg_q;
-  a.pos_k = pos_k;
-  a.seg_k = seg_k;
-  a.pad_k = pad_k;
+  a.qn = static_cast<tile::bf16*>(qn);
+  a.kn = static_cast<tile::bf16*>(kn);
   a.S = S;
-  a.P = P;
-  a.hidden = (long long)H * D;
+  a.H = H;
   a.y_sb = y_sb;
   a.y_sr = y_sr;
-  a.ck_sb = ck_sb;
-  a.ck_sr = ck_sr;
-  a.cv_sb = cv_sb;
-  a.cv_sr = cv_sr;
-  a.o_sb = o_sb;
-  a.o_sr = o_sr;
   a.eps = eps;
-  a.scale_log2 = sm_scale * tile::LOG2E;
-  dim3 grid((S + tile::BLOCK_Q - 1) / tile::BLOCK_Q, H, B);
-  fused_decode_kernel<<<grid, THREADS, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  fused::norm_rope_kernel<<<B * S, fused::THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The attention on the forward core: qn, kn from the pass above; y's v
+// block (columns 2*hidden on, strides y_sb / y_sr) for the fresh V rows;
+// ck / cv [B, P, hidden] cache views (strides ck_sb / ck_sr, cv_sb /
+// cv_sr); out [B, S, hidden] (strides o_sb / o_sr); the metadata int32 as
+// for fused_decode_tiles; ``tiles``: that map.
+extern "C" int fused_decode_attention_bf16(
+    const void* qn, const void* kn, const void* y, const void* ck,
+    const void* cv, void* out, const int* seg_k, const int* pad_k,
+    const int* last_pad, const int* prefix, const int* pos_k,
+    const int* pos_q, const int* seg_q, const unsigned char* tiles, int B,
+    int S, int P, int H, int head_dim, long long y_sb, long long y_sr,
+    long long ck_sb, long long ck_sr, long long cv_sb, long long cv_sr,
+    long long o_sb, long long o_sr, float sm_scale, void* stream) {
+  if (head_dim != fused::D || tiles == nullptr || pos_k == nullptr || P < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long d = fused::D, hidden = H * d;
+  const tile::Strides fresh{S * hidden, d, hidden};
+  const agrad90::Split split{
+      static_cast<const tile::bf16*>(kn),
+      static_cast<const tile::bf16*>(y) + 2 * hidden, fresh,
+      {y_sb, d, y_sr}, P};
+  return agrad90::launch_fwd<64, agrad90::MASK_MEAN, true>(
+      qn, ck, cv, out, nullptr, {seg_k, pad_k, last_pad, prefix, pos_k},
+      {pos_q, seg_q}, {}, tiles, true, B, S, P + S, H, H, fresh,
+      {ck_sb, d, ck_sr}, {cv_sb, d, cv_sr}, {o_sb, d, o_sr}, sm_scale, 0.f,
+      stream, split);
 }

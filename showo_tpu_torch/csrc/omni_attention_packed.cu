@@ -13,7 +13,7 @@
 //      offset of its H*D*2-byte row, so the 16-byte cp.async and the
 //      128-byte swizzle stay aligned;
 //   128 (Qwen2.5: 12 q / 2 kv heads): two panels a head row.
-// The first tile core (omni_attention.cuh) stays with kernels 4 and 6.
+// Kernel 4 (omni_attention.cu) runs the same core on head-major views.
 
 #include "attention_fwd_sm90.cuh"
 
@@ -24,14 +24,15 @@
 // launched) on ``stream``.
 
 // The tile map (agrad90::rows_tile_map_kernel): uint8
-// [B, ceil(Q / 64), ceil(S / 64) + 1].
+// [B, ceil(Q / 64), ceil(S / 64) + 1]; ``pos_k`` [S], the keys' positions,
+// null here (key j at position j).
 extern "C" int omni_attention_packed_tiles(
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
-    const int* pos_q, const int* seg_q, unsigned char* tiles, int B, int Q,
-    int S, void* stream) {
+    const int* pos_k, const int* pos_q, const int* seg_q,
+    unsigned char* tiles, int B, int Q, int S, void* stream) {
   if (B <= 0 || Q <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_rows_tile_map({seg, pad, last_pad, prefix},
+  return agrad90::launch_rows_tile_map({seg, pad, last_pad, prefix, pos_k},
                                        {pos_q, seg_q}, B, Q, S, tiles,
                                        stream);
 }

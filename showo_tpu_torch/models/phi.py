@@ -44,10 +44,10 @@ from showo_tpu_torch.ops.decode_attention import (bias_tile_map,
                                                   decode_attention)
 from showo_tpu_torch.ops.flash_attention import (omni_attention,
                                                  omni_attention_packed,
-                                                 q_rows, rows_tile_map,
-                                                 span_meta)
+                                                 omni_tile_map, q_rows,
+                                                 rows_tile_map, span_meta)
 from showo_tpu_torch.ops.fused_decode import (fused_decode_attention,
-                                              fused_rows)
+                                              fused_rows, fused_tile_map)
 from showo_tpu_torch.ops.int8_matmul import WeightStream, linear_i8
 from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
@@ -98,11 +98,13 @@ class AttnStep:
     [B, Q] rows of the omni kernels (None for ``decode`` and
     ``trainable``); ``fused``: the :func:`fused_rows` tuple when the
     forward is a static-prefix cached step on the ``fused`` route, else
-    None; ``tiles``: the tile map the kernel of the ``packed``,
-    ``streaming`` or ``decode`` route reads (``rows_tile_map`` of the
-    metadata; for ``decode`` ``bias_tile_map`` of the forward's bias, made
-    in :meth:`Phi.forward`), on CUDA only (None on the CPU, whose plain
-    versions need none, and on the other routes)."""
+    None; ``tiles``: the tile map the route's kernel reads (``packed``,
+    ``omni``, ``streaming``: ``rows_tile_map`` of the metadata under the
+    kernel's entry; ``fused``: ``fused_tile_map`` of ``fused``, or
+    outside the static-prefix step the ``omni`` map; ``decode``:
+    ``bias_tile_map`` of the forward's bias, made in
+    :meth:`Phi.forward`), on CUDA only (None on the CPU, whose plain
+    versions need none, and on ``trainable``)."""
 
     route: str
     seg: torch.Tensor
@@ -136,12 +138,16 @@ def attn_step(attn_meta, q_start: int, rows: int,
     if route == "fused" and static_prefix_len is not None:
         fused = fused_rows(seg, pad, positions, static_prefix_len,
                            seg.shape[0])
+        tiles = (fused_tile_map(fused, step.last_pad, step.prefix)
+                 if seg.is_cuda else None)
         return dataclasses.replace(step, pos_q=fused[0], seg_q=fused[1],
-                                   fused=fused)
+                                   fused=fused, tiles=tiles)
     pos_q, seg_q = q_rows(seg, positions, seg.shape[0], rows)
     tiles = None
-    if route in ("packed", "streaming") and seg.is_cuda:
-        tile_map = rows_tile_map if route == "packed" else streaming_tile_map
+    if seg.is_cuda:
+        # packed, streaming, omni, and fused falling through to omni
+        tile_map = {"packed": rows_tile_map,
+                    "streaming": streaming_tile_map}.get(route, omni_tile_map)
         tiles = tile_map(step.seg, step.pad, step.last_pad, step.prefix,
                          pos_q, seg_q)
     return dataclasses.replace(step, pos_q=pos_q, seg_q=seg_q, tiles=tiles)
@@ -268,10 +274,13 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
                 m.seg, m.pad, m.last_pad, m.prefix, q_positions=m.pos_q,
                 seg_q=m.seg_q, tiles=m.tiles)
             return out.transpose(1, 2)
-        # omni, and fused outside the static-prefix cached step
+        # omni, and fused outside its kernel (no static prefix, or no
+        # ``win``; with a static prefix the step's map is kernel 2's, so
+        # the omni kernel makes its own)
         out = omni_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), m.seg, m.pad, m.last_pad,
-                             m.prefix, q_positions=m.pos_q, seg_q=m.seg_q)
+                             m.prefix, q_positions=m.pos_q, seg_q=m.seg_q,
+                             tiles=None if m.fused is not None else m.tiles)
         return out.transpose(1, 2)
     head_dim = q.shape[-1]
     with torch.autocast(q.device.type, enabled=False):
@@ -375,10 +384,10 @@ class PhiDecoderLayer(nn.Module):
         return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
 
     def _fused_step(self, h, x, cos, sin, cache_kv, m: AttnStep):
-        """The static-prefix cached step on the ``fused`` route: one kernel
+        """The static-prefix cached step on the ``fused`` route: kernel 2
         does the per-head LN, RoPE, [prefix | fresh] concat and attention
         straight off the ``win`` output (JAX ``_layer``'s pallas_fused
-        branch)."""
+        branch), on the step's tile map."""
         cfg = self.cfg
         D = cfg.hidden_size
         y = self.win(x)
@@ -392,7 +401,7 @@ class PhiDecoderLayer(nn.Module):
             num_heads=cfg.num_heads, rotary_dim=cfg.rotary_dim,
             eps=cfg.layer_norm_eps,
             softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
-            rows=m.fused)
+            rows=m.fused, tiles=m.tiles)
         mlp = F.gelu(y[..., 3 * D:], approximate="tanh")
         return h + self.wout(torch.cat([attn, mlp], dim=-1))
 

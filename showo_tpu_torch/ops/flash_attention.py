@@ -17,14 +17,15 @@ as in the JAX package, compute the same function on two layouts:
   they are.
 
 They launch hand-written Hopper kernels that read the layouts through
-their strides: ``omni_attention_packed`` (``csrc/omni_attention_packed.cu``)
-the wgmma forward core of ``csrc/attention_fwd_sm90.cuh`` at both head
-dims, after a tile map of the q rows' metadata (:func:`rows_tile_map`)
-that says which K tiles each 64-row q block visits and masks;
-``omni_attention`` and ``omni_attention_gqa_stacked``
-(``csrc/omni_attention.cu``, ``csrc/omni_attention_gqa_stacked.cu``) the
-first tile core of ``csrc/omni_attention.cuh``.  The mask is recomputed
-from O(S) metadata instead of a [B, 1, Q, S] bias:
+their strides: ``omni_attention_packed`` (``csrc/omni_attention_packed.cu``,
+head dims 64 and 128) and ``omni_attention`` (``csrc/omni_attention.cu``,
+head dim 64) the wgmma forward core of ``csrc/attention_fwd_sm90.cuh``,
+each after a tile map of the q rows' metadata (:func:`rows_tile_map`,
+under each source's own entry) that says which K tiles each 64-row q
+block visits and masks; ``omni_attention_gqa_stacked``
+(``csrc/omni_attention_gqa_stacked.cu``) the first tile core of
+``csrc/attention_tile.cuh``.  The mask is recomputed from O(S) metadata
+instead of a [B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -42,7 +43,8 @@ tile) to fill the card, and mask ragged edges themselves.
 The wrappers run the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.  ``cuda_build.launches`` counts kernel
 launches by source name; ``omni_attention_packed``'s also under
-``WGMMA_KERNEL`` (its core), its tile map under ``TILES_KERNEL``.
+``WGMMA_KERNEL`` (its core), its tile map under ``TILES_KERNEL``,
+``omni_attention``'s under ``OMNI_TILES``.
 """
 
 from __future__ import annotations
@@ -63,12 +65,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _PACKED_ARGS = [_P] * 11 + [_I] * 6 + [_L] * 8 + [_F]
 _STACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
-_OMNI_ARGS = [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F]
-_TILES_ARGS = [_P] * 7 + [_I] * 3
+_OMNI_ARGS = [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F]
+# the tile map entries of every source: seg, pad, last_pad, prefix, pos_k,
+# pos_q, seg_q, tiles; B, Q, S
+_TILES_ARGS = [_P] * 8 + [_I] * 3
 PACKED_SOURCE = "omni_attention_packed"
 # kernel 1 on the wgmma forward core (every launch), and its tile map
 WGMMA_KERNEL = f"{PACKED_SOURCE}_wgmma"
 TILES_KERNEL = f"{PACKED_SOURCE}_tiles"
+# kernel 4 (head-major views) and its tile map
+OMNI_SOURCE = "omni_attention"
+OMNI_TILES = f"{OMNI_SOURCE}_tiles"
 TILE = 64       # rows of a q or k tile of the tile map
 
 
@@ -158,30 +165,41 @@ def q_rows(seg: torch.Tensor, q_positions, batch: int, rows: int):
     return pos, gather_at(seg, pos)
 
 
-def visible_mask(seg, pad, last_pad, prefix, q_positions) -> torch.Tensor:
-    """The omni predicate as a [B, Q, S] bool tensor."""
+def visible_mask(seg, pad, last_pad, prefix, q_positions, *, pos_k=None,
+                 seg_q=None) -> torch.Tensor:
+    """The omni predicate as a [B, Q, S] bool tensor: q rows at kv
+    positions ``q_positions`` [B, Q] with segments ``seg_q`` (by default
+    ``seg`` gathered at those positions), keys at positions ``pos_k`` [S]
+    (by default key j at j) with their ``seg`` / ``pad`` [B, S]."""
     S = seg.shape[1]
     pos = q_positions[:, :, None]
-    seg_q = gather_at(seg, q_positions)[:, :, None]
-    j = torch.arange(S, device=seg.device)[None, None, :]
+    if seg_q is None:
+        seg_q = gather_at(seg, q_positions)
+    seg_q = seg_q[:, :, None]
+    j = (torch.arange(S, device=seg.device) if pos_k is None
+         else pos_k)[None, None, :]
     vis = (j <= pos) | ((seg_q == seg[:, None, :]) & (seg_q > 0))
     vis = vis | (j < prefix[:, None, None])
     return vis & ((pad[:, None, :] == 0) | (pos <= last_pad[:, None, None]))
 
 
-def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q) -> torch.Tensor:
+def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q, *, pos_k=None,
+                        seg_q=None) -> torch.Tensor:
     """uint8 [B, nq, nk + 1] (nq = ceil(Q / 64), nk = ceil(S / 64)) of q
     rows at kv positions ``pos_q`` [B, Q]: entry kt < nk of (b, q tile) is
     0 where no entry of the pair of 64-row tiles is visible, 1 where some
     are, 3 where all 64 x 64 are (rows past Q and keys past S count as not
     visible); entry nk is 1 where some row of the q tile sees no key at
-    all (it averages v over every key, so its block visits every tile)."""
+    all (it averages v over every key, so its block visits every tile).
+    ``pos_k`` / ``seg_q``: as in :func:`visible_mask` (kernel 2's keys sit
+    at positions of their own)."""
     B, S = seg.shape
     Q = pos_q.shape[1]
     nq, nk = -(-Q // TILE), -(-S // TILE)
     vis = torch.zeros((B, nq * TILE, nk * TILE), dtype=torch.bool,
                       device=seg.device)
-    vis[:, :Q, :S] = visible_mask(seg, pad, last_pad, prefix, pos_q)
+    vis[:, :Q, :S] = visible_mask(seg, pad, last_pad, prefix, pos_q,
+                                  pos_k=pos_k, seg_q=seg_q)
     blocks = vis.view(B, nq, TILE, nk, TILE)
     some = blocks.any(dim=4).any(dim=2)
     every = blocks.all(dim=4).all(dim=2)
@@ -192,16 +210,19 @@ def rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q) -> torch.Tensor:
 
 
 def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q,
-                  source: str = PACKED_SOURCE) -> torch.Tensor:
-    """The tile map of kernels 1 and 5 (:func:`rows_tile_map_plain` of the
-    same metadata; ``seg_q`` is ``seg`` at ``pos_q``, the pair of
-    :func:`q_rows`): for CUDA metadata (int32 and contiguous, as
-    :func:`_kernel_meta` returns it) the kernel of
-    ``csrc/attention_fwd_sm90.cuh`` under the entry ``<source>_tiles`` of
-    the kernel's source (``omni_attention_packed`` or
-    ``streaming_attention``), counted under that name."""
+                  source: str = PACKED_SOURCE, pos_k=None) -> torch.Tensor:
+    """The tile map of kernels 1, 2, 4 and 5 (:func:`rows_tile_map_plain`
+    of the same metadata; ``seg_q`` is the q rows' segments, for kernels
+    1, 4 and 5 ``seg`` at ``pos_q``, the pair of :func:`q_rows`; ``pos_k``
+    [S] the keys' positions, None for key j at j): for CUDA metadata
+    (int32 and contiguous, as :func:`_kernel_meta` returns it) the kernel
+    of ``csrc/attention_fwd_sm90.cuh`` under the entry ``<source>_tiles``
+    of the kernel's source (``omni_attention_packed``,
+    ``streaming_attention``, ``omni_attention`` or ``fused_decode``),
+    counted under that name."""
     if seg.device.type == "cpu":
-        return rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q)
+        return rows_tile_map_plain(seg, pad, last_pad, prefix, pos_q,
+                                   pos_k=pos_k, seg_q=seg_q)
     B, S = seg.shape
     Q = pos_q.shape[1]
     tiles = torch.empty((B, -(-Q // TILE), -(-S // TILE) + 1),
@@ -209,8 +230,9 @@ def rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q,
     entry = f"{source}_tiles"
     cuda_build.launch(
         source, entry, _TILES_ARGS, seg.device,
-        *(m.data_ptr() for m in (seg, pad, last_pad, prefix, pos_q, seg_q)),
-        tiles.data_ptr(), B, Q, S, kernel=entry)
+        *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
+        None if pos_k is None else pos_k.data_ptr(), pos_q.data_ptr(),
+        seg_q.data_ptr(), tiles.data_ptr(), B, Q, S, kernel=entry)
     return tiles
 
 
@@ -488,17 +510,21 @@ def omni_attention_plain(q, k, v, seg, pad, last_pad, prefix, q_positions,
 
 def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
                    sm_scale: Optional[float] = None, q_positions=None,
-                   seg_q=None):
+                   seg_q=None, tiles=None):
     """q: [B, H, Q, D]; k, v: [B, H, S, D]; seg, pad: [B, S] int;
     last_pad, prefix: [B] int.  Returns [B, H, Q, D] in q's dtype.
 
     Q == S by default (self-attention); with a prefix cache pass
     ``q_positions``, the q rows' kv positions, [Q] or [B, Q].  ``seg_q``,
     when given, says that ``q_positions`` and ``seg_q`` already are the
-    int32 [B, Q] pair of :func:`q_rows`.  Any strided view whose last dim
-    is contiguous is taken as it is (``x.transpose(1, 2)`` of [B, S, H, D]
-    projections costs no copy); the kernel's output is a [B, H, Q, D] view
-    of a [B, Q, H, D] tensor, so transposing it back is free as well.
+    int32 [B, Q] pair of :func:`q_rows`.  ``tiles``: :func:`rows_tile_map`
+    of the same metadata under this kernel's entry (:func:`omni_tile_map`;
+    made here when None; a forward of many layers makes it once).  Any
+    strided view whose last dim is contiguous and whose strides and base
+    are 16-byte aligned is taken as it is (``x.transpose(1, 2)`` of [B, S,
+    H, D] projections costs no copy; another view raises); the kernel's
+    output is a [B, H, Q, D] view of a [B, Q, H, D] tensor, so transposing
+    it back is free as well.
 
     CPU tensors go through the plain version; CUDA tensors through the
     kernel (bf16, head dim 64), which raises on what it does not take.
@@ -519,11 +545,23 @@ def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     if tuple(k.shape) != (B, H, S, D) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, H, S, D] = {(B, H, S, D)}, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if tiles is None:
+        tiles = omni_tile_map(*meta)
+    _check_tiles(tiles, B, Q, S, dev)
     out = torch.empty((B, Q, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     cuda_build.launch(
-        "omni_attention", "omni_attention_bf16", _OMNI_ARGS, dev,
+        OMNI_SOURCE, "omni_attention_bf16", _OMNI_ARGS, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(m.data_ptr() for m in meta), B, H, Q, S, D,
+        *(m.data_ptr() for m in meta), tiles.data_ptr(), B, H, Q, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(sm_scale))
     return out
+
+
+def omni_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q):
+    """Kernel 4's tile map: kernel 1's (:func:`rows_tile_map` of the same
+    metadata, int32 and contiguous as :func:`q_rows` gives ``pos_q`` /
+    ``seg_q``) under kernel 4's entry and counter ``OMNI_TILES``.  A model
+    forward makes it once for all its layers (``models/phi.py::attn_step``)."""
+    return rows_tile_map(seg, pad, last_pad, prefix, pos_q, seg_q,
+                         source=OMNI_SOURCE)

@@ -1,11 +1,11 @@
-"""The cached MaskGIT step's attention in one kernel: per-head q/k
+"""The cached MaskGIT step's attention (kernel 2): per-head q/k
 LayerNorm, partial RoPE, the [prefix | fresh] K/V concat and omni-masked
 attention, read straight off the fused ``win`` projection output.  The
-CUDA kernel's wrapper, its plain version, and the metadata it reads.
+CUDA kernels' wrappers, their plain versions, and the metadata they read.
 
 Counterpart of ``showo_tpu/ops/fused_decode.py``.
 ``fused_decode_attention`` replaces the Pallas ``fused_decode_attention``
-(kernel ``_kernel``) with the hand-written Hopper kernel in
+(kernel ``_kernel``) with the hand-written Hopper kernels of
 ``csrc/fused_decode.cu``.  For fresh row i and key j of
 ``K = P + S``:
 
@@ -26,17 +26,23 @@ and softmax in ``softmax_dtype``; probabilities cast to v's dtype.  The
 kernel takes the fp32 softmax only (``attn_fp32=True``, the default);
 for a bf16 softmax on a CUDA tensor the wrapper raises.
 
-What bounds the kernel on an H100 at the v1 512^2 cached step (B=4,
-S=1026, P=129, H=32, D=64): the attention is the omni kernel's; what it
-removes is the glue of the unfused route (fp32 casts and per-head
-LayerNorm, rope halves and concats, the K/V prefix concat), each a pass
-over device memory.  It reads q/k/v through the row stride of ``y`` and
-the prefix through the batch stride of the cache views, so the host
-copies nothing.  See the source for the design.
+Two launches compute it (see the source for the design and its bound
+on an H100): :func:`norm_rope`, one pass of LayerNorm + RoPE over the
+fresh rows' q and k column blocks of ``y`` into contiguous ``qn`` /
+``kn`` [B, S, hidden]; then :func:`fused_attend`, the wgmma forward core
+of ``csrc/attention_fwd_sm90.cuh`` (kernel 1's -1e30 mask) over K rows
+``[ck | kn]`` and V rows ``[cv | y's v block]``, chosen per row at P,
+keys at ``pos_k``, on the tile map of those keys (:func:`fused_tile_map`,
+made once per forward by ``models/phi.py::attn_step``).  What the route
+saves is the glue of the unfused route (fp32 casts and per-head
+LayerNorm, rope halves and concats, the K/V prefix concat).  ``y`` is
+read through its row stride and the prefix through the batch stride of
+the cache views, so the host copies nothing.
 
-The wrapper runs the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises.  ``cuda_build.launches`` counts kernel
-launches.
+The wrappers run the plain versions for CPU tensors only; for CUDA
+tensors they launch the kernels or raise.  ``cuda_build.launches``
+counts the core's launches under ``SOURCE``, the pass's under
+``NORM_KERNEL`` and the maps under ``TILES_KERNEL``.
 """
 
 from __future__ import annotations
@@ -49,12 +55,21 @@ import torch
 
 from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops.flash_attention import (NEG_INF, _check_head_dim,
-                                                 _check_operands, gather_at,
-                                                 q_rows)
+                                                 _check_operands,
+                                                 _check_tiles,
+                                                 _masked_attention, gather_at,
+                                                 q_rows, rows_tile_map,
+                                                 visible_mask)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_ARGS = [_P] * 17 + [_I] * 6 + [_L] * 8 + [_F] * 2
+_NORM_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 2 + [_F]
+_ATTEND_ARGS = [_P] * 14 + [_I] * 5 + [_L] * 8 + [_F]
+SOURCE = "fused_decode"
+# the LayerNorm + RoPE pass, and the tile map of the K = P + S keys
+NORM_KERNEL = f"{SOURCE}_norm_rope"
+TILES_KERNEL = f"{SOURCE}_tiles"
+ROTARY_DIM = 32     # the kernels' rotary dims (Phi-1.5)
 
 
 def fused_rows(seg, pad, q_positions, prefix_len: int, batch: int):
@@ -130,11 +145,165 @@ def fused_decode_attention_plain(y, ck, cv, q_ln, k_ln, cos, sin, last_pad,
     return out.reshape(B, S, hidden).to(y.dtype)
 
 
+def norm_rope_plain(y, q_ln, k_ln, cos, sin, *, hidden: int,
+                    num_heads: int, rotary_dim: int, eps: float):
+    """Plain version of :func:`norm_rope`: (qn, kn), each [B, S, hidden]
+    in y's dtype, LayerNorm then RoPE of the q and k column blocks."""
+    B, S, _ = y.shape
+    D = hidden // num_heads
+    qn, kn = (_rope(_layer_norm(
+        y[..., i * hidden:(i + 1) * hidden].unflatten(-1, (num_heads, D)),
+        *ln, eps), cos, sin, rotary_dim).reshape(B, S, hidden)
+        for i, ln in enumerate((q_ln, k_ln)))
+    return qn, kn
+
+
+def norm_rope(y, q_ln, k_ln, cos, sin, *, hidden: int, num_heads: int,
+              rotary_dim: int = ROTARY_DIM, eps: float = 1e-5):
+    """The LayerNorm + RoPE pass of kernel 2: y [B, S, >= 2 * hidden] (any
+    view with a contiguous last dim, 16-byte aligned), its q and k column
+    blocks normed by ``q_ln`` / ``k_ln`` ((scale, shift), [D] each) and
+    roped by cos / sin ([S, rotary_dim] fp32) -> (qn, kn), [B, S, hidden]
+    contiguous in y's dtype.  CPU tensors go through the plain version;
+    CUDA tensors through the kernel (bf16, head dim 64, rotary dim 32),
+    counted under ``NORM_KERNEL``."""
+    if y.device.type == "cpu":
+        return norm_rope_plain(y, q_ln, k_ln, cos, sin, hidden=hidden,
+                               num_heads=num_heads, rotary_dim=rotary_dim,
+                               eps=eps)
+    B, S, YW = y.shape
+    D = hidden // num_heads
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"norm_rope: unsupported device {dev}")
+    _check_operands("fused_decode_attention", {"y": y}, 3)
+    _check_head_dim("fused_decode_attention", D)
+    if hidden % num_heads or YW < 2 * hidden:
+        raise ValueError(f"y [B, S, {YW}] must hold q/k of hidden {hidden}")
+    if rotary_dim != ROTARY_DIM:
+        raise ValueError(f"fused_decode_attention kernel: rotary dim "
+                         f"{rotary_dim}, the kernel is built for "
+                         f"{ROTARY_DIM}")
+    ln = (*q_ln, *k_ln)
+    if any(t.shape != (D,) or t.dtype != torch.bfloat16 or t.device != dev
+           or not t.is_contiguous() for t in ln):
+        raise TypeError(f"fused_decode_attention kernel: q/k LayerNorm "
+                        f"scale and shift must be contiguous bf16 [{D}] on "
+                        f"{dev}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (S, rotary_dim)
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"fused_decode_attention kernel: {name} must be "
+                             f"contiguous fp32 [S, rotary_dim] on {dev}")
+    qn, kn = (torch.empty((B, S, hidden), dtype=y.dtype, device=dev)
+              for _ in range(2))
+    cuda_build.launch(
+        SOURCE, "fused_decode_norm_rope_bf16", _NORM_ARGS, dev,
+        y.data_ptr(), *(t.data_ptr() for t in ln), cos.data_ptr(),
+        sin.data_ptr(), qn.data_ptr(), kn.data_ptr(), B, S, num_heads, D,
+        rotary_dim, y.stride(0), y.stride(1), float(eps), kernel=NORM_KERNEL)
+    return qn, kn
+
+
+def fused_tile_map(rows, last_pad, prefix):
+    """The tile map of kernel 2's core: ``rows_tile_map`` of the S fresh
+    q rows over the K = P + S keys at their positions ``pos_k``
+    (:func:`fused_rows`' tuple; last_pad / prefix int32 [B]), uint8
+    [B, ceil(S / 64), ceil(K / 64) + 1]; on CUDA the kernel of
+    ``csrc/attention_fwd_sm90.cuh`` under this source's entry, counted
+    under ``TILES_KERNEL``.  A forward makes it once for all layers."""
+    pos_q, seg_q, pos_k, seg_k, pad_k = rows
+    return rows_tile_map(seg_k, pad_k, last_pad, prefix, pos_q, seg_q,
+                         source=SOURCE, pos_k=pos_k)
+
+
+def fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows, *,
+                       hidden: int, num_heads: int, sm_scale: float):
+    """Plain version of :func:`fused_attend`: the packed omni attention
+    of qn over K = [ck | kn] and V = [cv | y's v block], keys at
+    ``pos_k``, fp32 scores and softmax, probabilities cast to v's dtype.
+    Returns [B, S, hidden] in qn's dtype."""
+    pos_q, seg_q, pos_k, seg_k, pad_k = rows
+    B, S, _ = qn.shape
+    D = hidden // num_heads
+
+    def heads(t):
+        return t.unflatten(-1, (num_heads, D)).transpose(1, 2)
+
+    k = torch.cat([ck, kn.to(ck.dtype)], 1)
+    v = torch.cat([cv, y[..., 2 * hidden:3 * hidden].to(cv.dtype)], 1)
+    vis = visible_mask(seg_k, pad_k, last_pad, prefix, pos_q, pos_k=pos_k,
+                       seg_q=seg_q)
+    out = _masked_attention(heads(qn), heads(k), heads(v), vis, sm_scale)
+    return out.transpose(1, 2).reshape(B, S, hidden).to(qn.dtype)
+
+
+def fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles=None, *,
+                 hidden: int, num_heads: int,
+                 sm_scale: Optional[float] = None):
+    """The attention of kernel 2 after :func:`norm_rope`: qn, kn [B, S,
+    hidden] contiguous; y [B, S, >= 3 * hidden] (its v block read); ck, cv
+    [B, P, hidden] cache views; last_pad, prefix int32 [B]; ``rows`` the
+    tuple of :func:`fused_rows`; ``tiles``: :func:`fused_tile_map` of
+    those (made here when None).  Returns [B, S, hidden].  CPU tensors go
+    through the plain version; CUDA tensors through the forward core
+    (bf16, head dim 64), counted under ``SOURCE``; it raises on a view
+    whose strides or base are not 16-byte aligned, and copies nothing."""
+    B, S, _ = qn.shape
+    P = ck.shape[1]
+    D = hidden // num_heads
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dev = qn.device
+    if dev.type == "cpu":
+        return fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows,
+                                  hidden=hidden, num_heads=num_heads,
+                                  sm_scale=sm_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_attend: unsupported device {dev}")
+    _check_operands("fused_decode_attention",
+                    {"qn": qn, "kn": kn, "y": y, "ck": ck, "cv": cv}, 3)
+    _check_head_dim("fused_decode_attention", D)
+    if (tuple(qn.shape) != (B, S, hidden) or kn.shape != qn.shape
+            or not (qn.is_contiguous() and kn.is_contiguous())):
+        raise ValueError(f"qn/kn must be contiguous [B, S, hidden] = "
+                         f"{(B, S, hidden)} (see norm_rope)")
+    if y.shape[:2] != (B, S) or y.shape[2] < 3 * hidden:
+        raise ValueError(f"y must be [B, S, >= 3 * hidden] = [{B}, {S}, "
+                         f">= {3 * hidden}], got {tuple(y.shape)}")
+    if tuple(ck.shape) != (B, P, hidden) or cv.shape != ck.shape:
+        raise ValueError(f"ck/cv must be [B, P, hidden] = {(B, P, hidden)}, "
+                         f"got {tuple(ck.shape)} / {tuple(cv.shape)}")
+    K = P + S
+    for name, t, shape in zip(("pos_q", "seg_q", "pos_k", "seg_k", "pad_k"),
+                              rows, ((B, S), (B, S), (K,), (B, K), (B, K))):
+        if (tuple(t.shape) != shape or t.dtype != torch.int32
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"fused_decode_attention: {name} must be int32 "
+                             f"{shape}, contiguous, on {dev} (see "
+                             f"fused_rows)")
+    if tiles is None:
+        tiles = fused_tile_map(rows, last_pad, prefix)
+    _check_tiles(tiles, B, S, K, dev)
+    out = torch.empty((B, S, hidden), dtype=qn.dtype, device=dev)
+    pos_q, seg_q, pos_k, seg_k, pad_k = rows
+    cuda_build.launch(
+        SOURCE, "fused_decode_attention_bf16", _ATTEND_ARGS, dev,
+        *(t.data_ptr() for t in (qn, kn, y, ck, cv, out, seg_k, pad_k,
+                                 last_pad, prefix, pos_k, pos_q, seg_q,
+                                 tiles)),
+        B, S, P, num_heads, D, y.stride(0), y.stride(1), ck.stride(0),
+        ck.stride(1), cv.stride(0), cv.stride(1), out.stride(0),
+        out.stride(1), float(sm_scale))
+    return out
+
+
 def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
                            last_pad, prefix, q_positions, *, hidden: int,
                            num_heads: int, rotary_dim: int, eps: float = 1e-5,
                            sm_scale: Optional[float] = None,
-                           softmax_dtype=torch.float32, rows=None):
+                           softmax_dtype=torch.float32, rows=None,
+                           tiles=None):
     """y: [B, S, YW], YW >= 3 * hidden, with q/k/v the first three
     hidden-wide column blocks (the ``win`` output of
     ``models/phi.py::fuse_parallel_mlp``); any view with a contiguous last
@@ -143,13 +312,15 @@ def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
     LayerNorms' (scale, shift), [D] each.  cos, sin: [S, rotary_dim] fp32
     rope tables of the fresh rows.  seg, pad: [B, L] span metadata over
     the logical sequence (L >= P + S); last_pad, prefix: [B];
-    q_positions: [S] positions of the fresh rows.  ``rows``, when given,
-    is :func:`fused_rows` of those, computed once per forward.  Returns
-    [B, S, hidden] in y's dtype.
+    q_positions: [S] positions of the fresh rows (any, as in JAX).
+    ``rows``, when given, is :func:`fused_rows` of those, and ``tiles``
+    :func:`fused_tile_map` of ``rows``, each computed once per forward
+    (made here when None).  Returns [B, S, hidden] in y's dtype.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel (bf16, head dim 64, rotary dim 32, fp32 softmax), which raises
-    on what it does not take.
+    kernels, :func:`norm_rope` then :func:`fused_attend` (bf16, head dim
+    64, rotary dim 32, fp32 softmax), which raise on what they do not
+    take.
     """
     B, S, YW = y.shape
     P = ck.shape[1]
@@ -173,45 +344,12 @@ def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
             eps=eps, sm_scale=sm_scale, softmax_dtype=softmax_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_decode_attention: unsupported device {dev}")
-    _check_operands("fused_decode_attention", {"y": y, "ck": ck, "cv": cv}, 3)
-    _check_head_dim("fused_decode_attention", D)
-    if rotary_dim != 32:
-        raise ValueError(f"fused_decode_attention kernel: rotary dim "
-                         f"{rotary_dim}, the kernel is built for 32")
     if softmax_dtype != torch.float32:
         raise ValueError(f"fused_decode_attention kernel takes the fp32 "
                          f"softmax only, not {softmax_dtype} (the plain "
                          f"version has both)")
-    if tuple(ck.shape) != (B, P, hidden) or cv.shape != ck.shape:
-        raise ValueError(f"ck/cv must be [B, P, hidden] = {(B, P, hidden)}, "
-                         f"got {tuple(ck.shape)} / {tuple(cv.shape)}")
-    ln = (*q_ln, *k_ln)
-    if any(t.shape != (D,) or t.dtype != torch.bfloat16 or t.device != dev
-           or not t.is_contiguous() for t in ln):
-        raise TypeError(f"fused_decode_attention kernel: q/k LayerNorm "
-                        f"scale and shift must be contiguous bf16 [{D}] on "
-                        f"{dev}")
-    for name, t in (("cos", cos), ("sin", sin)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (S, rotary_dim)
-                or not t.is_contiguous() or t.device != dev):
-            raise ValueError(f"fused_decode_attention kernel: {name} must be "
-                             f"contiguous fp32 [S, rotary_dim] on {dev}")
-    K = P + S
-    for name, t, shape in zip(("pos_q", "seg_q", "pos_k", "seg_k", "pad_k"),
-                              rows, ((B, S), (B, S), (K,), (B, K), (B, K))):
-        if (tuple(t.shape) != shape or t.dtype != torch.int32
-                or not t.is_contiguous() or t.device != dev):
-            raise ValueError(f"fused_decode_attention: {name} must be int32 "
-                             f"{shape}, contiguous, on {dev} (see "
-                             f"fused_rows)")
-    out = torch.empty((B, S, hidden), dtype=y.dtype, device=dev)
-    cuda_build.launch(
-        "fused_decode", "fused_decode_attention_bf16", _ARGS, dev,
-        y.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
-        *(t.data_ptr() for t in ln), cos.data_ptr(), sin.data_ptr(),
-        last_pad.data_ptr(), prefix.data_ptr(),
-        *(t.data_ptr() for t in rows), B, S, P,
-        num_heads, D, rotary_dim, y.stride(0), y.stride(1), ck.stride(0),
-        ck.stride(1), cv.stride(0), cv.stride(1), out.stride(0),
-        out.stride(1), float(eps), float(sm_scale))
-    return out
+    qn, kn = norm_rope(y, q_ln, k_ln, cos, sin, hidden=hidden,
+                       num_heads=num_heads, rotary_dim=rotary_dim, eps=eps)
+    return fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles,
+                        hidden=hidden, num_heads=num_heads,
+                        sm_scale=sm_scale)

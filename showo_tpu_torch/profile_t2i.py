@@ -26,8 +26,7 @@ from showo_tpu_torch import inference_t2i, inference_t2i_v2
 from showo_tpu_torch.config import load_config
 
 # the port's kernels (csrc/), listed by their __global__ names
-_OURS = ("omni_attention_kernel", "gqa_stacked_kernel",
-         "fused_decode_kernel", "agrad90::", "wsmm::")
+_OURS = ("gqa_stacked_kernel", "fused::", "agrad90::", "wsmm::")
 # a profiler row of the CUDA runtime (launches that waited for room in the
 # command queue), not an operator: the device time under it is counted
 # again in the rows of the operators and kernels it held up

@@ -1,6 +1,7 @@
 """Times of the inference attention kernels 5 (``streaming``), 3
-(``decode``) and 1 (``packed``) at the v1 512x512 cached step on one card,
-for holding two trees side by side in one call.
+(``decode``), 1 (``packed``), 4 (``omni``) and 2 (``fused``) at the v1
+512x512 cached step on one card, for holding two trees side by side in
+one call.
 
     python3 showo_tpu_torch/time_inference.py [--root DIR] [--tag NAME]
 
@@ -11,13 +12,17 @@ building its own kernels into its own ``_build``.  The shapes and
 metadata are those of ``chip_smoke.py`` phase 3: the t2i layout of the
 512x512 config's first two prompts with CFG (B=4, P=129 prefix rows,
 Q=1026 fresh rows, K=1155), H=32, D=64, seeded bf16 q/k/v as transposed
-[B, S, H, D] views (kernel 5), [B, S, H, D] tensors (kernel 3, whose bias
-is the cached step's [B, 1, Q, K] view of the omni mask) and [B, S, H*D]
-(kernel 1).  Timed, CUDA-event medians of 20 with the wrapper: each
-kernel on a tile map made beforehand where the tree's wrapper takes one
-(as a forward of 24 layers makes it once), the map itself, and
-``scaled_dot_product_attention`` with the same mask.  Prints the card and
-one JSON line.  Needs a CUDA card.
+[B, S, H, D] views (kernels 5 and 4), [B, S, H, D] tensors (kernel 3,
+whose bias is the cached step's [B, 1, Q, K] view of the omni mask),
+[B, S, H*D] (kernel 1), and for kernel 2 a full-width ``win`` output y
+[B, Q, 14336] with the prefix K / V as views of a cache.  Timed,
+CUDA-event medians of 20 with the wrapper: each kernel on a tile map
+made beforehand where the tree's wrapper takes one (as a forward of 24
+layers makes it once), the map itself, kernel 2's two launches apart
+where the tree has them (``fused_norm_rope``, ``fused_core``), and
+``scaled_dot_product_attention`` with the same mask (for kernel 2's core
+on the normed q / k).  Prints the card and one JSON line.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -69,8 +74,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_inference: needs a CUDA card", file=sys.stderr)
         return 2
+    from showo_tpu_torch.models.phi import rope_tables
     from showo_tpu_torch.ops import decode_attention as tda
     from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.ops import fused_decode as tfd
     from showo_tpu_torch.ops import streaming_attention as tsa
     from showo_tpu_torch.ops.masks import omni_mask_predict_next
     from showo_tpu_torch.time_trainable import _time_ms
@@ -104,6 +111,26 @@ def main(argv=None) -> int:
         make3 = functools.partial(tda.bias_tile_map, bias)
         kw3["tiles"] = make3()
     tiles1 = tfa.rows_tile_map(*meta, pos_q, seg_q)
+    kw4, make4 = dict(q_positions=pos_q, seg_q=seg_q), None
+    if takes_tiles(tfa.omni_attention):
+        make4 = functools.partial(tfa.omni_tile_map, *meta, pos_q, seg_q)
+        kw4["tiles"] = make4()
+    # kernel 2: y a full-width win output, ck / cv views of a cache
+    hidden = H * D
+    y = torch.randn(B, Q, 3 * hidden + 8192, generator=g,
+                    device=dev).bfloat16()
+    cache = torch.randn(2, B, L, H, D, generator=g, device=dev).bfloat16()
+    ck, cv = cache[0, :, :P].flatten(2), cache[1, :, :P].flatten(2)
+    ln = [(1 + 0.1 * torch.randn(D, generator=g, device=dev)).bfloat16(),
+          (0.1 * torch.randn(D, generator=g, device=dev)).bfloat16()]
+    pos = torch.arange(P, L, device=dev)
+    cos, sin = rope_tables(pos, 32, 10000.0)
+    rows = tfd.fused_rows(meta[0], meta[1], pos, P, B)
+    kw2 = dict(hidden=hidden, num_heads=H, rotary_dim=32, rows=rows)
+    make2 = None
+    if takes_tiles(tfd.fused_decode_attention):
+        make2 = functools.partial(tfd.fused_tile_map, rows, meta[2], meta[3])
+        kw2["tiles"] = make2()
     ms = {
         "streaming": _time_ms(torch, lambda: tsa.omni_attention_streaming(
             *heads, *meta, **kw5)),
@@ -114,11 +141,36 @@ def main(argv=None) -> int:
         "packed": _time_ms(torch, lambda: tfa.omni_attention_packed(
             *packed, *meta, num_heads=H, q_positions=pos_q, seg_q=seg_q,
             tiles=tiles1)),
+        "omni": _time_ms(torch, lambda: tfa.omni_attention(
+            *heads, *meta, **kw4)),
+        "omni_map": _time_ms(torch, make4) if make4 else None,
+        "fused": _time_ms(torch, lambda: tfd.fused_decode_attention(
+            y, ck, cv, ln, ln, cos, sin, *meta, pos, **kw2)),
+        "fused_map": _time_ms(torch, make2) if make2 else None,
         "library_mask": _time_ms(torch, lambda: F.scaled_dot_product_attention(
             *heads, attn_mask=mask)),
         "library_bias": _time_ms(torch, lambda: F.scaled_dot_product_attention(
             *heads, attn_mask=bias16)),
     }
+    if hasattr(tfd, "norm_rope"):
+        # kernel 2's two launches apart, and the library on the core's part
+        part = dict(hidden=hidden, num_heads=H)
+        qn, kn = tfd.norm_rope(y, ln, ln, cos, sin, **part)
+        fresh = [t.unflatten(-1, (H, D)).transpose(1, 2) for t in (
+            qn, torch.cat([ck, kn], 1),
+            torch.cat([cv, y[..., 2 * hidden:3 * hidden]], 1))]
+        vis2 = tfa.visible_mask(rows[3], rows[4], meta[2], meta[3], rows[0],
+                                pos_k=rows[2], seg_q=rows[1])[:, None]
+        ms.update({
+            "fused_norm_rope": _time_ms(torch, lambda: tfd.norm_rope(
+                y, ln, ln, cos, sin, **part)),
+            "fused_core": _time_ms(torch, lambda: tfd.fused_attend(
+                qn, kn, y, ck, cv, meta[2], meta[3], rows, kw2["tiles"],
+                **part)),
+            "library_fused_core": _time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *fresh, attn_mask=vis2)),
+        })
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]

@@ -1,5 +1,5 @@
-"""Omni attention of showo_tpu_torch: the packed [B, S, H*D] and the
-head-major [B, H, S, D] entry points.
+"""Omni attention of showo_tpu_torch: the packed [B, S, H*D] (kernel 1)
+and the head-major [B, H, S, D] (kernel 4) entry points.
 
 On the CPU each wrapper runs its plain version, held against its JAX
 Pallas kernel in interpret mode (as tests/test_flash_attention.py runs
@@ -13,7 +13,8 @@ atol 2e-2: outputs are convex combinations of ~N(0, 1) values and bf16
 carries 8 bits, and the kernel rounds the probabilities to bf16 before
 normalising them; the tile map kernel to its plain version exactly, and
 the wgmma kernel, at head dims 64 and 128, to the same bits over two
-launches.
+launches.  Kernel 4 runs kernel 1's core on head-major views: on the
+same memory the two give the same bits.
 """
 
 import jax.numpy as jnp
@@ -432,8 +433,8 @@ def test_wgmma_kernel_at_head_dim_64_on_card(kind, H, Hkv):
 @pytest.mark.cuda
 def test_packed_wrapper_never_reaches_the_first_core_on_card():
     """Every launch of kernel 1, at head dim 64 as at 128, is counted on
-    the wgmma core: the first tile core (omni_attention.cuh) is left to
-    kernels 4 and 6."""
+    the wgmma core: the first tile core (attention_tile.cuh) is left to
+    kernel 6."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -460,33 +461,47 @@ def test_packed_wrapper_never_reaches_the_first_core_on_card():
 
 @pytest.mark.cuda
 def test_attn_step_makes_the_packed_tile_map_on_card():
-    """On CUDA phi's ``attn_step`` gives the ``packed`` route's step the
-    tile map of its q rows (one map launch a forward, for all layers),
-    equal to the plain one, and the ``streaming`` route's step the same
-    map under kernel 5's own entry; the other routes' steps carry none
-    (``decode``'s map is of the bias, made in the forward)."""
+    """On CUDA phi's ``attn_step`` gives each route's step the tile map its
+    kernel reads (one map launch a forward, for all layers): ``packed``,
+    ``streaming`` and ``omni`` the map of their q rows under each kernel's
+    own entry, equal to the plain one; ``fused`` at the static-prefix
+    step kernel 2's map of the K = P + S keys at their positions (its
+    own entry), and outside it the ``omni`` map; ``decode`` none (its map
+    is of the bias, made in the forward)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the tile map kernel has no CPU mode")
     from showo_tpu_torch.models.phi import attn_step
+    from showo_tpu_torch.ops import fused_decode as tfd
 
     ids = torch.as_tensor(_layout(2, text=20, img=100, pads=(0, 7), seed=5),
                           device="cuda")
     L = ids.shape[1]
     counters = {"packed": tfa.TILES_KERNEL,
-                "streaming": "streaming_attention_tiles"}
-    for route in ("packed", "omni", "decode", "fused", "streaming"):
-        meta = (route,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
+                "streaming": "streaming_attention_tiles",
+                "omni": tfa.OMNI_TILES, "fused": tfd.TILES_KERNEL,
+                "fused_q_eq_s": tfa.OMNI_TILES}
+    for route in ("packed", "omni", "decode", "fused", "streaming",
+                  "fused_q_eq_s"):
+        name = route.split("_")[0]
+        meta = (name,) + tfa.metadata_predict_next(ids, PAD, SOI, EOI)
         before = {n: cuda_build.launches[n] for n in counters.values()}
-        step = attn_step(meta, 21, L - 21, static_prefix_len=21)
+        step = (attn_step(meta, 0, L) if route == "fused_q_eq_s"
+                else attn_step(meta, 21, L - 21, static_prefix_len=21))
         torch.cuda.synchronize()
         made = {n: cuda_build.launches[n] - before[n]
                 for n in counters.values()}
-        if route not in counters:
+        if route == "decode":
             assert step.tiles is None and not any(made.values())
             continue
         assert made == {n: int(n == counters[route]) for n in made}
-        assert torch.equal(step.tiles, tfa.rows_tile_map_plain(
-            step.seg, step.pad, step.last_pad, step.prefix, step.pos_q))
+        if route == "fused":
+            want = tfa.rows_tile_map_plain(
+                step.fused[3], step.fused[4], step.last_pad, step.prefix,
+                step.pos_q, pos_k=step.fused[2], seg_q=step.seg_q)
+        else:
+            want = tfa.rows_tile_map_plain(step.seg, step.pad, step.last_pad,
+                                           step.prefix, step.pos_q)
+        assert torch.equal(step.tiles, want)
 
 
 # -- head-major omni_attention -----------------------------------------------
@@ -571,6 +586,49 @@ def test_omni_fully_masked_row_averages_v():
                                    out).numpy(), atol=1e-6)
 
 
+def _emulate(q, k, v, vis, tiles, sm_scale):
+    """Kernel 4 as the core runs it on a tile map, fp32 on the CPU: a q
+    tile's block visits the K tiles its row of the map lists (every tile
+    where its flag is set), masks (-1e30) only those the map marks
+    partial, and gives the tiles it does not visit no weight.  q [B, H, Q,
+    D], k / v [B, H, S, D], vis [B, Q, S]."""
+    Q, S = q.shape[2], k.shape[2]
+    nk = tiles.shape[2] - 1
+    cls = tiles[:, :, :nk].repeat_interleave(64, 1).repeat_interleave(
+        64, 2)[:, :Q, :S]
+    flag = tiles[:, :, nk].repeat_interleave(64, 1)[:, :Q, None] != 0
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.where(((cls == 3) | vis)[:, None], s, tfa.NEG_INF)
+    s = torch.where(((cls != 0) | flag)[:, None], s, float("-inf"))
+    return torch.matmul(torch.softmax(s, -1), v.float())
+
+
+@pytest.mark.parametrize("kind", ["cached", "per_row", "no_key", "v2"])
+def test_omni_map_skips_are_exact(kind):
+    """Kernel 4 reads kernel 1's map: skipping its empty tiles and leaving
+    its full tiles unmasked changes nothing.  An emulation of the core on
+    the map equals the plain version at fp32's 1e-5, and the no_key case's
+    rows 6..9 (which see no key) the mean of v over the S keys."""
+    meta, pos_q = _rows_meta(kind)
+    tmeta = [torch.as_tensor(m) for m in meta]
+    pos = torch.as_tensor(pos_q)
+    B, S = meta[0].shape
+    Q, H, D = pos_q.shape[1], 2, 8
+    rng = np.random.default_rng(Q + S)
+    q = torch.as_tensor(rng.normal(size=(B, H, Q, D)).astype(np.float32))
+    k, v = (torch.as_tensor(rng.normal(size=(B, H, S, D)).astype(np.float32))
+            for _ in range(2))
+    tiles = tfa.omni_tile_map(*tmeta, pos, tfa.gather_at(tmeta[0], pos))
+    assert torch.equal(tiles, tfa.rows_tile_map_plain(*tmeta, pos))
+    got = _emulate(q, k, v, tfa.visible_mask(*tmeta, pos), tiles, D ** -0.5)
+    want = tfa.omni_attention(q, k, v, *tmeta, q_positions=pos)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    if kind == "no_key":
+        np.testing.assert_allclose(
+            got[0, :, 6:10].numpy(),
+            v[0].mean(1, keepdim=True).expand(-1, 4, -1).numpy(), atol=1e-5)
+
+
 def test_omni_wrapper_raises():
     """No silent fallback: a device that is neither CPU nor CUDA raises,
     and so do a missing q_positions with Q != S and a malformed
@@ -631,3 +689,114 @@ def test_omni_kernel_refuses_what_it_does_not_take():
         tfa.omni_attention(q, q, q, seg)
     with pytest.raises(TypeError, match="bf16"):
         tfa.omni_attention(q.float(), q.float(), q.float(), seg)
+
+
+def _omni_card(kind, dev, H=32, D=64, seed=0):
+    """(q, k, v as transposed [B, S, H, D] views, [seg, pad, last_pad,
+    prefix], pos_q) on the card for a metadata kind of ``_rows_meta`` or
+    the v1 512x512 cached step (``v1_512``)."""
+    meta, pos_q = _v1_cached_meta() if kind == "v1_512" else _rows_meta(kind)
+    tmeta = [torch.as_tensor(m, device=dev) for m in meta]
+    pos = torch.as_tensor(pos_q, device=dev)
+    B, S = meta[0].shape
+    g = torch.Generator(device=dev).manual_seed(seed + S)
+    q, k, v = (torch.randn(B, n, H, D, generator=g, device=dev).bfloat16()
+               .transpose(1, 2) for n in (pos.shape[1], S, S))
+    return q, k, v, tmeta, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["v1_512", "per_row", "no_key", "v2"])
+def test_omni_kernel_on_its_map_on_card(kind):
+    """Kernel 4 on the wgmma core at the v1 512x512 cached step, per-row
+    positions, a ragged S=200 whose rows 6..9 see no key, and Show-o2's
+    spans: within 2e-2 of the plain version, those rows at the mean of v
+    over the S keys; one core launch and one map a call, the map equal to
+    its plain version byte for byte; the same bits over two launches; a
+    map made beforehand gives the same bits and no map launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, tmeta, pos = _omni_card(kind, dev)
+    names = (tfa.OMNI_SOURCE, tfa.OMNI_TILES)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = [tfa.omni_attention(q, k, v, *tmeta, q_positions=pos)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        n: 2 for n in names}
+    assert torch.equal(runs[0], runs[1])
+    got = runs[0]
+    want = tfa.omni_attention_plain(q, k, v, *tmeta, pos, sm_scale=0.125)
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    seg_q = tfa.gather_at(tmeta[0], pos)
+    tiles = tfa.omni_tile_map(*tmeta, pos, seg_q)
+    assert torch.equal(tiles, tfa.rows_tile_map_plain(*tmeta, pos))
+    before = cuda_build.launches[tfa.OMNI_TILES]
+    again = tfa.omni_attention(q, k, v, *tmeta, q_positions=pos,
+                               seg_q=seg_q, tiles=tiles)
+    torch.cuda.synchronize()
+    assert cuda_build.launches[tfa.OMNI_TILES] == before
+    assert torch.equal(again, got)
+    if kind == "no_key":
+        assert tiles[0, 0, -1] == 1
+        mean_v = v[0].float().mean(dim=1)                   # [H, D]
+        assert (got[0, :, 6:10].float() - mean_v[:, None]).abs().max() \
+            <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["v1_512", "no_key"])
+def test_omni_kernel_is_kernel_1_on_the_same_memory_on_card(kind):
+    """Kernel 4 on transposed [B, S, H, D] views and kernel 1 on the same
+    memory as [B, S, H*D] compute one function through one core: the same
+    bits, rows without a key included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, tmeta, pos = _omni_card(kind, dev, seed=7)
+    got4 = tfa.omni_attention(q, k, v, *tmeta, q_positions=pos)
+    got1 = tfa.omni_attention_packed(
+        *(t.transpose(1, 2).flatten(2) for t in (q, k, v)), *tmeta,
+        num_heads=q.shape[1], q_positions=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got4.transpose(1, 2).flatten(2), got1)
+
+
+@pytest.mark.cuda
+def test_omni_kernel_refuses_misaligned_views_on_card():
+    """A view whose rows break the 16-byte alignment of the core's copies
+    raises (the wrapper copies nothing), and so does a map of the wrong
+    shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, tmeta, pos = _omni_card("per_row", dev)
+    B, H, Q, D = q.shape
+    wide = torch.zeros((B, Q, H, D + 1), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.omni_attention(wide[..., 1:].transpose(1, 2), k, v, *tmeta,
+                           q_positions=pos)
+    tiles = tfa.omni_tile_map(*tmeta, pos, tfa.gather_at(tmeta[0], pos))
+    with pytest.raises(ValueError, match="rows_tile_map"):
+        tfa.omni_attention(q, k, v, *tmeta, q_positions=pos,
+                           tiles=tiles[:, 1:])
+
+
+@pytest.mark.cuda
+def test_omni_planted_fault_fails_on_card():
+    """The check kernel 4 is held to (2e-2 max abs against its plain
+    version) passes the kernel and fails V read from the neighbouring
+    head, at the v1 512x512 cached step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, tmeta, pos = _omni_card("v1_512", dev, seed=3)
+    want = tfa.omni_attention_plain(q, k, v, *tmeta, pos, sm_scale=0.125)
+    got = tfa.omni_attention(q, k, v, *tmeta, q_positions=pos)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    bad = tfa.omni_attention_plain(q, k, v.roll(1, dims=1), *tmeta, pos,
+                                   sm_scale=0.125)
+    err = (bad.float() - want.float()).abs().max().item()
+    assert err > 2e-2, err

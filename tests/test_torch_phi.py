@@ -297,18 +297,21 @@ def test_attn_step_has_no_tile_map_on_the_cpu(route, static):
     assert step.route == route and step.tiles is None
 
 
-@pytest.mark.parametrize("route", ["packed", "streaming", "decode"])
+@pytest.mark.parametrize("route", ["packed", "streaming", "decode", "omni",
+                                   "fused"])
 def test_forward_makes_no_tile_map_on_the_cpu(golden, route):
     """A cached step on a route whose kernel reads a tile map (of the
-    metadata for ``packed`` and ``streaming``, of the bias for
-    ``decode``) makes none on the CPU: the plain versions read none."""
+    metadata for ``packed``, ``streaming``, ``omni`` and ``fused``, of the
+    bias for ``decode``) makes none on the CPU: the plain versions read
+    none."""
     ids = _t2i_rows(2)
     P = 10
     tbias = tm.omni_mask_predict_next(torch.as_tensor(ids), PAD, SOI, EOI,
                                       rm_pad_in_image=True)
     port = _port(golden, "mlp")
     tcache = tphi.KVCache.zeros(T_TINY, *ids.shape)
-    makers = ("rows_tile_map", "streaming_tile_map", "bias_tile_map")
+    makers = ("rows_tile_map", "streaming_tile_map", "bias_tile_map",
+              "omni_tile_map", "fused_tile_map")
     with torch.no_grad(), contextlib.ExitStack() as stack:
         spies = [stack.enter_context(mock.patch.object(
             tphi, name, side_effect=AssertionError(name)))
