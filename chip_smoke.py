@@ -42,9 +42,11 @@ Phases, one or more lines each:
      arguments (the forward core <head dim, mask, split> at <64, 0> and
      <128, 0> (the -inf mask: kernels 5, 7, 8), <64, 1> and <128, 1> (the
      -1e30 mask: kernels 1 and 4), <64, 1, true> (kernel 2: K / V from
-     two sources, keys at positions), <64, 2> (the bias: kernel 3); kernel
-     2's norm_rope_kernel; kernel 6 at both head dims), and "wgmma
-     serialized" where ptxas warned C7515
+     two sources, keys at positions), <64, 2> (the bias: kernel 3), and
+     kernel 6's <64, 1, false, W> for W = 1..4 and <128, 1, false, W> for
+     W = 1, 2 (W warpgroups, one q head each); kernel 2's norm_rope_kernel;
+     the decode gemv <nibbles, aligned, rows>), and "wgmma serialized"
+     where ptxas warned C7515
   3. kernel vs plain: each inference kernel at the cached step's shapes
      (B=4, P=129, H=32, D=64, bf16, metadata of a left-padded t2i
      layout), all on the wgmma forward core, each on the tile map its
@@ -110,22 +112,25 @@ Phases, one or more lines each:
      understanding slice's win / wout / lm_head shapes at decode (M=1) and
      at the prefill's rows (267), win at the CLIP-ViT prefill's 609 rows,
      a ragged M=65 at lm_head's N=58498, int8 and int4 at the probes' [8,
-     2048] x [2048, 8192], and int4 at win's M=267 and M=609 and the
-     ragged lm_head M=65; error within 2e-2 of the output's peak and a
+     2048] x [2048, 8192], and int4 at win's M=267 and M=609, the ragged
+     lm_head M=65 and win / wout / lm_head at M=1; error within 2e-2 of
+     the output's peak and a
      planted fault (each column scaled by its neighbour's scale) that must
      fail it; median CUDA-event times of kernel, plain version,
      torch.matmul on dequantized bf16 weights (the library) and the eager
      dequantize + matmul, the same without the host (profiler device
-     time), the bound; int8 and int4 above M=4: the source's prefill
-     kernel ran, its split-K gives the same bits twice, and the first mma
-     kernel is checked and timed beside it on the same inputs
+     time), the bound; the core that ran (the decode gemv at M=1, the
+     source's prefill kernel above M=4), the same bits on two calls, the
+     device launches a product (one for the gemv); above M=4 the first mma
+     kernel checked and timed beside the prefill kernel on the same inputs
   10. the discrete understanding slice, bf16 then int8 weights: per answer
      the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
      lm_head, prefill and 100 decode forwards: 49 on the prefill kernel,
      4900 on the gemv) and never with bf16, every
      other kernel none; tokens in the vocabulary; prompt, prefill and
      decode times, tokens/s against the weight-streaming bound, peak
-     memory, device idle share over one answer (profiler); then the two
+     memory, device idle share over one answer (profiler), device busy per
+     token and the gemv's device launches and time per token; then the two
      pipelines' answers in turns
   11. prefill logits with int8, bf16 and fp32 weights on the same seeded
      model: int8 vs fp32 within the JAX package's int8 limits (top-1
@@ -138,10 +143,13 @@ Phases, one or more lines each:
      kv heads, D=128) and the DiT (32 / 8, D=64), kernel 1 on the wgmma
      core of csrc/attention_fwd_sm90.cuh at both (every launch counted
      there), after its tile map, which must equal its plain version byte
-     for byte; kernel 6 (the first tile core) beside kernel 1 on the same
-     inputs; the fault of V read from the neighbouring kv head planted in
-     each plain version must fail the check; median times of kernel, plain
-     version and scaled_dot_product_attention with the boolean mask, and
+     for byte; kernel 6 (the same core, its q heads of a kv head sharing
+     each K / V tile, every launch counted there) beside kernel 1 on the
+     same inputs and map, their outputs' max difference (0: each head's
+     arithmetic is kernel 1's); the fault of V read from the neighbouring
+     kv head planted in each plain version must fail the check; median
+     times of kernel, plain version and scaled_dot_product_attention with
+     the boolean mask, the device time a launch of each (profiler), and
      the bound; then kernel 1 at both head dims on a ragged S=200 whose
      rows 6..9 see no key (they must average v over the S keys), the same
      bits over two launches
@@ -262,6 +270,9 @@ WSMM_CORES = ["int8_matmul_gemv", "int8_matmul_mma", PREFILL_KERNEL,
 # package reaches it only through omni_attention_packed(gqa_stack=True))
 GQA_SOURCE, GQA_REPLACES = ("omni_attention_gqa_stacked",
                             "showo_tpu/ops/flash_attention.py:338")
+# its launches on the wgmma forward core (all of them), and the tile maps it
+# makes when not given one
+GQA_WGMMA, GQA_TILES = f"{GQA_SOURCE}_wgmma", f"{GQA_SOURCE}_tiles"
 # kernel 1's launches on the wgmma forward core (all of them, at head dims
 # 64 and 128), also counted under omni_attention_packed, and its tile map
 # (the Pallas kernel's mask, computed per block from the metadata)
@@ -279,7 +290,8 @@ FUSED_NORM = "fused_decode_norm_rope"
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
-            + [GQA_SOURCE, PACKED_WGMMA, FUSED_NORM, *ROUTE_TILES.values()])
+            + [GQA_SOURCE, GQA_WGMMA, GQA_TILES, PACKED_WGMMA, FUSED_NORM,
+               *ROUTE_TILES.values()])
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -362,14 +374,15 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, iters: int = 20, attempts: int = 3):
+def _device_ms(torch, fn, iters: int = 20, attempts: int = 3, counts=None):
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler: without the host's wrapper and launch time, which the
     CUDA-event times of :func:`_time_ms` include.  Every call launches at
     least one kernel, so a trace with fewer device events than calls lost
     some of them (seen on an H100 in runs that had traced a training step
     before): it is taken again, up to ``attempts`` times, and said so;
-    then None (not measured)."""
+    then None (not measured).  ``counts``, a list, gets the device launches
+    per call of the trace that was kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -383,6 +396,8 @@ def _device_ms(torch, fn, iters: int = 20, attempts: int = 3):
         kernels = [e for e in prof.events() if e.device_type == cuda]
         if len(kernels) >= iters:
             us = sum(e.time_range.end - e.time_range.start for e in kernels)
+            if counts is not None:
+                counts.append(len(kernels) / iters)
             return us / 1e3 / iters
         print(f"[profiler] {len(kernels)} device events for {iters} calls: "
               f"some were lost; profiling again")
@@ -1296,11 +1311,13 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     times of kernel, plain version, ``torch.matmul`` on dequantized bf16
     weights (the library) and the eager dequantize-then-matmul, and the
     bound.  The weights rotate through copies that exceed the L2 twice, as
-    the layers of a decode step do (each reads other weights).  Above the
-    decode rows: the source's prefill kernel must be the one that ran, its
-    split-K must give the same bits on two calls, and the first mma kernel
-    (:func:`_first_mma_kernel`) is checked and timed beside it on the same
-    inputs."""
+    the layers of a decode step do (each reads other weights).  The core
+    of :func:`select_core` must be the one that ran (the gemv at decode
+    rows, the source's prefill kernel above), two calls must give the same
+    bits (split-K), and the device launches a product are read from the
+    trace.  Above the decode rows the first mma kernel
+    (:func:`_first_mma_kernel`) is checked and timed beside the prefill
+    kernel on the same inputs."""
     from showo_tpu_torch.ops import int4_matmul as ti4
     from showo_tpu_torch.ops import int8_matmul as ti8
 
@@ -1321,33 +1338,37 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
         kern, plain = ti8.pallas_i8_matmul, ti8.i8_matmul_plain
         widen = lambda w: w.to(torch.bfloat16)
     prefill = M > ti8.GEMV_MAX_M
-    counter = INT4_PREFILL_KERNEL if int4 else PREFILL_KERNEL
-    before = cuda_build.launches[counter]
+    source = "int4_matmul" if int4 else "int8_matmul"
+    want_runs = {f"{source}_prefill": int(prefill),
+                 f"{source}_gemv": int(not prefill)}
+    before = {n: cuda_build.launches[n] for n in want_runs}
     got, want = kern(x, ws[0], s), plain(x, ws[0], s)
+    again = kern(x, ws[0], s)
     torch.cuda.synchronize()
-    if cuda_build.launches[counter] - before != int(prefill):
-        raise AssertionError(f"{label}: {counter} ran "
-                             f"{cuda_build.launches[counter] - before}"
-                             f" times, want {int(prefill)}")
+    runs = {n: (cuda_build.launches[n] - before[n]) // 2 for n in want_runs}
+    if runs != want_runs:
+        raise AssertionError(f"{label}: cores that ran a call {runs}, want "
+                             f"{want_runs}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: kernel output not finite")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = (ti8.prefill_plan(M, rows, N, sms) if prefill
+            else ti8.gemv_plan(rows, N, sms))
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls of the "
+                             f"{'prefill' if prefill else 'gemv'} kernel "
+                             f"(splits {plan.splits}) differ")
     peak = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
-    extra = {}
+    extra = {"plan": dict(plan._asdict()), "bit_stable": True}
+    del again
     if prefill:
-        plan = ti8.prefill_plan(M, rows, N, torch.cuda.get_device_properties(
-            0).multi_processor_count)
-        again = kern(x, ws[0], s)
         with _first_mma_kernel():
             old = kern(x, ws[0], s)
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{label}: two calls of the prefill kernel "
-                                 f"(splits {plan.splits}) differ")
-        extra = {"plan": dict(plan._asdict()), "bit_stable": True,
-                 "old_max_abs_err": (old.float() - want.float()).abs()
-                 .max().item()}
-        del again, old
+        extra["old_max_abs_err"] = (old.float() - want.float()).abs().max(
+            ).item()
+        del old
     fault = (plain(x, ws[0], s.roll(1, dims=-1)).float()
              - want.float()).abs().max().item()
     tol = WSMM_TOL * peak
@@ -1372,7 +1393,11 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
                 return kern(x, wn(), s)
         calls["old"] = old
     t = {k: _time_ms(torch, fn) for k, fn in calls.items()}
-    dev_t = {k: _device_ms(torch, calls[k]) for k in calls if k != "plain"}
+    per_call = []
+    dev_t = {k: _device_ms(torch, calls[k],
+                           counts=per_call if k == "kernel" else None)
+             for k in calls if k != "plain"}
+    extra["device_launches"] = per_call[0] if per_call else None
     ms, plain_ms, lib_ms, eager_ms = (t[k] for k in list(calls)[:4])
     if prefill:
         extra.update({"old_ms": t["old"], "old_device_ms": dev_t["old"]})
@@ -1386,7 +1411,10 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
                     f"{plan.k_tiles_per_split} tiles (bit-stable over two "
                     f"calls)")
     else:
-        old_line = ""
+        old_line = (f"; the gemv's plan: {plan.tiles} column tiles of "
+                    f"{16 * plan.cw} bytes x {plan.splits} K ranges of "
+                    f"{plan.rows_per_split} rows (bit-stable over two "
+                    f"calls)")
     del deq
     weight_bytes = rows * N
     bound = _bound(weight_bytes + 2 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
@@ -1402,7 +1430,9 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
           f"{_rate(weight_bytes, dev_t['kernel'])} of weights), library "
           f"{_ms(dev_t['library'])}, eager {_ms(dev_t['eager'])}; bound "
           f"{bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']}){old_line}")
+          f"({bound['bound_by']}), {_ratio(bound['bound_ms'], dev_t['kernel'])}"
+          f" of it; device launches a product "
+          f"{extra['device_launches']}{old_line}")
     return {"max_abs_err": err, "peak": peak, "ms": ms, "plain_ms": plain_ms,
             **bound, "library_ms": lib_ms, "eager_dequant_ms": eager_ms,
             "device_ms": dev_t["kernel"],
@@ -1415,9 +1445,10 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
     ``wout`` and ``lm_head`` at decode (M=1) and at the prefill's rows,
     ``win`` at the CLIP-ViT prefill's rows, a ragged M=65 at ``lm_head``'s
     N, and both kernels at the probes' [8, 2048] x [2048, 8192]; int4 also
-    at ``win``'s prefill and CLIP-ViT rows and the ragged ``lm_head``
-    M=65.  Returns {counter: {case: result}}; the cases above M=4 also
-    under their source's prefill counter."""
+    at ``win``'s prefill and CLIP-ViT rows, the ragged ``lm_head`` M=65,
+    and ``win``, ``wout`` and ``lm_head`` at decode (M=1).  Returns
+    {counter: {case: result}}; the cases above M=4 also under their
+    source's prefill counter."""
     shapes = {"win": (2048, 14336), "wout": (10240, 2048),
               "lm_head": (2048, 58498)}
     cases = [(name, M, K, N) for name, (K, N) in shapes.items()
@@ -1428,6 +1459,7 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
                   ("win", prefill_rows, *shapes["win"]),
                   ("win", CLIP_PREFILL_ROWS, *shapes["win"]),
                   ("lm_head", 65, *shapes["lm_head"])]
+    int4_cases += [(name, 1, K, N) for name, (K, N) in shapes.items()]
     out = {"int8_matmul": {}, "int4_matmul": {}, PREFILL_KERNEL: {},
            INT4_PREFILL_KERNEL: {}}
     for int4, source, prefill, seed0, todo in (
@@ -1537,6 +1569,11 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     prof = profile(answer, f"[{phase}] {label}: one answer,")
     kernel_prefill = _prefill_kernels(torch, phi, prompt()) if int8 else {}
+    # the decode gemv's device launches and time per token, from the trace
+    gemv = [row for name, row in prof["by_kernel"].items()
+            if "gemv_kernel" in name]
+    gemv_launches = sum(n for n, _ in gemv) / MMU_NEW_TOKENS
+    gemv_ms = sum(ms for _, ms in gemv) / MMU_NEW_TOKENS
     print(f"[{phase}] {label}: {rows} prompt rows, greedy, {MMU_NEW_TOKENS} "
           f"new tokens ({len(toks)} before the first eot), launches per "
           f"answer {counts.get('int8_matmul', 0)} of int8_matmul = "
@@ -1549,8 +1586,11 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
           f"{1e3 / decode_ms:.2f} tokens/s against a bound of "
           f"{bound_ms:.4f} ms ({weight_bytes / 1e9:.3f} GB of matmul weights"
           f" per token over 3.35 TB/s); device idle share over one answer "
-          f"{prof['idle_share']:.4f} ({prof['launches']} kernel launches); "
-          f"peak memory allocated {peak:.2f} GiB on {smi}")
+          f"{prof['idle_share']:.4f} ({prof['launches']} kernel launches), "
+          f"device busy {prof['busy_ms'] / MMU_NEW_TOKENS:.4f} ms per "
+          f"token, of which the decode gemv {gemv_launches:.2f} device "
+          f"launches and {gemv_ms:.4f} ms per token; peak memory "
+          f"allocated {peak:.2f} GiB on {smi}")
     if int8:
         k = kernel_prefill
         print(f"[{phase}] {label}: the prefill forward alone ({rows} rows, "
@@ -1564,6 +1604,9 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
             "answer_ms": answer_ms, "decode_ms_per_token": decode_ms,
             "tokens_per_s": 1e3 / decode_ms, "bound_ms_per_token": bound_ms,
             "idle_share": prof["idle_share"], "peak_gib": peak,
+            "busy_ms_per_token": prof["busy_ms"] / MMU_NEW_TOKENS,
+            "gemv_device_launches_per_token": gemv_launches,
+            "gemv_device_ms_per_token": gemv_ms,
             "launches": counts.get("int8_matmul", 0),
             "prefill_launches": counts[PREFILL_KERNEL]}
 
@@ -1724,17 +1767,35 @@ def phase_v2_kernels(torch, pipe, prompts):
             "stacked": lambda: tfa.omni_attention_packed(
                 q, k, v, *m, gqa_stack=True, **rows, **kw)}
         before = {n: cuda_build.launches[n]
-                  for n in ("omni_attention_packed", PACKED_WGMMA)}
+                  for n in ("omni_attention_packed", PACKED_WGMMA,
+                            GQA_SOURCE, GQA_WGMMA, GQA_TILES)}
         for which, num in (("packed", 1), ("stacked", 6)):
             out[which][label] = _compare(
                 torch, f"kernel {num} {shape}", kernels[which],
                 lambda: plains[which](v), bound, sdpa, phase="3c")
         made = {n: cuda_build.launches[n] - c for n, c in before.items()}
-        if made["omni_attention_packed"] != made[PACKED_WGMMA]:
-            raise AssertionError(f"{shape}: kernel 1 launches {made}, not "
-                                 f"all on the wgmma core")
+        if not (made["omni_attention_packed"] == made[PACKED_WGMMA] > 0
+                and made[GQA_SOURCE] == made[GQA_WGMMA] > 0
+                and made[GQA_TILES] == 0):
+            raise AssertionError(f"{shape}: launches {made}: kernels 1 and 6 "
+                                 f"not all on the wgmma core, or kernel 6 "
+                                 f"made a map of its own")
+        # kernel 6 beside kernel 1 on the same memory and map: each one's
+        # device time a launch, and the library's
+        dev_ms = {"packed": _device_ms(torch, kernels["packed"]),
+                  "stacked": _device_ms(torch, kernels["stacked"]),
+                  "library": _device_ms(torch, sdpa)}
+        for which in ("packed", "stacked"):
+            out[which][label].update({
+                "device_ms": dev_ms[which],
+                "library_device_ms": dev_ms["library"],
+                "width": tfa.stack_width(H // Hkv)})
         beside = (kernels["packed"]().float()
                   - kernels["stacked"]().float()).abs().max().item()
+        out["stacked"][label]["kernel1_diff"] = beside
+        if not beside <= CARD_TOL:
+            raise AssertionError(f"{shape}: kernel 6 and kernel 1 differ by "
+                                 f"{beside}")
         wrong = v.view(B, L, Hkv, D).roll(1, dims=2).reshape(v.shape)
         faults = {}
         for which, plain in plains.items():
@@ -1743,8 +1804,14 @@ def phase_v2_kernels(torch, pipe, prompts):
             if not faults[which] > CARD_TOL:
                 raise AssertionError(f"{shape}: the planted fault passes the "
                                      f"{which} check: {faults[which]}")
-        print(f"[3c] {shape}: kernel 6 beside kernel 1 on the same inputs, "
-              f"max |difference| {beside:.3e}; planted fault (V of the "
+        print(f"[3c] {shape}: kernel 6 ({tfa.stack_width(H // Hkv)} q "
+              f"heads a block, {made[GQA_WGMMA]} launches, all on the wgmma "
+              f"core, on the slice's tile map) beside kernel 1 on the same "
+              f"inputs and map, max |difference| {beside:.3e} (0 expected: "
+              f"each head's arithmetic is kernel 1's; tol {CARD_TOL:.0e}); "
+              f"device time a launch (profiler, mean of 20): kernel 6 "
+              f"{_ms(dev_ms['stacked'])}, kernel 1 {_ms(dev_ms['packed'])}, "
+              f"library {_ms(dev_ms['library'])}; planted fault (V of the "
               f"neighbouring kv head) in the plain versions: "
               f"{faults['packed']:.3e} (kernel 1), {faults['stacked']:.3e} "
               f"(kernel 6), each failing the check (tol {CARD_TOL:.0e})")
@@ -2154,7 +2221,7 @@ def main() -> int:
                             **res[name]})
     for name, replaces in WSMM_KERNELS.items():
         cases = wsmm[name]
-        case = "win M=1" if name == "int8_matmul" else "probe M=8"
+        case = "win M=1"
         kernels.append({"name": name, "route": "cuda",
                         "source": f"showo_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces,
@@ -2176,7 +2243,8 @@ def main() -> int:
             ("omni_attention_packed_v2", "omni_attention_packed.cu (+ "
              "attention_fwd_sm90.cuh)", KERNELS["packed"][1],
              "packed", v2_launches["omni_attention_packed"]),
-            (GQA_SOURCE, f"{GQA_SOURCE}.cu", GQA_REPLACES, "stacked", 0)):
+            (GQA_SOURCE, f"{GQA_SOURCE}.cu (+ attention_fwd_sm90.cuh)",
+             GQA_REPLACES, "stacked", 0)):
         cases = v2_results[which]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"showo_tpu_torch/csrc/{source}",

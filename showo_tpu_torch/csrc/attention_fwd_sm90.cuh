@@ -2,7 +2,7 @@
 // backward of attention_grad_sm90.cuh and on its pieces: masked attention
 // out = softmax(q.k^T * sm_scale, masked) . v with bf16 operands and fp32
 // scores, online softmax and accumulation, every tensor read and written
-// through its (batch, head, row) strides.  Seven callers, three masks
+// through its (batch, head, row) strides.  Eight callers, three masks
 // (template argument MASK):
 //   MASK_INF, the omni mask from metadata, masked scores -inf, so a row
 //     with no visible key gets out = 0 (and lse = the caller's sentinel
@@ -26,6 +26,12 @@
 //       packed [B, S, H*D] layout.  Replaces the Pallas
 //       _attn_kernel_packed of
 //       showo_tpu/ops/flash_attention.py::omni_attention_packed;
+//     kernel 6 (omni_attention_gqa_stacked.cu) at head dims 64 and 128 on
+//       the packed layout, with W > 1 warpgroups a block, one q head of a
+//       kv head's group each, sharing the ring of K / V tiles.  Replaces
+//       the pallas_call of
+//       showo_tpu/ops/flash_attention.py::_omni_attention_gqa_stacked
+//       (its _attn_kernel on the heads stacked along rows);
 //     kernel 4 (omni_attention.cu) at head dim 64 on head-major views.
 //       Replaces the Pallas _attn_kernel of
 //       showo_tpu/ops/flash_attention.py::omni_attention;
@@ -48,8 +54,8 @@
 // step (B=4, Q=1026, S=1155, D=64) 0.035 ms (kernel 3 adds the 19 MB of
 // its bias, 0.006 ms at 3.35 TB/s), at Show-o2's rows (B=8, S=768) 0.028
 // ms for Qwen's 12 q / 2 kv heads of 128 and 0.037 ms for the DiT's 32 /
-// 8 of 64.  What held the first forwards (attention_tile.cuh) back, and
-// what this design does about it:
+// 8 of 64.  What held the first forwards (mma.sync tile cores, now
+// removed) back, and what this design does about it:
 //   1. Each K / V tile loaded synchronously, two barriers a tile, no copy
 //      in flight during the products: here a ring of STAGES (K, V) tiles
 //      in dynamic shared memory, filled by cp.async, the next visible
@@ -99,23 +105,31 @@ struct Bias {
   float scale;
 };
 
-// Dynamic shared memory of wgmma_fwd_kernel: Q (HD / 64 panels); the ring
-// of STAGES stages, each a K and a V tile and with MASK_BIAS the 64 x 64
-// fp32 bias tile (16 KB), else the K tile's seg and pad (and with SPLIT
-// the keys' positions); the visible tile count and list.  HD = 64: 2
-// stages, 41 KB (SPLIT 42 KB), 4 blocks an SM (at most 128 registers);
-// with the bias 72 KB, 3 blocks; HD = 128: 2 stages, 81 KB, 2 blocks an
-// SM.  On an H100 4 blocks of 2 stages ran kernel 8's forward ~6% faster
-// than 3 blocks of 3; at HD = 128 one block an SM ran as fast as 2, and a
-// third stage (one block) slower.
-template <int HD, int MASK, bool SPLIT = false>
+// Dynamic shared memory of wgmma_fwd_kernel: the W warpgroups' Q tiles
+// (HD / 64 panels each); the ring of STAGES stages, each a K and a V tile
+// and with MASK_BIAS the 64 x 64 fp32 bias tile (16 KB), else the K
+// tile's seg and pad (and with SPLIT the keys' positions); the visible
+// tile count and list.  One warpgroup (W = 1): HD = 64: 2 stages, 41 KB
+// (SPLIT 42 KB), 4 blocks an SM (at most 128 registers); with the bias
+// 72 KB, 3 blocks; HD = 128: 2 stages, 81 KB, 2 blocks an SM.  On an H100
+// 4 blocks of 2 stages ran kernel 8's forward ~6% faster than 3 blocks of
+// 3; at HD = 128 one block an SM ran as fast as 2, and a third stage (one
+// block) slower.  W warpgroups (kernel 6, W q heads of one kv head): the
+// register file holds as many warpgroups an SM as with W = 1, so 4 / W
+// blocks at HD = 64 and one at HD = 128; 3 stages, since the W
+// warpgroups wait for each other at every tile.  On an H100 at Show-o2's
+// rows W = 2 ran at kernel 1's time at both head dims, and W = 4 (one
+// block an SM) at HD = 64 ~15% slower.
+template <int HD, int MASK, bool SPLIT = false, int W = 1>
 struct FwdCfg {
   static constexpr bool BIAS = MASK == MASK_BIAS;
   static constexpr int TILE = BLK * HD * 2;
   static constexpr int BIAS_TILE = BLK * BLK * 4;
-  static constexpr int STAGES = 2;
-  static constexpr int BLOCKS = BIAS ? 3 : HD == 64 ? 4 : 2;
-  static constexpr int RING = TILE;
+  static constexpr int STAGES = W == 1 ? 2 : 3;
+  static constexpr int BLOCKS =
+      W == 1 ? (BIAS ? 3 : HD == 64 ? 4 : 2)
+             : (HD == 64 && W <= 2 ? 4 / W : 1);
+  static constexpr int RING = W * TILE;
   static constexpr int STAGE = 2 * TILE + (BIAS ? BIAS_TILE : 0);
   static constexpr int META = RING + STAGES * STAGE;
   static constexpr int META_INTS = (SPLIT ? 3 : 2) * BLK;  // a stage's
@@ -305,15 +319,28 @@ bias_tile_map_kernel(const float* __restrict__ bias, long long sb,
 // position i, seg[b, i]).  MASK_BIAS reads no metadata; S is then K.
 // SPLIT (kernel 2): key rows j >= split.p from split.k / split.v, keys at
 // the positions mt.kpos.
-template <int HD, int MASK, bool SPLIT = false>
-__global__ void __launch_bounds__(THREADS, FwdCfg<HD, MASK, SPLIT>::BLOCKS)
+// W > 1 (kernel 6, MASK_MEAN): grid (ceil(Q / 64), Hkv * ceil(G / W), B)
+// for a group of G = ``group`` q heads a kv head, W warpgroups a block:
+// warpgroup w runs q head slice * W + w of the group (the last slice's
+// warpgroups past G repeat head G - 1 and store nothing), each on its own
+// Q tile, all W reading one ring of the kv head's K / V tiles.  The mask
+// does not depend on the head, so every warpgroup walks the same tile
+// list and does what the one warpgroup of W = 1 does for its head: the
+// same bits.  A stage is refilled only after the block barrier at the top
+// of an iteration, which all W warpgroups reach after their last product
+// on it.
+template <int HD, int MASK, bool SPLIT = false, int W = 1>
+__global__ void __launch_bounds__(W * THREADS,
+                                  FwdCfg<HD, MASK, SPLIT, W>::BLOCKS)
 wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, Meta mt, agrad::Rows rows,
                  Bias bias, const uint8_t* __restrict__ tiles, int ld, int Q,
                  int S, int group, Strides qs, Strides ks, Strides vs,
                  Strides os, float scale_log2, float sentinel, Split split) {
-  using C = FwdCfg<HD, MASK, SPLIT>;
+  static_assert(W == 1 || (MASK == MASK_MEAN && !SPLIT),
+                "several warpgroups: kernel 6's mask only");
+  using C = FwdCfg<HD, MASK, SPLIT, W>;
   constexpr bool BIAS = C::BIAS;
   constexpr int P = HD / 64;  // panels of a head row
   // P.V is waited for at the end of its iteration, so the stage read last
@@ -325,23 +352,38 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x, b = blockIdx.z;
   const int q0 = qt * BLK, nk = (S + BLK - 1) / BLK;
-  const bf16* kh = k + b * ks.b + (h / group) * ks.h;
-  const bf16* vh = v + b * vs.b + (h / group) * vs.h;
+  // this thread: thread t of warpgroup wg, which runs q head h of kv head
+  // hk (stores where ``mine``)
+  const int wg = W == 1 ? 0 : threadIdx.x / THREADS;
+  const int t = W == 1 ? threadIdx.x : threadIdx.x % THREADS;
+  int h = blockIdx.y, hk = h / group;
+  bool mine = true;
+  if constexpr (W > 1) {
+    const int slices = (group + W - 1) / W;
+    const int g = blockIdx.y % slices * W + wg;
+    hk = blockIdx.y / slices;
+    mine = g < group;
+    h = hk * group + min(g, group - 1);
+  }
+  const bf16* kh = k + b * ks.b + hk * ks.h;
+  const bf16* vh = v + b * vs.b + hk * vs.h;
   const float* bh = BIAS ? bias.p + b * bias.sb : nullptr;
 
   const uint8_t* trow = tiles + ((long long)b * gridDim.x + qt) * ld;
   const int n = visible_tiles(trow, 1, nk, list, list - 1,
                               MASK != MASK_INF && trow[nk] != 0);
-  load_tile<HD>(sb, q + b * qs.b + h * qs.h, qs.r, q0, Q);
+  // this warpgroup's Q tile
+  const uint32_t qb = sb + wg * C::TILE;
+  load_tile<HD, THREADS>(qb, q + b * qs.b + h * qs.h, qs.r, q0, Q, t);
   // tile i of the list -> stage i % STAGES: K, V, and the bias tile (a
-  // partial tile of MASK_BIAS) or the keys' seg / pad
+  // partial tile of MASK_BIAS) or the keys' seg / pad; with W warpgroups
+  // the K and V copies are shared by all, the seg / pad ones by the first
   auto load_stage = [&](int i) {
     const int st = i % C::STAGES, k0 = (list[i] >> 1) * BLK;
     const uint32_t kb = sb + C::RING + st * C::STAGE;
     if constexpr (SPLIT) {
-      const int hk = h / group;
       load_tile_split<HD>(kb, kh, ks.r,
                           split.k + b * split.ks.b + hk * split.ks.h,
                           split.ks.r, k0, split.p, S);
@@ -349,13 +391,13 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           split.v + b * split.vs.b + hk * split.vs.h,
                           split.vs.r, k0, split.p, S);
     } else {
-      load_tile<HD>(kb, kh, ks.r, k0, S);
-      load_tile<HD>(kb + C::TILE, vh, vs.r, k0, S);
+      load_tile<HD, W * THREADS>(kb, kh, ks.r, k0, S, threadIdx.x);
+      load_tile<HD, W * THREADS>(kb + C::TILE, vh, vs.r, k0, S, threadIdx.x);
     }
     if constexpr (BIAS) {
       if (!(list[i] & FULL))
         load_bias(kb + 2 * C::TILE, bh, bias.sr, q0, Q, k0, S);
-    } else {
+    } else if (W == 1 || threadIdx.x < THREADS) {
       const int j = k0 + (threadIdx.x & (BLK - 1));
       const int* src = threadIdx.x < BLK ? mt.seg : mt.pad;
       const uint32_t meta = sb + C::META + st * C::META_INTS * 4;
@@ -384,7 +426,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pf = mt.prefix[b];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int i = q0 + tile::tile_row() + 8 * r;
+      const int i = q0 + tile::tile_row(t) + 8 * r;
       const long long bi = (long long)b * Q + i;
       if (i < Q) {  // else past Q: pos -1
         pos[r] = rows.pos ? rows.pos[bi] : i;
@@ -420,7 +462,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int off = (kk / 4) * PANEL + 32 * (kk % 4);
-      wgmma_ss64(&s[0][0], gmma_desc_sw128(sb + off),
+      wgmma_ss64(&s[0][0], gmma_desc_sw128(qb + off),
                  gmma_desc_sw128(kb + off), kk);
     }
     wgmma_commit();
@@ -503,8 +545,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* oh = out + b * os.b + h * os.h;
   if constexpr (MASK == MASK_MEAN) {
-    // l >= 1: the row's max contributes exp2(0)
-    tile::store<HD>(oh, os.r, q0, Q, o, l);
+    if (mine) tile::store<HD>(oh, os.r, q0 + tile::tile_row(t), Q, o, l);
     return;
   }
   tile::quad_sum(l);
@@ -550,22 +591,25 @@ inline int launch_bias_tile_map(const float* bias, long long sb,
 // attention), lse written where not null.  MASK_MEAN: q rows by ``rows``,
 // lse null; with SPLIT the keys' second source ``split`` and their
 // positions mt.kpos.  MASK_BIAS: ``bias``, no metadata, lse null; S is K.
-template <int HD, int MASK, bool SPLIT = false>
+// W > 1 (MASK_MEAN): W q heads of a kv head a block (kernel 6).
+template <int HD, int MASK, bool SPLIT = false, int W = 1>
 inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, Meta mt, agrad::Rows rows, Bias bias,
                       const uint8_t* tiles, bool flagged, int B, int Q, int S,
                       int H, int Hkv, Strides qs, Strides ks, Strides vs,
                       Strides os, float sm_scale, float sentinel,
                       void* stream, Split split = {}) {
-  const int nk = tiles_of(S), smem = FwdCfg<HD, MASK, SPLIT>::smem(nk);
-  auto kernel = wgmma_fwd_kernel<HD, MASK, SPLIT>;
+  const int nk = tiles_of(S), smem = FwdCfg<HD, MASK, SPLIT, W>::smem(nk);
+  const int group = H / Hkv;
+  auto kernel = wgmma_fwd_kernel<HD, MASK, SPLIT, W>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles_of(Q), H, B), THREADS, smem,
+  const int heads = W == 1 ? H : Hkv * ((group + W - 1) / W);
+  kernel<<<dim3(tiles_of(Q), heads, B), W * THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mt, rows,
-      bias, tiles, flagged ? nk + 1 : nk, Q, S, H / Hkv, qs, ks, vs, os,
+      bias, tiles, flagged ? nk + 1 : nk, Q, S, group, qs, ks, vs, os,
       sm_scale * tile::LOG2E, sentinel, split);
   return static_cast<int>(cudaGetLastError());
 }

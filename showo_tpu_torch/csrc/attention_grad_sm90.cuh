@@ -130,22 +130,32 @@ __device__ __forceinline__ void to_a(const float s[8][4], uint32_t a[4][4]) {
 // tile at dst in the 128-byte swizzle, zeros past S: HD / 64 panels of
 // 64 rows x 128 bytes, PANEL bytes apart (head dims [64p, 64p + 64) in
 // panel p), 16-byte chunk c of a panel row r at c ^ (r & 7); HD / 8
-// neighbouring threads copy one head row.
+// neighbouring threads copy one head row.  The copy is shared by NT
+// threads, this one being thread ``tid`` of them.
 constexpr int PANEL = BLK * 128;
 
-template <int HD>
+template <int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long ld, int r0, int S) {
+                                          long long ld, int r0, int S,
+                                          int tid) {
   static_assert(HD % 64 == 0, "head dim: whole 128-byte swizzle panels");
-  constexpr int CH = HD / 8;
+  constexpr int CH = HD / 8, CHUNKS = BLK * CH;
 #pragma unroll
-  for (int i = 0; i < BLK * CH / THREADS; ++i) {
-    const int q = threadIdx.x + i * THREADS, row = q / CH, c = q % CH;
+  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
+    const int q = tid + i * NT, row = q / CH, c = q % CH;
+    if (CHUNKS % NT != 0 && q >= CHUNKS) break;
     const bool in = r0 + row < S;
     cp_async16(dst + (c / 8) * PANEL + row * 128 + (((c % 8) ^ (row & 7)) * 16),
                in ? src + (long long)(r0 + row) * ld + 8 * c : src,
                in ? 16 : 0);
   }
+}
+
+// the copy shared by the block's one warpgroup
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ld, int r0, int S) {
+  load_tile<HD, THREADS>(dst, src, ld, r0, S, threadIdx.x);
 }
 
 // The visible tiles of one row (or column) of the tile map, count entries

@@ -19,21 +19,38 @@
 
 #include "weight_stream_prefill.cuh"
 
-// Plain C entry point (bound with ctypes), as int8_matmul_bf16 with w_pk
+// Plain C entry points (bound with ctypes), as int8_matmul.cu's with w_pk
 // [K/2, N] packed bytes with row stride ldw, and K even.
-extern "C" int int4_matmul_bf16(
+
+// The decode kernel (M <= 4); the plan (gemv_plan) over the K/2 packed
+// rows.
+extern "C" int int4_matmul_gemv_bf16(
     const void* x, long long ldx, const void* w_pk, long long ldw,
     const void* scale, const void* bias, void* out, long long ldo,
-    void* part, int splits, int M, int K, int N, int x_aligned,
-    int w_aligned16, int w_aligned8, void* stream) {
+    void* part, void* tickets, int M, int K, int N, int cw, int splits,
+    int rows_per_split, int w_aligned16, void* stream) {
   using wsmm::bf16;
   if (K % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return wsmm::launch<true>(
-      static_cast<const bf16*>(x), ldx, static_cast<const int8_t*>(w_pk), ldw,
-      static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), ldo, static_cast<float*>(part), splits, M,
-      K / 2, N, K / 2, x_aligned, w_aligned16, w_aligned8,
-      static_cast<cudaStream_t>(stream));
+  return wsmm::launch_gemv<true>(
+      static_cast<const bf16*>(x), ldx, static_cast<const int8_t*>(w_pk),
+      ldw, static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), ldo, static_cast<float*>(part),
+      static_cast<int*>(tickets), M, K / 2, N, K / 2, cw, splits,
+      rows_per_split, w_aligned16 != 0, static_cast<cudaStream_t>(stream));
+}
+
+// The first mma kernel (M > 4, rows the prefill kernel does not take).
+extern "C" int int4_matmul_mma_bf16(
+    const void* x, long long ldx, const void* w_pk, long long ldw,
+    const void* scale, const void* bias, void* out, long long ldo, int M,
+    int K, int N, int x_aligned, int w_aligned8, void* stream) {
+  using wsmm::bf16;
+  if (K % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return wsmm::launch_mma<true>(
+      static_cast<const bf16*>(x), ldx, static_cast<const int8_t*>(w_pk),
+      ldw, static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), ldo, M, K / 2, N, K / 2, x_aligned,
+      w_aligned8, static_cast<cudaStream_t>(stream));
 }
 
 // The prefill kernel with the nibble layout (M > 4, x and w_pk rows

@@ -16,23 +16,42 @@
 
 #include "weight_stream_prefill.cuh"
 
-// Plain C entry point (bound with ctypes).  x [M, K] bf16 with row stride
-// ldx; w [K, N] int8 with row stride ldw; scale [N] bf16 and bias [N] bf16
-// (bias may be null) contiguous; out [M, N] bf16 with row stride ldo; part
-// the fp32 workspace of the decode kernel ([splits, M, N], unused for
-// M > 4).  The aligned flags say that 16-byte loads of x and 16- / 8-byte
-// loads of w rows are legal.  Returns the cudaError_t of the launches.
-extern "C" int int8_matmul_bf16(
+// Plain C entry points (bound with ctypes).  x [M, K] bf16 with row
+// stride ldx; w [K, N] int8 with row stride ldw; scale [N] bf16 and bias
+// [N] bf16 (bias may be null) contiguous; out [M, N] bf16 with row stride
+// ldo.  Each returns the cudaError_t of its launches.
+
+// The decode kernel (M <= 4) on the plan of ops/int8_matmul.py::gemv_plan:
+// column tiles of 16 * cw bytes, K in `splits` ranges of rows_per_split
+// rows; part the fp32 workspace [splits, M, N] and tickets the int32
+// [column tiles] zeros where splits > 1.  w_aligned16: w and its row
+// stride are 16-byte aligned (the rows are streamed by cp.async).
+extern "C" int int8_matmul_gemv_bf16(
     const void* x, long long ldx, const void* w, long long ldw,
     const void* scale, const void* bias, void* out, long long ldo,
-    void* part, int splits, int M, int K, int N, int x_aligned,
-    int w_aligned16, int w_aligned8, void* stream) {
+    void* part, void* tickets, int M, int K, int N, int cw, int splits,
+    int rows_per_split, int w_aligned16, void* stream) {
   using wsmm::bf16;
-  return wsmm::launch<false>(
+  return wsmm::launch_gemv<false>(
       static_cast<const bf16*>(x), ldx, static_cast<const int8_t*>(w), ldw,
       static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), ldo, static_cast<float*>(part), splits, M, K,
-      N, 0, x_aligned, w_aligned16, w_aligned8,
+      static_cast<bf16*>(out), ldo, static_cast<float*>(part),
+      static_cast<int*>(tickets), M, K, N, 0, cw, splits, rows_per_split,
+      w_aligned16 != 0, static_cast<cudaStream_t>(stream));
+}
+
+// The first mma kernel (M > 4, rows the prefill kernel does not take).
+// The aligned flags say that 16-byte loads of x and 8-byte loads of w
+// rows are legal.
+extern "C" int int8_matmul_mma_bf16(
+    const void* x, long long ldx, const void* w, long long ldw,
+    const void* scale, const void* bias, void* out, long long ldo, int M,
+    int K, int N, int x_aligned, int w_aligned8, void* stream) {
+  using wsmm::bf16;
+  return wsmm::launch_mma<false>(
+      static_cast<const bf16*>(x), ldx, static_cast<const int8_t*>(w), ldw,
+      static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), ldo, M, K, N, 0, x_aligned, w_aligned8,
       static_cast<cudaStream_t>(stream));
 }
 

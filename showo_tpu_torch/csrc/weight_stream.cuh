@@ -21,23 +21,36 @@
 // What bounds them on an H100: at decode (M = 1..4) every weight byte is
 // read once for 2M operations, far below the ~295 operations per byte
 // where the tensor cores become the limit, so the time is the weight bytes
-// over 3.35 TB/s.  Two kernels:
+// over 3.35 TB/s (win [2048 x 14336] 0.0088 ms, wout [10240 x 2048]
+// 0.0063 ms, lm_head [2048 x 58498] 0.0358 ms).  Two kernels:
 //
-//   * gemv_partial + gemv_finish (M <= GEMV_MAX_M): CUDA-core dot products.
-//     A warp reads 512 consecutive columns of one row (16 bytes a lane,
-//     GV_UNROLL rows in flight), the 8 warps of a block take interleaved
-//     rows of one K slice, and the grid splits K so that ~8 blocks per SM
-//     are there to stream even where N has few 512-column tiles (wout: 4;
-//     the warp and unroll counts and the split are the fastest of a sweep
-//     on an H100, win / wout / lm_head at M = 1).  Each
-//     block sums its warps in shared memory and writes fp32 partial sums
-//     [split, M, N]; gemv_finish adds the splits in a fixed order (the
-//     result does not depend on scheduling) and applies scale and bias.
-//   * mma_kernel (M > GEMV_MAX_M, the prefill): 64 x 128 output tiles,
+//   * gemv_kernel (M <= GEMV_MAX_M, decode): one launch per product.
+//     Replaces a first pair of launches (split-K partial sums written to
+//     device memory by one kernel and added by a second; ~900 short
+//     blocks of one 32 KB pass each, x read from device memory for every
+//     weight row, the bytes widened by int -> float conversions, about
+//     half of the bytes bound on an H100).  Here a block owns a column
+//     tile of 16 * cw bytes (cw 8, 16 or 32 chunks, ops/int8_matmul.py::
+//     gemv_plan: ~2 blocks an SM) over one contiguous range of K rows, and
+//     streams it through a ring of GV_STAGES stages of 16 KB in shared
+//     memory filled by 16-byte cp.async (the ragged N edge zero-filled
+//     through the source-size operand), GV_STAGES - 1 stages in flight;
+//     its rows of x are staged in shared memory once, as fp32.  Each
+//     thread takes one 16-byte chunk of 4 rows a stage and widens the
+//     bytes exactly with integer ops (the byte in the low mantissa bits
+//     of 2^23, then one subtraction).  The block adds its row groups in a
+//     fixed order; where K is split, each block writes fp32 partial sums
+//     and the last block of a column tile to arrive (a ticket per tile,
+//     which that block resets) adds the splits in split order and applies
+//     the epilogue.  No atomics touch a sum, so two launches give the same
+//     bits.  Rows that are not 16-byte aligned are copied into the same
+//     ring by plain loads.
+//   * mma_kernel (M > GEMV_MAX_M, rows the prefill kernel of
+//     weight_stream_prefill.cuh does not take): 64 x 128 output tiles,
 //     8 warps of 32 x 32, mma.sync m16n8k16 over 32-row K tiles; the int8
 //     tile is widened to bf16 while it is stored, transposed, in shared
 //     memory, so each B fragment is one 32-bit load.  No cp.async or TMA
-//     pipelining yet: load, barrier, multiply, barrier.
+//     pipelining: load, barrier, multiply, barrier.
 //
 // Ragged M, K and N are masked in the kernels (N = 58498 for the Show-o
 // vocabulary); 16-byte (x) and 8- or 16-byte (w) vector loads are taken
@@ -49,16 +62,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_async.cuh"
+
 namespace wsmm {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int GEMV_MAX_M = 4;
-constexpr int GV_WARPS = 8;
-constexpr int GV_THREADS = GV_WARPS * 32;
-constexpr int GV_COLS = 32 * 16;  // columns of one block
-constexpr int GV_UNROLL = 8;      // rows in flight per thread
-constexpr int GV_FINISH_THREADS = 256;
+constexpr int GV_THREADS = 256;
+constexpr int GV_STAGE = 16384;   // weight bytes of a ring stage
+constexpr int GV_STAGES = 4;
+constexpr int GV_CHUNKS = GV_STAGE / 16 / GV_THREADS;  // a thread's, a stage
+constexpr int GV_MAX_ROWS = 1024;  // weight rows of one split (x in smem)
+constexpr int GV_FINISH_LOADS = 16;  // partial sums in flight a column
+static_assert(16 * 32 <= 2 * GV_THREADS, "a column tile: 2 columns a thread");
+constexpr int GV_SMEM_MAX = GV_STAGES * GV_STAGE + GV_MAX_ROWS * 4 * 4 * 2;
+constexpr int FINISH_THREADS = 256;
 
 constexpr int MM_BM = 64, MM_BN = 128, MM_BK = 32;
 constexpr int MM_THREADS = 256;
@@ -97,21 +116,89 @@ __device__ __forceinline__ uint4 load_row16(const int8_t* row, int n0,
   return make_uint4(word[0], word[1], word[2], word[3]);
 }
 
-// Partial sums over one K slice (blockIdx.y) of 512 columns (blockIdx.x)
-// for M <= MT rows: part[(split * M + m) * N + n].  The weight rows stay in
-// registers as they were loaded (uint4) and are widened byte by byte.
+// The 4 bytes of ``u`` (each an unsigned value below 256 that is ``bias``
+// above the weight) -> 4 floats, exact: 0x4B0000uu is the float 2^23 + u.
+// Byte e of the word is column e.
+__device__ __forceinline__ void widen4(uint32_t u, float bias, float f[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) -
+           (8388608.f + bias);
+}
+
+// x [MT] of one row from shared memory (one 4-, 8- or 16-byte load)
+template <int MT>
+__device__ __forceinline__ void load_x(const float* p, float x[MT]) {
+  if constexpr (MT == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (MT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// One decode product, M <= MT rows: grid (column tiles of 16 * cw bytes,
+// K splits of rows_per_split weight rows), GV_THREADS threads, dynamic
+// shared memory GV_STAGES * GV_STAGE + rows_per_split * MT * 4 (twice the
+// x part for NIB).  part [splits, M, N] fp32 and tickets [column tiles]
+// (zero before the launch, zero after it) where K is split.
 template <bool NIB, bool ALIGNED, int MT>
-__global__ void __launch_bounds__(GV_THREADS)
-gemv_partial(const bf16* __restrict__ x, long long ldx,
-             const int8_t* __restrict__ w, long long ldw,
-             float* __restrict__ part, int M, int rows, int N, int k_half,
-             int rows_per_split) {
-  __shared__ float red[GV_WARPS][GV_COLS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * GV_COLS;
-  const int n0 = c0 + lane * 16;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(rows, r_begin + rows_per_split);
+__global__ void __launch_bounds__(GV_THREADS, 2)
+gemv_kernel(const bf16* __restrict__ x, long long ldx,
+            const int8_t* __restrict__ w, long long ldw,
+            const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+            bf16* __restrict__ out, long long ldo, float* __restrict__ part,
+            int* __restrict__ tickets, int M, int rows, int N, int k_half,
+            int cw, int rows_per_split) {
+  using namespace sm90;
+  extern __shared__ __align__(16) uint8_t gv_smem[];
+  __shared__ int last_s;
+  const int tid = threadIdx.x;
+  // the column tile's ct bytes a row; stages of rs rows; this thread's
+  // 16-byte chunk c of rows rg + ng * j of every stage
+  const int ct = 16 * cw, rs = GV_STAGE / ct, ng = GV_THREADS / cw;
+  const int c = tid % cw, rg = tid / cw;
+  const int n0 = blockIdx.x * ct, r0 = blockIdx.y * rows_per_split;
+  const int nrows = min(rows - r0, rows_per_split);
+  const int nst = (nrows + rs - 1) / rs;
+  float* xs = reinterpret_cast<float*>(gv_smem + GV_STAGES * GV_STAGE);
+  const uint32_t ring = smem_u32(gv_smem);
+
+  // stage s (rows [s * rs, s * rs + rs) of the range) -> slot s % GV_STAGES,
+  // row r's chunk c at r * ct + 16 c
+  auto load_stage = [&](int s) {
+    const int slot = (s % GV_STAGES) * GV_STAGE;
+#pragma unroll
+    for (int i = 0; i < GV_CHUNKS; ++i) {
+      const int q = tid + i * GV_THREADS, r = s * rs + q / cw;
+      const int n = n0 + 16 * (q % cw);
+      const bool in = r < nrows && n < N;
+      const int8_t* src = w + (long long)(r0 + r) * ldw;
+      if constexpr (ALIGNED) {
+        cp_async16(ring + slot + q * 16, in ? src + n : w,
+                   in ? min(16, N - n) : 0);
+      } else {
+        *reinterpret_cast<uint4*>(gv_smem + slot + q * 16) =
+            in ? load_row16<false>(src, n, N) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < GV_STAGES - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
+  }
+  // the range's x as fp32 [row][MT] (NIB: the high half's columns after),
+  // rows m >= M zero
+  for (int i = tid; i < nrows * MT; i += GV_THREADS) {
+    const int r = i / MT, m = i % MT;
+    const bf16* xm = x + m * ldx + r0 + r;
+    xs[i] = m < M ? bf2f(xm[0]) : 0.f;
+    if (NIB) xs[rows_per_split * MT + i] = m < M ? bf2f(xm[k_half]) : 0.f;
+  }
 
   float acc[MT][16];
 #pragma unroll
@@ -119,69 +206,134 @@ gemv_partial(const bf16* __restrict__ x, long long ldx,
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
 
-  if (n0 < N) {
-    for (int r = r_begin + warp; r < r_end; r += GV_WARPS * GV_UNROLL) {
-      uint4 v[GV_UNROLL];
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<GV_STAGES - 2>();
+    // stage s has landed for every thread (and x is staged), and no thread
+    // still reads the slot refilled below
+    __syncthreads();
+    if (s + GV_STAGES - 1 < nst) load_stage(s + GV_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* st = gv_smem + (s % GV_STAGES) * GV_STAGE;
 #pragma unroll
-      for (int u = 0; u < GV_UNROLL; ++u) {
-        const int rr = r + u * GV_WARPS;
-        v[u] = rr < r_end ? load_row16<ALIGNED>(w + rr * ldw, n0, N)
-                          : make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int j = 0; j < GV_CHUNKS; ++j) {
+      const int row = rg + ng * j, r = s * rs + row;
+      if (r >= nrows) continue;
+      const uint4 wv = *reinterpret_cast<const uint4*>(st + row * ct + 16 * c);
+      const uint32_t wd[4] = {wv.x, wv.y, wv.z, wv.w};
+      float xa[MT], xb[MT];
+      load_x<MT>(xs + r * MT, xa);
+      if (NIB) load_x<MT>(xs + (rows_per_split + r) * MT, xb);
 #pragma unroll
-      for (int u = 0; u < GV_UNROLL; ++u) {
-        const int rr = r + u * GV_WARPS;
-        if (rr >= r_end) continue;
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v[u]);
+      for (int q = 0; q < 4; ++q) {
+        float f[4];
+        if (NIB) {
+          // low nibbles (+ 8) against x's first half, high ones its second
+          widen4((wd[q] & 0x0F0F0F0Fu) ^ 0x08080808u, 8.f, f);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m >= M) continue;
-          const float xa = bf2f(x[m * ldx + rr]);
-          if (NIB) {
-            const float xb = bf2f(x[m * ldx + k_half + rr]);
+          for (int e = 0; e < 4; ++e)
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const int bj = b[j];
-              acc[m][j] = fmaf(xa, static_cast<float>(nib_lo(bj)), acc[m][j]);
-              acc[m][j] = fmaf(xb, static_cast<float>(nib_hi(bj)), acc[m][j]);
-            }
-          } else {
+            for (int m = 0; m < MT; ++m)
+              acc[m][4 * q + e] = fmaf(xa[m], f[e], acc[m][4 * q + e]);
+          widen4(((wd[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8.f, f);
 #pragma unroll
-            for (int j = 0; j < 16; ++j)
-              acc[m][j] = fmaf(xa, static_cast<float>(b[j]), acc[m][j]);
-          }
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              acc[m][4 * q + e] = fmaf(xb[m], f[e], acc[m][4 * q + e]);
+        } else {
+          widen4(wd[q] ^ 0x80808080u, 128.f, f);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              acc[m][4 * q + e] = fmaf(xa[m], f[e], acc[m][4 * q + e]);
         }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the sums below
 
-  // sum the warps, one row m at a time: red[warp][j * 32 + lane] holds
-  // column lane * 16 + j (conflict-free stores and loads)
-  float* dst = part + static_cast<long long>(blockIdx.y) * M * N;
+  // the row groups' sums, one row m at a time, in the ring's memory:
+  // red[rg][20 c + j] holds this thread's column 16 c + j (4 floats of
+  // padding a chunk keep a quarter warp's 16-byte stores on distinct
+  // banks), added in row-group order
+  float* red = reinterpret_cast<float*>(gv_smem);
+  const int ld = 20 * cw;
+  const bool split = gridDim.y > 1;
+  float* dst = part + (long long)blockIdx.y * M * N;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (m >= M) break;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) red[warp][j * 32 + lane] = acc[m][j];
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(red + rg * ld + 20 * c + 4 * q) =
+          make_float4(acc[m][4 * q], acc[m][4 * q + 1], acc[m][4 * q + 2],
+                      acc[m][4 * q + 3]);
     __syncthreads();
-    for (int i = threadIdx.x; i < GV_COLS; i += GV_THREADS) {
-      const int col = c0 + (i & 31) * 16 + (i >> 5);
-      float s = 0.f;
-#pragma unroll
-      for (int v = 0; v < GV_WARPS; ++v) s += red[v][i];
-      if (col < N) dst[static_cast<long long>(m) * N + col] = s;
+    for (int i = tid; i < ct; i += GV_THREADS) {
+      const int col = n0 + i;
+      float sum = 0.f;
+      for (int g = 0; g < ng; ++g) sum += red[g * ld + 20 * (i >> 4) + (i & 15)];
+      if (col < N) {
+        if (split) dst[(long long)m * N + col] = sum;
+        else out[m * ldo + col] = epilogue(sum, scale, bias, col);
+      }
     }
     __syncthreads();
   }
+  if (!split) return;
+
+  // the last block of the column tile adds the splits in order, each
+  // thread its columns tid and tid + GV_THREADS (a tile has at most 512),
+  // up to GV_FINISH_LOADS splits of both loaded before any is added: one
+  // round trip to L2 where a dependent chain of loads took one a split
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last_s = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const int splits = gridDim.y;
+  const long long step = (long long)M * N;
+  for (int m = 0; m < M; ++m) {
+    float sum[2] = {0.f, 0.f};
+    for (int sp0 = 0; sp0 < splits; sp0 += GV_FINISH_LOADS) {
+      float v[2][GV_FINISH_LOADS];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < GV_FINISH_LOADS; ++j) {
+          const int i = tid + h * GV_THREADS, sp = sp0 + j;
+          v[h][j] = i < ct && n0 + i < N && sp < splits
+                        ? __ldcg(part + sp * step + (long long)m * N + n0 + i)
+                        : 0.f;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < GV_FINISH_LOADS; ++j)
+          if (sp0 + j < splits) sum[h] += v[h][j];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = tid + h * GV_THREADS;
+      if (i < ct && n0 + i < N)
+        out[m * ldo + n0 + i] = epilogue(sum[h], scale, bias, n0 + i);
+    }
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
-// the splits' partial sums, added in order, through the epilogue
-__global__ void __launch_bounds__(GV_FINISH_THREADS)
-gemv_finish(const float* __restrict__ part, int splits, int M, int N,
-            const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-            bf16* __restrict__ out, long long ldo) {
+// The prefill kernel's split-K partial sums [splits, M, N], added in split
+// order, through the epilogue
+__global__ void __launch_bounds__(FINISH_THREADS)
+finish_splits(const float* __restrict__ part, int splits, int M, int N,
+              const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+              bf16* __restrict__ out, long long ldo) {
   const long long i =
-      static_cast<long long>(blockIdx.x) * GV_FINISH_THREADS + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * FINISH_THREADS + threadIdx.x;
   if (i >= static_cast<long long>(M) * N) return;
   const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
   float s = 0.f;
@@ -335,41 +487,73 @@ mma_kernel(const bf16* __restrict__ x, long long ldx,
   }
 }
 
-// Launches one weight-streaming product on `stream`: the gemv pair for
-// M <= GEMV_MAX_M (part: [splits, M, N] fp32 workspace, splits from
-// gemv_splits), else the mma kernel.  Returns the cudaError_t.
+// gemv_kernel's dynamic shared memory limit, set once per device for each
+// instantiation (the attribute is the function's, on the current device),
+// with all of L1 as shared memory so that two blocks fit on an SM
+template <bool NIB, bool ALIGNED, int MT>
+inline cudaError_t gemv_allow_smem() {
+  static unsigned done = 0u;  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && ((done >> dev) & 1u))) return err;
+  auto kernel = gemv_kernel<NIB, ALIGNED, MT>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GV_SMEM_MAX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
+
+// Launches gemv_kernel on `stream` (M <= GEMV_MAX_M) on the plan of
+// ops/int8_matmul.py::gemv_plan: column tiles of 16 * cw bytes, K in
+// `splits` ranges of rows_per_split rows, each non-empty; part [splits, M,
+// N] fp32 and tickets [column tiles] int32 (zeros) where splits > 1.
+// Returns the cudaError_t.
 template <bool NIB>
-int launch(const bf16* x, long long ldx, const int8_t* w, long long ldw,
-           const bf16* scale, const bf16* bias, bf16* out, long long ldo,
-           float* part, int splits, int M, int rows, int N, int k_half,
-           int x_aligned, int w_aligned16, int w_aligned8,
-           cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= GEMV_MAX_M) {
-    if (part == nullptr || splits <= 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int rows_per_split = (rows + splits - 1) / splits;
-    dim3 grid((N + GV_COLS - 1) / GV_COLS, splits);
+int launch_gemv(const bf16* x, long long ldx, const int8_t* w, long long ldw,
+                const bf16* scale, const bf16* bias, bf16* out, long long ldo,
+                float* part, int* tickets, int M, int rows, int N,
+                int k_half, int cw, int splits, int rows_per_split,
+                bool w_aligned16, cudaStream_t stream) {
+  if (M <= 0 || M > GEMV_MAX_M || N <= 0 || rows <= 0 ||
+      (cw != 8 && cw != 16 && cw != 32) || rows_per_split <= 0 ||
+      rows_per_split > GV_MAX_ROWS || splits <= 0 ||
+      static_cast<long long>(splits) * rows_per_split < rows ||
+      static_cast<long long>(splits - 1) * rows_per_split >= rows ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = M == 1 ? 1 : M == 2 ? 2 : 4;
+  const int smem =
+      GV_STAGES * GV_STAGE + rows_per_split * mt * 4 * (NIB ? 2 : 1);
+  const dim3 grid((N + 16 * cw - 1) / (16 * cw), splits);
+  cudaError_t err = cudaSuccess;
 #define WSMM_GEMV(MT_, AL_)                                                 \
-  gemv_partial<NIB, AL_, MT_><<<grid, GV_THREADS, 0, stream>>>(             \
-      x, ldx, w, ldw, part, M, rows, N, k_half, rows_per_split)
-    if (M == 1) {
-      if (w_aligned16) WSMM_GEMV(1, true); else WSMM_GEMV(1, false);
-    } else if (M == 2) {
-      if (w_aligned16) WSMM_GEMV(2, true); else WSMM_GEMV(2, false);
-    } else {
-      if (w_aligned16) WSMM_GEMV(4, true); else WSMM_GEMV(4, false);
-    }
-#undef WSMM_GEMV
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long total = static_cast<long long>(M) * N;
-    gemv_finish<<<static_cast<unsigned>((total + GV_FINISH_THREADS - 1) /
-                                        GV_FINISH_THREADS),
-                  GV_FINISH_THREADS, 0, stream>>>(part, splits, M, N, scale,
-                                                  bias, out, ldo);
-    return static_cast<int>(cudaGetLastError());
+  if (mt == MT_ && w_aligned16 == AL_) {                                    \
+    err = gemv_allow_smem<NIB, AL_, MT_>();                                 \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+    gemv_kernel<NIB, AL_, MT_><<<grid, GV_THREADS, smem, stream>>>(         \
+        x, ldx, w, ldw, scale, bias, out, ldo, part, tickets, M, rows, N,   \
+        k_half, cw, rows_per_split);                                        \
   }
+  WSMM_GEMV(1, true) WSMM_GEMV(1, false)
+  WSMM_GEMV(2, true) WSMM_GEMV(2, false)
+  WSMM_GEMV(4, true) WSMM_GEMV(4, false)
+#undef WSMM_GEMV
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches mma_kernel on `stream` (M > GEMV_MAX_M).  Returns the
+// cudaError_t.
+template <bool NIB>
+int launch_mma(const bf16* x, long long ldx, const int8_t* w, long long ldw,
+               const bf16* scale, const bf16* bias, bf16* out, long long ldo,
+               int M, int rows, int N, int k_half, int x_aligned,
+               int w_aligned8, cudaStream_t stream) {
+  if (M <= GEMV_MAX_M || N <= 0 || rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((M + MM_BM - 1) / MM_BM, (N + MM_BN - 1) / MM_BN);
   mma_kernel<NIB><<<grid, MM_THREADS, 0, stream>>>(
       x, ldx, w, ldw, scale, bias, out, ldo, M, rows, N, k_half, x_aligned,

@@ -31,7 +31,7 @@
 //      operand), STAGES - 2 tiles in flight while one is multiplied.
 //   2. Split-K where M tiles x N tiles fill less than a wave: blockIdx.z
 //      takes a range of K tiles and writes fp32 partial sums [splits, M,
-//      N]; gemv_finish adds them in a fixed order and applies the
+//      N]; finish_splits adds them in a fixed order and applies the
 //      epilogue, so the result does not depend on scheduling.  The split
 //      is chosen by ops/int8_matmul.py::prefill_plan.
 //   3. No bank conflicts, whole cache lines: 8 neighbouring threads copy
@@ -318,7 +318,7 @@ prefill_kernel(const bf16* __restrict__ x, long long ldx,
 }
 
 // Launches the prefill kernel on a grid of M tiles x N tiles x splits,
-// then gemv_finish when K is split (part: [splits, M, N] fp32).  Returns
+// then finish_splits when K is split (part: [splits, M, N] fp32).  Returns
 // the cudaError_t.
 template <int NT, bool NIB>
 int launch_prefill_t(const bf16* x, long long ldx, const int8_t* w,
@@ -344,10 +344,10 @@ int launch_prefill_t(const bf16* x, long long ldx, const int8_t* w,
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long total = static_cast<long long>(M) * N;
-  gemv_finish<<<static_cast<unsigned>((total + GV_FINISH_THREADS - 1) /
-                                      GV_FINISH_THREADS),
-                GV_FINISH_THREADS, 0, stream>>>(part, splits, M, N, scale,
-                                                bias, out, ldo);
+  finish_splits<<<static_cast<unsigned>((total + FINISH_THREADS - 1) /
+                                        FINISH_THREADS),
+                  FINISH_THREADS, 0, stream>>>(part, splits, M, N, scale,
+                                               bias, out, ldo);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,7 @@ as in the JAX package, compute the same function on two layouts:
   (replaces the Pallas ``omni_attention_packed``, kernel
   ``_attn_kernel_packed``);
 * ``omni_attention_gqa_stacked``: the same layout and function, one block
-  per kv head running the rows of its G q heads against each K/V tile
+  per kv head and slice of its G q heads, which share each K/V tile
   loaded once (replaces the Pallas ``_omni_attention_gqa_stacked``);
   ``omni_attention_packed(gqa_stack=True)`` routes to it under the JAX
   package's condition;
@@ -17,15 +17,16 @@ as in the JAX package, compute the same function on two layouts:
   they are.
 
 They launch hand-written Hopper kernels that read the layouts through
-their strides: ``omni_attention_packed`` (``csrc/omni_attention_packed.cu``,
-head dims 64 and 128) and ``omni_attention`` (``csrc/omni_attention.cu``,
-head dim 64) the wgmma forward core of ``csrc/attention_fwd_sm90.cuh``,
-each after a tile map of the q rows' metadata (:func:`rows_tile_map`,
-under each source's own entry) that says which K tiles each 64-row q
-block visits and masks; ``omni_attention_gqa_stacked``
-(``csrc/omni_attention_gqa_stacked.cu``) the first tile core of
-``csrc/attention_tile.cuh``.  The mask is recomputed from O(S) metadata
-instead of a [B, 1, Q, S] bias:
+their strides, all on the wgmma forward core of
+``csrc/attention_fwd_sm90.cuh``: ``omni_attention_packed``
+(``csrc/omni_attention_packed.cu``, head dims 64 and 128),
+``omni_attention_gqa_stacked`` (``csrc/omni_attention_gqa_stacked.cu``,
+the same head dims, :func:`stack_width` q heads of a kv head a block) and
+``omni_attention`` (``csrc/omni_attention.cu``, head dim 64), each after a
+tile map of the q rows' metadata (:func:`rows_tile_map`, under each
+source's own entry) that says which K tiles each 64-row q block visits
+and masks.  The mask is recomputed from O(S) metadata instead of a
+[B, 1, Q, S] bias:
 
     visible(b, i, j) = [ j <= pos_q[b,i]
                          | (seg_q[b,i] == seg[b,j] & seg_q[b,i] > 0)
@@ -44,7 +45,8 @@ The wrappers run the plain version for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.  ``cuda_build.launches`` counts kernel
 launches by source name; ``omni_attention_packed``'s also under
 ``WGMMA_KERNEL`` (its core), its tile map under ``TILES_KERNEL``,
-``omni_attention``'s under ``OMNI_TILES``.
+``omni_attention_gqa_stacked``'s under ``GQA_WGMMA`` and ``GQA_TILES``,
+``omni_attention``'s map under ``OMNI_TILES``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ NEG_INF = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _PACKED_ARGS = [_P] * 11 + [_I] * 6 + [_L] * 8 + [_F]
-_STACKED_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 8 + [_F]
+_STACKED_ARGS = [_P] * 11 + [_I] * 7 + [_L] * 8 + [_F]
 _OMNI_ARGS = [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F]
 # the tile map entries of every source: seg, pad, last_pad, prefix, pos_k,
 # pos_q, seg_q, tiles; B, Q, S
@@ -73,6 +75,10 @@ PACKED_SOURCE = "omni_attention_packed"
 # kernel 1 on the wgmma forward core (every launch), and its tile map
 WGMMA_KERNEL = f"{PACKED_SOURCE}_wgmma"
 TILES_KERNEL = f"{PACKED_SOURCE}_tiles"
+# kernel 6 on the same core (every launch), and its tile map
+GQA_SOURCE = "omni_attention_gqa_stacked"
+GQA_WGMMA = f"{GQA_SOURCE}_wgmma"
+GQA_TILES = f"{GQA_SOURCE}_tiles"
 # kernel 4 (head-major views) and its tile map
 OMNI_SOURCE = "omni_attention"
 OMNI_TILES = f"{OMNI_SOURCE}_tiles"
@@ -313,7 +319,10 @@ def _check_head_dim(kernel: str, D: int, dims=(64,)) -> None:
 # the same calls dispatch the same way; on an H100 the cut-over has no
 # reason yet and is to be set from card timings.
 GQA_STACK_MAX_BYTES = 8 * 1024 * 1024
-GQA_STACK_MAX_GROUP = 8     # the kernel's block holds at most 8 warps
+# q heads a block of kernel 6 holds (one warpgroup each): the register file
+# holds 2 warpgroups an SM at head dim 128; at 64, 4, but a block of 4 ran
+# ~15% slower than 2 blocks of 2 on an H100 (PERF.md §6)
+STACK_WIDTH = 2
 
 
 def gqa_stack_fits(Q: int, S: int, group: int) -> bool:
@@ -322,6 +331,12 @@ def gqa_stack_fits(Q: int, S: int, group: int) -> bool:
     block_q = 256 if Q >= 256 else 128
     Sp = -(-S // block_q) * block_q
     return group > 1 and Sp * block_q * group * 4 <= GQA_STACK_MAX_BYTES
+
+
+def stack_width(group: int) -> int:
+    """q heads of one kv head that a block of kernel 6 runs together, one
+    warpgroup each: STACK_WIDTH, or the group where it is smaller."""
+    return min(group, STACK_WIDTH)
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +383,8 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     [B, Q, H*D] in q's dtype.  ``gqa_stack``: take
     :func:`omni_attention_gqa_stacked` where :func:`gqa_stack_fits`, as the
     JAX package does.  ``tiles``: :func:`rows_tile_map` of the same
-    metadata (the kernel reads it, and it is made here when not given; a
-    forward of many layers makes it once).
+    metadata (the kernel reads it, also the stacked one, and it is made here
+    when not given; a forward of many layers makes it once).
 
     CPU tensors go through the plain version; CUDA tensors through the
     kernel (bf16, head dim 64 or 128), which raises on what it does not
@@ -385,8 +400,8 @@ def omni_attention_packed(q, k, v, seg, pad=None, last_pad=None, prefix=None,
         return omni_attention_gqa_stacked(
             q, k, v, seg, pad, last_pad, prefix, num_heads=num_heads,
             num_kv_heads=num_kv_heads, sm_scale=sm_scale,
-            q_positions=q_positions, seg_q=seg_q)
-    return _packed_call("omni_attention_packed", omni_attention_packed_plain,
+            q_positions=q_positions, seg_q=seg_q, tiles=tiles)
+    return _packed_call(PACKED_SOURCE, omni_attention_packed_plain,
                         q, k, v, seg, pad, last_pad, prefix, num_heads,
                         num_kv_heads, sm_scale, q_positions, seg_q, tiles)
 
@@ -396,7 +411,8 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
                  seg_q, tiles=None):
     """The packed-layout kernels' common wrapper: checks, metadata, the
     plain version for CPU tensors, the kernel of ``csrc/<kernel>.cu`` for
-    CUDA tensors (``tiles``: kernel 1's tile map)."""
+    CUDA tensors on the tile map ``tiles`` (kernel 1's kind; made under
+    the kernel's own entry when None)."""
     B, Q, HD = q.shape
     S = k.shape[1]
     D = HD // num_heads
@@ -416,22 +432,22 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
         raise ValueError(f"k/v must be [B, S, Hkv*D] = "
                          f"{(B, S, num_kv_heads * D)}, got {tuple(k.shape)}"
                          f" / {tuple(v.shape)}")
+    if tiles is None:
+        tiles = rows_tile_map(*meta, source=kernel)
+    _check_tiles(tiles, B, Q, S, dev)
     out = torch.empty((B, Q, HD), dtype=q.dtype, device=dev)
-    args, counters, extra = _STACKED_ARGS, kernel, []
     if kernel == PACKED_SOURCE:
-        # the wgmma core, on its tile map
-        if tiles is None:
-            tiles = rows_tile_map(*meta)
-        _check_tiles(tiles, B, Q, S, dev)
-        args, extra = _PACKED_ARGS, [tiles.data_ptr()]
-        counters = (kernel, WGMMA_KERNEL)
+        args, width, counters = _PACKED_ARGS, [], (kernel, WGMMA_KERNEL)
+    else:
+        args, counters = _STACKED_ARGS, (kernel, GQA_WGMMA)
+        width = [stack_width(num_heads // num_kv_heads)]
     cuda_build.launch(
         kernel, f"{kernel}_bf16", args,
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(m.data_ptr() for m in meta), *extra, B, Q, S,
-        num_heads, num_kv_heads, D, q.stride(0), q.stride(1), k.stride(0),
-        k.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        float(sm_scale), kernel=counters)
+        *(m.data_ptr() for m in meta), tiles.data_ptr(), B, Q, S,
+        num_heads, num_kv_heads, D, *width, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0),
+        out.stride(1), float(sm_scale), kernel=counters)
     return out
 
 
@@ -474,24 +490,22 @@ def omni_attention_gqa_stacked(q, k, v, seg, pad=None, last_pad=None,
                                prefix=None, num_heads: int = 32,
                                num_kv_heads: Optional[int] = None,
                                sm_scale: Optional[float] = None,
-                               q_positions=None, seg_q=None):
-    """The function of :func:`omni_attention_packed` (same arguments), one
-    kernel block per (q block, kv head, batch) holding the rows of the
-    group's q heads (groups 1..8).  CPU tensors go through the plain
-    version; CUDA tensors through the kernel (bf16, head dim 64 or 128)."""
+                               q_positions=None, seg_q=None, tiles=None):
+    """The function of :func:`omni_attention_packed` (same arguments, any
+    group), one kernel block per (q tile, kv head, slice of
+    :func:`stack_width` of the group's q heads, batch), whose heads share
+    each K/V tile, on the tile map ``tiles`` (:func:`rows_tile_map` of the
+    same metadata; made under this kernel's entry when None).  CPU tensors
+    go through the plain version; CUDA tensors through the kernel (bf16,
+    head dim 64 or 128)."""
     if num_kv_heads is None:
         num_kv_heads = num_heads
     if q.shape[-1] % num_heads or num_heads % num_kv_heads:
         raise ValueError(f"H*D={q.shape[-1]} with H={num_heads}, "
                          f"Hkv={num_kv_heads}")
-    group = num_heads // num_kv_heads
-    if q.device.type == "cuda" and group > GQA_STACK_MAX_GROUP:
-        raise ValueError(f"omni_attention_gqa_stacked kernel: group {group}"
-                         f" above {GQA_STACK_MAX_GROUP}")
-    return _packed_call("omni_attention_gqa_stacked",
-                        omni_attention_gqa_stacked_plain, q, k, v, seg, pad,
-                        last_pad, prefix, num_heads, num_kv_heads, sm_scale,
-                        q_positions, seg_q)
+    return _packed_call(GQA_SOURCE, omni_attention_gqa_stacked_plain, q, k,
+                        v, seg, pad, last_pad, prefix, num_heads,
+                        num_kv_heads, sm_scale, q_positions, seg_q, tiles)
 
 
 # ---------------------------------------------------------------------------

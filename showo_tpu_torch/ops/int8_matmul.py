@@ -17,7 +17,10 @@ per weight against the kernel's 1).  Three cores, each with its counter
 beside the source's (``launches["int8_matmul_<core>"]``; the int4 source
 of ``ops/int4_matmul.py`` has the same three, ``int4_matmul_<core>``):
 
-* ``gemv`` (M <= 4, decode): split-K CUDA-core dot products;
+* ``gemv`` (M <= 4, decode): CUDA-core dot products, one launch a
+  product: blocks of a column tile and a K range stream the weights
+  through a cp.async ring, the last block of a tile adds the K ranges in
+  order (:func:`gemv_plan`; a workspace and tickets kept per device);
 * ``prefill`` (M > 4, x and w rows 16-byte aligned, as ``Int8Linear``
   pads them; int4 also K/2 a multiple of 8):
   ``csrc/weight_stream_prefill.cuh``, wgmma with the weights widened in
@@ -37,7 +40,8 @@ one difference from the JAX model (tests state its tolerance).
 optional bias added to the bf16 product).  The wrappers run the plain
 version for CPU tensors only; for CUDA tensors they launch the kernel or
 raise.  ``cuda_build.launches["int8_matmul"]`` counts products (one per
-call, whatever the core and its second launch for split-K).
+call, whatever the core; the prefill kernel's split-K adds a second
+launch).
 """
 
 from __future__ import annotations
@@ -51,16 +55,23 @@ import torch
 from showo_tpu_torch.ops import cuda_build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# x, ldx, w, ldw, scale, bias, out, ldo, part, splits, M, K, N, 3 flags
-_ARGS = [_P, _L, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I]
+# the gemv entry: x, ldx, w, ldw, scale, bias, out, ldo, part, tickets, M,
+# K, N, cw, splits, rows_per_split, w_aligned16
+_GEMV_ARGS = [_P, _L, _P, _L, _P, _P, _P, _L, _P, _P] + [_I] * 7
+# the mma entry: x, ldx, w, ldw, scale, bias, out, ldo, M, K, N, x_aligned,
+# w_aligned8
+_MMA_ARGS = [_P, _L, _P, _L, _P, _P, _P, _L] + [_I] * 5
 # the prefill entry: x, ldx, w, ldw, scale, bias, out, ldo, part, splits,
 # M, K, N, bm
 _PF_ARGS = [_P, _L, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I]
 
 GEMV_MAX_M = 4          # csrc/weight_stream.cuh: decode kernel up to M = 4
-_GEMV_COLS = 512        # columns of one decode block
-_BLOCKS_PER_SM = 8      # decode blocks per SM the split aims at
-_MIN_ROWS_PER_SPLIT = 64
+# csrc/weight_stream.cuh's gemv_kernel: weight bytes of a ring stage, rows
+# of one K range at most (its x is staged in shared memory), and the
+# column tiles' widths in 16-byte chunks, widest first
+GEMV_STAGE, GEMV_MAX_ROWS, GEMV_CW = 16384, 1024, (32, 16, 8)
+_GEMV_BLOCKS_PER_SM = 2     # blocks the plan aims at (2 fit an SM)
+GEMV_MAX_SPLITS = 16        # K ranges a column tile's last block adds
 PF_BN, PF_BK = 128, 64  # csrc/weight_stream_prefill.cuh: N and K tiles
 # its tile widths (x rows of a block, wgmma's N)
 PF_NT = (8, 16, 32, 48, 64, 96, 128, 144, 176, 208, 256)
@@ -86,12 +97,33 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_splits(rows: int, N: int, sms: int) -> int:
-    """K slices of the decode kernel: enough blocks for ~8 per SM, at
-    least 64 weight rows per slice."""
-    tiles = -(-N // _GEMV_COLS)
-    want = -(-(_BLOCKS_PER_SM * sms) // tiles)
-    return max(1, min(want, rows // _MIN_ROWS_PER_SPLIT))
+class GemvPlan(NamedTuple):
+    """Column tiles and K ranges of one launch of the decode kernel."""
+    cw: int                 # 16-byte chunks a row of a column tile
+    tiles: int              # column tiles (blockIdx.x)
+    splits: int             # K ranges (blockIdx.y); > 1: fp32 partials
+    rows_per_split: int     # weight rows of each range (the last: the rest)
+
+
+def gemv_plan(rows: int, N: int, sms: int) -> GemvPlan:
+    """The decode kernel's tiles for w [rows, N] on a card of ``sms`` SMs:
+    the widest column tile (512, 256 or 128 bytes) whose tiles, each cut
+    into up to GEMV_MAX_SPLITS K ranges of at least one ring stage, give a
+    block to every SM, aiming at 2 blocks an SM (one wave); K ranges of at
+    most GEMV_MAX_ROWS rows, split evenly.  A pure function of its
+    arguments, so every call of a product runs the same sums in the same
+    order."""
+    target = _GEMV_BLOCKS_PER_SM * sms
+    for cw in GEMV_CW:
+        tiles = -(-N // (16 * cw))
+        stage_rows = GEMV_STAGE // (16 * cw)
+        splits = max(-(-rows // GEMV_MAX_ROWS),
+                     min(target // tiles, GEMV_MAX_SPLITS,
+                         -(-rows // stage_rows)))
+        if tiles * splits >= sms:
+            break
+    per = -(-rows // splits)
+    return GemvPlan(cw, tiles, -(-rows // per), per)
 
 
 class PrefillPlan(NamedTuple):
@@ -154,6 +186,24 @@ def _check(name: str, t: torch.Tensor, dtype, dev, dims: int):
         raise ValueError(f"{name}: the last dim must be contiguous")
 
 
+# device -> (fp32 partial sums, int32 tickets) of the decode kernel, grown
+# as needed and reused by every product on the device: its launches run in
+# stream order, and each leaves the tickets at zero
+_gemv_space: dict = {}
+
+
+def _gemv_workspace(dev, floats: int, tiles: int):
+    """(part, tickets) of at least ``floats`` / ``tiles`` entries on
+    ``dev``."""
+    part, tickets = _gemv_space.get(dev, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _gemv_space[dev] = (part, tickets)
+    return part, tickets
+
+
 class WeightStream:
     """The weight side of a launch of ``csrc/<source>.cu`` (int8_matmul or
     int4_matmul), checked and laid out once: w [rows, N] int8 (rows = K,
@@ -184,7 +234,7 @@ class WeightStream:
         self.flags = (int(w.data_ptr() % 16 == 0 and w.stride(0) % 16 == 0),
                       int(w.data_ptr() % 8 == 0 and w.stride(0) % 8 == 0))
         self.sms = _sm_count(dev.index or 0)
-        self.splits = gemv_splits(rows, N, self.sms)
+        self.plan = gemv_plan(rows, N, self.sms)
 
     def core(self, x) -> str:
         """The kernel that x [M, K] goes to (:func:`select_core`)."""
@@ -219,18 +269,28 @@ class WeightStream:
                 None if part is None else part.data_ptr(), plan.splits, M,
                 self.K, N, plan.bm, kernel=counters)
             return out
-        splits, part = 0, None
         if core == "gemv":
-            splits = self.splits
-            part = torch.empty((splits, M, N), dtype=torch.float32,
-                               device=self.dev)
+            plan = self.plan
+            part = tickets = None
+            if plan.splits > 1:
+                part, tickets = _gemv_workspace(self.dev, plan.splits * M * N,
+                                                plan.tiles)
+            cuda_build.launch(
+                self.source, f"{self.source}_gemv_bf16", _GEMV_ARGS,
+                self.dev, x.data_ptr(), x.stride(0), w_ptr, ldw, scale_ptr,
+                bias_ptr, out.data_ptr(), out.stride(0),
+                None if part is None else part.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), M, self.K,
+                N, plan.cw, plan.splits, plan.rows_per_split, self.flags[0],
+                kernel=counters)
+            return out
         x_aligned = (x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
                      and self.k_half % 8 == 0)
         cuda_build.launch(
-            self.source, f"{self.source}_bf16", _ARGS, self.dev, x.data_ptr(),
-            x.stride(0), w_ptr, ldw, scale_ptr, bias_ptr, out.data_ptr(),
-            out.stride(0), None if part is None else part.data_ptr(), splits,
-            M, self.K, N, int(x_aligned), *self.flags, kernel=counters)
+            self.source, f"{self.source}_mma_bf16", _MMA_ARGS, self.dev,
+            x.data_ptr(), x.stride(0), w_ptr, ldw, scale_ptr, bias_ptr,
+            out.data_ptr(), out.stride(0), M, self.K, N, int(x_aligned),
+            self.flags[1], kernel=counters)
         return out
 
 

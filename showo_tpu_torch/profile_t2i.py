@@ -18,6 +18,7 @@ launches), each with its share of the busy time.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import torch
@@ -26,7 +27,7 @@ from showo_tpu_torch import inference_t2i, inference_t2i_v2
 from showo_tpu_torch.config import load_config
 
 # the port's kernels (csrc/), listed by their __global__ names
-_OURS = ("gqa_stacked_kernel", "fused::", "agrad90::", "wsmm::")
+_OURS = ("fused::", "agrad90::", "wsmm::")
 # a profiler row of the CUDA runtime (launches that waited for room in the
 # command queue), not an operator: the device time under it is counted
 # again in the rows of the operators and kernels it held up
@@ -80,7 +81,8 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
     wall time, the device's busy time within its kernel span (and so its
     idle share), the kernel launches, and the largest rows of device time
     by operator, or by kernel for the port's own kernels.  Returns the
-    wall s, busy and span ms, idle share and launches."""
+    wall s, busy and span ms, idle share, launches, and the launches and
+    device ms of each kernel by its name."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -115,7 +117,18 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
     listed = sum(a.self_device_time_total for a in rows) / 1e3
     print(f"all rows: {listed:.2f} ms of the {busy:.2f} ms busy")
     return {"wall_s": wall, "busy_ms": busy, "span_ms": span,
-            "idle_share": 1 - busy / span, "launches": count}
+            "idle_share": 1 - busy / span, "launches": count,
+            "by_kernel": _by_kernel(kernels)}
+
+
+def _by_kernel(events) -> dict:
+    """{kernel name: [launches, device ms]} of the device events."""
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        row = out[e.name]
+        row[0] += 1
+        row[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return dict(out)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Times of the inference attention kernels 5 (``streaming``), 3
 (``decode``), 1 (``packed``), 4 (``omni``) and 2 (``fused``) at the v1
-512x512 cached step on one card, for holding two trees side by side in
-one call.
+512x512 cached step, of kernels 1 and 6 at the Show-o2 432x432 rows, and
+of the decode gemv of kernels 9-11 at M=1, on one card, for holding two
+trees side by side in one call.
 
     python3 showo_tpu_torch/time_inference.py [--root DIR] [--tag NAME]
 
@@ -21,8 +22,15 @@ made beforehand where the tree's wrapper takes one (as a forward of 24
 layers makes it once), the map itself, kernel 2's two launches apart
 where the tree has them (``fused_norm_rope``, ``fused_core``), and
 ``scaled_dot_product_attention`` with the same mask (for kernel 2's core
-on the normed q / k).  Prints the card and one JSON line.  Needs a CUDA
-card.
+on the normed q / k).  Then, as ``chip_smoke.py`` phase 3c, kernel 1 and
+kernel 6 (``omni_attention_packed(gqa_stack=True)``) on one tile map at
+the Show-o2 slice's rows (B=8, S=768, the config's first four prompts
+with CFG) for Qwen2.5 (12 q / 2 kv heads of 128) and the DiT (32 / 8 of
+64), with the wrapper and as device time a launch (profiler, mean of
+20); and as phase 9, the int8 and int4 gemv at M=1 at win / wout /
+lm_head, device time a product with the weights rotating through copies
+that exceed the L2 twice.  Prints the card and one JSON line.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +44,105 @@ import subprocess
 import sys
 
 P, H, D, BATCH = 129, 32, 64, 2
+V2_CONFIG, V2_BATCH = "configs/showo2_1.5b_demo_432x432.yaml", 4
+V2_SHAPES = (("qwen", 12, 2, 128), ("dit", 32, 8, 64))
+GEMV_SHAPES = {"win": (2048, 14336), "wout": (10240, 2048),
+               "lm_head": (2048, 58498)}
+L2_BYTES = 50e6
+
+
+def _device_ms(torch, fn, iters: int = 20):
+    """Mean device time a call of the kernels ``fn`` launches
+    (torch.profiler); None where the trace lost device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    if len(kernels) < iters:
+        return None
+    return sum(e.time_range.end - e.time_range.start
+               for e in kernels) / 1e3 / iters
+
+
+def _v2_times(torch, dev, time_ms):
+    """Kernels 1 and 6 at the Show-o2 slice's rows: {name: ms}."""
+    import types
+
+    import torch.nn.functional as F
+
+    from showo_tpu_torch import inference_t2i_v2
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.pipelines.t2i_v2 import T2IV2Pipeline
+
+    config = load_config(V2_CONFIG)
+    tokenizer, ids = inference_t2i_v2.load_tokenizer_and_ids(config)
+    layout = types.SimpleNamespace(
+        token_ids=ids, tokenizer=tokenizer, guidance_scale=7.5,
+        cfg=inference_t2i_v2.build_showo2_config(config), device=dev,
+        max_text_len=int(config.dataset.preprocessing.get("max_text_len",
+                                                          256)))
+    text, mp = T2IV2Pipeline.build_inputs(
+        layout, inference_t2i_v2.load_prompts(config)[:V2_BATCH])
+    B, L = text.shape
+    meta = tfa.span_meta(tfa.seg_from_modality_positions(mp, L), None, None,
+                         None, B, L, dev)
+    pos_q, seg_q = tfa.q_rows(meta[0], torch.arange(L, device=dev), B, L)
+    tiles = tfa.rows_tile_map(*meta, pos_q, seg_q)
+    vis = tfa.visible_mask(*meta, pos_q)[:, None]
+    g = torch.Generator(device=dev).manual_seed(31)
+    ms = {"v2_rows": [B, L]}
+    for name, h, hkv, d in V2_SHAPES:
+        q, k, v = (torch.randn(B, L, n * d, generator=g, device=dev)
+                   .bfloat16() for n in (h, hkv, hkv))
+        kw = dict(num_heads=h, num_kv_heads=hkv, q_positions=pos_q,
+                  seg_q=seg_q, tiles=tiles)
+        heads = [t.unflatten(-1, (-1, d)).transpose(1, 2) for t in (q, k, v)]
+        calls = {
+            "packed": lambda: tfa.omni_attention_packed(q, k, v, *meta, **kw),
+            "stacked": lambda: tfa.omni_attention_packed(
+                q, k, v, *meta, gqa_stack=True, **kw),
+            "library": lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=vis, enable_gqa=True)}
+        for which, fn in calls.items():
+            ms[f"v2_{name}_{which}"] = time_ms(torch, fn)
+            ms[f"v2_{name}_{which}_device"] = _device_ms(torch, fn)
+        ms[f"v2_{name}_stacked_diff"] = (
+            calls["stacked"]().float() - calls["packed"]().float()
+        ).abs().max().item()
+    return ms
+
+
+def _gemv_times(torch, dev):
+    """The decode gemv at M=1, int8 and int4: {name: device ms}."""
+    from showo_tpu_torch.ops import int4_matmul as ti4
+    from showo_tpu_torch.ops import int8_matmul as ti8
+
+    g = torch.Generator(device=dev).manual_seed(91)
+    ms = {}
+    for fmt, kern in (("int8", ti8.pallas_i8_matmul),
+                      ("int4", ti4.pallas_nib_matmul)):
+        for name, (K, N) in GEMV_SHAPES.items():
+            rows = K // 2 if fmt == "int4" else K
+            padded = -(-N // 16) * 16
+            copies = max(1, -(-int(2 * L2_BYTES) // (rows * N)))
+            ws = [torch.randint(-127, 128, (rows, padded), generator=g,
+                                device=dev, dtype=torch.int8)[:, :N]
+                  for _ in range(copies)]
+            x = torch.randn(1, K, generator=g, device=dev).bfloat16()
+            s = (torch.rand(1, N, generator=g, device=dev) * 0.01
+                 + 1e-3).bfloat16()
+            turn = iter(range(10 ** 9))
+            ms[f"gemv_{fmt}_{name}_device"] = _device_ms(
+                torch, lambda: kern(x, ws[next(turn) % copies], s))
+            del ws
+    return ms
 
 
 def _layout(torch, np, dev):
@@ -75,6 +182,7 @@ def main(argv=None) -> int:
         print("time_inference: needs a CUDA card", file=sys.stderr)
         return 2
     from showo_tpu_torch.models.phi import rope_tables
+    from showo_tpu_torch.ops import cuda_build
     from showo_tpu_torch.ops import decode_attention as tda
     from showo_tpu_torch.ops import flash_attention as tfa
     from showo_tpu_torch.ops import fused_decode as tfd
@@ -83,6 +191,11 @@ def main(argv=None) -> int:
     from showo_tpu_torch.time_trainable import _time_ms
 
     dev = torch.device("cuda")
+    # every kernel source this script reaches, built at once
+    cuda_build.load_libraries([
+        "streaming_attention", "decode_attention", "omni_attention_packed",
+        "omni_attention", "fused_decode", "omni_attention_gqa_stacked",
+        "int8_matmul", "int4_matmul"])
     full, ids = _layout(torch, np, dev)
     B, L = full.shape
     Q = L - P
@@ -171,6 +284,8 @@ def main(argv=None) -> int:
                 torch, lambda: F.scaled_dot_product_attention(
                     *fresh, attn_mask=vis2)),
         })
+    ms.update(_v2_times(torch, dev, _time_ms))
+    ms.update(_gemv_times(torch, dev))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]

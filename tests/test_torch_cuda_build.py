@@ -78,3 +78,57 @@ def test_gpu_entry_points_refuse_to_run_without_a_card():
     finally:
         sys.path.remove(REPO)
     assert chip_smoke.main() == 2
+
+
+def _c_entries():
+    """{symbol: [ctypes type of each parameter]} of every ``extern "C"``
+    entry of csrc/*.cu, read from the sources (no compiler here)."""
+    import ctypes
+    import glob
+    import re
+
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    out = {}
+    for path in glob.glob(os.path.join(cuda_build.CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src):
+            types = []
+            for p in params.split(","):
+                p = " ".join(p.split()[:-1]).replace("const ", "")
+                types.append(ctypes.c_void_p if p.endswith("*")
+                             else kinds[p])
+            out[name] = types
+    return out
+
+
+def test_entries_take_what_their_wrappers_pass():
+    """Each C entry that the decode gemv, kernel 6 and kernel 1 launch
+    takes the ctypes types its wrapper binds, in order, and the stream
+    last: a wrong count or type would pass garbage on the card."""
+    import ctypes
+
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.ops import int8_matmul as ti8
+
+    entries = _c_entries()
+    bound = {f"{src}_{core}_bf16": args
+             for src in ("int8_matmul", "int4_matmul")
+             for core, args in (("gemv", ti8._GEMV_ARGS),
+                                ("mma", ti8._MMA_ARGS),
+                                ("prefill", ti8._PF_ARGS))}
+    bound.update({"omni_attention_packed_bf16": tfa._PACKED_ARGS,
+                  "omni_attention_gqa_stacked_bf16": tfa._STACKED_ARGS,
+                  "omni_attention_gqa_stacked_tiles": tfa._TILES_ARGS,
+                  "omni_attention_packed_tiles": tfa._TILES_ARGS})
+    for name, args in bound.items():
+        assert entries[name] == list(args) + [ctypes.c_void_p], name
+
+
+def test_first_tile_core_holds_no_kernel():
+    """attention_tile.cuh keeps the pieces the wgmma cores share; every
+    attention kernel runs on the wgmma cores."""
+    with open(os.path.join(cuda_build.CSRC, "attention_tile.cuh")) as f:
+        assert "__global__" not in f.read()

@@ -3,13 +3,15 @@ the packed omni kernel at head dim 128, and the GQA-stacked kernel.
 
 On the CPU the stacked kernel's plain version is held against the JAX
 package's ``omni_attention_packed(gqa_stack=True)`` in interpret mode at
-groups 4 and 6, head dims 64 and 128, fp32, atol 1e-5 (exact fp32
+groups 4, 6 and 16, head dims 64 and 128, fp32, atol 1e-5 (exact fp32
 products and an fp32 softmax on both sides; only the summation order
 differs), and ``seg_from_modality_positions`` bit-exact.  The card-only
 cases hold the CUDA kernels against their plain versions in bf16 at atol
 2e-2 (the tolerance of tests/test_torch_omni_attention.py) at the Show-o2
 432x432 shapes: Qwen2.5 (12 q / 2 kv heads, D=128) and the DiT head (32 / 8,
-D=64), B=8 rows of the CFG batch.
+D=64), B=8 rows of the CFG batch; and kernel 6 (on the wgmma forward core,
+any group) at ragged shapes with rows that see no key, bit-identical to
+kernel 1 on the same memory.
 """
 
 from unittest import mock
@@ -92,6 +94,63 @@ def test_stacked_plain_vs_jax_interpret(H, Hkv, D, P):
                                          num_kv_heads=Hkv, q_positions=tpos)
     np.testing.assert_allclose(got.numpy(), per_head.numpy(), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_stacked_plain_vs_jax_interpret_group_16(D):
+    """H=16 q heads on one kv head at S=Q=256: the JAX package stacks them
+    (256 * 256 * 16 * 4 B = 4 MiB of scores, within its 8 MiB), and so does
+    the port, whose kernel takes any group."""
+    H, Hkv, B, S = 16, 1, 1, 256
+    assert tfa.gqa_stack_fits(S, S, H // Hkv)
+    meta = _v2_meta(B, S, 200, seed=D)
+    rng = np.random.default_rng(D)
+    q = rng.normal(size=(B, S, H * D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv * D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv * D)).astype(np.float32)
+    with mock.patch.object(jfa, "_omni_attention_gqa_stacked",
+                           wraps=jfa._omni_attention_gqa_stacked) as spy:
+        want = jfa.omni_attention_packed(
+            *(jnp.asarray(x) for x in (q, k, v)),
+            *(jnp.asarray(m) for m in meta), num_heads=H, num_kv_heads=Hkv,
+            interpret=True, gqa_stack=True)
+    assert spy.call_count == 1
+    tmeta = [torch.as_tensor(m) for m in meta]
+    with mock.patch.object(tfa, "omni_attention_gqa_stacked",
+                           wraps=tfa.omni_attention_gqa_stacked) as tspy:
+        got = tfa.omni_attention_packed(
+            *(torch.as_tensor(x) for x in (q, k, v)), *tmeta, num_heads=H,
+            num_kv_heads=Hkv, gqa_stack=True)
+    assert tspy.call_count == 1
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_stack_width_covers_the_group():
+    """Kernel 6's q heads a block: two (a warpgroup each), or the group
+    where it has one; every group is taken, its slices covering it."""
+    for G in range(1, 33):
+        W = tfa.stack_width(G)
+        slices = -(-G // W)
+        assert W == min(G, tfa.STACK_WIDTH) and (slices - 1) * W < G
+    assert tfa.stack_width(6) == 2 and tfa.stack_width(1) == 1
+
+
+def test_gqa_stack_passes_the_tile_map_through():
+    """``omni_attention_packed(gqa_stack=True, tiles=...)`` takes the
+    stacked path with the map it was given, as kernel 1 takes it."""
+    B, H, Hkv, D, S = 1, 4, 2, 8, 24
+    meta = [torch.as_tensor(m) for m in _v2_meta(B, S, 10, seed=5)]
+    q = torch.zeros((B, S, H * D))
+    k = torch.zeros((B, S, Hkv * D))
+    tiles = torch.zeros((B, 1, 2), dtype=torch.uint8)
+    with mock.patch.object(tfa, "omni_attention_gqa_stacked",
+                           wraps=tfa.omni_attention_gqa_stacked) as spy:
+        tfa.omni_attention_packed(q, k, k, *meta, num_heads=H,
+                                  num_kv_heads=Hkv, gqa_stack=True,
+                                  tiles=tiles)
+    assert spy.call_count == 1
+    assert spy.call_args.kwargs["tiles"] is tiles
 
 
 def test_gqa_stack_routes_as_jax():
@@ -177,16 +236,111 @@ def test_stacked_kernel_on_strided_views_and_ragged_q():
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
+def _no_key_meta(B, S, dev):
+    """Metadata of a ragged S whose positions 6..9 see no key: an image
+    span 40..149, pads 0..9 and last_pad 5 (those rows may not see the
+    pads, and every key at or before them is one)."""
+    seg = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    seg[:, 40:150] = 1
+    pad = torch.zeros_like(seg)
+    pad[:, :10] = 1
+    last_pad = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    return [seg, pad, last_pad, torch.zeros_like(last_pad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(8, 2, 64), (12, 2, 128), (6, 1, 64),
+                                     (16, 1, 64), (16, 1, 128)],
+                         ids=["g4", "g6_d128", "g6_d64", "g16_d64",
+                              "g16_d128"])
+def test_stacked_kernel_ragged_on_card(H, Hkv, D):
+    """Kernel 6 on the wgmma core at groups 4, 6 and 16 (two heads a block,
+    the group in 2, 3 or 8 slices), S = 200 and Q = 197 q rows at positions
+    3..199 (both ragged), positions 6..9 seeing no key: against the plain
+    version at atol 2e-2, those rows at the mean of v over the S keys; one
+    launch of the core and of its tile map a call; the same bits over two
+    launches and as kernel 1 on the same memory and map; and a planted
+    fault (keys 64..127 dropped in the plain version) that fails the
+    check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    B, S, P = 2, 200, 3
+    meta = _no_key_meta(B, S, dev)
+    pos = torch.arange(P, S, device=dev, dtype=torch.int32).expand(
+        B, S - P).contiguous()
+    g = torch.Generator(device=dev).manual_seed(H + D)
+    q = torch.randn(B, S - P, H * D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv * D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(num_heads=H, num_kv_heads=Hkv, q_positions=pos)
+    names = (tfa.GQA_SOURCE, tfa.GQA_WGMMA, tfa.GQA_TILES)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = [tfa.omni_attention_gqa_stacked(q, k, v, *meta, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} \
+        == {n: 2 for n in names}
+    assert torch.equal(runs[0], runs[1])
+    tiles = tfa.rows_tile_map(*meta, *tfa.q_rows(meta[0], pos, B, S - P))
+    assert torch.equal(
+        tfa.omni_attention_gqa_stacked(q, k, v, *meta, tiles=tiles, **kw),
+        tfa.omni_attention_packed(q, k, v, *meta, tiles=tiles, **kw))
+    got = runs[0]
+    want = tfa.omni_attention_gqa_stacked_plain(
+        q, k, v, *meta, pos, num_heads=H, num_kv_heads=Hkv,
+        sm_scale=D ** -0.5)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    mean_v = v.float().view(B, S, Hkv, D).mean(dim=1).repeat_interleave(
+        H // Hkv, dim=1).reshape(B, 1, H * D)
+    assert (got[:, 3:7].float() - mean_v).abs().max().item() <= 2e-2
+    dropped = meta[1].clone()
+    dropped[:, 64:128] = 1
+    fault = tfa.omni_attention_gqa_stacked_plain(
+        q, k, v, meta[0], dropped, *meta[2:], pos, num_heads=H,
+        num_kv_heads=Hkv, sm_scale=D ** -0.5)
+    assert (fault.float() - want.float()).abs().max().item() > 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 128), (32, 8, 64)],
+                         ids=["qwen", "dit"])
+def test_stacked_kernel_gives_kernel_1s_bits_on_card(H, Hkv, D):
+    """At the Show-o2 shapes kernel 6 (its heads sharing each K/V tile)
+    and kernel 1 (a block per head) run the same arithmetic per head on
+    the same map: their outputs carry the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, meta = _card_inputs(H, Hkv, D, seed=H * D)
+    B, S = meta[0].shape
+    pos_q, seg_q = tfa.q_rows(meta[0], torch.arange(S, device=q.device),
+                              B, S)
+    tiles = tfa.rows_tile_map(*meta, pos_q, seg_q)
+    kw = dict(num_heads=H, num_kv_heads=Hkv, q_positions=pos_q, seg_q=seg_q,
+              tiles=tiles)
+    assert torch.equal(tfa.omni_attention_packed(q, k, v, *meta, **kw),
+                       tfa.omni_attention_packed(q, k, v, *meta,
+                                                 gqa_stack=True, **kw))
+
+
 @pytest.mark.cuda
 def test_stacked_kernel_refuses_what_it_does_not_take():
+    """Head dims other than 64 and 128, and a tile map of other shapes,
+    raise; a group above 8 does not (the kernel takes any group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     seg = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
     q = torch.zeros((1, 8, 16 * 64), dtype=torch.bfloat16, device="cuda")
     k = torch.zeros((1, 8, 64), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="group 16"):
-        tfa.omni_attention_gqa_stacked(q, k, k, seg, num_heads=16,
-                                       num_kv_heads=1)
+    out = tfa.omni_attention_gqa_stacked(q, k, k, seg, num_heads=16,
+                                         num_kv_heads=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(q))
+    with pytest.raises(ValueError, match="rows_tile_map"):
+        tfa.omni_attention_gqa_stacked(
+            q, k, k, seg, num_heads=16, num_kv_heads=1,
+            tiles=torch.zeros((1, 1, 1), dtype=torch.uint8, device="cuda"))
     q = torch.zeros((1, 8, 2 * 96), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="head dim 96"):
         tfa.omni_attention_gqa_stacked(q, q, q, seg, num_heads=2)

@@ -270,13 +270,54 @@ def test_select_core(source, M, K, x_ptr, ldx, w16, core):
     assert ti8.select_core(source, M, K, x_ptr, ldx, w16) == core
 
 
-def test_gemv_splits():
-    """The decode kernel's K split: ~8 blocks per SM over the 512-column
-    tiles, at least 64 weight rows per slice."""
-    assert ti8.gemv_splits(10240, 2048, 132) == 160     # wout: 4 tiles
-    assert ti8.gemv_splits(2048, 14336, 132) == 32      # win: 28 tiles
-    assert ti8.gemv_splits(2048, 58498, 132) == 10      # lm_head: 115
-    assert ti8.gemv_splits(37, 5, 132) == 1
+GEMV_PLANS = {
+    # (rows, N): (cw, tiles, splits, rows per split) on 132 SMs
+    (2048, 14336): (32, 28, 9, 228),    # win: 252 blocks
+    (10240, 2048): (8, 16, 16, 640),    # wout: 128-byte tiles, 256 blocks
+    (2048, 58498): (32, 115, 2, 1024),  # lm_head, ragged N: 230 blocks
+    (1024, 58498): (32, 115, 2, 512),   # int4 lm_head (K/2 packed rows)
+}
+
+
+@pytest.mark.parametrize("shape", list(GEMV_PLANS))
+def test_gemv_plan_slice_shapes(shape):
+    """The decode kernel's plans at the slice's win / wout / lm_head and
+    int4 lm_head's packed rows."""
+    plan = ti8.gemv_plan(*shape, sms=132)
+    assert (plan.cw, plan.tiles, plan.splits, plan.rows_per_split) == \
+        GEMV_PLANS[shape]
+
+
+@pytest.mark.parametrize("rows,N", [(2048, 14336), (10240, 2048),
+                                    (2048, 58498), (1024, 14336),
+                                    (37, 5), (130, 517), (2048, 904),
+                                    (100000, 64)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_gemv_plan_invariants(rows, N, sms):
+    """Every weight row in exactly one K range, each range non-empty and
+    within the rows whose x fits shared memory; the column tiles cover N;
+    a block for every SM wherever the rows allow it (their ranges at
+    least a ring stage), at most two an SM; the ranges in the one order
+    the kernel adds them, the same on every call."""
+    p = ti8.gemv_plan(rows, N, sms)
+    assert p.cw in ti8.GEMV_CW
+    ct = 16 * p.cw
+    assert p.tiles * ct >= N > (p.tiles - 1) * ct
+    per = p.rows_per_split      # range s: rows [s * per, (s + 1) * per)
+    ranges = [(s * per, min(rows, s * per + per)) for s in range(p.splits)]
+    assert [b for b, _ in ranges] == [0] + [e for _, e in ranges[:-1]]
+    assert ranges[-1][1] == rows and all(b < e for b, e in ranges)
+    assert max(e - b for b, e in ranges) <= ti8.GEMV_MAX_ROWS
+    assert p.splits <= max(ti8.GEMV_MAX_SPLITS,
+                           -(-rows // ti8.GEMV_MAX_ROWS))
+    blocks, least = p.tiles * p.splits, -(-rows // ti8.GEMV_MAX_ROWS)
+    # the most blocks the narrowest tiles could give
+    room = -(-N // 128) * min(ti8.GEMV_MAX_SPLITS,
+                              -(-rows // (ti8.GEMV_STAGE // 128)))
+    if room >= sms:
+        assert blocks >= sms
+    assert blocks <= 2 * sms or p.splits in (1, least)
+    assert ti8.gemv_plan(rows, N, sms) == p
 
 
 # -- quantize_int8 against JAX ---------------------------------------------
@@ -390,6 +431,108 @@ def test_int8_kernel_vs_plain_on_card(M, K, N):
     torch.cuda.synchronize()
     assert cuda_build.launches["int8_matmul"] == before + 1
     _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
+
+
+def _gemv_call(fmt, M, K, N, seed):
+    """(kernel call, plain call, weights, scale) of one decode product:
+    int8 or int4 weights with rows padded to 16 bytes (as Int8Linear pads
+    them) cut to N columns, and a bias."""
+    nib = fmt == "int4"
+    x, w, s, b = _card(M, K, -(-N // 16) * 16, seed=seed, nib=nib)
+    w, s, b = w[:, :N], s[:, :N], b[:N]
+    kern = ti4.pallas_nib_matmul if nib else ti8.pallas_i8_matmul
+    plain = ti4.nib_matmul_plain if nib else ti8.i8_matmul_plain
+    return (lambda: kern(x, w, s, b)), (lambda s_=s: plain(x, w, s_, b)), w, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
+@pytest.mark.parametrize("K,N", [(2048, 14336), (10240, 2048), (2048, 58498),
+                                 (130, 517)])
+def test_gemv_kernel_vs_plain_on_card(fmt, M, K, N):
+    """The decode kernel at the slice's win / wout / lm_head (N = 58498
+    ragged) and a small ragged shape, both formats, M = 1..4, with a bias:
+    one launch of the gemv core a product, within 2e-2 of the peak of the
+    plain version; a planted fault (each column scaled by its neighbour's
+    scale) fails the same check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kern, plain, _, s = _gemv_call(fmt, M, K, N, seed=M * 13 + N)
+    source = "int4_matmul" if fmt == "int4" else "int8_matmul"
+    names = (source, f"{source}_gemv", f"{source}_prefill", f"{source}_mma")
+    before = {n: cuda_build.launches[n] for n in names}
+    got = kern()
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        source: 1, f"{source}_gemv": 1, f"{source}_prefill": 0,
+        f"{source}_mma": 0}
+    want = plain()
+    _check_card(got, want)
+    with pytest.raises(AssertionError):
+        _check_card(plain(s.roll(1, dims=-1)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("K,N", [(2048, 14336), (10240, 2048), (2048, 58498)])
+def test_gemv_split_k_bit_stable_on_card(fmt, K, N):
+    """Where the plan splits K, the last block of each column tile adds the
+    splits in split order: two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = K // 2 if fmt == "int4" else K
+    assert ti8.gemv_plan(rows, N, sms).splits > 1
+    kern, plain, _, _ = _gemv_call(fmt, 1, K, N, seed=K + N)
+    first, second = kern(), kern()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _check_card(first, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_gemv_one_device_launch_per_product_on_card(fmt):
+    """A decode product is one launch on the device (torch.profiler's
+    kernel events), also where K is split (wout: 16 ranges)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    kern, _, _, _ = _gemv_call(fmt, 1, 10240, 2048, seed=21)
+    kern()
+    torch.cuda.synchronize()
+    calls = 5
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):      # a trace may lose device events: take it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kern()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+        if len(names) >= calls:
+            break
+    assert len(names) == calls, names
+    assert all("gemv_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4])
+def test_int4_gemv_unaligned_views_on_card(M):
+    """int4 at decode on a column slice of the packed rows at an odd
+    offset and x's columns at an odd offset: the rows are copied into the
+    ring by plain loads; one launch of the gemv core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w, s, b = _card(M, 2051, 1000, seed=17 + M, nib=True)
+    xv = x[:, 3:]
+    wv, sv, bv = w[:1024, 13:917], s[:, 13:917], b[13:917]
+    before = cuda_build.launches["int4_matmul_gemv"]
+    got = ti4.pallas_nib_matmul(xv, wv, sv, bv)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["int4_matmul_gemv"] == before + 1
+    _check_card(got, ti4.nib_matmul_plain(xv, wv, sv, bv))
 
 
 @pytest.mark.cuda

@@ -433,8 +433,7 @@ def test_wgmma_kernel_at_head_dim_64_on_card(kind, H, Hkv):
 @pytest.mark.cuda
 def test_packed_wrapper_never_reaches_the_first_core_on_card():
     """Every launch of kernel 1, at head dim 64 as at 128, is counted on
-    the wgmma core: the first tile core (attention_tile.cuh) is left to
-    kernel 6."""
+    the wgmma core, and none on kernel 4's or kernel 6's sources."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
