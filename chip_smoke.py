@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives five paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
+Drives the paths of Show-o 1.3B at full width (Phi-1.5: 24 layers,
 hidden 2048, 32 heads; random weights from fixed seeds):
 
 * the v1 512x512 text-to-image path (the ``t2i_512`` bench row) with the
   full MAGVIT-v2 decoder, bf16, 16-step prefix-cached MaskGIT with CFG
   1.75, batch 2, through the CLI's ``build_pipeline``, once on each
   attention route with an inference kernel: ``packed`` (the default at
-  512x512), ``omni``, ``decode``, ``fused`` and ``streaming``;
+  512x512), ``omni``, ``decode``, ``fused`` and ``streaming``, and its
+  inpainting (every route) and extrapolation modes;
 * the v1 stage-1 trainer (``configs/showo_pretraining_stage1.yaml``,
   warmup 0) through ``build_trainer`` on the ``trainable`` route: the
   frozen full MAGVIT-v2 encoder, 15 t2i + 4 lm + 10 mmu rows of 387
@@ -32,7 +33,9 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   tower, 26 layers; the DiT head, 10 layers, 32 q / 8 kv heads of 64; the
   Wan2.1 VAE decoder in fp32) through ``inference_t2i_v2.build_pipeline``:
   50-point Euler, CFG 7.5, batch 4 (8 rows with the null prompts), bf16,
-  the packed route (kernel 1 at head dims 128 and 64).
+  the packed route (kernel 1 at head dims 128 and 64); then with the
+  prefix cache, DPM-Solver++ 20, Heun 50, dopri5, and the streaming
+  route (kernel 5) without and with the cache.
 
 Phases, one or more lines each:
 
@@ -164,6 +167,35 @@ Phases, one or more lines each:
      zero-initialised adaLN and final projections drawn N(0, 0.02) so that
      the velocity depends on the towers), latents and t; max |dv| over the
      dense velocity's peak
+  14. (after phase 5) the v1 modes at 512x512 on the full-width slice
+     model: inpainting with the in-tree pair (``assets/validation/
+     inpainting``) on every inference route, 384 launches of the route's
+     kernel and 16 tile maps per inpaint, the unmasked tokens kept; then
+     extrapolation up then down on ``packed`` (2 x 384 launches), a 64 x 32
+     code grid decoded to 1024 x 512 images; codes in the codebook,
+     images finite in [-1, 1], warm seconds
+  15. kernels 1 and 5 at the Show-o2 slice's cached shapes: the 730 fresh
+     rows of the [cond; null] spans at the generate's per-row offsets (14
+     / 11 for the prompts, 2 for the null rows) against K=768 cached keys,
+     Qwen2.5 (12 / 2, D=128) and the DiT (32 / 8, D=64), through the
+     model's call on [B, S, H, D] views; each against its plain version,
+     its tile map (made once a generate with the fresh rows' metadata)
+     byte for byte, two launches bit-identical, a fault planted in the
+     plain version (one row's offset + 1) failing the check; median
+     times of kernel, plain version and scaled_dot_product_attention with
+     the boolean mask, device time a launch, bound
+  16. the Show-o2 slice with ``prefix_cache=True`` (Euler 50, phase 13's
+     weights): 38 x (1 prefill + 49 cached evaluations) = 1900 kernel 1
+     launches per generate, all on the wgmma core, 2 tile maps (the
+     prefill's rows, the fresh rows'); latents against the uncached
+     pipeline on the same noise (max |d| over the peak); warm seconds in
+     turns with ``prefix_cache=False``; peak memory
+  17. the samplers: DPM-Solver++ at 20 points, Heun at 50, dopri5 (its
+     velocity evaluations and steps printed), kernel 1 launches 38 a
+     velocity evaluation; then the ``streaming`` route (kernel 5 in all
+     38 layers, D=128 and 64) without and with the prefix cache, 38 x 49
+     / 38 x 50 launches and 1 / 2 tile maps, latents against ``packed``;
+     seconds and images/min beside Euler
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -319,6 +351,22 @@ V2_SHAPES = (("Qwen2.5 12/2 D=128", 12, 2, 128), ("DiT 32/8 D=64", 32, 8, 64))
 # unguided (1.92e-1 with CFG 7.5, which multiplies the difference of the
 # two halves by 7.5), 4x above the reading
 V2_STEP_TOL = 1e-1
+# the v1 modes (phase 14): extrapolation's directions, one generate each
+EXTRA_DIRECTIONS = ("up", "down")
+# the Show-o2 prefix cache (phase 16): 38 layers x (the prefill + 49
+# cached evaluations) kernel 1 launches, and two tile maps a generate (the
+# prefill's rows, the fresh rows')
+V2_CACHED_LAUNCHES, V2_CACHED_MAPS = V2_LAYERS * (1 + V2_EVALS), 2
+# the samplers of phase 17: (sampling_method, points of the time grid)
+V2_SAMPLERS = (("dpm-solver", 20), ("heun", 50), ("dopri5", 50))
+# dopri5's depth (Qwen, DiT, SigLIP layers; the widths are the slice's) and
+# batch 1: on these random bf16 weights with CFG 7.5 it took 1454 velocity
+# evaluations (242 steps) at full depth and batch 4, 199 s on an H100
+V2_DOPRI5_DEPTH = (4, 2, 4)
+# cached against uncached latents, streaming against packed latents, after
+# 49 Euler steps with CFG 7.5 (phases 16, 17): max |d| over the peak of
+# the uncached / packed latents; the same bf16 computation in two tilings
+V2_LATENT_TOL = 1e-1
 
 
 def _nvidia_smi() -> str:
@@ -1158,16 +1206,7 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
                              f"{pipe.attn_route}, {cfg}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     pipe.generate(prompts, gen)                       # warm-up
-    want = {name: 0 for name in COUNTERS}
-    want[KERNELS[route][0]] = NUM_LAYERS * TIMESTEPS
-    if route == "packed":
-        # every launch on the wgmma core
-        want[PACKED_WGMMA] = NUM_LAYERS * TIMESTEPS
-    if route in ROUTE_TILES:
-        want[ROUTE_TILES[route]] = TIMESTEPS        # one tile map a forward
-    if route == "fused":
-        want[FUSED_NORM] = NUM_LAYERS * TIMESTEPS   # a pass before each core
-
+    want = _route_want(route)
     cuda_build.launches.clear()
     images = pipe.generate(prompts, gen)
     counts = {name: cuda_build.launches[name] for name in want}
@@ -1942,7 +1981,7 @@ def phase_v2_parity(torch, pipe, prompts):
     attention under the additive omni mask: the same weights, latents and
     t.  The reference's zero init of the DiT's adaLN projections and of the
     FinalLayer makes the velocity 0 whatever the towers compute, so they
-    are drawn N(0, 0.02) first (this phase is the model's last use)."""
+    are drawn N(0, 0.02) first; phases 15-17 run on these weights."""
     from showo_tpu_torch.show_o2.masks import omni_attn_mask
     from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
 
@@ -1981,6 +2020,411 @@ def phase_v2_parity(torch, pipe, prompts):
         raise AssertionError(f"v2 velocity packed vs dense differs by "
                              f"{rel[0.0]} of the peak > {V2_STEP_TOL}")
     return rel
+
+
+def phase_v1_modes(torch, np, inference_t2i, cuda_build, config, prompts,
+                   smi):
+    """Inpainting (the in-tree pair, every route) and extrapolation (two
+    directions) at 512x512 on the full-width slice model; launch counts of
+    each call, codes, images, warm seconds.  Returns {route: launches of
+    one inpaint}, the extrapolation's launches."""
+    from PIL import Image
+
+    from showo_tpu_torch.pipelines.t2i import T2IPipeline
+    from showo_tpu_torch.utils.assets import inpainting_pair
+    from showo_tpu_torch.utils.image import (bicubic_resize_mask,
+                                             image_transform)
+
+    base = inference_t2i.build_pipeline(config, device=torch.device("cuda"))
+    cfg, res = base.cfg, base.resolution
+    if res != 512 or cfg.num_vq_tokens != 1024:
+        raise AssertionError(f"not the 512x512 slice: {res}, {cfg}")
+    src, msk = inpainting_pair()
+    image = image_transform(Image.open(src).convert("RGB"), res)
+    mask = image_transform(Image.open(msk).convert("L"), res,
+                           normalize=False)[:, :, 0]
+    masked = bicubic_resize_mask(mask, res // 16).reshape(-1).astype(bool)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for route in KERNELS:
+        pipe = T2IPipeline(
+            model=base.model, vq=base.vq, uni_prompting=base.uni_prompting,
+            guidance_scale=base.guidance_scale, timesteps=base.timesteps,
+            mask_schedule=base.mask_schedule,
+            max_seq_length=base.max_seq_length, resolution=res,
+            attn_impl=route)
+        pipe.inpaint(prompts[0], image, mask, gen, batch_size=BATCH)
+        want = _route_want(route)
+        cuda_build.launches.clear()
+        images = pipe.inpaint(prompts[0], image, mask, gen,
+                              batch_size=BATCH)
+        counts = {name: cuda_build.launches[name] for name in want}
+        if counts != want:
+            raise AssertionError(f"inpaint {route}: launches {counts}, want "
+                                 f"{want}")
+        _check_images(np, images, (BATCH, res, res, 3), f"inpaint {route}")
+        t0 = time.perf_counter()
+        codes = pipe.inpaint_codes(prompts[0], image, mask, gen,
+                                   batch_size=BATCH).cpu().numpy()
+        wall = time.perf_counter() - t0
+        own = pipe.encode(image)[0] - cfg.codebook_offset
+        if not (codes.min() >= 0 and codes.max() < cfg.codebook_size
+                and (codes[:, ~masked] == own[~masked]).all()):
+            raise AssertionError(f"inpaint {route}: codes out of the "
+                                 f"codebook or the unmasked tokens changed")
+        print(f"[14] inpaint 512x512 route {route}, the in-tree pair "
+              f"({int(masked.sum())} of {masked.size} tokens under the "
+              f"mask), {TIMESTEPS} steps, CFG {pipe.guidance_scale}, batch "
+              f"{BATCH}: launches {counts[KERNELS[route][0]]} = {NUM_LAYERS} "
+              f"x {TIMESTEPS} of {KERNELS[route][0]} (all on the wgmma "
+              f"core, {counts[ROUTE_TILES[route]]} tile maps), 0 of the "
+              f"others; the unmasked tokens kept; images {images.shape} "
+              f"finite in [-1, 1]; warm {wall:.4f} s (codes) on {smi}")
+        out[route] = {n: c for n, c in counts.items() if c}
+    pipe = T2IPipeline(
+        model=base.model, vq=base.vq, uni_prompting=base.uni_prompting,
+        guidance_scale=base.guidance_scale, timesteps=base.timesteps,
+        max_seq_length=base.max_seq_length, resolution=res,
+        attn_impl="packed")
+    dirs, texts = list(EXTRA_DIRECTIONS), prompts[:len(EXTRA_DIRECTIONS)]
+    pipe.extrapolate(texts, dirs, image, gen, batch_size=BATCH)
+    want = {n: c * len(dirs) if c else 0
+            for n, c in _route_want("packed").items()}
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    images = pipe.extrapolate(texts, dirs, image, gen, batch_size=BATCH)
+    wall = time.perf_counter() - t0
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"extrapolate: launches {counts}, want {want}")
+    W = res // 16
+    rows = W + len(dirs) * (W - W // 2)
+    _check_images(np, images, (BATCH, rows * 16, res, 3), "extrapolate")
+    grid = pipe.extrapolate_codes(texts, dirs, image, gen, batch_size=BATCH)
+    if not (grid.shape == (BATCH, rows, W) and grid.min() >= 0
+            and grid.max() < cfg.codebook_size):
+        raise AssertionError(f"extrapolate: grid {grid.shape} or codes out "
+                             f"of the codebook")
+    print(f"[14] extrapolate 512x512 {' then '.join(dirs)} (offset 0), "
+          f"packed, batch {BATCH}: launches "
+          f"{counts['omni_attention_packed']} = {len(dirs)} x {NUM_LAYERS} x "
+          f"{TIMESTEPS} (all on the wgmma core), 0 of the others; code grid "
+          f"{grid.shape[1:]}, images {images.shape} finite in [-1, 1]; warm "
+          f"{wall:.4f} s")
+    return out, {n: c for n, c in counts.items() if c}
+
+
+def _route_want(route):
+    """The launches of one cached MaskGIT generate on ``route``: its
+    kernel's in every layer of every step (on ``packed`` all on the wgmma
+    core), one tile map a forward, and on ``fused`` a LayerNorm + RoPE pass
+    before each core; none of the other kernels."""
+    want = {name: 0 for name in COUNTERS}
+    want[KERNELS[route][0]] = NUM_LAYERS * TIMESTEPS
+    if route == "packed":
+        want[PACKED_WGMMA] = NUM_LAYERS * TIMESTEPS
+    want[ROUTE_TILES[route]] = TIMESTEPS
+    if route == "fused":
+        want[FUSED_NORM] = NUM_LAYERS * TIMESTEPS
+    return want
+
+
+def _check_images(np, images, shape, label):
+    if images.shape != shape or not np.isfinite(images).all():
+        raise AssertionError(f"{label}: images {images.shape} (want "
+                             f"{shape}) or not finite")
+    if images.min() < -1.0 or images.max() > 1.0:
+        raise AssertionError(f"{label}: images outside [-1, 1]")
+
+
+def phase_v2_cached_kernels(torch, pipe, prompts):
+    """Kernels 1 and 5 at the Show-o2 slice's cached shapes: B=8 fresh
+    rows of the image span (Q=730) at the generate's per-row offsets
+    against the K=768 cached keys, Qwen2.5 and DiT heads, through the
+    model's call (``qwen2.gqa_attention`` on [B, S, H, D] views, the
+    tile map made once with the fresh rows' metadata); the map byte for
+    byte; a fault planted in the plain version (one row's offset + 1)
+    must fail (V of the keys past each span, which no fresh row sees, set
+    large: ``_tail_values``).  Returns {"packed": {label: result},
+    "streaming": ...}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.ops import streaming_attention as tsa
+    from showo_tpu_torch.show_o2 import qwen2 as tqwen2
+
+    text, mp = pipe.build_inputs(prompts)
+    B, L = text.shape
+    rows = tqwen2.cache_rows(mp[:, 0, 0], pipe.cfg.num_image_tokens)
+    n = rows[1].shape[1]
+    base = pipe.attention_inputs(text, mp, rows[1])[1]
+    m = (base.seg, base.pad, base.last_pad, base.prefix)
+    metas = {route: tqwen2.packed_meta((route, *m), rows[1])
+             for route in ("packed", "streaming")}
+    vis = tfa.visible_mask(*m, base.pos_q)
+    n_vis = int(vis.sum())
+    print(f"[15] the cached rows: B={B} Q={n} K={L}, offsets "
+          f"{mp[:, 0, 0].tolist()}; {n_vis} visible (row, key) pairs of "
+          f"{B * n * L} ({n_vis / (B * n * L):.4f})")
+    makers = {"packed": tfa.rows_tile_map, "streaming": tsa.streaming_tile_map}
+    maps = {}
+    for route, meta in metas.items():
+        tiles, maps[route] = _map_check(
+            torch, f"{route}'s tile map of the fresh rows "
+            f"{tuple(meta.tiles.shape)}",
+            lambda route=route: makers[route](*m, base.pos_q, base.seg_q),
+            lambda: tfa.rows_tile_map_plain(*m, base.pos_q),
+            4 * (4 * B * L + 2 * B) + meta.tiles.numel(),
+            B * (-(-n // 64) * 64) * (-(-L // 64) * 64), 15, flag=True)
+        if not torch.equal(meta.tiles, tiles):
+            raise AssertionError(f"{route}: the map the model reads differs")
+    g = torch.Generator(device="cuda").manual_seed(41)
+    out = {"packed": {}, "streaming": {}, "tiles": maps}
+    for label, H, Hkv, D in V2_SHAPES:
+        q = torch.randn(B, n, H, D, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, L, Hkv, D, generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        _tail_values(v, mp)
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        shape = f"{label}: B={B} Q={n} K={L} H={H} Hkv={Hkv} D={D}"
+        bound = _bound(2 * (2 * B * n * H + 2 * B * L * Hkv) * D
+                       + 4 * (4 * B * L + 2 * B), 4 * D * H * n_vis)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *heads, attn_mask=vis[:, None], enable_gqa=Hkv != H)
+
+        def plain(route, pos):
+            if route == "streaming":
+                return tsa.omni_attention_streaming_plain(
+                    *heads, *m, pos, sm_scale=D ** -0.5).transpose(
+                        1, 2).reshape(B, n, H * D)
+            return tfa.omni_attention_packed_plain(
+                q.reshape(B, n, -1), k.reshape(B, L, -1),
+                v.reshape(B, L, -1), *m, pos, num_heads=H,
+                num_kv_heads=Hkv, sm_scale=D ** -0.5)
+
+        for route, num in (("packed", 1), ("streaming", 5)):
+            meta = metas[route]
+
+            def kern(meta=meta):
+                return tqwen2.gqa_attention(q, k, v, None, meta)
+
+            res = _compare(torch, f"kernel {num} {shape}", kern,
+                           lambda route=route: plain(route, base.pos_q),
+                           bound, sdpa, phase=15)
+            got = kern()
+            same = torch.equal(got, kern())
+            shifted = base.pos_q.clone()
+            shifted[2] += 1
+            fault = (got.float() - plain(route, shifted).float()).abs().max(
+                ).item()
+            if not (same and fault > CARD_TOL):
+                raise AssertionError(f"{shape} kernel {num}: bit-identical "
+                                     f"{same}, planted offset fault {fault}")
+            dev_ms = _device_ms(torch, kern)
+            lib_dev = _device_ms(torch, sdpa)
+            res.update({"device_ms": dev_ms, "library_device_ms": lib_dev,
+                        "planted_fault": fault})
+            print(f"[15] kernel {num} {shape}: two launches bit-identical; "
+                  f"planted fault (row 2's offset + 1) in the plain version "
+                  f"{fault:.3e}, failing the check (tol {CARD_TOL:.0e}); "
+                  f"device time a launch (profiler, mean of 20) "
+                  f"{_ms(dev_ms)}, library {_ms(lib_dev)}")
+            out[route][label] = res
+        del q, k, v, heads
+    return out
+
+
+def _tail_values(v, mp, value: float = 64.0) -> None:
+    """V of the keys past each row's image span (its eoi / pad rows, which
+    no fresh row sees) set to ``value``, in place: a q row at a wrong
+    position past the span then sees one and moves by ~value / K, so the
+    planted offset fault shows above the check's tolerance."""
+    for b, (off, length) in enumerate(mp[:, 0].tolist()):
+        v[b, off + length:] = value
+
+
+def _v2_variant(pipe, **kw):
+    """A Show-o2 pipeline on ``pipe``'s model and VAE with other options."""
+    from showo_tpu_torch.pipelines.t2i_v2 import T2IV2Pipeline
+
+    opts = dict(guidance_scale=pipe.guidance_scale, num_steps=pipe.num_steps,
+                time_shifting_factor=pipe.time_shifting_factor,
+                max_text_len=pipe.max_text_len, attn_impl="packed")
+    opts.update(kw)
+    return T2IV2Pipeline(model=pipe.model, vae=pipe.vae,
+                         tokenizer=pipe.tokenizer, token_ids=pipe.token_ids,
+                         **opts)
+
+
+def _v2_run(torch, np, cuda_build, pipe, prompts, z, want, label):
+    """One counted generate of ``pipe`` from noise z: launch counts against
+    ``want``, images checked; returns (latents, wall s, counts)."""
+    cuda_build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = pipe.generate_latents(prompts, noise=z)
+    images = pipe.decode(lat)
+    wall = time.perf_counter() - t0
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    _check_images(np, images, (V2_BATCH, 432, 432, 3), label)
+    return lat, wall, counts
+
+
+def _v2_want(**counts):
+    want = {name: 0 for name in COUNTERS}
+    want.update(counts)
+    return want
+
+
+def _latent_diff(a, b, label, phase):
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    if not rel <= V2_LATENT_TOL:
+        raise AssertionError(f"{label}: latents differ by {rel} of the peak "
+                             f"> {V2_LATENT_TOL}")
+    return rel
+
+
+def phase_v2_cached(torch, np, cuda_build, pipe, prompts, smi):
+    """The Show-o2 slice with ``prefix_cache=True`` (Euler 50, the weights
+    of phase 13): launch counts, latents against the uncached pipeline on
+    the same noise, warm seconds in turns, peak memory.  Returns (counts,
+    readings, the noise, the uncached latents, the uncached wall)."""
+    cached = _v2_variant(pipe, prefix_cache=True)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    z = torch.randn(V2_BATCH, 16, 54, 54, generator=g, device="cuda")
+    want = _v2_want(omni_attention_packed=V2_CACHED_LAUNCHES,
+                    **{PACKED_WGMMA: V2_CACHED_LAUNCHES,
+                       PACKED_TILES: V2_CACHED_MAPS})
+    plain_want = _v2_want(omni_attention_packed=V2_LAYERS * V2_EVALS,
+                          **{PACKED_WGMMA: V2_LAYERS * V2_EVALS,
+                             PACKED_TILES: 1})
+    cached.generate_latents(prompts, noise=z)             # warm-up
+    walls = {"cached": [], "uncached": []}
+    lat = {}
+    for turn in range(2):
+        for which, p, w in (("cached", cached, want),
+                            ("uncached", pipe, plain_want)):
+            if turn == 0 and which == "cached":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            lat[which], wall, counts = _v2_run(
+                torch, np, cuda_build, p, prompts, z, w, f"v2 {which}")
+            walls[which].append(wall)
+            if turn == 0 and which == "cached":
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                cached_counts = counts
+    moved = (lat["uncached"] - z).abs().max().item()
+    if not moved > 1e-2:
+        raise AssertionError(f"v2: the steps did not move z ({moved})")
+    rel = _latent_diff(lat["cached"], lat["uncached"],
+                       "v2 cached vs uncached", 16)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    counts = cached_counts
+    print(f"[16] slice Show-o2 t2i 432x432 prefix_cache=True, packed, Euler "
+          f"50, CFG 7.5, batch {V2_BATCH}: launches per generate "
+          f"{counts['omni_attention_packed']} = {V2_LAYERS} x (1 prefill + "
+          f"{V2_EVALS} cached evaluations) of omni_attention_packed "
+          f"({counts[PACKED_WGMMA]} on the wgmma core), "
+          f"{counts[PACKED_TILES]} tile maps a generate (the prefill's rows "
+          f"and the fresh rows'), 0 of the others; latents (moved by up to "
+          f"{moved:.3f} from z) against the uncached pipeline on the same "
+          f"noise: max |d| / peak {rel:.4e} (tol {V2_LATENT_TOL}); warm s a "
+          f"batch in turns cached "
+          f"{', '.join(f'{w:.4f}' for w in walls['cached'])} / uncached "
+          f"{', '.join(f'{w:.4f}' for w in walls['uncached'])}: "
+          f"{V2_BATCH * 60 / med['cached']:.2f} / "
+          f"{V2_BATCH * 60 / med['uncached']:.2f} images/min; peak memory "
+          f"allocated {peak:.2f} GiB (cached) on {smi}")
+    return counts, {"wall_s": med["cached"], "uncached_wall_s":
+                    med["uncached"], "latent_rel_diff": rel, "peak_gib": peak,
+                    "images_per_min": V2_BATCH * 60 / med["cached"]}, \
+        z, lat["uncached"], med["uncached"]
+
+
+@contextlib.contextmanager
+def _shallow(model, qwen: int, dit: int, siglip: int):
+    """``model`` with only its first ``qwen`` / ``dit`` / ``siglip``
+    layers (the same widths and weights), restored after."""
+    nn = type(model.diffusion_head_a)
+    parts = [(model.showo.model, "layers", qwen),
+             (model, "diffusion_head_a", dit),
+             (model.und_trans, "layers", siglip)]
+    full = [getattr(owner, name) for owner, name, _ in parts]
+    try:
+        for (owner, name, n), layers in zip(parts, full):
+            setattr(owner, name, nn(list(layers)[:n]))
+        yield
+    finally:
+        for (owner, name, _), layers in zip(parts, full):
+            setattr(owner, name, layers)
+
+
+def phase_v2_samplers(torch, np, cuda_build, pipe, prompts, smi, z, ref,
+                      euler_s):
+    """DPM-Solver++ at 20 points and Heun at 50 at full depth, dopri5 (its
+    velocity evaluations printed) at the depth of ``V2_DOPRI5_DEPTH``,
+    then the ``streaming`` route without and with the prefix cache, its
+    latents against ``packed``'s (``ref``, from noise z); seconds and
+    images/min beside Euler (``euler_s``).  Returns (streaming counts
+    uncached, cached, readings)."""
+    out = {}
+    for method, points in V2_SAMPLERS:
+        p = _v2_variant(pipe, sampling_method=method, num_steps=points)
+        evals = {"dpm-solver": points - 1, "heun": 2 * (points - 1)}
+        depth = (V2_DOPRI5_DEPTH if method == "dopri5"
+                 else (V2_QWEN_LAYERS, V2_LAYERS - V2_QWEN_LAYERS, 26))
+        rows = prompts if method != "dopri5" else prompts[:1]
+        cuda_build.launches.clear()
+        with _shallow(pipe.model, *depth):
+            t0 = time.perf_counter()
+            lat = p.generate_latents(rows, noise=z[:len(rows)])
+            images = p.decode(lat)
+            wall = time.perf_counter() - t0
+        nfe = p.sampler_stats.get("nfe", evals.get(method))
+        launches = cuda_build.launches["omni_attention_packed"]
+        if launches != (depth[0] + depth[1]) * nfe:
+            raise AssertionError(f"{method}: {launches} kernel 1 launches "
+                                 f"for {nfe} evaluations")
+        _check_images(np, images, (len(rows), 432, 432, 3), method)
+        stats = "".join(f", {k} {v}" for k, v in p.sampler_stats.items())
+        cut = ("" if method != "dopri5" else
+               f" at Qwen {depth[0]} of {V2_QWEN_LAYERS}, DiT {depth[1]} of "
+               f"{V2_LAYERS - V2_QWEN_LAYERS}, SigLIP {depth[2]} of 26 layers "
+               f"(the same widths), batch 1")
+        print(f"[17] sampler {method}, {points}-point grid{cut}: {nfe} "
+              f"velocity evaluations{stats}, kernel 1 launches {launches} = "
+              f"{depth[0] + depth[1]} x {nfe}; images finite in [-1, 1]; "
+              f"{wall:.4f} s a batch of {len(rows)} "
+              f"({len(rows) * 60 / wall:.2f} images/min; Euler 50 at full "
+              f"depth, batch {V2_BATCH}: {euler_s:.4f} s)")
+        out[method] = {"nfe": nfe, "wall_s": wall, **p.sampler_stats}
+    stream_counts = {}
+    for cache in (False, True):
+        p = _v2_variant(pipe, attn_impl="streaming", prefix_cache=cache)
+        evals = (1 + V2_EVALS) if cache else V2_EVALS
+        want = _v2_want(streaming_attention=V2_LAYERS * evals,
+                        streaming_attention_tiles=2 if cache else 1)
+        lat, wall, counts = _v2_run(torch, np, cuda_build, p, prompts, z,
+                                    want, f"v2 streaming cache={cache}")
+        rel = _latent_diff(lat, ref, "v2 streaming vs packed", 17)
+        what = " with the prefix cache" if cache else ""
+        print(f"[17] route streaming{what}, Euler 50: launches {counts['streaming_attention']} = "
+              f"{V2_LAYERS} x {evals} of streaming_attention (kernel 5: "
+              f"{V2_QWEN_LAYERS} at D=128, {V2_LAYERS - V2_QWEN_LAYERS} at "
+              f"D=64 an evaluation), {counts['streaming_attention_tiles']} "
+              f"tile maps, 0 of the others; latents against packed: max "
+              f"|d| / peak {rel:.4e} (tol {V2_LATENT_TOL}); {wall:.4f} s "
+              f"({V2_BATCH * 60 / wall:.2f} images/min; packed Euler "
+              f"{euler_s:.4f} s) on {smi}")
+        stream_counts[cache] = counts
+        out[f"streaming{'_cached' if cache else ''}"] = {
+            "wall_s": wall, "latent_rel_diff": rel}
+    out["euler_wall_s"] = euler_s
+    return stream_counts[False], stream_counts[True], out
 
 
 def main() -> int:
@@ -2049,6 +2493,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     parts.append(("t2i 512x512 [3-5]", time.perf_counter()))
+
+    # [14] inpainting and extrapolation at 512x512
+    mode_launches, extra_launches = phase_v1_modes(
+        torch, np, inference_t2i, cuda_build, config, prompts, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("t2i modes [14]", time.perf_counter()))
 
     # the training phases: cuDNN convolutions (the frozen MAGVIT encoder)
     # back on PyTorch's default TF32; matmuls stay full fp32 (the dense
@@ -2189,8 +2640,17 @@ def main() -> int:
     v2_launches, v2_slice = phase_v2_slice(torch, np, cuda_build, pipe,
                                            v2_prompts, smi)
     phase_v2_parity(torch, pipe, v2_prompts)
-    pipe = None
     parts.append(("Show-o2 [3c, 12, 13]", time.perf_counter()))
+
+    # [15] kernels 1 and 5 at the cached shapes; [16] the prefix cache,
+    # [17] the samplers and the streaming route, on phase 13's weights
+    cached_results = phase_v2_cached_kernels(torch, pipe, v2_prompts)
+    cached_launches, cached_slice, z, ref, euler_s = phase_v2_cached(
+        torch, np, cuda_build, pipe, v2_prompts, smi)
+    stream_launches_v2, stream_cached_v2, samplers = phase_v2_samplers(
+        torch, np, cuda_build, pipe, v2_prompts, smi, z, ref, euler_s)
+    pipe = None
+    parts.append(("Show-o2 cache, samplers [15-17]", time.perf_counter()))
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -2204,6 +2664,9 @@ def main() -> int:
                  **r512}
         if route == "packed":
             entry["launches_wgmma"] = route_launches[route][PACKED_WGMMA]
+            entry["launches_extrapolate"] = extra_launches[name]
+        # one inpaint (phase 14) on the route
+        entry["launches_inpaint"] = mode_launches[route][name]
         if route == "fused":
             entry["part"] = ("the core's launch; 'whole': both launches, "
                              "the pass (fused_decode_norm_rope) and the core")
@@ -2252,6 +2715,22 @@ def main() -> int:
                         **cases[qwen], "case": qwen, "cases": cases,
                         **({"slice": v2_slice, "launches_wgmma":
                             v2_launches[PACKED_WGMMA]} if launches else {})})
+    for name, route, replaces, launches, extra in (
+            ("omni_attention_packed_v2_cached", "packed",
+             KERNELS["packed"][1], cached_launches["omni_attention_packed"],
+             {"slice": cached_slice,
+              "launches_wgmma": cached_launches[PACKED_WGMMA]}),
+            ("streaming_attention_v2", "streaming", KERNELS["streaming"][1],
+             stream_launches_v2["streaming_attention"],
+             {"launches_cached": stream_cached_v2["streaming_attention"],
+              "samplers": samplers})):
+        cases = cached_results[route]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{KERNELS[route][0]}"
+                                  f".cu (+ attention_fwd_sm90.cuh)",
+                        "replaces": replaces, "launches": launches,
+                        **cases[qwen], "case": f"{qwen}, cached rows",
+                        "cases": cases, **extra})
     for route, what in (("omni", "the mask of _attn_kernel, per block"),
                         ("fused", "the mask of _kernel, per block"),
                         ("streaming", "the mask of _stream_kernel, per "

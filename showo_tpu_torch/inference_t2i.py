@@ -3,8 +3,19 @@
     python -m showo_tpu_torch.inference_t2i \
         config=configs/showo_demo_512x512.yaml mode=t2i batch_size=2
 
-Counterpart of ``showo_tpu/inference_t2i.py`` for ``mode=t2i`` (the
-inpainting and extrapolation modes are not ported yet and raise).  Weights:
+Counterpart of ``showo_tpu/inference_t2i.py``, its three modes:
+
+* ``mode=t2i``: one PNG per prompt of the prompt file, ``t2i_%05d.png``;
+* ``mode=inpainting``: ``prompt``, ``image_path`` and
+  ``inpainting_mask_path`` (the in-tree pair
+  ``assets/validation/inpainting/`` when they are not given or do not
+  exist), ``batch_size`` images ``inpaint_%03d.png``;
+* ``mode=extrapolation``: ``prompt`` and ``extra_direction`` each split on
+  ``" *** "`` (one prompt per direction: left, right, up, down),
+  ``image_path``, ``offset``; ``batch_size`` images
+  ``extrapolate_%03d.png`` of the stitched canvas.
+
+Weights:
 ``model.showo.pretrained_model_path`` / ``model.vq_model.vq_model_name``
 are loaded when they exist locally as reference checkpoints (file or
 directory); otherwise the model is random-initialised from a fixed seed.
@@ -33,16 +44,13 @@ from showo_tpu_torch.models.phi import PhiConfig
 from showo_tpu_torch.models.showo import Showo, ShowoConfig, init_showo
 from showo_tpu_torch.pipelines.t2i import T2IPipeline
 from showo_tpu_torch.prompting import UniversalPrompting
+from showo_tpu_torch.utils.assets import (inpainting_pair,
+                                          validation_prompts_file)
 from showo_tpu_torch.utils.convert import (load_magvit,
                                            load_reference_weights, load_showo)
 from showo_tpu_torch.utils.device import entry_device
 
 logger = logging.getLogger(__name__)
-
-_ASSET_PROMPTS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "assets", "validation",
-    "text2image_prompts.txt")
-
 
 def build_showo_config(config) -> ShowoConfig:
     m = config.model.showo
@@ -115,10 +123,9 @@ def build_prompting(config) -> UniversalPrompting:
 def load_prompts(config) -> List[str]:
     """The non-empty lines of ``validation_prompts_file`` (top level, else
     ``dataset.params``) when it exists, else of the in-tree prompt list."""
-    path = config.get("validation_prompts_file",
-                      config.dataset.params.get("validation_prompts_file"))
-    if not (path and os.path.exists(path)):
-        path = _ASSET_PROMPTS
+    path = validation_prompts_file(config.get(
+        "validation_prompts_file",
+        config.dataset.params.get("validation_prompts_file")))
     with open(path) as f:
         return [p for p in f.read().splitlines() if p.strip()]
 
@@ -145,6 +152,7 @@ def build_pipeline(config, device: Optional[torch.device] = None,
                                  config.training.generation_timesteps)),
         mask_schedule=config.training.get("mask_schedule", "cosine"),
         max_seq_length=config.dataset.preprocessing.max_seq_length,
+        resolution=config.dataset.params.resolution,
         attn_impl=attn_impl,
     )
 
@@ -163,11 +171,7 @@ def main() -> None:
                                "%(message)s")
     config = get_config()
     mode = config.get("mode", "t2i")
-    if mode in ("inpainting", "extrapolation"):
-        raise NotImplementedError(
-            f"mode={mode} is not ported yet (the MAGVIT encoder it needs "
-            f"is)")
-    if mode != "t2i":
+    if mode not in ("t2i", "inpainting", "extrapolation"):
         raise SystemExit(f"unknown mode {mode}")
     pipe = build_pipeline(config, device=config.get("device"))
     batch_size = int(config.get("batch_size", 4))
@@ -175,14 +179,45 @@ def main() -> None:
         int(config.get("seed", 0)))
     outdir = config.get("output_dir", "outputs")
     os.makedirs(outdir, exist_ok=True)
+    resolution = config.dataset.params.resolution
 
-    prompts = load_prompts(config)
-    for step in range(0, len(prompts), batch_size):
-        chunk = prompts[step:step + batch_size]
-        images = pipe.generate(chunk, generator)
-        for i, im in enumerate(to_pil_images(images)):
-            im.save(os.path.join(outdir, f"t2i_{step + i:05d}.png"))
-        logger.info("generated %d images (step %d)", len(chunk), step)
+    if mode == "t2i":
+        prompts = load_prompts(config)
+        for step in range(0, len(prompts), batch_size):
+            chunk = prompts[step:step + batch_size]
+            images = pipe.generate(chunk, generator)
+            for i, im in enumerate(to_pil_images(images)):
+                im.save(os.path.join(outdir, f"t2i_{step + i:05d}.png"))
+            logger.info("generated %d images (step %d)", len(chunk), step)
+        return
+
+    from PIL import Image
+
+    from showo_tpu_torch.utils.image import image_transform
+
+    if mode == "inpainting":
+        src_path, mask_path = inpainting_pair(
+            config.get("image_path"), config.get("inpainting_mask_path"))
+        img = image_transform(Image.open(src_path).convert("RGB"),
+                              resolution)
+        mask = image_transform(Image.open(mask_path).convert("L"),
+                               resolution, normalize=False)[:, :, 0]
+        images = pipe.inpaint(config.prompt, img, mask, generator,
+                              batch_size=batch_size)
+        name = "inpaint"
+    else:
+        prompts = [p for p in config.prompt.split(" *** ") if p]
+        directions = [d for d in config.extra_direction.split(" *** ") if d]
+        img = image_transform(Image.open(config.image_path).convert("RGB"),
+                              resolution)
+        images = pipe.extrapolate(prompts, directions, img, generator,
+                                  offset=int(config.get("offset", 0)),
+                                  batch_size=batch_size)
+        name = "extrapolate"
+    for i, im in enumerate(to_pil_images(images)):
+        im.save(os.path.join(outdir, f"{name}_{i:03d}.png"))
+    logger.info("%s: wrote %d images of %s", mode, len(images),
+                tuple(images.shape[1:3]))
 
 
 if __name__ == "__main__":

@@ -35,15 +35,13 @@ from showo_tpu_torch.show_o2.qwen2 import Qwen2Config
 from showo_tpu_torch.show_o2.showo2 import Showo2, Showo2Config
 from showo_tpu_torch.show_o2.siglip import SigLipConfig
 from showo_tpu_torch.show_o2.wan_vae import WanVAE, WanVAEConfig
+from showo_tpu_torch.utils.assets import validation_prompts_file
 from showo_tpu_torch.utils.convert import (load_reference_weights,
                                            load_showo2, load_wan_vae)
 from showo_tpu_torch.utils.device import entry_device
 
 logger = logging.getLogger(__name__)
 
-_ASSET_PROMPTS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "assets", "validation",
-    "text2image_prompts.txt")
 
 QWEN_TOKEN_IDS = {  # qwen2.5 vocab ids (misc.py:371-386)
     "bos_id": 151644,   # <|im_start|>
@@ -167,12 +165,16 @@ def load_vae(config, device) -> WanVAE:
 
 
 def build_pipeline(config, device: Optional[torch.device] = None,
-                   attn_impl: str = "auto") -> T2IV2Pipeline:
+                   attn_impl: str = "auto",
+                   prefix_cache: bool = False) -> T2IV2Pipeline:
     """Config -> ready T2IV2Pipeline (weights loaded or random-init).
 
     device defaults to CUDA and raises without a card; the CPU runs only
     when asked for (``device="cpu"``).  attn_impl: the pipeline's
-    attention route (``T2IV2Pipeline.attn_impl``)."""
+    attention route (``T2IV2Pipeline.attn_impl``); prefix_cache: the
+    prefix-cached velocity (off, as in the JAX CLI, which has no key for
+    it).  ``transport.sampling_method`` picks the sampler: euler, heun,
+    dpm-solver (dpm) or dopri5."""
     device = entry_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = build_showo2_config(config)
@@ -188,16 +190,14 @@ def build_pipeline(config, device: Optional[torch.device] = None,
         max_text_len=int(config.dataset.preprocessing.get("max_text_len",
                                                           256)),
         sampling_method=str(tr.get("sampling_method", "euler")),
-        attn_impl=attn_impl)
+        attn_impl=attn_impl, prefix_cache=prefix_cache)
 
 
 def load_prompts(config) -> List[str]:
     """The non-empty lines of ``validation_prompts_file`` when it exists,
     else of the in-tree prompt list."""
-    path = config.get("validation_prompts_file")
-    if not (path and os.path.exists(path)):
-        path = _ASSET_PROMPTS
-    with open(path) as f:
+    with open(validation_prompts_file(
+            config.get("validation_prompts_file"))) as f:
         return [p for p in f.read().splitlines() if p.strip()]
 
 

@@ -9,11 +9,17 @@ decode of the cond half.
 As in JAX, the sequence is cut at the end of the image span, rounded up to
 128: the eoi / eos / pad rows after the span are seen by no image row, so
 they do not change the velocity.  The attention route is ``dense`` (the
-additive omni mask) or ``packed`` (kernel 1 in every layer of both towers,
+additive omni mask), ``packed`` (kernel 1 in every layer of both towers,
 the mask recomputed from the span metadata: seg from the modality
-positions, no pads, last_pad -1, prefix 0); ``auto`` takes ``packed``
-from 512 image tokens on.  The prefix KV cache and the solvers other than
-Euler belong to a later slice and raise.
+positions, no pads, last_pad -1, prefix 0) or ``streaming`` (kernel 5 on
+the same metadata); ``auto`` takes ``packed`` from 512 image tokens on.
+
+``prefix_cache=True`` (off by default, as in JAX) prefills both towers'
+K/V once a generate and re-forwards only the image span's rows in each
+velocity evaluation, on every route: the dense route's mask rows of the
+span are gathered once, a kernel route's metadata of the fresh rows (q at
+per-row positions, Q != K) and its tile map are made once.  The sampler
+is ``sampling_method``: euler, heun, dpm-solver (dpm) or dopri5.
 """
 
 from __future__ import annotations
@@ -27,18 +33,22 @@ import torch
 from showo_tpu_torch.ops.flash_attention import seg_from_modality_positions
 from showo_tpu_torch.show_o2.formats import prepare_gen_input
 from showo_tpu_torch.show_o2.masks import omni_attn_mask
-from showo_tpu_torch.show_o2.qwen2 import check_route, packed_meta
+from showo_tpu_torch.show_o2.qwen2 import (cache_rows, check_route,
+                                           packed_meta)
 from showo_tpu_torch.show_o2.showo2 import (Showo2, fuse_inference,
-                                            showo2_t2i_velocity)
+                                            showo2_t2i_prefill,
+                                            showo2_t2i_velocity,
+                                            showo2_t2i_velocity_cached)
 from showo_tpu_torch.show_o2.transport import (check_sampler, ode_timegrid,
-                                               sample_ode_euler)
+                                               sample)
 from showo_tpu_torch.show_o2.wan_vae import WanVAE, wan_decode
 
 
 def route_attention(attn_impl: str, num_image_tokens: int) -> str:
     """``auto``: the packed omni kernel from 512 image tokens on (the
     432x432 demo has 730), dense attention below, as the JAX pipeline
-    routes; any other name must be a route of ``qwen2.ATTN_ROUTES``."""
+    routes; any other name must be a route of ``qwen2.ATTN_ROUTES``
+    (``trainable`` raises NotImplementedError)."""
     if attn_impl == "auto":
         return "packed" if num_image_tokens >= 512 else "dense"
     return check_route(attn_impl)
@@ -54,15 +64,11 @@ class T2IV2Pipeline:
     num_steps: int = 50
     time_shifting_factor: float = 3.0
     max_text_len: int = 256
-    attn_impl: str = "auto"           # auto | dense | packed
-    sampling_method: str = "euler"
+    attn_impl: str = "auto"           # auto | dense | packed | streaming
+    sampling_method: str = "euler"    # euler | heun | dpm-solver | dopri5
     prefix_cache: bool = False
 
     def __post_init__(self):
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True (the KV-cached velocity) belongs to a "
-                "later slice of the port")
         # inference-only weight re-layout (in place), as the JAX pipeline's
         # default: one qkv and one gate/up matmul per layer of both towers
         fuse_inference(self.model)
@@ -72,6 +78,9 @@ class T2IV2Pipeline:
         check_sampler(self.sampling_method)
         self.t_grid = ode_timegrid(
             self.num_steps, time_shifting_factor=self.time_shifting_factor)
+        # the last generate's sampler counts (dopri5: nfe, accepted,
+        # rejected steps)
+        self.sampler_stats = {}
 
     @property
     def device(self) -> torch.device:
@@ -98,19 +107,47 @@ class T2IV2Pipeline:
         return (torch.as_tensor(text[:, :L], device=dev),
                 torch.as_tensor(mp_all, device=dev))
 
-    def attention_inputs(self, text: torch.Tensor, mp: torch.Tensor):
+    def attention_inputs(self, text: torch.Tensor, mp: torch.Tensor,
+                         q_positions=None):
         """(bias, attn_meta) of the route: the additive [B', 1, L, L] omni
-        mask for ``dense``; for ``packed`` the kernel's span metadata,
-        computed once for every layer of every velocity evaluation."""
+        mask for ``dense``; for ``packed`` and ``streaming`` the kernel's
+        span metadata and tile map, computed once for every layer of every
+        velocity evaluation.  ``q_positions`` [B', n]: the prefix cache's
+        fresh rows, whose mask rows (dense) or metadata (the kernels') are
+        made instead."""
         B, L = text.shape
         if self.attn_route == "dense":
-            return omni_attn_mask(mp, L), None
+            bias = omni_attn_mask(mp, L)
+            if q_positions is not None:
+                n = q_positions.shape[1]
+                bias = torch.gather(bias, 2, q_positions[:, None, :, None]
+                                    .expand(B, 1, n, L))
+            return bias, None
         dev = text.device
         return None, packed_meta((
-            "packed", seg_from_modality_positions(mp, L),
+            self.attn_route, seg_from_modality_positions(mp, L),
             torch.zeros((B, L), dtype=torch.int32, device=dev),
             torch.full((B,), -1, dtype=torch.int32, device=dev),
-            torch.zeros((B,), dtype=torch.int32, device=dev)))
+            torch.zeros((B,), dtype=torch.int32, device=dev)), q_positions)
+
+    def drift(self, text: torch.Tensor, mp: torch.Tensor):
+        """The velocity drift_fn(x, t) of one generate over the [cond;
+        null] rows ``text`` / ``mp``: the plain one, or with
+        ``prefix_cache`` the prefill of both towers (run here) and the
+        cached evaluation of the span's rows."""
+        bias, attn_meta = self.attention_inputs(text, mp)
+        kw = dict(guidance_scale=self.guidance_scale)
+        if not self.prefix_cache:
+            return lambda x, t: showo2_t2i_velocity(
+                self.model, text, x, t, bias, mp, attn_meta=attn_meta, **kw)
+        qwen_cache, dit_kv = showo2_t2i_prefill(self.model, text, bias, mp,
+                                                attn_meta)
+        n, offsets = self.cfg.num_image_tokens, mp[:, 0, 0]
+        rows = cache_rows(offsets, n)
+        bias_fresh, meta_fresh = self.attention_inputs(text, mp, rows[1])
+        return lambda x, t: showo2_t2i_velocity_cached(
+            self.model, x, t, bias_fresh, mp, qwen_cache, dit_kv,
+            attn_meta=meta_fresh, rows=rows, **kw)
 
     @torch.no_grad()
     def generate_latents(self, prompts: Sequence[str],
@@ -132,16 +169,11 @@ class T2IV2Pipeline:
                 raise ValueError(f"noise must be {shape}, got "
                                  f"{tuple(z.shape)}")
         text, mp = self.build_inputs(prompts)
-        bias, attn_meta = self.attention_inputs(text, mp)
         if self.guidance_scale > 0:
             z = torch.cat([z, z], dim=0)
-
-        def drift(x, t):
-            return showo2_t2i_velocity(self.model, text, x, t, bias, mp,
-                                       guidance_scale=self.guidance_scale,
-                                       attn_meta=attn_meta)
-
-        return sample_ode_euler(drift, z, self.t_grid)[:B]
+        self.sampler_stats = {}
+        return sample(self.sampling_method, self.drift(text, mp), z,
+                      self.t_grid, self.sampler_stats)[:B]
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> np.ndarray:

@@ -13,8 +13,11 @@ Counterpart of ``showo_tpu/show_o2/dit.py`` (show-o2/models/modules.py):
   * modulate() in fp32 (modules.py:98-106).
 
 Attention takes the routes of ``qwen2.ATTN_ROUTES``: dense under the
-additive mask, or the packed omni kernel (kernel 1 at head dim 64, GQA
-32/8).  The per-head q/k RMSNorm is one plain per-head norm; the JAX
+additive mask, the packed omni kernel (kernel 1 at head dim 64, GQA 32/8)
+or the K-blocked one (kernel 5).  :func:`dit_forward` also returns the
+fresh rows' roped K/V (the prefix cache's prefill) and runs fresh rows
+against a K/V cache at per-row offsets (its cached velocity).  The
+per-head q/k RMSNorm is one plain per-head norm; the JAX
 package's segment-matmul form of it is a TPU relayout workaround.  Module
 names follow the reference's ``diffusion_head_a.{i}`` /
 ``diffusion_head_b``.
@@ -30,8 +33,9 @@ import torch
 from torch import nn
 
 from showo_tpu_torch.show_o2.qwen2 import (PackedMeta, RMSNorm, SwiGLU,
-                                           apply_rope, fuse_attention_mlp,
-                                           gqa_attention, qkv_heads)
+                                           apply_rope, cache_rows,
+                                           fuse_attention_mlp, gqa_attention,
+                                           qkv_heads, write_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +218,12 @@ class ModulatedAttentionBlock(nn.Module):
             nn.SiLU(), nn.Linear(D, 6 * D, device=device, dtype=dtype))
 
     def forward(self, h, adaln_input, bias, cos, sin, modality_positions,
-                meta: Optional[PackedMeta] = None, full_span: bool = False):
+                meta: Optional[PackedMeta] = None, full_span: bool = False,
+                cache_kv=None, rows=None, kv_out=None):
+        """cache_kv: this layer's (k, v) cache [B, S_full, Hkv, Dh], the
+        fresh rows' roped K/V written at ``rows`` (``qwen2.write_rows``)
+        before the q rows attend to every cached key.  kv_out: (k, v)
+        buffers [B, S, Hkv, Dh] that receive the fresh roped K/V."""
         cfg = self.cfg
         B, L, _ = h.shape
         ada = self.adaLN_modulation(adaln_input)
@@ -248,6 +257,13 @@ class ModulatedAttentionBlock(nn.Module):
         if cfg.qk_norm:
             q, k = a.q_norm(q), a.k_norm(k)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if kv_out is not None:
+            kv_out[0].copy_(k)
+            kv_out[1].copy_(v)
+        if cache_kv is not None:
+            write_rows(cache_kv[0], k, rows)
+            write_rows(cache_kv[1], v, rows)
+            k, v = cache_kv
         attn = gqa_attention(
             q, k, v, bias, meta,
             softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype)
@@ -285,23 +301,41 @@ class FinalLayer(nn.Module):
 def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
                 attention_bias, modality_positions,
                 meta: Optional[PackedMeta] = None, positions=None,
-                full_span: bool = False) -> torch.Tensor:
+                full_span: bool = False, cache=None, cache_offsets=None,
+                return_kv: bool = False):
     """The stack of ModulatedAttentionBlocks (``layers``, reference
     ``diffusion_head_a``) over h [B, S, D] with the per-image adaLN input
     [B*M, D].  positions: optional [B or 1, S] rope positions (default
-    arange).  ``meta`` sends attention to the packed omni kernel.  Its
+    arange).  ``meta`` sends attention to its route's omni kernel.  Its
     tile map, made once per forward with Qwen's (``packed_meta``), holds
-    here too: the DiT attends over the same L rows of h as Qwen (q rows
-    at kv positions 0..L-1, Q = S = L) under the same seg / pad /
-    last_pad / prefix, and the map depends on nothing else."""
+    here too: the DiT attends over the same rows as Qwen (q rows at the
+    same kv positions, the same keys) under the same seg / pad / last_pad
+    / prefix, and the map depends on nothing else.
+
+    cache: (k, v) [L, B, S_full, Hkv, Dh], the constant rows' roped K/V;
+    the fresh rows' K/V are written into it in place at per-row
+    ``cache_offsets`` ([B], or the pair of ``qwen2.cache_rows``) and the
+    q rows attend to all S_full rows.  ``return_kv``: also return the
+    fresh rows' roped (k, v) [L, B, S, Hkv, Dh] (the prefill that makes
+    the cache)."""
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None]
     cos, sin = llama3_rope_tables(positions, cfg)
-    for layer in layers:
+    rows = cache_offsets
+    if cache is not None and torch.is_tensor(cache_offsets):
+        rows = cache_rows(cache_offsets, S)
+    kvs = None
+    if return_kv:
+        shape = (len(layers), B, S, cfg.num_kv_heads, cfg.head_dim)
+        kvs = tuple(torch.empty(shape, dtype=h.dtype, device=h.device)
+                    for _ in range(2))
+    for i, layer in enumerate(layers):
         h = layer(h, adaln_input, attention_bias, cos, sin,
-                  modality_positions, meta, full_span)
-    return h
+                  modality_positions, meta, full_span,
+                  None if cache is None else (cache[0][i], cache[1][i]),
+                  rows, None if kvs is None else (kvs[0][i], kvs[1][i]))
+    return (h, kvs) if return_kv else h
 
 
 def fuse_inference(layers) -> None:

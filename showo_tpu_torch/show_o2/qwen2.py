@@ -7,15 +7,21 @@ show-o2/models/qwen2.py):
   * full-head RoPE (default rope type), theta 1e6 for Qwen2.5;
   * the caller's dense [B, 1, L, L] additive omni mask is used as it is
     (the fork's raw mask passthrough), or an attention route
-    (``ATTN_ROUTES``) sends attention to the packed omni kernel;
-  * tied word embeddings (the 1.5B config): the logits are ``h @ embed.T``.
+    (``ATTN_ROUTES``) sends attention to an omni kernel: the packed one
+    (kernel 1) or the K-blocked one on head-major views (kernel 5);
+  * tied word embeddings (the 1.5B config): the logits are ``h @ embed.T``;
+  * a KV cache (:class:`Qwen2KVCache`) written in place at a shared offset
+    or at per-row offsets ``cache_offsets`` [B] (the text-to-image
+    prefix cache, whose CFG null rows start their image span elsewhere
+    than the prompts' rows); the q rows then sit at per-row positions
+    against every cached key (Q != K).
 
 The module tree carries the reference checkpoint's names
 (``model.layers.{i}.self_attn.q_proj`` ...), so a reference-layout state
 dict loads with ``load_state_dict``.  :func:`fuse_inference` re-lays the
 weights for inference (one qkv and one gate/up matmul per layer), as the
-JAX transform of the same name does.  The KV cache, per-row cache offsets,
-int8 weights and the trainable and streaming routes are not ported yet.
+JAX transform of the same name does.  Int8 weights and the trainable
+route (kernels 7 / 8 at head dim 128) are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,17 +37,26 @@ from torch import nn
 from showo_tpu_torch.ops.flash_attention import (omni_attention_packed,
                                                  rows_tile_map,
                                                  q_rows, span_meta)
+from showo_tpu_torch.ops.streaming_attention import (omni_attention_streaming,
+                                                     streaming_tile_map)
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
-#   dense   einsum attention under the additive bias (no kernel)
-#   packed  omni kernel on the packed [B, S, H*D] layout (kernel 1), with
-#           the mask recomputed from (seg, pad, last_pad, prefix)
-ATTN_ROUTES = {"dense": None, "packed": "pallas_packed"}
+#   dense      einsum attention under the additive bias (no kernel)
+#   packed     omni kernel on the packed [B, S, H*D] layout (kernel 1), with
+#              the mask recomputed from (seg, pad, last_pad, prefix)
+#   streaming  K-blocked omni kernel (kernel 5) on head-major views of the
+#              same q / k / v, the same mask
+ATTN_ROUTES = {"dense": None, "packed": "pallas_packed",
+               "streaming": "pallas_streaming"}
 
 
 def check_route(name: str) -> str:
-    """``name`` if it is a route of :data:`ATTN_ROUTES`; any other name (a
-    JAX impl string among them) raises ValueError."""
+    """``name`` if it is a route of :data:`ATTN_ROUTES`; ``trainable`` (JAX
+    pallas_trainable) raises NotImplementedError, any other name (a JAX
+    impl string among them) ValueError."""
+    if name == "trainable":
+        raise NotImplementedError("the Show-o2 trainable route waits for "
+                                  "kernels 7 and 8 at head dim 128")
     if name not in ATTN_ROUTES:
         port = {j: p for p, j in ATTN_ROUTES.items() if j}.get(name)
         hint = f" (the JAX package's name of route {port!r})" if port else ""
@@ -52,13 +67,14 @@ def check_route(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class PackedMeta:
-    """The packed kernel's metadata for one forward, computed once for all
-    layers of both towers (:func:`packed_meta`): seg / pad / last_pad /
-    prefix int32 and contiguous, the q rows' (pos_q, seg_q), and on CUDA
-    the tile map that the kernel reads (``rows_tile_map``; None on the
+    """An omni kernel's metadata for one forward, computed once for all
+    layers of both towers (:func:`packed_meta`): the route (``packed`` or
+    ``streaming``), seg / pad / last_pad / prefix int32 and contiguous,
+    the q rows' (pos_q, seg_q) [B, Q], and on CUDA the tile map that the
+    kernel reads (``rows_tile_map`` under the route's source; None on the
     CPU, whose plain version needs none).  The map depends on the metadata
-    alone, not on heads or head dim, so Qwen's layers (head dim 128) and
-    the DiT's (64) read the same one."""
+    and the q rows alone, not on heads or head dim, so Qwen's layers (head
+    dim 128) and the DiT's (64) read the same one."""
 
     seg: torch.Tensor
     pad: torch.Tensor
@@ -67,22 +83,69 @@ class PackedMeta:
     pos_q: torch.Tensor
     seg_q: torch.Tensor
     tiles: Optional[torch.Tensor] = None
+    route: str = "packed"
 
 
-def packed_meta(attn_meta) -> Optional[PackedMeta]:
-    """(route, seg, pad, last_pad, prefix) -> :class:`PackedMeta` of a
-    self-attention forward over the metadata's rows; None and a
+def packed_meta(attn_meta, q_positions=None) -> Optional[PackedMeta]:
+    """(route, seg, pad, last_pad, prefix) -> :class:`PackedMeta`: of a
+    self-attention forward over the metadata's rows, or, with
+    ``q_positions`` [B, Q], of Q query rows at those kv positions (the
+    prefix-cached forward of the fresh rows).  None and a
     :class:`PackedMeta` pass through."""
     if attn_meta is None or isinstance(attn_meta, PackedMeta):
         return attn_meta
     route, seg, pad, last_pad, prefix = attn_meta
-    if check_route(route) != "packed":
-        raise ValueError(f"the {route} route takes attn_meta=None")
+    if check_route(route) == "dense":
+        raise ValueError("the dense route takes attn_meta=None")
     B, S = seg.shape
     meta = span_meta(seg, pad, last_pad, prefix, B, S, seg.device)
-    pos_q, seg_q = q_rows(meta[0], torch.arange(S, device=seg.device), B, S)
-    tiles = rows_tile_map(*meta, pos_q, seg_q) if seg.is_cuda else None
-    return PackedMeta(*meta, pos_q, seg_q, tiles)
+    if q_positions is None:
+        q_positions = torch.arange(S, device=seg.device)
+    pos_q, seg_q = q_rows(meta[0], q_positions, B,
+                          torch.atleast_2d(q_positions).shape[1])
+    tiles = None
+    if seg.is_cuda:
+        make = streaming_tile_map if route == "streaming" else rows_tile_map
+        tiles = make(*meta, pos_q, seg_q)
+    return PackedMeta(*meta, pos_q, seg_q, tiles, route)
+
+
+@dataclasses.dataclass
+class Qwen2KVCache:
+    """Per-layer K/V [L, B, S_max, Hkv, Dh] (roped K), written in place by
+    :meth:`Qwen2.forward`; ``length`` the rows written at the shared
+    offset so far (the per-row path leaves it alone)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @classmethod
+    def zeros(cls, cfg: "Qwen2Config", batch: int, max_len: int,
+              dtype=torch.float32, device=None) -> "Qwen2KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_rows(offsets: torch.Tensor, rows: int):
+    """(batch index [B, 1], row index [B, rows]) of ``rows`` fresh rows at
+    per-row cache offsets [B]: the index of an in-place write of fresh K/V
+    into a [B, S_max, ...] cache.  It does not change between layers or
+    steps, so a generate makes it once (no host sync)."""
+    b = torch.arange(offsets.shape[0], device=offsets.device)[:, None]
+    return b, offsets[:, None].long() + torch.arange(rows,
+                                                     device=offsets.device)
+
+
+def write_rows(cache: torch.Tensor, fresh: torch.Tensor, rows) -> None:
+    """cache [B, S_max, ...] <- fresh [B, S, ...] at ``rows`` (a
+    :func:`cache_rows` pair, or an int: the same offset for every row)."""
+    if isinstance(rows, int):
+        cache[:, rows:rows + fresh.shape[1]] = fresh
+    else:
+        cache[rows] = fresh.to(cache.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,23 +213,32 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
                   softmax_dtype=torch.float32) -> torch.Tensor:
-    """q [B, S, H, Dh]; k, v [B, S, Hkv, Dh] (views are fine); bias
-    [B, 1, S, S] additive.  Returns [B, S, H*Dh].
+    """q [B, Q, H, Dh]; k, v [B, S, Hkv, Dh] (views are fine; S = Q but for
+    the prefix-cached rows); bias [B, 1, Q, S] additive.  Returns
+    [B, Q, H*Dh].
 
-    With ``meta`` the packed omni kernel recomputes the mask from it (the
-    bias is unused); otherwise the dense path: the kv-head groups folded
-    into the einsum (no repeated K/V), scores in ``softmax_dtype`` from
-    exact products of the stored operands, softmax, probabilities cast to
-    v's dtype."""
-    B, S, H, Dh = q.shape
-    Hkv = k.shape[2]
+    With ``meta`` its route's omni kernel recomputes the mask from it (the
+    bias is unused): ``packed`` on the [B, *, H*Dh] layout, ``streaming``
+    on head-major views.  Otherwise the dense path: the kv-head groups
+    folded into the einsum (no repeated K/V), scores in ``softmax_dtype``
+    from exact products of the stored operands, softmax, probabilities
+    cast to v's dtype."""
+    B, Q, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     if meta is not None:
+        rows = dict(q_positions=meta.pos_q, seg_q=meta.seg_q,
+                    tiles=meta.tiles)
+        m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
+        if meta.route == "streaming":
+            out = omni_attention_streaming(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), *m,
+                **rows)
+            return out.transpose(1, 2).reshape(B, Q, H * Dh)
         return omni_attention_packed(
-            q.reshape(B, S, H * Dh), k.reshape(B, S, Hkv * Dh),
-            v.reshape(B, S, Hkv * Dh), meta.seg, meta.pad, meta.last_pad,
-            meta.prefix, num_heads=H, num_kv_heads=Hkv,
-            q_positions=meta.pos_q, seg_q=meta.seg_q, tiles=meta.tiles)
-    qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+            q.reshape(B, Q, H * Dh), k.reshape(B, S, Hkv * Dh),
+            v.reshape(B, S, Hkv * Dh), *m, num_heads=H, num_kv_heads=Hkv,
+            **rows)
+    qg = q.reshape(B, Q, Hkv, H // Hkv, Dh)
     with torch.autocast(q.device.type, enabled=False):
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(softmax_dtype),
                               k.to(softmax_dtype)) / math.sqrt(Dh)
@@ -174,7 +246,7 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
             scores = scores + bias[:, :, None].to(softmax_dtype)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(B, S, H * Dh)
+    return out.reshape(B, Q, H * Dh)
 
 
 class Qwen2Attention(nn.Module):
@@ -234,12 +306,19 @@ class Qwen2DecoderLayer(nn.Module):
         self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size, device,
                           dtype)
 
-    def forward(self, h, bias, cos, sin, meta: Optional[PackedMeta] = None):
+    def forward(self, h, bias, cos, sin, meta: Optional[PackedMeta] = None,
+                cache_kv=None, rows=None):
+        """cache_kv: this layer's (k, v) cache [B, S_max, Hkv, Dh]; the
+        fresh rows' K/V are written at ``rows`` (:func:`write_rows`) and
+        the q rows attend to every cached key."""
         cfg = self.cfg
-        B, S, _ = h.shape
         q, k, v = qkv_heads(self.self_attn, self.input_layernorm(h),
                             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if cache_kv is not None:
+            write_rows(cache_kv[0], k, rows)
+            write_rows(cache_kv[1], v, rows)
+            k, v = cache_kv
         attn = gqa_attention(
             q, k, v, bias, meta,
             softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype)
@@ -259,7 +338,7 @@ class Qwen2Model(nn.Module):
 
 class Qwen2(nn.Module):
     """Qwen2 causal LM.  ``forward`` is the counterpart of JAX
-    ``qwen2_forward`` without a cache."""
+    ``qwen2_forward``."""
 
     def __init__(self, cfg: Qwen2Config, device=None, dtype=None):
         super().__init__()
@@ -270,26 +349,46 @@ class Qwen2(nn.Module):
                                      bias=False, device=device, dtype=dtype)
 
     def forward(self, input_ids=None, input_embeds=None, attention_bias=None,
-                position_ids=None, attn_meta=None, logits: bool = True):
+                position_ids=None, attn_meta=None, logits: bool = True,
+                cache: Optional[Qwen2KVCache] = None, cache_offsets=None):
         """Returns (logits or None, last hidden state after the final norm).
 
-        attention_bias: [B, 1, S, S] additive mask (the dense route).
-        attn_meta: optional ``("packed", seg, pad, last_pad, prefix)``, or
-        a :class:`PackedMeta` already computed, sending every layer's
-        attention to the packed omni kernel.  ``logits=False`` skips the
-        vocabulary projection (the velocity path reads only the hidden
-        state)."""
+        attention_bias: [B, 1, S, S] additive mask (the dense route; [B, 1,
+        S, S_max] with a cache).  attn_meta: optional ``(route, seg, pad,
+        last_pad, prefix)``, or a :class:`PackedMeta` already computed (it
+        must be, with per-row cache offsets: its q rows are the fresh
+        rows), sending every layer's attention to the route's omni kernel.
+        ``logits=False`` skips the vocabulary projection (the velocity path
+        reads only the hidden state).
+
+        cache: the fresh rows' K/V are written into it in place, at
+        ``cache.length`` (which then grows by S) or, with
+        ``cache_offsets`` ([B] tensor, or the pair of :func:`cache_rows`
+        made once), at each row's own offset; position_ids must then be
+        given.  The q rows attend to all S_max cached rows."""
         cfg = self.cfg
         if input_embeds is None:
             input_embeds = self.model.embed_tokens(input_ids)
         B, S, _ = input_embeds.shape
+        rows = None
+        if cache is not None:
+            rows = cache.length
+            if cache_offsets is not None:
+                rows = (cache_rows(cache_offsets, S)
+                        if torch.is_tensor(cache_offsets) else cache_offsets)
+            elif position_ids is None:
+                position_ids = rows + torch.arange(
+                    S, device=input_embeds.device)[None]
         if position_ids is None:
             position_ids = torch.arange(S, device=input_embeds.device)[None]
         cos, sin = rope_tables(position_ids, cfg.head_dim, cfg.rope_theta)
         meta = packed_meta(attn_meta)
         h = input_embeds
-        for layer in self.model.layers:
-            h = layer(h, attention_bias, cos, sin, meta)
+        for i, layer in enumerate(self.model.layers):
+            kv = None if cache is None else (cache.k[i], cache.v[i])
+            h = layer(h, attention_bias, cos, sin, meta, kv, rows)
+        if cache is not None and cache_offsets is None:
+            cache.length += S
         h = self.model.norm(h)
         if not logits:
             return None, h

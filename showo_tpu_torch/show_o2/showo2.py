@@ -11,13 +11,17 @@ show-o2/models/modeling_showo2_qwen2_5.py), its inference part:
     with adaLN by span and the FinalLayer producing the velocity
     (:373-393);
   * the velocity extraction with the reference's patchify / unpatchify
-    reshape pair (:145-158, 410-433) and CFG (:467-514).
+    reshape pair (:145-158, 410-433) and CFG (:467-514);
+  * the prefix-cached velocity: a prefill of both towers' K/V with zero
+    latents (:func:`showo2_t2i_prefill`), then each evaluation re-forwards
+    only the image span's rows against it
+    (:func:`showo2_t2i_velocity_cached`).
 
 Latents are NCHW at the interface, as in the reference and JAX.  The
 module tree carries the reference checkpoint's names, so the state dict
 that ``showo_tpu/utils/torch_export.py::showo2_state_dict`` writes loads
-with ``load_state_dict``.  The losses, the KV-cached prefill and velocity
-and the video paths are not ported yet.
+with ``load_state_dict``.  The losses and the video paths are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from showo_tpu_torch.show_o2.dit import (DiffusionHeadConfig, FinalLayer,
                                          TimestepEmbedder, dit_forward)
 from showo_tpu_torch.show_o2.dit import fuse_inference as fuse_dit
 from showo_tpu_torch.show_o2.masks import modality_gather, modality_scatter
-from showo_tpu_torch.show_o2.qwen2 import (Qwen2, Qwen2Config, RMSNorm,
-                                           init_normal, packed_meta)
+from showo_tpu_torch.show_o2.qwen2 import (Qwen2, Qwen2Config, Qwen2KVCache,
+                                           RMSNorm, cache_rows, init_normal,
+                                           packed_meta)
 from showo_tpu_torch.show_o2.qwen2 import fuse_inference as fuse_qwen2
 from showo_tpu_torch.show_o2.siglip import SigLipConfig, SiglipEncoder
 
@@ -144,9 +149,7 @@ def showo2_forward(model: Showo2, text_tokens: torch.Tensor,
     cfg = model.cfg
     input_embeds = model.showo.model.embed_tokens(text_tokens)
     image_embeds = embed_images(model, image_latents)
-    time_embeds = model.time_embed(t)                         # [B*M, D_dit]
-    time_proj = (model.time_embed_proj(time_embeds)
-                 if hasattr(model, "time_embed_proj") else time_embeds)
+    time_embeds, time_proj = _time_embeds(model, t)
     input_embeds = modality_scatter(input_embeds, image_embeds, time_proj,
                                     modality_positions,
                                     add_time_embeds=cfg.add_time_embeds)
@@ -154,11 +157,21 @@ def showo2_forward(model: Showo2, text_tokens: torch.Tensor,
     _, h = model.showo(input_embeds=input_embeds,
                        attention_bias=attention_bias, attn_meta=meta,
                        logits=False)
-    if hasattr(model, "diff_proj"):
-        h = model.diff_proj(h)
-    h = dit_forward(cfg.dit, model.diffusion_head_a, h, time_embeds,
-                    attention_bias, modality_positions, meta)
+    h = dit_forward(cfg.dit, model.diffusion_head_a, _diff_proj(model, h),
+                    time_embeds, attention_bias, modality_positions, meta)
     return model.diffusion_head_b(h, time_embeds, modality_positions)
+
+
+def _time_embeds(model: Showo2, t: torch.Tensor):
+    """(time embeddings [N, D_dit], their projection to the LLM width)."""
+    time_embeds = model.time_embed(t)
+    return time_embeds, (model.time_embed_proj(time_embeds)
+                         if hasattr(model, "time_embed_proj")
+                         else time_embeds)
+
+
+def _diff_proj(model: Showo2, h: torch.Tensor) -> torch.Tensor:
+    return model.diff_proj(h) if hasattr(model, "diff_proj") else h
 
 
 def unpatchify_v(cfg: Showo2Config, v: torch.Tensor, h_: int,
@@ -198,9 +211,98 @@ def showo2_t2i_velocity(model: Showo2, text_tokens: torch.Tensor,
                            attention_bias, modality_positions, attn_meta)
     h_ = cfg.image_latent_height // cfg.patch_size
     w_ = cfg.image_latent_width // cfg.patch_size
-    v = extract_v(cfg, v_seq, modality_positions, h_, w_)
+    return _guided(extract_v(cfg, v_seq, modality_positions, h_, w_),
+                   guidance_scale)
+
+
+def _guided(v: torch.Tensor, guidance_scale: float) -> torch.Tensor:
     if guidance_scale > 0:
         v_cond, v_uncond = v.chunk(2, dim=0)
         v_g = v_uncond + guidance_scale * (v_cond - v_uncond)
         return torch.cat([v_g, v_g], dim=0)
     return v
+
+
+def showo2_t2i_prefill(model: Showo2, text_tokens: torch.Tensor,
+                       attention_bias: Optional[torch.Tensor],
+                       modality_positions: torch.Tensor, attn_meta=None):
+    """The latent-independent K/V of every layer of both towers, once per
+    generate (JAX ``showo2_t2i_prefill``).  The text rows precede the
+    image span and attend only backwards, so their K/V never see the
+    latents: one forward with zero latents at t = 0 gives them exactly;
+    the span rows' entries are placeholders that every cached evaluation
+    overwrites.  Returns (qwen_cache, dit_kv): a :class:`Qwen2KVCache`
+    [28, B, L, Hkv, Dh] and the DiT's (k, v) [10, B, L, Hkv, Dh].
+    attn_meta: as :func:`showo2_forward` takes it (self-attention over the
+    L rows)."""
+    cfg = model.cfg
+    B, L = text_tokens.shape
+    M = modality_positions.shape[1]
+    input_embeds = model.showo.model.embed_tokens(text_tokens)
+    dtype, dev = input_embeds.dtype, input_embeds.device
+    lat = torch.zeros((B * M, cfg.image_latent_dim, cfg.image_latent_height,
+                       cfg.image_latent_width), dtype=dtype, device=dev)
+    time_embeds, time_proj = _time_embeds(
+        model, torch.zeros((B * M,), dtype=torch.float32, device=dev))
+    input_embeds = modality_scatter(input_embeds, embed_images(model, lat),
+                                    time_proj, modality_positions,
+                                    add_time_embeds=cfg.add_time_embeds)
+    meta = packed_meta(attn_meta)
+    cache = Qwen2KVCache.zeros(cfg.llm, B, L, dtype=dtype, device=dev)
+    _, h = model.showo(input_embeds=input_embeds,
+                       attention_bias=attention_bias, attn_meta=meta,
+                       logits=False, cache=cache)
+    _, dit_kv = dit_forward(cfg.dit, model.diffusion_head_a,
+                            _diff_proj(model, h), time_embeds,
+                            attention_bias, modality_positions, meta,
+                            return_kv=True)
+    return cache, dit_kv
+
+
+def showo2_t2i_velocity_cached(model: Showo2, image_latents: torch.Tensor,
+                               t: torch.Tensor,
+                               bias_fresh: Optional[torch.Tensor],
+                               modality_positions: torch.Tensor,
+                               qwen_cache: Qwen2KVCache, dit_kv,
+                               guidance_scale: float = 0.0, attn_meta=None,
+                               rows=None) -> torch.Tensor:
+    """One velocity evaluation that re-forwards only the image span's n
+    rows (its time token and patches) against the prefilled K/V of both
+    towers (JAX ``showo2_t2i_velocity_cached``): the fresh rows see the
+    same keys, rope positions and adaLN as in :func:`showo2_t2i_velocity`.
+
+    image_latents [B, C, H, W] (one span a row); t [B]; bias_fresh
+    [B, 1, n, L] (the dense route: the full mask's rows of the span);
+    modality_positions the full sequence's [B, 1, 2], whose offsets may
+    differ by row (the CFG null prompt's span starts at 2).  attn_meta: a
+    :class:`~showo_tpu_torch.show_o2.qwen2.PackedMeta` of the fresh rows
+    (``packed_meta(..., q_positions=offsets[:, None] + arange(n))``).
+    rows: the ``cache_rows`` index of the fresh rows, made once per
+    generate (made here when None).  The caches' span rows are
+    overwritten in place."""
+    cfg = model.cfg
+    image_embeds = embed_images(model, image_latents)
+    time_embeds, time_proj = _time_embeds(model, t)
+    fresh = image_embeds
+    if cfg.add_time_embeds:
+        fresh = torch.cat([time_proj[:, None].to(image_embeds.dtype),
+                           image_embeds], dim=1)
+    B, n, _ = fresh.shape
+    offsets = modality_positions[:, 0, 0]
+    pos_ids = offsets[:, None] + torch.arange(n, device=fresh.device)
+    if rows is None:
+        rows = cache_rows(offsets, n)
+    _, h = model.showo(input_embeds=fresh, attention_bias=bias_fresh,
+                       position_ids=pos_ids, attn_meta=attn_meta,
+                       logits=False, cache=qwen_cache, cache_offsets=rows)
+    # the fresh rows are the whole span: the adaLN spans collapse to one
+    # [B, 1, D] modulation a row (full_span)
+    mp_fresh = torch.tensor([[[0, n]]], device=fresh.device).expand(B, 1, 2)
+    h = dit_forward(cfg.dit, model.diffusion_head_a, _diff_proj(model, h),
+                    time_embeds, bias_fresh, mp_fresh, attn_meta,
+                    positions=pos_ids, full_span=True, cache=dit_kv,
+                    cache_offsets=rows)
+    v_seq = model.diffusion_head_b(h, time_embeds, mp_fresh, full_span=True)
+    h_ = cfg.image_latent_height // cfg.patch_size
+    w_ = cfg.image_latent_width // cfg.patch_size
+    return _guided(extract_v(cfg, v_seq, mp_fresh, h_, w_), guidance_scale)

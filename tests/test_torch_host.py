@@ -1,8 +1,9 @@
 """Host code of showo_tpu_torch held to the JAX package's.
 
 The port keeps its own copies of the config loader, the t2i and training
-prompting, the stand-in tokenizer, the Show-o2 sequence formats and the
-v2 tokenizer loader so that it never imports the JAX package.  These
+prompting, the stand-in tokenizer, the Show-o2 sequence formats, the v2
+tokenizer loader, the in-tree asset paths and the image transform so that
+it never imports the JAX package.  These
 tests show the copies agree with the originals exactly: the same config
 tree, the same token ids, the same t2i layout, the same training text
 blocks (conditioning dropout included) and lm / mmu blocks, also against
@@ -252,6 +253,47 @@ def test_v2_config_matches_jax():
                   "image_latent_width", "patch_size", "clip_latent_dim",
                   "add_time_embeds"):
             assert getattr(got, f) == getattr(want, f), f
+
+
+def test_assets_match_jax(tmp_path):
+    """The asset paths resolve as the JAX package's do: the in-tree
+    inpainting pair and prompt list, a given path that exists, and
+    nothing where neither exists."""
+    from showo_tpu.utils import assets as jassets
+    from showo_tpu_torch.utils import assets as tassets
+
+    assert tassets.ASSETS_DIR == jassets.ASSETS_DIR
+    pair = tassets.inpainting_pair()
+    assert pair == jassets.inpainting_pair() and all(map(os.path.exists,
+                                                         pair))
+    own = tmp_path / "mask.png"
+    own.write_bytes(b"")
+    for args in ((None, str(own)), (str(own), "no/such/mask.png")):
+        assert tassets.inpainting_pair(*args) == jassets.inpainting_pair(*args)
+    for preferred in (None, str(own), "no/such/prompts.txt"):
+        assert (tassets.validation_prompts_file(preferred)
+                == jassets.validation_prompts_file(preferred))
+    assert tassets.resolve(None, "no-such-asset") is None
+    assert jassets.resolve(None, "no-such-asset") is None
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("asset", ["inpainting/mask.png",
+                                   "inpainting/source.png"])
+def test_image_transform_matches_jax(asset, normalize):
+    """``image_transform`` with and without ``normalize`` (the inpainting
+    mask is read in [0, 1]) equals the JAX package's, bit for bit."""
+    from PIL import Image
+
+    from showo_tpu.utils import image as jimage
+    from showo_tpu_torch.utils import image as timage
+
+    img = Image.open(os.path.join(REPO, "assets", "validation", asset))
+    img = img.convert("L" if "mask" in asset else "RGB")
+    for res in (64, 256, 512):
+        np.testing.assert_array_equal(
+            timage.image_transform(img, res, normalize=normalize),
+            jimage.image_transform(img, res, normalize=normalize))
 
 
 def _imports(path):

@@ -16,8 +16,9 @@ reference goldens, on the CPU, fp32.
   9-frame clip, the time upsample path), atol 1e-4 / rtol 1e-3 (the JAX
   test's); the weight exporter's round trip through
   ``wan_vae_params_from_torch``, exact.
-* ``ode_timegrid`` against tests/golden/transport.npz and JAX, Euler
-  against JAX on a nonlinear field.
+* ``ode_timegrid`` against tests/golden/transport.npz and JAX; Euler,
+  Heun, DPM-Solver++ and dopri5 against JAX on a nonlinear field (more in
+  tests/test_torch_transport.py).
 * ``showo2_t2i_velocity`` with CFG on both routes against JAX, weights
   carried by ``showo2_state_dict``: atol 2e-5 on velocities of size ~0.1
   (fp32 end to end; the two frameworks sum in other orders).
@@ -352,10 +353,23 @@ def test_euler_vs_jax():
 
 @pytest.mark.parametrize("method", ["heun", "dpm-solver", "dopri5"])
 def test_other_solvers_raise(method):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttransport.check_sampler(method)
+    """The JAX package's other ODE samplers are ported: each is a
+    ``sampling_method`` the pipeline takes and matches JAX on a nonlinear
+    field (on JAX's own time grid); an unknown name still raises."""
+    assert ttransport.check_sampler(method) == method
     with pytest.raises(ValueError, match="unknown"):
         ttransport.check_sampler("rk4")
+    x = np.random.default_rng(1).normal(size=(3, 4, 5)).astype(np.float32)
+    jgrid = jtransport.ode_timegrid(11, time_shifting_factor=3.0)
+    got = ttransport.sample(
+        method, lambda x, t: torch.sin(x) * t[:, None, None] - x,
+        torch.as_tensor(x), torch.as_tensor(np.asarray(jgrid)))
+    jfn = {"heun": lambda d, x: jtransport.sample_ode_heun(d, x, jgrid),
+           "dpm-solver": lambda d, x: jtransport.sample_dpm_solver_pp(
+               d, x, jgrid),
+           "dopri5": jtransport.sample_ode_dopri5}[method]
+    want = jfn(lambda x, t: jnp.sin(x) * t[:, None, None] - x, jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 # -- the whole model's velocity -------------------------------------------------

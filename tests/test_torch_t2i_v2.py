@@ -10,8 +10,9 @@ CPU (fp32), at the sizes of tests/test_t2i_v2_pipeline.py.
   multiplies their difference by 5), images within atol 1e-4 / rtol 1e-3
   (the decoder's tolerance against its golden).
 * ``build_pipeline`` routes, counts its kernel wrapper's calls, raises
-  without a card unless asked for the CPU, and refuses what is not
-  ported; the CLI writes PNGs without importing jax or the JAX package.
+  without a card unless asked for the CPU; the samplers heun and dopri5
+  and ``prefix_cache=True`` (which used to raise) match JAX's pipeline;
+  the CLI writes PNGs without importing jax or the JAX package.
 * On the card: the pipeline at real head dims (128 in the LLM, 64 in the
   DiT), packed against dense latents, with the kernel's launch count.
 """
@@ -86,9 +87,14 @@ def weights():
     return jcfg, tcfg, params, vae_params
 
 
-def _pipelines(weights, route):
+def _pipelines(weights, route, **options):
+    """(JAX pipeline, port pipeline) on the same weights, the port's on
+    ``route`` (JAX: auto, dense at this size, or pallas_packed: JAX's
+    streaming kernel takes no per-row q positions), both with
+    ``options`` (sampling_method, prefix_cache)."""
     jcfg, tcfg, params, vae_params = weights
-    kw = dict(guidance_scale=5.0, num_steps=STEPS, max_text_len=12)
+    kw = dict(guidance_scale=5.0, num_steps=STEPS, max_text_len=12,
+              **options)
     jpipe = JaxPipeline(
         cfg=jcfg, params=jax.tree.map(jnp.asarray, params), vae_cfg=VAE_TINY,
         vae_params=vae_params, tokenizer=Tok(), token_ids=IDS,
@@ -155,14 +161,22 @@ def test_generator_noise_is_seeded(weights):
 
 
 def test_auto_route_and_route_names():
+    """``auto`` as JAX; ``streaming`` (kernel 5) is a route now; JAX
+    strings raise ValueError naming the port's route; ``trainable``
+    raises NotImplementedError naming the kernels it waits for."""
     assert route_attention("auto", 730) == "packed"
     assert route_attention("auto", 512) == "packed"
     assert route_attention("auto", 511) == "dense"
     assert route_attention("dense", 730) == "dense"
+    assert route_attention("streaming", 730) == "streaming"
     with pytest.raises(ValueError, match="'packed'"):
         route_attention("pallas_packed", 730)
+    with pytest.raises(ValueError, match="'streaming'"):
+        route_attention("pallas_streaming", 730)
+    with pytest.raises(NotImplementedError, match="kernels 7 and 8"):
+        route_attention("trainable", 730)
     with pytest.raises(ValueError, match="unknown"):
-        route_attention("streaming", 730)
+        route_attention("flash", 730)
 
 
 def test_build_pipeline_on_the_cpu():
@@ -194,22 +208,54 @@ def test_build_pipeline_needs_a_card_or_the_cpu():
             inference_t2i_v2.build_pipeline(config)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["transport.sampling_method=heun"], "later slice"),
-    (["transport.sampling_method=dopri5"], "later slice"),
+# dopri5 against JAX: the two velocities differ by fp32 summation order
+# (~2e-5), which moves the adaptive steps a little; the two solutions then
+# differ by the integrator's own error, held to its rtol 1e-3 on latents of
+# size ~1
+DOPRI5_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("extra,method", [
+    (["transport.sampling_method=heun"], "heun"),
+    (["transport.sampling_method=dopri5"], "dopri5"),
 ])
-def test_unported_options_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        inference_t2i_v2.build_pipeline(_tiny_config(*extra),
-                                        torch.device("cpu"))
+def test_unported_options_raise(weights, extra, method):
+    """The samplers that used to raise: the config key builds the pipeline
+    with the sampler, which runs and matches JAX's pipeline on the same
+    weights and z (latents within atol 1e-4); an unknown one still
+    raises."""
+    pipe = inference_t2i_v2.build_pipeline(_tiny_config(*extra),
+                                           torch.device("cpu"))
+    assert pipe.sampling_method == method
+    jpipe, tpipe = _pipelines(weights, "dense", sampling_method=method)
+    z = np.random.default_rng(8).normal(size=(2, 16, 8, 8)).astype(
+        np.float32)
+    _, _, jlat, _ = _jax_generate(jpipe, jnp.asarray(z))
+    lat = tpipe.generate_latents(PROMPTS, noise=z)
+    np.testing.assert_allclose(lat.numpy(), jlat, rtol=0,
+                               atol=DOPRI5_ATOL if method == "dopri5"
+                               else 1e-4)
+    with pytest.raises(ValueError, match="unknown sampling_method"):
+        inference_t2i_v2.build_pipeline(
+            _tiny_config("transport.sampling_method=rk4"),
+            torch.device("cpu"))
 
 
 def test_prefix_cache_raises(weights):
-    _, tpipe = _pipelines(weights, "dense")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T2IV2Pipeline(model=tpipe.model, vae=tpipe.vae,
-                      tokenizer=tpipe.tokenizer, token_ids=tpipe.token_ids,
-                      prefix_cache=True)
+    """``prefix_cache=True``, which used to raise: the cached pipeline's
+    latents match JAX's cached pipeline (packed route, JAX's kernel in
+    interpret mode) and the port's uncached ones."""
+    jpipe, tpipe = _pipelines(weights, "packed", prefix_cache=True)
+    assert tpipe.prefix_cache
+    z = np.random.default_rng(9).normal(size=(2, 16, 8, 8)).astype(
+        np.float32)
+    _, _, jlat, _ = _jax_generate(jpipe, jnp.asarray(z))
+    lat = tpipe.generate_latents(PROMPTS, noise=z)
+    np.testing.assert_allclose(lat.numpy(), jlat, atol=1e-4, rtol=0)
+    _, plain = _pipelines(weights, "packed")
+    np.testing.assert_allclose(
+        lat.numpy(), plain.generate_latents(PROMPTS, noise=z).numpy(),
+        atol=1e-4, rtol=0)
 
 
 def test_cli_runs_without_jax(tmp_path):
