@@ -35,7 +35,14 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   50-point Euler, CFG 7.5, batch 4 (8 rows with the null prompts), bf16,
   the packed route (kernel 1 at head dims 128 and 64); then with the
   prefix cache, DPM-Solver++ 20, Heun 50, dopri5, and the streaming
-  route (kernel 5) without and with the cache.
+  route (kernel 5) without and with the cache;
+* Show-o2 1.5B multimodal understanding at 432x432 (the same config: the
+  Wan2.1 VAE encoder in fp32, SigLIP and Qwen2.5, dense attention as in
+  JAX) through ``inference_mmu_v2.build_pipeline``: one image, one
+  question, 100 greedy tokens over the KV cache, with bf16 weights and
+  with weight-only int8 (every Qwen2 matmul and the tied head on kernel
+  9); and video understanding (9 frames, 3 latent frames) through
+  ``inference_mmu_vid.build_pipeline``, bf16.
 
 Phases, one or more lines each:
 
@@ -125,16 +132,23 @@ Phases, one or more lines each:
      time), the bound; the core that ran (the decode gemv at M=1, the
      source's prefill kernel above M=4), the same bits on two calls, the
      device launches a product (one for the gemv); above M=4 the first mma
-     kernel checked and timed beside the prefill kernel on the same inputs
+     kernel checked and timed beside the prefill kernel on the same inputs;
+     then kernel 9 at Qwen2.5-1.5B's products (the fused qkv with its bias,
+     o, gate-up, down, the tied lm_head of N = 151940 on rows padded to
+     151952) at M=1 and at the v2 image prompt's 746 rows: the same checks
+     (error, planted fault, core, bits), event and device times of kernel,
+     plain version and the library, and the bound
   10. the discrete understanding slice, bf16 then int8 weights: per answer
      the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
      lm_head, prefill and 100 decode forwards: 49 on the prefill kernel,
      4900 on the gemv) and never with bf16, every
-     other kernel none; tokens in the vocabulary; prompt, prefill and
-     decode times, tokens/s against the weight-streaming bound, peak
-     memory, device idle share over one answer (profiler), device busy per
-     token and the gemv's device launches and time per token; then the two
-     pipelines' answers in turns
+     other kernel none (counted over the first answer); tokens in the
+     vocabulary; prompt and prefill times (medians of 3), one warm
+     answer's and the decode time it gives, tokens/s against the
+     weight-streaming bound, peak memory, device idle share over one
+     answer (profiler), device busy per token and the gemv's device
+     launches and time per token; then one answer of each pipeline in
+     turns, twice
   11. prefill logits with int8, bf16 and fp32 weights on the same seeded
      model: int8 vs fp32 within the JAX package's int8 limits (top-1
      agreement >= 0.95, max abs difference / peak < 0.05), the other
@@ -196,6 +210,24 @@ Phases, one or more lines each:
      38 layers, D=128 and 64) without and with the prefix cache, 38 x 49
      / 38 x 50 launches and 1 / 2 tile maps, latents against ``packed``;
      seconds and images/min beside Euler
+  18. Show-o2 image understanding (after phase 17), bf16 then int8 on a
+     copy of the model: per int8 answer kernel 9 launches 113 x 101 times
+     (28 x (qkv, o, gate-up, down) + lm_head, the prefill's 113 on the
+     prefill kernel, 11300 on the gemv), none with bf16, and no attention
+     kernel in either; tokens in the vocabulary; VAE encode, prompt and
+     prefill times (medians of 3), one warm answer's, decode tokens/s
+     against the weight-streaming bound (3.087 GB a token in bf16, 1.543
+     GB in int8), peak memory, the device idle share over one answer; then
+     the prefill logits of one scaffold with int8, bf16 and fp32 Qwen2
+     weights of the same seeds and with the int8 weights computed exactly
+     in fp32: int8 on kernel 9 held to that exact int8 model (max abs
+     difference / peak < 0.05, top-1 agreement no more than 0.02 below
+     bf16's against fp32); int8 vs fp32 read beside it, not held (on
+     these random weights the exact int8 model itself agrees with fp32 on
+     ~0.88 of the rows)
+  18b. Show-o2 video understanding, bf16: 9 frames made from the in-tree
+     image, read by ``load_video``; 3 latent frames, the prompt rows, one
+     greedy answer's tokens in the vocabulary, no kernel, its wall time
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -363,6 +395,30 @@ V2_SAMPLERS = (("dpm-solver", 20), ("heun", 50), ("dopri5", 50))
 # batch 1: on these random bf16 weights with CFG 7.5 it took 1454 velocity
 # evaluations (242 steps) at full depth and batch 4, 199 s on an H100
 V2_DOPRI5_DEPTH = (4, 2, 4)
+# Show-o2 understanding (phases 18, 18b): the v2 config's greedy answers of
+# MMU_NEW_TOKENS tokens to MMU_QUESTION; with int8 every forward runs
+# kernel 9 on 28 x (qkv, o, gate-up, down) + the tied lm_head
+V2_MATMULS = 4 * V2_QWEN_LAYERS + 1
+# kernel 9 at Qwen2.5-1.5B's products: name -> (K, N, bias)
+V2_INT8_SHAPES = {"qkv": (1536, 2048, True), "o": (1536, 1536, False),
+                  "gate-up": (1536, 17920, False),
+                  "down": (8960, 1536, False),
+                  "lm_head": (1536, 151940, False)}
+# the image prompt's rows with the stand-in tokenizer: [bos] + 6 system
+# words + "user", [boi], the time token, 729 patches, [eoi] + 5 question
+# words + "assistant" (phase 18 asserts them; phase 9 times them)
+V2_PROMPT_ROWS = 746
+# phase 18's logits: the top-1 agreement of int8 on kernel 9 against the
+# int8 weights computed exactly may fall below that of bf16 against fp32 by
+# this much.  On the random weights the median top-1 margin is ~0.1 of a
+# peak of ~4, so bf16 arithmetic alone agrees with fp32 on ~0.95 of the
+# rows and the quantization alone on ~0.88 (read on an H100 80GB HBM3 at
+# 700 W: int8 vs the exact int8 model 0.9477, bf16 vs fp32 0.9531, the
+# exact int8 model vs fp32 0.8767)
+V2_AGREE_SLACK = 0.02
+# the video clip: 9 frames of 432x432, 3 latent frames after the VAE's two
+# time downsamples
+V2_VIDEO_FRAMES, V2_LATENT_FRAMES = 9, 3
 # cached against uncached latents, streaming against packed latents, after
 # 49 Euler steps with CFG 7.5 (phases 16, 17): max |d| over the peak of
 # the uncached / packed latents; the same bf16 computation in two tilings
@@ -1343,20 +1399,24 @@ def _first_mma_kernel():
         ti8.WeightStream.core = choose
 
 
-def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
+def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed, bias=False,
+               beside=True):
     """One weight-streaming product against its plain version: the error
     (max abs over the plain output's peak), a planted fault (each column
     scaled by its neighbour's scale) that must fail the same check, median
     times of kernel, plain version, ``torch.matmul`` on dequantized bf16
-    weights (the library) and the eager dequantize-then-matmul, and the
-    bound.  The weights rotate through copies that exceed the L2 twice, as
+    weights (the library) and, with ``beside``, the eager
+    dequantize-then-matmul, and the bound.  ``bias``: a bf16 bias added
+    by every call (the library's after its product).  The weights rotate
+    through copies that exceed the L2 twice, as
     the layers of a decode step do (each reads other weights).  The core
     of :func:`select_core` must be the one that ran (the gemv at decode
     rows, the source's prefill kernel above), two calls must give the same
     bits (split-K), and the device launches a product are read from the
-    trace.  Above the decode rows the first mma kernel
+    trace.  Above the decode rows and with ``beside`` the first mma kernel
     (:func:`_first_mma_kernel`) is checked and timed beside the prefill
-    kernel on the same inputs."""
+    kernel on the same inputs; without ``beside`` the plain version's
+    device time is read instead of the eager one's."""
     from showo_tpu_torch.ops import int4_matmul as ti4
     from showo_tpu_torch.ops import int8_matmul as ti8
 
@@ -1370,6 +1430,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
           for _ in range(n_copies)]
     x = torch.randn(M, K, generator=g, device=dev).bfloat16()
     s = (torch.rand(1, N, generator=g, device=dev) * 0.01 + 1e-3).bfloat16()
+    b = (torch.randn(padded, generator=g, device=dev).bfloat16()[:N]
+         if bias else None)
     if int4:
         kern, plain = ti4.pallas_nib_matmul, ti4.nib_matmul_plain
         widen = lambda w: torch.cat(ti4.unpack_nibbles(w)).to(torch.bfloat16)
@@ -1381,8 +1443,8 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     want_runs = {f"{source}_prefill": int(prefill),
                  f"{source}_gemv": int(not prefill)}
     before = {n: cuda_build.launches[n] for n in want_runs}
-    got, want = kern(x, ws[0], s), plain(x, ws[0], s)
-    again = kern(x, ws[0], s)
+    got, want = kern(x, ws[0], s, b), plain(x, ws[0], s, b)
+    again = kern(x, ws[0], s, b)
     torch.cuda.synchronize()
     runs = {n: (cuda_build.launches[n] - before[n]) // 2 for n in want_runs}
     if runs != want_runs:
@@ -1401,14 +1463,14 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     err = (got.float() - want.float()).abs().max().item()
     extra = {"plan": dict(plan._asdict()), "bit_stable": True}
     del again
-    if prefill:
+    if prefill and beside:
         with _first_mma_kernel():
-            old = kern(x, ws[0], s)
+            old = kern(x, ws[0], s, b)
         torch.cuda.synchronize()
         extra["old_max_abs_err"] = (old.float() - want.float()).abs().max(
             ).item()
         del old
-    fault = (plain(x, ws[0], s.roll(1, dims=-1)).float()
+    fault = (plain(x, ws[0], s.roll(1, dims=-1), b).float()
              - want.float()).abs().max().item()
     tol = WSMM_TOL * peak
     if not err <= tol:
@@ -1422,61 +1484,74 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed):
     wn = _rotation(ws)
     deq = [widen(w) * s for w in ws[:max(1, -(-n_copies // 2))]]
     dn = _rotation(deq)
-    calls = {"kernel": lambda: kern(x, wn(), s),
-             "plain": lambda: plain(x, wn(), s),
-             "library": lambda: torch.matmul(x, dn()),
-             "eager": lambda: x @ (widen(wn()) * s)}
-    if prefill:
+    if b is None:
+        library = lambda: torch.matmul(x, dn())
+    else:
+        library = lambda: torch.matmul(x, dn()) + b
+    calls = {"kernel": lambda: kern(x, wn(), s, b),
+             "plain": lambda: plain(x, wn(), s, b),
+             "library": library}
+    if beside:
+        calls["eager"] = lambda: x @ (widen(wn()) * s)
+    if prefill and beside:
         def old():
             with _first_mma_kernel():
-                return kern(x, wn(), s)
+                return kern(x, wn(), s, b)
         calls["old"] = old
     t = {k: _time_ms(torch, fn) for k, fn in calls.items()}
     per_call = []
     dev_t = {k: _device_ms(torch, calls[k],
                            counts=per_call if k == "kernel" else None)
-             for k in calls if k != "plain"}
+             for k in calls if k != "plain" or not beside}
     extra["device_launches"] = per_call[0] if per_call else None
-    ms, plain_ms, lib_ms, eager_ms = (t[k] for k in list(calls)[:4])
-    if prefill:
+    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
+    plan_line = (f"plan: {plan.m_tiles} x {plan.n_tiles} tiles of "
+                 f"{plan.bm} x {ti8.PF_BN}, {plan.splits} K splits of "
+                 f"{plan.k_tiles_per_split} tiles" if prefill else
+                 f"the gemv's plan: {plan.tiles} column tiles of "
+                 f"{16 * plan.cw} bytes x {plan.splits} K ranges of "
+                 f"{plan.rows_per_split} rows")
+    old_line = f"; {plan_line} (bit-stable over two calls)"
+    if prefill and beside:
         extra.update({"old_ms": t["old"], "old_device_ms": dev_t["old"]})
         old_line = (f"; the first mma kernel on the same inputs: max_abs_err "
                     f"{extra['old_max_abs_err']:.3e}, {t['old']:.4f} ms, "
                     f"device {_ms(dev_t['old'])} ("
                     f"{_ratio(dev_t['old'], dev_t['kernel'])} the prefill "
-                    f"kernel's); plan: {plan.m_tiles} x {plan.n_tiles} "
-                    f"tiles of {plan.bm} x {ti8.PF_BN}, {plan.splits} K "
-                    f"splits of "
-                    f"{plan.k_tiles_per_split} tiles (bit-stable over two "
-                    f"calls)")
-    else:
-        old_line = (f"; the gemv's plan: {plan.tiles} column tiles of "
-                    f"{16 * plan.cw} bytes x {plan.splits} K ranges of "
-                    f"{plan.rows_per_split} rows (bit-stable over two "
-                    f"calls)")
+                    f"kernel's){old_line}")
     del deq
     weight_bytes = rows * N
     bound = _bound(weight_bytes + 2 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+    if beside:
+        beside_line = (f", eager dequantize + matmul {t['eager']:.4f} ms")
+        dev_line = f", eager {_ms(dev_t['eager'])}"
+        extra.update(eager_dequant_ms=t["eager"],
+                     eager_dequant_device_ms=dev_t["eager"])
+    else:
+        beside_line = ""
+        dev_line = f", plain {_ms(dev_t['plain'])}"
+        extra["plain_device_ms"] = dev_t["plain"]
     print(f"[9] {label} {'int4' if int4 else 'int8'} x [{M}, {K}] @ w "
-          f"[{rows}, {N}]: max_abs_err {err:.3e} (tol {WSMM_TOL} of the "
+          f"[{rows}, {N}]{' + bias' if bias else ''}: max_abs_err {err:.3e} "
+          f"(tol {WSMM_TOL} of the "
           f"peak {peak:.3f}); planted fault (neighbouring column's scale) "
           f"{fault:.3e} fails it; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library torch.matmul on dequantized bf16 "
-          f"{lib_ms:.4f} ms, eager dequantize + matmul {eager_ms:.4f} ms "
+          f"{lib_ms:.4f} ms{beside_line} "
           f"(CUDA-event medians of 20, wrapper included; {n_copies} weight "
           f"copies in turn); device time alone (profiler, mean of 20): "
           f"kernel {_ms(dev_t['kernel'])} ("
           f"{_rate(weight_bytes, dev_t['kernel'])} of weights), library "
-          f"{_ms(dev_t['library'])}, eager {_ms(dev_t['eager'])}; bound "
+          f"{_ms(dev_t['library'])}{dev_line}; bound "
           f"{bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}), {_ratio(bound['bound_ms'], dev_t['kernel'])}"
-          f" of it; device launches a product "
+          f" of it; the core that ran: "
+          f"{'prefill' if prefill else 'gemv'}; device launches a product "
           f"{extra['device_launches']}{old_line}")
     return {"max_abs_err": err, "peak": peak, "ms": ms, "plain_ms": plain_ms,
-            **bound, "library_ms": lib_ms, "eager_dequant_ms": eager_ms,
-            "device_ms": dev_t["kernel"],
+            **bound, "library_ms": lib_ms, "device_ms": dev_t["kernel"],
             "library_device_ms": dev_t["library"],
-            "eager_dequant_device_ms": dev_t["eager"], **extra}
+            "core": "prefill" if prefill else "gemv", **extra}
 
 
 def phase_wsmm(torch, cuda_build, prefill_rows):
@@ -1510,6 +1585,14 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
                 torch, cuda_build, label, M, K, N, int4, seed)
             if M > 4:
                 out[prefill][label] = out[source][label]
+    out["qwen"] = {}
+    for seed, (name, M) in enumerate(
+            ((name, M) for name in V2_INT8_SHAPES
+             for M in (1, V2_PROMPT_ROWS)), start=121):
+        K, N, bias = V2_INT8_SHAPES[name]
+        label = f"qwen {name} M={M}"
+        out["qwen"][label] = _wsmm_case(torch, cuda_build, label, M, K, N,
+                                        False, seed, bias=bias, beside=False)
     return out
 
 
@@ -1554,11 +1637,12 @@ def _wall_ms(torch, fn, n=5):
 
 def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
               int8, smi, phase):
-    """One understanding pipeline at full width: launches over one greedy
-    answer (int8: 49 x 101 of the int8 kernel, every other kernel none;
-    bf16: none at all), tokens in the vocabulary, prompt / prefill / answer
-    times, decode ms per token against the weight-streaming bound, peak
-    memory, and the device's idle share over one answer."""
+    """One understanding pipeline at full width: launches over its first
+    greedy answer (int8: 49 x 101 of the int8 kernel, every other kernel
+    none; bf16: none at all), tokens in the vocabulary, prompt / prefill
+    times (medians of 3) and one warm answer's, decode ms per token against
+    the weight-streaming bound, peak memory, and the device's idle share
+    over one answer."""
     from torch import nn
 
     from showo_tpu_torch.models.phi import Int8Linear
@@ -1574,7 +1658,6 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
             and isinstance(phi.lm_head, linear)):
         raise AssertionError(f"{label}: not the full-width fused Phi with "
                              f"{linear.__name__} matmuls: {lc}")
-    answer()                                             # warm-up
     want = {name: 0 for name in COUNTERS}
     if int8:
         # every matmul of the prefill on the prefill kernel, of the decode
@@ -1596,10 +1679,10 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(0 <= t < lc.vocab_size for t in toks):
         raise AssertionError(f"{label}: tokens outside the vocabulary")
-    prompt_ms = _wall_ms(torch, prompt)
+    prompt_ms = _wall_ms(torch, prompt, n=3)
     rows = prompt()[0].shape[1]
-    prefill_ms = _wall_ms(torch, lambda: _prefill(torch, phi, prompt()))
-    answer_ms = _wall_ms(torch, answer, n=3)
+    prefill_ms = _wall_ms(torch, lambda: _prefill(torch, phi, prompt()), n=3)
+    answer_ms = _wall_ms(torch, answer, n=1)
     decode_ms = (answer_ms - prompt_ms - prefill_ms) / MMU_NEW_TOKENS
     weight_bytes = sum(m.kernel_i8.numel() if int8 else 2 * m.weight.numel()
                        for m in [phi.lm_head] + [
@@ -1621,7 +1704,7 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
           f"of the others; prompt "
           f"{prompt_ms:.2f} ms, prefill {prefill_ms:.2f} ms, answer "
           f"{answer_ms:.2f} ms (first {first_wall * 1e3:.2f}; medians of "
-          f"5 / 5 / 3), decode {decode_ms:.4f} ms per token = "
+          f"3 / 3, one warm answer), decode {decode_ms:.4f} ms per token = "
           f"{1e3 / decode_ms:.2f} tokens/s against a bound of "
           f"{bound_ms:.4f} ms ({weight_bytes / 1e9:.3f} GB of matmul weights"
           f" per token over 3.35 TB/s); device idle share over one answer "
@@ -1635,9 +1718,9 @@ def phase_mmu(torch, cuda_build, profile, pipe, label, answer, prompt,
         print(f"[{phase}] {label}: the prefill forward alone ({rows} rows, "
               f"prompt made once): device {_ms(k['device_ms'])} with the "
               f"prefill kernel, {_ms(k['old_device_ms'])} with the first "
-              f"mma kernel in its place (profiler, mean of 5); wall "
+              f"mma kernel in its place (profiler, mean of 3); wall "
               f"{k['wall_ms']:.2f} vs {k['old_wall_ms']:.2f} ms (medians of "
-              f"5)")
+              f"3)")
     return {"rows": rows, "prompt_ms": prompt_ms, "prefill_ms": prefill_ms,
             **{f"prefill_{key}": val for key, val in kernel_prefill.items()},
             "answer_ms": answer_ms, "decode_ms_per_token": decode_ms,
@@ -1656,11 +1739,11 @@ def _prefill_kernels(torch, phi, prompt):
     def run():
         _prefill(torch, phi, prompt)
 
-    out = {"device_ms": _device_ms(torch, run, iters=5),
-           "wall_ms": _wall_ms(torch, run)}
+    out = {"device_ms": _device_ms(torch, run, iters=3),
+           "wall_ms": _wall_ms(torch, run, n=3)}
     with _first_mma_kernel():
-        out.update(old_device_ms=_device_ms(torch, run, iters=5),
-                   old_wall_ms=_wall_ms(torch, run))
+        out.update(old_device_ms=_device_ms(torch, run, iters=3),
+                   old_wall_ms=_wall_ms(torch, run, n=3))
     return out
 
 
@@ -1679,7 +1762,7 @@ def _jax_order_int8(torch, phi_bf, phi_i8):
     return phi
 
 
-def phase_mmu_turns(torch, pipes, image, mmu, device, pairs=3):
+def phase_mmu_turns(torch, pipes, image, mmu, device, pairs=1):
     """int8 against bf16 answers in turns (bf16, int8, int8, bf16, ...),
     since the host's clock drifts within a run more than the two differ:
     median answer times and the decode tokens/s they give (answer minus
@@ -2427,6 +2510,289 @@ def phase_v2_samplers(torch, np, cuda_build, pipe, prompts, smi, z, ref,
     return stream_counts[False], stream_counts[True], out
 
 
+def _v2_prefill(torch, qwen, embeds, bias):
+    """One prefill forward of the scaffold's embeddings [1, S, D] by Qwen2
+    ``qwen`` (in its dtype) into a fresh cache of an answer's capacity (S +
+    MMU_NEW_TOKENS), as MMUV2Pipeline.generate runs it; returns the
+    logits of every row."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.show_o2.qwen2 import Qwen2KVCache
+
+    dtype = qwen.model.embed_tokens.weight.dtype
+    S = embeds.shape[1]
+    cap = S + MMU_NEW_TOKENS
+    cache = Qwen2KVCache.zeros(qwen.cfg, 1, cap, dtype=dtype,
+                               device=embeds.device)
+    with torch.no_grad():
+        return qwen(input_embeds=embeds.to(dtype), cache=cache,
+                    attention_bias=F.pad(bias, (0, cap - S), value=-1e9))[0]
+
+
+def _v2_matmuls(qwen):
+    """The matmul modules a token streams: each layer's qkv, o, gate-up
+    and down, then the head (int8 ``lm_head``, or the tied embedding)."""
+    mods = [m for layer in qwen.model.layers
+            for m in (layer.self_attn.qkv, layer.self_attn.o_proj,
+                      layer.mlp.gu, layer.mlp.down_proj)]
+    return mods + [getattr(qwen, "lm_head", qwen.model.embed_tokens)]
+
+
+def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
+    """Show-o2 image understanding at full width through the pipeline
+    ``inference_mmu_v2.build_pipeline`` made: launches over its first greedy
+    answer (int8: V2_MATMULS x 101 of kernel 9, the prefill's products on
+    the prefill kernel and the decode's on the gemv; bf16: no kernel at
+    all; no attention kernel in either), tokens in the vocabulary, VAE
+    encode / prompt / prefill times (medians of 3) and one warm answer's,
+    decode ms per token against the weight-streaming bound, peak memory,
+    and the device's idle share over one answer.  Returns the readings and
+    the prompt (embeddings, mask) of phase 18's logits check."""
+    from torch import nn
+
+    from showo_tpu_torch.models.phi import Int8Linear
+    from showo_tpu_torch.show_o2.showo2 import embed_images
+
+    qwen = pipe.model.showo
+    lc = qwen.cfg
+    label = f"Show-o2 image understanding, {'int8' if int8 else 'bf16'}"
+    linear = Int8Linear if int8 else nn.Linear
+    mods = _v2_matmuls(qwen)
+    if not (lc.num_layers == V2_QWEN_LAYERS and lc.hidden_size == 1536
+            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == (12, 2, 128)
+            and lc.vocab_size == 151940 and lc.tie_word_embeddings
+            and pipe.max_new_tokens == MMU_NEW_TOKENS and pipe.top_k == 1
+            and pipe.cfg.num_image_tokens == 730
+            and pipe.vae.cfg.dim == 96
+            and all(isinstance(m, linear) for m in mods[:-1])
+            and isinstance(mods[-1], Int8Linear if int8 else nn.Embedding)):
+        raise AssertionError(f"{label}: not the full-width fused Qwen2.5 "
+                             f"with {linear.__name__} matmuls: {lc}")
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def answer():
+        return pipe.answer(image, MMU_QUESTION, gen)
+
+    want = {name: 0 for name in COUNTERS}
+    if int8:
+        want["int8_matmul"] = V2_MATMULS * (1 + MMU_NEW_TOKENS)
+        want[PREFILL_KERNEL] = V2_MATMULS
+        want["int8_matmul_gemv"] = V2_MATMULS * MMU_NEW_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    toks = answer()
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"{label}: launches in one answer {counts}, "
+                             f"want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not toks or not all(0 <= t < lc.vocab_size for t in toks):
+        raise AssertionError(f"{label}: tokens {toks[:8]}... outside the "
+                             f"vocabulary, or none")
+    pixels = torch.as_tensor(image, device=dev).permute(2, 0, 1)[None, :,
+                                                                 None]
+
+    def encode():
+        return pipe.encode(pixels, gen)
+
+    def prompt():
+        latents = encode()[:, :, 0]
+        return pipe.prompt(embed_images(pipe.model, latents),
+                           pipe.cfg.num_image_tokens, MMU_QUESTION)
+
+    with torch.no_grad():
+        vae_ms = _wall_ms(torch, encode, n=3)
+        prompt_ms = _wall_ms(torch, prompt, n=3)
+        embeds, bias = prompt()
+    rows = embeds.shape[1]
+    if rows != V2_PROMPT_ROWS:
+        raise AssertionError(f"{label}: {rows} prompt rows, phase 9 timed "
+                             f"{V2_PROMPT_ROWS}")
+    prefill_ms = _wall_ms(torch, lambda: _v2_prefill(torch, qwen, embeds,
+                                                     bias), n=3)
+    answer_ms = _wall_ms(torch, answer, n=1)
+    decode_ms = (answer_ms - prompt_ms - prefill_ms) / MMU_NEW_TOKENS
+    weight_bytes = sum(m.kernel_i8.numel() if int8 else 2 * m.weight.numel()
+                       for m in mods)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prof = profile(answer, f"[18] {label}: one answer,")
+    print(f"[18] {label}: {rows} prompt rows ({pipe.resolution}x"
+          f"{pipe.resolution} image, 729 patches + the time token), greedy, "
+          f"{MMU_NEW_TOKENS} new tokens ({len(toks)} before the first eos), "
+          f"launches per answer {counts['int8_matmul']} of int8_matmul = "
+          f"{V2_MATMULS} x {1 + MMU_NEW_TOKENS} ({counts[PREFILL_KERNEL]} on "
+          f"the prefill kernel, {counts['int8_matmul_gemv']} on the gemv), 0 "
+          f"of the others (attention dense, as JAX); VAE encode "
+          f"{vae_ms:.2f} ms (fp32), prompt {prompt_ms:.2f} ms (VAE, "
+          f"embedding, scaffold), prefill {prefill_ms:.2f} ms, answer "
+          f"{answer_ms:.2f} ms (first {first_wall * 1e3:.2f}; medians of 3 "
+          f"/ 3 / 3, one warm answer), decode {decode_ms:.4f} ms per token "
+          f"= {1e3 / decode_ms:.2f} tokens/s against a bound of "
+          f"{bound_ms:.4f} ms ({weight_bytes / 1e9:.3f} GB of matmul and "
+          f"head weights per token over 3.35 TB/s); device idle share over "
+          f"one answer {prof['idle_share']:.4f} ({prof['launches']} kernel "
+          f"launches), device busy {prof['busy_ms'] / MMU_NEW_TOKENS:.4f} ms "
+          f"per token; peak memory allocated {peak:.2f} GiB on {smi}")
+    return {"rows": rows, "vae_ms": vae_ms, "prompt_ms": prompt_ms,
+            "prefill_ms": prefill_ms, "answer_ms": answer_ms,
+            "first_answer_ms": first_wall * 1e3,
+            "decode_ms_per_token": decode_ms, "tokens_per_s": 1e3 / decode_ms,
+            "bound_ms_per_token": bound_ms, "idle_share": prof["idle_share"],
+            "peak_gib": peak, "launches": counts["int8_matmul"],
+            "prefill_launches": counts[PREFILL_KERNEL],
+            "busy_ms_per_token": prof["busy_ms"] / MMU_NEW_TOKENS
+            }, (embeds, bias)
+
+
+def _int8_in_fp32(torch, qwen32, qwen_i8):
+    """``qwen32`` (fp32, fused here) turned into the int8 model computed
+    exactly: every matmul weight the int8 model's ``w_i8 * scale`` in
+    fp32, and an fp32 ``lm_head`` of its int8 head.  In place."""
+    from torch import nn
+
+    from showo_tpu_torch.show_o2.qwen2 import fuse_inference
+
+    fuse_inference(qwen32)
+    pairs = [(getattr(a, side), getattr(b, side), name)
+             for a, b in zip(qwen32.model.layers, qwen_i8.model.layers)
+             for side, names in (("self_attn", ("qkv", "o_proj")),
+                                 ("mlp", ("gu", "down_proj")))
+             for name in names]
+    head = qwen_i8.lm_head
+    with torch.no_grad():
+        for a, b, name in pairs:
+            q = getattr(b, name)
+            getattr(a, name).weight.copy_(
+                (q.kernel_i8.float() * q.scale.float()).t())
+        qwen32.lm_head = nn.Linear(head.in_features, head.out_features,
+                                   bias=False, device=head.w_i8.device)
+        qwen32.lm_head.weight.copy_(
+            (head.kernel_i8.float() * head.scale.float()).t())
+    return qwen32
+
+
+def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias):
+    """Prefill logits of one scaffold (the int8 pipeline's embeddings) with
+    int8 weights on kernel 9, with bf16 and fp32 weights of the same seeds
+    (fp32 activations and full-fp32 matmuls), and with the int8 weights
+    computed exactly (in fp32: :func:`_int8_in_fp32`).  Held: int8 on the
+    kernel against that exact int8 model, max abs difference over its
+    peak below phase 11's INT8_REL and top-1 agreement no more than
+    V2_AGREE_SLACK below that of bf16 against fp32 (the kernel's path adds
+    no more than bf16 arithmetic does).  Read beside them: int8 against
+    fp32, phase 11's pair, and the exact int8 model against fp32 (what the
+    quantization alone moves on these random weights)."""
+    logits = {name: _v2_prefill(torch, qwen, embeds, bias).float()[0]
+              for name, qwen in (("int8", pipe_i8.model.showo),
+                                 ("bf16", pipe_bf.model.showo),
+                                 ("fp32", qwen32))}
+    _int8_in_fp32(torch, qwen32, pipe_i8.model.showo)
+    logits["int8 in fp32"] = _v2_prefill(torch, qwen32, embeds,
+                                         bias).float()[0]
+
+    def compare(a, b):
+        got, ref = logits[a], logits[b]
+        agree = (ref.argmax(-1) == got.argmax(-1)).float().mean().item()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        return agree, rel
+
+    readings = {pair: compare(*pair) for pair in (
+        ("int8", "int8 in fp32"), ("bf16", "fp32"), ("int8", "fp32"),
+        ("int8 in fp32", "fp32"), ("int8", "bf16"))}
+    ref = logits["fp32"]
+    top2 = ref.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).median().item()
+    agree, rel = readings[("int8", "int8 in fp32")]
+    floor = readings[("bf16", "fp32")][0] - V2_AGREE_SLACK
+    print(f"[18] Show-o2 prefill logits ({qwen32.cfg.num_layers} layers, "
+          f"{embeds.shape[1]} rows, vocab {ref.shape[-1]}; fp32 peak |logit| "
+          f"{ref.abs().max().item():.3f}, median top-1 margin {margin:.4f}): "
+          + "; ".join(f"{a} vs {b} top-1 agreement {g:.4f}, max abs "
+                      f"difference / peak {r:.4e}"
+                      for (a, b), (g, r) in readings.items())
+          + f"; held: int8 vs int8 in fp32 >= {floor:.4f} (bf16 vs fp32 "
+          f"less {V2_AGREE_SLACK}) and < {INT8_REL}; int8 vs fp32 read, "
+          f"not held (phase 11's {INT8_AGREE} / {INT8_REL}: the exact "
+          f"int8 model itself is at the row before)")
+    if not (agree >= floor and rel < INT8_REL):
+        raise AssertionError(f"v2 int8 vs the int8 model in fp32: agreement "
+                             f"{agree} (floor {floor}), relative difference "
+                             f"{rel}")
+    return {f"{a} vs {b}": {"top1_agreement": g, "max_rel": r}
+            for (a, b), (g, r) in readings.items()}
+
+
+def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi):
+    """Show-o2 video understanding at full width, bf16, through
+    ``inference_mmu_vid.build_pipeline``: V2_VIDEO_FRAMES frames made from
+    the in-tree image (each shifted a few pixels more than the last) into
+    a temporary directory and read back by ``load_video``; the latent
+    frames, the prompt rows, one greedy answer's tokens in the vocabulary,
+    no kernel launched, its wall time."""
+    import tempfile
+
+    from PIL import Image, ImageChops
+
+    from showo_tpu_torch.show_o2.showo2 import embed_images
+    from showo_tpu_torch.utils.video import load_video
+
+    pipe = inference_mmu_vid.build_pipeline(config, torch.device("cuda"))
+    res = config.dataset.preprocessing.resolution
+    if not (pipe.num_frames == V2_VIDEO_FRAMES and res == 432
+            and pipe.cfg.llm.num_layers == V2_QWEN_LAYERS
+            and not pipe.quantize_int8 and pipe.vae.cfg.dim == 96):
+        raise AssertionError(f"not the full-width bf16 video path: "
+                             f"{pipe.num_frames} frames at {res}")
+    img = Image.open(MMU_IMAGE).convert("RGB")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(V2_VIDEO_FRAMES):
+            ImageChops.offset(img, 6 * i, 3 * i).save(f"{tmp}/{i:02d}.png")
+        frames = load_video(tmp, num_frames=pipe.num_frames, resolution=res)
+    if frames.shape != (V2_VIDEO_FRAMES, res, res, 3):
+        raise AssertionError(f"load_video gave {frames.shape}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = {name: 0 for name in COUNTERS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    toks = pipe.answer_video(frames, MMU_QUESTION, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"video: launches {counts}, want none")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not toks or not all(0 <= t < pipe.cfg.llm.vocab_size for t in toks):
+        raise AssertionError(f"video: tokens {toks[:8]}... outside the "
+                             f"vocabulary, or none")
+    with torch.no_grad():
+        pixels = torch.as_tensor(frames, device=pipe.device).permute(
+            3, 0, 1, 2)[None]
+        latents = pipe.encode(pixels, gen)
+        embeds, _ = pipe.prompt(embed_images(pipe.model, latents),
+                                pipe.span(latents.shape[2]), MMU_QUESTION)
+    if latents.shape[2] != V2_LATENT_FRAMES:
+        raise AssertionError(f"video: {latents.shape[2]} latent frames, "
+                             f"want {V2_LATENT_FRAMES}")
+    print(f"[18b] Show-o2 video understanding, bf16: {V2_VIDEO_FRAMES} "
+          f"frames of {res}x{res} (made from {MMU_IMAGE}, read by "
+          f"load_video) -> latents {tuple(latents.shape)} "
+          f"({latents.shape[2]} latent frames), {embeds.shape[1]} prompt "
+          f"rows (span {pipe.span(latents.shape[2])}), greedy, "
+          f"{MMU_NEW_TOKENS} new tokens ({len(toks)} before the first eos) "
+          f"in the vocabulary, no kernel launched; one answer "
+          f"{wall:.2f} s wall (the first: VAE, SigLIP per frame, prefill, "
+          f"decode); peak memory allocated {peak:.2f} GiB on {smi}")
+    return {"latent_frames": latents.shape[2], "rows": embeds.shape[1],
+            "tokens": len(toks), "wall_s": wall, "peak_gib": peak}
+
+
 def main() -> int:
     import torch
 
@@ -2550,7 +2916,10 @@ def main() -> int:
 
     from showo_tpu_torch import inference_mmu
     from showo_tpu_torch.models.clip_vit import ClipVisionTower, ClipVitConfig
-    from showo_tpu_torch.profile_t2i import profile
+    from showo_tpu_torch.profile_t2i import profile as profile_all
+
+    def profile(fn, label):
+        return profile_all(fn, label, by_operator=False)
     from showo_tpu_torch.utils.image import clip_image_transform
 
     from showo_tpu_torch.models.phi import fuse_parallel_mlp
@@ -2563,8 +2932,10 @@ def main() -> int:
     image = _mmu_image(256)
     prefill_rows = pipes[0].prompt(image, MMU_QUESTION)[0].shape[1]
 
-    # [9] kernels 9-11 vs plain at the slice's shapes
+    # [9] kernels 9-11 vs plain at the slice's shapes (and kernel 9 at the
+    # Show-o2 understanding slice's)
     wsmm = phase_wsmm(torch, cuda_build, prefill_rows)
+    parts.append(("kernels 9-11 [9]", time.perf_counter()))
 
     # [10] the discrete mmu slice, bf16 then int8 weights
     mmu = {}
@@ -2576,6 +2947,7 @@ def main() -> int:
             lambda: pipe.answer(image, MMU_QUESTION, gen),
             lambda: pipe.prompt(image, MMU_QUESTION), int8, smi, 10)
     phase_mmu_turns(torch, pipes, image, mmu, device)
+    parts.append(("v1 understanding [10]", time.perf_counter()))
 
     # [11] int8, bf16 and fp32 prefill logits, same prompt and seeded
     # weights (the fp32 model as build_pipeline initialises it)
@@ -2586,7 +2958,7 @@ def main() -> int:
     pipes = pipe = model32 = None
     gc.collect()
     torch.cuda.empty_cache()
-    parts.append(("understanding [9-11]", time.perf_counter()))
+    parts.append(("int8 logits [11]", time.perf_counter()))
 
     # [10b] the CLIP-ViT path (configs/showo_demo_w_clip_vit.yaml), int8
     clip_config = load_config("configs/showo_demo_w_clip_vit.yaml",
@@ -2650,7 +3022,38 @@ def main() -> int:
     stream_launches_v2, stream_cached_v2, samplers = phase_v2_samplers(
         torch, np, cuda_build, pipe, v2_prompts, smi, z, ref, euler_s)
     pipe = None
+    gc.collect()
+    torch.cuda.empty_cache()
     parts.append(("Show-o2 cache, samplers [15-17]", time.perf_counter()))
+
+    # [18] Show-o2 image understanding through inference_mmu_v2's
+    # build_pipeline, bf16, then int8 on a copy of the model; int8 prefill
+    # logits against the fp32 model of the same seeds
+    from showo_tpu_torch import inference_mmu_v2, inference_mmu_vid
+
+    und_config = load_config(V2_CONFIG, mmu_args)
+    pipe = inference_mmu_v2.build_pipeline(und_config, device)
+    pipe_i8 = dataclasses.replace(pipe, model=copy.deepcopy(pipe.model),
+                                  quantize_int8=True)
+    v2_image = _mmu_image(pipe.resolution)
+    und = {}
+    und[0], _ = phase_mmu_v2(torch, cuda_build, profile, pipe, v2_image, 0,
+                             smi)
+    und[1], (embeds, bias) = phase_mmu_v2(torch, cuda_build, profile,
+                                          pipe_i8, v2_image, 1, smi)
+    qwen32 = inference_t2i_v2.load_model(und_config, pipe.cfg, device,
+                                         torch.float32).showo
+    und_parity = phase_mmu_v2_parity(torch, pipe, pipe_i8, qwen32, embeds,
+                                     bias)
+    pipe = pipe_i8 = qwen32 = embeds = bias = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("Show-o2 understanding [18]", time.perf_counter()))
+
+    # [18b] Show-o2 video understanding, bf16
+    vid = phase_mmu_vid(torch, cuda_build, inference_mmu_vid, und_config,
+                        smi)
+    parts.append(("Show-o2 video [18b]", time.perf_counter()))
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -2691,6 +3094,20 @@ def main() -> int:
                         "launches": mmu[1]["launches"]
                         if name == "int8_matmul" else 0,
                         **cases[case], "case": case, "cases": cases})
+    qwen_cases = wsmm["qwen"]
+    for name, case, launches in (
+            ("int8_matmul_qwen", "qwen gate-up M=1", und[1]["launches"]),
+            ("int8_matmul_prefill_qwen", f"qwen gate-up M={V2_PROMPT_ROWS}",
+             und[1]["prefill_launches"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "showo_tpu_torch/csrc/int8_matmul.cu" + (
+                            " (+ weight_stream_prefill.cuh)"
+                            if "prefill" in name else ""),
+                        "replaces": WSMM_KERNELS["int8_matmul"],
+                        "launches": launches, **qwen_cases[case],
+                        "case": case, "cases": qwen_cases,
+                        "slice": {"bf16": und[0], "int8": und[1],
+                                  "logits": und_parity, "video": vid}})
     case = f"win M={prefill_rows}"
     for name, source, launches in (
             (PREFILL_KERNEL, "int8_matmul", mmu[1]["prefill_launches"]),

@@ -121,13 +121,15 @@ def build_prompting(config) -> UniversalPrompting:
 
 
 def load_prompts(config) -> List[str]:
-    """The non-empty lines of ``validation_prompts_file`` (top level, else
-    ``dataset.params``) when it exists, else of the in-tree prompt list."""
+    """Every line of ``validation_prompts_file`` (top level, else
+    ``dataset.params``) when it exists, else of the in-tree prompt list,
+    blank lines included, as the JAX CLI reads it (image ``i`` is the
+    prompt of line ``i``)."""
     path = validation_prompts_file(config.get(
         "validation_prompts_file",
         config.dataset.params.get("validation_prompts_file")))
     with open(path) as f:
-        return [p for p in f.read().splitlines() if p.strip()]
+        return f.read().splitlines()
 
 
 def build_pipeline(config, device: Optional[torch.device] = None,

@@ -90,21 +90,39 @@ def build_showo2_config(config) -> Showo2Config:
 class FakeQwenTokenizer:
     """The word-hash stand-in (``utils/fake_tokenizer.py``) with the call
     that ``prepare_gen_input`` makes: ``tok(text,
-    add_special_tokens=False)["input_ids"]`` a flat list."""
+    add_special_tokens=False)["input_ids"]`` a flat list; and ``decode`` /
+    ``batch_decode``, which give back the words it has encoded (a word it
+    has not seen prints as ``<id>``; the special ids of
+    :data:`FAKE_TOKEN_IDS` are dropped with ``skip_special_tokens``), so
+    that an understanding answer prints as text."""
 
     def __init__(self):
         from showo_tpu_torch.utils.fake_tokenizer import FakeTokenizer
 
         self._t = FakeTokenizer()
+        self._words: dict = {}
 
     def __call__(self, text, add_special_tokens=False):
-        return {"input_ids": self._t(text)["input_ids"][0]}
+        ids = self._t(text)["input_ids"][0]
+        for word, i in zip(text.split(), ids):
+            self._words.setdefault(i, word)
+        return {"input_ids": ids}
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        special = set(FAKE_TOKEN_IDS.values()) if skip_special_tokens else ()
+        return " ".join(self._words.get(int(i), f"<{int(i)}>") for i in ids
+                        if int(i) not in special)
+
+    def batch_decode(self, seqs, skip_special_tokens: bool = False):
+        return [self.decode(s, skip_special_tokens) for s in seqs]
 
 
 def load_tokenizer_and_ids(config):
     """(tokenizer, special token ids): the Qwen2.5 tokenizer of a local
-    ``model.showo.llm_model_path`` directory with Show-o2's added tokens,
-    else the stand-in and its ids.  A hub name is never fetched."""
+    ``model.showo.llm_model_path`` directory with Show-o2's added tokens
+    and the ids of JAX ``show_o2/tokenizer.py::get_text_tokenizer`` (the
+    video and ``<image>`` ones among them), else the stand-in and the JAX
+    CLI's fallback ids.  A hub name is never fetched."""
     path = config.model.showo.llm_model_path
     if not os.path.isdir(str(path)):
         logger.warning("tokenizer %s not found locally; using the stand-in "
@@ -122,8 +140,11 @@ def load_tokenizer_and_ids(config):
         "eos_id": tok.eos_token_id,
         "boi_id": vocab["<|vision_start|>"],
         "eoi_id": vocab["<|vision_end|>"],
+        "bov_id": vocab["<|vid_start|>"],
+        "eov_id": vocab["<|vid_end|>"],
         "img_pad_id": vocab["<|image_pad|>"],
         "vid_pad_id": vocab["<|video_pad|>"],
+        "img_id": vocab["<image>"],
         "pad_id": tok.pad_token_id,
     }
 
@@ -194,11 +215,12 @@ def build_pipeline(config, device: Optional[torch.device] = None,
 
 
 def load_prompts(config) -> List[str]:
-    """The non-empty lines of ``validation_prompts_file`` when it exists,
-    else of the in-tree prompt list."""
+    """Every line of ``validation_prompts_file`` when it exists, else of the
+    in-tree prompt list, blank lines included, as the JAX CLI reads it
+    (image ``i`` is the prompt of line ``i``)."""
     with open(validation_prompts_file(
             config.get("validation_prompts_file"))) as f:
-        return [p for p in f.read().splitlines() if p.strip()]
+        return f.read().splitlines()
 
 
 def main() -> None:

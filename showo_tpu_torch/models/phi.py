@@ -575,13 +575,13 @@ class Int8Linear(nn.Module):
     params): ``w_i8`` [K, N] int8 in the JAX layout, its rows padded to a
     multiple of 16 bytes so the kernel reads them with 16-byte loads
     (``kernel_i8`` is the [K, N] view), ``scale`` [1, N] bf16 per output
-    column, ``bias`` [N] in the model's dtype.  The forward is
-    :func:`~showo_tpu_torch.ops.int8_matmul.linear_i8`: the kernel for
-    CUDA tensors (through a :class:`WeightStream` kept for these buffers),
-    its plain version for CPU tensors."""
+    column, ``bias`` [N] in the model's dtype, or None (``bias=False``).
+    The forward is :func:`~showo_tpu_torch.ops.int8_matmul.linear_i8`: the
+    kernel for CUDA tensors (through a :class:`WeightStream` kept for
+    these buffers), its plain version for CPU tensors."""
 
     def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=None):
+                 dtype=None, bias: bool = True):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         padded = -(-out_features // 16) * 16
@@ -590,7 +590,7 @@ class Int8Linear(nn.Module):
         self.register_buffer("scale", torch.zeros(
             (1, out_features), dtype=torch.bfloat16, device=device))
         self.register_buffer("bias", torch.zeros(
-            out_features, dtype=dtype, device=device))
+            out_features, dtype=dtype, device=device) if bias else None)
         self._stream = None
 
     @property
@@ -598,42 +598,61 @@ class Int8Linear(nn.Module):
         return self.w_i8[:, :self.out_features]
 
     @classmethod
-    @torch.no_grad()
     def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
-        """Per-output-channel symmetric int8, as JAX ``quantize_int8``: amax
-        over K in fp32, ``scale = max(amax / 127, 1e-8)``, round half to
-        even, clip to +-127; the scale stored in bf16."""
-        w = lin.weight.float()                                 # [N, K]
+        """:meth:`from_weight` of an ``nn.Linear``'s weight and bias."""
+        return cls.from_weight(lin.weight, lin.bias)
+
+    @classmethod
+    @torch.no_grad()
+    def from_weight(cls, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> "Int8Linear":
+        """Per-output-channel symmetric int8 of ``weight`` [N, K] (an
+        ``nn.Linear``'s, or a tied embedding table), as JAX
+        ``quantize_int8``: amax over K in fp32, ``scale = max(amax / 127,
+        1e-8)``, round half to even, clip to +-127; the scale stored in
+        bf16."""
+        w = weight.float()                                     # [N, K]
         scale = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-8)
         q = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
-        out = cls(lin.in_features, lin.out_features, lin.weight.device,
-                  lin.bias.dtype)
-        out.w_i8[:, :lin.out_features] = q.t()
+        del w
+        N, K = weight.shape
+        out = cls(K, N, weight.device, weight.dtype if bias is None
+                  else bias.dtype, bias=bias is not None)
+        out.w_i8[:, :N] = q.t()
         out.scale.copy_(scale[None].to(torch.bfloat16))
-        out.bias.copy_(lin.bias)
+        if bias is not None:
+            out.bias.copy_(bias)
         return out
 
     @torch.no_grad()
-    def load_quantized(self, kernel_i8, scale, bias) -> "Int8Linear":
+    def load_quantized(self, kernel_i8, scale, bias=None) -> "Int8Linear":
         """Set the buffers from JAX-layout arrays: ``kernel_i8`` [K, N]
-        int8, ``scale`` [1, N], ``bias`` [N] (numpy, bf16 ones too)."""
+        int8, ``scale`` [1, N], ``bias`` [N] (numpy, bf16 ones too; None
+        for a module without bias)."""
         k = torch.tensor(np.asarray(kernel_i8))
         if tuple(k.shape) != (self.in_features, self.out_features):
             raise ValueError(f"kernel_i8 {tuple(k.shape)} does not fit "
                              f"[{self.in_features}, {self.out_features}]")
+        if (bias is None) != (self.bias is None):
+            raise ValueError(f"bias {'missing' if bias is None else 'given'}"
+                             f" for a module "
+                             f"{'with' if bias is None else 'without'} one")
         self.w_i8[:, :self.out_features] = k.to(torch.int8)
         self.scale.copy_(torch.tensor(
             np.asarray(scale, np.float32)).reshape(1, -1))
-        self.bias.copy_(torch.tensor(np.asarray(bias, np.float32)))
+        if bias is not None:
+            self.bias.copy_(torch.tensor(np.asarray(bias, np.float32)))
         return self
 
     def forward(self, x: torch.Tensor, cols: Optional[slice] = None):
         """x [..., K] -> [..., N], or only the output columns ``cols``."""
         w, scale, bias = self.kernel_i8, self.scale, self.bias
         if cols is not None:
-            w, scale, bias = w[:, cols], scale[:, cols], bias[cols]
+            w, scale = w[:, cols], scale[:, cols]
+            bias = None if bias is None else bias[cols]
         elif x.is_cuda:
-            key = (w.data_ptr(), scale.data_ptr(), bias.data_ptr())
+            key = (w.data_ptr(), scale.data_ptr(),
+                   None if bias is None else bias.data_ptr())
             if self._stream is None or self._stream[0] != key:
                 self._stream = key, WeightStream(
                     "int8_matmul", w, scale, bias, self.in_features)

@@ -2,12 +2,15 @@
 
     python -m showo_tpu_torch.profile_t2i --route fused
     python -m showo_tpu_torch.profile_t2i --slice v2 --route packed
+    python -m showo_tpu_torch.profile_t2i --slice mmu_v2
 
 Builds the pipeline of ``configs/showo_demo_512x512.yaml`` (Show-o 1.3B,
 random weights from a fixed seed, bf16, 16 steps, CFG 1.75, batch 2), or
 with ``--slice v2`` that of ``configs/showo2_1.5b_demo_432x432.yaml``
 (Show-o2 1.5B, 50-point Euler, CFG 7.5, batch 4), on one attention route,
-warms it up, and profiles one ``generate`` call with
+warms it up, and profiles one ``generate`` call (with ``--slice mmu_v2``
+one Show-o2 understanding answer instead: the in-tree image at 432x432,
+100 greedy tokens, int8 weights, the ``mmu_v2_int8`` bench row) with
 ``torch.profiler`` (CPU and CUDA activities).  Prints the wall time, the
 device's busy time within its kernel span (and so its idle share), the
 number of kernel launches, and the 15 largest rows of device time by
@@ -52,10 +55,29 @@ def _busy_ms(events) -> tuple:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--route", default="auto")
-    ap.add_argument("--slice", default="v1", choices=("v1", "v2"))
+    ap.add_argument("--slice", default="v1", choices=("v1", "v2", "mmu_v2"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_t2i needs a CUDA card")
+    if args.slice == "mmu_v2":
+        from PIL import Image
+
+        from showo_tpu_torch import inference_mmu_v2
+        from showo_tpu_torch.utils.image import image_transform
+
+        config = load_config("configs/showo2_1.5b_demo_432x432.yaml",
+                             ["int8=1", "max_new_tokens=100", "top_k=1"])
+        pipe = inference_mmu_v2.build_pipeline(config, torch.device("cuda"))
+        image = image_transform(Image.open(
+            "assets/validation/test_image.png").convert("RGB"),
+            pipe.resolution)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        question = "What is in this image?"
+        pipe.answer(image, question, gen)                      # warm-up
+        torch.cuda.synchronize()
+        profile(lambda: pipe.answer(image, question, gen),
+                "Show-o2 understanding, int8: one answer")
+        return
     if args.slice == "v2":
         config = load_config("configs/showo2_1.5b_demo_432x432.yaml")
         pipe = inference_t2i_v2.build_pipeline(config, torch.device("cuda"),
@@ -76,15 +98,20 @@ def main(argv=None) -> None:
             f"route {pipe.attn_route}: generate")
 
 
-def profile(fn, label: str, rows_shown: int = 15) -> dict:
+def profile(fn, label: str, rows_shown: int = 15,
+            by_operator: bool = True) -> dict:
     """Profile one call of ``fn`` (CPU and CUDA activities) and print its
     wall time, the device's busy time within its kernel span (and so its
     idle share), the kernel launches, and the largest rows of device time
     by operator, or by kernel for the port's own kernels.  Returns the
     wall s, busy and span ms, idle share, launches, and the launches and
-    device ms of each kernel by its name."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    device ms of each kernel by its name.  ``by_operator=False`` traces
+    the CUDA activity alone and prints no rows (a call of ~150,000
+    launches, an understanding answer, then reads back in seconds rather
+    than minutes)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if by_operator:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -99,6 +126,11 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
     print(f"{label} {wall:.4f} s wall; device busy {busy:.2f} ms of a "
           f"{span:.2f} ms kernel span (idle share {1 - busy / span:.4f}); "
           f"{count} kernel launches")
+    result = {"wall_s": wall, "busy_ms": busy, "span_ms": span,
+              "idle_share": 1 - busy / span, "launches": count,
+              "by_kernel": _by_kernel(kernels)}
+    if not by_operator:
+        return result
     # device time of the operators that launched kernels, and of the
     # port's own kernels, which no operator launches (ctypes calls)
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -116,9 +148,7 @@ def profile(fn, label: str, rows_shown: int = 15) -> dict:
               f"{ms / busy:>7.1%}")
     listed = sum(a.self_device_time_total for a in rows) / 1e3
     print(f"all rows: {listed:.2f} ms of the {busy:.2f} ms busy")
-    return {"wall_s": wall, "busy_ms": busy, "span_ms": span,
-            "idle_share": 1 - busy / span, "launches": count,
-            "by_kernel": _by_kernel(kernels)}
+    return result
 
 
 def _by_kernel(events) -> dict:

@@ -20,8 +20,11 @@ The module tree carries the reference checkpoint's names
 (``model.layers.{i}.self_attn.q_proj`` ...), so a reference-layout state
 dict loads with ``load_state_dict``.  :func:`fuse_inference` re-lays the
 weights for inference (one qkv and one gate/up matmul per layer), as the
-JAX transform of the same name does.  Int8 weights and the trainable
-route (kernels 7 / 8 at head dim 128) are not ported yet.
+JAX transform of the same name does.  :func:`quantize_int8` turns every
+matmul of a layer, and a vocabulary head quantized from the tied
+embedding, into the int8 kernel's ``Int8Linear`` (weight-only int8
+serving, as JAX ``quantize_int8``).  The trainable route (kernels 7 / 8 at
+head dim 128) is not ported yet.
 """
 
 from __future__ import annotations
@@ -359,7 +362,9 @@ class Qwen2(nn.Module):
         must be, with per-row cache offsets: its q rows are the fresh
         rows), sending every layer's attention to the route's omni kernel.
         ``logits=False`` skips the vocabulary projection (the velocity path
-        reads only the hidden state).
+        reads only the hidden state); the projection is ``lm_head`` where
+        the model has one (untied, or int8 after :func:`quantize_int8`),
+        else the tied embedding.
 
         cache: the fresh rows' K/V are written into it in place, at
         ``cache.length`` (which then grows by S) or, with
@@ -392,9 +397,9 @@ class Qwen2(nn.Module):
         h = self.model.norm(h)
         if not logits:
             return None, h
-        head = (self.lm_head.weight if hasattr(self, "lm_head")
-                else self.model.embed_tokens.weight)
-        return F.linear(h, head), h
+        if hasattr(self, "lm_head"):
+            return self.lm_head(h), h
+        return F.linear(h, self.model.embed_tokens.weight), h
 
 
 @torch.no_grad()
@@ -443,4 +448,40 @@ def fuse_inference(model: Qwen2) -> Qwen2:
     """Both inference-path weight fusions (qkv with its biases, gate/up);
     idempotent, in place."""
     fuse_attention_mlp(model.model.layers, qkv_bias=True)
+    return model
+
+
+# the matmuls quantize_int8 converts, by their place in a layer (JAX names:
+# q, k, v, qkv, o, gate, up, down, gu; JAX ``_QUANT_KERNELS``)
+INT8_LINEARS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "qkv": "self_attn.qkv",
+                "o": "self_attn.o_proj", "gate": "mlp.gate_proj",
+                "up": "mlp.up_proj", "down": "mlp.down_proj", "gu": "mlp.gu"}
+
+
+@torch.no_grad()
+def quantize_int8(model: Qwen2) -> Qwen2:
+    """Weight-only int8 serving (JAX ``quantize_int8``): every matmul of
+    each layer, in the plain or the fused layout, becomes an
+    ``Int8Linear`` (q / k / v and qkv keep their biases; o, gate / up / gu
+    and down have none), and the vocabulary head too: ``lm_head`` where it
+    is untied, else one quantized from the embedding table (``embed.T``),
+    so that decode streams an int8 head while the input gather keeps the
+    table.  Norms and the embedding stay as they are.  In place; a matmul
+    already quantized is left alone."""
+    from showo_tpu_torch.models.phi import Int8Linear
+
+    for layer in model.model.layers:
+        for path in INT8_LINEARS.values():
+            parent, _, name = path.rpartition(".")
+            owner = layer.get_submodule(parent)
+            lin = getattr(owner, name, None)
+            if isinstance(lin, nn.Linear):
+                setattr(owner, name, Int8Linear.from_linear(lin))
+    head = getattr(model, "lm_head", None)
+    if head is None:
+        model.lm_head = Int8Linear.from_weight(
+            model.model.embed_tokens.weight)
+    elif isinstance(head, nn.Linear):
+        model.lm_head = Int8Linear.from_linear(head)
     return model

@@ -20,8 +20,9 @@ show-o2/models/modeling_showo2_qwen2_5.py), its inference part:
 Latents are NCHW at the interface, as in the reference and JAX.  The
 module tree carries the reference checkpoint's names, so the state dict
 that ``showo_tpu/utils/torch_export.py::showo2_state_dict`` writes loads
-with ``load_state_dict``.  The losses and the video paths are not ported
-yet.
+with ``load_state_dict``.  :func:`embed_images` takes image and video
+latents (the understanding pipelines').  The losses and the video
+generation path are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from showo_tpu_torch.show_o2.qwen2 import (Qwen2, Qwen2Config, Qwen2KVCache,
                                            RMSNorm, cache_rows, init_normal,
                                            packed_meta)
 from showo_tpu_torch.show_o2.qwen2 import fuse_inference as fuse_qwen2
-from showo_tpu_torch.show_o2.siglip import SigLipConfig, SiglipEncoder
+from showo_tpu_torch.show_o2.siglip import (SigLipConfig, SiglipEncoder,
+                                            interpolate_pos_encoding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,18 +121,27 @@ def fuse_inference(model: Showo2) -> Showo2:
 
 def embed_images(model: Showo2, latents: torch.Tensor) -> torch.Tensor:
     """Dual-path embedding and fusion: image latents [B, C, H, W] ->
-    [B, N, D_llm], N = (H/p)(W/p)."""
+    [B, N, D_llm], N = (H/p)(W/p); video latents [B, C, T, H, W] ->
+    [B, T*N, D_llm], both paths per frame over (b t), as JAX's.  The
+    SigLIP position table is interpolated where the patch grid is not its
+    own."""
     x = latents.to(model.image_embedder_und.proj.weight.dtype)
+    video = x.dim() == 5
+    if video:
+        B, C, T, H, W = x.shape
+        x = x.transpose(1, 2).reshape(B * T, C, H, W)
     und = model.image_embedder_und(x)
     gen = model.image_embedder_gen(x)
     pos = model.position_embedding.weight
-    if pos.shape[0] != und.shape[1]:
-        raise NotImplementedError(
-            f"{und.shape[1]} patches against a {pos.shape[0]}-entry SigLIP "
-            f"position table: the bicubic position interpolation is not "
-            f"ported yet")
-    und = model.und_trans(und + pos[None])
-    return model.fusion_proj(torch.cat([und, gen], dim=-1))
+    p = model.cfg.patch_size
+    h_, w_ = x.shape[2] // p, x.shape[3] // p
+    pos = (pos[None] if pos.shape[0] == h_ * w_
+           else interpolate_pos_encoding(pos, h_, w_))
+    und = model.und_trans(und + pos)
+    fused = model.fusion_proj(torch.cat([und, gen], dim=-1))
+    if video:
+        return fused.reshape(B, T * fused.shape[1], fused.shape[-1])
+    return fused
 
 
 def showo2_forward(model: Showo2, text_tokens: torch.Tensor,

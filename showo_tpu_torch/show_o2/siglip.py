@@ -7,7 +7,8 @@ patch-embedded VAE latents plus the SigLIP position embedding
 LayerNorm, biased multi-head attention, tanh-GELU MLP.  Attention is dense
 (fp32 scores from exact products of the stored operands, as in JAX); the
 JAX package runs no kernel here.  Module names follow the reference's
-``und_trans.layers.{i}``.
+``und_trans.layers.{i}``.  :func:`interpolate_pos_encoding` resizes the
+position table to another patch grid, as JAX's does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from showo_tpu_torch.models.phi import layer_norm
+from showo_tpu_torch.utils.image import keys_cubic_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +98,22 @@ class SiglipEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return x
+
+
+def interpolate_pos_encoding(pos_embed: torch.Tensor, h: int,
+                             w: int) -> torch.Tensor:
+    """The [N, D] square grid position table resized to an (h, w) grid,
+    [1, h*w, D] (show-o2/models/misc.py:305-334), as JAX's
+    ``jax.image.resize(..., "bicubic")`` does it: the antialiased Keys
+    cubic weights of each axis whose size changes, cast to the table's
+    dtype, contracted rows first, then columns."""
+    N, D = pos_embed.shape
+    side = int(round(math.sqrt(N)))
+    grid = pos_embed.reshape(side, side, D)
+    if h != side:
+        wh = keys_cubic_weights(side, h).to(grid)
+        grid = torch.einsum("sxd,sh->hxd", grid, wh)
+    if w != side:
+        ww = keys_cubic_weights(side, w).to(grid)
+        grid = torch.einsum("hsd,sw->hwd", grid, ww)
+    return grid.reshape(1, h * w, D)

@@ -1,12 +1,16 @@
-"""Wan2.1 3D causal VAE decoder as PyTorch modules (full-clip form).
+"""Wan2.1 3D causal VAE as PyTorch modules (full-clip form).
 
-Counterpart of the decoder half of ``showo_tpu/show_o2/wan_vae.py``
-(show-o2/models/wan21_vae.py).  The reference decodes one latent frame at
-a time, threading a cache of the last two frames through every causal
-convolution; over a whole clip that reduces exactly to:
+Counterpart of ``showo_tpu/show_o2/wan_vae.py``'s full-clip encoder and
+decoder (show-o2/models/wan21_vae.py).  The reference streams the clip
+through the encoder in chunks of 1 + 4k frames and through the decoder one
+latent frame at a time, threading a cache of the last two frames through
+every causal convolution; over a whole clip that reduces exactly to:
 
   * a stride-1 CausalConv3d: a convolution with 2*(kT//2) zero frames
     padded in front in time and symmetric spatial padding;
+  * the downsample3d time path: frame 0 passes through, and a (3, 1, 1)
+    convolution of stride 2 in time, unpadded, runs over every frame
+    (its first window is frames 0, 1, 2);
   * the upsample3d time path: frame 0 passes through, frames 1..T-1 feed
     a causal (3, 1, 1) convolution to 2C channels, interleaved into two
     output frames each.
@@ -15,19 +19,21 @@ RMS_norm is the channel L2 norm times sqrt(C) and gamma; attention is
 per-frame single-head spatial attention with fp32 scores.  Convolutions
 are PyTorch's (the JAX package runs them outside any Pallas kernel).  The
 layout is the reference's [B, C, T, H, W] throughout, and the module tree
-carries the reference checkpoint's names (``conv2``, ``decoder.conv1``,
+carries the reference checkpoint's names (``encoder.conv1``,
+``encoder.downsamples.{i}``, ``encoder.middle.{0,1,2}``,
+``encoder.head.{0,2}``, ``conv1``, ``conv2``, ``decoder.conv1``,
 ``decoder.middle.{0,1,2}``, ``decoder.upsamples.{i}``,
 ``decoder.head.{0,2}``), so a Wan2.1_VAE.pth state dict, or the one
 ``showo_tpu_torch.utils.convert.wan_vae_state_dict`` makes from JAX
-params, loads with ``load_state_dict`` (its encoder entries ignored).  The
-encoder and the streaming mode are not ported yet.
+params, loads with ``load_state_dict``.  The streaming mode is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,8 +63,8 @@ WAN_LATENT_STD = (
 
 
 def encoder_structure(cfg: WanVAEConfig) -> List[Tuple[str, dict]]:
-    """The encoder's ``downsamples`` plan, as the JAX package lays it out
-    (the port decodes only; the weight exporter names the encoder too)."""
+    """The encoder's ``downsamples`` plan: residual blocks (in -> out) and
+    down-resamples (2d, or 3d with the time path) of their width."""
     plan = []
     dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
     for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:])):
@@ -206,6 +212,54 @@ class Resample(nn.Module):
         return _clip(self.resample(_frames(x)), B)
 
 
+class DownResample(nn.Module):
+    """A down-resample of the encoder: zero padding of one row and column
+    at the bottom and right, then a 3x3 convolution of stride 2, per frame
+    (``resample.1``); with ``time`` the downsample3d time path after it
+    (``time_conv``: frame 0 passes through, then a (3, 1, 1) convolution
+    of stride 2 over every frame)."""
+
+    def __init__(self, dim: int, time: bool, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.resample = nn.Sequential(nn.ZeroPad2d((0, 1, 0, 1)),
+                                      nn.Conv2d(dim, dim, 3, stride=2, **kw))
+        if time:
+            self.time_conv = nn.Conv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1),
+                                       **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _clip(self.resample(_frames(x)), x.shape[0])
+        if hasattr(self, "time_conv") and x.shape[2] > 1:
+            x = torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)
+        return x
+
+
+class WanEncoder(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.dim * cfg.dim_mult[-1]
+        self.conv1 = CausalConv3d(3, cfg.dim, 3, **kw)
+        self.downsamples = nn.ModuleList(
+            ResidualBlock(m["in"], m["out"], **kw) if kind == "res"
+            else DownResample(m["dim"], kind == "downsample3d", **kw)
+            for kind, m in encoder_structure(cfg))
+        self.middle = nn.ModuleList([ResidualBlock(d, d, **kw),
+                                     AttentionBlock(d, **kw),
+                                     ResidualBlock(d, d, **kw)])
+        self.head = nn.Sequential(RMSNormChannel(d, False, **kw), nn.SiLU(),
+                                  CausalConv3d(d, 2 * cfg.z_dim, 3, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(x)
+        for block in self.downsamples:
+            h = block(h)
+        for block in self.middle:
+            h = block(h)
+        return self.head(h)
+
+
 class WanDecoder(nn.Module):
     def __init__(self, cfg: WanVAEConfig, device=None, dtype=None):
         super().__init__()
@@ -232,16 +286,20 @@ class WanDecoder(nn.Module):
 
 
 class WanVAE(nn.Module):
-    """The decoding half of the reference WanVAE: ``conv2`` (1x1x1) and
-    ``decoder``."""
+    """The reference WanVAE: ``encoder`` and ``conv1`` (1x1x1, to mean and
+    log-variance), ``conv2`` (1x1x1) and ``decoder``.  The decoding half is
+    registered first, so its random init draws what it drew before the
+    encoder was ported."""
 
     def __init__(self, cfg: WanVAEConfig = WanVAEConfig(), device=None,
                  dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, 1, device=device,
-                                  dtype=dtype)
-        self.decoder = WanDecoder(cfg, device, dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, 1, **kw)
+        self.decoder = WanDecoder(cfg, **kw)
+        self.encoder = WanEncoder(cfg, **kw)
+        self.conv1 = CausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim, 1, **kw)
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> "WanVAE":
@@ -260,6 +318,42 @@ class WanVAE(nn.Module):
         return self
 
 
+def wan_encode_raw(vae: WanVAE, x: torch.Tensor):
+    """pixels [B, 3, T, H, W] -> (mu, log_var), each
+    [B, z_dim, 1 + (T-1)/4, H/8, W/8] at the released config."""
+    h = vae.conv1(vae.encoder(x))
+    return h.chunk(2, dim=1)
+
+
+def _latent_stats(like: torch.Tensor):
+    shape = (1, -1, 1, 1, 1)
+    kw = dict(dtype=like.dtype, device=like.device)
+    return (torch.tensor(WAN_LATENT_MEAN, **kw).view(shape),
+            torch.tensor(WAN_LATENT_STD, **kw).view(shape))
+
+
+def wan_encode(vae: WanVAE, videos: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None,
+               deterministic: bool = False) -> torch.Tensor:
+    """Reference ``WanVAE.sample``: pixels [B, 3, T, H, W] in [-1, 1] ->
+    scale-normalised latents [B, z_dim, T', h, w], ``mu`` alone with
+    ``deterministic``, else ``mu + std * eps`` with ``std = exp(0.5 *
+    clip(log_var, -30, 20))`` and ``eps`` the given normal draw (of the
+    latents' shape) or one from ``generator``."""
+    mu, log_var = wan_encode_raw(vae, videos)
+    mean, std = _latent_stats(mu)
+    mu = (mu - mean) / std
+    if deterministic:
+        return mu
+    std = torch.exp(0.5 * log_var.clamp(-30.0, 20.0))
+    if eps is None:
+        eps = torch.randn(std.shape, generator=generator, dtype=std.dtype,
+                          device=std.device)
+    return mu + std * torch.as_tensor(eps, dtype=std.dtype,
+                                      device=std.device)
+
+
 def wan_decode_raw(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
     """z [B, z_dim, T, h, w] -> pixels [B, 3, 4(T-1)+1, 8h, 8w]."""
     return vae.decoder(vae.conv2(z))
@@ -268,8 +362,5 @@ def wan_decode_raw(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
 def wan_decode(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
     """Reference ``WanVAE.batch_decode``: scale-normalised latents
     [B, z_dim, T, h, w] -> pixels in [-1, 1]."""
-    shape = (1, -1, 1, 1, 1)
-    mean = torch.tensor(WAN_LATENT_MEAN, dtype=z.dtype, device=z.device)
-    std = torch.tensor(WAN_LATENT_STD, dtype=z.dtype, device=z.device)
-    z = z * std.view(shape) + mean.view(shape)
-    return wan_decode_raw(vae, z).clamp(-1.0, 1.0)
+    mean, std = _latent_stats(z)
+    return wan_decode_raw(vae, z * std + mean).clamp(-1.0, 1.0)

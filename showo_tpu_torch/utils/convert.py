@@ -14,7 +14,8 @@ common currency is a reference-layout state dict ({name: array}):
     Show-o state dict (``mm_projector.0`` / ``mm_projector.2``);
   * int8 serving params (JAX ``quantize_int8``: ``kernel_i8`` [K, N],
     ``scale`` [1, N]) -> :func:`load_int8_params` into the ``Int8Linear``
-    buffers of a quantized port Phi;
+    buffers of a quantized port Phi, :func:`load_qwen2_int8_params` of a
+    quantized port Qwen2;
   * Show-o2: JAX params -> ``showo_tpu.utils.torch_export.showo2_state_dict``
     -> :func:`load_showo2`;
   * Wan2.1 VAE: JAX params -> :func:`wan_vae_state_dict` (the inverse of
@@ -104,9 +105,8 @@ def load_showo2(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
 
 
 def load_wan_vae(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
-    """Load a Wan2.1 VAE state dict into a
-    :class:`~showo_tpu_torch.show_o2.wan_vae.WanVAE`; the encoder's
-    entries (not ported) are ignored."""
+    """Load a Wan2.1 VAE state dict (encoder, ``conv1``, ``conv2`` and
+    decoder) into a :class:`~showo_tpu_torch.show_o2.wan_vae.WanVAE`."""
     return _load(model, sd)
 
 
@@ -279,27 +279,51 @@ def wan_vae_state_dict(params: Mapping,
 # int8 serving params: JAX quantize_int8 -> Int8Linear buffers
 # ---------------------------------------------------------------------------
 
+def _put_int8(module, node, i=None):
+    """Copy one JAX int8 node (``kernel_i8``, ``scale``, maybe ``bias``;
+    layer ``i`` of stacked arrays) into an ``Int8Linear``."""
+    from showo_tpu_torch.models.phi import Int8Linear
+
+    if not isinstance(module, Int8Linear):
+        raise TypeError(f"{type(module).__name__} is not quantized; run "
+                        f"quantize_int8 on the port model first")
+    pick = (lambda a: np.asarray(a)) if i is None else (
+        lambda a: np.asarray(a)[i])
+    bias = node.get("bias")
+    module.load_quantized(pick(node["kernel_i8"]), pick(node["scale"]),
+                          None if bias is None else pick(bias))
+
+
 def load_int8_params(phi: torch.nn.Module, params: Mapping):
     """Copy JAX ``quantize_int8`` params (a Phi tree whose quantized
     matmuls hold stacked ``kernel_i8`` [L, K, N], ``scale`` [L, 1, N] and
     ``bias`` [L, N], and ``lm_head``) into the ``Int8Linear`` modules of a
     port Phi already fused and quantized to the same layout."""
-    from showo_tpu_torch.models.phi import INT8_LINEARS, Int8Linear
+    from showo_tpu_torch.models.phi import INT8_LINEARS
 
-    def put(module, node, i=None):
-        if not isinstance(module, Int8Linear):
-            raise TypeError(f"{type(module).__name__} is not quantized; "
-                            f"run quantize_int8 on the port model first")
-        pick = (lambda a: np.asarray(a)) if i is None else (
-            lambda a: np.asarray(a)[i])
-        module.load_quantized(pick(node["kernel_i8"]), pick(node["scale"]),
-                              pick(node["bias"]))
+    return _load_int8_layers(phi, params, INT8_LINEARS)
 
-    for name, path in INT8_LINEARS.items():
+
+def load_qwen2_int8_params(qwen: torch.nn.Module, params: Mapping):
+    """Copy JAX Qwen2 ``quantize_int8`` params (the ``showo`` tree: stacked
+    ``kernel_i8`` [L, K, N] and ``scale`` [L, 1, N] of each quantized
+    matmul, ``bias`` [L, N] of q / k / v or qkv, and ``lm_head``) into the
+    ``Int8Linear`` modules of a port Qwen2 fused (or not) and quantized to
+    the same layout."""
+    from showo_tpu_torch.show_o2.qwen2 import INT8_LINEARS
+
+    return _load_int8_layers(qwen, params, INT8_LINEARS)
+
+
+def _load_int8_layers(model: torch.nn.Module, params: Mapping,
+                      paths: Mapping[str, str]):
+    """Every quantized node of ``params["layers"]`` named in ``paths``
+    (JAX name -> module path in a layer), then ``lm_head``."""
+    for name, path in paths.items():
         node = params["layers"].get(name)
         if node is None or "kernel_i8" not in node:
             continue
-        for i, layer in enumerate(phi.model.layers):
-            put(layer.get_submodule(path), node, i)
-    put(phi.lm_head, params["lm_head"])
-    return phi
+        for i, layer in enumerate(model.model.layers):
+            _put_int8(layer.get_submodule(path), node, i)
+    _put_int8(model.lm_head, params["lm_head"])
+    return model

@@ -2,14 +2,16 @@
 
 The port keeps its own copies of the config loader, the t2i and training
 prompting, the stand-in tokenizer, the Show-o2 sequence formats, the v2
-tokenizer loader, the in-tree asset paths and the image transform so that
-it never imports the JAX package.  These
+tokenizer loader, the in-tree asset paths, the image transform, the
+prompt-file reading of the t2i CLIs and the video loader so that it never
+imports the JAX package.  These
 tests show the copies agree with the originals exactly: the same config
 tree, the same token ids, the same t2i layout, the same training text
 blocks (conditioning dropout included) and lm / mmu blocks, also against
 the reference-generated golden (tests/golden/prompting.npz), and the same
-v2 layouts (also against tests/golden/formats.npz) and fallback tokenizer
-ids.  A static scan shows that neither the package nor ``chip_smoke.py``
+v2 layouts (also against tests/golden/formats.npz), fallback and local
+tokenizer ids, every line of a prompt file (blank ones too), and the same
+frames of a frame directory and a GIF.  A static scan shows that neither the package nor ``chip_smoke.py``
 imports jax, flax or the JAX package, even inside a function.
 """
 
@@ -230,6 +232,121 @@ def test_v2_tokenizer_loader_matches_jax():
     for p in PROMPTS + ["<|soi|> x"]:
         assert (ttok(p, add_special_tokens=False)
                 == jtok(p, add_special_tokens=False))
+
+
+class _StubQwenTokenizer:
+    """What the v2 loaders ask of a local Qwen2.5 tokenizer: its vocabulary
+    (the vision tokens native), an eos id, added tokens appended."""
+
+    eos_token_id = 151645
+
+    def __init__(self):
+        self.vocab = {"<|im_start|>": 151644, "<|im_end|>": 151645,
+                      "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+                      "<|image_pad|>": 151655, "<|video_pad|>": 151656}
+        self.pad_token_id = None
+
+    def add_tokens(self, token):
+        self.vocab.setdefault(token, 151936 + len(self.vocab) - 6)
+
+    def add_special_tokens(self, tokens):
+        self.add_tokens(tokens["pad_token"])
+        self.pad_token_id = self.vocab[tokens["pad_token"]]
+
+    def get_vocab(self):
+        return dict(self.vocab)
+
+
+def test_v2_tokenizer_ids_of_a_local_tokenizer_match_jax(tmp_path):
+    """With a local tokenizer directory the port's loader gives the ids of
+    JAX ``show_o2/tokenizer.py::get_text_tokenizer`` (the video and
+    ``<image>`` ids among them), asking only for local files."""
+    import types
+    from unittest import mock
+
+    from showo_tpu.show_o2.tokenizer import get_text_tokenizer
+    from showo_tpu_torch import inference_t2i_v2 as tinf
+
+    asked = []
+    stub = types.ModuleType("transformers")
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(path, **kwargs):
+            asked.append(kwargs)
+            return _StubQwenTokenizer()
+
+    stub.AutoTokenizer = AutoTokenizer
+    config = tconfig.load_config(
+        os.path.join(REPO, "configs", "showo2_1.5b_demo_432x432.yaml"),
+        [f"model.showo.llm_model_path={tmp_path}"])
+    with mock.patch.dict(sys.modules, {"transformers": stub}):
+        _, want = get_text_tokenizer(str(tmp_path),
+                                     return_showo_token_ids=True)
+        _, got = tinf.load_tokenizer_and_ids(config)
+    assert got == want
+    assert {"bov_id", "eov_id", "img_id"} <= set(got)
+    assert asked[-1] == {"local_files_only": True}
+
+
+def test_fake_qwen_tokenizer_decodes_what_it_encoded():
+    from showo_tpu_torch import inference_t2i_v2 as tinf
+
+    tok = tinf.FakeQwenTokenizer()
+    ids = tok("a small red boat", add_special_tokens=False)["input_ids"]
+    eos = tinf.FAKE_TOKEN_IDS["eos_id"]
+    assert tok.decode(ids + [eos], skip_special_tokens=True) == \
+        "a small red boat"
+    assert tok.batch_decode([[ids[2], 999], [eos]]) == ["red <999>",
+                                                        f"<{eos}>"]
+
+
+@pytest.mark.parametrize("module", ["inference_t2i", "inference_t2i_v2"])
+def test_load_prompts_keeps_blank_lines_as_jax(tmp_path, module):
+    """Both t2i CLIs read the prompt file as the JAX CLIs do
+    (``f.read().splitlines()``): 4 lines in, blank and whitespace-only
+    ones among them, 4 prompts out, so image i is line i's prompt."""
+    import importlib
+
+    path = tmp_path / "prompts.txt"
+    path.write_text("a cat\n\n   \na dog on a hill\n")
+    with open(path) as f:
+        want = f.read().splitlines()
+    config_file = ("showo_demo_512x512.yaml" if module == "inference_t2i"
+                   else "showo2_1.5b_demo_432x432.yaml")
+    config = tconfig.load_config(os.path.join(REPO, "configs", config_file),
+                                 [f"validation_prompts_file={path}"])
+    got = importlib.import_module(f"showo_tpu_torch.{module}").load_prompts(
+        config)
+    assert got == want == ["a cat", "", "   ", "a dog on a hill"]
+
+
+@pytest.mark.parametrize("source", ["frames", "gif"])
+@pytest.mark.parametrize("num_frames", [3, 9])
+def test_load_video_matches_jax(tmp_path, source, num_frames):
+    """``load_video`` gives the JAX loader's frames bit for bit: a frame
+    directory (image files only, name order) and a GIF, sampled down (3 of
+    5) and padded with the last frame (9 of 5)."""
+    from PIL import Image
+
+    from showo_tpu.utils.video import load_video as jload
+    from showo_tpu_torch.utils.video import load_video as tload
+
+    frames = [Image.fromarray(np.random.default_rng(i).integers(
+        0, 256, (24, 30, 3), dtype=np.uint8)) for i in range(5)]
+    if source == "frames":
+        path = tmp_path / "clip"
+        path.mkdir()
+        for i, f in enumerate(frames):
+            f.save(path / f"f{i:02d}.png")
+        (path / "notes.txt").write_text("not a frame")
+    else:
+        path = tmp_path / "clip.gif"
+        frames[0].save(path, save_all=True, append_images=frames[1:])
+    got = tload(str(path), num_frames=num_frames, resolution=16)
+    want = jload(str(path), num_frames=num_frames, resolution=16)
+    assert got.shape == (num_frames, 16, 16, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_v2_config_matches_jax():

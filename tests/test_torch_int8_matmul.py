@@ -10,7 +10,8 @@ ragged M / K / N.  Tolerance: one bf16 ulp of the output's peak (both
 sides sum exact bf16 products in fp32, in different orders, and round the
 scaled sum to bf16 once).  ``quantize_int8`` is bit-exact against JAX on
 every layout.  The card-only cases hold each CUDA kernel against its plain
-version at the slice's shapes within 2e-2 of the output's peak; above the
+version at the slices' shapes (Phi's and Qwen2.5-1.5B's) within 2e-2 of
+the output's peak; above the
 decode rows they also check which core ran (``launches["int8_matmul_<core>"]``,
 ``launches["int4_matmul_<core>"]``) and that split-K gives the same bits
 on two calls.  ``prefill_plan`` (the prefill kernel's tiles and split, for
@@ -553,6 +554,40 @@ def test_int8_prefill_kernel_vs_plain_on_card(M, K, N):
     torch.cuda.synchronize()
     assert {n: cuda_build.launches[n] - before[n] for n in before} == {
         "int8_matmul": 1, "int8_matmul_prefill": 1, "int8_matmul_mma": 0}
+    _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
+
+
+# Qwen2.5-1.5B's int8 products (Show-o2 understanding): (K, N, bias) of the
+# fused qkv (with its bias), o, gate-up, down and the tied lm_head
+QWEN_SHAPES = {"qkv": (1536, 2048, True), "o": (1536, 1536, False),
+               "gate-up": (1536, 17920, False), "down": (8960, 1536, False),
+               "lm_head": (1536, 151940, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 744, 2202], ids=["decode", "image-prompt",
+                                                   "video-prompt"])
+@pytest.mark.parametrize("name", list(QWEN_SHAPES))
+def test_int8_kernel_vs_plain_qwen_shapes_on_card(name, M):
+    """Kernel 9 at each Qwen2 product of the v2 understanding slice, at
+    decode (the gemv) and at the image and video prompts' rows (the prefill
+    kernel), with weight rows padded to 16 bytes as Int8Linear pads them
+    (151940 -> 151952 at the head): the core that ran, one product, within
+    2e-2 of the output's peak."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    K, N, has_bias = QWEN_SHAPES[name]
+    x, w, s, b = _card(M, K, -(-N // 16) * 16, seed=M + K + N)
+    w, s, b = w[:, :N], s[:, :N], (b[:N] if has_bias else None)
+    core = "int8_matmul_gemv" if M == 1 else "int8_matmul_prefill"
+    before = {n: cuda_build.launches[n] for n in
+              ("int8_matmul", "int8_matmul_gemv", "int8_matmul_prefill",
+               "int8_matmul_mma")}
+    got = ti8.pallas_i8_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    want = {n: 0 for n in before}
+    want.update({"int8_matmul": 1, core: 1})
+    assert {n: cuda_build.launches[n] - before[n] for n in before} == want
     _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
 
 
