@@ -42,7 +42,12 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   question, 100 greedy tokens over the KV cache, with bf16 weights and
   with weight-only int8 (every Qwen2 matmul and the tied head on kernel
   9); and video understanding (9 frames, 3 latent frames) through
-  ``inference_mmu_vid.build_pipeline``, bf16.
+  ``inference_mmu_vid.build_pipeline``, bf16;
+* Show-o2 1.5B text- and image-to-video (bench.py's ``t2v`` and
+  ``t2v_long`` rows) through ``inference_t2i_v2.build_t2v_pipeline``,
+  mixed-modality generation through
+  ``inference_mixed_modality.build_pipeline``, and Show-o v1 long video
+  (``configs/showo_demo.yaml``) through ``inference_lvg.build_pipeline``.
 
 Phases, one or more lines each:
 
@@ -228,6 +233,28 @@ Phases, one or more lines each:
   18b. Show-o2 video understanding, bf16: 9 frames made from the in-tree
      image, read by ``load_video``; 3 latent frames, the prompt rows, one
      greedy answer's tokens in the vocabulary, no kernel, its wall time
+  19. bench.py's ``t2v`` row (after phase 18b): 1 prompt (2 rows with the
+     null prompt), 2 latent frames (S=1536), Euler 20, CFG 5.0, the
+     adaLN drawn as in phase 13; kernel 1 at its shapes (Qwen2.5 and DiT
+     heads) against its plain version and the library on the generate's
+     tile map (byte for byte), two launches bit-identical, device times,
+     bound; one generate: 38 x 19 = 722 kernel 1 launches, all on the
+     core, 1 tile map, frames finite in [-1, 1], denoise and decode
+     seconds, frames/min, peak memory; one velocity on ``packed``
+     against ``dense``; an i2v generate (the in-tree image as the first
+     frame, which must come out as the encoder gave it)
+  19b. ``t2v_long``: 9 latent frames (S=6656) on ``streaming`` as phase
+     19 with kernel 5, the streaming VAE decode of 33 frames in the
+     generate; the velocity against ``dense`` (``packed`` if dense does
+     not fit); the streaming against the full-clip decode in fp32
+     (cuDNN's TF32 off for the check)
+  20. mixed modality: 2 rounds of up to 60 top-k 5 tokens and an image
+     each (Euler 20, CFG 5.0, dense as in JAX: no kernel); round texts
+     and images well formed; decode ms a token and the idle share over
+     one round's text (profiler), seconds an image
+  21. v1 long video at 256x256: batch 2, 3 frames, 2 context frames, 16
+     steps, CFG 1.75 (dense under the lvg mask: no kernel); codes in the
+     codebook, every frame differing from the one before, seconds a frame
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -419,6 +446,25 @@ V2_AGREE_SLACK = 0.02
 # the video clip: 9 frames of 432x432, 3 latent frames after the VAE's two
 # time downsamples
 V2_VIDEO_FRAMES, V2_LATENT_FRAMES = 9, 3
+# bench.py's t2v rows (bench.py:967-970, driven by :291-333), phases 19 and
+# 19b: one prompt (2 rows with the null prompt), Euler over 20 grid points
+# (19 velocity evaluations), CFG 5.0; t2v at 2 latent frames (5 pixel
+# frames, 1536 rows: the packed route), t2v_long at 9 (33 pixel frames,
+# 6656 rows: the streaming route, and the streaming VAE decode)
+T2V_STEPS, T2V_CFG = 20, 5.0
+T2V_EVALS = T2V_STEPS - 1
+T2V_FRAMES = {"t2v": 2, "t2v_long": 9}
+T2V_ROUTES = {"t2v": "packed", "t2v_long": "streaming"}
+T2V_PHASES = {"t2v": "19", "t2v_long": "19b"}
+# the streaming against the full-clip VAE decode on the card, fp32 with
+# cuDNN's TF32 off: max |d| of pixels in [-1, 1]; the same sums in two
+# orders (1e-6 at the CPU tests' tiny size)
+VAE_STREAM_TOL = 1e-3
+# mixed modality (phase 20): rounds of up to 60 top-k 5 tokens and an image
+MIXED_ROUNDS, MIXED_TOKENS = 2, 60
+MIXED_PROMPT = "Tell me a short story with pictures."
+# v1 long video (phase 21): configs/showo_demo.yaml at 256x256
+LVG_BATCH, LVG_FRAMES, LVG_CONTEXT = 2, 3, 2
 # cached against uncached latents, streaming against packed latents, after
 # 49 Euler steps with CFG 7.5 (phases 16, 17): max |d| over the peak of
 # the uncached / packed latents; the same bf16 computation in two tilings
@@ -1991,6 +2037,23 @@ def _v2_ragged(torch, tfa, H, Hkv, D):
                              f"{same}")
 
 
+def _v2_full_width(pipe) -> bool:
+    """Whether ``pipe`` holds Show-o2 1.5B at 432x432 at full width (Qwen2.5
+    28 layers, 12 / 2 heads of 128; the DiT 10 layers, 32 / 8 of 64;
+    SigLIP 26 layers; 27x27 patches and the time token an image) and the
+    released Wan2.1 VAE."""
+    cfg = pipe.cfg
+    lc, dc, sc = cfg.llm, cfg.dit, cfg.siglip
+    return (lc.num_layers == 28 and lc.hidden_size == 1536
+            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == (12, 2, 128)
+            and lc.vocab_size == 151940 and dc.num_layers == 10
+            and dc.hidden_size == 2048
+            and (dc.num_heads, dc.num_kv_heads, dc.head_dim) == (32, 8, 64)
+            and sc.num_layers == 26 and sc.hidden_size == 1152
+            and cfg.num_image_tokens == 730 and pipe.vae.cfg.dim == 96
+            and pipe.vae.cfg.temperal_downsample == (False, True, True))
+
+
 def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
     """The Show-o2 432x432 pipeline: launch counts over one generate call,
     output checks, warm wall time and peak memory.  Returns (kernel 1
@@ -1998,16 +2061,8 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
     operator of one generate is ``profile_t2i.py --slice v2``'s (its
     ~200,000 launches take the profiler minutes)."""
     cfg = pipe.cfg
-    lc, dc, sc = cfg.llm, cfg.dit, cfg.siglip
-    if not (pipe.attn_route == "packed" and lc.num_layers == 28
-            and lc.hidden_size == 1536 and (lc.num_heads, lc.num_kv_heads,
-                                            lc.head_dim) == (12, 2, 128)
-            and lc.vocab_size == 151940 and dc.num_layers == 10
-            and dc.hidden_size == 2048 and (dc.num_heads, dc.num_kv_heads,
-                                            dc.head_dim) == (32, 8, 64)
-            and sc.num_layers == 26 and sc.hidden_size == 1152
-            and cfg.num_image_tokens == 730 and pipe.num_steps == 50
-            and pipe.guidance_scale == 7.5 and pipe.vae.cfg.dim == 96):
+    if not (pipe.attn_route == "packed" and _v2_full_width(pipe)
+            and pipe.num_steps == 50 and pipe.guidance_scale == 7.5):
         raise AssertionError(f"not the full-width Show-o2 432x432 path: "
                              f"{pipe.attn_route}, {cfg}, {pipe.vae.cfg}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2069,12 +2124,7 @@ def phase_v2_parity(torch, pipe, prompts):
     from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
 
     model, cfg = pipe.model, pipe.cfg
-    g = torch.Generator(device="cuda").manual_seed(13)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if "adaLN_modulation" in name or "diffusion_head_b.linear" in name:
-                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
-                        * 0.02)
+    g = _draw_adaln(torch, model, 13)
     text, mp = pipe.build_inputs(prompts)
     B, L = text.shape
     z = torch.randn(B // 2, cfg.image_latent_dim, cfg.image_latent_height,
@@ -2103,6 +2153,19 @@ def phase_v2_parity(torch, pipe, prompts):
         raise AssertionError(f"v2 velocity packed vs dense differs by "
                              f"{rel[0.0]} of the peak > {V2_STEP_TOL}")
     return rel
+
+
+def _draw_adaln(torch, model, seed: int):
+    """The DiT's adaLN projections and the FinalLayer drawn N(0, 0.02) in
+    place (their reference zero init makes the velocity 0 whatever the
+    towers compute); returns the generator, to draw on from."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "adaLN_modulation" in name or "diffusion_head_b.linear" in name:
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.02)
+    return g
 
 
 def phase_v1_modes(torch, np, inference_t2i, cuda_build, config, prompts,
@@ -2793,6 +2856,452 @@ def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi):
             "tokens": len(toks), "wall_s": wall, "peak_gib": peak}
 
 
+def _t2v_meta(pipe, prompts):
+    """(text, spans, route, attention metadata) of one t2v generate of
+    ``prompts``: the [cond; null] rows around the video span, cut at its
+    end rounded up to 128, and the route ``auto`` picks at their length."""
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
+
+    text, mp = pipe.build_inputs(prompts)
+    route = pipe.route(text.shape[1])
+    return text, mp, route, attention_inputs(route, text, mp)[1]
+
+
+def phase_t2v_kernel(torch, pipe, prompts, row):
+    """Kernel 1 (``t2v``, packed) or kernel 5 (``t2v_long``, streaming)
+    against its plain version at the row's shapes: self-attention over the
+    [cond; null] rows of one prompt (its video span and the null prompt's),
+    Qwen2.5 and DiT heads, through the model's call
+    (``qwen2.gqa_attention`` on [B, S, H, D] views, on the tile map the
+    generate makes); the map byte for byte; two launches bit-identical;
+    median times of kernel, plain version and scaled_dot_product_attention
+    with the boolean mask, the device time a launch (profiler), the bound;
+    the other of kernels 1 and 5 beside it on the same memory (the device
+    time of each at the row's length, which ``auto``'s 2816-row cut-over
+    chooses between).  Returns {label: result, "tiles": the map's
+    result}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
+    from showo_tpu_torch.ops import streaming_attention as tsa
+    from showo_tpu_torch.show_o2 import qwen2 as tqwen2
+
+    phase = T2V_PHASES[row]
+    text, mp, route, meta = _t2v_meta(pipe, prompts)
+    if route != T2V_ROUTES[row]:
+        raise AssertionError(f"{row}: auto picked {route} at "
+                             f"{tuple(text.shape)}")
+    num = 1 if route == "packed" else 5
+    B, L = text.shape
+    m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
+    vis = tfa.visible_mask(*m, meta.pos_q)
+    n_vis = int(vis.sum())
+    meta_bytes = 4 * (4 * B * L + 2 * B)
+    print(f"[{phase}] {row}: B={B} S={L} (video spans {mp[:, 0].tolist()}, "
+          f"{pipe.num_latent_frames} latent frames); {n_vis} visible (row, "
+          f"key) pairs of {B * L * L} ({n_vis / (B * L * L):.4f})")
+    make = tfa.rows_tile_map if route == "packed" else tsa.streaming_tile_map
+    tiles, maps = _map_check(
+        torch, f"kernel {num}'s tile map {tuple(meta.tiles.shape)}",
+        lambda: make(*m, meta.pos_q, meta.seg_q),
+        lambda: tfa.rows_tile_map_plain(*m, meta.pos_q),
+        meta_bytes + meta.tiles.numel(), B * (-(-L // 64) * 64) ** 2, phase,
+        flag=True)
+    if not torch.equal(tiles, meta.tiles):
+        raise AssertionError(f"{row}: the map the model reads differs")
+    other = "streaming" if route == "packed" else "packed"
+    other_meta = attention_inputs(other, text, mp)[1]
+    g = torch.Generator(device="cuda").manual_seed(51)
+    out = {"tiles": maps}
+    for label, H, Hkv, D in V2_SHAPES:
+        q = torch.randn(B, L, H, D, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, L, Hkv, D, generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        shape = f"{label}: B={B} S={L} H={H} Hkv={Hkv} D={D}"
+        bound = _bound(2 * (2 * B * L * H + 2 * B * L * Hkv) * D + meta_bytes,
+                       4 * D * H * n_vis)
+
+        def kern():
+            return tqwen2.gqa_attention(q, k, v, None, meta)
+
+        def plain():
+            if route == "streaming":
+                return tsa.omni_attention_streaming_plain(
+                    *heads, *m, meta.pos_q, sm_scale=D ** -0.5).transpose(
+                        1, 2).reshape(B, L, H * D)
+            return tfa.omni_attention_packed_plain(
+                q.reshape(B, L, -1), k.reshape(B, L, -1), v.reshape(B, L, -1),
+                *m, meta.pos_q, num_heads=H, num_kv_heads=Hkv,
+                sm_scale=D ** -0.5)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *heads, attn_mask=vis[:, None], enable_gqa=Hkv != H)
+
+        res = _compare(torch, f"kernel {num} {shape}", kern, plain, bound,
+                       sdpa, phase=phase)
+        same = torch.equal(kern(), kern())
+        if not same:
+            raise AssertionError(f"{shape} kernel {num}: two launches differ")
+        def beside():
+            return tqwen2.gqa_attention(q, k, v, None, other_meta)
+
+        diff = (beside().float() - kern().float()).abs().max().item()
+        if not diff <= CARD_TOL:
+            raise AssertionError(f"{shape}: the {other} kernel differs by "
+                                 f"{diff}")
+        res.update({"device_ms": _device_ms(torch, kern),
+                    "library_device_ms": _device_ms(torch, sdpa),
+                    "beside": {"route": other, "max_diff": diff,
+                               "device_ms": _device_ms(torch, beside)}})
+        print(f"[{phase}] kernel {num} {shape}: two launches bit-identical; "
+              f"device time a launch (profiler, mean of 20) "
+              f"{_ms(res['device_ms'])}, library "
+              f"{_ms(res['library_device_ms'])}; beside it on the same "
+              f"memory the {other} kernel ({6 - num}) "
+              f"{_ms(res['beside']['device_ms'])}, max |difference| "
+              f"{diff:.3e} (tol {CARD_TOL:.0e})")
+        out[label] = res
+        del q, k, v, heads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_t2v(torch, np, cuda_build, pipe, prompts, row, smi):
+    """bench.py's ``row`` through ``T2VPipeline``: over one generate the
+    row's kernel launches 38 x 19 times (every layer of both towers, each
+    velocity evaluation; on ``packed`` all on the wgmma core), reading one
+    tile map, and every other kernel none; frames finite, NHWC, in [-1, 1];
+    warm seconds of the denoise and of the decode (streamed at 9 latent
+    frames), frames/min, peak memory.  Returns (counts, readings)."""
+    phase, route = T2V_PHASES[row], T2V_ROUTES[row]
+    frames = T2V_FRAMES[row]
+    text, _, picked, _ = _t2v_meta(pipe, prompts)
+    if not (_v2_full_width(pipe) and picked == route
+            and pipe.num_latent_frames == frames
+            and pipe.num_steps == T2V_STEPS
+            and pipe.guidance_scale == T2V_CFG
+            and pipe.streams_vae == (frames >= 9)):
+        raise AssertionError(f"{row}: not bench.py's row at full width: "
+                             f"{picked}, {frames} frames, {pipe.cfg}")
+    name = KERNELS[route][0]
+    want = _v2_want(**{name: V2_LAYERS * T2V_EVALS, ROUTE_TILES[route]: 1})
+    if route == "packed":
+        want[PACKED_WGMMA] = V2_LAYERS * T2V_EVALS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe.generate(prompts, gen)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    lat = pipe.generate_latents(prompts, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    videos = pipe.decode(lat)
+    t2 = time.perf_counter()
+    counts = {n: cuda_build.launches[n] for n in want}
+    if counts != want:
+        raise AssertionError(f"{row}: launches in one generate {counts}, "
+                             f"want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pix = 4 * (frames - 1) + 1
+    if videos.shape != (len(prompts), pix, 432, 432, 3) or not np.isfinite(
+            videos).all() or videos.min() < -1.0 or videos.max() > 1.0:
+        raise AssertionError(f"{row}: frames {videos.shape}, not finite or "
+                             f"outside [-1, 1]")
+    wall = t2 - t0
+    print(f"[{phase}] slice Show-o2 1.5B {row} 432x432: {len(prompts)} "
+          f"prompt, {frames} latent frames -> {pix} frames, Euler "
+          f"{T2V_STEPS} ({T2V_EVALS} velocity evaluations), CFG {T2V_CFG} "
+          f"({tuple(text.shape)} rows x tokens), bf16, VAE fp32 "
+          f"({'streaming' if pipe.streams_vae else 'full-clip'} decode; "
+          f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}), route {route}: "
+          f"launches per generate {counts[name]} = {V2_LAYERS} x "
+          f"{T2V_EVALS} of {name}"
+          + (f" ({counts[PACKED_WGMMA]} on the wgmma core)"
+             if route == "packed" else "")
+          + f", {counts[ROUTE_TILES[route]]} tile map, 0 of the others; "
+          f"frames {videos.shape} finite in [-1, 1]; warm wall {wall:.4f} s "
+          f"(denoise {t1 - t0:.4f} s, decode {t2 - t1:.4f} s), "
+          f"{pix * len(prompts) * 60.0 / wall:.2f} frames/min; peak memory "
+          f"allocated {peak:.2f} GiB on {smi}")
+    return counts, {"wall_s": wall, "denoise_s": t1 - t0,
+                    "decode_s": t2 - t1, "rows": text.shape[1],
+                    "frames_per_min": pix * len(prompts) * 60.0 / wall,
+                    "peak_gib": peak}
+
+
+def phase_t2v_parity(torch, pipe, prompts, row):
+    """One full-width video velocity evaluation on the row's route against
+    a reference route on the same weights, latents and t: ``dense`` where
+    its fp32 scores fit the card, else ``packed`` (held to dense in phase
+    19); unguided.  Returns (reference route, max |dv| / peak)."""
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
+    from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
+
+    phase = T2V_PHASES[row]
+    text, mp, route, meta = _t2v_meta(pipe, prompts)
+    cfg = pipe.cfg
+    g = torch.Generator(device="cuda").manual_seed(61)
+    z = torch.randn(1, cfg.image_latent_dim, pipe.num_latent_frames,
+                    cfg.image_latent_height, cfg.image_latent_width,
+                    generator=g, device="cuda")
+    x = z.expand(text.shape[0], -1, -1, -1, -1)
+    t = torch.full((text.shape[0],), 0.5, device="cuda")
+
+    def velocity(bias, attn_meta):
+        with torch.no_grad():
+            return showo2_t2i_velocity(
+                pipe.model, text, x, t, bias, mp,
+                num_frames=pipe.num_latent_frames,
+                attn_meta=attn_meta).float()
+
+    v = velocity(None, meta)
+    ref = "dense"
+    try:
+        want = velocity(attention_inputs("dense", text, mp)[0], None)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        ref = "packed"
+        want = velocity(None, attention_inputs("packed", text, mp)[1])
+    rel = ((v - want).abs().max() / want.abs().max()).item()
+    print(f"[{phase}] {row} velocity parity {route} vs {ref} (28 + 10 "
+          f"layers, {tuple(text.shape)}, {pipe.num_latent_frames} latent "
+          f"frames, bf16, t 0.5, unguided): max |dv| / peak {rel:.4e} "
+          f"(peak |v| {want.abs().max().item():.4f}; tol {V2_STEP_TOL})"
+          + ("" if ref == "dense" else "; dense did not fit the card"))
+    if not rel <= V2_STEP_TOL:
+        raise AssertionError(f"{row}: velocity {route} vs {ref} differs by "
+                             f"{rel} of the peak > {V2_STEP_TOL}")
+    del v, want
+    torch.cuda.empty_cache()
+    return ref, rel
+
+
+def phase_i2v(torch, cuda_build, pipe, prompts, smi):
+    """An i2v generate at the t2v row's size: the in-tree image at 432x432
+    through the VAE encoder as the first frame (its noise drawn from the
+    generator after z); the first latent frame must come out as the encoder
+    gave it (its velocity is zero at every step) and the other frames must
+    move; the same launches as t2v."""
+    cfg = pipe.cfg
+    image = _mmu_image(432)
+    seed = 71
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (len(prompts), cfg.image_latent_dim, pipe.num_latent_frames,
+             cfg.image_latent_height, cfg.image_latent_width)
+    z = torch.randn(shape, generator=g, device="cuda")
+    frame0 = pipe.encode_first_frame(image, len(prompts), g)
+    want = _v2_want(**{"omni_attention_packed": V2_LAYERS * T2V_EVALS,
+                       PACKED_WGMMA: V2_LAYERS * T2V_EVALS, PACKED_TILES: 1})
+    torch.cuda.synchronize()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    lat = pipe.generate_latents(
+        prompts, torch.Generator(device="cuda").manual_seed(seed),
+        first_frame_nhwc=image)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: cuda_build.launches[n] for n in want}
+    if counts != want:
+        raise AssertionError(f"i2v: launches {counts}, want {want}")
+    kept = (lat[:, :, 0] - frame0[:, :, 0]).abs().max().item()
+    moved = (lat[:, :, 1:] - z[:, :, 1:]).abs().max().item()
+    print(f"[19] i2v at the t2v size: the first frame ({MMU_IMAGE} at "
+          f"432x432) encoded to {tuple(frame0.shape)}; after {T2V_EVALS} "
+          f"Euler steps the first latent frame differs from it by "
+          f"{kept:.3e} (tol 1e-5: its velocity is zero, and the encoder "
+          f"ran twice on one draw), the others moved "
+          f"from z by up to {moved:.3f}; launches "
+          f"{counts['omni_attention_packed']} of omni_attention_packed, "
+          f"{counts[PACKED_TILES]} tile map; denoise {wall:.4f} s (with the "
+          f"encode) on {smi}")
+    if not (kept <= 1e-5 and moved > 1e-2):
+        raise AssertionError(f"i2v: first frame off by {kept}, others moved "
+                             f"{moved}")
+    return {"first_frame_diff": kept, "wall_s": wall}
+
+
+def phase_vae_streaming(torch, pipe, smi):
+    """The streaming decode of 9 latent frames against the full-clip
+    decode on the card (fp32, cuDNN TF32 off for the comparison: both
+    orders of the same fp32 sums), and their times."""
+    from showo_tpu_torch.show_o2.wan_vae import (wan_decode,
+                                                 wan_decode_streaming)
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    cfg = pipe.cfg
+    z = torch.randn(1, cfg.image_latent_dim, T2V_FRAMES["t2v_long"],
+                    cfg.image_latent_height, cfg.image_latent_width,
+                    generator=g, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            times, out, peaks = {}, {}, {}
+            for name, fn in (("full", wan_decode),
+                             ("streaming", wan_decode_streaming)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out[name] = fn(pipe.vae, z)
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t0
+                peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = (out["streaming"] - out["full"]).abs().max().item()
+    print(f"[19b] Wan2.1 VAE decode of {T2V_FRAMES['t2v_long']} latent "
+          f"frames -> {tuple(out['full'].shape)} (fp32, cuDNN TF32 off for "
+          f"this check): streaming vs full clip max |d| {err:.3e} (tol "
+          f"{VAE_STREAM_TOL:.0e}); full clip {times['full']:.3f} s, peak "
+          f"{peaks['full']:.2f} GiB; streaming {times['streaming']:.3f} s, "
+          f"peak {peaks['streaming']:.2f} GiB (first calls) on {smi}")
+    if not err <= VAE_STREAM_TOL:
+        raise AssertionError(f"streaming decode differs by {err}")
+    return {"max_abs_err": err, "full_s": times["full"],
+            "streaming_s": times["streaming"], "full_peak_gib": peaks["full"],
+            "streaming_peak_gib": peaks["streaming"]}
+
+
+def phase_mixed(torch, np, cuda_build, profile, pipe, smi):
+    """Show-o2 mixed-modality generation at full width: MIXED_ROUNDS rounds
+    of up to MIXED_TOKENS top-k 5 tokens and an image each (Euler
+    T2V_STEPS, CFG T2V_CFG, the earlier images as history, dense attention
+    as in JAX: no kernel); round texts in the vocabulary, images finite in
+    [-1, 1], one per round that did not end in eos; decode ms per token and
+    the device's idle share over one round's text, seconds per image."""
+    ids = pipe.token_ids
+    if not (_v2_full_width(pipe) and pipe.num_steps == T2V_STEPS
+            and pipe.guidance_scale == T2V_CFG
+            and pipe.max_new_tokens == MIXED_TOKENS and pipe.top_k == 5):
+        raise AssertionError(f"mixed modality: not the full-width path: "
+                             f"{pipe.cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = _v2_want()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    rounds, images = pipe.generate(MIXED_PROMPT, gen, num_rounds=MIXED_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: cuda_build.launches[n] for n in want}
+    if counts != want:
+        raise AssertionError(f"mixed modality: launches {counts}, want none")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vocab = pipe.cfg.llm.vocab_size
+    n_img = sum(1 for r in rounds if r and r[-1] != ids["eos_id"])
+    if not (rounds and all(0 <= t < vocab for r in rounds for t in r)
+            and images.shape == (n_img, 432, 432, 3)
+            and np.isfinite(images).all() and images.min() >= -1.0
+            and images.max() <= 1.0 and n_img >= 1):
+        raise AssertionError(f"mixed modality: rounds "
+                             f"{[len(r) for r in rounds]}, images "
+                             f"{images.shape}")
+    texts = [pipe.tokenizer.decode(r) for r in rounds]
+    # one round's text again, profiled: the prefill and MIXED_TOKENS
+    # decode forwards over the KV cache
+    prompt = [ids["bos_id"]] + pipe._tok(MIXED_PROMPT)
+    prof = profile(lambda: pipe.lm_generate(prompt, gen),
+                   "[20] mixed modality: one round's text,")
+    token_ms = prof["wall_s"] * 1e3 / (MIXED_TOKENS + 1)
+    # one image: the first round's layout, denoised and decoded
+    n = pipe.cfg.num_image_tokens
+    toks = prompt + rounds[0] + ([] if rounds[0][-1] == ids["boi_id"]
+                                 else [ids["boi_id"]])
+    mp = torch.tensor([[[len(toks), n]]], device="cuda")
+    toks = toks + [ids["img_pad_id"]] * n + [ids["eoi_id"]]
+    hist = torch.zeros((0, 16, 54, 54), device="cuda")
+    t0 = time.perf_counter()
+    pipe.decode(pipe.denoise_last(torch.tensor([toks], device="cuda"), mp,
+                                  hist, gen))
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    print(f"[20] Show-o2 mixed modality 432x432, bf16, VAE fp32: "
+          f"{len(rounds)} rounds of {[len(r) for r in rounds]} tokens "
+          f"(top-k 5, up to {MIXED_TOKENS}) and {n_img} images (Euler "
+          f"{T2V_STEPS}, CFG {T2V_CFG}, dense attention, 0 kernel launches) "
+          f"in {wall:.2f} s (the first call); round texts "
+          f"{[t[:40] for t in texts]}; images {images.shape} finite in "
+          f"[-1, 1]; text decode {token_ms:.4f} ms per token (one round, "
+          f"prefill included, {MIXED_TOKENS} tokens), device idle share "
+          f"{prof['idle_share']:.4f} over it ({prof['launches']} kernel "
+          f"launches); one image (the first round's, {len(toks)} rows) "
+          f"{image_s:.3f} s with its decode; peak memory allocated "
+          f"{peak:.2f} GiB on {smi}")
+    return {"rounds": [len(r) for r in rounds], "images": n_img,
+            "wall_s": wall, "decode_ms_per_token": token_ms,
+            "idle_share": prof["idle_share"], "s_per_image": image_s,
+            "peak_gib": peak}
+
+
+def phase_lvg(torch, np, cuda_build, inference_lvg, inference_t2i, smi):
+    """Show-o v1 long-video generation at full width (configs/showo_demo
+    .yaml, 256x256, Phi-1.5 and the full MAGVIT-v2, bf16 / fp32) through
+    ``inference_lvg.build_pipeline``: LVG_BATCH prompts, LVG_FRAMES frames
+    with LVG_CONTEXT context frames, 16 MaskGIT steps, CFG 1.75, dense
+    attention under the lvg mask as in JAX (no kernel); codes in the
+    codebook, frames finite, the frames that differ from the one before,
+    seconds per frame."""
+    from showo_tpu_torch.config import load_config
+
+    config = load_config("configs/showo_demo.yaml",
+                         [f"context_frames={LVG_CONTEXT}"])
+    pipe = inference_lvg.build_pipeline(config, torch.device("cuda"))
+    cfg, lc = pipe.cfg, pipe.cfg.llm
+    if not (lc.num_layers == NUM_LAYERS and lc.hidden_size == 2048
+            and cfg.num_vq_tokens == 256 and cfg.codebook_size == 8192
+            and pipe.timesteps == TIMESTEPS and pipe.guidance_scale == 1.75
+            and pipe.context_frames == LVG_CONTEXT):
+        raise AssertionError(f"lvg: not the full-width demo path: {cfg}")
+    prompts = inference_t2i.load_prompts(config)[:LVG_BATCH]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe.generate_codes(prompts, 1, gen)                       # warm-up
+    want = _v2_want()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    frames = pipe.generate_codes(prompts, LVG_FRAMES, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    video = pipe.decode(frames)
+    t2 = time.perf_counter()
+    counts = {n: cuda_build.launches[n] for n in want}
+    if counts != want:
+        raise AssertionError(f"lvg: launches {counts}, want none")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (all(c.shape == (LVG_BATCH, 256) and c.min() >= 0
+                and c.max() < cfg.codebook_size for c in frames)
+            and video.shape == (LVG_BATCH, LVG_FRAMES, 256, 256, 3)
+            and np.isfinite(video).all()):
+        raise AssertionError(f"lvg: codes or frames {video.shape} malformed")
+    differ = sum(int(not np.array_equal(frames[f][b], frames[f - 1][b]))
+                 for b in range(LVG_BATCH) for f in range(1, LVG_FRAMES))
+    # the text block, then a span of soi, 256 codes, eoi a frame
+    rows = [pipe.uni_prompting.max_text_len
+            + (min(f, LVG_CONTEXT) + 1) * (cfg.num_vq_tokens + 2)
+            for f in range(LVG_FRAMES)]
+    if differ != LVG_BATCH * (LVG_FRAMES - 1):
+        raise AssertionError(f"lvg: only {differ} frames differ from the one "
+                             f"before")
+    print(f"[21] Show-o v1 lvg 256x256: batch {LVG_BATCH}, {LVG_FRAMES} "
+          f"frames, {LVG_CONTEXT} context frames, {TIMESTEPS} MaskGIT steps, "
+          f"CFG 1.75, bf16, dense attention under the lvg mask (0 kernel "
+          f"launches); rows a frame {rows}; codes in the "
+          f"codebook, frames {video.shape} finite; {differ} of "
+          f"{LVG_BATCH * (LVG_FRAMES - 1)} frames differ from the one before;"
+          f" {(t1 - t0) / LVG_FRAMES:.3f} s a frame of the batch (MaskGIT), "
+          f"decode {t2 - t1:.3f} s; peak memory allocated {peak:.2f} GiB on "
+          f"{smi}")
+    return {"s_per_frame": (t1 - t0) / LVG_FRAMES, "decode_s": t2 - t1,
+            "frames_differ": differ, "peak_gib": peak}
+
+
 def main() -> int:
     import torch
 
@@ -3055,6 +3564,52 @@ def main() -> int:
                         smi)
     parts.append(("Show-o2 video [18b]", time.perf_counter()))
 
+    # [19] / [19b] Show-o2 text/image-to-video (bench.py's t2v rows) through
+    # build_t2v_pipeline, the adaLN drawn as in phase 13
+    from showo_tpu_torch import inference_lvg, inference_mixed_modality
+
+    pipe = inference_t2i_v2.build_t2v_pipeline(
+        load_config(V2_CONFIG), device, guidance_scale=T2V_CFG,
+        num_steps=T2V_STEPS, num_latent_frames=T2V_FRAMES["t2v"])
+    _draw_adaln(torch, pipe.model, 13)
+    t2v_prompts = v2_prompts[:1]
+    t2v_results = phase_t2v_kernel(torch, pipe, t2v_prompts, "t2v")
+    t2v_counts, t2v_slice = phase_t2v(torch, np, cuda_build, pipe,
+                                      t2v_prompts, "t2v", smi)
+    t2v_slice["parity"] = phase_t2v_parity(torch, pipe, t2v_prompts, "t2v")
+    t2v_slice["i2v"] = phase_i2v(torch, cuda_build, pipe, t2v_prompts, smi)
+    parts.append(("t2v [19]", time.perf_counter()))
+    pipe = dataclasses.replace(pipe,
+                               num_latent_frames=T2V_FRAMES["t2v_long"])
+    long_results = phase_t2v_kernel(torch, pipe, t2v_prompts, "t2v_long")
+    long_counts, long_slice = phase_t2v(torch, np, cuda_build, pipe,
+                                        t2v_prompts, "t2v_long", smi)
+    long_slice["parity"] = phase_t2v_parity(torch, pipe, t2v_prompts,
+                                            "t2v_long")
+    long_slice["vae"] = phase_vae_streaming(torch, pipe, smi)
+    pipe = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("t2v_long [19b]", time.perf_counter()))
+
+    # [20] mixed modality through inference_mixed_modality.build_pipeline
+    pipe = inference_mixed_modality.build_pipeline(load_config(V2_CONFIG, [
+        f"guidance_scale={T2V_CFG}",
+        f"transport.num_inference_steps={T2V_STEPS}",
+        f"max_new_tokens={MIXED_TOKENS}"]), device)
+    _draw_adaln(torch, pipe.model, 13)
+    phase_mixed(torch, np, cuda_build, profile, pipe, smi)
+    pipe = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("mixed modality [20]", time.perf_counter()))
+
+    # [21] v1 long video through inference_lvg.build_pipeline
+    phase_lvg(torch, np, cuda_build, inference_lvg, inference_t2i, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("lvg [21]", time.perf_counter()))
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -3179,6 +3734,19 @@ def main() -> int:
                     "launches_v2": v2_launches[PACKED_TILES],
                     "cases": {"512": results["tiles"],
                               "v2": v2_results["tiles"]}})
+    for row, res, counts, extra in (
+            ("t2v", t2v_results, t2v_counts,
+             {"slice": t2v_slice,
+              "launches_wgmma": t2v_counts[PACKED_WGMMA]}),
+            ("t2v_long", long_results, long_counts, {"slice": long_slice})):
+        route = T2V_ROUTES[row]
+        name = KERNELS[route][0]
+        kernels.append({"name": f"{name}_{row}", "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{name}.cu (+ "
+                                  f"attention_fwd_sm90.cuh)",
+                        "replaces": KERNELS[route][1],
+                        "launches": counts[name], **res[qwen],
+                        "case": f"{qwen}, {row}", "cases": res, **extra})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

@@ -38,6 +38,15 @@ from showo_tpu_torch.utils.device import entry_device
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp")
 
 
+def load_models(config, device: torch.device):
+    """(Show-o2, Wan2.1 VAE) of the config on ``device``: Show-o2 in bf16 on
+    CUDA and fp32 on the CPU, the VAE in fp32; weights loaded or
+    random-init (JAX ``load_models``)."""
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return (load_model(config, build_showo2_config(config), device, dtype),
+            load_vae(config, device))
+
+
 def build_pipeline(config, device: Optional[torch.device] = None,
                    video: bool = False) -> MMUV2Pipeline:
     """Config -> ready MMUV2Pipeline, or with ``video`` MMUVidPipeline
@@ -46,11 +55,9 @@ def build_pipeline(config, device: Optional[torch.device] = None,
     device defaults to CUDA and raises without a card; the CPU runs only
     when asked for (``device="cpu"``)."""
     device = entry_device(device)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    cfg = build_showo2_config(config)
     tokenizer, token_ids = load_tokenizer_and_ids(config)
-    kw = dict(model=load_model(config, cfg, device, dtype),
-              vae=load_vae(config, device), tokenizer=tokenizer,
+    model, vae = load_models(config, device)
+    kw = dict(model=model, vae=vae, tokenizer=tokenizer,
               token_ids=token_ids,
               max_new_tokens=int(config.get("max_new_tokens", 300)),
               top_k=int(config.get("top_k", 1)),

@@ -30,6 +30,7 @@ import torch
 from showo_tpu_torch.config import get_config
 from showo_tpu_torch.inference_t2i import to_pil_images
 from showo_tpu_torch.pipelines.t2i_v2 import T2IV2Pipeline
+from showo_tpu_torch.pipelines.t2v import T2VPipeline
 from showo_tpu_torch.show_o2.dit import DiffusionHeadConfig
 from showo_tpu_torch.show_o2.qwen2 import Qwen2Config
 from showo_tpu_torch.show_o2.showo2 import Showo2, Showo2Config
@@ -212,6 +213,26 @@ def build_pipeline(config, device: Optional[torch.device] = None,
                                                           256)),
         sampling_method=str(tr.get("sampling_method", "euler")),
         attn_impl=attn_impl, prefix_cache=prefix_cache)
+
+
+def build_t2v_pipeline(config, device: Optional[torch.device] = None,
+                       **options) -> T2VPipeline:
+    """Config -> ready T2VPipeline on this CLI's loaders (the JAX package
+    has no text-to-video CLI, so neither has the port).  ``options`` are
+    T2VPipeline's fields (num_latent_frames, guidance_scale, num_steps,
+    attn_impl, vae_mode, ...); the config gives the time shift and the
+    text length."""
+    device = entry_device(device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    tokenizer, token_ids = load_tokenizer_and_ids(config)
+    kw = dict(time_shifting_factor=float(config.transport.get(
+        "time_shifting_factor", 3.0)), max_text_len=int(
+        config.dataset.preprocessing.get("max_text_len", 256)))
+    kw.update(options)
+    return T2VPipeline(
+        model=load_model(config, build_showo2_config(config), device, dtype),
+        vae=load_vae(config, device), tokenizer=tokenizer,
+        token_ids=token_ids, **kw)
 
 
 def load_prompts(config) -> List[str]:

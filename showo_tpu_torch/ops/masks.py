@@ -1,9 +1,11 @@
 """Omni attention masks as vectorised tensor code.
 
 Counterpart of ``showo_tpu/ops/masks.py`` for the v1 text-to-image,
-stage-1 training and understanding paths: ``omni_mask_predict_next``,
-``omni_mask_mmu``, ``omni_mask_mmu_vit`` and their helpers, bit-exact with the JAX functions including the
-``rm_pad_in_image`` and batch-first-eoi quirks.  Boolean masks use
+stage-1 training, understanding and long-video paths:
+``omni_mask_predict_next``, ``omni_mask_mmu``, ``omni_mask_mmu_vit``,
+``omni_mask_lvg``, ``omni_mask_lvg_v2`` and their helpers, bit-exact with
+the JAX functions including the ``rm_pad_in_image``, batch-first-eoi and
+lvg_v2 column-0 quirks.  Boolean masks use
 True = "may attend"; ``to_additive`` turns them into the additive bias
 (0 where visible, ``NEG_INF`` elsewhere) that the dense attention path
 adds to its scores.
@@ -135,6 +137,109 @@ def omni_mask_mmu_vit(
     j = torch.arange(L, device=device)[None, :]
     mask = _causal(L, device) | ((j >= lo) & (j < lo + num_patches))
     mask = mask[None, None].expand(N, 1, L, L)
+    if return_inverse_mask:
+        return to_additive(mask, dtype)
+    return mask
+
+
+def _span_positions(flags: torch.Tensor, count: int) -> torch.Tensor:
+    """Positions of the first ``count`` True flags of each row, [N, count]
+    int32 (L where a row has fewer: rows are expected to hold exactly
+    ``count`` markers, as the reference's reshape to [N, count] needs)."""
+    if count == 0:
+        return torch.zeros((flags.shape[0], 0), dtype=torch.int32,
+                           device=flags.device)
+    order = torch.cumsum(flags.int(), dim=1) - 1   # occurrence index
+    return torch.stack([_first_index(flags & (order == k), dim=1)
+                        for k in range(count)], dim=1).int()
+
+
+def omni_mask_lvg(
+    sequence: torch.Tensor,
+    pad_id: int,
+    soi_id: int,
+    eoi_id: int,
+    num_images: int,
+    return_inverse_mask: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The long-video mask (prompting_utils.py:513-538): causal, pad
+    columns hidden from the first soi row on, then each of the
+    ``num_images`` soi..eoi spans fully visible within itself (over the pad
+    hiding).  Returns [N, 1, L, L]."""
+    N, L = sequence.shape
+    dev = sequence.device
+    is_pad = sequence == pad_id
+    soi_pos = _span_positions(sequence == soi_id, num_images)
+    eoi_pos = _span_positions(sequence == eoi_id, num_images)
+    i = torch.arange(L, device=dev)[None, :, None]
+    j = torch.arange(L, device=dev)[None, None, :]
+    first_soi = soi_pos[:, 0][:, None, None]
+    mask = _causal(L, dev)[None] & ~((i >= first_soi) & is_pad[:, None, :])
+    for k in range(num_images):
+        s = soi_pos[:, k][:, None, None]
+        e = eoi_pos[:, k][:, None, None]
+        mask = mask | ((i >= s) & (i <= e) & (j >= s) & (j <= e))
+    mask = mask[:, None]
+    if return_inverse_mask:
+        return to_additive(mask, dtype)
+    return mask
+
+
+def omni_mask_lvg_v2(
+    sequence: torch.Tensor,
+    pad_id: int,
+    soi_id: int,
+    eoi_id: int,
+    sot_id: int,
+    eot_id: int,
+    num_images: int,
+    num_texts: int,
+    return_inverse_mask: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The lvg_v2 mask (prompting_utils.py:541-589): text tokens (ids below
+    ``pad_id``) and the sot..eot text spans are visible to every row, the
+    image spans only to non-text rows, under the causal mask; pad columns
+    hidden from the first soi row on; each image span bidirectional; and
+    column 0 visible to every row (the reference's line 580,
+    ``mask[:, :, 0] = 1``).  With ``sot_id == eot_id`` the shared markers
+    pair up in order (even occurrences open a span).  Returns
+    [N, 1, L, L]."""
+    N, L = sequence.shape
+    dev = sequence.device
+    is_pad = sequence == pad_id
+    is_text = sequence < pad_id
+    if sot_id == eot_id:
+        marks = _span_positions(sequence == sot_id, 2 * num_texts)
+        sot_pos, eot_pos = marks[:, 0::2], marks[:, 1::2]
+    else:
+        sot_pos = _span_positions(sequence == sot_id, num_texts)
+        eot_pos = _span_positions(sequence == eot_id, num_texts)
+    soi_pos = _span_positions(sequence == soi_id, num_images)
+    eoi_pos = _span_positions(sequence == eoi_id, num_images)
+    i = torch.arange(L, device=dev)[None, :, None]
+    j = torch.arange(L, device=dev)[None, None, :]
+
+    # the reference's visibility matrix before the causal cut
+    allowed = is_text[:, None, :].expand(N, L, L)
+    for k in range(num_texts):
+        s = sot_pos[:, k][:, None, None]
+        e = eot_pos[:, k][:, None, None]
+        allowed = allowed | ((j >= s) & (j <= e))
+    for k in range(num_images):
+        s = soi_pos[:, k][:, None, None]
+        e = eoi_pos[:, k][:, None, None]
+        allowed = allowed | (~is_text[:, :, None] & (j >= s) & (j <= e))
+    mask = _causal(L, dev)[None] & allowed
+    first_soi = soi_pos[:, 0][:, None, None]
+    mask = mask & ~((i >= first_soi) & is_pad[:, None, :])
+    for k in range(num_images):
+        s = soi_pos[:, k][:, None, None]
+        e = eoi_pos[:, k][:, None, None]
+        mask = mask | ((i >= s) & (i <= e) & (j >= s) & (j <= e))
+    mask[:, :, 0] = True
+    mask = mask[:, None]
     if return_inverse_mask:
         return to_additive(mask, dtype)
     return mask

@@ -54,6 +54,50 @@ def route_attention(attn_impl: str, num_image_tokens: int) -> str:
     return check_route(attn_impl)
 
 
+def cut_at_span(toks, toks_null, mp, mp_null, guidance_scale: float,
+                device):
+    """(text [B', L], modality_positions [B', M, 2]) of the cond rows and,
+    with CFG, the null rows after them (``prepare_gen_input``'s layouts),
+    as int64 on ``device``; the rows cut at the end of the last span
+    rounded up to 128 (the eoi / eos / pad rows after it are seen by no
+    span row, so they do not change the velocity)."""
+    if guidance_scale > 0:
+        text = np.concatenate([toks, toks_null], axis=0)
+        mp_all = np.concatenate([mp[:, 0], mp_null[:, 0]], axis=0)
+    else:
+        text, mp_all = toks, mp[:, 0]
+    mp_all = mp_all.reshape(text.shape[0], -1, 2)
+    span_end = int(np.max(mp_all[:, :, 0] + mp_all[:, :, 1]))
+    L = min(text.shape[1], (span_end + 127) // 128 * 128)
+    return (torch.as_tensor(text[:, :L], device=device),
+            torch.as_tensor(mp_all, device=device))
+
+
+def attention_inputs(route: str, text: torch.Tensor, mp: torch.Tensor,
+                     q_positions=None):
+    """(bias, attn_meta) of ``route``: the additive [B', 1, L, L] omni mask
+    for ``dense``; for ``packed`` and ``streaming`` the kernel's span
+    metadata (seg from the modality positions, no pads, last_pad -1,
+    prefix 0) and tile map, computed once for every layer of every
+    velocity evaluation.  ``q_positions`` [B', n]: the prefix cache's
+    fresh rows, whose mask rows (dense) or metadata (the kernels') are
+    made instead."""
+    B, L = text.shape
+    if route == "dense":
+        bias = omni_attn_mask(mp, L)
+        if q_positions is not None:
+            n = q_positions.shape[1]
+            bias = torch.gather(bias, 2, q_positions[:, None, :, None]
+                                .expand(B, 1, n, L))
+        return bias, None
+    dev = text.device
+    return None, packed_meta((
+        route, seg_from_modality_positions(mp, L),
+        torch.zeros((B, L), dtype=torch.int32, device=dev),
+        torch.full((B,), -1, dtype=torch.int32, device=dev),
+        torch.zeros((B,), dtype=torch.int32, device=dev)), q_positions)
+
+
 @dataclasses.dataclass
 class T2IV2Pipeline:
     model: Showo2
@@ -91,44 +135,16 @@ class T2IV2Pipeline:
         null] batch (B' = 2B with CFG), cut at the image span's end rounded
         up to 128, as int64 on the model's device."""
         ids = self.token_ids
-        toks, toks_null, mp, mp_null = prepare_gen_input(
+        return cut_at_span(*prepare_gen_input(
             list(prompts), self.tokenizer, self.cfg.num_image_tokens,
             ids["bos_id"], ids["eos_id"], ids["boi_id"], ids["eoi_id"],
-            ids["pad_id"], ids["img_pad_id"], self.max_text_len)
-        if self.guidance_scale > 0:
-            text = np.concatenate([toks, toks_null], axis=0)
-            mp_all = np.concatenate([mp[:, 0], mp_null[:, 0]], axis=0)
-        else:
-            text, mp_all = toks, mp[:, 0]
-        mp_all = mp_all.reshape(text.shape[0], -1, 2)
-        img_end = int(np.max(mp_all[:, :, 0] + mp_all[:, :, 1]))
-        L = min(text.shape[1], (img_end + 127) // 128 * 128)
-        dev = self.device
-        return (torch.as_tensor(text[:, :L], device=dev),
-                torch.as_tensor(mp_all, device=dev))
+            ids["pad_id"], ids["img_pad_id"], self.max_text_len),
+            self.guidance_scale, self.device)
 
     def attention_inputs(self, text: torch.Tensor, mp: torch.Tensor,
                          q_positions=None):
-        """(bias, attn_meta) of the route: the additive [B', 1, L, L] omni
-        mask for ``dense``; for ``packed`` and ``streaming`` the kernel's
-        span metadata and tile map, computed once for every layer of every
-        velocity evaluation.  ``q_positions`` [B', n]: the prefix cache's
-        fresh rows, whose mask rows (dense) or metadata (the kernels') are
-        made instead."""
-        B, L = text.shape
-        if self.attn_route == "dense":
-            bias = omni_attn_mask(mp, L)
-            if q_positions is not None:
-                n = q_positions.shape[1]
-                bias = torch.gather(bias, 2, q_positions[:, None, :, None]
-                                    .expand(B, 1, n, L))
-            return bias, None
-        dev = text.device
-        return None, packed_meta((
-            self.attn_route, seg_from_modality_positions(mp, L),
-            torch.zeros((B, L), dtype=torch.int32, device=dev),
-            torch.full((B,), -1, dtype=torch.int32, device=dev),
-            torch.zeros((B,), dtype=torch.int32, device=dev)), q_positions)
+        """:func:`attention_inputs` on the pipeline's route."""
+        return attention_inputs(self.attn_route, text, mp, q_positions)
 
     def drift(self, text: torch.Tensor, mp: torch.Tensor):
         """The velocity drift_fn(x, t) of one generate over the [cond;

@@ -3,6 +3,7 @@
     python -m showo_tpu_torch.profile_t2i --route fused
     python -m showo_tpu_torch.profile_t2i --slice v2 --route packed
     python -m showo_tpu_torch.profile_t2i --slice mmu_v2
+    python -m showo_tpu_torch.profile_t2i --slice t2v | t2v_long
 
 Builds the pipeline of ``configs/showo_demo_512x512.yaml`` (Show-o 1.3B,
 random weights from a fixed seed, bf16, 16 steps, CFG 1.75, batch 2), or
@@ -10,7 +11,11 @@ with ``--slice v2`` that of ``configs/showo2_1.5b_demo_432x432.yaml``
 (Show-o2 1.5B, 50-point Euler, CFG 7.5, batch 4), on one attention route,
 warms it up, and profiles one ``generate`` call (with ``--slice mmu_v2``
 one Show-o2 understanding answer instead: the in-tree image at 432x432,
-100 greedy tokens, int8 weights, the ``mmu_v2_int8`` bench row) with
+100 greedy tokens, int8 weights, the ``mmu_v2_int8`` bench row; with
+``--slice t2v`` one Show-o2 text-to-video generate of the ``t2v`` bench
+row, 1 prompt, 2 latent frames, 20-point Euler, CFG 5.0, and with
+``t2v_long`` of 9 latent frames, each on ``--route``, whose ``auto`` is
+packed at 2 and streaming at 9 latent frames) with
 ``torch.profiler`` (CPU and CUDA activities).  Prints the wall time, the
 device's busy time within its kernel span (and so its idle share), the
 number of kernel launches, and the 15 largest rows of device time by
@@ -55,7 +60,8 @@ def _busy_ms(events) -> tuple:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--route", default="auto")
-    ap.add_argument("--slice", default="v1", choices=("v1", "v2", "mmu_v2"))
+    ap.add_argument("--slice", default="v1",
+                    choices=("v1", "v2", "mmu_v2", "t2v", "t2v_long"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_t2i needs a CUDA card")
@@ -78,11 +84,20 @@ def main(argv=None) -> None:
         profile(lambda: pipe.answer(image, question, gen),
                 "Show-o2 understanding, int8: one answer")
         return
-    if args.slice == "v2":
+    if args.slice in ("t2v", "t2v_long"):
+        config = load_config("configs/showo2_1.5b_demo_432x432.yaml")
+        pipe = inference_t2i_v2.build_t2v_pipeline(
+            config, torch.device("cuda"), attn_impl=args.route,
+            num_latent_frames=2 if args.slice == "t2v" else 9,
+            guidance_scale=5.0, num_steps=20)
+        prompts = inference_t2i_v2.load_prompts(config)[:1]
+        route = pipe.route(pipe.build_inputs(prompts)[0].shape[1])
+    elif args.slice == "v2":
         config = load_config("configs/showo2_1.5b_demo_432x432.yaml")
         pipe = inference_t2i_v2.build_pipeline(config, torch.device("cuda"),
                                                attn_impl=args.route)
         prompts = inference_t2i_v2.load_prompts(config)[:4]
+        route = pipe.attn_route
     else:
         config = load_config("configs/showo_demo_512x512.yaml",
                              ["guidance_scale=1.75",
@@ -90,12 +105,13 @@ def main(argv=None) -> None:
         pipe = inference_t2i.build_pipeline(config, torch.device("cuda"),
                                             attn_impl=args.route)
         prompts = inference_t2i.load_prompts(config)[:2]
+        route = pipe.attn_route
     gen = torch.Generator(device="cuda").manual_seed(0)
     pipe.generate(prompts, gen)                                # warm-up
     torch.cuda.synchronize()
 
     profile(lambda: pipe.generate(prompts, gen),
-            f"route {pipe.attn_route}: generate")
+            f"route {route}: generate")
 
 
 def profile(fn, label: str, rows_shown: int = 15,

@@ -1,5 +1,5 @@
-"""UniversalPrompting for the text-to-image and stage-1 training paths
-(numpy, host side).
+"""UniversalPrompting for the text-to-image, long-video and stage-1
+training paths (numpy, host side).
 
 Counterpart of ``showo_tpu/prompting.py``, reduced to what the ported
 slices run:
@@ -10,6 +10,8 @@ slices run:
 
   with the text left-padded to ``max_text_len + 1`` (the +1 is the task
   token) and cut to ``max_text_len`` with a closing eos when it is longer;
+  ``lvg_gen`` is the same layout (the t2i task token, one outer soi / eoi)
+  around a payload that holds the context frames' spans itself;
 * the training step's text blocks, which the step assembles with the
   image tokens itself: ``t2i_text_block`` (that left-padded block, with
   conditioning dropout drawn from the numpy ``rng``: a dropped row's text
@@ -17,8 +19,8 @@ slices run:
   with labels) and ``mmu_text_block`` (right-padded caption blocks with
   labels, pads -> ``ignore_id``).
 
-The other tasks (``t2i`` with labels, ``mmu``, t2v, lvg, i2v) belong to
-later slices.
+The tasks with labels (``t2i``, ``mmu``, ``t2v``, ``t2v_gen``, ``i2v``,
+``lvg``) are training's and wait for its slice.
 
 The tokenizer is any object with ``__call__(texts) -> {'input_ids': ...}``,
 ``bos_token_id`` / ``eos_token_id`` / ``pad_token_id`` and
@@ -97,6 +99,9 @@ class UniversalPrompting:
             masks.append(np.ones(len(text), np.int64))
         return np.stack(seqs), np.stack(masks)
 
+    # lvg uses the t2i task token and markers (prompting_utils.py:324)
+    lvg_gen_prompt = t2i_gen_prompt
+
     def t2i_text_block(self, texts, dropout: bool = True) -> np.ndarray:
         """Left-padded text blocks [B, max_text_len] of the t2i layout; the
         training step appends [soi] image [eoi].  Each row's text is
@@ -142,9 +147,12 @@ class UniversalPrompting:
         return blocks, np.where(blocks == self.pad_id, self.ignore_id, blocks)
 
     def __call__(self, input: Tuple[Sequence[str], np.ndarray], task: str):
-        if task != "t2i_gen":
+        """``t2i_gen`` or ``lvg_gen`` of (texts, image token payload)."""
+        if task not in ("t2i_gen", "lvg_gen"):
             raise NotImplementedError(
                 f"prompting task {task!r} is not ported yet")
         texts, image_ids = input
-        return self.t2i_gen_prompt(
-            self.text_tokenizer(list(texts))["input_ids"], image_ids)
+        prompt = (self.t2i_gen_prompt if task == "t2i_gen"
+                  else self.lvg_gen_prompt)
+        return prompt(self.text_tokenizer(list(texts))["input_ids"],
+                      image_ids)

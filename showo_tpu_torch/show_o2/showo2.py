@@ -21,8 +21,10 @@ Latents are NCHW at the interface, as in the reference and JAX.  The
 module tree carries the reference checkpoint's names, so the state dict
 that ``showo_tpu/utils/torch_export.py::showo2_state_dict`` writes loads
 with ``load_state_dict``.  :func:`embed_images` takes image and video
-latents (the understanding pipelines').  The losses and the video
-generation path are not ported yet.
+latents (the understanding pipelines'), and the velocity video latents
+(``num_frames``, with the i2v first frame held) or several images a row
+(``only_denoise_last_image``, the mixed-modality history).  The losses
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -185,26 +187,32 @@ def _diff_proj(model: Showo2, h: torch.Tensor) -> torch.Tensor:
     return model.diff_proj(h) if hasattr(model, "diff_proj") else h
 
 
-def unpatchify_v(cfg: Showo2Config, v: torch.Tensor, h_: int,
-                 w_: int) -> torch.Tensor:
-    """(N, L, p*p*C) -> (N, C, H, W) by the reference's mirrored reshape
-    chain (modeling_showo2_qwen2_5.py:145-158, 426-433)."""
+def unpatchify_v(cfg: Showo2Config, v: torch.Tensor, h_: int, w_: int,
+                 T: int = 0) -> torch.Tensor:
+    """(N, L, p*p*C) -> (N, C, H, W), or with ``T`` frames (N, C, T, H, W),
+    by the reference's mirrored reshape chain
+    (modeling_showo2_qwen2_5.py:145-158, 426-433)."""
     n = v.shape[0]
     p, c = cfg.patch_size, cfg.image_latent_dim
+    if T:
+        x = v.reshape(n, T, h_, w_, p, p, c).reshape(n, T, h_ * p * w_ * p, c)
+        return x.permute(0, 3, 1, 2).reshape(n, c, T, h_ * p, w_ * p)
     x = v.reshape(n, h_, w_, p, p, c).reshape(n, h_ * p * w_ * p, c)
     return x.transpose(1, 2).reshape(n, c, h_ * p, w_ * p)
 
 
 def extract_v(cfg: Showo2Config, v_seq: torch.Tensor,
-              modality_positions: torch.Tensor, h_: int,
-              w_: int) -> torch.Tensor:
+              modality_positions: torch.Tensor, h_: int, w_: int,
+              num_frames: int = 0) -> torch.Tensor:
     """Per-image velocity [B*M, C, H, W] from the sequence (every span a
-    real image, the generation layout)."""
-    span = h_ * w_ + (1 if cfg.add_time_embeds else 0)
+    real image, the generation layout); with ``num_frames`` > 0 per-video
+    [B*M, C, T, H, W]."""
+    span = (max(num_frames, 1) * h_ * w_
+            + (1 if cfg.add_time_embeds else 0))
     spans = modality_gather(v_seq, modality_positions, span)
     if cfg.add_time_embeds:
         spans = spans[:, 1:]
-    return unpatchify_v(cfg, spans, h_, w_)
+    return unpatchify_v(cfg, spans, h_, w_, T=num_frames)
 
 
 def showo2_t2i_velocity(model: Showo2, text_tokens: torch.Tensor,
@@ -212,18 +220,35 @@ def showo2_t2i_velocity(model: Showo2, text_tokens: torch.Tensor,
                         attention_bias: Optional[torch.Tensor],
                         modality_positions: torch.Tensor,
                         guidance_scale: float = 0.0,
+                        first_frame_as_cond: bool = False,
+                        only_denoise_last_image: bool = False,
+                        num_frames: int = 0,
                         attn_meta=None) -> torch.Tensor:
     """One velocity evaluation with CFG (reference t2i_generate).  With
     guidance_scale > 0 the inputs are the doubled [cond; uncond] batch and
     the guided velocity is returned for both halves, as the reference
-    hands it to the integrator."""
+    hands it to the integrator.
+
+    num_frames > 0: video latents [B, C, T, h, w] (one span a row) and
+    velocity.  first_frame_as_cond (i2v): the first latent frame's
+    velocity is zero (modeling_showo2_qwen2_5.py:436-441); its t is the
+    row's, as in JAX.  only_denoise_last_image: every image but the last
+    of each row has zero velocity (its history, :444-463)."""
     cfg = model.cfg
     v_seq = showo2_forward(model, text_tokens, image_latents, t,
                            attention_bias, modality_positions, attn_meta)
     h_ = cfg.image_latent_height // cfg.patch_size
     w_ = cfg.image_latent_width // cfg.patch_size
-    return _guided(extract_v(cfg, v_seq, modality_positions, h_, w_),
-                   guidance_scale)
+    v = extract_v(cfg, v_seq, modality_positions, h_, w_,
+                  num_frames=num_frames)
+    if first_frame_as_cond:
+        v = torch.cat([torch.zeros_like(v[:, :, :1]), v[:, :, 1:]], dim=2)
+    if only_denoise_last_image:
+        M = modality_positions.shape[1]
+        per = v.reshape(text_tokens.shape[0], M, *v.shape[1:])
+        v = torch.cat([torch.zeros_like(per[:, :-1]), per[:, -1:]],
+                      dim=1).reshape(v.shape)
+    return _guided(v, guidance_scale)
 
 
 def _guided(v: torch.Tensor, guidance_scale: float) -> torch.Tensor:

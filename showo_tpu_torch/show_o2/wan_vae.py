@@ -25,15 +25,25 @@ carries the reference checkpoint's names (``encoder.conv1``,
 ``decoder.middle.{0,1,2}``, ``decoder.upsamples.{i}``,
 ``decoder.head.{0,2}``), so a Wan2.1_VAE.pth state dict, or the one
 ``showo_tpu_torch.utils.convert.wan_vae_state_dict`` makes from JAX
-params, loads with ``load_state_dict``.  The streaming mode is not ported
-yet.
+params, loads with ``load_state_dict``.
+
+The streaming mode (JAX ``wan_encode_streaming`` / ``wan_decode_streaming``,
+the reference's ``feat_cache`` path, wan21_vae.py:101-160, 516-568) runs
+the same modules chunk by chunk in a Python loop, with a per-convolution
+cache of the last ``CACHE_T = 2`` frames (a dict keyed by the module) in
+place of the zero time padding: the encoder takes 1 pixel frame, then
+``temporal_factor`` frames a chunk; the decoder 1 latent frame a chunk,
+giving 1 pixel frame first (the time upsample passes its first chunk
+through and starts its cache at zeros) and ``temporal_factor`` after.  A
+time downsample passes its first chunk through and keeps its last frame.
+Activation memory is constant in the clip's length.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +70,10 @@ WAN_LATENT_MEAN = (
 WAN_LATENT_STD = (
     2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
     3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160)
+# frames a streaming convolution keeps of the chunks before (wan21_vae.py)
+CACHE_T = 2
+# a streaming pass's cache: module -> its last frames
+Cache = Dict[nn.Module, torch.Tensor]
 
 
 def encoder_structure(cfg: WanVAEConfig) -> List[Tuple[str, dict]]:
@@ -102,15 +116,26 @@ class CausalConv3d(nn.Conv3d):
     and kH//2, kW//2 on both sides in space.  On one frame (an image) only
     the last time tap meets data, so it runs as that tap's 2D convolution
     (the same sum without the zero frames' products: a third of the work
-    and of the padded copy)."""
+    and of the padded copy).  With a streaming ``cache`` the module's
+    entry (the chunks' last ``CACHE_T`` frames, zeros before the first)
+    takes the zero frames' place, and the entry moves on."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, device=None,
                  dtype=None):
         super().__init__(in_ch, out_ch, kernel, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
         kT, kH, kW = self.kernel_size
         x = x.to(self.weight.dtype)
+        if cache is not None and kT > 1:
+            prev = cache.get(self)
+            if prev is None:
+                prev = x.new_zeros(x.shape[:2] + (CACHE_T,) + x.shape[3:])
+            x = torch.cat([prev.to(x.dtype), x], dim=2)
+            cache[self] = x[:, :, -CACHE_T:].clone()
+            return F.conv3d(F.pad(x, (kW // 2, kW // 2, kH // 2, kH // 2)),
+                            self.weight, self.bias)
         if x.shape[2] == 1:
             return F.conv2d(x[:, :, 0], self.weight[:, :, -1], self.bias,
                             padding=(kH // 2, kW // 2))[:, :, None]
@@ -148,8 +173,9 @@ class ResidualBlock(nn.Module):
         self.shortcut = (CausalConv3d(in_dim, out_dim, 1, **kw)
                          if in_dim != out_dim else nn.Identity())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.shortcut(x) + self.residual(x)
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        return self.shortcut(x) + _forward(self.residual, x, cache)
 
 
 def _frames(x: torch.Tensor) -> torch.Tensor:
@@ -186,10 +212,23 @@ class AttentionBlock(nn.Module):
         return x + _clip(self.proj(out), B)
 
 
+def _interleave(conv: torch.Tensor) -> torch.Tensor:
+    """The time upsample's [B, 2C, T, H, W] -> [B, C, 2T, H, W]: the two
+    channel halves become two frames each (the reference's reshape to
+    (b, 2, c, t, h, w) and stack on time)."""
+    B, C2, T = conv.shape[:3]
+    conv = conv.reshape(B, 2, C2 // 2, T, *conv.shape[3:])
+    return conv.permute(0, 2, 3, 1, 4, 5).reshape(B, C2 // 2, 2 * T,
+                                                  *conv.shape[4:])
+
+
 class Resample(nn.Module):
     """An up-resample of the decoder: nearest 2x and a 3x3 convolution that
     halves the channels, per frame (``resample.1``); with ``time`` the
-    upsample3d time path first (``time_conv``)."""
+    upsample3d time path first (``time_conv``).  Streaming, the time path
+    passes the first chunk through and starts ``time_conv``'s cache at
+    zeros (the reference's 'Rep' bootstrap); each later chunk's frames
+    become two each."""
 
     def __init__(self, dim: int, time: bool, device=None, dtype=None):
         super().__init__()
@@ -200,16 +239,24 @@ class Resample(nn.Module):
         if time:
             self.time_conv = CausalConv3d(dim, 2 * dim, (3, 1, 1), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, T = x.shape[:3]
-        if hasattr(self, "time_conv") and T > 1:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        if hasattr(self, "time_conv"):
+            x = self._time(x, cache)
+        return _clip(self.resample(_frames(x)), x.shape[0])
+
+    def _time(self, x: torch.Tensor, cache: Optional[Cache]) -> torch.Tensor:
+        if cache is None:
+            if x.shape[2] == 1:
+                return x
             # frame 0 passes through; frames 1.. give two frames each
-            conv = self.time_conv(x[:, :, 1:])          # [B, 2C, T-1, H, W]
-            conv = conv.reshape(B, 2, C, T - 1, *x.shape[3:])
-            conv = conv.permute(0, 2, 3, 1, 4, 5).reshape(
-                B, C, 2 * (T - 1), *x.shape[3:])
-            x = torch.cat([x[:, :, :1], conv], dim=2)
-        return _clip(self.resample(_frames(x)), B)
+            return torch.cat([x[:, :, :1], _interleave(
+                self.time_conv(x[:, :, 1:]))], dim=2)
+        if self.time_conv in cache:
+            return _interleave(self.time_conv(x, cache))
+        cache[self.time_conv] = x.new_zeros(x.shape[:2] + (CACHE_T,)
+                                            + x.shape[3:])
+        return x
 
 
 class DownResample(nn.Module):
@@ -217,7 +264,9 @@ class DownResample(nn.Module):
     at the bottom and right, then a 3x3 convolution of stride 2, per frame
     (``resample.1``); with ``time`` the downsample3d time path after it
     (``time_conv``: frame 0 passes through, then a (3, 1, 1) convolution
-    of stride 2 over every frame)."""
+    of stride 2 over every frame).  Streaming, the time path passes the
+    first chunk through; each later chunk goes through the convolution
+    behind the last frame of the chunk before."""
 
     def __init__(self, dim: int, time: bool, device=None, dtype=None):
         super().__init__()
@@ -228,9 +277,18 @@ class DownResample(nn.Module):
             self.time_conv = nn.Conv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1),
                                        **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
         x = _clip(self.resample(_frames(x)), x.shape[0])
-        if hasattr(self, "time_conv") and x.shape[2] > 1:
+        if not hasattr(self, "time_conv"):
+            return x
+        if cache is not None:
+            prev = cache.get(self)
+            cache[self] = x[:, :, -1:].clone()
+            if prev is None:
+                return x
+            return self.time_conv(torch.cat([prev, x], dim=2))
+        if x.shape[2] > 1:
             x = torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)
         return x
 
@@ -251,13 +309,12 @@ class WanEncoder(nn.Module):
         self.head = nn.Sequential(RMSNormChannel(d, False, **kw), nn.SiLU(),
                                   CausalConv3d(d, 2 * cfg.z_dim, 3, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(x)
-        for block in self.downsamples:
-            h = block(h)
-        for block in self.middle:
-            h = block(h)
-        return self.head(h)
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.conv1(x, cache)
+        h = _forward(self.downsamples, h, cache)
+        h = _forward(self.middle, h, cache)
+        return _forward(self.head, h, cache)
 
 
 class WanDecoder(nn.Module):
@@ -276,13 +333,22 @@ class WanDecoder(nn.Module):
         self.head = nn.Sequential(RMSNormChannel(cfg.dim, False, **kw),
                                   nn.SiLU(), CausalConv3d(cfg.dim, 3, 3, **kw))
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(z)
-        for block in self.middle:
-            h = block(h)
-        for block in self.upsamples:
-            h = block(h)
-        return self.head(h)
+    def forward(self, z: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+        h = self.conv1(z, cache)
+        h = _forward(self.middle, h, cache)
+        h = _forward(self.upsamples, h, cache)
+        return _forward(self.head, h, cache)
+
+
+_STREAMED = (CausalConv3d, ResidualBlock, Resample, DownResample)
+
+
+def _forward(layers, h: torch.Tensor, cache: Optional[Cache]):
+    """``layers`` in turn, handing ``cache`` to those that take it."""
+    for layer in layers:
+        h = layer(h, cache) if isinstance(layer, _STREAMED) else layer(h)
+    return h
 
 
 class WanVAE(nn.Module):
@@ -332,16 +398,38 @@ def _latent_stats(like: torch.Tensor):
             torch.tensor(WAN_LATENT_STD, **kw).view(shape))
 
 
-def wan_encode(vae: WanVAE, videos: torch.Tensor,
-               generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None,
-               deterministic: bool = False) -> torch.Tensor:
-    """Reference ``WanVAE.sample``: pixels [B, 3, T, H, W] in [-1, 1] ->
-    scale-normalised latents [B, z_dim, T', h, w], ``mu`` alone with
-    ``deterministic``, else ``mu + std * eps`` with ``std = exp(0.5 *
-    clip(log_var, -30, 20))`` and ``eps`` the given normal draw (of the
-    latents' shape) or one from ``generator``."""
-    mu, log_var = wan_encode_raw(vae, videos)
+def temporal_factor(cfg: WanVAEConfig) -> int:
+    """Pixel frames a latent frame: 2 to the number of time downsamples
+    (4 at the released config)."""
+    return 2 ** sum(bool(d) for d in cfg.temperal_downsample)
+
+
+def wan_encode_raw_streaming(vae: WanVAE, x: torch.Tensor):
+    """``wan_encode_raw`` chunk by chunk (JAX ``wan_encode_raw_streaming``):
+    pixels [B, 3, T, H, W] with T = 1 + f*k (f = ``temporal_factor``) go
+    through the encoder as one frame, then k chunks of f frames, each
+    giving one latent frame; the same (mu, log_var)."""
+    f = temporal_factor(vae.cfg)
+    T = x.shape[2]
+    if (T - 1) % f:
+        raise ValueError(f"streaming encode needs T = 1 + {f}k, got {T}")
+    cache: Cache = {}
+    chunks = [x[:, :, :1]] + list(x[:, :, 1:].split(f, dim=2) if T > 1
+                                  else ())
+    h = torch.cat([vae.encoder(c, cache) for c in chunks], dim=2)
+    return vae.conv1(h).chunk(2, dim=1)
+
+
+def _latent_stats(like: torch.Tensor):
+    shape = (1, -1, 1, 1, 1)
+    kw = dict(dtype=like.dtype, device=like.device)
+    return (torch.tensor(WAN_LATENT_MEAN, **kw).view(shape),
+            torch.tensor(WAN_LATENT_STD, **kw).view(shape))
+
+
+def _sample(mu: torch.Tensor, log_var: torch.Tensor,
+            generator: Optional[torch.Generator], eps,
+            deterministic: bool) -> torch.Tensor:
     mean, std = _latent_stats(mu)
     mu = (mu - mean) / std
     if deterministic:
@@ -354,9 +442,42 @@ def wan_encode(vae: WanVAE, videos: torch.Tensor,
                                       device=std.device)
 
 
+def wan_encode(vae: WanVAE, videos: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None,
+               deterministic: bool = False) -> torch.Tensor:
+    """Reference ``WanVAE.sample``: pixels [B, 3, T, H, W] in [-1, 1] ->
+    scale-normalised latents [B, z_dim, T', h, w], ``mu`` alone with
+    ``deterministic``, else ``mu + std * eps`` with ``std = exp(0.5 *
+    clip(log_var, -30, 20))`` and ``eps`` the given normal draw (of the
+    latents' shape) or one from ``generator``."""
+    return _sample(*wan_encode_raw(vae, videos), generator, eps,
+                   deterministic)
+
+
+def wan_encode_streaming(vae: WanVAE, videos: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         eps: Optional[torch.Tensor] = None,
+                         deterministic: bool = False) -> torch.Tensor:
+    """:func:`wan_encode` through the streaming encoder (constant
+    activation memory in T)."""
+    return _sample(*wan_encode_raw_streaming(vae, videos), generator, eps,
+                   deterministic)
+
+
 def wan_decode_raw(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
     """z [B, z_dim, T, h, w] -> pixels [B, 3, 4(T-1)+1, 8h, 8w]."""
     return vae.decoder(vae.conv2(z))
+
+
+def wan_decode_raw_streaming(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
+    """``wan_decode_raw`` one latent frame at a time (JAX
+    ``wan_decode_raw_streaming``): the first gives 1 pixel frame, each
+    later one ``temporal_factor``."""
+    h = vae.conv2(z)
+    cache: Cache = {}
+    return torch.cat([vae.decoder(h[:, :, i:i + 1], cache)
+                      for i in range(h.shape[2])], dim=2)
 
 
 def wan_decode(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
@@ -364,3 +485,9 @@ def wan_decode(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
     [B, z_dim, T, h, w] -> pixels in [-1, 1]."""
     mean, std = _latent_stats(z)
     return wan_decode_raw(vae, z * std + mean).clamp(-1.0, 1.0)
+
+
+def wan_decode_streaming(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:
+    """:func:`wan_decode` through the streaming decoder."""
+    mean, std = _latent_stats(z)
+    return wan_decode_raw_streaming(vae, z * std + mean).clamp(-1.0, 1.0)

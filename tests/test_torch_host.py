@@ -90,6 +90,30 @@ def test_t2i_prompting_matches_jax(max_text_len):
     assert got_ids.shape == (len(PROMPTS), max_text_len + 1 + 9 + 2)
 
 
+@pytest.mark.parametrize("context", [0, 1, 2])
+@pytest.mark.parametrize("max_text_len", [8, 128])
+def test_lvg_prompting_matches_jax(max_text_len, context):
+    """The ``lvg_gen`` task around a long-video payload (``context`` frames'
+    spans and the masked frame): JAX's rows, one soi / eoi per frame."""
+    ours = UniversalPrompting(FakeTokenizer(), max_text_len=max_text_len)
+    ref = JaxPrompting(jfake.FakeTokenizer(), max_text_len=max_text_len)
+    sp = ours.sptids
+    rng = np.random.default_rng(context)
+    parts = []
+    for _ in range(context):
+        parts += [rng.integers(60000, 60100, size=(len(PROMPTS), 9)),
+                  np.full((len(PROMPTS), 1), sp["<|eoi|>"]),
+                  np.full((len(PROMPTS), 1), sp["<|soi|>"])]
+    payload = np.concatenate(parts + [np.full((len(PROMPTS), 9), 58497)],
+                             axis=1)
+    got = ours((PROMPTS, payload), "lvg_gen")
+    want = ref((PROMPTS, payload), "lvg_gen")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert ((got[0] == sp["<|soi|>"]).sum(axis=1) == context + 1).all()
+    assert ((got[0] == sp["<|eoi|>"]).sum(axis=1) == context + 1).all()
+
+
 GOLDEN_TEXTS = ["a photo of a cat", "an oil painting of mountains at dusk",
                 ""]
 
