@@ -237,8 +237,10 @@ Phases, one or more lines each:
      null prompt), 2 latent frames (S=1536), Euler 20, CFG 5.0, the
      adaLN drawn as in phase 13; kernel 1 at its shapes (Qwen2.5 and DiT
      heads) against its plain version and the library on the generate's
-     tile map (byte for byte), two launches bit-identical, device times,
-     bound; one generate: 38 x 19 = 722 kernel 1 launches, all on the
+     tile map (byte for byte), held to the max abs error and to the
+     largest error of a row relative to its size, which a fault planted
+     in the reference (one 64-key tile of the video spans masked) must
+     fail; two launches bit-identical, device times, bound; one generate: 38 x 19 = 722 kernel 1 launches, all on the
      core, 1 tile map, frames finite in [-1, 1], denoise and decode
      seconds, frames/min, peak memory; one velocity on ``packed``
      against ``dense``; an i2v generate (the in-tree image as the first
@@ -250,8 +252,9 @@ Phases, one or more lines each:
      (cuDNN's TF32 off for the check)
   20. mixed modality: 2 rounds of up to 60 top-k 5 tokens and an image
      each (Euler 20, CFG 5.0, dense as in JAX: no kernel); round texts
-     and images well formed; decode ms a token and the idle share over
-     one round's text (profiler), seconds an image
+     and images well formed; one round's text timed without the
+     profiler, its decode ms a token apart from the prefill; the idle
+     share over a profiled run of it; seconds an image
   21. v1 long video at 256x256: batch 2, 3 frames, 2 context frames, 16
      steps, CFG 1.75 (dense under the lvg mask: no kernel); codes in the
      codebook, every frame differing from the one before, seconds a frame
@@ -456,6 +459,15 @@ T2V_EVALS = T2V_STEPS - 1
 T2V_FRAMES = {"t2v": 2, "t2v_long": 9}
 T2V_ROUTES = {"t2v": "packed", "t2v_long": "streaming"}
 T2V_PHASES = {"t2v": "19", "t2v_long": "19b"}
+# kernels 1 and 5 against their plain versions at the t2v rows' lengths,
+# beside CARD_TOL's max abs error: the largest over rows and heads of
+# ||kernel - plain|| / ||plain|| over the head dim.  A video row averages
+# ~S values of V, so its output is ~0.02 in size and a max abs limit of
+# 2e-2 cannot see a 64-key tile dropped from it (~8 / sqrt(S) of the row:
+# 0.1-0.2 at S = 1536-6656).  Read on an H100 80GB HBM3 at 700 W: 4.5e-3
+# to 5.9e-3 for kernels 1 and 5 at both lengths, 0.74 to 1.57 for the
+# planted fault (a 64-key tile masked in the reference)
+T2V_ROW_TOL = 2e-2
 # the streaming against the full-clip VAE decode on the card, fp32 with
 # cuDNN's TF32 off: max |d| of pixels in [-1, 1]; the same sums in two
 # orders (1e-6 at the CPU tests' tiny size)
@@ -1892,9 +1904,10 @@ def phase_v2_kernels(torch, pipe, prompts):
 
     from showo_tpu_torch.ops import cuda_build
     from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
 
     text, mp = pipe.build_inputs(prompts)
-    meta = pipe.attention_inputs(text, mp)[1]
+    meta = attention_inputs(pipe.attn_route, text, mp)[1]
     B, L = text.shape
     m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
     vis = tfa.visible_mask(*m, meta.pos_q)
@@ -2120,6 +2133,7 @@ def phase_v2_parity(torch, pipe, prompts):
     t.  The reference's zero init of the DiT's adaLN projections and of the
     FinalLayer makes the velocity 0 whatever the towers compute, so they
     are drawn N(0, 0.02) first; phases 15-17 run on these weights."""
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
     from showo_tpu_torch.show_o2.masks import omni_attn_mask
     from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
 
@@ -2131,7 +2145,8 @@ def phase_v2_parity(torch, pipe, prompts):
                     cfg.image_latent_width, generator=g, device="cuda")
     x = torch.cat([z, z])
     t = torch.full((B,), 0.5, device="cuda")
-    inputs = {"packed": (None, pipe.attention_inputs(text, mp)[1]),
+    inputs = {"packed": (None, attention_inputs(pipe.attn_route, text,
+                                                mp)[1]),
               "dense": (omni_attn_mask(mp, L), None)}
     v = {}
     with torch.no_grad():
@@ -2297,13 +2312,14 @@ def phase_v2_cached_kernels(torch, pipe, prompts):
 
     from showo_tpu_torch.ops import flash_attention as tfa
     from showo_tpu_torch.ops import streaming_attention as tsa
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
     from showo_tpu_torch.show_o2 import qwen2 as tqwen2
 
     text, mp = pipe.build_inputs(prompts)
     B, L = text.shape
     rows = tqwen2.cache_rows(mp[:, 0, 0], pipe.cfg.num_image_tokens)
     n = rows[1].shape[1]
-    base = pipe.attention_inputs(text, mp, rows[1])[1]
+    base = attention_inputs(pipe.attn_route, text, mp, rows[1])[1]
     m = (base.seg, base.pad, base.last_pad, base.prefix)
     metas = {route: tqwen2.packed_meta((route, *m), rows[1])
              for route in ("packed", "streaming")}
@@ -2867,19 +2883,32 @@ def _t2v_meta(pipe, prompts):
     return text, mp, route, attention_inputs(route, text, mp)[1]
 
 
+def _row_err(got, want, heads):
+    """Largest ||got - want|| / ||want|| of a row and head of two [B, S,
+    heads * D] attention outputs, taken over the head dim."""
+    B, S = want.shape[:2]
+    g = got.float().reshape(B, S, heads, -1)
+    w = want.float().reshape(B, S, heads, -1)
+    den = w.norm(dim=-1).clamp_min(1e-30)
+    return ((g - w).norm(dim=-1) / den).max().item()
+
+
 def phase_t2v_kernel(torch, pipe, prompts, row):
     """Kernel 1 (``t2v``, packed) or kernel 5 (``t2v_long``, streaming)
     against its plain version at the row's shapes: self-attention over the
     [cond; null] rows of one prompt (its video span and the null prompt's),
     Qwen2.5 and DiT heads, through the model's call
     (``qwen2.gqa_attention`` on [B, S, H, D] views, on the tile map the
-    generate makes); the map byte for byte; two launches bit-identical;
-    median times of kernel, plain version and scaled_dot_product_attention
-    with the boolean mask, the device time a launch (profiler), the bound;
-    the other of kernels 1 and 5 beside it on the same memory (the device
-    time of each at the row's length, which ``auto``'s 2816-row cut-over
-    chooses between).  Returns {label: result, "tiles": the map's
-    result}."""
+    generate makes); the map byte for byte; the max abs error (CARD_TOL)
+    and the largest error of a row relative to its size (T2V_ROW_TOL); a
+    fault planted in the reference (one 64-key tile of the video spans
+    masked for every row) must fail the row check; two launches
+    bit-identical; median times of kernel, plain version and
+    scaled_dot_product_attention with the boolean mask, the device time a
+    launch (profiler), the bound; the other of kernels 1 and 5 beside it
+    on the same memory, held to both limits (the device time of each at
+    the row's length, which ``auto``'s 2816-row cut-over chooses between).
+    Returns {label: result, "tiles": the map's result}."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import flash_attention as tfa
@@ -2910,6 +2939,13 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
         flag=True)
     if not torch.equal(tiles, meta.tiles):
         raise AssertionError(f"{row}: the map the model reads differs")
+    # the planted fault: the first whole 64-key tile inside every video span
+    # masked for every row (each row still sees its text prefix)
+    drop = (int(mp[:, 0, 0].max()) // 64 + 1) * 64
+    if not drop + 64 <= int(mp[:, 0].sum(-1).min()):
+        raise AssertionError(f"{row}: no whole key tile inside the spans")
+    vis_fault = vis.clone()
+    vis_fault[:, :, drop:drop + 64] = False
     other = "streaming" if route == "packed" else "packed"
     other_meta = attention_inputs(other, text, mp)[1]
     g = torch.Generator(device="cuda").manual_seed(51)
@@ -2936,25 +2972,46 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
                 *m, meta.pos_q, num_heads=H, num_kv_heads=Hkv,
                 sm_scale=D ** -0.5)
 
-        def sdpa():
+        def sdpa(mask=vis):
             return F.scaled_dot_product_attention(
-                *heads, attn_mask=vis[:, None], enable_gqa=Hkv != H)
+                *heads, attn_mask=mask[:, None], enable_gqa=Hkv != H)
 
         res = _compare(torch, f"kernel {num} {shape}", kern, plain, bound,
                        sdpa, phase=phase)
-        same = torch.equal(kern(), kern())
-        if not same:
+        got = kern()
+        if not torch.equal(got, kern()):
             raise AssertionError(f"{shape} kernel {num}: two launches differ")
+        row_err = _row_err(got, plain(), H)
+        faulty = sdpa(vis_fault).transpose(1, 2).reshape(B, L, H * D)
+        fault_row = _row_err(got, faulty, H)
+        fault_abs = (got.float() - faulty.float()).abs().max().item()
+        del faulty
+
         def beside():
             return tqwen2.gqa_attention(q, k, v, None, other_meta)
 
-        diff = (beside().float() - kern().float()).abs().max().item()
-        if not diff <= CARD_TOL:
+        near = beside()
+        diff = (near.float() - got.float()).abs().max().item()
+        diff_row = _row_err(near, got, H)
+        del near
+        print(f"[{phase}] kernel {num} {shape}: largest error of a row "
+              f"relative to its size {row_err:.3e} (tol {T2V_ROW_TOL:.0e}); "
+              f"planted fault (key tile {drop}-{drop + 63} masked in the "
+              f"reference) {fault_row:.3e}, failing it, max abs "
+              f"{fault_abs:.3e} (tol {CARD_TOL:.0e})")
+        if not (row_err <= T2V_ROW_TOL and fault_row > T2V_ROW_TOL):
+            raise AssertionError(f"{shape} kernel {num}: row error {row_err}, "
+                                 f"planted fault {fault_row} (tol "
+                                 f"{T2V_ROW_TOL})")
+        if not (diff <= CARD_TOL and diff_row <= T2V_ROW_TOL):
             raise AssertionError(f"{shape}: the {other} kernel differs by "
-                                 f"{diff}")
-        res.update({"device_ms": _device_ms(torch, kern),
+                                 f"{diff} (row {diff_row})")
+        res.update({"row_err": row_err, "planted_fault_row": fault_row,
+                    "planted_fault_abs": fault_abs,
+                    "device_ms": _device_ms(torch, kern),
                     "library_device_ms": _device_ms(torch, sdpa),
                     "beside": {"route": other, "max_diff": diff,
+                               "row_diff": diff_row,
                                "device_ms": _device_ms(torch, beside)}})
         print(f"[{phase}] kernel {num} {shape}: two launches bit-identical; "
               f"device time a launch (profiler, mean of 20) "
@@ -2962,9 +3019,10 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
               f"{_ms(res['library_device_ms'])}; beside it on the same "
               f"memory the {other} kernel ({6 - num}) "
               f"{_ms(res['beside']['device_ms'])}, max |difference| "
-              f"{diff:.3e} (tol {CARD_TOL:.0e})")
+              f"{diff:.3e} (tol {CARD_TOL:.0e}), of a row {diff_row:.3e} "
+              f"(tol {T2V_ROW_TOL:.0e})")
         out[label] = res
-        del q, k, v, heads
+        del q, k, v, heads, got
         torch.cuda.empty_cache()
     return out
 
@@ -3173,7 +3231,8 @@ def phase_mixed(torch, np, cuda_build, profile, pipe, smi):
     T2V_STEPS, CFG T2V_CFG, the earlier images as history, dense attention
     as in JAX: no kernel); round texts in the vocabulary, images finite in
     [-1, 1], one per round that did not end in eos; decode ms per token and
-    the device's idle share over one round's text, seconds per image."""
+    the prefill of one round's text timed apart, and the device's idle
+    share over it (a profiled run of its own), seconds per image."""
     ids = pipe.token_ids
     if not (_v2_full_width(pipe) and pipe.num_steps == T2V_STEPS
             and pipe.guidance_scale == T2V_CFG
@@ -3203,12 +3262,30 @@ def phase_mixed(torch, np, cuda_build, profile, pipe, smi):
                              f"{[len(r) for r in rounds]}, images "
                              f"{images.shape}")
     texts = [pipe.tokenizer.decode(r) for r in rounds]
-    # one round's text again, profiled: the prefill and MIXED_TOKENS
-    # decode forwards over the KV cache
+    # one round's text again, timed without the profiler: the prefill and
+    # n decode forwards over the KV cache (ar_generate runs all n), n = 1
+    # and MIXED_TOKENS, median of 3 each; a decode forward is the
+    # difference over MIXED_TOKENS - 1, the prefill what n = 1 adds to one
     prompt = [ids["bos_id"]] + pipe._tok(MIXED_PROMPT)
+    walls = {}
+    try:
+        for n in (1, MIXED_TOKENS):
+            pipe.max_new_tokens = n
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.lm_generate(prompt, gen)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            walls[n] = statistics.median(runs)
+    finally:
+        pipe.max_new_tokens = MIXED_TOKENS
+    token_ms = (walls[MIXED_TOKENS] - walls[1]) * 1e3 / (MIXED_TOKENS - 1)
+    prefill_ms = walls[1] * 1e3 - token_ms
+    # and profiled, for the device's idle share only
     prof = profile(lambda: pipe.lm_generate(prompt, gen),
                    "[20] mixed modality: one round's text,")
-    token_ms = prof["wall_s"] * 1e3 / (MIXED_TOKENS + 1)
     # one image: the first round's layout, denoised and decoded
     n = pipe.cfg.num_image_tokens
     toks = prompt + rounds[0] + ([] if rounds[0][-1] == ids["boi_id"]
@@ -3227,14 +3304,17 @@ def phase_mixed(torch, np, cuda_build, profile, pipe, smi):
           f"{T2V_STEPS}, CFG {T2V_CFG}, dense attention, 0 kernel launches) "
           f"in {wall:.2f} s (the first call); round texts "
           f"{[t[:40] for t in texts]}; images {images.shape} finite in "
-          f"[-1, 1]; text decode {token_ms:.4f} ms per token (one round, "
-          f"prefill included, {MIXED_TOKENS} tokens), device idle share "
-          f"{prof['idle_share']:.4f} over it ({prof['launches']} kernel "
-          f"launches); one image (the first round's, {len(toks)} rows) "
+          f"[-1, 1]; one round's text ({len(prompt)} prompt tokens, "
+          f"{MIXED_TOKENS} new; median of 3, no profiler) "
+          f"{walls[MIXED_TOKENS]:.4f} s: decode {token_ms:.4f} ms per "
+          f"token, prefill {prefill_ms:.4f} ms; device idle share "
+          f"{prof['idle_share']:.4f} over it (profiled run, "
+          f"{prof['launches']} kernel launches); one image (the first round's, {len(toks)} rows) "
           f"{image_s:.3f} s with its decode; peak memory allocated "
           f"{peak:.2f} GiB on {smi}")
     return {"rounds": [len(r) for r in rounds], "images": n_img,
             "wall_s": wall, "decode_ms_per_token": token_ms,
+            "prefill_ms": prefill_ms, "text_s": walls[MIXED_TOKENS],
             "idle_share": prof["idle_share"], "s_per_image": image_s,
             "peak_gib": peak}
 

@@ -10,7 +10,7 @@ printed and each image written to ``output_dir`` as ``mixed_NNN.png``.
 Keys: ``prompt``, ``num_rounds`` (default 3), ``guidance_scale`` (5.0),
 ``transport.num_inference_steps`` (20), ``max_new_tokens`` (60),
 ``seed``, ``device=cpu``.  The models, config and tokenizer come from the
-understanding and text-to-image CLIs' loaders (random init from fixed
+text-to-image CLI's loaders (random init from fixed
 seeds where a checkpoint path is absent; the stand-in tokenizer without a
 local one); without a card and without ``device=cpu`` it raises.
 """
@@ -23,9 +23,9 @@ import os
 import torch
 
 from showo_tpu_torch.config import get_config
-from showo_tpu_torch.inference_mmu_v2 import load_models
 from showo_tpu_torch.inference_t2i import to_pil_images
-from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
+from showo_tpu_torch.inference_t2i_v2 import (load_models,
+                                              load_tokenizer_and_ids)
 from showo_tpu_torch.pipelines.mixed_modality import MixedModalityPipeline
 from showo_tpu_torch.utils.device import entry_device
 

@@ -27,24 +27,13 @@ from typing import Optional
 import torch
 
 from showo_tpu_torch.config import get_config
-from showo_tpu_torch.inference_t2i_v2 import (build_showo2_config,
-                                              load_model,
-                                              load_tokenizer_and_ids,
-                                              load_vae)
+from showo_tpu_torch.inference_t2i_v2 import (load_models,
+                                              load_tokenizer_and_ids)
 from showo_tpu_torch.pipelines.mmu_v2 import MMUV2Pipeline
 from showo_tpu_torch.pipelines.mmu_vid import MMUVidPipeline
 from showo_tpu_torch.utils.device import entry_device
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp")
-
-
-def load_models(config, device: torch.device):
-    """(Show-o2, Wan2.1 VAE) of the config on ``device``: Show-o2 in bf16 on
-    CUDA and fp32 on the CPU, the VAE in fp32; weights loaded or
-    random-init (JAX ``load_models``)."""
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return (load_model(config, build_showo2_config(config), device, dtype),
-            load_vae(config, device))
 
 
 def build_pipeline(config, device: Optional[torch.device] = None,

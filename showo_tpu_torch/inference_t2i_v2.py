@@ -186,6 +186,15 @@ def load_vae(config, device) -> WanVAE:
     return vae.eval().requires_grad_(False)
 
 
+def load_models(config, device: torch.device):
+    """(Show-o2, Wan2.1 VAE) of the config on ``device``: Show-o2 in bf16 on
+    CUDA and fp32 on the CPU, the VAE in fp32; weights loaded or
+    random-init (JAX ``load_models``)."""
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return (load_model(config, build_showo2_config(config), device, dtype),
+            load_vae(config, device))
+
+
 def build_pipeline(config, device: Optional[torch.device] = None,
                    attn_impl: str = "auto",
                    prefix_cache: bool = False) -> T2IV2Pipeline:
@@ -198,14 +207,11 @@ def build_pipeline(config, device: Optional[torch.device] = None,
     it).  ``transport.sampling_method`` picks the sampler: euler, heun,
     dpm-solver (dpm) or dopri5."""
     device = entry_device(device)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    cfg = build_showo2_config(config)
     tokenizer, token_ids = load_tokenizer_and_ids(config)
+    model, vae = load_models(config, device)
     tr = config.transport
     return T2IV2Pipeline(
-        model=load_model(config, cfg, device, dtype),
-        vae=load_vae(config, device), tokenizer=tokenizer,
-        token_ids=token_ids,
+        model=model, vae=vae, tokenizer=tokenizer, token_ids=token_ids,
         guidance_scale=float(config.get("guidance_scale", 7.5)),
         num_steps=int(tr.get("num_inference_steps", 50)),
         time_shifting_factor=float(tr.get("time_shifting_factor", 3.0)),
@@ -223,16 +229,14 @@ def build_t2v_pipeline(config, device: Optional[torch.device] = None,
     attn_impl, vae_mode, ...); the config gives the time shift and the
     text length."""
     device = entry_device(device)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     tokenizer, token_ids = load_tokenizer_and_ids(config)
     kw = dict(time_shifting_factor=float(config.transport.get(
         "time_shifting_factor", 3.0)), max_text_len=int(
         config.dataset.preprocessing.get("max_text_len", 256)))
     kw.update(options)
-    return T2VPipeline(
-        model=load_model(config, build_showo2_config(config), device, dtype),
-        vae=load_vae(config, device), tokenizer=tokenizer,
-        token_ids=token_ids, **kw)
+    model, vae = load_models(config, device)
+    return T2VPipeline(model=model, vae=vae, tokenizer=tokenizer,
+                       token_ids=token_ids, **kw)
 
 
 def load_prompts(config) -> List[str]:

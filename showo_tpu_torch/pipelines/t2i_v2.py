@@ -141,17 +141,12 @@ class T2IV2Pipeline:
             ids["pad_id"], ids["img_pad_id"], self.max_text_len),
             self.guidance_scale, self.device)
 
-    def attention_inputs(self, text: torch.Tensor, mp: torch.Tensor,
-                         q_positions=None):
-        """:func:`attention_inputs` on the pipeline's route."""
-        return attention_inputs(self.attn_route, text, mp, q_positions)
-
     def drift(self, text: torch.Tensor, mp: torch.Tensor):
         """The velocity drift_fn(x, t) of one generate over the [cond;
         null] rows ``text`` / ``mp``: the plain one, or with
         ``prefix_cache`` the prefill of both towers (run here) and the
         cached evaluation of the span's rows."""
-        bias, attn_meta = self.attention_inputs(text, mp)
+        bias, attn_meta = attention_inputs(self.attn_route, text, mp)
         kw = dict(guidance_scale=self.guidance_scale)
         if not self.prefix_cache:
             return lambda x, t: showo2_t2i_velocity(
@@ -160,7 +155,8 @@ class T2IV2Pipeline:
                                                 attn_meta)
         n, offsets = self.cfg.num_image_tokens, mp[:, 0, 0]
         rows = cache_rows(offsets, n)
-        bias_fresh, meta_fresh = self.attention_inputs(text, mp, rows[1])
+        bias_fresh, meta_fresh = attention_inputs(self.attn_route, text,
+                                                  mp, rows[1])
         return lambda x, t: showo2_t2i_velocity_cached(
             self.model, x, t, bias_fresh, mp, qwen_cache, dit_kv,
             attn_meta=meta_fresh, rows=rows, **kw)

@@ -420,13 +420,6 @@ def wan_encode_raw_streaming(vae: WanVAE, x: torch.Tensor):
     return vae.conv1(h).chunk(2, dim=1)
 
 
-def _latent_stats(like: torch.Tensor):
-    shape = (1, -1, 1, 1, 1)
-    kw = dict(dtype=like.dtype, device=like.device)
-    return (torch.tensor(WAN_LATENT_MEAN, **kw).view(shape),
-            torch.tensor(WAN_LATENT_STD, **kw).view(shape))
-
-
 def _sample(mu: torch.Tensor, log_var: torch.Tensor,
             generator: Optional[torch.Generator], eps,
             deterministic: bool) -> torch.Tensor:
