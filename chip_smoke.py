@@ -47,7 +47,10 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   ``t2v_long`` rows) through ``inference_t2i_v2.build_t2v_pipeline``,
   mixed-modality generation through
   ``inference_mixed_modality.build_pipeline``, and Show-o v1 long video
-  (``configs/showo_demo.yaml``) through ``inference_lvg.build_pipeline``.
+  (``configs/showo_demo.yaml``) through ``inference_lvg.build_pipeline``;
+* continuous-batching serving (bench.py's four ``serve_*`` rows): Show-o
+  1.3B int8 through ``serving.ShowoMMUServer`` and Show-o2 1.5B int8
+  through ``serving.Showo2MMUServer``.
 
 Phases, one or more lines each:
 
@@ -142,7 +145,10 @@ Phases, one or more lines each:
      o, gate-up, down, the tied lm_head of N = 151940 on rows padded to
      151952) at M=1 and at the v2 image prompt's 746 rows: the same checks
      (error, planted fault, core, bits), event and device times of kernel,
-     plain version and the library, and the bound
+     plain version and the library, and the bound; then kernel 9 at the
+     serving engine's rows (M = 8 and 24: slots x a decode window of 1 or
+     3 rows; 328: a fused admission of 8 lanes and a 320-row prompt) at
+     Phi's win / wout / lm_head and Qwen's five products, the same checks
   10. the discrete understanding slice, bf16 then int8 weights: per answer
      the int8 kernel launches 49 x 101 times with int8 (24 win + 24 wout +
      lm_head, prefill and 100 decode forwards: 49 on the prefill kernel,
@@ -258,6 +264,27 @@ Phases, one or more lines each:
   21. v1 long video at 256x256: batch 2, 3 frames, 2 context frames, 16
      steps, CFG 1.75 (dense under the lvg mask: no kernel); codes in the
      codebook, every frame differing from the one before, seconds a frame
+  22. serving, v1: bench.py's ``serve_v1_spec2_int8`` (greedy, 2 drafts,
+     32 requests), ``serve_v1_sampled`` (temperature 0.9, top-p 0.9, 64
+     requests) and ``serve_v1_spec2_sampled`` (the same with 2 drafts: the
+     engine's A/B probation) through ShowoMMUServer on the int8 model of
+     ``inference_mmu.build_pipeline``: 8 slots, chunk 16, buckets 320 / 384
+     / 448, bench.py's cap, workload (seed 5) and warm-up; per row output
+     tokens/s, TTFT p50 / p95, seconds, decode steps, windows, host syncs a
+     window (1), kernel 9 launches a decode step, prefill and admission
+     (49 each) and none of any other kernel, peak memory, the idle share
+     of one profiled decode window of one chunk, the A/B choice, the share
+     of drafts accepted; every budget met with ids in the vocabulary; the
+     teacher-forced check of every request against the single-request
+     model (greedy: each token's reference logit within GREEDY_LOGIT_TOL of
+     the top; sampled: inside the nucleus; each lane's cache rows within
+     CACHE_ROW_TOL), which a planted fault (lane 0's K/V scattered at its
+     length + 1) must fail; one greedy plain decode chunk under
+     ``torch.cuda.set_sync_debug_mode("error")``
+  22b. serving, v2: ``serve_v2_spec2_int8`` (12 embedding prompts of 762-793
+     rows, buckets 768 / 832, 2 drafts, greedy) through Showo2MMUServer on
+     the int8 model of ``inference_mmu_v2.build_pipeline``, as phase 22 (113
+     kernel 9 launches a step and a prefill)
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -481,6 +508,50 @@ LVG_BATCH, LVG_FRAMES, LVG_CONTEXT = 2, 3, 2
 # 49 Euler steps with CFG 7.5 (phases 16, 17): max |d| over the peak of
 # the uncached / packed latents; the same bf16 computation in two tilings
 V2_LATENT_TOL = 1e-1
+# continuous-batching serving (phases 22 / 22b): bench.py's serve rows
+# (bench.py:941-984, driven by :563-760) through the port's servers: slots,
+# decode chunk, lookahead (the engine's default) and prompt buckets
+SERVE_SLOTS, SERVE_CHUNK, SERVE_LOOKAHEAD = 8, 16, 4
+# kernel 9's cases at the engine's rows (phase 9): decode at slots x window
+# (8 x 1, and 8 x 3 with 2 drafts), fused admission at slots + 320
+SERVING_ROWS = (8, 24, 8 + 320)
+SERVE_BUCKETS = (320, 384, 448)
+# v1 prompts [mmu][soi] 256 image ids [eoi] 8-63 question ids (bench.py:596
+# -605), budgets 16-127; row -> (draft length, requests, sampling: None =
+# greedy, else (temperature, top_k, top_p))
+SERVE_MMU, SERVE_SOI, SERVE_EOI = 50300, 50296, 50297
+SERVE_V1_ROWS = {
+    "serve_v1_spec2_int8": (2, 32, None),
+    "serve_v1_sampled": (0, 64, (0.9, None, 0.9)),
+    "serve_v1_spec2_sampled": (2, 64, (0.9, None, 0.9)),
+}
+# serve_v2_spec2_int8 (bench.py:704-770): 12 embedding prompts of 24 text
+# rows, the time row, 729 image rows and 8-39 question rows, the image span
+# (730 rows) at row 25, budgets 16-127, buckets 768 / 832, draft length 2
+SERVE_V2_BUCKETS, SERVE_V2_REQUESTS, SERVE_V2_SPEC = (768, 832), 12, 2
+SERVE_V2_IMG_START = 25
+# kernel 9 launches a decode step: v1 24 x (win, wout) + lm_head; v2 the
+# 113 of V2_MATMULS; as many a prefill (the head at its last row only, on
+# the gemv) and a fused admission (slots + bucket rows a product)
+SERVE_V1_MATMULS, SERVE_V2_MATMULS = MMU_MATMULS, V2_MATMULS
+# the teacher-forced check: each request's engine tokens through the
+# port's single-request model (prefill, then one cached forward of the
+# engine's tokens).  Greedy rows: every engine token's reference logit
+# within GREEDY_LOGIT_TOL of that position's largest: 8 bf16 ulps of the
+# logits' peak of ~4 on these random weights (kernel 9 runs the prefill
+# core at M = 8 / 24 in the engine and at other shapes in the reference,
+# so near-ties flip; read on an H100 80GB HBM3 at 700 W: 0.0312 / 0.0469,
+# v1 / v2).  Sampled rows: every token inside the reference's nucleus at
+# top_p + NUCLEUS_SLACK (the nucleus edge of ~45,000 near-flat tokens moves
+# with bf16 noise).  Every request: its lane's cache rows (every layer's K
+# and V, prompt and fed tokens) against the reference cache, the largest
+# ||engine - ref|| / ||ref|| of a row within CACHE_ROW_TOL (read: 1.4e-2
+# v1, 2.8e-2 v2 over ~10^5-10^6 rows; a row of a wrong position or token,
+# the planted fault, 1.46)
+GREEDY_LOGIT_TOL, NUCLEUS_SLACK, CACHE_ROW_TOL = 0.125, 0.01, 0.1
+# the planted fault: the first requests of serve_v1_spec2_int8 with lane 0's
+# decode K/V scattered at its length + 1 (a copy of the chunk program)
+SERVE_FAULT_REQUESTS = 8
 
 
 def _nvidia_smi() -> str:
@@ -1618,9 +1689,10 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
     ``win`` at the CLIP-ViT prefill's rows, a ragged M=65 at ``lm_head``'s
     N, and both kernels at the probes' [8, 2048] x [2048, 8192]; int4 also
     at ``win``'s prefill and CLIP-ViT rows, the ragged ``lm_head`` M=65,
-    and ``win``, ``wout`` and ``lm_head`` at decode (M=1).  Returns
-    {counter: {case: result}}; the cases above M=4 also under their
-    source's prefill counter."""
+    and ``win``, ``wout`` and ``lm_head`` at decode (M=1); int8 at the
+    serving engine's rows (SERVING_ROWS) at Phi's and Qwen2.5's products.
+    Returns {counter: {case: result}}; the cases above M=4 also under their
+    source's prefill counter, the serving cases under "serving"."""
     shapes = {"win": (2048, 14336), "wout": (10240, 2048),
               "lm_head": (2048, 58498)}
     cases = [(name, M, K, N) for name, (K, N) in shapes.items()
@@ -1651,6 +1723,18 @@ def phase_wsmm(torch, cuda_build, prefill_rows):
         label = f"qwen {name} M={M}"
         out["qwen"][label] = _wsmm_case(torch, cuda_build, label, M, K, N,
                                         False, seed, bias=bias, beside=False)
+    # the serving engine's rows (phases 22 / 22b): decode at slots x window
+    # (8, 24 with 2 drafts) and fused admission at slots + bucket (8 + 320)
+    out["serving"] = {}
+    todo = [(name, M, K, N, True) for name, (K, N) in shapes.items()
+            for M in SERVING_ROWS]
+    todo += [(f"qwen {name}", M, *V2_INT8_SHAPES[name]) for name in
+             V2_INT8_SHAPES for M in SERVING_ROWS]
+    for seed, (name, M, K, N, bias) in enumerate(todo, start=141):
+        label = f"{name} M={M}"
+        out["serving"][label] = _wsmm_case(torch, cuda_build, label, M, K, N,
+                                           False, seed, bias=bias,
+                                           beside=False)
     return out
 
 
@@ -3382,6 +3466,566 @@ def phase_lvg(torch, np, cuda_build, inference_lvg, inference_t2i, smi):
             "frames_differ": differ, "peak_gib": peak}
 
 
+class _ServeProbe:
+    """Host-side instruments of one engine: the kernel 9 launches of each
+    prefill, fused admission and decode dispatch (counter deltas around the
+    call: no device sync), and a snapshot of a request's lane cache rows
+    (prompt and fed tokens, device copies) when it finishes."""
+
+    NAMES = ("int8_matmul", PREFILL_KERNEL, "int8_matmul_gemv",
+             "int8_matmul_mma")
+
+    def __init__(self, cuda_build, server):
+        self.cb, self.eng = cuda_build, server.engine
+        self.calls = {"decode": [], "prefill": [], "fused": []}
+        self.snaps = {}
+        eng = self.eng
+        eng._decode_chunk = self._wrap("decode", eng._decode_chunk)
+        if eng._alt_decode_chunk is not None:
+            eng._alt_decode_chunk = self._wrap("decode",
+                                               eng._alt_decode_chunk)
+        for kind, attr in (("prefill", "_prefill_for"),
+                           ("fused", "_fused_admit_for")):
+            make = getattr(eng, attr)
+            if make is not None:
+                setattr(eng, attr, lambda b, m=make, k=kind: self._wrap(
+                    k, m(b)))
+        eng._prefill_cache.clear()
+        eng._fused_cache.clear()
+        finish = eng._finish_check
+
+        def finish_check(r, now):
+            done = finish(r, now)
+            if done and r.uid not in self.snaps:
+                s = eng.active.index(r)
+                n = len(r.prompt) + len(r.tokens) - 1
+                self.snaps[r.uid] = tuple(c[:, s, :n].clone()
+                                          for c in (eng.cache_k,
+                                                    eng.cache_v))
+            return done
+
+        eng._finish_check = finish_check
+
+    def _wrap(self, kind, fn):
+        def run(*args):
+            before = [self.cb.launches[n] for n in self.NAMES]
+            out = fn(*args)
+            self.calls[kind].append(tuple(
+                self.cb.launches[n] - b for n, b in zip(self.NAMES, before)))
+            return out
+        return run
+
+    def reset(self):
+        for v in self.calls.values():
+            v.clear()
+        self.snaps.clear()
+        eng = self.eng
+        eng.stat_steps = eng.stat_windows = eng.stat_syncs = 0
+        eng.stat_lane_steps = eng.stat_step_tokens = 0
+
+    def per_call(self, kind, matmuls, label, per=1):
+        """Check every call of ``kind`` launched ``per`` x ``matmuls``
+        kernel 9 products (decode: per = the chunk's steps) and return the
+        cores' split of one call."""
+        calls = self.calls[kind]
+        bad = [c for c in calls if c[0] != per * matmuls or c[3]]
+        if bad:
+            raise AssertionError(f"{label}: {kind} calls launched {bad[:3]} "
+                                 f"(int8_matmul, prefill core, gemv, mma), "
+                                 f"want {per * matmuls} products and no mma")
+        return calls[0] if calls else None
+
+
+def _rel_rows(torch, got, want):
+    """The largest ||got - want|| / ||want|| over the rows [L, n, ...]."""
+    d = (got.float() - want.float()).flatten(2).norm(dim=-1)
+    return (d / want.float().flatten(2).norm(dim=-1).clamp(min=1e-6)).max(
+        ).item()
+
+
+def _teacher_forced(torch, ref_fn, handles, snaps, sampling, label):
+    """Hold each request's engine tokens (and its lane cache rows, where
+    snapped) to the single-request model: ``ref_fn(request)`` -> (logits
+    [T, V] predicting each engine token, the reference cache (k, v) [L,
+    rows, ...]).  Returns the readings; raises nothing (the caller holds
+    them to the limits)."""
+    from showo_tpu_torch.sampling.ar import filter_logits
+
+    worst_gap, exact, outside, worst_row, n_tok = 0.0, 0, 0, 0.0, 0
+    for h in handles:
+        logits, (rk, rv) = ref_fn(h)
+        toks = torch.tensor(h.tokens, device=logits.device)
+        picked = logits.gather(1, toks[:, None])[:, 0]
+        n_tok += len(h.tokens)
+        if sampling is None:
+            worst_gap = max(worst_gap, (logits.max(-1).values - picked).max(
+                ).item())
+            exact += int(torch.equal(logits.argmax(-1), toks))
+        else:
+            temperature, top_k, top_p = sampling
+            flog = filter_logits(logits, temperature, top_k,
+                                 top_p + NUCLEUS_SLACK)
+            outside += int((~torch.isfinite(flog.gather(
+                1, toks[:, None]))).sum().item())
+        if h.uid in snaps:
+            ek, ev = snaps[h.uid]
+            n = ek.shape[1]
+            worst_row = max(worst_row, _rel_rows(torch, ek, rk[:, :n]),
+                            _rel_rows(torch, ev, rv[:, :n]))
+    ok = (worst_row <= CACHE_ROW_TOL and (
+        worst_gap <= GREEDY_LOGIT_TOL if sampling is None else outside == 0))
+    return {"ok": ok, "max_logit_gap": worst_gap, "exact_requests": exact,
+            "requests": len(handles), "tokens": n_tok,
+            "tokens_outside_nucleus": outside, "max_cache_row_err": worst_row,
+            "cache_checked": sum(h.uid in snaps for h in handles),
+            "label": label}
+
+
+def _tf_line(r, sampling) -> str:
+    tok = (f"largest gap to the reference's top logit {r['max_logit_gap']:.4f}"
+           f" (limit {GREEDY_LOGIT_TOL}), {r['exact_requests']} of "
+           f"{r['requests']} requests token-exact against the reference's "
+           f"argmax" if sampling is None else
+           f"{r['tokens_outside_nucleus']} tokens outside the reference's "
+           f"nucleus at top_p {sampling[2]} + {NUCLEUS_SLACK}")
+    return (f"{r['tokens']} tokens of {r['requests']} requests: {tok}; lane "
+            f"cache rows of {r['cache_checked']} requests, largest row error "
+            f"{r['max_cache_row_err']:.3e} (limit {CACHE_ROW_TOL})")
+
+
+def _v1_reference(torch, phi, eoi):
+    """ref_fn of :func:`_teacher_forced` for Show-o v1: the prompt's
+    prefill as ``showo_mmu_generate`` runs it (the mmu mask padded with
+    -1e9 to a cache of prompt + tokens rows), then one cached forward of
+    the engine's tokens but the last (row r sees the cache up to S + r)."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.models.phi import KVCache
+    from showo_tpu_torch.ops.masks import omni_mask_mmu
+
+    def ref(h):
+        emb = phi.model.embed_tokens.weight
+        ids = torch.as_tensor(h.prompt, device=emb.device).long()[None]
+        S, T = ids.shape[1], len(h.tokens)
+        cap = S + T
+        cache = KVCache.zeros(phi.cfg, 1, cap, dtype=emb.dtype,
+                              device=emb.device)
+        bias = F.pad(omni_mask_mmu(ids, eoi_id=eoi), (0, cap - S), value=-1e9)
+        rows = [phi(input_ids=ids, attention_bias=bias, cache=cache,
+                    lm_head_slice=(S - 1, S, None, None))[0][0]]
+        if T > 1:
+            toks = torch.tensor(h.tokens[:-1], device=emb.device)[None]
+            kpos = torch.arange(cap, device=emb.device)
+            r = torch.arange(T - 1, device=emb.device)[:, None]
+            b = torch.where(kpos < S + r + 1, 0.0, -1e9)[None, None]
+            rows.append(phi(input_ids=toks, attention_bias=b,
+                            cache=cache)[0][0])
+        return torch.cat(rows).float(), (cache.k[:, 0], cache.v[:, 0])
+
+    return ref
+
+
+def _v2_reference(torch, qwen, n_img):
+    """The same for Show-o2: the embeddings' prefill under the v2 omni mask
+    (the span at its ``img_start``), as ``MMUV2Pipeline.generate`` runs
+    it, then one cached forward of the engine's tokens."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.serving.decode_chunk import qwen_logits
+    from showo_tpu_torch.show_o2.masks import omni_attn_mask
+    from showo_tpu_torch.show_o2.qwen2 import Qwen2KVCache
+
+    def ref(h):
+        emb = h.prompt[None]
+        dev, dtype = emb.device, qwen.model.embed_tokens.weight.dtype
+        S, T = emb.shape[1], len(h.tokens)
+        cap = S + T
+        cache = Qwen2KVCache.zeros(qwen.cfg, 1, cap, dtype=dtype, device=dev)
+        mp = torch.tensor([[[h.meta[0], n_img]]], device=dev)
+        bias = F.pad(omni_attn_mask(mp, S), (0, cap - S), value=-1e9)
+        _, hid = qwen(input_embeds=emb.to(dtype), attention_bias=bias,
+                      cache=cache, logits=False)
+        rows = [qwen_logits(qwen, hid[0, -1:])]
+        if T > 1:
+            toks = torch.tensor(h.tokens[:-1], device=dev)[None]
+            kpos = torch.arange(cap, device=dev)
+            r = torch.arange(T - 1, device=dev)[:, None]
+            b = torch.where(kpos < S + r + 1, 0.0, -1e9)[None, None]
+            rows.append(qwen(input_ids=toks, attention_bias=b,
+                             cache=cache)[0][0])
+        return torch.cat(rows).float(), (cache.k[:, 0], cache.v[:, 0])
+
+    return ref
+
+
+def _serve_run(torch, cuda_build, server, probe, submits, generator):
+    """One timed drain of the server: every launch count set to 0 just
+    before, read just after; tokens/s over the wall, TTFT p50 / p95."""
+    import numpy as np
+
+    probe.reset()
+    handles = [submit() for submit in submits]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    done = server.run(generator)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launches)
+    if len(done) != len(handles):
+        raise AssertionError(f"{len(done)} of {len(handles)} requests done")
+    ttft = np.asarray([h.first_token_at - h.submitted_at for h in handles])
+    return handles, {
+        "seconds": wall, "tokens": sum(len(h.tokens) for h in handles),
+        "tokens_per_s": sum(len(h.tokens) for h in handles) / wall,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p95_s": float(np.percentile(ttft, 95)),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts}
+
+
+def _serve_row(torch, cuda_build, profile, server, probe, label, phase,
+               submits, budgets, sampling, spec, matmuls, ref_fn, window_req,
+               smi):
+    """One bench row through the server: the timed drain, its checks (every
+    budget met with ids in the vocabulary, kernel 9 launches a decode step
+    / prefill / admission, no other kernel, the teacher-forced check), then
+    one profiled decode window (of one chunk) of SERVE_SLOTS fresh
+    requests."""
+    eng = server.engine
+    gen = torch.Generator(device=eng.device).manual_seed(1)
+    handles, run = _serve_run(torch, cuda_build, server, probe, submits, gen)
+    vocab = (server.phi if hasattr(server, "phi") else server.qwen).cfg
+    vocab = vocab.vocab_size
+    for h, b in zip(handles, budgets):
+        if len(h.tokens) != b or not all(0 <= t < vocab for t in h.tokens):
+            raise AssertionError(f"[{phase}] {label}: request {h.uid} gave "
+                                 f"{len(h.tokens)} tokens for a budget of "
+                                 f"{b}, or ids outside the vocabulary")
+    others = {n: c for n, c in run["launches"].items()
+              if c and not n.startswith("int8_matmul")}
+    if others or not run["launches"].get("int8_matmul"):
+        raise AssertionError(f"[{phase}] {label}: kernel launches {others} "
+                             f"besides kernel 9, or none of kernel 9")
+    dec = probe.per_call("decode", matmuls, label, per=SERVE_CHUNK)
+    pre = probe.per_call("prefill", matmuls, label)
+    fus = probe.per_call("fused", matmuls, label)
+    steps, windows, syncs = eng.stat_steps, eng.stat_windows, eng.stat_syncs
+    tf = _teacher_forced(torch, ref_fn, handles, probe.snaps, sampling, label)
+    if not tf["ok"] or syncs != windows:
+        raise AssertionError(f"[{phase}] {label}: {syncs} host syncs in "
+                             f"{windows} windows, or the teacher-forced "
+                             f"check failed: {_tf_line(tf, sampling)}")
+    probe.snaps.clear()
+    lane_tokens = eng.stat_step_tokens / max(1, eng.stat_lane_steps)
+    # one decode window (of one chunk) of SERVE_SLOTS fresh requests,
+    # profiled
+    for submit in window_req:
+        submit()
+    eng._fill_slots(gen)
+    torch.cuda.synchronize()
+    eng.lookahead = 1
+    prof = profile(lambda: eng._decode_once(gen, []),
+                   f"[{phase}] {label}: one decode window of one chunk,")
+    eng.lookahead = SERVE_LOOKAHEAD
+    server.run(gen)
+    ab = (f"; A/B choice {eng.ab_choice} (trace {eng.ab_trace[:4]})"
+          if eng._alt_decode_chunk is not None else "")
+    drafts = (f"; tokens a lane step {lane_tokens:.4f}, share of drafts "
+              f"accepted {(lane_tokens - 1) / spec:.4f}"
+              + (" (both programs' windows)" if ab else "")
+              if spec else "")
+    cores = lambda c: ("none" if c is None else
+                       f"{c[0]} ({c[1]} prefill core, {c[2]} gemv)")
+    print(f"[{phase}] {label}: {len(handles)} requests, {run['tokens']} "
+          f"tokens in {run['seconds']:.3f} s = {run['tokens_per_s']:.2f} "
+          f"tokens/s; TTFT p50 {run['ttft_p50_s']:.3f} s, p95 "
+          f"{run['ttft_p95_s']:.3f} s; {steps} decode steps in {windows} "
+          f"windows, {syncs / max(1, windows):.2f} host syncs a "
+          f"window; kernel 9 launches a decode step {dec[0] // SERVE_CHUNK} "
+          f"({len(probe.calls['decode'])} dispatches of {SERVE_CHUNK} "
+          f"steps), a prefill {cores(pre)} x {len(probe.calls['prefill'])},"
+          f" a fused admission {cores(fus)} x {len(probe.calls['fused'])};"
+          f" {run['launches']['int8_matmul']} in the run, no other kernel; "
+          f"peak memory {run['peak_gib']:.2f} GiB; device idle share over "
+          f"one decode window of {SERVE_CHUNK} steps {prof['idle_share']:.4f}"
+          f" ({prof['launches']} launches, {prof['wall_s'] * 1e3:.1f} ms)"
+          f"{ab}{drafts}; on {smi}")
+    print(f"[{phase}] {label}: teacher-forced: {_tf_line(tf, sampling)}")
+    return {**{k: v for k, v in run.items() if k != "launches"},
+            "launches": run["launches"]["int8_matmul"],
+            "decode_steps": steps, "windows": windows,
+            "syncs_per_window": syncs / max(1, windows),
+            "launches_per_decode_step": dec[0] // SERVE_CHUNK,
+            "launches_per_prefill": None if pre is None else pre[0],
+            "launches_per_admission": None if fus is None else fus[0],
+            "idle_share_window": prof["idle_share"],
+            "tokens_per_lane_step": lane_tokens,
+            "ab_choice": eng.ab_choice,
+            **{k: v for k, v in tf.items() if k not in ("ok", "label")}}
+
+
+def _v1_workload(np, n_req):
+    """bench.py's serve workload (seed 5) and its warm-up prompt maker."""
+    rng = np.random.default_rng(5)
+    reqs = []
+    for _ in range(n_req):
+        q_len = int(rng.integers(8, 64))
+        budget = int(rng.integers(16, 128))
+        img = rng.integers(50305, 58497, size=256)
+        q = rng.integers(2, 50000, size=q_len)
+        reqs.append((np.concatenate([[SERVE_MMU, SERVE_SOI], img,
+                                     [SERVE_EOI], q]).astype(np.int64),
+                     budget))
+
+    def wreq(bucket):
+        q = rng.integers(2, 50000, size=bucket - 261)
+        img = rng.integers(50305, 58497, size=256)
+        return np.concatenate([[SERVE_MMU, SERVE_SOI], img, [SERVE_EOI],
+                               q]).astype(np.int64)
+
+    return reqs, wreq
+
+
+def _warm(server, submit_w, buckets):
+    """bench.py's warm-up off the clock: a plain prefill per bucket from
+    idle, then (with fused admission) an admission per bucket while a
+    lane decodes, under a forced "alt" A/B; probation restarts after."""
+    import torch
+
+    eng = server.engine
+    gen = torch.Generator(device=eng.device).manual_seed(0)
+    for bucket in buckets:
+        submit_w(bucket, 4)
+        server.run(gen)
+    if eng._fused_admit_for is not None:
+        eng.force_ab("alt")
+        submit_w(buckets[0], 8)
+        for bucket in buckets:
+            submit_w(bucket, 4)
+        server.run(gen)
+    eng.reset_ab()
+
+
+def _serve_cap(spec):
+    """bench.py:608: one window-chunk of steps of margin, (spec + 1) tokens
+    each, and a step a slot for fused admissions."""
+    return -(-(324 + 128 + SERVE_CHUNK * (spec + 1) + SERVE_SLOTS) // 64) * 64
+
+
+@contextlib.contextmanager
+def _planted_scatter_fault():
+    """A copy of the chunk program whose side-buffer scatter writes lane
+    0's K/V at its length + 1."""
+    from showo_tpu_torch.serving import speculative as tspec
+
+    real = tspec.scatter_fresh
+
+    def faulty(cache_k, cache_v, fk, fv, lens0):
+        lens0 = lens0.clone()
+        lens0[0] += 1
+        return real(cache_k, cache_v, fk, fv, lens0)
+
+    tspec.scatter_fresh = faulty
+    try:
+        yield
+    finally:
+        tspec.scatter_fresh = real
+
+
+def _no_sync_chunk(torch, phi):
+    """One greedy plain decode chunk under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in it
+    raises.  Returns its wall ms."""
+    from showo_tpu_torch.sampling.ar import sampler
+    from showo_tpu_torch.serving.decode_chunk import (build_v1_decode_chunk,
+                                                      kv_cache_zeros)
+    from showo_tpu_torch.serving.engine import to_device
+    import numpy as np
+
+    cfg = phi.cfg
+    cap = _serve_cap(0)
+    emb = phi.model.embed_tokens.weight
+    shape = (cfg.num_layers, SERVE_SLOTS, cap, cfg.num_heads, cfg.head_dim)
+    ck = kv_cache_zeros(shape, False, emb.dtype, emb.device)
+    cv = kv_cache_zeros(shape, False, emb.dtype, emb.device)
+    dec = build_v1_decode_chunk(phi, cap=cap, chunk=SERVE_CHUNK,
+                                slots=SERVE_SLOTS,
+                                sample=sampler(1.0, 1, None))
+    lengths = to_device(np.arange(SERVE_SLOTS, dtype=np.int32) * 37 + 5,
+                        emb.device)
+    tok = torch.arange(SERVE_SLOTS, device=emb.device) + 100
+    dec(ck, cv, lengths, tok, None)                     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dec(ck, cv, lengths, tok, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if int(out[0][0].item()) != 5 + SERVE_CHUNK:
+        raise AssertionError("the chunk did not advance the lengths")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_serve_v1(torch, np, cuda_build, profile, inference_mmu, smi):
+    """Phase 22: bench.py's three v1 serve rows through ShowoMMUServer on
+    Show-o 1.3B at full width (``inference_mmu.build_pipeline`` with
+    int8: fuse_parallel_mlp, then quantize_int8; random bf16 weights from
+    the seed), the planted fault, and one greedy plain chunk without a host
+    sync."""
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.models.phi import Int8Linear
+    from showo_tpu_torch.serving import ShowoMMUServer
+
+    pipe = inference_mmu.build_pipeline(
+        load_config("configs/showo_demo.yaml", ["int8=1"]), "cuda")
+    model, phi = pipe.model, pipe.model.showo
+    lc = phi.cfg
+    if not (lc.num_layers == NUM_LAYERS and lc.hidden_size == 2048
+            and lc.vocab_size == 58498 and model.cfg.llm_vocab_size + 2
+            == SERVE_EOI and all(isinstance(layer.win, Int8Linear)
+                                 and isinstance(layer.wout, Int8Linear)
+                                 for layer in phi.model.layers)
+            and isinstance(phi.lm_head, Int8Linear)):
+        raise AssertionError(f"[22] not the full-width fused int8 Phi: {lc}")
+    eoi = SERVE_EOI
+    ref_fn = _v1_reference(torch, phi, eoi)
+    rows = {}
+    with torch.no_grad():
+        for label, (spec, n_req, sampling) in SERVE_V1_ROWS.items():
+            reqs, wreq = _v1_workload(np, n_req)
+            temperature, top_k, top_p = sampling or (1.0, 1, None)
+            server = ShowoMMUServer(
+                model, slots=SERVE_SLOTS, cap=_serve_cap(spec),
+                chunk=SERVE_CHUNK, buckets=SERVE_BUCKETS,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                speculative_k=spec, lookahead=SERVE_LOOKAHEAD)
+            t0 = time.perf_counter()
+            _warm(server, lambda b, n: server.submit(wreq(b), n),
+                  SERVE_BUCKETS)
+            probe = _ServeProbe(cuda_build, server)
+            submits = [lambda p=p, b=b: server.submit(p, b) for p, b in reqs]
+            window = [lambda p=p: server.submit(p, 127)
+                      for p, _ in reqs[:SERVE_SLOTS]]
+            rows[label] = _serve_row(
+                torch, cuda_build, profile, server, probe, label, 22,
+                submits, [b for _, b in reqs], sampling, spec,
+                SERVE_V1_MATMULS, ref_fn, window, smi)
+            rows[label]["phase_s"] = time.perf_counter() - t0
+            if label == "serve_v1_spec2_int8":
+                rows[label]["fault"] = _serve_fault(
+                    torch, model, reqs[:SERVE_FAULT_REQUESTS], spec,
+                    ref_fn, cuda_build)
+            server = probe = None
+        sync_ms = _no_sync_chunk(torch, phi)
+    print(f"[22] one greedy plain decode chunk ({SERVE_CHUNK} steps, "
+          f"{SERVE_SLOTS} lanes) under torch.cuda.set_sync_debug_mode"
+          f"('error'): no host sync, {sync_ms:.1f} ms")
+    rows["no_sync_chunk_ms"] = sync_ms
+    return rows
+
+
+def _serve_fault(torch, model, reqs, spec, ref_fn, cuda_build):
+    """The planted fault on the first requests of the spec-2 greedy row: it
+    must fail the teacher-forced check."""
+    from showo_tpu_torch.serving import ShowoMMUServer
+
+    with _planted_scatter_fault():
+        server = ShowoMMUServer(
+            model, slots=SERVE_SLOTS, cap=_serve_cap(spec),
+            chunk=SERVE_CHUNK, buckets=SERVE_BUCKETS, top_k=1,
+            speculative_k=spec, lookahead=SERVE_LOOKAHEAD)
+        probe = _ServeProbe(cuda_build, server)
+        handles = [server.submit(p, b) for p, b in reqs]
+        server.run(torch.Generator(device=server.engine.device).manual_seed(1))
+    tf = _teacher_forced(torch, ref_fn, handles, probe.snaps, None, "fault")
+    print(f"[22] planted fault (lane 0's decode K/V at its length + 1, "
+          f"{len(reqs)} requests of serve_v1_spec2_int8): the teacher-forced"
+          f" check {'passes: NOT caught' if tf['ok'] else 'fails'}: "
+          f"{_tf_line(tf, None)}")
+    if tf["ok"]:
+        raise AssertionError("[22] the planted fault passes the "
+                             "teacher-forced check")
+    return {k: v for k, v in tf.items() if k not in ("ok", "label")}
+
+
+def phase_serve_v2(torch, np, cuda_build, profile, inference_mmu_v2, smi):
+    """Phase 22b: serve_v2_spec2_int8 through Showo2MMUServer on Show-o2
+    1.5B at full width (``inference_mmu_v2.build_pipeline`` with int8):
+    bench.py's 12 embedding prompts (latents from seeded draws through
+    ``embed_images``, the time row, random text ids), 8 slots, buckets 768
+    / 832, draft length 2, greedy."""
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.models.phi import Int8Linear
+    from showo_tpu_torch.serving import Showo2MMUServer
+    from showo_tpu_torch.show_o2.showo2 import _time_embeds, embed_images
+
+    pipe = inference_mmu_v2.build_pipeline(load_config(V2_CONFIG, ["int8=1"]),
+                                           "cuda")
+    model, qwen = pipe.model, pipe.model.showo
+    cfg = model.cfg
+    if not (qwen.cfg.num_layers == V2_QWEN_LAYERS
+            and qwen.cfg.hidden_size == 1536
+            and cfg.num_image_tokens == 730
+            and all(isinstance(m, Int8Linear) for m in _v2_matmuls(qwen))):
+        raise AssertionError(f"[22b] not the full-width int8 Qwen2.5: "
+                             f"{qwen.cfg}")
+    dev = pipe.device
+    embed = qwen.model.embed_tokens
+    spec = SERVE_V2_SPEC
+    rng = np.random.default_rng(7)
+    reqs = []
+    with torch.no_grad():
+        _, te = _time_embeds(model, torch.ones((1,), device=dev))
+        for i in range(SERVE_V2_REQUESTS):
+            q_len = int(rng.integers(8, 40))
+            budget = int(rng.integers(16, 128))
+            g = torch.Generator(device=dev).manual_seed(10 + i)
+            latents = torch.randn((1, cfg.image_latent_dim,
+                                   cfg.image_latent_height,
+                                   cfg.image_latent_width), generator=g,
+                                  device=dev).to(embed.weight.dtype)
+            pre = rng.integers(10, 150000, size=24)
+            post = rng.integers(10, 150000, size=q_len)
+            emb = torch.cat([embed(torch.as_tensor(pre, device=dev)),
+                             te.to(embed.weight.dtype),
+                             embed_images(model, latents)[0],
+                             embed(torch.as_tensor(post, device=dev))])
+            reqs.append((emb, budget, post))
+        cap = SERVE_V2_BUCKETS[-1] + 128 + SERVE_CHUNK * (spec + 1)
+        server = Showo2MMUServer(
+            model, slots=SERVE_SLOTS, cap=cap, chunk=SERVE_CHUNK,
+            buckets=SERVE_V2_BUCKETS, top_k=1, speculative_k=spec,
+            lookahead=SERVE_LOOKAHEAD)
+        t0 = time.perf_counter()
+        D = qwen.cfg.hidden_size
+
+        def submit_w(bucket, budget):
+            return server.submit(torch.zeros((bucket - 8, D), device=dev,
+                                             dtype=embed.weight.dtype),
+                                 SERVE_V2_IMG_START, budget,
+                                 lookup_ids=np.zeros(4, np.int64))
+
+        _warm(server, submit_w, SERVE_V2_BUCKETS)
+        probe = _ServeProbe(cuda_build, server)
+        submits = [lambda e=e, b=b, ids=ids: server.submit(
+            e, SERVE_V2_IMG_START, b, lookup_ids=ids) for e, b, ids in reqs]
+        window = [lambda e=e, ids=ids: server.submit(
+            e, SERVE_V2_IMG_START, 127, lookup_ids=ids)
+            for e, _, ids in reqs[:SERVE_SLOTS]]
+        row = _serve_row(torch, cuda_build, profile, server, probe,
+                         "serve_v2_spec2_int8", "22b", submits,
+                         [b for _, b, _ in reqs], None, spec,
+                         SERVE_V2_MATMULS,
+                         _v2_reference(torch, qwen, cfg.num_image_tokens),
+                         window, smi)
+        row["phase_s"] = time.perf_counter() - t0
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3690,6 +4334,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts.append(("lvg [21]", time.perf_counter()))
 
+    # [22] / [22b] continuous-batching serving: bench.py's serve rows
+    # through ShowoMMUServer and Showo2MMUServer
+    serve_v1 = phase_serve_v1(torch, np, cuda_build, profile, inference_mmu,
+                              smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("serving v1 [22]", time.perf_counter()))
+    serve_v2 = phase_serve_v2(torch, np, cuda_build, profile,
+                              inference_mmu_v2, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("serving v2 [22b]", time.perf_counter()))
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -3827,6 +4484,21 @@ def main() -> int:
                         "replaces": KERNELS[route][1],
                         "launches": counts[name], **res[qwen],
                         "case": f"{qwen}, {row}", "cases": res, **extra})
+    # kernel 9 on the serving path: the launches of phase 22's / 22b's timed
+    # runs, beside its cases at the engine's rows (phase 9)
+    serving = wsmm["serving"]
+    for name, case, launches, rows in (
+            ("int8_matmul_serving_v1", f"win M={SERVING_ROWS[0]}",
+             sum(r["launches"] for r in serve_v1.values()
+                 if isinstance(r, dict)), serve_v1),
+            ("int8_matmul_serving_v2", f"qwen gate-up M={SERVING_ROWS[1]}",
+             serve_v2["launches"], {"serve_v2_spec2_int8": serve_v2})):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "showo_tpu_torch/csrc/int8_matmul.cu (+ "
+                                  "weight_stream_prefill.cuh)",
+                        "replaces": WSMM_KERNELS["int8_matmul"],
+                        "launches": launches, **serving[case], "case": case,
+                        "cases": serving, "slice": rows})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

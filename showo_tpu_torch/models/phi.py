@@ -180,8 +180,9 @@ class PhiConfig:
 @dataclasses.dataclass
 class KVCache:
     """Decode cache.  k/v: [L, B, S_max, H, Dh]; ``length`` is the number
-    of valid positions.  Updated in place by a forward that writes to it
-    (the JAX package returns a new cache instead)."""
+    of valid positions: an int, or an int32 [B] tensor of per-lane lengths
+    (serving).  Updated in place by a forward that writes to it (the JAX
+    package returns a new cache instead)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -193,6 +194,33 @@ class KVCache:
         shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def lane_rows(start: torch.Tensor, rows: int, size: int) -> torch.Tensor:
+    """[B, rows] int64 index of ``rows`` consecutive positions from each
+    lane's ``start`` [B] in an axis of ``size``, the start clamped into
+    [0, size - rows] as ``jax.lax.dynamic_update_slice`` clamps it (an
+    update never lands out of bounds)."""
+    start = start.long().clamp(0, size - rows)
+    return start[:, None] + torch.arange(rows, device=start.device)
+
+
+def _cache_scatter(ck, cv, k, v, index) -> None:
+    """Write fresh K/V rows [B, S, H, Dh] into the layer cache [B, S_max,
+    H, Dh] in place at ``index``: an int (the offset shared by every lane)
+    or an int32 [B] tensor of per-lane offsets, the continuous-batching
+    serving path where every batch lane decodes its own request at its own
+    length (``serving/engine.py``); that write is one ``index_put_``, with
+    no host sync."""
+    S = k.shape[1]
+    if torch.is_tensor(index):
+        b = torch.arange(ck.shape[0], device=ck.device)[:, None]
+        rows = lane_rows(index, S, ck.shape[1])
+        ck[b, rows] = k.to(ck.dtype)
+        cv[b, rows] = v.to(cv.dtype)
+        return
+    ck[:, index:index + S] = k.to(ck.dtype)
+    cv[:, index:index + S] = v.to(cv.dtype)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -344,11 +372,20 @@ class PhiDecoderLayer(nn.Module):
             q, k, v = a.q_proj(x), a.k_proj(x), a.v_proj(x)
         return q, k, v, self.mlp.fc1(x)
 
+    def project_out(self, h, attn, mlp_pre):
+        """The residual output of the layer from attention [B, S, D] and
+        the MLP input ``mlp_pre`` of :meth:`_qkv_mlp`, in any layout."""
+        mlp = F.gelu(mlp_pre, approximate="tanh")
+        if hasattr(self, "wout"):
+            return h + self.wout(torch.cat([attn, mlp], dim=-1))
+        return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
+
     def forward(self, h, bias, cos, sin, cache_kv=None, cache_index=None,
                 attn_meta: Optional[AttnStep] = None,
                 static_prefix: bool = False):
         """h: [B, S, D].  cache_kv: (ck, cv) of this layer, [B, S_max, H, Dh]
-        written in place at ``cache_index``, or with ``static_prefix`` the
+        written in place at ``cache_index`` (an int, or per-lane offsets
+        [B]: :func:`_cache_scatter`), or with ``static_prefix`` the
         [B, P, H, Dh] prefix the fresh rows are appended to (not written)."""
         cfg = self.cfg
         B, S, D = h.shape
@@ -369,8 +406,7 @@ class PhiDecoderLayer(nn.Module):
                 k_att = torch.cat([ck, k.to(ck.dtype)], dim=1)
                 v_att = torch.cat([cv, v.to(cv.dtype)], dim=1)
             else:
-                ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
-                cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+                _cache_scatter(ck, cv, k, v, cache_index)
                 k_att, v_att = ck, cv
         else:
             k_att, v_att = k, v
@@ -378,10 +414,7 @@ class PhiDecoderLayer(nn.Module):
             q, k_att, v_att, bias, attn_meta,
             softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
         ).reshape(B, S, D)
-        mlp = F.gelu(mlp_pre, approximate="tanh")
-        if hasattr(self, "wout"):
-            return h + self.wout(torch.cat([attn, mlp], dim=-1))
-        return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
+        return self.project_out(h, attn, mlp_pre)
 
     def _fused_step(self, h, x, cos, sin, cache_kv, m: AttnStep):
         """The static-prefix cached step on the ``fused`` route: kernel 2
@@ -402,8 +435,7 @@ class PhiDecoderLayer(nn.Module):
             eps=cfg.layer_norm_eps,
             softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
             rows=m.fused, tiles=m.tiles)
-        mlp = F.gelu(y[..., 3 * D:], approximate="tanh")
-        return h + self.wout(torch.cat([attn, mlp], dim=-1))
+        return self.project_out(h, attn, y[..., 3 * D:])
 
 
 class PhiModel(nn.Module):
@@ -452,8 +484,10 @@ class Phi(nn.Module):
 
         attention_bias: [B, 1, Q, K] additive mask.  Three modes:
           * no cache: K = S;
-          * ``cache``: fresh K/V are written at ``cache.length`` (in place)
-            and attention runs over the cache capacity (K = S_max);
+          * ``cache``: fresh K/V are written at ``cache.length`` (in place;
+            per lane where it is a [B] tensor, the rows then at positions
+            ``length[b] + arange(S)``) and attention runs over the cache
+            capacity (K = S_max);
           * ``cache`` + ``static_prefix_len`` P: the first P cached rows are
             a constant prefix; attention runs over [prefix | fresh]
             (K = P + S) and nothing is written.
@@ -462,7 +496,8 @@ class Phi(nn.Module):
         kernel reads is computed here, once for all layers
         (:func:`attn_step`).
         lm_head_slice: optional (row_lo, row_hi, col_lo, col_hi) computing
-        logits only for those rows / vocab columns.
+        logits only for those rows / vocab columns (col_lo None: every
+        column).
         remat: the layer policy of ``utils/remat.py`` for the forward
         without a cache (training); "full" recomputes each layer in the
         backward.
@@ -474,7 +509,10 @@ class Phi(nn.Module):
         dev = input_embeds.device
         if position_ids is None:
             start = cache.length if cache is not None else 0
-            position_ids = (start + torch.arange(S, device=dev))[None, :]
+            if torch.is_tensor(start):
+                start = start[:, None]
+            position_ids = torch.atleast_2d(start + torch.arange(S,
+                                                                 device=dev))
         cos, sin = rope_tables(position_ids, cfg.rotary_dim, cfg.rope_theta)
 
         static = cache is not None and static_prefix_len is not None
@@ -502,7 +540,7 @@ class Phi(nn.Module):
             for i, layer in enumerate(self.model.layers):
                 h = layer(h, bias, cos, sin,
                           (cache.k[i], cache.v[i]), cache.length, attn_meta)
-            cache.length += S
+            cache.length = cache.length + S
         else:
             for layer in self.model.layers:
                 h = wrap_remat(layer, remat)(h, bias, cos, sin,
@@ -513,7 +551,7 @@ class Phi(nn.Module):
         if lm_head_slice is not None:
             r0, r1, c0, c1 = lm_head_slice
             h = h[:, r0:r1]
-            cols = slice(c0, c1)
+            cols = None if c0 is None else slice(c0, c1)
         if isinstance(self.lm_head, Int8Linear):
             return self.lm_head(h, cols), cache
         weight, bias_h = self.lm_head.weight, self.lm_head.bias

@@ -34,14 +34,11 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     return torch.where(keep, logits, torch.full_like(logits, -torch.inf))
 
 
-def sample_logits(logits: torch.Tensor, temperature: float,
+def filter_logits(logits: torch.Tensor, temperature: float,
                   top_k: Optional[int],
-                  generator: Optional[torch.Generator] = None,
-                  gumbel: Optional[torch.Tensor] = None,
                   top_p: Optional[float] = None) -> torch.Tensor:
-    """[B, V] logits -> [B] token ids: temperature, top-k (ties with the
-    k-th value kept), top-p, then ``argmax(logits + gumbel)`` when noise is
-    given, else a draw from the softmax with ``generator``."""
+    """The logits sampling draws from: / temperature, top-k (ties with the
+    k-th value kept), top-p; removed entries -inf."""
     logits = logits / temperature
     if top_k is not None:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
@@ -49,11 +46,51 @@ def sample_logits(logits: torch.Tensor, temperature: float,
                              logits)
     if top_p is not None and top_p < 1.0:
         logits = top_p_filter(logits, top_p)
+    return logits
+
+
+def sample_logits(logits: torch.Tensor, temperature: float,
+                  top_k: Optional[int],
+                  generator: Optional[torch.Generator] = None,
+                  gumbel: Optional[torch.Tensor] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """[B, V] logits -> [B] token ids: :func:`filter_logits`, then
+    ``argmax(logits + gumbel)`` when noise is given, else a draw from the
+    softmax with ``generator``."""
+    logits = filter_logits(logits, temperature, top_k, top_p)
     if gumbel is not None:
         return torch.argmax(logits + torch.as_tensor(
             gumbel, dtype=logits.dtype, device=logits.device), dim=-1)
     probs = torch.softmax(logits.float(), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def gumbel(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of ``shape`` in fp32, u
+    uniform in (0, 1) from ``generator``, drawn on its device: with it
+    ``argmax(logits + noise)`` is a draw from ``softmax(logits)`` and
+    nothing leaves the device."""
+    u = torch.rand(shape, generator=generator,
+                   device=device or generator.device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def sampler(temperature: float, top_k: Optional[int],
+            top_p: Optional[float]) -> Callable:
+    """fn(logits [B, V], generator) -> [B] int64 ids on the logits' device,
+    with no host sync: greedy (``top_k == 1``, no nucleus) is the argmax;
+    otherwise :func:`sample_logits` under :func:`gumbel` noise from the
+    generator (temperature, top-k, top-p, then Gumbel-max)."""
+    if top_k == 1 and (top_p is None or top_p >= 1.0):
+        return lambda logits, generator: torch.argmax(logits, dim=-1)
+
+    def sample(logits, generator):
+        logits = logits.float()
+        return sample_logits(logits, temperature, top_k,
+                             gumbel=gumbel(logits.shape, generator,
+                                           logits.device), top_p=top_p)
+    return sample
 
 
 def ar_generate(

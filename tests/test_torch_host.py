@@ -460,3 +460,33 @@ def test_port_source_imports_no_jax(path):
     bad = [m for m in _imports(os.path.join(REPO, path))
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_serving_host_code_matches_jax(tmp_path):
+    """The serving engine's bucket rounding and the serve CLI's request
+    gathering (a requests.jsonl, else every image of ``mmu_image_root``
+    times every question) are the JAX package's."""
+    from showo_tpu import inference_serve as jserve
+    from showo_tpu.serving import engine as jengine
+    from showo_tpu_torch import inference_serve as tserve
+    from showo_tpu_torch.serving import engine as tengine
+
+    for n in (1, 320, 321, 448):
+        assert (tengine._round_bucket(n, (320, 384, 448))
+                == jengine._round_bucket(n, (320, 384, 448)))
+    for mod in (tengine, jengine):
+        with pytest.raises(ValueError, match="exceeds largest bucket"):
+            mod._round_bucket(449, (320, 384, 448))
+    for name in ("b.png", "a.JPG", "c.txt"):
+        (tmp_path / name).write_bytes(b"")
+    reqs = tmp_path / "requests.jsonl"
+    reqs.write_text('{"image": "x.png", "question": "q"}\n\n'
+                    '{"image": "y.png", "question": "r", '
+                    '"max_new_tokens": 3}\n')
+    for cfg in ({"requests": str(reqs)},
+                {"mmu_image_root": str(tmp_path), "question": "A? *** B?"}):
+        cfg = tconfig.Config(cfg)
+        assert tserve.gather_requests(cfg) == jserve.gather_requests(cfg)
+        assert len(tserve.gather_requests(cfg)) in (2, 4)
+    for a, b in ((7, 32), (64, 64), (65, 64)):
+        assert tserve._round_up(a, b) == jserve._round_up(a, b)

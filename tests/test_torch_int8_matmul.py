@@ -9,9 +9,11 @@ Pallas kernels of the probes (kernel 9: ``tools/probe_int8_decode.py``,
 ragged M / K / N.  Tolerance: one bf16 ulp of the output's peak (both
 sides sum exact bf16 products in fp32, in different orders, and round the
 scaled sum to bf16 once).  ``quantize_int8`` is bit-exact against JAX on
-every layout.  The card-only cases hold each CUDA kernel against its plain
-version at the slices' shapes (Phi's and Qwen2.5-1.5B's) within 2e-2 of
-the output's peak; above the
+every layout, and at the serving engine's rows (M = 8 / 24 / 328) the plain
+version is held to JAX's dequantized product within 1e-2 of the peak.  The
+card-only cases hold each CUDA kernel against its plain version at the
+slices' shapes (Phi's and Qwen2.5-1.5B's, the serving rows among them)
+within 2e-2 of the output's peak; above the
 decode rows they also check which core ran (``launches["int8_matmul_<core>"]``,
 ``launches["int4_matmul_<core>"]``) and that split-K gives the same bits
 on two calls.  ``prefill_plan`` (the prefill kernel's tiles and split, for
@@ -588,6 +590,64 @@ def test_int8_kernel_vs_plain_qwen_shapes_on_card(name, M):
     want = {n: 0 for n in before}
     want.update({"int8_matmul": 1, core: 1})
     assert {n: cuda_build.launches[n] - before[n] for n in before} == want
+    _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
+
+
+# the serving engine's rows (serving/): decode at slots x window = 8 x 1
+# and 8 x 3 (speculation with 2 drafts), fused admission at slots + the
+# smallest bucket, 8 + 320
+SERVING_ROWS = (8, 24, 328)
+# JAX's int8 serving computes x @ bf16(w_i8 * scale) (``_wk``); the plain
+# version scales the fp32 sum: max |difference| / peak (the limit of
+# tests/test_torch_mmu.py for the same difference)
+DEQUANT_REL = 1e-2
+# Phi-1.5's serving products, (K, N): win, wout and lm_head
+PHI_SHAPES = {"win": (2048, 14336), "wout": (10240, 2048),
+              "lm_head": (2048, 58498)}
+
+
+@pytest.mark.parametrize("M", SERVING_ROWS)
+@pytest.mark.parametrize("K,N", [(2048, 640), (1536, 896)])
+def test_plain_at_serving_rows_vs_jax_dequant(M, K, N):
+    """The plain version at the serving rows against JAX's dequantized
+    product ``x @ (w_i8.astype(bf16) * scale) + bias`` on the CPU."""
+    x, w, s = _inputs(M, K, N, seed=M + K)
+    bias = np.random.default_rng(N).normal(size=N).astype(np.float32)
+    jx, jw, js = _jax(x, w, s)
+    want = np.asarray((jx @ (jw.astype(jnp.bfloat16) * js)
+                       + jnp.asarray(bias, jnp.bfloat16)), np.float32)
+    got = ti8.pallas_i8_matmul(*_torch(x, w, s),
+                               torch.as_tensor(bias).bfloat16())
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    peak = np.abs(want).max()
+    assert np.abs(got.float().numpy() - want).max() <= DEQUANT_REL * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", SERVING_ROWS)
+@pytest.mark.parametrize("name", list(PHI_SHAPES) + [
+    f"qwen {n}" for n in QWEN_SHAPES])
+def test_int8_kernel_vs_plain_serving_rows_on_card(name, M):
+    """Kernel 9 at the serving engine's rows, at Phi's and Qwen2.5's
+    products (weight rows padded to 16 bytes, as Int8Linear pads them):
+    one launch of the prefill core a product, within 2e-2 of the plain
+    version's peak."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if name.startswith("qwen "):
+        K, N, has_bias = QWEN_SHAPES[name[5:]]
+    else:
+        (K, N), has_bias = PHI_SHAPES[name], True
+    x, w, s, b = _card(M, K, -(-N // 16) * 16, seed=M * 3 + K + N)
+    w, s, b = w[:, :N], s[:, :N], (b[:N] if has_bias else None)
+    before = {n: cuda_build.launches[n] for n in
+              ("int8_matmul", "int8_matmul_gemv", "int8_matmul_prefill",
+               "int8_matmul_mma")}
+    got = ti8.pallas_i8_matmul(x, w, s, b)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in before} == {
+        "int8_matmul": 1, "int8_matmul_gemv": 0, "int8_matmul_prefill": 1,
+        "int8_matmul_mma": 0}
     _check_card(got, ti8.i8_matmul_plain(x, w, s, b))
 
 
