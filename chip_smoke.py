@@ -50,7 +50,13 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   (``configs/showo_demo.yaml``) through ``inference_lvg.build_pipeline``;
 * continuous-batching serving (bench.py's four ``serve_*`` rows): Show-o
   1.3B int8 through ``serving.ShowoMMUServer`` and Show-o2 1.5B int8
-  through ``serving.Showo2MMUServer``.
+  through ``serving.Showo2MMUServer``;
+* the Show-o2 1.5B stage-1 trainer (``configs/showo2_1.5b_stage_1_a.yaml``,
+  warmup 0) through ``show_o2/train_stage_one.py::build_trainer`` on the
+  ``trainable`` route: the frozen Wan2.1 encoder, SigLIP frozen, Qwen2.5
+  and the DiT trained with AdamW, remat "full", bf16 autocast over fp32
+  master weights, 12 rows (10 t2i, 2 und) of 1024 tokens at 432x432; and
+  its CLI at a reduced depth, with checkpoints and a resume.
 
 Phases, one or more lines each:
 
@@ -286,6 +292,28 @@ Phases, one or more lines each:
      the int8 model of ``inference_mmu_v2.build_pipeline``, as phase 22 (113
      kernel 9 launches a step and a prefill)
 
+  23. kernels 7 and 8 at head dim 128 (Qwen2.5's 12 q / 2 kv heads) on
+     the metadata of the Show-o2 stage-1 batch (B=2): kernel 7 at S=1024,
+     kernel 8 at S=2048, each its tile map byte for byte, forward, lse,
+     dq and dk/dv against the plain versions and bit-stable over two
+     launches, CUDA-event medians of kernel, plain version and
+     ``scaled_dot_product_attention`` under the same mask, device times,
+     bounds; the planted faults (V of the wrong kv head, one 64-key tile
+     dropped from the plain version's mask) each failing the check
+  24. the Show-o2 stage-1 trainer at full width: a warm step, then
+     V2_TRAIN_STEPS steps of one batch with one fixed draw: per step 76
+     kernel 7 forwards (28 Qwen2.5 + 10 DiT layers, twice under remat), 38
+     dq, 38 dk/dv (56 / 28 / 28 of them at head dim 128) and 76 tile
+     maps, none of any other kernel; losses finite and falling; s per
+     step, samples/s, peak memory, the idle share of one profiled step;
+     one step of 2 rows x 2048 tokens, where both towers take kernel 8
+  25. Show-o2 training step parity: one full-width step's losses and grad
+     norm on ``trainable`` against ``dense`` (the same prepared batch:
+     weights, draws and rows; only the attention inputs differ)
+  26. the stage-1 CLI in process (``train_stage_one.main``) at full width
+     and depth 2 / 2 / 2 on a jsonl of the in-tree image: 2 steps with
+     ``save_every`` 1, then a resume from ``latest`` to step 3
+
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero with no result line; without CUDA it exits 2.
@@ -298,6 +326,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -408,11 +437,33 @@ ROUTE_TILES = {"packed": PACKED_TILES, "omni": "omni_attention_tiles",
                "decode": "decode_attention_tiles"}
 # kernel 2's LayerNorm + RoPE pass, one before each launch of its core
 FUSED_NORM = "fused_decode_norm_rope"
+# Show-o2 1.5B stage-1 training (phases 23-26): configs/showo2_1.5b_stage_1_a
+# .yaml with warmup 0; a batch of V2_TRAIN_BATCH rows of 1024 tokens (the
+# config's max_seq_length) at 432x432, and one of 2048 tokens, whose length
+# sends both towers past the packed budget to kernel 8
+V2_TRAIN_CONFIG = "configs/showo2_1.5b_stage_1_a.yaml"
+# (12 rows: 64.42 GiB at peak on an H100 80GB; 16 run out of memory)
+V2_TRAIN_BATCH, V2_TRAIN_STEPS, V2_TRAIN_SEQ = 12, 3, (1024, 2048)
+V2_TRAIN_UND = 2            # understanding rows of the batch (the rest t2i)
+V2_DIT_LAYERS = 10
+# kernels 7 and 8 at Qwen2.5's head dim (phase 23): q heads, kv heads, dim
+V2_TRAIN_HEADS = (12, 2, 128)
+# the head-dim-128 launch counters of the trainable kernels (each launch at
+# head dim 128 is also counted under the name without _d128)
+D128 = "_d128"
+V2_TRAIN_COUNTERS = [n + D128 for n in list(TRAIN_KERNELS)[:3]
+                     + list(STREAM_TRAIN_KERNELS)[:3]]
+# trainable vs dense, one full-width Show-o2 step under bf16 autocast
+# (phase 25): relative difference of each loss and of the grad norm.  Read
+# on an H100 at 700 W in two runs: losses 1.4e-6 to 4.5e-4 (loss_ntp, the
+# 151,940-wide cross entropy of the und row, largest), grad norm 1.0e-5 to
+# 2.0e-5; the limits ~11x and ~25x above the largest readings
+V2_TRAIN_LOSS_TOL, V2_TRAIN_GRAD_NORM_TOL = 5e-3, 5e-4
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
             + [GQA_SOURCE, GQA_WGMMA, GQA_TILES, PACKED_WGMMA, FUSED_NORM,
-               *ROUTE_TILES.values()])
+               *ROUTE_TILES.values()] + V2_TRAIN_COUNTERS)
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -1042,11 +1093,11 @@ def _planted_faults(shape, plain, v, wrong_v, m, phase):
           + "; ".join(readings))
 
 
-def _kernel_set(torch, kernel, hkv):
+def _kernel_set(torch, kernel, hkv, H=H, D=D):
     """The wrappers, plain versions, tile map (counter, kernel, plain) and
-    layout of one trainable kernel set with ``hkv`` kv heads: kernel 7 on
-    the packed [B, S, n*D] layout, or kernel 8 on head-major views of
-    [B, S, n, D] tensors (phi's layout)."""
+    layout of one trainable kernel set with ``H`` q and ``hkv`` kv heads
+    of ``D``: kernel 7 on the packed [B, S, n*D] layout, or kernel 8 on
+    head-major views of [B, S, n, D] tensors (phi's and Qwen's layout)."""
     import functools
 
     from showo_tpu_torch.ops import packed_attention_grad as tpag
@@ -1338,8 +1389,8 @@ def phase_train(torch, cuda_build, trainer, batch, noise, smi, label,
     return {name: counts[name] for name in kernels}
 
 
-def _per_step(counts) -> dict:
-    return {n: c // TRAIN_STEPS for n, c in counts.items() if c}
+def _per_step(counts, steps: int = TRAIN_STEPS) -> dict:
+    return {n: c // steps for n, c in counts.items() if c}
 
 
 def phase_train_parity(torch, trainer, batch, noise, phase, loss_tol,
@@ -4026,6 +4077,335 @@ def phase_serve_v2(torch, np, cuda_build, profile, inference_mmu_v2, smi):
     return row
 
 
+def _v2_train_meta(torch, seq_len, batch_size=2):
+    """The trainable route's metadata of a seeded Show-o2 stage-1 batch of
+    ``seq_len`` tokens (``profile_train.v2_batch``): seg from the modality
+    positions, no pads."""
+    from showo_tpu_torch.ops.flash_attention import (
+        seg_from_modality_positions, span_meta)
+    from showo_tpu_torch.profile_train import v2_batch
+    from showo_tpu_torch.show_o2.showo2 import Showo2Config
+
+    batch = v2_batch(Showo2Config().num_image_tokens, batch_size, seq_len)
+    mp = torch.as_tensor(batch["modality_positions"], device="cuda")
+    seg = seg_from_modality_positions(mp, seq_len)
+    return span_meta(seg, None, None, None, batch_size, seq_len, seg.device)
+
+
+def phase_v2_train_kernels(torch, phase="23"):
+    """Kernels 7 and 8 at head dim 128 (Qwen2.5's 12 q / 2 kv heads) on the
+    metadata of the Show-o2 stage-1 batch, B=2: kernel 7 at S=1024 and
+    kernel 8 at S=2048.  Each kernel set's tile map against its plain
+    version byte for byte; the forward, lse, dq and dk/dv against the
+    plain versions (CARD_TOL, GRAD_TOL) and bit-stable over two launches;
+    CUDA-event medians of kernel, plain version and the library
+    (``scaled_dot_product_attention`` under the same mask, GQA), device
+    times from the profiler, the bounds; then the planted faults (V of the
+    wrong kv head; one 64-key tile dropped from the plain version's mask),
+    each of which must fail the check.  Returns {counter: result}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops import streaming_attention_grad as tsag
+
+    h, hkv, d = V2_TRAIN_HEADS
+    g = torch.Generator(device="cuda").manual_seed(23)
+    results = {}
+    for kernel, S in ((7, V2_TRAIN_SEQ[0]), (8, V2_TRAIN_SEQ[1])):
+        m = _v2_train_meta(torch, S)
+        ks = _kernel_set(torch, kernel, hkv, H=h, D=d)
+        B = m[0].shape[0]
+        vis = tsag.self_visible(*m)
+        n_vis = int(vis.sum())
+        shape = (f"kernel {kernel}, Show-o2 stage-1 batch: B={B} S={S} "
+                 f"H={h} Hkv={hkv} D={d}")
+        q, k, v, dout = (ks["tensor"](g, B, S, n) for n in (h, hkv, hkv, h))
+        tiles, tiles_result = _tile_map_check(torch, ks, m, shape, phase)
+        bwd = {"tiles": tiles}
+        out, lse = ks["fwd"](q, k, v, *m, **bwd)
+        lse_err = (lse - ks["fwd_plain"](q, k, v, *m)[1]).abs().max().item()
+        if not lse_err <= CARD_TOL:
+            raise AssertionError(f"{shape}: lse err {lse_err}")
+        delta = ks["delta"](out, dout)
+        args = (q, k, v, dout, lse, delta, *m)
+        _bit_stable(torch, ks, args, tiles, shape, phase)
+        tensor = 2 * B * S * d
+        meta_bytes = 4 * (2 * B * S + 2 * B)
+        rows_bytes = 4 * B * h * S
+        bounds = {
+            "fwd": _bound((2 * h + 2 * hkv) * tensor + rows_bytes
+                          + meta_bytes, 4 * d * h * n_vis),
+            "dq": _bound((3 * h + 2 * hkv) * tensor + 2 * rows_bytes
+                         + meta_bytes, 6 * d * h * n_vis),
+            "dkv": _bound((2 * h + 4 * hkv) * tensor + 2 * rows_bytes
+                          + meta_bytes, 8 * d * h * n_vis)}
+        heads = [ks["heads"](t).detach().requires_grad_(True)
+                 for t in (q, k, v)]
+        mask = vis[:, None]
+        o4 = F.scaled_dot_product_attention(*heads, attn_mask=mask,
+                                            enable_gqa=True)
+        lib = {"fwd": lambda: F.scaled_dot_product_attention(
+                   *heads, attn_mask=mask, enable_gqa=True),
+               "bwd": lambda: torch.autograd.grad(o4, heads, ks["heads"](
+                   dout), retain_graph=True)}
+        calls = {"fwd": lambda: ks["fwd"](q, k, v, *m, **bwd)[0],
+                 "dq": lambda: ks["dq"](*args, **bwd),
+                 "dkv": lambda: ks["dkv"](*args, **bwd)}
+        plains = {"fwd": lambda: ks["fwd_plain"](q, k, v, *m)[0],
+                  "dq": lambda: ks["dq_plain"](*args),
+                  "dkv": lambda: ks["dkv_plain"](*args)}
+        for name, part in zip(ks["counters"], ("fwd", "dq", "dkv")):
+            what = {"fwd": "forward", "dq": "dq", "dkv": "dk/dv"}[part]
+            r = _compare(torch, f"trainable {what} {shape}", calls[part],
+                         plains[part], bounds[part],
+                         lib["fwd" if part == "fwd" else "bwd"],
+                         phase=phase, grads=part != "fwd")
+            r["device_ms"] = _device_ms(torch, calls[part])
+            print(f"[{phase}] {shape}: {what} device {_ms(r['device_ms'])} "
+                  f"a launch (profiler, mean of 20), "
+                  f"{_ratio(r['device_ms'], r['bound_ms'])} its bound")
+            results[name + D128] = r
+        results[ks["tiles"][0] + f"_v2_s{S}"] = tiles_result
+        heads = o4 = lib = None
+        print(f"[{phase}] {shape}: lse max_abs_err {lse_err:.3e}; "
+              f"{n_vis} visible (row, key) pairs of {B * S * S} "
+              f"({n_vis / (B * S * S):.4f}); library of dq and dk/dv: one "
+              f"backward of scaled_dot_product_attention")
+        _planted_faults(shape, {
+            "forward": (lambda v_, m_: ks["fwd_plain"](q, k, v_, *m_)[0],
+                        False),
+            "dq": (lambda v_, m_: ks["dq_plain"](q, k, v_, *args[3:6], *m_),
+                   True),
+            "dk/dv": (lambda v_, m_: ks["dkv_plain"](q, k, v_, *args[3:6],
+                                                     *m_), True),
+        }, v, ks["wrong_v"](v), m, phase)
+    return results
+
+
+def _v2_train_want(steps: int, seq_len: int) -> dict:
+    """The launch counts of ``steps`` Show-o2 stage-1 steps on the
+    trainable route (remat "full": two forwards a layer): 28 Qwen2.5
+    layers at head dim 128 and 10 DiT layers at 64, on kernel 7 at 1024
+    tokens and on kernel 8 at 2048; each forward makes one tile map."""
+    table = TRAIN_KERNELS if seq_len <= 1024 else STREAM_TRAIN_KERNELS
+    fwd, dq, dkv, tiles = list(table)
+    layers = V2_QWEN_LAYERS + V2_DIT_LAYERS
+    want = {name: 0 for name in COUNTERS}
+    want.update({fwd: 2 * layers * steps, dq: layers * steps,
+                 dkv: layers * steps, tiles: 2 * layers * steps,
+                 fwd + D128: 2 * V2_QWEN_LAYERS * steps,
+                 dq + D128: V2_QWEN_LAYERS * steps,
+                 dkv + D128: V2_QWEN_LAYERS * steps})
+    return want
+
+
+def _v2_trainer(torch, phase):
+    """The full-width Show-o2 stage-1 trainer through the CLI's
+    ``build_trainer`` (trainable, remat full, AdamW), checked to be at
+    full width."""
+    from showo_tpu_torch.profile_train import v2_config
+    from showo_tpu_torch.show_o2.train_stage_one import build_trainer
+
+    t0 = time.perf_counter()
+    trainer = build_trainer(v2_config(), torch.device("cuda"),
+                            attn_impl="trainable")
+    c = trainer.model.cfg
+    if not (c.llm.num_layers == V2_QWEN_LAYERS and c.llm.hidden_size == 1536
+            and (c.llm.num_heads, c.llm.num_kv_heads, c.llm.head_dim)
+            == V2_TRAIN_HEADS and c.dit.num_layers == V2_DIT_LAYERS
+            and c.dit.hidden_size == 2048 and c.dit.head_dim == 64
+            and trainer.sc.remat == "full"
+            and trainer.sc.attn_impl == "trainable"):
+        raise AssertionError(f"not the full-width stage-1 trainer: {c}")
+    n_train = sum(p.numel() for p in trainer.optimizer.params)
+    n_all = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[{phase}] Show-o2 stage-1 trainer built from {V2_TRAIN_CONFIG} "
+          f"(warmup 0) in {time.perf_counter() - t0:.1f} s: {n_all} "
+          f"parameters, {n_train} trainable (frozen: "
+          f"{', '.join(trainer.frozen_substrings)}), AdamW, clip "
+          f"{trainer.sc.max_grad_norm}, remat {trainer.sc.remat}")
+    return trainer
+
+
+def _v2_steps(torch, cuda_build, trainer, batch, steps, seq_len, label,
+              phase):
+    """``steps`` steps on ``batch`` with one fixed draw each (so the loss
+    falls), the launch counts set to 0 before them and held to
+    :func:`_v2_train_want`; returns (walls, losses, metrics, counts)."""
+    cuda_build.launches.clear()
+    walls, losses, metrics = [], [], []
+    for _ in range(steps):
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, gen)
+        losses.append(float(m["loss"]))             # waits for the step
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    want = _v2_train_want(steps, seq_len)
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"{label}: launches over {steps} steps "
+                             f"{counts}, want {want}")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    return walls, losses, metrics, counts
+
+
+def phase_v2_train(torch, cuda_build, profile, trainer, smi, phase="24"):
+    """The Show-o2 stage-1 trainer at full width on ``trainable``: a warm
+    step, then V2_TRAIN_STEPS steps of one seeded batch of V2_TRAIN_BATCH
+    rows x 1024 tokens (V2_TRAIN_UND of them und) with one fixed draw (launch counts
+    per step: kernel 7 76 forwards / 38 dq / 38 dk+dv, of them 56 / 28 /
+    28 at head dim 128, 76 tile maps; losses falling), s per step,
+    samples/s, peak memory; the idle share and kernel launches of one
+    profiled step; then one step of a 2-row batch of 2048 tokens (kernel 8
+    in both towers).  Returns {"slice": ..., "counts": {S: counts}}."""
+    from showo_tpu_torch.profile_train import v2_batch
+
+    n_img = trainer.model.cfg.num_image_tokens
+    batch = v2_batch(n_img, V2_TRAIN_BATCH, V2_TRAIN_SEQ[0],
+                     und=V2_TRAIN_UND)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    trainer.train_step(batch, gen)                        # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, metrics, counts = _v2_steps(
+        torch, cuda_build, trainer, batch, V2_TRAIN_STEPS, V2_TRAIN_SEQ[0],
+        "stage-1 batch", phase)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not falling on one batch: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = statistics.median(walls)
+    last = metrics[-1]
+    prof = profile(lambda: trainer.train_step(
+        batch, torch.Generator(device="cuda").manual_seed(24)),
+        f"[{phase}] profiled step")
+    print(f"[{phase}] Show-o2 stage-1 training, route trainable, "
+          f"{V2_TRAIN_BATCH} rows ({V2_TRAIN_BATCH - V2_TRAIN_UND} t2i, "
+          f"{V2_TRAIN_UND} und) x {V2_TRAIN_SEQ[0]} tokens "
+          f"at 432x432, bf16 autocast, remat full: launches per step "
+          f"{_per_step(counts, V2_TRAIN_STEPS)}, 0 of the other kernels; "
+          f"losses {[round(x, 4) for x in losses]}; last step ntp "
+          f"{last['loss_ntp']:.4f} flow {last['loss_flow']:.4f} grad_norm "
+          f"{last['grad_norm']:.4f}; step {wall:.4f} s (median of "
+          f"{V2_TRAIN_STEPS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+          f"{V2_TRAIN_BATCH / wall:.3f} samples/s, peak memory allocated "
+          f"{peak:.2f} GiB; profiled step: idle share "
+          f"{prof['idle_share']:.4f}, {prof['launches']} device launches, "
+          f"busy {prof['busy_ms']:.1f} ms on {smi}")
+    long_batch = v2_batch(n_img, 2, V2_TRAIN_SEQ[1])
+    torch.cuda.reset_peak_memory_stats()
+    lwalls, llosses, _, lcounts = _v2_steps(
+        torch, cuda_build, trainer, long_batch, 1, V2_TRAIN_SEQ[1],
+        "the 2048-token batch", phase)
+    lpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{phase}] one step of 2 rows x {V2_TRAIN_SEQ[1]} tokens (both "
+          f"towers past the packed budget: kernel 8): launches "
+          f"{_per_step(lcounts, 1)}; loss {llosses[0]:.4f}; "
+          f"{lwalls[0]:.4f} s; peak memory allocated {lpeak:.2f} GiB")
+    return {"slice": {"step_s": wall, "samples_per_s": V2_TRAIN_BATCH / wall,
+                      "peak_gib": peak, "idle_share": prof["idle_share"],
+                      "launches_profiled": prof["launches"],
+                      "losses": losses, "step_s_2048": lwalls[0],
+                      "peak_gib_2048": lpeak},
+            "counts": {V2_TRAIN_SEQ[0]: counts, V2_TRAIN_SEQ[1]: lcounts}}
+
+
+def phase_v2_train_parity(torch, trainer, phase="25"):
+    """One full-width Show-o2 stage-1 step's losses and grad norm on
+    ``trainable`` and on ``dense``: the same weights, batch and draws (one
+    prepared batch, its attention inputs swapped)."""
+    from showo_tpu_torch.profile_train import v2_batch
+    from showo_tpu_torch.show_o2.masks import omni_attn_mask
+    from showo_tpu_torch.training.train_step import global_norm
+
+    step = trainer.step_fn
+    batch = trainer.device_batch(v2_batch(trainer.model.cfg.num_image_tokens,
+                                          2, V2_TRAIN_SEQ[0], und=1))
+    prepared = step.prepare(batch, torch.Generator(device="cuda")
+                            .manual_seed(25))
+    L = prepared.text_tokens.shape[1]
+    dense = dataclasses.replace(prepared, attn_meta=None, bias=omni_attn_mask(
+        prepared.modality_positions, L))
+    got = {}
+    for route, b in (("trainable", prepared), ("dense", dense)):
+        total, parts, grads = step.loss_and_grads(b)
+        got[route] = [float(x) for x in (total, *parts, global_norm(grads))]
+        del grads
+    names = ("loss", "loss_ntp", "loss_flow", "grad_norm")
+    rel = {n: abs(a - b) / abs(b) for n, a, b in
+           zip(names, got["trainable"], got["dense"])}
+    print(f"[{phase}] Show-o2 training step parity, trainable vs dense (28 "
+          f"+ 10 layers, 2 rows x {L}, one und row, bf16 autocast): "
+          + ", ".join(f"{n} {a:.5f} vs {b:.5f} (rel {rel[n]:.2e})"
+                      for n, a, b in zip(names, got["trainable"],
+                                         got["dense"]))
+          + f"; tol {V2_TRAIN_LOSS_TOL} (losses), {V2_TRAIN_GRAD_NORM_TOL} "
+          f"(grad norm)")
+    bad = [n for n in names if rel[n] > (V2_TRAIN_GRAD_NORM_TOL
+                                         if n == "grad_norm"
+                                         else V2_TRAIN_LOSS_TOL)]
+    if bad:
+        raise AssertionError(f"trainable vs dense differ in {bad}: {rel}")
+    return {"rel": rel}
+
+
+def phase_v2_cli(torch, cuda_build, phase="26"):
+    """The stage-1 CLI itself, in process
+    (``train_stage_one.main(argv)``), at full width and a reduced depth
+    (2 Qwen2.5, 2 DiT, 2 SigLIP layers; phase 24 has the depth): a jsonl
+    in a temporary directory of two records pointing at the in-tree
+    image, 1 t2i + 1 und row a step, ``save_every`` 1: two steps, then a
+    second run resuming from ``latest`` at step 2 to step 3 (its loader
+    state restored), each step's kernel launches counted."""
+    import tempfile
+
+    from showo_tpu_torch.show_o2 import train_stage_one
+
+    image = os.path.abspath(MMU_IMAGE)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data.jsonl")
+        with open(data, "w") as f:
+            for i, prompt in enumerate(("a photo of a cat", "a red car")):
+                f.write(json.dumps({"path": image, "prompt": prompt}) + "\n")
+        out = os.path.join(tmp, "out")
+        argv = [f"config={V2_TRAIN_CONFIG}", "training.warmup_steps=0",
+                "training.attn_impl=trainable", "training.batch_size_t2i=1",
+                "training.batch_size_mmu=1", "model.showo.llm_num_layers=2",
+                "model.showo.num_diffusion_layers=2",
+                "model.showo.siglip={num_layers: 2}",
+                f"dataset.params.t2i_jsonl={data}",
+                f"dataset.params.mmu_jsonl={data}",
+                f"experiment.output_dir={out}", "experiment.save_every=1",
+                "experiment.log_every=1", "experiment.generate_every=null",
+                "experiment.checkpoints_total_limit=2"]
+        t0 = time.perf_counter()
+        cuda_build.launches.clear()
+        first = train_stage_one.main(argv + ["training.max_train_steps=2"])
+        mid = time.perf_counter()
+        counts = {n: c for n, c in cuda_build.launches.items() if c}
+        saved = sorted(d for d in os.listdir(out)
+                       if d.startswith("checkpoint-"))
+        resumed = train_stage_one.main(argv + ["training.max_train_steps=3"])
+        end = time.perf_counter()
+        if not (first.global_step == 2 and saved == ["checkpoint-1",
+                                                     "checkpoint-2"]
+                and resumed.global_step == 3
+                and resumed.optimizer.steps == 3):
+            raise AssertionError(f"CLI run: steps {first.global_step} / "
+                                 f"{resumed.global_step}, checkpoints "
+                                 f"{saved}")
+        want = {n + D128: 2 * 2 * 2 for n in list(TRAIN_KERNELS)[:1]}
+        if any(counts.get(n, 0) != c for n, c in want.items()):
+            raise AssertionError(f"CLI launches {counts}, want {want}")
+        print(f"[{phase}] the stage-1 CLI at full width, depth 2 / 2 / 2: "
+              f"2 steps and checkpoints {saved} in {mid - t0:.1f} s, "
+              f"resumed from latest (step 2, the loader state restored) to "
+              f"step 3 in {end - mid:.1f} s; launches of the first run "
+              f"{counts}")
+        first = resumed = None
+    return {"first_s": mid - t0, "resume_s": end - mid}
+
+
 def main() -> int:
     import torch
 
@@ -4347,6 +4727,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts.append(("serving v2 [22b]", time.perf_counter()))
 
+    # the Show-o2 stage-1 training slice: cuDNN convolutions (the frozen
+    # Wan2.1 encoder) on PyTorch's default TF32, as the v1 trainers'
+    torch.backends.cudnn.allow_tf32 = True
+    # [23] kernels 7 and 8 at head dim 128 vs plain
+    v2_train_results = phase_v2_train_kernels(torch)
+    # [24] the stage-1 trainer at full width through build_trainer
+    trainer = _v2_trainer(torch, "24")
+    v2_train = phase_v2_train(torch, cuda_build, profile, trainer, smi)
+    # [25] trainable vs dense, one full-width step
+    v2_train["slice"]["parity"] = phase_v2_train_parity(torch, trainer)
+    trainer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # [26] the stage-1 CLI itself: two steps, checkpoints, a resume
+    v2_train["slice"]["cli"] = phase_v2_cli(torch, cuda_build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("Show-o2 stage-1 training [23-26]", time.perf_counter()))
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -4499,6 +4898,22 @@ def main() -> int:
                         "replaces": WSMM_KERNELS["int8_matmul"],
                         "launches": launches, **serving[case], "case": case,
                         "cases": serving, "slice": rows})
+    # kernels 7 and 8 at head dim 128: phase 23's results, phase 24's
+    # launches (the timed steps at 1024 tokens, the step at 2048)
+    for source, table, seq in ((TRAIN_SOURCE, TRAIN_KERNELS,
+                                V2_TRAIN_SEQ[0]),
+                               (STREAM_TRAIN_SOURCE, STREAM_TRAIN_KERNELS,
+                                V2_TRAIN_SEQ[1])):
+        counts = v2_train["counts"][seq]
+        for name in list(table)[:3]:
+            kernels.append({"name": name + D128, "route": "cuda",
+                            "source": f"showo_tpu_torch/csrc/{source}.cu",
+                            "replaces": table[name][0],
+                            "launches": counts[name + D128],
+                            **v2_train_results[name + D128],
+                            "case": f"Qwen2.5 12/2 D=128, S={seq}",
+                            **({"slice": v2_train["slice"]}
+                               if seq == V2_TRAIN_SEQ[0] else {})})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

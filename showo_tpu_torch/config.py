@@ -97,3 +97,22 @@ def get_config(argv: Optional[List[str]] = None) -> Config:
                        [a for a in args if not a.startswith("config=")])
     conf["config"] = paths[-1]
     return conf
+
+
+def snapshot_config(cfg: Any, output_dir: str) -> str:
+    """Write the merged config to ``<output_dir>/config.yaml`` (the
+    reference snapshots its run config the same way); returns the path."""
+    import os
+
+    def plain(x):
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [plain(v) for v in x]
+        return x
+
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(plain(cfg), f, sort_keys=False)
+    return path

@@ -93,9 +93,10 @@ __device__ __forceinline__ uint32_t query_rows_map(
   return bits;
 }
 
-// head dim 64 (the trainable kernels), kv heads dividing the q heads
+// head dim 64 or 128 (the trainable kernels), kv heads dividing the q
+// heads
 inline bool bad_shape(int head_dim, int H, int Hkv) {
-  return head_dim != D || Hkv <= 0 || H % Hkv != 0;
+  return (head_dim != 64 && head_dim != 128) || Hkv <= 0 || H % Hkv != 0;
 }
 
 }  // namespace agrad

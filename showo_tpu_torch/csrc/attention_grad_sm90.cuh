@@ -40,9 +40,18 @@
 //               fp32 registers.
 // Two kernels, no atomics: the result does not depend on scheduling.
 // Head dim: the kernels take it as the template parameter HD, built for
-// 64 (a head row is one 128-byte swizzle row).  The tile loader stores a
-// wider head row as 128-byte panels; the forward core on these pieces,
-// attention_fwd_sm90.cuh, runs head dims 64 and 128.
+// 64 (the v1 towers, the Show-o2 DiT) and 128 (Qwen2.5).  A head row is
+// HD / 64 panels of 64 head dims, each a 128-byte swizzle row.  The score
+// products (S = Q.K^T, dP = dO.V^T) contract over every panel; the
+// accumulated outputs (dq; dk and dv) are 64 head dims wide in every
+// block: at HD = 128 a block computes one panel of them (PARTS = HD / 64
+// blocks per tile, the panel the fastest index of blockIdx.x), so its
+// accumulators are those of HD = 64 (two 64 x 128 fp32 accumulators over
+// one warpgroup would take 128 registers a thread before S, P, dP and
+// dS, and spill; ptxas gives dq 185 and dk/dv 214 registers at 128, no
+// spill, against 154 / 168 at 64).  The price is that each part
+// recomputes the tile's S and dP and reads the whole Q, K, V and dO rows:
+// twice the score FLOPs and operand bytes of one pass at HD = 128.
 
 #pragma once
 
@@ -59,6 +68,14 @@ using tile::Strides;
 constexpr int BLK = 64;        // rows of a q or k tile: wgmma's M
 constexpr int THREADS = 128;   // one warpgroup
 constexpr int FULL = 1;        // list entry bit: every entry visible
+
+// the blocks a tile takes at head dim HD: one per 64-wide panel of the
+// accumulated output
+template <int HD>
+__host__ __device__ constexpr int parts() {
+  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  return HD / 64;
+}
 
 // D (64 x 64 fp32) = A (64 x 16) * B (16 x 64) (+ D where `accumulate`),
 // both operands from shared memory through descriptors, K-major
@@ -133,6 +150,12 @@ __device__ __forceinline__ void to_a(const float s[8][4], uint32_t a[4][4]) {
 // neighbouring threads copy one head row.  The copy is shared by NT
 // threads, this one being thread ``tid`` of them.
 constexpr int PANEL = BLK * 128;
+
+// byte offset of the k16 step kk of a product contracting over the head
+// dims, in a tile stored as panels by load_tile
+__device__ __forceinline__ int kstep(int kk) {
+  return (kk / 4) * PANEL + 32 * (kk % 4);
+}
 
 template <int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
@@ -218,13 +241,15 @@ tile_map_kernel(Meta mt, int S, uint8_t* __restrict__ tiles) {
 
 // Dynamic shared memory of dq_kernel: Q, dO; the ring of STAGES (K, V)
 // tiles; per stage the K tile's seg and pad; the visible-tile count and
-// list.  66 KB at 3 stages, so 3 blocks an SM (up to 168 registers a
-// thread): more resident blocks hid more of each tile's latency on an
-// H100 than a deeper ring with fewer blocks.
+// list.  HD = 64: 66 KB at 3 stages, so 3 blocks an SM (up to 168
+// registers a thread): more resident blocks hid more of each tile's
+// latency on an H100 than a deeper ring with fewer blocks.  HD = 128: a
+// tile is 16 KB, so 2 stages (98 KB) and 2 blocks an SM (3 stages, 130
+// KB, would leave one).
 template <int HD>
 struct DqCfg {
   static constexpr int TILE = BLK * HD * 2;
-  static constexpr int STAGES = 3, BLOCKS = 3;
+  static constexpr int STAGES = HD == 64 ? 3 : 2, BLOCKS = HD == 64 ? 3 : 2;
   static constexpr int RING = 2 * TILE;
   static constexpr int META = RING + STAGES * 2 * TILE;
   static constexpr int LIST = META + STAGES * 2 * BLK * 4;
@@ -239,8 +264,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           bf16* __restrict__ dq, Meta mt, const uint8_t* __restrict__ tiles,
           int S, int group, Strides qs, Strides ks, Strides vs, Strides ds,
           Strides dqs, float sm_scale) {
-  static_assert(HD == 64, "head dim 64: one 128-byte swizzle row a head row");
   using C = DqCfg<HD>;
+  constexpr int PARTS = parts<HD>();
   // dq's product is waited for at the end of its iteration, so the stage
   // read last is free when the next copies are issued: the ring runs
   // STAGES - 1 tiles ahead.  (Left in flight across the loop's back edge,
@@ -250,8 +275,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BLK, nt = gridDim.x;
+  // q tile qt, output panel part (head dims [64 part, 64 part + 64))
+  const int qt = blockIdx.x / PARTS, part = blockIdx.x % PARTS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BLK, nt = gridDim.x / PARTS;
   const bf16* kh = k + b * ks.b + (h / group) * ks.h;
   const bf16* vh = v + b * vs.b + (h / group) * vs.h;
   const float scale_log2 = sm_scale * tile::LOG2E;
@@ -314,12 +341,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64(&s[0][0], gmma_desc_sw128(sb + 32 * kk),
-                 gmma_desc_sw128(kb + 32 * kk), kk);
+      wgmma_ss64(&s[0][0], gmma_desc_sw128(sb + kstep(kk)),
+                 gmma_desc_sw128(kb + kstep(kk)), kk);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64(&dp[0][0], gmma_desc_sw128(sb + C::TILE + 32 * kk),
-                 gmma_desc_sw128(vb + 32 * kk), kk);
+      wgmma_ss64(&dp[0][0], gmma_desc_sw128(sb + C::TILE + kstep(kk)),
+                 gmma_desc_sw128(vb + kstep(kk)), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -343,18 +370,20 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     uint32_t a[4][4];
     to_a(s, a);
-    // dq += dS.K: K read as the MN-major B operand, 16 keys a step
+    // dq += dS.K: K's panel read as the MN-major B operand, 16 keys a step
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs64_tb(&acc[0][0], a[kk], gmma_desc_sw128_mn(kb + 2048 * kk));
+      wgmma_rs64_tb(&acc[0][0], a[kk],
+                    gmma_desc_sw128_mn(kb + part * PANEL + 2048 * kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  tile::store_scaled<HD>(dq + b * dqs.b + h * dqs.h, dqs.r, q0, S, acc, one);
+  tile::store_scaled<64>(dq + b * dqs.b + h * dqs.h + 64 * part, dqs.r, q0, S,
+                         acc, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -363,12 +392,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Dynamic shared memory of dkv_kernel: K, V; the ring of STAGES (Q, dO)
 // tiles; per stage the q tile's lse, delta and seg (64 words each); the
-// visible-tile count and list.  3 blocks an SM, as dq_kernel (its four
-// 64 x 64 accumulators fit in 168 registers).
+// visible-tile count and list.  HD = 64: 3 blocks an SM, as dq_kernel
+// (its four 64 x 64 accumulators fit in 168 registers).  HD = 128: 2
+// stages (98 KB), 2 blocks an SM, as dq_kernel.
 template <int HD>
 struct DkvCfg {
   static constexpr int TILE = BLK * HD * 2;
-  static constexpr int STAGES = 3, BLOCKS = 3;
+  static constexpr int STAGES = HD == 64 ? 3 : 2, BLOCKS = HD == 64 ? 3 : 2;
   static constexpr int RING = 2 * TILE;
   static constexpr int ROWS = RING + STAGES * 2 * TILE;
   static constexpr int LIST = ROWS + STAGES * 3 * BLK * 4;
@@ -412,8 +442,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const uint8_t* __restrict__ tiles, int S, int group, Strides qs,
            Strides ks, Strides vs, Strides ds, Strides dks, Strides dvs,
            float sm_scale) {
-  static_assert(HD == 64, "head dim 64: one 128-byte swizzle row a head row");
   using C = DkvCfg<HD>;
+  constexpr int PARTS = parts<HD>();
   // dk's and dv's products are waited for at the end of their step, as
   // dq_kernel's
   constexpr int LOOKAHEAD = C::STAGES - 1;
@@ -421,8 +451,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BLK, nt = gridDim.x;
+  // key tile kt, output panel part (head dims [64 part, 64 part + 64))
+  const int kt = blockIdx.x / PARTS, part = blockIdx.x % PARTS;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * BLK, nt = gridDim.x / PARTS;
   const int H = gridDim.y * group;
   const float scale_log2 = sm_scale * tile::LOG2E;
 
@@ -490,12 +522,12 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64(&p[0][0], gmma_desc_sw128(sb + 32 * kk),
-                 gmma_desc_sw128(qb + 32 * kk), kk);
+      wgmma_ss64(&p[0][0], gmma_desc_sw128(sb + kstep(kk)),
+                 gmma_desc_sw128(qb + kstep(kk)), kk);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64(&dsr[0][0], gmma_desc_sw128(sb + C::TILE + 32 * kk),
-                 gmma_desc_sw128(db + 32 * kk), kk);
+      wgmma_ss64(&dsr[0][0], gmma_desc_sw128(sb + C::TILE + kstep(kk)),
+                 gmma_desc_sw128(db + kstep(kk)), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(p);
@@ -519,15 +551,17 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t ap[4][4], ads[4][4];
     to_a(p, ap);
     to_a(dsr, ads);
-    // dv += P^T.dO, dk += dS^T.Q: dO and Q read as MN-major B operands,
-    // 16 query rows a step
+    // dv += P^T.dO, dk += dS^T.Q: dO's and Q's panels read as MN-major B
+    // operands, 16 query rows a step
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs64_tb(&dva[0][0], ap[kk], gmma_desc_sw128_mn(db + 2048 * kk));
+      wgmma_rs64_tb(&dva[0][0], ap[kk],
+                    gmma_desc_sw128_mn(db + part * PANEL + 2048 * kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs64_tb(&dka[0][0], ads[kk], gmma_desc_sw128_mn(qb + 2048 * kk));
+      wgmma_rs64_tb(&dka[0][0], ads[kk],
+                    gmma_desc_sw128_mn(qb + part * PANEL + 2048 * kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dka);
@@ -535,10 +569,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  tile::store_scaled<HD>(dk + b * dks.b + kvh * dks.h, dks.r, k0, S, dka,
-                         one);
-  tile::store_scaled<HD>(dv + b * dvs.b + kvh * dvs.h, dvs.r, k0, S, dva,
-                         one);
+  tile::store_scaled<64>(dk + b * dks.b + kvh * dks.h + 64 * part, dks.r, k0,
+                         S, dka, one);
+  tile::store_scaled<64>(dv + b * dvs.b + kvh * dvs.h + 64 * part, dvs.r, k0,
+                         S, dva, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,7 +611,7 @@ inline int launch_dq(const void* q, const void* k, const void* v,
   auto kernel = dq_kernel<HD>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(nt, H, B), THREADS, smem,
+  kernel<<<dim3(nt * parts<HD>(), H, B), THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
@@ -597,7 +631,7 @@ inline int launch_dkv(const void* q, const void* k, const void* v,
   auto kernel = dkv_kernel<HD>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(nt, Hkv, B), THREADS, smem,
+  kernel<<<dim3(nt * parts<HD>(), Hkv, B), THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,

@@ -6,7 +6,8 @@
 // Replaces showo_tpu/ops/packed_attention_grad.py: the Pallas kernels
 // _fwd_kernel (call in _fwd), _dq_kernel and _dkv_kernel (calls in _bwd),
 // which the JAX dispatcher takes within its VMEM budget (the v1 stage-1
-// rows, S=387).  The function is kernel 8's (streaming_attention_grad.cu)
+// rows, S=387; the Show-o2 stage-1 rows, S=1024: Qwen2.5's 12 q / 2 kv
+// heads of 128 and the DiT's 32 / 8 of 64).  The function is kernel 8's (streaming_attention_grad.cu)
 // and so are the cores, on wgmma: a tile map from the O(S) metadata
 // (agrad90::tile_map_kernel, attention_grad_sm90.cuh), made once per
 // forward and read by all three kernels; the forward on the forward core
@@ -26,21 +27,31 @@
 // -NEG_INF sentinel, NEG_INF = -1e9 in its packed module), and P = 0 in
 // the backward: the per-element map masks every entry of its row.
 
+#include <type_traits>
+
 #include "attention_fwd_sm90.cuh"
 
 namespace {
 
 constexpr float SENTINEL = 1e9f;  // lse of a row with no visible key
 
-tile::Strides packed(int S, int heads) {
-  return {(long long)S * heads * tile::D, tile::D, (long long)heads * tile::D};
+tile::Strides packed(int S, int heads, int d) {
+  return {(long long)S * heads * d, d, (long long)heads * d};
+}
+
+// f(integral_constant<int, 64 or 128>) by the head dim (bad_shape has
+// refused any other)
+template <typename F>
+int by_head_dim(int head_dim, F f) {
+  return head_dim == 64 ? f(std::integral_constant<int, 64>())
+                        : f(std::integral_constant<int, 128>());
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Pointers are device pointers;
-// q, out, dout, dq are contiguous [B, S, H*64], k, v, dk, dv contiguous
-// [B, S, Hkv*64], lse and delta contiguous fp32 [B, H, S]; metadata int32
+// q, out, dout, dq are contiguous [B, S, H*D], k, v, dk, dv contiguous
+// [B, S, Hkv*D] (head dim D 64 or 128), lse and delta contiguous fp32 [B, H, S]; metadata int32
 // seg / pad [B, S], last_pad / prefix [B]; the tile map uint8 [B, nt, nt],
 // nt = ceil(S / 64).  Each returns the cudaError_t of its launch (0 =
 // launched) on ``stream``.
@@ -61,11 +72,15 @@ extern "C" int packed_attention_grad_fwd_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad90::launch_fwd<64, agrad90::MASK_INF>(
-      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr}, {},
-      tiles, false, B, S, S, H, Hkv, qs, ks, ks, qs, sm_scale, SENTINEL,
-      stream);
+  const tile::Strides qs = packed(S, H, head_dim),
+                      ks = packed(S, Hkv, head_dim);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_fwd<HD, agrad90::MASK_INF>(
+        q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr},
+        {}, tiles, false, B, S, S, H, Hkv, qs, ks, ks, qs, sm_scale,
+        SENTINEL, stream);
+  });
 }
 
 extern "C" int packed_attention_grad_dq_bf16(
@@ -76,10 +91,15 @@ extern "C" int packed_attention_grad_dq_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad90::launch_dq<64>(q, k, v, dout, lse, delta, dq,
-                                {seg, pad, last_pad, prefix}, tiles, B, S, H,
-                                Hkv, qs, ks, ks, qs, qs, sm_scale, stream);
+  const tile::Strides qs = packed(S, H, head_dim),
+                      ks = packed(S, Hkv, head_dim);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_dq<HD>(q, k, v, dout, lse, delta, dq,
+                                    {seg, pad, last_pad, prefix}, tiles, B, S,
+                                    H, Hkv, qs, ks, ks, qs, qs, sm_scale,
+                                    stream);
+  });
 }
 
 extern "C" int packed_attention_grad_dkv_bf16(
@@ -90,10 +110,14 @@ extern "C" int packed_attention_grad_dkv_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const tile::Strides qs = packed(S, H), ks = packed(S, Hkv);
-  return agrad90::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
-                                 {seg, pad, last_pad, prefix}, tiles, B, S, H,
-                                 Hkv, qs, ks, ks, qs, ks, ks, sm_scale,
-                                 stream);
+  const tile::Strides qs = packed(S, H, head_dim),
+                      ks = packed(S, Hkv, head_dim);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_dkv<HD>(q, k, v, dout, lse, delta, dk, dv,
+                                     {seg, pad, last_pad, prefix}, tiles, B, S,
+                                     H, Hkv, qs, ks, ks, qs, ks, ks, sm_scale,
+                                     stream);
+  });
 }
 

@@ -33,18 +33,28 @@
 // tile with a row that sees a key, so there it averages v over that tile:
 // a result of its 512-wide tiling that 64-wide tiles cannot reproduce.)
 
+#include <type_traits>
+
 #include "attention_fwd_sm90.cuh"
 
 namespace {
 
 constexpr float SENTINEL = 1e30f;  // lse of a row with no visible key
 
+// f(integral_constant<int, 64 or 128>) by the head dim (bad_shape has
+// refused any other)
+template <typename F>
+int by_head_dim(int head_dim, F f) {
+  return head_dim == 64 ? f(std::integral_constant<int, 64>())
+                        : f(std::integral_constant<int, 128>());
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Pointers are device pointers;
 // each tensor comes with its (batch, head, row) strides in elements and a
-// contiguous last dim of 64: q, out, dout, dq [B, H, S, 64], k, v, dk, dv
-// [B, Hkv, S, 64] (Hkv divides H); lse and delta contiguous fp32
+// contiguous last dim of D (64 or 128): q, out, dout, dq [B, H, S, D], k,
+// v, dk, dv [B, Hkv, S, D] (Hkv divides H); lse and delta contiguous fp32
 // [B, H, S]; metadata int32 seg / pad [B, S], last_pad / prefix [B]; the
 // tile map uint8 [B, nt, nt], nt = ceil(S / 64).  Each returns the
 // cudaError_t of its launch (0 = launched) on ``stream``.
@@ -69,10 +79,14 @@ extern "C" int streaming_attention_grad_fwd_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_fwd<64, agrad90::MASK_INF>(
-      q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr}, {},
-      tiles, false, B, S, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
-      {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale, SENTINEL, stream);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_fwd<HD, agrad90::MASK_INF>(
+        q, k, v, out, lse, {seg, pad, last_pad, prefix}, {nullptr, nullptr},
+        {}, tiles, false, B, S, S, H, Hkv, {q_sb, q_sh, q_sr},
+        {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale,
+        SENTINEL, stream);
+  });
 }
 
 extern "C" int streaming_attention_grad_dq_bf16(
@@ -88,10 +102,14 @@ extern "C" int streaming_attention_grad_dq_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_dq<64>(
-      q, k, v, dout, lse, delta, dq, {seg, pad, last_pad, prefix}, tiles, B,
-      S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr},
-      {d_sb, d_sh, d_sr}, {dq_sb, dq_sh, dq_sr}, sm_scale, stream);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_dq<HD>(
+        q, k, v, dout, lse, delta, dq, {seg, pad, last_pad, prefix}, tiles, B,
+        S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+        {v_sb, v_sh, v_sr}, {d_sb, d_sh, d_sr}, {dq_sb, dq_sh, dq_sr},
+        sm_scale, stream);
+  });
 }
 
 extern "C" int streaming_attention_grad_dkv_bf16(
@@ -108,9 +126,12 @@ extern "C" int streaming_attention_grad_dkv_bf16(
     float sm_scale, void* stream) {
   if (agrad::bad_shape(head_dim, H, Hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_dkv<64>(
-      q, k, v, dout, lse, delta, dk, dv, {seg, pad, last_pad, prefix}, tiles,
-      B, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
-      {v_sb, v_sh, v_sr}, {d_sb, d_sh, d_sr}, {dk_sb, dk_sh, dk_sr},
-      {dv_sb, dv_sh, dv_sr}, sm_scale, stream);
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return agrad90::launch_dkv<HD>(
+        q, k, v, dout, lse, delta, dk, dv, {seg, pad, last_pad, prefix},
+        tiles, B, S, H, Hkv, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
+        {v_sb, v_sh, v_sr}, {d_sb, d_sh, d_sr}, {dk_sb, dk_sh, dk_sr},
+        {dv_sb, dv_sh, dv_sr}, sm_scale, stream);
+  });
 }

@@ -30,10 +30,13 @@ kernels).  A row with no visible key gets a zero output, ``lse = 1e9`` and
 
 What bounds the kernels on an H100 and their design are in the source.
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
-they launch the kernels (bf16, head dim 64, contiguous operands) or raise.
+they launch the kernels (bf16, head dim 64 or 128, contiguous operands) or
+raise.  At head dim 128 (Qwen2.5's 12 q / 2 kv heads) each backward
+kernel computes the output in two 64-wide halves, one block each.
 ``cuda_build.launches`` counts the launches of the three kernels under
-``packed_attention_grad_fwd``, ``_dq`` and ``_dkv``, and of the tile map
-under ``_tiles``.
+``packed_attention_grad_fwd``, ``_dq`` and ``_dkv`` (those at head dim 128
+also under the name with ``_d128``), and of the tile map under
+``_tiles``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops.flash_attention import span_meta
 from showo_tpu_torch.ops.masks import NEG_INF
 from showo_tpu_torch.ops.streaming_attention_grad import (
-    TILE, attention_delta as streaming_delta, check_meta,
+    TILE, attention_delta as streaming_delta, check_meta, counters,
     omni_attention_trainable, self_visible, tile_map_plain,
     trainable_dkv_plain, trainable_dq_plain, trainable_fwd_plain)
 
@@ -59,6 +62,7 @@ TILES_KERNEL = f"{SOURCE}_tiles"
 # lse of a row with no visible key (the JAX kernel's -NEG_INF)
 LSE_EMPTY = -NEG_INF
 
+HEAD_DIMS = (64, 128)   # the kernels' builds (the v1 / DiT heads, Qwen2.5's)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # tensor pointers of each entry, before the metadata and the tile map
 _ARGS = {"fwd": 9, "dq": 11, "dkv": 12}
@@ -140,7 +144,7 @@ def attention_delta(out, dout, num_heads: int) -> torch.Tensor:
 
 def _check(tensors: dict, shapes: dict) -> None:
     """What the kernels take: bf16 (fp32 for lse / delta) contiguous
-    tensors of the given shapes on one CUDA device, head dim 64."""
+    tensors of the given shapes on one CUDA device, head dim 64 or 128."""
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
@@ -157,9 +161,9 @@ def _check(tensors: dict, shapes: dict) -> None:
 def _shapes(q, num_heads, num_kv_heads):
     B, S, HD = q.shape
     D = HD // num_heads
-    if D != 64:
+    if D not in HEAD_DIMS:
         raise ValueError(f"{SOURCE} kernels: head dim {D}, the kernels are "
-                         f"built for 64")
+                         f"built for 64 or 128")
     kv, rows = (B, S, num_kv_heads * D), (B, num_heads, S)
     return {"q": (B, S, HD), "out": (B, S, HD), "dout": (B, S, HD),
             "k": kv, "v": kv, "lse": rows, "delta": rows}
@@ -207,7 +211,7 @@ def _launch(part: str, q, pointers, meta, tiles, num_heads, num_kv_heads,
         q.device, *(t.data_ptr() for t in pointers),
         *(m.data_ptr() for m in meta), tiles.data_ptr(),
         B, S, num_heads, num_kv_heads, HD // num_heads, float(sm_scale),
-        kernel=name)
+        kernel=counters(name, HD // num_heads))
 
 
 def packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,

@@ -36,9 +36,10 @@ dispatcher's head-major views of the packed projections, and the gradient
 autograd hands back through them, go in without a copy; the outputs take
 the layout of the inputs they belong to.  The wrappers run the plain
 versions for CPU tensors only; for CUDA tensors they launch the kernels
-(bf16, head dim 64) or raise.  ``cuda_build.launches`` counts the launches
-under ``streaming_attention_grad_fwd``, ``_dq``, ``_dkv`` and ``_tiles``
-(once per forward of :class:`StreamingTrainableAttention`, shared by its
+(bf16, head dim 64 or 128) or raise.  ``cuda_build.launches`` counts the launches
+under ``streaming_attention_grad_fwd``, ``_dq``, ``_dkv`` (those at head
+dim 128 also under the name with ``_d128``) and ``_tiles`` (once per
+forward of :class:`StreamingTrainableAttention`, shared by its
 forward, dq and dk/dv).
 """
 
@@ -157,6 +158,12 @@ def attention_delta(out, dout) -> torch.Tensor:
 # Kernel wrappers (CPU tensors: plain versions)
 # ---------------------------------------------------------------------------
 
+def counters(name: str, head_dim: int):
+    """The launch counters of kernel ``name`` at ``head_dim``: its own, and
+    at head dim 128 also ``<name>_d128``."""
+    return (name, f"{name}_d128") if head_dim == 128 else name
+
+
 def _device(q) -> str:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{SOURCE}: unsupported device {q.device}")
@@ -165,13 +172,13 @@ def _device(q) -> str:
 
 def _check(q, k, v, rows=()) -> tuple:
     """(B, H, Hkv, S, D) after the kernels' checks: bf16 head-major views
-    (last dim contiguous, 16-byte aligned strides) of q-like [B, H, S, 64]
-    and k-like [B, Hkv, S, 64] shapes, and fp32 contiguous [B, H, S] row
+    (last dim contiguous, 16-byte aligned strides) of q-like [B, H, S, D]
+    and k-like [B, Hkv, S, D] shapes, D 64 or 128, and fp32 contiguous [B, H, S] row
     tensors (lse, delta), all on q's device."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     _check_operands(SOURCE, {"q": q, "k": k, "v": v}, 4)
-    _check_head_dim(SOURCE, D)
+    _check_head_dim(SOURCE, D, (64, 128))
     if Hkv <= 0 or H % Hkv or tuple(k.shape) != (B, Hkv, S, D) \
             or v.shape != k.shape:
         raise ValueError(f"{SOURCE}: k/v must be [B, Hkv, S, D] with Hkv "
@@ -217,7 +224,7 @@ def streaming_trainable_fwd(q, k, v, seg, pad, last_pad, prefix, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
         tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, out),
-        float(sm_scale), kernel=KERNELS[0])
+        float(sm_scale), kernel=counters(KERNELS[0], D))
     return out, lse
 
 
@@ -269,7 +276,7 @@ def streaming_trainable_dq(q, k, v, dout, lse, delta, seg, pad, last_pad,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
         tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, dout, dq),
-        float(sm_scale), kernel=KERNELS[1])
+        float(sm_scale), kernel=counters(KERNELS[1], D))
     return dq
 
 
@@ -291,7 +298,7 @@ def streaming_trainable_dkv(q, k, v, dout, lse, delta, seg, pad, last_pad,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *(m.data_ptr() for m in (seg, pad, last_pad, prefix)),
         tiles.data_ptr(), B, H, Hkv, S, D, *_strides(q, k, v, dout, dk, dv),
-        float(sm_scale), kernel=KERNELS[2])
+        float(sm_scale), kernel=counters(KERNELS[2], D))
     return dk, dv
 
 

@@ -1,7 +1,7 @@
-"""Device-time breakdown of one warm Show-o v1 training step.
+"""Device-time breakdown of one warm training step.
 
     python -m showo_tpu_torch.profile_train --route trainable \
-        [--config stage1|tuning512]
+        [--config stage1|tuning512] [--slice v1|v2]
 
 Builds the trainer of one configuration (Show-o 1.3B: Phi-1.5 24 layers,
 hidden 2048, 32 heads; the full MAGVIT-v2 encoder, frozen; AdamW, remat
@@ -18,13 +18,22 @@ on one attention route, runs one step on the seeded batch of
 :func:`train_batch` to warm up, and profiles the next one with
 ``torch.profiler``: wall time, device busy time and idle share, kernel
 launches, and the largest rows of device time by operator (or by kernel,
-for the port's own kernels).  Needs a CUDA card.
+for the port's own kernels).
+
+``--slice v2`` does the same for the Show-o2 1.5B stage-1 trainer
+(``configs/showo2_1.5b_stage_1_a.yaml``, warmup 0: Qwen2.5 28 layers, 12
+q / 2 kv heads of 128; the DiT 10 layers, 32 / 8 of 64; SigLIP and the
+Wan2.1 VAE frozen; AdamW, remat "full", bf16 autocast over fp32 master
+weights) on the seeded batch of :func:`v2_batch` (``--batch`` rows of
+``--seq`` tokens, 432x432 images; ``trainable`` runs kernel 7 to S = 1280
+for Qwen, 1024 for the DiT, kernel 8 past).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from showo_tpu_torch.config import load_config
@@ -50,6 +59,58 @@ def tuning512_config(*overrides):
 
 
 CONFIGS = {"stage1": stage1_config, "tuning512": tuning512_config}
+V2_STAGE1 = "configs/showo2_1.5b_stage_1_a.yaml"
+
+
+def v2_config(*overrides):
+    """The Show-o2 1.5B stage-1a config with warmup 0 (its 2000 warmup
+    steps would hold the first steps' learning rate at ~0)."""
+    return load_config(V2_STAGE1, ["training.warmup_steps=0", *overrides])
+
+
+def v2_batch(num_image_tokens: int, batch_size: int = 2,
+             seq_len: int = None, und: int = 0, seed: int = 0,
+             resolution: int = None) -> dict:
+    """A seeded host batch for ``Stage1Trainer.train_step``: the in-tree
+    prompts in the stage-1 jsonl layouts (t2i rows, then ``und``
+    understanding rows) of ``seq_len`` tokens (the config's
+    ``max_seq_length`` by default) with spans of ``num_image_tokens``,
+    pixels uniform in [-1, 1] at ``resolution`` (the config's by
+    default)."""
+    from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
+    from showo_tpu_torch.show_o2.formats import (format_sequence_gen_qwen2_5,
+                                                 format_sequence_und)
+
+    config = load_config(V2_STAGE1)
+    pre = config.dataset.preprocessing
+    seq_len = seq_len or pre.max_seq_length
+    tok, ids = load_tokenizer_and_ids(config)
+    prompts = load_prompts(config)
+    n_img = num_image_tokens
+    rows, types = [], []
+    for i in range(batch_size):
+        mmu = i >= batch_size - und
+        fmt = format_sequence_und if mmu else format_sequence_gen_qwen2_5
+        text = tok(prompts[i % len(prompts)])["input_ids"][:pre.max_text_len]
+        rows.append(fmt(text, ids["bos_id"], ids["eos_id"], ids["boi_id"],
+                        ids["eoi_id"], ids["pad_id"], ids["img_pad_id"],
+                        n_img, seq_len))
+        types.append("mmu" if mmu else "t2i")
+    tt, tl, mp, _, im = (np.stack(c) for c in zip(*rows))
+    rng = np.random.default_rng(seed)
+    res = resolution or pre.resolution
+    return {"text_tokens": tt, "text_labels": tl, "modality_positions": mp,
+            "image_masks": im, "data_type": types,
+            "images": rng.uniform(-1, 1, size=(batch_size, res, res, 3))
+            .astype(np.float32)}
+
+
+def v2_trainer(route: str = "trainable"):
+    """The full-width Show-o2 stage-1 trainer on ``route``."""
+    from showo_tpu_torch.show_o2.train_stage_one import \
+        build_trainer as build_v2
+
+    return build_v2(v2_config(), torch.device("cuda"), attn_impl=route)
 
 
 def train_batch(trainer, seed: int = 0):
@@ -89,9 +150,22 @@ def main(argv=None) -> None:
     ap.add_argument("--route", default="trainable",
                     choices=("trainable", "dense"))
     ap.add_argument("--config", default="stage1", choices=tuple(CONFIGS))
+    ap.add_argument("--slice", default="v1", choices=("v1", "v2"))
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=1024)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
+    if args.slice == "v2":
+        trainer = v2_trainer(args.route)
+        batch = v2_batch(trainer.model.cfg.num_image_tokens, args.batch,
+                         args.seq)
+        trainer.train_step(batch)                            # warm-up
+        torch.cuda.synchronize()
+        profile(lambda: trainer.train_step(batch),
+                f"route {args.route}: Show-o2 stage-1 step ({args.batch} "
+                f"rows x {args.seq})", rows_shown=25)
+        return
     trainer = build_trainer(CONFIGS[args.config](), torch.device("cuda"),
                             attn_impl=args.route)
     batch, noise = train_batch(trainer)

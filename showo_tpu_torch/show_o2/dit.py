@@ -13,8 +13,9 @@ Counterpart of ``showo_tpu/show_o2/dit.py`` (show-o2/models/modules.py):
   * modulate() in fp32 (modules.py:98-106).
 
 Attention takes the routes of ``qwen2.ATTN_ROUTES``: dense under the
-additive mask, the packed omni kernel (kernel 1 at head dim 64, GQA 32/8)
-or the K-blocked one (kernel 5).  :func:`dit_forward` also returns the
+additive mask, the packed omni kernel (kernel 1 at head dim 64, GQA 32/8),
+the K-blocked one (kernel 5), or the trainable kernels (7, or 8 past its
+budget).  :func:`dit_forward` also returns the
 fresh rows' roped K/V (the prefix cache's prefill) and runs fresh rows
 against a K/V cache at per-row offsets (its cached velocity).  The
 per-head q/k RMSNorm is one plain per-head norm; the JAX
@@ -36,6 +37,7 @@ from showo_tpu_torch.show_o2.qwen2 import (PackedMeta, RMSNorm, SwiGLU,
                                            apply_rope, cache_rows,
                                            fuse_attention_mlp, gqa_attention,
                                            qkv_heads, write_rows)
+from showo_tpu_torch.utils.remat import wrap_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,7 +304,7 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
                 attention_bias, modality_positions,
                 meta: Optional[PackedMeta] = None, positions=None,
                 full_span: bool = False, cache=None, cache_offsets=None,
-                return_kv: bool = False):
+                return_kv: bool = False, remat=False):
     """The stack of ModulatedAttentionBlocks (``layers``, reference
     ``diffusion_head_a``) over h [B, S, D] with the per-image adaLN input
     [B*M, D].  positions: optional [B or 1, S] rope positions (default
@@ -317,7 +319,7 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
     ``cache_offsets`` ([B], or the pair of ``qwen2.cache_rows``) and the
     q rows attend to all S_full rows.  ``return_kv``: also return the
     fresh rows' roped (k, v) [L, B, S, Hkv, Dh] (the prefill that makes
-    the cache)."""
+    the cache).  remat: the layer policy of ``utils/remat.py``."""
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None]
@@ -331,10 +333,11 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
         kvs = tuple(torch.empty(shape, dtype=h.dtype, device=h.device)
                     for _ in range(2))
     for i, layer in enumerate(layers):
-        h = layer(h, adaln_input, attention_bias, cos, sin,
-                  modality_positions, meta, full_span,
-                  None if cache is None else (cache[0][i], cache[1][i]),
-                  rows, None if kvs is None else (kvs[0][i], kvs[1][i]))
+        h = wrap_remat(layer, remat)(
+            h, adaln_input, attention_bias, cos, sin, modality_positions,
+            meta, full_span,
+            None if cache is None else (cache[0][i], cache[1][i]), rows,
+            None if kvs is None else (kvs[0][i], kvs[1][i]))
     return (h, kvs) if return_kv else h
 
 

@@ -23,8 +23,10 @@ weights for inference (one qkv and one gate/up matmul per layer), as the
 JAX transform of the same name does.  :func:`quantize_int8` turns every
 matmul of a layer, and a vocabulary head quantized from the tied
 embedding, into the int8 kernel's ``Int8Linear`` (weight-only int8
-serving, as JAX ``quantize_int8``).  The trainable route (kernels 7 / 8 at
-head dim 128) is not ported yet.
+serving, as JAX ``quantize_int8``).  The ``trainable`` route sends every
+layer's self-attention through the differentiable packed kernels (kernel
+7, or kernel 8 past its budget) at head dim 128, and ``remat`` recomputes
+each layer in the backward (``utils/remat.py``).
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ from torch import nn
 from showo_tpu_torch.ops.flash_attention import (omni_attention_packed,
                                                  rows_tile_map,
                                                  q_rows, span_meta)
+from showo_tpu_torch.ops.packed_attention_grad import \
+    omni_attention_packed_trainable
 from showo_tpu_torch.ops.streaming_attention import (omni_attention_streaming,
                                                      streaming_tile_map)
+from showo_tpu_torch.utils.remat import wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
 #   dense      einsum attention under the additive bias (no kernel)
@@ -49,17 +54,17 @@ from showo_tpu_torch.ops.streaming_attention import (omni_attention_streaming,
 #              the mask recomputed from (seg, pad, last_pad, prefix)
 #   streaming  K-blocked omni kernel (kernel 5) on head-major views of the
 #              same q / k / v, the same mask
+#   trainable  the differentiable packed kernels (forward with lse, dq,
+#              dk / dv; kernel 7 within ``packed_trainable_fits``, kernel 8
+#              past it), self-attention only: the training route
 ATTN_ROUTES = {"dense": None, "packed": "pallas_packed",
-               "streaming": "pallas_streaming"}
+               "streaming": "pallas_streaming",
+               "trainable": "pallas_trainable"}
 
 
 def check_route(name: str) -> str:
-    """``name`` if it is a route of :data:`ATTN_ROUTES`; ``trainable`` (JAX
-    pallas_trainable) raises NotImplementedError, any other name (a JAX
-    impl string among them) ValueError."""
-    if name == "trainable":
-        raise NotImplementedError("the Show-o2 trainable route waits for "
-                                  "kernels 7 and 8 at head dim 128")
+    """``name`` if it is a route of :data:`ATTN_ROUTES`; any other name (a
+    JAX impl string among them) raises ValueError."""
     if name not in ATTN_ROUTES:
         port = {j: p for p, j in ATTN_ROUTES.items() if j}.get(name)
         hint = f" (the JAX package's name of route {port!r})" if port else ""
@@ -75,9 +80,11 @@ class PackedMeta:
     ``streaming``), seg / pad / last_pad / prefix int32 and contiguous,
     the q rows' (pos_q, seg_q) [B, Q], and on CUDA the tile map that the
     kernel reads (``rows_tile_map`` under the route's source; None on the
-    CPU, whose plain version needs none).  The map depends on the metadata
-    and the q rows alone, not on heads or head dim, so Qwen's layers (head
-    dim 128) and the DiT's (64) read the same one."""
+    CPU, whose plain version needs none, and on ``trainable``, whose
+    autograd Function makes its kernels' map in each forward).  The map
+    depends on the metadata and the q rows alone, not on heads or head
+    dim, so Qwen's layers (head dim 128) and the DiT's (64) read the same
+    one."""
 
     seg: torch.Tensor
     pad: torch.Tensor
@@ -102,6 +109,11 @@ def packed_meta(attn_meta, q_positions=None) -> Optional[PackedMeta]:
         raise ValueError("the dense route takes attn_meta=None")
     B, S = seg.shape
     meta = span_meta(seg, pad, last_pad, prefix, B, S, seg.device)
+    if route == "trainable":
+        if q_positions is not None:
+            raise ValueError("the trainable route is self-attention: it "
+                             "takes no q_positions (no prefix cache)")
+        return PackedMeta(*meta, None, None, None, route)
     if q_positions is None:
         q_positions = torch.arange(S, device=seg.device)
     pos_q, seg_q = q_rows(meta[0], q_positions, B,
@@ -222,7 +234,8 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
 
     With ``meta`` its route's omni kernel recomputes the mask from it (the
     bias is unused): ``packed`` on the [B, *, H*Dh] layout, ``streaming``
-    on head-major views.  Otherwise the dense path: the kv-head groups
+    on head-major views, ``trainable`` the differentiable packed kernels
+    (self-attention: Q == S).  Otherwise the dense path: the kv-head groups
     folded into the einsum (no repeated K/V), scores in ``softmax_dtype``
     from exact products of the stored operands, softmax, probabilities
     cast to v's dtype."""
@@ -232,6 +245,14 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
         rows = dict(q_positions=meta.pos_q, seg_q=meta.seg_q,
                     tiles=meta.tiles)
         m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
+        if meta.route == "trainable":
+            if Q != S:
+                raise ValueError("the trainable route is self-attention: "
+                                 f"{Q} q rows against {S} keys")
+            return omni_attention_packed_trainable(
+                q.reshape(B, Q, H * Dh), k.reshape(B, S, Hkv * Dh),
+                v.reshape(B, S, Hkv * Dh), *m, num_heads=H,
+                num_kv_heads=Hkv)
         if meta.route == "streaming":
             out = omni_attention_streaming(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), *m,
@@ -353,7 +374,8 @@ class Qwen2(nn.Module):
 
     def forward(self, input_ids=None, input_embeds=None, attention_bias=None,
                 position_ids=None, attn_meta=None, logits: bool = True,
-                cache: Optional[Qwen2KVCache] = None, cache_offsets=None):
+                cache: Optional[Qwen2KVCache] = None, cache_offsets=None,
+                remat=False):
         """Returns (logits or None, last hidden state after the final norm).
 
         attention_bias: [B, 1, S, S] additive mask (the dense route; [B, 1,
@@ -370,7 +392,10 @@ class Qwen2(nn.Module):
         ``cache.length`` (which then grows by S) or, with
         ``cache_offsets`` ([B] tensor, or the pair of :func:`cache_rows`
         made once), at each row's own offset; position_ids must then be
-        given.  The q rows attend to all S_max cached rows."""
+        given.  The q rows attend to all S_max cached rows.
+
+        remat: the layer policy of ``utils/remat.py`` ("full": each layer
+        recomputed in the backward; "none")."""
         cfg = self.cfg
         if input_embeds is None:
             input_embeds = self.model.embed_tokens(input_ids)
@@ -391,7 +416,8 @@ class Qwen2(nn.Module):
         h = input_embeds
         for i, layer in enumerate(self.model.layers):
             kv = None if cache is None else (cache.k[i], cache.v[i])
-            h = layer(h, attention_bias, cos, sin, meta, kv, rows)
+            h = wrap_remat(layer, remat)(h, attention_bias, cos, sin, meta,
+                                         kv, rows)
         if cache is not None and cache_offsets is None:
             cache.length += S
         h = self.model.norm(h)

@@ -23,8 +23,12 @@ that ``showo_tpu/utils/torch_export.py::showo2_state_dict`` writes loads
 with ``load_state_dict``.  :func:`embed_images` takes image and video
 latents (the understanding pipelines'), and the velocity video latents
 (``num_frames``, with the i2v first frame held) or several images a row
-(``only_denoise_last_image``, the mixed-modality history).  The losses
-are not ported yet.
+(``only_denoise_last_image``, the mixed-modality history).  The training
+half: :func:`patchify_labels` (image and video), the losses
+:func:`next_token_prediction_loss` and :func:`velocity_prediction_loss`
+(the reference's misc.py:11-21), and :func:`showo2_forward` with labels,
+which returns the logits, the velocity and both losses, every layer stack
+under ``remat``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from showo_tpu_torch.show_o2.dit import (DiffusionHeadConfig, FinalLayer,
                                          ModulatedAttentionBlock, PatchEmbed,
                                          TimestepEmbedder, dit_forward)
 from showo_tpu_torch.show_o2.dit import fuse_inference as fuse_dit
+from showo_tpu_torch.models.showo import cross_entropy_ignore
 from showo_tpu_torch.show_o2.masks import modality_gather, modality_scatter
 from showo_tpu_torch.show_o2.qwen2 import (Qwen2, Qwen2Config, Qwen2KVCache,
                                            RMSNorm, cache_rows, init_normal,
@@ -121,12 +126,13 @@ def fuse_inference(model: Showo2) -> Showo2:
     return model
 
 
-def embed_images(model: Showo2, latents: torch.Tensor) -> torch.Tensor:
+def embed_images(model: Showo2, latents: torch.Tensor,
+                 remat=False) -> torch.Tensor:
     """Dual-path embedding and fusion: image latents [B, C, H, W] ->
     [B, N, D_llm], N = (H/p)(W/p); video latents [B, C, T, H, W] ->
     [B, T*N, D_llm], both paths per frame over (b t), as JAX's.  The
     SigLIP position table is interpolated where the patch grid is not its
-    own."""
+    own.  remat: the SigLIP layers' policy (``utils/remat.py``)."""
     x = latents.to(model.image_embedder_und.proj.weight.dtype)
     video = x.dim() == 5
     if video:
@@ -139,7 +145,7 @@ def embed_images(model: Showo2, latents: torch.Tensor) -> torch.Tensor:
     h_, w_ = x.shape[2] // p, x.shape[3] // p
     pos = (pos[None] if pos.shape[0] == h_ * w_
            else interpolate_pos_encoding(pos, h_, w_))
-    und = model.und_trans(und + pos)
+    und = model.und_trans(und + pos, remat=remat)
     fused = model.fusion_proj(torch.cat([und, gen], dim=-1))
     if video:
         return fused.reshape(B, T * fused.shape[1], fused.shape[-1])
@@ -149,30 +155,104 @@ def embed_images(model: Showo2, latents: torch.Tensor) -> torch.Tensor:
 def showo2_forward(model: Showo2, text_tokens: torch.Tensor,
                    image_latents: torch.Tensor, t: torch.Tensor,
                    attention_bias: Optional[torch.Tensor],
-                   modality_positions: torch.Tensor,
-                   attn_meta=None) -> torch.Tensor:
-    """The inference forward: the sequence-space velocity [B, L, p*p*C]
-    (the LM logits, which the velocity does not read, are not computed).
+                   modality_positions: torch.Tensor, attn_meta=None,
+                   text_labels: Optional[torch.Tensor] = None,
+                   image_labels: Optional[torch.Tensor] = None,
+                   image_masks: Optional[torch.Tensor] = None,
+                   remat=False):
+    """The Show-o2 forward (JAX ``showo2_forward``).
 
-    text_tokens [B, L]; image_latents [B*M, C, H, W]; t [B*M];
-    attention_bias [B, 1, L, L] additive (the dense route; may be None
-    with ``attn_meta``); modality_positions [B, M, 2].  attn_meta:
-    optional ("packed", seg, pad, last_pad, prefix) sending every
-    attention of both towers to the packed omni kernel."""
+    text_tokens [B, L]; image_latents [B*M, C, H, W] (or video latents
+    [B*M, C, T, H, W]); t [B*M]; attention_bias [B, 1, L, L] additive (the
+    dense route; may be None with ``attn_meta``); modality_positions
+    [B, M, 2].  attn_meta: optional (route, seg, pad, last_pad, prefix)
+    sending every attention of both towers to the route's kernel
+    (``packed``, ``streaming`` or ``trainable``).  remat: every layer stack
+    (SigLIP, Qwen2, the DiT) under that policy of ``utils/remat.py``.
+
+    Without labels (inference): the sequence-space velocity [B, L, p*p*C]
+    (the LM logits, which it does not read, are not computed).  With
+    ``text_labels`` [B, L] and / or ``image_labels`` (the flow target ut,
+    shaped as the latents) and ``image_masks`` [B, L]: a dict of
+    ``logits``, ``v_seq`` and ``loss_ntp`` / ``loss_flow``; the time slot
+    of every span is left out of the flow loss (modeling_showo2_qwen2_5.py
+    :346-365)."""
     cfg = model.cfg
+    train = text_labels is not None or image_labels is not None
     input_embeds = model.showo.model.embed_tokens(text_tokens)
-    image_embeds = embed_images(model, image_latents)
+    image_embeds = embed_images(model, image_latents, remat=remat)
     time_embeds, time_proj = _time_embeds(model, t)
     input_embeds = modality_scatter(input_embeds, image_embeds, time_proj,
                                     modality_positions,
                                     add_time_embeds=cfg.add_time_embeds)
     meta = packed_meta(attn_meta)
-    _, h = model.showo(input_embeds=input_embeds,
-                       attention_bias=attention_bias, attn_meta=meta,
-                       logits=False)
+    logits, h = model.showo(input_embeds=input_embeds,
+                            attention_bias=attention_bias, attn_meta=meta,
+                            logits=train, remat=remat)
     h = dit_forward(cfg.dit, model.diffusion_head_a, _diff_proj(model, h),
-                    time_embeds, attention_bias, modality_positions, meta)
-    return model.diffusion_head_b(h, time_embeds, modality_positions)
+                    time_embeds, attention_bias, modality_positions, meta,
+                    remat=remat)
+    v_seq = model.diffusion_head_b(h, time_embeds, modality_positions)
+    if not train:
+        return v_seq
+    out = {"logits": logits, "v_seq": v_seq}
+    if text_labels is not None:
+        out["loss_ntp"] = next_token_prediction_loss(logits, text_labels)
+    if image_labels is not None:
+        lab = patchify_labels(cfg, image_labels).float()
+        seq_labels = modality_scatter(
+            torch.zeros(v_seq.shape, dtype=torch.float32,
+                        device=v_seq.device), lab,
+            torch.zeros((lab.shape[0], lab.shape[-1]), dtype=torch.float32,
+                        device=lab.device), modality_positions,
+            add_time_embeds=cfg.add_time_embeds)
+        if cfg.add_time_embeds:
+            L = text_tokens.shape[1]
+            pos = torch.arange(L, device=v_seq.device)[None, :, None]
+            off = modality_positions[:, None, :, 0]
+            length = modality_positions[:, None, :, 1]
+            is_time = ((pos == off) & (length > 0)).any(dim=-1)
+            image_masks = torch.where(is_time, 0, image_masks)
+        out["loss_flow"] = velocity_prediction_loss(v_seq, seq_labels,
+                                                    image_masks)
+    return out
+
+
+def patchify_labels(cfg: Showo2Config, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's label 'patchify' (modeling_showo2_qwen2_5.py
+    :329-337), a pure reshape chain whose inverse is :func:`unpatchify_v`:
+    image labels [B, C, H, W] -> [B, (H/p)(W/p), p*p*C], video labels
+    [B, C, T, H, W] -> [B, T(H/p)(W/p), p*p*C]."""
+    p = cfg.patch_size
+    if labels.dim() == 5:
+        b, c, T, H, W = labels.shape
+        x = labels.reshape(b, c, T * H * W).transpose(1, 2)
+        return x.reshape(b, T, H // p, W // p, p, p, c).reshape(
+            b, T * (H // p) * (W // p), p * p * c)
+    b, c, H, W = labels.shape
+    x = labels.reshape(b, c, H * W).transpose(1, 2)
+    return x.reshape(b, H // p, W // p, p, p, c).reshape(
+        b, (H // p) * (W // p), p * p * c)
+
+
+def next_token_prediction_loss(logits: torch.Tensor,
+                               labels: torch.Tensor) -> torch.Tensor:
+    """misc.py:11-13 in JAX's form: cross entropy over the whole logits
+    against the labels shifted left by one (the last position ignored),
+    the mean over the positions whose label is not -100, in fp32."""
+    shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                        -100)], dim=1)
+    return cross_entropy_ignore(logits, shifted)
+
+
+def velocity_prediction_loss(v_pred: torch.Tensor, labels: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """misc.py:16-21: the squared error of the velocity over the sequence
+    positions where ``mask`` [B, L] is set, averaged over those entries
+    (every channel counts), in fp32; 0 where no position is set."""
+    se = (v_pred.float() - labels.float()).square()
+    m = mask[:, :, None].bool().expand(se.shape)
+    return torch.where(m, se, 0.0).sum() / m.sum().clamp(min=1)
 
 
 def _time_embeds(model: Showo2, t: torch.Tensor):

@@ -22,6 +22,7 @@ from torch import nn
 
 from showo_tpu_torch.models.phi import layer_norm
 from showo_tpu_torch.utils.image import keys_cubic_weights
+from showo_tpu_torch.utils.remat import wrap_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +94,13 @@ class SiglipEncoder(nn.Module):
         self.layers = nn.ModuleList(SiglipLayer(cfg, device, dtype)
                                     for _ in range(cfg.num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, S, D]: patch embeddings, position embedding added."""
+    def forward(self, x: torch.Tensor, remat=False) -> torch.Tensor:
+        """x [B, S, D]: patch embeddings, position embedding added.
+        remat: the layer policy of ``utils/remat.py`` (under a gradient
+        the 26 layers would otherwise keep every layer's fp32 [B, H, S, S]
+        probabilities)."""
         for layer in self.layers:
-            x = layer(x)
+            x = wrap_remat(layer, remat)(x)
         return x
 
 

@@ -17,14 +17,21 @@ sampling part, every ``sampling_method`` of the text-to-image pipeline:
     calls (its tableau, initial step, error ratio and step controller),
     with the step decisions taken on the host (``dopri5``).
 
-The training-side coupling plans, the SDE samplers and the likelihood ODE
-are not ported (no entry point samples with them).
+The training side (transport.py:25-233 of the JAX package): the coupling
+plans :class:`ICPlan` (linear), :class:`VPCPlan` and :class:`GVPCPlan`,
+and :class:`Transport` (``sample_t`` under ``uniform``, ``uniform_a_b``
+and ``lognorm`` with ``max_t0`` and ``do_shift``; ``sample``;
+``training_losses``); the SDE samplers :func:`sample_sde_euler_maruyama`
+and :func:`sample_sde_heun`, and :func:`sample_ode_likelihood` with
+:func:`prior_logp`.  Their draws come from an explicit
+``torch.Generator``, or are handed in (the tests hand in JAX's).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -322,3 +329,316 @@ def check_sampler(method: str) -> str:
         return method
     raise ValueError(f"unknown sampling_method {method!r}; the JAX package "
                      f"knows {SAMPLERS}")
+
+
+# ---------------------------------------------------------------------------
+# Coupling plans (show-o2/transport/path.py)
+# ---------------------------------------------------------------------------
+
+def _expand(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], *([1] * (x.dim() - 1)))
+
+
+class ICPlan:
+    """Linear coupling: alpha = t, sigma = 1 - t (t = 1 is clean data)."""
+
+    def compute_alpha_t(self, t):
+        return t, torch.ones_like(t)
+
+    def compute_sigma_t(self, t):
+        return 1 - t, -torch.ones_like(t)
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return 1 / t
+
+    def compute_drift(self, x, t):
+        t = _expand(t, x)
+        alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        drift = alpha_ratio * x
+        diffusion = alpha_ratio * (sigma_t ** 2) - sigma_t * d_sigma_t
+        return -drift, diffusion
+
+    def compute_diffusion(self, x, t, form: str = "constant",
+                          norm: float = 1.0):
+        t = _expand(t, x)
+        if form == "constant":
+            return torch.full_like(t, norm)
+        if form == "SBDM":
+            return norm * self.compute_drift(x, t)[1]
+        if form == "sigma":
+            return norm * self.compute_sigma_t(t)[0]
+        if form == "linear":
+            return norm * (1 - t)
+        if form == "decreasing":
+            return 0.25 * (norm * torch.cos(math.pi * t) + 1) ** 2
+        if form == "increasing-decreasing":
+            return norm * torch.sin(math.pi * t) ** 2
+        raise NotImplementedError(form)
+
+    def get_score_from_velocity(self, velocity, x, t):
+        t = _expand(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = sigma_t ** 2 - reverse_alpha_ratio * d_sigma_t * sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def get_noise_from_velocity(self, velocity, x, t):
+        t = _expand(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = reverse_alpha_ratio * d_sigma_t - sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def compute_mu_t(self, t, x0, x1):
+        t = _expand(t, x1)
+        alpha_t, _ = self.compute_alpha_t(t)
+        sigma_t, _ = self.compute_sigma_t(t)
+        return alpha_t * x1 + sigma_t * x0
+
+    def compute_xt(self, t, x0, x1):
+        return self.compute_mu_t(t, x0, x1)
+
+    def compute_ut(self, t, x0, x1, xt):
+        t = _expand(t, x1)
+        _, d_alpha_t = self.compute_alpha_t(t)
+        _, d_sigma_t = self.compute_sigma_t(t)
+        return d_alpha_t * x1 + d_sigma_t * x0
+
+    def plan(self, t, x0, x1):
+        """(t, xt, ut): the point between noise x0 and data x1 at t, and
+        the velocity there."""
+        xt = self.compute_xt(t, x0, x1)
+        return t, xt, self.compute_ut(t, x0, x1, xt)
+
+
+class VPCPlan(ICPlan):
+    """Variance-preserving coupling (beta from sigma_min to sigma_max)."""
+
+    def __init__(self, sigma_min: float = 0.1, sigma_max: float = 20.0):
+        self.sigma_min = sigma_min
+        self.sigma_max = sigma_max
+
+    def _log_mean_coeff(self, t):
+        return (-0.25 * ((1 - t) ** 2) * (self.sigma_max - self.sigma_min)
+                - 0.5 * (1 - t) * self.sigma_min)
+
+    def _d_log_mean_coeff(self, t):
+        return (0.5 * (1 - t) * (self.sigma_max - self.sigma_min)
+                + 0.5 * self.sigma_min)
+
+    def compute_alpha_t(self, t):
+        alpha_t = torch.exp(self._log_mean_coeff(t))
+        return alpha_t, alpha_t * self._d_log_mean_coeff(t)
+
+    def compute_sigma_t(self, t):
+        p = 2 * self._log_mean_coeff(t)
+        sigma_t = torch.sqrt(1 - torch.exp(p))
+        d_sigma_t = (torch.exp(p) * (2 * self._d_log_mean_coeff(t))
+                     / (-2 * sigma_t))
+        return sigma_t, d_sigma_t
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return self._d_log_mean_coeff(t)
+
+    def compute_drift(self, x, t):
+        t = _expand(t, x)
+        beta_t = self.sigma_min + (1 - t) * (self.sigma_max - self.sigma_min)
+        return -0.5 * beta_t * x, beta_t / 2
+
+
+class GVPCPlan(ICPlan):
+    """Generalised variance-preserving coupling: alpha = sin(pi t / 2),
+    sigma = cos(pi t / 2)."""
+
+    def compute_alpha_t(self, t):
+        return (torch.sin(t * math.pi / 2),
+                math.pi / 2 * torch.cos(t * math.pi / 2))
+
+    def compute_sigma_t(self, t):
+        return (torch.cos(t * math.pi / 2),
+                -math.pi / 2 * torch.sin(t * math.pi / 2))
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return math.pi / (2 * torch.tan(t * math.pi / 2))
+
+
+_PATHS = {"Linear": ICPlan, "GVP": GVPCPlan, "VP": VPCPlan}
+
+
+def time_shift_t(mu: float, t: torch.Tensor) -> torch.Tensor:
+    """:func:`time_shift` with sigma 1 on a tensor (JAX
+    ``_time_shift_traced``: 1 - t clipped below at 1e-8)."""
+    s = (1 - t).clamp(min=1e-8)
+    return 1 - math.exp(mu) / (math.exp(mu) + (1 / s - 1))
+
+
+# ---------------------------------------------------------------------------
+# Transport (show-o2/transport/transport.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Transport:
+    """The training transport (JAX ``Transport``): the coupling plan of
+    ``path_type`` (``path_sampler``), the per-sample time draw, and the
+    velocity loss."""
+
+    path_type: str = "Linear"
+    prediction: str = "velocity"
+    snr_type: str = "uniform"
+    do_shift: bool = True
+    seq_len: int = 1024
+    train_eps: float = 0.0
+    sample_eps: float = 0.0
+
+    def __post_init__(self):
+        self.path_sampler = _PATHS[self.path_type]()
+
+    def base_draw(self, batch: int, generator=None, device=None):
+        """The draw :meth:`sample_t` transforms: uniform [batch] under
+        ``uniform*``, standard normal under ``lognorm`` (fp32)."""
+        kw = dict(generator=generator, device=device, dtype=torch.float32)
+        if self.snr_type.startswith("uniform"):
+            return torch.rand((batch,), **kw)
+        if self.snr_type == "lognorm":
+            return torch.randn((batch,), **kw)
+        raise NotImplementedError(self.snr_type)
+
+    def sample_t(self, batch: int, generator=None,
+                 max_t0: Optional[float] = None, draw=None, device=None):
+        """Per-sample times [batch] (transport.py:98-131): ``uniform`` on
+        [t0, 1] (t0 = ``max_t0`` or 0), ``uniform_a_b`` on [a, b],
+        ``lognorm`` sigmoid(normal) scaled to [t0, 1]; then, with
+        ``do_shift``, the resolution-aware shift of ``seq_len``.  ``draw``:
+        the :meth:`base_draw` to use instead of one from ``generator``."""
+        t0, t1 = 0.0, 1.0
+        if max_t0 is not None:
+            t0 = max_t0
+        u = (self.base_draw(batch, generator, device) if draw is None
+             else torch.as_tensor(draw, dtype=torch.float32, device=device))
+        if self.snr_type.startswith("uniform"):
+            if "_" in self.snr_type:
+                _, t0s, t1s = self.snr_type.split("_")
+                t0, t1 = float(t0s), float(t1s)
+            t = u * (t1 - t0) + t0
+        elif self.snr_type == "lognorm":
+            t = 1 / (1 + torch.exp(-u)) * (t1 - t0) + t0
+        else:
+            raise NotImplementedError(self.snr_type)
+        if self.do_shift:
+            t = time_shift_t(get_lin_function(y1=0.5, y2=1.15)(self.seq_len),
+                             t)
+        return t
+
+    def sample(self, x1: torch.Tensor, generator=None,
+               max_t0: Optional[float] = None, draw=None, x0=None):
+        """(t, x0, xt, ut) for training: t from :meth:`sample_t`, x0 a
+        standard normal draw of x1's shape (or the given one), then the
+        plan."""
+        t = self.sample_t(x1.shape[0], generator, max_t0, draw, x1.device)
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
+                             device=x1.device)
+        t, xt, ut = self.path_sampler.plan(t, x0, x1)
+        return t, x0, xt, ut
+
+    def training_losses(self, v_pred: torch.Tensor,
+                        ut: torch.Tensor) -> torch.Tensor:
+        """The squared error averaged over every dim but the batch's
+        (transport.py:188-198)."""
+        return (v_pred - ut).square().mean(dim=tuple(range(1, v_pred.dim())))
+
+
+def create_transport(path_type="Linear", prediction="velocity",
+                     snr_type="uniform", do_shift=True, seq_len=1024,
+                     **kwargs) -> Transport:
+    return Transport(path_type=path_type, prediction=prediction,
+                     snr_type=snr_type, do_shift=do_shift, seq_len=seq_len)
+
+
+# ---------------------------------------------------------------------------
+# SDE samplers and the likelihood ODE (show-o2/transport/integrators.py)
+# ---------------------------------------------------------------------------
+
+def _draws(x: torch.Tensor, steps: int, generator, noise, rademacher=False):
+    """``steps`` draws of x's shape: the given ``noise`` [steps, *x.shape]
+    or, one after another, from ``generator``."""
+    if noise is not None:
+        return [torch.as_tensor(n, dtype=x.dtype, device=x.device)
+                for n in noise]
+    out = []
+    for _ in range(steps):
+        if rademacher:
+            out.append(torch.randint(0, 2, x.shape, generator=generator,
+                                     device=x.device).to(x.dtype) * 2 - 1)
+        else:
+            out.append(torch.randn(x.shape, generator=generator,
+                                   dtype=x.dtype, device=x.device))
+    return out
+
+
+def sample_sde_euler_maruyama(drift_fn: Callable, diffusion_fn: Callable,
+                              x: torch.Tensor, t_grid, generator=None,
+                              noise: Optional[Sequence] = None
+                              ) -> torch.Tensor:
+    """Euler-Maruyama (integrators.py:27-35) over ``t_grid[:-1]`` with the
+    fixed dt = t[1] - t[0]: x <- x + drift dt + sqrt(2 diffusion) w
+    sqrt(dt), w one normal draw a step (``noise``, or from
+    ``generator``)."""
+    grid = torch.as_tensor(t_grid, dtype=torch.float32)
+    dt = float(grid[1] - grid[0])
+    ws = _draws(x, len(grid) - 1, generator, noise)
+    for t_cur, w in zip(grid[:-1].tolist(), ws):
+        t = _t_vec(x, t_cur)
+        mean_x = x + drift_fn(x, t) * dt
+        x = mean_x + torch.sqrt(2 * diffusion_fn(x, t)) * w * math.sqrt(dt)
+    return x
+
+
+def sample_sde_heun(drift_fn: Callable, diffusion_fn: Callable,
+                    x: torch.Tensor, t_grid, generator=None,
+                    noise: Optional[Sequence] = None) -> torch.Tensor:
+    """The SDE Heun step (integrators.py:37-49): the noise first, then the
+    trapezoid of the drift at t and t + dt."""
+    grid = torch.as_tensor(t_grid, dtype=torch.float32)
+    dt = float(grid[1] - grid[0])
+    ws = _draws(x, len(grid) - 1, generator, noise)
+    for t_cur, w in zip(grid[:-1].tolist(), ws):
+        t = _t_vec(x, t_cur)
+        xhat = x + torch.sqrt(2 * diffusion_fn(x, t)) * w * math.sqrt(dt)
+        k1 = drift_fn(xhat, t)
+        k2 = drift_fn(xhat + dt * k1, t + dt)
+        x = xhat + 0.5 * dt * (k1 + k2)
+    return x
+
+
+def prior_logp(z: torch.Tensor) -> torch.Tensor:
+    """The standard normal log-density of each batch element
+    (transport.py:60-67)."""
+    n = math.prod(z.shape[1:])
+    return (-n / 2.0 * math.log(2 * math.pi)
+            - 0.5 * z.square().reshape(z.shape[0], -1).sum(dim=-1))
+
+
+def sample_ode_likelihood(drift_fn: Callable, x: torch.Tensor,
+                          generator=None, num_steps: int = 50,
+                          probes: Optional[Sequence] = None):
+    """The likelihood ODE (transport.py:447-503): data -> noise over
+    ``num_steps`` Euler steps of the reversed drift (the model at 1 - t),
+    accumulating Hutchinson's estimate of the divergence with one
+    Rademacher probe a step (``probes``, or from ``generator``) through a
+    Jacobian-vector product.  Returns (logp [B], z) with logp =
+    prior_logp(z) - the integrated divergence."""
+    grid = torch.linspace(0.0, 1.0, num_steps + 1).tolist()
+    eps_all = _draws(x, num_steps, generator, probes, rademacher=True)
+    delta = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+    for t_cur, t_next, eps in zip(grid[:-1], grid[1:], eps_all):
+        dt = t_next - t_cur
+        t_model = _t_vec(x, 1.0 - t_cur)
+        v, jv = torch.func.jvp(lambda xx: drift_fn(xx, t_model), (x,),
+                               (eps,))
+        div = (jv * eps).reshape(x.shape[0], -1).sum(dim=-1)
+        x, delta = x - dt * v, delta + dt * div
+    return prior_logp(x) - delta, x

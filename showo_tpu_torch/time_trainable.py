@@ -2,7 +2,7 @@
 fused batch on one card, for holding two trees side by side in one call.
 
     python3 showo_tpu_torch/time_trainable.py --config stage1|tuning512 \
-        [--root DIR] [--tag NAME]
+        [--slice v1|v2] [--seq S] [--root DIR] [--tag NAME]
 
 ``--root`` names the checkout whose ``showo_tpu_torch`` is imported (by
 default this file's own), so that one call on one card can time a parent
@@ -16,7 +16,13 @@ layout of the kernel set.  Timed, CUDA-event medians of 20 with the
 wrapper: the forward, dq and dk/dv (on one tile map made beforehand where
 the wrapper takes one) and ``scaled_dot_product_attention`` with the
 boolean mask, forward and backward.  Prints the card and one JSON line.
-Needs a CUDA card.
+
+``--slice v2``: the Show-o2 stage-1 step instead (``profile_train
+.v2_batch``: 2 rows of ``--seq`` tokens, default 1024; no trainer is
+built, the metadata comes from the rows' modality positions), at both
+towers' shapes: Qwen2.5's 12 q / 2 kv heads of 128 and the DiT's 32 / 8
+of 64, each on the kernel set the dispatcher picks (kernel 7 to S = 1280
+for Qwen, 1024 for the DiT, kernel 8 past).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,6 +54,19 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _v2_metadata(torch, seq: int):
+    """The trainable metadata of the Show-o2 stage-1 seeded batch."""
+    from showo_tpu_torch.ops.flash_attention import (
+        seg_from_modality_positions, span_meta)
+    from showo_tpu_torch.profile_train import v2_batch
+    from showo_tpu_torch.show_o2.showo2 import Showo2Config
+
+    batch = v2_batch(Showo2Config().num_image_tokens, 2, seq)
+    mp = torch.as_tensor(batch["modality_positions"], device="cuda")
+    seg = seg_from_modality_positions(mp, seq)
+    return list(span_meta(seg, None, None, None, 2, seq, seg.device))
+
+
 def _metadata(torch, config_name: str):
     """The attention metadata of the configuration's seeded fused batch."""
     from showo_tpu_torch.profile_train import CONFIGS, train_batch
@@ -65,10 +84,68 @@ def _metadata(torch, config_name: str):
     return meta
 
 
+def _time_set(torch, F, tpag, tsag, m, H, Hkv, D) -> dict:
+    """The kernel set the dispatcher picks for (H, Hkv, D) at the
+    metadata's S, timed: {"kernel", "H", "Hkv", "D", "ms": {...}}."""
+    B, S = m[0].shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    if tpag.packed_trainable_fits(S, H, Hkv, D,
+                                  min(256, -(-S // 128) * 128)):
+        kernel = 7
+        kw = dict(num_heads=H, num_kv_heads=Hkv, sm_scale=D ** -0.5)
+        fwd, dq, dkv = (tpag.packed_trainable_fwd, tpag.packed_trainable_dq,
+                        tpag.packed_trainable_dkv)
+        q, k, v, dout = (torch.randn(B, S, n * D, generator=g, device=dev)
+                         .bfloat16() for n in (H, Hkv, Hkv, H))
+        # kernel 7 reads a tile map since its wgmma cores
+        make_tiles = getattr(tpag, "tile_map", None)
+
+        def heads(t):
+            return t.unflatten(-1, (-1, D)).transpose(1, 2)
+
+        def delta(o, d):
+            return tpag.attention_delta(o, d, H)
+    else:
+        kernel = 8
+        kw = dict(sm_scale=D ** -0.5)
+        fwd, dq, dkv = (tsag.streaming_trainable_fwd,
+                        tsag.streaming_trainable_dq,
+                        tsag.streaming_trainable_dkv)
+        q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device=dev)
+                         .bfloat16().transpose(1, 2)
+                         for n in (H, Hkv, Hkv, H))
+        make_tiles = tsag.tile_map
+        delta = tsag.attention_delta
+
+        def heads(t):
+            return t
+    if make_tiles is not None:      # a tree whose kernels read a tile map
+        kw["tiles"] = make_tiles(*m)
+    out, lse = fwd(q, k, v, *m, **kw)
+    a = (q, k, v, dout, lse, delta(out, dout), *m)
+    leaves = [heads(t).detach().requires_grad_(True) for t in (q, k, v)]
+    mask = tsag.self_visible(*m)[:, None]
+    o4 = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                        enable_gqa=Hkv != H)
+    ms = {
+        "fwd": _time_ms(torch, lambda: fwd(q, k, v, *m, **kw)),
+        "dq": _time_ms(torch, lambda: dq(*a, **kw)),
+        "dkv": _time_ms(torch, lambda: dkv(*a, **kw)),
+        "library_fwd": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, enable_gqa=Hkv != H)),
+        "library_bwd": _time_ms(torch, lambda: torch.autograd.grad(
+            o4, leaves, heads(dout), retain_graph=True)),
+    }
+    return {"kernel": kernel, "H": H, "Hkv": Hkv, "D": D, "ms": ms}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", choices=("stage1", "tuning512"),
                    default="stage1")
+    p.add_argument("--slice", choices=("v1", "v2"), default="v1")
+    p.add_argument("--seq", type=int, default=1024)
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("--tag", default="")
@@ -87,60 +164,22 @@ def main(argv=None) -> int:
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
     dev = torch.device("cuda")
-    m = _metadata(torch, args.config)
-    B, S = m[0].shape
-    g = torch.Generator(device=dev).manual_seed(7)
-    if tpag.packed_trainable_fits(S, H, H, D, min(256, -(-S // 128) * 128)):
-        kernel = 7
-        kw = dict(num_heads=H, num_kv_heads=H, sm_scale=D ** -0.5)
-        fwd, dq, dkv = (tpag.packed_trainable_fwd, tpag.packed_trainable_dq,
-                        tpag.packed_trainable_dkv)
-        q, k, v, dout = (torch.randn(B, S, H * D, generator=g, device=dev)
-                         .bfloat16() for _ in range(4))
-        # kernel 7 reads a tile map since its wgmma cores
-        make_tiles = getattr(tpag, "tile_map", None)
-
-        def heads(t):
-            return t.unflatten(-1, (H, D)).transpose(1, 2)
-
-        def delta(o, d):
-            return tpag.attention_delta(o, d, H)
+    if args.slice == "v2":
+        m = _v2_metadata(torch, args.seq)
+        shapes = (("qwen", 12, 2, 128), ("dit", 32, 8, 64))
     else:
-        kernel = 8
-        kw = dict(sm_scale=D ** -0.5)
-        fwd, dq, dkv = (tsag.streaming_trainable_fwd,
-                        tsag.streaming_trainable_dq,
-                        tsag.streaming_trainable_dkv)
-        q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=dev)
-                         .bfloat16().transpose(1, 2) for _ in range(4))
-        make_tiles = tsag.tile_map
-        delta = tsag.attention_delta
-
-        def heads(t):
-            return t
-    if make_tiles is not None:      # a tree whose kernels read a tile map
-        kw["tiles"] = make_tiles(*m)
-    out, lse = fwd(q, k, v, *m, **kw)
-    a = (q, k, v, dout, lse, delta(out, dout), *m)
-    leaves = [heads(t).detach().requires_grad_(True) for t in (q, k, v)]
-    mask = tsag.self_visible(*m)[:, None]
-    o4 = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-    ms = {
-        "fwd": _time_ms(torch, lambda: fwd(q, k, v, *m, **kw)),
-        "dq": _time_ms(torch, lambda: dq(*a, **kw)),
-        "dkv": _time_ms(torch, lambda: dkv(*a, **kw)),
-        "library_fwd": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            *leaves, attn_mask=mask)),
-        "library_bwd": _time_ms(torch, lambda: torch.autograd.grad(
-            o4, leaves, heads(dout), retain_graph=True)),
-    }
+        m = _metadata(torch, args.config)
+        shapes = (("phi", H, H, D),)
+    rows = {name: _time_set(torch, F, tpag, tsag, m, h, hkv, d)
+            for name, h, hkv, d in shapes}
+    B, S = m[0].shape
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     print(smi)
-    print(json.dumps({"tag": args.tag, "root": root, "config": args.config,
-                      "kernel": kernel, "B": B, "S": S, "H": H, "D": D,
-                      "ms": ms}))
+    print(json.dumps({"tag": args.tag, "root": root,
+                      "config": args.config if args.slice == "v1" else
+                      "v2 stage 1", "B": B, "S": S, "shapes": rows}))
     return 0
 
 

@@ -11,8 +11,12 @@ blocks (conditioning dropout included) and lm / mmu blocks, also against
 the reference-generated golden (tests/golden/prompting.npz), and the same
 v2 layouts (also against tests/golden/formats.npz), fallback and local
 tokenizer ids, every line of a prompt file (blank ones too), and the same
-frames of a frame directory and a GIF.  A static scan shows that neither the package nor ``chip_smoke.py``
-imports jax, flax or the JAX package, even inside a function.
+frames of a frame directory and a GIF; and the Show-o2 trainers' jsonl
+data path (``data/image_text.py``, ``data/mixed.py``, ``data/loader.py``):
+the dataset's samples on the same records and seed, collate, the per-process
+shard, every mixing mode, the loader state.  A static scan shows that
+neither the package nor ``chip_smoke.py`` imports jax, flax or the JAX
+package, even inside a function.
 """
 
 import ast
@@ -490,3 +494,103 @@ def test_serving_host_code_matches_jax(tmp_path):
         assert len(tserve.gather_requests(cfg)) in (2, 4)
     for a, b in ((7, 32), (64, 64), (65, 64)):
         assert tserve._round_up(a, b) == jserve._round_up(a, b)
+
+
+# -- the Show-o2 trainers' jsonl data path ---------------------------------------
+
+V2_TRAIN_IDS = dict(bos_id=1, eos_id=2, boi_id=3, eoi_id=4, pad_id=5,
+                    img_pad_id=6)
+
+
+def _jsonl(tmp_path, n=6, size=20):
+    """A jsonl of ``n`` PNG records of growing widths under ``tmp_path``,
+    alternating the "caption" and "prompt" keys."""
+    import json
+
+    from PIL import Image
+
+    imdir = tmp_path / "imgs"
+    imdir.mkdir(exist_ok=True)
+    path = tmp_path / "data.jsonl"
+    with open(path, "w") as f:
+        for i in range(n):
+            p = imdir / f"{i}.png"
+            Image.new("RGB", (size + 4 * i, size), (i * 40 % 255, 90,
+                                                    200 - 10 * i)).save(p)
+            key = "prompt" if i % 2 else "caption"
+            f.write(json.dumps({"path": str(p), key: f"a sample {i}"}) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("data_type,flip", [("t2i", 0.0), ("mmu", 0.0),
+                                            ("t2i", 0.5)])
+def test_image_text_dataset_vs_jax(tmp_path, data_type, flip):
+    from showo_tpu.data.image_text import ImageTextDataset as JDataset
+    from showo_tpu_torch.data.image_text import ImageTextDataset as TDataset
+    from showo_tpu_torch.inference_t2i_v2 import FakeQwenTokenizer
+
+    path = _jsonl(tmp_path)
+    kw = dict(resolution=16, num_image_tokens=17, max_seq_len=40,
+              max_text_len=8, cond_dropout_prob=0.3, random_und_or_gen=flip,
+              seed=3, default_data_type=data_type, with_clip=True)
+    tok = FakeQwenTokenizer()
+    got = list(TDataset(path, tok, V2_TRAIN_IDS, **kw))
+    want = list(JDataset(path, tok, V2_TRAIN_IDS, **kw))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in g:
+            if isinstance(g[k], np.ndarray):
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            else:
+                assert g[k] == w[k], k
+
+
+def test_loader_pieces_vs_jax(tmp_path):
+    from showo_tpu.data import loader as jloader
+    from showo_tpu.data import mixed as jmixed
+    from showo_tpu_torch.data import loader as tloader
+    from showo_tpu_torch.data import mixed as tmixed
+
+    samples = [{"x": np.full((2,), i), "s": f"t{i}"} for i in range(7)]
+    got = tloader.default_collate(samples)
+    want = jloader.default_collate(samples)
+    np.testing.assert_array_equal(got["x"], want["x"])
+    np.testing.assert_array_equal(got["s"], want["s"])
+    items = list(range(7))
+    for i, n in ((0, 3), (2, 3), (5, 9)):
+        assert tloader.shard_for_process(items, i, n) \
+            == jloader.shard_for_process(items, i, n)
+    assert tloader.shard_for_process(items) == items
+
+    def loaders(mod):
+        return [mod.CheckpointableDataLoader(
+            lambda k=k: iter(samples[:k]), batch_size=2, num_epochs=1)
+            for k in (7, 4)]
+
+    for mode in ("max_size_cycle", "min_size", "concat_max_size_cycle",
+                 "concat_min_size", "sequential_max_size_cycle"):
+        got = list(tmixed.MixedDataLoader(loaders(tloader), mode=mode,
+                                          seed=1))
+        want = list(jmixed.MixedDataLoader(loaders(jloader), mode=mode,
+                                           seed=1))
+        assert len(got) == len(want), mode
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["x"], w["x"])
+    assert len(list(tmixed.MixedDataLoader(loaders(tloader)))) == 3
+
+    # the loader state: a restored loader skips what the first one yielded
+    ld = tloader.CheckpointableDataLoader(lambda: iter(samples),
+                                          batch_size=2, num_epochs=1)
+    it = iter(ld)
+    first = next(it)
+    tloader.save_loader_state(ld, str(tmp_path), 5)
+    ld2 = tloader.CheckpointableDataLoader(lambda: iter(samples),
+                                           batch_size=2, num_epochs=1)
+    assert tloader.restore_loader_state(ld2, str(tmp_path), 5)
+    assert not tloader.restore_loader_state(ld2, str(tmp_path), 6)
+    rest = list(ld2)
+    np.testing.assert_array_equal(rest[0]["x"], next(it)["x"])
+    assert len(rest) == 2 and first["s"].tolist() == ["t0", "t1"]
+
+

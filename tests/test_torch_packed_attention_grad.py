@@ -392,7 +392,8 @@ def test_kernels_refuse_what_they_do_not_take():
         tpag.packed_trainable_fwd(q.float(), k, v, *meta, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         tpag.packed_trainable_fwd(q.transpose(0, 1), k, v, *meta, **kw)
-    wide = torch.zeros((2, 64, 256), dtype=torch.bfloat16, device=dev)
+    # head dim 256: the kernels are built for 64 and 128
+    wide = torch.zeros((2, 64, 512), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tpag.packed_trainable_fwd(wide, wide, wide, *meta, num_heads=2,
                                   num_kv_heads=2, sm_scale=0.1)

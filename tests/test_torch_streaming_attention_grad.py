@@ -405,7 +405,8 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous last dim"):
         tsag.streaming_trainable_fwd(q.transpose(2, 3)[..., :64, :], q, q,
                                      *meta, sm_scale=0.1)
-    wide = torch.zeros((1, 2, 200, 128), dtype=torch.bfloat16, device=dev)
+    # head dim 256: the kernels are built for 64 and 128
+    wide = torch.zeros((1, 2, 200, 256), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tsag.streaming_trainable_fwd(wide, wide, wide, *meta, sm_scale=0.1)
 

@@ -162,8 +162,9 @@ def test_generator_noise_is_seeded(weights):
 
 def test_auto_route_and_route_names():
     """``auto`` as JAX; ``streaming`` (kernel 5) is a route now; JAX
-    strings raise ValueError naming the port's route; ``trainable``
-    raises NotImplementedError naming the kernels it waits for."""
+    strings raise ValueError naming the port's route; ``trainable`` is
+    the route of the differentiable kernels 7 / 8, which JAX's T2I
+    pipeline runs under ``pallas_trainable``."""
     assert route_attention("auto", 730) == "packed"
     assert route_attention("auto", 512) == "packed"
     assert route_attention("auto", 511) == "dense"
@@ -173,8 +174,9 @@ def test_auto_route_and_route_names():
         route_attention("pallas_packed", 730)
     with pytest.raises(ValueError, match="'streaming'"):
         route_attention("pallas_streaming", 730)
-    with pytest.raises(NotImplementedError, match="kernels 7 and 8"):
-        route_attention("trainable", 730)
+    assert route_attention("trainable", 730) == "trainable"
+    with pytest.raises(ValueError, match="'trainable'"):
+        route_attention("pallas_trainable", 730)
     with pytest.raises(ValueError, match="unknown"):
         route_attention("flash", 730)
 
