@@ -56,17 +56,23 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   ``trainable`` route: the frozen Wan2.1 encoder, SigLIP frozen, Qwen2.5
   and the DiT trained with AdamW, remat "full", bf16 autocast over fp32
   master weights, 12 rows (10 t2i, 2 und) of 1024 tokens at 432x432; and
-  its CLI at a reduced depth, with checkpoints and a resume.
+  its CLI at a reduced depth, with checkpoints and a resume;
+* the throughput modes: kernel 2's bf16-score variant in the 512x512
+  ``fused`` generate, the remat rungs and optimizers of
+  ``utils/remat.py`` / ``training/optim.py`` on the Show-o2 trainer, and
+  bench.py's four training rows (``train_v1``, ``train_v1_fast``,
+  ``train_v2``, ``train_v2_fast``) through their trainers.
 
 Phases, one or more lines each:
 
   1. device: card name and power limit, torch / CUDA versions; TF32 off
   2. build: nvcc builds the ten kernel sources of csrc/, in parallel, and
      ptxas' registers and spills of each entry function with its template
-     arguments (the forward core <head dim, mask, split> at <64, 0> and
-     <128, 0> (the -inf mask: kernels 5, 7, 8), <64, 1> and <128, 1> (the
-     -1e30 mask: kernels 1 and 4), <64, 1, true> (kernel 2: K / V from
-     two sources, keys at positions), <64, 2> (the bias: kernel 3), and
+     arguments (the forward core <head dim, mask, split, W, bf16 scores>
+     at <64, 0> and <128, 0> (the -inf mask: kernels 5, 7, 8), <64, 1>
+     and <128, 1> (the -1e30 mask: kernels 1 and 4), <64, 1, true> (kernel
+     2: K / V from two sources, keys at positions) and <64, 1, true, 1,
+     true> (its bf16-score variant), <64, 2> (the bias: kernel 3), and
      kernel 6's <64, 1, false, W> for W = 1..4 and <128, 1, false, W> for
      W = 1, 2 (W warpgroups, one q head each); kernel 2's norm_rope_kernel;
      the decode gemv <nibbles, aligned, rows>), and "wgmma serialized"
@@ -313,6 +319,24 @@ Phases, one or more lines each:
   26. the stage-1 CLI in process (``train_stage_one.main``) at full width
      and depth 2 / 2 / 2 on a jsonl of the in-tree image: 2 steps with
      ``save_every`` 1, then a resume from ``latest`` to step 3
+  27. kernel 2's bf16-score variant (``attn_fp32=False``) at the 512^2
+     cached step against its plain version in bf16 softmax, with a planted
+     fault (the split off by one row) that must fail the check; event and
+     device ms beside the fp32 core on the same memory, the library on the
+     core's part; then the 512x512 ``fused`` pipeline with
+     ``model.showo.attn_fp32=False`` beside the fp32 one: 384 cores (all
+     bf16) + 384 passes + 16 maps a generate, s a generate in turns, token
+     agreement with the fp32 generate
+  28. the training throughput modes: on phase 24's trainer each remat rung
+     (``none``, ``qkv``, ``qkv_fc1``, ``qkv_attn``, ``qkv_fc1_attn``,
+     ``dots``) against ``full`` on one prepared batch (phase 25's limits);
+     the ladder of rungs under AdamW and adafactor at 12 rows (s a step,
+     peak memory, kernel 7's launches a step, or "out of memory", a
+     reading); one 16-row step under adafactor + ``qkv_fc1_attn``; then
+     bench.py's ``train_v1``, ``train_v1_fast``, ``train_v2`` and
+     ``train_v2_fast`` rows through their ``build_trainer`` (dense, the
+     mode from the config): a warm step and 3 on one batch, losses
+     falling, s a step, samples/s, peak memory
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -459,11 +483,34 @@ V2_TRAIN_COUNTERS = [n + D128 for n in list(TRAIN_KERNELS)[:3]
 # 151,940-wide cross entropy of the und row, largest), grad norm 1.0e-5 to
 # 2.0e-5; the limits ~11x and ~25x above the largest readings
 V2_TRAIN_LOSS_TOL, V2_TRAIN_GRAD_NORM_TOL = 5e-3, 5e-4
+# kernel 2's bf16-score launches (attn_fp32=False; also counted under
+# fused_decode), phase 27
+FUSED_BF16 = "fused_decode_bf16"
+# bench.py's four training rows (bench.py:336-376, :444-520, SUITE
+# :977-984), phase 28: name -> (slice, mode, Show-o2 rows).  v1: the stage-1
+# config's 15 t2i + 4 lm + 10 mmu rows of 387 tokens at 256x256; v2: rows of
+# 1024 tokens at 432x432, all t2i; bench.py's default route, dense
+TRAIN_ROWS = {
+    "train_v1": ("v1", dict(optimizer="adamw", remat="full",
+                            softmax="fp32"), None),
+    "train_v1_fast": ("v1", dict(optimizer="adafactor", remat="qkv_attn",
+                                 softmax="bf16"), None),
+    "train_v2": ("v2", dict(optimizer="adafactor", remat="qkv_fc1_attn",
+                            softmax="fp32"), 2),
+    "train_v2_fast": ("v2", dict(optimizer="adafactor",
+                                 remat="qkv_fc1_attn", softmax="bf16"), 3),
+}
+TRAIN_ROW_STEPS = 3
+# the remat ladder on phase 24's trainer (phase 28): the rungs, the
+# optimizers, the timed steps of a cell, and the rows of the one larger step
+RUNGS = ("full", "qkv", "qkv_fc1", "qkv_attn", "qkv_fc1_attn", "dots")
+RUNG_OPTIMIZERS = ("adamw", "adafactor")
+RUNG_STEPS, RUNG_BIG_BATCH = 2, 16
 # every launch counter of the port's kernels
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
             + [GQA_SOURCE, GQA_WGMMA, GQA_TILES, PACKED_WGMMA, FUSED_NORM,
-               *ROUTE_TILES.values()] + V2_TRAIN_COUNTERS)
+               FUSED_BF16, *ROUTE_TILES.values()] + V2_TRAIN_COUNTERS)
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -4282,7 +4329,8 @@ def phase_v2_train(torch, cuda_build, profile, trainer, smi, phase="24"):
     print(f"[{phase}] Show-o2 stage-1 training, route trainable, "
           f"{V2_TRAIN_BATCH} rows ({V2_TRAIN_BATCH - V2_TRAIN_UND} t2i, "
           f"{V2_TRAIN_UND} und) x {V2_TRAIN_SEQ[0]} tokens "
-          f"at 432x432, bf16 autocast, remat full: launches per step "
+          f"at 432x432, bf16 autocast, remat {trainer.sc.remat}, "
+          f"{trainer.sc.optimizer}: launches per step "
           f"{_per_step(counts, V2_TRAIN_STEPS)}, 0 of the other kernels; "
           f"losses {[round(x, 4) for x in losses]}; last step ntp "
           f"{last['loss_ntp']:.4f} flow {last['loss_flow']:.4f} grad_norm "
@@ -4404,6 +4452,379 @@ def phase_v2_cli(torch, cuda_build, phase="26"):
               f"{counts}")
         first = resumed = None
     return {"first_s": mid - t0, "resume_s": end - mid}
+
+
+def phase_fused_bf16(torch, np, inference_t2i, cuda_build, smi,
+                     phase="27"):
+    """Kernel 2's bf16-score variant (``attn_fp32=False``).  At the 512^2
+    cached step (phase 3's shape and layout, its own seeded tensors): the
+    whole and the core against their plain versions in bf16 softmax
+    (CARD_TOL), the core beside the fp32 variant on the same memory
+    (event and device ms), ``scaled_dot_product_attention`` on the
+    core's part, and a planted fault (the split off by one row: key and
+    value row P read from the cache) that the check must catch.  Then the
+    512x512 ``fused`` pipeline through ``build_pipeline`` with
+    ``model.showo.attn_fp32=False`` beside the fp32 one (the same seeded
+    weights): one warm generate each, the bf16 generate's launches (384
+    cores, all bf16, 384 passes, 16 maps), s a generate in turns (fp32,
+    bf16, bf16, fp32) and the token agreement of the two on the same
+    draws.  Returns {"kernel": result, "slice": ...}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.models.phi import rope_tables
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.ops import fused_decode as tfd
+
+    device, bf = torch.device("cuda"), torch.bfloat16
+    configs = {fp32: load_config("configs/showo_demo_512x512.yaml", [
+        "guidance_scale=1.75", f"generation_timesteps={TIMESTEPS}",
+        f"model.showo.attn_fp32={fp32}"]) for fp32 in (True, False)}
+    config = configs[False]
+    cfg = inference_t2i.build_showo_config(config)
+    if cfg.llm.attn_fp32:
+        raise AssertionError("model.showo.attn_fp32=False did not reach "
+                             "the model's config")
+    uni = inference_t2i.build_prompting(config)
+    prompts = inference_t2i.load_prompts(config)[:BATCH]
+    sp = uni.sptids
+    hidden = H * D
+    full = _t2i_layout(uni, prompts, 1024, cfg.mask_token_id, device)
+    B, L = full.shape
+    Q = L - P
+    meta = tfa.metadata_predict_next(full, sp["<|pad|>"], sp["<|soi|>"],
+                                     sp["<|eoi|>"])
+    pos = torch.arange(P, L, device=device)
+    rows = tfd.fused_rows(meta[0], meta[1], pos, P, B)
+    shape = f"B={B} Q={Q} K={L} H={H} D={D}"
+    g = torch.Generator(device=device).manual_seed(27)
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device=device).bfloat16()
+
+    y = randn(B, Q, 3 * hidden + cfg.llm.intermediate_size)
+    cache = randn(2, B, L, H, D)
+    ln = [(1 + 0.1 * torch.randn(D, generator=g, device=device)).bfloat16(),
+          (0.1 * torch.randn(D, generator=g, device=device)).bfloat16()]
+    cos, sin = rope_tables(pos, 32, cfg.llm.rope_theta)
+    ck, cv = cache[0, :, :P].flatten(2), cache[1, :, :P].flatten(2)
+    args = (y, ck, cv, ln, ln, cos, sin)
+    kw = dict(hidden=hidden, num_heads=H, rotary_dim=32, eps=1e-5)
+    part = dict(hidden=hidden, num_heads=H)
+    tiles = tfd.fused_tile_map(rows, meta[2], meta[3])
+    vis = tfa.visible_mask(rows[3], rows[4], meta[2], meta[3], rows[0],
+                           pos_k=rows[2], seg_q=rows[1])
+    flops = 4 * D * H * int(vis.sum())
+    meta_bytes = 4 * (2 * B * L + 2 * B + 2 * B * Q)
+    io = 2 * B * Q * hidden
+    whole = _compare(
+        torch, f"fused_decode_attention bf16 scores {shape}, both launches",
+        lambda: tfd.fused_decode_attention(*args, *meta, pos, rows=rows,
+                                           tiles=tiles, softmax_dtype=bf,
+                                           **kw),
+        lambda: tfd.fused_decode_attention_plain(
+            *args, meta[2], meta[3], rows, sm_scale=D ** -0.5,
+            softmax_dtype=bf, **kw),
+        _bound(4 * io + 2 * 2 * B * P * hidden + 2 * Q * 32 * 4 + 8 * D
+               + meta_bytes, flops), phase=phase)
+    qn, kn = tfd.norm_rope(y, ln, ln, cos, sin, **kw)
+
+    def core(dtype):
+        return lambda: tfd.fused_attend(qn, kn, y, ck, cv, meta[2], meta[3],
+                                        rows, tiles, softmax_dtype=dtype,
+                                        **part)
+
+    def core_plain(qn_, kn_, y_, ck_, cv_):
+        return tfd.fused_attend_plain(qn_, kn_, y_, ck_, cv_, meta[2],
+                                      meta[3], rows, sm_scale=D ** -0.5,
+                                      softmax_dtype=bf, **part)
+
+    keys = [torch.cat([ck, kn], 1),
+            torch.cat([cv, y[..., 2 * hidden:3 * hidden]], 1)]
+    heads = [t.unflatten(-1, (H, D)).transpose(1, 2) for t in [qn] + keys]
+    before = cuda_build.launches[FUSED_BF16]
+    r = _compare(
+        torch, f"fused_decode core bf16 scores {shape} (keys at pos_k, "
+        f"split at P={P})", core(bf), lambda: core_plain(qn, kn, y, ck, cv),
+        _bound(3 * io + 2 * 2 * B * P * hidden + meta_bytes + 4 * L, flops),
+        lambda: F.scaled_dot_product_attention(*heads,
+                                               attn_mask=vis[:, None]),
+        phase=phase)
+    if cuda_build.launches[FUSED_BF16] == before:
+        raise AssertionError("the bf16 core did not launch the bf16 variant")
+    r["whole"] = whole
+    r["fp32_ms"] = _time_ms(torch, core(torch.float32))
+    r["device_ms"] = _device_ms(torch, core(bf))
+    r["fp32_device_ms"] = _device_ms(torch, core(torch.float32))
+    diff = (core(bf)().float() - core(torch.float32)().float()).abs().max()
+    r["fp32_diff"] = diff.item()
+    # the planted fault: key and value row P from the cache's row P
+    ck1, cv1 = (t.as_strided((B, P + 1, hidden), t.stride())
+                for t in (ck, cv))
+    bad = core_plain(qn, kn[:, 1:], y[:, 1:], ck1, cv1)
+    fault = (bad.float() - core(bf)().float()).abs().max().item()
+    if not fault > CARD_TOL:
+        raise AssertionError(f"the planted fault passes the check: "
+                             f"{fault} <= {CARD_TOL}")
+    r["fault_err"] = fault
+    print(f"[{phase}] {shape}: the bf16-score core {r['ms']:.4f} ms beside "
+          f"the fp32 core on the same memory {r['fp32_ms']:.4f} ms (median "
+          f"of 20); device {_ms(r['device_ms'])} / "
+          f"{_ms(r['fp32_device_ms'])} a launch (profiler); bf16 against "
+          f"fp32 max |difference| {r['fp32_diff']:.3e}; the planted fault "
+          f"(split off by one row) {fault:.3e} > {CARD_TOL:.0e}: caught")
+
+    # the slice: the fused pipelines, fp32 and bf16 softmax
+    pipes = {}
+    for fp32 in (True, False):
+        t0 = time.perf_counter()
+        pipes[fp32] = inference_t2i.build_pipeline(configs[fp32], device,
+                                                   attn_impl="fused")
+        layer = pipes[fp32].model.showo.model.layers[0]
+        if not (pipes[fp32].attn_route == "fused"
+                and layer.cfg.attn_fp32 == fp32
+                and layer.cfg.num_layers == NUM_LAYERS):
+            raise AssertionError(f"not the full-width fused pipeline with "
+                                 f"attn_fp32={fp32}")
+        print(f"[{phase}] fused pipeline attn_fp32={fp32} built in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(0)
+
+    for p in pipes.values():
+        p.generate(prompts, gen())                            # warm-up
+    want = dict(_route_want("fused"), **{FUSED_BF16: NUM_LAYERS * TIMESTEPS})
+    cuda_build.launches.clear()
+    images = pipes[False].generate(prompts, gen())
+    counts = {name: cuda_build.launches[name] for name in want}
+    if counts != want:
+        raise AssertionError(f"bf16 fused generate: launches {counts}, "
+                             f"want {want}")
+    _check_images(np, images, (BATCH, 512, 512, 3), "bf16 fused generate")
+    walls = {True: [], False: []}
+    for fp32 in (True, False, False, True):
+        t0 = time.perf_counter()
+        pipes[fp32].generate(prompts, gen())
+        walls[fp32].append(time.perf_counter() - t0)
+    codes = {fp32: p.generate_codes(prompts, gen())
+             for fp32, p in pipes.items()}
+    agree = (codes[True] == codes[False]).float().mean().item()
+    s = {fp32: statistics.median(w) for fp32, w in walls.items()}
+    print(f"[{phase}] slice t2i 512x512 route fused, attn_fp32=False, "
+          f"{TIMESTEPS} steps, CFG 1.75, batch {BATCH}: launches per "
+          f"generate {counts['fused_decode']} cores, all bf16 "
+          f"({counts[FUSED_BF16]}), {counts[FUSED_NORM]} LN + RoPE passes, "
+          f"{counts['fused_decode_tiles']} tile maps, 0 of the others; "
+          f"images finite in [-1, 1]; warm wall {s[False]:.4f} s a generate "
+          f"beside the fp32 softmax's {s[True]:.4f} s (in turns fp32, bf16, "
+          f"bf16, fp32: {', '.join(f'{w:.4f}' for w in walls[False])} / "
+          f"{', '.join(f'{w:.4f}' for w in walls[True])}), "
+          f"{BATCH * 60.0 / s[False]:.2f} images/min; tokens equal to the "
+          f"fp32 generate's on the same draws: {agree:.4f} on {smi}")
+    pipes = None
+    return {"kernel": r, "launches": counts[FUSED_BF16],
+            "slice": {"s": s[False], "fp32_s": s[True], "walls": walls[False],
+                      "fp32_walls": walls[True], "agreement": agree,
+                      "counts": {n: c for n, c in counts.items() if c}}}
+
+
+def _v2_mode(torch, trainer, remat: str, optimizer: str):
+    """The trainer's step under the remat policy ``remat`` and the
+    optimizer ``optimizer`` (built afresh, as ``make_stage1_optimizer``
+    builds it, when it changes)."""
+    from showo_tpu_torch.show_o2.train_stage_one import Stage1Step
+
+    sc = dataclasses.replace(trainer.sc, remat=remat, optimizer=optimizer)
+    if optimizer != trainer.sc.optimizer:
+        trainer.optimizer = trainer.step_fn.optimizer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer.sc = sc
+        trainer.optimizer = trainer.make_optimizer()
+    trainer.sc = sc
+    trainer.step_fn = Stage1Step(trainer.model, trainer.vae, sc,
+                                 trainer.transport, trainer.optimizer,
+                                 trainer.step_fn.autocast_dtype)
+
+
+def _rung_steps(torch, cuda_build, trainer, batch, steps):
+    """A warm step, then ``steps`` timed ones: (s a step, peak GiB,
+    kernel 7's launches a step), or None where the card ran out of
+    memory."""
+    oom = False
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        float(trainer.train_step(batch, gen)["loss"])
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        walls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            float(trainer.train_step(batch, gen)["loss"])
+            walls.append(time.perf_counter() - t0)
+    except torch.cuda.OutOfMemoryError:
+        oom = True
+    gc.collect()                      # the error's frames are gone here
+    torch.cuda.empty_cache()
+    if oom:
+        return None
+    launches = {n: cuda_build.launches[n] / steps
+                for n in list(TRAIN_KERNELS)[:3]}
+    return {"s": statistics.median(walls), "walls": walls,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+
+
+def phase_rungs(torch, cuda_build, trainer, smi, phase="28"):
+    """The remat rungs on phase 24's trainer (the full-width Show-o2
+    stage-1 trainer on ``trainable``).  First, on one prepared batch (2
+    rows x 1024, one und), each rung's losses and grad norm against
+    ``full``'s within phase 25's limits.  Then the ladder at phase 24's
+    shape (V2_TRAIN_BATCH rows x 1024): every rung of RUNGS under AdamW
+    and under adafactor, a warm step and RUNG_STEPS timed ones: s a step,
+    peak memory, kernel 7's launches a step (76 forwards: the forward is
+    recomputed under every rung), or "out of memory" (a reading, not a
+    failure; any other exception fails the phase); and one step of
+    RUNG_BIG_BATCH rows under adafactor + ``qkv_fc1_attn``.  Returns
+    {"parity": ..., "ladder": ..., "big": ...}."""
+    from showo_tpu_torch.profile_train import v2_batch
+    from showo_tpu_torch.training.train_step import global_norm
+
+    n_img = trainer.model.cfg.num_image_tokens
+    prepared = trainer.step_fn.prepare(trainer.device_batch(v2_batch(
+        n_img, 2, V2_TRAIN_SEQ[0], und=1)), torch.Generator(
+            device="cuda").manual_seed(28))
+    got = {}
+    for rung in ("full", "none") + RUNGS[1:]:
+        trainer.step_fn.sc = dataclasses.replace(trainer.sc, remat=rung)
+        total, parts, grads = trainer.step_fn.loss_and_grads(prepared)
+        got[rung] = [float(x) for x in (total, *parts, global_norm(grads))]
+        grads = None
+    trainer.step_fn.sc = trainer.sc
+    prepared = None
+    names = ("loss", "loss_ntp", "loss_flow", "grad_norm")
+    rel = {r: {n: abs(a - b) / abs(b)
+               for n, a, b in zip(names, got[r], got["full"])} for r in got}
+    bad = [r for r in rel if any(
+        e > (V2_TRAIN_GRAD_NORM_TOL if n == "grad_norm"
+             else V2_TRAIN_LOSS_TOL) for n, e in rel[r].items())]
+    print(f"[{phase}] rung parity, one step on one prepared batch (2 rows x "
+          f"{V2_TRAIN_SEQ[0]}, one und; trainable, bf16 autocast), loss, "
+          f"ntp, flow, grad norm: "
+          + "; ".join(f"{r} " + ", ".join(f"{v:.6f}" for v in got[r])
+                      + f" (largest relative difference to full's "
+                      f"{max(rel[r].values()):.2e})" for r in got)
+          + f"; tol {V2_TRAIN_LOSS_TOL} (losses), {V2_TRAIN_GRAD_NORM_TOL} "
+          f"(grad norm)")
+    if bad:
+        raise AssertionError(f"rungs {bad} differ from full: {rel}")
+    batch = v2_batch(n_img, V2_TRAIN_BATCH, V2_TRAIN_SEQ[0],
+                     und=V2_TRAIN_UND)
+    ladder = {}
+    for optimizer in RUNG_OPTIMIZERS:
+        for rung in RUNGS:
+            _v2_mode(torch, trainer, rung, optimizer)
+            res = _rung_steps(torch, cuda_build, trainer, batch, RUNG_STEPS)
+            ladder[f"{optimizer} {rung}"] = res or "out of memory"
+            what = ("out of memory" if res is None else
+                    f"{res['s']:.4f} s a step "
+                    f"({', '.join(f'{w:.4f}' for w in res['walls'])}), "
+                    f"{V2_TRAIN_BATCH / res['s']:.3f} samples/s, peak "
+                    f"{res['peak_gib']:.2f} GiB, kernel 7 a step "
+                    f"{res['launches']}")
+            what += (f"; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                     f"held after it")
+            print(f"[{phase}] ladder {V2_TRAIN_BATCH} rows x "
+                  f"{V2_TRAIN_SEQ[0]}, trainable, {optimizer}, remat "
+                  f"{rung}: {what}")
+    _v2_mode(torch, trainer, "qkv_fc1_attn", "adafactor")
+    big = _rung_steps(torch, cuda_build, trainer, v2_batch(
+        n_img, RUNG_BIG_BATCH, V2_TRAIN_SEQ[0], und=V2_TRAIN_UND), 1)
+    print(f"[{phase}] one step of {RUNG_BIG_BATCH} rows x {V2_TRAIN_SEQ[0]} "
+          f"under adafactor + qkv_fc1_attn: "
+          + ("out of memory" if big is None else
+             f"{big['s']:.4f} s, {RUNG_BIG_BATCH / big['s']:.3f} samples/s, "
+             f"peak {big['peak_gib']:.2f} GiB")
+          + f" on {smi}")
+    return {"parity": rel, "ladder": ladder, "big": big or "out of memory"}
+
+
+def _train_row(torch, cuda_build, name, smi, phase="28"):
+    """One of bench.py's training rows (TRAIN_ROWS) through its trainer's
+    ``build_trainer`` on the dense route (bench.py's default), the mode
+    set by the config keys of ``profile_train.mode_overrides``: a warm
+    step, then TRAIN_ROW_STEPS steps on the one batch with fixed draws
+    (losses falling), s a step, samples/s, peak memory."""
+    from showo_tpu_torch.profile_train import (mode_overrides, stage1_config,
+                                               train_batch, v2_batch,
+                                               v2_config)
+
+    slice_, mode, rows = TRAIN_ROWS[name]
+    overrides = mode_overrides(**mode)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    if slice_ == "v1":
+        from showo_tpu_torch.training.train_showo import build_trainer
+
+        trainer = build_trainer(stage1_config(*overrides), dev,
+                                attn_impl="dense")
+        batch, noise = train_batch(trainer)
+        tc, llm = trainer.tc, trainer.cfg.llm
+        rows = sum(trainer.step_fn.sizes)
+        fp32 = llm.attn_fp32
+
+        def step():
+            return trainer.train_step(*batch, noise=noise)
+    else:
+        from showo_tpu_torch.show_o2.train_stage_one import build_trainer
+
+        trainer = build_trainer(v2_config(*overrides), dev,
+                                attn_impl="dense")
+        hb = v2_batch(trainer.model.cfg.num_image_tokens, rows,
+                      V2_TRAIN_SEQ[0])
+        tc, c = trainer.sc, trainer.model.cfg
+        fp32 = c.llm.attn_fp32
+        if c.dit.attn_fp32 != fp32:
+            raise AssertionError("the towers' softmax dtypes differ")
+
+        def step():
+            return trainer.train_step(
+                hb, torch.Generator(device="cuda").manual_seed(28))
+    if (tc.optimizer, tc.remat, fp32) != (mode["optimizer"], mode["remat"],
+                                          mode["softmax"] == "fp32"):
+        raise AssertionError(f"{name}: the trainer runs {tc.optimizer}, "
+                             f"{tc.remat}, attn_fp32={fp32}, not {mode}")
+    setup = time.perf_counter() - t0
+    step()                                                    # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    walls, losses = [], []
+    for _ in range(TRAIN_ROW_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {n: c for n, c in cuda_build.launches.items() if c}
+    if launched:
+        raise AssertionError(f"{name}: the dense route launched {launched}")
+    if not (all(x == x and abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses not finite and falling on one "
+                             f"batch: {losses}")
+    wall = statistics.median(walls)
+    print(f"[{phase}] {name} ({slice_}, {rows} rows, dense, {mode}; built "
+          f"in {setup:.1f} s): losses {[round(x, 4) for x in losses]}; step "
+          f"{wall:.4f} s (median of {TRAIN_ROW_STEPS}: "
+          f"{', '.join(f'{w:.4f}' for w in walls)}), {rows / wall:.3f} "
+          f"samples/s, peak memory allocated {peak:.2f} GiB on {smi}")
+    trainer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "mode": mode, "step_s": wall, "walls": walls,
+            "samples_per_s": rows / wall, "peak_gib": peak,
+            "losses": losses}
 
 
 def main() -> int:
@@ -4737,14 +5158,30 @@ def main() -> int:
     v2_train = phase_v2_train(torch, cuda_build, profile, trainer, smi)
     # [25] trainable vs dense, one full-width step
     v2_train["slice"]["parity"] = phase_v2_train_parity(torch, trainer)
-    trainer = None
-    gc.collect()
-    torch.cuda.empty_cache()
-    # [26] the stage-1 CLI itself: two steps, checkpoints, a resume
+    # [26] the stage-1 CLI itself: two steps, checkpoints, a resume (phase
+    # 24's trainer kept for phase 28's ladder)
     v2_train["slice"]["cli"] = phase_v2_cli(torch, cuda_build)
     gc.collect()
     torch.cuda.empty_cache()
     parts.append(("Show-o2 stage-1 training [23-26]", time.perf_counter()))
+
+    # [27] kernel 2's bf16-score variant, and the fused generate under it
+    fused_bf16 = phase_fused_bf16(torch, np, inference_t2i, cuda_build, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("kernel 2 bf16 [27]", time.perf_counter()))
+
+    # [28] the training throughput modes: the remat ladder on phase 24's
+    # trainer, then bench.py's four training rows, each through its
+    # build_trainer
+    rungs = phase_rungs(torch, cuda_build, trainer, smi)
+    trainer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rows = {}
+    for name in TRAIN_ROWS:
+        train_rows[name] = _train_row(torch, cuda_build, name, smi)
+    parts.append(("training modes [28]", time.perf_counter()))
 
     kernels = []
     for route, (name, replaces) in KERNELS.items():
@@ -4852,6 +5289,15 @@ def main() -> int:
                         "replaces": f"{KERNELS[route][1]} ({what})",
                         "launches": route_launches[route][name],
                         **results[f"{route}_tiles"], "case": "512"})
+    kernels.append({"name": FUSED_BF16, "route": "cuda",
+                    "source": "showo_tpu_torch/csrc/fused_decode.cu (+ "
+                              "attention_fwd_sm90.cuh, BF16S)",
+                    "replaces": KERNELS["fused"][1] + " (softmax_dtype="
+                                "bfloat16: attn_fp32=False)",
+                    "launches": fused_bf16["launches"],
+                    **fused_bf16["kernel"], "case": "512",
+                    "part": "the core's launch; 'whole': both launches",
+                    "slice": fused_bf16["slice"]})
     kernels.append({"name": FUSED_NORM, "route": "cuda",
                     "source": "showo_tpu_torch/csrc/fused_decode.cu",
                     "replaces": KERNELS["fused"][1] + " (the LayerNorm and "
@@ -4913,7 +5359,10 @@ def main() -> int:
                             **v2_train_results[name + D128],
                             "case": f"Qwen2.5 12/2 D=128, S={seq}",
                             **({"slice": v2_train["slice"]}
-                               if seq == V2_TRAIN_SEQ[0] else {})})
+                               if seq == V2_TRAIN_SEQ[0] else {}),
+                            **({"rungs": rungs, "train_rows": train_rows}
+                               if seq == V2_TRAIN_SEQ[0]
+                               and name.endswith("_fwd") else {})})
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

@@ -39,7 +39,10 @@
 //       j < P from the cache views, rows j >= P from the fresh rows'
 //       buffers (row j - P), and the keys at the positions Meta::kpos.
 //       Replaces, after the LN + RoPE pass of that source, the Pallas
-//       _kernel of showo_tpu/ops/fused_decode.py::fused_decode_attention.
+//       _kernel of showo_tpu/ops/fused_decode.py::fused_decode_attention;
+//       with BF16S its softmax_dtype=bfloat16 variant: each score
+//       q.k * sm_scale (masked) rounded to bf16 before the softmax, each
+//       probability rounded to bf16 before the row sum.
 //   MASK_BIAS, kernel 3 (decode_attention.cu) at head dim 64: the mask
 //     arrives as an additive fp32 bias [B, 1, Q, K] read through its
 //     strides; score = (q.k * sm_scale + bias) in the log2 domain, the
@@ -319,6 +322,14 @@ bias_tile_map_kernel(const float* __restrict__ bias, long long sb,
 // position i, seg[b, i]).  MASK_BIAS reads no metadata; S is then K.
 // SPLIT (kernel 2): key rows j >= split.p from split.k / split.v, keys at
 // the positions mt.kpos.
+// BF16S (kernel 2's bf16 softmax): ``scale`` is sm_scale itself, and a
+// visible logit is bf16(q.k * sm_scale) * log2 e, as the JAX kernel rounds
+// its scores to bf16 before the softmax; the probabilities are rounded to
+// bf16 before the row sum (tile::softmax_update's ROUND_P).  Otherwise
+// ``scale`` is sm_scale * log2 e.  The online softmax rescales the tiles
+// seen so far where JAX takes one max over the row, so the two round at
+// different points: the variant is held to its plain version at the
+// card's attention limit, not bit for bit.
 // W > 1 (kernel 6, MASK_MEAN): grid (ceil(Q / 64), Hkv * ceil(G / W), B)
 // for a group of G = ``group`` q heads a kv head, W warpgroups a block:
 // warpgroup w runs q head slice * W + w of the group (the last slice's
@@ -329,7 +340,8 @@ bias_tile_map_kernel(const float* __restrict__ bias, long long sb,
 // same bits.  A stage is refilled only after the block barrier at the top
 // of an iteration, which all W warpgroups reach after their last product
 // on it.
-template <int HD, int MASK, bool SPLIT = false, int W = 1>
+template <int HD, int MASK, bool SPLIT = false, int W = 1,
+          bool BF16S = false>
 __global__ void __launch_bounds__(W * THREADS,
                                   FwdCfg<HD, MASK, SPLIT, W>::BLOCKS)
 wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -337,9 +349,11 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float* __restrict__ lse, Meta mt, agrad::Rows rows,
                  Bias bias, const uint8_t* __restrict__ tiles, int ld, int Q,
                  int S, int group, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale_log2, float sentinel, Split split) {
+                 Strides os, float scale, float sentinel, Split split) {
   static_assert(W == 1 || (MASK == MASK_MEAN && !SPLIT),
                 "several warpgroups: kernel 6's mask only");
+  static_assert(!BF16S || (MASK == MASK_MEAN && SPLIT),
+                "bf16 scores: kernel 2 only");
   using C = FwdCfg<HD, MASK, SPLIT, W>;
   constexpr bool BIAS = C::BIAS;
   constexpr int P = HD / 64;  // panels of a head row
@@ -348,6 +362,13 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // loop's back edge, it made ptxas serialize every wgmma of the kernel:
   // warning C7515.)
   constexpr int LOOKAHEAD = C::STAGES - 1;
+  // a visible score in the log2 domain
+  auto logit = [scale](float x) {
+    if constexpr (BF16S)
+      return __bfloat162float(__float2bfloat16_rn(x * scale)) * tile::LOG2E;
+    else
+      return x * scale;
+  };
   extern __shared__ __align__(1024) uint8_t ring_smem[];
   const uint32_t sb = smem_u32(ring_smem);
   int* list = reinterpret_cast<int*>(ring_smem + C::LIST) + 1;
@@ -502,7 +523,7 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] *= scale_log2;
+        for (int c = 0; c < 4; ++c) s[j][c] = logit(s[j][c]);
     } else {
       const int k0 = (entry >> 1) * BLK;
       const int* seg_s =
@@ -520,11 +541,11 @@ wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   ? tile::MASKED
                   : -INFINITY;
           s[j][c] = (vis >> agrad::bit(c >> 1, j, c & 1)) & 1u
-                        ? s[j][c] * scale_log2
+                        ? logit(s[j][c])
                         : masked;
         }
     }
-    tile::softmax_update<HD, tile::Exp2Ftz>(s, m, l, o);
+    tile::softmax_update<HD, tile::Exp2Ftz, BF16S>(s, m, l, o);
     uint32_t a[4][4];
     to_a(s, a);
     // O += P.V: V read as the MN-major B operand, 16 keys a step, one n64
@@ -591,8 +612,10 @@ inline int launch_bias_tile_map(const float* bias, long long sb,
 // attention), lse written where not null.  MASK_MEAN: q rows by ``rows``,
 // lse null; with SPLIT the keys' second source ``split`` and their
 // positions mt.kpos.  MASK_BIAS: ``bias``, no metadata, lse null; S is K.
-// W > 1 (MASK_MEAN): W q heads of a kv head a block (kernel 6).
-template <int HD, int MASK, bool SPLIT = false, int W = 1>
+// W > 1 (MASK_MEAN): W q heads of a kv head a block (kernel 6).  BF16S:
+// kernel 2's bf16 scores (see wgmma_fwd_kernel).
+template <int HD, int MASK, bool SPLIT = false, int W = 1,
+          bool BF16S = false>
 inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, Meta mt, agrad::Rows rows, Bias bias,
                       const uint8_t* tiles, bool flagged, int B, int Q, int S,
@@ -601,7 +624,7 @@ inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       void* stream, Split split = {}) {
   const int nk = tiles_of(S), smem = FwdCfg<HD, MASK, SPLIT, W>::smem(nk);
   const int group = H / Hkv;
-  auto kernel = wgmma_fwd_kernel<HD, MASK, SPLIT, W>;
+  auto kernel = wgmma_fwd_kernel<HD, MASK, SPLIT, W, BF16S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int heads = W == 1 ? H : Hkv * ((group + W - 1) / W);
@@ -610,7 +633,7 @@ inline int launch_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mt, rows,
       bias, tiles, flagged ? nk + 1 : nk, Q, S, group, qs, ks, vs, os,
-      sm_scale * tile::LOG2E, sentinel, split);
+      BF16S ? sm_scale : sm_scale * tile::LOG2E, sentinel, split);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -74,7 +74,9 @@ __device__ __forceinline__ int tile_row() { return tile_row(threadIdx.x); }
 // m = -inf and l = 0 and adds nothing to o.  The inference kernels mask
 // with the finite MASKED, so their running max is finite from the first
 // tile on and the guard never fires for them.  ``Ex``: the exponential.
-template <int HD, typename Ex>
+// ROUND_P: each probability is rounded to bf16 before the row sum, so the
+// sum is that of the weights P.V multiplies (the bf16-softmax variant).
+template <int HD, typename Ex, bool ROUND_P = false>
 __device__ __forceinline__ void softmax_update(float s[NK][4], float m[2],
                                                float l[2],
                                                float o[HD / 8][4]) {
@@ -104,6 +106,11 @@ __device__ __forceinline__ void softmax_update(float s[NK][4], float m[2],
     s[n][1] = ex2(s[n][1] - ms0);
     s[n][2] = ex2(s[n][2] - ms1);
     s[n][3] = ex2(s[n][3] - ms1);
+    if constexpr (ROUND_P) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[n][c] = __bfloat162float(__float2bfloat16_rn(s[n][c]));
+    }
     sum0 += s[n][0] + s[n][1];
     sum1 += s[n][2] + s[n][3];
   }

@@ -1,8 +1,10 @@
 // The cached MaskGIT step's attention, for Hopper (sm_90a): per-head q/k
 // LayerNorm, partial NeoX RoPE, the [prefix | fresh] K/V concat and
 // omni-masked attention, read straight off the fused ``win`` projection
-// output (kernel 2).  bf16 in and out, fp32 LayerNorm, scores, softmax and
-// accumulation.
+// output (kernel 2).  bf16 in and out, fp32 LayerNorm and accumulation,
+// fp32 scores and softmax, or with ``bf16_scores`` the JAX kernel's
+// softmax_dtype=bfloat16: scores rounded to bf16 after the scale and mask,
+// probabilities rounded to bf16 before the row sum.
 //
 // Replaces showo_tpu/ops/fused_decode.py::fused_decode_attention (Pallas
 // kernel _kernel).  For batch b, head h, fresh row i (of S) and key j (of
@@ -16,7 +18,7 @@
 //                   | (seg_q[b,i] == seg_k[b,j] & seg_q[b,i] > 0)
 //                   | pos_k[j] < prefix[b] ]
 //                 & ( pad_k[b,j] == 0 | pos_q[b,i] <= last_pad[b] )
-//   out[b, i, h*D : h*D+D] = softmax_fp32(q_i.k^T * sm_scale, masked) . v
+//   out[b, i, h*D : h*D+D] = softmax(q_i.k^T * sm_scale, masked) . v
 //
 // Numerics follow the JAX kernel: LayerNorm in fp32, two-pass (mean, then
 // centred variance), rsqrt(var + eps), the affine in fp32, then a cast to
@@ -223,7 +225,8 @@ extern "C" int fused_decode_norm_rope_bf16(
 // block (columns 2*hidden on, strides y_sb / y_sr) for the fresh V rows;
 // ck / cv [B, P, hidden] cache views (strides ck_sb / ck_sr, cv_sb /
 // cv_sr); out [B, S, hidden] (strides o_sb / o_sr); the metadata int32 as
-// for fused_decode_tiles; ``tiles``: that map.
+// for fused_decode_tiles; ``tiles``: that map.  bf16_scores != 0: the
+// bf16-softmax variant of the core (BF16S).
 extern "C" int fused_decode_attention_bf16(
     const void* qn, const void* kn, const void* y, const void* ck,
     const void* cv, void* out, const int* seg_k, const int* pad_k,
@@ -231,7 +234,8 @@ extern "C" int fused_decode_attention_bf16(
     const int* pos_q, const int* seg_q, const unsigned char* tiles, int B,
     int S, int P, int H, int head_dim, long long y_sb, long long y_sr,
     long long ck_sb, long long ck_sr, long long cv_sb, long long cv_sr,
-    long long o_sb, long long o_sr, float sm_scale, void* stream) {
+    long long o_sb, long long o_sr, float sm_scale, int bf16_scores,
+    void* stream) {
   if (head_dim != fused::D || tiles == nullptr || pos_k == nullptr || P < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long d = fused::D, hidden = H * d;
@@ -240,9 +244,15 @@ extern "C" int fused_decode_attention_bf16(
       static_cast<const tile::bf16*>(kn),
       static_cast<const tile::bf16*>(y) + 2 * hidden, fresh,
       {y_sb, d, y_sr}, P};
+  const agrad90::Meta mt{seg_k, pad_k, last_pad, prefix, pos_k};
+  const agrad::Rows rows{pos_q, seg_q};
+  const tile::Strides ks{ck_sb, d, ck_sr}, vs{cv_sb, d, cv_sr},
+      os{o_sb, d, o_sr};
+  if (bf16_scores)
+    return agrad90::launch_fwd<64, agrad90::MASK_MEAN, true, 1, true>(
+        qn, ck, cv, out, nullptr, mt, rows, {}, tiles, true, B, S, P + S, H,
+        H, fresh, ks, vs, os, sm_scale, 0.f, stream, split);
   return agrad90::launch_fwd<64, agrad90::MASK_MEAN, true>(
-      qn, ck, cv, out, nullptr, {seg_k, pad_k, last_pad, prefix, pos_k},
-      {pos_q, seg_q}, {}, tiles, true, B, S, P + S, H, H, fresh,
-      {ck_sb, d, ck_sr}, {cv_sb, d, cv_sr}, {o_sb, d, o_sr}, sm_scale, 0.f,
-      stream, split);
+      qn, ck, cv, out, nullptr, mt, rows, {}, tiles, true, B, S, P + S, H, H,
+      fresh, ks, vs, os, sm_scale, 0.f, stream, split);
 }

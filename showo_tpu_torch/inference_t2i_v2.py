@@ -60,7 +60,12 @@ FAKE_TOKEN_IDS = dict(bos_id=1, eos_id=2, boi_id=3, eoi_id=4, pad_id=5,
 
 
 def build_showo2_config(config) -> Showo2Config:
+    """The model's dims from ``model.showo``; ``attn_fp32`` (default true)
+    false sets the bf16 softmax of the dense route in Qwen2.5 and the DiT
+    (bench.py's ``softmax=bf16``, which the JAX package sets by replacing
+    both configs)."""
     m = config.model.showo
+    fp32 = bool(m.get("attn_fp32", True))
     llm = Qwen2Config(
         hidden_size=m.hidden_size,
         vocab_size=m.get("llm_vocab_size") or 151940,
@@ -70,6 +75,7 @@ def build_showo2_config(config) -> Showo2Config:
         num_kv_heads=m.get("llm_num_kv_heads", 2),
         head_dim=m.get("llm_head_dim", 128),
         tie_word_embeddings=m.get("llm_tie_word_embeddings", True),
+        attn_fp32=fp32,
     )
     # optional dim-override dicts for tiny runs; defaults = released dims
     sig = {k: int(v) for k, v in dict(m.get("siglip", {})).items()}
@@ -78,7 +84,7 @@ def build_showo2_config(config) -> Showo2Config:
         llm=llm,
         siglip=SigLipConfig(**sig),
         dit=DiffusionHeadConfig(num_layers=m.get("num_diffusion_layers", 10),
-                                **dit_ov),
+                                attn_fp32=fp32, **dit_ov),
         image_latent_dim=m.image_latent_dim,
         image_latent_height=m.image_latent_height,
         image_latent_width=m.image_latent_width,

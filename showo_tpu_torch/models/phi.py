@@ -20,8 +20,10 @@ Per-head LayerNorm has one plain form here; the JAX package switches to a
 segment-matmul form between 400 and 4096 rows, which differs at fp32 eps.
 
 Training keeps the reference layout (separate q/k/v, ``dense``, ``fc1``,
-``fc2``) and passes ``remat`` to ``Phi.forward`` ("full": each layer
-recomputed in the backward, ``utils/remat.py``).
+``fc2``) and passes ``remat`` to ``Phi.forward``: each layer under a
+policy of ``utils/remat.py``, its projections tagged at JAX's places
+(``qkv_out`` on q / k / v, ``fc1_out`` on fc1, ``attn_out`` on the
+attention's output; ``dense`` and ``fc2`` feed only the residual sum).
 
 Weight-only int8 serving (:func:`quantize_int8`, JAX ``quantize_int8``)
 turns every matmul of any layout, and ``lm_head``, into an
@@ -53,7 +55,7 @@ from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
 from showo_tpu_torch.ops.streaming_attention import (
     omni_attention_streaming, streaming_tile_map)
-from showo_tpu_torch.utils.remat import wrap_remat
+from showo_tpu_torch.utils.remat import keep, project, wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
 #   dense      einsum attention under the additive bias (no kernel)
@@ -263,6 +265,18 @@ def apply_rope(q, k, cos, sin, rotary_dim: int):
     return torch.cat([q_rot, q_pass], -1), torch.cat([k_rot, k_pass], -1)
 
 
+def qk_scores(equation: str, q, k, softmax_dtype) -> torch.Tensor:
+    """``einsum(equation, q, k)`` in ``softmax_dtype`` as JAX's
+    ``preferred_element_type`` forms it: the products of the stored
+    operands accumulated in fp32, the sum rounded to ``softmax_dtype``
+    (bf16 operands in a bf16 product, which accumulates in fp32; wider ones
+    multiplied in fp32, never rounded to bf16 first)."""
+    if softmax_dtype == torch.float32 or q.dtype != softmax_dtype \
+            or k.dtype != softmax_dtype:
+        return torch.einsum(equation, q.float(), k.float()).to(softmax_dtype)
+    return torch.einsum(equation, q, k)
+
+
 def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
               softmax_dtype=torch.float32):
     """q: [B, Q, H, Dh]; k, v: [B, K, H, Dh]; bias: [B, 1, Q, K] additive.
@@ -271,10 +285,12 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
     route's kernel: ``packed`` / ``omni`` / ``fused`` / ``streaming`` /
     ``trainable`` recompute the mask from metadata (the bias is unused),
     ``decode`` adds the bias.  None takes the dense path: scores in
-    ``softmax_dtype`` from exact products of the stored operands, softmax,
-    probabilities cast to v's dtype, outside autocast (so a bf16 autocast
-    region keeps fp32 scores).  The kernels' scores and softmax are fp32 whatever
-    ``softmax_dtype`` says, as in JAX.
+    ``softmax_dtype`` from the products of the stored operands accumulated
+    in fp32 (:func:`qk_scores`), softmax, probabilities cast to v's dtype,
+    outside autocast (so a bf16 autocast region keeps fp32 scores).  The
+    kernels called here keep fp32 scores and softmax whatever
+    ``softmax_dtype`` says, as in JAX (the static-prefix step of ``fused``,
+    kernel 2, takes both: ``PhiDecoderLayer._fused_step``).
     """
     if attn_meta is not None:
         m = attn_meta
@@ -312,8 +328,8 @@ def attention(q, k, v, bias, attn_meta: Optional[AttnStep] = None,
         return out.transpose(1, 2)
     head_dim = q.shape[-1]
     with torch.autocast(q.device.type, enabled=False):
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
-                              k.to(softmax_dtype)) / math.sqrt(head_dim)
+        scores = qk_scores("bqhd,bkhd->bhqk", q, k,
+                           softmax_dtype) / math.sqrt(head_dim)
         if bias is not None:
             scores = scores + bias.to(softmax_dtype)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -367,10 +383,11 @@ class PhiDecoderLayer(nn.Module):
                     y[..., 3 * D:])
         a = self.self_attn
         if hasattr(a, "qkv"):
-            q, k, v = a.qkv(x).split(D, dim=-1)
+            q, k, v = project(a.qkv, x, "qkv_out").split(D, dim=-1)
         else:
-            q, k, v = a.q_proj(x), a.k_proj(x), a.v_proj(x)
-        return q, k, v, self.mlp.fc1(x)
+            q, k, v = (project(p, x, "qkv_out")
+                       for p in (a.q_proj, a.k_proj, a.v_proj))
+        return q, k, v, project(self.mlp.fc1, x, "fc1_out")
 
     def project_out(self, h, attn, mlp_pre):
         """The residual output of the layer from attention [B, S, D] and
@@ -378,7 +395,8 @@ class PhiDecoderLayer(nn.Module):
         mlp = F.gelu(mlp_pre, approximate="tanh")
         if hasattr(self, "wout"):
             return h + self.wout(torch.cat([attn, mlp], dim=-1))
-        return h + self.self_attn.dense(attn) + self.mlp.fc2(mlp)
+        return (h + project(self.self_attn.dense, attn, tail=True)
+                + project(self.mlp.fc2, mlp, tail=True))
 
     def forward(self, h, bias, cos, sin, cache_kv=None, cache_index=None,
                 attn_meta: Optional[AttnStep] = None,
@@ -410,10 +428,10 @@ class PhiDecoderLayer(nn.Module):
                 k_att, v_att = ck, cv
         else:
             k_att, v_att = k, v
-        attn = attention(
+        attn = keep("attn_out", attention(
             q, k_att, v_att, bias, attn_meta,
-            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
-        ).reshape(B, S, D)
+            softmax_dtype=torch.float32 if cfg.attn_fp32 else torch.bfloat16,
+        ).reshape(B, S, D))
         return self.project_out(h, attn, mlp_pre)
 
     def _fused_step(self, h, x, cos, sin, cache_kv, m: AttnStep):
@@ -433,7 +451,7 @@ class PhiDecoderLayer(nn.Module):
             m.seg, m.pad, m.last_pad, m.prefix, m.pos_q[0], hidden=D,
             num_heads=cfg.num_heads, rotary_dim=cfg.rotary_dim,
             eps=cfg.layer_norm_eps,
-            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype,
+            softmax_dtype=torch.float32 if cfg.attn_fp32 else torch.bfloat16,
             rows=m.fused, tiles=m.tiles)
         return self.project_out(h, attn, y[..., 3 * D:])
 
@@ -543,8 +561,8 @@ class Phi(nn.Module):
             cache.length = cache.length + S
         else:
             for layer in self.model.layers:
-                h = wrap_remat(layer, remat)(h, bias, cos, sin,
-                                             attn_meta=attn_meta)
+                h = wrap_remat(layer, remat)(h, bias, cos, sin, None, None,
+                                             attn_meta)
 
         h = layer_norm(h, self.model.final_layernorm)
         cols = None

@@ -23,8 +23,13 @@ Numerics are the JAX kernel's: LayerNorm in fp32 (two-pass mean and
 centred variance, ``rsqrt(var + eps)``, affine in fp32) cast to the
 storage dtype; RoPE in the storage dtype, each product rounded; scores
 and softmax in ``softmax_dtype``; probabilities cast to v's dtype.  The
-kernel takes the fp32 softmax only (``attn_fp32=True``, the default);
-for a bf16 softmax on a CUDA tensor the wrapper raises.
+core takes both softmax dtypes: fp32 (``attn_fp32=True``, the default)
+and bf16 (``attn_fp32=False``), where the fp32 score q.k * sm_scale,
+masked, is rounded to bf16 before the softmax and each probability to
+bf16 before the row sum (the core's ``BF16S`` instance, counted under
+``BF16_KERNEL`` too).  The online softmax rounds at other points than
+JAX's one max over the row, so the bf16 variant is held to its plain
+version at the attention limit, not bit for bit.
 
 Two launches compute it (see the source for the design and its bound
 on an H100): :func:`norm_rope`, one pass of LayerNorm + RoPE over the
@@ -64,11 +69,14 @@ from showo_tpu_torch.ops.flash_attention import (NEG_INF, _check_head_dim,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _NORM_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 2 + [_F]
-_ATTEND_ARGS = [_P] * 14 + [_I] * 5 + [_L] * 8 + [_F]
+_ATTEND_ARGS = [_P] * 14 + [_I] * 5 + [_L] * 8 + [_F, _I]
 SOURCE = "fused_decode"
 # the LayerNorm + RoPE pass, and the tile map of the K = P + S keys
 NORM_KERNEL = f"{SOURCE}_norm_rope"
 TILES_KERNEL = f"{SOURCE}_tiles"
+# the core's bf16-softmax launches (also counted under SOURCE)
+BF16_KERNEL = f"{SOURCE}_bf16"
+SOFTMAX_DTYPES = (torch.float32, torch.bfloat16)
 ROTARY_DIM = 32     # the kernels' rotary dims (Phi-1.5)
 
 
@@ -218,11 +226,13 @@ def fused_tile_map(rows, last_pad, prefix):
 
 
 def fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows, *,
-                       hidden: int, num_heads: int, sm_scale: float):
+                       hidden: int, num_heads: int, sm_scale: float,
+                       softmax_dtype=torch.float32):
     """Plain version of :func:`fused_attend`: the packed omni attention
     of qn over K = [ck | kn] and V = [cv | y's v block], keys at
-    ``pos_k``, fp32 scores and softmax, probabilities cast to v's dtype.
-    Returns [B, S, hidden] in qn's dtype."""
+    ``pos_k``, fp32 scores, softmax in ``softmax_dtype`` (bf16: the
+    masked fp32 scores rounded to bf16 first, as in JAX), probabilities
+    cast to v's dtype.  Returns [B, S, hidden] in qn's dtype."""
     pos_q, seg_q, pos_k, seg_k, pad_k = rows
     B, S, _ = qn.shape
     D = hidden // num_heads
@@ -234,31 +244,47 @@ def fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows, *,
     v = torch.cat([cv, y[..., 2 * hidden:3 * hidden].to(cv.dtype)], 1)
     vis = visible_mask(seg_k, pad_k, last_pad, prefix, pos_q, pos_k=pos_k,
                        seg_q=seg_q)
-    out = _masked_attention(heads(qn), heads(k), heads(v), vis, sm_scale)
+    if softmax_dtype == torch.float32:
+        out = _masked_attention(heads(qn), heads(k), heads(v), vis,
+                                sm_scale)
+    else:
+        scores = torch.einsum("bhqd,bhkd->bhqk", heads(qn).float(),
+                              heads(k).float()) * sm_scale
+        scores = scores.masked_fill(~vis[:, None], NEG_INF)
+        probs = torch.softmax(scores.to(softmax_dtype), dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), heads(v))
     return out.transpose(1, 2).reshape(B, S, hidden).to(qn.dtype)
 
 
 def fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles=None, *,
                  hidden: int, num_heads: int,
-                 sm_scale: Optional[float] = None):
+                 sm_scale: Optional[float] = None,
+                 softmax_dtype=torch.float32):
     """The attention of kernel 2 after :func:`norm_rope`: qn, kn [B, S,
     hidden] contiguous; y [B, S, >= 3 * hidden] (its v block read); ck, cv
     [B, P, hidden] cache views; last_pad, prefix int32 [B]; ``rows`` the
     tuple of :func:`fused_rows`; ``tiles``: :func:`fused_tile_map` of
-    those (made here when None).  Returns [B, S, hidden].  CPU tensors go
+    those (made here when None).  ``softmax_dtype``: fp32, or bf16 (the
+    core's bf16-score variant).  Returns [B, S, hidden].  CPU tensors go
     through the plain version; CUDA tensors through the forward core
-    (bf16, head dim 64), counted under ``SOURCE``; it raises on a view
-    whose strides or base are not 16-byte aligned, and copies nothing."""
+    (bf16, head dim 64), counted under ``SOURCE`` (and the bf16 variant
+    under ``BF16_KERNEL``); it raises on a view whose strides or base are
+    not 16-byte aligned, and copies nothing."""
     B, S, _ = qn.shape
     P = ck.shape[1]
     D = hidden // num_heads
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
+    if softmax_dtype not in SOFTMAX_DTYPES:
+        raise ValueError(f"fused_decode_attention: softmax dtype "
+                         f"{softmax_dtype}, the kernel takes "
+                         f"{SOFTMAX_DTYPES}")
     dev = qn.device
     if dev.type == "cpu":
         return fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows,
                                   hidden=hidden, num_heads=num_heads,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale,
+                                  softmax_dtype=softmax_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_attend: unsupported device {dev}")
     _check_operands("fused_decode_attention",
@@ -287,6 +313,7 @@ def fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles=None, *,
     _check_tiles(tiles, B, S, K, dev)
     out = torch.empty((B, S, hidden), dtype=qn.dtype, device=dev)
     pos_q, seg_q, pos_k, seg_k, pad_k = rows
+    bf16 = softmax_dtype == torch.bfloat16
     cuda_build.launch(
         SOURCE, "fused_decode_attention_bf16", _ATTEND_ARGS, dev,
         *(t.data_ptr() for t in (qn, kn, y, ck, cv, out, seg_k, pad_k,
@@ -294,7 +321,8 @@ def fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles=None, *,
                                  tiles)),
         B, S, P, num_heads, D, y.stride(0), y.stride(1), ck.stride(0),
         ck.stride(1), cv.stride(0), cv.stride(1), out.stride(0),
-        out.stride(1), float(sm_scale))
+        out.stride(1), float(sm_scale), int(bf16),
+        kernel=(SOURCE, BF16_KERNEL) if bf16 else SOURCE)
     return out
 
 
@@ -319,8 +347,8 @@ def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
 
     CPU tensors go through the plain version; CUDA tensors through the
     kernels, :func:`norm_rope` then :func:`fused_attend` (bf16, head dim
-    64, rotary dim 32, fp32 softmax), which raise on what they do not
-    take.
+    64, rotary dim 32, an fp32 or bf16 softmax), which raise on what they
+    do not take.
     """
     B, S, YW = y.shape
     P = ck.shape[1]
@@ -344,12 +372,12 @@ def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
             eps=eps, sm_scale=sm_scale, softmax_dtype=softmax_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_decode_attention: unsupported device {dev}")
-    if softmax_dtype != torch.float32:
-        raise ValueError(f"fused_decode_attention kernel takes the fp32 "
-                         f"softmax only, not {softmax_dtype} (the plain "
-                         f"version has both)")
+    if softmax_dtype not in SOFTMAX_DTYPES:
+        raise ValueError(f"fused_decode_attention: softmax dtype "
+                         f"{softmax_dtype}, the kernel takes "
+                         f"{SOFTMAX_DTYPES}")
     qn, kn = norm_rope(y, q_ln, k_ln, cos, sin, hidden=hidden,
                        num_heads=num_heads, rotary_dim=rotary_dim, eps=eps)
     return fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles,
                         hidden=hidden, num_heads=num_heads,
-                        sm_scale=sm_scale)
+                        sm_scale=sm_scale, softmax_dtype=softmax_dtype)

@@ -1,7 +1,10 @@
 """Device-time breakdown of one warm training step.
 
     python -m showo_tpu_torch.profile_train --route trainable \
-        [--config stage1|tuning512] [--slice v1|v2]
+        [--config stage1|tuning512] [--slice v1|v2] \
+        [--optimizer adamw|adamw_bf16|adafactor] \
+        [--remat none|full|dots|qkv|qkv_fc1|qkv_attn|qkv_fc1_attn] \
+        [--softmax fp32|bf16]
 
 Builds the trainer of one configuration (Show-o 1.3B: Phi-1.5 24 layers,
 hidden 2048, 32 heads; the full MAGVIT-v2 encoder, frozen; AdamW, remat
@@ -18,7 +21,11 @@ on one attention route, runs one step on the seeded batch of
 :func:`train_batch` to warm up, and profiles the next one with
 ``torch.profiler``: wall time, device busy time and idle share, kernel
 launches, and the largest rows of device time by operator (or by kernel,
-for the port's own kernels).
+for the port's own kernels).  ``--optimizer``, ``--remat`` and
+``--softmax`` set the configuration's ``training.optimizer``,
+``training.remat`` and ``model.showo.attn_fp32`` (bf16: the dense
+route's softmax in bf16), as bench.py's ``opt=``, ``remat=`` and
+``softmax=`` do (:func:`mode_overrides`).
 
 ``--slice v2`` does the same for the Show-o2 1.5B stage-1 trainer
 (``configs/showo2_1.5b_stage_1_a.yaml``, warmup 0: Qwen2.5 28 layers, 12
@@ -39,7 +46,9 @@ import torch
 from showo_tpu_torch.config import load_config
 from showo_tpu_torch.inference_t2i import load_prompts
 from showo_tpu_torch.profile_t2i import profile
+from showo_tpu_torch.training.optim import OPTIMIZERS
 from showo_tpu_torch.training.train_showo import build_trainer
+from showo_tpu_torch.utils.remat import POLICIES
 
 STAGE1 = "configs/showo_pretraining_stage1.yaml"
 TUNING512 = "configs/showo_instruction_tuning_1_512x512.yaml"
@@ -59,6 +68,17 @@ def tuning512_config(*overrides):
 
 
 CONFIGS = {"stage1": stage1_config, "tuning512": tuning512_config}
+
+
+def mode_overrides(optimizer: str = "adamw", remat: str = "full",
+                   softmax: str = "fp32") -> list:
+    """Config overrides of a training mode (v1 and Show-o2 configs alike):
+    the optimizer, the layer remat policy and the dense route's softmax
+    dtype."""
+    if softmax not in ("fp32", "bf16"):
+        raise ValueError(f"softmax {softmax!r}: fp32 or bf16")
+    return [f"training.optimizer={optimizer}", f"training.remat={remat}",
+            f"model.showo.attn_fp32={softmax == 'fp32'}"]
 V2_STAGE1 = "configs/showo2_1.5b_stage_1_a.yaml"
 
 
@@ -105,12 +125,13 @@ def v2_batch(num_image_tokens: int, batch_size: int = 2,
             .astype(np.float32)}
 
 
-def v2_trainer(route: str = "trainable"):
+def v2_trainer(route: str = "trainable", *overrides):
     """The full-width Show-o2 stage-1 trainer on ``route``."""
     from showo_tpu_torch.show_o2.train_stage_one import \
         build_trainer as build_v2
 
-    return build_v2(v2_config(), torch.device("cuda"), attn_impl=route)
+    return build_v2(v2_config(*overrides), torch.device("cuda"),
+                    attn_impl=route)
 
 
 def train_batch(trainer, seed: int = 0):
@@ -153,21 +174,26 @@ def main(argv=None) -> None:
     ap.add_argument("--slice", default="v1", choices=("v1", "v2"))
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
+    ap.add_argument("--remat", default="full", choices=POLICIES)
+    ap.add_argument("--softmax", default="fp32", choices=("fp32", "bf16"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
+    mode = mode_overrides(args.optimizer, args.remat, args.softmax)
+    what = f"{args.optimizer}, remat {args.remat}, {args.softmax} softmax"
     if args.slice == "v2":
-        trainer = v2_trainer(args.route)
+        trainer = v2_trainer(args.route, *mode)
         batch = v2_batch(trainer.model.cfg.num_image_tokens, args.batch,
                          args.seq)
         trainer.train_step(batch)                            # warm-up
         torch.cuda.synchronize()
         profile(lambda: trainer.train_step(batch),
                 f"route {args.route}: Show-o2 stage-1 step ({args.batch} "
-                f"rows x {args.seq})", rows_shown=25)
+                f"rows x {args.seq}; {what})", rows_shown=25)
         return
-    trainer = build_trainer(CONFIGS[args.config](), torch.device("cuda"),
-                            attn_impl=args.route)
+    trainer = build_trainer(CONFIGS[args.config](*mode),
+                            torch.device("cuda"), attn_impl=args.route)
     batch, noise = train_batch(trainer)
     trainer.train_step(*batch, noise=noise)                  # warm-up
     torch.cuda.synchronize()
@@ -175,7 +201,7 @@ def main(argv=None) -> None:
     tokens = trainer.tc.max_seq_length + 3 + trainer.cfg.num_vq_tokens
     profile(lambda: trainer.train_step(*batch, noise=noise),
             f"route {args.route}: {args.config} step ({rows} rows x "
-            f"{tokens})", rows_shown=25)
+            f"{tokens}; {what})", rows_shown=25)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ from showo_tpu_torch.show_o2.qwen2 import (PackedMeta, RMSNorm, SwiGLU,
                                            apply_rope, cache_rows,
                                            fuse_attention_mlp, gqa_attention,
                                            qkv_heads, write_rows)
-from showo_tpu_torch.utils.remat import wrap_remat
+from showo_tpu_torch.utils.remat import keep, project, wrap_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,14 +221,18 @@ class ModulatedAttentionBlock(nn.Module):
 
     def forward(self, h, adaln_input, bias, cos, sin, modality_positions,
                 meta: Optional[PackedMeta] = None, full_span: bool = False,
-                cache_kv=None, rows=None, kv_out=None):
+                cache_kv=None, rows=None, kv_out=None, ada=None):
         """cache_kv: this layer's (k, v) cache [B, S_full, Hkv, Dh], the
         fresh rows' roped K/V written at ``rows`` (``qwen2.write_rows``)
         before the q rows attend to every cached key.  kv_out: (k, v)
-        buffers [B, S, Hkv, Dh] that receive the fresh roped K/V."""
+        buffers [B, S, Hkv, Dh] that receive the fresh roped K/V.  ada:
+        the adaLN projection of ``adaln_input`` when made by the caller
+        (``dit_forward`` makes it before the layer's remat region, as
+        JAX hoists it out of its scan)."""
         cfg = self.cfg
         B, L, _ = h.shape
-        ada = self.adaLN_modulation(adaln_input)
+        if ada is None:
+            ada = self.adaLN_modulation(adaln_input)
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp), claimed = span_modulation(ada, modality_positions, L,
                                               full_span=full_span)
@@ -266,10 +270,11 @@ class ModulatedAttentionBlock(nn.Module):
             write_rows(cache_kv[0], k, rows)
             write_rows(cache_kv[1], v, rows)
             k, v = cache_kv
-        attn = gqa_attention(
+        attn = keep("attn_out", gqa_attention(
             q, k, v, bias, meta,
-            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype)
-        h = h + gate(gate_msa, a.o_proj(attn))
+            softmax_dtype=torch.float32 if cfg.attn_fp32
+            else torch.bfloat16))
+        h = h + gate(gate_msa, project(a.o_proj, attn))
         x2 = mod(self.post_attention_layernorm(h), shift_mlp, scale_mlp)
         return h + gate(gate_mlp, self.mlp(x2))
 
@@ -319,7 +324,9 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
     ``cache_offsets`` ([B], or the pair of ``qwen2.cache_rows``) and the
     q rows attend to all S_full rows.  ``return_kv``: also return the
     fresh rows' roped (k, v) [L, B, S, Hkv, Dh] (the prefill that makes
-    the cache).  remat: the layer policy of ``utils/remat.py``."""
+    the cache).  remat: the layer policy of ``utils/remat.py``; each
+    layer's adaLN projection is made before its remat region (JAX's one
+    einsum before its scan), so no policy recomputes it."""
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None]
@@ -337,7 +344,8 @@ def dit_forward(cfg: DiffusionHeadConfig, layers, h, adaln_input,
             h, adaln_input, attention_bias, cos, sin, modality_positions,
             meta, full_span,
             None if cache is None else (cache[0][i], cache[1][i]), rows,
-            None if kvs is None else (kvs[0][i], kvs[1][i]))
+            None if kvs is None else (kvs[0][i], kvs[1][i]),
+            layer.adaLN_modulation(adaln_input))
     return (h, kvs) if return_kv else h
 
 

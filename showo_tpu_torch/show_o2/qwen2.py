@@ -25,8 +25,8 @@ matmul of a layer, and a vocabulary head quantized from the tied
 embedding, into the int8 kernel's ``Int8Linear`` (weight-only int8
 serving, as JAX ``quantize_int8``).  The ``trainable`` route sends every
 layer's self-attention through the differentiable packed kernels (kernel
-7, or kernel 8 past its budget) at head dim 128, and ``remat`` recomputes
-each layer in the backward (``utils/remat.py``).
+7, or kernel 8 past its budget) at head dim 128, and ``remat`` runs each
+layer under a policy of ``utils/remat.py``, its tags at JAX's places.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from showo_tpu_torch.models.phi import qk_scores
 from showo_tpu_torch.ops.flash_attention import (omni_attention_packed,
                                                  rows_tile_map,
                                                  q_rows, span_meta)
@@ -46,7 +47,7 @@ from showo_tpu_torch.ops.packed_attention_grad import \
     omni_attention_packed_trainable
 from showo_tpu_torch.ops.streaming_attention import (omni_attention_streaming,
                                                      streaming_tile_map)
-from showo_tpu_torch.utils.remat import wrap_remat
+from showo_tpu_torch.utils.remat import keep, project, wrap_remat
 
 # Attention routes: the port's name -> the JAX package's attn impl string.
 #   dense      einsum attention under the additive bias (no kernel)
@@ -237,8 +238,8 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
     on head-major views, ``trainable`` the differentiable packed kernels
     (self-attention: Q == S).  Otherwise the dense path: the kv-head groups
     folded into the einsum (no repeated K/V), scores in ``softmax_dtype``
-    from exact products of the stored operands, softmax, probabilities
-    cast to v's dtype."""
+    from the products of the stored operands (``phi.qk_scores``),
+    softmax, probabilities cast to v's dtype."""
     B, Q, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if meta is not None:
@@ -264,8 +265,8 @@ def gqa_attention(q, k, v, bias, meta: Optional[PackedMeta],
             **rows)
     qg = q.reshape(B, Q, Hkv, H // Hkv, Dh)
     with torch.autocast(q.device.type, enabled=False):
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(softmax_dtype),
-                              k.to(softmax_dtype)) / math.sqrt(Dh)
+        scores = qk_scores("bqhgd,bkhd->bhgqk", qg, k,
+                           softmax_dtype) / math.sqrt(Dh)
         if bias is not None:
             scores = scores + bias[:, :, None].to(softmax_dtype)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -286,7 +287,10 @@ class Qwen2Attention(nn.Module):
 
 class SwiGLU(nn.Module):
     """``down(silu(gate(x)) * up(x))`` (reference names), or one ``gu``
-    matmul after :func:`fuse_attention_mlp`."""
+    matmul after :func:`fuse_attention_mlp`.  gate / up (or ``gu``) are
+    tagged ``fc1_out`` for the remat policies (``utils/remat.py``);
+    ``tail``: the output joins only the residual sum (Qwen's layer, not
+    the DiT's, whose gate multiplies it)."""
 
     def __init__(self, dim: int, hidden: int, device=None, dtype=None):
         super().__init__()
@@ -295,24 +299,27 @@ class SwiGLU(nn.Module):
         self.up_proj = nn.Linear(dim, hidden, **kw)
         self.down_proj = nn.Linear(hidden, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tail: bool = False) -> torch.Tensor:
         if hasattr(self, "gu"):
-            gate, up = self.gu(x).chunk(2, dim=-1)
+            gate, up = project(self.gu, x, "fc1_out").chunk(2, dim=-1)
         else:
-            gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+            gate, up = (project(p, x, "fc1_out")
+                        for p in (self.gate_proj, self.up_proj))
+        return project(self.down_proj, F.silu(gate) * up, tail=tail)
 
 
 def qkv_heads(attn: nn.Module, x: torch.Tensor, heads: int, kv_heads: int,
               head_dim: int):
     """(q [B, S, H, Dh], k, v [B, S, Hkv, Dh]) from separate projections
-    or the fused ``qkv`` (then views of its output)."""
+    or the fused ``qkv`` (then views of its output), tagged ``qkv_out``."""
     B, S, _ = x.shape
     if hasattr(attn, "qkv"):
-        q, k, v = attn.qkv(x).split([heads * head_dim, kv_heads * head_dim,
-                                     kv_heads * head_dim], dim=-1)
+        q, k, v = project(attn.qkv, x, "qkv_out").split(
+            [heads * head_dim, kv_heads * head_dim, kv_heads * head_dim],
+            dim=-1)
     else:
-        q, k, v = attn.q_proj(x), attn.k_proj(x), attn.v_proj(x)
+        q, k, v = (project(p, x, "qkv_out")
+                   for p in (attn.q_proj, attn.k_proj, attn.v_proj))
     return (q.view(B, S, heads, head_dim), k.view(B, S, kv_heads, head_dim),
             v.view(B, S, kv_heads, head_dim))
 
@@ -343,11 +350,12 @@ class Qwen2DecoderLayer(nn.Module):
             write_rows(cache_kv[0], k, rows)
             write_rows(cache_kv[1], v, rows)
             k, v = cache_kv
-        attn = gqa_attention(
+        attn = keep("attn_out", gqa_attention(
             q, k, v, bias, meta,
-            softmax_dtype=torch.float32 if cfg.attn_fp32 else h.dtype)
-        h = h + self.self_attn.o_proj(attn)
-        return h + self.mlp(self.post_attention_layernorm(h))
+            softmax_dtype=torch.float32 if cfg.attn_fp32
+            else torch.bfloat16))
+        h = h + project(self.self_attn.o_proj, attn)
+        return h + self.mlp(self.post_attention_layernorm(h), tail=True)
 
 
 class Qwen2Model(nn.Module):
@@ -394,8 +402,9 @@ class Qwen2(nn.Module):
         made once), at each row's own offset; position_ids must then be
         given.  The q rows attend to all S_max cached rows.
 
-        remat: the layer policy of ``utils/remat.py`` ("full": each layer
-        recomputed in the backward; "none")."""
+        remat: the layer policy of ``utils/remat.py`` (tags ``qkv_out``
+        on q / k / v, ``attn_out`` on the attention's output, ``fc1_out``
+        on gate / up)."""
         cfg = self.cfg
         if input_embeds is None:
             input_embeds = self.model.embed_tokens(input_ids)

@@ -22,7 +22,7 @@ from torch import nn
 
 from showo_tpu_torch.models.phi import layer_norm
 from showo_tpu_torch.utils.image import keys_cubic_weights
-from showo_tpu_torch.utils.remat import wrap_remat
+from showo_tpu_torch.utils.remat import project, wrap_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,16 +73,17 @@ class SiglipLayer(nn.Module):
         H, Dh = self.cfg.num_heads, self.cfg.head_dim
         a = self.self_attn
         x = layer_norm(h, self.layer_norm1)
-        q, k, v = (p(x).view(B, S, H, Dh)
+        q, k, v = (project(p, x).view(B, S, H, Dh)
                    for p in (a.q_proj, a.k_proj, a.v_proj))
         with torch.autocast(h.device.type, enabled=False):
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                   k.float()) / math.sqrt(Dh)
             probs = torch.softmax(scores, dim=-1).to(v.dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        h = h + a.out_proj(attn.reshape(B, S, D))
+        h = h + project(a.out_proj, attn.reshape(B, S, D))
         x2 = layer_norm(h, self.layer_norm2)
-        return h + self.mlp.fc2(F.gelu(self.mlp.fc1(x2), approximate="tanh"))
+        mlp = F.gelu(project(self.mlp.fc1, x2), approximate="tanh")
+        return h + project(self.mlp.fc2, mlp, tail=True)
 
 
 class SiglipEncoder(nn.Module):
@@ -98,7 +99,8 @@ class SiglipEncoder(nn.Module):
         """x [B, S, D]: patch embeddings, position embedding added.
         remat: the layer policy of ``utils/remat.py`` (under a gradient
         the 26 layers would otherwise keep every layer's fp32 [B, H, S, S]
-        probabilities)."""
+        probabilities).  JAX tags nothing here: the named rungs keep only
+        the layer's input, ``dots`` its projections' outputs."""
         for layer in self.layers:
             x = wrap_remat(layer, remat)(x)
         return x

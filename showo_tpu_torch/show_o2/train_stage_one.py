@@ -51,6 +51,7 @@ from showo_tpu_torch.show_o2.showo2 import Showo2, showo2_forward
 from showo_tpu_torch.show_o2.transport import Transport
 from showo_tpu_torch.show_o2.wan_vae import WanVAE, wan_decode, wan_encode
 from showo_tpu_torch.training.train_showo import step_generator
+from showo_tpu_torch.training.optim import jax_tensors
 from showo_tpu_torch.training.train_step import Optimizer, global_norm
 from showo_tpu_torch.utils.device import entry_device
 
@@ -71,9 +72,10 @@ class Stage1Config:
     grad_accum_steps: int = 1
     # "dense" (the additive omni bias) | "trainable" (kernels 7 / 8)
     attn_impl: str = "dense"
-    # "adamw" (the JAX package's "adamw_bf16" / "adafactor" are not ported)
+    # "adamw" | "adamw_bf16" | "adafactor" (training/optim.py)
     optimizer: str = "adamw"
-    # the layer remat policy of utils/remat.py: "full" | "none"
+    # the layer remat policy of utils/remat.py: "none" | "full" | "dots" |
+    # "qkv" | "qkv_fc1" | "qkv_attn" | "qkv_fc1_attn"
     remat: str = "full"
 
 
@@ -97,11 +99,12 @@ def warmup(sc: Stage1Config):
 def make_stage1_optimizer(sc: Stage1Config, model: Showo2,
                           frozen_substrings: Sequence[str] = ()
                           ) -> Optimizer:
-    """Clip + AdamW over every parameter not frozen, at ``learning_rate``
-    after the warmup."""
+    """Clip + the optimizer ``sc.optimizer`` over every parameter not
+    frozen, at ``learning_rate`` after the warmup (``adafactor`` on the
+    JAX package's tensors, ``training/optim.py::jax_tensors``)."""
     freeze(model, frozen_substrings)
     return Optimizer([(model.parameters(), sc.learning_rate)], sc,
-                     warmup(sc))
+                     warmup(sc), tensors=jax_tensors(model))
 
 
 @dataclasses.dataclass

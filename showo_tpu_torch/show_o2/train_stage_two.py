@@ -68,13 +68,14 @@ def make_stage2_optimizer(sc: Stage2Config, model: Showo2,
                           ) -> Optimizer:
     """Clip + AdamW in three groups at ``lr_und`` / ``lr_fusion`` /
     ``lr_main``, each clipped by its own norm; the frozen parameters in
-    none."""
+    none.  AdamW whatever ``sc.optimizer`` says, as in JAX."""
     freeze(model, frozen_substrings)
     labels = param_groups(model)
     lrs = {"und": sc.lr_und, "fusion": sc.lr_fusion, "main": sc.lr_main}
     params = dict(model.named_parameters())
     return Optimizer([([p for n, p in params.items() if labels[n] == g],
-                       lrs[g]) for g in GROUPS], sc, warmup(sc))
+                       lrs[g]) for g in GROUPS],
+                     dataclasses.replace(sc, optimizer="adamw"), warmup(sc))
 
 
 @dataclasses.dataclass

@@ -2,7 +2,9 @@
 fused batch on one card, for holding two trees side by side in one call.
 
     python3 showo_tpu_torch/time_trainable.py --config stage1|tuning512 \
-        [--slice v1|v2] [--seq S] [--root DIR] [--tag NAME]
+        [--slice v1|v2] [--seq S] [--root DIR] [--tag NAME] \
+        [--optimizer adamw|adamw_bf16|adafactor] [--remat POLICY] \
+        [--softmax fp32|bf16]
 
 ``--root`` names the checkout whose ``showo_tpu_torch`` is imported (by
 default this file's own), so that one call on one card can time a parent
@@ -22,7 +24,16 @@ boolean mask, forward and backward.  Prints the card and one JSON line.
 built, the metadata comes from the rows' modality positions), at both
 towers' shapes: Qwen2.5's 12 q / 2 kv heads of 128 and the DiT's 32 / 8
 of 64, each on the kernel set the dispatcher picks (kernel 7 to S = 1280
-for Qwen, 1024 for the DiT, kernel 8 past).  Needs a CUDA card.
+for Qwen, 1024 for the DiT, kernel 8 past).
+
+``--optimizer``, ``--remat`` or ``--softmax`` (``profile_train
+.mode_overrides``; the others at their defaults) also time whole steps
+of the full-width trainer on ``trainable`` in that mode (v1: the
+configuration's batch; v2: 2 rows of ``--seq``): a warm step, then the
+median of 3, the peak memory and the kernel launches a step (the
+forward's count says whether the remat policy recomputes it), under
+``"step"`` in the JSON line; a tree without these modes cannot take
+them.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 H, D = 32, 64
 
@@ -140,6 +152,49 @@ def _time_set(torch, F, tpag, tsag, m, H, Hkv, D) -> dict:
     return {"kernel": kernel, "H": H, "Hkv": Hkv, "D": D, "ms": ms}
 
 
+def _time_steps(torch, args) -> dict:
+    """Three warm steps of the full-width trainer in the mode of
+    ``args`` (see the module docstring)."""
+    from showo_tpu_torch.ops import cuda_build
+    from showo_tpu_torch.profile_train import (CONFIGS, mode_overrides,
+                                               train_batch, v2_batch,
+                                               v2_trainer)
+    from showo_tpu_torch.training.train_showo import build_trainer
+
+    mode = dict(optimizer=args.optimizer or "adamw",
+                remat=args.remat or "full", softmax=args.softmax or "fp32")
+    overrides = mode_overrides(**mode)
+    if args.slice == "v2":
+        trainer = v2_trainer("trainable", *overrides)
+        batch = v2_batch(trainer.model.cfg.num_image_tokens, 2, args.seq)
+
+        def step():
+            return trainer.train_step(batch)
+    else:
+        trainer = build_trainer(CONFIGS[args.config](*overrides),
+                                torch.device("cuda"), attn_impl="trainable")
+        batch, noise = train_batch(trainer)
+
+        def step():
+            return trainer.train_step(*batch, noise=noise)
+    float(step()["loss"])                                    # warm step
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        float(step()["loss"])
+        walls.append(time.perf_counter() - t0)
+    out = {**mode, "s": statistics.median(walls), "walls": walls,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_step": {n: c / 3 for n, c in
+                                 cuda_build.launches.items() if c}}
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", choices=("stage1", "tuning512"),
@@ -149,6 +204,10 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("--tag", default="")
+    # checked by the trainer the step timing builds
+    p.add_argument("--optimizer")
+    p.add_argument("--remat")
+    p.add_argument("--softmax", choices=("fp32", "bf16"))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     os.chdir(root)          # the configs are read relative to the checkout
@@ -173,13 +232,16 @@ def main(argv=None) -> int:
     rows = {name: _time_set(torch, F, tpag, tsag, m, h, hkv, d)
             for name, h, hkv, d in shapes}
     B, S = m[0].shape
+    steps = (_time_steps(torch, args)
+             if args.optimizer or args.remat or args.softmax else None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     print(smi)
     print(json.dumps({"tag": args.tag, "root": root,
                       "config": args.config if args.slice == "v1" else
-                      "v2 stage 1", "B": B, "S": S, "shapes": rows}))
+                      "v2 stage 1", "B": B, "S": S, "shapes": rows,
+                      **({"step": steps} if steps else {})}))
     return 0
 
 

@@ -12,7 +12,9 @@ pixels to codes, the t2i codes are masked or replaced
 the route (dense: three additive biases; ``trainable``: O(S) kernel
 metadata: t2i rows prune pads, lm rows keep pads visible, mmu rows see
 the batch-first-eoi prefix), then the fused three-task loss, its
-backward, the gradient norm, clipping, AdamW and the LR schedule.
+backward, the gradient norm, clipping, the optimizer (``adamw``,
+``adamw_bf16`` or ``adafactor``, ``training.optimizer``) and the LR
+schedule, the layers under the remat policy ``training.remat``.
 
 Precision: fp32 master weights; on CUDA the forward runs under
 ``torch.autocast(bfloat16)`` when ``training.mixed_precision`` is "bf16"
@@ -46,6 +48,7 @@ from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.sampling.schedules import get_mask_schedule
 from showo_tpu_torch.training.corruption import mask_or_random_replace_tokens
 from showo_tpu_torch.training.lr_schedules import get_lr_schedule
+from showo_tpu_torch.training.optim import jax_tensors
 from showo_tpu_torch.training.train_step import (Optimizer, TrainConfig,
                                                  global_norm)
 from showo_tpu_torch.utils.device import entry_device
@@ -275,7 +278,8 @@ class ShowoTrainer:
             num_warmup_steps=(lr_cfg.get("params", {}) or {}).get(
                 "warmup_steps", 0),
             num_training_steps=tr.get("max_train_steps", 1))
-        self.optimizer = Optimizer(self.model.parameters(), self.tc, lr)
+        self.optimizer = Optimizer(self.model.parameters(), self.tc, lr,
+                                   tensors=jax_tensors(self.model))
         self.step_fn = FusedTrainStep(
             self.model, self.vq, self.tc, self.optimizer,
             self.uni_prompting.sptids, tr.batch_size_t2i, tr.batch_size_lm,

@@ -98,17 +98,18 @@ def _run_both(seq, P, H, D, seed, softmax_dtype=jnp.float32, meta=None,
     tcos, tsin = rope_tables(tpos, rd, 10000.0)
     ln_t = [torch.as_tensor(x) for x in ln]
     kw = dict(hidden=hidden, num_heads=H)
+    tdtype = (torch.float32 if softmax_dtype == jnp.float32
+              else torch.bfloat16)
     if parts:
         rows = tfd.fused_rows(tmeta[0], tmeta[1], tpos, P, B)
         qn, kn = tfd.norm_rope(y, ln_t[:2], ln_t[2:], tcos, tsin,
                                rotary_dim=rd, eps=1e-5, **kw)
-        got = tfd.fused_attend(qn, kn, y, ck, cv, *tmeta[2:], rows, **kw)
+        got = tfd.fused_attend(qn, kn, y, ck, cv, *tmeta[2:], rows, **kw,
+                               softmax_dtype=tdtype)
     else:
         got = tfd.fused_decode_attention(
             y, ck, cv, ln_t[:2], ln_t[2:], tcos, tsin, *tmeta, tpos,
-            rotary_dim=rd, eps=1e-5, **kw,
-            softmax_dtype=(torch.float32 if softmax_dtype == jnp.float32
-                           else torch.bfloat16))
+            rotary_dim=rd, eps=1e-5, **kw, softmax_dtype=tdtype)
     assert got.shape == (B, S, hidden)
     return got, want
 
@@ -340,13 +341,33 @@ def test_fused_rows_match_the_jax_gather():
 
 
 def test_bf16_softmax_plain_vs_jax():
-    """softmax_dtype=bf16 (``attn_fp32=False``) exists in the plain
-    version only: close to the JAX kernel's bf16 softmax (bf16 scores and
-    probabilities, atol 2e-2)."""
+    """softmax_dtype=bf16 (``attn_fp32=False``, the core's bf16-score
+    variant on the card): the plain version close to the JAX kernel's
+    bf16 softmax (bf16 scores and probabilities, atol 2e-2)."""
     seq = _t2i_seq(2, P=7, img=9, pads=(0, 3), seed=8)
     got, want = _run_both(seq, P=7, H=4, D=8, seed=9,
                           softmax_dtype=jnp.bfloat16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2)
+
+
+def test_bf16_softmax_parts_plain_vs_jax():
+    """The two parts' plain versions in bf16 softmax (``fused_attend``'s
+    ``softmax_dtype``, the card's bf16-score core) against the JAX
+    kernel's bf16 softmax, fresh rows at permuted positions, atol 2e-2;
+    a softmax dtype the core does not take raises."""
+    seq = _t2i_seq(2, P=7, img=9, pads=(0, 3), seed=10)
+    perm = 7 + np.random.default_rng(3).permutation(10)
+    got, want = _run_both(seq, P=7, H=2, D=16, seed=11,
+                          softmax_dtype=jnp.bfloat16, q_positions=perm,
+                          parts=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2)
+    with pytest.raises(ValueError, match="softmax dtype"):
+        z = torch.zeros((1, 2, 16))
+        tfd.fused_attend(z, z, torch.zeros((1, 2, 48)), z[:, :1], z[:, :1],
+                         torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), None,
+                         hidden=16, num_heads=1,
+                         softmax_dtype=torch.float16)
 
 
 def test_fully_masked_row_averages_v():
@@ -453,19 +474,54 @@ def test_kernel_vs_plain_on_card(P, S):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take():
+    """A rotary dim, an operand dtype or a softmax dtype the kernels are
+    not built for raises (the bf16 softmax is taken since the core's
+    bf16-score variant)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     args, kw, rows = _card_case(dev, 129, 64, seed=0)
-    with pytest.raises(ValueError, match="fp32 softmax"):
+    with pytest.raises(ValueError, match="softmax dtype"):
         tfd.fused_decode_attention(*args, **kw, rows=rows,
-                                   softmax_dtype=torch.bfloat16)
+                                   softmax_dtype=torch.float16)
     with pytest.raises(ValueError, match="rotary dim 16"):
         tfd.fused_decode_attention(*args, **dict(kw, rotary_dim=16),
                                    rows=rows)
     with pytest.raises(TypeError, match="bf16"):
         tfd.fused_decode_attention(args[0].float(), *args[1:], **kw,
                                    rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,S", [(129, 258), (129, 1026)],
+                         ids=["256px", "512px"])
+def test_bf16_kernel_vs_plain_on_card(P, S):
+    """The bf16-score variant (``attn_fp32=False``) at the 256^2 and 512^2
+    cached-step shapes, fresh rows permuted and rows that see no key:
+    within 2e-2 of its plain version (bf16 scores and softmax); one core
+    launch, counted under ``BF16_KERNEL`` too; the same bits over two
+    launches; not the fp32 variant's output where they differ by more
+    than the check's limit."""
+    dev = _cuda()
+    args, kw, rows = _card_case(dev, P, S, seed=S + 5, permuted=True,
+                                masked=True)
+    names = (tfd.SOURCE, tfd.BF16_KERNEL)
+    before = {n: cuda_build.launches[n] for n in names}
+    runs = [tfd.fused_decode_attention(*args, **kw, rows=rows,
+                                       softmax_dtype=torch.bfloat16)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        n: 2 for n in names}
+    assert torch.equal(runs[0], runs[1])
+    want = tfd.fused_decode_attention_plain(
+        *args[:7], args[9], args[10], rows, **kw, sm_scale=0.125,
+        softmax_dtype=torch.bfloat16)
+    got = runs[0]
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    fp32 = tfd.fused_decode_attention(*args, **kw, rows=rows)
+    assert not torch.equal(fp32, got)
 
 
 def _cuda():

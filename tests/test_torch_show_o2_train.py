@@ -19,7 +19,9 @@ CPU.
   grad norm at rtol 2e-3 (without frozen parameters; the port's covers
   the trainable ones, JAX's every one), the updated weights at atol 1e-5
   (the v1 precedent, tests/test_torch_training.py); frozen tensors bit for
-  bit unchanged.
+  bit unchanged.  The same image step under adafactor + remat
+  ``qkv_fc1_attn`` and under adamw_bf16 + ``full``, the port's optimizer
+  on the JAX package's tensors.
 * Stage 2: ``param_groups`` name for name against JAX's labels, and one
   step moving each group by its own learning rate (the weights after the
   step against JAX's at atol 1e-5).
@@ -325,13 +327,15 @@ def _jax_frozen(frozen):
     return tuple(JAX_FROZEN.get(s, s) for s in frozen)
 
 
-def _step_vs_jax(route, kind, frozen=(), stage=1):
+def _step_vs_jax(route, kind, frozen=(), stage=1, optimizer="adamw",
+                 remat="full", lr=1e-4):
     jcfg, tcfg = tiny_cfgs()
     params = showo2_params(jcfg)
     vae_params = _vae_params(VAE_TINY)
     batch = _batch(kind)
     und = 1.0 if kind == "und" else 0.9
-    common = dict(learning_rate=1e-4, und_max_t0=und, remat="full")
+    common = dict(learning_rate=lr, und_max_t0=und, remat=remat,
+                  optimizer=optimizer)
     if stage == 1:
         jsc = JStage1Config(attn_impl="pallas_trainable"
                             if route == "trainable" else "dense", **common)
@@ -394,6 +398,24 @@ def test_stage1_step_vs_jax(route, kind):
     _, _, got = _step_vs_jax(route, kind, frozen)
     if kind == "und":
         assert got["loss_ntp"].item() > 0
+
+
+@pytest.mark.parametrize("optimizer,remat,lr", [
+    ("adafactor", "qkv_fc1_attn", 1e-3), ("adamw_bf16", "full", 1e-4)])
+def test_stage1_step_throughput_modes_vs_jax(optimizer, remat, lr):
+    """One stage-1 step under ``train_v2``'s adafactor + ``qkv_fc1_attn``
+    (at learning rate 1e-3, as the v1 adafactor step of
+    tests/test_torch_training.py and for its reasons), and under
+    adamw_bf16 + ``full``, against JAX's with the same, at the limits
+    above; the port's optimizer steps the JAX package's tensors
+    (``training/optim.py::jax_tensors``), shape for shape."""
+    from showo_tpu_torch.training.optim import jax_tensors
+
+    model, _, _ = _step_vs_jax("dense", "image", optimizer=optimizer,
+                               remat=remat, lr=lr)
+    jcfg, _ = tiny_cfgs()
+    assert (sorted(t.shape for t in jax_tensors(model))
+            == sorted(x.shape for x in jax.tree.leaves(showo2_params(jcfg))))
 
 
 def test_stage1_step_on_trainable_calls_the_trainable_kernels():

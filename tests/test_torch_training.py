@@ -11,7 +11,8 @@
   fed the same weights, pixels, text and corruption draws: loss parts at
   rtol 2e-4, grad norm at rtol 2e-3 (as tests/test_train_showo.py holds
   its routes to each other), the parameters after the AdamW update at
-  atol 1e-5;
+  atol 1e-5; the same under ``train_v1_fast``'s adafactor, remat
+  ``qkv_attn`` and bf16 softmax;
 * the trainer built from the stage-1 config at tiny widths: three steps
   on one batch lower the loss, gradient accumulation steps the optimizer
   every k calls, and the entry points refuse to fall back to the CPU.
@@ -45,6 +46,7 @@ from showo_tpu_torch.sampling.schedules import cosine_schedule
 from showo_tpu_torch.training import corruption as tcorr
 from showo_tpu_torch.training import train_showo as ttrain
 from showo_tpu_torch.training.lr_schedules import get_lr_schedule
+from showo_tpu_torch.training.optim import jax_tensors
 from showo_tpu_torch.training.train_step import Optimizer, TrainConfig
 from showo_tpu_torch.utils.convert import (load_magvit, load_showo,
                                            magvit_state_dict)
@@ -162,15 +164,17 @@ def test_cross_entropy_ignore_vs_jax():
     assert tshowo.cross_entropy_ignore(torch.tensor(logits), none) == 0
 
 
-def _configs():
-    jcfg = jshowo.ShowoConfig(**SHOWO_DIMS, llm=JPhiConfig(**PHI_DIMS))
-    tcfg = tshowo.ShowoConfig(**SHOWO_DIMS, llm=PhiConfig(**PHI_DIMS))
+def _configs(attn_fp32=True):
+    jcfg = jshowo.ShowoConfig(**SHOWO_DIMS, llm=JPhiConfig(
+        **PHI_DIMS, attn_fp32=attn_fp32))
+    tcfg = tshowo.ShowoConfig(**SHOWO_DIMS, llm=PhiConfig(
+        **PHI_DIMS, attn_fp32=attn_fp32))
     return jcfg, tcfg
 
 
-def _models(seed=0):
+def _models(seed=0, attn_fp32=True):
     """(JAX params, port Show-o with the same weights, fp32, trainable)."""
-    jcfg, tcfg = _configs()
+    jcfg, tcfg = _configs(attn_fp32)
     params = jshowo.init_showo_params(jcfg, jax.random.PRNGKey(seed))
     model = load_showo(tshowo.Showo(tcfg), showo_state_dict(
         params, jcfg.llm.num_layers))
@@ -257,31 +261,50 @@ def test_fused_step_past_the_packed_budget_vs_jax():
     assert spy.call_count == 2 * PHI_DIMS["num_layers"]
 
 
-def _fused_step_vs_jax(route):
-    """One fused step of the port against JAX's on ``route``: loss parts,
-    grad norm, masking rate and the weights after AdamW."""
-    jcfg, _ = _configs()
+def test_fused_step_adafactor_qkv_attn_bf16_softmax_vs_jax():
+    """``train_v1_fast``'s modes: one fused step under adafactor, remat
+    ``qkv_attn`` and the bf16 softmax (``attn_fp32=False``) against JAX's
+    with the same, at the limits above, at learning rate 1e-3 so that the
+    learning-rate part of adafactor's update (~2e-5 on weights of RMS
+    0.02) stands above the weights' limit beside the decay, while a
+    zero-initialised tensor whose gradient is 0 but for rounding (a key
+    bias: softmax is blind to it), which adafactor normalises to +-1 with
+    either sign, moves by lr * 1e-3 = 1e-6, within it; the port steps the
+    JAX package's tensors (``jax_tensors``), shape for shape."""
+    _, (port, want) = _fused_step_vs_jax("dense", "adafactor", "qkv_attn",
+                                         attn_fp32=False, lr=1e-3)
+    assert port == want
+
+
+def _fused_step_vs_jax(route, optimizer="adamw", remat="full",
+                       attn_fp32=True, lr=1e-4):
+    """One fused step of the port against JAX's on ``route`` under
+    ``optimizer`` and ``remat`` (the port's optimizer on the JAX package's
+    tensors, ``training/optim.py::jax_tensors``): loss parts, grad norm,
+    masking rate and the weights after the update.  Returns the port's
+    model and its tensors' shapes beside JAX's parameter shapes."""
+    jcfg, _ = _configs(attn_fp32)
     jvq_cfg = jmv.VQConfig(**VQ_DIMS)
     arrays, sp = _host_batch()
-    params, model = _models()
+    params, model = _models(attn_fp32=attn_fp32)
     vq_params = jmv.MagvitV2(jvq_cfg).init(
         jax.random.PRNGKey(1), jnp.zeros((1, 8, 8, 3)))["params"]
     vq = load_magvit(tmv.MagvitV2(tmv.VQConfig(**VQ_DIMS)),
                      magvit_state_dict(vq_params, jvq_cfg)).eval()
     vq.requires_grad_(False)
 
-    jtc = JTrainConfig(max_seq_length=MAX_SEQ, learning_rate=1e-4,
+    jtc = JTrainConfig(max_seq_length=MAX_SEQ, learning_rate=lr,
                        attn_impl="pallas_trainable" if route == "trainable"
-                       else "dense")
+                       else "dense", remat=remat, optimizer=optimizer)
     jopt = make_optimizer(jtc)
     step = j_step(jcfg, jvq_cfg, jtc, jopt, sp, 2, 2, 2, j_cosine)
     state = TrainState(params, jopt.init(params), jnp.zeros((), jnp.int32))
     key = jax.random.PRNGKey(7)
     state, want = step(state, vq_params, *map(jnp.asarray, arrays), key)
 
-    tc = TrainConfig(max_seq_length=MAX_SEQ, learning_rate=1e-4,
-                     attn_impl=route)
-    opt = Optimizer(model.parameters(), tc)
+    tc = TrainConfig(max_seq_length=MAX_SEQ, learning_rate=lr,
+                     attn_impl=route, remat=remat, optimizer=optimizer)
+    opt = Optimizer(model.parameters(), tc, tensors=jax_tensors(model))
     tstep = ttrain.FusedTrainStep(model, vq, tc, opt, sp, 2, 2, 2,
                                   cosine_schedule)
     k_corrupt, = jax.random.split(key, 1)
@@ -307,6 +330,8 @@ def _fused_step_vs_jax(route):
     for name, p in model.state_dict().items():
         np.testing.assert_allclose(p.numpy(), sd[name], rtol=0, atol=1e-5,
                                    err_msg=name)
+    return model, (sorted(t.shape for t in jax_tensors(model)),
+                   sorted(x.shape for x in jax.tree.leaves(params)))
 
 
 def test_trainable_batch_metadata_reproduces_dense_masks():
