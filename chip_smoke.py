@@ -61,7 +61,20 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   ``fused`` generate, the remat rungs and optimizers of
   ``utils/remat.py`` / ``training/optim.py`` on the Show-o2 trainer, and
   bench.py's four training rows (``train_v1``, ``train_v1_fast``,
-  ``train_v2``, ``train_v2_fast``) through their trainers.
+  ``train_v2``, ``train_v2_fast``) through their trainers;
+* the Show-o2 1.5B mixed-modality trainer
+  (``configs/showo2_1.5b_downstream_mixed_modality_simple.yaml``, warmup
+  0) through ``show_o2/train_mixed_modality.py::build_trainer`` on the
+  config's ``trainable`` route (kernel 8 in both towers): 2 VIST samples
+  of 4352 rows, 4 images of 432x432 a sample, under the recipe's phase-1
+  freeze and with every weight trained; and its CLI's two-phase recipe at
+  a reduced depth, the second phase resuming with the weights-only
+  fallback;
+* the v1 stage-1 CLI (``training/train_showo.py::main``) at a reduced
+  depth on ``trainable`` (kernel 7): its data through ``_build_loaders``
+  (an ImageNet-style folder, a tar shard read by the native reader, a
+  parquet file), checkpoints with the EMA and the loaders' positions,
+  validation images and prediction panels, and a resume.
 
 Phases, one or more lines each:
 
@@ -337,6 +350,25 @@ Phases, one or more lines each:
      ``train_v2_fast`` rows through their ``build_trainer`` (dense, the
      mode from the config): a warm step and 3 on one batch, losses
      falling, s a step, samples/s, peak memory
+  29. Show-o2 mixed-modality training at full width and depth on
+     ``trainable``: 2 VIST samples x 4352 rows (4 images of 432x432 a
+     sample, one (0, 0) span), a warm step and MIXED_STEPS steps under the
+     phase-1 freeze, then the same with every weight trained (a new
+     optimizer): per step 76 kernel 8 forwards, 38 dq, 38 dk/dv (56 / 28
+     / 28 at head dim 128), 76 tile maps, none of any other kernel; s a
+     step, samples/s, peak memory; then one step's losses and grad norm on
+     ``trainable`` against ``dense`` (phase 25's limits)
+  30. the mixed-modality CLI's two-phase recipe at full width and depth 2
+     / 2 / 2: phase 1 (the config's freeze) 2 steps with checkpoints;
+     phase 2 (``frozen_params=[]``) resumes from ``latest`` with the
+     weights-only fallback (its warning read from the log) and a fresh
+     optimizer, to step 3
+  31. the v1 stage-1 CLI at full width and depth 2 on ``trainable``: the
+     data through ``_build_loaders`` (which tar and image paths ran is
+     printed), ``save_every`` 1, ``generate_every`` 1, the EMA on: 2 steps
+     (8 / 4 / 4 / 8 kernel 7 launches, none of any other kernel), then a
+     resume from ``latest`` to step 3 with the EMA and the three loaders'
+     positions restored
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -350,6 +382,7 @@ import copy
 import dataclasses
 import gc
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -501,6 +534,13 @@ TRAIN_ROWS = {
                                  remat="qkv_fc1_attn", softmax="bf16"), 3),
 }
 TRAIN_ROW_STEPS = 3
+# Show-o2 mixed-modality training (phases 29-30): the config, its
+# batch_size_mixed_modal, max_mixed_modal_seq_length and max_num_images,
+# and the timed steps of each stage of the recipe
+MIXED_CONFIG = "configs/showo2_1.5b_downstream_mixed_modality_simple.yaml"
+MIXED_BATCH, MIXED_SEQ, MIXED_IMAGES, MIXED_STEPS = 2, 4352, 4, 3
+# the v1 stage-1 CLI (phase 31)
+V1_TRAIN_CONFIG = "configs/showo_pretraining_stage1.yaml"
 # the remat ladder on phase 24's trainer (phase 28): the rungs, the
 # optimizers, the timed steps of a cell, and the rows of the one larger step
 RUNGS = ("full", "qkv", "qkv_fc1", "qkv_attn", "qkv_fc1_attn", "dots")
@@ -4827,6 +4867,417 @@ def _train_row(torch, cuda_build, name, smi, phase="28"):
             "losses": losses}
 
 
+def _vist_json(tmp, n_images):
+    """A VIST json in ``tmp`` of two records over the in-tree image: one
+    of ``n_images`` images and sentences, one of one image fewer (its last
+    span is (0, 0))."""
+    image = os.path.abspath(MMU_IMAGE)
+    sentences = ["a cat sat on the mat in the morning sun",
+                 "then it walked to the garden and looked at the birds",
+                 "a bird flew down from the old tree to the wall",
+                 "the cat and the bird watched each other until night"]
+    recs = [{"images": [image] * k, "sentences": sentences[:k]}
+            for k in (n_images, n_images - 1)]
+    path = os.path.join(tmp, "vist.json")
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    return path
+
+
+def _mixed_want(steps: int, qwen: int, dit: int) -> dict:
+    """Kernel 8's launches over ``steps`` mixed-modality steps on
+    ``trainable`` at MIXED_SEQ rows (both towers past the packed budget),
+    remat "full": two forwards, one dq and one dk/dv a layer, a tile map a
+    forward; the Qwen2.5 layers' at head dim 128."""
+    fwd, dq, dkv, tiles = list(STREAM_TRAIN_KERNELS)
+    layers = qwen + dit
+    want = {name: 0 for name in COUNTERS}
+    want.update({fwd: 2 * layers * steps, dq: layers * steps,
+                 dkv: layers * steps, tiles: 2 * layers * steps,
+                 fwd + D128: 2 * qwen * steps, dq + D128: qwen * steps,
+                 dkv + D128: qwen * steps})
+    return want
+
+
+def _mixed_batch(config, n_img, tmp):
+    """One host batch of the config's batch_size_mixed_modal samples, made
+    by VISTDataset at the config's sizes."""
+    from showo_tpu_torch.data.loader import default_collate
+    from showo_tpu_torch.data.vist_dataset import VISTDataset
+    from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
+
+    pre = config.dataset.preprocessing
+    tokenizer, ids = load_tokenizer_and_ids(config)
+    ds = VISTDataset(_vist_json(tmp, MIXED_IMAGES), tmp, tokenizer, ids,
+                     resolution=pre.resolution, num_image_tokens=n_img,
+                     max_seq_len=pre.max_mixed_modal_seq_length,
+                     max_num_images=pre.max_num_images)
+    return default_collate([ds[i] for i in range(MIXED_BATCH)])
+
+
+def phase_mixed_train(torch, cuda_build, smi, phase="29"):
+    """Show-o2 1.5B mixed-modality training at full width and depth
+    (``configs/showo2_1.5b_downstream_mixed_modality_simple.yaml``, warmup
+    0) through ``train_mixed_modality.build_trainer`` on the config's
+    route, ``trainable``: a batch of MIXED_BATCH VIST samples of
+    MIXED_SEQ rows, MIXED_IMAGES images of 432x432 a sample (one (0, 0)
+    span), built by VISTDataset; under the recipe's phase-1 freeze, then
+    with ``frozen_params=[]`` (a new optimizer over every weight): a warm
+    step and MIXED_STEPS timed steps each, s a step, samples/s, peak
+    memory and kernel 8's launches a step (held to the layer counts);
+    then one step's losses and grad norm on ``trainable`` against the same
+    prepared batch on ``dense`` at phase 25's limits."""
+    import tempfile
+
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.show_o2 import train_mixed_modality as tmm
+    from showo_tpu_torch.show_o2.masks import omni_attn_mask
+    from showo_tpu_torch.training.train_step import global_norm
+
+    t0 = time.perf_counter()
+    config = load_config(MIXED_CONFIG, ["training.warmup_steps=0"])
+    trainer = tmm.build_trainer(config, torch.device("cuda"))
+    c, sc = trainer.model.cfg, trainer.sc
+    pre = config.dataset.preprocessing
+    if not (c.llm.num_layers == V2_QWEN_LAYERS and c.llm.hidden_size == 1536
+            and c.dit.num_layers == V2_DIT_LAYERS and sc.attn_impl ==
+            "trainable" and sc.remat == "full"
+            and pre.max_mixed_modal_seq_length == MIXED_SEQ
+            and pre.max_num_images == MIXED_IMAGES
+            and pre.resolution == 432
+            and config.training.batch_size_mixed_modal == MIXED_BATCH):
+        raise AssertionError(f"not the full mixed-modality config: {c}, "
+                             f"{sc}")
+    print(f"[{phase}] mixed-modality trainer built from {MIXED_CONFIG} "
+          f"(warmup 0) in {time.perf_counter() - t0:.1f} s: route "
+          f"{sc.attn_impl} (the config's pallas_trainable), remat "
+          f"{sc.remat}, frozen {', '.join(trainer.frozen_substrings)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = _mixed_batch(config, c.num_image_tokens, tmp)
+    mp = batch["modality_positions"]
+    if not (batch["text_tokens"].shape == (MIXED_BATCH, MIXED_SEQ)
+            and batch["images"].shape == (MIXED_BATCH, MIXED_IMAGES, 432,
+                                          432, 3)
+            and tuple(mp[-1, -1]) == (0, 0)):
+        raise AssertionError(f"VIST batch {batch['text_tokens'].shape} "
+                             f"{batch['images'].shape} {mp.tolist()}")
+    out = {}
+    for stage, frozen in (("phase-1 freeze", trainer.frozen_substrings),
+                          ("frozen_params=[]", ())):
+        if not frozen:
+            trainer.frozen_substrings = ()
+            trainer.optimizer = trainer.step_fn.optimizer = \
+                trainer.make_optimizer()
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer.train_step(batch, torch.Generator(device="cuda")
+                           .manual_seed(29))                # warm step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        walls, losses = [], []
+        for _ in range(MIXED_STEPS):
+            gen = torch.Generator(device="cuda").manual_seed(29)
+            t1 = time.perf_counter()
+            m = trainer.train_step(batch, gen)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t1)
+        want = _mixed_want(MIXED_STEPS, V2_QWEN_LAYERS, V2_DIT_LAYERS)
+        counts = {n: cuda_build.launches[n] for n in want}
+        if counts != want:
+            raise AssertionError(f"mixed modality ({stage}): launches "
+                                 f"{counts}, want {want}")
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"losses not finite: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall = statistics.median(walls)
+        n_train = sum(p.numel() for p in trainer.optimizer.params)
+        print(f"[{phase}] mixed-modality training ({stage}: {n_train} "
+              f"trainable parameters), {MIXED_BATCH} samples x {MIXED_SEQ} "
+              f"rows, {MIXED_IMAGES} images of 432x432 a sample, bf16 "
+              f"autocast: kernel 8 launches a step "
+              f"{_per_step(counts, MIXED_STEPS)}, 0 of the others; losses "
+              f"{[round(x, 4) for x in losses]}; step {wall:.4f} s (median "
+              f"of {MIXED_STEPS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+              f"{MIXED_BATCH / wall:.4f} samples/s, peak memory allocated "
+              f"{peak:.2f} GiB on {smi}")
+        out[stage] = {"step_s": wall, "samples_per_s": MIXED_BATCH / wall,
+                      "peak_gib": peak, "losses": losses, "walls": walls,
+                      "trainable": n_train, "counts": counts}
+    # one step's parity: the same prepared batch on both routes
+    step = trainer.step_fn
+    prepared = step.prepare(trainer.device_batch(batch), torch.Generator(
+        device="cuda").manual_seed(30))
+    L = prepared.text_tokens.shape[1]
+    dense = dataclasses.replace(prepared, attn_meta=None, bias=omni_attn_mask(
+        prepared.modality_positions, L))
+    got = {}
+    for route, b in (("trainable", prepared), ("dense", dense)):
+        total, parts, grads = step.loss_and_grads(b)
+        got[route] = [float(x) for x in (total, *parts, global_norm(grads))]
+        del grads
+    names = ("loss", "loss_ntp", "loss_flow", "grad_norm")
+    rel = {n: abs(a - b) / abs(b) for n, a, b in
+           zip(names, got["trainable"], got["dense"])}
+    print(f"[{phase}] mixed-modality step parity, trainable vs dense (28 + "
+          f"10 layers, {MIXED_BATCH} x {L} rows, every weight trained): "
+          + ", ".join(f"{n} {a:.5f} vs {b:.5f} (rel {rel[n]:.2e})"
+                      for n, a, b in zip(names, got["trainable"],
+                                         got["dense"]))
+          + f"; tol {V2_TRAIN_LOSS_TOL} (losses), {V2_TRAIN_GRAD_NORM_TOL} "
+          f"(grad norm)")
+    bad = [n for n in names if rel[n] > (V2_TRAIN_GRAD_NORM_TOL
+                                         if n == "grad_norm"
+                                         else V2_TRAIN_LOSS_TOL)]
+    if bad:
+        raise AssertionError(f"trainable vs dense differ in {bad}: {rel}")
+    out["parity"] = rel
+    return out
+
+
+class _Records(logging.Handler):
+    """The log records of a run, for the phases that read a warning."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_mixed_cli(torch, cuda_build, phase="30"):
+    """The mixed-modality CLI's two-phase recipe, in process
+    (``train_mixed_modality.main(argv)``), at full width and a reduced
+    depth (2 Qwen2.5, 2 DiT, 2 SigLIP layers; phase 29 has the depth), on
+    the config's data shape (2 samples of 4352 rows, 4 images of 432x432):
+    phase 1 (the config's freeze) two steps and a checkpoint a step; phase
+    2 (``model.frozen_params=[]``) resumes from ``latest``, which must take
+    the weights-only fallback (its warning logged) and a fresh optimizer,
+    and trains to step 3.  Kernel 8's launches counted."""
+    import tempfile
+
+    from showo_tpu_torch.show_o2 import train_mixed_modality as tmm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        argv = [f"config={MIXED_CONFIG}", "training.warmup_steps=0",
+                "model.showo.llm_num_layers=2",
+                "model.showo.num_diffusion_layers=2",
+                "model.showo.siglip={num_layers: 2}",
+                f"dataset.params.mixed_modal_json="
+                f"{_vist_json(tmp, MIXED_IMAGES)}",
+                f"dataset.params.mixed_modal_image_root={tmp}",
+                f"experiment.output_dir={out}", "experiment.save_every=1",
+                "experiment.log_every=1"]
+        records = _Records()
+        logging.getLogger("showo_tpu_torch").addHandler(records)
+        try:
+            t0 = time.perf_counter()
+            cuda_build.launches.clear()
+            first = tmm.main(argv + ["training.max_train_steps=2"])
+            counts = {n: c for n, c in cuda_build.launches.items() if c}
+            frozen = sum(not p.requires_grad
+                         for p in first.model.parameters())
+            first = None
+            mid = time.perf_counter()
+            records.messages.clear()
+            second = tmm.main(argv + ["model.frozen_params=[]",
+                                      "training.max_train_steps=3"])
+            end = time.perf_counter()
+        finally:
+            logging.getLogger("showo_tpu_torch").removeHandler(records)
+        fallback = [m for m in records.messages if "WEIGHTS ONLY" in m]
+        want = _mixed_want(2, 2, 2)
+        if not (fallback and second.global_step == 3
+                and second.optimizer.steps == 1 and frozen > 0
+                and all(p.requires_grad for p in second.model.parameters())
+                and all(counts.get(n, 0) == c for n, c in want.items())):
+            raise AssertionError(
+                f"mixed-modality CLI: fallback {fallback}, step "
+                f"{second.global_step}, optimizer steps "
+                f"{second.optimizer.steps}, launches {counts} (want {want})")
+        print(f"[{phase}] the mixed-modality CLI at full width, depth 2 / 2 "
+              f"/ 2: phase 1 ({frozen} frozen tensors) 2 steps and "
+              f"checkpoints in {mid - t0:.1f} s (kernel 8: {counts}); "
+              f"phase 2 (frozen_params=[]) resumed from latest with the "
+              f"weights-only fallback (\"{fallback[0][:60]}...\"), a fresh "
+              f"optimizer, to step 3 in {end - mid:.1f} s")
+        second = None
+    return {"phase1_s": mid - t0, "phase2_s": end - mid, "counts": counts}
+
+
+def _v1_data(tmp):
+    """Tiny v1 data in ``tmp`` from the in-tree image: an ImageNet-style
+    class folder (2 classes x 8 JPEGs), a webdataset tar shard of 12
+    (JPEG, caption) samples and a parquet file of 16 documents (when
+    pyarrow imports; else None)."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    src = Image.open(MMU_IMAGE).convert("RGB")
+
+    def jpeg(i):
+        img = src.rotate(15 * i).resize((288 + 8 * i, 256))
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    root = os.path.join(tmp, "imagenet")
+    for c, cls in enumerate(("n01440764_tench", "n01443537_goldfish")):
+        os.makedirs(os.path.join(root, cls))
+        for i in range(8):
+            with open(os.path.join(root, cls, f"{i}.JPEG"), "wb") as f:
+                f.write(jpeg(8 * c + i))
+    shard = os.path.join(tmp, "cap-00000.tar")
+    with tarfile.open(shard, "w") as tf:
+        for i in range(12):
+            for name, data in ((f"{i:05d}.jpg", jpeg(i)),
+                               (f"{i:05d}.txt", f"The image shows a cat "
+                                f"number {i} on a mat.".encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        return root, shard, None
+    lm = os.path.join(tmp, "lm.parquet")
+    pq.write_table(pa.table({"content": [
+        " ".join(f"word{j}" for j in range(40 + 9 * i)) for i in range(16)]}),
+        lm)
+    return root, shard, lm
+
+
+def phase_v1_cli(torch, cuda_build, smi, phase="31"):
+    """The v1 stage-1 CLI (``training/train_showo.py::main(argv)``) on
+    ``configs/showo_pretraining_stage1.yaml`` at full width and a reduced
+    depth (2 Phi layers; phase 7 has the depth), trainable route (kernel
+    7 at 29 x 387): the data through ``_build_loaders`` (the ImageNet-style
+    folder, the tar shard through the native reader, the parquet file, or
+    an in-memory lm stream where pyarrow does not import); ``save_every``
+    1, ``generate_every`` 1 (validation PNGs through T2IPipeline, on
+    ``auto`` = dense at 256x256, and the prediction triptychs), the EMA
+    on: two steps, then a second run resuming from ``latest`` to step 3,
+    its EMA and its three loaders' positions restored."""
+    import tempfile
+
+    from showo_tpu_torch.data import native_image, native_tar
+    from showo_tpu_torch.training import train_showo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        imagenet, shard, lm = _v1_data(tmp)
+        index = native_tar.TarIndex(shard)
+        jpgs = index.read([i for i, n in enumerate(index.names)
+                           if n.endswith(".jpg")])
+        _, valid = native_image.decode_batch(jpgs, 256)
+        out = os.path.join(tmp, "out")
+        argv = [f"config={V1_TRAIN_CONFIG}", "lr_scheduler.params."
+                "warmup_steps=0", "training.attn_impl=trainable",
+                "model.showo.phi={num_layers: 2}",
+                f"dataset.params.train_t2i_shards_path_or_url={imagenet}",
+                "dataset.params.train_mmu_shards_path_or_url="
+                + shard.replace("00000", "{00000..00000}"),
+                f"dataset.params.train_lm_shards_path_or_url="
+                f"{lm or 'in-memory'}",
+                "dataset.params.shuffle_buffer_size=4",
+                "dataset.params.validation_prompts_file=null",
+                "validation_prompts=[a photo of a cat, a red car]",
+                "training.ema={enabled: true, decay: 0.999}",
+                f"experiment.output_dir={out}", "experiment.save_every=1",
+                "experiment.generate_every=1", "experiment.log_every=1",
+                "experiment.checkpoints_total_limit=2"]
+        from showo_tpu_torch.data import refinedweb
+
+        reader = refinedweb.RefinedWebDataset
+        if lm is None:
+            print(f"[{phase}] pyarrow does not import here: fit gets an "
+                  f"in-memory lm stream; the parquet reader is covered by "
+                  f"the CPU tests alone")
+            refinedweb.RefinedWebDataset = _InMemoryLM
+        tar_before = dict(native_tar.paths)
+        try:
+            t0 = time.perf_counter()
+            cuda_build.launches.clear()
+            first = train_showo.main(argv + ["training.max_train_steps=2"])
+            counts = {n: c for n, c in cuda_build.launches.items() if c}
+            ema_steps = first.ema.step
+            first = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            mid = time.perf_counter()
+            resumed = train_showo.main(argv + ["training.max_train_steps=3"])
+            end = time.perf_counter()
+        finally:
+            refinedweb.RefinedWebDataset = reader
+        tar_paths = {k: native_tar.paths[k] - tar_before.get(k, 0)
+                     for k in ("native", "tarfile")}
+        ckpts = sorted(d for d in os.listdir(out)
+                       if d.startswith("checkpoint-"))
+        files = sorted(os.listdir(os.path.join(out, ckpts[-1])))
+        samples = sorted(os.listdir(os.path.join(out, "samples")))
+        preds = sorted(os.listdir(os.path.join(out, "predictions")))
+        fwd, dq, dkv, tiles = list(TRAIN_KERNELS)
+        want = {fwd: 2 * 2 * 2, dq: 2 * 2, dkv: 2 * 2, tiles: 2 * 2 * 2}
+        ok = (ema_steps == 2 and resumed.global_step == 3
+              and resumed.ema.step == 3 and resumed.optimizer.steps == 3
+              and ckpts == ["checkpoint-2", "checkpoint-3"]
+              and {"ema_state.pt", "t2i_state.json", "lm_state.json",
+                   "mmu_state.json"} <= set(files)
+              and len(samples) == 6 and len(preds) == 3 * 15
+              and {n: counts.get(n, 0) for n in want} == want
+              and not [n for n in counts if n in COUNTERS and n not in want]
+              and tar_paths["native"] > 0 and tar_paths["tarfile"] == 0)
+        if not ok:
+            raise AssertionError(
+                f"v1 CLI: EMA steps {ema_steps}, resumed step "
+                f"{resumed.global_step} (EMA {resumed.ema.step}), "
+                f"checkpoints {ckpts} {files}, {len(samples)} samples, "
+                f"{len(preds)} panels, launches {counts} (want {want}), tar "
+                f"paths {tar_paths}")
+        decoder = ("loaded" if native_image._lib
+                   else "did not build or load here, PIL decoded")
+        positions = {}
+        for n in ("t2i", "lm", "mmu"):
+            with open(os.path.join(out, "checkpoint-3",
+                                   f"{n}_state.json")) as f:
+                positions[n] = json.load(f)["batches_yielded"]
+        print(f"[{phase}] the v1 stage-1 CLI at full width, depth 2, "
+              f"trainable (29 x 387 rows: kernel 7): data through "
+              f"_build_loaders (ImageNet folder, tar shard on the "
+              f"{'native' if tar_paths['native'] else 'tarfile'} reader "
+              f"{tar_paths}, {'parquet' if lm else 'in-memory lm stream'}); "
+              f"the shard's JPEGs through native_image.decode_batch: "
+              f"{sum(valid)} of {len(valid)} decoded, paths "
+              f"{dict(native_image.paths)} (the native decoder {decoder}); "
+              f"2 steps with a checkpoint, "
+              f"validation PNGs and triptychs each, EMA on, in "
+              f"{mid - t0:.1f} s (kernel 7: {counts}); resumed from latest "
+              f"(EMA step 2, loader positions restored) to step 3 in "
+              f"{end - mid:.1f} s; checkpoint-3 holds {files}, loader "
+              f"positions {positions}")
+        resumed = None
+    return {"first_s": mid - t0, "resume_s": end - mid, "counts": counts,
+            "tar_paths": tar_paths, "image_paths": dict(native_image.paths),
+            "parquet": lm is not None}
+
+
+class _InMemoryLM:
+    """Stands in for ``data/refinedweb.py::RefinedWebDataset`` where pyarrow
+    does not import: 16 documents from memory."""
+
+    def __init__(self, *args, **kwargs):
+        self.docs = [{"input_ids": " ".join(f"word{j}"
+                                            for j in range(40 + 9 * i))}
+                     for i in range(16)]
+
+    def __iter__(self):
+        return iter(self.docs)
+
+
 def main() -> int:
     import torch
 
@@ -5183,6 +5634,21 @@ def main() -> int:
         train_rows[name] = _train_row(torch, cuda_build, name, smi)
     parts.append(("training modes [28]", time.perf_counter()))
 
+    # [29] Show-o2 mixed-modality training at full width and depth on
+    # kernel 8; [30] its CLI's two-phase recipe; [31] the v1 stage-1 CLI
+    # with its data loaders, EMA, validation images and resume
+    mixed_train = phase_mixed_train(torch, cuda_build, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed_train["cli"] = phase_mixed_cli(torch, cuda_build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("mixed-modality training [29-30]", time.perf_counter()))
+    v1_cli = phase_v1_cli(torch, cuda_build, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("v1 CLI [31]", time.perf_counter()))
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -5204,6 +5670,15 @@ def main() -> int:
         if r256 is not None:
             entry.update({f"{key}_256": val for key, val in r256.items()})
         kernels.append(entry)
+    # launches of this kernel family in the trainers' CLIs and mixed
+    # modality (phases 29-31) beside the stage-1 / 512x512 slices'
+    extra_train = {TRAIN_SOURCE: {"launches_v1_cli": v1_cli["counts"]},
+                   STREAM_TRAIN_SOURCE: {
+                       "launches_mixed_phase1": mixed_train[
+                           "phase-1 freeze"]["counts"],
+                       "launches_mixed_unfrozen": mixed_train[
+                           "frozen_params=[]"]["counts"],
+                       "launches_mixed_cli": mixed_train["cli"]["counts"]}}
     for source, table, counts, res in (
             (TRAIN_SOURCE, TRAIN_KERNELS, train_launches, train_results),
             (STREAM_TRAIN_SOURCE, STREAM_TRAIN_KERNELS, stream_launches,
@@ -5212,7 +5687,9 @@ def main() -> int:
             kernels.append({"name": name, "route": "cuda",
                             "source": f"showo_tpu_torch/csrc/{source}.cu",
                             "replaces": replaces, "launches": counts[name],
-                            **res[name]})
+                            **res[name],
+                            **{k: v.get(name, 0) for k, v in
+                               extra_train[source].items()}})
     for name, replaces in WSMM_KERNELS.items():
         cases = wsmm[name]
         case = "win M=1"
@@ -5359,7 +5836,8 @@ def main() -> int:
                             **v2_train_results[name + D128],
                             "case": f"Qwen2.5 12/2 D=128, S={seq}",
                             **({"slice": v2_train["slice"]}
-                               if seq == V2_TRAIN_SEQ[0] else {}),
+                               if seq == V2_TRAIN_SEQ[0] else
+                               {"mixed_modality": mixed_train}),
                             **({"rungs": rungs, "train_rows": train_rows}
                                if seq == V2_TRAIN_SEQ[0]
                                and name.endswith("_fwd") else {})})

@@ -4,7 +4,8 @@ restores.
 
 Counterpart of ``showo_tpu/data/loader.py`` (its ``DataLoader``,
 ``default_collate``, ``CheckpointableDataLoader``, ``save_loader_state`` /
-``restore_loader_state`` and ``shard_for_process``); the JAX package's
+``restore_loader_state``, ``shard_for_process`` and ``ShuffleBuffer``); the
+JAX package's
 ``device_prefetch`` (JAX sharding) has no counterpart: the trainers copy
 each batch to the card themselves.  The process index and count of
 :func:`shard_for_process` come from ``torch.distributed`` when a process
@@ -28,11 +29,7 @@ def shard_for_process(items: List, process_index: Optional[int] = None,
     every ``process_count``-th item from ``process_index``.  A process past
     the end gets one item, wrapped around, never the whole list."""
     if process_index is None:
-        import torch.distributed as dist
-
-        up = dist.is_available() and dist.is_initialized()
-        process_index = dist.get_rank() if up else 0
-        process_count = dist.get_world_size() if up else 1
+        process_index, process_count = process_rank()
     shard = items[process_index::process_count]
     if not shard and items:
         shard = [items[process_index % len(items)]]
@@ -156,3 +153,37 @@ def restore_loader_state(loader, output_dir: str, step: int,
     with open(path) as f:
         loader.load_state_dict(json.load(f))
     return True
+
+
+def process_rank() -> tuple:
+    """(rank, world size) of this process: ``torch.distributed``'s when a
+    process group is up, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class ShuffleBuffer:
+    """A reservoir shuffle of a stream (webdataset's ``.shuffle``): keep
+    ``size`` items, yield a random one of them for each new item, and the
+    rest shuffled at the end; the draws from
+    ``np.random.default_rng(seed)``, as JAX's."""
+
+    def __init__(self, iterable: Iterable, size: int, seed: int = 0):
+        self.iterable = iterable
+        self.size = size
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        buf: List = []
+        for item in self.iterable:
+            if len(buf) < self.size:
+                buf.append(item)
+                continue
+            idx = int(self.rng.integers(0, self.size))
+            out, buf[idx] = buf[idx], item
+            yield out
+        self.rng.shuffle(buf)
+        yield from buf

@@ -126,6 +126,21 @@ def fuse_inference(model: Showo2) -> Showo2:
     return model
 
 
+def semantic_features(model: Showo2, x: torch.Tensor,
+                      remat=False) -> torch.Tensor:
+    """The und path: latents [N, C, H, W] (in the weights' dtype) through
+    ``image_embedder_und``, the SigLIP position table (interpolated where
+    the patch grid is not its own) and ``und_trans`` -> [N, (H/p)(W/p),
+    D_clip].  remat: the SigLIP layers' policy (``utils/remat.py``)."""
+    und = model.image_embedder_und(x)
+    pos = model.position_embedding.weight
+    p = model.cfg.patch_size
+    h_, w_ = x.shape[2] // p, x.shape[3] // p
+    pos = (pos[None] if pos.shape[0] == h_ * w_
+           else interpolate_pos_encoding(pos, h_, w_))
+    return model.und_trans(und + pos, remat=remat)
+
+
 def embed_images(model: Showo2, latents: torch.Tensor,
                  remat=False) -> torch.Tensor:
     """Dual-path embedding and fusion: image latents [B, C, H, W] ->
@@ -138,14 +153,8 @@ def embed_images(model: Showo2, latents: torch.Tensor,
     if video:
         B, C, T, H, W = x.shape
         x = x.transpose(1, 2).reshape(B * T, C, H, W)
-    und = model.image_embedder_und(x)
+    und = semantic_features(model, x, remat=remat)
     gen = model.image_embedder_gen(x)
-    pos = model.position_embedding.weight
-    p = model.cfg.patch_size
-    h_, w_ = x.shape[2] // p, x.shape[3] // p
-    pos = (pos[None] if pos.shape[0] == h_ * w_
-           else interpolate_pos_encoding(pos, h_, w_))
-    und = model.und_trans(und + pos, remat=remat)
     fused = model.fusion_proj(torch.cat([und, gen], dim=-1))
     if video:
         return fused.reshape(B, T * fused.shape[1], fused.shape[-1])

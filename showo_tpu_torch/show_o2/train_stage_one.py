@@ -138,6 +138,40 @@ class Stage1Step:
         self.transport, self.optimizer = transport, optimizer
         self.autocast_dtype = autocast_dtype
 
+    def encode(self, images: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pixels [N, H, W, 3] or [N, T, H, W, 3] in [-1, 1] -> the frozen
+        VAE's latents [N, C, h, w] or [N, C, T', h, w] (posterior noise
+        ``eps`` shaped as the latents, else drawn from ``generator``)."""
+        images = images.float()
+        video = images.dim() == 5
+        pixels = (images.permute(0, 4, 1, 2, 3) if video
+                  else images.permute(0, 3, 1, 2)[:, :, None])
+        latents = wan_encode(self.vae, pixels, generator, eps=eps)
+        return latents if video else latents[:, :, 0]
+
+    def noised(self, t: torch.Tensor, latents: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               x0: Optional[torch.Tensor] = None):
+        """(t, xt, ut) of the linear plan from the noise ``x0`` (latents'
+        shape, else drawn from ``generator``) to ``latents``."""
+        t = torch.as_tensor(t, dtype=torch.float32, device=latents.device)
+        if x0 is None:
+            x0 = torch.randn(latents.shape, generator=generator,
+                             dtype=latents.dtype, device=latents.device)
+        x0 = torch.as_tensor(x0, dtype=latents.dtype, device=latents.device)
+        _, xt, ut = self.transport.path_sampler.plan(t, x0, latents)
+        return t, xt, ut
+
+    def attention(self, modality_positions: torch.Tensor, L: int):
+        """(bias, attn_meta) of the route: the dense omni bias, or the
+        trainable kernels' metadata."""
+        if self.sc.attn_impl == "trainable":
+            return None, ("trainable", seg_from_modality_positions(
+                modality_positions, L), None, None, None)
+        return omni_attn_mask(modality_positions, L), None
+
     @torch.no_grad()
     def prepare(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
@@ -150,14 +184,8 @@ class Stage1Step:
         the und path already applied) and ``x0`` (latents' shape), used
         instead of draws from ``generator``."""
         sc, noise = self.sc, noise or {}
-        images = batch["images"].float()
-        video = images.dim() == 5
-        pixels = (images.permute(0, 4, 1, 2, 3) if video
-                  else images.permute(0, 3, 1, 2)[:, :, None])
-        latents = wan_encode(self.vae, pixels, generator,
-                             eps=noise.get("vae_eps"))
-        if not video:
-            latents = latents[:, :, 0]
+        latents = self.encode(batch["images"], generator,
+                              noise.get("vae_eps"))
         B, L = batch["text_tokens"].shape
         is_und = batch["is_und"]
         image_masks = batch["image_masks"]
@@ -175,20 +203,9 @@ class Stage1Step:
             if sc.und_max_t0 == 1.0:
                 # und samples are clean: their flow rows leave the loss
                 image_masks = image_masks * (1 - is_und)[:, None]
-        t = torch.as_tensor(t, dtype=torch.float32, device=latents.device)
-        x0 = noise.get("x0")
-        if x0 is None:
-            x0 = torch.randn(latents.shape, generator=generator,
-                             dtype=latents.dtype, device=latents.device)
-        x0 = torch.as_tensor(x0, dtype=latents.dtype, device=latents.device)
-        _, xt, ut = self.transport.path_sampler.plan(t, x0, latents)
+        t, xt, ut = self.noised(t, latents, generator, noise.get("x0"))
         mp = batch["modality_positions"]
-        bias, meta = None, None
-        if sc.attn_impl == "trainable":
-            meta = ("trainable", seg_from_modality_positions(mp, L), None,
-                    None, None)
-        else:
-            bias = omni_attn_mask(mp, L)
+        bias, meta = self.attention(mp, L)
         return Stage1Batch(batch["text_tokens"], batch["text_labels"], mp,
                            image_masks, t, xt, ut, bias, meta)
 
@@ -235,11 +252,14 @@ class Stage1Trainer:
     transport: Transport
     frozen_substrings: Sequence[str] = ()
 
+    step_class = Stage1Step
+    batch_keys = BATCH_KEYS
+
     def __post_init__(self):
         self.vae.eval().requires_grad_(False)
         self.model.train()
         self.optimizer = self.make_optimizer()
-        self.step_fn = Stage1Step(
+        self.step_fn = self.step_class(
             self.model, self.vae, self.sc, self.transport, self.optimizer,
             torch.bfloat16 if self.device.type == "cuda" else None)
         self.global_step = 0
@@ -256,13 +276,13 @@ class Stage1Trainer:
         """A collated host batch -> the step's tensors on the model's
         device; ``is_und`` from ``data_type`` ('mmu' is understanding)
         when the batch has no such column."""
-        if "is_und" not in batch:
+        if "is_und" in self.batch_keys and "is_und" not in batch:
             types = batch.get("data_type",
                               ["t2i"] * len(batch["text_tokens"]))
             batch = dict(batch, is_und=np.asarray(
                 [1 if d == "mmu" else 0 for d in types], np.int32))
         return {k: torch.as_tensor(np.asarray(batch[k]), device=self.device)
-                for k in BATCH_KEYS}
+                for k in self.batch_keys}
 
     def train_step(self, batch: dict,
                    generator: Optional[torch.Generator] = None,
@@ -399,9 +419,21 @@ def stage1_config(config, attn_impl: Optional[str] = None) -> Stage1Config:
         und_max_t0=None if und is None else float(und),
         warmup_steps=int(tr.get("warmup_steps", 0)),
         grad_accum_steps=int(tr.get("gradient_accumulation_steps", 1)),
-        attn_impl=str(attn_impl or tr.get("attn_impl", "dense")),
+        attn_impl=str(attn_impl
+                      or config_route(tr.get("attn_impl", "dense"))),
         optimizer=str(tr.get("optimizer", "adamw")),
         remat=str(tr.get("remat", "full")))
+
+
+def config_route(name: str) -> str:
+    """A config's ``training.attn_impl`` as the port's route: the configs
+    are the JAX package's too, and may name a route by its JAX string
+    (``pallas_trainable`` -> ``trainable``); any other name is kept, for
+    :class:`Stage1Step` to check."""
+    from showo_tpu_torch.show_o2.qwen2 import ATTN_ROUTES
+
+    name = str(name)
+    return {j: p for p, j in ATTN_ROUTES.items() if j}.get(name, name)
 
 
 def build_models(config, device: torch.device):
@@ -486,9 +518,12 @@ def validation_prompts(config) -> List[str]:
 
 
 def run(config, trainer: Stage1Trainer,
-        sources: Sequence[Tuple[str, str, str]]) -> Stage1Trainer:
+        sources: Sequence[Tuple[str, str, str]] = (),
+        make_loader=None) -> Stage1Trainer:
     """The CLIs' common part: data, config snapshot, resume from
-    ``latest``, the tracker and the loop."""
+    ``latest``, the tracker and the loop.  The data: the jsonl loaders of
+    ``sources`` (:func:`build_loader`), or ``make_loader(config, tokenizer,
+    token_ids, model)``."""
     from showo_tpu_torch.config import snapshot_config
     from showo_tpu_torch.data.loader import restore_loader_state
     from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
@@ -497,8 +532,8 @@ def run(config, trainer: Stage1Trainer,
 
     exp, tr = config.experiment, config.training
     tokenizer, token_ids = load_tokenizer_and_ids(config)
-    loader = build_loader(config, tokenizer, token_ids, trainer.model,
-                          sources)
+    loader = (make_loader or (lambda *a: build_loader(*a, sources)))(
+        config, tokenizer, token_ids, trainer.model)
     snapshot_config(config, exp.output_dir)
     if exp.get("resume_from_checkpoint") == "latest":
         step = resume_latest(exp.output_dir, trainer.model,

@@ -159,6 +159,20 @@ def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
+def check_state_shapes(what: str, mine: Sequence[torch.Tensor],
+                   saved: Sequence[torch.Tensor]) -> None:
+    """ValueError unless ``saved`` holds as many tensors as ``mine``, each
+    of the same shape (``copy_`` would broadcast a mismatch silently)."""
+    if len(saved) != len(mine):
+        raise ValueError(f"{what}: the saved state holds {len(saved)} "
+                         f"tensors, this optimizer {len(mine)}")
+    for i, (a, b) in enumerate(zip(mine, saved)):
+        if tuple(a.shape) != tuple(b.shape):
+            raise ValueError(f"{what}: tensor {i} was saved as "
+                             f"{tuple(b.shape)}, this optimizer holds "
+                             f"{tuple(a.shape)}")
+
+
 class AdamWBf16:
     """``optax.adamw(..., mu_dtype=bfloat16)`` over parameter groups; see
     the module docstring.  State: the step count, the bf16 first moments
@@ -201,6 +215,11 @@ class AdamWBf16:
         return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Raises ``ValueError``, before it copies anything, when the saved
+        moments are not one a parameter of this optimizer's shapes (the
+        trained set changed), as ``torch.optim.AdamW`` does."""
+        for key, mine in (("mu", self.mu), ("nu", self.nu)):
+            check_state_shapes(f"adamw_bf16 {key}", mine, list(sd[key]))
         self.count = int(sd["count"])
         for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
             dst.copy_(src)
@@ -269,7 +288,16 @@ class Adafactor:
                 "v": {t.key: list(v) for t, v in zip(self.tensors, self.v)}}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Raises ``ValueError``, before it copies anything, when the saved
+        state is not of these tensors (the trained set changed)."""
+        saved = sd["v"]
+        if set(saved) != {t.key for t in self.tensors}:
+            raise ValueError(
+                f"adafactor: the saved state holds tensors {sorted(saved)}, "
+                f"this optimizer {sorted(t.key for t in self.tensors)}")
+        for t, v in zip(self.tensors, self.v):
+            check_state_shapes(f"adafactor {t.key}", list(v), list(saved[t.key]))
         self.count = int(sd["count"])
         for t, v in zip(self.tensors, self.v):
-            for dst, src in zip(v, sd["v"][t.key]):
+            for dst, src in zip(v, saved[t.key]):
                 dst.copy_(src)

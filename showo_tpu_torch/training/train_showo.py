@@ -21,17 +21,27 @@ Precision: fp32 master weights; on CUDA the forward runs under
 (the reference config's setting); the CPU runs all fp32.  MAGVIT encodes
 in fp32.  The entry points run on CUDA unless the caller asks for the CPU.
 
-Not ported yet: the dataset loaders of ``showo_tpu/data/`` behind the CLI,
-checkpoints and resume, EMA, validation images and prediction panels.
+The loop (:meth:`ShowoTrainer.fit`) zips the t2i, lm and mmu loaders of
+:func:`_build_loaders` (an ImageNet class folder or tar shards, RefinedWeb
+parquet, caption tar shards), and every ``save_every`` steps saves a
+checkpoint ring (``utils/checkpoint.py``) with the EMA of the weights
+(``training.ema``, ``training/ema.py``) and each loader's state; every
+``generate_every`` steps it writes validation images of the config's
+prompts (``samples/``) and [original | reconstruction | prediction]
+panels of the step's t2i batch (``predictions/``).  The CLI resumes from
+``latest``: the weights, the optimizer, the EMA and the loaders'
+positions.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from showo_tpu_torch.config import get_config
@@ -39,7 +49,7 @@ from showo_tpu_torch.inference_t2i import (build_showo_config, load_model,
                                            load_tokenizer, load_vq)
 from showo_tpu_torch.models.magvit import MagvitV2
 from showo_tpu_torch.models.phi import check_route
-from showo_tpu_torch.models.showo import Showo, showo_losses
+from showo_tpu_torch.models.showo import Showo, showo_forward, showo_losses
 from showo_tpu_torch.ops.flash_attention import (metadata_mmu,
                                                  metadata_predict_next,
                                                  seg_from_soi_eoi)
@@ -47,6 +57,7 @@ from showo_tpu_torch.ops.masks import omni_mask_mmu, omni_mask_predict_next
 from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.sampling.schedules import get_mask_schedule
 from showo_tpu_torch.training.corruption import mask_or_random_replace_tokens
+from showo_tpu_torch.training.ema import EMA, EMAConfig
 from showo_tpu_torch.training.lr_schedules import get_lr_schedule
 from showo_tpu_torch.training.optim import jax_tensors
 from showo_tpu_torch.training.train_step import (Optimizer, TrainConfig,
@@ -265,8 +276,6 @@ class ShowoTrainer:
             attn_impl=str(self.attn_impl or tr.get("attn_impl", "dense")),
             remat=str(tr.get("remat", "full")),
             optimizer=str(tr.get("optimizer", "adamw")))
-        if (tr.get("ema") or {}).get("enabled", False):
-            raise NotImplementedError("training.ema is not ported yet")
         precision = tr.get("mixed_precision", "no")
         if precision not in _PRECISION:
             raise NotImplementedError(
@@ -291,6 +300,20 @@ class ShowoTrainer:
             autocast_dtype=(_PRECISION[precision]
                             if self.device.type == "cuda" else None))
         self.global_step = 0
+        self.ema = self._init_ema(tr.get("ema") or {})
+
+    def _init_ema(self, ema_cfg) -> Optional[EMA]:
+        """The EMA of every weight when ``training.ema.enabled`` (the
+        reference ships ``EMAModel`` unwired, training_utils.py:61; JAX
+        makes it a config block)."""
+        if not ema_cfg.get("enabled", False):
+            return None
+        ec = EMAConfig(
+            decay=float(ema_cfg.get("decay", 0.9999)),
+            min_decay=float(ema_cfg.get("min_decay", 0.0)),
+            update_after_step=int(ema_cfg.get("update_after_step", 0)),
+            use_ema_warmup=bool(ema_cfg.get("use_ema_warmup", False)))
+        return EMA(ec, self.model.named_parameters())
 
     @property
     def device(self) -> torch.device:
@@ -319,35 +342,205 @@ class ShowoTrainer:
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[dict] = None) -> Dict:
         """One call of the fused step from raw host batches (with gradient
-        accumulation, one micro-step)."""
+        accumulation, one micro-step); the EMA follows every optimizer
+        step, not every call."""
         metrics = self.step_fn(*self.host_batch(t2i_batch, lm_texts,
                                                 mmu_batch),
                                generator=generator, noise=noise)
+        k = max(1, self.tc.grad_accum_steps)
+        if self.ema is not None and (self.global_step + 1) % k == 0:
+            self.ema.update(self.model.parameters())
         self.global_step += 1
         return metrics
 
+    def _model_copy(self) -> Showo:
+        """The weights on a new Show-o (the pipeline fuses its model in
+        place), bf16 on CUDA."""
+        dtype = torch.bfloat16 if self.device.type == "cuda" \
+            else torch.float32
+        copy = Showo(self.cfg, device=self.device, dtype=dtype)
+        copy.load_state_dict(self.model.state_dict())
+        return copy.eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def generate_validation_images(self, prompts: Sequence[str], generator,
+                                   output_dir: str) -> np.ndarray:
+        """MaskGIT samples of ``prompts`` at the config's guidance and steps
+        (train.py:671-693, 766-848 ``generate_images``) through
+        ``T2IPipeline`` on its ``auto`` route, saved as
+        ``samples/step<N>_<i>.png``."""
+        from showo_tpu_torch.inference_t2i import to_pil_images
+        from showo_tpu_torch.pipelines.t2i import T2IPipeline
+
+        tr = self.config.training
+        pipe = T2IPipeline(
+            model=self._model_copy(), vq=self.vq,
+            uni_prompting=self.uni_prompting,
+            guidance_scale=tr.get("guidance_scale", 1.5),
+            timesteps=tr.get("generation_timesteps", 12),
+            max_seq_length=self.tc.max_seq_length,
+            resolution=self.config.dataset.params.get("resolution", 256))
+        images = pipe.generate(list(prompts), generator)
+        out = os.path.join(output_dir, "samples")
+        os.makedirs(out, exist_ok=True)
+        for i, im in enumerate(to_pil_images(images)):
+            im.save(os.path.join(out,
+                                 f"step{self.global_step:07d}_{i:02d}.png"))
+        return images
+
+    @torch.no_grad()
+    def predict_tokens(self, t2i_batch, generator=None,
+                       noise: Optional[dict] = None):
+        """The step's corruption of the t2i batch's codes again (the same
+        generator, or the same ``noise`` draws), the model's argmax over
+        the codebook at each masked position: (codes, predicted codes,
+        each row's masked share)."""
+        cfg, sp = self.cfg, self.uni_prompting.sptids
+        pad, soi, eoi = sp["<|pad|>"], sp["<|soi|>"], sp["<|eoi|>"]
+        tr = self.config.training
+        pixels = torch.as_tensor(np.asarray(t2i_batch["image"]),
+                                 dtype=torch.float32, device=self.device)
+        text = torch.as_tensor(self.uni_prompting.t2i_text_block(
+            t2i_batch["text"]), device=self.device)
+        tokens = self.vq.get_code(pixels)
+        noised = mask_or_random_replace_tokens(
+            tokens, cfg.mask_token_id,
+            get_mask_schedule(tr.get("mask_schedule", "cosine")),
+            generator=generator,
+            min_masking_rate=tr.get("min_masking_rate", 0.0),
+            codebook_size=cfg.codebook_size, **(noise or {}))[0]
+        unified = torch.where(noised == cfg.mask_token_id, cfg.mask_token_id,
+                              noised + cfg.codebook_offset)
+        ids, _ = assemble_t2i(text, unified, unified, soi, eoi, pad)
+        bias = omni_mask_predict_next(ids, pad, soi, eoi,
+                                      rm_pad_in_image=True)
+        dtype = self.step_fn.autocast_dtype
+        with torch.autocast(self.device.type, dtype=dtype,
+                            enabled=dtype is not None):
+            logits = showo_forward(self.model, input_ids=ids,
+                                   attention_bias=bias)
+        logits = logits[0] if isinstance(logits, tuple) else logits
+        n, off = cfg.num_vq_tokens, cfg.codebook_offset
+        pred = torch.argmax(logits[:, -(n + 1):-1,
+                                   off:off + cfg.codebook_size].float(), -1)
+        masked = noised == cfg.mask_token_id
+        return (tokens, torch.where(masked, pred, tokens),
+                masked.float().mean(-1))
+
+    @torch.no_grad()
+    def visualize_predictions(self, t2i_batch, generator, output_dir: str,
+                              noise: Optional[dict] = None) -> np.ndarray:
+        """[original | VQ reconstruction | prediction] panels of the t2i
+        batch (train.py:715-763): :meth:`predict_tokens`, both code sets
+        decoded, saved as ``predictions/step<N>_<i>_mask<r>.png``."""
+        tokens, predicted, mask_ratio = self.predict_tokens(
+            t2i_batch, generator, noise)
+        recon = self.vq.decode_code(tokens).float().cpu().numpy()
+        pred = self.vq.decode_code(predicted).float().cpu().numpy()
+        return self._save_viz(np.asarray(t2i_batch["image"], np.float32),
+                              recon, pred, mask_ratio.cpu().numpy(),
+                              output_dir)
+
+    def _save_viz(self, pixels, recon, predicted, mask_ratio,
+                  output_dir: str) -> np.ndarray:
+        from showo_tpu_torch.inference_t2i import to_pil_images
+
+        panel = np.concatenate([pixels, recon, predicted], axis=2)
+        out = os.path.join(output_dir, "predictions")
+        os.makedirs(out, exist_ok=True)
+        for i, im in enumerate(to_pil_images(panel)):
+            im.save(os.path.join(
+                out, f"step{self.global_step:07d}_{i:02d}"
+                f"_mask{float(mask_ratio[i]):.2f}.png"))
+        return panel
+
+    def save(self, output_dir: str, loaders: Dict[str, Any],
+             checkpoints_total_limit: Optional[int] = None) -> str:
+        """``checkpoint-<step>/``: the weights and the optimizer, the EMA
+        (``ema_state.pt``) and each loader's state
+        (``<name>_state.json``)."""
+        from showo_tpu_torch.data.loader import save_loader_state
+        from showo_tpu_torch.utils.checkpoint import save_checkpoint
+
+        path = save_checkpoint(output_dir, self.global_step, self.model,
+                               self.optimizer, checkpoints_total_limit)
+        if self.ema is not None:
+            torch.save(self.ema.state_dict(),
+                       os.path.join(path, "ema_state.pt"))
+        for name, ld in loaders.items():
+            if hasattr(ld, "state_dict"):
+                save_loader_state(ld, output_dir, self.global_step,
+                                  name=name)
+        return path
+
+    def resume(self, output_dir: str, loaders: Dict[str, Any]) -> int:
+        """``resume_from_checkpoint: 'latest'``: the newest checkpoint's
+        weights and optimizer, its EMA (or a warning that the EMA restarts
+        from the weights) and each loader's position; returns the step (0
+        when there is none)."""
+        from showo_tpu_torch.data.loader import restore_loader_state
+        from showo_tpu_torch.utils.checkpoint import resume_latest
+
+        step = resume_latest(output_dir, self.model, self.optimizer)
+        if not step:
+            return 0
+        self.global_step = step
+        logger.info("resumed from step %d", step)
+        if self.ema is not None:
+            path = os.path.join(output_dir, f"checkpoint-{step}",
+                                "ema_state.pt")
+            if os.path.exists(path):
+                self.ema.load_state_dict(torch.load(
+                    path, map_location=self.device, weights_only=False))
+                logger.info("restored EMA state at step %d", step)
+            else:
+                self.ema = self._init_ema(self.config.training.get("ema"))
+                logger.warning("no ema_state in checkpoint-%d; EMA restarts "
+                               "from the resumed raw params", step)
+        for name, ld in loaders.items():
+            if hasattr(ld, "load_state_dict"):
+                restore_loader_state(ld, output_dir, step, name=name)
+        return step
+
     def fit(self, t2i_loader, lm_loader, mmu_loader, max_steps: int,
             log_every: int = 50, save_every: Optional[int] = None,
-            seed: int = 0, generate_every: Optional[int] = None):
-        """Steps over the zipped loaders until ``max_steps``; logs every
-        ``log_every`` steps.  Each step's corruption generator depends on
-        (seed, step) only."""
-        if save_every or generate_every:
-            raise NotImplementedError(
-                "checkpoints (save_every) and validation images "
-                "(generate_every) are not ported yet")
+            output_dir: str = "output",
+            checkpoints_total_limit: Optional[int] = None, seed: int = 0,
+            generate_every: Optional[int] = None,
+            validation_prompts: Optional[Sequence[str]] = None):
+        """Steps over the zipped loaders until ``max_steps`` (train.py
+        :467-693): metrics every ``log_every`` steps; every ``save_every``
+        :meth:`save`; every ``generate_every`` validation images of
+        ``validation_prompts`` and the prediction panels of the step's t2i
+        batch.  Each step's corruption generator depends on (seed, step)
+        only, so a resumed run draws what an unbroken one would; the
+        panels re-run the step's corruption from a generator of the same
+        (seed, step)."""
         sizes = sum(self.step_fn.sizes)
+        loaders = {"t2i": t2i_loader, "lm": lm_loader, "mmu": mmu_loader}
         t0 = time.perf_counter()
         for t2i_b, lm_b, mmu_b in max_size_cycle_zip(t2i_loader, lm_loader,
                                                      mmu_loader):
-            gen = step_generator(self.device, seed, self.global_step)
-            metrics = self.train_step(t2i_b, lm_b["input_ids"], mmu_b, gen)
+            step = self.global_step
+            metrics = self.train_step(t2i_b, lm_b["input_ids"], mmu_b,
+                                      step_generator(self.device, seed, step))
             if self.global_step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 lap = (time.perf_counter() - t0) / log_every
                 m.update(batch_time=lap, samples_per_sec=sizes / lap)
                 logger.info("step %d: %s", self.global_step, m)
                 t0 = time.perf_counter()
+            if save_every and self.global_step % save_every == 0:
+                self.save(output_dir, loaders, checkpoints_total_limit)
+            if generate_every and self.global_step % generate_every == 0:
+                if validation_prompts:
+                    self.generate_validation_images(
+                        validation_prompts,
+                        step_generator(self.device, seed + 1, step),
+                        output_dir)
+                self.visualize_predictions(
+                    t2i_b, step_generator(self.device, seed, step),
+                    output_dir)
             if self.global_step >= max_steps:
                 break
         return self.model
@@ -373,31 +566,77 @@ def build_trainer(config, device=None,
                         attn_impl=attn_impl)
 
 
-def _build_loaders(config, tokenizer):
-    """The t2i (ImageNet folder or tar shards), mmu (tar shards) and lm
-    (RefinedWeb parquet) loaders of the config."""
-    raise NotImplementedError(
-        "the training data loaders (showo_tpu/data/: ImageNet folders, tar "
-        "shards, RefinedWeb parquet) are not ported yet; they are the data "
-        "slice of the port. ShowoTrainer.fit takes any three iterables of "
-        "host batches meanwhile")
+def _build_loaders(config, tokenizer=None):
+    """The t2i (an ImageNet class folder, ``dataset.gen_type:
+    imagenet1k``, or tar shards), lm (RefinedWeb parquet, this process's
+    rows) and mmu (caption tar shards) loaders of the config
+    (train.py:271-412), each checkpointable."""
+    from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
+                                             process_rank)
+    from showo_tpu_torch.data.refinedweb import RefinedWebDataset
+    from showo_tpu_torch.data.tar_shards import Text2ImageTarDataset
+
+    p, tr = config.dataset.params, config.training
+    res = p.resolution
+    if config.dataset.gen_type == "imagenet1k":
+        from showo_tpu_torch.data.imagenet import ImageNetDataset
+
+        t2i_ds = ImageNetDataset(p.train_t2i_shards_path_or_url, res)
+    else:
+        t2i_ds = Text2ImageTarDataset(p.train_t2i_shards_path_or_url, res,
+                                      p.get("shuffle_buffer_size", 1000))
+    mmu_ds = Text2ImageTarDataset(p.train_mmu_shards_path_or_url, res,
+                                  p.get("shuffle_buffer_size", 1000))
+    rank, world = process_rank()
+    lm_ds = RefinedWebDataset(p.train_lm_shards_path_or_url, rank=rank,
+                              world_size=world)
+    return tuple(CheckpointableDataLoader(lambda ds=ds: iter(ds), bs)
+                 for ds, bs in ((t2i_ds, tr.batch_size_t2i),
+                                (lm_ds, tr.batch_size_lm),
+                                (mmu_ds, tr.batch_size_mmu)))
 
 
-def main() -> None:
+def load_validation_prompts(config) -> Optional[List[str]]:
+    """The config's validation prompts: the lines of
+    ``dataset.params.validation_prompts_file`` (the in-tree list of that
+    name when the path is absent), else the inline
+    ``validation_prompts``, else None (train.py:672-683)."""
+    from showo_tpu_torch.utils.assets import validation_prompts_file
+
+    vp = config.dataset.params.get("validation_prompts_file")
+    if vp:
+        if not os.path.exists(str(vp)):
+            vp = validation_prompts_file(str(vp))
+        if vp:
+            with open(str(vp)) as f:
+                return [ln.strip() for ln in f if ln.strip()]
+    inline = config.get("validation_prompts")
+    return list(inline) if inline else None
+
+
+def main(argv=None) -> ShowoTrainer:
+    from showo_tpu_torch.config import snapshot_config
+
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    config = get_config()
+    config = get_config(argv)
+    exp = config.experiment
     trainer = build_trainer(config, device=config.get("device"))
-    if config.experiment.get("resume_from_checkpoint"):
-        logger.warning("resume_from_checkpoint: checkpoints are not ported "
-                       "yet; starting from step 0")
     loaders = _build_loaders(config, trainer.uni_prompting.text_tokenizer)
+    snapshot_config(config, exp.output_dir)
+    if exp.get("resume_from_checkpoint") == "latest":
+        trainer.resume(exp.output_dir, dict(zip(("t2i", "lm", "mmu"),
+                                                loaders)))
     trainer.fit(*loaders, max_steps=config.training.max_train_steps,
-                log_every=config.experiment.get("log_every", 50),
-                save_every=config.experiment.get("save_every"),
+                log_every=exp.get("log_every", 50),
+                save_every=exp.get("save_every"),
+                output_dir=exp.output_dir,
+                checkpoints_total_limit=exp.get("checkpoints_total_limit"),
                 seed=config.training.get("seed", 0),
-                generate_every=config.experiment.get("generate_every"))
+                generate_every=exp.get("generate_every"),
+                validation_prompts=load_validation_prompts(config))
+    return trainer
 
 
 if __name__ == "__main__":

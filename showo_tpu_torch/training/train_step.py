@@ -25,7 +25,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from showo_tpu_torch.training.optim import (AdamWBf16, Adafactor,
-                                            check_optimizer, own_tensors)
+                                            check_optimizer,
+                                            check_state_shapes, own_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,5 +171,8 @@ class Optimizer:
         if self.name not in sd:
             raise ValueError(f"the state holds no {self.name!r} optimizer "
                              f"state (it has {sorted(sd)})")
+        acc = sd["acc"]
+        if acc is not None:
+            check_state_shapes("accumulated gradients", self.params, acc)
         (self.adamw or self.inner).load_state_dict(sd[self.name])
-        self.steps, self.micro, self._acc = sd["steps"], sd["micro"], sd["acc"]
+        self.steps, self.micro, self._acc = sd["steps"], sd["micro"], acc

@@ -12,6 +12,7 @@ weights, so a resumed run goes on where the first one stopped.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -86,7 +87,9 @@ def resume_latest(output_dir: str, model, optimizer=None,
         return 0
     if optimizer is None:
         return restore_checkpoint(path, model)
-    backup = optimizer.state_dict()
+    # a copy: state_dict() holds the live state tensors, which a load
+    # that fails part way would already have written into
+    backup = copy.deepcopy(optimizer.state_dict())
     try:
         return restore_checkpoint(path, model, optimizer)
     except (ValueError, KeyError, RuntimeError) as e:

@@ -14,9 +14,12 @@ tokenizer ids, every line of a prompt file (blank ones too), and the same
 frames of a frame directory and a GIF; and the Show-o2 trainers' jsonl
 data path (``data/image_text.py``, ``data/mixed.py``, ``data/loader.py``):
 the dataset's samples on the same records and seed, collate, the per-process
-shard, every mixing mode, the loader state.  A static scan shows that
-neither the package nor ``chip_smoke.py`` imports jax, flax or the JAX
-package, even inside a function.
+shard, every mixing mode, the loader state; the v1 trainer's host readers
+(``csrc/host/*.cpp`` the JAX package's ``native/`` sources byte for byte,
+their g++ build, the readers' fallbacks when it fails; the readers' samples
+are held to JAX's in tests/test_torch_data_loaders.py).  A static scan
+shows that neither the package nor ``chip_smoke.py`` imports jax, flax or
+the JAX package, even inside a function.
 """
 
 import ast
@@ -594,3 +597,86 @@ def test_loader_pieces_vs_jax(tmp_path):
     assert len(rest) == 2 and first["s"].tolist() == ["t0", "t1"]
 
 
+
+
+# -- the v1 trainer's host readers (csrc/host, data/) ---------------------------
+
+@pytest.mark.parametrize("name", ["tario.cpp", "imgdec.cpp"])
+def test_native_sources_are_the_reference_byte_for_byte(name):
+    """The port builds its own copies of ``native/*.cpp``; they are the
+    JAX package's sources, byte for byte."""
+    with open(os.path.join(REPO, "native", name), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "showo_tpu_torch", "csrc", "host", name),
+              "rb") as f:
+        assert f.read() == want
+
+
+def test_host_build_names_and_loads(tmp_path, monkeypatch):
+    """``utils/host_build.py`` builds a source once under a name of its
+    hash; a failed build raises and leaves no library behind."""
+    from showo_tpu_torch.utils import host_build
+
+    monkeypatch.setattr(host_build, "BUILD_DIR", str(tmp_path))
+    src, out = host_build.library_path("tario")
+    assert os.path.dirname(out) == str(tmp_path)
+    assert host_build.library_path("tario", ("-ljpeg",))[1] != out
+    lib = host_build.load_host_library("tario")
+    assert os.path.exists(out) and hasattr(lib, "tario_index")
+    mtime = os.path.getmtime(out)
+    host_build.load_host_library("tario")
+    assert os.path.getmtime(out) == mtime
+    with pytest.raises(RuntimeError, match="failed"):
+        host_build.load_host_library("imgdec", libs=("-lno_such_lib_x",))
+    assert sorted(os.listdir(tmp_path)) == [os.path.basename(out)]
+
+
+def test_readers_fall_back_as_jax(tmp_path, monkeypatch):
+    """Without a compiler both readers take JAX's fallbacks (tarfile, PIL)
+    and say so through their path counters."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    from showo_tpu_torch.data import native_image, native_tar
+    from showo_tpu_torch.utils import host_build
+
+    monkeypatch.setattr(host_build, "BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native_tar, "_lib", None)
+    monkeypatch.setattr(native_image, "_lib", None)
+    buf = io.BytesIO()
+    Image.new("RGB", (12, 10), (200, 30, 60)).save(buf, format="JPEG")
+    shard = tmp_path / "s.tar"
+    with tarfile.open(shard, "w") as tf:
+        info = tarfile.TarInfo("a.jpg")
+        info.size = len(buf.getvalue())
+        tf.addfile(info, io.BytesIO(buf.getvalue()))
+    before = (native_tar.paths["tarfile"], native_image.paths["pil"])
+    idx = native_tar.TarIndex(str(shard))
+    out, valid = native_image.decode_batch(idx.read([0]), 8)
+    assert not idx.native and native_tar._lib is False
+    assert native_image._lib is False and valid == [True]
+    assert (native_tar.paths["tarfile"], native_image.paths["pil"]) == (
+        before[0] + 1, before[1] + 1)
+
+
+NEW_PORT_MODULES = (
+    "showo_tpu_torch/data/imagenet.py", "showo_tpu_torch/data/native_image.py",
+    "showo_tpu_torch/data/native_tar.py", "showo_tpu_torch/data/refinedweb.py",
+    "showo_tpu_torch/data/tar_shards.py",
+    "showo_tpu_torch/data/vist_dataset.py",
+    "showo_tpu_torch/show_o2/semantic_layers.py",
+    "showo_tpu_torch/show_o2/train_mixed_modality.py",
+    "showo_tpu_torch/training/ema.py", "showo_tpu_torch/utils/host_build.py")
+
+
+def test_import_scan_covers_the_trainers_modules():
+    """The scan of ``test_port_source_imports_no_jax`` reaches the modules
+    of the trainers' data and options."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert set(NEW_PORT_MODULES) <= scanned
+    for path in NEW_PORT_MODULES:
+        assert not [m for m in _imports(os.path.join(REPO, path))
+                    if m.split(".")[0] in FORBIDDEN], path

@@ -112,9 +112,16 @@ def test_corruption_draws_from_the_generator():
         tokens, 99, cosine_schedule,
         generator=torch.Generator().manual_seed(s))[0] for s in (1, 1, 2)]
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
-    with pytest.raises(NotImplementedError):
-        tcorr.mask_or_random_replace_tokens(
-            tokens, 99, cosine_schedule, mask_contiguous_region_prob=0.5)
+    # contiguous regions (ported since): at probability 1 every row masks
+    # one rectangle of its 4 x 4 grid, drawn from the generator too
+    rect = [tcorr.mask_or_random_replace_tokens(
+        tokens, 99, cosine_schedule, mask_contiguous_region_prob=1.0,
+        generator=torch.Generator().manual_seed(s))[0] for s in (1, 1)]
+    assert torch.equal(rect[0], rect[1])
+    for row in (rect[0] == 99).reshape(2, 4, 4):
+        r, c = row.any(1).nonzero().flatten(), row.any(0).nonzero().flatten()
+        assert row.sum() == len(r) * len(c)
+        assert row[r.min():r.max() + 1, c.min():c.max() + 1].all()
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +444,8 @@ def test_trainer_refuses_inference_routes():
 
 def test_entry_points_run_on_the_card_unless_asked():
     """With no device, build_trainer and build_pipeline take CUDA and raise
-    without a card; the CLI's data loaders are a later slice."""
+    without a card; with ``device=cpu`` the CLI gets as far as the data
+    loaders, which raise on the config's absent dataset folder."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from showo_tpu_torch import inference_t2i
@@ -449,7 +457,7 @@ def test_entry_points_run_on_the_card_unless_asked():
     argv = sys.argv
     sys.argv = ["train_showo", f"config={STAGE1}", *TINY, "device=cpu"]
     try:
-        with pytest.raises(NotImplementedError, match="data loaders"):
+        with pytest.raises(FileNotFoundError, match="/data/imagenet"):
             ttrain.main()
     finally:
         sys.argv = argv
