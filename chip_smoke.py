@@ -74,7 +74,19 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   depth on ``trainable`` (kernel 7): its data through ``_build_loaders``
   (an ImageNet-style folder, a tar shard read by the native reader, a
   parquet file), checkpoints with the EMA and the loaders' positions,
-  validation images and prediction panels, and a resume.
+  validation images and prediction panels, and a resume;
+* Show-o2 1.5B stage 2 on LLaVA-OneVision conversations
+  (``configs/showo2_1.5b_stage_2_a.yaml``) through
+  ``show_o2/train_stage_two.py``: the CLI's loader (jsonl t2i rows and
+  ``MMUDataset`` rows of ``annotation_path``), the trainer on
+  ``trainable`` under the 2a freeze and with every weight trained, and its
+  CLI at a reduced depth with a resume;
+* the Show-o v1 CLIP-ViT trainer (``configs/showo_instruction_tuning_2_w_
+  clip_vit.yaml``: LLaVA conversations, the frozen CLIP-ViT-L/14-336,
+  ``mm_projector`` at twice the rate, dense) through
+  ``training/train_showo_clip.py``: its step at full width and depth, and
+  its CLI (``llava_pretrain``, then ``llava_tuning`` resuming) at a
+  reduced depth.
 
 Phases, one or more lines each:
 
@@ -369,6 +381,25 @@ Phases, one or more lines each:
      (8 / 4 / 4 / 8 kernel 7 launches, none of any other kernel), then a
      resume from ``latest`` to step 3 with the EMA and the three loaders'
      positions restored
+  32. Show-o2 stage 2 at full width and depth on ``trainable``: one batch
+     of the CLI's loader (4 t2i jsonl rows and 4 conversation rows of 1024
+     at 432x432, one image each, on their shared keys), under the 2a
+     freeze, then with every weight trained (a new optimizer): a warm step
+     and STAGE2_STEPS steps each, per step 76 kernel 7 forwards, 38 dq, 38
+     dk/dv (56 / 28 / 28 at head dim 128), 76 tile maps, none of any other
+     kernel; s a step, samples/s, peak memory; each stage's step on
+     ``trainable`` against ``dense`` (phase 25's limits)
+  33. the stage-2 CLI with ``annotation_path`` at full width and depth 2 /
+     2 / 2 (2 steps with checkpoints, a resume from ``latest`` to step 3
+     with the loaders' positions; kernel 7's launches counted); the
+     CLIP-ViT trainer's CLI at full width and Phi depth 2 (the tower
+     whole): ``llava_pretrain`` 2 steps, then ``llava_tuning`` resuming
+     from its latest to step 3; no kernel launched
+  34. the CLIP-ViT trainer's step at full width and depth (3 t2i + 1 lm +
+     4 mmu rows, dense, bf16 autocast): a warm step and CLIP_TRAIN_STEPS
+     steps, s a step, samples/s, peak memory, no kernel launched; one
+     step's losses under bf16 autocast against the same step in fp32 on
+     the same batch and draws (phase 25's loss limit)
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -541,6 +572,10 @@ MIXED_CONFIG = "configs/showo2_1.5b_downstream_mixed_modality_simple.yaml"
 MIXED_BATCH, MIXED_SEQ, MIXED_IMAGES, MIXED_STEPS = 2, 4352, 4, 3
 # the v1 stage-1 CLI (phase 31)
 V1_TRAIN_CONFIG = "configs/showo_pretraining_stage1.yaml"
+STAGE2_CONFIG = "configs/showo2_1.5b_stage_2_a.yaml"
+STAGE2_STEPS = 3
+CLIP_TRAIN_CONFIG = "configs/showo_instruction_tuning_2_w_clip_vit.yaml"
+CLIP_TRAIN_STEPS = 3
 # the remat ladder on phase 24's trainer (phase 28): the rungs, the
 # optimizers, the timed steps of a cell, and the rows of the one larger step
 RUNGS = ("full", "qkv", "qkv_fc1", "qkv_attn", "qkv_fc1_attn", "dots")
@@ -5278,6 +5313,440 @@ class _InMemoryLM:
         return iter(self.docs)
 
 
+def _conversations(image):
+    """LLaVA-OneVision conversation records over the in-tree image: one to
+    three rounds, one image each (opening the first turn, as LLaVA's
+    records do, or inside a later one)."""
+    name = os.path.basename(image)
+    convs = [
+        [("<image>\nWhat is in this image?", "A small cat on a mat.")],
+        [("<image>\nDescribe the picture.", "A cat sits on a woven mat "
+          "in the sun."), ("What colour is the cat?", "It is grey.")],
+        [("Hello there.", "Hello, how can I help?"),
+         ("Look at this <image> closely. What animal is it?", "A cat."),
+         ("Is it awake?", "Yes, its eyes are open.")],
+        [("Please describe <image> in one sentence.", "A cat rests on a "
+          "mat near a wall.")]]
+    return [{"image": name, "conversations": [
+        {"from": who, "value": text} for q, a in c
+        for who, text in (("human", q), ("gpt", a))]} for c in convs]
+
+
+def _stage2_data(tmp):
+    """The stage-2 CLI's data in ``tmp``: a t2i jsonl of four prompts and
+    the conversation json, both over the in-tree image."""
+    image = os.path.abspath(MMU_IMAGE)
+    t2i = os.path.join(tmp, "t2i.jsonl")
+    with open(t2i, "w") as f:
+        for prompt in ("a photo of a cat", "a red car on a road",
+                       "an old stone bridge", "a bowl of fruit"):
+            f.write(json.dumps({"path": image, "prompt": prompt}) + "\n")
+    mmu = os.path.join(tmp, "llava.json")
+    with open(mmu, "w") as f:
+        json.dump(_conversations(image), f)
+    return [f"dataset.params.t2i_jsonl={t2i}",
+            f"dataset.params.annotation_path={mmu}",
+            f"dataset.params.mmu_image_root={os.path.dirname(image)}"]
+
+
+def _parity(torch, step, prepared, phase, label):
+    """One step's losses and grad norm on ``trainable`` against ``dense`` on
+    the same prepared batch (phase 25's limits)."""
+    from showo_tpu_torch.show_o2.masks import omni_attn_mask
+    from showo_tpu_torch.training.train_step import global_norm
+
+    L = prepared.text_tokens.shape[1]
+    dense = dataclasses.replace(prepared, attn_meta=None, bias=omni_attn_mask(
+        prepared.modality_positions, L))
+    got = {}
+    for route, b in (("trainable", prepared), ("dense", dense)):
+        total, parts, grads = step.loss_and_grads(b)
+        got[route] = [float(x) for x in (total, *parts, global_norm(grads))]
+        del grads
+    names = ("loss", "loss_ntp", "loss_flow", "grad_norm")
+    rel = {n: abs(a - b) / abs(b) for n, a, b in
+           zip(names, got["trainable"], got["dense"])}
+    print(f"[{phase}] {label} step parity, trainable vs dense: "
+          + ", ".join(f"{n} {a:.5f} vs {b:.5f} (rel {rel[n]:.2e})"
+                      for n, a, b in zip(names, got["trainable"],
+                                         got["dense"]))
+          + f"; tol {V2_TRAIN_LOSS_TOL} (losses), {V2_TRAIN_GRAD_NORM_TOL} "
+          f"(grad norm)")
+    bad = [n for n in names if rel[n] > (V2_TRAIN_GRAD_NORM_TOL
+                                         if n == "grad_norm"
+                                         else V2_TRAIN_LOSS_TOL)]
+    if bad:
+        raise AssertionError(f"{label}: trainable vs dense differ in {bad}: "
+                             f"{rel}")
+    return rel
+
+
+def phase_stage2_train(torch, cuda_build, smi, phase="32"):
+    """Show-o2 1.5B stage 2 on LLaVA conversations at full width and depth
+    (``configs/showo2_1.5b_stage_2_a.yaml``) through
+    ``train_stage_two.build_trainer`` on ``trainable``: one batch of the
+    CLI's loader (``build_stage2_loader``: 4 t2i jsonl rows and 4
+    ``MMUDataset`` rows of 1024 at 432x432, concatenated on their shared
+    keys), under the 2a freeze, then with every weight trained (a new
+    optimizer): a warm step and STAGE2_STEPS timed ones each, kernel 7's
+    launches a step held to the layer counts, s a step, samples/s, peak
+    memory, and one step's losses and grad norm against ``dense``."""
+    import tempfile
+
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
+    from showo_tpu_torch.show_o2 import train_stage_two as t2
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = load_config(STAGE2_CONFIG, _stage2_data(tmp))
+        trainer = t2.build_trainer(config, torch.device("cuda"),
+                                   attn_impl="trainable")
+        c, sc = trainer.model.cfg, trainer.sc
+        if not (c.llm.num_layers == V2_QWEN_LAYERS
+                and c.llm.hidden_size == 1536
+                and c.dit.num_layers == V2_DIT_LAYERS
+                and sc.remat == "full" and sc.attn_impl == "trainable"):
+            raise AssertionError(f"not the full stage-2 trainer: {c}, {sc}")
+        tok, ids = load_tokenizer_and_ids(config)
+        loader = t2.build_stage2_loader(config, tok, ids, trainer.model)
+        batch = next(iter(loader))
+    mp, types = batch["modality_positions"], list(batch["data_type"])
+    n_img = c.num_image_tokens
+    if not (batch["text_tokens"].shape == (8, 1024)
+            and batch["images"].shape == (8, 432, 432, 3)
+            and types == ["t2i"] * 4 + ["mmu"] * 4
+            and (mp[:, 0, 1] == n_img).all() and "texts" not in batch):
+        raise AssertionError(f"stage-2 batch {batch['text_tokens'].shape} "
+                             f"{batch['images'].shape} {types} "
+                             f"{mp.tolist()} {sorted(batch)}")
+    print(f"[{phase}] stage-2 trainer built from {STAGE2_CONFIG} in "
+          f"{time.perf_counter() - t0:.1f} s; the CLI's loader gave 4 t2i "
+          f"jsonl rows and 4 conversation rows ({n_img} image tokens each, "
+          f"spans at {mp[4:, 0, 0].tolist()}; labelled answer tokens "
+          f"{(batch['text_labels'][4:] != -100).sum(1).tolist()}), keys "
+          f"{sorted(batch)}")
+    for stage, frozen in (("2a freeze", trainer.frozen_substrings),
+                          ("frozen_params=[]", ())):
+        if not frozen:
+            trainer.frozen_substrings = ()
+            trainer.optimizer = trainer.step_fn.optimizer = \
+                trainer.make_optimizer()
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer.train_step(batch, torch.Generator(device="cuda")
+                           .manual_seed(32))                # warm step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses, _, counts = _v2_steps(
+            torch, cuda_build, trainer, batch, STAGE2_STEPS, V2_TRAIN_SEQ[0],
+            f"stage 2 ({stage})", phase)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall = statistics.median(walls)
+        n_train = sum(p.numel() for p in trainer.optimizer.params)
+        rel = _parity(torch, trainer.step_fn, trainer.step_fn.prepare(
+            trainer.device_batch(batch), torch.Generator(device="cuda")
+            .manual_seed(33)), phase, f"stage 2 ({stage})")
+        print(f"[{phase}] stage-2 training ({stage}: {n_train} trainable "
+              f"parameters), 8 rows x 1024 at 432x432, bf16 autocast: "
+              f"kernel 7 launches a step {_per_step(counts, STAGE2_STEPS)}, "
+              f"0 of the others; losses {[round(x, 4) for x in losses]}; "
+              f"step {wall:.4f} s (median of {STAGE2_STEPS}: "
+              f"{', '.join(f'{w:.4f}' for w in walls)}), {8 / wall:.4f} "
+              f"samples/s, peak memory allocated {peak:.2f} GiB on {smi}")
+        out[stage] = {"step_s": wall, "walls": walls, "samples_per_s":
+                      8 / wall, "peak_gib": peak, "losses": losses,
+                      "trainable": n_train, "counts": counts, "parity": rel}
+    trainer = None
+    return out
+
+
+def phase_stage2_cli(torch, cuda_build, phase="33"):
+    """The stage-2 CLI (``train_stage_two.main``) with ``annotation_path``
+    at full width and depth 2 / 2 / 2, on ``trainable``: two steps with
+    ``save_every`` 1, then a resume from ``latest`` to step 3 with the
+    loaders' state; kernel 7's launches counted."""
+    import tempfile
+
+    from showo_tpu_torch.show_o2 import train_stage_two as t2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        argv = [f"config={STAGE2_CONFIG}", *_stage2_data(tmp),
+                "training.attn_impl=trainable",
+                "model.showo.llm_num_layers=2",
+                "model.showo.num_diffusion_layers=2",
+                "model.showo.siglip={num_layers: 2}",
+                f"experiment.output_dir={out}", "experiment.save_every=1",
+                "experiment.log_every=1", "experiment.generate_every=null",
+                "experiment.checkpoints_total_limit=2"]
+        t0 = time.perf_counter()
+        cuda_build.launches.clear()
+        first = t2.main(argv + ["training.max_train_steps=2"])
+        counts = {n: c for n, c in cuda_build.launches.items() if c}
+        saved = sorted(d for d in os.listdir(out)
+                       if d.startswith("checkpoint-"))
+        first = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        mid = time.perf_counter()
+        resumed = t2.main(argv + ["training.max_train_steps=3"])
+        end = time.perf_counter()
+        with open(os.path.join(out, "checkpoint-3",
+                               "loader_state.json")) as f:
+            positions = [s["batches_yielded"]
+                         for s in json.load(f)["loaders"]]
+        fwd, dq, dkv, tiles = list(TRAIN_KERNELS)
+        want = {fwd: 2 * 4 * 2, dq: 4 * 2, dkv: 4 * 2, tiles: 2 * 4 * 2,
+                fwd + D128: 2 * 2 * 2, dq + D128: 2 * 2, dkv + D128: 2 * 2}
+        if not (saved == ["checkpoint-1", "checkpoint-2"]
+                and resumed.global_step == 3
+                and resumed.optimizer.steps == 3 and positions == [3, 3]
+                and {n: counts.get(n, 0) for n in want} == want
+                and not [n for n in counts if n in COUNTERS
+                         and n not in want]):
+            raise AssertionError(
+                f"stage-2 CLI: checkpoints {saved}, step "
+                f"{resumed.global_step}, optimizer steps "
+                f"{resumed.optimizer.steps}, loader positions {positions}, "
+                f"launches {counts} (want {want})")
+        print(f"[{phase}] the stage-2 CLI with annotation_path at full "
+              f"width, depth 2 / 2 / 2: 2 steps (4 t2i + 4 conversation "
+              f"rows) and checkpoints {saved} in {mid - t0:.1f} s (kernel "
+              f"7: {counts}); resumed from latest to step 3 in "
+              f"{end - mid:.1f} s, loader positions {positions}")
+        resumed = None
+    return {"first_s": mid - t0, "resume_s": end - mid, "counts": counts}
+
+
+def _llava_json(tmp, image):
+    """A LLaVA instruction json in ``tmp`` over the in-tree image: its
+    records' first two turns are the pretraining caption pairs."""
+    recs = _conversations(image)
+    path = os.path.join(tmp, "llava.json")
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    pre = [dict(r, conversations=r["conversations"][:2]) for r in recs]
+    pre_path = os.path.join(tmp, "llava_pretrain.json")
+    with open(pre_path, "w") as f:
+        json.dump(pre, f)
+    return path, pre_path
+
+
+def phase_clip_cli(torch, cuda_build, phase="33"):
+    """The CLIP-ViT trainer's CLI (``train_showo_clip.main``) on
+    ``showo_instruction_tuning_2_w_clip_vit.yaml`` at full width and Phi
+    depth 2 (the CLIP-ViT-L/14-336 tower whole), dense: ``llava_pretrain``
+    two steps with ``save_every`` 1, then ``llava_tuning`` resuming from
+    its ``latest`` to step 3 (weights, optimizer, loaders); the t2i data a
+    tar shard, the lm data parquet, as phase 31's; no kernel launches."""
+    import tempfile
+
+    from showo_tpu_torch.data import refinedweb
+    from showo_tpu_torch.training import train_showo_clip
+
+    image = os.path.abspath(MMU_IMAGE)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, shard, lm = _v1_data(tmp)
+        tuning, pretrain = _llava_json(tmp, image)
+        out = os.path.join(tmp, "out")
+        argv = [f"config={CLIP_TRAIN_CONFIG}", "model.showo.phi="
+                "{num_layers: 2}",
+                "dataset.params.train_t2i_shards_path_or_url="
+                + shard.replace("00000", "{00000..00000}"),
+                f"dataset.params.train_lm_shards_path_or_url="
+                f"{lm or 'in-memory'}",
+                f"dataset.params.mmu_image_root={os.path.dirname(image)}",
+                "dataset.params.shuffle_buffer_size=4",
+                f"experiment.output_dir={out}", "experiment.save_every=1",
+                "experiment.log_every=1", "experiment.generate_every=null",
+                "experiment.checkpoints_total_limit=2"]
+        reader = refinedweb.RefinedWebDataset
+        if lm is None:
+            refinedweb.RefinedWebDataset = _InMemoryLM
+        try:
+            t0 = time.perf_counter()
+            cuda_build.launches.clear()
+            first = train_showo_clip.main(argv + [
+                "dataset.und_type=llava_pretrain",
+                f"dataset.params.train_mmu_shards_path_or_url={pretrain}",
+                "training.max_train_steps=2"])
+            sys_first, steps_first = first.system_prompt_len, first.global_step
+            first = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            mid = time.perf_counter()
+            tuned = train_showo_clip.main(argv + [
+                "dataset.und_type=llava_tuning",
+                f"dataset.params.train_mmu_shards_path_or_url={tuning}",
+                "training.max_train_steps=3"])
+            end = time.perf_counter()
+        finally:
+            refinedweb.RefinedWebDataset = reader
+        counts = {n: c for n, c in cuda_build.launches.items()
+                  if c and n in COUNTERS}
+        ckpts = sorted(d for d in os.listdir(out)
+                       if d.startswith("checkpoint-"))
+        files = sorted(os.listdir(os.path.join(out, ckpts[-1])))
+        if not (steps_first == 2 and sys_first == 0
+                and tuned.global_step == 3 and tuned.optimizer.steps == 3
+                and tuned.system_prompt_len > 0
+                and ckpts == ["checkpoint-2", "checkpoint-3"]
+                and {"t2i_state.json", "lm_state.json",
+                     "mmu_state.json"} <= set(files) and not counts):
+            raise AssertionError(
+                f"CLIP CLI: steps {steps_first} / {tuned.global_step}, "
+                f"system prompt {sys_first} / {tuned.system_prompt_len}, "
+                f"checkpoints {ckpts} {files}, kernel launches {counts}")
+        print(f"[{phase}] the CLIP-ViT trainer's CLI at full width, Phi "
+              f"depth 2 (CLIP-ViT-L/14-336 whole), dense: llava_pretrain 2 "
+              f"steps with checkpoints in {mid - t0:.1f} s; llava_tuning "
+              f"(system prompt {tuned.system_prompt_len} tokens; on the "
+              f"stand-in tokenizer the mismatch guard voids the "
+              f"conversations' labels, as in JAX: phase 34 labels them) "
+              f"resumed from its latest to step 3 in {end - mid:.1f} s; "
+              f"checkpoint-3 holds {files}; no kernel launched")
+        tuned = None
+    return {"pretrain_s": mid - t0, "tuning_s": end - mid}
+
+
+class _EndOfTextTokenizer:
+    """The v1 stand-in's word ids with ``<|endoftext|>`` its eos id, as
+    Phi-1.5's tokenizer reads it.  The stand-in alone glues it to the
+    words around it, so the rounds of a LLaVA conversation never add up
+    to the whole and the mismatch guard voids every label (as in JAX);
+    with it the answers are the targets."""
+
+    def __init__(self, tokenizer):
+        from showo_tpu_torch.data.llava import SEP2
+
+        self.tok, self.sep2 = tokenizer, SEP2
+
+    def _row(self, text):
+        words = text.replace(self.sep2, f" {self.sep2} ").split()
+        return [self.tok.eos_token_id if w == self.sep2
+                else self.tok._word_id(w) for w in words]
+
+    def __call__(self, texts, **kwargs):
+        return {"input_ids": [self._row(t) for t in texts]}
+
+
+def _clip_batches(trainer, rows, tmp):
+    """Host batches of the CLIP trainer's config sizes: seeded t2i pixels
+    and prompts, lm documents, and LLaVA samples of the in-tree image at
+    the tower's size (their answers labelled: ``_EndOfTextTokenizer``),
+    collated."""
+    import numpy as np
+
+    from showo_tpu_torch.data.llava import LLaVADataset
+    from showo_tpu_torch.training.train_showo_clip import collate_llava
+
+    n_t2i, n_lm, n_mmu = rows
+    rng = np.random.default_rng(34)
+    res = trainer.config.dataset.params.resolution
+    t2i = {"image": rng.uniform(-1, 1, (n_t2i, res, res, 3)).astype(
+        np.float32), "text": [f"a photo of object {i} on a table"
+                              for i in range(n_t2i)]}
+    lm = [" ".join(f"word{j}" for j in range(300 + 40 * i))
+          for i in range(n_lm)]
+    image = os.path.abspath(MMU_IMAGE)
+    path, _ = _llava_json(tmp, image)
+    ds = LLaVADataset(path, os.path.dirname(image), _EndOfTextTokenizer(
+        trainer.uni_prompting.text_tokenizer),
+        resolution=trainer.clip.cfg.image_size)
+    return t2i, lm, collate_llava([ds[i % len(ds)] for i in range(n_mmu)])
+
+
+def phase_clip_train(torch, cuda_build, smi, phase="34"):
+    """The CLIP-ViT trainer's step at full width and depth
+    (``showo_instruction_tuning_2_w_clip_vit.yaml``: 3 t2i + 1 lm + 4 mmu
+    rows, Phi-1.5 24 layers trained, CLIP-ViT-L/14-336 frozen, dense)
+    through ``train_showo_clip.build_trainer``: a warm step and
+    CLIP_TRAIN_STEPS timed ones, s a step, samples/s, peak memory, no
+    kernel launched; then one step's losses under bf16 autocast against
+    the same step in fp32 on the same batch and draws (phase 25's loss
+    limit)."""
+    import tempfile
+
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.training import train_showo_clip
+
+    t0 = time.perf_counter()
+    config = load_config(CLIP_TRAIN_CONFIG)
+    trainer = train_showo_clip.build_trainer(config, torch.device("cuda"))
+    tr, c = config.training, trainer.model.cfg
+    rows = (tr.batch_size_t2i, tr.batch_size_lm, tr.batch_size_mmu)
+    if not (c.llm.num_layers == 24 and c.llm.hidden_size == 2048
+            and trainer.clip.cfg.num_layers == 24
+            and trainer.clip.cfg.image_size == 336
+            and rows == (3, 1, 4) and trainer.tc.attn_impl == "dense"
+            and trainer.step_fn.autocast_dtype == torch.bfloat16):
+        raise AssertionError(f"not the full CLIP trainer: {c}, rows {rows}")
+    with tempfile.TemporaryDirectory() as tmp:
+        batches = _clip_batches(trainer, rows, tmp)
+    n_train = sum(p.numel() for p in trainer.optimizer.params)
+    print(f"[{phase}] CLIP-ViT trainer built from {CLIP_TRAIN_CONFIG} in "
+          f"{time.perf_counter() - t0:.1f} s: {n_train} trainable "
+          f"parameters (mm_projector at x{tr.get('projector_lr_scale', 2.0)}"
+          f" the rate), system prompt {trainer.system_prompt_len} tokens, "
+          f"max_grad_norm {trainer.tc.max_grad_norm}")
+    trainer.train_step(*batches, torch.Generator(device="cuda")
+                       .manual_seed(34))                    # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    walls, losses = [], []
+    for _ in range(CLIP_TRAIN_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(34)
+        t1 = time.perf_counter()
+        m = trainer.train_step(*batches, gen)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t1)
+    counts = {n: c for n, c in cuda_build.launches.items()
+              if c and n in COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = [float(m[k]) for k in ("loss_t2i", "loss_lm", "loss_mmu")]
+    if counts or not all(0 < x < float("inf") for x in losses + parts):
+        raise AssertionError(f"CLIP step: launches {counts}, losses {losses}"
+                             f", last step's parts {parts}")
+    wall = statistics.median(walls)
+    n = sum(rows)
+    host = trainer.host_batch(*batches)
+    step = trainer.step_fn
+    got = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        step.autocast_dtype = dtype
+        b = step.prepare(*host, generator=torch.Generator(device="cuda")
+                         .manual_seed(35))
+        total, parts, grads = step.loss_and_grads(b)
+        got[name] = [float(x) for x in (total, *parts)]
+        b = grads = None
+    step.autocast_dtype = torch.bfloat16
+    names = ("loss", "loss_t2i", "loss_lm", "loss_mmu")
+    rel = {k: abs(a - b) / abs(b) for k, a, b in
+           zip(names, got["bf16"], got["fp32"])}
+    print(f"[{phase}] CLIP-ViT training, {rows[0]} t2i + {rows[1]} lm + "
+          f"{rows[2]} mmu rows ({host[0].shape[1]}x{host[0].shape[2]} / "
+          f"{host[4].shape[1]}x{host[4].shape[2]} pixels), bf16 autocast, "
+          f"remat {trainer.tc.remat}, dense: losses "
+          f"{[round(x, 4) for x in losses]}; step {wall:.4f} s (median of "
+          f"{CLIP_TRAIN_STEPS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+          f"{n / wall:.3f} samples/s, peak memory allocated {peak:.2f} GiB "
+          f"on {smi}; no kernel launched; bf16 against fp32 on one batch: "
+          + ", ".join(f"{k} {a:.5f} vs {b:.5f} (rel {rel[k]:.2e})"
+                      for k, a, b in zip(names, got["bf16"], got["fp32"]))
+          + f"; tol {V2_TRAIN_LOSS_TOL}")
+    bad = [k for k in names if rel[k] > V2_TRAIN_LOSS_TOL]
+    if bad:
+        raise AssertionError(f"CLIP step: bf16 vs fp32 differ in {bad}: "
+                             f"{rel}")
+    trainer = step = host = None
+    return {"step_s": wall, "walls": walls, "samples_per_s": n / wall,
+            "peak_gib": peak, "losses": losses, "bf16_vs_fp32": rel,
+            "trainable": n_train}
+
+
 def main() -> int:
     import torch
 
@@ -5649,6 +6118,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts.append(("v1 CLI [31]", time.perf_counter()))
 
+    # [32] Show-o2 stage 2 on LLaVA conversations at full width and depth
+    # (kernel 7); [33] the stage-2 and CLIP-ViT CLIs at depth 2; [34] the
+    # CLIP-ViT trainer's step at full width and depth (dense)
+    stage2 = phase_stage2_train(torch, cuda_build, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("stage-2 training [32]", time.perf_counter()))
+    stage2["cli"] = phase_stage2_cli(torch, cuda_build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_cli = phase_clip_cli(torch, cuda_build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("stage-2 and CLIP CLIs [33]", time.perf_counter()))
+    clip_train = phase_clip_train(torch, cuda_build, smi)
+    clip_train["cli"] = clip_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("CLIP-ViT training [34]", time.perf_counter()))
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -5672,7 +6161,13 @@ def main() -> int:
         kernels.append(entry)
     # launches of this kernel family in the trainers' CLIs and mixed
     # modality (phases 29-31) beside the stage-1 / 512x512 slices'
-    extra_train = {TRAIN_SOURCE: {"launches_v1_cli": v1_cli["counts"]},
+    extra_train = {TRAIN_SOURCE: {"launches_v1_cli": v1_cli["counts"],
+                                  "launches_stage2_2a": stage2["2a freeze"][
+                                      "counts"],
+                                  "launches_stage2_unfrozen": stage2[
+                                      "frozen_params=[]"]["counts"],
+                                  "launches_stage2_cli": stage2["cli"][
+                                      "counts"]},
                    STREAM_TRAIN_SOURCE: {
                        "launches_mixed_phase1": mixed_train[
                            "phase-1 freeze"]["counts"],
@@ -5835,7 +6330,15 @@ def main() -> int:
                             "launches": counts[name + D128],
                             **v2_train_results[name + D128],
                             "case": f"Qwen2.5 12/2 D=128, S={seq}",
-                            **({"slice": v2_train["slice"]}
+                            **({"slice": v2_train["slice"],
+                                "launches_stage2_2a": stage2["2a freeze"][
+                                    "counts"][name + D128],
+                                "launches_stage2_unfrozen": stage2[
+                                    "frozen_params=[]"]["counts"][
+                                    name + D128],
+                                "launches_stage2_cli": stage2["cli"][
+                                    "counts"].get(name + D128, 0),
+                                "stage2": stage2, "clip_vit": clip_train}
                                if seq == V2_TRAIN_SEQ[0] else
                                {"mixed_modality": mixed_train}),
                             **({"rungs": rungs, "train_rows": train_rows}

@@ -10,7 +10,8 @@ Counterpart of ``showo_tpu/data/mixed.py``.  Modes:
                             stage trainers' mode);
   concat_min_size           the same, stopping at the shortest;
   sequential_max_size_cycle round robin over the loaders.
-The cycling modes end once every loader has run out at least once.
+The cycling modes end once every loader has run out at least once.  A
+concatenated batch keeps the keys that every loader's batch has.
 """
 
 from __future__ import annotations
@@ -21,8 +22,15 @@ import numpy as np
 
 
 def _concat_batches(batches: Sequence[Dict]) -> Dict:
+    """The keys every batch has (in the first batch's order), arrays
+    concatenated along the batch and lists joined.  JAX's takes the first
+    batch's keys and raises KeyError on a batch without one (the stage-2
+    mix of jsonl t2i rows, which carry ``texts``, and conversation rows,
+    which do not); where the batches have the same keys the two agree."""
     out: Dict = {}
     for k in batches[0]:
+        if not all(k in b for b in batches):
+            continue
         vals = [b[k] for b in batches]
         if isinstance(vals[0], np.ndarray):
             out[k] = np.concatenate(vals, axis=0)

@@ -127,7 +127,7 @@ class FakeQwenTokenizer:
 def load_tokenizer_and_ids(config):
     """(tokenizer, special token ids): the Qwen2.5 tokenizer of a local
     ``model.showo.llm_model_path`` directory with Show-o2's added tokens
-    and the ids of JAX ``show_o2/tokenizer.py::get_text_tokenizer`` (the
+    through ``show_o2/tokenizer.py::get_text_tokenizer`` with its ids (the
     video and ``<image>`` ones among them), else the stand-in and the JAX
     CLI's fallback ids.  A hub name is never fetched."""
     path = config.model.showo.llm_model_path
@@ -135,25 +135,9 @@ def load_tokenizer_and_ids(config):
         logger.warning("tokenizer %s not found locally; using the stand-in "
                        "tokenizer", path)
         return FakeQwenTokenizer(), dict(FAKE_TOKEN_IDS)
-    from transformers import AutoTokenizer
+    from showo_tpu_torch.show_o2.tokenizer import get_text_tokenizer
 
-    tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
-    tok.add_special_tokens({"pad_token": "[PAD]"})
-    for t in ("<image>", "<|vid_start|>", "<|vid_end|>"):
-        tok.add_tokens(t)
-    vocab = tok.get_vocab()
-    return tok, {
-        "bos_id": vocab["<|im_start|>"],
-        "eos_id": tok.eos_token_id,
-        "boi_id": vocab["<|vision_start|>"],
-        "eoi_id": vocab["<|vision_end|>"],
-        "bov_id": vocab["<|vid_start|>"],
-        "eov_id": vocab["<|vid_end|>"],
-        "img_pad_id": vocab["<|image_pad|>"],
-        "vid_pad_id": vocab["<|video_pad|>"],
-        "img_id": vocab["<image>"],
-        "pad_id": tok.pad_token_id,
-    }
+    return get_text_tokenizer(str(path), return_showo_token_ids=True)
 
 
 def load_model(config, cfg: Showo2Config, device, dtype) -> Showo2:

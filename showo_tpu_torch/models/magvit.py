@@ -6,14 +6,12 @@ attention over the spatial grid, plain matmul + softmax), nearest-2x
 ``Upsample``, stride-2 ``Downsample`` with the reference's asymmetric
 (0, 1) pad, ``VQGANEncoder`` (+ ``quant_conv``), ``VQGANDecoder``, the LFQ
 bit arithmetic (``lfq_quantize``, ``lfq_indices``,
-``lfq_codebook_entry``) and the facade's ``encode`` / ``get_code`` /
+``lfq_codebook_entry``), LFQ's entropy and commitment losses
+(``lfq_losses``) and the facade's ``encode`` / ``get_code`` /
 ``decode_code``.  NCHW inside; pixels go in and images come out NHWC, as
 in the JAX package.  The module tree carries the reference checkpoint's
 names (``encoder.down.{i}.block.{j}.conv1``, ``decoder.up.{i}...``), so a
 reference state dict loads as it is (``utils/convert.py::load_magvit``).
-
-``lfq_losses`` (MAGVIT training), inpainting and extrapolation are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -231,6 +229,27 @@ def lfq_codebook_entry(indices: torch.Tensor,
     shifts = torch.arange(codebook_dim - 1, -1, -1, device=indices.device)
     bits = (indices[..., None] >> shifts) & 1
     return bits.float() * 2.0 - 1.0
+
+
+def lfq_losses(z: torch.Tensor, beta: float = 0.25) -> dict:
+    """LFQ's entropy and commitment losses (modeling_magvitv2.py:246-263)
+    of pre-quantisation activations z [N, d]: each bit a categorical over
+    {+1, -1} with logits -(z - 1)^2 / -(z + 1)^2; the entropy loss is the
+    mean per-bit entropy less the entropy of each bit's batch marginal,
+    the commitment loss ``mean((sg(z_q) - z)^2) + beta * mean((z_q -
+    sg(z))^2)``."""
+    z_q = torch.where(z > 0, 1.0, -1.0).to(z.dtype)
+    logits = torch.stack([-torch.square(z - 1.0), -torch.square(z + 1.0)],
+                         dim=-1)
+    logp = torch.log_softmax(logits, dim=-1)
+    p = torch.exp(logp)
+    entropy = -torch.sum(p * logp, dim=-1).mean()
+    mean_p = p.mean(dim=0)
+    mean_entropy = (-torch.sum(mean_p * torch.log(mean_p.clamp(min=1e-20)),
+                               dim=-1)).mean()
+    commit = (torch.mean(torch.square(z_q.detach() - z))
+              + beta * torch.mean(torch.square(z_q - z.detach())))
+    return {"entropy_loss": entropy - mean_entropy, "commit_loss": commit}
 
 
 class MagvitV2(nn.Module):

@@ -1,26 +1,27 @@
-"""UniversalPrompting for the text-to-image, long-video and stage-1
-training paths (numpy, host side).
+"""UniversalPrompting: task-tagged token layouts for the unified model
+(numpy, host side).
 
-Counterpart of ``showo_tpu/prompting.py``, reduced to what the ported
-slices run:
+Counterpart of ``showo_tpu/prompting.py`` (training/prompting_utils.py
+:18-464), its quirks included:
 
-* the ``t2i_gen`` layout
+* the generation layouts (``t2i``, ``t2i_gen``, ``t2v``, ``t2v_gen``,
+  ``lvg``, ``lvg_gen``)
 
-      [pad ... pad][t2i][bos] text [eos][soi] image tokens [eoi]
+      [pad ... pad][task][bos] text [eos][soi] image tokens [eoi]
 
   with the text left-padded to ``max_text_len + 1`` (the +1 is the task
   token) and cut to ``max_text_len`` with a closing eos when it is longer;
-  ``lvg_gen`` is the same layout (the t2i task token, one outer soi / eoi)
-  around a payload that holds the context frames' spans itself;
+  ``t2v`` takes the video task token and sov / eov, ``lvg`` the t2i ones
+  around a payload that holds the context frames' spans itself; every
+  call draws one ``rng`` number a row, and with labels a row below
+  ``cond_dropout_prob`` has its text dropped to ``[task][bos][eos]``;
+* ``lm`` (right-padded documents with labels), ``mmu`` ([mmu][soi] image
+  [eoi] text, right-padded, labels on the text) and ``i2v`` ([v2v][soi]
+  image [eoi][sov] video [eov]);
 * the training step's text blocks, which the step assembles with the
-  image tokens itself: ``t2i_text_block`` (that left-padded block, with
-  conditioning dropout drawn from the numpy ``rng``: a dropped row's text
-  becomes ``[t2i][bos][eos]``), ``lm_prompt`` (right-padded documents
-  with labels) and ``mmu_text_block`` (right-padded caption blocks with
-  labels, pads -> ``ignore_id``).
-
-The tasks with labels (``t2i``, ``mmu``, ``t2v``, ``t2v_gen``, ``i2v``,
-``lvg``) are training's and wait for its slice.
+  image tokens itself: ``t2i_text_block`` (the left-padded block, with
+  the same dropout), ``lm_prompt`` and ``mmu_text_block`` (labels with
+  pads -> ``ignore_id``).
 
 The tokenizer is any object with ``__call__(texts) -> {'input_ids': ...}``,
 ``bos_token_id`` / ``eos_token_id`` / ``pad_token_id`` and
@@ -30,7 +31,7 @@ FakeTokenizer` is a deterministic one.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -85,22 +86,107 @@ class UniversalPrompting:
         eos = int(self.text_tokenizer.eos_token_id)
         return ids[:self.max_text_len - 1] + [eos]
 
+    def _gen_family(self, text_ids, image_ids, labels, soi: int, eoi: int,
+                    task: int, with_labels: bool):
+        """The generation layouts: [pad..][task][bos] text [eos][soi]
+        image [eoi].  One ``rng`` draw a row whatever the task (as JAX);
+        with labels a row's text is dropped below ``cond_dropout_prob``,
+        its labels are the sequence with ``labels`` for the image and pads
+        -> ``ignore_id``, and its mask covers text + image + 3 positions
+        (the reference's length quirk); without, the mask covers the
+        text."""
+        image_ids = np.asarray(image_ids)
+        n_img = image_ids.shape[1]
+        probs = self.rng.random(len(text_ids))
+        seqs, masks, labs = [], [], []
+        for i in range(len(text_ids)):
+            drop = with_labels and probs[i] < self.cond_dropout_prob
+            text = np.asarray(self._pad_left(self._gen_text(
+                list(text_ids[i]), task, drop)), np.int64)
+            seqs.append(np.concatenate([text, [soi], image_ids[i], [eoi]]))
+            masks.append(np.ones(len(text) + n_img + 3 if with_labels
+                                 else len(text), np.int64))
+            if with_labels:
+                lab = np.concatenate([text, [soi], np.asarray(
+                    labels[i], np.int64), [eoi]])
+                labs.append(np.where(lab == self.pad_id, self.ignore_id,
+                                     lab))
+        if with_labels:
+            return np.stack(seqs), np.stack(masks), np.stack(labs)
+        return np.stack(seqs), np.stack(masks)
+
+    def _tokens(self, *names):
+        return [self.sptids[n] for n in names]
+
+    def t2i_prompt(self, text_ids, image_ids, labels):
+        """(sequences, masks, labels) of the t2i layout with labels."""
+        return self._gen_family(text_ids, image_ids, labels,
+                                *self._tokens("<|soi|>", "<|eoi|>",
+                                              "<|t2i|>"), True)
+
     def t2i_gen_prompt(self, text_ids, image_ids) -> Tuple[np.ndarray,
                                                            np.ndarray]:
         """(sequences [B, max_text_len + n_img + 2], text masks of ones)."""
-        image_ids = np.asarray(image_ids)
-        soi, eoi = self.sptids["<|soi|>"], self.sptids["<|eoi|>"]
-        seqs, masks = [], []
-        for i in range(len(text_ids)):
-            text = self._pad_left(self._gen_text(
-                list(text_ids[i]), self.sptids["<|t2i|>"], False))
-            seqs.append(np.concatenate([np.asarray(text, np.int64), [soi],
-                                        image_ids[i], [eoi]]))
-            masks.append(np.ones(len(text), np.int64))
-        return np.stack(seqs), np.stack(masks)
+        return self._gen_family(text_ids, image_ids, None,
+                                *self._tokens("<|soi|>", "<|eoi|>",
+                                              "<|t2i|>"), False)
+
+    def t2v_prompt(self, text_ids, image_ids, labels):
+        """The t2i layout under the video task token and sov / eov."""
+        return self._gen_family(text_ids, image_ids, labels,
+                                *self._tokens("<|sov|>", "<|eov|>",
+                                              "<|t2v|>"), True)
+
+    def t2v_gen_prompt(self, text_ids, image_ids):
+        return self._gen_family(text_ids, image_ids, None,
+                                *self._tokens("<|sov|>", "<|eov|>",
+                                              "<|t2v|>"), False)
 
     # lvg uses the t2i task token and markers (prompting_utils.py:324)
+    lvg_prompt = t2i_prompt
     lvg_gen_prompt = t2i_gen_prompt
+
+    def i2v_prompt(self, image_ids, video_ids, labels=None):
+        """[v2v][soi] image [eoi][sov] video [eov] (the JAX package's
+        completion of the reference's empty ``i2v_prompt`` stub); labels,
+        when given, ignore the conditioning prefix and cover the video and
+        eov."""
+        image_ids, video_ids = np.asarray(image_ids), np.asarray(video_ids)
+        n_img = image_ids.shape[1]
+        v2v, soi, eoi, sov, eov = self._tokens(
+            "<|v2v|>", "<|soi|>", "<|eoi|>", "<|sov|>", "<|eov|>")
+        seqs, masks, labs = [], [], []
+        for i in range(image_ids.shape[0]):
+            seq = np.concatenate([[v2v, soi], image_ids[i], [eoi, sov],
+                                  video_ids[i], [eov]])
+            seqs.append(seq)
+            masks.append(np.ones(len(seq), np.int64))
+            if labels is not None:
+                labs.append(np.concatenate([
+                    np.full(n_img + 4, self.ignore_id, np.int64),
+                    np.asarray(labels[i], np.int64), [eov]]))
+        if labels is not None:
+            return np.stack(seqs), np.stack(masks), np.stack(labs)
+        return np.stack(seqs), np.stack(masks)
+
+    def mmu_prompt(self, image_ids, text_ids):
+        """(sequences, masks, labels): [mmu][soi] image [eoi][bos] text
+        [eos] right-padded to ``max_text_len - 1`` text positions (or cut
+        with a closing eos); labels ignore everything before the text and
+        the pads."""
+        image_ids = np.asarray(image_ids)
+        n_img = image_ids.shape[-1]
+        soi, eoi, mmu = self._tokens("<|soi|>", "<|eoi|>", "<|mmu|>")
+        blocks, _ = self._text_blocks(text_ids)
+        seqs, labs = [], []
+        for i, ids in enumerate(blocks):
+            lab = np.concatenate([np.full(n_img + 3, self.ignore_id,
+                                          np.int64), ids])
+            labs.append(np.where(lab == self.pad_id, self.ignore_id, lab))
+            seqs.append(np.concatenate([[mmu, soi], image_ids[i], [eoi],
+                                        ids]))
+        masks = np.ones((len(blocks), blocks.shape[1] + n_img + 3), np.int64)
+        return np.stack(seqs), masks, np.stack(labs)
 
     def t2i_text_block(self, texts, dropout: bool = True) -> np.ndarray:
         """Left-padded text blocks [B, max_text_len] of the t2i layout; the
@@ -128,13 +214,11 @@ class UniversalPrompting:
         seqs = np.asarray(seqs, np.int64)
         return seqs, np.ones_like(seqs), np.asarray(labs, np.int64)
 
-    def mmu_text_block(self, texts):
-        """(blocks, labels) [B, max_text_len - 1]: [bos] text [eos]
-        right-padded, or cut with a closing eos; labels are the block with
-        pads -> ``ignore_id``.  The step prepends [mmu][soi] image [eoi]."""
+    def _text_blocks(self, text_ids):
+        """[bos] ids [eos] right-padded to ``max_text_len - 1``, or cut
+        with a closing eos; and the blocks with pads -> ``ignore_id``."""
         eos = int(self.text_tokenizer.eos_token_id)
         max_text_len = self.max_text_len - 1
-        text_ids = self.text_tokenizer(list(texts))["input_ids"]
         blocks = []
         for ids in text_ids:
             ids = self._with_bos(list(ids)) + [eos]
@@ -146,13 +230,38 @@ class UniversalPrompting:
         blocks = np.asarray(blocks, np.int64)
         return blocks, np.where(blocks == self.pad_id, self.ignore_id, blocks)
 
-    def __call__(self, input: Tuple[Sequence[str], np.ndarray], task: str):
-        """``t2i_gen`` or ``lvg_gen`` of (texts, image token payload)."""
-        if task not in ("t2i_gen", "lvg_gen"):
-            raise NotImplementedError(
-                f"prompting task {task!r} is not ported yet")
-        texts, image_ids = input
-        prompt = (self.t2i_gen_prompt if task == "t2i_gen"
-                  else self.lvg_gen_prompt)
-        return prompt(self.text_tokenizer(list(texts))["input_ids"],
-                      image_ids)
+    def mmu_text_block(self, texts):
+        """(blocks, labels) [B, max_text_len - 1] of :meth:`_text_blocks`;
+        the step prepends [mmu][soi] image [eoi]."""
+        return self._text_blocks(self.text_tokenizer(list(texts))["input_ids"])
+
+    def __call__(self, input: Tuple, task: str,
+                 max_lm_seq_len: Optional[int] = None,
+                 t2i_batch_size: Optional[int] = None):
+        """The reference's task dispatch (prompting_utils.py:437-464): the
+        texts of ``input`` tokenized, then the task's layout; an unknown
+        task raises NotImplementedError."""
+        tok = self.text_tokenizer
+        if task == "t2i_plus_lm":
+            text_ids = tok(input[0])["input_ids"]
+            return (self.t2i_prompt(text_ids[:t2i_batch_size], input[1],
+                                    input[2]),
+                    self.lm_prompt(text_ids[t2i_batch_size:], input[3]))
+        if task == "lm":
+            return self.lm_prompt(tok(input[0], truncation=True)["input_ids"],
+                                  input[1])
+        if task == "mmu":
+            return self.mmu_prompt(input[0], tok(input[1])["input_ids"])
+        if task == "i2v":
+            return self.i2v_prompt(input[0], input[1],
+                                   input[2] if len(input) > 2 else None)
+        labelled = {"t2i": self.t2i_prompt, "t2v": self.t2v_prompt,
+                    "lvg": self.lvg_prompt}
+        gen = {"t2i_gen": self.t2i_gen_prompt, "t2v_gen": self.t2v_gen_prompt,
+               "lvg_gen": self.lvg_gen_prompt}
+        if task in labelled:
+            return labelled[task](tok(input[0])["input_ids"], input[1],
+                                  input[2])
+        if task in gen:
+            return gen[task](tok(input[0])["input_ids"], input[1])
+        raise NotImplementedError(task)

@@ -452,8 +452,7 @@ def build_models(config, device: torch.device):
 
 
 def build_transport(config, model: Showo2) -> Transport:
-    n_img = config.dataset.preprocessing.num_t2i_image_tokens \
-        + (1 if model.cfg.add_time_embeds else 0)
+    n_img = num_image_tokens(config, model)
     tr = config.transport
     return Transport(path_type=tr.get("path_type", "Linear"),
                      snr_type=tr.get("snr_type", "lognorm"),
@@ -474,28 +473,38 @@ def build_trainer(config, device=None,
         frozen_substrings=tuple(config.model.get("frozen_params", []) or []))
 
 
-def build_loader(config, tokenizer, token_ids, model: Showo2,
-                 sources: Sequence[Tuple[str, str, str]]):
-    """The jsonl loaders of ``sources`` ((config key, batch size key,
-    default data type)) that the config names, mixed by
-    ``concat_max_size_cycle``."""
+def num_image_tokens(config, model: Showo2) -> int:
+    """The image span's length: the config's t2i image tokens, and the
+    time token when the model adds one."""
+    return (config.dataset.preprocessing.num_t2i_image_tokens
+            + (1 if model.cfg.add_time_embeds else 0))
+
+
+def jsonl_loaders(config, tokenizer, token_ids, model: Showo2,
+                  sources: Sequence[Tuple[str, str, str]]) -> list:
+    """A checkpointable loader of each jsonl of ``sources`` ((config key,
+    batch size key, default data type)) that the config names."""
     from showo_tpu_torch.data.image_text import create_imagetext_dataloader
-    from showo_tpu_torch.data.mixed import MixedDataLoader
 
     pre, dp, tr = (config.dataset.preprocessing, config.dataset.params,
                    config.training)
-    n_img = pre.num_t2i_image_tokens + (1 if model.cfg.add_time_embeds
-                                        else 0)
-    loaders = []
-    for key, bs_key, dtype in sources:
-        if dp.get(key):
-            loaders.append(create_imagetext_dataloader(
-                dp.get(key), tokenizer, token_ids,
-                batch_size=int(tr.get(bs_key, 1)),
-                resolution=pre.resolution, num_image_tokens=n_img,
-                max_seq_len=pre.max_seq_length,
-                max_text_len=int(pre.get("max_text_len", 256)),
-                default_data_type=dtype))
+    return [create_imagetext_dataloader(
+        dp.get(key), tokenizer, token_ids, batch_size=int(tr.get(bs_key, 1)),
+        resolution=pre.resolution,
+        num_image_tokens=num_image_tokens(config, model),
+        max_seq_len=pre.max_seq_length,
+        max_text_len=int(pre.get("max_text_len", 256)),
+        default_data_type=dtype)
+        for key, bs_key, dtype in sources if dp.get(key)]
+
+
+def build_loader(config, tokenizer, token_ids, model: Showo2,
+                 sources: Sequence[Tuple[str, str, str]]):
+    """The jsonl loaders of ``sources`` (:func:`jsonl_loaders`), mixed by
+    ``concat_max_size_cycle``."""
+    from showo_tpu_torch.data.mixed import MixedDataLoader
+
+    loaders = jsonl_loaders(config, tokenizer, token_ids, model, sources)
     if not loaders:
         raise ValueError("no training data: set dataset.params."
                          + " or ".join(k for k, _, _ in sources))

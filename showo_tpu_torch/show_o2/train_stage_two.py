@@ -10,9 +10,13 @@ embedders (``und``: ``learning_rate_ve``), one for ``fusion_proj``
 (``fusion``: ``learning_rate_proj``) and one for the rest, Qwen2 and the
 DiT head (``main``: ``learning_rate_showo``), each group clipped by its own
 global norm as JAX's ``multi_transform`` of one chain a group does;
-``frozen_params`` freezes any of them.  The CLI reads the jsonl image-text
-data (``t2i_jsonl`` and ``mmu_jsonl``); the LLaVA conversation dataset of
-``annotation_path`` is not ported.
+``frozen_params`` freezes any of them.  The CLI mixes, one batch of each
+a step, the jsonl t2i data (``t2i_jsonl``) with the understanding data:
+the LLaVA-OneVision conversations of ``annotation_path`` (images under
+``mmu_image_root``; ``data/mmu_dataset.py``, its stage ``config.stage``,
+default ``tuning``) when it is set, else the jsonl captions of
+``mmu_jsonl``.  A step's batch keeps the keys the two batches share
+(``data/mixed.py``).
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from showo_tpu_torch.show_o2.showo2 import Showo2
 from showo_tpu_torch.show_o2.train_stage_one import (STAGE1_SOURCES,
                                                      Stage1Config,
                                                      Stage1Trainer,
+                                                     build_loader,
                                                      build_models,
                                                      build_transport, freeze,
-                                                     run, stage1_config,
-                                                     warmup)
+                                                     jsonl_loaders,
+                                                     num_image_tokens, run,
+                                                     stage1_config, warmup)
 from showo_tpu_torch.training.train_step import Optimizer
 from showo_tpu_torch.utils.device import entry_device
 
@@ -112,6 +118,31 @@ def build_trainer(config, device=None,
         frozen_substrings=tuple(config.model.get("frozen_params", []) or []))
 
 
+def build_stage2_loader(config, tokenizer, token_ids, model: Showo2):
+    """The CLI's data (JAX ``train_stage_two.main``, :157-189): the t2i
+    jsonl loader and, with ``annotation_path``, an ``MMUDataset`` under a
+    checkpointable loader of ``batch_size_mmu``, mixed by
+    ``concat_max_size_cycle``; without it the stage-1 jsonl loaders."""
+    from showo_tpu_torch.data.loader import CheckpointableDataLoader
+    from showo_tpu_torch.data.mixed import MixedDataLoader
+    from showo_tpu_torch.data.mmu_dataset import MMUDataset
+
+    dp, pre = config.dataset.params, config.dataset.preprocessing
+    if not dp.get("annotation_path"):
+        return build_loader(config, tokenizer, token_ids, model,
+                            STAGE1_SOURCES)
+    loaders = jsonl_loaders(config, tokenizer, token_ids, model,
+                            STAGE1_SOURCES[:1])
+    mmu_ds = MMUDataset(
+        dp.annotation_path, dp.get("mmu_image_root", ""), tokenizer,
+        token_ids, resolution=pre.resolution,
+        num_image_tokens=num_image_tokens(config, model),
+        max_seq_len=pre.max_seq_length, stage=config.get("stage", "tuning"))
+    loaders.append(CheckpointableDataLoader(
+        lambda: iter(mmu_ds), batch_size=int(config.training.batch_size_mmu)))
+    return MixedDataLoader(loaders, mode="concat_max_size_cycle")
+
+
 def main(argv=None) -> Stage2Trainer:
     from showo_tpu_torch.config import get_config
 
@@ -119,12 +150,8 @@ def main(argv=None) -> Stage2Trainer:
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     config = get_config(argv)
-    if config.dataset.params.get("annotation_path"):
-        raise NotImplementedError(
-            "dataset.params.annotation_path (the LLaVA conversation "
-            "dataset) is not ported; give mmu_jsonl instead")
     trainer = build_trainer(config, device=config.get("device"))
-    return run(config, trainer, STAGE1_SOURCES)
+    return run(config, trainer, make_loader=build_stage2_loader)
 
 
 if __name__ == "__main__":

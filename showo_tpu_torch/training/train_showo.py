@@ -260,27 +260,8 @@ class ShowoTrainer:
     def __post_init__(self):
         c = self.config
         tr = c.training
-        opt_params = c.get_path("optimizer.params", {}) or {}
         self.cfg = self.model.cfg
-        # float(): YAML reads "1e-4" (no dot) as a string
-        max_norm = tr.get("max_grad_norm", 1.0)
-        self.tc = TrainConfig(
-            learning_rate=float(tr.get(
-                "learning_rate", opt_params.get("learning_rate", 1e-4))),
-            max_grad_norm=None if max_norm is None else float(max_norm),
-            t2i_coeff=tr.get("t2i_coeff", 1.0),
-            lm_coeff=tr.get("lm_coeff", 0.1),
-            mmu_coeff=tr.get("mmu_coeff", 1.0),
-            max_seq_length=c.dataset.preprocessing.max_seq_length,
-            grad_accum_steps=int(tr.get("gradient_accumulation_steps", 1)),
-            attn_impl=str(self.attn_impl or tr.get("attn_impl", "dense")),
-            remat=str(tr.get("remat", "full")),
-            optimizer=str(tr.get("optimizer", "adamw")))
-        precision = tr.get("mixed_precision", "no")
-        if precision not in _PRECISION:
-            raise NotImplementedError(
-                f"mixed_precision={precision!r} is not ported; the port "
-                f"has 'bf16' and 'no'")
+        self.tc = self.train_config()
         lr_cfg = c.get("lr_scheduler", {}) or {}
         lr = get_lr_schedule(
             lr_cfg.get("scheduler", "constant"), self.tc.learning_rate,
@@ -297,10 +278,40 @@ class ShowoTrainer:
             min_masking_rate=tr.get("min_masking_rate", 0.0),
             noise_type=tr.get("noise_type", "mask"),
             predict_all_tokens=tr.get("predict_all_tokens", False),
-            autocast_dtype=(_PRECISION[precision]
-                            if self.device.type == "cuda" else None))
+            autocast_dtype=self.autocast_dtype())
         self.global_step = 0
         self.ema = self._init_ema(tr.get("ema") or {})
+
+    def train_config(self) -> TrainConfig:
+        """The config's ``training`` keys as a TrainConfig (``attn_impl``
+        overrides ``training.attn_impl``)."""
+        c = self.config
+        tr = c.training
+        opt_params = c.get_path("optimizer.params", {}) or {}
+        # float(): YAML reads "1e-4" (no dot) as a string
+        max_norm = tr.get("max_grad_norm", 1.0)
+        return TrainConfig(
+            learning_rate=float(tr.get(
+                "learning_rate", opt_params.get("learning_rate", 1e-4))),
+            max_grad_norm=None if max_norm is None else float(max_norm),
+            t2i_coeff=tr.get("t2i_coeff", 1.0),
+            lm_coeff=tr.get("lm_coeff", 0.1),
+            mmu_coeff=tr.get("mmu_coeff", 1.0),
+            max_seq_length=c.dataset.preprocessing.max_seq_length,
+            grad_accum_steps=int(tr.get("gradient_accumulation_steps", 1)),
+            attn_impl=str(self.attn_impl or tr.get("attn_impl", "dense")),
+            remat=str(tr.get("remat", "full")),
+            optimizer=str(tr.get("optimizer", "adamw")))
+
+    def autocast_dtype(self) -> Optional[torch.dtype]:
+        """The forward's autocast type on CUDA (``training.mixed_precision``
+        "bf16"), None on the CPU or with "no"; another setting raises."""
+        precision = self.config.training.get("mixed_precision", "no")
+        if precision not in _PRECISION:
+            raise NotImplementedError(
+                f"mixed_precision={precision!r} is not ported; the port "
+                f"has 'bf16' and 'no'")
+        return _PRECISION[precision] if self.device.type == "cuda" else None
 
     def _init_ema(self, ema_cfg) -> Optional[EMA]:
         """The EMA of every weight when ``training.ema.enabled`` (the
@@ -566,34 +577,46 @@ def build_trainer(config, device=None,
                         attn_impl=attn_impl)
 
 
-def _build_loaders(config, tokenizer=None):
+def t2i_lm_loaders(config):
     """The t2i (an ImageNet class folder, ``dataset.gen_type:
-    imagenet1k``, or tar shards), lm (RefinedWeb parquet, this process's
-    rows) and mmu (caption tar shards) loaders of the config
-    (train.py:271-412), each checkpointable."""
+    imagenet1k``, or tar shards) and lm (RefinedWeb parquet, this
+    process's rows) loaders of the config (train.py:271-412), each
+    checkpointable."""
     from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
                                              process_rank)
     from showo_tpu_torch.data.refinedweb import RefinedWebDataset
     from showo_tpu_torch.data.tar_shards import Text2ImageTarDataset
 
     p, tr = config.dataset.params, config.training
-    res = p.resolution
     if config.dataset.gen_type == "imagenet1k":
         from showo_tpu_torch.data.imagenet import ImageNetDataset
 
-        t2i_ds = ImageNetDataset(p.train_t2i_shards_path_or_url, res)
+        t2i_ds = ImageNetDataset(p.train_t2i_shards_path_or_url, p.resolution)
     else:
-        t2i_ds = Text2ImageTarDataset(p.train_t2i_shards_path_or_url, res,
+        t2i_ds = Text2ImageTarDataset(p.train_t2i_shards_path_or_url,
+                                      p.resolution,
                                       p.get("shuffle_buffer_size", 1000))
-    mmu_ds = Text2ImageTarDataset(p.train_mmu_shards_path_or_url, res,
-                                  p.get("shuffle_buffer_size", 1000))
     rank, world = process_rank()
     lm_ds = RefinedWebDataset(p.train_lm_shards_path_or_url, rank=rank,
                               world_size=world)
     return tuple(CheckpointableDataLoader(lambda ds=ds: iter(ds), bs)
                  for ds, bs in ((t2i_ds, tr.batch_size_t2i),
-                                (lm_ds, tr.batch_size_lm),
-                                (mmu_ds, tr.batch_size_mmu)))
+                                (lm_ds, tr.batch_size_lm)))
+
+
+def _build_loaders(config, tokenizer=None):
+    """:func:`t2i_lm_loaders` and the mmu loader (caption tar shards),
+    each checkpointable."""
+    from showo_tpu_torch.data.loader import CheckpointableDataLoader
+    from showo_tpu_torch.data.tar_shards import Text2ImageTarDataset
+
+    p = config.dataset.params
+    t2i, lm = t2i_lm_loaders(config)
+    mmu_ds = Text2ImageTarDataset(p.train_mmu_shards_path_or_url,
+                                  p.resolution,
+                                  p.get("shuffle_buffer_size", 1000))
+    return t2i, lm, CheckpointableDataLoader(lambda: iter(mmu_ds),
+                                             config.training.batch_size_mmu)
 
 
 def load_validation_prompts(config) -> Optional[List[str]]:

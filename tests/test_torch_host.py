@@ -167,9 +167,66 @@ def test_training_text_blocks_match_golden():
 
 
 def test_other_prompting_tasks_raise():
-    uni = UniversalPrompting(FakeTokenizer(), max_text_len=8)
-    with pytest.raises(NotImplementedError):
-        uni((["a"], np.zeros((1, 4), np.int64)), "mmu")
+    """A task the reference's dispatch does not know raises
+    NotImplementedError in both packages (every task of JAX's is ported:
+    ``test_labelled_prompting_tasks_match_jax``)."""
+    for uni in (UniversalPrompting(FakeTokenizer(), max_text_len=8),
+                JaxPrompting(jfake.FakeTokenizer(), max_text_len=8)):
+        with pytest.raises(NotImplementedError):
+            uni((["a"], np.zeros((1, 4), np.int64)), "v2v")
+
+
+@pytest.mark.parametrize("task", ["t2i", "t2i_plus_lm", "t2v", "t2v_gen",
+                                  "lm", "mmu", "i2v", "lvg"])
+@pytest.mark.parametrize("max_text_len", [8, 128])
+def test_labelled_prompting_tasks_match_jax(task, max_text_len):
+    """The tasks with labels of ``UniversalPrompting.__call__`` (and
+    ``t2v_gen``), on the same prompts (one cut), image / video ids and
+    labels, at conditioning dropout 0.5: the same arrays and dtypes, and
+    the same numpy generator state after the call (one draw a row in every
+    generation task, as JAX's ``_gen_family``)."""
+    ours = UniversalPrompting(FakeTokenizer(), max_text_len=max_text_len,
+                              cond_dropout_prob=0.5)
+    ref = JaxPrompting(jfake.FakeTokenizer(), max_text_len=max_text_len,
+                       cond_dropout_prob=0.5)
+    rng = np.random.default_rng(max_text_len)
+    n = len(PROMPTS)
+    img = rng.integers(0, 50, size=(n, 9))
+    labels = np.where(rng.random((n, 9)) < 0.5, -100, img)
+    inputs = {"t2i": (PROMPTS, img, labels), "t2v": (PROMPTS, img, labels),
+              "t2v_gen": (PROMPTS, img), "lvg": (PROMPTS, img, labels),
+              "lm": (PROMPTS, 20), "mmu": (img, PROMPTS),
+              "i2v": (img, img + 7, labels),
+              "t2i_plus_lm": (PROMPTS + PROMPTS[::-1], img, labels, 20)}
+    kw = {"t2i_batch_size": n} if task == "t2i_plus_lm" else {}
+    got, want = ours(inputs[task], task, **kw), ref(inputs[task], task, **kw)
+    if task == "t2i_plus_lm":
+        got, want = got[0] + got[1], want[0] + want[1]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+    assert ours.rng.random() == ref.rng.random()
+    if task == "i2v":
+        two = ours((img, img + 7), "i2v")
+        for g, w in zip(two, ref((img, img + 7), "i2v")):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_generate_prompts_draw_as_jax():
+    """``t2i_gen`` draws one number a row from the prompting's generator,
+    as JAX's does, so the training text blocks' dropout after a validation
+    generate is JAX's."""
+    ours = UniversalPrompting(FakeTokenizer(), max_text_len=8,
+                              cond_dropout_prob=0.5)
+    ref = JaxPrompting(jfake.FakeTokenizer(), max_text_len=8,
+                       cond_dropout_prob=0.5)
+    img = np.zeros((len(PROMPTS), 4), np.int64)
+    for uni in (ours, ref):
+        uni((PROMPTS, img), "t2i_gen")
+        uni(([""] * len(PROMPTS), img), "t2i_gen")
+    np.testing.assert_array_equal(ours.t2i_text_block(PROMPTS * 3),
+                                  ref.t2i_text_block(PROMPTS * 3))
 
 
 V2_IDS = dict(bos_id=1, eos_id=2, boi_id=3, eoi_id=4, pad_id=5, img_pad_id=6)
@@ -680,3 +737,124 @@ def test_import_scan_covers_the_trainers_modules():
     for path in NEW_PORT_MODULES:
         assert not [m for m in _imports(os.path.join(REPO, path))
                     if m.split(".")[0] in FORBIDDEN], path
+
+
+def test_determinism_seeds_every_generator():
+    """``set_seed`` seeds random, numpy and torch as JAX's seeds random and
+    numpy (the same draws after it) and returns a generator of the seed;
+    ``enable_full_determinism`` turns torch's deterministic algorithms on
+    and sets cuBLAS's workspace."""
+    import random
+
+    from showo_tpu.utils import determinism as jdet
+    from showo_tpu_torch.utils import determinism as tdet
+
+    jdet.set_seed(11)
+    want = (random.random(), np.random.rand())
+    gen = tdet.set_seed(11)
+    assert (random.random(), np.random.rand()) == want
+    first = torch.rand(3)
+    tdet.set_seed(11)
+    assert torch.equal(torch.rand(3), first)
+    assert torch.equal(torch.rand(2, generator=gen),
+                       torch.rand(2, generator=torch.Generator()
+                                  .manual_seed(11)))
+    env = {k: os.environ.get(k) for k in ("CUBLAS_WORKSPACE_CONFIG",)}
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        tdet.enable_full_determinism(3)
+        assert torch.are_deterministic_algorithms_enabled()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+        torch.backends.cudnn.benchmark = flags[2]
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@pytest.mark.parametrize("llm_name", ["qwen2_5", "llama3"])
+def test_get_text_tokenizer_matches_jax(llm_name):
+    """``show_o2/tokenizer.py::get_text_tokenizer`` against JAX's on a stub
+    of ``transformers`` (a vocabulary with each model's native tokens): the
+    same added tokens and ids; the port asks for local files only."""
+    import types
+    from unittest import mock
+
+    from showo_tpu.show_o2.tokenizer import get_text_tokenizer as jget
+    from showo_tpu_torch.show_o2.tokenizer import get_text_tokenizer
+
+    native = {"llama3": {"<|begin_of_text|>": 128000,
+                         "<|eot_id|>": 128009},
+              "qwen2_5": dict(_StubQwenTokenizer().vocab)}[llm_name]
+
+    class Stub(_StubQwenTokenizer):
+        eos_token_id = max(native.values())
+
+        def __init__(self):
+            self.vocab = dict(native)
+            self.pad_token_id = None
+
+        def add_tokens(self, token):
+            self.vocab.setdefault(token, 200000 + len(self.vocab))
+
+    asked = []
+    stub = types.ModuleType("transformers")
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(path, **kwargs):
+            asked.append(kwargs)
+            return Stub()
+
+    stub.AutoTokenizer = AutoTokenizer
+    with mock.patch.dict(sys.modules, {"transformers": stub}):
+        jtok, want = jget("any", return_showo_token_ids=True,
+                          llm_name=llm_name)
+        tok, got = get_text_tokenizer("any", return_showo_token_ids=True,
+                                      llm_name=llm_name)
+        assert get_text_tokenizer("any").get_vocab() == jget(
+            "any").get_vocab()
+        with pytest.raises(NotImplementedError):
+            get_text_tokenizer("any", llm_name="gpt2")
+    assert got == want and tok.get_vocab() == jtok.get_vocab()
+    assert asked[1] == {"local_files_only": True}
+
+
+def test_logging_pieces_match_jax(tmp_path):
+    """``utils/tracker.py``'s AverageMeter, Stopwatch, get_logger and
+    resolve_wandb_run_id against ``utils/logging.py``'s: the same means,
+    a lap, one handler, and the same run ids (from the config, none when
+    disabled, persisted and reread in ``output_dir``)."""
+    from showo_tpu.utils import logging as jlog
+    from showo_tpu_torch.utils import tracker as tlog
+
+    ours, ref = tlog.AverageMeter(), jlog.AverageMeter()
+    for v, n in ((1.5, 2), (3.0, 1), (-0.5, 4)):
+        ours.update(v, n)
+        ref.update(v, n)
+    assert vars(ours) == vars(ref)
+    assert tlog.Stopwatch().lap() >= 0
+    logger = tlog.get_logger("showo_tpu_torch.test_host")
+    assert len(logger.handlers) == 1 and not logger.propagate
+    assert tlog.get_logger("showo_tpu_torch.test_host") is logger
+    for cfg in ({"wandb": {"run_id": "abc", "resume": "must"}}, {}):
+        config = tconfig.load_config(os.path.join(REPO, "configs",
+                                                  "showo_demo.yaml"))
+        config.update(cfg)
+        for enabled in (False, True):
+            out = tmp_path / f"{len(cfg)}{enabled}"
+            got = tlog.resolve_wandb_run_id(config, str(out), enabled)
+            assert out.exists() == (enabled and not cfg)
+            if enabled and not cfg:
+                want = jlog.resolve_wandb_run_id(config, str(out), enabled)
+                assert want == (got[0], "auto") and len(got[0]) == 8
+                assert got[1] is False
+            else:
+                assert got == jlog.resolve_wandb_run_id(config, str(out),
+                                                        enabled)

@@ -234,3 +234,58 @@ def test_jax_tensors_stack_and_transpose():
         "conv.bias": ((6,), False),
         "embed.weight": ((7, 5), False)}
 
+
+
+# -- lion (training/lion.py) --------------------------------------------------
+
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_lion_vs_jax(wd):
+    """Five steps of ``Lion`` against JAX ``training/lion.py``'s transform
+    (applied by ``optax.apply_updates``, compiled) on the same gradients,
+    with and without weight decay, at the limits above; then the schedule
+    JAX refuses, refused too; and a resume from ``state_dict`` continues
+    bit for bit."""
+    from showo_tpu.training.lion import lion as jlion
+    from showo_tpu_torch.training.lion import Lion
+
+    rng = np.random.default_rng(5)
+    shapes = [(64, 32), (384,), (3, 5, 7)]
+    params = [rng.normal(size=s).astype(np.float32) * 0.05 for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) * 10.0 ** -k
+              for s in shapes] for k in range(STEPS)]
+    tx = jlion(LR, weight_decay=wd)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+
+    @jax.jit
+    def jstep(p, s, g):
+        upd, s = tx.update(g, s, p)
+        return optax.apply_updates(p, upd), s
+
+    tp = [torch.nn.Parameter(torch.tensor(p)) for p in params]
+    opt = Lion(tp, LR, weight_decay=wd)
+    for k, g in enumerate(grads):
+        jp, state = jstep(jp, state, [jnp.asarray(x) for x in g])
+        opt.step([torch.tensor(x) for x in g])
+        if k == 2:
+            saved = copy.deepcopy(opt.state_dict())
+            snap = [p.detach().clone() for p in tp]
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TOL)
+    for a, b in zip(opt.momentum, state.momentum):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    again = [torch.nn.Parameter(p) for p in snap]
+    opt2 = Lion(again, LR, weight_decay=wd)
+    opt2.load_state_dict(saved)
+    for g in grads[3:]:
+        opt2.step([torch.tensor(x) for x in g])
+    for a, b in zip(again, tp):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="schedule"):
+        jlion(lambda step: LR).update([jnp.zeros(3)], jlion(lambda s: LR)
+                                      .init([jnp.zeros(3)]))
+    with pytest.raises(ValueError, match="schedule"):
+        Lion([torch.nn.Parameter(torch.zeros(3))], lambda step: LR).step(
+            [torch.ones(3)])
+    with pytest.raises(ValueError):
+        opt2.load_state_dict({"momentum": saved["momentum"][:2]})

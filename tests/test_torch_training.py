@@ -445,10 +445,14 @@ def test_trainer_refuses_inference_routes():
 def test_entry_points_run_on_the_card_unless_asked():
     """With no device, build_trainer and build_pipeline take CUDA and raise
     without a card; with ``device=cpu`` the CLI gets as far as the data
-    loaders, which raise on the config's absent dataset folder."""
+    loaders, which raise on the config's absent dataset folder.  The same
+    for the CLIP-ViT trainer (its CLI stops at the LLaVA json) and the
+    Show-o2 stage-2 CLI with ``annotation_path`` (read by MMUDataset)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from showo_tpu_torch import inference_t2i
+    from showo_tpu_torch.show_o2 import train_stage_two
+    from showo_tpu_torch.training import train_showo_clip
 
     config = _stage1_config()
     for build in (ttrain.build_trainer, inference_t2i.build_pipeline):
@@ -461,6 +465,27 @@ def test_entry_points_run_on_the_card_unless_asked():
             ttrain.main()
     finally:
         sys.argv = argv
+
+    clip_args = [f"config={CLIP_CONFIG}", *TINY, "model.showo.clip_vit="
+                 "{hidden_size: 32, intermediate_size: 64, num_heads: 4, "
+                 "num_layers: 2, image_size: 32, patch_size: 16}"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_showo_clip.build_trainer(load_config(CLIP_CONFIG, clip_args[1:]))
+    with pytest.raises(FileNotFoundError, match="llava_v1_5_mix665k"):
+        train_showo_clip.main(clip_args + ["device=cpu"])
+
+    from test_torch_show_o2_train import CLI_TINY
+
+    stage2 = os.path.join(REPO, "configs", "showo2_1.5b_stage_2_a.yaml")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage_two.build_trainer(load_config(stage2, CLI_TINY[1:]))
+    with pytest.raises(FileNotFoundError, match="blip_laion_cc_sbu_558k"):
+        train_stage_two.main([f"config={stage2}", *CLI_TINY,
+                              "dataset.params.t2i_jsonl=null"])
+
+
+CLIP_CONFIG = os.path.join(REPO, "configs",
+                           "showo_instruction_tuning_2_w_clip_vit.yaml")
 
 
 def test_tuning512_trainer_takes_its_config():
@@ -496,3 +521,88 @@ def test_tuning512_trainer_takes_its_config():
 def test_max_size_cycle_zip_restarts_short_loaders():
     got = list(ttrain.max_size_cycle_zip([1, 2, 3], "ab", [9]))
     assert got == [(1, "a", 9), (2, "b", 9), (3, "a", 9)]
+
+
+# ---------------------------------------------------------------------------
+# the training diagnostics (training/metrics.py) and lfq_losses
+# ---------------------------------------------------------------------------
+
+def _metric_inputs(seed=4):
+    rng = np.random.default_rng(seed)
+    B, S, V = 6, 12, 17
+    logits = (rng.normal(size=(B, S, V)) * 3).astype(np.float32)
+    labels = np.where(rng.random((B, S)) < 0.3, -100,
+                      rng.integers(0, V, size=(B, S)))
+    mask_id = V - 1
+    ids = np.where(rng.random((B, S)) < np.linspace(0, 1, B)[:, None],
+                   mask_id, rng.integers(0, V - 1, size=(B, S)))
+    soft = rng.random((B, S - 1, V - 2)).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    return logits, labels, ids, mask_id, soft, rng.random(B).astype(
+        np.float32)
+
+
+def test_metrics_vs_jax():
+    """Every function of ``training/metrics.py`` against JAX's on the same
+    inputs (masking rates from 0 to 1 over the rows, so that the buckets
+    and an empty bucket show), rtol 1e-5."""
+    from showo_tpu.training import metrics as jm
+    from showo_tpu_torch.training import metrics as tm
+
+    logits, labels, ids, mask_id, soft, rate = _metric_inputs()
+    t = {k: torch.as_tensor(v) for k, v in dict(
+        logits=logits, labels=labels, ids=ids, soft=soft, rate=rate).items()}
+    j = {k: jnp.asarray(v.numpy()) for k, v in t.items()}
+    masked = ids == mask_id
+    cases = [
+        ("soft_target_cross_entropy", (t["logits"], t["labels"], t["soft"]),
+         (j["logits"], j["labels"], j["soft"])),
+        ("masked_bucket_cross_entropy", (t["logits"], t["labels"], t["rate"]),
+         (j["logits"], j["labels"], j["rate"])),
+        ("token_entropy", (t["logits"],), (j["logits"],)),
+        ("token_entropy", (t["logits"], torch.as_tensor(masked)),
+         (j["logits"], jnp.asarray(masked))),
+        ("input_ids_to_masked_buckets", (t["ids"], mask_id),
+         (j["ids"], mask_id)),
+        ("average_by_buckets", (t["rate"], torch.tensor([0, 0, 3, 9, 3, 0])),
+         (j["rate"], jnp.asarray([0, 0, 3, 9, 3, 0]))),
+        ("pixel_entropy_per_percent_masked_bucket",
+         (t["logits"], t["ids"], mask_id), (j["logits"], j["ids"], mask_id)),
+        ("image_entropy_per_percent_masked_bucket",
+         (t["logits"], t["ids"], mask_id), (j["logits"], j["ids"], mask_id)),
+    ]
+    for name, targs, jargs in cases:
+        got, want = getattr(tm, name)(*targs), getattr(jm, name)(*jargs)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+    buckets = tm.input_ids_to_masked_buckets(t["ids"], mask_id)
+    assert len(set(buckets.tolist())) > 3
+    grads = {"a": torch.as_tensor(soft[0]), "b/c": torch.as_tensor(rate)}
+    got = tm.per_param_grad_norms(grads)
+    want = jm.per_param_grad_norms({"a": jnp.asarray(soft[0]),
+                                    "b/c": jnp.asarray(rate)})
+    assert sorted(got) == sorted(want) == ["grad_norm/a", "grad_norm/b/c"]
+    for k in got:
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-6)
+
+
+def test_lfq_losses_vs_jax():
+    """``models/magvit.py::lfq_losses`` against JAX's: both losses (rtol
+    1e-5) and their gradients with respect to z (the stop-gradients on
+    each side of the commitment loss), rtol 1e-4."""
+    rng = np.random.default_rng(6)
+    z = (rng.normal(size=(40, 13)) * 1.5).astype(np.float32)
+    want = jmv.lfq_losses(jnp.asarray(z))
+    jgrad = jax.grad(lambda x: sum(jmv.lfq_losses(x).values()))(
+        jnp.asarray(z))
+    tz = torch.tensor(z, requires_grad=True)
+    got = tmv.lfq_losses(tz)
+    for k in ("entropy_loss", "commit_loss"):
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+    (got["entropy_loss"] + got["commit_loss"]).backward()
+    np.testing.assert_allclose(tz.grad.numpy(), np.asarray(jgrad), rtol=1e-4,
+                               atol=1e-7)
