@@ -86,7 +86,13 @@ hidden 2048, 32 heads; random weights from fixed seeds):
   ``mm_projector`` at twice the rate, dense) through
   ``training/train_showo_clip.py``: its step at full width and depth, and
   its CLI (``llava_pretrain``, then ``llava_tuning`` resuming) at a
-  reduced depth.
+  reduced depth;
+* the evaluation chain (``showo_tpu_torch/evaluation/``) on random weights
+  and items written for the run: ``run_chain`` (GenEval, DPG with its
+  scoring, FID) on phase 14's v1 512x512 pipeline, ``run_mmu_eval`` on
+  phase 10's int8 v1 and phase 18's Show-o2 understanding pipelines, both
+  CLIs at a reduced depth (``mmu_eval`` also as ``python -m`` in a fresh
+  interpreter), and the VQ PSNR gate on the full MAGVIT-v2.
 
 Phases, one or more lines each:
 
@@ -400,6 +406,32 @@ Phases, one or more lines each:
      steps, s a step, samples/s, peak memory, no kernel launched; one
      step's losses under bf16 autocast against the same step in fp32 on
      the same batch and draws (phase 25's loss limit)
+  35. the evaluation chain on items written to a temporary directory (a
+     GenEval jsonl, a DPG prompt and csv, crops of the in-tree image, POPE
+     / MME / GQA jsonl files), each part run where the script holds its
+     pipeline: 35a (after phase 14) ``run_quality.run_chain`` on phase
+     14's v1 512x512 pipeline (``build_pipeline``, ``auto``: ``packed``),
+     one step a call: GenEval 2 prompts x batch 2, the first prompt's PNGs
+     identical to a direct ``generate`` with a generator of the same seed;
+     DPG 1 prompt x batch 4, its grid scored by ``MMUPipelineScorer`` on
+     the bf16 MMU pipeline of ``run_quality._build_scorer`` (4 crops x 3
+     propositions, one dependency); FID of 4 validation prompts against 4
+     crops with the random-projection extractor; kernel 1 384 launches a
+     generate, all on the core, 16 tile maps, no other kernel; each
+     summary written as returned, no step skipped; 35b (after phases 11
+     and 18) ``run_mmu_eval``: 4 POPE items of 100 tokens on phase 10's
+     int8 v1 pipeline (kernel 9: 49 prefill launches and 4900 gemv
+     launches an answer), 2 MME questions of 20 tokens on phase 18's bf16
+     Show-o2 pipeline (no kernel), the metrics files equal to the returned
+     dicts; 35c (after phase 34) the ``run_quality`` (steps=geneval,fid,
+     the smoke extractor) and ``mmu_eval`` (GQA, int8) CLIs' ``main`` in
+     this process at Phi depth 2, their launches counted, then ``python
+     -X importtime -m showo_tpu_torch.evaluation.mmu_eval`` with the same
+     arguments in a fresh interpreter: the same metrics and predictions,
+     the kernel 9 wrapper imported, no module of JAX or ``showo_tpu``; 35d
+     ``vq_psnr`` at 256x256 on the full-width MAGVIT-v2: the round trip's
+     shape and the CLI's printed PSNR; seconds of each beside the card's
+     name and power limit
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -418,6 +450,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 CARD_TOL = 2e-2      # kernel vs plain, max abs error of bf16 attention
@@ -2440,10 +2473,10 @@ def _draw_adaln(torch, model, seed: int):
     return g
 
 
-def phase_v1_modes(torch, np, inference_t2i, cuda_build, config, prompts,
-                   smi):
+def phase_v1_modes(torch, np, cuda_build, base, prompts, smi):
     """Inpainting (the in-tree pair, every route) and extrapolation (two
-    directions) at 512x512 on the full-width slice model; launch counts of
+    directions) at 512x512 on the full-width slice model of ``base`` (the
+    CLI's ``build_pipeline``, ``auto``); launch counts of
     each call, codes, images, warm seconds.  Returns {route: launches of
     one inpaint}, the extrapolation's launches."""
     from PIL import Image
@@ -2453,7 +2486,6 @@ def phase_v1_modes(torch, np, inference_t2i, cuda_build, config, prompts,
     from showo_tpu_torch.utils.image import (bicubic_resize_mask,
                                              image_transform)
 
-    base = inference_t2i.build_pipeline(config, device=torch.device("cuda"))
     cfg, res = base.cfg, base.resolution
     if res != 512 or cfg.num_vq_tokens != 1024:
         raise AssertionError(f"not the 512x512 slice: {res}, {cfg}")
@@ -5747,6 +5779,484 @@ def phase_clip_train(torch, cuda_build, smi, phase="34"):
             "trainable": n_train}
 
 
+EVAL_GENEVAL_PROMPTS, EVAL_GENEVAL_BATCH = 2, 2
+EVAL_DPG_BATCH = 4          # one DPG prompt: a 2x2 grid, four crops scored
+EVAL_FID_PROMPTS = 4
+EVAL_SCORER_TOKENS = 16     # run_quality._build_scorer's answers
+# (item, proposition, dependency, tuple, question) of dpg_bench.csv: the
+# first data row is skipped (the reference's quirk), then the item's 3
+# propositions, the colour depending on the entity
+EVAL_DPG_ROWS = [
+    ("skipped", 1, "0", "entity - whole (x)", "is there an x?"),
+    ("item0", 1, "0", "entity - whole (cat)", "is there a cat?"),
+    ("item0", 2, "1", "attribute - color (cat, grey)", "is the cat grey?"),
+    ("item0", 3, "0", "entity - whole (mat)", "is there a mat?")]
+EVAL_MMU_ITEMS = 4          # the v1 int8 POPE items (and FID references)
+EVAL_CLI_TOKENS = 16        # the mmu_eval CLI's answers
+EVAL_V2_TOKENS = 20         # the Show-o2 MME answers (the CLI key)
+EVAL_CLI_LAYERS = 2         # Phi depth of the CLIs' runs
+
+
+class _WordDecoder:
+    """The stand-in tokenizer's ids back to the words it hashed (those of
+    ``words``), ``<id>`` for any other id: the ``decode`` that the DPG
+    scorer calls and the stand-in lacks (on the stand-in itself JAX's
+    scorer fails the same way and the grid is skipped)."""
+
+    def __init__(self, tokenizer, words):
+        self.words = {tokenizer([w])["input_ids"][0][0]: w for w in words}
+        self.answers = 0
+
+    def decode(self, ids):
+        self.answers += 1
+        return " ".join(self.words.get(int(i), f"<{int(i)}>") for i in ids)
+
+
+def _eval_data(tmp, prompts):
+    """The eval chain's items in ``tmp``: a GenEval metadata jsonl, a DPG
+    prompt and its csv (dpg_bench.csv's schema), 4 crops of the in-tree
+    image as PNGs (the FID references and the understanding images), the
+    POPE / MME / GQA jsonl files over them, and the FID prompt file."""
+    import csv
+
+    from PIL import Image
+
+    paths = {"geneval": os.path.join(tmp, "geneval.jsonl"),
+             "dpg_prompts": os.path.join(tmp, "dpg_prompts"),
+             "dpg_csv": os.path.join(tmp, "dpg_bench.csv"),
+             "images": os.path.join(tmp, "images"),
+             "fid_prompts": os.path.join(tmp, "fid_prompts.txt")}
+    with open(paths["geneval"], "w") as f:
+        for p in prompts[:EVAL_GENEVAL_PROMPTS]:
+            f.write(json.dumps({"prompt": p, "tag": "single_object",
+                                "include": [{"class": "cat", "count": 1}]})
+                    + "\n")
+    with open(paths["fid_prompts"], "w") as f:
+        f.write("\n".join(prompts[:EVAL_FID_PROMPTS]) + "\n")
+    os.makedirs(paths["dpg_prompts"])
+    with open(os.path.join(paths["dpg_prompts"], "item0.txt"), "w") as f:
+        f.write("A grey cat sits on a woven mat in the morning sun.\n")
+    with open(paths["dpg_csv"], "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["item_id", "proposition_id", "dependency", "tuple",
+                    "question_natural_language"])
+        w.writerows(EVAL_DPG_ROWS)
+    src = Image.open(MMU_IMAGE).convert("RGB")
+    os.makedirs(paths["images"])
+    for i in range(EVAL_MMU_ITEMS):
+        src.crop((32 * i, 16 * i, 32 * i + 384, 16 * i + 384)).save(
+            os.path.join(paths["images"], f"im{i}.png"))
+    items = {
+        "pope": [{"image": f"im{i}.png", "question": "Is there a cat in "
+                  "the image?", "answer": ("yes", "no")[i % 2]}
+                 for i in range(EVAL_MMU_ITEMS)],
+        "mme": [{"image": "im0.png", "question_id": "im0.png",
+                 "category": "existence", "question": q, "answer": a}
+                for q, a in (("Is there a cat in this image? Please "
+                              "answer yes or no.", "yes"),
+                             ("Is there a dog in this image? Please "
+                              "answer yes or no.", "no"))],
+        "gqa": [{"image": f"im{i}.png", "question": "What animal is it?",
+                 "answer": "cat"} for i in range(2)]}
+    for name, rows in items.items():
+        paths[name] = os.path.join(tmp, f"{name}.jsonl")
+        with open(paths[name], "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    return paths
+
+
+def _eval_counts(cuda_build):
+    return {n: c for n, c in cuda_build.launches.items()
+            if c and n in COUNTERS}
+
+
+def _chain_step(torch, cuda_build, run_quality, pipe, out, steps, want,
+                phase, **kw):
+    """One ``run_chain`` call: its summary (returned and written alike, no
+    step or scoring skipped), its kernel launches (``want``, none of any
+    other counter) and its seconds."""
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    summary = run_quality.run_chain(pipe, out, steps, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _eval_counts(cuda_build)
+    with open(os.path.join(out, "quality_summary.json")) as f:
+        written = json.load(f)
+    if not (counts == want and written == json.loads(json.dumps(summary))
+            and all(s in summary and "skipped" not in summary[s]
+                    and "scoring_skipped" not in summary[s]
+                    for s in steps)):
+        raise AssertionError(f"[{phase}] run_chain {steps}: launches "
+                             f"{counts} (want {want}), summary {summary}")
+    return summary, counts, seconds
+
+
+def phase_eval_chain(torch, np, cuda_build, smi, config, pipe, prompts,
+                     data, tmp, phase="35a"):
+    """``run_chain`` on phase 14's v1 512x512 pipeline (``build_pipeline``,
+    ``auto``: ``packed``, kernel 1) at full width, one step a call:
+    GenEval over 2 prompts x batch 2, its first prompt's PNGs bit for bit
+    those of a direct ``generate`` with a generator of the same seed; DPG
+    over 1 prompt x batch 4, its grid scored by ``MMUPipelineScorer`` on
+    ``run_quality._build_scorer``'s bf16 MMU pipeline (the t2i model and
+    MAGVIT, 16 tokens an answer: 4 crops x 3 propositions, one dependency);
+    FID over 4 validation prompts with the random-projection extractor
+    against the 4 crops.  Kernel 1: 384 launches a generate, all on the
+    core, 16 tile maps; no other kernel (the scorer's path is dense)."""
+    from PIL import Image
+
+    from showo_tpu_torch.evaluation import dpg_bench, fid, run_quality
+    from showo_tpu_torch.utils.image import to_pil_images
+
+    c = pipe.cfg
+    if not (pipe.attn_route == "packed" and c.llm.num_layers == NUM_LAYERS
+            and c.llm.hidden_size == 2048 and c.num_vq_tokens == 1024):
+        raise AssertionError(f"[{phase}] not the full-width 512x512 path "
+                             f"on packed: {pipe.attn_route}, {c}")
+
+    def want(generates):
+        return {KERNELS["packed"][0]: NUM_LAYERS * TIMESTEPS * generates,
+                PACKED_WGMMA: NUM_LAYERS * TIMESTEPS * generates,
+                PACKED_TILES: TIMESTEPS * generates}
+
+    out = os.path.join(tmp, "quality")
+    gen, gen_counts, gen_s = _chain_step(
+        torch, cuda_build, run_quality, pipe, os.path.join(out, "geneval"),
+        ["geneval"], want(EVAL_GENEVAL_PROMPTS), phase,
+        geneval_metadata=data["geneval"], batch_size=EVAL_GENEVAL_BATCH)
+    first = os.path.join(gen["geneval"]["outdir"], "00000", "samples")
+    saved = [np.asarray(Image.open(os.path.join(first, f)))
+             for f in sorted(os.listdir(first))]
+    t0 = time.perf_counter()
+    direct = to_pil_images(pipe.generate(
+        [prompts[0]] * EVAL_GENEVAL_BATCH,
+        torch.Generator(device=pipe.device).manual_seed(0)))
+    warm_s = time.perf_counter() - t0
+    if not (gen["geneval"]["prompts"] == EVAL_GENEVAL_PROMPTS
+            and len(saved) == EVAL_GENEVAL_BATCH
+            and all(a.shape == (512, 512, 3) and np.array_equal(
+                a, np.asarray(b)) for a, b in zip(saved, direct))):
+        raise AssertionError(f"[{phase}] GenEval {gen}: the first prompt's "
+                             f"PNGs differ from a direct generate")
+
+    mmu = run_quality._build_scorer(config, "v1", pipe).pipe
+    words = {w.strip("?") for row in EVAL_DPG_ROWS
+             for w in row[4].split()} | {"yes", "no"}
+    decoder = _WordDecoder(pipe.uni_prompting.text_tokenizer, words)
+    scorer = dpg_bench.MMUPipelineScorer(mmu, decoder,
+                                         resolution=pipe.resolution)
+    dpg, dpg_counts, dpg_s = _chain_step(
+        torch, cuda_build, run_quality, pipe, os.path.join(out, "dpg"),
+        ["dpg"], want(1), phase, dpg_prompts_dir=data["dpg_prompts"],
+        dpg_csv=data["dpg_csv"], dpg_scorer=scorer,
+        batch_size=EVAL_DPG_BATCH, dpg_resolution=pipe.resolution)
+    result = dpg["dpg"]["result"]
+    questions = EVAL_DPG_BATCH * (len(EVAL_DPG_ROWS) - 1)
+    grid = Image.open(os.path.join(dpg["dpg"]["outdir"], "item0.png"))
+    if not (result["n"] == 1 and decoder.answers == questions
+            and mmu.max_new_tokens == EVAL_SCORER_TOKENS
+            and grid.size == (1024, 1024)
+            and set(result["l1"]) == {"entity", "attribute"}):
+        raise AssertionError(f"[{phase}] DPG {dpg}: {decoder.answers} "
+                             f"answers (want {questions}), grid "
+                             f"{grid.size}")
+
+    fid_prompts = prompts[:EVAL_FID_PROMPTS]
+    fd, fid_counts, fid_s = _chain_step(
+        torch, cuda_build, run_quality, pipe, os.path.join(out, "fid"),
+        ["fid"], want(EVAL_FID_PROMPTS // EVAL_GENEVAL_BATCH), phase,
+        fid_prompts=fid_prompts, fid_ref_dir=data["images"],
+        fid_extractor=fid.RandomProjectionExtractor(),
+        batch_size=EVAL_GENEVAL_BATCH)
+    if not (np.isfinite(fd["fid"]["value"]) and fd["fid"]["value"] > 0
+            and fd["fid"]["n_gen"] == EVAL_FID_PROMPTS
+            and fd["fid"]["n_ref"] == EVAL_MMU_ITEMS):
+        raise AssertionError(f"[{phase}] FID {fd}")
+    counts = {n: gen_counts[n] + dpg_counts[n] + fid_counts[n]
+              for n in want(1)}
+    generates = (EVAL_GENEVAL_PROMPTS + 1
+                 + EVAL_FID_PROMPTS // EVAL_GENEVAL_BATCH)
+    print(f"[{phase}] run_chain on phase 14's v1 512x512 pipeline (auto: "
+          f"packed, full width, bf16, random weights): GenEval "
+          f"{EVAL_GENEVAL_PROMPTS} prompts x batch {EVAL_GENEVAL_BATCH} in "
+          f"{gen_s:.2f} s ({gen_s / EVAL_GENEVAL_PROMPTS:.4f} s a prompt, "
+          f"the pipeline's first generates), the first prompt's PNGs "
+          f"identical to a direct generate with a generator of the same "
+          f"seed ({warm_s:.4f} s, warm, PNGs not written); DPG 1 prompt x "
+          f"batch "
+          f"{EVAL_DPG_BATCH}, its 2x2 grid scored by MMUPipelineScorer on "
+          f"the bf16 MMU pipeline of the same model ({questions} answers "
+          f"of {EVAL_SCORER_TOKENS} tokens; score {result['score']:.2f}, "
+          f"l1 {result['l1']}) in {dpg_s:.2f} s; FID ({EVAL_FID_PROMPTS} "
+          f"generated at batch {EVAL_GENEVAL_BATCH} against "
+          f"{EVAL_MMU_ITEMS} crops, random-projection features) "
+          f"{fd['fid']['value']:.4f} in {fid_s:.2f} s; kernel 1 launches "
+          f"{counts} over {generates} generates (384 a generate, all on "
+          f"the core, 16 tile maps), 0 of the others; on {smi}")
+    return {"geneval_s": gen_s, "geneval_s_per_prompt":
+            gen_s / EVAL_GENEVAL_PROMPTS, "warm_generate_s": warm_s,
+            "dpg_s": dpg_s, "fid_s": fid_s,
+            "fid": fd["fid"]["value"], "dpg": result, "counts": counts,
+            "generates": generates}
+
+
+def _mmu_eval_run(torch, cuda_build, mmu_eval, pipe, jsonl, data, out,
+                  benchmark, phase):
+    """``run_mmu_eval`` over ``jsonl``: (metrics, launches, seconds); the
+    metrics file equal to the returned dict, one prediction an item."""
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    metrics = mmu_eval.run_mmu_eval(pipe, jsonl, data["images"], out,
+                                    benchmark=benchmark)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _eval_counts(cuda_build)
+    with open(os.path.join(out, "metrics_0.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(out, "predictions_0.jsonl")) as f:
+        preds = [json.loads(line) for line in f]
+    with open(jsonl) as f:
+        n = sum(1 for line in f if line.strip())
+    if written != metrics or len(preds) != n or not all(
+            isinstance(p["prediction"], str) for p in preds):
+        raise AssertionError(f"[{phase}] {benchmark}: metrics {metrics} / "
+                             f"{written}, {len(preds)} predictions of {n}")
+    return metrics, counts, seconds, n
+
+
+def phase_eval_mmu_v1(torch, cuda_build, smi, pipe, data, tmp,
+                      phase="35b"):
+    """``run_mmu_eval`` on phase 10's int8 v1 pipeline (``showo_demo.yaml``
+    through ``inference_mmu.build_pipeline``, which the CLI's
+    ``mmu_eval.build_pipeline`` calls for v1) at full width: 4 POPE items,
+    100 greedy tokens an answer: kernel 9's prefill kernel once a product
+    an answer (49), the gemv 49 a token (4900 an answer), none of any
+    other kernel."""
+    from showo_tpu_torch.evaluation import mmu_eval
+    from showo_tpu_torch.models.phi import Int8Linear
+
+    phi = pipe.model.showo
+    if not (phi.cfg.num_layers == NUM_LAYERS and phi.cfg.hidden_size == 2048
+            and isinstance(phi.lm_head, Int8Linear)
+            and pipe.max_new_tokens == MMU_NEW_TOKENS and pipe.top_k == 1):
+        raise AssertionError(f"[{phase}] not the full-width int8 v1 "
+                             f"pipeline: {phi.cfg}")
+    v1, v1_counts, v1_s, n = _mmu_eval_run(
+        torch, cuda_build, mmu_eval, pipe, data["pope"], data,
+        os.path.join(tmp, "pope"), "pope", phase)
+    want = {"int8_matmul": n * MMU_MATMULS * (1 + MMU_NEW_TOKENS),
+            PREFILL_KERNEL: n * MMU_MATMULS,
+            "int8_matmul_gemv": n * MMU_MATMULS * MMU_NEW_TOKENS}
+    if v1_counts != want or set(v1) != {"accuracy", "precision", "recall",
+                                        "f1", "yes_ratio", "num"}:
+        raise AssertionError(f"[{phase}] v1 POPE: launches {v1_counts} "
+                             f"(want {want}), metrics {v1}")
+    print(f"[{phase}] run_mmu_eval, v1 int8 (phase 10's pipeline, "
+          f"showo_demo.yaml, full width): {n} POPE items of "
+          f"{MMU_NEW_TOKENS} greedy tokens in {v1_s:.2f} s ({v1_s / n:.3f} "
+          f"s an item), metrics {v1}; kernel 9 launches {v1_counts} = {n} "
+          f"x ({MMU_MATMULS} on the prefill kernel + {MMU_MATMULS} x "
+          f"{MMU_NEW_TOKENS} on the gemv), 0 of the others; on {smi}")
+    return {"v1_int8_pope_s": v1_s, "v1_s_per_item": v1_s / n,
+            "v1_metrics": v1, "counts": v1_counts}
+
+
+def phase_eval_mmu_v2(torch, cuda_build, smi, pipe, data, tmp,
+                      phase="35b"):
+    """``run_mmu_eval`` on phase 18's bf16 Show-o2 understanding pipeline
+    (the model the CLI's ``v2=1`` builds: bf16, no int8, dense as in JAX,
+    so no kernel) at 20 greedy tokens an answer: 2 MME questions about one
+    image."""
+    from showo_tpu_torch.evaluation import mmu_eval
+
+    pipe = dataclasses.replace(pipe, max_new_tokens=EVAL_V2_TOKENS)
+    if not (pipe.top_k == 1 and pipe.top_p is None
+            and not pipe.quantize_int8 and pipe.resolution == 432
+            and pipe.cfg.llm.num_layers == V2_QWEN_LAYERS):
+        raise AssertionError(f"[{phase}] not the CLI's Show-o2 pipeline: "
+                             f"{pipe.top_k}, {pipe.top_p}, "
+                             f"{pipe.quantize_int8}, {pipe.resolution}")
+    v2, v2_counts, v2_s, n2 = _mmu_eval_run(
+        torch, cuda_build, mmu_eval, pipe, data["mme"], data,
+        os.path.join(tmp, "mme"), "mme", phase)
+    if v2_counts or set(v2) != {"existence", "total"}:
+        raise AssertionError(f"[{phase}] Show-o2 MME: launches {v2_counts}"
+                             f", metrics {v2}")
+    print(f"[{phase}] run_mmu_eval, Show-o2 (phase 18's bf16 pipeline, "
+          f"dense, full width): {n2} MME questions about one 432x432 "
+          f"image, {EVAL_V2_TOKENS} greedy tokens each, in {v2_s:.2f} s "
+          f"({v2_s / n2:.3f} s an item), metrics {v2}; no kernel launched; "
+          f"on {smi}")
+    return {"v2_mme_s": v2_s, "v2_s_per_item": v2_s / n2, "v2_metrics": v2}
+
+
+def _eval_cli(cuda_build, main, argv, want, phase):
+    """A CLI's ``main(argv)`` in this process: its last line of output
+    (JSON), its kernel launches (``want``, none of any other counter) and
+    its seconds."""
+    import io
+
+    out = io.StringIO()
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    seconds = time.perf_counter() - t0
+    counts = _eval_counts(cuda_build)
+    if counts != want:
+        raise AssertionError(f"[{phase}] {main.__module__}: launches "
+                             f"{counts}, want {want}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), seconds
+
+
+def _eval_cli_process(module, argv, phase):
+    """``python -X importtime -m module argv`` in a fresh interpreter from
+    the checkout's root (CUDA, the CLI's default device): its last line of
+    output (JSON), its seconds, and the modules it imported, none of JAX
+    or the JAX package."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", module, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"[{phase}] python -m {module}: rc "
+                             f"{run.returncode}\n{run.stderr[-4000:]}")
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in run.stderr.splitlines()
+                if line.startswith("import time:")}
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in ("jax", "jaxlib", "showo_tpu"))
+    if bad:
+        raise AssertionError(f"[{phase}] python -m {module} imported {bad}")
+    return json.loads(run.stdout.strip().splitlines()[-1]), seconds, imported
+
+
+def phase_eval_cli(np, cuda_build, data, tmp, smi, phase="35c"):
+    """The two CLIs at full width and Phi depth 2 (as phase 33 cuts its
+    CLIs): ``run_quality``'s ``main`` in this process (the 512x512
+    pipeline on ``auto``, GenEval and FID with the smoke extractor over the
+    4-prompt file: 4 generates, kernel 1 2 x 16 launches each), and
+    ``mmu_eval`` (the v1 int8 pipeline, 2 GQA items of 16 tokens: kernel
+    9, 5 products a forward) both by its ``main`` in this process, its
+    launches counted, and as ``python -m`` in a fresh interpreter: the same
+    metrics and prediction file, the kernel 9 wrapper imported, nothing of
+    JAX."""
+    from showo_tpu_torch.evaluation import mmu_eval, run_quality
+
+    out = os.path.join(tmp, "cli_quality")
+    generates = EVAL_GENEVAL_PROMPTS + EVAL_FID_PROMPTS // EVAL_GENEVAL_BATCH
+    steps = EVAL_CLI_LAYERS * TIMESTEPS * generates
+    summary, rq_s = _eval_cli(cuda_build, run_quality.main, [
+        "config=configs/showo_demo_512x512.yaml", "steps=geneval,fid",
+        "fid_extractor=smoke", f"output_dir={out}",
+        f"geneval_metadata={data['geneval']}",
+        f"fid_ref_dir={data['images']}",
+        f"validation_prompts_file={data['fid_prompts']}",
+        f"batch_size={EVAL_GENEVAL_BATCH}", "guidance_scale=1.75",
+        f"generation_timesteps={TIMESTEPS}",
+        f"model.showo.phi={{num_layers: {EVAL_CLI_LAYERS}}}"],
+        {KERNELS["packed"][0]: steps, PACKED_WGMMA: steps,
+         PACKED_TILES: TIMESTEPS * generates}, phase)
+    with open(os.path.join(out, "quality_summary.json")) as f:
+        written = json.load(f)
+    if not (written == summary
+            and summary["geneval"]["prompts"] == EVAL_GENEVAL_PROMPTS
+            and summary["fid"]["n_gen"] == EVAL_FID_PROMPTS
+            and np.isfinite(summary["fid"]["value"])):
+        raise AssertionError(f"[{phase}] run_quality CLI: {summary}")
+    products = 2 * EVAL_CLI_LAYERS + 1
+    items = 2
+
+    def mmu_argv(outdir):
+        return ["config=configs/showo_demo.yaml", f"eval_jsonl={data['gqa']}",
+                f"image_root={data['images']}", f"outdir={outdir}",
+                "benchmark=gqa", "int8=1",
+                f"max_new_tokens={EVAL_CLI_TOKENS}", "top_k=1",
+                f"model.showo.phi={{num_layers: {EVAL_CLI_LAYERS}}}"]
+
+    runs = {"in": os.path.join(tmp, "cli_mmu"),
+            "process": os.path.join(tmp, "cli_mmu_process")}
+    metrics, me_s = _eval_cli(cuda_build, mmu_eval.main, mmu_argv(runs["in"]),
+        {"int8_matmul": items * products * (1 + EVAL_CLI_TOKENS),
+         PREFILL_KERNEL: items * products,
+         "int8_matmul_gemv": items * products * EVAL_CLI_TOKENS}, phase)
+    process, process_s, imported = _eval_cli_process(
+        "showo_tpu_torch.evaluation.mmu_eval", mmu_argv(runs["process"]),
+        phase)
+    files = {}
+    for run, outdir in runs.items():
+        for name in ("metrics_0.json", "predictions_0.jsonl"):
+            with open(os.path.join(outdir, name)) as f:
+                files[run, name] = f.read()
+    if not (json.loads(files["in", "metrics_0.json"]) == metrics == process
+            and metrics["num"] == items
+            and files["in", "predictions_0.jsonl"]
+            == files["process", "predictions_0.jsonl"]
+            and "showo_tpu_torch.ops.int8_matmul" in imported):
+        raise AssertionError(f"[{phase}] mmu_eval CLI: {metrics} in "
+                             f"process, {process} from python -m, files "
+                             f"{files}")
+    print(f"[{phase}] the CLIs at full width, Phi depth "
+          f"{EVAL_CLI_LAYERS}: run_quality main steps=geneval,fid "
+          f"fid_extractor=smoke in {rq_s:.1f} s (GenEval "
+          f"{summary['geneval']['prompts']} prompts, FID "
+          f"{summary['fid']['value']:.4f} over {summary['fid']['n_gen']} "
+          f"images; kernel 1 {steps} launches over {generates} generates); "
+          f"mmu_eval main benchmark=gqa int8=1 in {me_s:.1f} s (metrics "
+          f"{metrics}; kernel 9 {items} x {products} x "
+          f"{1 + EVAL_CLI_TOKENS} launches), then python -m "
+          f"showo_tpu_torch.evaluation.mmu_eval with the same arguments in "
+          f"a fresh interpreter in {process_s:.1f} s: the same metrics and "
+          f"predictions, {len(imported)} modules imported, none of JAX or "
+          f"showo_tpu; on {smi}")
+    return {"run_quality_s": rq_s, "mmu_eval_s": me_s,
+            "mmu_eval_process_s": process_s}
+
+
+def phase_vq_psnr(torch, np, smi, phase="35d"):
+    """The VQ PSNR gate (``evaluation/vq_psnr.py``) at 256x256 on the
+    full-width MAGVIT-v2 (random init from its seed), fp32: the round trip
+    returns the input's shape, finite; the CLI's own run prints the same
+    PSNR."""
+    import io
+
+    from PIL import Image
+
+    from showo_tpu_torch.evaluation import vq_psnr
+    from showo_tpu_torch.models.magvit import VQConfig
+    from showo_tpu_torch.utils.image import image_transform
+
+    t0 = time.perf_counter()
+    vq, tag = vq_psnr.load_codec("", torch.device("cuda"))
+    pixels = image_transform(Image.open(MMU_IMAGE).convert("RGB"), 256)[None]
+    recon = vq_psnr.roundtrip(vq, pixels)
+    value = vq_psnr.psnr(pixels, recon)
+    seconds = time.perf_counter() - t0
+    if not (vq.cfg == VQConfig() and tag == "random-init"
+            and recon.shape == pixels.shape == (1, 256, 256, 3)
+            and np.isfinite(recon).all() and np.isfinite(value)):
+        raise AssertionError(f"[{phase}] VQ round trip {recon.shape} of "
+                             f"{pixels.shape}, PSNR {value}, {tag}")
+    vq = None
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        printed = vq_psnr.main(["resolution=256"])
+    line = out.getvalue().strip()
+    if printed != value or not line.startswith(f"vq_roundtrip_psnr="
+                                               f"{value:.2f} dB"):
+        raise AssertionError(f"[{phase}] the CLI printed {line!r}, the "
+                             f"round trip gave {value}")
+    print(f"[{phase}] VQ PSNR gate, full-width MAGVIT-v2 (random init), "
+          f"256x256 in-tree image, fp32: {line}; round trip "
+          f"{recon.shape} in {seconds:.2f} s; on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"psnr_db": value, "s": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -5814,12 +6324,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts.append(("t2i 512x512 [3-5]", time.perf_counter()))
 
-    # [14] inpainting and extrapolation at 512x512
+    # [14] inpainting and extrapolation at 512x512, on the CLI's pipeline
+    base = inference_t2i.build_pipeline(config, device=device)
     mode_launches, extra_launches = phase_v1_modes(
-        torch, np, inference_t2i, cuda_build, config, prompts, smi)
+        torch, np, cuda_build, base, prompts, smi)
+    parts.append(("t2i modes [14]", time.perf_counter()))
+
+    # [35a] the evaluation chain's run_chain (GenEval, DPG with its
+    # scoring, FID) on the same pipeline; phase 35's items in a temporary
+    # directory that lives until 35c
+    eval_tmp = tempfile.TemporaryDirectory()
+    eval_prompts = [p for p in inference_t2i.load_prompts(config)
+                    if p.strip()]
+    eval_data = _eval_data(eval_tmp.name, eval_prompts)
+    evaluation = {"chain": phase_eval_chain(
+        torch, np, cuda_build, smi, config, base, eval_prompts, eval_data,
+        eval_tmp.name)}
+    base = None
     gc.collect()
     torch.cuda.empty_cache()
-    parts.append(("t2i modes [14]", time.perf_counter()))
+    parts.append(("evaluation chain [35a]", time.perf_counter()))
 
     # the training phases: cuDNN convolutions (the frozen MAGVIT encoder)
     # back on PyTorch's default TF32; matmuls stay full fp32 (the dense
@@ -5909,10 +6433,18 @@ def main() -> int:
     model32 = inference_t2i.load_model(mmu_config, cfg, device, torch.float32)
     fuse_parallel_mlp(model32.showo)
     phase_int8_parity(torch, pipes[0], pipes[1], model32.showo, image)
-    pipes = pipe = model32 = None
+    model32 = None
     gc.collect()
     torch.cuda.empty_cache()
     parts.append(("int8 logits [11]", time.perf_counter()))
+
+    # [35b] run_mmu_eval on phase 10's int8 pipeline
+    evaluation["mmu"] = phase_eval_mmu_v1(torch, cuda_build, smi, pipes[1],
+                                          eval_data, eval_tmp.name)
+    pipes = pipe = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("evaluation, v1 int8 [35b]", time.perf_counter()))
 
     # [10b] the CLIP-ViT path (configs/showo_demo_w_clip_vit.yaml), int8
     clip_config = load_config("configs/showo_demo_w_clip_vit.yaml",
@@ -5999,10 +6531,18 @@ def main() -> int:
                                          torch.float32).showo
     und_parity = phase_mmu_v2_parity(torch, pipe, pipe_i8, qwen32, embeds,
                                      bias)
-    pipe = pipe_i8 = qwen32 = embeds = bias = None
+    pipe_i8 = qwen32 = embeds = bias = None
     gc.collect()
     torch.cuda.empty_cache()
     parts.append(("Show-o2 understanding [18]", time.perf_counter()))
+
+    # [35b] run_mmu_eval on phase 18's bf16 pipeline
+    evaluation["mmu_v2"] = phase_eval_mmu_v2(torch, cuda_build, smi, pipe,
+                                             eval_data, eval_tmp.name)
+    pipe = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(("evaluation, Show-o2 [35b]", time.perf_counter()))
 
     # [18b] Show-o2 video understanding, bf16
     vid = phase_mmu_vid(torch, cuda_build, inference_mmu_vid, und_config,
@@ -6138,6 +6678,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts.append(("CLIP-ViT training [34]", time.perf_counter()))
 
+    # [35c] the evaluation CLIs, [35d] the VQ PSNR gate
+    evaluation["cli"] = phase_eval_cli(np, cuda_build, eval_data,
+                                       eval_tmp.name, smi)
+    eval_tmp.cleanup()
+    parts.append(("evaluation CLIs [35c]", time.perf_counter()))
+    evaluation["vq"] = phase_vq_psnr(torch, np, smi)
+    parts.append(("VQ PSNR [35d]", time.perf_counter()))
+    eval_s = {part: end - begin for (part, end), (_, begin)
+              in zip(parts[1:], parts) if "35" in part}
+    print(f"[35] the evaluation chain in {sum(eval_s.values()):.1f} s: "
+          + ", ".join(f"{p} {s:.1f} s" for p, s in eval_s.items())
+          + f"; on {smi}")
+
     kernels = []
     for route, (name, replaces) in KERNELS.items():
         r512, r256 = results[route]["512"], results[route].get("256")
@@ -6151,6 +6704,8 @@ def main() -> int:
         if route == "packed":
             entry["launches_wgmma"] = route_launches[route][PACKED_WGMMA]
             entry["launches_extrapolate"] = extra_launches[name]
+            # phase 35a's run_chain, all its generates
+            entry["launches_eval"] = evaluation["chain"]["counts"][name]
         # one inpaint (phase 14) on the route
         entry["launches_inpaint"] = mode_launches[route][name]
         if route == "fused":
@@ -6193,6 +6748,9 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": mmu[1]["launches"]
                         if name == "int8_matmul" else 0,
+                        # phase 35b's run_mmu_eval over the int8 v1 items
+                        "launches_eval": evaluation["mmu"]["counts"].get(
+                            name, 0),
                         **cases[case], "case": case, "cases": cases})
     qwen_cases = wsmm["qwen"]
     for name, case, launches in (
@@ -6216,7 +6774,9 @@ def main() -> int:
                         "source": f"showo_tpu_torch/csrc/{source}.cu (+ "
                                   f"weight_stream_prefill.cuh)",
                         "replaces": WSMM_KERNELS[source],
-                        "launches": launches, **wsmm[name][case],
+                        "launches": launches,
+                        "launches_eval": evaluation["mmu"]["counts"].get(
+                            name, 0), **wsmm[name][case],
                         "case": case, "cases": wsmm[name]})
     qwen = V2_SHAPES[0][0]
     for name, source, replaces, which, launches in (

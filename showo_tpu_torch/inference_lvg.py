@@ -29,10 +29,10 @@ import torch
 from showo_tpu_torch.config import get_config
 from showo_tpu_torch.inference_t2i import (build_prompting,
                                            build_showo_config, load_model,
-                                           load_prompts, load_vq,
-                                           to_pil_images)
+                                           load_prompts, load_vq)
 from showo_tpu_torch.pipelines.lvg import LVGPipeline
 from showo_tpu_torch.utils.device import entry_device
+from showo_tpu_torch.utils.image import to_pil_images
 
 logger = logging.getLogger(__name__)
 

@@ -23,11 +23,11 @@ import os
 import torch
 
 from showo_tpu_torch.config import get_config
-from showo_tpu_torch.inference_t2i import to_pil_images
 from showo_tpu_torch.inference_t2i_v2 import (load_models,
                                               load_tokenizer_and_ids)
 from showo_tpu_torch.pipelines.mixed_modality import MixedModalityPipeline
 from showo_tpu_torch.utils.device import entry_device
+from showo_tpu_torch.utils.image import to_pil_images
 
 logger = logging.getLogger(__name__)
 

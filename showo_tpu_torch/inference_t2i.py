@@ -49,6 +49,7 @@ from showo_tpu_torch.utils.assets import (inpainting_pair,
 from showo_tpu_torch.utils.convert import (load_magvit,
                                            load_reference_weights, load_showo)
 from showo_tpu_torch.utils.device import entry_device
+from showo_tpu_torch.utils.image import image_transform, to_pil_images
 
 logger = logging.getLogger(__name__)
 
@@ -159,14 +160,6 @@ def build_pipeline(config, device: Optional[torch.device] = None,
     )
 
 
-def to_pil_images(images: np.ndarray):
-    """NHWC floats in [-1, 1] -> PIL images."""
-    from PIL import Image
-
-    x = np.clip((np.asarray(images) + 1.0) / 2.0, 0.0, 1.0) * 255.0
-    return [Image.fromarray(im) for im in x.astype(np.uint8)]
-
-
 def main() -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
@@ -194,8 +187,6 @@ def main() -> None:
         return
 
     from PIL import Image
-
-    from showo_tpu_torch.utils.image import image_transform
 
     if mode == "inpainting":
         src_path, mask_path = inpainting_pair(

@@ -28,7 +28,6 @@ from typing import List, Optional
 import torch
 
 from showo_tpu_torch.config import get_config
-from showo_tpu_torch.inference_t2i import to_pil_images
 from showo_tpu_torch.pipelines.t2i_v2 import T2IV2Pipeline
 from showo_tpu_torch.pipelines.t2v import T2VPipeline
 from showo_tpu_torch.show_o2.dit import DiffusionHeadConfig
@@ -40,6 +39,7 @@ from showo_tpu_torch.utils.assets import validation_prompts_file
 from showo_tpu_torch.utils.convert import (load_reference_weights,
                                            load_showo2, load_wan_vae)
 from showo_tpu_torch.utils.device import entry_device
+from showo_tpu_torch.utils.image import to_pil_images
 
 logger = logging.getLogger(__name__)
 

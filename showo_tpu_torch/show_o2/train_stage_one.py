@@ -313,7 +313,7 @@ class Stage1Trainer:
                                    guidance_scale: float = 5.0):
         """ODE samples of ``prompts`` (train_stage_one.py:602-698
         ``generate_images``), saved as ``samples/step<N>_<i>.png``."""
-        from showo_tpu_torch.inference_t2i import to_pil_images
+        from showo_tpu_torch.utils.image import to_pil_images
 
         pipe = self._pipeline(tokenizer, token_ids, num_steps,
                               guidance_scale)
@@ -335,7 +335,7 @@ class Stage1Trainer:
         ``recon/step<N>_<i>.png``, videos [B, T, H, W, 3] frame by frame
         as ``recon_video/step<N>_<i>_f<t>.png`` (train_stage_one.py
         :702-720, :817-832)."""
-        from showo_tpu_torch.inference_t2i import to_pil_images
+        from showo_tpu_torch.utils.image import to_pil_images
 
         x = torch.as_tensor(np.asarray(pixels, np.float32),
                             device=self.device)

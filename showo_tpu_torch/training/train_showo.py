@@ -380,7 +380,7 @@ class ShowoTrainer:
         (train.py:671-693, 766-848 ``generate_images``) through
         ``T2IPipeline`` on its ``auto`` route, saved as
         ``samples/step<N>_<i>.png``."""
-        from showo_tpu_torch.inference_t2i import to_pil_images
+        from showo_tpu_torch.utils.image import to_pil_images
         from showo_tpu_torch.pipelines.t2i import T2IPipeline
 
         tr = self.config.training
@@ -454,7 +454,7 @@ class ShowoTrainer:
 
     def _save_viz(self, pixels, recon, predicted, mask_ratio,
                   output_dir: str) -> np.ndarray:
-        from showo_tpu_torch.inference_t2i import to_pil_images
+        from showo_tpu_torch.utils.image import to_pil_images
 
         panel = np.concatenate([pixels, recon, predicted], axis=2)
         out = os.path.join(output_dir, "predictions")

@@ -3,8 +3,9 @@
 Copy of ``showo_tpu/utils/assets.py``'s path resolution: a configured path
 if it exists, else the in-tree asset.  (The JAX package's last resort, a
 checkout of the reference repository, is left out: the port never reads
-outside its own tree.)  The t2i prompt list and the inpainting pair
-(``inpainting/{source,mask}.png``) resolve through here.
+outside its own tree.)  The t2i prompt list, the inpainting pair
+(``inpainting/{source,mask}.png``) and the natural test image of the VQ
+PSNR gate (``test_image.png``) resolve through here.
 """
 
 import os
@@ -15,13 +16,23 @@ ASSETS_DIR = os.path.join(
         os.path.abspath(__file__)))), "assets", "validation")
 
 
+def asset_path(*names: str) -> str:
+    """Absolute path of an in-tree validation asset (may not exist)."""
+    return os.path.join(ASSETS_DIR, *names)
+
+
 def resolve(preferred: Optional[str], asset: str) -> Optional[str]:
     """``preferred`` if it exists, else the in-tree asset
     ``assets/validation/<asset>`` if it exists, else None."""
     if preferred and os.path.exists(str(preferred)):
         return str(preferred)
-    cand = os.path.join(ASSETS_DIR, asset)
+    cand = asset_path(asset)
     return cand if os.path.exists(cand) else None
+
+
+def validation_image(preferred: Optional[str] = None) -> Optional[str]:
+    """Natural test image of the VQ PSNR gate."""
+    return resolve(preferred, "test_image.png")
 
 
 def validation_prompts_file(preferred: Optional[str] = None) -> Optional[str]:

@@ -1,4 +1,5 @@
-"""The device of the port's entry points."""
+"""The device of the port's entry points, and the process grid of its
+sweeps."""
 
 from __future__ import annotations
 
@@ -16,3 +17,14 @@ def entry_device(device=None) -> torch.device:
             "card unless the caller asks for the CPU (device='cpu', or the "
             "config key device=cpu on the command line)")
     return device
+
+
+def process_grid() -> tuple:
+    """(rank, world size) of the initialised ``torch.distributed`` process
+    group, (0, 1) without one: the shard of a sweep that the JAX package
+    takes from ``jax.process_index()`` / ``jax.process_count()``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

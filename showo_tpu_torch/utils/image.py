@@ -2,9 +2,10 @@
 
 Copies of ``showo_tpu/utils/image.py``'s ``image_transform`` (bicubic
 resize of the short side, centre crop, [0, 1], then [-1, 1] unless
-``normalize=False``) and ``clip_image_transform`` (the same crop, CLIP mean
-/ std), so that the port reads images as the JAX package does, and
-:func:`bicubic_resize_mask`, the mask's downsampling of the inpainting
+``normalize=False``), ``clip_image_transform`` (the same crop, CLIP mean
+/ std) and ``to_pil_images`` (NHWC in [-1, 1] -> PIL images, truncated to
+uint8), so that the port reads and writes images as the JAX package does,
+and :func:`bicubic_resize_mask`, the mask's downsampling of the inpainting
 mode.
 """
 
@@ -47,6 +48,15 @@ def clip_image_transform(img, image_size: int = 336) -> np.ndarray:
                    np.float32) / 255.0
     return ((x - np.asarray(CLIP_MEAN, np.float32))
             / np.asarray(CLIP_STD, np.float32))
+
+
+def to_pil_images(batch_nhwc):
+    """[-1, 1] NHWC floats -> list of PIL images (scaled to [0, 255] and
+    truncated to uint8, as the JAX package writes its PNGs)."""
+    from PIL import Image
+
+    x = np.clip((np.asarray(batch_nhwc) + 1.0) / 2.0, 0.0, 1.0) * 255.0
+    return [Image.fromarray(im) for im in x.astype(np.uint8)]
 
 
 def keys_cubic_weights(in_size: int, out_size: int) -> torch.Tensor:

@@ -726,14 +726,28 @@ NEW_PORT_MODULES = (
     "showo_tpu_torch/data/vist_dataset.py",
     "showo_tpu_torch/show_o2/semantic_layers.py",
     "showo_tpu_torch/show_o2/train_mixed_modality.py",
-    "showo_tpu_torch/training/ema.py", "showo_tpu_torch/utils/host_build.py")
+    "showo_tpu_torch/training/ema.py", "showo_tpu_torch/utils/host_build.py",
+    "showo_tpu_torch/evaluation/__init__.py",
+    "showo_tpu_torch/evaluation/dpg_bench.py",
+    "showo_tpu_torch/evaluation/fid.py",
+    "showo_tpu_torch/evaluation/geneval.py",
+    "showo_tpu_torch/evaluation/lmms_benchmarks.py",
+    "showo_tpu_torch/evaluation/mmu_eval.py",
+    "showo_tpu_torch/evaluation/run_quality.py",
+    "showo_tpu_torch/evaluation/vq_psnr.py",
+    "showo_tpu_torch/utils/safety.py")
 
 
 def test_import_scan_covers_the_trainers_modules():
     """The scan of ``test_port_source_imports_no_jax`` reaches the modules
-    of the trainers' data and options."""
+    of the trainers' data and options and every module of the evaluation
+    chain (``evaluation/``, ``utils/safety.py``)."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert set(NEW_PORT_MODULES) <= scanned
+    evaluation = os.path.join(REPO, "showo_tpu_torch", "evaluation")
+    assert {os.path.join("showo_tpu_torch", "evaluation", f)
+            for f in os.listdir(evaluation) if f.endswith(".py")} \
+        <= set(NEW_PORT_MODULES)
     for path in NEW_PORT_MODULES:
         assert not [m for m in _imports(os.path.join(REPO, path))
                     if m.split(".")[0] in FORBIDDEN], path
@@ -858,3 +872,38 @@ def test_logging_pieces_match_jax(tmp_path):
             else:
                 assert got == jlog.resolve_wandb_run_id(config, str(out),
                                                         enabled)
+
+
+def test_profile_reads_device_events_of_the_raw_trace():
+    """profile_t2i reads the device events straight from the profiler's
+    raw results: times from the trace's start in us, the host's events,
+    hidden events and the profiler's own rows left out; busy time is the
+    union of the intervals and the launches are counted by kernel."""
+    from types import SimpleNamespace
+
+    from showo_tpu_torch import profile_t2i
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    t0 = 1_792_320_448_235_886_427        # epoch ns, as kineto gives them
+
+    def event(kind, name, start_us, end_us, hidden=False):
+        return SimpleNamespace(
+            device_type=lambda: kind, name=lambda: name,
+            start_ns=lambda: t0 + start_us * 1000,
+            end_ns=lambda: t0 + end_us * 1000, is_hidden_event=lambda: hidden)
+
+    events = [event(cuda, "gemv_kernel", 10, 14),
+              event(cpu, "aten::mm", 0, 100),
+              event(cuda, "gemv_kernel", 12, 20),
+              event(cuda, "Buffer Flush", 30, 90),
+              event(cuda, "hidden", 40, 95, hidden=True),
+              event(cuda, "fused::omni", 50, 51)]
+    results = SimpleNamespace(trace_start_ns=lambda: t0,
+                              events=lambda: events)
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=results))
+    got = profile_t2i._device_events(prof)
+    assert got == [(10.0, 14.0, "gemv_kernel"), (12.0, 20.0, "gemv_kernel"),
+                   (50.0, 51.0, "fused::omni")]
+    assert profile_t2i._busy_ms(got) == (0.011, 0.041, 3)
+    assert profile_t2i._by_kernel(got) == {"gemv_kernel": [2, 0.012],
+                                           "fused::omni": [1, 0.001]}
