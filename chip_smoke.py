@@ -572,6 +572,9 @@ V2_TRAIN_HEADS = (12, 2, 128)
 # the head-dim-128 launch counters of the trainable kernels (each launch at
 # head dim 128 is also counted under the name without _d128)
 D128 = "_d128"
+# kernel 4's head-dim-128 launches (each also counted as kernel 4's): read
+# over the model phases, where no path runs it
+OMNI_D128 = KERNELS["omni"][0] + D128
 V2_TRAIN_COUNTERS = [n + D128 for n in list(TRAIN_KERNELS)[:3]
                      + list(STREAM_TRAIN_KERNELS)[:3]]
 # trainable vs dense, one full-width Show-o2 step under bf16 autocast
@@ -618,7 +621,8 @@ RUNG_STEPS, RUNG_BIG_BATCH = 2, 16
 COUNTERS = ([name for name, _ in KERNELS.values()] + list(TRAIN_KERNELS)
             + list(STREAM_TRAIN_KERNELS) + list(WSMM_KERNELS) + WSMM_CORES
             + [GQA_SOURCE, GQA_WGMMA, GQA_TILES, PACKED_WGMMA, FUSED_NORM,
-               FUSED_BF16, *ROUTE_TILES.values()] + V2_TRAIN_COUNTERS)
+               FUSED_BF16, *ROUTE_TILES.values(), OMNI_D128]
+            + V2_TRAIN_COUNTERS)
 # the understanding slice: greedy answers of MMU_NEW_TOKENS tokens, one
 # prefill and MMU_NEW_TOKENS decode forwards, each with 24 win + 24 wout +
 # the lm_head matmul
@@ -1172,7 +1176,80 @@ def phase_kernels(torch, uni, prompts, cfg, device):
               f"(library on the core's part {_ms(r['library_ms'])}); bound "
               f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}), of the "
               f"two launches {norm['bound_ms'] + r['bound_ms']:.4f} ms")
+    out["omni_d128"] = _omni_d128(torch, F, tfa, device)
     return out
+
+
+def _omni_d128(torch, F, tfa, device):
+    """Kernel 4 at head dim 128 (``<128, MASK_MEAN>`` of the forward
+    core; on no model path: JAX calls it only from Phi, D=64) at the
+    Show-o2 432x432 cached rows: B=8 rows of K=768 keys, each row's 730
+    image-span rows (Q) at its own offset, Qwen2.5's 12 q heads with its 2
+    kv heads repeated to 12 (the kernel, as its Pallas twin, has no GQA),
+    on transposed [B, S, H, D] views: against its plain version, beside
+    kernel 1 on the same memory (bit-identical expected: one core), and
+    the library call."""
+    B, K, Q, H_, D_ = V2_BATCH * 2, 768, 730, 12, 128
+    offsets = torch.arange(B, device=device) * 3 + 12     # the text rows
+    mp = torch.stack([offsets, torch.full_like(offsets, Q)], -1)[:, None]
+    seg = tfa.seg_from_modality_positions(mp, K)
+    pos = torch.arange(K, device=device)[None]
+    pad = (pos > offsets[:, None] + Q).int()              # after [eoi]
+    last_pad = torch.full((B,), -1, dtype=torch.int32, device=device)
+    prefix = torch.zeros((B,), dtype=torch.int32, device=device)
+    meta = [m.int().contiguous() for m in (seg, pad, last_pad, prefix)]
+    pos_q, seg_q = tfa.q_rows(meta[0], offsets[:, None] + torch.arange(
+        Q, device=device), B, Q)
+    vis = tfa.visible_mask(*meta, pos_q)
+    n_vis = int(vis.sum())
+    g = torch.Generator(device=device).manual_seed(128)
+    q = torch.randn(B, Q, H_, D_, generator=g, device=device).bfloat16()
+    kv = [torch.randn(B, K, 2, D_, generator=g, device=device).bfloat16()
+          .repeat_interleave(H_ // 2, dim=2) for _ in range(2)]
+    heads = [q.transpose(1, 2)] + [t.transpose(1, 2) for t in kv]
+    tiles = tfa.omni_tile_map(*meta, pos_q, seg_q)
+    shape = f"B={B} Q={Q} K={K} H={H_} D={D_} (Show-o2 cached rows)"
+
+    def kernel4():
+        return tfa.omni_attention(*heads, *meta, q_positions=pos_q,
+                                  seg_q=seg_q, tiles=tiles)
+
+    before = tfa.cuda_build.launches[OMNI_D128]
+
+    r = _compare(
+        torch, f"omni_attention {shape}", kernel4,
+        lambda: tfa.omni_attention_plain(*heads, *meta, pos_q,
+                                         sm_scale=D_ ** -0.5),
+        _bound(2 * (2 * B * Q * H_ + 2 * B * K * H_) * D_
+               + 4 * (2 * B * K + 2 * B + 2 * B * Q), 4 * D_ * H_ * n_vis),
+        lambda: F.scaled_dot_product_attention(*heads,
+                                               attn_mask=vis[:, None]))
+    # kernel 1 on the same memory: [B, S, H, D] is [B, S, H*D]
+    packed = [q.flatten(2)] + [t.flatten(2) for t in kv]
+    tiles1 = tfa.rows_tile_map(*meta, pos_q, seg_q)
+
+    def kernel1():
+        return tfa.omni_attention_packed(*packed, *meta, num_heads=H_,
+                                         q_positions=pos_q, seg_q=seg_q,
+                                         tiles=tiles1)
+
+    diff = (kernel4().transpose(1, 2).flatten(2).float()
+            - kernel1().float()).abs().max().item()
+    r.update(kernel1_ms=_time_ms(torch, kernel1), kernel1_diff=diff,
+             visible_pairs=n_vis,
+             launches_phase3=tfa.cuda_build.launches[OMNI_D128] - before)
+    print(f"[3] kernel 4 at head dim 128, {shape}: {r['ms']:.4f} ms beside "
+          f"kernel 1 on the same memory {r['kernel1_ms']:.4f} ms (median of "
+          f"20); outputs max |difference| {diff:.3e} (0 expected: one "
+          f"function through one core; tol {CARD_TOL:.0e}); {n_vis} "
+          f"visible (row, key) pairs; {r['launches_phase3']} launches counted "
+          f"at D=128 by this phase's checks and timings")
+    if r["launches_phase3"] < 1:
+        raise AssertionError("kernel 4's D=128 counter did not count")
+    if not diff <= CARD_TOL:
+        raise AssertionError(f"kernel 4 and kernel 1 at D=128 differ by "
+                             f"{diff}")
+    return r
 
 
 def _norm_rope_check(torch, shape, kern, plain, bound):
@@ -1636,7 +1713,7 @@ def phase_slice(torch, np, inference_t2i, cuda_build, config, prompts,
           f"{wall:.4f} s/batch (median of 3: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
           f"{BATCH * 60.0 / wall:.2f} images/min on {smi}")
-    return pipe, {n: c for n, c in counts.items() if c}
+    return pipe, counts
 
 
 def phase_step_parity(torch, pipe, prompts, device):
@@ -6257,6 +6334,351 @@ def phase_vq_psnr(torch, np, smi, phase="35d"):
     return {"psnr_db": value, "s": seconds}
 
 
+# phase 36: the ("dp", "fsdp", "tp") mesh of parallel/mesh.py at world size
+# 1 over NCCL (NCCL takes one rank a card; the ranks above 1 run on the CPU
+# under gloo, tests/test_torch_parallel_*.py).  The sharded step against the
+# same step unsharded (same weights, batch and draws), relative difference
+# of each loss and of the grad norm: the sharded model runs the same
+# kernels on the same values (each weight gathered whole first), so the
+# limit is fp32 round-off
+MESH_LOSS_TOL = 1e-5
+MESH_CKPT_DEPTH = 2          # the checkpoint's Phi depth (full width: 16 GB)
+MESH_V2_ROWS, MESH_V2_SEQ = 2, 1024      # bench.py's train_v2 rows
+MESH_RING = (1, 12, 2, 128, 4096)        # B, H, Hkv, D, S: Qwen2.5's width
+MESH_SERVE_REQUESTS, MESH_SERVE_BUDGET = 8, 12
+MESH_SERVE_Q, MESH_SERVE_BUCKET = 16, 288
+
+
+def _step_parts(torch, trainer, prepare):
+    """Seconds of one step's parts, each ended by a synchronize: the
+    batch (``prepare(trainer)``), the forward and backward, the clip's
+    norm, the optimizer's update."""
+    from showo_tpu_torch.parallel.mesh import mesh_of, use_mesh
+    from showo_tpu_torch.training.train_step import global_norm
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    st = trainer.step_fn
+    with use_mesh(mesh_of(trainer.model)):
+        b, t_prep = timed(lambda: prepare(trainer))
+        (_, _, grads), t_lg = timed(lambda: st.loss_and_grads(b))
+    _, t_norm = timed(lambda: global_norm(grads))
+    _, t_upd = timed(lambda: trainer.optimizer.update(grads))
+    return {"prepare": t_prep, "forward_backward": t_lg, "norm": t_norm,
+            "update": t_upd}
+
+
+def _mesh_pair(torch, cuda_build, build, step, want, label, phase,
+               prepare=None):
+    """One trainer unsharded then one on the mesh, from the same seeded
+    weights: each takes a first step on the same batch and draws (its
+    metrics and kernel launches), then a timed second step (s a step,
+    peak GiB) and a third in parts (:func:`_step_parts` with
+    ``prepare``); the first steps' losses and grad norms held to
+    MESH_LOSS_TOL, both steps' launches to ``want``."""
+    from torch.distributed.tensor import DTensor
+
+    res = {}
+    for sharded in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trainer = build(sharded)
+        built = time.perf_counter() - t0
+        params = list(trainer.model.parameters())
+        if sharded != all(isinstance(p, DTensor) for p in params):
+            raise AssertionError(f"[{phase}] sharded={sharded}: parameters "
+                                 f"are {type(params[0]).__name__}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        first = {k: float(v) for k, v in step(trainer).items()}
+        counts = {n: cuda_build.launches[n] for n in want}
+        t0 = time.perf_counter()
+        float(step(trainer)["loss"])                 # waits for the step
+        wall = time.perf_counter() - t0
+        res[sharded] = {"first": first, "counts": counts, "step_s": wall,
+                        "built_s": built, "peak_gib":
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "parts_s": _step_parts(torch, trainer, prepare)}
+        trainer = params = None
+    keys = [k for k in res[False]["first"]
+            if k.startswith("loss") or k == "grad_norm"]
+    rel = {k: abs(res[True]["first"][k] - res[False]["first"][k])
+           / max(abs(res[False]["first"][k]), 1e-30) for k in keys}
+    u, s = res[False], res[True]
+    print(f"[{phase}] {label}, mesh (1, 1, 1) vs unsharded, the same first "
+          f"step: " + ", ".join(f"{k} {s['first'][k]:.6f} vs "
+                                f"{u['first'][k]:.6f} (rel {rel[k]:.2e})"
+                                for k in keys)
+          + f" (tol {MESH_LOSS_TOL:.0e}); launches a step "
+          f"{_per_step(s['counts'], 1)} both; step {s['step_s']:.4f} s vs "
+          f"{u['step_s']:.4f} s ({_ratio(s['step_s'], u['step_s'])}), peak "
+          f"{s['peak_gib']:.2f} vs {u['peak_gib']:.2f} GiB allocated; built "
+          f"in {s['built_s']:.1f} / {u['built_s']:.1f} s; a step's parts "
+          + ", ".join(f"{k} {s['parts_s'][k]:.4f} vs {u['parts_s'][k]:.4f}"
+                      for k in s["parts_s"])
+          + f" s; on {_nvidia_smi()}")
+    if max(rel.values()) > MESH_LOSS_TOL:
+        raise AssertionError(f"[{phase}] sharded vs unsharded: {rel}")
+    for sharded, r in res.items():
+        if r["counts"] != want:
+            raise AssertionError(f"[{phase}] sharded={sharded}: launches "
+                                 f"{r['counts']}, want {want}")
+    return {"sharded": s, "unsharded": u, "rel": rel}
+
+
+def _mesh_checkpoint(torch, mesh, phase="36a"):
+    """The rank-0 checkpoint of a sharded v1 trainer (full width, Phi depth
+    MESH_CKPT_DEPTH, the EMA on) and a resume: a step, ``save``, another
+    step (the weights move), ``resume``: the weights, the optimizer state
+    and the EMA equal to what was saved."""
+    import tempfile
+
+    from showo_tpu_torch.parallel import mesh as tmesh
+    from showo_tpu_torch.profile_train import stage1_config, train_batch
+    from showo_tpu_torch.training.train_showo import build_trainer
+
+    trainer = build_trainer(stage1_config(
+        f"model.showo.phi={{num_layers: {MESH_CKPT_DEPTH}}}",
+        "training.ema={enabled: true, decay: 0.999}"),
+        torch.device("cuda"), attn_impl="trainable", mesh=mesh)
+    batch, noise = train_batch(trainer)
+    trainer.train_step(*batch, noise=noise)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = trainer.save(tmp, {})
+        save_s = time.perf_counter() - t0
+        files = sorted(os.listdir(path))
+        # copies: the live optimizer state (its step counts) moves on
+        saved = tmesh.full_state_dict(trainer.model)
+        opt = copy.deepcopy(tmesh.to_full(trainer.optimizer.state_dict()))
+        ema = tmesh.to_full(trainer.ema.state_dict())
+        embed = trainer.model.showo.model.embed_tokens
+        before = tmesh.local(embed.parametrizations.weight.original).clone()
+        trainer.train_step(*batch, noise=noise)
+        if torch.equal(tmesh.local(embed.parametrizations.weight.original),
+                       before):
+            raise AssertionError(f"[{phase}] the second step moved nothing")
+        step = trainer.resume(tmp, {})
+        back = tmesh.full_state_dict(trainer.model)
+        opt2 = tmesh.to_full(trainer.optimizer.state_dict())
+        ema2 = tmesh.to_full(trainer.ema.state_dict())
+    same = {"weights": all(torch.equal(back[k], v)
+                           for k, v in saved.items()),
+            "optimizer": all(torch.equal(opt2["adamw"]["state"][i][k], t)
+                             for i, st in opt["adamw"]["state"].items()
+                             for k, t in st.items()),
+            "ema": all(torch.equal(ema2["params"][k], v)
+                       for k, v in ema["params"].items())}
+    print(f"[{phase}] rank-0 checkpoint of the sharded trainer (Phi depth "
+          f"{MESH_CKPT_DEPTH}, full width, EMA on): {files} in {save_s:.2f} "
+          f"s; resume at step {step}: restored equal to saved {same}")
+    if step != 1 or not all(same.values()) or "state.pt" not in files:
+        raise AssertionError(f"[{phase}] checkpoint / resume: {same}, "
+                             f"{files}, step {step}")
+    return {"files": files, "save_s": save_s, "equal": same}
+
+
+def _mesh_ring(torch, phase="36c"):
+    """Ring attention over an "sp" group of 1 at Qwen2.5's width against
+    kernel 5 (streaming, GQA and head dim 128) on the same inputs."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from showo_tpu_torch.ops import streaming_attention as tsa
+    from showo_tpu_torch.ops.ring_attention import \
+        ring_omni_attention_sharded
+
+    B, H_, Hkv, D_, S = MESH_RING
+    dev = torch.device("cuda")
+    sp = DeviceMesh("cuda", [0], mesh_dim_names=("sp",))
+    g = torch.Generator(device=dev).manual_seed(36)
+    q = torch.randn(B, H_, S, D_, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Hkv, S, D_, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    seg = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    seg[:, 300:1030] = 1                     # two image spans
+    seg[:, 2000:2730] = 2
+    pad = torch.zeros_like(seg)
+    pad[:, :16] = 1                          # left padding
+    last_pad = torch.full((B,), 15, dtype=torch.int32, device=dev)
+    prefix = torch.full((B,), 64, dtype=torch.int32, device=dev)
+    args = (q, k, v, seg, pad, last_pad, prefix)
+
+    def ring():
+        return ring_omni_attention_sharded(sp, *args)
+
+    def kernel5():
+        return tsa.omni_attention_streaming(*args)
+
+    got, want = ring(), kernel5()
+    err = (got.float() - want.float()).abs().max().item()
+    ms, k5_ms = _time_ms(torch, ring, iters=5), _time_ms(torch, kernel5)
+    print(f"[{phase}] ring attention, an \"sp\" group of 1, B={B} H={H_} "
+          f"Hkv={Hkv} D={D_} S={S} (two spans, 16 pads, prefix 64) vs kernel "
+          f"5 on the same inputs: max abs {err:.3e} (tol {CARD_TOL:.0e}); "
+          f"ring (plain torch chunk, fp32) {ms:.3f} ms, kernel 5 "
+          f"{k5_ms:.4f} ms (medians)")
+    if not (torch.isfinite(got).all() and err <= CARD_TOL):
+        raise AssertionError(f"[{phase}] ring vs kernel 5: {err}")
+    return {"max_abs_err": err, "ms": ms, "kernel5_ms": k5_ms}
+
+
+def _mesh_serve(torch, np, mesh, phase="36d"):
+    """ShowoMMUServer on Show-o 1.3B sharded over the mesh (random weights
+    from the seed): MESH_SERVE_REQUESTS greedy requests against the
+    per-request decode (``showo_mmu_generate``) on the same sharded model.
+    In fp32 the tokens must be exact (JAX's criterion, sharded held to
+    sharded); in bf16 the engine's shapes differ from the reference's (M =
+    slots, the bucket's rows) and near-ties flip, so each stream is
+    teacher-forced through the reference as phase 22 does (every engine
+    token's logit within GREEDY_LOGIT_TOL of its row's largest) and the
+    exact streams are counted."""
+    from showo_tpu_torch import inference_t2i
+    from showo_tpu_torch.config import load_config
+    from showo_tpu_torch.models.showo import init_showo, showo_mmu_generate
+    from showo_tpu_torch.ops.masks import omni_mask_mmu
+    from showo_tpu_torch.parallel import mesh as tmesh
+    from showo_tpu_torch.serving import ShowoMMUServer
+
+    cfg = inference_t2i.build_showo_config(load_config(
+        "configs/showo_demo.yaml"))
+    rng = np.random.default_rng(36)
+    reqs = [np.concatenate([[SERVE_MMU, SERVE_SOI],
+                            rng.integers(50305, 58497, size=256),
+                            [SERVE_EOI],
+                            rng.integers(2, 50000, size=MESH_SERVE_Q)])
+            for _ in range(MESH_SERVE_REQUESTS)]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_showo(cfg, torch.Generator(device="cuda").manual_seed(
+            36), device="cuda", dtype=dtype)
+        tmesh.shard_params(model, mesh)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            server = ShowoMMUServer(
+                model, slots=4, cap=MESH_SERVE_BUCKET + MESH_SERVE_BUDGET
+                + 32, chunk=4, buckets=(MESH_SERVE_BUCKET,),
+                temperature=1.0, top_k=1)
+            handles = [server.submit(p, MESH_SERVE_BUDGET) for p in reqs]
+            server.run(torch.Generator(device="cuda").manual_seed(3))
+            engine_s = time.perf_counter() - t0
+            ref, gap = [], 0.0
+            ref_fn = _v1_reference(torch, model.showo, SERVE_EOI)
+            for h in handles:
+                ids = torch.as_tensor(h.prompt, device="cuda").long()[None]
+                toks, _ = showo_mmu_generate(
+                    model, ids,
+                    prompt_bias=omni_mask_mmu(ids, eoi_id=SERVE_EOI),
+                    max_new_tokens=MESH_SERVE_BUDGET, top_k=1)
+                ref.append(toks[0].tolist())
+                if dtype == torch.float32 and ref[-1] == h.tokens:
+                    continue            # exact: every gap is 0
+                logits = ref_fn(h)[0]
+                picked = logits.gather(1, torch.as_tensor(
+                    h.tokens, device="cuda")[:, None])[:, 0]
+                gap = max(gap, (logits.max(1).values - picked).max().item())
+        got = [h.tokens for h in handles]
+        same = sum(a == b for a, b in zip(got, ref))
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        out[name] = {"equal": same, "max_gap": gap, "engine_s": engine_s}
+        print(f"[{phase}] ShowoMMUServer on Show-o 1.3B {name} sharded over "
+              f"the mesh: {len(reqs)} greedy requests of {len(reqs[0])} "
+              f"prompt rows, {MESH_SERVE_BUDGET} tokens each, 4 slots, in "
+              f"{engine_s:.2f} s; {same} of {len(reqs)} streams equal to "
+              f"the per-request decode on the same sharded model; "
+              f"teacher-forced, the largest gap of an engine token's logit "
+              f"below its row's largest {gap:.4f} (tol {GREEDY_LOGIT_TOL})")
+        if (dtype == torch.float32 and same != len(reqs)) \
+                or gap > GREEDY_LOGIT_TOL:
+            raise AssertionError(f"[{phase}] {name}: {same} streams exact, "
+                                 f"gap {gap}")
+        model = server = handles = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(torch, np, cuda_build, smi, phase="36"):
+    """Phase 36: the NCCL group of one rank, the (1, 1, 1) mesh, and on it
+    36a the v1 stage-1 step at full width (29 x 387, kernel 7), then a
+    rank-0 checkpoint and a resume; 36b Show-o2 1.5B stage 1 (2 rows x
+    1024, kernel 7 at head dims 64 and 128); 36c ring attention; 36d the
+    serving engine.  The group is destroyed at the end, pass or fail."""
+    import torch.distributed as dist
+
+    from showo_tpu_torch.parallel import mesh as tmesh
+    from showo_tpu_torch.profile_train import (stage1_config, train_batch,
+                                               v2_batch, v2_config)
+    from showo_tpu_torch.show_o2.train_stage_one import \
+        build_trainer as build_v2
+    from showo_tpu_torch.training.train_showo import build_trainer
+
+    t0 = time.perf_counter()
+    dev = tmesh.init_distributed()
+    mesh = tmesh.make_mesh()
+    print(f"[{phase}] process group {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, on {dev}; mesh "
+          f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))}")
+    out, marks = {}, [time.perf_counter()]
+    try:
+        def v1(sharded):
+            tr = build_trainer(stage1_config(), dev, attn_impl="trainable",
+                               mesh=mesh if sharded else None)
+            tr.mesh_batch = train_batch(tr)
+            return tr
+
+        out["v1"] = _mesh_pair(
+            torch, cuda_build, v1,
+            lambda tr: tr.train_step(*tr.mesh_batch[0],
+                                     noise=tr.mesh_batch[1]),
+            {n: k for n, (_, k) in TRAIN_KERNELS.items()},
+            "v1 stage 1, Show-o 1.3B, 29 x 387, trainable", "36a",
+            prepare=lambda tr: tr.step_fn.prepare(
+                *tr.host_batch(*tr.mesh_batch[0]), noise=tr.mesh_batch[1]))
+        out["checkpoint"] = _mesh_checkpoint(torch, mesh)
+        marks.append(time.perf_counter())
+
+        def v2(sharded):
+            tr = build_v2(v2_config(), dev, attn_impl="trainable",
+                          mesh=mesh if sharded else None)
+            tr.mesh_batch = v2_batch(tr.model.cfg.num_image_tokens,
+                                     MESH_V2_ROWS, MESH_V2_SEQ)
+            return tr
+
+        out["v2"] = _mesh_pair(
+            torch, cuda_build, v2,
+            lambda tr: tr.train_step(
+                tr.mesh_batch, torch.Generator(device="cuda").manual_seed(36)),
+            {k: c for k, c in _v2_train_want(1, MESH_V2_SEQ).items() if c},
+            f"Show-o2 1.5B stage 1, {MESH_V2_ROWS} x {MESH_V2_SEQ}, "
+            f"trainable, AdamW", "36b",
+            prepare=lambda tr: tr.step_fn.prepare(
+                tr.device_batch(tr.mesh_batch),
+                torch.Generator(device="cuda").manual_seed(36)))
+        marks.append(time.perf_counter())
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ring"] = _mesh_ring(torch)
+        marks.append(time.perf_counter())
+        out["serve"] = _mesh_serve(torch, np, mesh)
+        marks.append(time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+    out["s"] = time.perf_counter() - t0
+    out["parts_s"] = dict(zip(("36a", "36b", "36c", "36d"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    print(f"[{phase}] the mesh phase in {out['s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["parts_s"].items())
+          + f") on {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6685,6 +7107,12 @@ def main() -> int:
     parts.append(("evaluation CLIs [35c]", time.perf_counter()))
     evaluation["vq"] = phase_vq_psnr(torch, np, smi)
     parts.append(("VQ PSNR [35d]", time.perf_counter()))
+
+    # [36] the ("dp", "fsdp", "tp") mesh at world size 1 over NCCL
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh36 = phase_mesh(torch, np, cuda_build, smi)
+    parts.append(("mesh [36]", time.perf_counter()))
     eval_s = {part: end - begin for (part, end), (_, begin)
               in zip(parts[1:], parts) if "35" in part}
     print(f"[35] the evaluation chain in {sum(eval_s.values()):.1f} s: "
@@ -6739,7 +7167,11 @@ def main() -> int:
                             "replaces": replaces, "launches": counts[name],
                             **res[name],
                             **{k: v.get(name, 0) for k, v in
-                               extra_train[source].items()}})
+                               extra_train[source].items()},
+                            # phase 36: the steps on the mesh
+                            **({"mesh": mesh36}
+                               if name == "packed_attention_grad_fwd"
+                               else {})})
     for name, replaces in WSMM_KERNELS.items():
         cases = wsmm[name]
         case = "win M=1"
@@ -6821,6 +7253,16 @@ def main() -> int:
                         "replaces": f"{KERNELS[route][1]} ({what})",
                         "launches": route_launches[route][name],
                         **results[f"{route}_tiles"], "case": "512"})
+    # kernel 4 at head dim 128 (phase 3), on no model path: its launches
+    # read over phase 4's generate on the omni route (0; every model phase
+    # checks 0), phase 3's comparisons apart
+    kernels.append({"name": OMNI_D128, "route": "cuda",
+                    "source": "showo_tpu_torch/csrc/omni_attention.cu (+ "
+                              "attention_fwd_sm90.cuh)",
+                    "replaces": KERNELS["omni"][1] + " (head dim 128)",
+                    "launches": route_launches["omni"][OMNI_D128],
+                    **results["omni_d128"],
+                    "case": "Show-o2 cached rows, 12 heads, D=128"})
     kernels.append({"name": FUSED_BF16, "route": "cuda",
                     "source": "showo_tpu_torch/csrc/fused_decode.cu (+ "
                               "attention_fwd_sm90.cuh, BF16S)",

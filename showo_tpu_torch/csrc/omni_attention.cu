@@ -8,7 +8,8 @@
 // kernel 1's (omni_attention_packed.cu): a masked score is -1e30, so a row
 // with no visible key averages v over the S keys.  So this is kernel 5's
 // launch with kernel 1's mask: the wgmma forward core of
-// attention_fwd_sm90.cuh at <64, MASK_MEAN> on (batch, head, row) strides,
+// attention_fwd_sm90.cuh at <64 | 128, MASK_MEAN> (the head dim; the
+// Pallas kernel takes any) on (batch, head, row) strides,
 // q rows by (pos_q, seg_q), no lse, on kernel 1's kind of tile map (flag
 // read: the blocks of q tiles that hold a row with no visible key visit
 // every K tile), made once per forward (models/phi.py attn_step) under
@@ -48,7 +49,8 @@ extern "C" int omni_attention_tiles(
 }
 
 // Strides are in elements (batch, head, row); the last dim of q/k/v/out is
-// contiguous; head dim 64; ``tiles``: the map above of the same metadata.
+// contiguous; head dim 64 or 128; ``tiles``: the map above of the same
+// metadata.
 extern "C" int omni_attention_bf16(
     const void* q, const void* k, const void* v, void* out,
     const int* seg, const int* pad, const int* last_pad, const int* prefix,
@@ -59,10 +61,18 @@ extern "C" int omni_attention_bf16(
     long long v_sb, long long v_sh, long long v_sr,
     long long o_sb, long long o_sh, long long o_sr,
     float sm_scale, void* stream) {
-  if (head_dim != 64 || tiles == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return agrad90::launch_fwd<64, agrad90::MASK_MEAN>(
-      q, k, v, out, nullptr, {seg, pad, last_pad, prefix}, {pos_q, seg_q},
-      {}, tiles, true, B, Q, S, H, H, {q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
-      {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}, sm_scale, 0.f, stream);
+  if (tiles == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64)
+    return agrad90::launch_fwd<64, agrad90::MASK_MEAN>(
+        q, k, v, out, nullptr, {seg, pad, last_pad, prefix}, {pos_q, seg_q},
+        {}, tiles, true, B, Q, S, H, H, {q_sb, q_sh, q_sr},
+        {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr},
+        sm_scale, 0.f, stream);
+  if (head_dim == 128)
+    return agrad90::launch_fwd<128, agrad90::MASK_MEAN>(
+        q, k, v, out, nullptr, {seg, pad, last_pad, prefix}, {pos_q, seg_q},
+        {}, tiles, true, B, Q, S, H, H, {q_sb, q_sh, q_sr},
+        {k_sb, k_sh, k_sr}, {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr},
+        sm_scale, 0.f, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

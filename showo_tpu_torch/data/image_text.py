@@ -17,7 +17,7 @@ import json
 import logging
 import os
 import random
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
                                          shard_for_process)
@@ -36,7 +36,8 @@ class ImageTextDataset:
                  max_text_len: int = 256, cond_dropout_prob: float = 0.1,
                  random_und_or_gen: float = 0.0, min_res: int = 0,
                  seed: int = 0, default_data_type: str = "t2i",
-                 with_clip: bool = False, shard: bool = True):
+                 with_clip: bool = False, shard: bool = True,
+                 process: Optional[Tuple[int, int]] = None):
         self.records: List[dict] = []
         with open(jsonl_path) as f:
             for line in f:
@@ -44,8 +45,10 @@ class ImageTextDataset:
                 if line:
                     self.records.append(json.loads(line))
         if shard:
-            # each process reads its own records (DistributedSampler)
-            self.records = shard_for_process(self.records)
+            # each process reads its own records (DistributedSampler):
+            # ``process`` (index, count), ``process_rank`` by default
+            self.records = shard_for_process(self.records,
+                                             *(process or (None, None)))
         self.image_root = image_root
         self.tokenizer = tokenizer
         self.ids = showo_token_ids

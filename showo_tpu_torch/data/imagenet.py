@@ -3,7 +3,8 @@
 Counterpart of ``showo_tpu/data/imagenet.py``: one folder a class, the
 caption the class name from a mapping file ("<synset> <name>" lines) or
 the folder's name; an image that fails to load passes to the next index
-(:54-67, ten tries).  The order is shuffled by ``random.Random(seed)``.
+(:54-67, ten tries).  The order is shuffled by ``random.Random(seed)``; each process reads
+every n-th sample of it (``data/loader.py::shard_for_process``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from __future__ import annotations
 import logging
 import os
 import random
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+from showo_tpu_torch.data.loader import process_rank, shard_for_process
 
 from showo_tpu_torch.utils.image import image_transform
 
@@ -32,7 +35,10 @@ def load_label_mapping(path: Optional[str]) -> Dict[str, str]:
 class ImageNetDataset:
     def __init__(self, root: str, resolution: int = 256,
                  label_mapping_path: Optional[str] = None, seed: int = 0,
-                 shuffle: bool = True):
+                 shuffle: bool = True,
+                 process: Optional[Tuple[int, int]] = None):
+        """process: (index, count) of this process's rows of the order
+        (``data/loader.py::process_rank`` by default)."""
         self.root = root
         self.resolution = resolution
         self.mapping = load_label_mapping(label_mapping_path)
@@ -46,6 +52,7 @@ class ImageNetDataset:
                 self.samples.append((os.path.join(cdir, fn), name))
         self.rng = random.Random(seed)
         self.shuffle = shuffle
+        self.process = tuple(process or process_rank())
 
     def __len__(self):
         return len(self.samples)
@@ -67,5 +74,5 @@ class ImageNetDataset:
         order = list(range(len(self.samples)))
         if self.shuffle:
             self.rng.shuffle(order)
-        for i in order:
+        for i in shard_for_process(order, *self.process):
             yield self[i]

@@ -21,10 +21,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from showo_tpu_torch.data.loader import process_rank, shard_for_process
 from showo_tpu_torch.utils.image import image_transform
 
 IGNORE_INDEX = -100
@@ -112,16 +113,19 @@ def preprocess_plain(source: List[Dict[str, str]], tokenizer,
 class LLaVADataset:
     """Conversation JSON + image folder -> instruction samples ``{image,
     input_ids, labels, input_ids_system}``; records without an image are
-    dropped."""
+    dropped.  ``process``: (index, count) of this process's records, every
+    count-th (``data/loader.py::process_rank`` by default)."""
 
     def __init__(self, json_path: str, image_root: str, tokenizer,
-                 resolution: int = 256, max_length: int = 2048):
+                 resolution: int = 256, max_length: int = 2048,
+                 process: Optional[Tuple[int, int]] = None):
         with open(json_path) as f:
             self.records = [r for r in json.load(f) if "image" in r]
         self.image_root = image_root
         self.tokenizer = tokenizer
         self.resolution = resolution
         self.max_length = max_length
+        self.process = tuple(process or process_rank())
 
     def __len__(self):
         return len(self.records)
@@ -140,7 +144,7 @@ class LLaVADataset:
                 "labels": labels, "input_ids_system": sys_ids}
 
     def __iter__(self):
-        for i in range(len(self)):
+        for i in shard_for_process(list(range(len(self))), *self.process):
             yield self[i]
 
 

@@ -8,8 +8,9 @@ Counterpart of ``showo_tpu/data/loader.py`` (its ``DataLoader``,
 JAX package's
 ``device_prefetch`` (JAX sharding) has no counterpart: the trainers copy
 each batch to the card themselves.  The process index and count of
-:func:`shard_for_process` come from ``torch.distributed`` when a process
-group is up, else (0, 1).
+:func:`shard_for_process` are the caller's, or by default
+``torch.distributed``'s when a process group is up, else (0, 1); a
+trainer passes its model's :func:`data_shard` to its datasets.
 """
 
 from __future__ import annotations
@@ -157,12 +158,43 @@ def restore_loader_state(loader, output_dir: str, step: int,
 
 def process_rank() -> tuple:
     """(rank, world size) of this process: ``torch.distributed``'s when a
-    process group is up, else (0, 1)."""
+    process group is up, else (0, 1).  A trainer on a mesh gives its
+    loaders :func:`data_shard` of its model instead."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def data_shard(model) -> tuple:
+    """(rank, world size) of the rows that ``model``'s steps take: on a
+    model sharded over a ("dp", "fsdp", "tp") mesh (``parallel/mesh.py::
+    shard_params`` keeps it as ``model.mesh_info``) its data rank and
+    world, so the tp ranks of a (dp, fsdp) coordinate read the same rows;
+    else :func:`process_rank`."""
+    info = getattr(model, "mesh_info", None)
+    if info is None:
+        return process_rank()
+    return info.data_rank, info.data_world
+
+
+def loader_name(model, name: str) -> str:
+    """The name a loader's state is saved under: ``name``, or on a
+    sharded model with several data ranks ``<name>_rank<data rank>`` (each
+    data rank reads its own rows)."""
+    info = getattr(model, "mesh_info", None)
+    if info is None or info.data_world == 1:
+        return name
+    return f"{name}_rank{info.data_rank}"
+
+
+def loader_writer(model) -> bool:
+    """Whether this process writes its loaders' states: on a sharded model
+    tp rank 0 of its data rank (the other tp ranks hold the same rows),
+    else every process."""
+    info = getattr(model, "mesh_info", None)
+    return info is None or info.coord["tp"] == 0
 
 
 class ShuffleBuffer:

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from showo_tpu_torch.data.loader import process_rank, shard_for_process
 from showo_tpu_torch.utils.image import image_transform
 
 IGNORE_INDEX = -100
@@ -90,12 +91,15 @@ def format_multi_sequence_und_qwen2_5(
 
 class MMUDataset:
     """Conversation JSON records -> understanding samples; ``stage`` names
-    starting with ``pre-training`` take the turns without the template."""
+    starting with ``pre-training`` take the turns without the template.
+    ``process``: (index, count) of this process's records, every count-th
+    (``data/loader.py::process_rank`` by default)."""
 
     def __init__(self, json_path: str, image_root: str, tokenizer,
                  showo_token_ids: Dict[str, int], resolution: int = 432,
                  num_image_tokens: int = 730, max_seq_len: int = 1024,
-                 stage: str = "tuning"):
+                 stage: str = "tuning",
+                 process: Optional[Tuple[int, int]] = None):
         with open(json_path) as f:
             self.records = json.load(f)
         self.image_root = image_root
@@ -105,6 +109,7 @@ class MMUDataset:
         self.num_image_tokens = num_image_tokens
         self.max_seq_len = max_seq_len
         self.pretraining = stage.startswith("pre-training")
+        self.process = tuple(process or process_rank())
         self._sys = self._tok(DEFAULT_SYSTEM_PROMPT)[:100]
         self._role_a = self._tok(ROLE_USER)
         self._role_b = self._tok(ROLE_ASSISTANT)
@@ -155,5 +160,5 @@ class MMUDataset:
         return out
 
     def __iter__(self):
-        for i in range(len(self)):
+        for i in shard_for_process(list(range(len(self))), *self.process):
             yield self[i]

@@ -18,7 +18,7 @@ import os
 import random
 import re
 import tarfile
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -197,18 +197,21 @@ class Text2ImageTarDataset:
     caption_fn(sample, url, key) -> str or None takes the external caption
     joins (:class:`ExternalCaptionJoin`); by default the caption is the
     sample's .txt, or the caption / text of its .json.  Each process reads
-    its own shards (``data/loader.py::shard_for_process``)."""
+    its own shards (``data/loader.py::shard_for_process``; ``process``:
+    (index, count) of this process, ``process_rank`` by default)."""
 
     def __init__(self, shard_pattern: str, resolution: int = 256,
                  shuffle_buffer: int = 1000, seed: int = 0,
                  caption_fn: Optional[Callable] = None,
                  clean_caption: bool = True, resample: bool = True,
-                 shard_for_host: bool = True, use_native: bool = True):
+                 shard_for_host: bool = True, use_native: bool = True,
+                 process: Optional[Tuple[int, int]] = None):
         self.shards = brace_expand(shard_pattern)
         if shard_for_host:
             from showo_tpu_torch.data.loader import shard_for_process
 
-            self.shards = shard_for_process(self.shards) or self.shards
+            self.shards = shard_for_process(
+                self.shards, *(process or (None, None))) or self.shards
         self.resolution = resolution
         self.shuffle_buffer = shuffle_buffer
         self.seed = seed

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from showo_tpu_torch.data.loader import process_rank, shard_for_process
 from showo_tpu_torch.show_o2.formats import format_interleaved_sequence
 from showo_tpu_torch.utils.image import image_transform
 
@@ -23,7 +24,10 @@ class VISTDataset:
     def __init__(self, json_path: str, image_root: str, tokenizer,
                  showo_token_ids: Dict[str, int], resolution: int = 432,
                  num_image_tokens: int = 730, max_seq_len: int = 5120,
-                 max_num_images: int = 5):
+                 max_num_images: int = 5,
+                 process: Optional[Tuple[int, int]] = None):
+        """process: (index, count) of this process's records, every
+        count-th (``data/loader.py::process_rank`` by default)."""
         with open(json_path) as f:
             self.records = json.load(f)
         self.image_root = image_root
@@ -33,6 +37,7 @@ class VISTDataset:
         self.num_image_tokens = num_image_tokens
         self.max_seq_len = max_seq_len
         self.max_num_images = max_num_images
+        self.process = tuple(process or process_rank())
 
     def _tok(self, text: str) -> List[int]:
         try:
@@ -69,5 +74,5 @@ class VISTDataset:
                 "data_type": "interleaved"}
 
     def __iter__(self):
-        for i in range(len(self)):
+        for i in shard_for_process(list(range(len(self))), *self.process):
             yield self[i]

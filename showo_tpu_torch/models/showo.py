@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from showo_tpu_torch.models.phi import KVCache, Phi, PhiConfig, check_route
+from showo_tpu_torch.parallel.mesh import global_mean
 from showo_tpu_torch.sampling.ar import ar_generate
 from showo_tpu_torch.sampling.maskgit import maskgit_generate
 from showo_tpu_torch.sampling.schedules import cosine_schedule
@@ -94,13 +95,15 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_id: int = -100) -> torch.Tensor:
     """Mean cross entropy over the positions whose label is not
     ``ignore_id``, in fp32, in the logsumexp form
-    ``nll = logsumexp(x) - x[label]`` (no [B, S, V] log-softmax tensor)."""
+    ``nll = logsumexp(x) - x[label]`` (no [B, S, V] log-softmax tensor);
+    over the global batch under a mesh (``parallel/mesh.py::
+    global_mean``: this rank's share)."""
     valid = labels != ignore_id
     safe = torch.where(valid, labels, 0).long()
     x = logits.float()
     picked = torch.gather(x, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, torch.logsumexp(x, dim=-1) - picked, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return global_mean(nll.sum(), valid.sum())
 
 
 def showo_losses(model: Showo, input_ids, labels, attention_bias,

@@ -125,6 +125,17 @@ def _entry(name: str, symbol: str, argtypes):
     return fn
 
 
+def check_plain(kernel: str, *tensors) -> None:
+    """Raise TypeError when a DTensor reaches a kernel's wrapper: the
+    kernels and their plain versions take plain tensors (a model sharded
+    by ``parallel/mesh.py`` gathers each weight whole before it is used,
+    and its activations are plain)."""
+    for t in tensors:
+        if type(t).__name__ == "DTensor":
+            raise TypeError(f"{kernel}: a DTensor reached the kernel's "
+                            f"wrapper; it takes plain tensors")
+
+
 def launch(name: str, symbol: str, argtypes, device, *args,
            kernel=None) -> None:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` (built at first

@@ -137,6 +137,7 @@ def decode_attention(q, k, v, bias, tiles=None):
         raise ValueError(f"bias must be [B, 1, Q, K] = {(B, 1, Q, K)}, got "
                          f"{tuple(bias.shape)}")
     dev = q.device
+    cuda_build.check_plain("decode_attention", q, k, v)
     if dev.type == "cpu":
         return decode_attention_plain(q, k, v, bias)
     if dev.type != "cuda":

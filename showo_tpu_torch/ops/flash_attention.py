@@ -82,6 +82,8 @@ GQA_TILES = f"{GQA_SOURCE}_tiles"
 # kernel 4 (head-major views) and its tile map
 OMNI_SOURCE = "omni_attention"
 OMNI_TILES = f"{OMNI_SOURCE}_tiles"
+# kernel 4's launches at head dim 128 (each also counted under OMNI_SOURCE)
+OMNI_D128 = f"{OMNI_SOURCE}_d128"
 TILE = 64       # rows of a q or k tile of the tile map
 
 
@@ -421,6 +423,7 @@ def _packed_call(kernel: str, plain, q, k, v, seg, pad, last_pad, prefix,
     dev = q.device
     meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
                         S, dev)
+    cuda_build.check_plain(kernel, q, k, v)
     if dev.type == "cpu":
         return plain(q, k, v, *meta[:5], num_heads=num_heads,
                      num_kv_heads=num_kv_heads, sm_scale=sm_scale)
@@ -541,7 +544,8 @@ def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     it back is free as well.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel (bf16, head dim 64), which raises on what it does not take.
+    kernel (bf16, head dim 64 or 128), which raises on what it does not
+    take.
     """
     B, H, Q, D = q.shape
     S = k.shape[2]
@@ -550,12 +554,13 @@ def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
     dev = q.device
     meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
                         S, dev)
+    cuda_build.check_plain("omni_attention", q, k, v)
     if dev.type == "cpu":
         return omni_attention_plain(q, k, v, *meta[:5], sm_scale=sm_scale)
     if dev.type != "cuda":
         raise ValueError(f"omni_attention: unsupported device {dev}")
     _check_operands("omni_attention", {"q": q, "k": k, "v": v}, 4)
-    _check_head_dim("omni_attention", D)
+    _check_head_dim("omni_attention", D, (64, 128))
     if tuple(k.shape) != (B, H, S, D) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, H, S, D] = {(B, H, S, D)}, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
@@ -568,7 +573,8 @@ def omni_attention(q, k, v, seg, pad=None, last_pad=None, prefix=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *(m.data_ptr() for m in meta), tiles.data_ptr(), B, H, Q, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        float(sm_scale))
+        float(sm_scale),
+        kernel=(OMNI_SOURCE, OMNI_D128) if D == 128 else OMNI_SOURCE)
     return out
 
 

@@ -175,6 +175,7 @@ def norm_rope(y, q_ln, k_ln, cos, sin, *, hidden: int, num_heads: int,
     contiguous in y's dtype.  CPU tensors go through the plain version;
     CUDA tensors through the kernel (bf16, head dim 64, rotary dim 32),
     counted under ``NORM_KERNEL``."""
+    cuda_build.check_plain("norm_rope", y)
     if y.device.type == "cpu":
         return norm_rope_plain(y, q_ln, k_ln, cos, sin, hidden=hidden,
                                num_heads=num_heads, rotary_dim=rotary_dim,
@@ -280,6 +281,7 @@ def fused_attend(qn, kn, y, ck, cv, last_pad, prefix, rows, tiles=None, *,
                          f"{softmax_dtype}, the kernel takes "
                          f"{SOFTMAX_DTYPES}")
     dev = qn.device
+    cuda_build.check_plain("fused_attend", qn)
     if dev.type == "cpu":
         return fused_attend_plain(qn, kn, y, ck, cv, last_pad, prefix, rows,
                                   hidden=hidden, num_heads=num_heads,
@@ -365,6 +367,7 @@ def fused_decode_attention(y, ck, cv, q_ln, k_ln, cos, sin, seg, pad,
         raise ValueError(f"last_pad/prefix must be [B] = [{B}]")
     if rows is None:
         rows = fused_rows(seg, pad, q_positions, P, B)
+    cuda_build.check_plain("fused_decode_attention", y)
     if dev.type == "cpu":
         return fused_decode_attention_plain(
             y, ck, cv, q_ln, k_ln, cos, sin, last_pad, prefix, rows,

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from showo_tpu_torch.ops import cuda_build
 from showo_tpu_torch.ops.int8_matmul import _epilogue, weight_stream
 
 
@@ -74,6 +75,7 @@ def pallas_nib_matmul(x, w_pk, scale, bias=None):
     if x.shape[-1] != 2 * w_pk.shape[0]:
         raise ValueError(f"x [M, K] {tuple(x.shape)} and w_pk [K/2, N] "
                          f"{tuple(w_pk.shape)} do not match")
+    cuda_build.check_plain("int4_matmul", x, w_pk)
     if x.device.type == "cpu":
         return nib_matmul_plain(x, w_pk, scale, bias)
     if x.device.type != "cuda":

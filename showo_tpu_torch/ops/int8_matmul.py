@@ -308,6 +308,7 @@ def pallas_i8_matmul(x, w_i8, scale, bias=None):
     if x.shape[-1] != w_i8.shape[0]:
         raise ValueError(f"x [M, K] {tuple(x.shape)} and w_i8 [K, N] "
                          f"{tuple(w_i8.shape)} differ in K")
+    cuda_build.check_plain("int8_matmul", x, w_i8)
     if x.device.type == "cpu":
         return i8_matmul_plain(x, w_i8, scale, bias)
     if x.device.type != "cuda":

@@ -280,6 +280,7 @@ class PackedTrainableAttention(torch.autograd.Function):
                 num_kv_heads, sm_scale):
         kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
                   sm_scale=sm_scale)
+        cuda_build.check_plain("packed_attention_grad", q, k, v)
         if q.is_cuda:
             kw["tiles"] = tile_map(seg, pad, last_pad, prefix)
         out, lse = packed_trainable_fwd(q, k, v, seg, pad, last_pad, prefix,

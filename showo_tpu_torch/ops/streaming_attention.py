@@ -120,6 +120,7 @@ def omni_attention_streaming(q, k, v, seg, pad=None, last_pad=None,
     dev = q.device
     meta = _kernel_meta(seg, pad, last_pad, prefix, q_positions, seg_q, B, Q,
                         S, dev)
+    cuda_build.check_plain("streaming_attention", q, k, v)
     if dev.type == "cpu":
         return omni_attention_streaming_plain(q, k, v, *meta[:5],
                                               sm_scale=sm_scale)

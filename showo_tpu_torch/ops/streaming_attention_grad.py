@@ -311,6 +311,7 @@ class StreamingTrainableAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg, pad, last_pad, prefix, sm_scale):
         kw = dict(sm_scale=sm_scale)
+        cuda_build.check_plain("streaming_attention_grad", q, k, v)
         if q.is_cuda:
             kw["tiles"] = tile_map(seg, pad, last_pad, prefix)
         out, lse = streaming_trainable_fwd(q, k, v, seg, pad, last_pad,

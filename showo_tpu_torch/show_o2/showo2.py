@@ -44,6 +44,7 @@ from showo_tpu_torch.show_o2.dit import (DiffusionHeadConfig, FinalLayer,
                                          TimestepEmbedder, dit_forward)
 from showo_tpu_torch.show_o2.dit import fuse_inference as fuse_dit
 from showo_tpu_torch.models.showo import cross_entropy_ignore
+from showo_tpu_torch.parallel.mesh import constrain, global_mean
 from showo_tpu_torch.show_o2.masks import modality_gather, modality_scatter
 from showo_tpu_torch.show_o2.qwen2 import (Qwen2, Qwen2Config, Qwen2KVCache,
                                            RMSNorm, cache_rows, init_normal,
@@ -248,7 +249,11 @@ def next_token_prediction_loss(logits: torch.Tensor,
                                labels: torch.Tensor) -> torch.Tensor:
     """misc.py:11-13 in JAX's form: cross entropy over the whole logits
     against the labels shifted left by one (the last position ignored),
-    the mean over the positions whose label is not -100, in fp32."""
+    the mean over the positions whose label is not -100, in fp32.  JAX
+    pins the logits to the lm_head output's sharding first
+    (``constrain``); here they are whole on every rank, and ``constrain``
+    is the identity."""
+    logits = constrain(logits, "dp", None, ("fsdp", "tp"))
     shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
                                                         -100)], dim=1)
     return cross_entropy_ignore(logits, shifted)
@@ -258,10 +263,11 @@ def velocity_prediction_loss(v_pred: torch.Tensor, labels: torch.Tensor,
                              mask: torch.Tensor) -> torch.Tensor:
     """misc.py:16-21: the squared error of the velocity over the sequence
     positions where ``mask`` [B, L] is set, averaged over those entries
-    (every channel counts), in fp32; 0 where no position is set."""
+    (every channel counts), in fp32; 0 where no position is set.  Over
+    the global batch under a mesh (``parallel/mesh.py::global_mean``)."""
     se = (v_pred.float() - labels.float()).square()
     m = mask[:, :, None].bool().expand(se.shape)
-    return torch.where(m, se, 0.0).sum() / m.sum().clamp(min=1)
+    return global_mean(torch.where(m, se, 0.0).sum(), m.sum())
 
 
 def _time_embeds(model: Showo2, t: torch.Tensor):

@@ -126,8 +126,10 @@ def build_trainer(config, device=None,
 
 def vist_loader(config, tokenizer, token_ids, model):
     """The config's VIST json as a checkpointable loader of
-    ``training.batch_size_mixed_modal`` samples."""
-    from showo_tpu_torch.data.loader import CheckpointableDataLoader
+    ``training.batch_size_mixed_modal`` samples of ``model``'s data shard
+    (``data/loader.py::data_shard``)."""
+    from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
+                                             data_shard)
     from showo_tpu_torch.data.vist_dataset import VISTDataset
 
     pre, dp = config.dataset.preprocessing, config.dataset.params
@@ -138,7 +140,8 @@ def vist_loader(config, tokenizer, token_ids, model):
         + (1 if model.cfg.add_time_embeds else 0),
         max_seq_len=pre.get("max_mixed_modal_seq_length",
                             pre.max_seq_length),
-        max_num_images=int(pre.get("max_num_images", 5)))
+        max_num_images=int(pre.get("max_num_images", 5)),
+        process=data_shard(model))
     return CheckpointableDataLoader(
         lambda: iter(ds),
         batch_size=int(config.training.get("batch_size_mixed_modal", 1)))

@@ -45,6 +45,9 @@ import numpy as np
 import torch
 
 from showo_tpu_torch.ops.flash_attention import seg_from_modality_positions
+from showo_tpu_torch.parallel.mesh import (check_same_rows, data_sum,
+                                           full_state_dict, is_writer,
+                                           mesh_of, shard_params, use_mesh)
 from showo_tpu_torch.show_o2.masks import omni_attn_mask
 from showo_tpu_torch.show_o2.qwen2 import check_route
 from showo_tpu_torch.show_o2.showo2 import Showo2, showo2_forward
@@ -228,10 +231,18 @@ class Stage1Step:
                                 out["loss_flow"].detach()), list(grads)
 
     def __call__(self, batch, generator=None, noise=None) -> Dict:
-        b = self.prepare(batch, generator, noise)
-        total, (l_ntp, l_flow), grads = self.loss_and_grads(b)
+        """On a sharded model (``parallel/mesh.py``) ``batch`` holds this
+        rank's rows, the same on the tp ranks of a (dp, fsdp)
+        coordinate (checked); the losses are the global batch's."""
+        info = mesh_of(self.model)
+        check_same_rows((batch, noise), info)
+        with use_mesh(info):
+            b = self.prepare(batch, generator, noise)
+            total, losses, grads = self.loss_and_grads(b)
         grad_norm = global_norm(grads)
         self.optimizer.update(grads)
+        total, l_ntp, l_flow = (data_sum(x, info)
+                                for x in (total,) + tuple(losses))
         return {"loss": total, "loss_ntp": l_ntp, "loss_flow": l_flow,
                 "grad_norm": grad_norm}
 
@@ -270,7 +281,7 @@ class Stage1Trainer:
 
     @property
     def device(self) -> torch.device:
-        return self.model.showo.model.embed_tokens.weight.device
+        return next(self.model.parameters()).device
 
     def device_batch(self, batch: dict) -> Dict[str, torch.Tensor]:
         """A collated host batch -> the step's tensors on the model's
@@ -299,7 +310,7 @@ class Stage1Trainer:
         dtype = torch.bfloat16 if self.device.type == "cuda" \
             else torch.float32
         copy = Showo2(self.model.cfg, device=self.device, dtype=dtype)
-        copy.load_state_dict(self.model.state_dict())
+        copy.load_state_dict(full_state_dict(self.model))
         return T2IV2Pipeline(model=copy.eval().requires_grad_(False),
                              vae=self.vae, tokenizer=tokenizer,
                              token_ids=token_ids,
@@ -322,6 +333,8 @@ class Stage1Trainer:
         return images
 
     def _save(self, images, output_dir, sub, suffix=""):
+        if not is_writer():
+            return
         out = os.path.join(output_dir, sub)
         os.makedirs(out, exist_ok=True)
         for i, im in enumerate(images):
@@ -351,6 +364,8 @@ class Stage1Trainer:
         if not video:
             self._save(to_pil_images(panel), output_dir, "recon")
             return panel
+        if not is_writer():
+            return panel
         out = os.path.join(output_dir, "recon_video")
         os.makedirs(out, exist_ok=True)
         for i in range(panel.shape[0]):
@@ -371,7 +386,8 @@ class Stage1Trainer:
         ``validation_prompts`` and a reconstruction panel of the batch.
         Each step's draws depend on (seed, step) alone, so a resumed run
         draws what an unbroken one would."""
-        from showo_tpu_torch.data.loader import save_loader_state
+        from showo_tpu_torch.data.loader import (loader_name, loader_writer,
+                                                 save_loader_state)
         from showo_tpu_torch.utils.checkpoint import save_checkpoint
 
         t0 = time.perf_counter()
@@ -390,8 +406,10 @@ class Stage1Trainer:
             if save_every and self.global_step % save_every == 0:
                 save_checkpoint(output_dir, self.global_step, self.model,
                                 self.optimizer, checkpoints_total_limit)
-                if hasattr(loader, "state_dict"):
-                    save_loader_state(loader, output_dir, self.global_step)
+                if hasattr(loader, "state_dict") and loader_writer(
+                        self.model):
+                    save_loader_state(loader, output_dir, self.global_step,
+                                      name=loader_name(self.model, "loader"))
             if generate_every and self.global_step % generate_every == 0:
                 g = step_generator(self.device, seed + 1, self.global_step)
                 if validation_prompts and tokenizer is not None:
@@ -459,14 +477,18 @@ def build_transport(config, model: Showo2) -> Transport:
                      do_shift=tr.get("do_shift", True), seq_len=n_img)
 
 
-def build_trainer(config, device=None,
-                  attn_impl: Optional[str] = None) -> Stage1Trainer:
+def build_trainer(config, device=None, attn_impl: Optional[str] = None,
+                  mesh=None) -> Stage1Trainer:
     """Config -> Stage1Trainer (the CLI builds it so).  device defaults to
     CUDA and raises without a card; the CPU runs only when asked for
     (``device="cpu"``).  attn_impl overrides ``training.attn_impl``
-    ("dense" or "trainable")."""
+    ("dense" or "trainable").  mesh: a ("dp", "fsdp", "tp") DeviceMesh
+    to shard Show-o2 over (``parallel/mesh.py``; the VAE stays whole);
+    the CLI reads no ``parallel:`` block, as JAX's does not."""
     device = entry_device(device)
     model, vae = build_models(config, device)
+    if mesh is not None:
+        shard_params(model, mesh)
     return Stage1Trainer(
         model=model, vae=vae, sc=stage1_config(config, attn_impl),
         transport=build_transport(config, model),
@@ -483,8 +505,10 @@ def num_image_tokens(config, model: Showo2) -> int:
 def jsonl_loaders(config, tokenizer, token_ids, model: Showo2,
                   sources: Sequence[Tuple[str, str, str]]) -> list:
     """A checkpointable loader of each jsonl of ``sources`` ((config key,
-    batch size key, default data type)) that the config names."""
+    batch size key, default data type)) that the config names, each
+    reading ``model``'s data shard (``data/loader.py::data_shard``)."""
     from showo_tpu_torch.data.image_text import create_imagetext_dataloader
+    from showo_tpu_torch.data.loader import data_shard
 
     pre, dp, tr = (config.dataset.preprocessing, config.dataset.params,
                    config.training)
@@ -494,7 +518,7 @@ def jsonl_loaders(config, tokenizer, token_ids, model: Showo2,
         num_image_tokens=num_image_tokens(config, model),
         max_seq_len=pre.max_seq_length,
         max_text_len=int(pre.get("max_text_len", 256)),
-        default_data_type=dtype)
+        default_data_type=dtype, process=data_shard(model))
         for key, bs_key, dtype in sources if dp.get(key)]
 
 
@@ -534,7 +558,7 @@ def run(config, trainer: Stage1Trainer,
     ``sources`` (:func:`build_loader`), or ``make_loader(config, tokenizer,
     token_ids, model)``."""
     from showo_tpu_torch.config import snapshot_config
-    from showo_tpu_torch.data.loader import restore_loader_state
+    from showo_tpu_torch.data.loader import loader_name, restore_loader_state
     from showo_tpu_torch.inference_t2i_v2 import load_tokenizer_and_ids
     from showo_tpu_torch.utils.checkpoint import resume_latest
     from showo_tpu_torch.utils.tracker import Tracker
@@ -549,7 +573,8 @@ def run(config, trainer: Stage1Trainer,
                              trainer.optimizer, params_only_fallback=True)
         if step:
             trainer.global_step = step
-            restore_loader_state(loader, exp.output_dir, step)
+            restore_loader_state(loader, exp.output_dir, step,
+                                 name=loader_name(trainer.model, "loader"))
             logger.info("resumed from step %d", step)
     tracker = Tracker(project=exp.get("project"), name=exp.get("name"),
                       enabled=bool(config.get("wandb_enabled", False)))

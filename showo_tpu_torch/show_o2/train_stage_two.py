@@ -123,7 +123,8 @@ def build_stage2_loader(config, tokenizer, token_ids, model: Showo2):
     jsonl loader and, with ``annotation_path``, an ``MMUDataset`` under a
     checkpointable loader of ``batch_size_mmu``, mixed by
     ``concat_max_size_cycle``; without it the stage-1 jsonl loaders."""
-    from showo_tpu_torch.data.loader import CheckpointableDataLoader
+    from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
+                                             data_shard)
     from showo_tpu_torch.data.mixed import MixedDataLoader
     from showo_tpu_torch.data.mmu_dataset import MMUDataset
 
@@ -137,7 +138,8 @@ def build_stage2_loader(config, tokenizer, token_ids, model: Showo2):
         dp.annotation_path, dp.get("mmu_image_root", ""), tokenizer,
         token_ids, resolution=pre.resolution,
         num_image_tokens=num_image_tokens(config, model),
-        max_seq_len=pre.max_seq_length, stage=config.get("stage", "tuning"))
+        max_seq_len=pre.max_seq_length, stage=config.get("stage", "tuning"),
+        process=data_shard(model))
     loaders.append(CheckpointableDataLoader(
         lambda: iter(mmu_ds), batch_size=int(config.training.batch_size_mmu)))
     return MixedDataLoader(loaders, mode="concat_max_size_cycle")

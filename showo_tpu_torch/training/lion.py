@@ -21,6 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from showo_tpu_torch.parallel.mesh import local
 from showo_tpu_torch.training.optim import check_state_shapes
 
 
@@ -40,7 +41,8 @@ class Lion:
             raise ValueError("wrap lion() with optax.scale_by_schedule for "
                              "schedules; pass a float here")
         for p, g, m in zip(self.params, grads, self.momentum):
-            g = g.float()
+            # elementwise: a DTensor parameter steps its local shard
+            p, g, m = local(p), local(g).float(), local(m)
             u = torch.sign(self.b1 * m + (1 - self.b1) * g)
             if self.wd:
                 u = u + self.wd * p.float()

@@ -47,6 +47,7 @@ import torch
 from showo_tpu_torch.config import get_config
 from showo_tpu_torch.inference_t2i import (build_showo_config, load_model,
                                            load_tokenizer, load_vq)
+from showo_tpu_torch.data.loader import data_shard
 from showo_tpu_torch.models.magvit import MagvitV2
 from showo_tpu_torch.models.phi import check_route
 from showo_tpu_torch.models.showo import Showo, showo_forward, showo_losses
@@ -54,6 +55,12 @@ from showo_tpu_torch.ops.flash_attention import (metadata_mmu,
                                                  metadata_predict_next,
                                                  seg_from_soi_eoi)
 from showo_tpu_torch.ops.masks import omni_mask_mmu, omni_mask_predict_next
+from showo_tpu_torch.parallel.mesh import (check_same_rows, data_mean,
+                                           data_sum, full_state_dict,
+                                           is_writer, load_config_mesh,
+                                           mesh_of, named_parameters,
+                                           shard_params, to_full,
+                                           shard_like, use_mesh)
 from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.sampling.schedules import get_mask_schedule
 from showo_tpu_torch.training.corruption import mask_or_random_replace_tokens
@@ -230,13 +237,22 @@ class FusedTrainStep:
                                 l_mmu.detach()), list(grads)
 
     def __call__(self, *inputs, generator=None, noise=None) -> Dict:
-        batch = self.prepare(*inputs, generator=generator, noise=noise)
-        total, (l_t2i, l_lm, l_mmu), grads = self.loss_and_grads(batch)
+        """On a sharded model (``parallel/mesh.py``) the inputs are this
+        rank's rows; the losses are the global batch's (each rank's share
+        summed over the data ranks); the tp ranks of a (dp, fsdp)
+        coordinate must be given the same rows (checked)."""
+        info = mesh_of(self.model)
+        check_same_rows((inputs, noise), info)
+        with use_mesh(info):
+            batch = self.prepare(*inputs, generator=generator, noise=noise)
+            total, losses, grads = self.loss_and_grads(batch)
         grad_norm = global_norm(grads)
         self.optimizer.update(grads)
+        total, l_t2i, l_lm, l_mmu = (data_sum(x, info)
+                                     for x in (total,) + tuple(losses))
         return {"loss": total, "loss_t2i": l_t2i, "loss_lm": l_lm,
                 "loss_mmu": l_mmu, "grad_norm": grad_norm,
-                "masking_rate": batch.mask_prob.mean()}
+                "masking_rate": data_mean(batch.mask_prob.mean(), info)}
 
 
 def step_generator(device, seed: int, step: int) -> torch.Generator:
@@ -324,11 +340,11 @@ class ShowoTrainer:
             min_decay=float(ema_cfg.get("min_decay", 0.0)),
             update_after_step=int(ema_cfg.get("update_after_step", 0)),
             use_ema_warmup=bool(ema_cfg.get("use_ema_warmup", False)))
-        return EMA(ec, self.model.named_parameters())
+        return EMA(ec, named_parameters(self.model))
 
     @property
     def device(self) -> torch.device:
-        return self.model.showo.lm_head.weight.device
+        return next(self.model.parameters()).device
 
     def host_batch(self, t2i_batch, lm_texts, mmu_batch):
         """Host batches -> the step's tensors: the prompting's text blocks
@@ -370,7 +386,7 @@ class ShowoTrainer:
         dtype = torch.bfloat16 if self.device.type == "cuda" \
             else torch.float32
         copy = Showo(self.cfg, device=self.device, dtype=dtype)
-        copy.load_state_dict(self.model.state_dict())
+        copy.load_state_dict(full_state_dict(self.model))
         return copy.eval().requires_grad_(False)
 
     @torch.no_grad()
@@ -392,6 +408,8 @@ class ShowoTrainer:
             max_seq_length=self.tc.max_seq_length,
             resolution=self.config.dataset.params.get("resolution", 256))
         images = pipe.generate(list(prompts), generator)
+        if not is_writer():
+            return images
         out = os.path.join(output_dir, "samples")
         os.makedirs(out, exist_ok=True)
         for i, im in enumerate(to_pil_images(images)):
@@ -457,6 +475,8 @@ class ShowoTrainer:
         from showo_tpu_torch.utils.image import to_pil_images
 
         panel = np.concatenate([pixels, recon, predicted], axis=2)
+        if not is_writer():
+            return panel
         out = os.path.join(output_dir, "predictions")
         os.makedirs(out, exist_ok=True)
         for i, im in enumerate(to_pil_images(panel)):
@@ -470,18 +490,20 @@ class ShowoTrainer:
         """``checkpoint-<step>/``: the weights and the optimizer, the EMA
         (``ema_state.pt``) and each loader's state
         (``<name>_state.json``)."""
-        from showo_tpu_torch.data.loader import save_loader_state
-        from showo_tpu_torch.utils.checkpoint import save_checkpoint
+        from showo_tpu_torch.data.loader import (loader_name, loader_writer,
+                                                 save_loader_state)
+        from showo_tpu_torch.utils.checkpoint import barrier, save_checkpoint
 
         path = save_checkpoint(output_dir, self.global_step, self.model,
                                self.optimizer, checkpoints_total_limit)
-        if self.ema is not None:
-            torch.save(self.ema.state_dict(),
-                       os.path.join(path, "ema_state.pt"))
+        ema = None if self.ema is None else to_full(self.ema.state_dict())
+        if ema is not None and is_writer():
+            torch.save(ema, os.path.join(path, "ema_state.pt"))
         for name, ld in loaders.items():
-            if hasattr(ld, "state_dict"):
+            if hasattr(ld, "state_dict") and loader_writer(self.model):
                 save_loader_state(ld, output_dir, self.global_step,
-                                  name=name)
+                                  name=loader_name(self.model, name))
+        barrier(self.model)
         return path
 
     def resume(self, output_dir: str, loaders: Dict[str, Any]) -> int:
@@ -489,7 +511,8 @@ class ShowoTrainer:
         weights and optimizer, its EMA (or a warning that the EMA restarts
         from the weights) and each loader's position; returns the step (0
         when there is none)."""
-        from showo_tpu_torch.data.loader import restore_loader_state
+        from showo_tpu_torch.data.loader import (loader_name,
+                                                 restore_loader_state)
         from showo_tpu_torch.utils.checkpoint import resume_latest
 
         step = resume_latest(output_dir, self.model, self.optimizer)
@@ -501,8 +524,9 @@ class ShowoTrainer:
             path = os.path.join(output_dir, f"checkpoint-{step}",
                                 "ema_state.pt")
             if os.path.exists(path):
-                self.ema.load_state_dict(torch.load(
-                    path, map_location=self.device, weights_only=False))
+                self.ema.load_state_dict(shard_like(torch.load(
+                    path, map_location=self.device, weights_only=False),
+                    self.ema.state_dict()))
                 logger.info("restored EMA state at step %d", step)
             else:
                 self.ema = self._init_ema(self.config.training.get("ema"))
@@ -510,7 +534,8 @@ class ShowoTrainer:
                                "from the resumed raw params", step)
         for name, ld in loaders.items():
             if hasattr(ld, "load_state_dict"):
-                restore_loader_state(ld, output_dir, step, name=name)
+                restore_loader_state(ld, output_dir, step,
+                                     name=loader_name(self.model, name))
         return step
 
     def fit(self, t2i_loader, lm_loader, mmu_loader, max_steps: int,
@@ -557,16 +582,21 @@ class ShowoTrainer:
         return self.model
 
 
-def build_trainer(config, device=None,
-                  attn_impl: Optional[str] = None) -> ShowoTrainer:
+def build_trainer(config, device=None, attn_impl: Optional[str] = None,
+                  mesh=None) -> ShowoTrainer:
     """Config -> ShowoTrainer: Show-o (checkpoint or random init, fp32
     master weights, trainable), the frozen MAGVIT-v2, the prompting with
     the config's conditioning dropout.  device defaults to CUDA and raises
     without a card; the CPU runs only when asked for (``device="cpu"``).
-    attn_impl overrides ``training.attn_impl`` ("dense" or "trainable")."""
+    attn_impl overrides ``training.attn_impl`` ("dense" or "trainable").
+    mesh: a ("dp", "fsdp", "tp") DeviceMesh (``parallel/mesh.py``) to
+    shard Show-o over; the steps then take this rank's rows, which the
+    loaders read when built with ``shard=data_shard(trainer.model)``."""
     device = entry_device(device)
     cfg = build_showo_config(config)
     model = load_model(config, cfg, device, torch.float32)
+    if mesh is not None:
+        shard_params(model, mesh)
     uni = UniversalPrompting(
         load_tokenizer(config),
         max_text_len=config.dataset.preprocessing.max_seq_length,
@@ -577,26 +607,30 @@ def build_trainer(config, device=None,
                         attn_impl=attn_impl)
 
 
-def t2i_lm_loaders(config):
+def t2i_lm_loaders(config, shard=None):
     """The t2i (an ImageNet class folder, ``dataset.gen_type:
-    imagenet1k``, or tar shards) and lm (RefinedWeb parquet, this
-    process's rows) loaders of the config (train.py:271-412), each
-    checkpointable."""
+    imagenet1k``, or tar shards) and lm (RefinedWeb parquet) loaders of
+    the config (train.py:271-412), each checkpointable and each reading
+    the rows of ``shard``, (rank, world) of the data ranks: the trainer
+    model's ``data/loader.py::data_shard`` (the process's rank by
+    default)."""
     from showo_tpu_torch.data.loader import (CheckpointableDataLoader,
                                              process_rank)
     from showo_tpu_torch.data.refinedweb import RefinedWebDataset
     from showo_tpu_torch.data.tar_shards import Text2ImageTarDataset
 
     p, tr = config.dataset.params, config.training
+    rank, world = shard or process_rank()
     if config.dataset.gen_type == "imagenet1k":
         from showo_tpu_torch.data.imagenet import ImageNetDataset
 
-        t2i_ds = ImageNetDataset(p.train_t2i_shards_path_or_url, p.resolution)
+        t2i_ds = ImageNetDataset(p.train_t2i_shards_path_or_url, p.resolution,
+                                 process=(rank, world))
     else:
         t2i_ds = Text2ImageTarDataset(p.train_t2i_shards_path_or_url,
                                       p.resolution,
-                                      p.get("shuffle_buffer_size", 1000))
-    rank, world = process_rank()
+                                      p.get("shuffle_buffer_size", 1000),
+                                      process=(rank, world))
     lm_ds = RefinedWebDataset(p.train_lm_shards_path_or_url, rank=rank,
                               world_size=world)
     return tuple(CheckpointableDataLoader(lambda ds=ds: iter(ds), bs)
@@ -604,17 +638,18 @@ def t2i_lm_loaders(config):
                                 (lm_ds, tr.batch_size_lm)))
 
 
-def _build_loaders(config, tokenizer=None):
+def _build_loaders(config, tokenizer=None, shard=None):
     """:func:`t2i_lm_loaders` and the mmu loader (caption tar shards),
-    each checkpointable."""
+    each checkpointable and each reading the rows of ``shard``."""
     from showo_tpu_torch.data.loader import CheckpointableDataLoader
     from showo_tpu_torch.data.tar_shards import Text2ImageTarDataset
 
     p = config.dataset.params
-    t2i, lm = t2i_lm_loaders(config)
+    t2i, lm = t2i_lm_loaders(config, shard)
     mmu_ds = Text2ImageTarDataset(p.train_mmu_shards_path_or_url,
                                   p.resolution,
-                                  p.get("shuffle_buffer_size", 1000))
+                                  p.get("shuffle_buffer_size", 1000),
+                                  process=shard)
     return t2i, lm, CheckpointableDataLoader(lambda: iter(mmu_ds),
                                              config.training.batch_size_mmu)
 
@@ -645,9 +680,12 @@ def main(argv=None) -> ShowoTrainer:
                                "%(message)s")
     config = get_config(argv)
     exp = config.experiment
-    trainer = build_trainer(config, device=config.get("device"))
-    loaders = _build_loaders(config, trainer.uni_prompting.text_tokenizer)
-    snapshot_config(config, exp.output_dir)
+    mesh, device = load_config_mesh(config)
+    trainer = build_trainer(config, device=device, mesh=mesh)
+    loaders = _build_loaders(config, trainer.uni_prompting.text_tokenizer,
+                             shard=data_shard(trainer.model))
+    if is_writer():
+        snapshot_config(config, exp.output_dir)
     if exp.get("resume_from_checkpoint") == "latest":
         trainer.resume(exp.output_dir, dict(zip(("t2i", "lm", "mmu"),
                                                 loaders)))

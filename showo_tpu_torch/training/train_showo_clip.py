@@ -47,12 +47,15 @@ import torch
 import torch.nn.functional as F
 
 from showo_tpu_torch.config import get_config
+from showo_tpu_torch.data.loader import data_shard
 from showo_tpu_torch.inference_t2i import (build_showo_config, load_model,
                                            load_tokenizer, load_vq)
 from showo_tpu_torch.models.clip_vit import ClipVisionTower, ClipVitConfig
 from showo_tpu_torch.models.phi import check_route
 from showo_tpu_torch.models.showo import Showo, mm_project, showo_losses
 from showo_tpu_torch.ops.masks import omni_mask_mmu_vit, omni_mask_predict_next
+from showo_tpu_torch.parallel.mesh import (is_writer, load_config_mesh,
+                                           shard_params)
 from showo_tpu_torch.prompting import UniversalPrompting
 from showo_tpu_torch.sampling.schedules import get_mask_schedule
 from showo_tpu_torch.training.corruption import mask_or_random_replace_tokens
@@ -338,14 +341,17 @@ def system_prompt_len(config, tokenizer) -> int:
     return int(config.dataset.preprocessing.get("system_prompt_len", n))
 
 
-def build_trainer(config, device=None,
-                  attn_impl: Optional[str] = None) -> ClipShowoTrainer:
+def build_trainer(config, device=None, attn_impl: Optional[str] = None,
+                  mesh=None) -> ClipShowoTrainer:
     """Config -> ClipShowoTrainer: Show-o with ``mm_projector`` (checkpoint
     or random init, fp32 master weights, trainable), the frozen MAGVIT-v2
     and CLIP-ViT, the prompting with the config's conditioning dropout.
     device defaults to CUDA and raises without a card; the CPU runs only
     when asked for (``device="cpu"``).  attn_impl overrides
-    ``training.attn_impl`` (only "dense" trains)."""
+    ``training.attn_impl`` (only "dense" trains).  mesh: a ("dp", "fsdp",
+    "tp") DeviceMesh to shard Show-o (``mm_projector`` with it) over, as
+    JAX ``main`` shards its params; the CLIP tower stays whole.  The
+    loaders then take ``shard=data_shard(trainer.model)``."""
     device = entry_device(device)
     cfg = build_showo_config(config)
     if not cfg.w_clip_vit:
@@ -355,6 +361,8 @@ def build_trainer(config, device=None,
         tokenizer, max_text_len=config.dataset.preprocessing.max_seq_length,
         cond_dropout_prob=config.training.get("cond_dropout_prob", 0.1))
     model = load_model(config, cfg, device, torch.float32)
+    if mesh is not None:
+        shard_params(model, mesh)
     return ClipShowoTrainer(
         config=config, model=model.train().requires_grad_(True),
         vq=load_vq(config, device), uni_prompting=uni, attn_impl=attn_impl,
@@ -364,11 +372,13 @@ def build_trainer(config, device=None,
             "max_mmu_text_len", 128)))
 
 
-def mmu_loader(config, tokenizer, resolution: int):
+def mmu_loader(config, tokenizer, resolution: int, shard=None):
     """A checkpointable loader of ``batch_size_mmu`` LLaVA samples of the
     config's json (``train_mmu_shards_path_or_url``, images under
     ``mmu_image_root``) at the tower's resolution: caption pairs for
-    ``llava_pretrain``, else conversations."""
+    ``llava_pretrain``, else conversations; the records of ``shard``,
+    (rank, world) of the data ranks (``data/loader.py::data_shard`` of
+    the trainer's model; the process's rank by default)."""
     from showo_tpu_torch.data.llava import LLaVADataset, LLaVAPretrainDataset
     from showo_tpu_torch.data.loader import CheckpointableDataLoader
 
@@ -377,7 +387,7 @@ def mmu_loader(config, tokenizer, resolution: int):
            if config.dataset.get("und_type", "llava_tuning")
            == "llava_pretrain" else LLaVADataset)
     ds = cls(p.train_mmu_shards_path_or_url, p.get("mmu_image_root", ""),
-             tokenizer, resolution=resolution)
+             tokenizer, resolution=resolution, process=shard)
     return CheckpointableDataLoader(lambda: iter(ds),
                                     config.training.batch_size_mmu,
                                     collate_fn=collate_llava)
@@ -393,14 +403,17 @@ def main(argv=None) -> ClipShowoTrainer:
                                "%(message)s")
     config = get_config(argv)
     exp = config.experiment
-    trainer = build_trainer(config, device=config.get("device"))
+    mesh, device = load_config_mesh(config)
+    trainer = build_trainer(config, device=device, mesh=mesh)
+    shard = data_shard(trainer.model)
     mmu = mmu_loader(config, trainer.uni_prompting.text_tokenizer,
-                     trainer.clip.cfg.image_size)
-    t2i, lm = t2i_lm_loaders(config)
+                     trainer.clip.cfg.image_size, shard)
+    t2i, lm = t2i_lm_loaders(config, shard)
     loaders = {"t2i": t2i, "lm": lm, "mmu": mmu}
     if exp.get("resume_from_checkpoint") == "latest":
         trainer.resume(exp.output_dir, loaders)
-    snapshot_config(config, exp.output_dir)
+    if is_writer():
+        snapshot_config(config, exp.output_dir)
     trainer.fit(t2i, lm, mmu, max_steps=config.training.max_train_steps,
                 log_every=exp.get("log_every", 50),
                 save_every=exp.get("save_every"),

@@ -14,7 +14,10 @@ the JAX package).  The parameters may come in groups (the Show-o2 stage
 trainers': JAX's ``multi_transform`` of one clip + optimizer chain a
 group), each clipped by its own global norm at its own factor of the
 schedule's rate.  Parameters without a gradient are left out and stay
-as they are (JAX's ``set_to_zero`` for frozen parameters).
+as they are (JAX's ``set_to_zero`` for frozen parameters).  Parameters
+sharded over a mesh (``parallel/mesh.py``, DTensors) take ``adamw``, which
+is elementwise and steps each shard; ``adamw_bf16`` and ``adafactor``
+raise NotImplementedError on them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from showo_tpu_torch.parallel.mesh import (is_dtensor, local, shard_like,
+                                           sum_of_squares)
 from showo_tpu_torch.training.optim import (AdamWBf16, Adafactor,
                                             check_optimizer,
                                             check_state_shapes, own_tensors)
@@ -54,7 +59,11 @@ class TrainConfig:
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every entry, fp32 (optax.global_norm:
-    the tensors' sums of squares added in order)."""
+    the tensors' sums of squares added in order).  DTensors (parameters
+    sharded over a mesh) count whole (``parallel/mesh.py::
+    sum_of_squares``: the shards' sums reduced over the mesh)."""
+    if any(is_dtensor(t) for t in tensors):
+        return torch.sqrt(sum_of_squares(tensors))
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in tensors))
 
@@ -80,6 +89,11 @@ class Optimizer:
         self.groups = [g for g in ((tuple(p for p in ps if p.requires_grad),
                                     f) for ps, f in groups) if g[0]]
         self.params = [p for ps, _ in self.groups for p in ps]
+        if self.name != "adamw" and any(is_dtensor(p) for p in self.params):
+            raise NotImplementedError(
+                f"optimizer {self.name!r} is not ported to parameters "
+                f"sharded over a ('dp', 'fsdp', 'tp') mesh (its moments or "
+                f"factored statistics span whole tensors); use 'adamw'")
         self.tc = tc
         self.schedule = lr_schedule or (lambda step: tc.learning_rate)
         betas = (getattr(tc, "adam_beta1", 0.9),
@@ -145,7 +159,7 @@ class Optimizer:
                 norm = global_norm(gs)
                 if norm >= self.tc.max_grad_norm:
                     for g in gs:
-                        g.div_(norm).mul_(self.tc.max_grad_norm)
+                        local(g).div_(norm).mul_(self.tc.max_grad_norm)
             lrs += [f * lr] * len(ps)
         if self.adamw is not None:
             for p, g in zip(self.params, grads):
@@ -174,5 +188,15 @@ class Optimizer:
         acc = sd["acc"]
         if acc is not None:
             check_state_shapes("accumulated gradients", self.params, acc)
-        (self.adamw or self.inner).load_state_dict(sd[self.name])
+        inner = sd[self.name]
+        if self.adamw is not None and any(is_dtensor(p) for p in self.params):
+            # a whole state (utils/checkpoint.py) -> this rank's chunks
+            acc = None if acc is None else [
+                shard_like(a, p) for a, p in zip(acc, self.params)]
+            inner = dict(inner, state={
+                i: {k: shard_like(v, self.params[int(i)])
+                    if torch.is_tensor(v) and v.dim() else v
+                    for k, v in st.items()}
+                for i, st in inner["state"].items()})
+        (self.adamw or self.inner).load_state_dict(inner)
         self.steps, self.micro, self._acc = sd["steps"], sd["micro"], acc

@@ -8,6 +8,11 @@ state dict, the optimizer's, the step) and ``metadata.json``
 (``global_step``); at most ``checkpoints_total_limit`` directories are
 kept, the oldest removed first.  The optimizer state is saved with the
 weights, so a resumed run goes on where the first one stopped.
+
+A model sharded over a mesh (``parallel/mesh.py``) is saved whole: every
+rank gathers the weights and the optimizer state (the unsharded model's
+names and shapes), rank 0 writes them, and a restore puts each rank's
+chunk back, so a checkpoint loads on any mesh or none.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ from typing import Optional
 
 import torch
 
+from showo_tpu_torch.parallel.mesh import (full_state_dict, is_writer,
+                                           load_full_state_dict, mesh_of,
+                                           to_full)
+
 logger = logging.getLogger(__name__)
 
 
@@ -33,26 +42,40 @@ def _ckpt_dirs(output_dir: str):
     return sorted(dirs, key=lambda d: int(d.split("-")[1]))
 
 
+def barrier(model) -> None:
+    """Wait for every rank when ``model`` is sharded."""
+    if mesh_of(model) is not None:
+        torch.distributed.barrier()
+
+
 def save_checkpoint(output_dir: str, global_step: int, model, optimizer=None,
                     checkpoints_total_limit: Optional[int] = None) -> str:
     """Save ``model`` (and ``optimizer``, anything with ``state_dict``)
     under ``checkpoint-<global_step>/``, after removing the oldest
-    directories past ``checkpoints_total_limit``; returns the directory."""
+    directories past ``checkpoints_total_limit``; returns the directory.
+    A sharded model: every rank calls, gathering; rank 0 writes."""
+    path = os.path.abspath(os.path.join(output_dir,
+                                        f"checkpoint-{global_step}"))
+    state = {"model": full_state_dict(model),
+             "optimizer": (None if optimizer is None
+                           else to_full(optimizer.state_dict())),
+             "global_step": global_step}
+    if is_writer() or mesh_of(model) is None:
+        _write(output_dir, path, state, checkpoints_total_limit)
+    barrier(model)
+    return path
+
+
+def _write(output_dir: str, path: str, state: dict,
+           checkpoints_total_limit: Optional[int]) -> None:
     if checkpoints_total_limit is not None:
         dirs = _ckpt_dirs(output_dir)
         while len(dirs) >= checkpoints_total_limit:
             shutil.rmtree(os.path.join(output_dir, dirs.pop(0)))
-    path = os.path.abspath(os.path.join(output_dir,
-                                        f"checkpoint-{global_step}"))
     os.makedirs(path, exist_ok=True)
-    torch.save({"model": model.state_dict(),
-                "optimizer": (None if optimizer is None
-                              else optimizer.state_dict()),
-                "global_step": global_step},
-               os.path.join(path, "state.pt"))
+    torch.save(state, os.path.join(path, "state.pt"))
     with open(os.path.join(path, "metadata.json"), "w") as f:
-        json.dump({"global_step": global_step}, f)
-    return path
+        json.dump({"global_step": state["global_step"]}, f)
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
@@ -62,10 +85,10 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, model, optimizer=None) -> int:
     """Load a ``checkpoint-<N>`` directory into ``model`` (and
-    ``optimizer``); returns its step."""
+    ``optimizer``); returns its step.  A sharded model takes its chunks."""
     state = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                        weights_only=False)
-    model.load_state_dict(state["model"])
+    load_full_state_dict(model, state["model"])
     if optimizer is not None and state["optimizer"] is not None:
         optimizer.load_state_dict(state["optimizer"])
     with open(os.path.join(path, "metadata.json")) as f:

@@ -52,6 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from showo_tpu_torch.parallel.mesh import is_tensor_parallel
+
 TAGGED_POLICIES = ("dots", "qkv", "qkv_fc1", "qkv_attn", "qkv_fc1_attn")
 POLICIES = ("none", "full") + TAGGED_POLICIES
 _KEPT = {"full": (), "dots": (), "qkv": ("qkv_out",),
@@ -161,7 +163,9 @@ def project(linear: nn.Module, x: torch.Tensor, tag: Optional[str] = None,
     tagged policies (``qkv_out`` / ``fc1_out``); ``tail`` marks one whose
     output the backward never reads (it joins only the residual sum)."""
     r = _region()
-    if r is None:
+    if r is None or is_tensor_parallel(linear):
+        # a tensor-parallel linear computes its share and gathers it
+        # (``parallel/mesh.py``); it is recomputed whole, kept or not
         return linear(x)
     w, b = linear.weight, linear.bias
     dev = x.device.type

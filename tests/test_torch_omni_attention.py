@@ -550,6 +550,33 @@ def test_omni_plain_vs_jax_interpret(kind, P):
                                rtol=0)
 
 
+@pytest.mark.parametrize("P", [0, 9], ids=["q_eq_s", "q_ne_k"])
+def test_omni_plain_at_head_dim_128_vs_jax_interpret(P):
+    """Kernel 4 takes head dim 128 too (Qwen's, as the Pallas kernel takes
+    any): its plain version at D=128 on Show-o2's spans against the JAX
+    kernel in interpret mode, fp32, atol 1e-5."""
+    B, H, D = 2, 3, 128
+    seq = _layout(B, text=12, img=15, pads=(0, 4), seed=23)
+    S = seq.shape[1]
+    Q = S - P
+    jmeta, tmeta = _metadata("v2", seq, S)
+    rng = np.random.default_rng(40 + P)
+    q = rng.normal(size=(B, Q, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    jpos = None if P == 0 else jnp.arange(P, S)
+    tpos = None if P == 0 else torch.arange(P, S)
+    want = jfa.omni_attention(
+        *(jnp.asarray(x).swapaxes(1, 2) for x in (q, k, v)), *jmeta,
+        block_q=8, interpret=True, q_positions=jpos)
+    got = tfa.omni_attention(
+        *(torch.as_tensor(x).transpose(1, 2) for x in (q, k, v)), *tmeta,
+        q_positions=tpos)
+    assert got.shape == (B, H, Q, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
 def test_omni_matches_packed():
     """The two layouts compute one function: head-major omni_attention
     equals omni_attention_packed on the same values."""
@@ -683,9 +710,10 @@ def test_omni_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     seg = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
-    q = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head dim 128"):
+    q = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dim 96"):
         tfa.omni_attention(q, q, q, seg)
+    q = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(TypeError, match="bf16"):
         tfa.omni_attention(q.float(), q.float(), q.float(), seg)
 
@@ -702,6 +730,37 @@ def _omni_card(kind, dev, H=32, D=64, seed=0):
     q, k, v = (torch.randn(B, n, H, D, generator=g, device=dev).bfloat16()
                .transpose(1, 2) for n in (pos.shape[1], S, S))
     return q, k, v, tmeta, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["per_row", "no_key", "v2"])
+def test_omni_kernel_at_head_dim_128_on_card(kind):
+    """Kernel 4 at head dim 128 (<128, MASK_MEAN> of the forward core),
+    12 heads as Qwen's q heads: within 2e-2 of the plain version, one core
+    launch (counted also as a head-dim-128 launch), and bit-identical to
+    kernel 1 on the same memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, k, v, tmeta, pos = _omni_card(kind, dev, H=12, D=128)
+    B, H, Q, D = q.shape
+    names = (tfa.OMNI_SOURCE, tfa.OMNI_D128)
+    before = {n: cuda_build.launches[n] for n in names}
+    got = tfa.omni_attention(q, k, v, *tmeta, q_positions=pos)
+    torch.cuda.synchronize()
+    assert {n: cuda_build.launches[n] - before[n] for n in names} == {
+        n: 1 for n in names}
+    rows = tfa.q_rows(tmeta[0], pos, B, Q)
+    want = tfa.omni_attention_plain(q, k, v, *tmeta, rows[0],
+                                    sm_scale=D ** -0.5)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    S = k.shape[2]
+    packed = tfa.omni_attention_packed(
+        q.transpose(1, 2).reshape(B, Q, H * D),
+        k.transpose(1, 2).reshape(B, S, H * D),
+        v.transpose(1, 2).reshape(B, S, H * D), *tmeta, num_heads=H,
+        q_positions=pos)
+    assert torch.equal(got.transpose(1, 2).reshape(B, Q, H * D), packed)
 
 
 @pytest.mark.cuda
