@@ -394,7 +394,8 @@ Phases, one or more lines each:
      and STAGE2_STEPS steps each, per step 76 kernel 7 forwards, 38 dq, 38
      dk/dv (56 / 28 / 28 at head dim 128), 76 tile maps, none of any other
      kernel; s a step, samples/s, peak memory; each stage's step on
-     ``trainable`` against ``dense`` (phase 25's limits)
+     ``trainable`` against ``dense``: the losses at phase 25's limit, the
+     gradient vectors within V2_TRAIN_GRAD_TOL
   33. the stage-2 CLI with ``annotation_path`` at full width and depth 2 /
      2 / 2 (2 steps with checkpoints, a resume from ``latest`` to step 3
      with the loaders' positions; kernel 7's launches counted); the
@@ -567,6 +568,7 @@ V2_TRAIN_CONFIG = "configs/showo2_1.5b_stage_1_a.yaml"
 V2_TRAIN_BATCH, V2_TRAIN_STEPS, V2_TRAIN_SEQ = 12, 3, (1024, 2048)
 V2_TRAIN_UND = 2            # understanding rows of the batch (the rest t2i)
 V2_DIT_LAYERS = 10
+V2_DIT_HEADS = (32, 8, 64)
 # kernels 7 and 8 at Qwen2.5's head dim (phase 23): q heads, kv heads, dim
 V2_TRAIN_HEADS = (12, 2, 128)
 # the head-dim-128 launch counters of the trainable kernels (each launch at
@@ -583,6 +585,19 @@ V2_TRAIN_COUNTERS = [n + D128 for n in list(TRAIN_KERNELS)[:3]
 # 151,940-wide cross entropy of the und row, largest), grad norm 1.0e-5 to
 # 2.0e-5; the limits ~11x and ~25x above the largest readings
 V2_TRAIN_LOSS_TOL, V2_TRAIN_GRAD_NORM_TOL = 5e-3, 5e-4
+# the stage-2 steps of every family (phases 32, 37d): ||g_trainable -
+# g_dense|| / ||g_dense|| over the trained parameters.  The grad norm alone
+# sits at bf16's noise there: read by showo_tpu_torch/probe_stage2_parity.py
+# on an H100 at 700 W (2a freeze, 1.5B and 7B, as built and after 4 steps),
+# the dense bf16 step's grad norm is 4.5e-4 to 2.5e-3 from the fp32 step's,
+# and the kernels' own plain versions 1.7e-4 to 1.3e-3 from dense.  The
+# gradient vectors: trainable vs dense 1.17e-2 to 2.34e-2 (kernels 7 and 8
+# bit-identical; 4.0e-3 in phase 32 with every weight trained), the plain
+# versions 1.29e-2 to 2.84e-2, every bf16 route 2.86e-2 to 4.94e-2 from
+# fp32; a planted fault (kernel 8's dk / dv without the last q head of each
+# group) 0.465 to 0.601.  The limit is 3.4x the largest reading and 5.8x
+# below the fault
+V2_TRAIN_GRAD_TOL = 8e-2
 # kernel 2's bf16-score launches (attn_fp32=False; also counted under
 # fused_decode), phase 27
 FUSED_BF16 = "fused_decode_bf16"
@@ -686,6 +701,48 @@ V2_AGREE_SLACK = 0.02
 # the video clip: 9 frames of 432x432, 3 latent frames after the VAE's two
 # time downsamples
 V2_VIDEO_FRAMES, V2_LATENT_FRAMES = 9, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class V2Model:
+    """A Show-o2 model the Show-o2 phases run, by its dims: Qwen2.5's width,
+    FFN and heads (q, kv, head dim) and whether its head is tied to the
+    embedding; the heads of kernels 1, 5 and 6 (Qwen's, the DiT's); kernel
+    9's products (name -> (K, N, bias)); the prompts of a t2i generate,
+    the timed generates after the counted one (whose wall is timed too),
+    and the new tokens of an understanding answer.  Both
+    have 28 Qwen2.5 layers, the DiT (10 layers, 32 / 8 heads of 64, width
+    2048), SigLIP (26 layers) and the Wan2.1 VAE."""
+
+    name: str
+    hidden: int
+    ffn: int
+    heads: tuple
+    tied: bool
+    shapes: tuple
+    int8_shapes: dict
+    batch: int
+    timed: int
+    new_tokens: int
+
+
+V2_15B = V2Model("Show-o2 1.5B", 1536, 8960, (12, 2, 128), True, V2_SHAPES,
+                 V2_INT8_SHAPES, V2_BATCH, 1, MMU_NEW_TOKENS)
+# Show-o2 7B (phase 37): Qwen2.5-7B, 28 q / 4 kv heads of 128 (GQA group 7)
+# and an untied head; its demo's batch of 2 prompts; answers of 32 tokens
+# (decode is host-bound: ~30-40 ms a token at either size)
+V2_7B_CONFIG = "configs/showo2_7b_demo_432x432.yaml"
+V2_7B_UND_CONFIG = "configs/showo2_7b_demo_video_understanding.yaml"
+V2_7B_STAGE2_CONFIG = "configs/showo2_7b_stage_2_a.yaml"
+# the stage-2a rows of phase 37d: phase 32's (4 t2i jsonl rows and 4
+# conversation rows of 1024 tokens)
+V2_7B_STAGE2_ROWS = 4
+V2_7B = V2Model(
+    "Show-o2 7B", 3584, 18944, (28, 4, 128), False,
+    (("Qwen2.5-7B 28/4 D=128", 28, 4, 128), ("DiT 32/8 D=64", 32, 8, 64)),
+    {"qkv": (3584, 4608, True), "o": (3584, 3584, False),
+     "gate-up": (3584, 37888, False), "down": (18944, 3584, False),
+     "lm_head": (3584, 151940, False)}, 2, 0, 32)
 # bench.py's t2v rows (bench.py:967-970, driven by :291-333), phases 19 and
 # 19b: one prompt (2 rows with the null prompt), Euler over 20 grid points
 # (19 velocity evaluations), CFG 5.0; t2v at 2 latent frames (5 pixel
@@ -1812,7 +1869,7 @@ def _first_mma_kernel():
 
 
 def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed, bias=False,
-               beside=True):
+               beside=True, phase="9"):
     """One weight-streaming product against its plain version: the error
     (max abs over the plain output's peak), a planted fault (each column
     scaled by its neighbour's scale) that must fail the same check, median
@@ -1943,7 +2000,7 @@ def _wsmm_case(torch, cuda_build, label, M, K, N, int4, seed, bias=False,
         beside_line = ""
         dev_line = f", plain {_ms(dev_t['plain'])}"
         extra["plain_device_ms"] = dev_t["plain"]
-    print(f"[9] {label} {'int4' if int4 else 'int8'} x [{M}, {K}] @ w "
+    print(f"[{phase}] {label} {'int4' if int4 else 'int8'} x [{M}, {K}] @ w "
           f"[{rows}, {N}]{' + bias' if bias else ''}: max_abs_err {err:.3e} "
           f"(tol {WSMM_TOL} of the "
           f"peak {peak:.3f}); planted fault (neighbouring column's scale) "
@@ -2262,11 +2319,12 @@ def phase_int8_parity(torch, pipe_bf, pipe_i8, phi32, image):
     return readings
 
 
-def phase_v2_kernels(torch, pipe, prompts):
+def phase_v2_kernels(torch, pipe, prompts, shapes=V2_SHAPES, phase="3c"):
     """Kernels 1 and 6 against their plain versions at the Show-o2 slice's
     shapes and metadata (the truncated [cond; null] rows of ``prompts``),
-    Qwen2.5 and DiT heads; kernel 6 beside kernel 1; the planted fault.
-    Returns {"packed": {label: result}, "stacked": {label: result}}."""
+    the heads of ``shapes`` (Qwen2.5's and the DiT's); kernel 6 beside
+    kernel 1; the planted fault.  Returns {"packed": {label: result},
+    "stacked": {label: result}}."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import cuda_build
@@ -2281,12 +2339,13 @@ def phase_v2_kernels(torch, pipe, prompts):
     n_vis = int(vis.sum())
     # seg, pad, pos_q, seg_q [B, L] and last_pad, prefix [B], int32
     meta_bytes = 4 * (4 * B * L + 2 * B)
-    print(f"[3c] the slice's rows: B={B} S={L} (spans {mp[:, 0].tolist()}); "
+    print(f"[{phase}] the slice's rows: B={B} S={L} (spans "
+          f"{mp[:, 0].tolist()}); "
           f"{n_vis} visible (row, key) pairs of {B * L * L} "
           f"({n_vis / (B * L * L):.4f})")
     g = torch.Generator(device="cuda").manual_seed(31)
     out = {"packed": {}, "stacked": {}}
-    for label, H, Hkv, D in V2_SHAPES:
+    for label, H, Hkv, D in shapes:
         if not tfa.gqa_stack_fits(L, L, H // Hkv):
             raise AssertionError(f"{label}: the JAX package would not stack")
         q, k, v = (torch.randn(B, L, n * D, generator=g, device="cuda")
@@ -2320,7 +2379,7 @@ def phase_v2_kernels(torch, pipe, prompts):
         for which, num in (("packed", 1), ("stacked", 6)):
             out[which][label] = _compare(
                 torch, f"kernel {num} {shape}", kernels[which],
-                lambda: plains[which](v), bound, sdpa, phase="3c")
+                lambda: plains[which](v), bound, sdpa, phase=phase)
         made = {n: cuda_build.launches[n] - c for n, c in before.items()}
         if not (made["omni_attention_packed"] == made[PACKED_WGMMA] > 0
                 and made[GQA_SOURCE] == made[GQA_WGMMA] > 0
@@ -2352,7 +2411,7 @@ def phase_v2_kernels(torch, pipe, prompts):
             if not faults[which] > CARD_TOL:
                 raise AssertionError(f"{shape}: the planted fault passes the "
                                      f"{which} check: {faults[which]}")
-        print(f"[3c] {shape}: kernel 6 ({tfa.stack_width(H // Hkv)} q "
+        print(f"[{phase}] {shape}: kernel 6 ({tfa.stack_width(H // Hkv)} q "
               f"heads a block, {made[GQA_WGMMA]} launches, all on the wgmma "
               f"core, on the slice's tile map) beside kernel 1 on the same "
               f"inputs and map, max |difference| {beside:.3e} (0 expected: "
@@ -2365,13 +2424,13 @@ def phase_v2_kernels(torch, pipe, prompts):
               f"(kernel 6), each failing the check (tol {CARD_TOL:.0e})")
         out["packed"][label]["old_ms"] = out["stacked"][label]["ms"]
         del q, k, v, heads, wrong
-    out["tiles"] = _v2_tile_map_check(torch, tfa, meta)
-    for _, H_, Hkv_, D_ in V2_SHAPES:
-        _v2_ragged(torch, tfa, H_, Hkv_, D_)
+    out["tiles"] = _v2_tile_map_check(torch, tfa, meta, phase)
+    for _, H_, Hkv_, D_ in shapes:
+        _v2_ragged(torch, tfa, H_, Hkv_, D_, phase)
     return out
 
 
-def _v2_tile_map_check(torch, tfa, meta):
+def _v2_tile_map_check(torch, tfa, meta, phase="3c"):
     """Kernel 1's tile map at D=128 of the slice's metadata against its
     plain version; returns its result."""
     m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
@@ -2382,10 +2441,10 @@ def _v2_tile_map_check(torch, tfa, meta):
         lambda: tfa.rows_tile_map(*m, meta.pos_q, meta.seg_q),
         lambda: tfa.rows_tile_map_plain(*m, meta.pos_q),
         4 * (4 * B * L + 2 * B) + B * nt * (nt + 1), B * (nt * 64) ** 2,
-        "3c", flag=True)[1]
+        phase, flag=True)[1]
 
 
-def _v2_ragged(torch, tfa, H, Hkv, D):
+def _v2_ragged(torch, tfa, H, Hkv, D, phase="3c"):
     """Kernel 1 on the wgmma core at head dim ``D`` (``H`` q / ``Hkv`` kv
     heads) on a ragged S=200 whose rows 6..9 see no key: against its plain
     version, those rows against the mean of v over the S keys, the same
@@ -2407,7 +2466,8 @@ def _v2_ragged(torch, tfa, H, Hkv, D):
         H // Hkv, dim=1).reshape(B, 1, H * D)
     empty_err = (runs[0][:, 6:10].float() - mean_v).abs().max().item()
     same = torch.equal(runs[0], runs[1])
-    print(f"[3c] kernel 1 at D={D}, ragged B={B} S={S} H={H} Hkv={Hkv}, "
+    print(f"[{phase}] kernel 1 at D={D}, ragged B={B} S={S} H={H} "
+          f"Hkv={Hkv}, "
           f"rows 6..9 see no key: max_abs_err {err:.3e} against the plain "
           f"version, those rows {empty_err:.3e} from the mean of v (tol "
           f"{CARD_TOL:.0e}); two launches bit-identical: {same}")
@@ -2417,15 +2477,17 @@ def _v2_ragged(torch, tfa, H, Hkv, D):
                              f"{same}")
 
 
-def _v2_full_width(pipe) -> bool:
-    """Whether ``pipe`` holds Show-o2 1.5B at 432x432 at full width (Qwen2.5
-    28 layers, 12 / 2 heads of 128; the DiT 10 layers, 32 / 8 of 64;
+def _v2_full_width(pipe, fam: V2Model = V2_15B) -> bool:
+    """Whether ``pipe`` holds ``fam`` at 432x432 at full width (Qwen2.5 28
+    layers of its width, heads and head; the DiT 10 layers, 32 / 8 of 64;
     SigLIP 26 layers; 27x27 patches and the time token an image) and the
     released Wan2.1 VAE."""
     cfg = pipe.cfg
     lc, dc, sc = cfg.llm, cfg.dit, cfg.siglip
-    return (lc.num_layers == 28 and lc.hidden_size == 1536
-            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == (12, 2, 128)
+    return (lc.num_layers == 28 and lc.hidden_size == fam.hidden
+            and lc.intermediate_size == fam.ffn
+            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == fam.heads
+            and lc.tie_word_embeddings == fam.tied
             and lc.vocab_size == 151940 and dc.num_layers == 10
             and dc.hidden_size == 2048
             and (dc.num_heads, dc.num_kv_heads, dc.head_dim) == (32, 8, 64)
@@ -2434,14 +2496,16 @@ def _v2_full_width(pipe) -> bool:
             and pipe.vae.cfg.temperal_downsample == (False, True, True))
 
 
-def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
-    """The Show-o2 432x432 pipeline: launch counts over one generate call,
-    output checks, warm wall time and peak memory.  Returns (kernel 1
-    launches of one generate, the slice's readings).  The time by
-    operator of one generate is ``profile_t2i.py --slice v2``'s (its
-    ~200,000 launches take the profiler minutes)."""
+def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi,
+                   fam: V2Model = V2_15B, phase="12"):
+    """The Show-o2 432x432 pipeline of ``fam``: launch counts over one
+    generate call (after a warm one), output checks, warm wall time (the
+    median of the counted generate and ``fam.timed`` more) and peak
+    memory.  Returns (kernel 1 launches of one generate, the slice's
+    readings).  The time by operator of one generate is ``profile_t2i.py
+    --slice v2``'s (its ~200,000 launches take the profiler minutes)."""
     cfg = pipe.cfg
-    if not (pipe.attn_route == "packed" and _v2_full_width(pipe)
+    if not (pipe.attn_route == "packed" and _v2_full_width(pipe, fam)
             and pipe.num_steps == 50 and pipe.guidance_scale == 7.5):
         raise AssertionError(f"not the full-width Show-o2 432x432 path: "
                              f"{pipe.attn_route}, {cfg}, {pipe.vae.cfg}")
@@ -2454,19 +2518,21 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
+    t0 = time.perf_counter()
     images = pipe.generate(prompts, gen)
+    counted_wall = time.perf_counter() - t0
     counts = {name: cuda_build.launches[name] for name in want}
     if counts != want:
         raise AssertionError(f"v2: kernel launches in one generate call "
                              f"{counts}, want {want}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if images.shape != (V2_BATCH, 432, 432, 3) or not np.isfinite(
+    if images.shape != (fam.batch, 432, 432, 3) or not np.isfinite(
             images).all():
         raise AssertionError(f"v2: images {images.shape} or non-finite")
     if images.min() < -1.0 or images.max() > 1.0:
         raise AssertionError("v2: images outside [-1, 1]")
-    walls = []
-    for _ in range(2):
+    walls = [counted_wall]
+    for _ in range(fam.timed):
         before = dict(cuda_build.launches)
         t0 = time.perf_counter()
         pipe.generate(prompts, gen)
@@ -2476,25 +2542,26 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi):
             raise AssertionError("v2: launch counts changed")
     wall = statistics.median(walls)
     text, _ = pipe.build_inputs(prompts)
-    print(f"[12] slice Show-o2 1.5B t2i 432x432 route packed, 50-point "
+    print(f"[{phase}] slice {fam.name} t2i 432x432 route packed, 50-point "
           f"Euler ({V2_EVALS} velocity evaluations), CFG 7.5, batch "
-          f"{V2_BATCH} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
+          f"{fam.batch} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
           f"random weights: launches per generate "
           f"{counts['omni_attention_packed']} = {V2_LAYERS} x {V2_EVALS} of "
           f"omni_attention_packed ({V2_QWEN_LAYERS} x {V2_EVALS} at "
           f"D=128, {V2_LAYERS - V2_QWEN_LAYERS} x {V2_EVALS} at D=64; "
           f"{counts[PACKED_WGMMA]} on the wgmma core, all reading "
           f"{counts[PACKED_TILES]} tile map), 0 of the others "
-          f"({GQA_SOURCE} among them); images {images.shape} finite in [-1, 1]; warm wall "
-          f"{wall:.4f} s/batch (median of 2: "
+          f"({GQA_SOURCE} among them); images {images.shape} finite in "
+          f"[-1, 1]; warm wall {wall:.4f} s/batch (median of "
+          f"{len(walls)}, the counted generate first: "
           f"{', '.join(f'{w:.4f}' for w in walls)}), "
-          f"{V2_BATCH * 60.0 / wall:.2f} images/min; peak memory allocated "
+          f"{fam.batch * 60.0 / wall:.2f} images/min; peak memory allocated "
           f"{peak:.2f} GiB on {smi}")
-    return counts, {"wall_s": wall, "images_per_min": V2_BATCH * 60.0 / wall,
+    return counts, {"wall_s": wall, "images_per_min": fam.batch * 60.0 / wall,
                     "peak_gib": peak}
 
 
-def phase_v2_parity(torch, pipe, prompts):
+def phase_v2_parity(torch, pipe, prompts, phase="13"):
     """One full-width velocity evaluation on the packed route against dense
     attention under the additive omni mask: the same weights, latents and
     t.  The reference's zero init of the DiT's adaLN projections and of the
@@ -2526,7 +2593,7 @@ def phase_v2_parity(torch, pipe, prompts):
                / v["dense", s].abs().max()).item()
            for s in (0.0, pipe.guidance_scale)}
     peak = v["dense", 0.0].abs().max().item()
-    print(f"[13] velocity parity packed vs dense (28 + 10 layers, "
+    print(f"[{phase}] velocity parity packed vs dense (28 + 10 layers, "
           f"{tuple(text.shape)}, bf16, t 0.5): max |dv| / peak "
           f"{rel[0.0]:.4e} unguided (peak |v| {peak:.4f}; tol "
           f"{V2_STEP_TOL}), {rel[pipe.guidance_scale]:.4e} with CFG "
@@ -2664,7 +2731,8 @@ def _check_images(np, images, shape, label):
         raise AssertionError(f"{label}: images outside [-1, 1]")
 
 
-def phase_v2_cached_kernels(torch, pipe, prompts):
+def phase_v2_cached_kernels(torch, pipe, prompts, shapes=V2_SHAPES,
+                            phase="15"):
     """Kernels 1 and 5 at the Show-o2 slice's cached shapes: B=8 fresh
     rows of the image span (Q=730) at the generate's per-row offsets
     against the K=768 cached keys, Qwen2.5 and DiT heads, through the
@@ -2691,7 +2759,7 @@ def phase_v2_cached_kernels(torch, pipe, prompts):
              for route in ("packed", "streaming")}
     vis = tfa.visible_mask(*m, base.pos_q)
     n_vis = int(vis.sum())
-    print(f"[15] the cached rows: B={B} Q={n} K={L}, offsets "
+    print(f"[{phase}] the cached rows: B={B} Q={n} K={L}, offsets "
           f"{mp[:, 0, 0].tolist()}; {n_vis} visible (row, key) pairs of "
           f"{B * n * L} ({n_vis / (B * n * L):.4f})")
     makers = {"packed": tfa.rows_tile_map, "streaming": tsa.streaming_tile_map}
@@ -2703,12 +2771,12 @@ def phase_v2_cached_kernels(torch, pipe, prompts):
             lambda route=route: makers[route](*m, base.pos_q, base.seg_q),
             lambda: tfa.rows_tile_map_plain(*m, base.pos_q),
             4 * (4 * B * L + 2 * B) + meta.tiles.numel(),
-            B * (-(-n // 64) * 64) * (-(-L // 64) * 64), 15, flag=True)
+            B * (-(-n // 64) * 64) * (-(-L // 64) * 64), phase, flag=True)
         if not torch.equal(meta.tiles, tiles):
             raise AssertionError(f"{route}: the map the model reads differs")
     g = torch.Generator(device="cuda").manual_seed(41)
     out = {"packed": {}, "streaming": {}, "tiles": maps}
-    for label, H, Hkv, D in V2_SHAPES:
+    for label, H, Hkv, D in shapes:
         q = torch.randn(B, n, H, D, generator=g, device="cuda").bfloat16()
         k, v = (torch.randn(B, L, Hkv, D, generator=g, device="cuda")
                 .bfloat16() for _ in range(2))
@@ -2740,7 +2808,7 @@ def phase_v2_cached_kernels(torch, pipe, prompts):
 
             res = _compare(torch, f"kernel {num} {shape}", kern,
                            lambda route=route: plain(route, base.pos_q),
-                           bound, sdpa, phase=15)
+                           bound, sdpa, phase=phase)
             got = kern()
             same = torch.equal(got, kern())
             shifted = base.pos_q.clone()
@@ -2754,7 +2822,8 @@ def phase_v2_cached_kernels(torch, pipe, prompts):
             lib_dev = _device_ms(torch, sdpa)
             res.update({"device_ms": dev_ms, "library_device_ms": lib_dev,
                         "planted_fault": fault})
-            print(f"[15] kernel {num} {shape}: two launches bit-identical; "
+            print(f"[{phase}] kernel {num} {shape}: two launches "
+                  f"bit-identical; "
                   f"planted fault (row 2's offset + 1) in the plain version "
                   f"{fault:.3e}, failing the check (tol {CARD_TOL:.0e}); "
                   f"device time a launch (profiler, mean of 20) "
@@ -2819,7 +2888,8 @@ def _latent_diff(a, b, label, phase):
 def phase_v2_cached(torch, np, cuda_build, pipe, prompts, smi):
     """The Show-o2 slice with ``prefix_cache=True`` (Euler 50, the weights
     of phase 13): launch counts, latents against the uncached pipeline on
-    the same noise, warm seconds in turns, peak memory.  Returns (counts,
+    the same noise, seconds in turns (the model warm from phases 12-15),
+    peak memory.  Returns (counts,
     readings, the noise, the uncached latents, the uncached wall)."""
     cached = _v2_variant(pipe, prefix_cache=True)
     g = torch.Generator(device="cuda").manual_seed(17)
@@ -2830,7 +2900,7 @@ def phase_v2_cached(torch, np, cuda_build, pipe, prompts, smi):
     plain_want = _v2_want(omni_attention_packed=V2_LAYERS * V2_EVALS,
                           **{PACKED_WGMMA: V2_LAYERS * V2_EVALS,
                              PACKED_TILES: 1})
-    cached.generate_latents(prompts, noise=z)             # warm-up
+    # no warm-up: the model and its kernels are warm from phases 12-15
     walls = {"cached": [], "uncached": []}
     lat = {}
     for turn in range(2):
@@ -2955,10 +3025,10 @@ def phase_v2_samplers(torch, np, cuda_build, pipe, prompts, smi, z, ref,
     return stream_counts[False], stream_counts[True], out
 
 
-def _v2_prefill(torch, qwen, embeds, bias):
+def _v2_prefill(torch, qwen, embeds, bias, new_tokens=MMU_NEW_TOKENS):
     """One prefill forward of the scaffold's embeddings [1, S, D] by Qwen2
     ``qwen`` (in its dtype) into a fresh cache of an answer's capacity (S +
-    MMU_NEW_TOKENS), as MMUV2Pipeline.generate runs it; returns the
+    ``new_tokens``), as MMUV2Pipeline.generate runs it; returns the
     logits of every row."""
     import torch.nn.functional as F
 
@@ -2966,7 +3036,7 @@ def _v2_prefill(torch, qwen, embeds, bias):
 
     dtype = qwen.model.embed_tokens.weight.dtype
     S = embeds.shape[1]
-    cap = S + MMU_NEW_TOKENS
+    cap = S + new_tokens
     cache = Qwen2KVCache.zeros(qwen.cfg, 1, cap, dtype=dtype,
                                device=embeds.device)
     with torch.no_grad():
@@ -2976,23 +3046,26 @@ def _v2_prefill(torch, qwen, embeds, bias):
 
 def _v2_matmuls(qwen):
     """The matmul modules a token streams: each layer's qkv, o, gate-up
-    and down, then the head (int8 ``lm_head``, or the tied embedding)."""
+    and down, then the head (``lm_head``: int8, or untied; else the tied
+    embedding)."""
     mods = [m for layer in qwen.model.layers
             for m in (layer.self_attn.qkv, layer.self_attn.o_proj,
                       layer.mlp.gu, layer.mlp.down_proj)]
     return mods + [getattr(qwen, "lm_head", qwen.model.embed_tokens)]
 
 
-def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
-    """Show-o2 image understanding at full width through the pipeline
-    ``inference_mmu_v2.build_pipeline`` made: launches over its first greedy
-    answer (int8: V2_MATMULS x 101 of kernel 9, the prefill's products on
-    the prefill kernel and the decode's on the gemv; bf16: no kernel at
-    all; no attention kernel in either), tokens in the vocabulary, VAE
-    encode / prompt / prefill times (medians of 3) and one warm answer's,
-    decode ms per token against the weight-streaming bound, peak memory,
-    and the device's idle share over one answer.  Returns the readings and
-    the prompt (embeddings, mask) of phase 18's logits check."""
+def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi,
+                 fam: V2Model = V2_15B, phase="18"):
+    """Show-o2 image understanding of ``fam`` at full width through the
+    pipeline ``inference_mmu_v2.build_pipeline`` made: launches over its
+    first greedy answer of ``fam.new_tokens`` tokens (int8: V2_MATMULS x
+    (1 + tokens) of kernel 9, the prefill's products on the prefill kernel
+    and the decode's on the gemv; bf16: no kernel at all; no attention
+    kernel in either), tokens in the vocabulary, VAE encode / prompt /
+    prefill times (medians of 3) and one warm answer's, decode ms per
+    token against the weight-streaming bound, peak memory, and the
+    device's idle share over one answer.  Returns the readings and the
+    prompt (embeddings, mask) of the logits check."""
     from torch import nn
 
     from showo_tpu_torch.models.phi import Int8Linear
@@ -3000,17 +3073,22 @@ def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
 
     qwen = pipe.model.showo
     lc = qwen.cfg
-    label = f"Show-o2 image understanding, {'int8' if int8 else 'bf16'}"
+    tokens = fam.new_tokens
+    label = (f"{fam.name} image understanding, "
+             f"{'int8' if int8 else 'bf16'}")
     linear = Int8Linear if int8 else nn.Linear
+    head = (Int8Linear if int8 else nn.Embedding if fam.tied
+            else nn.Linear)
     mods = _v2_matmuls(qwen)
-    if not (lc.num_layers == V2_QWEN_LAYERS and lc.hidden_size == 1536
-            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == (12, 2, 128)
-            and lc.vocab_size == 151940 and lc.tie_word_embeddings
-            and pipe.max_new_tokens == MMU_NEW_TOKENS and pipe.top_k == 1
+    if not (lc.num_layers == V2_QWEN_LAYERS and lc.hidden_size == fam.hidden
+            and (lc.num_heads, lc.num_kv_heads, lc.head_dim) == fam.heads
+            and lc.vocab_size == 151940
+            and lc.tie_word_embeddings == fam.tied
+            and pipe.max_new_tokens == tokens and pipe.top_k == 1
             and pipe.cfg.num_image_tokens == 730
             and pipe.vae.cfg.dim == 96
             and all(isinstance(m, linear) for m in mods[:-1])
-            and isinstance(mods[-1], Int8Linear if int8 else nn.Embedding)):
+            and isinstance(mods[-1], head)):
         raise AssertionError(f"{label}: not the full-width fused Qwen2.5 "
                              f"with {linear.__name__} matmuls: {lc}")
     dev = pipe.device
@@ -3021,9 +3099,9 @@ def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
 
     want = {name: 0 for name in COUNTERS}
     if int8:
-        want["int8_matmul"] = V2_MATMULS * (1 + MMU_NEW_TOKENS)
+        want["int8_matmul"] = V2_MATMULS * (1 + tokens)
         want[PREFILL_KERNEL] = V2_MATMULS
-        want["int8_matmul_gemv"] = V2_MATMULS * MMU_NEW_TOKENS
+        want["int8_matmul_gemv"] = V2_MATMULS * tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
@@ -3058,19 +3136,19 @@ def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
     if rows != V2_PROMPT_ROWS:
         raise AssertionError(f"{label}: {rows} prompt rows, phase 9 timed "
                              f"{V2_PROMPT_ROWS}")
-    prefill_ms = _wall_ms(torch, lambda: _v2_prefill(torch, qwen, embeds,
-                                                     bias), n=3)
+    prefill_ms = _wall_ms(torch, lambda: _v2_prefill(
+        torch, qwen, embeds, bias, tokens), n=3)
     answer_ms = _wall_ms(torch, answer, n=1)
-    decode_ms = (answer_ms - prompt_ms - prefill_ms) / MMU_NEW_TOKENS
+    decode_ms = (answer_ms - prompt_ms - prefill_ms) / tokens
     weight_bytes = sum(m.kernel_i8.numel() if int8 else 2 * m.weight.numel()
                        for m in mods)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    prof = profile(answer, f"[18] {label}: one answer,")
-    print(f"[18] {label}: {rows} prompt rows ({pipe.resolution}x"
+    prof = profile(answer, f"[{phase}] {label}: one answer,")
+    print(f"[{phase}] {label}: {rows} prompt rows ({pipe.resolution}x"
           f"{pipe.resolution} image, 729 patches + the time token), greedy, "
-          f"{MMU_NEW_TOKENS} new tokens ({len(toks)} before the first eos), "
+          f"{tokens} new tokens ({len(toks)} before the first eos), "
           f"launches per answer {counts['int8_matmul']} of int8_matmul = "
-          f"{V2_MATMULS} x {1 + MMU_NEW_TOKENS} ({counts[PREFILL_KERNEL]} on "
+          f"{V2_MATMULS} x {1 + tokens} ({counts[PREFILL_KERNEL]} on "
           f"the prefill kernel, {counts['int8_matmul_gemv']} on the gemv), 0 "
           f"of the others (attention dense, as JAX); VAE encode "
           f"{vae_ms:.2f} ms (fp32), prompt {prompt_ms:.2f} ms (VAE, "
@@ -3081,7 +3159,7 @@ def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
           f"{bound_ms:.4f} ms ({weight_bytes / 1e9:.3f} GB of matmul and "
           f"head weights per token over 3.35 TB/s); device idle share over "
           f"one answer {prof['idle_share']:.4f} ({prof['launches']} kernel "
-          f"launches), device busy {prof['busy_ms'] / MMU_NEW_TOKENS:.4f} ms "
+          f"launches), device busy {prof['busy_ms'] / tokens:.4f} ms "
           f"per token; peak memory allocated {peak:.2f} GiB on {smi}")
     return {"rows": rows, "vae_ms": vae_ms, "prompt_ms": prompt_ms,
             "prefill_ms": prefill_ms, "answer_ms": answer_ms,
@@ -3090,7 +3168,7 @@ def phase_mmu_v2(torch, cuda_build, profile, pipe, image, int8, smi):
             "bound_ms_per_token": bound_ms, "idle_share": prof["idle_share"],
             "peak_gib": peak, "launches": counts["int8_matmul"],
             "prefill_launches": counts[PREFILL_KERNEL],
-            "busy_ms_per_token": prof["busy_ms"] / MMU_NEW_TOKENS
+            "busy_ms_per_token": prof["busy_ms"] / tokens
             }, (embeds, bias)
 
 
@@ -3121,7 +3199,8 @@ def _int8_in_fp32(torch, qwen32, qwen_i8):
     return qwen32
 
 
-def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias):
+def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias,
+                        phase="18"):
     """Prefill logits of one scaffold (the int8 pipeline's embeddings) with
     int8 weights on kernel 9, with bf16 and fp32 weights of the same seeds
     (fp32 activations and full-fp32 matmuls), and with the int8 weights
@@ -3132,13 +3211,15 @@ def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias):
     no more than bf16 arithmetic does).  Read beside them: int8 against
     fp32, phase 11's pair, and the exact int8 model against fp32 (what the
     quantization alone moves on these random weights)."""
-    logits = {name: _v2_prefill(torch, qwen, embeds, bias).float()[0]
+    tokens = pipe_bf.max_new_tokens
+    logits = {name: _v2_prefill(torch, qwen, embeds, bias,
+                                tokens).float()[0]
               for name, qwen in (("int8", pipe_i8.model.showo),
                                  ("bf16", pipe_bf.model.showo),
                                  ("fp32", qwen32))}
     _int8_in_fp32(torch, qwen32, pipe_i8.model.showo)
-    logits["int8 in fp32"] = _v2_prefill(torch, qwen32, embeds,
-                                         bias).float()[0]
+    logits["int8 in fp32"] = _v2_prefill(torch, qwen32, embeds, bias,
+                                         tokens).float()[0]
 
     def compare(a, b):
         got, ref = logits[a], logits[b]
@@ -3154,7 +3235,8 @@ def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias):
     margin = (top2[:, 0] - top2[:, 1]).median().item()
     agree, rel = readings[("int8", "int8 in fp32")]
     floor = readings[("bf16", "fp32")][0] - V2_AGREE_SLACK
-    print(f"[18] Show-o2 prefill logits ({qwen32.cfg.num_layers} layers, "
+    print(f"[{phase}] Show-o2 prefill logits ({qwen32.cfg.num_layers} "
+          f"layers, hidden {qwen32.cfg.hidden_size}, "
           f"{embeds.shape[1]} rows, vocab {ref.shape[-1]}; fp32 peak |logit| "
           f"{ref.abs().max().item():.3f}, median top-1 margin {margin:.4f}): "
           + "; ".join(f"{a} vs {b} top-1 agreement {g:.4f}, max abs "
@@ -3172,13 +3254,15 @@ def phase_mmu_v2_parity(torch, pipe_bf, pipe_i8, qwen32, embeds, bias):
             for (a, b), (g, r) in readings.items()}
 
 
-def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi):
-    """Show-o2 video understanding at full width, bf16, through
-    ``inference_mmu_vid.build_pipeline``: V2_VIDEO_FRAMES frames made from
-    the in-tree image (each shifted a few pixels more than the last) into
-    a temporary directory and read back by ``load_video``; the latent
-    frames, the prompt rows, one greedy answer's tokens in the vocabulary,
-    no kernel launched, its wall time."""
+def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi,
+                  fam: V2Model = V2_15B, phase="18b", models=None):
+    """Show-o2 video understanding of ``fam`` at full width, bf16, through
+    ``inference_mmu_vid.build_pipeline`` (on ``models``, a build to share,
+    when given): V2_VIDEO_FRAMES frames made from the in-tree image (each
+    shifted a few pixels more than the last) into a temporary directory
+    and read back by ``load_video``; the latent frames, the prompt rows,
+    one greedy answer's tokens in the vocabulary, no kernel launched, its
+    wall time."""
     import tempfile
 
     from PIL import Image, ImageChops
@@ -3186,10 +3270,13 @@ def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi):
     from showo_tpu_torch.show_o2.showo2 import embed_images
     from showo_tpu_torch.utils.video import load_video
 
-    pipe = inference_mmu_vid.build_pipeline(config, torch.device("cuda"))
+    pipe = inference_mmu_vid.build_pipeline(config, torch.device("cuda"),
+                                            models=models)
     res = config.dataset.preprocessing.resolution
     if not (pipe.num_frames == V2_VIDEO_FRAMES and res == 432
             and pipe.cfg.llm.num_layers == V2_QWEN_LAYERS
+            and pipe.cfg.llm.hidden_size == fam.hidden
+            and pipe.max_new_tokens == fam.new_tokens
             and not pipe.quantize_int8 and pipe.vae.cfg.dim == 96):
         raise AssertionError(f"not the full-width bf16 video path: "
                              f"{pipe.num_frames} frames at {res}")
@@ -3225,12 +3312,13 @@ def phase_mmu_vid(torch, cuda_build, inference_mmu_vid, config, smi):
     if latents.shape[2] != V2_LATENT_FRAMES:
         raise AssertionError(f"video: {latents.shape[2]} latent frames, "
                              f"want {V2_LATENT_FRAMES}")
-    print(f"[18b] Show-o2 video understanding, bf16: {V2_VIDEO_FRAMES} "
+    print(f"[{phase}] {fam.name} video understanding, bf16: "
+          f"{V2_VIDEO_FRAMES} "
           f"frames of {res}x{res} (made from {MMU_IMAGE}, read by "
           f"load_video) -> latents {tuple(latents.shape)} "
           f"({latents.shape[2]} latent frames), {embeds.shape[1]} prompt "
           f"rows (span {pipe.span(latents.shape[2])}), greedy, "
-          f"{MMU_NEW_TOKENS} new tokens ({len(toks)} before the first eos) "
+          f"{fam.new_tokens} new tokens ({len(toks)} before the first eos) "
           f"in the vocabulary, no kernel launched; one answer "
           f"{wall:.2f} s wall (the first: VAE, SigLIP per frame, prefill, "
           f"decode); peak memory allocated {peak:.2f} GiB on {smi}")
@@ -3974,7 +4062,7 @@ def _serve_row(torch, cuda_build, profile, server, probe, label, phase,
     budget met with ids in the vocabulary, kernel 9 launches a decode step
     / prefill / admission, no other kernel, the teacher-forced check), then
     one profiled decode window (of one chunk) of SERVE_SLOTS fresh
-    requests."""
+    requests, which are not drained: the caller drops the server."""
     eng = server.engine
     gen = torch.Generator(device=eng.device).manual_seed(1)
     handles, run = _serve_run(torch, cuda_build, server, probe, submits, gen)
@@ -4001,8 +4089,11 @@ def _serve_row(torch, cuda_build, profile, server, probe, label, phase,
                              f"check failed: {_tf_line(tf, sampling)}")
     probe.snaps.clear()
     lane_tokens = eng.stat_step_tokens / max(1, eng.stat_lane_steps)
+    ab = (f"; A/B choice {eng.ab_choice} (trace {eng.ab_trace[:4]})"
+          if eng._alt_decode_chunk is not None else "")
+    ab_choice = eng.ab_choice
     # one decode window (of one chunk) of SERVE_SLOTS fresh requests,
-    # profiled
+    # profiled; the server is dropped after it, its requests not drained
     for submit in window_req:
         submit()
     eng._fill_slots(gen)
@@ -4010,10 +4101,6 @@ def _serve_row(torch, cuda_build, profile, server, probe, label, phase,
     eng.lookahead = 1
     prof = profile(lambda: eng._decode_once(gen, []),
                    f"[{phase}] {label}: one decode window of one chunk,")
-    eng.lookahead = SERVE_LOOKAHEAD
-    server.run(gen)
-    ab = (f"; A/B choice {eng.ab_choice} (trace {eng.ab_trace[:4]})"
-          if eng._alt_decode_chunk is not None else "")
     drafts = (f"; tokens a lane step {lane_tokens:.4f}, share of drafts "
               f"accepted {(lane_tokens - 1) / spec:.4f}"
               + (" (both programs' windows)" if ab else "")
@@ -4044,7 +4131,7 @@ def _serve_row(torch, cuda_build, profile, server, probe, label, phase,
             "launches_per_admission": None if fus is None else fus[0],
             "idle_share_window": prof["idle_share"],
             "tokens_per_lane_step": lane_tokens,
-            "ab_choice": eng.ab_choice,
+            "ab_choice": ab_choice,
             **{k: v for k, v in tf.items() if k not in ("ok", "label")}}
 
 
@@ -4323,10 +4410,13 @@ def _v2_train_meta(torch, seq_len, batch_size=2):
     return span_meta(seg, None, None, None, batch_size, seq_len, seg.device)
 
 
-def phase_v2_train_kernels(torch, phase="23"):
-    """Kernels 7 and 8 at head dim 128 (Qwen2.5's 12 q / 2 kv heads) on the
-    metadata of the Show-o2 stage-1 batch, B=2: kernel 7 at S=1024 and
-    kernel 8 at S=2048.  Each kernel set's tile map against its plain
+def phase_v2_train_kernels(torch, phase="23", heads=V2_TRAIN_HEADS,
+                           cases=((7, 1024), (8, 2048))):
+    """Kernels 7 and 8 at head dim 128 (Qwen2.5's ``heads``: 1.5B's 12 q /
+    2 kv, or the 7B's 28 / 4) on the metadata of the Show-o2 stage-1
+    batch, B=2, at (kernel, S) of ``cases``: kernel 7 at S=1024 and
+    kernel 8 at S=2048 for the 1.5B, kernel 8 at S=1024 for the 7B.  Each
+    kernel set's tile map against its plain
     version byte for byte; the forward, lse, dq and dk/dv against the
     plain versions (CARD_TOL, GRAD_TOL) and bit-stable over two launches;
     CUDA-event medians of kernel, plain version and the library
@@ -4338,10 +4428,10 @@ def phase_v2_train_kernels(torch, phase="23"):
 
     from showo_tpu_torch.ops import streaming_attention_grad as tsag
 
-    h, hkv, d = V2_TRAIN_HEADS
+    h, hkv, d = heads
     g = torch.Generator(device="cuda").manual_seed(23)
     results = {}
-    for kernel, S in ((7, V2_TRAIN_SEQ[0]), (8, V2_TRAIN_SEQ[1])):
+    for kernel, S in cases:
         m = _v2_train_meta(torch, S)
         ks = _kernel_set(torch, kernel, hkv, H=h, D=d)
         B = m[0].shape[0]
@@ -4412,20 +4502,32 @@ def phase_v2_train_kernels(torch, phase="23"):
     return results
 
 
-def _v2_train_want(steps: int, seq_len: int) -> dict:
-    """The launch counts of ``steps`` Show-o2 stage-1 steps on the
-    trainable route (remat "full": two forwards a layer): 28 Qwen2.5
-    layers at head dim 128 and 10 DiT layers at 64, on kernel 7 at 1024
-    tokens and on kernel 8 at 2048; each forward makes one tile map."""
-    table = TRAIN_KERNELS if seq_len <= 1024 else STREAM_TRAIN_KERNELS
-    fwd, dq, dkv, tiles = list(table)
-    layers = V2_QWEN_LAYERS + V2_DIT_LAYERS
+def _v2_train_want(steps: int, seq_len: int,
+                   fam: V2Model = V2_15B) -> dict:
+    """The launch counts of ``steps`` Show-o2 stage-1 steps of ``fam`` on
+    the trainable route (remat "full": two forwards a layer): 28 Qwen2.5
+    layers at head dim 128 and 10 DiT layers at 64, each tower on kernel 7
+    where ``packed_trainable_fits`` at its heads (the JAX dispatcher's
+    budget), else on kernel 8 (1.5B: both towers on kernel 7 at 1024
+    tokens, on kernel 8 at 2048; 7B at 1024: Qwen's 28 / 4 heads past the
+    budget on kernel 8, the DiT on kernel 7); each forward makes one tile
+    map."""
+    from showo_tpu_torch.ops.packed_attention_grad import \
+        packed_trainable_fits
+
+    bq = min(256, ((seq_len + 127) // 128) * 128)
     want = {name: 0 for name in COUNTERS}
-    want.update({fwd: 2 * layers * steps, dq: layers * steps,
-                 dkv: layers * steps, tiles: 2 * layers * steps,
-                 fwd + D128: 2 * V2_QWEN_LAYERS * steps,
-                 dq + D128: V2_QWEN_LAYERS * steps,
-                 dkv + D128: V2_QWEN_LAYERS * steps})
+    for (h, hkv, d), layers in ((fam.heads, V2_QWEN_LAYERS),
+                                (V2_DIT_HEADS, V2_DIT_LAYERS)):
+        table = (TRAIN_KERNELS if packed_trainable_fits(seq_len, h, hkv, d,
+                                                        bq)
+                 else STREAM_TRAIN_KERNELS)
+        fwd, dq, dkv, tiles = list(table)
+        counts = {fwd: 2, dq: 1, dkv: 1, tiles: 2}
+        if d == 128:
+            counts.update({fwd + D128: 2, dq + D128: 1, dkv + D128: 1})
+        for name, per in counts.items():
+            want[name] += per * layers * steps
     return want
 
 
@@ -4458,7 +4560,7 @@ def _v2_trainer(torch, phase):
 
 
 def _v2_steps(torch, cuda_build, trainer, batch, steps, seq_len, label,
-              phase):
+              phase, fam: V2Model = V2_15B):
     """``steps`` steps on ``batch`` with one fixed draw each (so the loss
     falls), the launch counts set to 0 before them and held to
     :func:`_v2_train_want`; returns (walls, losses, metrics, counts)."""
@@ -4471,7 +4573,7 @@ def _v2_steps(torch, cuda_build, trainer, batch, steps, seq_len, label,
         losses.append(float(m["loss"]))             # waits for the step
         walls.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
-    want = _v2_train_want(steps, seq_len)
+    want = _v2_train_want(steps, seq_len, fam)
     counts = {name: cuda_build.launches[name] for name in want}
     if counts != want:
         raise AssertionError(f"{label}: launches over {steps} steps "
@@ -4535,6 +4637,7 @@ def phase_v2_train(torch, cuda_build, profile, trainer, smi, phase="24"):
           f"{_per_step(lcounts, 1)}; loss {llosses[0]:.4f}; "
           f"{lwalls[0]:.4f} s; peak memory allocated {lpeak:.2f} GiB")
     return {"slice": {"step_s": wall, "samples_per_s": V2_TRAIN_BATCH / wall,
+                      "walls": walls,
                       "peak_gib": peak, "idle_share": prof["idle_share"],
                       "launches_profiled": prof["launches"],
                       "losses": losses, "step_s_2048": lwalls[0],
@@ -4860,7 +4963,7 @@ def _rung_steps(torch, cuda_build, trainer, batch, steps):
             "launches": launches}
 
 
-def phase_rungs(torch, cuda_build, trainer, smi, phase="28"):
+def phase_rungs(torch, cuda_build, trainer, smi, phase="28", known=None):
     """The remat rungs on phase 24's trainer (the full-width Show-o2
     stage-1 trainer on ``trainable``).  First, on one prepared batch (2
     rows x 1024, one und), each rung's losses and grad norm against
@@ -4870,8 +4973,10 @@ def phase_rungs(torch, cuda_build, trainer, smi, phase="28"):
     peak memory, kernel 7's launches a step (76 forwards: the forward is
     recomputed under every rung), or "out of memory" (a reading, not a
     failure; any other exception fails the phase); and one step of
-    RUNG_BIG_BATCH rows under adafactor + ``qkv_fc1_attn``.  Returns
-    {"parity": ..., "ladder": ..., "big": ...}."""
+    RUNG_BIG_BATCH rows under adafactor + ``qkv_fc1_attn``.  ``known``:
+    cells already measured ({"adamw full": phase 24's steps, which are
+    that cell's: the same trainer, mode and batch}), not run again.
+    Returns {"parity": ..., "ladder": ..., "big": ...}."""
     from showo_tpu_torch.profile_train import v2_batch
     from showo_tpu_torch.training.train_step import global_norm
 
@@ -4908,9 +5013,14 @@ def phase_rungs(torch, cuda_build, trainer, smi, phase="28"):
     ladder = {}
     for optimizer in RUNG_OPTIMIZERS:
         for rung in RUNGS:
-            _v2_mode(torch, trainer, rung, optimizer)
-            res = _rung_steps(torch, cuda_build, trainer, batch, RUNG_STEPS)
-            ladder[f"{optimizer} {rung}"] = res or "out of memory"
+            cell = f"{optimizer} {rung}"
+            if cell in (known or {}):
+                res = known[cell]
+            else:
+                _v2_mode(torch, trainer, rung, optimizer)
+                res = _rung_steps(torch, cuda_build, trainer, batch,
+                                  RUNG_STEPS)
+            ladder[cell] = res or "out of memory"
             what = ("out of memory" if res is None else
                     f"{res['s']:.4f} s a step "
                     f"({', '.join(f'{w:.4f}' for w in res['walls'])}), "
@@ -4921,7 +5031,8 @@ def phase_rungs(torch, cuda_build, trainer, smi, phase="28"):
                      f"held after it")
             print(f"[{phase}] ladder {V2_TRAIN_BATCH} rows x "
                   f"{V2_TRAIN_SEQ[0]}, trainable, {optimizer}, remat "
-                  f"{rung}: {what}")
+                  f"{rung}: {what}"
+                  + (" (phase 24's steps)" if cell in (known or {}) else ""))
     _v2_mode(torch, trainer, "qkv_fc1_attn", "adafactor")
     big = _rung_steps(torch, cuda_build, trainer, v2_batch(
         n_img, RUNG_BIG_BATCH, V2_TRAIN_SEQ[0], und=V2_TRAIN_UND), 1)
@@ -5459,47 +5570,64 @@ def _stage2_data(tmp):
 
 
 def _parity(torch, step, prepared, phase, label):
-    """One step's losses and grad norm on ``trainable`` against ``dense`` on
-    the same prepared batch (phase 25's limits)."""
+    """One step on ``trainable`` against ``dense`` on the same prepared
+    batch, every family to one rule: each loss within phase 25's
+    V2_TRAIN_LOSS_TOL, and the gradient vectors of the trained parameters
+    within V2_TRAIN_GRAD_TOL of each other, ||g_trainable - g_dense|| /
+    ||g_dense|| (the trainable route's gradients kept in bf16 while the
+    dense one runs: 2^-9 of the distance at most); the grad norms printed
+    beside them."""
     from showo_tpu_torch.show_o2.masks import omni_attn_mask
     from showo_tpu_torch.training.train_step import global_norm
 
     L = prepared.text_tokens.shape[1]
     dense = dataclasses.replace(prepared, attn_meta=None, bias=omni_attn_mask(
         prepared.modality_positions, L))
-    got = {}
+    got, kept = {}, None
     for route, b in (("trainable", prepared), ("dense", dense)):
         total, parts, grads = step.loss_and_grads(b)
         got[route] = [float(x) for x in (total, *parts, global_norm(grads))]
+        if kept is None:
+            kept = [g.to(torch.bfloat16) for g in grads]
+        else:
+            diff = sum(float((g - k.float()).square().sum())
+                       for g, k in zip(grads, kept))
+            vector = (diff / got["dense"][-1] ** 2) ** 0.5
         del grads
+    kept = None
     names = ("loss", "loss_ntp", "loss_flow", "grad_norm")
-    rel = {n: abs(a - b) / abs(b) for n, a, b in
-           zip(names, got["trainable"], got["dense"])}
+    rel = {n: abs(a - b) / abs(b) for n, a, b in zip(names, got["trainable"],
+                                                     got["dense"])}
     print(f"[{phase}] {label} step parity, trainable vs dense: "
           + ", ".join(f"{n} {a:.5f} vs {b:.5f} (rel {rel[n]:.2e})"
                       for n, a, b in zip(names, got["trainable"],
                                          got["dense"]))
-          + f"; tol {V2_TRAIN_LOSS_TOL} (losses), {V2_TRAIN_GRAD_NORM_TOL} "
-          f"(grad norm)")
-    bad = [n for n in names if rel[n] > (V2_TRAIN_GRAD_NORM_TOL
-                                         if n == "grad_norm"
-                                         else V2_TRAIN_LOSS_TOL)]
+          + f"; gradient vectors {vector:.3e} apart; tol {V2_TRAIN_LOSS_TOL} "
+          f"(losses), {V2_TRAIN_GRAD_TOL} (gradient vectors)")
+    rel["grad_vector"] = vector
+    bad = [n for n in names[:3] if rel[n] > V2_TRAIN_LOSS_TOL]
+    if vector > V2_TRAIN_GRAD_TOL:
+        bad.append("grad_vector")
     if bad:
         raise AssertionError(f"{label}: trainable vs dense differ in {bad}: "
                              f"{rel}")
     return rel
 
 
-def phase_stage2_train(torch, cuda_build, smi, phase="32"):
-    """Show-o2 1.5B stage 2 on LLaVA conversations at full width and depth
-    (``configs/showo2_1.5b_stage_2_a.yaml``) through
-    ``train_stage_two.build_trainer`` on ``trainable``: one batch of the
-    CLI's loader (``build_stage2_loader``: 4 t2i jsonl rows and 4
-    ``MMUDataset`` rows of 1024 at 432x432, concatenated on their shared
-    keys), under the 2a freeze, then with every weight trained (a new
-    optimizer): a warm step and STAGE2_STEPS timed ones each, kernel 7's
-    launches a step held to the layer counts, s a step, samples/s, peak
-    memory, and one step's losses and grad norm against ``dense``."""
+def phase_stage2_train(torch, cuda_build, smi, phase="32",
+                       fam: V2Model = V2_15B, config_path=STAGE2_CONFIG,
+                       stages=("2a freeze", "frozen_params=[]"), rows=4):
+    """Show-o2 stage 2 of ``fam`` on LLaVA conversations at full width and
+    depth (``config_path``, by default ``configs/showo2_1.5b_stage_2_a
+    .yaml``) through ``train_stage_two.build_trainer`` on ``trainable``:
+    one batch of the CLI's loader (``build_stage2_loader``: ``rows`` t2i
+    jsonl rows and ``rows`` ``MMUDataset`` rows of 1024 at 432x432,
+    concatenated on their shared keys), under the 2a freeze, then (when
+    ``stages`` has it) with every weight trained (a new optimizer): a warm
+    step and STAGE2_STEPS timed ones each, the trainable kernels' launches
+    a step held to the layer counts (:func:`_v2_train_want`), s a step,
+    samples/s, peak memory, and one step's losses and gradients against
+    ``dense`` (:func:`_parity`)."""
     import tempfile
 
     from showo_tpu_torch.config import load_config
@@ -5509,12 +5637,16 @@ def phase_stage2_train(torch, cuda_build, smi, phase="32"):
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        config = load_config(STAGE2_CONFIG, _stage2_data(tmp))
+        config = load_config(config_path, _stage2_data(tmp) + [
+            f"training.batch_size_t2i={rows}",
+            f"training.batch_size_mmu={rows}"])
         trainer = t2.build_trainer(config, torch.device("cuda"),
                                    attn_impl="trainable")
         c, sc = trainer.model.cfg, trainer.sc
         if not (c.llm.num_layers == V2_QWEN_LAYERS
-                and c.llm.hidden_size == 1536
+                and c.llm.hidden_size == fam.hidden
+                and (c.llm.num_heads, c.llm.num_kv_heads, c.llm.head_dim)
+                == fam.heads and c.llm.tie_word_embeddings == fam.tied
                 and c.dit.num_layers == V2_DIT_LAYERS
                 and sc.remat == "full" and sc.attn_impl == "trainable"):
             raise AssertionError(f"not the full stage-2 trainer: {c}, {sc}")
@@ -5522,22 +5654,25 @@ def phase_stage2_train(torch, cuda_build, smi, phase="32"):
         loader = t2.build_stage2_loader(config, tok, ids, trainer.model)
         batch = next(iter(loader))
     mp, types = batch["modality_positions"], list(batch["data_type"])
-    n_img = c.num_image_tokens
-    if not (batch["text_tokens"].shape == (8, 1024)
-            and batch["images"].shape == (8, 432, 432, 3)
-            and types == ["t2i"] * 4 + ["mmu"] * 4
+    n_img, n = c.num_image_tokens, 2 * rows
+    if not (batch["text_tokens"].shape == (n, 1024)
+            and batch["images"].shape == (n, 432, 432, 3)
+            and types == ["t2i"] * rows + ["mmu"] * rows
             and (mp[:, 0, 1] == n_img).all() and "texts" not in batch):
         raise AssertionError(f"stage-2 batch {batch['text_tokens'].shape} "
                              f"{batch['images'].shape} {types} "
                              f"{mp.tolist()} {sorted(batch)}")
-    print(f"[{phase}] stage-2 trainer built from {STAGE2_CONFIG} in "
-          f"{time.perf_counter() - t0:.1f} s; the CLI's loader gave 4 t2i "
-          f"jsonl rows and 4 conversation rows ({n_img} image tokens each, "
-          f"spans at {mp[4:, 0, 0].tolist()}; labelled answer tokens "
-          f"{(batch['text_labels'][4:] != -100).sum(1).tolist()}), keys "
+    print(f"[{phase}] {fam.name} stage-2 trainer built from {config_path} "
+          f"in {time.perf_counter() - t0:.1f} s; the CLI's loader gave "
+          f"{rows} t2i jsonl rows and {rows} conversation rows ({n_img} "
+          f"image tokens each, spans at {mp[rows:, 0, 0].tolist()}; "
+          f"labelled answer tokens "
+          f"{(batch['text_labels'][rows:] != -100).sum(1).tolist()}), keys "
           f"{sorted(batch)}")
     for stage, frozen in (("2a freeze", trainer.frozen_substrings),
                           ("frozen_params=[]", ())):
+        if stage not in stages:
+            continue
         if not frozen:
             trainer.frozen_substrings = ()
             trainer.optimizer = trainer.step_fn.optimizer = \
@@ -5550,22 +5685,23 @@ def phase_stage2_train(torch, cuda_build, smi, phase="32"):
         torch.cuda.reset_peak_memory_stats()
         walls, losses, _, counts = _v2_steps(
             torch, cuda_build, trainer, batch, STAGE2_STEPS, V2_TRAIN_SEQ[0],
-            f"stage 2 ({stage})", phase)
+            f"stage 2 ({stage})", phase, fam)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         wall = statistics.median(walls)
         n_train = sum(p.numel() for p in trainer.optimizer.params)
         rel = _parity(torch, trainer.step_fn, trainer.step_fn.prepare(
             trainer.device_batch(batch), torch.Generator(device="cuda")
             .manual_seed(33)), phase, f"stage 2 ({stage})")
-        print(f"[{phase}] stage-2 training ({stage}: {n_train} trainable "
-              f"parameters), 8 rows x 1024 at 432x432, bf16 autocast: "
-              f"kernel 7 launches a step {_per_step(counts, STAGE2_STEPS)}, "
-              f"0 of the others; losses {[round(x, 4) for x in losses]}; "
-              f"step {wall:.4f} s (median of {STAGE2_STEPS}: "
-              f"{', '.join(f'{w:.4f}' for w in walls)}), {8 / wall:.4f} "
-              f"samples/s, peak memory allocated {peak:.2f} GiB on {smi}")
+        print(f"[{phase}] {fam.name} stage-2 training ({stage}: {n_train} "
+              f"trainable parameters), {n} rows x 1024 at 432x432, bf16 "
+              f"autocast: trainable kernels' launches a step "
+              f"{_per_step(counts, STAGE2_STEPS)}, 0 of the others; losses "
+              f"{[round(x, 4) for x in losses]}; step {wall:.4f} s (median "
+              f"of {STAGE2_STEPS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+              f"{n / wall:.4f} samples/s, peak memory allocated {peak:.2f} "
+              f"GiB on {smi}")
         out[stage] = {"step_s": wall, "walls": walls, "samples_per_s":
-                      8 / wall, "peak_gib": peak, "losses": losses,
+                      n / wall, "peak_gib": peak, "losses": losses,
                       "trainable": n_train, "counts": counts, "parity": rel}
     trainer = None
     return out
@@ -6342,6 +6478,10 @@ def phase_vq_psnr(torch, np, smi, phase="35d"):
 # kernels on the same values (each weight gathered whole first), so the
 # limit is fp32 round-off
 MESH_LOSS_TOL = 1e-5
+# 36e: a trained tensor's update norm sharded against unsharded at world 1,
+# relative (the same arithmetic; adafactor's means as a sum over the
+# global extent / n, fp32 round-off)
+MESH_UPDATE_TOL = 1e-4
 MESH_CKPT_DEPTH = 2          # the checkpoint's Phi depth (full width: 16 GB)
 MESH_V2_ROWS, MESH_V2_SEQ = 2, 1024      # bench.py's train_v2 rows
 MESH_RING = (1, 12, 2, 128, 4096)        # B, H, Hkv, D, S: Qwen2.5's width
@@ -6485,6 +6625,78 @@ def _mesh_checkpoint(torch, mesh, phase="36a"):
     return {"files": files, "save_s": save_s, "equal": same}
 
 
+def _mesh_optimizers(torch, cuda_build, mesh, dev, phase="36e"):
+    """``adamw_bf16`` and ``adafactor`` on the Show-o2 1.5B stage-1 trainer
+    (36b's, built with ``training.optimizer``) at world size 1 over NCCL:
+    one step of 36b's batch unsharded, then sharded from the same seeded
+    weights; the losses and grad norm held to MESH_LOSS_TOL, and each
+    trained parameter's update (the norm of its change) to
+    MESH_UPDATE_TOL of the unsharded update's; adafactor on the JAX
+    package's tensors of the sharded parameters, its state DTensors."""
+    from showo_tpu_torch.parallel import mesh as tmesh
+    from showo_tpu_torch.profile_train import v2_batch, v2_config
+    from showo_tpu_torch.show_o2.train_stage_one import build_trainer
+
+    out = {}
+    for name in ("adamw_bf16", "adafactor"):
+        res = {}
+        for sharded in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            tr = build_trainer(v2_config(f"training.optimizer={name}"), dev,
+                               attn_impl="trainable",
+                               mesh=mesh if sharded else None)
+            params = tr.optimizer.params
+            if sharded != all(tmesh.is_dtensor(p) for p in params):
+                raise AssertionError(f"[{phase}] {name} sharded={sharded}: "
+                                     f"parameters {type(params[0])}")
+            batch = v2_batch(tr.model.cfg.num_image_tokens, MESH_V2_ROWS,
+                             MESH_V2_SEQ)
+            before = [tmesh.local(p).detach().clone() for p in params]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(batch, torch.Generator(device="cuda")
+                              .manual_seed(36))
+            first = {k: float(v) for k, v in m.items()}
+            wall = time.perf_counter() - t0
+            update = torch.stack([(tmesh.local(p).detach() - b).double()
+                                  .norm() for p, b in zip(params, before)])
+            state = (tr.optimizer.inner.v if name == "adafactor"
+                     else tr.optimizer.inner.mu)
+            leaf = state[0][0] if name == "adafactor" else state[0]
+            res[sharded] = {"first": first, "update": update.cpu(),
+                            "step_s": wall,
+                            "state_dtensor": tmesh.is_dtensor(leaf)}
+            tr = params = before = state = leaf = None
+        u, s_ = res[False], res[True]
+        keys = [k for k in u["first"] if k.startswith("loss")
+                or k == "grad_norm"]
+        rel = {k: abs(s_["first"][k] - u["first"][k])
+               / max(abs(u["first"][k]), 1e-30) for k in keys}
+        upd = ((s_["update"] - u["update"]).abs()
+               / u["update"].clamp_min(1e-30)).max().item()
+        moved = int((u["update"] > 0).sum())
+        print(f"[{phase}] {name}, Show-o2 1.5B stage 1, {MESH_V2_ROWS} x "
+              f"{MESH_V2_SEQ}, trainable, mesh (1, 1, 1) vs unsharded, one "
+              f"step from the same weights: "
+              + ", ".join(f"{k} {s_['first'][k]:.6f} vs {u['first'][k]:.6f}"
+                          f" (rel {rel[k]:.2e})" for k in keys)
+              + f" (tol {MESH_LOSS_TOL:.0e}); the update of each of "
+              f"{len(u['update'])} trained tensors ({moved} moved): largest "
+              f"relative difference {upd:.2e} (tol {MESH_UPDATE_TOL:.0e}); "
+              f"state DTensors on the mesh: {s_['state_dtensor']}; first "
+              f"step {s_['step_s']:.4f} vs {u['step_s']:.4f} s")
+        if not (max(rel.values()) <= MESH_LOSS_TOL and upd <= MESH_UPDATE_TOL
+                and s_["state_dtensor"] and not u["state_dtensor"]
+                and 2 * moved >= len(u["update"])):
+            raise AssertionError(f"[{phase}] {name}: sharded vs unsharded "
+                                 f"{rel}, update {upd}, state "
+                                 f"{s_['state_dtensor']}, moved {moved}")
+        out[name] = {"rel": rel, "update_rel": upd, "step_s": s_["step_s"],
+                     "unsharded_step_s": u["step_s"]}
+    return out
+
+
 def _mesh_ring(torch, phase="36c"):
     """Ring attention over an "sp" group of 1 at Qwen2.5's width against
     kernel 5 (streaming, GQA and head dim 128) on the same inputs."""
@@ -6608,8 +6820,10 @@ def phase_mesh(torch, np, cuda_build, smi, phase="36"):
     """Phase 36: the NCCL group of one rank, the (1, 1, 1) mesh, and on it
     36a the v1 stage-1 step at full width (29 x 387, kernel 7), then a
     rank-0 checkpoint and a resume; 36b Show-o2 1.5B stage 1 (2 rows x
-    1024, kernel 7 at head dims 64 and 128); 36c ring attention; 36d the
-    serving engine.  The group is destroyed at the end, pass or fail."""
+    1024, kernel 7 at head dims 64 and 128), and 36e its step under
+    adamw_bf16 and adafactor against the unsharded step; 36c ring
+    attention; 36d the serving engine.  The group is destroyed
+    at the end, pass or fail."""
     import torch.distributed as dist
 
     from showo_tpu_torch.parallel import mesh as tmesh
@@ -6662,6 +6876,8 @@ def phase_mesh(torch, np, cuda_build, smi, phase="36"):
                 tr.device_batch(tr.mesh_batch),
                 torch.Generator(device="cuda").manual_seed(36)))
         marks.append(time.perf_counter())
+        out["optimizers"] = _mesh_optimizers(torch, cuda_build, mesh, dev)
+        marks.append(time.perf_counter())
         gc.collect()
         torch.cuda.empty_cache()
         out["ring"] = _mesh_ring(torch)
@@ -6671,11 +6887,246 @@ def phase_mesh(torch, np, cuda_build, smi, phase="36"):
     finally:
         dist.destroy_process_group()
     out["s"] = time.perf_counter() - t0
-    out["parts_s"] = dict(zip(("36a", "36b", "36c", "36d"),
+    out["parts_s"] = dict(zip(("36a", "36b", "36e", "36c", "36d"),
                               (b - a for a, b in zip(marks, marks[1:]))))
     print(f"[{phase}] the mesh phase in {out['s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in out["parts_s"].items())
           + f") on {smi}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 37: Show-o2 7B (Qwen2.5-7B: 28 q / 4 kv heads of 128, untied head)
+
+
+def _7b_streaming(torch, pipe, prompts, fam, phase="37a"):
+    """Kernel 5 (streaming, head-major views) at the 7B slice's t2i rows,
+    Qwen2.5-7B's and the DiT's heads, through the model's call
+    (``qwen2.gqa_attention`` on the route's metadata, its tile map made
+    once), against its plain version, with the library and the bound;
+    the kernels' launches all on the core.  Returns {label: result}."""
+    import torch.nn.functional as F
+
+    from showo_tpu_torch.ops import cuda_build
+    from showo_tpu_torch.ops import flash_attention as tfa
+    from showo_tpu_torch.ops import streaming_attention as tsa
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
+    from showo_tpu_torch.show_o2 import qwen2 as tqwen2
+
+    text, mp = pipe.build_inputs(prompts)
+    B, L = text.shape
+    base = attention_inputs(pipe.attn_route, text, mp)[1]
+    m = (base.seg, base.pad, base.last_pad, base.prefix)
+    meta = tqwen2.packed_meta(("streaming", *m))
+    vis = tfa.visible_mask(*m, base.pos_q)
+    n_vis = int(vis.sum())
+    g = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    for label, H, Hkv, D in fam.shapes:
+        q = torch.randn(B, L, H, D, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, L, Hkv, D, generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        heads = [t.transpose(1, 2) for t in (q, k, v)]
+        shape = f"{label}: B={B} S={L} H={H} Hkv={Hkv} D={D}"
+        bound = _bound(2 * (2 * B * L * H + 2 * B * L * Hkv) * D
+                       + 4 * (4 * B * L + 2 * B), 4 * D * H * n_vis)
+        before = cuda_build.launches["streaming_attention"]
+        res = _compare(
+            torch, f"kernel 5 {shape}",
+            lambda: tqwen2.gqa_attention(q, k, v, None, meta),
+            lambda: tsa.omni_attention_streaming_plain(
+                *heads, *m, base.pos_q, sm_scale=D ** -0.5).transpose(
+                    1, 2).reshape(B, L, H * D),
+            bound, lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=vis[:, None], enable_gqa=True),
+            phase=phase)
+        if cuda_build.launches["streaming_attention"] == before:
+            raise AssertionError(f"{shape}: kernel 5 did not launch")
+        res["device_ms"] = _device_ms(
+            torch, lambda: tqwen2.gqa_attention(q, k, v, None, meta))
+        print(f"[{phase}] kernel 5 {shape}: device {_ms(res['device_ms'])} "
+              f"a launch (profiler, mean of 20)")
+        out[label] = res
+        del q, k, v, heads
+    return out
+
+
+def _wsmm_7b(torch, cuda_build, fam, phase="37a"):
+    """Kernels 9 (int8) and 10 (int4) at the 7B's products (qkv with its
+    bias, o, gate-up, down, the untied lm_head) at decode (M=1) and at the
+    image prompt's rows, each against its plain version (the gemv at M=1,
+    the prefill kernel above).  Returns {"int8": {case: result},
+    "int4": ...}."""
+    out = {"int8": {}, "int4": {}}
+    seed = 371
+    for int4, key in ((False, "int8"), (True, "int4")):
+        for name, (K, N, bias) in fam.int8_shapes.items():
+            for M in (1, V2_PROMPT_ROWS):
+                label = f"7b {name} M={M}"
+                out[key][label] = _wsmm_case(
+                    torch, cuda_build, label, M, K, N, int4, seed,
+                    bias=bias, beside=False, phase=phase)
+                seed += 1
+    return out
+
+
+def phase_7b(torch, np, cuda_build, profile, smi, phase="37"):
+    """Phase 37: Show-o2 7B (Qwen2.5-7B: hidden 3584, 28 q / 4 kv heads of
+    128, FFN 18944, an untied head; random weights from the seeds) through
+    the normal entry points, one model build shared by the t2i and the
+    understanding configs (their dims agree).  37a: the kernels at the
+    7B's shapes against their plain versions (kernels 1 and 6, group 7
+    among them, at the t2i rows; kernel 5 there; kernels 1 and 5 at the
+    cached rows; kernel 8 at 28 / 4 and S=1024; kernels 9 and 10 at the
+    7B's products); 37b: t2i through ``inference_t2i_v2.build_pipeline``
+    on ``configs/showo2_7b_demo_432x432.yaml`` (batch 2, Euler 50, CFG
+    7.5, packed) and packed against dense velocity; 37c: image and video
+    understanding on ``configs/showo2_7b_demo_video_understanding.yaml``
+    in bf16 and int8, the int8 logits against bf16 and the exact int8
+    model; 37d: the stage-2a step on ``configs/showo2_7b_stage_2_a.yaml``
+    (kernel 8 in Qwen's layers, kernel 7 in the DiT's), trainable against
+    dense by phase 32's rule (:func:`_parity`).  cuDNN's convolutions (the Wan2.1
+    VAE) run on PyTorch's default TF32, as in phases 18 and 32 (with it
+    off the fp32 encode of one image took ~0.9 s on an H100)."""
+    from showo_tpu_torch import (inference_mmu_v2, inference_mmu_vid,
+                                 inference_t2i_v2)
+    from showo_tpu_torch.config import load_config
+
+    fam = V2_7B
+    dev = torch.device("cuda")
+    marks = [time.perf_counter()]
+    config = load_config(V2_7B_CONFIG)
+    pipe = inference_t2i_v2.build_pipeline(config, dev)
+    torch.cuda.synchronize()
+    qwen = pipe.model.showo
+    print(f"[{phase}] {fam.name} pipeline built in "
+          f"{time.perf_counter() - marks[0]:.1f} s (random weights from "
+          f"seeds): {sum(p.numel() for p in pipe.model.parameters())} "
+          f"parameters ({sum(p.numel() for p in qwen.parameters())} in "
+          f"Qwen2.5-7B, its untied lm_head "
+          f"{tuple(qwen.lm_head.weight.shape)}), VAE "
+          f"{sum(p.numel() for p in pipe.vae.parameters())}; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    if not _v2_full_width(pipe, fam):
+        raise AssertionError(f"[{phase}] not the full-width 7B: {pipe.cfg}")
+    prompts = inference_t2i_v2.load_prompts(config)[:fam.batch]
+    out = {"kernels": phase_v2_kernels(torch, pipe, prompts, fam.shapes,
+                                       f"{phase}a")}
+    out["streaming"] = _7b_streaming(torch, pipe, prompts, fam, f"{phase}a")
+    out["cached"] = phase_v2_cached_kernels(torch, pipe, prompts, fam.shapes,
+                                            f"{phase}a")
+    out["train"] = phase_v2_train_kernels(torch, f"{phase}a", fam.heads,
+                                          ((8, V2_TRAIN_SEQ[0]),))
+    out["wsmm"] = _wsmm_7b(torch, cuda_build, fam, f"{phase}a")
+    marks.append(time.perf_counter())
+    launches, out["t2i"] = phase_v2_slice(torch, np, cuda_build, pipe,
+                                          prompts, smi, fam, f"{phase}b")
+    out["t2i"]["launches"] = launches
+    out["t2i"]["parity"] = phase_v2_parity(torch, pipe, prompts,
+                                           f"{phase}b")
+    marks.append(time.perf_counter())
+    models = (pipe.model, pipe.vae)
+    pipe = qwen = None
+    und_config = load_config(V2_7B_UND_CONFIG, [
+        f"max_new_tokens={fam.new_tokens}", "top_k=1"])
+    und = inference_mmu_v2.build_pipeline(und_config, dev, models=models)
+    und_i8 = dataclasses.replace(und, model=copy.deepcopy(und.model),
+                                 quantize_int8=True)
+    image = _mmu_image(und.resolution)
+    mmu = {}
+    mmu["bf16"], _ = phase_mmu_v2(torch, cuda_build, profile, und, image, 0,
+                                  smi, fam, f"{phase}c")
+    mmu["int8"], (embeds, bias) = phase_mmu_v2(
+        torch, cuda_build, profile, und_i8, image, 1, smi, fam, f"{phase}c")
+    qwen32 = inference_t2i_v2.load_model(und_config, und.cfg, dev,
+                                         torch.float32).showo
+    mmu["logits"] = phase_mmu_v2_parity(torch, und, und_i8, qwen32, embeds,
+                                        bias, f"{phase}c")
+    und_i8 = qwen32 = embeds = bias = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mmu["video"] = phase_mmu_vid(torch, cuda_build, inference_mmu_vid,
+                                 und_config, smi, fam, f"{phase}c", models)
+    out["mmu"] = mmu
+    und = models = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["stage2"] = phase_stage2_train(
+        torch, cuda_build, smi, f"{phase}d", fam, V2_7B_STAGE2_CONFIG,
+        ("2a freeze",), V2_7B_STAGE2_ROWS)["2a freeze"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["parts_s"] = dict(zip(("37a", "37b", "37c", "37d"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    out["s"] = marks[-1] - marks[0]
+    print(f"[{phase}] the 7B phase in {out['s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["parts_s"].items())
+          + f") on {smi}")
+    return out
+
+
+def _kernels_7b(b7) -> list:
+    """The kernels line's entries of phase 37: each kernel at the 7B's
+    shapes, its launches on the 7B's paths (37b's generate, 37c's int8
+    answer, 37d's step), every number this run's."""
+    qwen = V2_7B.shapes[0][0]
+    fwd = "showo_tpu_torch/csrc/{}.cu (+ attention_fwd_sm90.cuh)"
+    t2i = b7["t2i"]["launches"]
+    step = b7["stage2"]["counts"]
+    int8 = b7["mmu"]["int8"]
+    wsmm = b7["wsmm"]
+    entries = [
+        ("omni_attention_packed_7b", fwd.format("omni_attention_packed"),
+         KERNELS["packed"][1], t2i["omni_attention_packed"],
+         b7["kernels"]["packed"], f"{qwen}, t2i rows",
+         {"slice": {k: v for k, v in b7["t2i"].items() if k != "launches"},
+          "launches_wgmma": t2i[PACKED_WGMMA]}),
+        (GQA_SOURCE + "_7b", fwd.format(GQA_SOURCE), GQA_REPLACES, 0,
+         b7["kernels"]["stacked"], f"{qwen} (group 7), t2i rows", {}),
+        ("streaming_attention_7b", fwd.format("streaming_attention"),
+         KERNELS["streaming"][1], 0, b7["streaming"], f"{qwen}, t2i rows",
+         {}),
+        ("omni_attention_packed_7b_cached", fwd.format(
+            "omni_attention_packed"), KERNELS["packed"][1], 0,
+         b7["cached"]["packed"], f"{qwen}, cached rows", {}),
+        ("streaming_attention_7b_cached", fwd.format("streaming_attention"),
+         KERNELS["streaming"][1], 0, b7["cached"]["streaming"],
+         f"{qwen}, cached rows", {}),
+    ]
+    out = [{"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, **cases[qwen],
+            "case": case, "cases": cases, **extra}
+           for name, source, replaces, launches, cases, case, extra
+           in entries]
+    for name in list(STREAM_TRAIN_KERNELS)[:3]:
+        out.append({"name": name + D128 + "_7b", "route": "cuda",
+                    "source": f"showo_tpu_torch/csrc/"
+                              f"{STREAM_TRAIN_SOURCE}.cu",
+                    "replaces": STREAM_TRAIN_KERNELS[name][0],
+                    "launches": step[name + D128],
+                    **b7["train"][name + D128],
+                    "case": "Qwen2.5-7B 28/4 D=128, S=1024",
+                    # the DiT's layers of the same steps, on kernel 7
+                    "launches_kernel7_dit": {
+                        n: step[n] for n in list(TRAIN_KERNELS)[:3]},
+                    "stage2a": {k: v for k, v in b7["stage2"].items()
+                                if k != "counts"}})
+    for name, source, key, case, launches in (
+            ("int8_matmul_7b", "int8_matmul.cu", "int8", "7b gate-up M=1",
+             int8["launches"]),
+            ("int8_matmul_prefill_7b", "int8_matmul.cu (+ "
+             "weight_stream_prefill.cuh)", "int8",
+             f"7b gate-up M={V2_PROMPT_ROWS}", int8["prefill_launches"]),
+            ("int4_matmul_7b", "int4_matmul.cu (+ weight_stream_prefill"
+             ".cuh)", "int4", "7b gate-up M=1", 0)):
+        out.append({"name": name, "route": "cuda",
+                    "source": f"showo_tpu_torch/csrc/{source}",
+                    "replaces": WSMM_KERNELS[source.split(".")[0]],
+                    "launches": launches, **wsmm[key][case], "case": case,
+                    "cases": wsmm[key],
+                    **({"slice": b7["mmu"]} if key == "int8" else {})})
     return out
 
 
@@ -6961,14 +7412,16 @@ def main() -> int:
     # [35b] run_mmu_eval on phase 18's bf16 pipeline
     evaluation["mmu_v2"] = phase_eval_mmu_v2(torch, cuda_build, smi, pipe,
                                              eval_data, eval_tmp.name)
+    models = (pipe.model, pipe.vae)
     pipe = None
     gc.collect()
     torch.cuda.empty_cache()
     parts.append(("evaluation, Show-o2 [35b]", time.perf_counter()))
 
-    # [18b] Show-o2 video understanding, bf16
+    # [18b] Show-o2 video understanding, bf16, on phase 18's model build
     vid = phase_mmu_vid(torch, cuda_build, inference_mmu_vid, und_config,
-                        smi)
+                        smi, models=models)
+    models = None
     parts.append(("Show-o2 video [18b]", time.perf_counter()))
 
     # [19] / [19b] Show-o2 text/image-to-video (bench.py's t2v rows) through
@@ -7056,7 +7509,14 @@ def main() -> int:
     # [28] the training throughput modes: the remat ladder on phase 24's
     # trainer, then bench.py's four training rows, each through its
     # build_trainer
-    rungs = phase_rungs(torch, cuda_build, trainer, smi)
+    steps24 = v2_train["slice"]
+    rungs = phase_rungs(torch, cuda_build, trainer, smi, known={
+        "adamw full": {
+            "s": steps24["step_s"], "walls": steps24["walls"],
+            "peak_gib": steps24["peak_gib"],
+            "launches": {n: c / V2_TRAIN_STEPS for n, c in v2_train[
+                "counts"][V2_TRAIN_SEQ[0]].items()
+                if n in list(TRAIN_KERNELS)[:3]}}})
     trainer = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -7113,6 +7573,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh36 = phase_mesh(torch, np, cuda_build, smi)
     parts.append(("mesh [36]", time.perf_counter()))
+
+    # [37] Show-o2 7B: its kernels' shapes, t2i, understanding, stage 2a
+    gc.collect()
+    torch.cuda.empty_cache()
+    b7 = phase_7b(torch, np, cuda_build, profile, smi)
+    parts.append(("Show-o2 7B [37]", time.perf_counter()))
     eval_s = {part: end - begin for (part, end), (_, begin)
               in zip(parts[1:], parts) if "35" in part}
     print(f"[35] the evaluation chain in {sum(eval_s.values()):.1f} s: "
@@ -7346,6 +7812,7 @@ def main() -> int:
                             **({"rungs": rungs, "train_rows": train_rows}
                                if seq == V2_TRAIN_SEQ[0]
                                and name.endswith("_fwd") else {})})
+    kernels += _kernels_7b(b7)
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

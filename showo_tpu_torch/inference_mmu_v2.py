@@ -37,15 +37,18 @@ _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp")
 
 
 def build_pipeline(config, device: Optional[torch.device] = None,
-                   video: bool = False) -> MMUV2Pipeline:
+                   video: bool = False, models=None) -> MMUV2Pipeline:
     """Config -> ready MMUV2Pipeline, or with ``video`` MMUVidPipeline
     (``num_frames``, default 9); weights loaded or random-init.
 
     device defaults to CUDA and raises without a card; the CPU runs only
-    when asked for (``device="cpu"``)."""
+    when asked for (``device="cpu"``).  ``models``: a (Show-o2, VAE) pair
+    of this config's dims already built (``load_models``), to share one
+    build between pipelines; the pipeline fuses (and with ``int8``
+    quantizes) it in place."""
     device = entry_device(device)
     tokenizer, token_ids = load_tokenizer_and_ids(config)
-    model, vae = load_models(config, device)
+    model, vae = models or load_models(config, device)
     kw = dict(model=model, vae=vae, tokenizer=tokenizer,
               token_ids=token_ids,
               max_new_tokens=int(config.get("max_new_tokens", 300)),

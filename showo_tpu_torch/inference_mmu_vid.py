@@ -27,11 +27,12 @@ from showo_tpu_torch.pipelines.mmu_vid import MMUVidPipeline
 from showo_tpu_torch.utils.video import load_video
 
 
-def build_pipeline(config, device: Optional[torch.device] = None
-                   ) -> MMUVidPipeline:
+def build_pipeline(config, device: Optional[torch.device] = None,
+                   models=None) -> MMUVidPipeline:
     """Config -> ready MMUVidPipeline (``inference_mmu_v2.build_pipeline``
-    with ``video=True``)."""
-    return inference_mmu_v2.build_pipeline(config, device, video=True)
+    with ``video=True``; ``models`` as there)."""
+    return inference_mmu_v2.build_pipeline(config, device, video=True,
+                                           models=models)
 
 
 def main() -> None:

@@ -286,7 +286,7 @@ def named_parameters(model: nn.Module) -> Iterator[Tuple[str, nn.Parameter]]:
         yield clean_name(n), p
 
 
-def _owners(model: nn.Module) -> Dict[str, Tuple[str, nn.Module, str]]:
+def owners(model: nn.Module) -> Dict[str, Tuple[str, nn.Module, str]]:
     """clean parameter name -> (module name, module, parameter name)."""
     out = {}
     for mname, mod in model.named_modules():
@@ -303,7 +303,7 @@ def _owners(model: nn.Module) -> Dict[str, Tuple[str, nn.Module, str]]:
     return out
 
 
-def _param(mod: nn.Module, pname: str) -> torch.Tensor:
+def stored(mod: nn.Module, pname: str) -> torch.Tensor:
     """``mod.<pname>`` as stored: a sharded parameter's DTensor, not the
     gathered tensor an access makes."""
     if parametrize.is_parametrized(mod, pname):
@@ -360,8 +360,8 @@ def param_sharding_rules(model: nn.Module, mesh) -> Dict[str, ParamSpec]:
     layer axis first), then carried to the port tensor's dims."""
     stacks = _stacks(model)
     out = {}
-    for name, (mname, mod, pname) in _owners(model).items():
-        p = _param(mod, pname)
+    for name, (mname, mod, pname) in owners(model).items():
+        p = stored(mod, pname)
         path, n_layers = jax_path(mname, mod, pname, stacks)
         perm = _jax_perm(mod, pname, p.dim())
         piece = tuple(p.shape[i] for i in perm)
@@ -675,9 +675,9 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
 
     info = MeshInfo.of(mesh)
     specs = param_sharding_rules(model, mesh)
-    owners = _owners(model)
+    owned = owners(model)
     for name, spec in specs.items():
-        mname, mod, pname = owners[name]
+        mname, mod, pname = owned[name]
         p = getattr(mod, pname)
         if isinstance(p, DTensor) or parametrize.is_parametrized(mod, pname):
             raise ValueError(f"{name} is already sharded")
@@ -726,6 +726,38 @@ def local(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard (a view: writing it writes the DTensor);
     any other tensor as it is."""
     return x.to_local() if is_dtensor(x) else x
+
+
+def shard_dims(x: torch.Tensor) -> Dict[int, int]:
+    """{mesh dim: tensor dim} of the mesh dims whose placement splits
+    DTensor ``x`` ({} for any other tensor)."""
+    if not is_dtensor(x):
+        return {}
+    return {i: pl.dim for i, pl in enumerate(x.placements) if pl.is_shard()}
+
+
+@torch.no_grad()
+def sum_over(x: torch.Tensor, mesh, mesh_dims) -> torch.Tensor:
+    """``x``, a partial sum of this rank, summed in place over the groups
+    of ``mesh``'s dims ``mesh_dims`` (a group of one rank is skipped);
+    returns ``x``."""
+    for i in sorted(set(mesh_dims)):
+        if mesh.size(i) > 1:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group(i))
+    return x
+
+
+def like_shards(x: torch.Tensor, mesh, split: Mapping[int, int]):
+    """``x``, this rank's piece, as a DTensor of ``mesh`` split by
+    ``split`` ({mesh dim: tensor dim}, every other mesh dim replicated);
+    ``x`` itself without a mesh."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pls = tuple(Shard(split[i]) if i in split else Replicate()
+                for i in range(mesh.ndim))
+    return DTensor.from_local(x, mesh, pls, run_check=False)
 
 
 @torch.no_grad()

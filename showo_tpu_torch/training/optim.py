@@ -37,16 +37,32 @@ the tensors must be the JAX package's: its layer stacks are scanned, one
 transposed, convolution weights in HWIO / DHWIO order); an optimizer
 built without it takes each parameter as a tensor of its own.  AdamW and
 ``adamw_bf16`` are elementwise and need no map.
+
+Parameters sharded over a mesh (``parallel/mesh.py``: DTensors, split
+like the JAX package's tensors under GSPMD) step shard by shard, their
+state sharded like them: ``adamw_bf16`` keeps each moment a DTensor of
+its parameter's placements; ``adafactor`` reads a tensor's global shape
+for its factored dims and sums over the mesh dims that split the tensor
+what spans it whole (the row and column means of g^2, the mean of the
+row statistics, the update's and the parameter's RMS), and keeps its
+statistics as DTensors split like the axes they keep.  So a sharded step
+gives the unsharded one's update, up to the order of the sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
+
+from showo_tpu_torch.parallel.mesh import (is_dtensor, like_shards, local,
+                                           owners, shard_dims, stored,
+                                           sum_over)
 
 OPTIMIZERS = ("adamw", "adamw_bf16", "adafactor")
 
@@ -70,7 +86,8 @@ class JaxTensor:
     """One tensor of the JAX package's parameter tree as the port holds
     it: ``params`` (the layers of a stack in order, or one parameter)
     each seen in JAX's axis order through ``perm``; the tensor is their
-    stack along a new axis 0 when ``stacked``."""
+    stack along a new axis 0 when ``stacked``.  Sharded parameters
+    (DTensors, all split alike) give this rank's piece of the tensor."""
 
     key: str
     params: Tuple[nn.Parameter, ...]
@@ -79,19 +96,66 @@ class JaxTensor:
 
     @property
     def shape(self) -> Tuple[int, ...]:
+        """The global shape (a DTensor's ``shape`` is its whole one)."""
         piece = tuple(self.params[0].shape[i] for i in self.perm)
         return (len(self.params),) + piece if self.stacked else piece
 
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The shape of this rank's piece."""
+        p = local(self.params[0])
+        piece = tuple(p.shape[i] for i in self.perm)
+        return (len(self.params),) + piece if self.stacked else piece
+
+    @property
+    def mesh(self):
+        """The device mesh of sharded parameters, else None."""
+        p = self.params[0]
+        return p.device_mesh if is_dtensor(p) else None
+
+    @property
+    def split(self) -> Dict[int, int]:
+        """{mesh dim: axis of this tensor} of the mesh dims that split it."""
+        return {i: self.perm.index(d) + int(self.stacked)
+                for i, d in shard_dims(self.params[0]).items()}
+
     def gather(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
-        views = [t.permute(self.perm) for t in pieces]
+        views = [local(t).permute(self.perm) for t in pieces]
         return torch.stack(views) if self.stacked else views[0]
 
     def scatter_add_(self, update: torch.Tensor) -> None:
-        """params += update (a tensor of :attr:`shape`)."""
+        """params += update (this rank's piece of a tensor of
+        :attr:`shape`)."""
         parts = update.unbind(0) if self.stacked else (update,)
         inv = tuple(int(i) for i in np.argsort(self.perm))
         for p, u in zip(self.params, parts):
-            p.add_(u.permute(inv))
+            local(p).add_(u.permute(inv))
+
+    def mean(self, x: torch.Tensor, axis: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``axis`` of this rank's piece ``x`` (this
+        tensor's axes), over the whole tensor's extent: summed over the
+        mesh dims that split ``axis``."""
+        dims = [i for i, a in self.split.items() if a == axis]
+        if not dims:
+            return x.mean(axis, keepdim=keepdim)
+        return sum_over(x.sum(axis, keepdim=keepdim), self.mesh,
+                        dims) / self.shape[axis]
+
+    def rms(self, x: torch.Tensor) -> torch.Tensor:
+        """The RMS of the whole tensor whose piece is ``x``."""
+        if not self.split:
+            return _rms(x)
+        s = sum_over(torch.sum(torch.square(x)), self.mesh, self.split)
+        return torch.sqrt(s / math.prod(self.shape))
+
+    def state(self, piece: torch.Tensor, dropped: Optional[int] = None):
+        """A state tensor of this rank (``piece``, this tensor's axes but
+        ``dropped``) as a DTensor split like the axes it keeps (a
+        sharded tensor), else as it is."""
+        split = {i: a - int(dropped is not None and a > dropped)
+                 for i, a in self.split.items() if a != dropped}
+        return like_shards(piece, self.mesh, split)
 
 
 def _perm(module: nn.Module, name: str, p: torch.Tensor) -> Tuple[int, ...]:
@@ -107,20 +171,22 @@ def jax_tensors(model: nn.Module) -> List[JaxTensor]:
     """Every parameter of ``model`` (trainable or not) in the JAX
     package's tensors: the entries of an ``nn.ModuleList`` whose layers
     are all of one class are stacked (JAX scans them), one tensor per
-    parameter name within the layer."""
-    owner = {}
-    for mname, mod in model.named_modules():
-        for pname, p in mod.named_parameters(recurse=False):
-            owner[id(p)] = (mod, pname)
+    parameter name within the layer.  A sharded model's parameters are
+    its DTensors, named as the unsharded model's."""
     stacks = {}
     for mname, mod in model.named_modules():
-        if (isinstance(mod, nn.ModuleList) and len(mod)
-                and len({type(m) for m in mod}) == 1):
+        if (isinstance(mod, nn.ModuleList)
+                and not isinstance(mod, parametrize.ParametrizationList)
+                and len(mod) and len({type(m) for m in mod}) == 1):
             for i, layer in enumerate(mod):
                 stacks[f"{mname}.{i}." if mname else f"{i}."] = (mname, i)
     out: Dict[str, list] = {}
-    for name, p in model.named_parameters():
-        mod, pname = owner[id(p)]
+    seen = set()
+    for name, (_, mod, pname) in owners(model).items():
+        p = stored(mod, pname)
+        if id(p) in seen:              # a parameter shared by two modules
+            continue
+        seen.add(id(p))
         perm = _perm(mod, pname, p)
         key, stacked = name, False
         for prefix, (sname, i) in stacks.items():
@@ -159,6 +225,17 @@ def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
+def _zeros_like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype``; for a DTensor, a DTensor of
+    its placements (this rank's shard zeroed)."""
+    if not is_dtensor(p):
+        return torch.zeros_like(p, dtype=dtype)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(torch.zeros_like(local(p), dtype=dtype),
+                              p.device_mesh, p.placements, run_check=False)
+
+
 def check_state_shapes(what: str, mine: Sequence[torch.Tensor],
                    saved: Sequence[torch.Tensor]) -> None:
     """ValueError unless ``saved`` holds as many tensors as ``mine``, each
@@ -183,10 +260,8 @@ class AdamWBf16:
         self.params = list(params)
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.bfloat16)
-                   for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32)
-                   for p in self.params]
+        self.mu = [_zeros_like(p, torch.bfloat16) for p in self.params]
+        self.nu = [_zeros_like(p, torch.float32) for p in self.params]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
@@ -201,7 +276,8 @@ class AdamWBf16:
         b1_mu = float(torch.tensor(self.b1, dtype=torch.bfloat16))
         for p, g, mu, nu, lr in zip(self.params, grads, self.mu, self.nu,
                                     lrs):
-            g = g.float()
+            # elementwise: a sharded parameter steps its shard
+            p, g, mu, nu = local(p), local(g).float(), local(mu), local(nu)
             # optax's order of operations, each rounded on its own
             m = (1 - self.b1) * g + b1_mu * mu.float()
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
@@ -222,7 +298,7 @@ class AdamWBf16:
             check_state_shapes(f"adamw_bf16 {key}", mine, list(sd[key]))
         self.count = int(sd["count"])
         for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
-            dst.copy_(src)
+            local(dst).copy_(local(src))
 
 
 class Adafactor:
@@ -238,17 +314,20 @@ class Adafactor:
         self.count = 0
         self.v: List[Tuple[torch.Tensor, ...]] = []
         for t in self.tensors:
-            p, shape = t.params[0], t.shape
-            dims = factored_dims(shape)
+            # this rank's piece; the factored dims are the global shape's
+            piece, device = t.local_shape, t.params[0].device
+            dims = factored_dims(t.shape)
+
+            def zeros(d=None):
+                return t.state(torch.zeros(
+                    [n for i, n in enumerate(piece) if i != d],
+                    dtype=torch.float32, device=device), d)
+
             if dims is None:
-                self.v.append((torch.zeros(shape, dtype=torch.float32,
-                                           device=p.device),))
+                self.v.append((zeros(),))
             else:
                 d1, d0 = dims
-                self.v.append(tuple(
-                    torch.zeros([s for i, s in enumerate(shape) if i != d],
-                                dtype=torch.float32, device=p.device)
-                    for d in (d0, d1)))
+                self.v.append((zeros(d0), zeros(d1)))
 
     @torch.no_grad()
     def step(self, grads: Dict[int, torch.Tensor], lrs: Dict[int, float]
@@ -264,20 +343,26 @@ class Adafactor:
             g2 = torch.square(g) + EPS
             dims = factored_dims(t.shape)
             if dims is None:
-                (vf,) = v
+                vf = local(v[0])
                 vf.copy_(decay * vf + (1.0 - decay) * g2)
                 u = g * torch.rsqrt(vf)
             else:
                 d1, d0 = dims
-                vr, vc = v
-                vr.copy_(decay * vr + (1.0 - decay) * g2.mean(d0))
-                vc.copy_(decay * vc + (1.0 - decay) * g2.mean(d1))
-                rd1 = d1 - 1 if d1 > d0 else d1
-                row = torch.rsqrt(vr / vr.mean(rd1, keepdim=True))
+                vr, vc = (local(x) for x in v)
+                vr.copy_(decay * vr + (1.0 - decay) * t.mean(g2, d0))
+                vc.copy_(decay * vc + (1.0 - decay) * t.mean(g2, d1))
+                # vr's mean over the tensor's axis d1 (vr lacks axis d0)
+                if d1 in t.split.values():
+                    vr_mean = t.mean(vr.unsqueeze(d0), d1,
+                                     keepdim=True).squeeze(d0)
+                else:
+                    vr_mean = vr.mean(d1 - 1 if d1 > d0 else d1,
+                                      keepdim=True)
+                row = torch.rsqrt(vr / vr_mean)
                 u = g * row.unsqueeze(d0) * torch.rsqrt(vc).unsqueeze(d1)
-            u = u / torch.clamp(_rms(u) / CLIPPING_THRESHOLD, min=1.0)
+            u = u / torch.clamp(t.rms(u) / CLIPPING_THRESHOLD, min=1.0)
             u = u * lr
-            rms_p = _rms(p)
+            rms_p = t.rms(p)
             u = u * torch.where(rms_p <= MIN_SCALE, MIN_SCALE, rms_p)
             if self.wd:
                 u = u + self.wd * p
@@ -300,4 +385,4 @@ class Adafactor:
         self.count = int(sd["count"])
         for t, v in zip(self.tensors, self.v):
             for dst, src in zip(v, saved[t.key]):
-                dst.copy_(src)
+                local(dst).copy_(local(src))

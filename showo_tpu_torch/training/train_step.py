@@ -15,9 +15,11 @@ trainers': JAX's ``multi_transform`` of one clip + optimizer chain a
 group), each clipped by its own global norm at its own factor of the
 schedule's rate.  Parameters without a gradient are left out and stay
 as they are (JAX's ``set_to_zero`` for frozen parameters).  Parameters
-sharded over a mesh (``parallel/mesh.py``, DTensors) take ``adamw``, which
-is elementwise and steps each shard; ``adamw_bf16`` and ``adafactor``
-raise NotImplementedError on them.
+sharded over a mesh (``parallel/mesh.py``, DTensors) take every
+optimizer, as JAX's do under GSPMD: ``adamw`` and ``adamw_bf16`` step
+each shard, ``adafactor`` sums over the mesh what spans a whole tensor
+(``training/optim.py``); the state is sharded like the parameters, and
+a whole state (``utils/checkpoint.py``) loads on any mesh.
 """
 
 from __future__ import annotations
@@ -89,11 +91,6 @@ class Optimizer:
         self.groups = [g for g in ((tuple(p for p in ps if p.requires_grad),
                                     f) for ps, f in groups) if g[0]]
         self.params = [p for ps, _ in self.groups for p in ps]
-        if self.name != "adamw" and any(is_dtensor(p) for p in self.params):
-            raise NotImplementedError(
-                f"optimizer {self.name!r} is not ported to parameters "
-                f"sharded over a ('dp', 'fsdp', 'tp') mesh (its moments or "
-                f"factored statistics span whole tensors); use 'adamw'")
         self.tc = tc
         self.schedule = lr_schedule or (lambda step: tc.learning_rate)
         betas = (getattr(tc, "adam_beta1", 0.9),
@@ -189,14 +186,17 @@ class Optimizer:
         if acc is not None:
             check_state_shapes("accumulated gradients", self.params, acc)
         inner = sd[self.name]
-        if self.adamw is not None and any(is_dtensor(p) for p in self.params):
+        if any(is_dtensor(p) for p in self.params):
             # a whole state (utils/checkpoint.py) -> this rank's chunks
             acc = None if acc is None else [
                 shard_like(a, p) for a, p in zip(acc, self.params)]
-            inner = dict(inner, state={
-                i: {k: shard_like(v, self.params[int(i)])
-                    if torch.is_tensor(v) and v.dim() else v
-                    for k, v in st.items()}
-                for i, st in inner["state"].items()})
+            if self.adamw is not None:
+                inner = dict(inner, state={
+                    i: {k: shard_like(v, self.params[int(i)])
+                        if torch.is_tensor(v) and v.dim() else v
+                        for k, v in st.items()}
+                    for i, st in inner["state"].items()})
+            else:
+                inner = shard_like(inner, self.inner.state_dict())
         (self.adamw or self.inner).load_state_dict(inner)
         self.steps, self.micro, self._acc = sd["steps"], sd["micro"], acc

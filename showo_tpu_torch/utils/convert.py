@@ -99,7 +99,8 @@ def load_clip_vit(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
 
 def load_showo2(model: torch.nn.Module, sd: Mapping[str, np.ndarray]):
     """Load a reference Show-o2 state dict (``showo.model.layers...``,
-    ``und_trans.layers...``, ``diffusion_head_a.{i}...``) into a not yet
+    ``und_trans.layers...``, ``diffusion_head_a.{i}...``; with an untied
+    Qwen2, as the 7B's, ``showo.lm_head.weight`` too) into a not yet
     fused :class:`~showo_tpu_torch.show_o2.showo2.Showo2`."""
     return _load(model, sd)
 

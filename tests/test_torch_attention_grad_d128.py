@@ -5,11 +5,13 @@ at the Show-o2 shapes.
 On the CPU the wrappers run their plain versions, held to JAX's Pallas
 kernels in interpret mode on seeded numpy inputs (S not a multiple of 64,
 pads, image segments, a prefix, rows with no visible key), GQA groups of
-6 and 4: the packed forward and lse at rtol / atol 1e-5, the K-blocked
+6, 4 and 7 (7 / 1 and Qwen2.5-7B's 28 / 4): the packed forward and lse at
+rtol / atol 1e-5, the K-blocked
 (kernel 8) forward at 1e-5, and dq / dk / dv through each package's VJP
 at 2e-3 (as tests/test_torch_packed_attention_grad.py holds them at head
 dim 64).  ``packed_trainable_fits`` is pinned at the Show-o2 lengths:
-kernel 7 to S = 1280 for Qwen and to S = 1024 for the DiT, kernel 8 past.
+kernel 7 to S = 1280 for Qwen2.5-1.5B, to S = 512 for the 7B and to S =
+1024 for the DiT, kernel 8 past.
 
 On the card (skipped without one: a CUDA kernel has no CPU mode) the
 wgmma kernels at head dim 128 are held to their plain versions as
@@ -35,7 +37,7 @@ torch.set_num_threads(1)
 D = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-3)
-GROUPS = [(6, 1), (4, 1), (12, 2)]
+GROUPS = [(6, 1), (4, 1), (12, 2), (7, 1), (28, 4)]
 
 
 def _setup(B=2, S=150, H=6, Hkv=1, seed=0):
@@ -104,7 +106,7 @@ def test_packed_grads_vs_jax(H, Hkv):
                                    **GRAD_TOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("H,Hkv", [(6, 1), (4, 2)])
+@pytest.mark.parametrize("H,Hkv", [(6, 1), (4, 2), (7, 1), (28, 4)])
 def test_streaming_forward_and_grads_vs_jax(H, Hkv):
     """Kernel 8's plain versions on head-major views at head dim 128
     against JAX's K-blocked kernels (interpret mode, 16-row blocks)."""
@@ -140,12 +142,17 @@ def test_streaming_forward_and_grads_vs_jax(H, Hkv):
 
 # the JAX dispatcher's cut-over at the Show-o2 shapes (S, heads, kv heads,
 # head dim) -> kernel 7 (True) or 8: Qwen 12/2 of 128 to S = 1280, the DiT
-# 32/8 of 64 to S = 1024 (exactly 10 MiB there; the test is <=)
+# 32/8 of 64 to S = 1024 (exactly 10 MiB there; the test is <=), Qwen2.5-7B
+# 28/4 of 128 to S = 512 (Sp * 16 KiB: 8 MiB at 512, 12 MiB at 768), so
+# the 7B's stage-2 rows of 1024 take kernel 8 in its Qwen layers and
+# kernel 7 in the DiT's
 FITS = [(1024, 12, 2, 128, True), (1025, 12, 2, 128, True),
         (1280, 12, 2, 128, True), (1281, 12, 2, 128, False),
         (2048, 12, 2, 128, False), (1024, 32, 8, 64, True),
         (1025, 32, 8, 64, False), (1280, 32, 8, 64, False),
-        (2048, 32, 8, 64, False), (100, 12, 2, 128, True)]
+        (2048, 32, 8, 64, False), (100, 12, 2, 128, True),
+        (512, 28, 4, 128, True), (513, 28, 4, 128, False),
+        (1024, 28, 4, 128, False), (100, 28, 4, 128, True)]
 
 
 @pytest.mark.parametrize("S,H,Hkv,hd,fits", FITS)
@@ -198,7 +205,7 @@ def _card_inputs(dev, B, S, H, Hkv, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,S", [(12, 2, 200), (12, 2, 387), (8, 2, 130),
-                                     (4, 1, 64)])
+                                     (4, 1, 64), (28, 4, 200), (7, 1, 130)])
 def test_packed_kernels_vs_plain_on_card(H, Hkv, S):
     dev = _card()
     q, k, v, meta = _card_inputs(dev, 3, S, H, Hkv)
@@ -230,7 +237,8 @@ def test_packed_kernels_vs_plain_on_card(H, Hkv, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,S", [(12, 2, 1100), (6, 1, 200)])
+@pytest.mark.parametrize("H,Hkv,S", [(12, 2, 1100), (6, 1, 200),
+                                     (28, 4, 1100)])
 def test_streaming_kernels_vs_plain_on_card(H, Hkv, S):
     """Kernel 8 at head dim 128 on the head-major views of the packed
     projections (no copy), as the dispatcher gives them past the budget."""

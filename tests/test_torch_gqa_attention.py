@@ -3,15 +3,16 @@ the packed omni kernel at head dim 128, and the GQA-stacked kernel.
 
 On the CPU the stacked kernel's plain version is held against the JAX
 package's ``omni_attention_packed(gqa_stack=True)`` in interpret mode at
-groups 4, 6 and 16, head dims 64 and 128, fp32, atol 1e-5 (exact fp32
+groups 4, 6, 7 (7 / 1 and Qwen2.5-7B's 28 / 4) and 16, head dims 64 and
+128, fp32, atol 1e-5 (exact fp32
 products and an fp32 softmax on both sides; only the summation order
 differs), and ``seg_from_modality_positions`` bit-exact.  The card-only
 cases hold the CUDA kernels against their plain versions in bf16 at atol
 2e-2 (the tolerance of tests/test_torch_omni_attention.py) at the Show-o2
-432x432 shapes: Qwen2.5 (12 q / 2 kv heads, D=128) and the DiT head (32 / 8,
-D=64), B=8 rows of the CFG batch; and kernel 6 (on the wgmma forward core,
-any group) at ragged shapes with rows that see no key, bit-identical to
-kernel 1 on the same memory.
+432x432 shapes: Qwen2.5 (12 q / 2 kv heads, D=128; the 7B's 28 / 4) and
+the DiT head (32 / 8, D=64), B=8 rows of the CFG batch; and kernel 6 (on
+the wgmma forward core, any group, 7 among them) at ragged shapes with
+rows that see no key, bit-identical to kernel 1 on the same memory.
 """
 
 from unittest import mock
@@ -61,7 +62,8 @@ def _v2_meta(B, S, n_img, seed):
             np.zeros((B,), np.int32))
 
 
-@pytest.mark.parametrize("H,Hkv", [(8, 2), (12, 2)], ids=["g4", "g6"])
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (12, 2), (7, 1), (28, 4)],
+                         ids=["g4", "g6", "g7", "g7_28_4"])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("P", [0, 5], ids=["q_eq_s", "q_ne_s"])
 def test_stacked_plain_vs_jax_interpret(H, Hkv, D, P):
@@ -188,8 +190,9 @@ def _card_inputs(H, Hkv, D, seed, B=8, S=768, n_img=730):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 128), (32, 8, 64)],
-                         ids=["qwen", "dit"])
+@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 128), (32, 8, 64),
+                                     (28, 4, 128)],
+                         ids=["qwen", "dit", "qwen7b"])
 @pytest.mark.parametrize("stacked", [False, True], ids=["packed", "stacked"])
 def test_kernels_vs_plain_at_v2_shapes(H, Hkv, D, stacked):
     if not torch.cuda.is_available():
@@ -250,12 +253,14 @@ def _no_key_meta(B, S, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,D", [(8, 2, 64), (12, 2, 128), (6, 1, 64),
-                                     (16, 1, 64), (16, 1, 128)],
+                                     (16, 1, 64), (16, 1, 128), (7, 1, 64),
+                                     (28, 4, 128)],
                          ids=["g4", "g6_d128", "g6_d64", "g16_d64",
-                              "g16_d128"])
+                              "g16_d128", "g7_d64", "g7_d128"])
 def test_stacked_kernel_ragged_on_card(H, Hkv, D):
-    """Kernel 6 on the wgmma core at groups 4, 6 and 16 (two heads a block,
-    the group in 2, 3 or 8 slices), S = 200 and Q = 197 q rows at positions
+    """Kernel 6 on the wgmma core at groups 4, 6, 7 and 16 (two heads a
+    block, the group in 2, 3, 4 or 8 slices; group 7's last slice holds
+    one head and an idle warpgroup), S = 200 and Q = 197 q rows at positions
     3..199 (both ragged), positions 6..9 seeing no key: against the plain
     version at atol 2e-2, those rows at the mean of v over the S keys; one
     launch of the core and of its tile map a call; the same bits over two
@@ -304,8 +309,9 @@ def test_stacked_kernel_ragged_on_card(H, Hkv, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 128), (32, 8, 64)],
-                         ids=["qwen", "dit"])
+@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 128), (32, 8, 64),
+                                     (28, 4, 128)],
+                         ids=["qwen", "dit", "qwen7b"])
 def test_stacked_kernel_gives_kernel_1s_bits_on_card(H, Hkv, D):
     """At the Show-o2 shapes kernel 6 (its heads sharing each K/V tile)
     and kernel 1 (a block per head) run the same arithmetic per head on

@@ -3,7 +3,9 @@
 JAX twins: ``tests/test_parallel_inference.py::test_fused_params_shard_rules``,
 ``tests/test_parallel_train.py::test_fsdp_actually_shards``,
 ``tests/test_parallel_train_v2.py::test_v2_params_actually_shard`` and
-``tests/test_7b_sharded_compile.py::test_7b_params_fully_sharded``: for
+``tests/test_7b_sharded_compile.py::test_7b_params_fully_sharded`` (and
+its ``test_7b_train_step_compiles_sharded``'s state, reckoned on the meta
+device by ``tests/_reckon_state.py``): for
 every parameter of the tiny v1 model (plain and ``fuse_parallel_mlp``),
 the tiny Show-o2 model and the Show-o2 7B config's shapes (on the meta
 device), the spec of ``showo_tpu_torch.parallel.mesh.param_sharding_rules``
@@ -163,6 +165,52 @@ def test_7b_specs_equal_jax_and_fully_sharded(shape):
             assert factor >= 8, (name, tuple(p.shape))
         per_rank += nbytes // factor
     assert per_rank < 3e9, per_rank
+
+
+@pytest.fixture(scope="module")
+def reckoned_7b_stage1():
+    """tests/_reckon_state.py over the 7B stage-1b config at fsdp 8 and 4,
+    in a process of its own (its fake process group of 8 or 4 ranks)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run(
+        [sys.executable, os.path.join(here, "_reckon_state.py"),
+         "configs/showo2_7b_stage_1_b.yaml", "8", "4"],
+        cwd=os.path.dirname(here), capture_output=True, text=True,
+        timeout=300)
+    assert done.returncode == 0, done.stderr[-3000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("fsdp", [8, 4])
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16", "adafactor"])
+def test_7b_stage1_state_sharded_like_its_parameters(reckoned_7b_stage1,
+                                                     fsdp, name):
+    """JAX's ``test_7b_train_step_compiles_sharded``: the 7B stage-1b
+    state (8.54 B trained, ``frozen_params`` frozen) on the meta device
+    over fsdp 8 and 4, each optimizer's own state (AdamW's moments after
+    one step).  Every state tensor that keeps an axis the mesh splits is
+    split over as many ranks as its parameter, and so is every one of 8
+    MiB or more (adamw's and adamw_bf16's moments; a rank holds 1 / fsdp
+    of them, bar the replicated norms and biases, 1%).  Adafactor's
+    factored statistics are all smaller, 17.4 MB whole: the 27 that keep
+    a split axis are split, and a row or column mean over the split axis
+    stays whole on each rank."""
+    r = reckoned_7b_stage1[str(fsdp)][name]
+    assert r["trained"] > 8e9
+    assert r["kept_split"] > 0
+    assert r["kept_split"] == r["kept_split_like_param"]
+    assert r["big"] == r["big_kept_split"] == r["big_split_like_param"]
+    assert r["param_bytes"] * fsdp <= 1.01 * 4 * 8.9e9
+    if name == "adafactor":
+        assert r["big"] == 0 and r["state_bytes_whole"] < 2e7
+        return
+    assert r["big"] > 400
+    assert r["state_bytes"] * fsdp <= 1.01 * r["state_bytes_whole"]
 
 
 def test_mesh_shape_fills_dp_and_raises():

@@ -21,10 +21,13 @@ the same weights at the tolerances of the unsharded parity tests
 (``tests/test_torch_training.py``, ``tests/test_torch_show_o2_train.py``:
 losses rtol 2e-4, grad norm rtol 2e-3, weights atol 1e-5).  All cases run
 in one group (``tests/_gloo_group.py``, 180 s wall-time limit) while this
-process computes JAX's steps.
+process computes JAX's steps.  ``adamw_bf16`` and ``adafactor`` (their
+state spans whole tensors) are held to their unsharded steps on both
+meshes, and a sharded save and resume to an uninterrupted run.
 """
 
 import copy
+import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +46,17 @@ V2_CASES = ["stage1", "stage2", "mixed"]
 V1_KEYS = ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm",
            "masking_rate")
 V2_KEYS = ("loss", "loss_ntp", "loss_flow", "grad_norm")
+# the optimizers whose state spans whole tensors, stepped on a tiny v1
+# model sharded at the fsdp and the tp mesh: name -> (learning rate, atol
+# of the weights against the unsharded steps).  Two steps move the weights
+# by ~lr (adafactor: lr x the parameter RMS, ~0.02), well past the atol:
+# fp32 round-off of the clip's and adafactor's sums over the mesh in other
+# orders, and for adamw_bf16 a first moment rounding to the other bf16
+# neighbour, which moves a weight by ~lr * 2^-8 at the second step
+SHARDED_OPTS = {"adamw_bf16": (1e-3, 1e-5), "adafactor": (1e-2, 1e-6)}
+OPT_PHI = dict(vocab_size=1027, hidden_size=128, intermediate_size=256,
+               num_layers=2, num_heads=2)
+OPT_STEPS = 2
 
 
 def _v1_local(inp, info):
@@ -309,6 +323,100 @@ def train_worker(rank, world, workdir):
         _single_trainer(inp, out)
     elif rank == len(V2_CASES) + 2:
         out["clip_ref"], out["clip_ref_sd"] = _clip_step(inp)
+    torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
+
+
+def _opt_model():
+    """The tiny v1 Show-o of the optimizer cases, the same on every rank
+    (torch's seeded CPU init)."""
+    from showo_tpu_torch.models.phi import PhiConfig
+    from showo_tpu_torch.models.showo import Showo, ShowoConfig
+
+    torch.manual_seed(0)
+    return Showo(ShowoConfig(vocab_size=1027, llm_vocab_size=1010,
+                             num_new_special_tokens=0, codebook_size=16,
+                             num_vq_tokens=16, llm=PhiConfig(**OPT_PHI)))
+
+
+def _opt_grads(model, step):
+    """Step ``step``'s gradients, whole, by the unsharded model's names:
+    N(0, 1e-2), so the clip at 1.0 scales them (the norm ~1.4)."""
+    g = torch.Generator().manual_seed(100 + step)
+    return {n: torch.randn(p.shape, generator=g) * 1e-2
+            for n, p in sorted(tmesh.named_parameters(model))}
+
+
+def _opt_steps(name, mesh=None, ckpt=None):
+    """OPT_STEPS optimizer steps of ``name`` (on the JAX package's
+    tensors, ``jax_tensors``, the clip at 1.0) on ``_opt_model`` with
+    ``_opt_grads``: (the weights whole after each step, the local shapes
+    of the optimizer's state tensors: (local shape, whole shape, whether
+    it keeps an axis that the mesh splits)).  With ``ckpt``, the whole state is
+    saved after the first step, and a fresh model and optimizer on the
+    same mesh resume from it and step again: their weights come last in
+    the list."""
+    from showo_tpu_torch.training.optim import factored_dims, jax_tensors
+    from showo_tpu_torch.training.train_step import Optimizer, TrainConfig
+    from showo_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+
+    def build():
+        model = _opt_model()
+        if mesh is not None:
+            tmesh.shard_params(model, mesh)
+        tc = TrainConfig(learning_rate=SHARDED_OPTS[name][0], optimizer=name)
+        return model, Optimizer(model.parameters(), tc,
+                                tensors=jax_tensors(model))
+
+    def step(model, opt, k):
+        whole = _opt_grads(model, k)
+        opt.update([tmesh.shard_like(whole[tmesh.clean_name(n)], p)
+                    for n, p in model.named_parameters()])
+
+    def whole(model):        # copies: an unsharded state dict is live
+        return {k: v.clone() for k, v in tmesh.full_state_dict(model)
+                .items()}
+
+    model, opt = build()
+    weights = []
+    for k in range(OPT_STEPS):
+        step(model, opt, k)
+        weights.append(whole(model))
+        if k == 0 and ckpt is not None:
+            save_checkpoint(ckpt, 1, model, opt)
+    inner = opt.inner
+    if name == "adafactor":
+        # a statistic kept split: its tensor is split on an axis it keeps
+        # (a row or column mean over the split axis is whole)
+        kept = []
+        for t, v in zip(inner.tensors, inner.v):
+            dims = factored_dims(t.shape) or (None, None)
+            kept += [(x, bool(set(t.split.values()) - {d}))
+                     for x, d in zip(v, dims[::-1])]
+    else:
+        kept = [(x, bool(tmesh.shard_dims(p)))
+                for p, x in zip(inner.params * 2, inner.mu + inner.nu)]
+    state = [(tuple(tmesh.local(x).shape), tuple(x.shape), split)
+             for x, split in kept]
+    if ckpt is not None:
+        model, opt = build()
+        restore_checkpoint(os.path.join(ckpt, "checkpoint-1"), model, opt)
+        step(model, opt, 1)
+        weights.append(whole(model))
+    return weights, state
+
+
+def opt_worker(rank, world, workdir):
+    """adamw_bf16 and adafactor at the fsdp and the tp mesh; a save and
+    resume on the fsdp mesh."""
+    out = {}
+    for shape in V1_MESHES:
+        mesh = tmesh.make_mesh(*shape)
+        for name in SHARDED_OPTS:
+            ckpt = (os.path.join(workdir, f"ckpt_{name}")
+                    if shape == V1_MESHES[0] else None)
+            weights, state = _opt_steps(name, mesh, ckpt)
+            out[(name, shape)] = (weights if rank == 0 else None, state)
     torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
 
 
@@ -688,16 +796,34 @@ def run(tmp_path_factory):
     return outs, merged, want
 
 
+@pytest.fixture(scope="module")
+def opt_run(tmp_path_factory):
+    """The sharded optimizer cases on 8 gloo ranks while this process
+    steps the unsharded model."""
+    workdir = str(tmp_path_factory.mktemp("opt"))
+    group = start_group("test_torch_parallel_train:opt_worker", WORLD,
+                        workdir)
+    try:
+        want = {name: _opt_steps(name) for name in SHARDED_OPTS}
+    except BaseException:
+        group.kill()
+        raise
+    group.wait(timeout=180)
+    outs = [torch.load(os.path.join(workdir, f"out{r}.pt"),
+                       weights_only=False) for r in range(WORLD)]
+    return outs, want
+
+
 def _close(got, want, keys, rtol, what):
     for k in keys:
         np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=1e-7,
                                    err_msg=f"{what} {k}")
 
 
-def _weights(got, want, what):
+def _weights(got, want, what, atol=1e-5):
     for name, w in want.items():
         np.testing.assert_allclose(got[name].numpy(), np.asarray(w), rtol=0,
-                                   atol=1e-5, err_msg=f"{what} {name}")
+                                   atol=atol, err_msg=f"{what} {name}")
 
 
 @pytest.mark.parametrize("shape", V1_MESHES)
@@ -770,6 +896,42 @@ def test_show_o2_step_on_mesh_vs_unsharded_and_jax(run, case):
                "vs JAX")
     _weights(outs[0][("v2_sd", case)], jsd, "JAX")
     assert got["loss_flow"] > 0 and np.isfinite(got["loss"])
+
+
+@pytest.mark.parametrize("shape", V1_MESHES, ids=["fsdp", "tp"])
+@pytest.mark.parametrize("name", list(SHARDED_OPTS))
+def test_sharded_optimizer_vs_unsharded(opt_run, name, shape):
+    """``adamw_bf16`` and ``adafactor`` on a v1 model sharded at (2, 4, 1)
+    (fsdp) and (2, 2, 2) (fsdp and tp), the same gradients, clipped:
+    each step's weights are the unsharded optimizer's within the atol of
+    SHARDED_OPTS, the steps moving them by far more; every state tensor
+    of 256 entries or more that keeps an axis the mesh splits is split
+    (the moments like their parameters; adafactor's statistics along the
+    axes they keep: a row or column mean over the split axis is whole)."""
+    outs, want = opt_run
+    weights, state = outs[0][(name, shape)]
+    ref, ref_state = want[name]
+    for k, (got, w) in enumerate(zip(weights, ref)):
+        _weights(got, w, f"{name} step {k + 1}", atol=SHARDED_OPTS[name][1])
+    moved = max((ref[1][n] - ref[0][n]).abs().max().item() for n in ref[0])
+    assert moved > 1e-4, moved
+    assert [w for _, w, _ in state] == [w for w, _, _ in ref_state]
+    big = [(s, w) for s, w, split in state if split and math.prod(w) >= 256]
+    assert big and all(math.prod(s) < math.prod(w) for s, w in big), big
+    for o in outs[1:]:
+        assert o[(name, shape)][1] == state
+
+
+@pytest.mark.parametrize("name", list(SHARDED_OPTS))
+def test_sharded_optimizer_resumes_as_uninterrupted(opt_run, name):
+    """The whole state saved on the fsdp mesh after one step
+    (``utils/checkpoint.py``: the moments, or the factored statistics,
+    gathered) and restored into a fresh sharded model and optimizer
+    gives the uninterrupted second step, bit for bit."""
+    weights, _ = opt_run[0][0][(name, V1_MESHES[0])]
+    assert len(weights) == OPT_STEPS + 1
+    for k, v in weights[1].items():
+        assert torch.equal(weights[-1][k], v), k
 
 
 def test_loaders_read_the_data_ranks_rows(run):
