@@ -229,12 +229,13 @@ Phases, one or more lines each:
      wgmma core, all reading one tile map made with the generate's
      metadata; every other kernel (kernel 6 among them) none;
      images finite, NHWC, in [-1, 1]; warm seconds per batch, images/min,
-     peak device memory
+     the counted generate's denoise and decode seconds and peak device
+     memory
   13. one full-width velocity evaluation on the packed route against
      dense attention under the additive mask: the same weights (the
      zero-initialised adaLN and final projections drawn N(0, 0.02) so that
      the velocity depends on the towers), latents and t; max |dv| over the
-     dense velocity's peak
+     dense velocity's peak, unguided and with CFG; seconds of each route
   14. (after phase 5) the v1 modes at 512x512 on the full-width slice
      model: inpainting with the in-tree pair (``assets/validation/
      inpainting``) on every inference route, 384 launches of the route's
@@ -289,7 +290,10 @@ Phases, one or more lines each:
      tile map (byte for byte), held to the max abs error and to the
      largest error of a row relative to its size, which a fault planted
      in the reference (one 64-key tile of the video spans masked) must
-     fail; two launches bit-identical, device times, bound; one generate: 38 x 19 = 722 kernel 1 launches, all on the
+     fail, as must phase 3c's (V of the neighbouring kv head) the max abs
+     check; kernel 5 beside it on the same memory; two launches
+     bit-identical, device times, bound; one generate: 38 x 19 = 722
+     kernel 1 launches, all on the
      core, 1 tile map, frames finite in [-1, 1], denoise and decode
      seconds, frames/min, peak memory; one velocity on ``packed``
      against ``dense``; an i2v generate (the in-tree image as the first
@@ -433,6 +437,18 @@ Phases, one or more lines each:
      ``vq_psnr`` at 256x256 on the full-width MAGVIT-v2: the round trip's
      shape and the CLI's printed PSNR; seconds of each beside the card's
      name and power limit
+  38. (after phase 17, on phase 12's build with phase 13's adaLN) the
+     Show-o2 1.5B 512x512 and 1024x1024 demos through
+     ``inference_t2i_v2.build_pipeline`` of their YAMLs, one build shared
+     (``models=``): 38a kernels 1 and 5 at the demos' rows (B=8, S=1152 /
+     4224), Qwen's and the DiT's heads, each against its plain version
+     with two planted faults, its tile map byte for byte, kernel 5 beside
+     kernel 1 on the same memory; 38b phase 13's velocity check, packed
+     against dense, on the weights as drawn; 38c phase 12's slice, one
+     cold generate each (batch 4, Euler 50, CFG 7.5): launches, images,
+     denoise and decode seconds and peaks, the TF32 state, the decode
+     again in the other cuDNN TF32 state, and at 1024x1024 the device time of one evaluation by
+     kernel class with SigLIP's share
 
 Then a JSON line of kernel results, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -2477,11 +2493,11 @@ def _v2_ragged(torch, tfa, H, Hkv, D, phase="3c"):
                              f"{same}")
 
 
-def _v2_full_width(pipe, fam: V2Model = V2_15B) -> bool:
-    """Whether ``pipe`` holds ``fam`` at 432x432 at full width (Qwen2.5 28
-    layers of its width, heads and head; the DiT 10 layers, 32 / 8 of 64;
-    SigLIP 26 layers; 27x27 patches and the time token an image) and the
-    released Wan2.1 VAE."""
+def _v2_full_width(pipe, fam: V2Model = V2_15B, side: int = 432) -> bool:
+    """Whether ``pipe`` holds ``fam`` at ``side`` x ``side`` at full width
+    (Qwen2.5 28 layers of its width, heads and head; the DiT 10 layers,
+    32 / 8 of 64; SigLIP 26 layers; the image's 16-pixel patches and the
+    time token) and the released Wan2.1 VAE."""
     cfg = pipe.cfg
     lc, dc, sc = cfg.llm, cfg.dit, cfg.siglip
     return (lc.num_layers == 28 and lc.hidden_size == fam.hidden
@@ -2492,47 +2508,62 @@ def _v2_full_width(pipe, fam: V2Model = V2_15B) -> bool:
             and dc.hidden_size == 2048
             and (dc.num_heads, dc.num_kv_heads, dc.head_dim) == (32, 8, 64)
             and sc.num_layers == 26 and sc.hidden_size == 1152
-            and cfg.num_image_tokens == 730 and pipe.vae.cfg.dim == 96
+            and cfg.num_image_tokens == (side // 16) ** 2 + 1
+            and pipe.vae.cfg.dim == 96
             and pipe.vae.cfg.temperal_downsample == (False, True, True))
 
 
 def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi,
-                   fam: V2Model = V2_15B, phase="12"):
-    """The Show-o2 432x432 pipeline of ``fam``: launch counts over one
-    generate call (after a warm one), output checks, warm wall time (the
-    median of the counted generate and ``fam.timed`` more) and peak
-    memory.  Returns (kernel 1 launches of one generate, the slice's
-    readings).  The time by operator of one generate is ``profile_t2i.py
-    --slice v2``'s (its ~200,000 launches take the profiler minutes)."""
+                   fam: V2Model = V2_15B, phase="12", side: int = 432,
+                   warm: bool = True, other_tf32: bool = False):
+    """The Show-o2 ``side`` x ``side`` pipeline of ``fam``: launch counts
+    over one generate call, output checks, the denoise and the VAE decode
+    of that call each timed to a synchronize with its peak memory.  With
+    ``warm`` a warm-up generate comes first and the wall is the median of
+    the counted generate and ``fam.timed`` more; without it the counted
+    generate runs alone, as it comes (an earlier phase ran the same
+    kernels and operators at another size).  ``other_tf32``: the counted
+    generate's latents decoded again in the other cuDNN TF32 state, its
+    seconds, peak and pixel difference (untimed in the wall).  Returns
+    (kernel 1 launches of one generate, the slice's readings).  The time
+    by operator of one generate is ``profile_t2i.py --slice v2``'s (its
+    ~200,000 launches take the profiler minutes)."""
     cfg = pipe.cfg
-    if not (pipe.attn_route == "packed" and _v2_full_width(pipe, fam)
+    if not (pipe.attn_route == "packed" and _v2_full_width(pipe, fam, side)
             and pipe.num_steps == 50 and pipe.guidance_scale == 7.5):
-        raise AssertionError(f"not the full-width Show-o2 432x432 path: "
-                             f"{pipe.attn_route}, {cfg}, {pipe.vae.cfg}")
+        raise AssertionError(f"not the full-width Show-o2 {side}x{side} "
+                             f"path: {pipe.attn_route}, {cfg}, "
+                             f"{pipe.vae.cfg}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pipe.generate(prompts, gen)                       # warm-up
+    if warm:
+        pipe.generate(prompts, gen)                   # warm-up
     want = {name: 0 for name in COUNTERS}
     want["omni_attention_packed"] = V2_LAYERS * V2_EVALS
     want[PACKED_WGMMA] = V2_LAYERS * V2_EVALS   # every one on the core
     want[PACKED_TILES] = 1      # made once with the generate's metadata
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
     t0 = time.perf_counter()
-    images = pipe.generate(prompts, gen)
-    counted_wall = time.perf_counter() - t0
+    lat = pipe.generate_latents(prompts, gen)
+    torch.cuda.synchronize()
+    denoise_s = time.perf_counter() - t0
+    denoise_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = {name: cuda_build.launches[name] for name in want}
     if counts != want:
-        raise AssertionError(f"v2: kernel launches in one generate call "
-                             f"{counts}, want {want}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if images.shape != (fam.batch, 432, 432, 3) or not np.isfinite(
-            images).all():
-        raise AssertionError(f"v2: images {images.shape} or non-finite")
-    if images.min() < -1.0 or images.max() > 1.0:
-        raise AssertionError("v2: images outside [-1, 1]")
-    walls = [counted_wall]
-    for _ in range(fam.timed):
+        raise AssertionError(f"v2 {side}x{side}: kernel launches in one "
+                             f"generate call {counts}, want {want}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = pipe.decode(lat)
+    decode_s = time.perf_counter() - t0
+    decode_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_images(np, images, (fam.batch, side, side, 3),
+                  f"v2 {side}x{side}")
+    walls = [denoise_s + decode_s]
+    for _ in range(fam.timed if warm else 0):
         before = dict(cuda_build.launches)
         t0 = time.perf_counter()
         pipe.generate(prompts, gen)
@@ -2541,67 +2572,124 @@ def phase_v2_slice(torch, np, cuda_build, pipe, prompts, smi,
                 for n in want} != want:
             raise AssertionError("v2: launch counts changed")
     wall = statistics.median(walls)
-    text, _ = pipe.build_inputs(prompts)
-    print(f"[{phase}] slice {fam.name} t2i 432x432 route packed, 50-point "
-          f"Euler ({V2_EVALS} velocity evaluations), CFG 7.5, batch "
-          f"{fam.batch} ({tuple(text.shape)} rows x tokens), bf16, VAE fp32, "
-          f"random weights: launches per generate "
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    readings = {"rows": pipe.last_rows,
+                "wall_s": wall, "images_per_min": fam.batch * 60.0 / wall,
+                "peak_gib": max(denoise_gib, decode_gib),
+                "denoise_s": denoise_s, "denoise_peak_gib": denoise_gib,
+                "decode_s": decode_s, "decode_peak_gib": decode_gib,
+                "tf32": tf32}
+    other = ""
+    if other_tf32:
+        torch.backends.cudnn.allow_tf32 = not tf32["cudnn"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        again = pipe.decode(lat)
+        again_s = time.perf_counter() - t0
+        again_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn"]
+        _check_images(np, again, images.shape,
+                      f"v2 {side}x{side}, cuDNN TF32 {not tf32['cudnn']}")
+        diff = float(np.abs(again - images).max())
+        readings["decode_other_cudnn_tf32"] = {
+            "s": again_s, "peak_gib": again_gib, "max_diff": diff}
+        other = (f"; the same decode with cuDNN TF32 {not tf32['cudnn']} "
+                 f"{again_s:.4f} s (peak {again_gib:.2f} GiB), max |d| of "
+                 f"the pixels {diff:.3e}")
+    print(f"[{phase}] slice {fam.name} t2i {side}x{side} route packed, "
+          f"50-point Euler ({V2_EVALS} velocity evaluations), CFG 7.5, "
+          f"batch {fam.batch} ({readings['rows']} rows x tokens), bf16, VAE "
+          f"fp32, random weights: launches per generate "
           f"{counts['omni_attention_packed']} = {V2_LAYERS} x {V2_EVALS} of "
           f"omni_attention_packed ({V2_QWEN_LAYERS} x {V2_EVALS} at "
           f"D=128, {V2_LAYERS - V2_QWEN_LAYERS} x {V2_EVALS} at D=64; "
           f"{counts[PACKED_WGMMA]} on the wgmma core, all reading "
           f"{counts[PACKED_TILES]} tile map), 0 of the others "
           f"({GQA_SOURCE} among them); images {images.shape} finite in "
-          f"[-1, 1]; warm wall {wall:.4f} s/batch (median of "
-          f"{len(walls)}, the counted generate first: "
-          f"{', '.join(f'{w:.4f}' for w in walls)}), "
-          f"{fam.batch * 60.0 / wall:.2f} images/min; peak memory allocated "
-          f"{peak:.2f} GiB on {smi}")
-    return counts, {"wall_s": wall, "images_per_min": fam.batch * 60.0 / wall,
-                    "peak_gib": peak}
+          f"[-1, 1]; "
+          + (f"warm wall {wall:.4f} s/batch (median of {len(walls)}, the "
+             f"counted generate first: "
+             f"{', '.join(f'{w:.4f}' for w in walls)})" if warm else
+             f"wall {wall:.4f} s a batch (one generate, no warm-up)")
+          + f", {fam.batch * 60.0 / wall:.2f} images/min; counted generate: "
+          f"denoise {denoise_s:.4f} s (peak {denoise_gib:.2f} GiB "
+          f"allocated), VAE decode of the batch in one call {decode_s:.4f} s"
+          f" (peak {decode_gib:.2f} GiB; TF32 matmul {tf32['matmul']}, "
+          f"cuDNN {tf32['cudnn']}){other} on {smi}")
+    return counts, readings
 
 
-def phase_v2_parity(torch, pipe, prompts, phase="13"):
+def phase_v2_parity(torch, pipe, prompts, phase="13", what="",
+                    draw: bool = True):
     """One full-width velocity evaluation on the packed route against dense
     attention under the additive omni mask: the same weights, latents and
-    t.  The reference's zero init of the DiT's adaLN projections and of the
-    FinalLayer makes the velocity 0 whatever the towers compute, so they
-    are drawn N(0, 0.02) first; phases 15-17 run on these weights."""
+    t; unguided, and with the pipeline's CFG applied to it in fp32 (the
+    model's own combination of the halves).  The reference's zero init of
+    the DiT's adaLN projections and of the FinalLayer makes the velocity
+    0 whatever the towers compute, so with ``draw`` they are drawn
+    N(0, 0.02) first (phases 15-17 and 38 run on these weights; without
+    it the model must have been drawn before).  Every row of the [cond;
+    null] batch when the dense DiT layer's fp32 scores fit the card's
+    free memory, else one prompt's cond and null rows (printed).  Returns
+    the readings."""
     from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
     from showo_tpu_torch.show_o2.masks import omni_attn_mask
-    from showo_tpu_torch.show_o2.showo2 import showo2_t2i_velocity
+    from showo_tpu_torch.show_o2.showo2 import _guided, showo2_t2i_velocity
 
     model, cfg = pipe.model, pipe.cfg
-    g = _draw_adaln(torch, model, 13)
+    g = (_draw_adaln(torch, model, 13) if draw else
+         torch.Generator(device="cuda").manual_seed(13))
     text, mp = pipe.build_inputs(prompts)
     B, L = text.shape
-    z = torch.randn(B // 2, cfg.image_latent_dim, cfg.image_latent_height,
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    # the dense DiT layer: fp32 scores, their sum with the mask, the fp32
+    # probabilities and their bf16 copy, 14 bytes an entry at peak
+    need = 14 * B * cfg.dit.num_heads * L * L
+    rows = list(range(B)) if need < 0.9 * free else [0, B // 2]
+    text, mp = text[rows], mp[rows]
+    n = len(rows)
+    z = torch.randn(n // 2, cfg.image_latent_dim, cfg.image_latent_height,
                     cfg.image_latent_width, generator=g, device="cuda")
     x = torch.cat([z, z])
-    t = torch.full((B,), 0.5, device="cuda")
+    t = torch.full((n,), 0.5, device="cuda")
     inputs = {"packed": (None, attention_inputs(pipe.attn_route, text,
                                                 mp)[1]),
               "dense": (omni_attn_mask(mp, L), None)}
-    v = {}
+    v, secs = {}, {}
     with torch.no_grad():
         for route, (bias, meta) in inputs.items():
-            for cfg_scale in (0.0, pipe.guidance_scale):
-                v[route, cfg_scale] = showo2_t2i_velocity(
-                    model, text, x, t, bias, mp, guidance_scale=cfg_scale,
-                    attn_meta=meta).float()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v[route, 0.0] = showo2_t2i_velocity(model, text, x, t, bias, mp,
+                                                attn_meta=meta).float()
+            torch.cuda.synchronize()
+            secs[route] = time.perf_counter() - t0
+            v[route, pipe.guidance_scale] = _guided(v[route, 0.0],
+                                                    pipe.guidance_scale)
+    del inputs
     rel = {s: ((v["packed", s] - v["dense", s]).abs().max()
                / v["dense", s].abs().max()).item()
            for s in (0.0, pipe.guidance_scale)}
     peak = v["dense", 0.0].abs().max().item()
-    print(f"[{phase}] velocity parity packed vs dense (28 + 10 layers, "
-          f"{tuple(text.shape)}, bf16, t 0.5): max |dv| / peak "
+    which = (f"all {B} rows" if n == B else
+             f"one prompt's cond and null rows {rows} (the dense route's "
+             f"DiT scores, {need / 2 ** 30:.1f} GiB, do not fit the "
+             f"{free / 2 ** 30:.1f} GiB free for all {B})")
+    print(f"[{phase}] {what}velocity parity packed vs dense (28 + 10 "
+          f"layers, {which} of S={L}, bf16, t 0.5): max |dv| / peak "
           f"{rel[0.0]:.4e} unguided (peak |v| {peak:.4f}; tol "
           f"{V2_STEP_TOL}), {rel[pipe.guidance_scale]:.4e} with CFG "
-          f"{pipe.guidance_scale}")
+          f"{pipe.guidance_scale}; an unguided evaluation "
+          f"{secs['packed']:.4f} s packed, {secs['dense']:.4f} s dense")
     if not rel[0.0] <= V2_STEP_TOL:
-        raise AssertionError(f"v2 velocity packed vs dense differs by "
+        raise AssertionError(f"v2 {what}velocity packed vs dense differs by "
                              f"{rel[0.0]} of the peak > {V2_STEP_TOL}")
-    return rel
+    return {"rows": n, "rel": rel[0.0], "rel_cfg": rel[pipe.guidance_scale],
+            "packed_s": secs["packed"], "dense_s": secs["dense"]}
 
 
 def _draw_adaln(torch, model, seed: int):
@@ -3349,20 +3437,35 @@ def _row_err(got, want, heads):
 
 def phase_t2v_kernel(torch, pipe, prompts, row):
     """Kernel 1 (``t2v``, packed) or kernel 5 (``t2v_long``, streaming)
-    against its plain version at the row's shapes: self-attention over the
-    [cond; null] rows of one prompt (its video span and the null prompt's),
+    at the row's shapes (:func:`_rows_kernel`): self-attention over the
+    [cond; null] rows of one prompt (its video span and the null
+    prompt's), the route ``auto`` picks at their length.  Returns
+    {label: result, "tiles": the map's result}."""
+    text, mp, route, _ = _t2v_meta(pipe, prompts)
+    if route != T2V_ROUTES[row]:
+        raise AssertionError(f"{row}: auto picked {route} at "
+                             f"{tuple(text.shape)}")
+    return _rows_kernel(torch, text, mp, route, T2V_PHASES[row],
+                        f"{row} (video spans, {pipe.num_latent_frames} "
+                        f"latent frames)", 51)
+
+
+def _rows_kernel(torch, text, mp, route, phase, what, seed):
+    """Kernel 1 (``packed``) or kernel 5 (``streaming``) against its plain
+    version at the rows ``text`` / spans ``mp`` of a Show-o2 generate,
     Qwen2.5 and DiT heads, through the model's call
     (``qwen2.gqa_attention`` on [B, S, H, D] views, on the tile map the
     generate makes); the map byte for byte; the max abs error (CARD_TOL)
-    and the largest error of a row relative to its size (T2V_ROW_TOL); a
-    fault planted in the reference (one 64-key tile of the video spans
-    masked for every row) must fail the row check; two launches
-    bit-identical; median times of kernel, plain version and
+    and the largest error of a row relative to its size (T2V_ROW_TOL);
+    two faults planted in the reference, each failing its check: one
+    64-key tile of the spans masked for every row (the row check) and
+    phase 3c's V of the neighbouring kv head (the max abs check); two
+    launches bit-identical; median times of kernel, plain version and
     scaled_dot_product_attention with the boolean mask, the device time a
     launch (profiler), the bound; the other of kernels 1 and 5 beside it
-    on the same memory, held to both limits (the device time of each at
-    the row's length, which ``auto``'s 2816-row cut-over chooses between).
-    Returns {label: result, "tiles": the map's result}."""
+    on the same memory, held to both limits (bit-identity printed; the
+    device time of each at these rows, which ``auto``'s cut-overs choose
+    between).  Returns {label: result, "tiles": the map's result}."""
     import torch.nn.functional as F
 
     from showo_tpu_torch.ops import flash_attention as tfa
@@ -3370,20 +3473,16 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
     from showo_tpu_torch.ops import streaming_attention as tsa
     from showo_tpu_torch.show_o2 import qwen2 as tqwen2
 
-    phase = T2V_PHASES[row]
-    text, mp, route, meta = _t2v_meta(pipe, prompts)
-    if route != T2V_ROUTES[row]:
-        raise AssertionError(f"{row}: auto picked {route} at "
-                             f"{tuple(text.shape)}")
+    meta = attention_inputs(route, text, mp)[1]
     num = 1 if route == "packed" else 5
     B, L = text.shape
     m = (meta.seg, meta.pad, meta.last_pad, meta.prefix)
     vis = tfa.visible_mask(*m, meta.pos_q)
     n_vis = int(vis.sum())
     meta_bytes = 4 * (4 * B * L + 2 * B)
-    print(f"[{phase}] {row}: B={B} S={L} (video spans {mp[:, 0].tolist()}, "
-          f"{pipe.num_latent_frames} latent frames); {n_vis} visible (row, "
-          f"key) pairs of {B * L * L} ({n_vis / (B * L * L):.4f})")
+    print(f"[{phase}] {what}: B={B} S={L} (spans {mp[:, 0].tolist()}); "
+          f"{n_vis} visible (row, key) pairs of {B * L * L} "
+          f"({n_vis / (B * L * L):.4f})")
     make = tfa.rows_tile_map if route == "packed" else tsa.streaming_tile_map
     tiles, maps = _map_check(
         torch, f"kernel {num}'s tile map {tuple(meta.tiles.shape)}",
@@ -3392,17 +3491,17 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
         meta_bytes + meta.tiles.numel(), B * (-(-L // 64) * 64) ** 2, phase,
         flag=True)
     if not torch.equal(tiles, meta.tiles):
-        raise AssertionError(f"{row}: the map the model reads differs")
-    # the planted fault: the first whole 64-key tile inside every video span
+        raise AssertionError(f"{what}: the map the model reads differs")
+    # the planted fault: the first whole 64-key tile inside every span
     # masked for every row (each row still sees its text prefix)
     drop = (int(mp[:, 0, 0].max()) // 64 + 1) * 64
     if not drop + 64 <= int(mp[:, 0].sum(-1).min()):
-        raise AssertionError(f"{row}: no whole key tile inside the spans")
+        raise AssertionError(f"{what}: no whole key tile inside the spans")
     vis_fault = vis.clone()
     vis_fault[:, :, drop:drop + 64] = False
     other = "streaming" if route == "packed" else "packed"
     other_meta = attention_inputs(other, text, mp)[1]
-    g = torch.Generator(device="cuda").manual_seed(51)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     out = {"tiles": maps}
     for label, H, Hkv, D in V2_SHAPES:
         q = torch.randn(B, L, H, D, generator=g, device="cuda").bfloat16()
@@ -3416,13 +3515,13 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
         def kern():
             return tqwen2.gqa_attention(q, k, v, None, meta)
 
-        def plain():
+        def plain(v_=v):
             if route == "streaming":
                 return tsa.omni_attention_streaming_plain(
-                    *heads, *m, meta.pos_q, sm_scale=D ** -0.5).transpose(
-                        1, 2).reshape(B, L, H * D)
+                    heads[0], heads[1], v_.transpose(1, 2), *m, meta.pos_q,
+                    sm_scale=D ** -0.5).transpose(1, 2).reshape(B, L, H * D)
             return tfa.omni_attention_packed_plain(
-                q.reshape(B, L, -1), k.reshape(B, L, -1), v.reshape(B, L, -1),
+                q.reshape(B, L, -1), k.reshape(B, L, -1), v_.reshape(B, L, -1),
                 *m, meta.pos_q, num_heads=H, num_kv_heads=Hkv,
                 sm_scale=D ** -0.5)
 
@@ -3435,46 +3534,57 @@ def phase_t2v_kernel(torch, pipe, prompts, row):
         got = kern()
         if not torch.equal(got, kern()):
             raise AssertionError(f"{shape} kernel {num}: two launches differ")
-        row_err = _row_err(got, plain(), H)
+        want = plain()
+        row_err = _row_err(got, want, H)
         faulty = sdpa(vis_fault).transpose(1, 2).reshape(B, L, H * D)
         fault_row = _row_err(got, faulty, H)
         fault_abs = (got.float() - faulty.float()).abs().max().item()
         del faulty
+        # phase 3c's fault: V of the neighbouring kv head
+        fault_v = (plain(v.roll(1, dims=2)).float() - want.float()).abs(
+        ).max().item()
+        del want
 
         def beside():
             return tqwen2.gqa_attention(q, k, v, None, other_meta)
 
         near = beside()
+        same = torch.equal(near, got)
         diff = (near.float() - got.float()).abs().max().item()
         diff_row = _row_err(near, got, H)
         del near
         print(f"[{phase}] kernel {num} {shape}: largest error of a row "
               f"relative to its size {row_err:.3e} (tol {T2V_ROW_TOL:.0e}); "
-              f"planted fault (key tile {drop}-{drop + 63} masked in the "
-              f"reference) {fault_row:.3e}, failing it, max abs "
-              f"{fault_abs:.3e} (tol {CARD_TOL:.0e})")
-        if not (row_err <= T2V_ROW_TOL and fault_row > T2V_ROW_TOL):
+              f"planted faults, each failing its check: key tile {drop}-"
+              f"{drop + 63} masked in the reference {fault_row:.3e} of a "
+              f"row (max abs {fault_abs:.3e}), V of the neighbouring kv "
+              f"head {fault_v:.3e} max abs (tol {CARD_TOL:.0e})")
+        if not (row_err <= T2V_ROW_TOL and fault_row > T2V_ROW_TOL
+                and fault_v > CARD_TOL):
             raise AssertionError(f"{shape} kernel {num}: row error {row_err}, "
-                                 f"planted fault {fault_row} (tol "
-                                 f"{T2V_ROW_TOL})")
+                                 f"planted faults {fault_row} (tol "
+                                 f"{T2V_ROW_TOL}), {fault_v} (tol "
+                                 f"{CARD_TOL})")
         if not (diff <= CARD_TOL and diff_row <= T2V_ROW_TOL):
             raise AssertionError(f"{shape}: the {other} kernel differs by "
                                  f"{diff} (row {diff_row})")
         res.update({"row_err": row_err, "planted_fault_row": fault_row,
                     "planted_fault_abs": fault_abs,
+                    "planted_fault_v_abs": fault_v,
                     "device_ms": _device_ms(torch, kern),
                     "library_device_ms": _device_ms(torch, sdpa),
                     "beside": {"route": other, "max_diff": diff,
-                               "row_diff": diff_row,
+                               "row_diff": diff_row, "bit_identical": same,
                                "device_ms": _device_ms(torch, beside)}})
         print(f"[{phase}] kernel {num} {shape}: two launches bit-identical; "
               f"device time a launch (profiler, mean of 20) "
               f"{_ms(res['device_ms'])}, library "
               f"{_ms(res['library_device_ms'])}; beside it on the same "
               f"memory the {other} kernel ({6 - num}) "
-              f"{_ms(res['beside']['device_ms'])}, max |difference| "
-              f"{diff:.3e} (tol {CARD_TOL:.0e}), of a row {diff_row:.3e} "
-              f"(tol {T2V_ROW_TOL:.0e})")
+              f"{_ms(res['beside']['device_ms'])}, "
+              + ("bit-identical" if same else
+                 f"max |difference| {diff:.3e} (tol {CARD_TOL:.0e}), of a "
+                 f"row {diff_row:.3e} (tol {T2V_ROW_TOL:.0e})"))
         out[label] = res
         del q, k, v, heads, got
         torch.cuda.empty_cache()
@@ -7130,6 +7240,178 @@ def _kernels_7b(b7) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 38: the Show-o2 1.5B high-resolution demos (512x512 and 1024x1024)
+
+# demo -> (config, image side, the rows' length after the cut at the image
+# span's end for the four prompts of the run: 1024 / 4096 patches, the
+# time token and the prompt's rows, rounded up to 128)
+V2_DEMOS = {"512x512": ("configs/showo2_1.5b_demo_512x512.yaml", 512, 1152),
+            "1024x1024": ("configs/showo2_1.5b_demo_1024x1024.yaml", 1024,
+                          4224)}
+# the demo whose evaluation is broken down by kernel class (38c)
+V2_DEMO_PROFILED = "1024x1024"
+
+
+def phase_demo_kernels(torch, pipe, prompts, demo, phase="38a"):
+    """Kernels 1 (packed) and 5 (streaming) at a demo's rows (the [cond;
+    null] rows of ``prompts``, cut at the image span's end), each against
+    its plain version with the other beside it (:func:`_rows_kernel`).
+    Returns {"packed": {label: result, "tiles": ...}, "streaming": ...}."""
+    text, mp = pipe.build_inputs(prompts)
+    if tuple(text.shape) != (2 * len(prompts), V2_DEMOS[demo][2]):
+        raise AssertionError(f"{demo}: rows {tuple(text.shape)}, want "
+                             f"({2 * len(prompts)}, {V2_DEMOS[demo][2]})")
+    return {route: _rows_kernel(torch, text, mp, route, phase,
+                                f"{demo} (image spans)", 38)
+            for route in ("packed", "streaming")}
+
+
+def _kernel_class(name: str) -> str:
+    """A device kernel's class by its name: kernel 1 / 5 (the port's
+    forward core, ``agrad90::``), a matrix product (cuBLAS's gemm, xmma,
+    nvjet and CUTLASS kernels), a softmax, or the rest (elementwise,
+    casts, copies, norms)."""
+    low = name.lower()
+    if "agrad90::" in name:
+        return "attention kernels"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "matmuls"
+    return "softmax" if "softmax" in low else "elementwise, casts, copies"
+
+
+def _classes(by_kernel: dict) -> dict:
+    out = {}
+    for name, (_, ms) in by_kernel.items():
+        out[_kernel_class(name)] = out.get(_kernel_class(name), 0.0) + ms
+    return out
+
+
+def phase_demo_profile(torch, pipe, prompts, demo, phase="38c"):
+    """Where a demo's generate spends device time: one velocity evaluation
+    of the generate's rows (the packed route's metadata made once, as the
+    generate makes it) under the profiler, and the SigLIP tower alone on
+    the same latents (the und path: its patch embedding, the resized
+    position table, 26 layers); each one's device time by kernel class
+    (matmuls, softmax, the attention kernels, the rest) and SigLIP's
+    share of the evaluation's busy device time.  CUDA activity only, as
+    every other profile of the script.  Returns the readings."""
+    from showo_tpu_torch.pipelines.t2i_v2 import attention_inputs
+    from showo_tpu_torch.profile_t2i import profile
+    from showo_tpu_torch.show_o2.showo2 import (semantic_features,
+                                                showo2_t2i_velocity)
+
+    model, cfg = pipe.model, pipe.cfg
+    text, mp = pipe.build_inputs(prompts)
+    meta = attention_inputs(pipe.attn_route, text, mp)[1]
+    g = torch.Generator(device="cuda").manual_seed(39)
+    x = torch.randn(text.shape[0], cfg.image_latent_dim,
+                    cfg.image_latent_height, cfg.image_latent_width,
+                    generator=g, device="cuda")
+    t = torch.full((text.shape[0],), 0.5, device="cuda")
+
+    @torch.no_grad()
+    def evaluation():
+        return showo2_t2i_velocity(model, text, x, t, None, mp,
+                                   guidance_scale=pipe.guidance_scale,
+                                   attn_meta=meta)
+
+    @torch.no_grad()
+    def siglip():
+        return semantic_features(model, x.to(
+            model.image_embedder_und.proj.weight.dtype))
+
+    evaluation()                      # the shapes' first call, untraced
+    out = {}
+    for what, fn in (("one velocity evaluation", evaluation),
+                     ("SigLIP alone on the same latents", siglip)):
+        res = profile(fn, f"[{phase}] {demo} {what} "
+                          f"({tuple(text.shape)} rows):", by_operator=False)
+        classes = _classes(res["by_kernel"])
+        print(f"[{phase}] {demo} {what}, device ms by kernel class: "
+              + ", ".join(f"{c} {ms:.2f} ({ms / res['busy_ms']:.4f})"
+                          for c, ms in sorted(classes.items(),
+                                              key=lambda kv: -kv[1])))
+        out[what] = {"busy_ms": res["busy_ms"],
+                     "idle_share": res["idle_share"], "classes": classes}
+    ev, sg = out["one velocity evaluation"], out[
+        "SigLIP alone on the same latents"]
+    share = sg["busy_ms"] / ev["busy_ms"]
+    attn = ev["classes"].get("attention kernels", 0.0)
+    print(f"[{phase}] {demo}: SigLIP {sg['busy_ms']:.2f} ms of device time "
+          f"= {share:.4f} of an evaluation's {ev['busy_ms']:.2f} ms busy "
+          f"(x {V2_EVALS} evaluations a generate); kernel 1 {attn:.2f} ms = "
+          f"{attn / ev['busy_ms']:.4f}")
+    return {"eval": ev, "siglip": sg, "siglip_share": share,
+            "kernel1_ms": attn, "kernel1_share": attn / ev["busy_ms"]}
+
+
+def phase_demos(torch, np, cuda_build, pipe, prompts, smi):
+    """Phase 38: both demos through ``build_pipeline`` of their YAMLs on
+    ``pipe``'s model and VAE (one build: no parameter depends on the
+    resolution; each pipeline carries its config's latent grid).  Returns
+    {demo: {"kernels": 38a, "parity": 38b, "slice": 38c[, "profile"]}}."""
+    from showo_tpu_torch import inference_t2i_v2
+    from showo_tpu_torch.config import load_config
+
+    out = {}
+    for demo, (path, _, _) in V2_DEMOS.items():
+        p = inference_t2i_v2.build_pipeline(load_config(path),
+                                            torch.device("cuda"),
+                                            models=(pipe.model, pipe.vae))
+        if p.attn_route != "packed":
+            raise AssertionError(f"{demo}: auto picked {p.attn_route}")
+        print(f"[38] {demo}: {path} through build_pipeline on phase 12's "
+              f"build, auto -> {p.attn_route}, latents "
+              f"{p.cfg.image_latent_height}x{p.cfg.image_latent_width}")
+        res = {"kernels": phase_demo_kernels(torch, p, prompts, demo)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["parity"] = phase_v2_parity(torch, p, prompts, "38b",
+                                        f"{demo} ", draw=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, res["slice"] = phase_v2_slice(
+            torch, np, cuda_build, p, prompts, smi, phase="38c",
+            side=V2_DEMOS[demo][1], warm=False, other_tf32=True)
+        res["slice"]["launches"] = launches
+        if demo == V2_DEMO_PROFILED:
+            res["profile"] = phase_demo_profile(torch, p, prompts, demo)
+        out[demo] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kernels_demos(demos) -> list:
+    """The kernels line's entries of phase 38: kernels 1 and 5 at each
+    demo's rows, kernel 1's launches in its generate (kernel 5 is on the
+    demos' ``streaming`` route, not ``auto``'s: 0)."""
+    qwen = V2_SHAPES[0][0]
+    out = []
+    for demo, res in demos.items():
+        for route in ("packed", "streaming"):
+            name = KERNELS[route][0]
+            cases = res["kernels"][route]
+            slice_ = res["slice"]
+            out.append({"name": f"{name}_{demo}", "route": "cuda",
+                        "source": f"showo_tpu_torch/csrc/{name}.cu (+ "
+                                  f"attention_fwd_sm90.cuh)",
+                        "replaces": KERNELS[route][1],
+                        "launches": slice_["launches"][name]
+                        if name in slice_["launches"] else 0,
+                        **cases[qwen], "case": f"{qwen}, {demo} rows",
+                        "cases": cases,
+                        **({"slice": {k: v for k, v in slice_.items()
+                                      if k != "launches"},
+                            "launches_wgmma": slice_["launches"][
+                                PACKED_WGMMA],
+                            "parity": res["parity"],
+                            "profile": res.get("profile")}
+                           if route == "packed" else {})})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7380,10 +7662,17 @@ def main() -> int:
         torch, np, cuda_build, pipe, v2_prompts, smi)
     stream_launches_v2, stream_cached_v2, samplers = phase_v2_samplers(
         torch, np, cuda_build, pipe, v2_prompts, smi, z, ref, euler_s)
+    z = ref = None
+    parts.append(("Show-o2 cache, samplers [15-17]", time.perf_counter()))
+
+    # [38] the 512x512 and 1024x1024 demos through build_pipeline of their
+    # YAMLs, on this build (phase 13's adaLN)
+    demos = phase_demos(torch, np, cuda_build, pipe, v2_prompts, smi)
     pipe = None
     gc.collect()
     torch.cuda.empty_cache()
-    parts.append(("Show-o2 cache, samplers [15-17]", time.perf_counter()))
+    parts.append(("Show-o2 512x512 / 1024x1024 demos [38]",
+                  time.perf_counter()))
 
     # [18] Show-o2 image understanding through inference_mmu_v2's
     # build_pipeline, bf16, then int8 on a copy of the model; int8 prefill
@@ -7813,6 +8102,7 @@ def main() -> int:
                                if seq == V2_TRAIN_SEQ[0]
                                and name.endswith("_fwd") else {})})
     kernels += _kernels_7b(b7)
+    kernels += _kernels_demos(demos)
     starts = [t_start] + [t for _, t in parts[:-1]]
     split = ", ".join(f"{part} {end - begin:.1f}"
                       for (part, end), begin in zip(parts, starts))

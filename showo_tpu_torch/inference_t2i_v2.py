@@ -32,7 +32,8 @@ from showo_tpu_torch.pipelines.t2i_v2 import T2IV2Pipeline
 from showo_tpu_torch.pipelines.t2v import T2VPipeline
 from showo_tpu_torch.show_o2.dit import DiffusionHeadConfig
 from showo_tpu_torch.show_o2.qwen2 import Qwen2Config
-from showo_tpu_torch.show_o2.showo2 import Showo2, Showo2Config
+from showo_tpu_torch.show_o2.showo2 import (Showo2, Showo2Config,
+                                            with_config)
 from showo_tpu_torch.show_o2.siglip import SigLipConfig
 from showo_tpu_torch.show_o2.wan_vae import WanVAE, WanVAEConfig
 from showo_tpu_torch.utils.assets import validation_prompts_file
@@ -186,8 +187,8 @@ def load_models(config, device: torch.device):
 
 
 def build_pipeline(config, device: Optional[torch.device] = None,
-                   attn_impl: str = "auto",
-                   prefix_cache: bool = False) -> T2IV2Pipeline:
+                   attn_impl: str = "auto", prefix_cache: bool = False,
+                   models=None) -> T2IV2Pipeline:
     """Config -> ready T2IV2Pipeline (weights loaded or random-init).
 
     device defaults to CUDA and raises without a card; the CPU runs only
@@ -195,10 +196,15 @@ def build_pipeline(config, device: Optional[torch.device] = None,
     attention route (``T2IV2Pipeline.attn_impl``); prefix_cache: the
     prefix-cached velocity (off, as in the JAX CLI, which has no key for
     it).  ``transport.sampling_method`` picks the sampler: euler, heun,
-    dpm-solver (dpm) or dopri5."""
+    dpm-solver (dpm) or dopri5.  ``models``: a (Show-o2, VAE) pair
+    already built (``load_models``) of this config's dims at any
+    resolution, to share one build between pipelines: the pipeline runs
+    its weights under this config's latent grid (``showo2.with_config``)
+    and fuses them in place."""
     device = entry_device(device)
     tokenizer, token_ids = load_tokenizer_and_ids(config)
-    model, vae = load_models(config, device)
+    model, vae = models or load_models(config, device)
+    model = with_config(model, build_showo2_config(config))
     tr = config.transport
     return T2IV2Pipeline(
         model=model, vae=vae, tokenizer=tokenizer, token_ids=token_ids,
@@ -255,7 +261,9 @@ def main() -> None:
         images = pipe.generate(chunk, generator)
         for i, im in enumerate(to_pil_images(images)):
             im.save(os.path.join(outdir, f"t2i_{step + i:05d}.png"))
-        logger.info("generated %d images (step %d)", len(chunk), step)
+        logger.info("generated %d images (step %d): %d rows of %d tokens, "
+                    "route %s", len(chunk), step, *pipe.last_rows,
+                    pipe.attn_route)
 
 
 if __name__ == "__main__":

@@ -123,8 +123,9 @@ class T2IV2Pipeline:
         self.t_grid = ode_timegrid(
             self.num_steps, time_shifting_factor=self.time_shifting_factor)
         # the last generate's sampler counts (dopri5: nfe, accepted,
-        # rejected steps)
+        # rejected steps) and its [cond; null] rows' shape (B', L)
         self.sampler_stats = {}
+        self.last_rows = None
 
     @property
     def device(self) -> torch.device:
@@ -181,6 +182,7 @@ class T2IV2Pipeline:
                 raise ValueError(f"noise must be {shape}, got "
                                  f"{tuple(z.shape)}")
         text, mp = self.build_inputs(prompts)
+        self.last_rows = tuple(text.shape)
         if self.guidance_scale > 0:
             z = torch.cat([z, z], dim=0)
         self.sampler_stats = {}

@@ -33,6 +33,7 @@ under ``remat``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -117,6 +118,24 @@ class Showo2(nn.Module):
         init_normal(self, generator, zero=("adaLN_modulation",
                                            "diffusion_head_b.linear"))
         return self
+
+
+def with_config(model: Showo2, cfg: Showo2Config) -> Showo2:
+    """``model``'s weights under ``cfg``, which may differ from the
+    model's own config in the latent grid alone (no parameter depends on
+    it; the resolution is read from ``model.cfg``): a shallow copy that
+    shares every parameter and submodule, as JAX pairs one params tree
+    with any such config.  Any other difference raises ValueError."""
+    if cfg == model.cfg:
+        return model
+    own = model.cfg
+    if dataclasses.replace(cfg, image_latent_height=own.image_latent_height,
+                           image_latent_width=own.image_latent_width) != own:
+        raise ValueError(f"the model's weights do not fit {cfg}: only the "
+                         f"latent grid may differ from {own}")
+    view = copy.copy(model)
+    view.cfg = cfg
+    return view
 
 
 def fuse_inference(model: Showo2) -> Showo2:
